@@ -19,10 +19,25 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
 6. the same weights and inputs, f32, B=2, on the card (kernels) and on the
    CPU (plain versions): outputs and PSNR must agree;
 7. timings with CUDA events: each kernel, its plain version, the library
-   call, and the forward's slices/s.
+   call, and the forward's slices/s;
+8. the DC backward (K1-bwd, through ``_DCFunction``) vs its plain version
+   ``dc_plain_vjp`` at the training shape (256², B=16) and 512², B=4, with
+   and without a k0 gradient;
+9. the second main path, standard RecNet training: the trainer's CLI
+   (``csmri_refinement_tpu_torch.train``) on ``configs/synthetic-recnet.json``
+   unchanged (RecNet 3×3×32, f32, 256², B=16, varden 8×, MSE, Adam 2e-4),
+   one epoch of 8 steps and a validation, with the launch counters set to
+   0 just before and read just after: 3 K1 + 3 K1-bwd per step;
+10. the same init and the same five fixed-mask batches, trained on the card
+    (kernels) and on the CPU (plain versions): losses must agree;
+11. timings: K1-bwd, its plain version and the cuFFT composition, and the
+    train step with TF32 off and on.
 
-Prints a ``{"kernels": [...]}`` line, then, last, ``{"ok": true, "device":
-{...}}``. TF32 is off throughout, so every f32 reference is full f32.
+Also prints the bounds of the TPU kernels not ported yet (K3-K5), from
+their shapes. Prints a ``{"kernels": [...]}`` line, then, last,
+``{"ok": true, "device":
+{...}}``. TF32 is off throughout (except the one TF32 step timing), so every
+f32 reference is full f32.
 """
 
 import copy
@@ -46,6 +61,7 @@ BATCH = 32         # slices per forward on the main path
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+INT8_OPS = 1979e12
 
 # bf16 chain tolerance, relative to max |ref|: kernel and plain version
 # round every layer's output to bf16 at the same place, but sum in another
@@ -55,6 +71,17 @@ BF16_REL_TOL = 2e-2
 F32_ATOL = 2e-4          # tests/test_dc_pallas.py:26, test_conv_pallas.py:75
 E2E_ATOL = 5e-4          # tests/test_conv_pallas.py:130
 PSNR_TOL_DB = 0.1        # tests/test_forward_parity.py:8-11
+GRAD_ATOL = 2e-3         # tests/test_dc_pallas.py:46
+
+TRAIN_CONFIG = os.path.join(REPO, 'configs', 'synthetic-recnet.json')
+TRAIN_BATCH = 16         # batch_size of the config
+TRAIN_STEPS = 5          # card vs CPU steps
+# Card vs CPU losses, both full f32: cuDNN vs oneDNN convs and the DC
+# kernel vs pocketfft sum in other orders (~1e-6 relative per op), and five
+# Adam steps carry that on; the CPU trajectory test against the JAX runner
+# sees 1.5e-6 (tests/test_torch_port_train.py). 1e-3 leaves a wide margin
+# for that noise and none for a wrong gradient or update.
+LOSS_RTOL = 1e-3
 
 
 def fail(msg):
@@ -236,6 +263,28 @@ def chain_cost(cases):
   return flops, bytes_
 
 
+def pending_bounds(cases):
+  """Bounds (ms) of the TPU kernels not ported yet, from their shapes:
+  K3 on the flagship chains in int8 (1-byte activations and weights, f32
+  scales), K4's 256×128 bf16 probe tiles (read once, written once), K5's
+  s8 (256×128)·(128×128) → s32 product."""
+  ops, _ = chain_cost(cases)
+  k3_bytes = 0
+  for _, x, chain, _ in cases:
+    b, h, w, _ = x.shape
+    for layer in chain:
+      k, _, cin, cout = layer.kernel.shape
+      k3_bytes += b * h * w * (cin + cout) + k * k * cin * cout + 4 * cout
+  rows, lanes = 256, 128       # scripts/probe_{mosaic,int8}_prims.py R, L
+  k4_bytes = 2 * rows * lanes * 2
+  k5_ops = 2 * rows * lanes * lanes
+  k5_bytes = rows * lanes + lanes * lanes + 4 * rows * lanes
+  return {
+      'K3': max(ops / INT8_OPS, k3_bytes / HBM_BYTES_PER_S) * 1e3,
+      'K4': k4_bytes / HBM_BYTES_PER_S * 1e3,
+      'K5': max(k5_ops / INT8_OPS, k5_bytes / HBM_BYTES_PER_S) * 1e3}
+
+
 def plain_chain(x, chain, pad):
   from csmri_refinement_tpu_torch.ops import conv_chain
   for layer in chain:
@@ -255,6 +304,107 @@ def library_chain(x, chain, pad):
     y = L.same_pad(y, k, pad).contiguous(memory_format=cl)
     y = F.leaky_relu(F.conv2d(y, w, layer.bias.to(x.dtype)), layer.leakiness)
   return y
+
+
+def dc_bwd_phase():
+  """Phase 8; returns (max_abs_err at the training shape, inputs)."""
+  from csmri_refinement_tpu_torch.ops import dc_kernel, masks
+  errs = {}
+  inputs = None
+  for b, n in ((TRAIN_BATCH, SIZE), (TRAIN_BATCH // 4, 2 * SIZE)):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7 * n)
+    x = torch.randn(b, n, n, 2, device=DEVICE, generator=gen)
+    k0 = torch.randn(b, n, n, 2, device=DEVICE, generator=gen)
+    g = torch.randn(b, n, n, 2, device=DEVICE, generator=gen)
+    m = masks.cartesian_mask(gen, (b, n, n), 8, device=DEVICE)[..., None]
+    m = m.contiguous()
+    for need_k0 in (True, False):
+      xr = x.clone().requires_grad_()
+      k0r = k0.clone().requires_grad_(need_k0)
+      dc_kernel._DCFunction.apply(xr, k0r, m).backward(g)
+      sync()
+      want_x, want_k0 = dc_kernel.dc_plain_vjp(g, m, need_k0)
+      err = (xr.grad - want_x).abs().max().item()
+      if need_k0:
+        err = max(err, (k0r.grad - want_k0).abs().max().item())
+      else:
+        require(k0r.grad is None, 'k0 got a gradient it did not ask for')
+      print('K1-bwd dc {}x{}x{} k0 grad {}: max|kernel-plain| {:.3e} (tol '
+            '{})'.format(b, n, n, need_k0, err, GRAD_ATOL))
+      require(err <= GRAD_ATOL, 'DC backward differs from dc_plain_vjp')
+      errs[n] = max(errs.get(n, 0.0), err)
+    if n == SIZE:
+      inputs = (g, m)
+  return errs[SIZE], inputs
+
+
+def train_main_path():
+  """Phase 9: the trainer's CLI on the card, counters around it."""
+  from csmri_refinement_tpu_torch import train
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  sync()
+  dc_kernel.dc_cuda.launches = 0
+  dc_kernel.dc_bwd_cuda.launches = 0
+  t0 = time.perf_counter()
+  runner = train.main([TRAIN_CONFIG, '--dry', '--conf', 'num_epochs=1',
+                       'epochs_per_validation=1'])
+  sync()
+  secs = time.perf_counter() - t0
+  fwd, bwd = dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches
+  steps = runner.step
+  val_batches = 2      # num_val 32 / batch 16
+  print('train main path: {} steps + validation in {:.1f} s, K1 launches {}, '
+        'K1-bwd launches {}'.format(steps, secs, fwd, bwd))
+  require(steps == 8, 'expected 8 train steps (128 slices / 16)')
+  require(bwd == 3 * steps, 'expected 3 K1-bwd launches per train step')
+  require(fwd == 3 * (steps + val_batches),
+          'expected 3 K1 launches per train step and validation batch')
+  return runner, fwd, bwd
+
+
+def fixed_batches(conf, n):
+  """n host batches of the config's phantoms with fixed varden masks."""
+  from csmri_refinement_tpu_torch.data import load_dataset
+  from csmri_refinement_tpu_torch.ops import masks
+  data = load_dataset(conf, 'Synthetic', 'train')
+  gen = torch.Generator().manual_seed(SEED + 5)
+  out = []
+  for i in range(n):
+    gt = torch.stack([torch.from_numpy(data[j]['gt'])
+                      for j in range(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)])
+    mask = masks.cartesian_mask(gen, tuple(gt.shape), 8)
+    out.append((gt, mask))
+  return out
+
+
+def train_parity_phase():
+  """Phase 10: the same steps on the card and on the CPU, TF32 off."""
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  from csmri_refinement_tpu_torch.training.runner import Runner
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_json(TRAIN_CONFIG)
+  cpu = Runner(conf, 'train', 'cpu')
+  gpu = Runner(conf, 'train', DEVICE)
+  gpu.model.load_state_dict(cpu.model.state_dict())
+  worst = 0.0
+  for step, (gt, mask) in enumerate(fixed_batches(conf, TRAIN_STEPS)):
+    want = cpu.train_batch(us.undersample_batch(None, gt,
+                                                fixed_mask=mask))[0]['loss']
+    got = gpu.train_batch(us.undersample_batch(
+        None, gt.to(DEVICE), fixed_mask=mask.to(DEVICE)))[0]['loss']
+    want, got = want.item(), got.item()
+    rel = abs(got - want) / abs(want)
+    worst = max(worst, rel)
+    print('train parity step {}: loss card {:.8e}, CPU {:.8e}, rel {:.2e} '
+          '(tol {})'.format(step, got, want, rel, LOSS_RTOL))
+    require(math.isfinite(got) and rel <= LOSS_RTOL,
+            'card and CPU training losses differ')
+  ref = cpu.model.state_dict()
+  perr = max((v.cpu() - ref[k]).abs().max().item()
+             for k, v in gpu.model.state_dict().items())
+  print('train parity after {} steps: worst loss rel {:.2e}, max|param '
+        'card-CPU| {:.3e}'.format(TRAIN_STEPS, worst, perr))
+  return gpu
 
 
 def main():
@@ -366,11 +516,69 @@ def main():
             SIZE, BATCH, fwd_ms, BATCH / fwd_ms * 1e3, 3 * dc_ms,
             conv_ms, line))
 
+  # Phase 8: the DC backward kernel
+  bwd_err, (g, gm) = dc_bwd_phase()
+
+  # Phase 9: the training main path
+  runner, train_fwd, train_bwd = train_main_path()
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  val_set = load_dataset(runner.conf, 'Synthetic', 'val')
+  val_losses, val_metrics = runner.validate(
+      DataLoader(val_set, TRAIN_BATCH))
+  vals = {k: v.value for k, v in list(val_losses.items()) +
+          list(val_metrics.items())}
+  print('train main path validation: {}'.format(vals))
+  require(all(math.isfinite(v) for v in vals.values()),
+          'validation metrics are not finite')
+  require(0 < vals['ssim'] <= 1 and vals['psnr'] > 10,
+          'validation metrics out of range')
+
+  # Phase 10: card vs CPU training
+  gpu_runner = train_parity_phase()
+
+  # Phase 11: timings of the training path
+  from csmri_refinement_tpu_torch.ops import fft
+  gc = fft.unpack_complex(g)
+  gmask = gm[..., 0]
+  bwd_ms = time_ms(lambda: dc_kernel.dc_bwd_cuda(g, gm))
+  dc16_ms = time_ms(lambda: dc_kernel.dc_cuda(g, g, gm))
+  bwd_plain_ms = time_ms(lambda: dc_kernel.dc_plain_vjp(g, gm, False))
+  bwd_lib_ms = time_ms(lambda: torch.fft.ifft2(
+      (1 - gmask) * torch.fft.fft2(gc, norm='ortho'), norm='ortho'))
+  b, n = g.shape[0], g.shape[1]
+  bwd_bytes = 20 * b * n * n       # g 8, mask 4, grad_x 8 (no k0)
+  bwd_flops = 10 * b * n * n * math.log2(n * n)
+  bwd_bound = max(bwd_bytes / HBM_BYTES_PER_S, bwd_flops / F32_FLOPS) * 1e3
+  print('K1-bwd dc B{} {}^2: kernel {:.4f} ms, plain {:.4f} ms, cuFFT '
+        '{:.4f} ms, bound {:.4f} ms ({})'.format(
+            b, n, bwd_ms, bwd_plain_ms, bwd_lib_ms, bwd_bound, line))
+  gt, mask = fixed_batches(gpu_runner.conf, 1)[0]
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  tbatch = us.undersample_batch(None, gt.to(DEVICE),
+                                fixed_mask=mask.to(DEVICE))
+  step_ms = {}
+  for tf32 in (False, True):
+    torch.backends.cudnn.allow_tf32 = tf32
+    step_ms[tf32] = time_ms(lambda: gpu_runner.train_batch(tbatch),
+                            iters=10, warmup=2)
+  torch.backends.cudnn.allow_tf32 = False
+  for tf32, ms in step_ms.items():
+    print('RecNet train step {}^2 f32 B{} TF32 {}: {:.3f} ms, {:.1f} '
+          'slices/s; of which K1 {:.3f} ms + K1-bwd {:.3f} ms ({})'.format(
+              SIZE, TRAIN_BATCH, 'on' if tf32 else 'off', ms,
+              TRAIN_BATCH / ms * 1e3, 3 * dc16_ms,
+              3 * bwd_ms, line))
+
+  print('bounds of the kernels still to port: {}'.format(', '.join(
+      '{} {:.6f} ms'.format(k, v) for k, v in pending_bounds(
+          chain_cases).items())))
+
   kernels = [
       {'name': 'dc', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
        'replaces': 'csmri_refinement_tpu/ops/dc_pallas.py:36',
-       'launches': dc_launches, 'max_abs_err': dc_err, 'ms': dc_ms,
+       'launches': dc_launches + train_fwd, 'max_abs_err': dc_err,
+       'ms': dc_ms,
        'plain_ms': dc_plain_ms, 'bound_ms': dc_bound,
        'bound_by': 'bytes' if dc_bytes / HBM_BYTES_PER_S >=
                    dc_flops / F32_FLOPS else 'operations',
@@ -383,6 +591,14 @@ def main():
        'bound_by': 'bytes' if c_bytes / HBM_BYTES_PER_S >=
                    c_flops / BF16_FLOPS else 'operations',
        'library_ms': conv_lib_ms},
+      {'name': 'dc_bwd', 'route': 'cuda',
+       'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
+       'replaces': 'csmri_refinement_tpu/ops/dc.py:99',
+       'launches': train_bwd, 'max_abs_err': bwd_err, 'ms': bwd_ms,
+       'plain_ms': bwd_plain_ms, 'bound_ms': bwd_bound,
+       'bound_by': 'bytes' if bwd_bytes / HBM_BYTES_PER_S >=
+                   bwd_flops / F32_FLOPS else 'operations',
+       'library_ms': bwd_lib_ms},
   ]
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

@@ -8,8 +8,13 @@
 // on packed (B, H, W, 2) float32 images (interleaved re/im, read here as
 // float2), a (B, H, W) float32 mask and (B, H, W, 2) float32 k0.
 //
+// The same entry is the DC's backward (K1-bwd, ops/dc.py::_dc_fused_bwd in
+// the JAX package): the x-Jacobian F^-1 (1 - m) F is Hermitian, so
+// grad_x = DC(g, 0, m). A null k0 means zero: the backward neither
+// allocates nor reads a zero plane.
+//
 // What bounds it on the H100: bytes. Each pixel needs x, k0, mask and y
-// once: 28 B/pixel, against ~10 log2(HW) f32 flops/pixel for a radix-2
+// once: 28 B/pixel (20 without k0), against ~10 log2(HW) f32 flops/pixel for a radix-2
 // FFT forward and back (~160 at 256^2: well under the card's f32 rate per
 // byte of HBM traffic).
 //
@@ -124,7 +129,9 @@ row_fft(const float2* __restrict__ in, float2* __restrict__ out, long rows,
 }
 
 // Pass 2: per kCols columns of one image, forward FFT along H, the merge
-// (1 - m) * k + k0, inverse FFT along H; in place in t.
+// (1 - m) * k + k0, inverse FFT along H; in place in t. HAS_K0 false: k0 is
+// zero and not read.
+template <bool HAS_K0>
 __global__ void __launch_bounds__(kThreads)
 col_dc(float2* __restrict__ t, const float2* __restrict__ k0,
        const float* __restrict__ mask, int h, int logh, int w,
@@ -146,7 +153,7 @@ col_dc(float2* __restrict__ t, const float2* __restrict__ k0,
       const size_t g = img + (size_t)r * w + c0 + c;
       const float keep = 1.f - mask[g];
       const float2 k = s[i];
-      const float2 kk = k0[g];
+      const float2 kk = HAS_K0 ? k0[g] : make_float2(0.f, 0.f);
       s[i] = make_float2(fmaf(keep, k.x * scale, kk.x),
                          fmaf(keep, k.y * scale, kk.y));
     }
@@ -170,7 +177,8 @@ int ilog2(int n) {
 
 }  // namespace
 
-// x, k0, y, scratch: (batch, h, w, 2) float32; mask: (batch, h, w) float32;
+// x, k0, y, scratch: (batch, h, w, 2) float32, k0 may be null (zero);
+// mask: (batch, h, w) float32;
 // tw_h, tw_w: (n/2, 2) float32 twiddles exp(-2*pi*i*k/n) for n = h, w.
 // Launches on `stream`; returns cudaGetLastError() after the launches.
 extern "C" int dc_forward(const void* x, const void* k0, const void* mask,
@@ -193,9 +201,14 @@ extern "C" int dc_forward(const void* x, const void* k0, const void* mask,
   row_fft<false><<<grid_rows, kThreads, 0, st>>>(
       (const float2*)x, t, rows, w, logw, (const float2*)tw_w, sw);
   dim3 grid_cols((w + kCols - 1) / kCols, batch);
-  col_dc<<<grid_cols, kThreads, 0, st>>>(
-      t, (const float2*)k0, (const float*)mask, h, logh, w,
-      (const float2*)tw_h, sh);
+  if (k0 != nullptr) {
+    col_dc<true><<<grid_cols, kThreads, 0, st>>>(
+        t, (const float2*)k0, (const float*)mask, h, logh, w,
+        (const float2*)tw_h, sh);
+  } else {
+    col_dc<false><<<grid_cols, kThreads, 0, st>>>(
+        t, nullptr, (const float*)mask, h, logh, w, (const float2*)tw_h, sh);
+  }
   row_fft<true><<<grid_rows, kThreads, 0, st>>>(
       t, (float2*)y, rows, w, logw, (const float2*)tw_w, sw);
   return (int)cudaGetLastError();

@@ -4,8 +4,11 @@ Port of ``csmri_refinement_tpu/models/__init__.py`` for ``RecNet``,
 ``UNET`` and ``RefinementWrapper``. ``section`` is a model section of a
 JSON config as a plain dict (e.g. ``generator_model`` of
 ``configs/2-refinement.json``), read unchanged. ``pretrained_weights`` is
-ignored: no checkpoint loader is ported yet. A key the ported model does
-not take raises ``TypeError``.
+ignored: no checkpoint loader is ported yet. An ``undersampling`` section
+threaded in by a runner (JAX ``training/runner.py:49-53``) gives a RecNet
+its ``dc_lines_acc``, as the JAX ``models/recnet.py:50-57`` does; other
+models ignore it. Any other key the ported model does not take raises
+``TypeError``.
 """
 
 import torch
@@ -26,12 +29,14 @@ def construct_model(section, dtype=None):
   from csmri_refinement_tpu_torch.models import refinement_wrapper
   from csmri_refinement_tpu_torch.models import unet
   from csmri_refinement_tpu_torch.models import weight_inits
+  from csmri_refinement_tpu_torch.ops import dc
 
   params = dict(section)
   name = params.pop('name')
   if name not in MODEL_NAMES:
     raise ValueError('Unknown model {}'.format(name))
   params.pop('pretrained_weights', None)
+  undersampling = params.pop('undersampling', None)
   dtype = _dtype(params.pop('dtype', dtype))
   if name == 'RefinementWrapper':
     pretrained = construct_model(params.pop('pretrained_model'), dtype)
@@ -40,5 +45,15 @@ def construct_model(section, dtype=None):
                                                 **params)
   weight_init = weight_inits.normalize_user_init(
       params.pop('weight_init', None))
-  cls = recnet.RecNet if name == 'RecNet' else unet.UNET
-  return cls(weight_init=weight_init, dtype=dtype, **params)
+  if name == 'RecNet':
+    if 'dc_lines_acc' not in params:
+      acc = dc.lines_acc_from_undersampling(undersampling)
+      if acc:
+        params['dc_lines_acc'] = acc
+    return recnet.RecNet(weight_init=weight_init, dtype=dtype, **params)
+  return unet.UNET(weight_init=weight_init, dtype=dtype, **params)
+
+
+def get_input_keys(model):
+  """Batch keys the model's ``forward`` takes, in order."""
+  return getattr(model, 'INPUT_KEYS', ('inp',))

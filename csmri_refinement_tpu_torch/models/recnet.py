@@ -11,10 +11,17 @@ Port of ``csmri_refinement_tpu/models/recnet.py`` (``ConvBlock``
 * init: first conv of each block xavier_uniform(1), the rest
   he_normal(relu_leakiness), unless the config overrides ``conv_weight``.
 
-The DC always runs in float32 even under a bf16 compute dtype. The convs
-are plain ``F.conv2d`` (cuDNN on the card), as the JAX package leaves them
-to XLA. ``use_scan`` and the sampled-lines DC (``dc_lines_acc``) are not
-ported. Submodule names follow the flax tree (``block_{i}.conv_{j}``).
+The DC always runs in float32 even under a bf16 compute dtype, and is
+differentiable on the card (``ops/dc_kernel.py::_DCFunction``: K1 forward,
+K1-bwd backward). The convs are plain ``F.conv2d`` (cuDNN on the card), as
+the JAX package leaves them to XLA. ``dc_lines_acc`` and
+``dc_zero_filled_input`` are accepted (``construct_model`` derives the
+former from a threaded ``undersampling`` section, as the JAX runner does)
+but every DC runs the dense K1 kernel: the JAX package's
+``CSMRI_TPU_FUSED_DC=1`` route, which its sampled-lines ("skinny") lowering
+equals exactly (its ``ops/dc.py:310-332``). The skinny lowering and
+``use_scan`` are not ported. Submodule names follow the flax tree
+(``block_{i}.conv_{j}``).
 """
 
 import torch
@@ -66,11 +73,14 @@ class RecNet(nn.Module):
   """Cascade of (ConvBlock → data consistency) on (B, H, W, 2) inputs;
   ``forward(inp, kspace, mask)``."""
 
+  INPUT_KEYS = ('inp', 'kspace', 'mask')
+
   def __init__(self, num_blocks, num_convs, num_filters, num_final_outputs=2,
                dilations_per_conv=1, kernel_size=3,
                relu_leakiness=DEFAULT_RELU_LEAKINESS, padding='zero',
                use_refinement=False, skip_final_dc=False,
-               return_intermediate_recs=False, weight_init=None, dtype=None):
+               return_intermediate_recs=False, weight_init=None, dtype=None,
+               dc_lines_acc=None, dc_zero_filled_input=True):
     super().__init__()
     if isinstance(num_filters, int):
       num_filters = [num_filters] * num_blocks
@@ -87,6 +97,9 @@ class RecNet(nn.Module):
     self.return_intermediate_recs = return_intermediate_recs
     self.relu_leakiness = relu_leakiness
     self.weight_init = weight_init or {}
+    # Kept for the config's sake; the dense DC they would lower is exact.
+    self.dc_lines_acc = dc_lines_acc
+    self.dc_zero_filled_input = dc_zero_filled_input
     for idx in range(num_blocks):
       num_outputs = 2 if idx < num_blocks - 1 else num_final_outputs
       self.add_module('block_{}'.format(idx), ConvBlock(

@@ -7,10 +7,13 @@ Port of the dense ``data_consistency`` of
     out = (1 - mask) * k + k0        # noiseless merge
     x'  = ifft2(out)
 
-On a CUDA tensor it runs the hand-written DC kernel (``ops/dc_kernel.py``);
-on a CPU tensor, its plain ``torch.fft`` version. Always in float32.
+On a CUDA tensor it runs the hand-written DC kernel (``ops/dc_kernel.py``)
+through ``_DCFunction``, whose backward is the same kernel (K1-bwd); on a
+CPU tensor, its autodiffed plain ``torch.fft`` version. Always in float32.
 The noisy merge, the sampled-lines ("skinny") lowering and the JAX
-package's TPU lowering selectors are not ported.
+package's TPU lowering selectors are not ported: the dense DC is what the
+JAX package runs under ``CSMRI_TPU_FUSED_DC=1``, and the skinny lowering
+equals it exactly (its ``ops/dc.py:310-332``).
 """
 
 import torch
@@ -18,7 +21,21 @@ import torch
 from csmri_refinement_tpu_torch.ops import dc_kernel
 from csmri_refinement_tpu_torch.ops.dc_kernel import kspace_merge_reference
 
-__all__ = ['data_consistency', 'kspace_merge_reference']
+__all__ = ['data_consistency', 'kspace_merge_reference',
+           'lines_acc_from_undersampling']
+
+
+def lines_acc_from_undersampling(us):
+  """Static acceleration divisor when an ``undersampling`` section
+  guarantees a fixed-count Cartesian line mask, else None (port of the JAX
+  ``ops/dc.py:341-351``)."""
+  if not us:
+    return None
+  if us.get('sampling_scheme', 'varden') not in ('varden', 'cartesian'):
+    return None
+  if us.get('variable_acceleration', False):
+    return None
+  return float(us.get('acceleration_factor', 8))
 
 
 def data_consistency(x, k0, mask):

@@ -13,8 +13,16 @@ on packed ``(B, H, W, 2)`` float32 images, ``(B, H, W, 1)`` float32 masks.
   the output and the k-space scratch, launches on the current stream and
   counts its calls in ``dc_cuda.launches`` (one per DC, whatever the number
   of CUDA launches inside).
-* ``dc_fused`` — the device dispatch: a CPU tensor takes ``dc_plain``, a
-  CUDA tensor takes ``dc_cuda`` or raises.
+* ``dc_plain_vjp`` / ``dc_bwd_cuda`` — the backward (K1-bwd), the Hermitian
+  VJP of the JAX package's ``ops/dc.py:99-111`` ``_dc_fused_bwd``:
+  ``grad_x = DC(g, 0, m)``, ``grad_k0 = fft2(g)``. ``dc_bwd_cuda`` runs
+  ``grad_x`` on the same kernel in its no-k0 mode (a null k0 is zero) and
+  counts in ``dc_bwd_cuda.launches``.
+* ``_DCFunction`` — the ``torch.autograd.Function``: forward K1, backward
+  K1-bwd; ``grad_k0`` only when k0 needs it, by ``torch.fft.fft2`` (the JAX
+  package computes it outside Pallas too); the mask gets none.
+* ``dc_fused`` — the device dispatch: a CPU tensor takes ``dc_plain``
+  (autodiffed ``torch.fft``), a CUDA tensor ``_DCFunction`` or raises.
 
 Square power-of-two images up to 512² only, like the JAX kernel's square
 restriction (``dc_pallas.py:77``).
@@ -73,30 +81,38 @@ def _check(name, t, shape, device):
     raise ValueError('dc_cuda: {} must be contiguous'.format(name))
 
 
-def dc_cuda(x, k0, mask):
-  """Launch the DC kernel (csrc/dc.cu) on CUDA tensors."""
+def _launch(name, x, k0, mask):
+  """Check the inputs and run ``dc_forward``; ``k0`` None launches the
+  no-k0 mode."""
   if x.device.type != 'cuda':
-    raise ValueError('dc_cuda takes CUDA tensors, got {}'.format(x.device))
+    raise ValueError('{} takes CUDA tensors, got {}'.format(name, x.device))
   if x.ndim != 4 or x.shape[-1] != 2:
-    raise ValueError('dc_cuda: x must be (B, H, W, 2), got {}'.format(
-        tuple(x.shape)))
+    raise ValueError('{}: x must be (B, H, W, 2), got {}'.format(
+        name, tuple(x.shape)))
   b, h, w, _ = x.shape
   if h != w or h < 2 or h > MAX_SIZE or h & (h - 1) or not 1 <= b <= 65535:
-    raise ValueError('dc_cuda takes square power-of-two images of side 2 to '
-                     '{} and 1 to 65535 of them, got {}'.format(
-                         MAX_SIZE, tuple(x.shape)))
+    raise ValueError('{} takes square power-of-two images of side 2 to {} '
+                     'and 1 to 65535 of them, got {}'.format(
+                         name, MAX_SIZE, tuple(x.shape)))
   _check('x', x, (b, h, w, 2), x.device)
-  _check('k0', k0, (b, h, w, 2), x.device)
+  if k0 is not None:
+    _check('k0', k0, (b, h, w, 2), x.device)
   _check('mask', mask, (b, h, w, 1), x.device)
   y = torch.empty_like(x)
   scratch = torch.empty_like(x)
   tw = _twiddles(h, x.device)
   with torch.cuda.device(x.device):
     status = _lib().dc_forward(
-        native.ptr(x), native.ptr(k0), native.ptr(mask), native.ptr(y),
-        native.ptr(scratch), native.ptr(tw), native.ptr(tw), b, h, w,
-        native.stream_of(x))
+        native.ptr(x), None if k0 is None else native.ptr(k0),
+        native.ptr(mask), native.ptr(y), native.ptr(scratch), native.ptr(tw),
+        native.ptr(tw), b, h, w, native.stream_of(x))
   native.check(status, 'dc_forward')
+  return y
+
+
+def dc_cuda(x, k0, mask):
+  """Launch the DC kernel (csrc/dc.cu) on CUDA tensors."""
+  y = _launch('dc_cuda', x, k0, mask)
   dc_cuda.launches += 1
   return y
 
@@ -104,8 +120,52 @@ def dc_cuda(x, k0, mask):
 dc_cuda.launches = 0
 
 
+def dc_bwd_cuda(g, mask):
+  """K1-bwd: ``grad_x = DC(g, 0, mask)``, the DC kernel without k0."""
+  y = _launch('dc_bwd_cuda', g, None, mask)
+  dc_bwd_cuda.launches += 1
+  return y
+
+
+dc_bwd_cuda.launches = 0
+
+
+def dc_plain_vjp(g, mask, need_k0=True):
+  """Plain Hermitian VJP of the DC: ``(grad_x, grad_k0)`` for the output
+  gradient ``g``; ``grad_k0`` is None unless ``need_k0``."""
+  k = fft.fft2(fft.unpack_complex(g.float()))
+  grad_x = fft.pack_complex(fft.ifft2((1 - mask[..., 0].float()) * k))
+  return grad_x, fft.pack_complex(k) if need_k0 else None
+
+
+class _DCFunction(torch.autograd.Function):
+  """DC with its Hermitian backward: K1 forward, K1-bwd backward on CUDA
+  tensors; on CPU tensors the same formula through the plain versions."""
+
+  @staticmethod
+  def forward(ctx, x, k0, mask):
+    ctx.save_for_backward(mask)
+    if x.device.type == 'cpu':
+      return dc_plain(x, k0, mask)
+    return dc_cuda(x, k0, mask)
+
+  @staticmethod
+  def backward(ctx, g):
+    mask, = ctx.saved_tensors
+    need_x, need_k0 = ctx.needs_input_grad[:2]
+    g = g.float().contiguous()
+    if g.device.type == 'cpu':
+      grad_x, grad_k0 = dc_plain_vjp(g, mask, need_k0)
+      return grad_x if need_x else None, grad_k0, None
+    grad_x = dc_bwd_cuda(g, mask) if need_x else None
+    grad_k0 = fft.pack_complex(fft.fft2(fft.unpack_complex(g))) \
+        if need_k0 else None
+    return grad_x, grad_k0, None
+
+
 def dc_fused(x, k0, mask):
-  """DC on packed tensors: the kernel on CUDA, the plain version on CPU."""
+  """DC on packed tensors: the kernels (forward and backward) on CUDA, the
+  autodiffed plain version on CPU."""
   if x.device.type == 'cpu':
     return dc_plain(x, k0, mask)
-  return dc_cuda(x, k0, mask)
+  return _DCFunction.apply(x, k0, mask)

@@ -30,9 +30,7 @@ def main(argv=None):
   torch.backends.cudnn.allow_tf32 = False    # f32 means f32, as in chip_smoke
   torch.backends.cuda.matmul.allow_tf32 = False
 
-  card = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+  card = card_line()
   model, undersample_batch = build_flagship(SIZE, _DTYPES[args.dtype],
                                             'cuda', seed=0)
   gen = torch.Generator(device='cuda').manual_seed(0)
@@ -51,21 +49,33 @@ def main(argv=None):
       torch.cuda.synchronize()
       wall_ms = (time.perf_counter() - t0) * 1e3
 
+  print(card)
+  report(prof, wall_ms, FORWARDS, 'flagship forward {}^2 {} B{}'.format(
+      SIZE, args.dtype, BATCH), 'forward')
+
+
+def card_line():
+  return subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+      capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+def report(prof, wall_ms, n, title, unit):
+  """Print wall and device-busy ms per ``unit``, the idle share and the
+  kernels with the most device time, from a ``torch.profiler`` trace of
+  ``n`` units."""
   # kernel-level entries only: an op's own entry repeats its kernels' time
   events = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
   events.sort(key=lambda e: -e.self_device_time_total)
   device_ms = sum(e.self_device_time_total for e in events) / 1e3
-  n = FORWARDS
-  print(card)
-  print('flagship forward {}^2 {} B{}: wall {:.3f} ms per forward (traced), '
-        'device busy {:.3f} ms per forward, idle share {:.1%}'.format(
-            SIZE, args.dtype, BATCH, wall_ms / n, device_ms / n,
-            max(0.0, 1 - device_ms / wall_ms)))
-  print('{:>10} {:>7} {:>6}  kernel'.format('ms/fwd', 'calls', 'share'))
+  print('{}: wall {:.3f} ms per {} (traced), device busy {:.3f} ms per {}, '
+        'idle share {:.1%}'.format(title, wall_ms / n, unit, device_ms / n,
+                                   unit, max(0.0, 1 - device_ms / wall_ms)))
+  print('{:>12} {:>7} {:>6}  kernel'.format('ms/' + unit, 'calls', 'share'))
   for e in events[:TOP]:
     ms = e.self_device_time_total / 1e3 / n
-    print('{:10.4f} {:7d} {:6.1%}  {}'.format(
+    print('{:12.4f} {:7d} {:6.1%}  {}'.format(
         ms, e.count // n, ms * n / device_ms, e.key[:110]))
 
 

@@ -1,0 +1,101 @@
+"""BaseRunner: the epoch loop over a runner's train and validation steps.
+
+Port of ``csmri_refinement_tpu/training/base_runner.py``: the epoch loop,
+metric accumulation and the validation loop are the same; a subclass
+supplies the steps. Returned validation batches (image summaries) and the
+inference loop are not ported. ``steps_per_fetch`` (several updates per
+loss fetch) is not ported: each step's losses are fetched as it ends.
+"""
+
+import logging
+
+from csmri_refinement_tpu_torch.metrics import accumulate_metric
+
+
+class BaseRunner:
+
+  def __init__(self, conf, mode):
+    self.conf = conf
+    self.mode = mode
+    self.epoch = 0
+
+  # -- subclass hooks ---------------------------------------------------------
+
+  def _train_step(self, batch_iter):
+    """Consume a batch from ``batch_iter`` and update; returns
+    (num_batches_consumed, loss_metrics, data for _compute_train_metrics)."""
+    raise NotImplementedError
+
+  def _val_step(self, batch):
+    raise NotImplementedError
+
+  def _compute_train_metrics(self, data):
+    raise NotImplementedError
+
+  def _compute_test_metrics(self, data):
+    raise NotImplementedError
+
+  def epoch_beginning(self, epoch):
+    pass
+
+  # -- engine -----------------------------------------------------------------
+
+  def train_epoch(self, loader, epoch, steps_per_train_summary=1):
+    self.epoch = epoch
+    num_batches_per_epoch = len(loader)
+    epoch_loss_metrics = {}
+    epoch_metrics = {}
+
+    current_batch = 0
+    batch_iter = iter(loader)
+    while current_batch < num_batches_per_epoch:
+      num_batches, loss_metrics, data = self._train_step(batch_iter)
+      if num_batches == 0:
+        break
+      current_batch += num_batches
+      metrics = self._compute_train_metrics(data)
+      del data
+
+      for name, loss_metric in loss_metrics.items():
+        accumulate_metric(epoch_loss_metrics, name, loss_metric)
+      for name, metric in metrics.items():
+        accumulate_metric(epoch_metrics, name, metric)
+
+      if current_batch % steps_per_train_summary == 0:
+        logging.info('===> Epoch[%d](%d/%d): %s', epoch, current_batch,
+                     num_batches_per_epoch, ', '.join(
+                         '{}: {}'.format(name, metric)
+                         for name, metric in loss_metrics.items()))
+
+    value_by_loss = {name: m.average()
+                     for name, m in epoch_loss_metrics.items()}
+    value_by_metric = {name: m.average() for name, m in epoch_metrics.items()}
+    return value_by_loss, value_by_metric
+
+  def validate(self, loader):
+    """Returns ({loss name: metric}, {metric name: metric}) averaged over
+    the loader."""
+    epoch_loss_metrics = {}
+    epoch_metrics = {}
+    for batch in loader:
+      loss_metrics, data = self._val_step(batch)
+      metrics = self._compute_test_metrics(data)
+      del data
+      for name, loss_metric in loss_metrics.items():
+        accumulate_metric(epoch_loss_metrics, name, loss_metric)
+      for name, metric in metrics.items():
+        accumulate_metric(epoch_metrics, name, metric)
+
+    value_by_loss = {name: m.average()
+                     for name, m in epoch_loss_metrics.items()}
+    value_by_metric = {name: m.average() for name, m in epoch_metrics.items()}
+    return value_by_loss, value_by_metric
+
+  @staticmethod
+  def _loss_weights(weights_by_criterion, *criteria_dicts):
+    """Per-criterion weight dict, default 1.0."""
+    weights = {}
+    for criteria in criteria_dicts:
+      for name in criteria:
+        weights[name] = float(weights_by_criterion.get(name, 1.0))
+    return weights

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from csmri_refinement_tpu_torch import build_flagship
+from csmri_refinement_tpu_torch.models.recnet import RecNet
 from csmri_refinement_tpu_torch.ops import conv_chain as cc
 from csmri_refinement_tpu_torch.ops import dc_kernel
 from csmri_refinement_tpu_torch.ops import fft
@@ -106,3 +107,50 @@ def test_flagship_forward_launches_kernels(cuda):
   assert (dc_kernel.dc_cuda.launches, cc.conv_layer_cuda.launches) == (3, 10)
   assert out['pred'].shape == (2, 64, 64, 2)
   assert bool(torch.isfinite(out['pred'].float()).all())
+
+
+@pytest.mark.parametrize('need_k0', [True, False], ids=['k0_grad', 'no_k0'])
+@pytest.mark.parametrize('b,n', [(4, 256), (2, 512)])
+def test_dc_bwd_kernel_matches_plain_vjp(cuda, b, n, need_k0):
+  """K1-bwd through _DCFunction vs dc_plain_vjp, at 2e-3
+  (tests/test_dc_pallas.py:46)."""
+  gen = torch.Generator(device=cuda).manual_seed(n + need_k0)
+  x = torch.randn(b, n, n, 2, device=cuda, generator=gen, requires_grad=True)
+  k0 = torch.randn(b, n, n, 2, device=cuda, generator=gen)
+  k0.requires_grad_(need_k0)
+  g = torch.randn(b, n, n, 2, device=cuda, generator=gen)
+  m = masks.cartesian_mask(gen, (b, n, n), 8, device=cuda)[..., None]
+  m = m.contiguous()
+  before = dc_kernel.dc_bwd_cuda.launches
+  dc_kernel._DCFunction.apply(x, k0, m).backward(g)
+  torch.cuda.synchronize()
+  assert dc_kernel.dc_bwd_cuda.launches == before + 1
+  want_x, want_k0 = dc_kernel.dc_plain_vjp(g, m, need_k0)
+  assert (x.grad - want_x).abs().max().item() <= 2e-3
+  if need_k0:
+    assert (k0.grad - want_k0).abs().max().item() <= 2e-3
+  else:
+    assert k0.grad is None
+
+
+def test_recnet_backward_reaches_every_block_on_card(cuda):
+  """The DC on the card is differentiable: a loss on pred reaches every
+  block's parameters, through K1 forward and K1-bwd backward."""
+  model = RecNet(num_blocks=3, num_convs=3, num_filters=32)
+  model.init_weights(torch.Generator().manual_seed(0))
+  model.to(cuda)
+  gen = torch.Generator(device=cuda).manual_seed(1)
+  gt = torch.rand(2, 64, 64, device=cuda, generator=gen)
+  mask = masks.cartesian_mask(gen, (2, 64, 64), 4, device=cuda)
+  k0c = mask * fft.fft2(gt.to(torch.complex64))
+  inp = fft.pack_complex(fft.ifft2(k0c))
+  dc_kernel.dc_cuda.launches = 0
+  dc_kernel.dc_bwd_cuda.launches = 0
+  pred = model(inp, fft.pack_complex(k0c).contiguous(),
+               mask[..., None].contiguous())
+  ((pred - fft.pack_complex(gt.to(torch.complex64))) ** 2).mean().backward()
+  torch.cuda.synchronize()
+  assert (dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches) == \
+      (3, 3)
+  for name, p in model.named_parameters():
+    assert p.grad is not None and p.grad.abs().sum().item() > 0, name
