@@ -7,7 +7,8 @@ Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit. Phases, each failing loudly with a non-zero exit:
 
 1. require a CUDA device; print the card's name and power limit;
-2. build both hand-written kernels from ``csrc/`` (nvcc, in parallel);
+2. build the four hand-written kernel sources of ``csrc/`` (nvcc, in
+   parallel);
 3. DC kernel vs its plain version (cuFFT) at 256², B=32 and 512², B=8, f32,
    and the sampled k-space lines of its output vs k0;
 4. conv-chain kernel vs its plain version on the five flagship U-Net chains
@@ -31,11 +32,25 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
 10. the same init and the same five fixed-mask batches, trained on the card
     (kernels) and on the CPU (plain versions): losses must agree;
 11. timings: K1-bwd, its plain version and the cuFFT composition, and the
-    train step with TF32 off and on.
+    train step with TF32 off and on;
+12. the int8 conv kernel (K3) and its requant kernel vs their plain
+    versions: the quantized layers of the five flagship chains at 256²,
+    B=32 (real weights, ``quantize_act`` inputs), a k3 zero-pad and a k4
+    replicate chain, and the requant on an all-zero image and on .5 ties;
+13. the third main path, the int8 serving forward:
+    ``build_flagship(256, bf16, quantize_inference=True)``, B=32, a few
+    forwards with the counters set to 0 just before and read just after
+    (3 K1 + 3 K2 + 7 K3 + 2 requants each), then 512², B=4 (3 + 6 + 4 + 1,
+    and a chain that quantizes nothing);
+14. int8 quality: f32 compute on the card vs on the CPU, int8 vs f32 on
+    the card, and the port's quality-vs-dtype table at 256²;
+15. timings: K3 and the requant with their plain versions, bounds and
+    cuDNN's bf16 convs as a yardstick, the int8 forward beside the bf16
+    one, then the primitive probes (K4, K5) as their own path: every probe
+    OK, with ``torch.roll`` and ``torch._int_mm`` as yardsticks and the
+    library's s8 and bf16 products at 4096³.
 
-Also prints the bounds of the TPU kernels not ported yet (K3-K5), from
-their shapes. Prints a ``{"kernels": [...]}`` line, then, last,
-``{"ok": true, "device":
+Prints a ``{"kernels": [...]}`` line, then, last, ``{"ok": true, "device":
 {...}}``. TF32 is off throughout (except the one TF32 step timing), so every
 f32 reference is full f32.
 """
@@ -82,6 +97,24 @@ TRAIN_STEPS = 5          # card vs CPU steps
 # sees 1.5e-6 (tests/test_torch_port_train.py). 1e-3 leaves a wide margin
 # for that noise and none for a wrong gradient or update.
 LOSS_RTOL = 1e-3
+# K3 vs its plain version, relative to max |ref| (chains of quantized
+# layers): the int32 sums are exact and the epilogues round alike, so the
+# design target is bit-identity; a requant tie that rounds the other way
+# moves one value by one int8 step (1/127 of that layer's amax). At most
+# 1e-3 of the elements may differ by more than float noise (1e-5).
+INT8_STEP = 1 / 127
+INT8_NOISE = 1e-5
+INT8_MAX_SHARE = 1e-3
+# int8 forward, card vs CPU (f32 compute): the float layers before each
+# quantization sum in another order (cuDNN/K2 vs oneDNN, ~1e-6); a value
+# that close to a rounding boundary quantizes one step the other way and
+# later layers carry it. The CPU tests see 1.0-1.35% against the JAX
+# package for the same reason (tests/test_torch_port_quant.py).
+INT8_E2E_REL = 2e-2
+INT8_VS_F32_REL = 0.05   # tests/test_conv_pallas.py:153-169
+# Launches per int8 forward (K1, K2, K3 conv, K3 requant), from the JAX
+# package's suffix rule on the flagship chains (ops/conv_chain.py).
+INT8_LAUNCHES = {256: (3, 3, 7, 2), 512: (3, 6, 4, 1)}
 
 
 def fail(msg):
@@ -195,27 +228,18 @@ def conv_phase(model, batch):
                                  rel_tol=BF16_REL_TOL))
     cases.append((name, x, chain, unit.padding))
 
-  def layers(k, widths):
-    out = []
-    for cin, cout in zip(widths[:-1], widths[1:]):
-      w = torch.randn(k, k, cin, cout, device=DEVICE, generator=gen)
-      out.append(cc.ChainLayer(w * math.sqrt(2.0 / (k * k * cin)),
-                               torch.randn(cout, device=DEVICE,
-                                           generator=gen) * 0.1, 0.1))
-    return out
-
   def rand(b, h, c):
     return torch.randn(b, h, h, c, device=DEVICE, generator=gen)
 
   half, quarter = SIZE // 2, SIZE // 4
   run('k3_zero', rand(8, half, 32).to(torch.bfloat16),
-      layers(3, (32, 32, 32)), 'zero', rel_tol=BF16_REL_TOL)
+      random_chain(gen, 3, (32, 32, 32)), 'zero', rel_tol=BF16_REL_TOL)
   run('k4_replicate', rand(4, quarter, 64).to(torch.bfloat16),
-      layers(4, (64, 64, 64)), 'replication', rel_tol=BF16_REL_TOL)
-  run('k4_reflect_f32', rand(4, half, 32), layers(4, (32, 64, 64)),
+      random_chain(gen, 4, (64, 64, 64)), 'replication', rel_tol=BF16_REL_TOL)
+  run('k4_reflect_f32', rand(4, half, 32), random_chain(gen, 4, (32, 64, 64)),
       'reflection', atol=F32_ATOL)
-  run('k3_zero_f32_cin2', rand(2, quarter, 2), layers(3, (2, 32, 16)),
-      'zero', atol=F32_ATOL)
+  run('k3_zero_f32_cin2', rand(2, quarter, 2),
+      random_chain(gen, 3, (2, 32, 16)), 'zero', atol=F32_ATOL)
   return err_main, cases
 
 
@@ -261,28 +285,6 @@ def chain_cost(cases):
       flops += 2 * b * h * w * k * k * cin * cout
       bytes_ += 2 * (b * h * w * (cin + cout) + k * k * cin * cout) + 4 * cout
   return flops, bytes_
-
-
-def pending_bounds(cases):
-  """Bounds (ms) of the TPU kernels not ported yet, from their shapes:
-  K3 on the flagship chains in int8 (1-byte activations and weights, f32
-  scales), K4's 256×128 bf16 probe tiles (read once, written once), K5's
-  s8 (256×128)·(128×128) → s32 product."""
-  ops, _ = chain_cost(cases)
-  k3_bytes = 0
-  for _, x, chain, _ in cases:
-    b, h, w, _ = x.shape
-    for layer in chain:
-      k, _, cin, cout = layer.kernel.shape
-      k3_bytes += b * h * w * (cin + cout) + k * k * cin * cout + 4 * cout
-  rows, lanes = 256, 128       # scripts/probe_{mosaic,int8}_prims.py R, L
-  k4_bytes = 2 * rows * lanes * 2
-  k5_ops = 2 * rows * lanes * lanes
-  k5_bytes = rows * lanes + lanes * lanes + 4 * rows * lanes
-  return {
-      'K3': max(ops / INT8_OPS, k3_bytes / HBM_BYTES_PER_S) * 1e3,
-      'K4': k4_bytes / HBM_BYTES_PER_S * 1e3,
-      'K5': max(k5_ops / INT8_OPS, k5_bytes / HBM_BYTES_PER_S) * 1e3}
 
 
 def plain_chain(x, chain, pad):
@@ -407,6 +409,336 @@ def train_parity_phase():
   return gpu
 
 
+def random_chain(gen, k, widths):
+  """He-scaled random k×k layers (bias 0.1·randn, LeakyReLU 0.1)."""
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
+  out = []
+  for cin, cout in zip(widths[:-1], widths[1:]):
+    w = torch.randn(k, k, cin, cout, device=DEVICE, generator=gen)
+    out.append(cc.ChainLayer(w * math.sqrt(2.0 / (k * k * cin)),
+                             torch.randn(cout, device=DEVICE,
+                                         generator=gen) * 0.1, 0.1))
+  return out
+
+
+def plain_int8_chain(x, scale, qlayers, pad, out_dtype):
+  """A quantized chain through the plain versions only."""
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
+  for i, layer in enumerate(qlayers):
+    last = i + 1 == len(qlayers)
+    y, amax = cc.conv_layer_int8_plain(x, scale, layer, pad,
+                                       out_dtype if last else torch.float32,
+                                       not last)
+    if last:
+      return y
+    x, scale = cc.requant_plain(y, amax)
+
+
+def int8_gate(name, got, want):
+  got, want = got.float(), want.float()
+  ref = want.abs().max().item()
+  diff = (got - want).abs()
+  err = diff.max().item()
+  off = int((diff > INT8_NOISE * ref).sum().item())
+  print('K3 chain {} {}: max|kernel-plain| {:.3e}, max|ref| {:.3e}, tol '
+        '{:.3e}; {} of {} elements beyond {:g}·max|ref| (allowed share '
+        '{:g})'.format(name, tuple(got.shape), err, ref, INT8_STEP * ref, off,
+                       diff.numel(), INT8_NOISE, INT8_MAX_SHARE))
+  require(got.shape == want.shape, 'int8 chain {} shape'.format(name))
+  require(err <= INT8_STEP * ref and off <= INT8_MAX_SHARE * diff.numel(),
+          'int8 chain {} differs from its plain version'.format(name))
+
+
+def int8_phase(model):
+  """Phase 12; returns (K3 conv max err, requant max err, the flagship
+  layers' kernel inputs for timing)."""
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
+  from csmri_refinement_tpu_torch.ops import quantize
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+  errs = {'conv': 0.0, 'requant': 0.0}
+  cases = {'conv': [], 'requant': [], 'float': []}
+
+  def run(name, x, chain, pad, out_dtype, record):
+    """Layer by layer: each kernel vs its plain version on the kernel's
+    own inputs; then the kernels' chain vs the plain chain."""
+    xi, scale = quantize.quantize_act(x)
+    qlayers = quantize.quantize_chain(chain)
+    xk, sk = xi, scale
+    for i, layer in enumerate(qlayers):
+      last = i + 1 == len(qlayers)
+      args = (xk, sk, layer, pad, out_dtype if last else torch.float32,
+              not last)
+      y, amax = cc.conv_layer_int8_cuda(*args)
+      sync()
+      want, _ = cc.conv_layer_int8_plain(*args)
+      errs['conv'] = max(errs['conv'],
+                         (y.float() - want.float()).abs().max().item())
+      if record:
+        cases['conv'].append(args)
+        cases['float'].append((tuple(xk.shape), chain[i], pad))
+      if last:
+        break
+      xk, sk = cc.requant_cuda(y, amax)
+      sync()
+      want_x, want_s = cc.requant_plain(y, amax)
+      errs['requant'] = max(errs['requant'],
+                            (xk.float() - want_x.float()).abs().max().item(),
+                            (sk - want_s).abs().max().item())
+      if record:
+        cases['requant'].append((y, amax))
+    int8_gate(name, y, plain_int8_chain(xi, scale, qlayers, pad, out_dtype))
+
+  for name, unit in unet_chains(model):
+    h, w, _ = CHAIN_SHAPES[name]
+    chain = unit.chain_layers()
+    start = cc.int8_suffix_start(chain, h, w)
+    cin = chain[start].kernel.shape[2]
+    x = torch.randn(BATCH, h, w, cin, device=DEVICE, generator=gen)
+    run(name, x.to(torch.bfloat16), chain[start:], unit.padding,
+        torch.bfloat16, True)
+  require((len(cases['conv']), len(cases['requant'])) ==
+          INT8_LAUNCHES[SIZE][2:], 'expected 7 quantized layers and 2 '
+          'requants in the flagship chains at 256^2')
+  half, quarter = SIZE // 2, SIZE // 4
+  run('k3_zero', torch.randn(8, half, half, 32, device=DEVICE, generator=gen),
+      random_chain(gen, 3, (32, 32, 32)), 'zero', torch.bfloat16, False)
+  run('k4_replicate_f32', torch.randn(4, quarter, quarter, 64, device=DEVICE,
+                                      generator=gen),
+      random_chain(gen, 4, (64, 64, 64)), 'replication', torch.float32,
+      False)
+
+  # the requant on an all-zero image (the 1e-8 floor) and on exact .5 ties
+  y = torch.randn(3, 16, 16, 32, device=DEVICE, generator=gen)
+  y[0] = y[0].clamp(-127 * 0.25, 127 * 0.25)
+  y[0, 0, 0, 0] = 127 * 0.25          # amax: y · 127/amax = 4y, exact
+  y[0, 1, 0, :4] = torch.tensor([0.5, 1.5, 2.5, -3.5], device=DEVICE) * 0.25
+  y[2] = 0
+  amax = y.abs().amax(dim=(1, 2, 3))
+  xk, sk = cc.requant_cuda(y, amax)
+  sync()
+  want_x, want_s = cc.requant_plain(y, amax)
+  print('K3 requant ties/zero image: kernel {} scales {}, plain {} scales '
+        '{}'.format(xk[0, 1, 0, :4].tolist(), sk.tolist(),
+                    want_x[0, 1, 0, :4].tolist(), want_s.tolist()))
+  require(torch.equal(xk, want_x) and torch.equal(sk, want_s) and
+          xk[0, 1, 0, :4].tolist() == [0, 2, 2, -4] and
+          not bool(xk[2].any()), 'requant kernel on ties / zero image')
+  print('K3 kernels vs plain on the same inputs: conv max {:.3e}, requant '
+        'max {:.3e}'.format(errs['conv'], errs['requant']))
+  return errs['conv'], errs['requant'], cases
+
+
+def int8_main_path(P, args):
+  """Phase 13: the int8 serving forward, counters around it; returns the
+  256² model and its (K3 conv, requant) launches."""
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
+  from csmri_refinement_tpu_torch.ops import dc_kernel, quantize
+  counters = (dc_kernel.dc_cuda, cc.conv_layer_cuda, cc.conv_layer_int8_cuda,
+              cc.requant_cuda)
+
+  def drive(model, inputs, n):
+    sync()
+    for c in counters:
+      c.launches = 0
+    quantize.reset_trace_log()
+    with torch.inference_mode():
+      for _ in range(n):
+        out = model(*inputs)
+      sync()
+    got = tuple(c.launches for c in counters)
+    pred = out['pred']
+    b, size = inputs[0].shape[0], inputs[0].shape[1]
+    print('int8 main path {}^2 B{}: {} forwards, launches K1 {} K2 {} K3 '
+          'conv {} K3 requant {}, a chain fell back to float: {}'.format(
+              size, b, n, *got, quantize.fell_back_to_bf16()))
+    require(tuple(pred.shape) == (b, size, size, 2) and
+            bool(torch.isfinite(pred.float()).all()),
+            'int8 pred at {}^2 is not finite or of the wrong shape'.format(
+                size))
+    require(got == tuple(n * c for c in INT8_LAUNCHES[size]),
+            'int8 launches at {}^2: expected {} per forward'.format(
+                size, INT8_LAUNCHES[size]))
+    return got
+
+  model8, _ = P.build_flagship(SIZE, torch.bfloat16, DEVICE, SEED,
+                               quantize_inference=True)
+  got = drive(model8, args, 3)
+  require(not quantize.fell_back_to_bf16(), 'a 256^2 chain fell back')
+  big = 2 * SIZE
+  model_big, undersample_batch = P.build_flagship(
+      big, torch.bfloat16, DEVICE, SEED, quantize_inference=True)
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+  batch = undersample_batch(gen, torch.rand(4, big, big, device=DEVICE,
+                                            generator=gen), 'varden', 8)
+  drive(model_big, [batch[k] for k in ('inp', 'kspace', 'mask')], 1)
+  require(quantize.fell_back_to_bf16(), 'expected a 512^2 chain with no '
+          'quantized layer (the JAX package\'s VMEM trim)')
+  del model_big, batch
+  return model8, got[2:]
+
+
+def int8_quality_phase(P, line):
+  """Phase 14: int8 with f32 compute, card vs CPU; int8 vs f32 on the card;
+  the quality-vs-dtype table."""
+  from csmri_refinement_tpu_torch import quality_dtype_table as qt
+  model_cpu, undersample_batch = P.build_flagship(
+      SIZE, torch.float32, 'cpu', SEED, quantize_inference=True)
+  f32_gpu, _ = P.build_flagship(SIZE, torch.float32, DEVICE, SEED)
+  with torch.no_grad():
+    model_cpu.scale.fill_(0.5)    # at its zero init the U-Net skips pred
+    f32_gpu.scale.fill_(0.5)
+  model_gpu = copy.deepcopy(model_cpu).to(DEVICE)
+  gen = torch.Generator().manual_seed(SEED + 2)
+  batch = undersample_batch(gen, torch.rand(2, SIZE, SIZE, generator=gen),
+                            'varden', 8)
+  args = [batch[k] for k in ('inp', 'kspace', 'mask')]
+  with torch.inference_mode():
+    want = model_cpu(*args)
+    got = model_gpu(*[a.to(DEVICE) for a in args])
+    ref = f32_gpu(*[a.to(DEVICE) for a in args])
+    sync()
+  err = (got['pred'].cpu() - want['pred']).abs().max().item()
+  rel = err / want['pred'].abs().max().item()
+  p_gpu = psnr(got['pred'].cpu(), batch['target'])
+  p_cpu = psnr(want['pred'], batch['target'])
+  print('int8 f32-compute pred, card vs CPU: max|Δ|/max|ref| {:.3e} (tol {}), '
+        'PSNR card {:.4f} dB, CPU {:.4f} dB'.format(rel, INT8_E2E_REL, p_gpu,
+                                                   p_cpu))
+  require(rel <= INT8_E2E_REL, 'int8 forward differs between card and CPU')
+  require(abs(p_gpu - p_cpu) < PSNR_TOL_DB, 'int8 PSNR differs')
+  key = 'prescaled_refinement'      # the U-Net's own output
+  rel_flagship = ((got[key] - ref[key]).abs().max() /
+                  ref[key].abs().max()).item()
+  # The JAX suite's bar on its own U-Net (tests/test_conv_pallas.py:157-169:
+  # encoders [32, 64], 64², randn input), with the port's seeded init.
+  from csmri_refinement_tpu_torch.models.unet import UNET
+  kw = dict(num_inputs=2, num_outputs=1, num_layers_per_scale=2,
+            encode_filters=[32, 64], decode_filters=[32], kernel_size=4,
+            upsampling_mode='nn-resize-conv', output_activation='none',
+            padding='reflection', decoder_act_upsampling_only=True)
+  unet8 = UNET(quantize_inference=True, **kw)
+  unet8.init_weights(torch.Generator().manual_seed(SEED))
+  unet = UNET(**kw)
+  unet.load_state_dict(unet8.state_dict())
+  x = torch.randn(2, 64, 64, 2, device=DEVICE,
+                  generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+  with torch.inference_mode():
+    a, b = unet8.to(DEVICE).eval()(x), unet.to(DEVICE).eval()(x)
+  rel8 = ((a - b).abs().max() / b.abs().max()).item()
+  print('int8 vs f32 on the card, relative max error: the JAX suite\'s '
+        'U-Net {:.4f} (must be in (0, {})); the flagship U-Net at {}^2 '
+        '{:.4f}'.format(rel8, INT8_VS_F32_REL, SIZE, rel_flagship))
+  require(0 < rel8 < INT8_VS_F32_REL, 'int8 vs f32 relative error')
+  rows = qt.table((SIZE,), 8, DEVICE, refinement_scale=0.5)
+  print('quality vs dtype, {}^2, 8 phantoms, scale 0.5 ({}):'.format(SIZE,
+                                                                    line))
+  qt.print_table(rows)
+  require(all(math.isfinite(r[2]) and math.isfinite(r[4]) for r in rows),
+          'quality table has a non-finite score')
+
+
+def bound(ops, bytes_, peak):
+  """(ms, 'bytes' or 'operations'): the larger of bytes over the HBM rate
+  and operations over ``peak``."""
+  b_ms, o_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+  return max(b_ms, o_ms), 'bytes' if b_ms >= o_ms else 'operations'
+
+
+def int8_timings(cases, line):
+  """Phase 15, K3: the flagship's 7 quantized layers and 2 requants."""
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
+  conv_ms = time_ms(lambda: [cc.conv_layer_int8_cuda(*c)
+                             for c in cases['conv']], iters=10, warmup=2)
+  conv_plain_ms = time_ms(lambda: [cc.conv_layer_int8_plain(*c)
+                                   for c in cases['conv']], iters=2, warmup=1)
+  rq_ms = time_ms(lambda: [cc.requant_cuda(*c) for c in cases['requant']])
+  rq_plain_ms = time_ms(lambda: [cc.requant_plain(*c)
+                                 for c in cases['requant']], iters=5)
+  cl = torch.channels_last
+  yard = [(torch.randn(shape, device=DEVICE).to(torch.bfloat16).permute(
+      0, 3, 1, 2).contiguous(memory_format=cl).permute(0, 2, 3, 1), layer,
+           pad) for shape, layer, pad in cases['float']]
+  cudnn_ms = time_ms(lambda: [library_chain(x, [layer], pad)
+                              for x, layer, pad in yard], iters=5, warmup=1)
+  ops = bytes_ = 0
+  for x, _, layer, _, dt, want_amax in cases['conv']:
+    b, h, w, cin = x.shape
+    k, _, _, cout = layer.kernel.shape
+    ops += 2 * b * h * w * k * k * cin * cout
+    bytes_ += (b * h * w * (cin + cout * dt.itemsize) + k * k * cin * cout +
+               8 * cout + 4 * b * (2 if want_amax else 1))
+  rq_bytes = sum(5 * y.numel() + 8 * y.shape[0] for y, _ in cases['requant'])
+  conv_bound, conv_by = bound(ops, bytes_, INT8_OPS)
+  rq_bound, rq_by = bound(0, rq_bytes, INT8_OPS)
+  print('K3 conv, the {} quantized flagship layers B{} {}^2: kernel {:.3f} '
+        'ms ({:.1f} TOP/s), plain {:.3f} ms, bound {:.4f} ms ({}, {:.1f} '
+        'GOP); cuDNN bf16 on the same layers {:.3f} ms (the nearest '
+        'yardstick: no PyTorch call computes an int8 conv) ({})'.format(
+            len(cases['conv']), BATCH, SIZE, conv_ms, ops / conv_ms / 1e9,
+            conv_plain_ms, conv_bound, conv_by, ops / 1e9, cudnn_ms, line))
+  print('K3 requant, {} launches: kernel {:.4f} ms, plain {:.4f} ms, bound '
+        '{:.4f} ms ({}) ({})'.format(len(cases['requant']), rq_ms,
+                                     rq_plain_ms, rq_bound, rq_by, line))
+  return {'conv': (conv_ms, conv_plain_ms, conv_bound, conv_by),
+          'requant': (rq_ms, rq_plain_ms, rq_bound, rq_by)}
+
+
+def probe_phase(line):
+  """Phase 15, probes: each probe entry point driven as its own path with
+  its counter set to 0 before and read after; then timings. Returns the
+  probes' entries of the kernels line."""
+  from csmri_refinement_tpu_torch import probes
+  from csmri_refinement_tpu_torch.probes import int8_prims, mosaic_prims
+  runs = {}
+  for module in (mosaic_prims, int8_prims):
+    sync()
+    module.probe_cuda.launches = 0
+    results = module.run_all(DEVICE)
+    sync()
+    launches = module.probe_cuda.launches
+    probes.print_results(results)
+    require(all(r.status == 'OK' for r in results),
+            'a probe of {} is not OK'.format(module.__name__))
+    require(launches == len(module.PROBES), 'expected one launch per probe')
+    runs[module] = (launches, max(r.max_abs_err for r in results))
+
+  rows, lanes = probes.R, probes.L
+  x = mosaic_prims.probe_input((rows, lanes), DEVICE)
+  roll = 'lane roll bf16 by 32'
+  k4 = (time_ms(lambda: mosaic_prims.probe_cuda(roll, x)),
+        time_ms(lambda: mosaic_prims.plain(roll, x)),
+        *bound(0, 2 * rows * lanes * 2, BF16_FLOPS),
+        time_ms(lambda: torch.roll(x, 32, 1)))
+  data = int8_prims.probe_inputs(DEVICE)
+  a, b = data['a'], data['b']
+  mm = 's8 x s8 -> s32 mma'
+  k5 = (time_ms(lambda: int8_prims.probe_cuda(mm, a, b)),
+        time_ms(lambda: int8_prims.plain(mm, a, b)),
+        *bound(2 * rows * lanes * lanes,
+               rows * lanes + lanes * lanes + 4 * rows * lanes, INT8_OPS),
+        time_ms(lambda: torch._int_mm(a, b)))
+  for name, t in (('K4 ' + roll, k4), ('K5 ' + mm, k5)):
+    print('{} ({}x{}): kernel {:.4f} ms, plain {:.4f} ms, bound {:.6f} ms '
+          '({}), library {:.4f} ms ({})'.format(name, rows, lanes, t[0], t[1],
+                                                t[2], t[3], t[4], line))
+  for name, (ms, rate) in int8_prims.throughput().items():
+    print('library {} 4096^3 matmul: {:.3f} ms = {:.1f} T{}/s of {} peak '
+          '({})'.format(name, ms, rate, 'OP' if name == 's8' else 'FLOP',
+                        1979 if name == 's8' else 989, line))
+  entries = []
+  for name, module, t, replaces in (
+      ('probe_mosaic', mosaic_prims, k4, 'scripts/probe_mosaic_prims.py:27'),
+      ('probe_int8', int8_prims, k5, 'scripts/probe_int8_prims.py:26')):
+    launches, err = runs[module]
+    entries.append({
+        'name': name, 'route': 'cuda',
+        'source': 'csmri_refinement_tpu_torch/csrc/probes.cu',
+        'replaces': replaces, 'launches': launches, 'max_abs_err': err,
+        'ms': t[0], 'plain_ms': t[1], 'bound_ms': t[2], 'bound_by': t[3],
+        'library_ms': t[4]})
+  return entries
+
+
 def main():
   require(torch.cuda.is_available(), 'no CUDA device')
   sys.path.insert(0, REPO)
@@ -475,7 +807,7 @@ def main():
   b, n = x.shape[0], x.shape[1]
   dc_bytes = 28 * b * n * n
   dc_flops = 10 * b * n * n * math.log2(n * n)
-  dc_bound = max(dc_bytes / HBM_BYTES_PER_S, dc_flops / F32_FLOPS) * 1e3
+  dc_bound, dc_by = bound(dc_flops, dc_bytes, F32_FLOPS)
   print('K1 dc B{} {}^2: kernel {:.4f} ms, plain {:.4f} ms, cuFFT {:.4f} ms, '
         'bound {:.4f} ms ({})'.format(b, n, dc_ms, dc_plain_ms, dc_lib_ms,
                                       dc_bound, line))
@@ -494,7 +826,7 @@ def main():
                                         for _, cx, ch, pad in cl_cases],
                         iters=5, warmup=1)
   c_flops, c_bytes = chain_cost(chain_cases)
-  conv_bound = max(c_bytes / HBM_BYTES_PER_S, c_flops / BF16_FLOPS) * 1e3
+  conv_bound, conv_by = bound(c_flops, c_bytes, BF16_FLOPS)
   for name, cx, ch, pad in chain_cases:
     one = time_ms(lambda: conv_chain.fused_conv_chain(
         cx, ch, pad_mode=pad), iters=5, warmup=1)
@@ -548,7 +880,7 @@ def main():
   b, n = g.shape[0], g.shape[1]
   bwd_bytes = 20 * b * n * n       # g 8, mask 4, grad_x 8 (no k0)
   bwd_flops = 10 * b * n * n * math.log2(n * n)
-  bwd_bound = max(bwd_bytes / HBM_BYTES_PER_S, bwd_flops / F32_FLOPS) * 1e3
+  bwd_bound, bwd_by = bound(bwd_flops, bwd_bytes, F32_FLOPS)
   print('K1-bwd dc B{} {}^2: kernel {:.4f} ms, plain {:.4f} ms, cuFFT '
         '{:.4f} ms, bound {:.4f} ms ({})'.format(
             b, n, bwd_ms, bwd_plain_ms, bwd_lib_ms, bwd_bound, line))
@@ -569,9 +901,24 @@ def main():
               TRAIN_BATCH / ms * 1e3, 3 * dc16_ms,
               3 * bwd_ms, line))
 
-  print('bounds of the kernels still to port: {}'.format(', '.join(
-      '{} {:.6f} ms'.format(k, v) for k, v in pending_bounds(
-          chain_cases).items())))
+  # Phase 12: the int8 conv kernel (K3) and its requant
+  int8_conv_err, requant_err, int8_cases = int8_phase(model)
+
+  # Phase 13: the int8 main path
+  model8, int8_launches = int8_main_path(P, args)
+
+  # Phase 14: int8 quality
+  int8_quality_phase(P, line)
+
+  # Phase 15: int8 and probe timings
+  k3 = int8_timings(int8_cases, line)
+  with torch.inference_mode():
+    fwd8_ms = time_ms(lambda: model8(*args), iters=5, warmup=1)
+  print('flagship forward {}^2 B{}: int8 {:.3f} ms, {:.1f} slices/s; bf16 '
+        '{:.3f} ms, {:.1f} slices/s ({})'.format(
+            SIZE, BATCH, fwd8_ms, BATCH / fwd8_ms * 1e3, fwd_ms,
+            BATCH / fwd_ms * 1e3, line))
+  probe_entries = probe_phase(line)
 
   kernels = [
       {'name': 'dc', 'route': 'cuda',
@@ -580,26 +927,37 @@ def main():
        'launches': dc_launches + train_fwd, 'max_abs_err': dc_err,
        'ms': dc_ms,
        'plain_ms': dc_plain_ms, 'bound_ms': dc_bound,
-       'bound_by': 'bytes' if dc_bytes / HBM_BYTES_PER_S >=
-                   dc_flops / F32_FLOPS else 'operations',
+       'bound_by': dc_by,
        'library_ms': dc_lib_ms},
       {'name': 'conv_chain', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/conv_chain.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
        'launches': conv_launches, 'max_abs_err': conv_err, 'ms': conv_ms,
        'plain_ms': conv_plain_ms, 'bound_ms': conv_bound,
-       'bound_by': 'bytes' if c_bytes / HBM_BYTES_PER_S >=
-                   c_flops / BF16_FLOPS else 'operations',
+       'bound_by': conv_by,
        'library_ms': conv_lib_ms},
       {'name': 'dc_bwd', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
        'replaces': 'csmri_refinement_tpu/ops/dc.py:99',
        'launches': train_bwd, 'max_abs_err': bwd_err, 'ms': bwd_ms,
        'plain_ms': bwd_plain_ms, 'bound_ms': bwd_bound,
-       'bound_by': 'bytes' if bwd_bytes / HBM_BYTES_PER_S >=
-                   bwd_flops / F32_FLOPS else 'operations',
+       'bound_by': bwd_by,
        'library_ms': bwd_lib_ms},
-  ]
+      {'name': 'conv_int8', 'route': 'cuda',
+       'source': 'csmri_refinement_tpu_torch/csrc/conv_int8.cu',
+       'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
+       'launches': int8_launches[0], 'max_abs_err': int8_conv_err,
+       'ms': k3['conv'][0], 'plain_ms': k3['conv'][1],
+       'bound_ms': k3['conv'][2], 'bound_by': k3['conv'][3],
+       'library_ms': None},
+      {'name': 'requant_int8', 'route': 'cuda',
+       'source': 'csmri_refinement_tpu_torch/csrc/conv_int8.cu',
+       'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:381',
+       'launches': int8_launches[1], 'max_abs_err': requant_err,
+       'ms': k3['requant'][0], 'plain_ms': k3['requant'][1],
+       'bound_ms': k3['requant'][2], 'bound_by': k3['requant'][3],
+       'library_ms': None},
+  ] + probe_entries
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

@@ -7,6 +7,12 @@ refinement U-Net (encoders [32, 64, 128], decoders [64, 32], k4, reflection
 padding, ``nn-resize-conv``, one output channel) in a ``real-penalty-add``
 ``RefinementWrapper`` fed the RecNet output. In eval mode every DC runs the
 DC kernel and every U-Net conv chain the conv-chain kernel on the card.
+
+With ``quantize_inference=True`` it is the counterpart of
+``bench.py:build_forward(size, 'int8')``: the opt-in int8 serving mode, in
+which each U-Net chain's quantized suffix (``ops/quantize.py``) runs the int8
+conv kernel and its prefix the conv-chain kernel in the compute dtype. The
+mode sits outside the 0.1 dB default quality budget.
 """
 
 import torch
@@ -19,27 +25,32 @@ from csmri_refinement_tpu_torch.ops.dc_kernel import MAX_SIZE
 from csmri_refinement_tpu_torch.ops.undersample import undersample_batch
 
 
-def flagship_model(dtype=None):
-  """The flagship wrapper at its published widths, weights uninitialised."""
+def flagship_model(dtype=None, quantize_inference=False):
+  """The flagship wrapper at its published widths, weights uninitialised;
+  ``quantize_inference`` selects the U-Net's int8 serving mode."""
   pretrained = RecNet(num_blocks=3, num_convs=3, num_filters=32, dtype=dtype)
   learnable = UNET(num_inputs=2, num_outputs=1, num_layers_per_scale=2,
                    encode_filters=[32, 64, 128], decode_filters=[64, 32],
                    kernel_size=4, upsampling_mode='nn-resize-conv',
                    output_activation='none', padding='reflection',
-                   decoder_act_upsampling_only=True, dtype=dtype)
+                   decoder_act_upsampling_only=True,
+                   quantize_inference=quantize_inference, dtype=dtype)
   return RefinementWrapper(pretrained, learnable, mode='real-penalty-add',
                            input_mode='output')
 
 
 def build_flagship(image_size=256, dtype=torch.bfloat16, device='cuda',
-                   seed=0):
+                   seed=0, quantize_inference=False):
   """(model, undersample_batch) for the flagship serving forward.
 
   The model is in eval mode on ``device`` with weights drawn from ``seed``
   (f32 parameters; ``dtype`` is the compute dtype, the DC always runs in
   f32). Call it as ``model(batch['inp'], batch['kspace'], batch['mask'])``
   on a batch from ``undersample_batch(generator, gt, 'varden', 8)``. With
-  ``device='cuda'`` and no card it raises.
+  ``device='cuda'`` and no card it raises. ``quantize_inference=True`` is
+  the int8 serving mode (``dtype`` stays the compute dtype of everything
+  outside the quantized layers: bf16 for ``bench.py --dtype int8``); the
+  weights drawn from ``seed`` are the same as without it.
   """
   device = torch.device(device)
   if device.type == 'cuda' and not torch.cuda.is_available():
@@ -48,6 +59,6 @@ def build_flagship(image_size=256, dtype=torch.bfloat16, device='cuda',
   if image_size > MAX_SIZE or image_size < 16 or image_size & (image_size - 1):
     raise ValueError('image_size must be a power of two in [16, {}], got '
                      '{}'.format(MAX_SIZE, image_size))
-  model = flagship_model(dtype)
+  model = flagship_model(dtype, quantize_inference)
   model.init_weights(torch.Generator().manual_seed(seed))
   return model.to(device).eval(), undersample_batch

@@ -7,8 +7,9 @@ JSON config as a plain dict (e.g. ``generator_model`` of
 ignored: no checkpoint loader is ported yet. An ``undersampling`` section
 threaded in by a runner (JAX ``training/runner.py:49-53``) gives a RecNet
 its ``dc_lines_acc``, as the JAX ``models/recnet.py:50-57`` does; other
-models ignore it. Any other key the ported model does not take raises
-``TypeError``.
+models ignore it. A UNET section's ``fused_inference`` and
+``quantize_inference`` (``docs/CONFIG.md``) pass through to ``UNET``. Any
+other key the ported model does not take raises ``TypeError``.
 """
 
 import torch

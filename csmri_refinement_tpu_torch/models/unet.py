@@ -6,8 +6,12 @@ Port of ``csmri_refinement_tpu/models/unet.py``:
   LeakyReLU, with 2×2 max-pool downsampling. In eval mode (and k ∈ {3, 4})
   BN's running stats fold into the conv weights and bias in f32 (eps 1e-5)
   and the chain runs through ``ops/conv_chain.chain_forward`` — the conv
-  kernel on the card (``unet.py:286-318``). In train mode it is a plain conv
-  + batch-stat BN.
+  kernel on the card (``unet.py:286-318``) — or, with
+  ``quantize_inference``, through ``ops/quantize.chain_forward_int8`` (the
+  int8 serving mode). In train mode it is a plain conv + batch-stat BN, and
+  both flags are ignored (``unet.py:324``). ``fused_inference`` is accepted
+  for config parity: the JAX package fuses eval chains only when it is set,
+  the port always does.
 * ``ConvDecodeUnit`` (``:365-471``) in the ``nn-resize-conv`` and ``nn``
   modes, with ``act_upsampling_only``. The up-conv is nearest-up2 → SAME pad
   of the upsampled image → conv: the math that the JAX package's
@@ -28,6 +32,7 @@ from torch import nn
 from csmri_refinement_tpu_torch.models import weight_inits
 from csmri_refinement_tpu_torch.models.layers import leaky_relu, same_conv
 from csmri_refinement_tpu_torch.ops import conv_chain
+from csmri_refinement_tpu_torch.ops import quantize
 
 DEFAULT_RELU_LEAKINESS = 0.1
 PORTED_UPSAMPLING_MODES = ('nn', 'nn-resize-conv')
@@ -64,8 +69,11 @@ class ConvEncodeUnit(nn.Module):
 
   def __init__(self, in_channels, num_layers, num_filters, kernel_size,
                relu_leakiness, use_bn, downsample, use_act=True,
-               padding='zero', dtype=None):
+               padding='zero', dtype=None, fused_inference=False,
+               quantize_inference=False):
     super().__init__()
+    self.fused_inference = fused_inference
+    self.quantize_inference = quantize_inference
     self.num_layers = num_layers
     self.kernel_size = kernel_size
     self.leak = relu_leakiness if use_act else None
@@ -102,11 +110,13 @@ class ConvEncodeUnit(nn.Module):
     return chain
 
   def _fused_chain(self, x):
-    """Eval-mode chain through the conv kernel (``ops/conv_chain.py``)."""
+    """Eval-mode chain through the conv kernel (``ops/conv_chain.py``),
+    or its int8 mode with ``quantize_inference``."""
     dt = self.dtype or x.dtype
-    return conv_chain.chain_forward(x.to(dt).contiguous(),
-                                    self.chain_layers(),
-                                    pad_mode=self.padding)
+    forward = quantize.chain_forward_int8 if self.quantize_inference else \
+        conv_chain.chain_forward
+    return forward(x.to(dt).contiguous(), self.chain_layers(),
+                   pad_mode=self.padding)
 
   def _plain(self, x):
     dt = self.dtype or x.dtype
@@ -134,7 +144,8 @@ class ConvDecodeUnit(nn.Module):
   def __init__(self, in_channels, encoder_channels, num_filters,
                relu_leakiness, use_bn, use_act=True, kernel_size=3,
                num_layers=0, mode='nn-resize-conv', padding='zero',
-               act_upsampling_only=False, dtype=None):
+               act_upsampling_only=False, dtype=None, fused_inference=False,
+               quantize_inference=False):
     super().__init__()
     if mode not in PORTED_UPSAMPLING_MODES:
       raise NotImplementedError(
@@ -161,7 +172,8 @@ class ConvDecodeUnit(nn.Module):
       self.decode = ConvEncodeUnit(
           merged, num_layers, num_filters, kernel_size, relu_leakiness,
           use_bn, downsample=False, use_act=use_act, padding=padding,
-          dtype=dtype)
+          dtype=dtype, fused_inference=fused_inference,
+          quantize_inference=quantize_inference)
       self.out_channels = num_filters
 
   def forward(self, decode_path, encode_path=None):
@@ -192,8 +204,8 @@ class UNET(nn.Module):
                encode_filters, decode_filters, output_activation,
                kernel_size=3, relu_leakiness=DEFAULT_RELU_LEAKINESS,
                use_bn=True, upsampling_mode='transposed', padding='zero',
-               decoder_act_upsampling_only=False, weight_init=None,
-               dtype=None):
+               decoder_act_upsampling_only=False, fused_inference=False,
+               quantize_inference=False, weight_init=None, dtype=None):
     super().__init__()
     if output_activation not in ('softmax', 'tanh', 'none'):
       raise ValueError('Unknown output activation {}'.format(
@@ -212,7 +224,8 @@ class UNET(nn.Module):
       self.add_module('encode_{}'.format(scale), ConvEncodeUnit(
           cin, num_layers_per_scale, f, kernel_size, relu_leakiness[0],
           use_bn, downsample=scale != n_enc - 1, padding=padding,
-          dtype=dtype))
+          dtype=dtype, fused_inference=fused_inference,
+          quantize_inference=quantize_inference))
       cin = f
     for scale, f in enumerate(decode_filters):
       skip = scale < n_enc - 1
@@ -222,7 +235,8 @@ class UNET(nn.Module):
           relu_leakiness[1], use_bn, kernel_size=kernel_size,
           num_layers=num_layers_per_scale, mode=upsampling_mode,
           padding=padding, act_upsampling_only=decoder_act_upsampling_only,
-          dtype=dtype)
+          dtype=dtype, fused_inference=fused_inference,
+          quantize_inference=quantize_inference)
       self.add_module(name.format(scale if skip else scale - (n_enc - 1)),
                       unit)
       cin = unit.out_channels

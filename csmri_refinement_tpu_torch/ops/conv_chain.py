@@ -19,8 +19,30 @@ accumulation and every layer's output rounded to the compute dtype.
 * ``conv_layer`` — the device dispatch: CPU → plain, CUDA → kernel or raise.
 
 The JAX kernel's Mosaic layout (pixel groups, block-Toeplitz weights, lane
-rolls, guard rows) and its ``layer_fusable``/VMEM gates are TPU-specific
-and not carried over.
+rolls, guard rows) is TPU-specific and not carried over; neither are its
+``layer_fusable``/VMEM gates on the float path, where they change only
+speed.
+
+The int8 serving mode (JAX ``_chain_kernel`` with ``quant=True``, reached
+through ``ops/quantize.py::chain_forward_int8``) is the kernel of
+``csrc/conv_int8.cu``. Per quantized layer:
+
+    acc = conv_same(x_int8, w_int8)                   # exact int32
+    y = fma(acc, w_scale[co] · act_scale[b], bias)    # f32, one rounding
+    y = LeakyReLU(y)
+    not last: x_int8, act_scale = requant(y, max|y| per image)
+    last:     y cast to out_dtype
+
+* ``conv_layer_int8_plain`` / ``requant_plain`` — plain PyTorch (the conv
+  in float64, exact like the kernel's int32 sums); the CPU path and the
+  oracle.
+* ``conv_layer_int8_cuda`` / ``requant_cuda`` — the wrappers of the conv and
+  requant kernels, each counting its launches in ``.launches``.
+* ``fused_conv_chain_int8`` — a quantized chain, layer by layer.
+* ``int8_suffix_start`` — which layers of a chain are quantized. The JAX
+  package quantizes only the suffix its Pallas kernel packs
+  (``layer_fusable``) and fits in VMEM; that choice changes the output, so
+  the port keeps it as a rule.
 """
 
 import ctypes
@@ -40,13 +62,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 class ChainLayer(NamedTuple):
   """One conv (+ optional LeakyReLU) of a chain.
 
-  kernel: (k, k, Cin, Cout) HWIO, any float dtype; BN already folded in.
+  kernel: (k, k, Cin, Cout) HWIO, any float dtype, BN already folded in;
+    or int8 in the quantized serving mode, with ``w_scale`` set.
   bias: (Cout,) or None.
   leakiness: LeakyReLU negative slope, or None for a linear layer.
+  w_scale: (Cout,) f32 per-output-channel dequantization scales (int8 only).
   """
   kernel: torch.Tensor
   bias: Optional[torch.Tensor] = None
   leakiness: Optional[float] = None
+  w_scale: Optional[torch.Tensor] = None
 
 
 def conv_layer_plain(x, layer, pad_mode='reflection'):
@@ -132,15 +157,19 @@ def fused_conv_chain(x, chain, *, pad_mode='reflection'):
   """
   if pad_mode not in PAD_MODES:
     raise ValueError('unknown pad mode {!r}'.format(pad_mode))
+  _check_channels(x, chain)
+  for layer in chain:
+    x = conv_layer(x, layer, pad_mode)
+  return x
+
+
+def _check_channels(x, chain):
   cin = x.shape[-1]
   for layer in chain:
     if layer.kernel.shape[2] != cin:
       raise ValueError('chain channels do not match: {} into a layer of '
                        'kernel {}'.format(cin, tuple(layer.kernel.shape)))
     cin = layer.kernel.shape[3]
-  for layer in chain:
-    x = conv_layer(x, layer, pad_mode)
-  return x
 
 
 def chain_forward(x, chain, *, pad_mode='reflection'):
@@ -151,3 +180,263 @@ def chain_forward(x, chain, *, pad_mode='reflection'):
   same either way, and the H100's policy is left to measurements.
   """
   return fused_conv_chain(x, chain, pad_mode=pad_mode)
+
+
+# --- int8 serving mode -------------------------------------------------------
+
+# Which layers of a chain the int8 mode quantizes: the JAX package's rule
+# (``conv_pallas.py:397-431``, applied by ``quantize.py:88-99``), kept here
+# because it decides the output, not because the card needs it. It is the
+# longest suffix of layers the TPU kernel packs (``layer_fusable``), trimmed
+# from the front until the TPU kernel's VMEM estimate fits its budget. The
+# numbers below are the TPU kernel's layout (128 lanes, pixel groups of P),
+# not the H100's; the chain's prefix runs in the float compute dtype.
+_LANES = 128
+_VMEM_BUDGET = 64 * 1024 * 1024
+
+
+def _pick_p(cin, width):
+  """Pixels per TPU lane group: the smallest P ≥ ceil(128 / Cin) that
+  divides the width."""
+  p = max(1, -(-_LANES // cin))
+  while width % p:
+    p += 1
+  return p
+
+
+def layer_fusable(cin, cout, k, width, height):
+  """Whether the TPU kernel would pack this conv (JAX ``layer_fusable``):
+  k ∈ {3, 4}, even height, P = ceil(128 / Cin) ≤ 4 dividing the width,
+  W / P a multiple of 16, P·Cout a multiple of 128 and an even slab row
+  count."""
+  if k not in (3, 4) or height % 2:
+    return False
+  p = max(1, -(-_LANES // cin))
+  if p > 4 or width % p:
+    return False
+  g = width // p
+  if g % 16 or (p * cout) % _LANES:
+    return False
+  return ((height + k - 1) * g) % 2 == 0
+
+
+def _vmem_estimate(chain, width, height):
+  """The TPU kernel's per-image VMEM estimate of an int8 chain (JAX
+  ``_vmem_estimate`` with itemsize 1): per layer, six int8 slabs and two
+  f32 accumulators. P is made non-increasing along the chain, as the TPU
+  kernel's ``_plan`` does."""
+  ps = [_pick_p(layer.kernel.shape[2], width) for layer in chain]
+  for i in range(len(ps) - 2, -1, -1):
+    ps[i] = max(ps[i], ps[i + 1])
+  total = 0
+  for layer, p in zip(chain, ps):
+    k, _, cin, cout = layer.kernel.shape
+    gp = (width // p) * p
+    total += 6 * (height + k - 1) * gp * cin + 2 * height * gp * cout * 4
+  return total
+
+
+def int8_suffix_start(chain, height, width):
+  """Index of the first quantized layer of ``chain`` on an H×W input
+  (``len(chain)`` if none is)."""
+  n = len(chain)
+  start = n
+  for i in range(n - 1, -1, -1):
+    k, _, cin, cout = chain[i].kernel.shape
+    if not layer_fusable(cin, cout, k, width, height):
+      break
+    start = i
+  while start < n and _vmem_estimate(chain[start:], width,
+                                     height) > _VMEM_BUDGET:
+    start += 1
+  return start
+
+
+# amax → scale factor: f32(1/127). XLA turns the JAX package's
+# ``amax / 127.0`` into a multiply by this reciprocal under jit.
+INV_127 = 1.0 / 127.0
+
+
+def _epilogue(acc, act_scale, layer):
+  """f32 dequant + bias + LeakyReLU of int32-valued NHWC sums, rounded as
+  the kernel rounds: the scale product first (f32), then
+  ``fma(f32(acc), scale, bias)`` with one rounding. The JAX package's
+  ``acc * scale + bias`` compiles to that fused multiply-add on XLA's CPU
+  backend; the float64 product of two f32 values is exact, so rounding the
+  float64 sum once to f32 gives the FMA's result.
+  """
+  scale = layer.w_scale.float()[None, :] * act_scale.float()[:, None]
+  y = acc.float().double() * scale.double()[:, None, None, :]
+  if layer.bias is not None:
+    y = y + layer.bias.double()
+  y = y.float()
+  if layer.leakiness is not None:
+    y = layers.leaky_relu(y, layer.leakiness)
+  return y
+
+
+def conv_layer_int8_plain(x, act_scale, layer, pad_mode='reflection',
+                          out_dtype=torch.float32, want_amax=False):
+  """One quantized layer in plain PyTorch.
+
+  x: (B, H, W, Cin) int8; act_scale: (B,) f32; ``layer.kernel`` int8 HWIO
+  with ``w_scale``. Returns ``(y, amax)``: y (B, H, W, Cout) in
+  ``out_dtype``, and the per-image max |y| (B,) f32 if ``want_amax``, else
+  None. The conv runs in float64, where the int8 products' sums (at most
+  127²·k²·Cin) are exact, as the kernel's int32 sums are.
+  """
+  k = layer.kernel.shape[0]
+  weight = layer.kernel.double().permute(3, 2, 0, 1)
+  acc = F.conv2d(layers.same_pad(x.double().permute(0, 3, 1, 2), k,
+                                 pad_mode), weight).permute(0, 2, 3, 1)
+  y = _epilogue(acc, act_scale, layer)
+  amax = y.abs().amax(dim=(1, 2, 3)) if want_amax else None
+  return y.to(out_dtype).contiguous(), amax
+
+
+def requant_plain(y, amax):
+  """Per-image requantization of f32 NHWC ``y`` to int8 for the next
+  layer: ``round(y · 127 / max(amax, 1e-8))`` (half to even), clipped to
+  ±127. Returns ``(x_int8, act_scale)`` with act_scale = max(amax, 1e-8) ·
+  f32(1/127)."""
+  amax = amax.float().clamp_min(1e-8)
+  # a tensor numerator: ``127.0 / amax`` would be amax.reciprocal() · 127,
+  # two roundings, where the kernel and the JAX package divide once
+  s = torch.full_like(amax, 127.0) / amax
+  xi = torch.clamp(torch.round(y * s[:, None, None, None]), -127, 127)
+  return xi.to(torch.int8), amax * INV_127
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_int8():
+  lib = native.library('conv_int8')
+  lib.conv_layer_int8.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                                  + [ctypes.c_float, ctypes.c_void_p])
+  lib.conv_layer_int8.restype = ctypes.c_int
+  lib.requant_int8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+      ctypes.c_void_p]
+  lib.requant_int8.restype = ctypes.c_int
+  return lib
+
+
+def conv_layer_int8_cuda(x, act_scale, layer, pad_mode='reflection',
+                         out_dtype=torch.float32, want_amax=False):
+  """Launch the int8 conv-layer kernel (csrc/conv_int8.cu) on a CUDA
+  tensor; same contract as ``conv_layer_int8_plain``."""
+  if x.device.type != 'cuda':
+    raise ValueError('conv_layer_int8_cuda takes CUDA tensors, got '
+                     '{}'.format(x.device))
+  if x.dtype != torch.int8 or x.ndim != 4 or not x.is_contiguous():
+    raise ValueError('conv_layer_int8_cuda: x must be a contiguous NHWC '
+                     'int8 tensor')
+  if pad_mode not in PAD_MODES:
+    raise ValueError('unknown pad mode {!r}'.format(pad_mode))
+  if out_dtype not in _DTYPES:
+    raise ValueError('conv_layer_int8_cuda writes float32 or bfloat16, got '
+                     '{}'.format(out_dtype))
+  b, h, w, cin = x.shape
+  kh, kw, kcin, cout = layer.kernel.shape
+  if (layer.kernel.dtype != torch.int8 or layer.w_scale is None or
+      kh != kw or kh not in (3, 4) or kcin != cin):
+    raise ValueError('conv_layer_int8_cuda: needs an int8 kernel with '
+                     'w_scale, k 3 or 4, fitting input {}; got {} {}'.format(
+                         tuple(x.shape), layer.kernel.dtype,
+                         tuple(layer.kernel.shape)))
+  if cin % 32 or cout % 16 or not 1 <= b <= 65535:
+    raise ValueError('conv_layer_int8_cuda takes Cin a multiple of 32, Cout '
+                     'a multiple of 16 and 1 to 65535 images, got Cin {}, '
+                     'Cout {}, {} images'.format(cin, cout, b))
+  if act_scale.shape != (b,):
+    raise ValueError('conv_layer_int8_cuda: act_scale must be (B,)')
+  if pad_mode == 'reflection' and min(h, w) < 2:
+    raise ValueError('reflection padding needs images of at least 2x2')
+  if x.data_ptr() % 16:           # the kernel stages x 16 bytes at a time
+    x = x.clone()
+  dev = x.device
+  # (k, k, Cout, Cin): each output channel's Cin weights contiguous, the
+  # layout the MMA's B fragments read.
+  wt = layer.kernel.to(dev).permute(0, 1, 3, 2).contiguous()
+  w_scale = layer.w_scale.to(device=dev, dtype=torch.float32).contiguous()
+  a_scale = act_scale.to(device=dev, dtype=torch.float32).contiguous()
+  if layer.bias is None:
+    bias = torch.zeros(cout, device=dev, dtype=torch.float32)
+  else:
+    bias = layer.bias.to(device=dev, dtype=torch.float32).contiguous()
+  y = torch.empty((b, h, w, cout), device=dev, dtype=out_dtype)
+  # float bits of max |y| per image; non-negative floats order like them
+  amax = torch.zeros(b, device=dev, dtype=torch.int32) if want_amax else None
+  leak = layer.leakiness
+  with torch.cuda.device(dev):
+    status = _lib_int8().conv_layer_int8(
+        native.ptr(x), native.ptr(wt), native.ptr(w_scale),
+        native.ptr(a_scale), native.ptr(bias), native.ptr(y),
+        native.ptr(amax) if want_amax else None, b, h, w, cin, cout, kh,
+        PAD_MODES[pad_mode], _DTYPES[out_dtype], int(leak is not None),
+        float(leak or 0.0), native.stream_of(x))
+  native.check(status, 'conv_layer_int8')
+  conv_layer_int8_cuda.launches += 1
+  return y, (amax.view(torch.float32) if want_amax else None)
+
+
+conv_layer_int8_cuda.launches = 0
+
+
+def requant_cuda(y, amax):
+  """Launch the requant kernel (csrc/conv_int8.cu) on a CUDA tensor; same
+  contract as ``requant_plain``."""
+  if y.device.type != 'cuda' or y.dtype != torch.float32:
+    raise ValueError('requant_cuda takes a float32 CUDA tensor, got {} '
+                     '{}'.format(y.dtype, y.device))
+  if y.ndim != 4 or not y.is_contiguous() or y.numel() % (4 * y.shape[0]):
+    raise ValueError('requant_cuda: y must be a contiguous NHWC tensor of '
+                     'a multiple of 4 values per image')
+  b = y.shape[0]
+  if amax.shape != (b,) or amax.dtype != torch.float32:
+    raise ValueError('requant_cuda: amax must be (B,) float32')
+  amax = amax.to(y.device).contiguous()
+  xi = torch.empty(y.shape, device=y.device, dtype=torch.int8)
+  scale = torch.empty(b, device=y.device, dtype=torch.float32)
+  with torch.cuda.device(y.device):
+    status = _lib_int8().requant_int8(
+        native.ptr(y), native.ptr(amax), native.ptr(xi), native.ptr(scale),
+        b, y.numel() // b, native.stream_of(y))
+  native.check(status, 'requant_int8')
+  requant_cuda.launches += 1
+  return xi, scale
+
+
+requant_cuda.launches = 0
+
+
+def conv_layer_int8(x, act_scale, layer, pad_mode='reflection',
+                    out_dtype=torch.float32, want_amax=False):
+  """One quantized layer: the kernel on CUDA, the plain version on CPU."""
+  fn = conv_layer_int8_plain if x.device.type == 'cpu' else \
+      conv_layer_int8_cuda
+  return fn(x, act_scale, layer, pad_mode, out_dtype, want_amax)
+
+
+def requant(y, amax):
+  """Requantize for the next layer: the kernel on CUDA, plain on CPU."""
+  return (requant_plain if y.device.type == 'cpu' else requant_cuda)(y, amax)
+
+
+def fused_conv_chain_int8(x_int8, act_scale, qlayers, pad_mode='reflection',
+                          out_dtype=torch.bfloat16):
+  """Run a quantized chain: int8 (B, H, W, Cin) input with per-image
+  ``act_scale`` (B,), int8 layers with ``w_scale``. Intermediate layers
+  write f32 and their per-image amax, then requantize; the last writes
+  ``out_dtype``. On CUDA that is one conv launch per layer and one requant
+  launch between layers."""
+  if pad_mode not in PAD_MODES:
+    raise ValueError('unknown pad mode {!r}'.format(pad_mode))
+  _check_channels(x_int8, qlayers)
+  if any(layer.w_scale is None for layer in qlayers):
+    raise ValueError('fused_conv_chain_int8 needs w_scale on every layer')
+  x, scale = x_int8, act_scale
+  for i, layer in enumerate(qlayers):
+    if i + 1 == len(qlayers):
+      return conv_layer_int8(x, scale, layer, pad_mode, out_dtype)[0]
+    y, amax = conv_layer_int8(x, scale, layer, pad_mode, torch.float32,
+                              want_amax=True)
+    x, scale = requant(y, amax)

@@ -2,6 +2,9 @@
 
     python -m csmri_refinement_tpu_torch.profile_flagship [--dtype bf16]
 
+``--dtype int8`` is bf16 compute with the U-Net's int8 serving mode
+(``quantize_inference``), as ``bench.py --dtype int8``.
+
 Builds ``build_flagship`` on the card at the flagship's 256² and B = 32
 (as ``chip_smoke.py``), warms up, then traces three forwards with
 ``torch.profiler`` (CPU + CUDA activities) and prints: the card's name and
@@ -19,7 +22,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from csmri_refinement_tpu_torch.flagship import build_flagship
 
-_DTYPES = {'bf16': torch.bfloat16, 'f32': torch.float32}
+_DTYPES = {'bf16': torch.bfloat16, 'f32': torch.float32,
+           'int8': torch.bfloat16}
 SIZE, BATCH, FORWARDS, TOP = 256, 32, 3, 25
 
 
@@ -31,8 +35,9 @@ def main(argv=None):
   torch.backends.cuda.matmul.allow_tf32 = False
 
   card = card_line()
-  model, undersample_batch = build_flagship(SIZE, _DTYPES[args.dtype],
-                                            'cuda', seed=0)
+  model, undersample_batch = build_flagship(
+      SIZE, _DTYPES[args.dtype], 'cuda', seed=0,
+      quantize_inference=args.dtype == 'int8')
   gen = torch.Generator(device='cuda').manual_seed(0)
   batch = undersample_batch(gen, torch.rand(BATCH, SIZE, SIZE, device='cuda',
                                             generator=gen), 'varden', 8)

@@ -19,6 +19,9 @@ from csmri_refinement_tpu_torch.ops import conv_chain as cc
 from csmri_refinement_tpu_torch.ops import dc_kernel
 from csmri_refinement_tpu_torch.ops import fft
 from csmri_refinement_tpu_torch.ops import masks
+from csmri_refinement_tpu_torch.ops import quantize
+from csmri_refinement_tpu_torch.probes import int8_prims
+from csmri_refinement_tpu_torch.probes import mosaic_prims
 
 pytestmark = pytest.mark.cuda
 
@@ -154,3 +157,104 @@ def test_recnet_backward_reaches_every_block_on_card(cuda):
       (3, 3)
   for name, p in model.named_parameters():
     assert p.grad is not None and p.grad.abs().sum().item() > 0, name
+
+
+def _int8_layer(cuda, gen, k, cin, cout, leak=0.1):
+  w = torch.randn(k, k, cin, cout, device=cuda, generator=gen)
+  bias = torch.randn(cout, device=cuda, generator=gen) * 0.1
+  return quantize.quantize_chain([cc.ChainLayer(w, bias, leak)])[0]
+
+
+@pytest.mark.parametrize('out_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('pad', ['reflection', 'replication', 'zero'])
+@pytest.mark.parametrize('k,cin,cout', [(3, 32, 16), (4, 32, 64),
+                                        (4, 64, 32), (4, 128, 128)])
+def test_conv_int8_kernel_matches_plain(cuda, k, cin, cout, pad, out_dtype):
+  """K3 vs its plain version: exact int32 sums and the same FMA epilogue,
+  so equal up to float noise (1e-6 relative); odd sizes exercise the tile
+  overhang at every border."""
+  gen = torch.Generator(device=cuda).manual_seed(k * cin + cout)
+  x = torch.randint(-127, 128, (2, 19, 37, cin), device=cuda, generator=gen,
+                    dtype=torch.int8)
+  a_scale = torch.rand(2, device=cuda, generator=gen) * 0.1 + 0.01
+  layer = _int8_layer(cuda, gen, k, cin, cout)
+  want_amax = out_dtype == torch.float32
+  got, amax = cc.conv_layer_int8_cuda(x, a_scale, layer, pad, out_dtype,
+                                      want_amax)
+  torch.cuda.synchronize()
+  want, ref_amax = cc.conv_layer_int8_plain(x, a_scale, layer, pad,
+                                            out_dtype, want_amax)
+  scale = want.float().abs().max().item()
+  assert got.dtype == out_dtype and got.shape == want.shape
+  assert (got.float() - want.float()).abs().max().item() <= 1e-6 * scale
+  if want_amax:
+    torch.testing.assert_close(amax, ref_amax, rtol=1e-6, atol=0)
+
+
+def test_requant_kernel_matches_plain(cuda):
+  """Exact: the same IEEE division and half-to-even rounding, on .5 ties
+  and on an all-zero image (the 1e-8 floor)."""
+  gen = torch.Generator(device=cuda).manual_seed(0)
+  y = torch.randn(3, 16, 16, 32, device=cuda, generator=gen)
+  y[0, 0, 0, 0] = 127 * 0.25       # s = 4: y · s exact
+  y[0, 1, 0, :4] = torch.tensor([0.5, 1.5, 2.5, -3.5], device=cuda) * 0.25
+  y[0].clamp_(-127 * 0.25, 127 * 0.25)
+  y[2] = 0
+  amax = y.abs().amax(dim=(1, 2, 3))
+  xi, scale = cc.requant_cuda(y, amax)
+  torch.cuda.synchronize()
+  want_x, want_s = cc.requant_plain(y, amax)
+  assert torch.equal(xi, want_x) and torch.equal(scale, want_s)
+  assert xi[0, 1, 0, :4].tolist() == [0, 2, 2, -4]
+
+
+def test_int8_wrappers_raise_on_unsupported_inputs(cuda):
+  gen = torch.Generator(device=cuda).manual_seed(0)
+  layer = _int8_layer(cuda, gen, 3, 32, 32)
+  x = torch.zeros(1, 8, 8, 32, device=cuda, dtype=torch.int8)
+  one = torch.ones(1, device=cuda)
+  with pytest.raises(ValueError):
+    cc.conv_layer_int8_cuda(x.float(), one, layer)            # not int8
+  with pytest.raises(ValueError):
+    cc.conv_layer_int8_cuda(x[..., :16].contiguous(), one,
+                            _int8_layer(cuda, gen, 3, 16, 32))  # Cin 16
+  with pytest.raises(ValueError):
+    cc.conv_layer_int8_cuda(x, one, layer._replace(w_scale=None))
+  with pytest.raises(ValueError):
+    cc.conv_layer_int8_cuda(x, one, layer, out_dtype=torch.float16)
+  with pytest.raises(ValueError):
+    cc.requant_cuda(torch.zeros(1, 3, 3, 3, device=cuda), one)  # 27 values
+  with pytest.raises(ValueError):
+    cc.requant_cuda(x.double(), one)
+
+
+def test_flagship_int8_forward_launches_kernels(cuda):
+  """At 64² each U-Net chain quantizes its second layer: 3 K1, 5 K2 (the
+  float prefix layers), 5 K3 convs, no requant."""
+  model, undersample_batch = build_flagship(64, torch.bfloat16, 'cuda', 0,
+                                            quantize_inference=True)
+  gen = torch.Generator(device=cuda).manual_seed(0)
+  batch = undersample_batch(gen, torch.rand(2, 64, 64, device=cuda,
+                                            generator=gen), 'varden', 8)
+  counters = (dc_kernel.dc_cuda, cc.conv_layer_cuda, cc.conv_layer_int8_cuda,
+              cc.requant_cuda)
+  for c in counters:
+    c.launches = 0
+  quantize.reset_trace_log()
+  with torch.inference_mode():
+    out = model(batch['inp'], batch['kspace'], batch['mask'])
+  torch.cuda.synchronize()
+  assert tuple(c.launches for c in counters) == (3, 5, 5, 0)
+  assert not quantize.fell_back_to_bf16()
+  assert out['pred'].shape == (2, 64, 64, 2)
+  assert bool(torch.isfinite(out['pred'].float()).all())
+
+
+@pytest.mark.parametrize('module', [mosaic_prims, int8_prims],
+                         ids=['mosaic', 'int8'])
+def test_probes_pass_on_card(cuda, module):
+  before = module.probe_cuda.launches
+  results = module.run_all('cuda')
+  assert [r.status for r in results] == ['OK'] * len(module.PROBES), results
+  assert module.probe_cuda.launches == before + len(module.PROBES)

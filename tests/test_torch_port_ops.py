@@ -226,7 +226,12 @@ def test_port_imports_no_jax():
           'csmri_refinement_tpu_torch.data.transform_wrappers, '
           'csmri_refinement_tpu_torch.metrics.image_metrics, '
           'csmri_refinement_tpu_torch.metrics.scalar_metrics, '
-          'csmri_refinement_tpu_torch.profile_train; '
+          'csmri_refinement_tpu_torch.profile_train, '
+          'csmri_refinement_tpu_torch.profile_flagship, '
+          'csmri_refinement_tpu_torch.ops.quantize, '
+          'csmri_refinement_tpu_torch.quality_dtype_table, '
+          'csmri_refinement_tpu_torch.probes.mosaic_prims, '
+          'csmri_refinement_tpu_torch.probes.int8_prims; '
           'bad = [m for m in set(sys.modules) - before if m.split(".")[0] in '
           '("jax", "flax", "csmri_refinement_tpu")]; '
           'assert not bad, bad')
