@@ -29,8 +29,11 @@
 // f32(1/127), which is what XLA makes of the JAX package's amax / 127.0.
 //
 // What bounds it on the H100: operations. The seven quantized layers of the
-// flagship U-Net at 256^2, B = 32, do 412.3 G int8 operations against 1 to 2
-// bytes of activations per channel and pixel: 0.208 ms at 1979 TOP/s.
+// flagship U-Net at 256^2, B = 32, do 412.3 G int8 operations, 0.208 ms at
+// 1979 TOP/s; the bytes the work needs (each chain's int8 input, weights and
+// bf16 output, 629.7 MB) take 0.188 ms at 3.35 TB/s. The f32 intermediates
+// and the requant launches of this one-launch-per-layer design are extra
+// cost on top of that bound.
 //
 // Design: K2's implicit GEMM (csrc/conv_chain.cu) with int8 operands. A
 // block computes 16 x 16 output pixels by NT output channels of one image.

@@ -9,9 +9,7 @@ Port of ``csmri_refinement_tpu/models/unet.py``:
   kernel on the card (``unet.py:286-318``) — or, with
   ``quantize_inference``, through ``ops/quantize.chain_forward_int8`` (the
   int8 serving mode). In train mode it is a plain conv + batch-stat BN, and
-  both flags are ignored (``unet.py:324``). ``fused_inference`` is accepted
-  for config parity: the JAX package fuses eval chains only when it is set,
-  the port always does.
+  the flag is ignored (``unet.py:324``).
 * ``ConvDecodeUnit`` (``:365-471``) in the ``nn-resize-conv`` and ``nn``
   modes, with ``act_upsampling_only``. The up-conv is nearest-up2 → SAME pad
   of the upsampled image → conv: the math that the JAX package's
@@ -69,10 +67,8 @@ class ConvEncodeUnit(nn.Module):
 
   def __init__(self, in_channels, num_layers, num_filters, kernel_size,
                relu_leakiness, use_bn, downsample, use_act=True,
-               padding='zero', dtype=None, fused_inference=False,
-               quantize_inference=False):
+               padding='zero', dtype=None, quantize_inference=False):
     super().__init__()
-    self.fused_inference = fused_inference
     self.quantize_inference = quantize_inference
     self.num_layers = num_layers
     self.kernel_size = kernel_size
@@ -144,7 +140,7 @@ class ConvDecodeUnit(nn.Module):
   def __init__(self, in_channels, encoder_channels, num_filters,
                relu_leakiness, use_bn, use_act=True, kernel_size=3,
                num_layers=0, mode='nn-resize-conv', padding='zero',
-               act_upsampling_only=False, dtype=None, fused_inference=False,
+               act_upsampling_only=False, dtype=None,
                quantize_inference=False):
     super().__init__()
     if mode not in PORTED_UPSAMPLING_MODES:
@@ -172,8 +168,7 @@ class ConvDecodeUnit(nn.Module):
       self.decode = ConvEncodeUnit(
           merged, num_layers, num_filters, kernel_size, relu_leakiness,
           use_bn, downsample=False, use_act=use_act, padding=padding,
-          dtype=dtype, fused_inference=fused_inference,
-          quantize_inference=quantize_inference)
+          dtype=dtype, quantize_inference=quantize_inference)
       self.out_channels = num_filters
 
   def forward(self, decode_path, encode_path=None):
@@ -198,7 +193,11 @@ class ConvDecodeUnit(nn.Module):
 
 
 class UNET(nn.Module):
-  """``forward(inp)``: (B, H, W, num_inputs) → (B, H, W, num_outputs)."""
+  """``forward(inp)``: (B, H, W, num_inputs) → (B, H, W, num_outputs).
+
+  ``fused_inference`` is accepted for config parity and has no effect: the
+  JAX package fuses eval chains only when it is set, the port always does.
+  """
 
   def __init__(self, num_inputs, num_outputs, num_layers_per_scale,
                encode_filters, decode_filters, output_activation,
@@ -224,8 +223,7 @@ class UNET(nn.Module):
       self.add_module('encode_{}'.format(scale), ConvEncodeUnit(
           cin, num_layers_per_scale, f, kernel_size, relu_leakiness[0],
           use_bn, downsample=scale != n_enc - 1, padding=padding,
-          dtype=dtype, fused_inference=fused_inference,
-          quantize_inference=quantize_inference))
+          dtype=dtype, quantize_inference=quantize_inference))
       cin = f
     for scale, f in enumerate(decode_filters):
       skip = scale < n_enc - 1
@@ -235,8 +233,7 @@ class UNET(nn.Module):
           relu_leakiness[1], use_bn, kernel_size=kernel_size,
           num_layers=num_layers_per_scale, mode=upsampling_mode,
           padding=padding, act_upsampling_only=decoder_act_upsampling_only,
-          dtype=dtype, fused_inference=fused_inference,
-          quantize_inference=quantize_inference)
+          dtype=dtype, quantize_inference=quantize_inference)
       self.add_module(name.format(scale if skip else scale - (n_enc - 1)),
                       unit)
       cin = unit.out_channels

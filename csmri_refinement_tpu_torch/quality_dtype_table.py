@@ -14,12 +14,15 @@ table gives PSNR and SSIM of the reconstruction magnitudes (clipped to
           ``[bf16 VMEM-fallback]`` where a chain quantized no layer
 
     python -m csmri_refinement_tpu_torch.quality_dtype_table \
-        [--sizes 256 512] [--batch 8] [--device cuda|cpu]
+        [--sizes 256 512] [--batch 8] [--device cuda|cpu] \
+        [--refinement-scale 0.5]
 
 Prints one markdown table. Weights are the seeded random init; the JAX
 script's ``--checkpoint`` (trained weights) waits for the port's checkpoint
-loaders. With the random init the wrapper's ``scale`` is 0 and the U-Net
-does not reach the output unless ``refinement_scale`` is given.
+loaders. The random init sets the wrapper's ``scale`` to 0, so the U-Net
+(the only part that int8 changes) does not reach the output and the int8
+row equals the bf16 row; ``--refinement-scale`` (default 0.5) sets the
+scale so that it does. ``--refinement-scale 0`` keeps the init.
 """
 
 import argparse
@@ -89,11 +92,14 @@ def main(argv=None):
   parser.add_argument('--sizes', type=int, nargs='*', default=[256, 512])
   parser.add_argument('--batch', type=int, default=8)
   parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda')
+  parser.add_argument('--refinement-scale', type=float, default=0.5,
+                      help='the wrapper\'s scale (0 at the random init, where '
+                      'the U-Net does not reach the output)')
   args = parser.parse_args(argv)
   if args.device == 'cuda':
     torch.backends.cudnn.allow_tf32 = False    # f32 means f32
     torch.backends.cuda.matmul.allow_tf32 = False
-  rows = table(args.sizes, args.batch, args.device)
+  rows = table(args.sizes, args.batch, args.device, args.refinement_scale)
   print_table(rows)
   return rows
 
