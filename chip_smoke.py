@@ -20,7 +20,11 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
 6. the same weights and inputs, f32, B=2, on the card (kernels) and on the
    CPU (plain versions): outputs and PSNR must agree;
 7. timings with CUDA events: each kernel, its plain version, the library
-   call, and the forward's slices/s;
+   call, and the forward's slices/s; K1 at both phase-3 shapes beside
+   cuFFT's composition; K2 per chain, then each of the 10 flagship layers
+   with its route, ms, TFLOP/s and share of its own bound. K1, K1-bwd and
+   the single layers are timed as device time (``graph_ms``: CUDA-graph
+   replays), since their wrappers' host time exceeds the shorter kernels;
 8. the DC backward (K1-bwd, through ``_DCFunction``) vs its plain version
    ``dc_plain_vjp`` at the training shape (256², B=16) and 512², B=4, with
    and without a k0 gradient;
@@ -164,11 +168,37 @@ def time_ms(fn, iters=20, warmup=3):
   return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls=20, replays=5):
+  """Device ms per call of ``fn``: ``calls`` calls captured in one CUDA
+  graph after a warm-up, the graph replayed. Unlike ``time_ms`` it leaves
+  out the host's cost of each call (a wrapper's checks, allocations and
+  launch), which bounds an eager loop of kernels shorter than it."""
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    fn()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    for _ in range(calls):
+      fn()
+  graph.replay()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(replays):
+    graph.replay()
+  end.record()
+  sync()
+  return start.elapsed_time(end) / (replays * calls)
+
+
 def dc_phase():
-  """Phase 3; returns (max_abs_err at the main-path shape, inputs)."""
+  """Phase 3; returns (max_abs_err at the main-path shape, {side:
+  inputs})."""
   from csmri_refinement_tpu_torch.ops import dc_kernel, fft, masks
   errs = {}
-  inputs = None
+  inputs = {}
   for b, n in ((BATCH, SIZE), (BATCH // 4, 2 * SIZE)):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + n)
     x = torch.randn(b, n, n, 2, device=DEVICE, generator=gen)
@@ -189,8 +219,7 @@ def dc_phase():
     require(err <= F32_ATOL, 'DC kernel differs from its plain version')
     require(line_err <= F32_ATOL, 'DC kernel does not keep sampled lines')
     errs[n] = err
-    if n == SIZE:
-      inputs = (x, k0, m, fft.unpack_complex(x), k0c, mask)
+    inputs[n] = (x, k0, m, fft.unpack_complex(x), k0c, mask)
   return errs[SIZE], inputs
 
 
@@ -318,6 +347,31 @@ def library_chain(x, chain, pad):
     y = L.same_pad(y, k, pad).contiguous(memory_format=cl)
     y = F.leaky_relu(F.conv2d(y, w, layer.bias.to(x.dtype)), layer.leakiness)
   return y
+
+
+def k2_layer_table(cases, line):
+  """Each flagship K2 layer on its own, device time (``graph_ms``):
+  route, ms, TFLOP/s, and the share of its own bound (operations or bytes,
+  whichever is larger)."""
+  from csmri_refinement_tpu_torch.ops import conv_chain
+  total = 0.0
+  for name, x, chain, pad in cases:
+    for i, layer in enumerate(chain):
+      b, h, w, cin = x.shape
+      k, _, _, cout = layer.kernel.shape
+      ms = graph_ms(lambda: conv_chain.conv_layer_cuda(x, layer, pad),
+                    calls=5, replays=2)
+      flops = 2 * b * h * w * k * k * cin * cout
+      bytes_ = 2 * (b * h * w * (cin + cout) + k * k * cin * cout) + 4 * cout
+      b_ms, by = bound(flops, bytes_, BF16_FLOPS)
+      print('K2 layer {}[{}] B{} {}^2 {}->{} k{}: route {}, {:.4f} ms, {:.1f} '
+            'TFLOP/s, {:.1%} of its bound {:.4f} ms ({}) ({})'.format(
+                name, i, b, h, cin, cout, k,
+                conv_chain.conv_route(cin, cout, x.dtype), ms,
+                flops / ms / 1e9, b_ms / ms, b_ms, by, line))
+      total += ms
+      x = conv_chain.conv_layer_cuda(x, layer, pad)
+  print('K2 layers one by one: {:.3f} ms ({})'.format(total, line))
 
 
 def dc_bwd_phase():
@@ -846,18 +900,20 @@ def main():
   e2e_phase(P)
 
   # Phase 7: timings
-  x, k0, m, xc, k0c, mask = dc_inputs
-  dc_ms = time_ms(lambda: dc_kernel.dc_cuda(x, k0, m))
-  dc_plain_ms = time_ms(lambda: dc_kernel.dc_plain(x, k0, m))
-  dc_lib_ms = time_ms(lambda: torch.fft.ifft2(
-      (1 - mask) * torch.fft.fft2(xc, norm='ortho') + k0c, norm='ortho'))
-  b, n = x.shape[0], x.shape[1]
-  dc_bytes = 28 * b * n * n
-  dc_flops = 10 * b * n * n * math.log2(n * n)
-  dc_bound, dc_by = bound(dc_flops, dc_bytes, F32_FLOPS)
-  print('K1 dc B{} {}^2: kernel {:.4f} ms, plain {:.4f} ms, cuFFT {:.4f} ms, '
-        'bound {:.4f} ms ({})'.format(b, n, dc_ms, dc_plain_ms, dc_lib_ms,
-                                      dc_bound, line))
+  for n in sorted(dc_inputs, reverse=True):   # 512^2 B8, then the main path
+    x, k0, m, xc, k0c, mask = dc_inputs[n]
+    dc_ms = graph_ms(lambda: dc_kernel.dc_cuda(x, k0, m))
+    dc_plain_ms = graph_ms(lambda: dc_kernel.dc_plain(x, k0, m))
+    dc_lib_ms = graph_ms(lambda: torch.fft.ifft2(
+        (1 - mask) * torch.fft.fft2(xc, norm='ortho') + k0c, norm='ortho'))
+    b = x.shape[0]
+    dc_bytes = 28 * b * n * n
+    dc_flops = 10 * b * n * n * math.log2(n * n)
+    dc_bound, dc_by = bound(dc_flops, dc_bytes, F32_FLOPS)
+    print('K1 dc B{} {}^2: kernel {:.4f} ms, plain {:.4f} ms, cuFFT {:.4f} '
+          'ms ({:.2f}x the kernel), bound {:.4f} ms ({})'.format(
+              b, n, dc_ms, dc_plain_ms, dc_lib_ms, dc_lib_ms / dc_ms,
+              dc_bound, line))
 
   def chains(fn):
     return lambda: [fn(cx, ch, pad) for _, cx, ch, pad in chain_cases]
@@ -883,10 +939,11 @@ def main():
     print('K2 {} B{}: kernel {:.3f} ms ({:.1f} TFLOP/s), cuDNN {:.3f} ms, '
           '{:.2f} GFLOP'.format(name, cx.shape[0], one, f / one / 1e9, lib,
                                 f / 1e9))
-  print('K2 conv chains B{} (10 layers): kernel {:.3f} ms, plain {:.3f} ms, '
-        'cuDNN {:.3f} ms, bound {:.4f} ms, {:.1f} GFLOP ({})'.format(
-            BATCH, conv_ms, conv_plain_ms, conv_lib_ms, conv_bound,
-            c_flops / 1e9, line))
+  print('K2 conv chains B{} (10 layers): kernel {:.3f} ms ({:.1f} TFLOP/s), '
+        'plain {:.3f} ms, cuDNN {:.3f} ms, bound {:.4f} ms, {:.1f} GFLOP '
+        '({})'.format(BATCH, conv_ms, c_flops / conv_ms / 1e9, conv_plain_ms,
+                      conv_lib_ms, conv_bound, c_flops / 1e9, line))
+  k2_layer_table(chain_cases, line)
 
   with torch.inference_mode():
     fwd_ms = time_ms(lambda: model(*args), iters=5, warmup=1)
@@ -919,18 +976,21 @@ def main():
   from csmri_refinement_tpu_torch.ops import fft
   gc = fft.unpack_complex(g)
   gmask = gm[..., 0]
-  bwd_ms = time_ms(lambda: dc_kernel.dc_bwd_cuda(g, gm))
-  dc16_ms = time_ms(lambda: dc_kernel.dc_cuda(g, g, gm))
-  bwd_plain_ms = time_ms(lambda: dc_kernel.dc_plain_vjp(g, gm, False))
-  bwd_lib_ms = time_ms(lambda: torch.fft.ifft2(
+  bwd_ms = graph_ms(lambda: dc_kernel.dc_bwd_cuda(g, gm))
+  bwd_eager_ms = time_ms(lambda: dc_kernel.dc_bwd_cuda(g, gm))
+  dc16_ms = graph_ms(lambda: dc_kernel.dc_cuda(g, g, gm))
+  bwd_plain_ms = graph_ms(lambda: dc_kernel.dc_plain_vjp(g, gm, False))
+  bwd_lib_ms = graph_ms(lambda: torch.fft.ifft2(
       (1 - gmask) * torch.fft.fft2(gc, norm='ortho'), norm='ortho'))
   b, n = g.shape[0], g.shape[1]
   bwd_bytes = 20 * b * n * n       # g 8, mask 4, grad_x 8 (no k0)
   bwd_flops = 10 * b * n * n * math.log2(n * n)
   bwd_bound, bwd_by = bound(bwd_flops, bwd_bytes, F32_FLOPS)
-  print('K1-bwd dc B{} {}^2: kernel {:.4f} ms, plain {:.4f} ms, cuFFT '
-        '{:.4f} ms, bound {:.4f} ms ({})'.format(
-            b, n, bwd_ms, bwd_plain_ms, bwd_lib_ms, bwd_bound, line))
+  print('K1-bwd dc B{} {}^2: kernel {:.4f} ms (eager calls {:.4f} ms, '
+        'bound by the wrapper\'s host time), plain {:.4f} ms, cuFFT {:.4f} '
+        'ms, bound {:.4f} ms ({})'.format(b, n, bwd_ms, bwd_eager_ms,
+                                          bwd_plain_ms, bwd_lib_ms,
+                                          bwd_bound, line))
   gt, mask = fixed_batches(gpu_runner.conf, 1)[0]
   from csmri_refinement_tpu_torch.ops import undersample as us
   tbatch = us.undersample_batch(None, gt.to(DEVICE),

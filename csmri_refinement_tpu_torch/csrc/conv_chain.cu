@@ -7,46 +7,65 @@
 //
 //     y = act(conv_same(x, w) + bias)     act = LeakyReLU or identity
 //
-// NHWC x (B, H, W, Cin), HWIO w (k, k, Cin, Cout), k in {3, 4}, BN already
-// folded into w and the f32 bias; SAME pad (1, 1) for k3 and (1, 2) for k4
-// with reflect, replicate or zero padding, exact at every border; f32
-// accumulation; the result is cast to the compute type (bf16 or f32), which
-// is the rounding of intermediates in conv_pallas.py:386-388.
+// NHWC x (B, H, W, Cin), k in {3, 4}, BN already folded into w and the f32
+// bias; SAME pad (1, 1) for k3 and (1, 2) for k4 with reflect, replicate or
+// zero padding, exact at every border; f32 accumulation; the result is
+// cast to the compute type (bf16 or f32), which is the rounding of
+// intermediates in conv_pallas.py:386-388.
 //
 // What bounds it on the H100: operations. A flagship U-Net layer does
 // 2*k*k*Cin*Cout flops per pixel (16-32 K) against 2*(Cin+Cout) bytes of
 // bf16 activations: far above the ~295 flop/B ridge of bf16.
 //
-// Design: a direct, implicit-GEMM conv. Each block computes an output tile
-// of kTileH x kTileW pixels by NT output channels of one image. Per chunk of
-// 16 input channels it stages the input halo tile in shared memory, with the
-// pad mode applied in the index mapping (reflect: -1 -> 1, H -> H-2,
-// H+1 -> H-3; replicate: clamp; zero: 0), and the chunk's k*k*16*NT
-// weights, both with 16-byte loads where the channel count allows. bf16 runs
-// on the tensor cores through WMMA 16x16x16 fragments: a 16-pixel output
-// row segment is a row-major A fragment read straight out of the halo tile
-// at each tap's offset (no im2col); f32 runs exact FMAs on the CUDA cores
-// (WMMA would round f32 to TF32). The f32 tile lands in shared memory for a
-// common epilogue: + bias, LeakyReLU, cast, store. The staging is the cost
-// that is left: it is not overlapped with the MMAs. One launch per layer:
-// the TPU kernel keeps a whole chain on chip, which is later work here, as
-// are wgmma, TMA and a pipelined operand ring.
+// bf16 (the main path): an implicit GEMM on the tensor cores with wgmma.
+// An output tile is R rows x 64 columns of one image by N = all of Cout
+// up to 128, so each input halo is read once per tile. M = pixels, N =
+// output channels, K = taps x Cin in the order (Cin chunk, tap, channel
+// in chunk). Two warpgroups each own R / 2 rows: one m64nNk16 wgmma per
+// row, per 16 of K. R / 2 is 4 for Cout <= 64 and 2 for 128: each
+// warpgroup holds 64 (two blocks on an SM) or 128 f32 accumulators, and
+// each barrier of the K loop is shared by 4 x R / 2 wgmmas per warpgroup
+// (two rows per warpgroup measured up to 1.4x slower).
+//   - A from shared memory: the halo is stored as planes, one per 8
+//     channels, of 16-byte pixel rows, so the 64 pixels of a row at any
+//     tap (dy, dx) are one K-major no-swizzle wgmma tile (8-pixel core
+//     matrices 128 bytes apart, the next 8 channels one plane on): a
+//     tap's shift is only the descriptor's start address, and nothing is
+//     copied per tap (no im2col, no ldmatrix, no A registers).
+//   - B from shared memory: the wrapper packs the weights once per call,
+//     K-major (Cout, K) with K padded to 64 (ops/conv_chain.py::
+//     pack_weights); a stage is 64 of K for all N, one 128-byte row per
+//     output channel, stored with the 128-byte swizzle the wgmma
+//     descriptor names.
+//   - Staging: persistent blocks walk tiles; the K stages of all their
+//     tiles form one stream. A ring of 4 weight stages is filled by TMA
+//     (one thread issues a 64 x N box per stage, the tensor map built on
+//     the host, completion on an mbarrier per slot) two stages ahead of
+//     the MMAs. The halo of the next chunk (or the next tile's first
+//     chunk) loads with 16-byte cp.async into the second of two halo
+//     buffers from the second stage of the current chunk on, once the
+//     MMAs that read that buffer are done; zero padding is cp.async's
+//     zero fill, the other pad modes the source-index map (pad_index).
+//     (A TMA box per halo plane measured slower: its 16-byte rows.) Halo
+//     chunks are 16 channels for Cin <= 16, else 32, or 64 for k3
+//     (ops/conv_chain.py::gemm_layout).
+//   - Routes, by shape (ops/conv_chain.py::conv_route): Cin % 8 == 0 stages
+//     16-byte groups ("wgmma"); other even Cin 4-byte channel pairs
+//     ("wgmma, 4-byte staging": the 2-channel stem, whose pad channels
+//     are zeroed once); odd Cin is gathered by the threads ("wgmma,
+//     gathered halo").
+//   - The epilogue runs from the accumulator registers: + bias, LeakyReLU,
+//     bf16, a 4x4 transpose within each lane quad, 16-byte stores.
+// f32 (parity and tests only): a direct conv with exact FMAs on the CUDA
+// cores (wgmma would round f32 to TF32), staged per 16-channel chunk.
+// One launch per layer: keeping a whole chain on chip is later work.
 
+#include <cuda.h>  // CUtensorMap; the encoder comes from the driver at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
-
-using namespace nvcuda;
-
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kTileH = 16;     // output rows per block: 2 per warp
-constexpr int kTileW = 16;     // output columns per block: one WMMA M = 16
-constexpr int kChunk = 16;     // input channels staged per step: WMMA K = 16
 
 enum PadMode { kZero = 0, kReflect = 1, kReplicate = 2 };
 
@@ -60,92 +79,73 @@ __device__ __forceinline__ int pad_index(int i, int n, int mode) {
   return min(max(i, 0), n - 1);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+// --- f32: direct conv with FMAs ----------------------------------------
 
-template <typename T, int K, int NT>
-struct Tile {
-  static constexpr int kVec = 16 / (int)sizeof(T);  // elements per 16 B
-  static constexpr int kPad = (K - 1) / 2;          // top/left SAME pad
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kTileH = 16;     // output rows per block
+constexpr int kTileWf = 16;    // output columns per block
+constexpr int kChunk = 16;     // input channels staged per step
+
+template <int K, int NT>
+struct F32Tile {
+  static constexpr int kPad = (K - 1) / 2;  // top/left SAME pad
   static constexpr int kHaloH = kTileH + K - 1;
-  static constexpr int kHaloW = kTileW + K - 1;
-  static constexpr int kHaloElems = kHaloH * kHaloW * kChunk;
+  static constexpr int kHaloW = kTileWf + K - 1;
   static constexpr int kHaloBytes =
-      (int)((kHaloElems * sizeof(T) + 127) / 128 * 128);
-  // Weight rows padded by 8 elements: WMMA B loads then spread over banks.
-  static constexpr int kWLd = NT + 8;
-  static constexpr int kWElems = K * K * kChunk * kWLd;
-  static constexpr int kWBytes = (int)(kWElems * sizeof(T));
-  static constexpr int kOutBytes = kTileH * kTileW * NT * 4;
+      (kHaloH * kHaloW * kChunk * 4 + 127) / 128 * 128;
+  static constexpr int kWLd = NT + 8;  // padded weight rows
+  static constexpr int kWBytes = K * K * kChunk * kWLd * 4;
+  static constexpr int kOutBytes = kTileH * kTileWf * NT * 4;
   static constexpr int kSmem = kHaloBytes + kWBytes > kOutBytes
                                    ? kHaloBytes + kWBytes
                                    : kOutBytes;
 };
 
-template <typename T, int K, int NT>
+template <int K, int NT>
 __global__ void __launch_bounds__(kThreads)
-conv_layer_kernel(const T* __restrict__ x, const T* __restrict__ wt,
-                  const float* __restrict__ bias, T* __restrict__ y, int h,
-                  int w, int cin, int cout, int pad_mode, int has_leak,
-                  float leak, int vec_x) {
-  using TL = Tile<T, K, NT>;
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int V = TL::kVec;
+conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+                const float* __restrict__ bias, float* __restrict__ y, int h,
+                int w, int cin, int cout, int pad_mode, int has_leak,
+                float leak, int vec_x) {
+  using TL = F32Tile<K, NT>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* halo = reinterpret_cast<T*>(smem);
-  T* ws = reinterpret_cast<T*>(smem + TL::kHaloBytes);
+  float* halo = reinterpret_cast<float*>(smem);
+  float* ws = reinterpret_cast<float*>(smem + TL::kHaloBytes);
   float* out = reinterpret_cast<float*>(smem);  // after the channel loop
 
-  const int tiles_w = (w + kTileW - 1) / kTileW;
+  const int tiles_w = (w + kTileWf - 1) / kTileWf;
   const int oy0 = (blockIdx.x / tiles_w) * kTileH;
-  const int ox0 = (blockIdx.x % tiles_w) * kTileW;
+  const int ox0 = (blockIdx.x % tiles_w) * kTileWf;
   const int n0 = blockIdx.z * NT;
-  const T* xb = x + (size_t)blockIdx.y * h * w * cin;
+  const float* xb = x + (size_t)blockIdx.y * h * w * cin;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const T zero = from_float<T>(0.f);
-  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  // bf16: WMMA accumulators, rows 2*warp and 2*warp+1 of the tile.
-  constexpr int NF = NT / 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_tc[2][NF];
-  // f32: pixels 128*(warp/4) + lane + 32*i by channels (warp%4)*NQ + j.
+  // pixels 128*(warp/4) + lane + 32*i by channels (warp%4)*NQ + j
   constexpr int NQ = NT / 4;
   const int pbase = (warp >> 2) * 128 + lane;
   const int qbase = (warp & 3) * NQ;
   float acc[4][NQ];
-  if constexpr (kBf16) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc_tc[r][f], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) acc[i][j] = 0.f;
-  }
+    for (int j = 0; j < NQ; ++j) acc[i][j] = 0.f;
 
   for (int c0 = 0; c0 < cin; c0 += kChunk) {
     if (vec_x) {  // cin % 16 == 0 and x 16-byte aligned
-      constexpr int NV = kChunk / V;
+      constexpr int NV = kChunk / 4;
       for (int i = tid; i < TL::kHaloH * TL::kHaloW * NV; i += kThreads) {
         const int v = i % NV;
         const int p = i / NV;
         const int sy = pad_index(oy0 + p / TL::kHaloW - TL::kPad, h, pad_mode);
         const int sx = pad_index(ox0 + p % TL::kHaloW - TL::kPad, w, pad_mode);
-        uint4 val = zero4;
+        float4 val = zero4;
         if (sy >= 0 && sx >= 0)
-          val = *reinterpret_cast<const uint4*>(
-              xb + ((size_t)sy * w + sx) * cin + c0 + v * V);
-        *reinterpret_cast<uint4*>(halo + p * kChunk + v * V) = val;
+          val = *reinterpret_cast<const float4*>(
+              xb + ((size_t)sy * w + sx) * cin + c0 + v * 4);
+        *reinterpret_cast<float4*>(halo + p * kChunk + v * 4) = val;
       }
     } else {
       for (int i = tid; i < TL::kHaloH * TL::kHaloW * kChunk; i += kThreads) {
@@ -153,150 +153,697 @@ conv_layer_kernel(const T* __restrict__ x, const T* __restrict__ wt,
         const int p = i / kChunk;
         const int sy = pad_index(oy0 + p / TL::kHaloW - TL::kPad, h, pad_mode);
         const int sx = pad_index(ox0 + p % TL::kHaloW - TL::kPad, w, pad_mode);
-        T v = zero;
+        float v = 0.f;
         if (sy >= 0 && sx >= 0 && c0 + c < cin)
           v = xb[((size_t)sy * w + sx) * cin + c0 + c];
         halo[i] = v;
       }
     }
     {  // weights: NT-wide rows, 16-byte loads (cout % 16 == 0, aligned)
-      constexpr int WV = NT / V;
+      constexpr int WV = NT / 4;
       for (int i = tid; i < K * K * kChunk * WV; i += kThreads) {
         const int v = i % WV;
         const int q = i / WV;
         const int c = q % kChunk;
         const int tap = q / kChunk;
-        uint4 val = zero4;
+        float4 val = zero4;
         if (c0 + c < cin)
-          val = *reinterpret_cast<const uint4*>(
-              wt + ((size_t)tap * cin + c0 + c) * cout + n0 + v * V);
-        *reinterpret_cast<uint4*>(ws + q * TL::kWLd + v * V) = val;
+          val = *reinterpret_cast<const float4*>(
+              wt + ((size_t)tap * cin + c0 + c) * cout + n0 + v * 4);
+        *reinterpret_cast<float4*>(ws + q * TL::kWLd + v * 4) = val;
       }
     }
     __syncthreads();
 
-    if constexpr (kBf16) {
 #pragma unroll 1
-      for (int tap = 0; tap < K * K; ++tap) {
-        const int dy = tap / K, dx = tap % K;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bfrag[NF];
-#pragma unroll
-        for (int f = 0; f < NF; ++f)
-          wmma::load_matrix_sync(bfrag[f],
-                                 ws + tap * kChunk * TL::kWLd + f * 16,
-                                 TL::kWLd);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = 2 * warp + r;
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> afrag;
-          wmma::load_matrix_sync(
-              afrag, halo + ((row + dy) * TL::kHaloW + dx) * kChunk, kChunk);
-#pragma unroll
-          for (int f = 0; f < NF; ++f)
-            wmma::mma_sync(acc_tc[r][f], afrag, bfrag[f], acc_tc[r][f]);
-        }
-      }
-    } else {
-#pragma unroll 1
-      for (int tap = 0; tap < K * K; ++tap) {
-        const int dy = tap / K, dx = tap % K;
+    for (int tap = 0; tap < K * K; ++tap) {
+      const int dy = tap / K, dx = tap % K;
 #pragma unroll 2
-        for (int c = 0; c < kChunk; ++c) {
-          float a[4];
+      for (int c = 0; c < kChunk; ++c) {
+        float a[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int p = pbase + 32 * i;
-            a[i] = halo[((p / kTileW + dy) * TL::kHaloW + p % kTileW + dx) *
-                            kChunk + c];
-          }
-          const T* wrow = ws + (tap * kChunk + c) * TL::kWLd + qbase;
+        for (int i = 0; i < 4; ++i) {
+          const int p = pbase + 32 * i;
+          a[i] = halo[((p / kTileWf + dy) * TL::kHaloW + p % kTileWf + dx) *
+                          kChunk + c];
+        }
+        const float* wrow = ws + (tap * kChunk + c) * TL::kWLd + qbase;
 #pragma unroll
-          for (int j = 0; j < NQ; ++j) {
-            const float wv = wrow[j];
+        for (int j = 0; j < NQ; ++j) {
+          const float wv = wrow[j];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], wv, acc[i][j]);
-          }
+          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], wv, acc[i][j]);
         }
       }
     }
     __syncthreads();
   }
 
-  if constexpr (kBf16) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int f = 0; f < NF; ++f)
-        wmma::store_matrix_sync(out + (2 * warp + r) * kTileW * NT + f * 16,
-                                acc_tc[r][f], NT, wmma::mem_row_major);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-        out[(pbase + 32 * i) * NT + qbase + j] = acc[i][j];
-  }
+    for (int j = 0; j < NQ; ++j)
+      out[(pbase + 32 * i) * NT + qbase + j] = acc[i][j];
   __syncthreads();
 
-  T* yb = y + (size_t)blockIdx.y * h * w * cout;
-  for (int i = tid; i < kTileH * kTileW * NT; i += kThreads) {
+  float* yb = y + (size_t)blockIdx.y * h * w * cout;
+  for (int i = tid; i < kTileH * kTileWf * NT; i += kThreads) {
     const int n = i % NT;
     const int p = i / NT;
-    const int oy = oy0 + p / kTileW;
-    const int ox = ox0 + p % kTileW;
+    const int oy = oy0 + p / kTileWf;
+    const int ox = ox0 + p % kTileWf;
     if (oy < h && ox < w) {
       float v = out[i] + bias[n0 + n];
       if (has_leak && v < 0.f) v *= leak;
-      yb[((size_t)oy * w + ox) * cout + n0 + n] = from_float<T>(v);
+      yb[((size_t)oy * w + ox) * cout + n0 + n] = v;
     }
   }
 }
 
-template <typename T, int K, int NT>
-int launch(const void* x, const void* wt, const void* bias, void* y,
-           int batch, int h, int w, int cin, int cout, int pad_mode,
-           int has_leak, float leak, cudaStream_t st) {
-  auto kern = conv_layer_kernel<T, K, NT>;
-  const int smem = Tile<T, K, NT>::kSmem;
+template <int K, int NT>
+int launch_f32(const void* x, const void* wt, const void* bias, void* y,
+               int batch, int h, int w, int cin, int cout, int pad_mode,
+               int has_leak, float leak, cudaStream_t st) {
+  auto kern = conv_f32_kernel<K, NT>;
+  const int smem = F32Tile<K, NT>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned tiles =
-      (unsigned)((h + kTileH - 1) / kTileH) * ((w + kTileW - 1) / kTileW);
+      (unsigned)((h + kTileH - 1) / kTileH) * ((w + kTileWf - 1) / kTileWf);
   const int vec_x = cin % kChunk == 0 && (uintptr_t)x % 16 == 0;
   dim3 grid(tiles, batch, cout / NT);
-  kern<<<grid, kThreads, smem, st>>>((const T*)x, (const T*)wt,
-                                     (const float*)bias, (T*)y, h, w, cin,
+  kern<<<grid, kThreads, smem, st>>>((const float*)x, (const float*)wt,
+                                     (const float*)bias, (float*)y, h, w, cin,
                                      cout, pad_mode, has_leak, leak, vec_x);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int K>
-int launch_nt(const void* x, const void* wt, const void* bias, void* y,
-              int batch, int h, int w, int cin, int cout, int pad_mode,
-              int has_leak, float leak, cudaStream_t st) {
+template <int K>
+int launch_f32_nt(const void* x, const void* wt, const void* bias, void* y,
+                  int batch, int h, int w, int cin, int cout, int pad_mode,
+                  int has_leak, float leak, cudaStream_t st) {
   if (cout % 64 == 0)
-    return launch<T, K, 64>(x, wt, bias, y, batch, h, w, cin, cout, pad_mode,
-                            has_leak, leak, st);
+    return launch_f32<K, 64>(x, wt, bias, y, batch, h, w, cin, cout,
+                             pad_mode, has_leak, leak, st);
   if (cout % 32 == 0)
-    return launch<T, K, 32>(x, wt, bias, y, batch, h, w, cin, cout, pad_mode,
-                            has_leak, leak, st);
-  return launch<T, K, 16>(x, wt, bias, y, batch, h, w, cin, cout, pad_mode,
-                          has_leak, leak, st);
+    return launch_f32<K, 32>(x, wt, bias, y, batch, h, w, cin, cout,
+                             pad_mode, has_leak, leak, st);
+  return launch_f32<K, 16>(x, wt, bias, y, batch, h, w, cin, cout, pad_mode,
+                           has_leak, leak, st);
+}
+
+// --- bf16: wgmma implicit GEMM -----------------------------------------
+
+constexpr int kGemmThreads = 256;  // two warpgroups
+constexpr int kTileW = 64;         // output columns per tile: one wgmma M
+constexpr int kKStage = 64;        // K per stage: one 128-byte row
+// Weight stages in shared memory, N x 128 bytes each; kAhead of them load
+// ahead of the MMAs (a deeper ring measured no faster).
+constexpr int kRing = 4, kAhead = kRing - 2;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// 16-byte copy; `bytes` < 16 zero-fills the rest (0: all zeros).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// cp.async and thread stores are generic-proxy writes; wgmma reads its
+// operands through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// mbarriers and TMA tile loads: a TMA load copies a box of a tensor and
+// counts its bytes on an mbarrier.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(map), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Keeps the compiler from moving accumulator uses across wgmma syncs.
+template <int MT, int NA>
+__device__ __forceinline__ void fence_acc(float (&d)[MT][NA]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[m][i])::"memory");
+}
+
+// Descriptor of a K-major B tile with the 128-byte swizzle: rows of 128
+// bytes (64 bf16 of K for one output channel), 8-row groups 1024 bytes
+// apart (SBO), the leading offset unused (a k16 slice lies in one row).
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+// Descriptor of a K-major A tile without swizzle, read from the halo: 8 x
+// 16-byte core matrices, row m (pixel m) 16 bytes after row m - 1, so
+// 8-row groups 128 bytes apart (SBO); the second 8 of a k16 slice are the
+// next channel-group plane, `plane` bytes on (LBO).
+__device__ __forceinline__ uint64_t a_desc(uint32_t addr, uint32_t plane) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((plane >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// D(64 x N, f32) = A(64 x 16, bf16) * B(16 x N, bf16) + D, or + 0 when
+// kstep is 0 (a tile's first k16 step); A and B in shared memory.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8],
+                                             uint64_t adesc, uint64_t bdesc,
+                                             int kstep) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(adesc), "l"(bdesc), "r"(kstep));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16],
+                                             uint64_t adesc, uint64_t bdesc,
+                                             int kstep) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(adesc), "l"(bdesc), "r"(kstep));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             uint64_t adesc, uint64_t bdesc,
+                                             int kstep) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(adesc), "l"(bdesc), "r"(kstep));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                             uint64_t adesc, uint64_t bdesc,
+                                             int kstep) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(adesc), "l"(bdesc), "r"(kstep));
+  }
+};
+
+struct GemmArgs {
+  const __nv_bfloat16* x;   // (B, H, W, Cin)
+  const __nv_bfloat16* wp;  // (Cout, kp) packed weights
+  const float* bias;        // (Cout,)
+  __nv_bfloat16* y;         // (B, H, W, Cout)
+  int batch, h, w, cin, cout;
+  int cc_log2;  // log2 of the channels per halo chunk (16, 32 or 64)
+  int chunks;   // halo chunks: padded Cin / chunk
+  int ktot;     // taps x padded Cin
+  int kp;       // ktot rounded up to kKStage
+  int pad_mode, has_leak;
+  int stage;    // halo staging: 0 16-byte, 1 4-byte copies, 2 gathered
+  float leak;
+};
+
+template <int K, int MT>
+struct GemmTile {
+  static constexpr int R = 2 * MT;  // output rows per tile
+  static constexpr int kHaloW = kTileW + K - 1;
+  static constexpr int kHaloH = R + K - 1;
+  static constexpr int kPix = kHaloH * kHaloW;
+  // one plane per 8 channels: kPix rows of 16 bytes, 128-byte aligned
+  static constexpr int kPlane = (kPix * 16 + 127) / 128 * 128;
+};
+
+// Output tile `t` of the layer: image, top row, left column, first output
+// channel. Channel blocks vary fastest, so blocks that run together share
+// their halo in L2.
+struct TileAt {
+  int img, oy0, ox0, n0;
+};
+
+template <int K, int N, int MT>
+__device__ __forceinline__ TileAt tile_at(const GemmArgs& a, int t) {
+  const int nblk = a.cout / N;
+  const int tiles_w = (a.w + kTileW - 1) / kTileW;
+  const int tiles_h = (a.h + GemmTile<K, MT>::R - 1) / GemmTile<K, MT>::R;
+  TileAt r;
+  r.n0 = (t % nblk) * N;
+  t /= nblk;
+  r.ox0 = (t % tiles_w) * kTileW;
+  t /= tiles_w;
+  r.oy0 = (t % tiles_h) * GemmTile<K, MT>::R;
+  r.img = t / tiles_h;
+  return r;
+}
+
+// Persistent: each block walks the tiles blockIdx.x, + gridDim.x, ...; its
+// K stages form one stream across tiles, so the next tile's halo and
+// weights load while the current tile runs its MMAs and epilogue.
+// Two blocks per SM when the accumulators take at most 64 registers.
+template <int K, int N, int MT>
+__global__ void __launch_bounds__(kGemmThreads, MT * N <= 128 ? 2 : 1)
+conv_wgmma_kernel(const GemmArgs a, int ntiles,
+                  const __grid_constant__ CUtensorMap wmap) {
+  using TL = GemmTile<K, MT>;
+  constexpr int T = K * K, kPadT = (K - 1) / 2, NA = N / 2;
+  constexpr int HW = TL::kHaloW;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzled weight stages want 1024-byte alignment
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw);
+  const uint32_t ring = base;
+  const uint32_t halo0 = base + kRing * N * 128;
+  const int cc = 1 << a.cc_log2;
+  const int G = cc >> 3;                   // 16-byte groups per pixel
+  const int halo_bytes = G * TL::kPlane;
+  const uint32_t wbar = halo0 + 2 * halo_bytes;  // an mbarrier per slot
+  const int span = T * cc;                 // K per halo chunk
+  const int stages = a.kp / kKStage;       // per tile
+  const int my_tiles = (ntiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                       (int)gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wq = warp & 3;
+
+  // Byte offset of 16-byte channel group j of halo pixel p: one plane per
+  // group, so the 64 pixels of an A tile are 1 KB of consecutive rows.
+  auto halo_at = [&](int p, int j) {
+    return (uint32_t)(j * TL::kPlane + (p << 4));
+  };
+
+  // Stage g of this block's stream of weight stages into its ring slot
+  // (thread 0).
+  auto load_weights = [&](int g) {
+    if (g >= my_tiles * stages) return;
+    const int lt = g / stages, slot = g % kRing;
+    const int n0 = tile_at<K, N, MT>(a, blockIdx.x + lt * gridDim.x).n0;
+    mbar_expect(wbar + 8 * slot, N * 128);
+    tma_load_2d(ring + slot * N * 128, &wmap, (g - lt * stages) * kKStage, n0,
+                wbar + 8 * slot);
+  };
+
+  // Halo chunk c of local tile lt into halo buffer `buf`, by all threads.
+  auto load_halo = [&](int lt, int c, int buf) {
+    if (lt >= my_tiles) return;
+    const TileAt tl = tile_at<K, N, MT>(a, blockIdx.x + lt * gridDim.x);
+    const uint32_t hdst = halo0 + buf * halo_bytes;
+    const __nv_bfloat16* xb = a.x + (size_t)tl.img * a.h * a.w * a.cin;
+    // even Cin in one chunk (the stem) copies only the channels it has:
+    // the others were zeroed once
+    const bool zeroed = a.stage == 1 && a.chunks == 1;
+    const int gr = zeroed ? (a.cin + 7) >> 3 : G;
+    for (int i = tid; i < TL::kPix * G; i += kGemmThreads) {
+      const int p = i >> (a.cc_log2 - 3), j = i & (G - 1);
+      if (j >= gr) continue;
+      const int hy = p / HW, hx = p - hy * HW;
+      const int sy = pad_index(tl.oy0 + hy - kPadT, a.h, a.pad_mode);
+      const int sx = pad_index(tl.ox0 + hx - kPadT, a.w, a.pad_mode);
+      const bool in = sy >= 0 && sx >= 0;
+      const int ch = c * cc + j * 8;
+      const size_t src = ((size_t)sy * a.w + sx) * a.cin + ch;
+      const uint32_t dst = hdst + halo_at(p, j);
+      if (a.stage == 0) {  // Cin % 8 == 0: whole groups, zeros past Cin
+        const bool ok = in && ch < a.cin;
+        cp_async16(dst, ok ? xb + src : a.x, ok ? 16 : 0);
+      } else if (a.stage == 1) {  // even Cin: channel pairs, zero-filled
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool real = ch + 2 * e < a.cin;
+          if (!real && zeroed) break;
+          const bool ok = in && real;
+          cp_async4(dst + 4 * e, ok ? xb + src + 2 * e : a.x, ok ? 4 : 0);
+        }
+      } else {  // odd Cin: gathered by the threads
+        const unsigned short* xs = reinterpret_cast<const unsigned short*>(xb);
+        uint32_t v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t lo =
+              in && ch + 2 * e < a.cin ? xs[src + 2 * e] : 0u;
+          const uint32_t hi =
+              in && ch + 2 * e + 1 < a.cin ? xs[src + 2 * e + 1] : 0u;
+          v[e] = lo | hi << 16;
+        }
+        *reinterpret_cast<uint4*>(sbase + (dst - base)) =
+            make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[MT][NA];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[mt][i] = 0.f;
+
+  if (tid == 0) {
+    for (int i = 0; i < kRing; ++i) mbar_init(wbar + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (a.stage == 1 && a.chunks == 1) {  // zero the stem's pad channels once
+    uint4* hz = reinterpret_cast<uint4*>(sbase + (halo0 - base));
+    for (int i = tid; i < 2 * halo_bytes / 16; i += kGemmThreads)
+      hz[i] = make_uint4(0u, 0u, 0u, 0u);
+    fence_proxy_async();
+  }
+  __syncthreads();
+  load_halo(0, 0, 0);
+  if (tid == 0)
+    for (int g = 0; g < kAhead; ++g) load_weights(g);
+
+  const int g4 = lane >> 2, t4 = lane & 3;
+
+  // Cursors of the MMA side: the stage in the block's stream, the chunk in
+  // it (its halo buffer is gc & 1), the K offset within the chunk, the
+  // chunk within the tile.
+  int gs = 0, gc = 0, rem = 0, c = 0;
+#pragma unroll 1
+  for (int lt = 0; lt < my_tiles; ++lt) {
+    // The K loop of one tile. Only wgmma writes the accumulators in it
+    // (the tile's first MMA of each row scales them by 0), so the
+    // compiler can keep MMAs in flight across its iterations.
+#pragma unroll 1
+    for (int s = 0; s < stages; ++s, ++gs) {
+      if (rem == 0) cp_async_wait<0>();  // the chunk's halo
+      mbar_wait(wbar + 8 * (gs % kRing), (gs / kRing) & 1);
+      fence_proxy_async();
+      // every thread is past stage s - 2's MMAs, so its weight slot takes
+      // stage s + kAhead, and from the chunk's second stage on the other
+      // halo buffer is free (its chunk's last stage is done)
+      __syncthreads();
+      if (tid == 0) load_weights(gs + kAhead);
+
+      const int kleft = (a.ktot - s * kKStage) >> 4;  // k16 steps left
+      const uint32_t hb = halo0 + (gc & 1) * halo_bytes;
+      const uint64_t desc = b_desc(ring + (gs % kRing) * N * 128);
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (q < kleft) {
+          // A of k16 step q: tap (dy, dx), channel groups j and j + 1;
+          // row mt of this warpgroup reads 64 pixels from halo row
+          // wg * MT + mt + dy, column dx: HW pixels (HW x 16 bytes) per
+          // row, and the descriptor's address field counts 16 bytes. B:
+          // 32 bytes on per k16.
+          const int rq = rem + q * 16;
+          const int tap = rq >> a.cc_log2;
+          const int j = (rq & (cc - 1)) >> 3;
+          const int dy = tap / K, pix = dy * HW + tap - dy * K;
+          const uint64_t ad =
+              a_desc(hb + halo_at(wg * MT * HW + pix, j), TL::kPlane);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            Wgmma<N>::mma(acc[mt], ad + mt * HW, desc + 2 * q, s + q);
+        }
+      }
+      wgmma_commit();
+      fence_acc<MT, NA>(acc);
+      // the next chunk's halo, issued behind this stage's MMAs
+      if (rem == kKStage) {
+        if (c + 1 < a.chunks) load_halo(lt, c + 1, (gc + 1) & 1);
+        else load_halo(lt + 1, 0, (gc + 1) & 1);
+      }
+      wgmma_wait<1>();
+
+      rem += kKStage;
+      if (rem >= span) {
+        rem = 0;
+        ++c;
+        ++gc;
+      }
+    }
+    // Epilogue from the accumulator registers. Accumulator i of this lane:
+    // row g4 (+8 if i & 2), channel 8 (i / 4) + 2 t4 + (i & 1).
+    wgmma_wait<0>();
+    fence_acc<MT, NA>(acc);
+    const TileAt tl = tile_at<K, N, MT>(a, blockIdx.x + lt * gridDim.x);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int oy = tl.oy0 + wg * MT + mt;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int ox = tl.ox0 + wq * 16 + g4 + 8 * half;
+        uint32_t pk[N / 8];
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const float2 bv = __ldg(reinterpret_cast<const float2*>(
+              a.bias + tl.n0 + 8 * j + 2 * t4));
+          float v0 = acc[mt][4 * j + 2 * half] + bv.x;
+          float v1 = acc[mt][4 * j + 2 * half + 1] + bv.y;
+          if (a.has_leak) {
+            if (v0 < 0.f) v0 *= a.leak;
+            if (v1 < 0.f) v1 *= a.leak;
+          }
+          const __nv_bfloat162 b2 = __floats2bfloat162_rn(v0, v1);
+          pk[j] = *reinterpret_cast<const uint32_t*>(&b2);
+        }
+        const bool ok = oy < a.h && ox < a.w;
+        __nv_bfloat16* dst =
+            a.y + (((size_t)tl.img * a.h + oy) * a.w + ox) * a.cout + tl.n0;
+        if constexpr (N % 32 == 0) {
+          // Transpose 4 x 4 words within the quad: lane t4 then holds the
+          // 8 channels 8 (4 jq + t4) .. + 7 of its pixel.
+#pragma unroll
+          for (int jq = 0; jq < N / 32; ++jq) {
+            uint32_t r[4], w1[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const uint32_t got =
+                  __shfl_xor_sync(0xffffffffu, pk[4 * jq + (e ^ 1)], 1);
+              w1[e] = (e & 1) != (t4 & 1) ? got : pk[4 * jq + e];
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const uint32_t got = __shfl_xor_sync(0xffffffffu, w1[e ^ 2], 2);
+              r[e] = (e & 2) != (t4 & 2) ? got : w1[e];
+            }
+            if (ok)
+              *reinterpret_cast<uint4*>(dst + 8 * (4 * jq + t4)) =
+                  make_uint4(r[0], r[1], r[2], r[3]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j)
+            if (ok) *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * t4) = pk[j];
+        }
+      }
+    }
+    c = 0;  // the last stage moved gc on to the next tile's chunk 0
+  }
+  cp_async_wait<0>();
+}
+
+// cuTensorMapEncodeTiled, from the driver (the library links only the
+// runtime); null if the driver has none.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+
+template <int K, int N, int MT>
+int launch_wgmma(const GemmArgs& ga, cudaStream_t st) {
+  using TL = GemmTile<K, MT>;
+  auto kern = conv_wgmma_kernel<K, N, MT>;
+  // weights: (Cout, kp); a stage is a 64 x N box, stored with the 128-byte
+  // swizzle the wgmma descriptor names
+  CUtensorMap wmap;
+  const cuuint64_t wdims[2] = {(cuuint64_t)ga.kp, (cuuint64_t)ga.cout};
+  const cuuint64_t wstride[1] = {(cuuint64_t)ga.kp * 2};
+  const cuuint32_t wbox[2] = {kKStage, N};
+  const cuuint32_t ones[2] = {1, 1};
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr ||
+      enc(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+          const_cast<__nv_bfloat16*>(ga.wp), wdims, wstride, wbox, ones,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  const int groups = (1 << ga.cc_log2) / 8;  // halo planes
+  const int smem = 1024 + kRing * N * 128 + 2 * groups * TL::kPlane +
+                   8 * kRing;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      kGemmThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long ntiles = (long)((ga.h + TL::R - 1) / TL::R) *
+                      ((ga.w + kTileW - 1) / kTileW) * ga.batch *
+                      (ga.cout / N);
+  if (ntiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const long fit = (long)per_sm * sms;
+  const unsigned grid = (unsigned)(ntiles < fit ? ntiles : fit);
+  kern<<<grid, kGemmThreads, smem, st>>>(ga, (int)ntiles, wmap);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_wgmma_n(const GemmArgs& ga, cudaStream_t st) {
+  if (ga.cout % 128 == 0) return launch_wgmma<K, 128, 2>(ga, st);
+  if (ga.cout % 64 == 0) return launch_wgmma<K, 64, 4>(ga, st);
+  if (ga.cout % 32 == 0) return launch_wgmma<K, 32, 4>(ga, st);
+  return launch_wgmma<K, 16, 4>(ga, st);
+}
+
+// Padded Cin and halo chunk of the bf16 route (ops/conv_chain.py::
+// gemm_layout): Cin up to 16 pads to 16 and is one chunk. Above, 32-channel
+// chunks (a small halo leaves room for two blocks on an SM); but a k3
+// chunk of 32 spans 288 of K, not a whole number of 64-wide stages, so k3
+// layers of more than one chunk take 64-channel chunks (576).
+void gemm_layout(int cin, int k, int* cc_log2, int* chunks, int* ktot,
+                 int* kp) {
+  const int cc = cin <= 16 ? 16 : (k == 4 || cin <= 32) ? 32 : 64;
+  const int pad = (cin + cc - 1) / cc * cc;
+  *cc_log2 = cc == 16 ? 4 : cc == 32 ? 5 : 6;
+  *chunks = pad / cc;
+  *ktot = k * k * pad;
+  *kp = (*ktot + kKStage - 1) / kKStage * kKStage;
 }
 
 }  // namespace
 
-// x: (batch, h, w, cin), wt: (k, k, cin, cout), y: (batch, h, w, cout), all
-// contiguous in the compute type (bf16 if is_bf16, else f32), wt 16-byte
-// aligned; bias: (cout,) f32. pad_mode: 0 zero, 1 reflect, 2 replicate.
-// Launches on `stream`; returns cudaGetLastError() after the launch.
+// x: (batch, h, w, cin), y: (batch, h, w, cout), contiguous in the compute
+// type (bf16 if is_bf16, else f32); bias: (cout,) f32. f32: wt is the HWIO
+// weight (k, k, cin, cout), 16-byte aligned. bf16: wt is the packed
+// (cout, kp) weight of ops/conv_chain.py::pack_weights, kp its row length
+// (checked), x and wt 16-byte aligned. pad_mode: 0 zero, 1 reflect,
+// 2 replicate. Launches on `stream`; returns cudaGetLastError() after it.
 extern "C" int conv_layer(const void* x, const void* wt, const void* bias,
                           void* y, int batch, int h, int w, int cin, int cout,
-                          int k, int pad_mode, int is_bf16, int has_leak,
-                          float leak, void* stream) {
+                          int k, int kp, int pad_mode, int is_bf16,
+                          int has_leak, float leak, void* stream) {
   if (batch < 1 || batch > 65535 || h < 1 || w < 1 || cin < 1 || cout < 16 ||
       cout % 16 || cout / 16 > 65535 || pad_mode < 0 || pad_mode > 2 ||
       (k != 3 && k != 4) || (uintptr_t)wt % 16 ||
@@ -304,16 +851,32 @@ extern "C" int conv_layer(const void* x, const void* wt, const void* bias,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16) {
+  if (!is_bf16) {
     if (k == 3)
-      return launch_nt<__nv_bfloat16, 3>(x, wt, bias, y, batch, h, w, cin,
-                                         cout, pad_mode, has_leak, leak, st);
-    return launch_nt<__nv_bfloat16, 4>(x, wt, bias, y, batch, h, w, cin, cout,
-                                       pad_mode, has_leak, leak, st);
+      return launch_f32_nt<3>(x, wt, bias, y, batch, h, w, cin, cout,
+                              pad_mode, has_leak, leak, st);
+    return launch_f32_nt<4>(x, wt, bias, y, batch, h, w, cin, cout, pad_mode,
+                            has_leak, leak, st);
   }
-  if (k == 3)
-    return launch_nt<float, 3>(x, wt, bias, y, batch, h, w, cin, cout,
-                               pad_mode, has_leak, leak, st);
-  return launch_nt<float, 4>(x, wt, bias, y, batch, h, w, cin, cout, pad_mode,
-                             has_leak, leak, st);
+  GemmArgs ga;
+  ga.batch = batch;
+  ga.x = (const __nv_bfloat16*)x;
+  ga.wp = (const __nv_bfloat16*)wt;
+  ga.bias = (const float*)bias;
+  ga.y = (__nv_bfloat16*)y;
+  ga.h = h;
+  ga.w = w;
+  ga.cin = cin;
+  ga.cout = cout;
+  int want_kp = 0;
+  gemm_layout(cin, k, &ga.cc_log2, &ga.chunks, &ga.ktot, &want_kp);
+  if (kp != want_kp || (uintptr_t)x % 16 || (uintptr_t)y % 16)
+    return (int)cudaErrorInvalidValue;
+  ga.kp = kp;
+  ga.pad_mode = pad_mode;
+  ga.has_leak = has_leak;
+  ga.leak = leak;
+  ga.stage = cin % 8 == 0 ? 0 : cin % 2 == 0 ? 1 : 2;
+  if (k == 3) return launch_wgmma_n<3>(ga, st);
+  return launch_wgmma_n<4>(ga, st);
 }

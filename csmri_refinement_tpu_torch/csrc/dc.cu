@@ -14,202 +14,559 @@
 // allocates nor reads a zero plane.
 //
 // What bounds it on the H100: bytes. Each pixel needs x, k0, mask and y
-// once: 28 B/pixel (20 without k0), against ~10 log2(HW) f32 flops/pixel for a radix-2
-// FFT forward and back (~160 at 256^2: well under the card's f32 rate per
-// byte of HBM traffic).
+// once: 28 B/pixel (20 without k0), against ~10 log2(HW) f32 flops/pixel
+// (~160 at 256^2: far under the card's f32 rate per byte of HBM traffic).
 //
-// Design. The TPU wrote the DFT as 16 split-real HxH matmuls only because
-// it has no FFT unit. Here each 1D transform is a radix-2 decimation-in-
-// time FFT in shared memory, in f32 FMA throughout (plain TF32 loses ~2e-2
-// in k-space), with twiddles computed on the host in f64 and passed in.
-// Three launches:
-//   1. forward FFT along W, one block per few rows: x -> scratch;
-//   2. forward FFT along H, the merge, inverse FFT along H, one block per
-//      kCols adjacent columns of one image, in place in scratch: k-space
-//      never makes an HBM round trip between the transform and its inverse;
+// Design. Three launches, each a pass at memory speed:
+//   1. forward FFT along W: x -> scratch;
+//   2. per 16 adjacent columns of one image (a whole 128-byte line of each
+//      row), forward FFT along H, the merge (1 - m) k + k0, inverse FFT
+//      along H, in place in scratch: k-space makes no HBM round trip;
 //   3. inverse FFT along W: scratch -> y.
-// That moves 60 B/pixel instead of the 28 B bound; folding the W passes
-// into the column pass (whole images per block) is later work.
-// Supported: H, W powers of two, 2 <= H <= 512, 2 <= W <= 2048.
+// That moves 60 B/pixel against the 28 B bound; one launch per DC with
+// thread-block clusters is later work.
+//
+// Each 1D line transform is a Stockham mixed-radix FFT whose butterflies
+// run in registers: a thread holds P = 8 or 16 points of a line and does
+// whole radix-8 or radix-16 DFTs on them (a radix-2 network, constant
+// twiddles), so a 256-point line is 16 x 16 with one exchange through
+// shared memory between the two stages. The plan (radices per n, below) is
+// chosen on the host (ops/dc_kernel.py::FFT_PLANS) and checked here; the
+// inter-stage twiddles exp(-2 pi i m q / (Ns r)) come from the host,
+// computed in f64 and rounded once to f32, and sit in shared memory. f32
+// FMA throughout (TF32 would lose ~2e-2 in k-space).
+//
+// Staging: every block walks several tiles (rows, or 16-column strips) and
+// copies the next tile into shared memory with 16-byte cp.async while it
+// transforms the current one. Row tiles are padded by 16 bytes per 16
+// points against bank conflicts; column strips need none (lines are the
+// fastest index). The merge operands (mask, k0) of the points a thread
+// will hold are loaded before its forward transform starts.
+// Supported: H, W powers of two from 2 to 512.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowElems = 2048;  // complex values per block in the row passes
-constexpr int kCols = 8;         // columns per block in the column pass
-constexpr int kLogCols = 3;
-constexpr int kMaxH = 512;
+constexpr int kRowThreads = 128;  // 256 measured 5% slower at B = 32, 256^2
+constexpr int kCols = 16;     // columns per strip in the column pass
+constexpr int kMaxN = 512;
+
+// --- the plan: radices per stage for each n (ops/dc_kernel.py::FFT_PLANS) ---
+
+__host__ __device__ constexpr int plan_stages(int n) {
+  return n <= 16 ? 1 : n == 512 ? 3 : 2;
+}
+__host__ __device__ constexpr int plan_radix(int n, int s) {
+  return n <= 16     ? (s == 0 ? n : 1)
+         : n == 32   ? (s == 0 ? 8 : s == 1 ? 4 : 1)
+         : n == 64   ? (s < 2 ? 8 : 1)
+         : n == 128  ? (s == 0 ? 16 : s == 1 ? 8 : 1)
+         : n == 256  ? (s < 2 ? 16 : 1)
+         : n == 512  ? (s < 3 ? 8 : 1)
+                     : 0;
+}
+// points per thread: the largest radix
+__host__ __device__ constexpr int plan_points(int n) {
+  return n <= 16 ? n : (n == 128 || n == 256) ? 16 : 8;
+}
+// Ns: the product of the radices before stage s
+__host__ __device__ constexpr int plan_span(int n, int s) {
+  return s == 0 ? 1 : plan_span(n, s - 1) * plan_radix(n, s - 1);
+}
+// offset of stage s's table (stages 1.. have one, laid out [q * Ns + m])
+__host__ __device__ constexpr int plan_tw_offset(int n, int s) {
+  return s <= 1 ? 0
+                : plan_tw_offset(n, s - 1) +
+                      plan_span(n, s - 1) * plan_radix(n, s - 1);
+}
+__host__ __device__ constexpr int plan_tw_size(int n) {
+  return plan_tw_offset(n, plan_stages(n));
+}
+constexpr int plan_code(int n) {
+  return plan_radix(n, 0) |
+         (plan_stages(n) > 1 ? plan_radix(n, 1) << 8 : 0) |
+         (plan_stages(n) > 2 ? plan_radix(n, 2) << 16 : 0);
+}
+
+// --- complex arithmetic and the in-register DFTs ---
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
 }
+// a * conj(b)
+__device__ __forceinline__ float2 cmulc(float2 a, float2 b) {
+  return make_float2(fmaf(a.x, b.x, a.y * b.y), fmaf(a.y, b.x, -a.x * b.y));
+}
 
-// In-place radix-2 DIT FFT of `lines` lines of length n = 2^logn held in
-// shared memory; element j of line l sits at s[j * js + l * ls].
-// tw[k] = exp(-2*pi*i*k/n) for k < n/2; the inverse uses its conjugate.
-// LINE_FASTEST maps neighbouring threads to neighbouring lines (for the
-// column layout, where lines are adjacent in memory); it needs `lines` to be
-// 2^loglines.
-template <bool INVERSE, bool LINE_FASTEST>
-__device__ void fft_lines(float2* s, int n, int logn, int lines,
-                          int loglines, int js, int ls,
-                          const float2* __restrict__ tw) {
-  const int total = n * lines;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    int l, j;
-    if (LINE_FASTEST) {
-      l = idx & (lines - 1);
-      j = idx >> loglines;
-    } else {
-      l = idx >> logn;
-      j = idx & (n - 1);
-    }
-    int r = (int)(__brev((unsigned)j) >> (32 - logn));
-    if (j < r) {
-      float2* a = s + j * js + l * ls;
-      float2* b = s + r * js + l * ls;
-      float2 t = *a;
-      *a = *b;
-      *b = t;
+// exp(-2 pi i k / 16) for 0 <= k < 8; k is a constant after unrolling.
+__device__ __forceinline__ float2 root16(int k) {
+  constexpr float c1 = 0.92387953251128674f;  // cos(pi/8)
+  constexpr float s1 = 0.38268343236508978f;  // sin(pi/8)
+  constexpr float h = 0.70710678118654752f;
+  switch (k) {
+    case 0: return make_float2(1.f, 0.f);
+    case 1: return make_float2(c1, -s1);
+    case 2: return make_float2(h, -h);
+    case 3: return make_float2(s1, -c1);
+    case 4: return make_float2(0.f, -1.f);
+    case 5: return make_float2(-s1, -c1);
+    case 6: return make_float2(-h, -h);
+    default: return make_float2(-c1, -s1);
+  }
+}
+
+// In-register R-point DFT (R <= 16) of v[base .. base + R): bit reversal,
+// then a radix-2 decimation-in-time network. Every index is a constant
+// once the callers' loops are unrolled, so v stays in registers.
+template <int R, bool INV, int P>
+__device__ __forceinline__ void dft(float2 (&v)[P], int base) {
+  constexpr int LG = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : R == 16 ? 4 : 0;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    int j = 0;
+#pragma unroll
+    for (int b = 0; b < LG; ++b) j |= ((i >> b) & 1) << (LG - 1 - b);
+    if (i < j) {
+      const float2 t = v[base + i];
+      v[base + i] = v[base + j];
+      v[base + j] = t;
     }
   }
-  __syncthreads();
-  const int half_total = total >> 1;
-  const int half_n = n >> 1;
-  for (int st = 0; st < logn; ++st) {
+#pragma unroll
+  for (int st = 0; st < LG; ++st) {
     const int half = 1 << st;
-    const int tw_stride = n >> (st + 1);
-    for (int idx = threadIdx.x; idx < half_total; idx += blockDim.x) {
-      int l, k;
-      if (LINE_FASTEST) {
-        l = idx & (lines - 1);
-        k = idx >> loglines;
-      } else {
-        l = idx / half_n;
-        k = idx - l * half_n;
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i) {
+      const int p = i & (half - 1);
+      const int k = (i >> st) << (st + 1);
+      const float2 a = v[base + k + p];
+      float2 b = v[base + k + p + half];
+      if (p != 0) {
+        const float2 w = root16(p * 8 / half);
+        b = INV ? cmulc(b, w) : cmul(b, w);
       }
-      const int pos = k & (half - 1);
-      const int i0 = ((k >> st) << (st + 1)) + pos;
-      float2 w = tw[pos * tw_stride];
-      if (INVERSE) w.y = -w.y;
-      float2* pa = s + i0 * js + l * ls;
-      float2* pb = pa + half * js;
-      const float2 a = *pa;
-      const float2 b = cmul(*pb, w);
-      *pa = make_float2(a.x + b.x, a.y + b.y);
-      *pb = make_float2(a.x - b.x, a.y - b.y);
+      v[base + k + p] = make_float2(a.x + b.x, a.y + b.y);
+      v[base + k + p + half] = make_float2(a.x - b.x, a.y - b.y);
+    }
+  }
+}
+
+// --- lines in shared memory ---
+
+// A row tile: line l of length N at l * LS, 16 bytes of padding per 16
+// points from N = 32 up (16-byte chunks stay aligned for cp.async).
+template <int N>
+struct RowLine {
+  static constexpr int kPad = N >= 32 ? 2 : 0;
+  static constexpr int LS = N + kPad * (N / 16);
+  float2* p;
+  static __device__ __forceinline__ int at(int e) {
+    return e + kPad * (e >> 4);
+  }
+  __device__ __forceinline__ float2& operator[](int e) const {
+    return p[at(e)];
+  }
+};
+
+// A column strip: point e of column c at e * stride + c.
+struct ColLine {
+  float2* p;
+  int stride;
+  __device__ __forceinline__ float2& operator[](int e) const {
+    return p[e * stride];
+  }
+};
+
+// Stage ST of the Stockham plan: the thread's P / r butterflies are
+// j = t + b * TPL; butterfly j reads points j + q * N / r, twiddles them by
+// exp(-+2 pi i m q / (Ns r)), m = j mod Ns, runs an r-point DFT and writes
+// point q to (j / Ns) * Ns * r + m + q * Ns.
+template <int N, int ST, class Line>
+__device__ __forceinline__ void load_stage(const Line& ln, int t,
+                                           float2 (&v)[plan_points(N)]) {
+  constexpr int r = plan_radix(N, ST), P = plan_points(N), TPL = N / P;
+#pragma unroll
+  for (int b = 0; b < P / r; ++b)
+#pragma unroll
+    for (int q = 0; q < r; ++q) v[b * r + q] = ln[t + b * TPL + q * (N / r)];
+}
+
+template <int N, int ST, bool INV>
+__device__ __forceinline__ void compute_stage(int t, const float2* tw,
+                                              float2 (&v)[plan_points(N)]) {
+  constexpr int r = plan_radix(N, ST), P = plan_points(N), TPL = N / P;
+  constexpr int ns = plan_span(N, ST);
+#pragma unroll
+  for (int b = 0; b < P / r; ++b) {
+    if constexpr (ns > 1) {
+      const float2* w = tw + plan_tw_offset(N, ST) + (t + b * TPL) % ns;
+#pragma unroll
+      for (int q = 1; q < r; ++q)
+        v[b * r + q] = INV ? cmulc(v[b * r + q], w[q * ns])
+                           : cmul(v[b * r + q], w[q * ns]);
+    }
+    dft<r, INV>(v, b * r);
+  }
+}
+
+template <int N, int ST, class Line>
+__device__ __forceinline__ void store_stage(const Line& ln, int t,
+                                            const float2 (&v)[plan_points(N)]) {
+  constexpr int r = plan_radix(N, ST), P = plan_points(N), TPL = N / P;
+  constexpr int ns = plan_span(N, ST);
+#pragma unroll
+  for (int b = 0; b < P / r; ++b) {
+    const int j = t + b * TPL;
+    const int d = (j / ns) * ns * r + j % ns;
+#pragma unroll
+    for (int q = 0; q < r; ++q) ln[d + q * ns] = v[b * r + q];
+  }
+}
+
+// The whole line transform, from the line in shared memory to registers:
+// v[b * r + q] ends as point t + b * TPL + q * (N / r) of the result
+// (r the last radix). Block-wide barriers between stages: every thread of
+// the block calls it.
+template <int N, bool INV, class Line>
+__device__ __forceinline__ void fft_regs(const Line& ln, int t,
+                                         const float2* tw,
+                                         float2 (&v)[plan_points(N)]) {
+  load_stage<N, 0>(ln, t, v);
+  compute_stage<N, 0, INV>(t, tw, v);
+  if constexpr (plan_stages(N) > 1) {
+    __syncthreads();
+    store_stage<N, 0>(ln, t, v);
+    __syncthreads();
+    load_stage<N, 1>(ln, t, v);
+    compute_stage<N, 1, INV>(t, tw, v);
+  }
+  if constexpr (plan_stages(N) > 2) {
+    __syncthreads();
+    store_stage<N, 1>(ln, t, v);
+    __syncthreads();
+    load_stage<N, 2>(ln, t, v);
+    compute_stage<N, 2, INV>(t, tw, v);
+  }
+}
+
+// --- cp.async ---
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void load_twiddles(float2* tw,
+                                              const float2* __restrict__ g) {
+  for (int i = threadIdx.x; i < plan_tw_size(N); i += blockDim.x) tw[i] = g[i];
+}
+
+// --- passes 1 and 3: FFT along W of whole rows, times `scale` ---
+
+template <int N>
+struct RowTile {
+  static constexpr int P = plan_points(N);
+  static constexpr int TPL = N / P;             // threads per line
+  static constexpr int L = kRowThreads / TPL;   // lines per tile
+  static constexpr int kElems = L * RowLine<N>::LS;
+  static constexpr int kSmem = (2 * kElems + plan_tw_size(N)) * 8;
+};
+
+template <int N>
+__device__ __forceinline__ void stage_rows(const float2* __restrict__ in,
+                                           float2* s, long tile, long rows) {
+  using T = RowTile<N>;
+  const long r0 = tile * T::L;
+  const int lines = rows - r0 < T::L ? (int)(rows - r0) : T::L;
+  const float2* src = in + r0 * N;
+  for (int i = threadIdx.x; i < lines * N / 2; i += kRowThreads) {
+    const int e0 = 2 * i;
+    cp_async16(s + (e0 / N) * RowLine<N>::LS + RowLine<N>::at(e0 % N),
+               src + e0);
+  }
+}
+
+template <int N, bool INVERSE>
+__global__ void __launch_bounds__(kRowThreads)
+row_fft(const float2* __restrict__ in, float2* __restrict__ out, long rows,
+        const float2* __restrict__ tw_g, float scale) {
+  using T = RowTile<N>;
+  extern __shared__ __align__(16) float2 smem[];
+  float2* tw = smem + 2 * T::kElems;
+  load_twiddles<N>(tw, tw_g);
+  const long tiles = (rows + T::L - 1) / T::L;
+  const int line = threadIdx.x / T::TPL, t = threadIdx.x % T::TPL;
+  long tile = blockIdx.x;
+  if (tile < tiles) stage_rows<N>(in, smem, tile, rows);
+  cp_async_commit();
+  for (int buf = 0; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    const long next = tile + gridDim.x;
+    if (next < tiles)
+      stage_rows<N>(in, smem + (buf ^ 1) * T::kElems, next, rows);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    float2* s = smem + buf * T::kElems;
+    const RowLine<N> ln{s + line * RowLine<N>::LS};
+    float2 v[T::P];
+    fft_regs<N, INVERSE>(ln, t, tw, v);
+    __syncthreads();
+    store_stage<N, plan_stages(N) - 1>(ln, t, v);
+    __syncthreads();
+    const long r0 = tile * T::L;
+    const int lines = rows - r0 < T::L ? (int)(rows - r0) : T::L;
+    float4* dst = reinterpret_cast<float4*>(out + r0 * N);
+    for (int i = threadIdx.x; i < lines * N / 2; i += kRowThreads) {
+      const int e0 = 2 * i;
+      const float2* p = s + (e0 / N) * RowLine<N>::LS + RowLine<N>::at(e0 % N);
+      dst[i] = make_float4(p[0].x * scale, p[0].y * scale, p[1].x * scale,
+                           p[1].y * scale);
     }
     __syncthreads();
   }
 }
 
-// Passes 1 and 3: FFT along W of `rows` contiguous rows, times `scale`.
-template <bool INVERSE>
-__global__ void __launch_bounds__(kThreads)
-row_fft(const float2* __restrict__ in, float2* __restrict__ out, long rows,
-        int n, int logn, const float2* __restrict__ tw, float scale) {
-  __shared__ float2 s[kRowElems];
-  const int lines_per_block = kRowElems / n;
-  const long row0 = (long)blockIdx.x * lines_per_block;
-  const long left = rows - row0;
-  const int lines = left < lines_per_block ? (int)left : lines_per_block;
-  const int total = lines * n;
-  const float2* src = in + row0 * n;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) s[i] = src[i];
-  __syncthreads();
-  fft_lines<INVERSE, false>(s, n, logn, lines, 0, 1, n, tw);
-  float2* dst = out + row0 * n;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const float2 v = s[i];
-    dst[i] = make_float2(v.x * scale, v.y * scale);
+// --- pass 2: column FFT, merge, inverse column FFT, in place ---
+
+template <int H>
+struct ColPlan {
+  static constexpr int P = plan_points(H);
+  static constexpr int TPL = H / P;
+  static constexpr int S = plan_stages(H);
+  static constexpr int RL = plan_radix(H, S - 1);  // the last radix
+  static constexpr int kThreads = kCols * TPL;
+};
+
+// A strip: `cols` columns of one image, all H rows, row-major in smem.
+template <int H>
+__device__ __forceinline__ void stage_cols(const float2* __restrict__ t,
+                                           float2* s, int tile, int tiles_w,
+                                           int w, int cols) {
+  const size_t base =
+      (size_t)(tile / tiles_w) * H * w + (tile % tiles_w) * cols;
+  const int per_row = cols / 2;
+  for (int i = threadIdx.x; i < H * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = 2 * (i % per_row);
+    cp_async16(s + r * cols + c, t + base + (size_t)r * w + c);
   }
 }
 
-// Pass 2: per kCols columns of one image, forward FFT along H, the merge
-// (1 - m) * k + k0, inverse FFT along H; in place in t. HAS_K0 false: k0 is
-// zero and not read.
-template <bool HAS_K0>
-__global__ void __launch_bounds__(kThreads)
+template <int H, bool HAS_K0>
+__global__ void __launch_bounds__(ColPlan<H>::kThreads)
 col_dc(float2* __restrict__ t, const float2* __restrict__ k0,
-       const float* __restrict__ mask, int h, int logh, int w,
-       const float2* __restrict__ tw, float scale) {
-  __shared__ float2 s[kMaxH * kCols];
-  const int c0 = blockIdx.x * kCols;
-  const int ncols = min(kCols, w - c0);
-  const size_t img = (size_t)blockIdx.y * h * w;
-  const int total = h * kCols;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int r = i >> kLogCols, c = i & (kCols - 1);
-    s[i] = c < ncols ? t[img + (size_t)r * w + c0 + c] : make_float2(0.f, 0.f);
-  }
-  __syncthreads();
-  fft_lines<false, true>(s, h, logh, kCols, kLogCols, kCols, 1, tw);
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int r = i >> kLogCols, c = i & (kCols - 1);
-    if (c < ncols) {
-      const size_t g = img + (size_t)r * w + c0 + c;
-      const float keep = 1.f - mask[g];
-      const float2 k = s[i];
-      const float2 kk = HAS_K0 ? k0[g] : make_float2(0.f, 0.f);
-      s[i] = make_float2(fmaf(keep, k.x * scale, kk.x),
-                         fmaf(keep, k.y * scale, kk.y));
+       const float* __restrict__ mask, int batch, int w,
+       const float2* __restrict__ tw_g, float scale) {
+  using CP = ColPlan<H>;
+  constexpr int P = CP::P, TPL = CP::TPL, RL = CP::RL;
+  constexpr int kSpan = H / RL;   // Ns of the last stage
+  constexpr bool kPrefetch = H <= 256;
+  const int cols = w < kCols ? w : kCols;
+  const int elems = H * cols;
+  extern __shared__ __align__(16) float2 smem[];
+  float2* tw = smem + 2 * elems;
+  load_twiddles<H>(tw, tw_g);
+  const int tiles_w = w / cols;
+  const int tiles = batch * tiles_w;
+  const int c = threadIdx.x % cols, tt = threadIdx.x / cols;
+  int tile = blockIdx.x;
+  if (tile < tiles) stage_cols<H>(t, smem, tile, tiles_w, w, cols);
+  cp_async_commit();
+  for (int buf = 0; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    const int next = tile + gridDim.x;
+    if (next < tiles)
+      stage_cols<H>(t, smem + (buf ^ 1) * elems, next, tiles_w, w, cols);
+    cp_async_commit();
+    // The merge operands of the points this thread will hold after the
+    // forward transform: rows tt + b * TPL + q * kSpan of column c. Loaded
+    // before the transform up to H = 256; at 512 (1024 threads, 64
+    // registers each) they would spill, and are loaded at the merge.
+    const size_t col0 = (size_t)(tile / tiles_w) * H * w +
+                        (tile % tiles_w) * cols + c;
+    float keep[P];
+    float2 kk[P];
+    auto load_merge = [&]() {
+#pragma unroll
+      for (int b = 0; b < P / RL; ++b)
+#pragma unroll
+        for (int q = 0; q < RL; ++q) {
+          const size_t g = col0 + (size_t)(tt + b * TPL + q * kSpan) * w;
+          keep[b * RL + q] = 1.f - __ldg(mask + g);
+          kk[b * RL + q] = HAS_K0 ? __ldg(k0 + g) : make_float2(0.f, 0.f);
+        }
+    };
+    if constexpr (kPrefetch) load_merge();
+    cp_async_wait1();
+    __syncthreads();
+    float2* s = smem + buf * elems;
+    const ColLine ln{s + c, cols};
+    float2 v[P];
+    fft_regs<H, false>(ln, tt, tw, v);
+    if constexpr (!kPrefetch) load_merge();
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      v[i] = make_float2(fmaf(keep[i], v[i].x * scale, kk[i].x),
+                         fmaf(keep[i], v[i].y * scale, kk[i].y));
+    __syncthreads();
+    store_stage<H, CP::S - 1>(ln, tt, v);
+    __syncthreads();
+    fft_regs<H, true>(ln, tt, tw, v);
+    __syncthreads();
+    store_stage<H, CP::S - 1>(ln, tt, v);
+    __syncthreads();
+    const int per_row = cols / 2;
+    float2* dst = t + col0 - c;
+    for (int i = threadIdx.x; i < H * per_row; i += blockDim.x) {
+      const int r = i / per_row, cc = 2 * (i % per_row);
+      const float2* p = s + r * cols + cc;
+      *reinterpret_cast<float4*>(dst + (size_t)r * w + cc) =
+          make_float4(p[0].x * scale, p[0].y * scale, p[1].x * scale,
+                      p[1].y * scale);
     }
-  }
-  __syncthreads();
-  fft_lines<true, true>(s, h, logh, kCols, kLogCols, kCols, 1, tw);
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int r = i >> kLogCols, c = i & (kCols - 1);
-    if (c < ncols) {
-      const float2 v = s[i];
-      t[img + (size_t)r * w + c0 + c] = make_float2(v.x * scale, v.y * scale);
-    }
+    __syncthreads();
   }
 }
 
-int ilog2(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
+// --- launches ---
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// Grid of a tile-walking kernel: as many blocks as fit on the card at
+// once, at most one per tile.
+template <typename K>
+int walk_grid(K kern, int threads, int smem, long tiles, unsigned* grid) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long fit = (long)per_sm * sm_count();
+  *grid = (unsigned)(tiles < fit ? tiles : fit);
+  return 0;
+}
+
+template <int N, bool INVERSE>
+int launch_rows(const float2* in, float2* out, long rows, const float2* tw,
+                float scale, cudaStream_t st) {
+  using T = RowTile<N>;
+  auto kern = row_fft<N, INVERSE>;
+  unsigned grid = 0;
+  const int err = walk_grid(kern, kRowThreads, T::kSmem,
+                            (rows + T::L - 1) / T::L, &grid);
+  if (err) return err;
+  kern<<<grid, kRowThreads, T::kSmem, st>>>(in, out, rows, tw, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int H>
+int launch_cols(float2* t, const float2* k0, const float* mask, int batch,
+                int w, const float2* tw, float scale, cudaStream_t st) {
+  const int cols = w < kCols ? w : kCols;
+  const int threads = cols * ColPlan<H>::TPL;
+  const int smem = (2 * H * cols + plan_tw_size(H)) * 8;
+  const long tiles = (long)batch * (w / cols);
+  unsigned grid = 0;
+  if (k0 != nullptr) {
+    auto kern = col_dc<H, true>;
+    const int err = walk_grid(kern, threads, smem, tiles, &grid);
+    if (err) return err;
+    kern<<<grid, threads, smem, st>>>(t, k0, mask, batch, w, tw, scale);
+  } else {
+    auto kern = col_dc<H, false>;
+    const int err = walk_grid(kern, threads, smem, tiles, &grid);
+    if (err) return err;
+    kern<<<grid, threads, smem, st>>>(t, nullptr, mask, batch, w, tw, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool INVERSE>
+int rows_pass(int n, const float2* in, float2* out, long rows,
+              const float2* tw, float scale, cudaStream_t st) {
+  switch (n) {
+    case 2: return launch_rows<2, INVERSE>(in, out, rows, tw, scale, st);
+    case 4: return launch_rows<4, INVERSE>(in, out, rows, tw, scale, st);
+    case 8: return launch_rows<8, INVERSE>(in, out, rows, tw, scale, st);
+    case 16: return launch_rows<16, INVERSE>(in, out, rows, tw, scale, st);
+    case 32: return launch_rows<32, INVERSE>(in, out, rows, tw, scale, st);
+    case 64: return launch_rows<64, INVERSE>(in, out, rows, tw, scale, st);
+    case 128: return launch_rows<128, INVERSE>(in, out, rows, tw, scale, st);
+    case 256: return launch_rows<256, INVERSE>(in, out, rows, tw, scale, st);
+    case 512: return launch_rows<512, INVERSE>(in, out, rows, tw, scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int cols_pass(int h, float2* t, const float2* k0, const float* mask,
+              int batch, int w, const float2* tw, float scale,
+              cudaStream_t st) {
+  switch (h) {
+    case 2: return launch_cols<2>(t, k0, mask, batch, w, tw, scale, st);
+    case 4: return launch_cols<4>(t, k0, mask, batch, w, tw, scale, st);
+    case 8: return launch_cols<8>(t, k0, mask, batch, w, tw, scale, st);
+    case 16: return launch_cols<16>(t, k0, mask, batch, w, tw, scale, st);
+    case 32: return launch_cols<32>(t, k0, mask, batch, w, tw, scale, st);
+    case 64: return launch_cols<64>(t, k0, mask, batch, w, tw, scale, st);
+    case 128: return launch_cols<128>(t, k0, mask, batch, w, tw, scale, st);
+    case 256: return launch_cols<256>(t, k0, mask, batch, w, tw, scale, st);
+    case 512: return launch_cols<512>(t, k0, mask, batch, w, tw, scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+bool supported(int n, int code) {
+  return n >= 2 && n <= kMaxN && !(n & (n - 1)) && code == plan_code(n);
 }
 
 }  // namespace
 
-// x, k0, y, scratch: (batch, h, w, 2) float32, k0 may be null (zero);
-// mask: (batch, h, w) float32;
-// tw_h, tw_w: (n/2, 2) float32 twiddles exp(-2*pi*i*k/n) for n = h, w.
-// Launches on `stream`; returns cudaGetLastError() after the launches.
+// x, k0, y, scratch: (batch, h, w, 2) float32, 16-byte aligned; k0 may be
+// null (zero); mask: (batch, h, w) float32. tw_h, tw_w: the twiddle tables
+// of the plans for n = h, w (ops/dc_kernel.py::fft_tables, stage s >= 1 at
+// plan_tw_offset, entry [q * Ns + m] = exp(-2 pi i m q / (Ns r)));
+// plan_h, plan_w: the plans' radices, one byte per stage, which must be
+// the plans compiled here. Launches on `stream`; returns a CUDA error code.
 extern "C" int dc_forward(const void* x, const void* k0, const void* mask,
                           void* y, void* scratch, const void* tw_h,
-                          const void* tw_w, int batch, int h, int w,
-                          void* stream) {
-  if (h < 2 || w < 2 || h > kMaxH || w > kRowElems || (h & (h - 1)) ||
-      (w & (w - 1)) || batch < 1) {
+                          const void* tw_w, int plan_h, int plan_w, int batch,
+                          int h, int w, void* stream) {
+  if (!supported(h, plan_h) || !supported(w, plan_w) || batch < 1 ||
+      ((uintptr_t)x | (uintptr_t)y | (uintptr_t)scratch |
+       (uintptr_t)k0) % 16) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  const int logh = ilog2(h), logw = ilog2(w);
   const float sh = (float)(1.0 / sqrt((double)h));
   const float sw = (float)(1.0 / sqrt((double)w));
   const long rows = (long)batch * h;
-  const int lines = kRowElems / w;
-  const unsigned grid_rows = (unsigned)((rows + lines - 1) / lines);
   float2* t = (float2*)scratch;
-
-  row_fft<false><<<grid_rows, kThreads, 0, st>>>(
-      (const float2*)x, t, rows, w, logw, (const float2*)tw_w, sw);
-  dim3 grid_cols((w + kCols - 1) / kCols, batch);
-  if (k0 != nullptr) {
-    col_dc<true><<<grid_cols, kThreads, 0, st>>>(
-        t, (const float2*)k0, (const float*)mask, h, logh, w,
-        (const float2*)tw_h, sh);
-  } else {
-    col_dc<false><<<grid_cols, kThreads, 0, st>>>(
-        t, nullptr, (const float*)mask, h, logh, w, (const float2*)tw_h, sh);
-  }
-  row_fft<true><<<grid_rows, kThreads, 0, st>>>(
-      t, (float2*)y, rows, w, logw, (const float2*)tw_w, sw);
-  return (int)cudaGetLastError();
+  int err = rows_pass<false>(w, (const float2*)x, t, rows,
+                             (const float2*)tw_w, sw, st);
+  if (err) return err;
+  err = cols_pass(h, t, (const float2*)k0, (const float*)mask, batch, w,
+                  (const float2*)tw_h, sh, st);
+  if (err) return err;
+  return rows_pass<true>(w, t, (float2*)y, rows, (const float2*)tw_w, sw, st);
 }

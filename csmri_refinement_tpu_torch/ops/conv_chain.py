@@ -15,7 +15,10 @@ accumulation and every layer's output rounded to the compute dtype.
   in f32 on the compute-dtype values, + bias, LeakyReLU, cast): the CPU path
   and the oracle the kernel is held against.
 * ``conv_layer_cuda`` — the wrapper of ``csrc/conv_chain.cu``: one launch
-  per layer, counted in ``conv_layer_cuda.launches``.
+  per layer, counted in ``conv_layer_cuda.launches``. bf16 runs a ``wgmma``
+  implicit GEMM on weights packed by ``pack_weights`` (layout
+  ``gemm_layout``); f32 a direct FMA conv on the HWIO weights.
+  ``conv_route`` names the route a layer takes, decided by its shape.
 * ``conv_layer`` — the device dispatch: CPU → plain, CUDA → kernel or raise.
 
 The JAX kernel's Mosaic layout (pixel groups, block-Toeplitz weights, lane
@@ -88,10 +91,47 @@ def conv_layer_plain(x, layer, pad_mode='reflection'):
   return y.permute(0, 2, 3, 1).to(dt).contiguous()
 
 
+def gemm_layout(cin, k):
+  """K layout of the bf16 kernel: ``(cin_pad, chunk, kp)``.
+
+  The halo is staged in chunks of ``chunk`` channels: one chunk of 16 for
+  Cin ≤ 16; else chunks of 32, except k3 layers of Cin > 32, whose chunks
+  of 64 keep each chunk's k·k·chunk a multiple of the 64-wide K stage. Cin
+  pads to a multiple of the chunk. K runs over (chunk, tap, channel in
+  chunk), k·k·cin_pad values, padded to ``kp``, a multiple of 64
+  (``csrc/conv_chain.cu`` computes the same and checks ``kp``).
+  """
+  chunk = 16 if cin <= 16 else 32 if (k == 4 or cin <= 32) else 64
+  cin_pad = -(-cin // chunk) * chunk
+  ktot = k * k * cin_pad
+  return cin_pad, chunk, -(-ktot // 64) * 64
+
+
+def pack_weights(kernel, dtype=torch.bfloat16):
+  """HWIO ``(k, k, Cin, Cout)`` weights → the bf16 kernel's K-major
+  ``(Cout, kp)`` operand: row n holds output channel n's weights in the K
+  order of ``gemm_layout``, zeros in the padding."""
+  k, _, cin, cout = kernel.shape
+  cin_pad, chunk, kp = gemm_layout(cin, k)
+  w = F.pad(kernel.to(dtype), (0, 0, 0, cin_pad - cin))
+  w = w.reshape(k * k, cin_pad // chunk, chunk, cout).permute(3, 1, 0, 2)
+  w = w.reshape(cout, k * k * cin_pad)
+  return F.pad(w, (0, kp - w.shape[1])).contiguous()
+
+
+def conv_route(cin, cout, dtype):
+  """The kernel route of a layer, decided by its shape and dtype alone."""
+  if dtype == torch.float32:
+    return 'fma'
+  if cin % 8 == 0:
+    return 'wgmma'                       # 16-byte cp.async halo
+  return 'wgmma, 4-byte staging' if cin % 2 == 0 else 'wgmma, gathered halo'
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
   lib = native.library('conv_chain')
-  lib.conv_layer.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 +
+  lib.conv_layer.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 +
                              [ctypes.c_float, ctypes.c_void_p])
   lib.conv_layer.restype = ctypes.c_int
   return lib
@@ -120,8 +160,15 @@ def conv_layer_cuda(x, layer, pad_mode='reflection'):
                      '65535 images, got Cout {} and {}'.format(cout, b))
   if pad_mode == 'reflection' and min(h, w) < 2:
     raise ValueError('reflection padding needs images of at least 2x2')
-  kernel = layer.kernel.to(device=x.device, dtype=x.dtype).contiguous()
-  if kernel.data_ptr() % 16:     # the kernel reads weights 16 bytes at a time
+  if x.data_ptr() % 16:          # the kernel reads 16 bytes at a time
+    x = x.clone()
+  if x.dtype == torch.bfloat16:
+    kernel = pack_weights(layer.kernel.to(x.device))
+    kp = kernel.shape[1]
+  else:
+    kernel = layer.kernel.to(device=x.device, dtype=x.dtype).contiguous()
+    kp = 0
+  if kernel.data_ptr() % 16:
     kernel = kernel.clone()
   if layer.bias is None:
     bias = torch.zeros(cout, device=x.device, dtype=torch.float32)
@@ -132,7 +179,7 @@ def conv_layer_cuda(x, layer, pad_mode='reflection'):
   with torch.cuda.device(x.device):
     status = _lib().conv_layer(
         native.ptr(x), native.ptr(kernel), native.ptr(bias), native.ptr(y),
-        b, h, w, cin, cout, kh, PAD_MODES[pad_mode], _DTYPES[x.dtype],
+        b, h, w, cin, cout, kh, kp, PAD_MODES[pad_mode], _DTYPES[x.dtype],
         int(leak is not None), float(leak or 0.0), native.stream_of(x))
   native.check(status, 'conv_layer')
   conv_layer_cuda.launches += 1

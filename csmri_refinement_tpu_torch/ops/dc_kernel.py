@@ -56,18 +56,46 @@ def dc_plain(x, k0, mask):
 @functools.lru_cache(maxsize=None)
 def _lib():
   lib = native.library('dc')
-  lib.dc_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+  lib.dc_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
       ctypes.c_void_p]
   lib.dc_forward.restype = ctypes.c_int
   return lib
 
 
+# The line FFT's mixed-radix plan, per n: the radices of its stages, each
+# an in-register DFT of 2 to 16 points (``csrc/dc.cu`` compiles the same
+# plans and refuses any other). A thread holds the largest radix's points.
+FFT_PLANS = {2: (2,), 4: (4,), 8: (8,), 16: (16,), 32: (8, 4), 64: (8, 8),
+             128: (16, 8), 256: (16, 16), 512: (8, 8, 8)}
+
+
+def plan_code(n):
+  """The plan as the kernel checks it: one byte per stage's radix."""
+  return sum(r << (8 * s) for s, r in enumerate(FFT_PLANS[n]))
+
+
+def fft_tables(n):
+  """The inter-stage twiddles of the plan, in f64 rounded once to f32.
+
+  Stage s ≥ 1 (span Ns = product of the earlier radices, radix r) has a
+  table of Ns·r entries, ``[q·Ns + m] = exp(−2πi·m·q/(Ns·r))``; the tables
+  are concatenated in stage order. Returns an (entries, 2) float32 array
+  (one zero entry when the plan has a single stage).
+  """
+  parts = []
+  span = 1
+  for s, r in enumerate(FFT_PLANS[n]):
+    if s:
+      q, m = np.meshgrid(np.arange(r), np.arange(span), indexing='ij')
+      parts.append(np.exp(-2j * np.pi * m * q / (span * r)).reshape(-1))
+    span *= r
+  w = np.concatenate(parts) if parts else np.zeros(1, np.complex128)
+  return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=None)
-def _twiddles(n, device):
-  """(n/2, 2) float32 twiddles exp(−2πik/n), computed in f64."""
-  w = np.exp(-2j * np.pi * np.arange(n // 2) / n)
-  tw = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
-  return torch.from_numpy(tw).to(device)
+def _tables(n, device):
+  return torch.from_numpy(fft_tables(n)).to(device)
 
 
 def _check(name, t, shape, device):
@@ -98,14 +126,19 @@ def _launch(name, x, k0, mask):
   if k0 is not None:
     _check('k0', k0, (b, h, w, 2), x.device)
   _check('mask', mask, (b, h, w, 1), x.device)
+  # the kernel moves 16 bytes at a time
+  x = x.clone() if x.data_ptr() % 16 else x
+  if k0 is not None and k0.data_ptr() % 16:
+    k0 = k0.clone()
   y = torch.empty_like(x)
   scratch = torch.empty_like(x)
-  tw = _twiddles(h, x.device)
+  tw = _tables(h, x.device)
+  code = plan_code(h)
   with torch.cuda.device(x.device):
     status = _lib().dc_forward(
         native.ptr(x), None if k0 is None else native.ptr(k0),
         native.ptr(mask), native.ptr(y), native.ptr(scratch), native.ptr(tw),
-        native.ptr(tw), b, h, w, native.stream_of(x))
+        native.ptr(tw), code, code, b, h, w, native.stream_of(x))
   native.check(status, 'dc_forward')
   return y
 

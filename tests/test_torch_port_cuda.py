@@ -35,15 +35,24 @@ def cuda():
   return torch.device('cuda')
 
 
-@pytest.mark.parametrize('b,n', [(3, 2), (2, 16), (4, 64), (2, 512)])
-def test_dc_kernel_matches_plain(cuda, b, n):
+@pytest.mark.parametrize('with_k0', [True, False], ids=['k0', 'no_k0'])
+@pytest.mark.parametrize('n', [2, 4, 8, 16, 32, 64, 128, 256, 512])
+def test_dc_kernel_matches_plain(cuda, n, with_k0):
+  """Every side the plan covers, with k0 and in the no-k0 mode (K1-bwd);
+  B = 3 walks a partial last row tile at the small sides."""
+  b = 3 if n <= 64 else 2
   gen = torch.Generator(device=cuda).manual_seed(n)
   x = torch.randn(b, n, n, 2, device=cuda, generator=gen)
   k0 = torch.randn(b, n, n, 2, device=cuda, generator=gen)
   m = (torch.rand(b, n, n, 1, device=cuda, generator=gen) > 0.5).float()
-  got = dc_kernel.dc_cuda(x, k0, m)
-  torch.cuda.synchronize()
-  want = dc_kernel.dc_plain(x, k0, m)
+  if with_k0:
+    got = dc_kernel.dc_cuda(x, k0, m)
+    torch.cuda.synchronize()
+    want = dc_kernel.dc_plain(x, k0, m)
+  else:
+    got = dc_kernel.dc_bwd_cuda(x, m)
+    torch.cuda.synchronize()
+    want = dc_kernel.dc_plain_vjp(x, m, need_k0=False)[0]
   assert (got - want).abs().max().item() <= 2e-4
 
 
@@ -59,15 +68,9 @@ def test_dc_kernel_keeps_sampled_lines(cuda):
   assert err.item() <= 2e-4
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
-                         ids=['f32', 'bf16'])
-@pytest.mark.parametrize('pad', ['reflection', 'replication', 'zero'])
-@pytest.mark.parametrize('k,cin,cout', [(3, 2, 32), (4, 48, 16),
-                                        (4, 32, 64), (3, 128, 128)])
-def test_conv_layer_kernel_matches_plain(cuda, k, cin, cout, pad, dtype):
-  """Odd image sizes exercise the tile overhang at every border."""
+def _conv_case(cuda, k, cin, cout, pad, dtype, shape):
   gen = torch.Generator(device=cuda).manual_seed(k * cin + cout)
-  x = torch.randn(2, 19, 37, cin, device=cuda, generator=gen).to(dtype)
+  x = torch.randn(*shape, cin, device=cuda, generator=gen).to(dtype)
   w = torch.randn(k, k, cin, cout, device=cuda, generator=gen)
   layer = cc.ChainLayer(w * (2.0 / (k * k * cin)) ** 0.5,
                         torch.randn(cout, device=cuda, generator=gen), 0.1)
@@ -78,7 +81,38 @@ def test_conv_layer_kernel_matches_plain(cuda, k, cin, cout, pad, dtype):
   # bf16: the output is rounded to bf16 (2^-8 relative); a different
   # summation order may round a near-tie the other way.
   tol = 2e-4 if dtype == torch.float32 else 1e-2 * want.abs().max().item()
-  assert got.dtype == dtype and err <= tol
+  assert got.dtype == dtype and got.shape == want.shape and err <= tol
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('pad', ['reflection', 'replication', 'zero'])
+@pytest.mark.parametrize('k,cin,cout', [(3, 2, 32), (4, 48, 16),
+                                        (4, 32, 64), (3, 128, 128)])
+def test_conv_layer_kernel_matches_plain(cuda, k, cin, cout, pad, dtype):
+  """Odd image sizes exercise the tile overhang at every border."""
+  _conv_case(cuda, k, cin, cout, pad, dtype, (2, 19, 37))
+
+
+@pytest.mark.parametrize('pad', ['reflection', 'replication', 'zero'])
+@pytest.mark.parametrize('k', [3, 4])
+@pytest.mark.parametrize('cout', [16, 32, 64, 128])
+@pytest.mark.parametrize('cin', [2, 16, 32, 64, 128])
+def test_conv_layer_wgmma_grid(cuda, cin, cout, k, pad):
+  """The bf16 wgmma route over Cin x Cout x k x pad, on images that are
+  not tile multiples (40 x 72, B = 3; 9 x 9, B = 1)."""
+  _conv_case(cuda, k, cin, cout, pad, torch.bfloat16, (3, 40, 72))
+  _conv_case(cuda, k, cin, cout, pad, torch.bfloat16, (1, 9, 9))
+
+
+@pytest.mark.parametrize('k', [3, 4])
+@pytest.mark.parametrize('cin', [3, 18, 48, 66])
+def test_conv_layer_staging_routes(cuda, cin, k):
+  """Cin that is not a whole number of chunks: gathered (odd), 4-byte
+  copies in one chunk (18) and in three (66), zero-filled 16-byte groups
+  (48)."""
+  _conv_case(cuda, k, cin, 32, 'zero', torch.bfloat16, (2, 21, 70))
+  _conv_case(cuda, k, cin, 32, 'reflection', torch.bfloat16, (2, 21, 70))
 
 
 def test_kernel_wrappers_raise_on_unsupported_inputs(cuda):
