@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch + CUDA port (``csmri_refinement_tpu_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--probes-only]
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit. Phases, each failing loudly with a non-zero exit:
 
 1. require a CUDA device; print the card's name and power limit;
 2. build the four hand-written kernel sources of ``csrc/`` (nvcc, in
-   parallel);
+   parallel), printing ``ptxas``'s register and spill lines; the probes'
+   must show no C7517 (a drained ``wgmma`` pipeline);
 3. DC kernel vs its plain version (cuFFT) at 256², B=32 and 512², B=8, f32,
    and the sampled k-space lines of its output vs k0;
 4. conv-chain kernel vs its plain version on the five flagship U-Net chains
@@ -53,8 +54,14 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
 15. timings: K3 and the requant with their plain versions, bounds and
     cuDNN's bf16 convs as a yardstick, the int8 forward beside the bf16
     one, then the primitive probes (K4, K5) as their own path: every probe
-    OK, with ``torch.roll`` and ``torch._int_mm`` as yardsticks and the
-    library's s8 and bf16 products at 4096³.
+    OK with one launch each; then each probe's kernel, plain version and
+    library call (``torch.roll``, ``torch._int_mm``, ... where one PyTorch
+    call computes its function) as device time (``graph_ms``) beside the
+    kernel's eager calls, and the library's s8 and bf16 products at 4096³.
+
+``--probes-only`` runs phases 1 and 2 for the probes' source and the
+probes of phase 15 alone, and prints their ``{"kernels": [...]}`` entries
+(no result line).
 
 Prints a ``{"kernels": [...]}`` line, then, last, ``{"ok": true, "device":
 {...}}``. TF32 is off throughout (except the one TF32 step timing), so every
@@ -68,6 +75,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -803,44 +811,122 @@ def probe_phase(line):
     require(launches == len(module.PROBES), 'expected one launch per probe')
     runs[module] = (launches, max(r.max_abs_err for r in results))
 
+  times = probe_timings(line)
   rows, lanes = probes.R, probes.L
-  x = mosaic_prims.probe_input((rows, lanes), DEVICE)
-  roll = 'lane roll bf16 by 32'
-  k4 = (time_ms(lambda: mosaic_prims.probe_cuda(roll, x)),
-        time_ms(lambda: mosaic_prims.plain(roll, x)),
-        *bound(0, 2 * rows * lanes * 2, BF16_FLOPS),
-        time_ms(lambda: torch.roll(x, 32, 1)))
-  data = int8_prims.probe_inputs(DEVICE)
-  a, b = data['a'], data['b']
-  mm = 's8 x s8 -> s32 mma'
-  k5 = (time_ms(lambda: int8_prims.probe_cuda(mm, a, b)),
-        time_ms(lambda: int8_prims.plain(mm, a, b)),
-        *bound(2 * rows * lanes * lanes,
-               rows * lanes + lanes * lanes + 4 * rows * lanes, INT8_OPS),
-        time_ms(lambda: torch._int_mm(a, b)))
-  for name, t in (('K4 ' + roll, k4), ('K5 ' + mm, k5)):
-    print('{} ({}x{}): kernel {:.4f} ms, plain {:.4f} ms, bound {:.6f} ms '
-          '({}), library {:.4f} ms ({})'.format(name, rows, lanes, t[0], t[1],
-                                                t[2], t[3], t[4], line))
+  roll, mm = 'lane roll bf16 by 32', 's8 x s8 -> s32 mma'
+  bounds = {roll: bound(0, 2 * rows * lanes * 2, BF16_FLOPS),
+            mm: bound(2 * rows * lanes * lanes,
+                      rows * lanes + lanes * lanes + 4 * rows * lanes,
+                      INT8_OPS)}
+  for name in (roll, mm):
+    print('{} ({}x{}): bound {:.6f} ms ({}); kernel {:.4f} ms, library '
+          '{:.4f} ms, device time ({})'.format(name, rows, lanes,
+                                               *bounds[name],
+                                               times[name]['ms'],
+                                               times[name]['library_ms'],
+                                               line))
   for name, (ms, rate) in int8_prims.throughput().items():
     print('library {} 4096^3 matmul: {:.3f} ms = {:.1f} T{}/s of {} peak '
           '({})'.format(name, ms, rate, 'OP' if name == 's8' else 'FLOP',
                         1979 if name == 's8' else 989, line))
   entries = []
-  for name, module, t, replaces in (
-      ('probe_mosaic', mosaic_prims, k4, 'scripts/probe_mosaic_prims.py:27'),
-      ('probe_int8', int8_prims, k5, 'scripts/probe_int8_prims.py:26')):
+  for name, module, probe, replaces in (
+      ('probe_mosaic', mosaic_prims, roll, 'scripts/probe_mosaic_prims.py:27'),
+      ('probe_int8', int8_prims, mm, 'scripts/probe_int8_prims.py:26')):
     launches, err = runs[module]
     entries.append({
         'name': name, 'route': 'cuda',
         'source': 'csmri_refinement_tpu_torch/csrc/probes.cu',
         'replaces': replaces, 'launches': launches, 'max_abs_err': err,
-        'ms': t[0], 'plain_ms': t[1], 'bound_ms': t[2], 'bound_by': t[3],
-        'library_ms': t[4]})
+        **times[probe], 'bound_ms': bounds[probe][0],
+        'bound_by': bounds[probe][1]})
   return entries
 
 
-def main():
+def probe_library_calls():
+  """{probe name: the one PyTorch call that computes its function}; a
+  probe without one (the scratch chain, the odd-pixel MMA, the requant,
+  the dequant product) is absent. The bf16 select's ×2 is a second
+  launch: no single call computes where(col < 32, 2x, x)."""
+  from csmri_refinement_tpu_torch import probes
+  rows, lanes = probes.R, probes.L
+  low = torch.arange(lanes, device=DEVICE) < 32
+  words = lambda t, shift: torch.roll(t.view(torch.int32), shift, 1)
+  return {
+      'lane roll bf16 by 32': lambda x: torch.roll(x, 32, 1),
+      'lane roll bf16 as 32-bit pairs': lambda x: words(x, 16),
+      'row roll bf16 by 1': lambda x: torch.roll(x, 1, 0),
+      'unaligned row read': lambda x: x[1:rows - 15].clone(),
+      'unaligned row write': lambda x: F.pad(x[:rows - 16], (0, 0, 1, 15)),
+      'bf16 where(iota) select': lambda x: torch.where(low, x * 2, x),
+      'strided mid-dim read': lambda x: x[:, 3, :].contiguous(),
+      'pair roll by 64 on 250-row tile': lambda x: words(x, 32),
+      's8 x s8 -> s32 mma': torch._int_mm,
+      'int8 lane roll via 32-bit words': lambda a: words(a, 8),
+      'int8 where(iota) select': lambda a: torch.where(low, a, 0),
+  }
+
+
+def probe_timings(line):
+  """Every probe on its own inputs: kernel, plain version and library call
+  as device time (``graph_ms``), and the kernel's eager calls
+  (``time_ms``, with the wrapper's host time). Prints one line a probe;
+  returns {name: {'ms', 'plain_ms', 'library_ms', 'eager_ms'}}."""
+  from csmri_refinement_tpu_torch.probes import int8_prims, mosaic_prims
+  library = probe_library_calls()
+  data = int8_prims.probe_inputs(DEVICE)
+  cases = [(name, mosaic_prims,
+            [mosaic_prims.probe_input(spec[1], DEVICE)])
+           for name, spec in mosaic_prims.PROBES.items()]
+  cases += [(name, int8_prims, [data[k] for k in spec[2]])
+            for name, spec in int8_prims.PROBES.items()]
+  out = {}
+  for name, module, inputs in cases:
+    lib = library.get(name)
+    fns = {'ms': lambda: module.probe_cuda(name, *inputs),
+           'plain_ms': lambda: module.plain(name, *inputs)}
+    if lib:
+      fns['library_ms'] = lambda: lib(*inputs)
+    # in turns, each timed twice (a, b, c, c, b, a), so that a drift of
+    # the card's clock over the sequence favours none of them
+    runs = [(k, graph_ms(fns[k])) for k in list(fns) + list(fns)[::-1]]
+    t = {key: sum(ms for k, ms in runs if k == key) / 2 for key in fns}
+    t.setdefault('library_ms', None)
+    t['eager_ms'] = time_ms(fns['ms'])
+    out[name] = t
+    print('probe {:34s} device ms: kernel {:.5f}, plain {:.5f}, library {}; '
+          'kernel eager {:.5f} ms ({})'.format(
+              name, t['ms'], t['plain_ms'],
+              'none' if lib is None else '{:.5f}'.format(t['library_ms']),
+              t['eager_ms'], line))
+  return out
+
+
+def build_phase(names):
+  """Phase 2: build the named kernel sources in parallel; print each
+  kernel's ptxas lines, and fail if ptxas drained a wgmma pipeline
+  (C7517) in a probe."""
+  from csmri_refinement_tpu_torch.ops import native
+  t0 = time.perf_counter()
+  report = native.build(names)
+  for name, (secs, log) in report.items():
+    print('built csrc/{}.cu in {:.1f} s'.format(name, secs))
+    drained = [ln.strip() for ln in log.splitlines() if 'C7517' in ln]
+    for ln in log.splitlines():
+      if 'registers' in ln or 'spill' in ln or 'C7517' in ln:
+        print('  ptxas {}: {}'.format(name, ln.strip()),
+              file=sys.stdout if name == 'probes' else sys.stderr)
+    if name == 'probes':
+      print('ptxas probes: {} C7517 warnings'.format(len(drained)))
+      require(not drained, 'ptxas drains a wgmma pipeline in a probe')
+  print('kernel build: {:.1f} s'.format(time.perf_counter() - t0))
+
+
+def main(argv=None):
+  probes_only = '--probes-only' in (sys.argv[1:] if argv is None else argv)
+  # graph_ms of a plain version that is a view (the unaligned row read,
+  # the mid-dim read) captures an empty graph, which times as ~0
+  warnings.filterwarnings('ignore', 'The CUDA Graph is empty')
   require(torch.cuda.is_available(), 'no CUDA device')
   sys.path.insert(0, REPO)
   import csmri_refinement_tpu_torch as P
@@ -853,15 +939,11 @@ def main():
   print('torch {} cuda {} on {} ({})'.format(torch.__version__,
                                              torch.version.cuda, kind, line))
 
-  # Phase 2: build
-  t0 = time.perf_counter()
-  report = native.build()
-  for name, (secs, log) in report.items():
-    print('built csrc/{}.cu in {:.1f} s'.format(name, secs))
-    for ln in log.splitlines():
-      if 'registers' in ln or 'spill' in ln:
-        print('  ptxas {}: {}'.format(name, ln.strip()), file=sys.stderr)
-  print('kernel build: {:.1f} s'.format(time.perf_counter() - t0))
+  if probes_only:   # phases 1, 2 and the probes of 15 alone
+    build_phase(('probes',))
+    print(json.dumps({'kernels': probe_phase(line)}))
+    return
+  build_phase(native.KERNELS)
 
   # Phase 3: DC kernel
   dc_err, dc_inputs = dc_phase()

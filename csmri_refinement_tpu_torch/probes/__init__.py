@@ -1,9 +1,12 @@
 """Primitive probes: the Hopper counterparts of the TPU probes K4 and K5.
 
 ``probes/mosaic_prims.py`` (K4, ``scripts/probe_mosaic_prims.py``) and
-``probes/int8_prims.py`` (K5, ``scripts/probe_int8_prims.py``) each run a
-tiny kernel of ``csrc/probes.cu`` per probe, on the probe's fixed tile, and
-compare it with a plain PyTorch version of the same function. Each prints
+``probes/int8_prims.py`` (K5, ``scripts/probe_int8_prims.py``) each launch
+one kernel of ``csrc/probes.cu`` per probe, on the probe's fixed tile, and
+compare it with a plain PyTorch version of the same function. The kernels
+run as one wave of small blocks with 16-byte accesses; the MMA probes issue
+``wgmma`` through shared-memory descriptors whose layout fields are decided
+here (``descriptor``) and checked by the kernel. Each prints
 ``name OK``, ``name WRONG NUMERICS`` or ``name FAIL: <reason>`` per probe
 and exits non-zero unless every probe is OK:
 
@@ -25,6 +28,7 @@ import torch
 from csmri_refinement_tpu_torch.ops import native
 
 R, L = 256, 128      # the TPU probes' tile: rows (sublanes) x lanes
+SWIZZLE_MODES = {0: 0, 128: 1}   # swizzle bytes: descriptor mode
 
 
 class Result(NamedTuple):
@@ -36,13 +40,22 @@ class Result(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def lib():
   out = native.library('probes')
+  descs = [ctypes.c_uint64] * 2
   out.probe_bf16.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                             ctypes.c_int, ctypes.c_void_p]
+                             ctypes.c_int, *descs, ctypes.c_void_p]
   out.probe_bf16.restype = ctypes.c_int
   out.probe_int8.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
-      ctypes.c_int, ctypes.c_void_p]
+      ctypes.c_int, *descs, ctypes.c_void_p]
   out.probe_int8.restype = ctypes.c_int
   return out
+
+
+def descriptor(lbo, sbo, swizzle=0):
+  """The layout fields of a ``wgmma`` shared-memory matrix descriptor, its
+  start address left 0: the leading and stride byte offsets (LBO, SBO; in
+  16-byte units at bits 16-29 and 32-45) and the swizzle mode (bits
+  62-63) for ``swizzle`` bytes."""
+  return (lbo >> 4) << 16 | (sbo >> 4) << 32 | SWIZZLE_MODES[swizzle] << 62
 
 
 def check(name, got, want, atol):

@@ -3,11 +3,15 @@
 The TPU probe asked whether Mosaic accepts the int8 primitives of the
 quantized chain kernel. These ask the same of the port's int8 conv kernel
 (K3) on the same inputs (``RandomState(0)`` int8 in -127..127, then f32
-``randn · 3``): s8 × s8 → s32 (256×128 · 128×128) on the tensor cores, an
-int8 lane roll moved as 32-bit words, an int8 iota select, the block-wide
-f32 → int8 requant, and the s8 product with an f32 dequant (×0.01). Each is
-exact: atol 1e-5, as the TPU probe. ``throughput`` times the library's s8
-and bf16 products at 4096³ as yardsticks (the TPU script's XLA dots).
+``randn · 3``): s8 × s8 → s32 (256×128 · 128×128) on ``wgmma`` m64n64k32,
+both operands K-major in shared memory (b transposed by the kernel; the
+descriptors' layout fields from ``mma_descriptors``), an int8 lane roll
+moved as 16-byte vectors of 32-bit words, an int8 iota select, the
+whole-tile f32 → int8 requant as one cluster of 8 blocks that share their
+maxima through distributed shared memory, and the s8 product with an f32
+dequant (×0.01) from the accumulators. Each is exact: atol 1e-5, as the
+TPU probe. ``throughput`` times the library's s8 and bf16 products at
+4096³ as yardsticks (the TPU script's XLA dots).
 
     python -m csmri_refinement_tpu_torch.probes.int8_prims [--device cpu]
 """
@@ -36,6 +40,16 @@ def _requant(f):
 def _select(a):
   col = torch.arange(L, device=a.device)
   return torch.where(col < 32, a, torch.zeros_like(a))
+
+
+def mma_descriptors():
+  """(A, B) layout fields of the s8 product's ``wgmma`` descriptors
+  (``csrc/probes.cu`` checks them). Both operands K-major (PTX transposes
+  no 8-bit operand): a row of 128 bytes of K per row of A and per column
+  of b, the 128-byte swizzle, 8-row groups 1024 bytes apart (SBO); the
+  LBO is unused (16), since one row spans all of K."""
+  d = probes.descriptor(16, 1024, 128)
+  return d, d
 
 
 # name: (op of csrc/probes.cu, output dtype, inputs, plain)
@@ -80,7 +94,7 @@ def probe_cuda(name, *inputs):
   b = native.ptr(inputs[1]) if len(inputs) > 1 else None
   with torch.cuda.device(first.device):
     status = probes.lib().probe_int8(op, native.ptr(first), b,
-                                     native.ptr(y), R,
+                                     native.ptr(y), R, *mma_descriptors(),
                                      native.stream_of(first))
   native.check(status, 'probe_int8 ' + name)
   probe_cuda.launches += 1

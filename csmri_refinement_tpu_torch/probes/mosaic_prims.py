@@ -5,8 +5,12 @@ These ask the same of the moves the port's bf16 conv kernel (K2) makes in
 shared memory, on the same tiles (``x = arange · 1e-3`` in bf16): a lane
 roll moved as single values and as 32-bit pairs, a row roll, unaligned row
 reads and writes, an iota select, a strided mid-dim read, a scratch chain,
-a pair roll on a 250-row tile, and a WMMA A-fragment load at an odd-pixel
-offset (K2's halo reads). Each is exact: atol 1e-6, as the TPU probe.
+a pair roll on a 250-row tile, each a band of 16 rows a block staged with
+16-byte loads (plus the rows it reads across the band's edge) and stored
+with 16-byte stores; and K2's halo read: a ``wgmma`` bf16 A operand
+through a no-swizzle K-major descriptor that starts at an odd pixel of a
+planar halo (``odd_pixel_descriptors``), times the identity. Each is
+exact: atol 1e-6, as the TPU probe.
 
     python -m csmri_refinement_tpu_torch.probes.mosaic_prims [--device cpu]
 """
@@ -74,9 +78,27 @@ PROBES = {
     'pair roll by 64 on 250-row tile': (8, (250, L), (250, L),
                                         torch.bfloat16,
                                         lambda x: _roll_pairs(x, 64)),
-    'wmma bf16 A load at odd pixel': (9, (R, L), (R * L // 16 - 16, 16),
-                                      torch.float32, _odd_pixels),
+    'wgmma bf16 A descriptor at odd pixel': (
+        9, (R, L), (R * L // 16 - 16, 16), torch.float32, _odd_pixels),
 }
+
+ODD_TILES = 1    # 64-pixel tiles per block of the odd-pixel probe
+
+
+def odd_pixel_plane():
+  """Bytes of one channel plane of the odd-pixel probe's staged halo: the
+  block's 64 · ODD_TILES pixels plus one, rounded to 8, 16 bytes each."""
+  return (64 * ODD_TILES + 8) * 16
+
+
+def odd_pixel_descriptors():
+  """(A, B) layout fields of the odd-pixel probe's ``wgmma`` descriptors
+  (``csrc/probes.cu`` checks them), no swizzle, K-major. A is K2's halo
+  descriptor: 16-byte pixel rows, 8-pixel groups 128 bytes apart (SBO),
+  channels 8-15 one plane on (LBO). B, the 16 × 16 identity: 16-byte rows
+  of 8 k, 8-row groups 128 bytes apart, k 8-15 256 bytes on."""
+  return (probes.descriptor(odd_pixel_plane(), 128),
+          probes.descriptor(256, 128))
 
 
 def probe_input(shape, device='cuda'):
@@ -101,6 +123,7 @@ def probe_cuda(name, x):
   rows = x.numel() // L
   with torch.cuda.device(x.device):
     status = probes.lib().probe_bf16(op, native.ptr(x), native.ptr(y), rows,
+                                     *odd_pixel_descriptors(),
                                      native.stream_of(x))
   native.check(status, 'probe_bf16 ' + name)
   probe_cuda.launches += 1

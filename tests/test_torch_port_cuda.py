@@ -292,3 +292,125 @@ def test_probes_pass_on_card(cuda, module):
   results = module.run_all('cuda')
   assert [r.status for r in results] == ['OK'] * len(module.PROBES), results
   assert module.probe_cuda.launches == before + len(module.PROBES)
+
+
+def _int8_draw(cuda, seed):
+  gen = torch.Generator(device=cuda).manual_seed(seed)
+  a = torch.randint(-127, 128, (256, 128), device=cuda, generator=gen,
+                    dtype=torch.int8)
+  b = torch.randint(-127, 128, (128, 128), device=cuda, generator=gen,
+                    dtype=torch.int8)
+  return a, b
+
+
+def _probe_exact(module, name, *inputs):
+  """The probe's kernel, once (one launch), equal bit for bit to its plain
+  version on the card."""
+  before = module.probe_cuda.launches
+  got = module.probe_cuda(name, *inputs)
+  torch.cuda.synchronize()
+  assert module.probe_cuda.launches == before + 1
+  want = module.plain(name, *inputs)
+  assert got.dtype == want.dtype and got.shape == want.shape
+  assert torch.equal(got, want), (got.double() - want.double()).abs().max()
+  return got
+
+
+@pytest.mark.parametrize('seed', [1, 2, 3])
+@pytest.mark.parametrize('name', ['s8 x s8 -> s32 mma',
+                                  's8 mma + f32 dequant'])
+def test_s8_wgmma_probe_seeded_draws(cuda, name, seed):
+  """The s8 wgmma product (b transposed in the kernel) and its f32 dequant
+  on three more draws, bit-exact."""
+  _probe_exact(int8_prims, name, *_int8_draw(cuda, seed))
+
+
+@pytest.mark.parametrize('name', ['s8 x s8 -> s32 mma',
+                                  's8 mma + f32 dequant'])
+def test_s8_wgmma_probe_extremes(cuda, name):
+  """All -127 times all 127: every sum is -128 * 127^2 = -2,064,512, the
+  largest |sum| the probe's inputs allow, exact in s32 and in f32."""
+  a = torch.full((256, 128), -127, dtype=torch.int8, device=cuda)
+  b = torch.full((128, 128), 127, dtype=torch.int8, device=cuda)
+  got = _probe_exact(int8_prims, name, a, b)
+  if got.dtype == torch.int32:
+    assert (got == -2064512).all()
+
+
+def _requant_case(cuda, case):
+  gen = torch.Generator(device=cuda).manual_seed(7)
+  f = torch.randn(256, 128, device=cuda, generator=gen) * 3
+  if case == 'zero':
+    f.zero_()
+  elif case == 'ties':             # amax 127 / 4: f * 4 is exact
+    f.clamp_(-127 * 0.25, 127 * 0.25)
+    f[3, 5] = 127 * 0.25
+    f[100, :4] = torch.tensor([0.5, 1.5, 2.5, -3.5], device=cuda) * 0.25
+  elif case == 'max_in_last_block':   # rows 224-255: the cluster's rank 7
+    f[250, 7] = -50.0
+  return f
+
+
+@pytest.mark.parametrize('case', ['zero', 'ties', 'max_in_last_block'])
+def test_requant_cluster_probe_cases(cuda, case):
+  """The cluster requant, bit-exact: an all-zero tile (the 1e-8 floor),
+  exact .5 ties (half to even), and the tile's max in the last block, which
+  every other block must read through distributed shared memory."""
+  name = 'f32 -> int8 dynamic requant'
+  y = _probe_exact(int8_prims, name, _requant_case(cuda, case))
+  if case == 'zero':
+    assert not bool(y.any())
+  elif case == 'ties':
+    assert y[100, :4].tolist() == [0, 2, 2, -4] and y[3, 5].item() == 127
+  else:
+    assert y[250, 7].item() == -127 and y[:224].abs().max().item() < 127
+
+
+@pytest.mark.parametrize('name', sorted(mosaic_prims.PROBES))
+def test_bf16_probes_on_random_tiles(cuda, name):
+  """Every K4 probe on a random bf16 tile of its input shape (the
+  250-row pair roll included), bit-exact, one launch each."""
+  shape = mosaic_prims.PROBES[name][1]
+  gen = torch.Generator(device=cuda).manual_seed(len(name))
+  x = torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16)
+  _probe_exact(mosaic_prims, name, x)
+
+
+@pytest.mark.parametrize('name', ['int8 lane roll via 32-bit words',
+                                  'int8 where(iota) select'])
+def test_int8_moves_on_random_tiles(cuda, name):
+  _probe_exact(int8_prims, name, _int8_draw(cuda, 4)[0])
+
+
+def test_probe_wrappers_raise_on_unsupported_inputs(cuda):
+  x = mosaic_prims.probe_input((256, 128), cuda)
+  with pytest.raises(ValueError):
+    mosaic_prims.probe_cuda('lane roll bf16 by 32', x[:128])   # shape
+  with pytest.raises(ValueError):
+    mosaic_prims.probe_cuda('lane roll bf16 by 32', x.float())
+  a, b = _int8_draw(cuda, 5)
+  with pytest.raises(ValueError):
+    int8_prims.probe_cuda('s8 x s8 -> s32 mma', a, b.t())       # layout
+  with pytest.raises(ValueError):
+    int8_prims.probe_cuda('s8 x s8 -> s32 mma', a.cpu(), b.cpu())
+
+
+def test_probe_kernels_refuse_other_descriptor_layouts(cuda):
+  """The MMA probes launch only with the layout fields compiled into the
+  kernel (mma_descriptors, odd_pixel_descriptors): any other returns
+  cudaErrorInvalidValue (1) and launches nothing."""
+  from csmri_refinement_tpu_torch import probes
+  from csmri_refinement_tpu_torch.ops import native
+  a, b = _int8_draw(cuda, 6)
+  y = torch.empty(256, 128, dtype=torch.int32, device=cuda)
+  a_desc, _ = int8_prims.mma_descriptors()
+  assert probes.lib().probe_int8(
+      0, native.ptr(a), native.ptr(b), native.ptr(y), 256, a_desc,
+      probes.descriptor(16, 512, 128), native.stream_of(a)) == 1
+  x = mosaic_prims.probe_input((256, 128), cuda)
+  out = torch.empty(2032, 16, device=cuda)
+  _, b_desc = mosaic_prims.odd_pixel_descriptors()
+  assert probes.lib().probe_bf16(
+      9, native.ptr(x), native.ptr(out), 256,
+      probes.descriptor(mosaic_prims.odd_pixel_plane() + 16, 128), b_desc,
+      native.stream_of(x)) == 1

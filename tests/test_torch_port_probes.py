@@ -40,7 +40,7 @@ MOSAIC_REFS = {   # the TPU probe's numpy/jnp reference of each
     'strided mid-dim read': lambda x: x[:, 3, :],
     'scratch write+unaligned read': _scratch_chain,
     'pair roll by 64 on 250-row tile': lambda x: np.roll(x, 64, axis=1),
-    'wmma bf16 A load at odd pixel': lambda x: x.reshape(-1, 16)[1:-15],
+    'wgmma bf16 A descriptor at odd pixel': lambda x: x.reshape(-1, 16)[1:-15],
 }
 
 
