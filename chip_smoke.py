@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch + CUDA port (``csmri_refinement_tpu_torch``).
 
-    python3 chip_smoke.py [--probes-only]
+    python3 chip_smoke.py [--probes-only | --int8-only [--tree DIR]]
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit. Phases, each failing loudly with a non-zero exit:
@@ -36,7 +36,9 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
    0 just before and read just after: 3 K1 + 3 K1-bwd per step;
 10. the same init and the same five fixed-mask batches, trained on the card
     (kernels) and on the CPU (plain versions): losses must agree;
-11. timings: K1-bwd, its plain version and the cuFFT composition, and the
+11. timings: K1-bwd, its plain version and the cuFFT composition; K1's
+    dense-DFT route (no main path takes it) at 320² and 256×192, B=2, K1
+    and K1-bwd against their plain versions and timed beside them; the
     train step with TF32 off and on;
 12. the int8 conv kernel (K3) and its requant kernel vs their plain
     versions: the quantized layers of the five flagship chains at 256²,
@@ -46,14 +48,18 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     ``build_flagship(256, bf16, quantize_inference=True)``, B=32, a few
     forwards with the counters set to 0 just before and read just after
     (3 K1 + 3 K2 + 7 K3 + 2 requants each), then 512², B=4 (3 + 6 + 4 + 1,
-    and a chain that quantizes nothing);
+    and a chain that quantizes nothing), and at 512² each of those K3 and
+    requant launches against its plain version as in phase 12;
 14. int8 quality: f32 compute on the card vs on the CPU; int8 vs f32 on
     the card, for the flagship U-Net against the JAX package's reading on
     the same weights and batch, for the JAX suite's U-Net against its bar;
     the port's quality-vs-dtype table at 256²;
-15. timings: K3 and the requant with their plain versions, bounds and
-    cuDNN's bf16 convs as a yardstick, the int8 forward beside the bf16
-    one, then the primitive probes (K4, K5) as their own path: every probe
+15. timings: K3 on each of the 7 quantized flagship layers and the requant
+    kernel on each of its 2 inputs as device time (``graph_ms``), with
+    TOP/s and share of the layer's bound, beside K2 bf16 on the same
+    layers; the sums beside their plain versions, the function's bound
+    and cuDNN's bf16 convs as a yardstick; the int8 forward beside the
+    bf16 one; then the primitive probes (K4, K5) as their own path: every probe
     OK with one launch each; then each probe's kernel, plain version and
     library call (``torch.roll``, ``torch._int_mm``, ... where one PyTorch
     call computes its function) as device time (``graph_ms``) beside the
@@ -61,7 +67,11 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
 
 ``--probes-only`` runs phases 1 and 2 for the probes' source and the
 probes of phase 15 alone, and prints their ``{"kernels": [...]}`` entries
-(no result line).
+(no result line). ``--int8-only`` runs phases 1 and 2 for the conv
+sources and the K3 table of phase 15 alone (no result line); with
+``--tree DIR`` it imports the port package from another checkout inside
+this one (an earlier tree, unpacked by ``git archive`` into a git-ignored
+directory), so that two trees are timed in turns on one card.
 
 Prints a ``{"kernels": [...]}`` line, then, last, ``{"ok": true, "device":
 {...}}``. TF32 is off throughout (except the one TF32 step timing), so every
@@ -80,7 +90,7 @@ import warnings
 import torch
 import torch.nn.functional as F
 
-REPO = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(os.path.realpath(__file__))
 SEED = 0
 DEVICE = 'cuda'
 SIZE = 256         # the flagship image side
@@ -238,11 +248,15 @@ def unet_chains(model):
           ('decode_1.decode', unet.decode_1.decode)]
 
 
-CHAIN_SHAPES = {   # input (H, W, Cin) of each chain for a SIZE² image
-    'encode_0': (SIZE, SIZE, 2), 'encode_1': (SIZE // 2, SIZE // 2, 32),
-    'encode_2': (SIZE // 4, SIZE // 4, 64),
-    'decode_0.decode': (SIZE // 2, SIZE // 2, 128),
-    'decode_1.decode': (SIZE, SIZE, 64)}
+def chain_shapes(size):
+  """Input (H, W, Cin) of each flagship chain for a size² image."""
+  return {'encode_0': (size, size, 2), 'encode_1': (size // 2, size // 2, 32),
+          'encode_2': (size // 4, size // 4, 64),
+          'decode_0.decode': (size // 2, size // 2, 128),
+          'decode_1.decode': (size, size, 64)}
+
+
+CHAIN_SHAPES = chain_shapes(SIZE)
 
 
 def conv_phase(model, batch):
@@ -414,6 +428,48 @@ def dc_bwd_phase():
   return errs[SIZE], inputs
 
 
+def dc_dft_phase(line):
+  """Phase 11, K1's dense-DFT route (sides with no radix plan, non-square
+  images), which no main path takes: at 320² and 256×192, B=2, K1 with k0
+  against ``dc_plain`` and K1-bwd against ``dc_plain_vjp``, then each as
+  device time beside its plain version, cuFFT's composition and the DC's
+  bound."""
+  from csmri_refinement_tpu_torch.ops import dc_kernel, fft, masks
+  for h, w in ((320, 320), (256, 192)):
+    b = 2
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + h + w)
+    x = torch.randn(b, h, w, 2, device=DEVICE, generator=gen)
+    k0 = torch.randn(b, h, w, 2, device=DEVICE, generator=gen)
+    mask = masks.cartesian_mask(gen, (b, h, w), 8, device=DEVICE)
+    m = mask[..., None].contiguous()
+    require(dc_kernel.dc_route(h, w) == 'dft', 'route of {}x{}'.format(h, w))
+    fwd = dc_kernel.dc_cuda(x, k0, m)
+    bwd = dc_kernel.dc_bwd_cuda(x, m)
+    sync()
+    errs = ((fwd - dc_kernel.dc_plain(x, k0, m)).abs().max().item(),
+            (bwd - dc_kernel.dc_plain_vjp(x, m, False)[0]).abs().max().item())
+    xc, k0c = fft.unpack_complex(x), fft.unpack_complex(k0)
+    flops = 10 * b * h * w * math.log2(h * w)
+    for name, err, kern, plain, lib, nbytes in (
+        ('K1', errs[0], lambda: dc_kernel.dc_cuda(x, k0, m),
+         lambda: dc_kernel.dc_plain(x, k0, m),
+         lambda: torch.fft.ifft2((1 - mask) * torch.fft.fft2(
+             xc, norm='ortho') + k0c, norm='ortho'), 28),
+        ('K1-bwd', errs[1], lambda: dc_kernel.dc_bwd_cuda(x, m),
+         lambda: dc_kernel.dc_plain_vjp(x, m, False),
+         lambda: torch.fft.ifft2((1 - mask) * torch.fft.fft2(
+             xc, norm='ortho'), norm='ortho'), 20)):
+      b_ms, by = bound(flops, nbytes * b * h * w, F32_FLOPS)
+      print('{} dc dense-DFT route B{} {}x{}: max|kernel-plain| {:.3e} (tol '
+            '{}); kernel {:.4f} ms, plain {:.4f} ms, cuFFT {:.4f} ms, bound '
+            '{:.4f} ms ({}) ({})'.format(name, b, h, w, err, F32_ATOL,
+                                         graph_ms(kern), graph_ms(plain),
+                                         graph_ms(lib), b_ms, by, line))
+    require(max(errs) <= F32_ATOL,
+            'DC dense-DFT route differs from its plain version at '
+            '{}x{}'.format(h, w))
+
+
 def train_main_path():
   """Phase 9: the trainer's CLI on the card, counters around it."""
   from csmri_refinement_tpu_torch import train
@@ -523,63 +579,77 @@ def int8_gate(name, got, want):
           'int8 chain {} differs from its plain version'.format(name))
 
 
-def int8_phase(model):
-  """Phase 12; returns (K3 conv max err, requant max err, the flagship
-  layers' kernel inputs for timing)."""
+def int8_check(name, x, chain, pad, out_dtype, errs, launches):
+  """One quantized chain: layer by layer, each kernel (K3 conv, requant)
+  vs its plain version on the kernel's own inputs, the worst error and the
+  launches added to ``errs`` and ``launches``; then the kernels' chain vs
+  the plain chain (``int8_gate``)."""
   from csmri_refinement_tpu_torch.ops import conv_chain as cc
   from csmri_refinement_tpu_torch.ops import quantize
-  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+  xi, scale = quantize.quantize_act(x)
+  qlayers = quantize.quantize_chain(chain)
+  xk, sk = xi, scale
+  for i, layer in enumerate(qlayers):
+    last = i + 1 == len(qlayers)
+    args = (xk, sk, layer, pad, out_dtype if last else torch.float32,
+            not last)
+    y, amax = cc.conv_layer_int8_cuda(*args)
+    sync()
+    want, _ = cc.conv_layer_int8_plain(*args)
+    errs['conv'] = max(errs['conv'],
+                       (y.float() - want.float()).abs().max().item())
+    launches['conv'] += 1
+    if last:
+      break
+    xk, sk = cc.requant_cuda(y, amax)
+    sync()
+    want_x, want_s = cc.requant_plain(y, amax)
+    errs['requant'] = max(errs['requant'],
+                          (xk.float() - want_x.float()).abs().max().item(),
+                          (sk - want_s).abs().max().item())
+    launches['requant'] += 1
+  int8_gate(name, y, plain_int8_chain(xi, scale, qlayers, pad, out_dtype))
+
+
+def int8_flagship_checks(model, size, batch, gen):
+  """``int8_check`` on the quantized suffix of each flagship chain at the
+  chain's shape for a size² input, B = ``batch`` (randn inputs, the
+  model's weights): every K3 conv and requant launch the int8 forward makes
+  at that size, each against its plain version. Returns (errs, launches),
+  {'conv', 'requant'} each."""
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
   errs = {'conv': 0.0, 'requant': 0.0}
-  cases = {'conv': [], 'requant': [], 'float': []}
-
-  def run(name, x, chain, pad, out_dtype, record):
-    """Layer by layer: each kernel vs its plain version on the kernel's
-    own inputs; then the kernels' chain vs the plain chain."""
-    xi, scale = quantize.quantize_act(x)
-    qlayers = quantize.quantize_chain(chain)
-    xk, sk = xi, scale
-    for i, layer in enumerate(qlayers):
-      last = i + 1 == len(qlayers)
-      args = (xk, sk, layer, pad, out_dtype if last else torch.float32,
-              not last)
-      y, amax = cc.conv_layer_int8_cuda(*args)
-      sync()
-      want, _ = cc.conv_layer_int8_plain(*args)
-      errs['conv'] = max(errs['conv'],
-                         (y.float() - want.float()).abs().max().item())
-      if record:
-        cases['conv'].append(args)
-        cases['float'].append((tuple(xk.shape), chain[i], pad))
-      if last:
-        break
-      xk, sk = cc.requant_cuda(y, amax)
-      sync()
-      want_x, want_s = cc.requant_plain(y, amax)
-      errs['requant'] = max(errs['requant'],
-                            (xk.float() - want_x.float()).abs().max().item(),
-                            (sk - want_s).abs().max().item())
-      if record:
-        cases['requant'].append((y, amax))
-    int8_gate(name, y, plain_int8_chain(xi, scale, qlayers, pad, out_dtype))
-
+  launches = {'conv': 0, 'requant': 0}
   for name, unit in unet_chains(model):
-    h, w, _ = CHAIN_SHAPES[name]
+    h, w, _ = chain_shapes(size)[name]
     chain = unit.chain_layers()
     start = cc.int8_suffix_start(chain, h, w)
+    if start == len(chain):    # nothing quantized (the VMEM trim)
+      continue
     cin = chain[start].kernel.shape[2]
-    x = torch.randn(BATCH, h, w, cin, device=DEVICE, generator=gen)
-    run(name, x.to(torch.bfloat16), chain[start:], unit.padding,
-        torch.bfloat16, True)
-  require((len(cases['conv']), len(cases['requant'])) ==
-          INT8_LAUNCHES[SIZE][2:], 'expected 7 quantized layers and 2 '
-          'requants in the flagship chains at 256^2')
+    x = torch.randn(batch, h, w, cin, device=DEVICE, generator=gen)
+    int8_check('{} {}^2'.format(name, size), x.to(torch.bfloat16),
+               chain[start:], unit.padding, torch.bfloat16, errs, launches)
+  require((launches['conv'], launches['requant']) == INT8_LAUNCHES[size][2:],
+          'expected {} quantized layers and {} requants in the flagship '
+          'chains at {}^2'.format(*INT8_LAUNCHES[size][2:], size))
+  return errs, launches
+
+
+def int8_phase(model):
+  """Phase 12; returns {'conv', 'requant'} max errs."""
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+  errs, launches = int8_flagship_checks(model, SIZE, BATCH, gen)
   half, quarter = SIZE // 2, SIZE // 4
-  run('k3_zero', torch.randn(8, half, half, 32, device=DEVICE, generator=gen),
-      random_chain(gen, 3, (32, 32, 32)), 'zero', torch.bfloat16, False)
-  run('k4_replicate_f32', torch.randn(4, quarter, quarter, 64, device=DEVICE,
-                                      generator=gen),
-      random_chain(gen, 4, (64, 64, 64)), 'replication', torch.float32,
-      False)
+  int8_check('k3_zero', torch.randn(8, half, half, 32, device=DEVICE,
+                                    generator=gen),
+             random_chain(gen, 3, (32, 32, 32)), 'zero', torch.bfloat16, errs,
+             launches)
+  int8_check('k4_replicate_f32', torch.randn(4, quarter, quarter, 64,
+                                             device=DEVICE, generator=gen),
+             random_chain(gen, 4, (64, 64, 64)), 'replication', torch.float32,
+             errs, launches)
 
   # the requant on an all-zero image (the 1e-8 floor) and on exact .5 ties
   y = torch.randn(3, 16, 16, 32, device=DEVICE, generator=gen)
@@ -599,12 +669,14 @@ def int8_phase(model):
           not bool(xk[2].any()), 'requant kernel on ties / zero image')
   print('K3 kernels vs plain on the same inputs: conv max {:.3e}, requant '
         'max {:.3e}'.format(errs['conv'], errs['requant']))
-  return errs['conv'], errs['requant'], cases
+  return errs
 
 
 def int8_main_path(P, args):
-  """Phase 13: the int8 serving forward, counters around it; returns the
-  256² model and its (K3 conv, requant) launches."""
+  """Phase 13: the int8 serving forward, counters around it; at 512² also
+  every K3 launch of its chains against the plain versions. Returns the
+  256² model, its (K3 conv, requant) launches and the 512² checks' max
+  errs."""
   from csmri_refinement_tpu_torch.ops import conv_chain as cc
   from csmri_refinement_tpu_torch.ops import dc_kernel, quantize
   counters = (dc_kernel.dc_cuda, cc.conv_layer_cuda, cc.conv_layer_int8_cuda,
@@ -647,8 +719,12 @@ def int8_main_path(P, args):
   drive(model_big, [batch[k] for k in ('inp', 'kspace', 'mask')], 1)
   require(quantize.fell_back_to_bf16(), 'expected a 512^2 chain with no '
           'quantized layer (the JAX package\'s VMEM trim)')
-  del model_big, batch
-  return model8, got[2:]
+  del batch
+  errs, _ = int8_flagship_checks(model_big, big, 4, gen)
+  print('K3 kernels vs plain at {}^2 B4: conv max {:.3e}, requant max '
+        '{:.3e}'.format(big, errs['conv'], errs['requant']))
+  del model_big
+  return model8, got[2:], errs
 
 
 def int8_quality_inputs(P):
@@ -739,22 +815,92 @@ def bound(ops, bytes_, peak):
   return max(b_ms, o_ms), 'bytes' if b_ms >= o_ms else 'operations'
 
 
-def int8_timings(cases, line):
-  """Phase 15, K3: the flagship's 7 quantized layers and 2 requants."""
+def k3_cases(model):
+  """The quantized flagship layers at 256², B=32, each on the input the
+  kernels give it: [(label, conv args, the previous layer's (f32 output,
+  amax) that the requant kernel turned into this input, or None for a
+  chain's first layer, the float layer)]. Works on any tree of the port
+  (``--tree``)."""
   from csmri_refinement_tpu_torch.ops import conv_chain as cc
-  conv_ms = time_ms(lambda: [cc.conv_layer_int8_cuda(*c)
-                             for c in cases['conv']], iters=10, warmup=2)
-  conv_plain_ms = time_ms(lambda: [cc.conv_layer_int8_plain(*c)
-                                   for c in cases['conv']], iters=2, warmup=1)
-  rq_ms = time_ms(lambda: [cc.requant_cuda(*c) for c in cases['requant']])
-  rq_plain_ms = time_ms(lambda: [cc.requant_plain(*c)
-                                 for c in cases['requant']], iters=5)
+  from csmri_refinement_tpu_torch.ops import quantize
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+  out = []
+  for name, unit in unet_chains(model):
+    h, w, _ = CHAIN_SHAPES[name]
+    chain = unit.chain_layers()
+    start = cc.int8_suffix_start(chain, h, w)
+    x = torch.randn(BATCH, h, w, chain[start].kernel.shape[2], device=DEVICE,
+                    generator=gen).to(torch.bfloat16)
+    xi, scale = quantize.quantize_act(x)
+    fed = None
+    for i, layer in enumerate(quantize.quantize_chain(chain[start:])):
+      last = start + i + 1 == len(chain)
+      args = (xi, scale, layer, unit.padding,
+              torch.bfloat16 if last else torch.float32, not last)
+      out.append(('{}[{}]'.format(name, start + i), args, fed,
+                  chain[start + i]))
+      if not last:
+        fed = cc.conv_layer_int8_cuda(*args)
+        xi, scale = cc.requant_cuda(*fed)
+  sync()
+  return out
+
+
+def k3_table(cases, line):
+  """Phase 15, K3: each quantized flagship layer as device time
+  (``graph_ms``), with TOP/s and the share of the layer's own bound (its
+  int8 input, weights and output each moved once), beside K2 bf16 on the
+  same layer, and the requant kernel on each input it makes. Returns
+  {'k3', 'requant', 'k2'} sums in ms."""
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
+  sums = {'k3': 0.0, 'requant': 0.0, 'k2': 0.0}
+  for label, args, fed, flayer in cases:
+    ms = graph_ms(lambda: cc.conv_layer_int8_cuda(*args), calls=5, replays=2)
+    b, h, w, cin = args[0].shape
+    k, _, _, cout = flayer.kernel.shape
+    ops = 2 * b * h * w * k * k * cin * cout
+    bytes_ = (b * h * w * cin + k * k * cin * cout + 8 * cout + 4 * b +
+              b * h * w * cout * args[4].itemsize)
+    b_ms, by = bound(ops, bytes_, INT8_OPS)
+    xb = torch.randn(b, h, w, cin, device=DEVICE).to(torch.bfloat16)
+    k2_ms = graph_ms(lambda: cc.conv_layer_cuda(xb, flayer, args[3]),
+                     calls=5, replays=2)
+    extra = ''
+    if fed is not None:
+      rq = graph_ms(lambda: cc.requant_cuda(*fed), calls=5, replays=2)
+      extra = '; the requant of its input {:.4f} ms'.format(rq)
+      sums['requant'] += rq
+    sums['k3'] += ms
+    sums['k2'] += k2_ms
+    print('K3 layer {} B{} {}^2 {}->{} k{}: {:.4f} ms, {:.1f} TOP/s, {:.1%} '
+          'of its bound {:.4f} ms ({}); K2 bf16 {:.4f} ms ({:.1f} TFLOP/s){} '
+          '({})'.format(label, b, h, cin, cout, k, ms, ops / ms / 1e9,
+                        b_ms / ms, b_ms, by, k2_ms, ops / k2_ms / 1e9, extra,
+                        line))
+  print('K3 the {} quantized flagship layers, device time: {:.4f} ms, requant '
+        'kernel {:.4f} ms, together {:.4f} ms; K2 bf16 on the same layers '
+        '{:.4f} ms ({})'.format(len(cases), sums['k3'], sums['requant'],
+                                sums['k3'] + sums['requant'], sums['k2'],
+                                line))
+  return sums
+
+
+def int8_timings(cases, line):
+  """Phase 15, K3: the per-layer table, then the plain versions, the
+  function's bound and cuDNN's bf16 convs on the same layers."""
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
+  sums = k3_table(cases, line)
+  conv_plain_ms = time_ms(lambda: [cc.conv_layer_int8_plain(*a)
+                                   for _, a, _, _ in cases],
+                          iters=2, warmup=1)
+  fed = [f for _, _, f, _ in cases if f is not None]
+  rq_plain_ms = time_ms(lambda: [cc.requant_plain(*f) for f in fed], iters=5)
   cl = torch.channels_last
-  yard = [(torch.randn(shape, device=DEVICE).to(torch.bfloat16).permute(
+  yard = [(torch.randn(a[0].shape, device=DEVICE).to(torch.bfloat16).permute(
       0, 3, 1, 2).contiguous(memory_format=cl).permute(0, 2, 3, 1), layer,
-           pad) for shape, layer, pad in cases['float']]
-  cudnn_ms = time_ms(lambda: [library_chain(x, [layer], pad)
-                              for x, layer, pad in yard], iters=5, warmup=1)
+           a[3]) for _, a, _, layer in cases]
+  cudnn_ms = graph_ms(lambda: [library_chain(x, [layer], pad)
+                               for x, layer, pad in yard], calls=2, replays=2)
   # The function's bound, as the TPU kernel computes it: each chain's int8
   # input read once, its weights, scales and bias, and its last output
   # written once. The f32 intermediates and the requant between layers are
@@ -762,34 +908,54 @@ def int8_timings(cases, line):
   # so they count in no bound of K3; the requant's own bound below is that
   # of its elementwise pass alone.
   ops = bytes_ = 0
-  first = True
-  for x, _, layer, _, dt, want_amax in cases['conv']:
+  for _, (x, _, layer, _, dt, want_amax), prev, _ in cases:
     b, h, w, cin = x.shape
     k, _, _, cout = layer.kernel.shape
     ops += 2 * b * h * w * k * k * cin * cout
     bytes_ += k * k * cin * cout + 8 * cout
-    if first:
+    if prev is None:
       bytes_ += b * h * w * cin + 4 * b
     if not want_amax:
       bytes_ += b * h * w * cout * dt.itemsize
-    first = not want_amax
-  rq_bytes = sum(5 * y.numel() + 8 * y.shape[0] for y, _ in cases['requant'])
+  rq_bytes = sum(5 * y.numel() + 8 * y.shape[0] for y, _ in fed)
   conv_bound, conv_by = bound(ops, bytes_, INT8_OPS)
   rq_bound, rq_by = bound(0, rq_bytes, INT8_OPS)
-  print('K3 conv, the {} quantized flagship layers B{} {}^2: kernel {:.3f} '
+  total = sums['k3'] + sums['requant']
+  print('K3 conv, the {} quantized flagship layers B{} {}^2: kernel {:.4f} '
         'ms ({:.1f} TOP/s), plain {:.3f} ms, bound {:.4f} ms ({}: {:.1f} GOP, '
         '{:.1f} MB); cuDNN bf16 on the same layers {:.3f} ms (the nearest '
         'yardstick: no PyTorch call computes an int8 conv) ({})'.format(
-            len(cases['conv']), BATCH, SIZE, conv_ms, ops / conv_ms / 1e9,
+            len(cases), BATCH, SIZE, sums['k3'], ops / sums['k3'] / 1e9,
             conv_plain_ms, conv_bound, conv_by, ops / 1e9, bytes_ / 1e6,
             cudnn_ms, line))
   print('K3 requant, {} launches: kernel {:.4f} ms, plain {:.4f} ms, bound '
-        'of the pass alone {:.4f} ms ({}); conv + requant {:.3f} ms = {:.2f}x '
+        'of the pass alone {:.4f} ms ({}); conv + requant {:.4f} ms = {:.2f}x '
         'the function\'s bound {:.4f} ms ({})'.format(
-            len(cases['requant']), rq_ms, rq_plain_ms, rq_bound, rq_by,
-            conv_ms + rq_ms, (conv_ms + rq_ms) / conv_bound, conv_bound, line))
-  return {'conv': (conv_ms, conv_plain_ms, conv_bound, conv_by),
-          'requant': (rq_ms, rq_plain_ms, rq_bound, rq_by)}
+            len(fed), sums['requant'], rq_plain_ms, rq_bound, rq_by, total,
+            total / conv_bound, conv_bound, line))
+  return {'conv': (sums['k3'], conv_plain_ms, conv_bound, conv_by),
+          'requant': (sums['requant'], rq_plain_ms, rq_bound, rq_by)}
+
+
+def int8_only(P, line):
+  """``--int8-only``: K3 against its plain version on the flagship layers'
+  inputs, then the K3 table, on the tree whose package was imported."""
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
+  print('tree: {}'.format(os.path.dirname(os.path.dirname(
+      os.path.abspath(P.__file__)))))
+  model, _ = P.build_flagship(SIZE, torch.bfloat16, DEVICE, SEED)
+  cases = k3_cases(model)
+  worst = 0.0
+  for _, args, _, _ in cases:
+    got = cc.conv_layer_int8_cuda(*args)[0]
+    sync()
+    want = cc.conv_layer_int8_plain(*args)[0]
+    ref = want.float().abs().max().item()
+    worst = max(worst, (got.float() - want.float()).abs().max().item() / ref)
+  print('K3 flagship layers, max |kernel-plain| / max|ref| {:.3e}'.format(
+      worst))
+  require(worst <= INT8_NOISE, 'K3 differs from its plain version')
+  k3_table(cases, line)
 
 
 def probe_phase(line):
@@ -902,10 +1068,15 @@ def probe_timings(line):
   return out
 
 
+# Sources whose wgmma K loops must keep the MMA pipe full: ptxas warns
+# C7517 where it drains it.
+NO_C7517 = ('probes', 'conv_int8')
+
+
 def build_phase(names):
   """Phase 2: build the named kernel sources in parallel; print each
   kernel's ptxas lines, and fail if ptxas drained a wgmma pipeline
-  (C7517) in a probe."""
+  (C7517) in a probe or in K3."""
   from csmri_refinement_tpu_torch.ops import native
   t0 = time.perf_counter()
   report = native.build(names)
@@ -915,20 +1086,26 @@ def build_phase(names):
     for ln in log.splitlines():
       if 'registers' in ln or 'spill' in ln or 'C7517' in ln:
         print('  ptxas {}: {}'.format(name, ln.strip()),
-              file=sys.stdout if name == 'probes' else sys.stderr)
-    if name == 'probes':
-      print('ptxas probes: {} C7517 warnings'.format(len(drained)))
-      require(not drained, 'ptxas drains a wgmma pipeline in a probe')
+              file=sys.stdout if name in NO_C7517 else sys.stderr)
+    print('ptxas {}: {} C7517 warnings'.format(name, len(drained)))
+    if name in NO_C7517:
+      require(not drained, 'ptxas drains a wgmma pipeline in ' + name)
   print('kernel build: {:.1f} s'.format(time.perf_counter() - t0))
 
 
 def main(argv=None):
-  probes_only = '--probes-only' in (sys.argv[1:] if argv is None else argv)
+  argv = sys.argv[1:] if argv is None else argv
+  probes_only = '--probes-only' in argv
+  int8_only_mode = '--int8-only' in argv
+  tree = os.path.realpath(argv[argv.index('--tree') + 1]) if '--tree' in \
+      argv else REPO
+  require(os.path.commonpath([tree, REPO]) == REPO,
+          '--tree must name a directory inside the checkout')
   # graph_ms of a plain version that is a view (the unaligned row read,
   # the mid-dim read) captures an empty graph, which times as ~0
   warnings.filterwarnings('ignore', 'The CUDA Graph is empty')
   require(torch.cuda.is_available(), 'no CUDA device')
-  sys.path.insert(0, REPO)
+  sys.path.insert(0, os.path.abspath(tree))
   import csmri_refinement_tpu_torch as P
   from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel, native
   line = card_line()
@@ -942,6 +1119,10 @@ def main(argv=None):
   if probes_only:   # phases 1, 2 and the probes of 15 alone
     build_phase(('probes',))
     print(json.dumps({'kernels': probe_phase(line)}))
+    return
+  if int8_only_mode:   # phases 1, 2 and the K3 table of 15 alone
+    build_phase(('conv_chain', 'conv_int8'))
+    int8_only(P, line)
     return
   build_phase(native.KERNELS)
 
@@ -1073,6 +1254,7 @@ def main(argv=None):
         'ms, bound {:.4f} ms ({})'.format(b, n, bwd_ms, bwd_eager_ms,
                                           bwd_plain_ms, bwd_lib_ms,
                                           bwd_bound, line))
+  dc_dft_phase(line)
   gt, mask = fixed_batches(gpu_runner.conf, 1)[0]
   from csmri_refinement_tpu_torch.ops import undersample as us
   tbatch = us.undersample_batch(None, gt.to(DEVICE),
@@ -1091,16 +1273,18 @@ def main(argv=None):
               3 * bwd_ms, line))
 
   # Phase 12: the int8 conv kernel (K3) and its requant
-  int8_conv_err, requant_err, int8_cases = int8_phase(model)
+  int8_errs = int8_phase(model)
 
   # Phase 13: the int8 main path
-  model8, int8_launches = int8_main_path(P, args)
+  model8, int8_launches, errs512 = int8_main_path(P, args)
+  int8_conv_err = max(int8_errs['conv'], errs512['conv'])
+  requant_err = max(int8_errs['requant'], errs512['requant'])
 
   # Phase 14: int8 quality
   int8_quality_phase(P, line)
 
   # Phase 15: int8 and probe timings
-  k3 = int8_timings(int8_cases, line)
+  k3 = int8_timings(k3_cases(model), line)
   with torch.inference_mode():
     fwd8_ms = time_ms(lambda: model8(*args), iters=5, warmup=1)
   print('flagship forward {}^2 B{}: int8 {:.3f} ms, {:.1f} slices/s; bf16 '

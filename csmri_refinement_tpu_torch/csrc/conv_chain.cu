@@ -60,24 +60,13 @@
 // cores (wgmma would round f32 to TF32), staged per 16-channel chunk.
 // One launch per layer: keeping a whole chain on chip is later work.
 
-#include <cuda.h>  // CUtensorMap; the encoder comes from the driver at run time
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
-enum PadMode { kZero = 0, kReflect = 1, kReplicate = 2 };
-
-// Source index of padded position i along an axis of length n, or -1 for a
-// zero. Positions more than one pad beyond the image feed only outputs
-// outside it (tile overhang); the clamp keeps their reads in bounds.
-__device__ __forceinline__ int pad_index(int i, int n, int mode) {
-  if (i >= 0 && i < n) return i;
-  if (mode == kZero) return -1;
-  if (mode == kReflect) i = i < 0 ? -i : 2 * (n - 1) - i;
-  return min(max(i, 0), n - 1);
-}
+using namespace sm90;
 
 // --- f32: direct conv with FMAs ----------------------------------------
 
@@ -262,74 +251,13 @@ constexpr int kKStage = 64;        // K per stage: one 128-byte row
 // ahead of the MMAs (a deeper ring measured no faster).
 constexpr int kRing = 4, kAhead = kRing - 2;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-// 16-byte copy; `bytes` < 16 zero-fills the rest (0: all zeros).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
+// 4-byte copy; `bytes` 0 writes zeros.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// cp.async and thread stores are generic-proxy writes; wgmma reads its
-// operands through the async proxy.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// mbarriers and TMA tile loads: a TMA load copies a box of a tensor and
-// counts its bytes on an mbarrier.
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map, int c0,
-                                            int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(map), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
 // Keeps the compiler from moving accumulator uses across wgmma syncs.
 template <int MT, int NA>
 __device__ __forceinline__ void fence_acc(float (&d)[MT][NA]) {
@@ -337,23 +265,6 @@ __device__ __forceinline__ void fence_acc(float (&d)[MT][NA]) {
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[m][i])::"memory");
-}
-
-// Descriptor of a K-major B tile with the 128-byte swizzle: rows of 128
-// bytes (64 bf16 of K for one output channel), 8-row groups 1024 bytes
-// apart (SBO), the leading offset unused (a k16 slice lies in one row).
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-// Descriptor of a K-major A tile without swizzle, read from the halo: 8 x
-// 16-byte core matrices, row m (pixel m) 16 bytes after row m - 1, so
-// 8-row groups 128 bytes apart (SBO); the second 8 of a k16 slice are the
-// next channel-group plane, `plane` bytes on (LBO).
-__device__ __forceinline__ uint64_t a_desc(uint32_t addr, uint32_t plane) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) |
-         ((uint64_t)((plane >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(128 >> 4) << 32);
 }
 
 // D(64 x N, f32) = A(64 x 16, bf16) * B(16 x N, bf16) + D, or + 0 when
@@ -743,29 +654,6 @@ conv_wgmma_kernel(const GemmArgs a, int ntiles,
   cp_async_wait<0>();
 }
 
-// cuTensorMapEncodeTiled, from the driver (the library links only the
-// runtime); null if the driver has none.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-
 template <int K, int N, int MT>
 int launch_wgmma(const GemmArgs& ga, cudaStream_t st) {
   using TL = GemmTile<K, MT>;
@@ -773,17 +661,8 @@ int launch_wgmma(const GemmArgs& ga, cudaStream_t st) {
   // weights: (Cout, kp); a stage is a 64 x N box, stored with the 128-byte
   // swizzle the wgmma descriptor names
   CUtensorMap wmap;
-  const cuuint64_t wdims[2] = {(cuuint64_t)ga.kp, (cuuint64_t)ga.cout};
-  const cuuint64_t wstride[1] = {(cuuint64_t)ga.kp * 2};
-  const cuuint32_t wbox[2] = {kKStage, N};
-  const cuuint32_t ones[2] = {1, 1};
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr ||
-      enc(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-          const_cast<__nv_bfloat16*>(ga.wp), wdims, wstride, wbox, ones,
-          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (!weight_map(&wmap, ga.wp, ga.kp * 2, ga.cout, kKStage * 2, N,
+                  CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2))
     return (int)cudaErrorInvalidValue;
   const int groups = (1 << ga.cc_log2) / 8;  // halo planes
   const int smem = 1024 + kRing * N * 128 + 2 * groups * TL::kPlane +
@@ -835,8 +714,9 @@ void gemm_layout(int cin, int k, int* cc_log2, int* chunks, int* ktot,
 }  // namespace
 
 // x: (batch, h, w, cin), y: (batch, h, w, cout), contiguous in the compute
-// type (bf16 if is_bf16, else f32); bias: (cout,) f32. f32: wt is the HWIO
-// weight (k, k, cin, cout), 16-byte aligned. bf16: wt is the packed
+// type (bf16 if is_bf16, else f32); cout a multiple of 16 (the wrapper pads
+// other Couts with zero output channels); bias: (cout,) f32. f32: wt is the
+// HWIO weight (k, k, cin, cout), 16-byte aligned. bf16: wt is the packed
 // (cout, kp) weight of ops/conv_chain.py::pack_weights, kp its row length
 // (checked), x and wt 16-byte aligned. pad_mode: 0 zero, 1 reflect,
 // 2 replicate. Launches on `stream`; returns cudaGetLastError() after it.

@@ -43,6 +43,14 @@
 // fastest index). The merge operands (mask, k0) of the points a thread
 // will hold are loaded before its forward transform starts.
 // Supported: H, W powers of two from 2 to 512.
+//
+// Other sides from 2 to 512 (320, 384, 192, odd ones) have no radix plan;
+// dc_forward_dft runs them, and every non-square image, as the TPU kernel
+// does, by a dense DFT per line (its DFT matrices, dc_pallas.py:77): the
+// same three passes, each output point a sum over its whole line against a
+// table of the n roots exp(-2 pi i m / n) of its axis (f64 on the host,
+// rounded once to f32), indexed by (j k) mod n. n^2 operations a line
+// instead of n log n: right and simple, not fast.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -540,6 +548,89 @@ bool supported(int n, int code) {
   return n >= 2 && n <= kMaxN && !(n & (n - 1)) && code == plan_code(n);
 }
 
+// --- dense DFT lines (sides with no radix plan) ---
+
+constexpr int kDftThreads = 256;
+
+// One line of n points from shared memory (element e at e * stride):
+// out(k) = sum_j line(j) w^(j k), w = tw[1] (conjugated for the inverse).
+template <bool INV>
+__device__ __forceinline__ float2 dft_point(const float2* line, int stride,
+                                            const float2* tw, int n, int k) {
+  float2 acc = make_float2(0.f, 0.f);
+  int idx = 0;
+  for (int j = 0; j < n; ++j) {
+    const float2 v = line[j * stride];
+    const float2 w = tw[idx];
+    acc.x = fmaf(v.x, w.x, INV ? fmaf(v.y, w.y, acc.x) : fmaf(-v.y, w.y, acc.x));
+    acc.y = fmaf(v.y, w.x, INV ? fmaf(-v.x, w.y, acc.y) : fmaf(v.x, w.y, acc.y));
+    idx += k;
+    if (idx >= n) idx -= n;
+  }
+  return acc;
+}
+
+// Passes 1 and 3: the DFT along W of each of `rows` rows, times `scale`.
+template <bool INV>
+__global__ void __launch_bounds__(kDftThreads)
+dft_rows(const float2* __restrict__ in, float2* __restrict__ out, long rows,
+         int n, const float2* __restrict__ tw_g, float scale) {
+  extern __shared__ __align__(16) float2 smem[];
+  float2* tw = smem;
+  float2* line = smem + n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) tw[i] = tw_g[i];
+  for (long r = blockIdx.x; r < rows; r += gridDim.x) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) line[i] = in[r * n + i];
+    __syncthreads();
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+      const float2 v = dft_point<INV>(line, 1, tw, n, k);
+      out[r * n + k] = make_float2(v.x * scale, v.y * scale);
+    }
+  }
+}
+
+// Pass 2: per strip of up to kCols columns of one image, the DFT along H
+// (h points, roots tw_g), the merge (1 - m) k + k0, the inverse DFT along
+// H, in place.
+template <bool HAS_K0>
+__global__ void __launch_bounds__(kDftThreads)
+dft_cols(float2* __restrict__ t, const float2* __restrict__ k0,
+         const float* __restrict__ mask, int batch, int h, int w,
+         const float2* __restrict__ tw_g, float scale) {
+  extern __shared__ __align__(16) float2 smem[];
+  float2* tw = smem;
+  float2* a = smem + h;              // the strip, h rows of kCols
+  float2* b = a + h * kCols;         // its merged k-space
+  for (int i = threadIdx.x; i < h; i += blockDim.x) tw[i] = tw_g[i];
+  const int groups = (w + kCols - 1) / kCols;
+  for (int tile = blockIdx.x; tile < batch * groups; tile += gridDim.x) {
+    const int c0 = (tile % groups) * kCols;
+    const int cols = w - c0 < kCols ? w - c0 : kCols;
+    const size_t base = (size_t)(tile / groups) * h * w + c0;
+    __syncthreads();
+    for (int i = threadIdx.x; i < h * cols; i += blockDim.x)
+      a[(i / cols) * kCols + i % cols] =
+          t[base + (size_t)(i / cols) * w + i % cols];
+    __syncthreads();
+    for (int i = threadIdx.x; i < h * cols; i += blockDim.x) {
+      const int k = i / cols, c = i % cols;
+      const size_t g = base + (size_t)k * w + c;
+      const float2 v = dft_point<false>(a + c, kCols, tw, h, k);
+      const float keep = 1.f - __ldg(mask + g);
+      const float2 kk = HAS_K0 ? __ldg(k0 + g) : make_float2(0.f, 0.f);
+      b[k * kCols + c] = make_float2(fmaf(keep, v.x * scale, kk.x),
+                                     fmaf(keep, v.y * scale, kk.y));
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < h * cols; i += blockDim.x) {
+      const int k = i / cols, c = i % cols;
+      const float2 v = dft_point<true>(b + c, kCols, tw, h, k);
+      t[base + (size_t)k * w + c] = make_float2(v.x * scale, v.y * scale);
+    }
+  }
+}
+
 }  // namespace
 
 // x, k0, y, scratch: (batch, h, w, 2) float32, 16-byte aligned; k0 may be
@@ -569,4 +660,50 @@ extern "C" int dc_forward(const void* x, const void* k0, const void* mask,
                   (const float2*)tw_h, sh, st);
   if (err) return err;
   return rows_pass<true>(w, t, (float2*)y, rows, (const float2*)tw_w, sw, st);
+}
+
+// The same DC for any H x W with sides from 2 to 512 (those with no radix
+// plan, and non-square images), by dense DFT lines (see above). tw_h, tw_w:
+// the h and w roots exp(-2 pi i m / n), m < n (ops/dc_kernel.py::
+// dft_table). Other arguments as dc_forward's, with nothing checked for
+// alignment (the passes move 8 bytes at a time).
+extern "C" int dc_forward_dft(const void* x, const void* k0, const void* mask,
+                              void* y, void* scratch, const void* tw_h,
+                              const void* tw_w, int batch, int h, int w,
+                              void* stream) {
+  if (h < 2 || h > kMaxN || w < 2 || w > kMaxN || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float sh = (float)(1.0 / sqrt((double)h));
+  const float sw = (float)(1.0 / sqrt((double)w));
+  const long rows = (long)batch * h;
+  float2* t = (float2*)scratch;
+  const float2* roots_h = (const float2*)tw_h;
+  const float2* roots_w = (const float2*)tw_w;
+  unsigned grid = 0;
+  const int row_smem = 2 * w * 8;
+  int err = walk_grid(dft_rows<false>, kDftThreads, row_smem, rows, &grid);
+  if (err) return err;
+  dft_rows<false><<<grid, kDftThreads, row_smem, st>>>(
+      (const float2*)x, t, rows, w, roots_w, sw);
+  if ((err = (int)cudaGetLastError())) return err;
+  const int col_smem = (h + 2 * h * kCols) * 8;
+  const long strips = (long)batch * ((w + kCols - 1) / kCols);
+  if (k0 != nullptr) {
+    err = walk_grid(dft_cols<true>, kDftThreads, col_smem, strips, &grid);
+    if (err) return err;
+    dft_cols<true><<<grid, kDftThreads, col_smem, st>>>(
+        t, (const float2*)k0, (const float*)mask, batch, h, w, roots_h, sh);
+  } else {
+    err = walk_grid(dft_cols<false>, kDftThreads, col_smem, strips, &grid);
+    if (err) return err;
+    dft_cols<false><<<grid, kDftThreads, col_smem, st>>>(
+        t, nullptr, (const float*)mask, batch, h, w, roots_h, sh);
+  }
+  if ((err = (int)cudaGetLastError())) return err;
+  err = walk_grid(dft_rows<true>, kDftThreads, row_smem, rows, &grid);
+  if (err) return err;
+  dft_rows<true><<<grid, kDftThreads, row_smem, st>>>(t, (float2*)y, rows, w,
+                                                      roots_w, sw);
+  return (int)cudaGetLastError();
 }

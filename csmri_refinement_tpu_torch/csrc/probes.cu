@@ -181,8 +181,8 @@ bf16_move_probe(const __nv_bfloat16* __restrict__ x,
       make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// The odd-pixel probe: K2's halo read (csrc/conv_chain.cu, a_desc and its
-// use at every tap). A block stages the pixels of its tiles, plus one, as
+// The odd-pixel probe: K2's halo read (csrc/sm90.cuh::a_desc and its use
+// at every tap in csrc/conv_chain.cu). A block stages the pixels of its tiles, plus one, as
 // two planes (channels 0-7 and 8-15) of 16-byte pixel rows, as K2 stores
 // its halo, and reads each 64-pixel tile through a no-swizzle K-major A
 // descriptor whose start is the tile's first pixel, 1 + 64 t: 8-pixel core

@@ -10,7 +10,11 @@ Port of ``csmri_refinement_tpu/models/refinement_wrapper.py``:
   returns {pred, pretrained, prescaled_refinement, scaled_refinement};
 * ``input_mode``: the learnable path sees the input, the pretrained output,
   or their concat;
-* freezing is ``.detach()`` around the pretrained path.
+* freezing is ``.detach()`` around the pretrained path;
+* the pretrained model runs in eval mode whatever the wrapper's mode
+  (``train`` below), as the JAX wrapper calls it with ``train=False``
+  (``:135-137``): a BN model there normalises with its running stats and
+  leaves them unchanged.
 """
 
 import torch
@@ -64,6 +68,11 @@ class RefinementWrapper(nn.Module):
     if self.mode == 'real-penalty-add':
       with torch.no_grad():
         self.scale.zero_()
+
+  def train(self, mode=True):
+    super().train(mode)
+    self.pretrained_model.eval()
+    return self
 
   def _learnable_input(self, inp, out_pretrained):
     if self.input_mode == 'input':

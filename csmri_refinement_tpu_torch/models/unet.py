@@ -9,7 +9,9 @@ Port of ``csmri_refinement_tpu/models/unet.py``:
   kernel on the card (``unet.py:286-318``) — or, with
   ``quantize_inference``, through ``ops/quantize.chain_forward_int8`` (the
   int8 serving mode). In train mode it is a plain conv + batch-stat BN, and
-  the flag is ignored (``unet.py:324``).
+  the flag is ignored (``unet.py:324``). BN in train mode updates its
+  running variance with the biased batch variance, as flax's ``BatchNorm``
+  does (``BatchNorm2d`` below; ``nn.BatchNorm2d`` takes the unbiased one).
 * ``ConvDecodeUnit`` (``:365-471``) in the ``nn-resize-conv`` and ``nn``
   modes, with ``act_upsampling_only``. The up-conv is nearest-up2 → SAME pad
   of the upsampled image → conv: the math that the JAX package's
@@ -54,6 +56,24 @@ def _bn_act(x, bn, leak, dt):
   return x
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+  """``nn.BatchNorm2d`` whose train-mode update of ``running_var`` takes
+  the biased batch variance, as flax's ``BatchNorm`` does (torch takes
+  the unbiased one, N/(N−1) times larger). The output is unchanged: both
+  normalise with the biased variance."""
+
+  def forward(self, x):
+    if not self.training:
+      return super().forward(x)
+    with torch.no_grad():
+      var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+      self.running_mean.lerp_(mean, self.momentum)
+      self.running_var.lerp_(var, self.momentum)
+      self.num_batches_tracked += 1
+    return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                        self.eps)
+
+
 def _pad_to_target(x, target):
   """Reflect-pad bottom/right so x's spatial dims match target's."""
   pad_bottom = target.shape[1] - x.shape[1]
@@ -83,7 +103,7 @@ class ConvEncodeUnit(nn.Module):
           cin, num_filters, kernel_size, bias=not use_bn))
       if use_bn:
         self.add_module('bn_{}'.format(i),
-                        nn.BatchNorm2d(num_filters, eps=1e-5, momentum=0.1))
+                        BatchNorm2d(num_filters, eps=1e-5, momentum=0.1))
       cin = num_filters
 
   def _layer(self, i):
@@ -159,10 +179,10 @@ class ConvDecodeUnit(nn.Module):
                                bias=use_bias)
       up_channels = num_filters
     if use_bn and act_upsampling_only:
-      self.up_bn = nn.BatchNorm2d(up_channels, eps=1e-5, momentum=0.1)
+      self.up_bn = BatchNorm2d(up_channels, eps=1e-5, momentum=0.1)
     merged = encoder_channels + up_channels
     if use_bn and not act_upsampling_only:
-      self.merge_bn = nn.BatchNorm2d(merged, eps=1e-5, momentum=0.1)
+      self.merge_bn = BatchNorm2d(merged, eps=1e-5, momentum=0.1)
     self.out_channels = merged
     if num_layers > 0:
       self.decode = ConvEncodeUnit(

@@ -17,7 +17,10 @@ accumulation and every layer's output rounded to the compute dtype.
 * ``conv_layer_cuda`` — the wrapper of ``csrc/conv_chain.cu``: one launch
   per layer, counted in ``conv_layer_cuda.launches``. bf16 runs a ``wgmma``
   implicit GEMM on weights packed by ``pack_weights`` (layout
-  ``gemm_layout``); f32 a direct FMA conv on the HWIO weights.
+  ``gemm_layout``); f32 a direct FMA conv on the HWIO weights. Any Cout:
+  the weights and bias are padded with zero output channels to a multiple
+  of 16 (``pad_cout``), the kernel writes the padded output and the
+  wrapper keeps its first Cout channels.
   ``conv_route`` names the route a layer takes, decided by its shape.
 * ``conv_layer`` — the device dispatch: CPU → plain, CUDA → kernel or raise.
 
@@ -40,7 +43,9 @@ through ``ops/quantize.py::chain_forward_int8``) is the kernel of
   in float64, exact like the kernel's int32 sums); the CPU path and the
   oracle.
 * ``conv_layer_int8_cuda`` / ``requant_cuda`` — the wrappers of the conv and
-  requant kernels, each counting its launches in ``.launches``.
+  requant kernels, each counting its launches in ``.launches``. The conv
+  is an s8 ``wgmma`` implicit GEMM on weights packed K-major by
+  ``pack_weights_int8`` (layout ``gemm_layout_int8``).
 * ``fused_conv_chain_int8`` — a quantized chain, layer by layer.
 * ``int8_suffix_start`` — which layers of a chain are quantized. The JAX
   package quantizes only the suffix its Pallas kernel packs
@@ -91,6 +96,18 @@ def conv_layer_plain(x, layer, pad_mode='reflection'):
   return y.permute(0, 2, 3, 1).to(dt).contiguous()
 
 
+def pad_cout(kernel, bias):
+  """HWIO ``kernel`` and ``bias`` (or None) with Cout padded by zero output
+  channels to a multiple of 16, the N granule of the kernels; bias f32.
+  Copies nothing when Cout is a multiple of 16 already."""
+  cout = kernel.shape[3]
+  bias = torch.zeros(cout, device=kernel.device) if bias is None else \
+      bias.to(device=kernel.device, dtype=torch.float32)
+  if cout % 16:
+    kernel, bias = F.pad(kernel, (0, -cout % 16)), F.pad(bias, (0, -cout % 16))
+  return kernel, bias.contiguous()
+
+
 def gemm_layout(cin, k):
   """K layout of the bf16 kernel: ``(cin_pad, chunk, kp)``.
 
@@ -107,12 +124,12 @@ def gemm_layout(cin, k):
   return cin_pad, chunk, -(-ktot // 64) * 64
 
 
-def pack_weights(kernel, dtype=torch.bfloat16):
-  """HWIO ``(k, k, Cin, Cout)`` weights → the bf16 kernel's K-major
+def pack_weights(kernel, dtype=torch.bfloat16, layout=gemm_layout):
+  """HWIO ``(k, k, Cin, Cout)`` weights → a ``wgmma`` kernel's K-major
   ``(Cout, kp)`` operand: row n holds output channel n's weights in the K
-  order of ``gemm_layout``, zeros in the padding."""
+  order of ``layout``, zeros in the padding."""
   k, _, cin, cout = kernel.shape
-  cin_pad, chunk, kp = gemm_layout(cin, k)
+  cin_pad, chunk, kp = layout(cin, k)
   w = F.pad(kernel.to(dtype), (0, 0, 0, cin_pad - cin))
   w = w.reshape(k * k, cin_pad // chunk, chunk, cout).permute(3, 1, 0, 2)
   w = w.reshape(cout, k * k * cin_pad)
@@ -155,35 +172,33 @@ def conv_layer_cuda(x, layer, pad_mode='reflection'):
     raise ValueError('conv_layer_cuda: kernel {} does not fit input {} (k '
                      'must be 3 or 4)'.format(tuple(layer.kernel.shape),
                                               tuple(x.shape)))
-  if cout % 16 or not 1 <= b <= 65535:
-    raise ValueError('conv_layer_cuda takes Cout a multiple of 16 and 1 to '
-                     '65535 images, got Cout {} and {}'.format(cout, b))
+  if not 1 <= b <= 65535:
+    raise ValueError('conv_layer_cuda takes 1 to 65535 images, got '
+                     '{}'.format(b))
   if pad_mode == 'reflection' and min(h, w) < 2:
     raise ValueError('reflection padding needs images of at least 2x2')
   if x.data_ptr() % 16:          # the kernel reads 16 bytes at a time
     x = x.clone()
+  kernel, bias = pad_cout(layer.kernel.to(x.device), layer.bias)
   if x.dtype == torch.bfloat16:
-    kernel = pack_weights(layer.kernel.to(x.device))
+    kernel = pack_weights(kernel)
     kp = kernel.shape[1]
   else:
-    kernel = layer.kernel.to(device=x.device, dtype=x.dtype).contiguous()
+    kernel = kernel.to(x.dtype).contiguous()
     kp = 0
   if kernel.data_ptr() % 16:
     kernel = kernel.clone()
-  if layer.bias is None:
-    bias = torch.zeros(cout, device=x.device, dtype=torch.float32)
-  else:
-    bias = layer.bias.to(device=x.device, dtype=torch.float32).contiguous()
-  y = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
+  cout_pad = bias.shape[0]
+  y = torch.empty((b, h, w, cout_pad), device=x.device, dtype=x.dtype)
   leak = layer.leakiness
   with torch.cuda.device(x.device):
     status = _lib().conv_layer(
         native.ptr(x), native.ptr(kernel), native.ptr(bias), native.ptr(y),
-        b, h, w, cin, cout, kh, kp, PAD_MODES[pad_mode], _DTYPES[x.dtype],
+        b, h, w, cin, cout_pad, kh, kp, PAD_MODES[pad_mode], _DTYPES[x.dtype],
         int(leak is not None), float(leak or 0.0), native.stream_of(x))
   native.check(status, 'conv_layer')
   conv_layer_cuda.launches += 1
-  return y
+  return y if cout_pad == cout else y[..., :cout].contiguous()
 
 
 conv_layer_cuda.launches = 0
@@ -354,11 +369,35 @@ def requant_plain(y, amax):
   return xi.to(torch.int8), amax * INV_127
 
 
+def gemm_layout_int8(cin, k):
+  """K layout of the int8 kernel: ``(cin_pad, chunk, kp)``.
+
+  The halo is staged in chunks of ``chunk`` channels, one 16-byte plane per
+  16 of them; K runs over (chunk, tap, channel in chunk), k·k·cin_pad
+  values, padded to ``kp``, a multiple of the 128-wide K stage. k4 layers
+  take chunks of 32 (16·32 = 4 stages). A k3 chunk of 32 spans 288 of K,
+  not whole stages, so k3 layers take one chunk of Cin rounded up to 32,
+  64 or 128 (the last stage partial), or chunks of 128 (9 stages each).
+  ``csrc/conv_int8.cu`` computes the same and checks ``kp``.
+  """
+  chunk = 32 if (k == 4 or cin <= 32) else 64 if cin <= 64 else 128
+  cin_pad = -(-cin // chunk) * chunk
+  return cin_pad, chunk, -(-(k * k * cin_pad) // 128) * 128
+
+
+def pack_weights_int8(kernel):
+  """int8 HWIO weights → the int8 kernel's K-major ``(Cout, kp)`` operand
+  in the K order of ``gemm_layout_int8``: s8 ``wgmma`` reads B only
+  K-major."""
+  return pack_weights(kernel, torch.int8, gemm_layout_int8)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib_int8():
   lib = native.library('conv_int8')
-  lib.conv_layer_int8.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-                                  + [ctypes.c_float, ctypes.c_void_p])
+  lib.conv_layer_int8.argtypes = (
+      [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4 +
+      [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
   lib.conv_layer_int8.restype = ctypes.c_int
   lib.requant_int8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
       ctypes.c_void_p]
@@ -400,23 +439,19 @@ def conv_layer_int8_cuda(x, act_scale, layer, pad_mode='reflection',
   if x.data_ptr() % 16:           # the kernel stages x 16 bytes at a time
     x = x.clone()
   dev = x.device
-  # (k, k, Cout, Cin): each output channel's Cin weights contiguous, the
-  # layout the MMA's B fragments read.
-  wt = layer.kernel.to(dev).permute(0, 1, 3, 2).contiguous()
-  w_scale = layer.w_scale.to(device=dev, dtype=torch.float32).contiguous()
-  a_scale = act_scale.to(device=dev, dtype=torch.float32).contiguous()
-  if layer.bias is None:
-    bias = torch.zeros(cout, device=dev, dtype=torch.float32)
-  else:
-    bias = layer.bias.to(device=dev, dtype=torch.float32).contiguous()
+  wt = pack_weights_int8(layer.kernel.to(dev))
+  f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
+  w_scale = f32(layer.w_scale)
+  bias = torch.zeros(cout, device=dev) if layer.bias is None else \
+      f32(layer.bias)
   y = torch.empty((b, h, w, cout), device=dev, dtype=out_dtype)
   # float bits of max |y| per image; non-negative floats order like them
   amax = torch.zeros(b, device=dev, dtype=torch.int32) if want_amax else None
   leak = layer.leakiness
   with torch.cuda.device(dev):
     status = _lib_int8().conv_layer_int8(
-        native.ptr(x), native.ptr(wt), native.ptr(w_scale),
-        native.ptr(a_scale), native.ptr(bias), native.ptr(y),
+        native.ptr(x), native.ptr(f32(act_scale)), native.ptr(wt),
+        wt.shape[1], native.ptr(w_scale), native.ptr(bias), native.ptr(y),
         native.ptr(amax) if want_amax else None, b, h, w, cin, cout, kh,
         PAD_MODES[pad_mode], _DTYPES[out_dtype], int(leak is not None),
         float(leak or 0.0), native.stream_of(x))

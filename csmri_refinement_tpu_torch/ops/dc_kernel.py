@@ -22,10 +22,13 @@ on packed ``(B, H, W, 2)`` float32 images, ``(B, H, W, 1)`` float32 masks.
   K1-bwd; ``grad_k0`` only when k0 needs it, by ``torch.fft.fft2`` (the JAX
   package computes it outside Pallas too); the mask gets none.
 * ``dc_fused`` — the device dispatch: a CPU tensor takes ``dc_plain``
-  (autodiffed ``torch.fft``), a CUDA tensor ``_DCFunction`` or raises.
+  (autodiffed ``torch.fft``); a CUDA tensor the kernels.
 
-Square power-of-two images up to 512² only, like the JAX kernel's square
-restriction (``dc_pallas.py:77``).
+The kernel takes images of sides 2 to 512, by the route ``dc_route`` names
+by shape: square power-of-two sides by mixed-radix line FFTs
+(``FFT_PLANS``), every other side and every non-square image by dense DFT
+lines, as the TPU kernel computes every side (its DFT matrices,
+``dc_pallas.py:77``). A CUDA tensor of a larger side raises.
 """
 
 import ctypes
@@ -59,6 +62,9 @@ def _lib():
   lib.dc_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
       ctypes.c_void_p]
   lib.dc_forward.restype = ctypes.c_int
+  lib.dc_forward_dft.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+      ctypes.c_void_p]
+  lib.dc_forward_dft.restype = ctypes.c_int
   return lib
 
 
@@ -93,9 +99,26 @@ def fft_tables(n):
   return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
 
 
+def dft_table(n):
+  """The n roots ``exp(−2πi·m/n)``, m < n, of the dense-DFT route, in f64
+  rounded once to f32: an (n, 2) float32 array."""
+  w = np.exp(-2j * np.pi * np.arange(n) / n)
+  return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+
+
+def dc_route(h, w):
+  """How the kernel transforms an image of H×W: ``'fft'`` (its radix plans,
+  square power-of-two sides), ``'dft'`` (its dense DFT lines, any other
+  sides from 2 to 512) or None (no route: a side outside 2 to 512)."""
+  if not (2 <= h <= MAX_SIZE and 2 <= w <= MAX_SIZE):
+    return None
+  return 'fft' if h == w and h in FFT_PLANS else 'dft'
+
+
 @functools.lru_cache(maxsize=None)
-def _tables(n, device):
-  return torch.from_numpy(fft_tables(n)).to(device)
+def _tables(route, n, device):
+  table = fft_tables(n) if route == 'fft' else dft_table(n)
+  return torch.from_numpy(table).to(device)
 
 
 def _check(name, t, shape, device):
@@ -118,10 +141,10 @@ def _launch(name, x, k0, mask):
     raise ValueError('{}: x must be (B, H, W, 2), got {}'.format(
         name, tuple(x.shape)))
   b, h, w, _ = x.shape
-  if h != w or h < 2 or h > MAX_SIZE or h & (h - 1) or not 1 <= b <= 65535:
-    raise ValueError('{} takes square power-of-two images of side 2 to {} '
-                     'and 1 to 65535 of them, got {}'.format(
-                         name, MAX_SIZE, tuple(x.shape)))
+  route = dc_route(h, w)
+  if route is None or not 1 <= b <= 65535:
+    raise ValueError('{} takes images of sides 2 to {} and 1 to 65535 of '
+                     'them, got {}'.format(name, MAX_SIZE, tuple(x.shape)))
   _check('x', x, (b, h, w, 2), x.device)
   if k0 is not None:
     _check('k0', k0, (b, h, w, 2), x.device)
@@ -132,13 +155,20 @@ def _launch(name, x, k0, mask):
     k0 = k0.clone()
   y = torch.empty_like(x)
   scratch = torch.empty_like(x)
-  tw = _tables(h, x.device)
-  code = plan_code(h)
+  tw_h, tw_w = _tables(route, h, x.device), _tables(route, w, x.device)
+  k0_ptr = None if k0 is None else native.ptr(k0)
   with torch.cuda.device(x.device):
-    status = _lib().dc_forward(
-        native.ptr(x), None if k0 is None else native.ptr(k0),
-        native.ptr(mask), native.ptr(y), native.ptr(scratch), native.ptr(tw),
-        native.ptr(tw), code, code, b, h, w, native.stream_of(x))
+    if route == 'fft':
+      code = plan_code(h)
+      status = _lib().dc_forward(
+          native.ptr(x), k0_ptr, native.ptr(mask), native.ptr(y),
+          native.ptr(scratch), native.ptr(tw_h), native.ptr(tw_w), code, code,
+          b, h, w, native.stream_of(x))
+    else:
+      status = _lib().dc_forward_dft(
+          native.ptr(x), k0_ptr, native.ptr(mask), native.ptr(y),
+          native.ptr(scratch), native.ptr(tw_h), native.ptr(tw_w), b, h, w,
+          native.stream_of(x))
   native.check(status, 'dc_forward')
   return y
 

@@ -3,12 +3,14 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library, loaded with ``ctypes``. The
 build runs at first use, into ``_build/`` inside the package (listed in
-``.gitignore``); the library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library is never loaded.
+``.gitignore``); the library's file name carries a hash of its source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source or header
+is rebuilt and a stale library is never loaded.
 ``build`` compiles several sources at once, one ``nvcc`` process each.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -43,8 +45,10 @@ def _nvcc():
 
 def _lib_path(name):
   src = os.path.join(CSRC_DIR, name + '.cu')
-  with open(src, 'rb') as f:
-    digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+  digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+  for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh'))):
+    with open(path, 'rb') as f:
+      digest.update(f.read())
   return src, os.path.join(BUILD_DIR, 'lib{}-{}.so'.format(
       name, digest.hexdigest()[:16]))
 

@@ -115,12 +115,136 @@ def test_conv_layer_staging_routes(cuda, cin, k):
   _conv_case(cuda, k, cin, 32, 'reflection', torch.bfloat16, (2, 21, 70))
 
 
+DFT_SHAPES = {'3': (3, 3), '100': (100, 100), '192': (192, 192),
+              '320': (320, 320), '384': (384, 384), '256x192': (256, 192),
+              '192x256': (192, 256), '512x320': (512, 320), '5x7': (5, 7),
+              '2x512': (2, 512)}
+
+
+@pytest.mark.parametrize('with_k0', [True, False], ids=['k0', 'no_k0'])
+@pytest.mark.parametrize('shape', list(DFT_SHAPES.values()),
+                         ids=list(DFT_SHAPES))
+def test_dc_kernel_dense_dft_sides(cuda, shape, with_k0):
+  """Sides with no radix plan and non-square images run the kernel's dense
+  DFT lines, a root table per axis: K1 against dc_plain, K1-bwd against
+  dc_plain_vjp."""
+  h, w = shape
+  b = 3 if h * w <= 192 * 192 else 2
+  gen = torch.Generator(device=cuda).manual_seed(h if h == w else h + w)
+  x = torch.randn(b, h, w, 2, device=cuda, generator=gen)
+  k0 = torch.randn(b, h, w, 2, device=cuda, generator=gen)
+  m = (torch.rand(b, h, w, 1, device=cuda, generator=gen) > 0.5).float()
+  assert dc_kernel.dc_route(h, w) == 'dft'
+  if with_k0:
+    got = dc_kernel.dc_cuda(x, k0, m)
+    torch.cuda.synchronize()
+    want = dc_kernel.dc_plain(x, k0, m)
+  else:
+    got = dc_kernel.dc_bwd_cuda(x, m)
+    torch.cuda.synchronize()
+    want = dc_kernel.dc_plain_vjp(x, m, need_k0=False)[0]
+  assert (got - want).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize('shape', [(1024, 1024), (256, 513), (1, 64)],
+                         ids=['1024', '256x513', '1x64'])
+def test_dc_fused_raises_outside_the_kernel_sides(cuda, shape):
+  """A CUDA image with a side outside 2 to 512 has no kernel route: the
+  DC raises and nothing falls back to the plain version."""
+  h, w = shape
+  x = torch.zeros(1, h, w, 2, device=cuda)
+  m = torch.zeros(1, h, w, 1, device=cuda)
+  before = dc_kernel.dc_cuda.launches
+  with pytest.raises(ValueError, match='sides 2 to 512'):
+    dc_kernel.dc_fused(x, x, m)
+  assert dc_kernel.dc_cuda.launches == before
+
+
+@pytest.mark.parametrize('shape', [(320, 320), (384, 384), (256, 192)],
+                         ids=['320', '384', '256x192'])
+def test_data_consistency_other_shapes_on_card(cuda, shape):
+  """RecNet's DC at sides the JAX package runs, through the kernels
+  (forward and backward, one launch each), against the plain versions, the
+  gradients at 2e-3 (tests/test_dc_pallas.py:46)."""
+  from csmri_refinement_tpu_torch.ops.dc import data_consistency
+  h, w = shape
+  gen = torch.Generator(device=cuda).manual_seed(h + w)
+  x = torch.randn(2, h, w, 2, device=cuda, generator=gen, requires_grad=True)
+  k0 = torch.randn(2, h, w, 2, device=cuda, generator=gen)
+  g = torch.randn(2, h, w, 2, device=cuda, generator=gen)
+  m = masks.cartesian_mask(gen, (2, h, w), 8, device=cuda)[..., None]
+  m = m.contiguous()
+  before = (dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches)
+  y = data_consistency(x, k0, m)
+  y.backward(g)
+  torch.cuda.synchronize()
+  assert (dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches) == \
+      (before[0] + 1, before[1] + 1)
+  assert (y - dc_kernel.dc_plain(x, k0, m)).abs().max().item() <= 2e-4
+  want_x, _ = dc_kernel.dc_plain_vjp(g, m, need_k0=False)
+  assert (x.grad - want_x).abs().max().item() <= 2e-3
+
+
+UNET_WIDTHS = {   # tests/test_torch_port_models.py UNET_CASES, and 4 filters
+    'flagship_layout_8': dict(encode_filters=[8, 16, 32],
+                              decode_filters=[16, 8], kernel_size=4,
+                              padding='reflection',
+                              upsampling_mode='nn-resize-conv',
+                              decoder_act_upsampling_only=True),
+    'nn_merge_bn_zero_k3_8': dict(encode_filters=[8, 16, 32],
+                                  decode_filters=[16, 8], kernel_size=3,
+                                  padding='zero', upsampling_mode='nn'),
+    'replicate_extra_decoder_8': dict(encode_filters=[8, 16, 32],
+                                      decode_filters=[16, 8, 8],
+                                      kernel_size=4, padding='replication',
+                                      upsampling_mode='nn-resize-conv',
+                                      decoder_act_upsampling_only=True),
+    'four_filters': dict(encode_filters=[4, 8], decode_filters=[4],
+                         kernel_size=4, padding='reflection',
+                         upsampling_mode='nn-resize-conv',
+                         decoder_act_upsampling_only=True),
+}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', sorted(UNET_WIDTHS))
+def test_unet_of_any_width_on_card(cuda, case, dtype):
+  """U-Nets whose widths are not multiples of 16 (Cout 4 and 8 in their
+  eval chains) run every chain layer through K2 on the card and agree with
+  the CPU: f32 within the U-Net bar 5e-4, bf16 within 2e-2 of max |ref|."""
+  from csmri_refinement_tpu_torch.models.unet import UNET
+  kw = dict(num_inputs=2, num_outputs=1, num_layers_per_scale=2,
+            output_activation='none', **UNET_WIDTHS[case])
+  model = UNET(**kw)
+  model.init_weights(torch.Generator().manual_seed(0))
+  model.eval()
+  x = torch.randn(2, 32, 32, 2, generator=torch.Generator().manual_seed(1))
+  with torch.no_grad():
+    want = model(x.to(dtype)).float()
+    before = cc.conv_layer_cuda.launches
+    got = model.to(cuda)(x.to(cuda, dtype)).float().cpu()
+  torch.cuda.synchronize()
+  chains = len(kw['encode_filters']) + len(kw['decode_filters'])
+  assert cc.conv_layer_cuda.launches - before == 2 * chains
+  tol = 5e-4 if dtype == torch.float32 else 2e-2 * want.abs().max().item()
+  assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('cout', [1, 2, 4, 8, 24, 40])
+def test_conv_layer_any_cout(cuda, cout, dtype):
+  _conv_case(cuda, 4, 32, cout, 'reflection', dtype, (2, 19, 70))
+  _conv_case(cuda, 3, 2, cout, 'zero', dtype, (1, 9, 9))
+
+
 def test_kernel_wrappers_raise_on_unsupported_inputs(cuda):
   x = torch.zeros(1, 16, 16, 2, device=cuda)
   m = torch.zeros(1, 16, 16, 1, device=cuda)
   with pytest.raises(ValueError):
-    dc_kernel.dc_cuda(x[:, :, :12].contiguous(), x[:, :, :12].contiguous(),
-                      m[:, :, :12].contiguous())           # not square
+    dc_kernel.dc_cuda(x[:, :, :1].contiguous(), x[:, :, :1].contiguous(),
+                      m[:, :, :1].contiguous())            # a side of 1
   with pytest.raises(ValueError):
     dc_kernel.dc_cuda(x.double(), x.double(), m)          # not f32
   layer = cc.ChainLayer(torch.zeros(3, 3, 2, 16, device=cuda))
@@ -241,6 +365,84 @@ def test_requant_kernel_matches_plain(cuda):
   want_x, want_s = cc.requant_plain(y, amax)
   assert torch.equal(xi, want_x) and torch.equal(scale, want_s)
   assert xi[0, 1, 0, :4].tolist() == [0, 2, 2, -4]
+
+
+# The flagship U-Net's quantized layers at 256^2 (k4, reflect): (H, Cin,
+# Cout), cut to B = 2.
+K3_FLAGSHIP_LAYERS = [(256, 32, 32), (128, 32, 64), (128, 64, 64),
+                      (64, 64, 128), (64, 128, 128)]
+
+
+def _int8_case(cuda, k, cin, cout, pad, out_dtype, shape):
+  """K3 against its plain version: equal up to float noise (1e-6
+  relative), and the amax of an intermediate (f32) output too."""
+  gen = torch.Generator(device=cuda).manual_seed(k * cin + cout)
+  layer = _int8_layer(cuda, gen, k, cin, cout)
+  want_amax = out_dtype == torch.float32
+  x = torch.randint(-127, 128, (*shape, cin), device=cuda, generator=gen,
+                    dtype=torch.int8)
+  scale = torch.rand(shape[0], device=cuda, generator=gen) * 0.1 + 0.01
+  got, amax = cc.conv_layer_int8_cuda(x, scale, layer, pad, out_dtype,
+                                      want_amax)
+  torch.cuda.synchronize()
+  want, ref_amax = cc.conv_layer_int8_plain(x, scale, layer, pad, out_dtype,
+                                            want_amax)
+  ref = want.float().abs().max().item()
+  assert got.dtype == out_dtype and got.shape == want.shape
+  assert (got.float() - want.float()).abs().max().item() <= 1e-6 * ref
+  if want_amax:
+    torch.testing.assert_close(amax, ref_amax, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize('out_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('size,cin,cout', K3_FLAGSHIP_LAYERS)
+def test_conv_int8_flagship_layer_shapes(cuda, size, cin, cout, out_dtype):
+  _int8_case(cuda, 4, cin, cout, 'reflection', out_dtype, (2, size, size))
+
+
+@pytest.mark.parametrize('pad', ['reflection', 'replication', 'zero'])
+@pytest.mark.parametrize('cin,cout', [(32, 32), (64, 16), (96, 64),
+                                      (128, 128), (160, 32)])
+def test_conv_int8_k3_chunks(cuda, cin, cout, pad):
+  """k3: one chunk of Cin rounded up to 32, 64 or 128 (the last stage
+  partial), or chunks of 128; on 21 x 70 (a partial row tile, two column
+  tiles)."""
+  _int8_case(cuda, 3, cin, cout, pad, torch.float32, (2, 21, 70))
+  _int8_case(cuda, 3, cin, cout, pad, torch.bfloat16, (2, 21, 70))
+
+
+@pytest.mark.parametrize('k', [3, 4])
+def test_conv_int8_single_image(cuda, k):
+  """B = 1, and the smallest image reflect padding takes (2 x 2 for k3;
+  3 x 3 for k4, whose bottom and right pads are 2)."""
+  _int8_case(cuda, k, 64, 64, 'reflection', torch.float32, (1, 33, 65))
+  _int8_case(cuda, k, 32, 16, 'reflection', torch.bfloat16,
+             (1, k - 1, k - 1))
+
+
+def test_int8_chain_matches_plain_chain(cuda):
+  """A three-layer k4 chain (two intermediates, each requantized by the
+  requant kernel) against the plain chain: bit-identical by design."""
+  gen = torch.Generator(device=cuda).manual_seed(9)
+  layers = [_int8_layer(cuda, gen, 4, a, b)
+            for a, b in ((32, 64), (64, 64), (64, 32))]
+  x = torch.randint(-127, 128, (2, 40, 72, 32), device=cuda, generator=gen,
+                    dtype=torch.int8)
+  scale = torch.rand(2, device=cuda, generator=gen) * 0.1 + 0.01
+  before = (cc.conv_layer_int8_cuda.launches, cc.requant_cuda.launches)
+  got = cc.fused_conv_chain_int8(x, scale, layers)
+  torch.cuda.synchronize()
+  assert (cc.conv_layer_int8_cuda.launches, cc.requant_cuda.launches) == \
+      (before[0] + 3, before[1] + 2)
+  want = x, scale
+  for i, layer in enumerate(layers):
+    last = i + 1 == len(layers)
+    y, amax = cc.conv_layer_int8_plain(
+        *want, layer, out_dtype=torch.bfloat16 if last else torch.float32,
+        want_amax=not last)
+    want = y if last else cc.requant_plain(y, amax)
+  assert torch.equal(got, want)
 
 
 def test_int8_wrappers_raise_on_unsupported_inputs(cuda):

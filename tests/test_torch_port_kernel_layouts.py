@@ -12,6 +12,15 @@ decided on the host and can be replayed here:
   (``ops/conv_chain.py::gemm_layout``, ``pack_weights``). An implicit GEMM
   over the packed weights, in the kernel's K order, must equal
   ``conv_layer_plain``.
+* K2's Cout padding (``pad_cout``): any Cout runs as a multiple of 16 with
+  zero output channels, and the first Cout equal ``conv_layer_plain``.
+* K3 (``csrc/conv_int8.cu``): the int8 K order and packed weights
+  (``gemm_layout_int8``, ``pack_weights_int8``); the kernel's halo planes,
+  swizzled weight stages and ``wgmma`` descriptors replayed address by
+  address through its stage and chunk cursors, which must give the exact
+  int32 sums of ``conv_layer_int8_plain`` (and must not with a mutated
+  LBO, SBO or plane).
+* K1's route by shape (``dc_route``) and the dense-DFT route's root table.
 * K5's s8 product and K4's odd-pixel probe (``csrc/probes.cu``): the
   ``wgmma`` descriptors' layout fields (``probes/int8_prims.py::
   mma_descriptors``, ``probes/mosaic_prims.py::odd_pixel_descriptors``).
@@ -354,8 +363,297 @@ def test_probe_descriptors_match_the_kernel_constants():
       name), src).group(1))
   assert const('kOddTiles') == mosaic_prims.ODD_TILES
   assert const('kMmaN') == MMA_N
-  # csrc/conv_chain.cu::b_desc: LBO field 1, SBO 1024 >> 4, swizzle mode 1
+  # csrc/sm90.cuh::b_desc: LBO field 1, SBO 1024 >> 4, swizzle mode 1
   assert int8_prims.mma_descriptors()[0] == 1 << 16 | 64 << 32 | 1 << 62
   for d in (*int8_prims.mma_descriptors(),
             *mosaic_prims.odd_pixel_descriptors()):
     assert probes.descriptor(*_descriptor_fields(d)) == d
+
+
+# --- K2: any Cout ---------------------------------------------------------
+
+
+@pytest.mark.parametrize('k,cin,cout', [(4, 32, 8), (3, 16, 4), (4, 2, 1),
+                                        (3, 48, 24), (4, 8, 2)])
+def test_padded_cout_packing_matches_conv_layer_plain(k, cin, cout):
+  """Cout padded to 16 by zero output channels: the packed operand has
+  16-row granules, the padding rows are zero, and the implicit GEMM's first
+  Cout channels equal the plain conv (the kernel writes all 16-granule
+  channels, the padding ones zero, and the wrapper keeps the first Cout)."""
+  gen = torch.Generator().manual_seed(cout)
+  x = torch.randn(2, 7, 9, cin, generator=gen)
+  kernel = torch.randn(k, k, cin, cout, generator=gen) / (k * cin) ** 0.5
+  bias = torch.randn(cout, generator=gen)
+  kpad, bpad = cc.pad_cout(kernel, bias)
+  cout_pad = -(-cout // 16) * 16
+  assert kpad.shape == (k, k, cin, cout_pad) and bpad.shape == (cout_pad,)
+  assert not kpad[..., cout:].any() and not bpad[cout:].any()
+  packed = cc.pack_weights(kpad, torch.float32)
+  assert packed.shape[0] == cout_pad and not packed[cout:].any()
+  full = layers.leaky_relu(_implicit_gemm(x, packed, k, cin, 'zero') + bpad,
+                           0.1)
+  assert not full[..., cout:].any()
+  got = full[..., :cout]
+  want = cc.conv_layer_plain(x, cc.ChainLayer(kernel, bias, 0.1), 'zero')
+  assert (got - want).abs().max().item() <= 1e-4
+
+
+# --- K3: the int8 kernel's operands ----------------------------------------
+
+CSRC = os.path.join(os.path.dirname(cc.__file__), os.pardir, 'csrc')
+K3_TILE_W = 64       # csrc/conv_int8.cu kTileW: output pixels per tile row
+K3_K_STAGE = 128     # kKStage: K per weight stage, one 128-byte row
+K3_INT8_CASES = [(4, 32, 32), (4, 32, 64), (4, 64, 128), (4, 128, 64),
+                 (3, 32, 16), (3, 64, 32), (3, 96, 16), (3, 160, 16)]
+
+
+def _k3_tile(k, cout):
+  """(rows per warpgroup MT, N, halo plane bytes): N = Cout up to 128, MT 2
+  for N = 128 and 4 below (``launch_n``); a plane holds the tile's (2 MT +
+  k - 1) x (64 + k - 1) halo pixels, 16 bytes each, 128-byte aligned."""
+  n = next(v for v in (128, 64, 32, 16) if cout % v == 0)
+  mt = 2 if n == 128 else 4
+  pix = (2 * mt + k - 1) * (K3_TILE_W + k - 1)
+  return mt, n, -(-pix * 16 // 128) * 128
+
+
+def _k3_descriptors(plane):
+  """K3's (A, B) descriptor layout fields: A from the halo, K-major without
+  swizzle, 8-pixel core matrices 128 bytes apart (SBO), the second 16
+  channels of a k32 step one plane on (LBO); B K5's swizzled stage."""
+  return probes.descriptor(plane, 128, 0), int8_prims.mma_descriptors()[1]
+
+
+def _int8_layer(gen, k, cin, cout, leak=0.1):
+  from csmri_refinement_tpu_torch.ops import quantize
+  w = torch.randn(k, k, cin, cout, generator=gen)
+  bias = torch.randn(cout, generator=gen) * 0.1
+  return quantize.quantize_chain([cc.ChainLayer(w, bias, leak)])[0]
+
+
+def _exact_sums(xi, layer, pad_mode):
+  k = layer.kernel.shape[0]
+  acc = F.conv2d(layers.same_pad(xi.double().permute(0, 3, 1, 2), k,
+                                 pad_mode),
+                 layer.kernel.double().permute(3, 2, 0, 1))
+  return acc.permute(0, 2, 3, 1).numpy().astype(np.int64)
+
+
+def _k3_replay(xi, layer, pad_mode, mutate=None):
+  """K3's int32 sums, replayed through its shared-memory operands: per
+  tile and halo chunk the planes as ``load_halo`` stages them, per stage
+  the weight rows with the 128-byte swizzle as TMA stores them, and per
+  k32 step the A and B tiles read at each element's address as the
+  descriptors map it, the cursors (stage, chunk, K offset) advancing as the
+  kernel's K loop does. ``mutate`` ('lbo', 'sbo' or 'plane') perturbs one
+  layout field."""
+  b, h, w, cin = xi.shape
+  k, _, _, cout = layer.kernel.shape
+  cin_pad, chunk, kp = cc.gemm_layout_int8(cin, k)
+  mt, n_blk, plane = _k3_tile(k, cout)
+  a_fields, b_fields = _k3_descriptors(plane)
+  if mutate == 'lbo':
+    a_fields = probes.descriptor(plane + 16, 128, 0)
+  elif mutate == 'sbo':
+    a_fields = probes.descriptor(plane, 256, 0)
+  stride = plane + 128 if mutate == 'plane' else plane
+  packed = cc.pack_weights_int8(layer.kernel).numpy().view(np.uint8)
+  assert packed.shape == (cout, kp)
+  planes, hw, hh = chunk // 16, K3_TILE_W + k - 1, 2 * mt + k - 1
+  rows = 2 * mt
+  tiles_h, tiles_w = -(-h // rows), -(-w // K3_TILE_W)
+  # the SAME-padded input with zero channels past Cin; positions beyond
+  # it feed only outputs outside the image (zeros here)
+  xp = layers.same_pad(xi.double().permute(0, 3, 1, 2), k, pad_mode)
+  xp = xp.permute(0, 2, 3, 1).numpy().astype(np.int8)
+  ext = np.zeros((b, tiles_h * rows + k, tiles_w * K3_TILE_W + k, cin_pad),
+                 np.int8)
+  ext[:, :h + k - 1, :w + k - 1, :cin] = xp
+  ktot, span, stages = k * k * cin_pad, k * k * chunk, kp // K3_K_STAGE
+  out = np.zeros((b, tiles_h * rows, tiles_w * K3_TILE_W, cout), np.int64)
+  m, kk = np.arange(64)[:, None], np.arange(32)[None]
+  nn = np.arange(n_blk)[:, None]
+  for img in range(b):
+    for ty in range(tiles_h):
+      for tx in range(tiles_w):
+        for n0 in range(0, cout, n_blk):
+          oy0, ox0 = ty * rows, tx * K3_TILE_W
+          acc = np.zeros((2, mt, 64, n_blk), np.int64)
+          rem = c = 0
+          for s in range(stages):
+            if rem == 0:       # load_halo(c): plane j, pixel p at j P + 16 p
+              halo = np.zeros(planes * stride, np.uint8)
+              src = ext[img, oy0:oy0 + hh, ox0:ox0 + hw,
+                        c * chunk:(c + 1) * chunk].view(np.uint8)
+              src = src.reshape(hh * hw, planes, 16)
+              for j in range(planes):
+                halo[j * stride:j * stride + hh * hw * 16] = \
+                    src[:, j].reshape(-1)
+            stage = np.zeros(n_blk * 128, np.uint8)   # TMA, 128-byte swizzle
+            rows_w = packed[n0:n0 + n_blk, s * 128:(s + 1) * 128]
+            for r in range(n_blk):
+              for ch in range(8):
+                at = r * 128 + 16 * (ch ^ (r % 8))
+                stage[at:at + 16] = rows_w[r, 16 * ch:16 * ch + 16]
+            for q in range(min(4, (ktot - s * K3_K_STAGE) // 32)):
+              rq = rem + 32 * q
+              tap, j = rq // chunk, (rq % chunk) // 16
+              dy, dx = divmod(tap, k)
+              bt = stage[_kmajor_address(32 * q, b_fields, nn, kk)]
+              for wg in range(2):
+                for r in range(mt):
+                  start = j * stride + 16 * ((wg * mt + r + dy) * hw + dx)
+                  at = _kmajor_address(start, a_fields, m, kk)
+                  at = np.where(at < halo.size, at, 0)
+                  a_t = halo[at].view(np.int8).astype(np.int64)
+                  acc[wg, r] += a_t @ bt.view(np.int8).astype(np.int64).T
+            rem += K3_K_STAGE
+            if rem >= span:
+              rem, c = 0, c + 1
+          out[img, oy0:oy0 + rows, ox0:ox0 + 64, n0:n0 + n_blk] = \
+              acc.reshape(rows, 64, n_blk)
+  return out[:, :h, :w]
+
+
+@pytest.mark.parametrize('pad_mode', ['reflection', 'zero'])
+@pytest.mark.parametrize('k,cin,cout', K3_INT8_CASES)
+def test_k3_operand_replay_matches_conv_layer_int8_plain(k, cin, cout,
+                                                         pad_mode):
+  """The packed int8 weights and the halo read through the kernel's
+  descriptors give the exact sums; through the kernel's epilogue they are
+  ``conv_layer_int8_plain`` bit for bit. Two column tiles and a partial
+  row tile (5 x 70)."""
+  gen = torch.Generator().manual_seed(k * cin + cout)
+  xi = torch.randint(-127, 128, (1, 5, 70, cin), generator=gen,
+                     dtype=torch.int8)
+  layer = _int8_layer(gen, k, cin, cout)
+  cin_pad, chunk, kp = cc.gemm_layout_int8(cin, k)
+  assert kp % 128 == 0 and cin_pad % chunk == 0
+  assert (k * k * chunk) % 128 == 0 or cin_pad == chunk
+  sums = _k3_replay(xi, layer, pad_mode)
+  np.testing.assert_array_equal(sums, _exact_sums(xi, layer, pad_mode))
+  scale = torch.tensor([0.0123])
+  got = cc._epilogue(torch.from_numpy(sums).double(), scale, layer)
+  want, _ = cc.conv_layer_int8_plain(xi, scale, layer, pad_mode)
+  assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('mutate', ['lbo', 'sbo', 'plane'])
+def test_k3_operand_replay_fails_with_a_mutated_layout(mutate):
+  gen = torch.Generator().manual_seed(3)
+  xi = torch.randint(-127, 128, (1, 5, 70, 64), generator=gen,
+                     dtype=torch.int8)
+  layer = _int8_layer(gen, 4, 64, 32)
+  sums = _k3_replay(xi, layer, 'reflection', mutate)
+  assert not np.array_equal(sums, _exact_sums(xi, layer, 'reflection'))
+
+
+def test_k3_layout_constants_match_the_kernel():
+  """The replay's constants are the ones compiled into conv_int8.cu and
+  the descriptors it takes from sm90.cuh (shared with K2): A without
+  swizzle, SBO 128; B K5's, 128-byte swizzle, SBO 1024."""
+  src = ''
+  for name in ('conv_int8.cu', 'sm90.cuh'):
+    with open(os.path.join(CSRC, name)) as f:
+      src += f.read()
+  const = lambda name: int(re.search(r'constexpr int {} = (\d+);'.format(
+      name), src).group(1))
+  assert const('kTileW') == K3_TILE_W and const('kKStage') == K3_K_STAGE
+  assert 'static constexpr int kPlane = (kPix * 16 + 127) / 128 * 128;' in src
+  assert 'launch<K, 128, 2>' in src and 'launch<K, 64, 4>' in src
+  assert '((uint64_t)(128 >> 4) << 32)' in src      # a_desc SBO
+  assert '((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62)' in src
+  _, _, plane = _k3_tile(4, 32)
+  a_fields, b_fields = _k3_descriptors(plane)
+  assert _descriptor_fields(a_fields) == (plane, 128, 0)
+  assert _descriptor_fields(b_fields) == (16, 1024, 128)
+
+
+def test_pack_weights_int8_layout():
+  """K-major (Cout, kp) int8 rows in the order (chunk, tap, channel in
+  chunk), zeros past Cin and past k*k*Cin_pad."""
+  gen = torch.Generator().manual_seed(0)
+  layer = _int8_layer(gen, 3, 96, 16)
+  packed = cc.pack_weights_int8(layer.kernel)
+  cin_pad, chunk, kp = cc.gemm_layout_int8(96, 3)
+  assert (cin_pad, chunk, kp) == (128, 128, 1152)
+  assert packed.dtype == torch.int8 and packed.shape == (16, 1152)
+  w = layer.kernel
+  for tap in range(9):
+    dy, dx = divmod(tap, 3)
+    assert torch.equal(packed[:, tap * 128:tap * 128 + 96],
+                       w[dy, dx].t())
+    assert not packed[:, tap * 128 + 96:(tap + 1) * 128].any()
+  assert cc.gemm_layout_int8(32, 3) == (32, 32, 384)
+  assert cc.gemm_layout_int8(64, 4) == (64, 32, 1024)
+  assert cc.gemm_layout_int8(160, 3) == (256, 128, 2304)
+
+
+# --- K1: the route by shape and the dense-DFT roots ------------------------
+
+
+def test_dc_route_by_shape():
+  assert dc_kernel.dc_route(256, 256) == 'fft'
+  assert all(dc_kernel.dc_route(n, n) == 'fft' for n in SIDES)
+  for n in (3, 5, 100, 192, 320, 384, 511):
+    assert dc_kernel.dc_route(n, n) == 'dft'
+  for h, w in ((256, 192), (192, 256), (256, 128), (2, 512)):
+    assert dc_kernel.dc_route(h, w) == 'dft'
+  for h, w in ((1024, 1024), (1, 1), (1, 256), (256, 513)):
+    assert dc_kernel.dc_route(h, w) is None
+
+
+@pytest.mark.parametrize('n', [3, 192, 320, 384])
+def test_dft_table_lines_match_torch_fft(n):
+  """A line through the dense-DFT route: out(k) = sum_j x(j) w[(j k) mod
+  n] with the f32 roots, forward and inverse, against ``torch.fft``."""
+  rng = np.random.default_rng(n)
+  x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+      np.complex64)
+  table = dc_kernel.dft_table(n)
+  w = (table[:, 0] + 1j * table[:, 1]).astype(np.complex64)
+  idx = np.outer(np.arange(n), np.arange(n)) % n
+  t = torch.from_numpy(x.astype(np.complex128))
+  for inverse in (False, True):
+    mat = np.conj(w[idx]) if inverse else w[idx]
+    got = (mat @ x) / np.sqrt(n)
+    want = (torch.fft.ifft if inverse else torch.fft.fft)(t, norm='ortho')
+    assert np.abs(got - want.numpy()).max() <= 2e-5
+
+
+@pytest.mark.parametrize('h,w', [(6, 10), (24, 20)])
+def test_dense_dft_dc_replay_matches_plain(h, w):
+  """The dense-DFT route's DC on a non-square image, replayed with its two
+  root tables (rows by the w roots, columns by the h roots, each scaled by
+  1/sqrt(n)), against ``dc_plain``."""
+  rng = np.random.default_rng(h * w)
+  x = rng.standard_normal((2, h, w, 2)).astype(np.float32)
+  k0 = rng.standard_normal((2, h, w, 2)).astype(np.float32)
+  m = (rng.random((2, h, w, 1)) > 0.5).astype(np.float32)
+
+  def mat(n, inverse):
+    t = dc_kernel.dft_table(n).astype(np.float64)
+    r = (t[:, 0] + 1j * t[:, 1])[np.outer(np.arange(n), np.arange(n)) % n]
+    return (np.conj(r) if inverse else r) / np.sqrt(n)
+
+  xc = x[..., 0] + 1j * x[..., 1]
+  k = mat(h, False) @ xc @ mat(w, False).T
+  k = (1 - m[..., 0]) * k + (k0[..., 0] + 1j * k0[..., 1])
+  y = mat(h, True) @ k @ mat(w, True).T
+  want = dc_kernel.dc_plain(*(torch.from_numpy(a) for a in (x, k0, m)))
+  got = np.stack([y.real, y.imag], axis=-1)
+  assert np.abs(got - want.numpy()).max() <= 2e-5
+
+
+def test_dc_fused_takes_torch_fft_for_non_square_images():
+  """On the CPU, non-square images run the plain ``torch.fft`` composition
+  (no kernel, no count) and stay differentiable."""
+  gen = torch.Generator().manual_seed(0)
+  x = torch.randn(2, 8, 6, 2, generator=gen, requires_grad=True)
+  k0 = torch.randn(2, 8, 6, 2, generator=gen)
+  m = (torch.rand(2, 8, 6, 1, generator=gen) > 0.5).float()
+  before = dc_kernel.dc_cuda.launches
+  y = dc_kernel.dc_fused(x, k0, m)
+  assert torch.allclose(y, dc_kernel.dc_plain(x, k0, m))
+  y.sum().backward()
+  assert x.grad is not None and dc_kernel.dc_cuda.launches == before

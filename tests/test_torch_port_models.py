@@ -208,3 +208,77 @@ def test_construct_model_reads_refinement_config():
                                atol=5e-4, err_msg=key)
   with pytest.raises(TypeError):
     construct_model(dict(section['learnable_model'], use_scan=True))
+
+
+def _running_stats(module):
+  return {k: v.numpy().copy() for k, v in module.state_dict().items()
+          if 'running' in k}
+
+
+@pytest.mark.parametrize('case', sorted(UNET_CASES))
+def test_unet_train_step_updates_batch_stats_as_jax(case):
+  """One train-mode forward updates every BN's running mean and variance as
+  flax does: the variance is the biased batch variance (torch's own
+  BatchNorm2d takes N/(N-1) times it, 8e-4 relative at the 8x8 scale)."""
+  kw = dict(num_inputs=2, num_outputs=1, num_layers_per_scale=2,
+            encode_filters=[8, 16, 32], decode_filters=[16, 8],
+            output_activation='none')
+  kw.update(UNET_CASES[case])
+  x = np.random.RandomState(3).randn(2, 32, 32, 2).astype(np.float32)
+  model = junet.UNET(**kw)
+  variables = _perturbed_stats(
+      jax.jit(model.init)(jax.random.PRNGKey(0), jnp.asarray(x)), 5)
+  _, updated = jax.jit(functools.partial(
+      model.apply, train=True, mutable=['batch_stats']))(
+          variables, jnp.asarray(x))
+  port = tunet.UNET(**kw)
+  load_flax_variables(port, _np(variables))
+  with torch.no_grad():
+    port.train()(_t(x))
+  want = tunet.UNET(**kw)
+  load_flax_variables(want, _np({'params': variables['params'],
+                                 'batch_stats': updated['batch_stats']}))
+  got, want = _running_stats(port), _running_stats(want)
+  assert got.keys() == want.keys() and len(got) > 10
+  for k in want:
+    np.testing.assert_allclose(got[k], want[k], rtol=2e-5, atol=1e-6,
+                               err_msg=k)
+
+
+def test_refinement_wrapper_keeps_pretrained_model_in_eval_mode():
+  """A wrapper around a BN U-Net, in train mode, against the JAX wrapper's
+  ``apply(train=True)``: the pretrained U-Net normalises with its running
+  stats and keeps them; the learnable one uses and updates batch stats."""
+  from csmri_refinement_tpu.models.refinement_wrapper import (
+      RefinementWrapper as JWrapper)
+  kw = dict(num_inputs=2, num_outputs=2, num_layers_per_scale=2,
+            encode_filters=[8, 16], decode_filters=[8],
+            output_activation='none', **UNET_CASES['flagship_layout'])
+  x = np.random.RandomState(6).randn(2, 16, 16, 2).astype(np.float32)
+  jmodel = JWrapper(pretrained_model=junet.UNET(**kw),
+                    learnable_model=junet.UNET(**kw), mode='add')
+  variables = _perturbed_stats(
+      jax.jit(jmodel.init)(jax.random.PRNGKey(2), jnp.asarray(x)), 7)
+  want, updated = jax.jit(functools.partial(
+      jmodel.apply, train=True, mutable=['batch_stats']))(
+          variables, jnp.asarray(x))
+  port = RefinementWrapper(tunet.UNET(**kw), tunet.UNET(**kw), mode='add')
+  load_flax_variables(port, _np(variables))
+  before = _running_stats(port.pretrained_model)
+  port.train()
+  assert not port.pretrained_model.training
+  assert port.learnable_model.training
+  with torch.no_grad():
+    got = port(_t(x)).numpy()
+  np.testing.assert_allclose(got, np.asarray(want), atol=5e-4)
+  ref = RefinementWrapper(tunet.UNET(**kw), tunet.UNET(**kw), mode='add')
+  load_flax_variables(ref, _np({'params': variables['params'],
+                                'batch_stats': updated['batch_stats']}))
+  for name in ('pretrained_model', 'learnable_model'):
+    got_s = _running_stats(getattr(port, name))
+    want_s = _running_stats(getattr(ref, name))
+    for k in want_s:
+      np.testing.assert_allclose(got_s[k], want_s[k], rtol=2e-5, atol=1e-6,
+                                 err_msg=name + '.' + k)
+  for k, v in before.items():
+    np.testing.assert_array_equal(_running_stats(port.pretrained_model)[k], v)
