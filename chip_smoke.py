@@ -63,7 +63,21 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     OK with one launch each; then each probe's kernel, plain version and
     library call (``torch.roll``, ``torch._int_mm``, ... where one PyTorch
     call computes its function) as device time (``graph_ms``) beside the
-    kernel's eager calls, and the library's s8 and bf16 products at 4096³.
+    kernel's eager calls, and the library's s8 and bf16 products at 4096³;
+16. the fourth main path, GAN refinement training: the trainer's CLI on
+    ``configs/2-refinement.json`` at its full widths on Synthetic 256²
+    phantoms (40 train, 10 validation, B = 5: 8 steps and 2 validation
+    batches), the VGG19 from its seeded init, the frozen RecNet grafted
+    from a checkpoint of phase 9's runner, with the counters set to 0 just
+    before and read just after: 3 K1 per generator forward, 0 K1-bwd, 10
+    K2 per validation forward, the RecNet equal to its checkpoint; K1 and
+    K2 (f32) at the path's B = 5 shapes against their plain versions; GAN
+    updates on the card and on the CPU at 128² (the discriminator's
+    gradients on the same inputs within 1e-3 of each tensor's max, the
+    first update's losses and the second's gen_loss within 1e-3, the
+    third's printed) and at narrow widths at 64² (every loss of three
+    updates within 1e-3); ms per GAN step at 256², B = 5, TF32 off and on; the flagship decoders'
+    subpixel up-convs beside the explicit path they replace (device time).
 
 ``--probes-only`` runs phases 1 and 2 for the probes' source and the
 probes of phase 15 alone, and prints their ``{"kernels": [...]}`` entries
@@ -149,6 +163,30 @@ INT8_VS_F32_FLAGSHIP_RTOL = 0.1
 # Launches per int8 forward (K1, K2, K3 conv, K3 requant), from the JAX
 # package's suffix rule on the flagship chains (ops/conv_chain.py).
 INT8_LAUNCHES = {256: (3, 3, 7, 2), 512: (3, 6, 4, 1)}
+# The GAN refinement path (configs/2-refinement.json on Synthetic 256²):
+# 8 train steps and 2 validation batches of 5.
+GAN_BATCH, GAN_TRAIN, GAN_VAL = 5, 40, 10
+GAN_PARITY_SIZE, GAN_PARITY_STEPS = 128, 3
+GAN_NARROW_SIZE = 64
+# Card vs CPU GAN updates. The discriminator's gradient is not a smooth
+# function of its input at full width: its last layers hold 4×4 positions
+# per image at 128², and a LeakyReLU kink crossed there moves a tensor's
+# gradient by a large share of its max under 1e-5 relative input noise
+# (phase 16 prints it; 0.13 on an H100 machine's CPU), and the fakes'
+# background is rounding noise on the first layer's kink, so the sign of
+# the first conv's bias gradient is decided by rounding
+# (tests/test_torch_port_gan.py). The card's generator output (DC kernel,
+# cuDNN) differs from the CPU's by rounding, and Adam's first step is ±lr
+# whatever a gradient's size, so the updates part: at full width gen_loss
+# 6.8e-5 and disc_loss 3.5e-4 apart at the second update and 1.2e-3 and
+# 2.9e-3 at the third (NVIDIA H100 80GB HBM3, 700 W). So at full width the
+# first update's losses and the second's gen_loss are gated at LOSS_RTOL
+# and the third's printed; the discriminator's gradients on the same
+# inputs read 1.44e-4 of each tensor's max apart (card vs f64 1.02e-5, the
+# CPU's f32 vs f64 1.42e-4), gated at GAN_GRAD_REL, seven times that; and
+# every update of the narrow widths at 64² is gated at LOSS_RTOL.
+GAN_GRAD_REL = 1e-3
+GAN_DIR = os.path.join(REPO, 'resources', 'chip_smoke')
 
 
 def fail(msg):
@@ -1073,6 +1111,276 @@ def probe_timings(line):
 NO_C7517 = ('probes', 'conv_int8')
 
 
+def gan_cli_phase(recnet_runner):
+  """Phase 16 (a): the GAN refinement CLI on the card at the full widths
+  of configs/2-refinement.json, its frozen RecNet grafted from a
+  checkpoint of phase 9's runner; counters around it. Returns (the
+  runner, its config file, K1 and K2 launches)."""
+  from csmri_refinement_tpu_torch import train
+  from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
+  from csmri_refinement_tpu_torch.profile_gan import (
+      synthetic_refinement_conf)
+  from csmri_refinement_tpu_torch.utils import checkpoints
+  os.makedirs(GAN_DIR, exist_ok=True)
+  ckpt = os.path.join(GAN_DIR, 'recnet.ckpt')
+  checkpoints.save_checkpoint(ckpt, recnet_runner.conf, recnet_runner, 1, {})
+  conf_path = os.path.join(GAN_DIR, '2-refinement-synthetic.json')
+  with open(conf_path, 'w') as f:
+    json.dump(synthetic_refinement_conf(
+        SIZE, GAN_TRAIN, GAN_VAL, GAN_BATCH, ['recnet.ckpt', 'model']), f)
+  frozen = checkpoints.load_model_state_dict(ckpt, 'model')
+  sync()
+  dc_kernel.dc_cuda.launches = 0
+  dc_kernel.dc_bwd_cuda.launches = 0
+  conv_chain.conv_layer_cuda.launches = 0
+  t0 = time.perf_counter()
+  runner = train.main([conf_path, '--dry'])
+  sync()
+  secs = time.perf_counter() - t0
+  k1, k1_bwd = dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches
+  k2 = conv_chain.conv_layer_cuda.launches
+  steps, val_batches = runner.step, GAN_VAL // GAN_BATCH
+  print('GAN main path: {} steps + {} validation batches in {:.1f} s, K1 '
+        'launches {}, K1-bwd launches {}, K2 launches {}'.format(
+            steps, val_batches, secs, k1, k1_bwd, k2))
+  require(steps == GAN_TRAIN // GAN_BATCH, 'expected 8 GAN steps (40 / 5)')
+  require(k1 == 3 * (steps + val_batches),
+          'expected 3 K1 launches per generator forward')
+  require(k1_bwd == 0, 'the frozen RecNet launched K1-bwd')
+  require(k2 == 10 * val_batches,
+          'expected 10 K2 launches per validation forward')
+  require_frozen(runner, frozen, 'after the CLI epoch')
+  return runner, conf_path, frozen, k1, k2
+
+
+def gan_kernel_checks(runner):
+  """Phase 16: K1 and K2 at the GAN path's shapes against their plain
+  versions: the DC at 256², B = 5 (each generator forward), and the f32
+  conv chains of the trained generator's U-Net at B = 5 (validation), to
+  F32_ATOL of max(1, max |ref|)."""
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
+  from csmri_refinement_tpu_torch.ops import dc_kernel, masks
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+  b = GAN_BATCH
+  x = torch.randn(b, SIZE, SIZE, 2, device=DEVICE, generator=gen)
+  k0 = torch.randn(b, SIZE, SIZE, 2, device=DEVICE, generator=gen)
+  m = masks.cartesian_mask(gen, (b, SIZE, SIZE), 8,
+                           device=DEVICE)[..., None].contiguous()
+  got = dc_kernel.dc_cuda(x, k0 * m, m)
+  sync()
+  err = (got - dc_kernel.dc_plain(x, k0 * m, m)).abs().max().item()
+  print('K1 dc GAN shape {}x{}x{}: max|kernel-plain| {:.3e} (tol {})'.format(
+      b, SIZE, SIZE, err, F32_ATOL))
+  require(err <= F32_ATOL, 'DC kernel differs from its plain version')
+  runner.gen.eval()
+  with torch.no_grad():
+    for name, unit in unet_chains(runner.gen):
+      h, w, _ = CHAIN_SHAPES[name]
+      chain = unit.chain_layers()
+      cin = chain[0].kernel.shape[2]
+      x = torch.randn(b, h, w, cin, device=DEVICE, generator=gen)
+      got = cc.fused_conv_chain(x, chain, pad_mode=unit.padding)
+      sync()
+      want = plain_chain(x, chain, unit.padding)
+      err = (got - want).abs().max().item()
+      tol = F32_ATOL * max(1.0, want.abs().max().item())
+      print('K2 chain {} GAN f32 {}: max|kernel-plain| {:.3e}, tol {:.3e}'
+            .format(name, tuple(x.shape), err, tol))
+      require(err <= tol, 'f32 conv chain {} differs from its plain '
+              'version'.format(name))
+
+
+def require_frozen(runner, frozen, when):
+  got = runner.gen.pretrained_model.state_dict()
+  require(set(got) == set(frozen) and all(
+      torch.equal(v.cpu(), frozen[k]) for k, v in got.items()),
+          'the frozen RecNet differs from its checkpoint ' + when)
+  print('GAN frozen RecNet equals its checkpoint {} ({} tensors)'.format(
+      when, len(got)))
+
+
+def gan_batches(conf, n, size):
+  """n host batches of the config's phantoms with fixed varden masks."""
+  from csmri_refinement_tpu_torch.data import load_dataset
+  from csmri_refinement_tpu_torch.ops import masks
+  data = load_dataset(conf, 'Synthetic', 'train')
+  gen = torch.Generator().manual_seed(SEED + 7)
+  out = []
+  for i in range(n):
+    gt = torch.stack([torch.from_numpy(data[j]['gt'])
+                      for j in range(i * GAN_BATCH, (i + 1) * GAN_BATCH)])
+    out.append((gt, masks.cartesian_mask(gen, (GAN_BATCH, size, size), 8)))
+  return out
+
+
+def gan_runner_pair(conf_d):
+  """A CPU and a card AdversarialRunner of ``conf_d``, the card's
+  generator, discriminator and VGG19 weights copied from the CPU's."""
+  from csmri_refinement_tpu_torch.training.adversarial_runner import (
+      AdversarialRunner)
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_dict(conf_d)
+  cpu = AdversarialRunner(conf, 'train', 'cpu')
+  gpu = AdversarialRunner(conf, 'train', DEVICE)
+  gpu.gen.load_state_dict(cpu.gen.state_dict())
+  gpu.disc.load_state_dict(cpu.disc.state_dict())
+  gpu.gen_criteria['VGG19'].criterion.vgg.load_state_dict(
+      cpu.gen_criteria['VGG19'].criterion.vgg.state_dict())
+  return conf, cpu, gpu
+
+
+def gan_updates(label, cpu, gpu, batches, gated):
+  """The same updates on both runners; each update's gen_loss and
+  disc_loss printed, and held within LOSS_RTOL where ``gated(step,
+  name)``. Returns the worst gated relative difference."""
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  worst = 0.0
+  for step, (gt, mask) in enumerate(batches):
+    want = cpu.train_batch(us.undersample_batch(None, gt,
+                                                fixed_mask=mask))[0]
+    got = gpu.train_batch(us.undersample_batch(
+        None, gt.to(DEVICE), fixed_mask=mask.to(DEVICE)))[0]
+    for name in ('gen_loss', 'disc_loss'):
+      w, g = want[name].item(), got[name].item()
+      rel = abs(g - w) / abs(w)
+      gate = gated(step, name)
+      print('GAN parity {} step {}: {} card {:.8e}, CPU {:.8e}, rel {:.2e} '
+            '(tol {})'.format(label, step, name, g, w, rel,
+                              LOSS_RTOL if gate else 'none'))
+      require(math.isfinite(g) and (rel <= LOSS_RTOL or not gate),
+              'card and CPU GAN losses differ')
+      worst = max(worst, rel) if gate else worst
+  require(cpu.pool.count == gpu.pool.count == len(batches) * GAN_BATCH,
+          'the pool left its fill phase')
+  print('GAN parity {}: worst gated loss rel {:.2e}; losses after {} '
+        'updates {}'.format(label, worst, len(batches), {
+            k: round(v.item(), 6) for k, v in got.items()}))
+  return worst
+
+
+def gan_parity_phase():
+  """Phase 16 (b): card against CPU, TF32 off, dropout off, the pool in
+  its fill phase, the same weights and Synthetic batches. Full widths at
+  128² (the smallest side whose discriminator keeps its 4×4 head): the
+  discriminator's gradients on the same inputs within GAN_GRAD_REL, the
+  first update's losses and the second's gen_loss within LOSS_RTOL, the
+  rest printed (GAN_GRAD_REL's comment says why). The narrow widths at
+  64²: every loss of three updates within LOSS_RTOL."""
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  from csmri_refinement_tpu_torch.profile_gan import (
+      synthetic_refinement_conf)
+  size = GAN_PARITY_SIZE
+  conf, cpu, gpu = gan_runner_pair(synthetic_refinement_conf(
+      size, GAN_PARITY_STEPS * GAN_BATCH, GAN_BATCH, GAN_BATCH,
+      dropout=False))
+  batches = gan_batches(conf, GAN_PARITY_STEPS, size)
+
+  # The discriminator's gradients on the same inputs, before any update.
+  gt, mask = batches[0]
+  batch = us.undersample_batch(None, gt, fixed_mask=mask)
+  cpu.gen.train()
+  with torch.no_grad():
+    out = cpu.gen(*cpu._gen_inputs(batch))
+  fake = cpu.disc_input_fn.build(out)
+  real = cpu.disc_input_fn.build(batch['target'])
+  crit = cpu.disc_adv_criteria['gan']
+  noisy = fake * (1 + 1e-5 * torch.randn(
+      fake.shape, generator=torch.Generator().manual_seed(SEED)))
+  grads = {}
+  for name, dev, dt, x in (('cpu', 'cpu', torch.float32, fake),
+                           ('card', DEVICE, torch.float32, fake),
+                           ('f64', 'cpu', torch.float64, fake),
+                           ('noisy', 'cpu', torch.float32, noisy)):
+    disc = copy.deepcopy(cpu.disc).to(dev, dt).train()
+    loss = crit(disc(x.to(dev, dt)), disc(real.to(dev, dt)))
+    grads[name] = [g.double().cpu() for g in torch.autograd.grad(
+        loss, list(disc.parameters()))]
+
+  def worst(a, b):
+    return max(((x - y).abs().max().item() / y.abs().max().item(), n)
+               for (n, _), x, y in zip(cpu.disc.named_parameters(),
+                                       grads[a], grads[b]))
+  err = worst('card', 'cpu')
+  print('GAN parity {}^2: discriminator gradients on the same inputs, worst '
+        'max|diff| / max|grad|: card vs CPU {:.2e} ({}) (tol {}); card vs '
+        'f64 {:.2e}, CPU vs f64 {:.2e}; the CPU\'s own under 1e-5 relative '
+        'input noise {:.2e} ({})'.format(
+            size, err[0], err[1], GAN_GRAD_REL, worst('card', 'f64')[0],
+            worst('cpu', 'f64')[0], *worst('noisy', 'cpu')))
+  require(err[0] <= GAN_GRAD_REL, 'card and CPU discriminator gradients '
+          'differ')
+  gan_updates('{}^2'.format(size), cpu, gpu, batches,
+              lambda step, name: step == 0 or (step == 1 and
+                                               name == 'gen_loss'))
+
+  size = GAN_NARROW_SIZE
+  conf, cpu, gpu = gan_runner_pair(synthetic_refinement_conf(
+      size, GAN_PARITY_STEPS * GAN_BATCH, GAN_BATCH, GAN_BATCH,
+      dropout=False, narrow=True))
+  gan_updates('{}^2 narrow'.format(size), cpu, gpu,
+              gan_batches(conf, GAN_PARITY_STEPS, size),
+              lambda step, name: True)
+
+
+def gan_timing_phase(conf_path, frozen, line):
+  """Phase 16 (c): ms per GAN step at 256², B = 5, TF32 off and on, CUDA
+  events around whole steps on one prepared batch after warm-up."""
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  from csmri_refinement_tpu_torch.training import build_runner
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_json(conf_path)
+  runner = build_runner(conf, 'adversarial', 'train', DEVICE)
+  require_frozen(runner, frozen, 'when grafted')
+  gt, mask = gan_batches(conf, 1, SIZE)[0]
+  batch = us.undersample_batch(None, gt.to(DEVICE),
+                               fixed_mask=mask.to(DEVICE))
+  step_ms = {}
+  for tf32 in (False, True):
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    step_ms[tf32] = time_ms(lambda: runner.train_batch(batch), iters=10,
+                            warmup=3)
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  for tf32, ms in step_ms.items():
+    print('GAN refinement step {}^2 f32 B{} TF32 {}: {:.3f} ms, {:.1f} '
+          'slices/s ({})'.format(SIZE, GAN_BATCH, 'on' if tf32 else 'off',
+                                 ms, GAN_BATCH / ms * 1e3, line))
+  require_frozen(runner, frozen, 'after the timed steps')
+  return step_ms
+
+
+def up_conv_timings(model, line):
+  """Phase 16 (d): each flagship decoder's up-conv at 256², B = 32, bf16,
+  as device time: the subpixel form beside the explicit nearest-up2 →
+  reflect pad → k4 conv it replaces."""
+  from csmri_refinement_tpu_torch.models import layers as L
+  unet = model.learnable_model
+  cl = torch.channels_last
+  for name, size in (('decode_0', SIZE // 4), ('decode_1', SIZE // 2)):
+    conv = getattr(unet, name).up_conv
+    cin = conv.weight.shape[1]
+    x = torch.randn(BATCH, cin, size, size, device=DEVICE,
+                    dtype=torch.bfloat16).contiguous(memory_format=cl)
+    w, b = conv.weight.to(torch.bfloat16), None if conv.bias is None \
+        else conv.bias.to(torch.bfloat16)
+
+    def explicit():
+      up = F.interpolate(x, scale_factor=2, mode='nearest')
+      return L.same_conv(up, w, b, conv.pad_mode).permute(0, 2, 3, 1)
+    with torch.inference_mode():
+      err = (conv(x).float() - explicit().float()).abs().max().item()
+      ref = explicit().float().abs().max().item()
+      sub_ms = graph_ms(lambda: conv(x))
+      exp_ms = graph_ms(explicit)
+    require(err <= BF16_REL_TOL * ref, 'subpixel up-conv differs from the '
+            'explicit path')
+    print('up-conv {} {}^2->{}^2 {}->{} B{} bf16: subpixel {:.4f} ms, '
+          'explicit {:.4f} ms, max|diff| {:.3e} of max {:.3e} ({})'.format(
+              name, size, 2 * size, cin, conv.weight.shape[0], BATCH, sub_ms,
+              exp_ms, err, ref, line))
+
+
 def build_phase(names):
   """Phase 2: build the named kernel sources in parallel; print each
   kernel's ptxas lines, and fail if ptxas drained a wgmma pipeline
@@ -1293,11 +1601,28 @@ def main(argv=None):
             BATCH / fwd_ms * 1e3, line))
   probe_entries = probe_phase(line)
 
+  # Phase 16: the GAN refinement path
+  gan_runner, gan_conf_path, frozen, gan_k1, gan_k2 = gan_cli_phase(runner)
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  val_losses, val_metrics = gan_runner.validate(DataLoader(
+      load_dataset(gan_runner.conf, 'Synthetic', 'val'), GAN_BATCH))
+  vals = {k: v.value for k, v in list(val_losses.items()) +
+          list(val_metrics.items())}
+  print('GAN main path validation: {}'.format(vals))
+  require(all(math.isfinite(v) for v in vals.values()) and
+          0 < vals['gen_ssim'] <= 1 and vals['gen_psnr'] > 10,
+          'GAN validation metrics out of range')
+  gan_kernel_checks(gan_runner)
+  del gan_runner
+  gan_parity_phase()
+  gan_timing_phase(gan_conf_path, frozen, line)
+  up_conv_timings(model, line)
+
   kernels = [
       {'name': 'dc', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
        'replaces': 'csmri_refinement_tpu/ops/dc_pallas.py:36',
-       'launches': dc_launches + train_fwd, 'max_abs_err': dc_err,
+       'launches': dc_launches + train_fwd + gan_k1, 'max_abs_err': dc_err,
        'ms': dc_ms,
        'plain_ms': dc_plain_ms, 'bound_ms': dc_bound,
        'bound_by': dc_by,
@@ -1305,7 +1630,8 @@ def main(argv=None):
       {'name': 'conv_chain', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/conv_chain.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
-       'launches': conv_launches, 'max_abs_err': conv_err, 'ms': conv_ms,
+       'launches': conv_launches + gan_k2, 'max_abs_err': conv_err,
+       'ms': conv_ms,
        'plain_ms': conv_plain_ms, 'bound_ms': conv_bound,
        'bound_by': conv_by,
        'library_ms': conv_lib_ms},

@@ -28,16 +28,20 @@ class MetricFunction:
     self.pred_key = pred_key
     self.target_key = target_key
 
-  def __call__(self, prediction, target):
+  def __call__(self, prediction, target, transform=True):
+    """Per example for image batches (3-D or 4-D), else on the whole
+    arrays; ``transform=False`` skips the output transform (the
+    discriminator's probabilities)."""
     if isinstance(prediction, dict):
       prediction = prediction[self.pred_key]
     if isinstance(target, dict):
       target = target[self.target_key]
+    pairs = zip(prediction[:, None], target[:, None]) \
+        if prediction.dim() in (3, 4) else [(prediction, target)]
     values = []
     with torch.no_grad():
-      for p, t in zip(prediction, target):
-        p, t = p[None], t[None]
-        if self.transform is not None:
+      for p, t in pairs:
+        if transform and self.transform is not None:
           p, t = self.transform(p, t)
         values.append(self.metric_fn(p, t))
     return self.metric_type(values)

@@ -1,10 +1,15 @@
-"""Model registry: ``construct_model(section)`` for the flagship models.
+"""Model registry: ``construct_model(section)``.
 
 Port of ``csmri_refinement_tpu/models/__init__.py`` for ``RecNet``,
-``UNET`` and ``RefinementWrapper``. ``section`` is a model section of a
-JSON config as a plain dict (e.g. ``generator_model`` of
-``configs/2-refinement.json``), read unchanged. ``pretrained_weights`` is
-ignored: no checkpoint loader is ported yet. An ``undersampling`` section
+``UNET``, ``RefinementWrapper`` and ``CNNDiscriminator``. ``section`` is a
+model section of a JSON config as a plain dict (e.g. ``generator_model`` of
+``configs/2-refinement.json``), read unchanged. A section's
+``pretrained_weights`` is not a constructor argument: the runners load it
+after the seeded init (``training/model_setup.apply_pretrained_weights``),
+as the JAX runners do. A discriminator section also carries the runner's
+discriminator-input keys (``input_method``, ``use_image_pool``, ...); the
+model takes the keys it knows, as the JAX ``to_param_dict`` does. An
+``undersampling`` section
 threaded in by a runner (JAX ``training/runner.py:49-53``) gives a RecNet
 its ``dc_lines_acc``, as the JAX ``models/recnet.py:50-57`` does; other
 models ignore it. A UNET section's ``fused_inference`` and
@@ -14,7 +19,7 @@ other key the ported model does not take raises ``TypeError``.
 
 import torch
 
-MODEL_NAMES = ('RecNet', 'UNET', 'RefinementWrapper')
+MODEL_NAMES = ('RecNet', 'UNET', 'RefinementWrapper', 'CNNDiscriminator')
 
 
 def _dtype(value):
@@ -46,6 +51,12 @@ def construct_model(section, dtype=None):
                                                 **params)
   weight_init = weight_inits.normalize_user_init(
       params.pop('weight_init', None))
+  if name == 'CNNDiscriminator':
+    from csmri_refinement_tpu_torch.models import discriminators
+    return discriminators.CNNDiscriminator(
+        weight_init=weight_init, dtype=dtype,
+        **{k: v for k, v in params.items()
+           if k in discriminators.PARAMS})
   if name == 'RecNet':
     if 'dc_lines_acc' not in params:
       acc = dc.lines_acc_from_undersampling(undersampling)

@@ -1,11 +1,14 @@
 """Criterion registry and wrappers.
 
-Port of ``csmri_refinement_tpu/models/criteria.py`` for the simple
-criteria: a criterion is ``(model_output, batch) → scalar loss``.
-``CriterionWrapper`` selects the prediction key from a dict output and the
-target key from the batch; ``FeaturePenalty`` pulls a named model output
-toward zero. Reductions are means in float32. The adversarial criteria and
-the VGG19 loss wait for the GAN slice (ROADMAP Queue 1 item 6).
+Port of ``csmri_refinement_tpu/models/criteria.py``: a criterion is
+``(model_output, batch) → scalar loss``. ``CriterionWrapper`` selects the
+prediction key from a dict output and the target key from the batch;
+``FeaturePenalty`` pulls a named model output toward zero; ``VGG19`` is
+the perceptual loss (``models/vgg_loss.py``, MSE on block 4 unless a
+``vgg_loss`` section says otherwise); the adversarial losses
+(``models/adversarial_loss.py``) take the discriminator's outputs on fakes
+and reals instead, in the direction ``loss_type`` ('gen' or 'disc') names.
+Reductions are means in float32.
 """
 
 import torch
@@ -88,8 +91,30 @@ def _feature_penalty_criterion(conf):
       input_key=penalty['input_key'])
 
 
-def get_criterion(conf, loss_name, target_key=None, input_key=None):
-  """Criterion factory; ``loss_target_keys`` remaps a loss's target key."""
+_ADVERSARIAL = ('GAN', 'LSGAN', 'WGAN', 'FeatureMatching',
+                'gan', 'lsgan', 'wgan', 'feature-matching')
+
+
+def _vgg_criterion(conf, loss_name, target_key, device):
+  from csmri_refinement_tpu_torch.models.vgg_loss import VGGLoss
+  section = conf.get_attr('vgg_loss', default={})
+  if section.get('dtype') is not None:
+    raise NotImplementedError('vgg_loss.dtype is not ported yet')
+  vgg_loss = VGGLoss(loss_name, section.get('blocks', -1),
+                     section.get('criterion', 'MSE'), section.get('weights'),
+                     weights_path=conf.get_attr('vgg_weights_path'),
+                     conf_path=conf.file,
+                     allow_random_init=conf.get_attr('vgg_random_init',
+                                                     default=False),
+                     device=device)
+  return CriterionWrapper(vgg_loss, target_key)
+
+
+def get_criterion(conf, loss_name, target_key=None, input_key=None,
+                  loss_type=None, device='cpu'):
+  """Criterion factory; ``loss_target_keys`` remaps a loss's target key,
+  ``loss_type`` picks an adversarial loss's direction, ``device`` holds a
+  VGG19's weights."""
   if input_key is None:
     input_key = 'pred'
   if target_key is None:
@@ -98,6 +123,12 @@ def get_criterion(conf, loss_name, target_key=None, input_key=None):
   if loss_name in _SIMPLE_CRITERIA:
     return CriterionWrapper(_SIMPLE_CRITERIA[loss_name], target_key,
                             input_key)
+  if loss_name in _ADVERSARIAL:
+    from csmri_refinement_tpu_torch.models.adversarial_loss import (
+        get_adversarial_loss)
+    return get_adversarial_loss(conf, loss_name, loss_type)
+  if loss_name == 'VGG19':
+    return _vgg_criterion(conf, loss_name, target_key, device)
   if loss_name == 'FeaturePenalty':
     return _feature_penalty_criterion(conf)
-  raise NotImplementedError('loss {} is not ported yet'.format(loss_name))
+  raise ValueError('Unknown loss {}'.format(loss_name))

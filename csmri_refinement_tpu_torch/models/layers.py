@@ -1,13 +1,15 @@
-"""Shared model building blocks: SAME padding and activations.
+"""Shared model building blocks: SAME padding, activations, norm layers.
 
-Port of ``csmri_refinement_tpu/models/layers.py:20-135``. The helpers here
-work on NCHW tensors (torch's conv layout; a permuted NHWC tensor is an
-NCHW tensor in ``channels_last`` memory). ``same_conv`` keeps the
-semantics of the JAX ``same_conv`` — an exact SAME-padded conv — not its
-TPU border-strip lowering.
+Port of ``csmri_refinement_tpu/models/layers.py``. The helpers here work
+on NCHW tensors (torch's conv layout; a permuted NHWC tensor is an NCHW
+tensor in ``channels_last`` memory). ``same_conv`` keeps the semantics of
+the JAX ``same_conv`` — an exact SAME-padded conv — not its TPU
+border-strip lowering.
 """
 
+import torch
 import torch.nn.functional as F
+from torch import nn
 
 _PAD_MODES = {
     'zero': 'constant',
@@ -16,31 +18,126 @@ _PAD_MODES = {
 }
 
 
-def pad_sizes(kernel_size, dilation=1):
-  """(before, after) stride-1 SAME padding: an odd total splits as
-  (side, side+1), so k4 pads (1, 2)."""
-  total = (kernel_size - 1) * dilation
+def pad_sizes(kernel_size, dilation=1, stride=1):
+  """(before, after) SAME padding: the total ceil((k_eff − 1) / stride)
+  splits evenly, an odd pixel going to the bottom/right, so k4 pads (1, 2)
+  at stride 1 and (1, 1) at stride 2, k3 (0, 1) at stride 2."""
+  if stride not in (1, 2):
+    raise ValueError('SAME padding is defined for stride 1 or 2')
+  effective = kernel_size + (kernel_size - 1) * (dilation - 1)
+  total = -(-(effective - 1) // stride)
   side = total // 2
   return (side, side) if total % 2 == 0 else (side, side + 1)
 
 
-def same_pad(x, kernel_size, mode='zero', dilation=1):
-  """Explicit stride-1 SAME padding of an NCHW tensor before a VALID
-  conv."""
-  p1, p2 = pad_sizes(kernel_size, dilation)
+def same_pad(x, kernel_size, mode='zero', dilation=1, stride=1):
+  """Explicit SAME padding of an NCHW tensor before a VALID conv."""
+  p1, p2 = pad_sizes(kernel_size, dilation, stride)
   return F.pad(x, (p1, p2, p1, p2), mode=_PAD_MODES[mode])
 
 
-def same_conv(x, weight, bias=None, mode='zero', dilation=1):
-  """SAME stride-1 conv of NCHW ``x`` with OIHW ``weight``."""
+def same_conv(x, weight, bias=None, mode='zero', dilation=1, stride=1):
+  """SAME conv of NCHW ``x`` with OIHW ``weight``."""
   k = weight.shape[-1]
-  p1, p2 = pad_sizes(k, dilation)
+  p1, p2 = pad_sizes(k, dilation, stride)
   if mode == 'zero' and p1 == p2:
-    return F.conv2d(x, weight, bias, padding=p1, dilation=dilation)
-  return F.conv2d(same_pad(x, k, mode, dilation), weight, bias,
-                  dilation=dilation)
+    return F.conv2d(x, weight, bias, stride=stride, padding=p1,
+                    dilation=dilation)
+  return F.conv2d(same_pad(x, k, mode, dilation, stride), weight, bias,
+                  stride=stride, dilation=dilation)
+
+
+class _LeakyReLU(torch.autograd.Function):
+  """``F.leaky_relu`` whose gradient at 0 is 1, as JAX's ``leaky_relu``
+  (``where(x >= 0, ...)``) has it; torch's is the slope there. Inputs of
+  exactly 0 are common (a conv with zero bias on the zero background of an
+  image), and the choice then moves every gradient upstream."""
+
+  @staticmethod
+  def forward(ctx, x, negative_slope):
+    ctx.save_for_backward(x)
+    ctx.negative_slope = negative_slope
+    return F.leaky_relu(x, negative_slope)
+
+  @staticmethod
+  def backward(ctx, grad):
+    x, = ctx.saved_tensors
+    return torch.where(x >= 0, grad, grad * ctx.negative_slope), None
 
 
 def leaky_relu(x, negative_slope):
-  """LeakyReLU: x where x >= 0, else negative_slope·x."""
-  return F.leaky_relu(x, negative_slope)
+  """LeakyReLU: x where x >= 0, else negative_slope·x; gradient 1 at 0."""
+  return _LeakyReLU.apply(x, negative_slope)
+
+
+class PReLU(nn.Module):
+  """Parametric ReLU with a learned ``slope`` per channel (dim 1 of an NCHW
+  map or of a (B, F) feature vector)."""
+
+  def __init__(self, num_channels, init_slope=0.25):
+    super().__init__()
+    self.slope = nn.Parameter(torch.full((num_channels,), float(init_slope)))
+
+  def forward(self, x):
+    slope = self.slope.to(x.dtype).reshape((1, -1) + (1,) * (x.dim() - 2))
+    return torch.where(x >= 0, x, slope * x)
+
+
+class InstanceNorm(nn.Module):
+  """Instance normalisation over the spatial dims of an NCHW map (biased
+  variance, eps 1e-5), optionally with a per-channel ``scale`` and
+  ``bias``."""
+
+  def __init__(self, num_channels, affine=False, eps=1e-5):
+    super().__init__()
+    self.eps = eps
+    if affine:
+      self.scale = nn.Parameter(torch.ones(num_channels))
+      self.bias = nn.Parameter(torch.zeros(num_channels))
+    else:
+      self.scale = self.bias = None
+
+  def forward(self, x):
+    var, mean = torch.var_mean(x, dim=(2, 3), keepdim=True, correction=0)
+    y = (x - mean) * torch.rsqrt(var + self.eps)
+    if self.scale is not None:
+      y = y * self.scale.reshape(1, -1, 1, 1) + self.bias.reshape(1, -1, 1, 1)
+    return y
+
+
+def get_activation(name, leakiness=None, num_channels=None):
+  """Activation by name: a function, or a ``PReLU`` module for 'prelu'."""
+  if name == 'relu':
+    return F.relu
+  if name == 'lrelu':
+    if leakiness is None:
+      raise ValueError('lrelu needs a leakiness')
+    return lambda x: leaky_relu(x, leakiness)
+  if name == 'tanh':
+    return torch.tanh
+  if name == 'softmax':
+    return lambda x: torch.softmax(x, dim=1)
+  if name == 'prelu':
+    if leakiness is None or num_channels is None:
+      raise ValueError('prelu needs a leakiness and a channel count')
+    return PReLU(num_channels, leakiness)
+  raise ValueError('Unknown activation function {}'.format(name))
+
+
+def need_bias(use_norm_layers, norm_layer):
+  """Whether a conv needs a bias given the norm layer after it."""
+  return (not use_norm_layers or use_norm_layers == 'not-first' or
+          norm_layer == 'instance')
+
+
+def channel_dropout(x, rate, training, generator=None):
+  """``nn.Dropout2d`` on an NCHW map: whole channels of each example are
+  zeroed with probability ``rate``, the rest scaled by 1/(1 − rate). The
+  keep decisions come from ``generator`` (on ``x``'s device)."""
+  if not training or rate == 0.0:
+    return x
+  u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
+                 device=x.device)
+  keep = u < 1.0 - rate
+  return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))

@@ -10,12 +10,18 @@ Port of ``csmri_refinement_tpu/models/refinement_wrapper.py``:
   returns {pred, pretrained, prescaled_refinement, scaled_refinement};
 * ``input_mode``: the learnable path sees the input, the pretrained output,
   or their concat;
-* freezing is ``.detach()`` around the pretrained path;
+* freezing: the pretrained model's parameters take no gradient and its
+  forward runs under ``torch.no_grad()``, so autograd records nothing
+  through it (JAX ``stop_gradient`` around it, ``:125-143``);
+* ``INPUT_KEYS`` are the pretrained model's (a RecNet's
+  ``('inp', 'kspace', 'mask')``), as JAX ``:108-110`` has them;
 * the pretrained model runs in eval mode whatever the wrapper's mode
   (``train`` below), as the JAX wrapper calls it with ``train=False``
   (``:135-137``): a BN model there normalises with its running stats and
   leaves them unchanged.
 """
+
+import contextlib
 
 import torch
 from torch import nn
@@ -59,8 +65,14 @@ class RefinementWrapper(nn.Module):
     self.mode = mode
     self.input_mode = input_mode
     self.freeze_pretrained_model = freeze_pretrained_model
+    if freeze_pretrained_model:
+      pretrained_model.requires_grad_(False)
     if mode == 'real-penalty-add':
       self.scale = nn.Parameter(torch.zeros(1))
+
+  @property
+  def INPUT_KEYS(self):
+    return getattr(self.pretrained_model, 'INPUT_KEYS', ('inp',))
 
   def init_weights(self, generator):
     self.pretrained_model.init_weights(generator)
@@ -84,12 +96,11 @@ class RefinementWrapper(nn.Module):
   def forward(self, inp, *extra_inputs):
     if self.freeze_pretrained_model:
       inp = inp.detach()
-      extra_inputs = tuple(x.detach() for x in extra_inputs)
-    out_pretrained = self.pretrained_model(inp, *extra_inputs)
+    with torch.no_grad() if self.freeze_pretrained_model else \
+        contextlib.nullcontext():
+      out_pretrained = self.pretrained_model(inp, *extra_inputs)
     if isinstance(out_pretrained, dict):
       out_pretrained = out_pretrained['pred']
-    if self.freeze_pretrained_model:
-      out_pretrained = out_pretrained.detach()
 
     learn_input = self._learnable_input(inp, out_pretrained)
     out_learnable = self.learnable_model(learn_input)

@@ -14,9 +14,11 @@ Port of ``csmri_refinement_tpu/models/unet.py``:
   does (``BatchNorm2d`` below; ``nn.BatchNorm2d`` takes the unbiased one).
 * ``ConvDecodeUnit`` (``:365-471``) in the ``nn-resize-conv`` and ``nn``
   modes, with ``act_upsampling_only``. The up-conv is nearest-up2 → SAME pad
-  of the upsampled image → conv: the math that the JAX package's
-  ``SubpixelNNResizeConv`` (``:87-169``) reproduces without the upsampled
-  intermediate.
+  of the upsampled image → conv; for k = 4 it runs as
+  ``SubpixelNNResizeConv`` (``:87-169``, chosen at ``:416-421``), in train
+  and eval mode: one 3×3 conv to 4·Cout phase channels on the
+  low-resolution image, then depth-to-space, without the upsampled
+  intermediate. Other k keep the explicit path (``:422-430``).
 * ``UNET`` (``:474-594``): encoders, skip concat with pad-to-target,
   decoders, 1×1 head, output activation.
 
@@ -30,7 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from csmri_refinement_tpu_torch.models import weight_inits
-from csmri_refinement_tpu_torch.models.layers import leaky_relu, same_conv
+from csmri_refinement_tpu_torch.models.layers import (leaky_relu, same_conv,
+                                                      same_pad)
 from csmri_refinement_tpu_torch.ops import conv_chain
 from csmri_refinement_tpu_torch.ops import quantize
 
@@ -72,6 +75,72 @@ class BatchNorm2d(nn.BatchNorm2d):
       self.num_batches_tracked += 1
     return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                         self.eps)
+
+
+# Per-axis tap-collapse matrices of the k4 up-conv on the nearest-upsampled
+# grid (SAME pads 1 before, 2 after): tap t of output phase r ∈ {0, 1} at
+# low-res i reads source pixel i + floor((r − 1 + t) / 2), which is row
+# 1 + floor((r − 1 + t) / 2) of a 3×3 kernel on the low-res image padded by
+# one; so the 4 taps sum into 3 (JAX ``unet.py:127-131``).
+_PHASE_TAPS = ((
+    (1, 0, 0, 0), (0, 1, 1, 0), (0, 0, 0, 1)), (
+    (0, 0, 0, 0), (1, 1, 0, 0), (0, 0, 1, 1)))
+
+
+class SubpixelNNResizeConv(nn.Conv2d):
+  """``nearest-up2 → SAME k4 conv`` without the upsampled image.
+
+  The parameters are the plain k4 conv's (``weight`` (Cout, Cin, 4, 4),
+  ``bias``), so checkpoints and the weight bridge are unchanged. The
+  forward derives four 3×3 phase kernels from them, runs one conv to
+  4·Cout channels on the low-resolution image padded ``replicate`` (or
+  ``zero``), and moves the phase blocks, ordered (ry, rx) row-major then
+  channel as in JAX, to pixels (2i + ry, 2j + rx). Zero and replicate
+  padding of the upsampled image are exact this way; reflection reaches
+  one more source pixel at the bottom/right edge, so the last output row
+  and column are recomputed from thin upsampled slabs (JAX
+  ``unet.py:148-165``). The bias goes into each conv.
+  """
+
+  def __init__(self, in_channels, out_channels, bias=True, padding='zero'):
+    super().__init__(in_channels, out_channels, 4, bias=bias)
+    self.pad_mode = padding
+    # On the module's device, so that a forward copies nothing from the
+    # host (a CUDA graph can capture it).
+    self.register_buffer('taps', torch.tensor(_PHASE_TAPS,
+                                              dtype=torch.float32),
+                         persistent=False)
+
+  def phase_weight(self, dtype):
+    """(4·Cout, Cin, 3, 3) phase kernels, summed in f32 (or wider)."""
+    weight = self.weight.to(torch.promote_types(self.weight.dtype,
+                                                torch.float32))
+    taps = self.taps.to(weight.dtype)
+    ksub = torch.einsum('yat,xbu,oitu->yxoiab', taps, taps, weight)
+    cout, cin = self.weight.shape[:2]
+    return ksub.reshape(4 * cout, cin, 3, 3).to(dtype)
+
+  def forward(self, x):
+    """x: NCHW (B, Cin, H, W) → NHWC (B, 2H, 2W, Cout), in x's dtype."""
+    dt = x.dtype
+    bias = None if self.bias is None else self.bias.to(dt)
+    low_pad = 'zero' if self.pad_mode == 'zero' else 'replication'
+    y4 = F.conv2d(same_pad(x, 3, low_pad), self.phase_weight(dt),
+                  None if bias is None else bias.repeat(4))
+    b, c4, h, w = y4.shape
+    cout = c4 // 4
+    y = _nhwc(y4).reshape(b, h, w, 2, 2, cout).permute(0, 1, 3, 2, 4, 5) \
+        .reshape(b, 2 * h, 2 * w, cout)
+    if self.pad_mode == 'reflection':
+      weight = self.weight.to(dt)
+      up = lambda v: F.interpolate(v, scale_factor=2, mode='nearest')
+      # Rows 2H-4..2H-1 of the upsampled image, padded inside the slab
+      # (which holds every row the reflection reaches): output row 2H-1.
+      row = F.pad(up(x[:, :, -2:]), (1, 2, 0, 2), mode='reflect')
+      y[:, -1:] = _nhwc(F.conv2d(row, weight, bias)[:, :, 2:3])
+      col = F.pad(up(x[:, :, :, -2:]), (0, 2, 1, 2), mode='reflect')
+      y[:, :, -1:] = _nhwc(F.conv2d(col, weight, bias)[:, :, :, 2:3])
+    return y
 
 
 def _pad_to_target(x, target):
@@ -172,11 +241,14 @@ class ConvDecodeUnit(nn.Module):
     self.act_upsampling_only = act_upsampling_only
     self.dtype = dtype
     self.num_layers = num_layers
+    self.subpixel = mode == 'nn-resize-conv' and kernel_size == 4
     up_channels = in_channels
     if mode == 'nn-resize-conv':
       use_bias = not use_bn or encoder_channels == 0
-      self.up_conv = nn.Conv2d(in_channels, num_filters, kernel_size,
-                               bias=use_bias)
+      self.up_conv = SubpixelNNResizeConv(
+          in_channels, num_filters, use_bias, padding) if self.subpixel \
+          else nn.Conv2d(in_channels, num_filters, kernel_size,
+                         bias=use_bias)
       up_channels = num_filters
     if use_bn and act_upsampling_only:
       self.up_bn = BatchNorm2d(up_channels, eps=1e-5, momentum=0.1)
@@ -193,13 +265,16 @@ class ConvDecodeUnit(nn.Module):
 
   def forward(self, decode_path, encode_path=None):
     dt = self.dtype or decode_path.dtype
-    x = F.interpolate(_nchw(decode_path.to(dt)), scale_factor=2,
-                      mode='nearest')
-    if self.mode == 'nn-resize-conv':
-      conv = self.up_conv
-      bias = None if conv.bias is None else conv.bias.to(dt)
-      x = same_conv(x, conv.weight.to(dt), bias, self.padding)
-    x = _nhwc(x)
+    x = _nchw(decode_path.to(dt))
+    if self.subpixel:
+      x = self.up_conv(x)
+    else:
+      x = F.interpolate(x, scale_factor=2, mode='nearest')
+      if self.mode == 'nn-resize-conv':
+        conv = self.up_conv
+        bias = None if conv.bias is None else conv.bias.to(dt)
+        x = same_conv(x, conv.weight.to(dt), bias, self.padding)
+      x = _nhwc(x)
     if self.act_upsampling_only:
       x = _bn_act(x, getattr(self, 'up_bn', None), self.leak, dt)
     if encode_path is not None:

@@ -1,14 +1,17 @@
 """Weight initialisers of the flagship models, on ``torch.Generator``s.
 
-Port of the parts of ``csmri_refinement_tpu/models/weight_inits.py`` that the
-flagship uses: init specs are ``(name, *args)`` tuples, resolved with the
-same precedence (framework defaults ← model defaults ← user config), and
-applied in place to OIHW conv weights and 1-D parameters.
+Port of ``csmri_refinement_tpu/models/weight_inits.py``: init specs are
+``(name, *args)`` tuples, resolved with the same precedence (framework
+defaults ← model defaults ← user config), and applied in place to OIHW conv
+weights, (out, in) linear weights and 1-D parameters.
 
-Supported specs: ``('constant', c)``, ``('uniform', a, b)``,
-``('xavier', gain)`` (uniform), ``('he_normal', a)``,
-``('orthogonal', gain_or_nonlinearity)``. Fans follow torch's (and the JAX
-package's) convention: fan_in = Cin·k·k, fan_out = Cout·k·k.
+Specs: ``'zero'``, ``('constant', c)``, ``('normal', mean, std)``,
+``('uniform', a, b)``, ``('xavier', gain)`` (uniform) and
+``('xavier_normal', gain)``, ``('he_normal', a)`` and ``('he_uniform', a)``
+(a: the rectifier's negative slope), ``('orthogonal',
+gain_or_nonlinearity)``. Fans follow torch's (and the JAX package's)
+convention: fan_in = Cin·k·k, fan_out = Cout·k·k. The normal laws are
+untruncated, as the JAX package's ``variance_scaling(..., 'normal')``.
 """
 
 import math
@@ -20,6 +23,8 @@ DEFAULT_INITS = {
     'conv_bias': ('constant', 0.0),
     'batchnorm_weight': ('constant', 1.0),
     'batchnorm_bias': ('constant', 0.0),
+    'linear_weight': ('xavier_normal', 'linear'),
+    'linear_bias': ('constant', 0.0),
 }
 
 
@@ -51,20 +56,23 @@ def _gain(spec):
 
 
 def _orthogonal(shape, gain, generator):
-  """flax ``orthogonal(column_axis=-1)`` on the HWIO view of an OIHW
-  weight: the (k·k·Cin, Cout) matrix has orthonormal columns (or rows,
-  when it is wide), times ``gain``."""
-  if len(shape) != 4:
-    raise NotImplementedError('orthogonal init is ported for conv weights')
-  cout, cin, kh, kw = shape
-  rows = cin * kh * kw
+  """flax ``orthogonal(column_axis=-1)`` on the flax view of a torch
+  weight (HWIO for OIHW, (in, out) for a linear (out, in)): the
+  (k·k·Cin, Cout) matrix has orthonormal columns (or rows, when it is
+  wide), times ``gain``."""
+  if len(shape) not in (2, 4):
+    raise NotImplementedError('orthogonal init takes conv and linear '
+                              'weights')
+  cout, cin, kernel = shape[0], shape[1], tuple(shape[2:])
+  rows = cin * math.prod(kernel)
   mshape = (cout, rows) if rows < cout else (rows, cout)
   a = torch.randn(mshape, generator=generator, dtype=torch.float64)
   q, r = torch.linalg.qr(a)
   q = q * torch.sign(torch.diagonal(r))
   if rows < cout:
     q = q.T
-  return (q * gain).reshape(kh, kw, cin, cout).permute(3, 2, 0, 1)
+  flax_view = (q * gain).reshape(kernel + (cin, cout))
+  return flax_view.permute(3, 2, 0, 1) if kernel else flax_view.T
 
 
 def init_(tensor, spec, generator):
@@ -73,25 +81,37 @@ def init_(tensor, spec, generator):
   spec = tuple(spec) if isinstance(spec, (tuple, list)) else (spec,)
   name = spec[0]
   shape = tuple(tensor.shape)
+  def normal(std, mean=0.0):
+    return tensor.copy_(mean + std * torch.randn(
+        shape, generator=generator, dtype=torch.float64))
+
+  def uniform(limit):
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    return tensor.copy_((2 * u - 1) * limit)
+
   with torch.no_grad():
+    if name == 'zero':
+      return tensor.zero_()
     if name == 'constant':
       return tensor.fill_(spec[1])
+    if name == 'normal':
+      return normal(spec[2], spec[1])
     if name == 'uniform':
       u = torch.rand(shape, generator=generator, dtype=torch.float64)
       return tensor.copy_(spec[1] + (spec[2] - spec[1]) * u)
-    if name == 'xavier':
+    if name in ('xavier', 'xavier_normal'):
       fan_in, fan_out = _fans(shape)
-      limit = _gain(spec) * math.sqrt(6.0 / (fan_in + fan_out))
-      u = torch.rand(shape, generator=generator, dtype=torch.float64)
-      return tensor.copy_((2 * u - 1) * limit)
-    if name == 'he_normal':
+      std = _gain(spec) * math.sqrt(2.0 / (fan_in + fan_out))
+      return normal(std) if name == 'xavier_normal' else \
+          uniform(std * math.sqrt(3.0))
+    if name in ('he_normal', 'he_uniform'):
       a = spec[1] if len(spec) > 1 else 0.0
       std = math.sqrt(2.0 / (1 + a ** 2)) / math.sqrt(_fans(shape)[0])
-      return tensor.copy_(
-          std * torch.randn(shape, generator=generator, dtype=torch.float64))
+      return normal(std) if name == 'he_normal' else \
+          uniform(std * math.sqrt(3.0))
     if name == 'orthogonal':
       return tensor.copy_(_orthogonal(shape, _gain(spec), generator))
-  raise NotImplementedError('weight init {!r} is not ported yet'.format(name))
+  raise ValueError('Unknown weight init {}'.format(name))
 
 
 def resolve_inits(model_defaults=None, user_overrides=None):

@@ -42,8 +42,16 @@ def ifft2(x):
 
 
 def complex_abs(x, keepdims=True):
-  """Magnitude of a packed complex image (..., H, W, 2) → (..., H, W, 1)."""
-  mag = torch.sqrt(x[..., 0] ** 2 + x[..., 1] ** 2)
+  """Magnitude of a packed complex image (..., H, W, 2) → (..., H, W, 1),
+  in f32.
+
+  Taken as torch's complex ``abs``, whose gradient at 0 + 0i is 0; the JAX
+  package's ``sqrt(re² + im²)`` has a NaN gradient there. The values agree
+  to rounding. Exact zeros do occur: the DC kernel's output holds some on
+  a phantom's zero background, and one NaN would reach every weight
+  through the VGG loss or the discriminator's magnitude input.
+  """
+  mag = torch.view_as_complex(x.float().contiguous()).abs()
   if keepdims:
     mag = mag[..., None]
   return mag

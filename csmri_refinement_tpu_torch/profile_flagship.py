@@ -6,11 +6,12 @@
 (``quantize_inference``), as ``bench.py --dtype int8``.
 
 Builds ``build_flagship`` on the card at the flagship's 256² and B = 32
-(as ``chip_smoke.py``), warms up, then traces three forwards with
-``torch.profiler`` (CPU + CUDA activities) and prints: the card's name and
-power limit, the wall time per forward, the summed device time of every
-kernel, the device's idle share over the window, and the kernels with the
-most device time. TF32 is off. Needs a CUDA device.
+(as ``chip_smoke.py``), warms up, times ten forwards untraced with CUDA
+events, then traces three forwards with ``torch.profiler`` (CPU + CUDA
+activities) and prints: the card's name and power limit, the untraced
+time per forward, the traced wall time per forward, the summed device time
+of every kernel, the device's idle share over the window, and the kernels
+with the most device time. TF32 is off. Needs a CUDA device.
 """
 
 import argparse
@@ -25,6 +26,7 @@ from csmri_refinement_tpu_torch.flagship import build_flagship
 _DTYPES = {'bf16': torch.bfloat16, 'f32': torch.float32,
            'int8': torch.bfloat16}
 SIZE, BATCH, FORWARDS, TOP = 256, 32, 3, 25
+UNTRACED = 10
 
 
 def main(argv=None):
@@ -45,7 +47,13 @@ def main(argv=None):
   with torch.inference_mode():
     for _ in range(2):
       model(*inputs)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(UNTRACED):
+      model(*inputs)
+    end.record()
     torch.cuda.synchronize()
+    untraced_ms = start.elapsed_time(end) / UNTRACED
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
       t0 = time.perf_counter()
@@ -55,6 +63,9 @@ def main(argv=None):
       wall_ms = (time.perf_counter() - t0) * 1e3
 
   print(card)
+  print('flagship forward {}^2 {} B{}: {:.3f} ms per forward untraced (CUDA '
+        'events, {} forwards)'.format(SIZE, args.dtype, BATCH, untraced_ms,
+                                      UNTRACED))
   report(prof, wall_ms, FORWARDS, 'flagship forward {}^2 {} B{}'.format(
       SIZE, args.dtype, BATCH), 'forward')
 

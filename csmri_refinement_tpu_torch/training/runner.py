@@ -30,6 +30,8 @@ from csmri_refinement_tpu_torch.models.criteria import get_criterion
 from csmri_refinement_tpu_torch.training.base_runner import BaseRunner
 from csmri_refinement_tpu_torch.training.lr_schedulers import (
     get_lr_scheduler)
+from csmri_refinement_tpu_torch.training.model_setup import (
+    apply_pretrained_weights)
 from csmri_refinement_tpu_torch.training.optimizers import (get_optimizer,
                                                             set_learning_rate)
 from csmri_refinement_tpu_torch.training.prep import get_batch_preparer
@@ -86,6 +88,7 @@ class Runner(BaseRunner):
       model_conf.setdefault('undersampling', conf.undersampling)
     self.model = construct_model(model_conf)
     self.model.init_weights(torch.Generator().manual_seed(conf.seed))
+    apply_pretrained_weights(self.model, model_conf, conf.file)
     self.model.to(self.device)
     self.input_keys = get_input_keys(self.model)
     self.val_metric_fns = {

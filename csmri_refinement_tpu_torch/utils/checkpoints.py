@@ -11,7 +11,10 @@ in place of flax msgpack. Layout::
     }
 
 Loading uses ``torch.load(weights_only=True)``: plain containers and
-tensors only. The JAX package's msgpack checkpoints are not read yet.
+tensors only. ``load_model_state_dict`` and ``resolve_pretrained_weights``
+read one network's state out of another run's checkpoint, for a config's
+``pretrained_weights: [path, key]``. The JAX package's msgpack checkpoints
+are not read yet.
 """
 
 import logging
@@ -80,3 +83,37 @@ def prune_checkpoints(run_dir, num_checkpoints_to_retain=1):
       os.remove(chkpt_path)
     except OSError:
       logging.warning('Could not remove old checkpoint %s', chkpt_path)
+
+
+def load_model_state_dict(checkpoint_path, model_key):
+  """The state dict of network ``model_key`` (``model``, ``generator``,
+  ...) in a checkpoint's runner state."""
+  checkpoint = load_checkpoint(checkpoint_path)
+  if 'runner' not in checkpoint:
+    raise ValueError(
+        'Did not find runner in checkpoint {}'.format(checkpoint_path))
+  if model_key not in checkpoint['runner']:
+    raise ValueError('Did not find model {} in checkpoint {}'.format(
+        model_key, checkpoint_path))
+  return checkpoint['runner'][model_key]
+
+
+def resolve_pretrained_weights(model_conf, conf_path):
+  """Load the state a model section declares with ``pretrained_weights:
+  [path, key]``, the path relative to the config file ``conf_path``;
+  None when the section sets it to null."""
+  if 'pretrained_weights' not in model_conf:
+    raise ValueError('Can not initialize {} with pretrained weights: '
+                     'missing config key "pretrained_weights"'.format(
+                         model_conf.get('name')))
+  if model_conf['pretrained_weights'] is None:
+    logging.info('Skipping loading pretrained weights for %s (explicitly '
+                 'disabled)', model_conf.get('name'))
+    return None
+  path, model_key = model_conf['pretrained_weights']
+  if not os.path.isabs(path) and conf_path is not None:
+    path = os.path.join(os.path.dirname(conf_path), path)
+  state = load_model_state_dict(path, model_key)
+  logging.info('Loaded pretrained weights from checkpoint %s, key %s', path,
+               model_key)
+  return state

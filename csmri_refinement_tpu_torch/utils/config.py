@@ -37,6 +37,11 @@ class Configuration:
   def seed(self):
     return self._seed
 
+  @property
+  def file(self):
+    """The JSON file the configuration came from (None for a dict)."""
+    return self._src_file
+
   def has_attr(self, key):
     return key in self.__dict__
 

@@ -7,9 +7,12 @@ np.asarray, variables)``). The port's submodules carry the flax names
 ``head``, ``pretrained_model``, ``scale``, ...), so loading is a 1:1 walk:
 
 * a conv's ``kernel`` (HWIO) becomes ``weight`` (OIHW), ``bias`` stays;
+* a ``Dense`` ``kernel`` (in, out) becomes an ``nn.Linear`` ``weight``
+  (out, in);
 * a BatchNorm's ``scale``/``bias`` become ``weight``/``bias``, its
   ``batch_stats`` ``mean``/``var`` become ``running_mean``/``running_var``;
-* a module's own parameter (the wrapper's ``scale``) loads by name.
+* a module's own parameters load by name: the wrapper's ``scale``, a
+  PReLU's ``slope``, an instance norm's ``scale``/``bias``.
 
 Every tensor of the module must be found and every leaf of the tree used;
 anything else raises.
@@ -49,6 +52,12 @@ def _load(module, params, stats, path, used):
   if isinstance(module, nn.Conv2d):
     _copy(module.weight, np.transpose(take(params, 'kernel', 'params'),
                                       (3, 2, 0, 1)), path)
+    if module.bias is not None:
+      _copy(module.bias, take(params, 'bias', 'params'), path)
+    return
+  if isinstance(module, nn.Linear):
+    _copy(module.weight, np.transpose(take(params, 'kernel', 'params')),
+          path)
     if module.bias is not None:
       _copy(module.bias, take(params, 'bias', 'params'), path)
     return

@@ -616,3 +616,65 @@ def test_probe_kernels_refuse_other_descriptor_layouts(cuda):
       9, native.ptr(x), native.ptr(out), 256,
       probes.descriptor(mosaic_prims.odd_pixel_plane() + 16, 128), b_desc,
       native.stream_of(x)) == 1
+
+
+# -- the GAN refinement slice -------------------------------------------------
+
+
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('pad', ['zero', 'replication', 'reflection'])
+@pytest.mark.parametrize('hw', [(16, 16), (15, 21)])
+def test_subpixel_up_conv_on_card(cuda, dtype, pad, hw):
+  """The subpixel up-conv (cuDNN) on the card against the CPU: f32 within
+  the conv bar 2e-4, bf16 within 2e-2 of max |ref| (bf16 rounding of the
+  phase kernels and the output)."""
+  from csmri_refinement_tpu_torch.models.unet import SubpixelNNResizeConv
+  gen = torch.Generator().manual_seed(hw[1])
+  conv = SubpixelNNResizeConv(32, 16, True, pad)
+  with torch.no_grad():
+    conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) * 0.1)
+    conv.bias.copy_(torch.randn(16, generator=gen))
+  x = torch.randn(2, 32, hw[0], hw[1], generator=gen)
+  dt = torch.float32 if dtype == 'f32' else torch.bfloat16
+  with torch.no_grad():
+    want = conv(x.to(dt).float())
+    got = conv.to(cuda)(x.to(cuda, dt).contiguous(
+        memory_format=torch.channels_last)).float().cpu()
+  err = (got - want).abs().max().item()
+  assert tuple(got.shape) == (2, 2 * hw[0], 2 * hw[1], 16)
+  assert err <= (2e-4 if dtype == 'f32' else 2e-2 * want.abs().max().item())
+
+
+def test_gan_steps_on_card_match_cpu(cuda):
+  """Two GAN updates of a narrow configs/2-refinement.json at 32² on the
+  card and on the CPU from the same weights and batches (dropout off, the
+  pool filling): losses within 1e-3 relative (chip_smoke.py's bar), the
+  frozen RecNet unchanged, no K1-bwd launch."""
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  from csmri_refinement_tpu_torch.profile_gan import (
+      synthetic_refinement_conf)
+  from csmri_refinement_tpu_torch.training.adversarial_runner import (
+      AdversarialRunner)
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_dict(synthetic_refinement_conf(
+      32, 8, 4, 4, dropout=False, narrow=True))
+  cpu = AdversarialRunner(conf, 'train', 'cpu')
+  gpu = AdversarialRunner(conf, 'train', cuda)
+  gpu.gen.load_state_dict(cpu.gen.state_dict())
+  gpu.disc.load_state_dict(cpu.disc.state_dict())
+  frozen = {k: v.clone() for k, v in
+            cpu.gen.pretrained_model.state_dict().items()}
+  gen = torch.Generator().manual_seed(0)
+  dc_kernel.dc_bwd_cuda.launches = 0
+  for _ in range(2):
+    gt = torch.rand(4, 32, 32, generator=gen)
+    mask = masks.cartesian_mask(gen, (4, 32, 32), 4)
+    want = cpu.train_batch(us.undersample_batch(None, gt, fixed_mask=mask))[0]
+    got = gpu.train_batch(us.undersample_batch(
+        None, gt.to(cuda), fixed_mask=mask.to(cuda)))[0]
+    for name in ('gen_loss', 'disc_loss'):
+      w, g = want[name].item(), got[name].item()
+      assert abs(g - w) <= 1e-3 * abs(w), (name, g, w)
+  assert dc_kernel.dc_bwd_cuda.launches == 0
+  for name, value in gpu.gen.pretrained_model.state_dict().items():
+    assert torch.equal(value.cpu(), frozen[name]), name
