@@ -77,7 +77,24 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     first update's losses and the second's gen_loss within 1e-3, the
     third's printed) and at narrow widths at 64² (every loss of three
     updates within 1e-3); ms per GAN step at 256², B = 5, TF32 off and on; the flagship decoders'
-    subpixel up-convs beside the explicit path they replace (device time).
+    subpixel up-convs beside the explicit path they replace (device time);
+17. the fifth main path, segmentation training, and the segmentation score
+    (SIS): (a) the trainer's CLI on ``configs/3-train-segmentation-unet.json``
+    at its full widths on Synthetic 256² phantoms (40 train, 16 validation,
+    B = 8: 5 steps and 2 validation batches), counters around it: 18 K2
+    (f32 route) launches per validation forward, none in train mode, and
+    one best checkpoint by dice_class_1; (b) the segmentation score as a
+    validation metric of the GAN runner, its network from (a)'s checkpoint,
+    the generator from phase 16, counters around the validation: 3 K1 per
+    batch and 10 + 18 K2; (c) every K2 launch of a segmentation forward at
+    256², B = 5 and 8, and at 128², B = 1, against its plain version;
+    (d) card against CPU at 128², B = 2: the eval logits, the class maps
+    where the CPU's margin is above rounding, the score, the first
+    full-width training step and three narrow ones at 64² (the later
+    full-width steps printed); (e) ms per segmentation train step (TF32
+    off and on) and per score call at B = 5, and K2's f32 route on each of
+    the 18 layers of a validation forward (device time, TFLOP/s, share of
+    its bound) beside its plain version and cuDNN f32.
 
 ``--probes-only`` runs phases 1 and 2 for the probes' source and the
 probes of phase 15 alone, and prints their ``{"kernels": [...]}`` entries
@@ -93,9 +110,11 @@ f32 reference is full f32.
 """
 
 import copy
+import glob
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -187,6 +206,23 @@ GAN_NARROW_SIZE = 64
 # every update of the narrow widths at 64² is gated at LOSS_RTOL.
 GAN_GRAD_REL = 1e-3
 GAN_DIR = os.path.join(REPO, 'resources', 'chip_smoke')
+# The segmentation path (configs/3-train-segmentation-unet.json on
+# Synthetic 256²): 5 train steps and 2 validation batches of 8. Each eval
+# forward of its U-Net launches K2's f32 route on 9 chains (5 encoder and 4
+# decoder units) of 2 layers; its train mode launches none.
+SEG_BATCH, SEG_TRAIN, SEG_VAL = 8, 40, 16
+SEG_CHAIN_LAYERS = 18
+SEG_PARITY_SIZE, SEG_PARITY_BATCH, SEG_PARITY_STEPS = 128, 2, 3
+SEG_NARROW_SIZE = 64
+# Card vs CPU class maps: the logits differ by summation order (~1e-6 of
+# max |logit|), so a pixel whose top two logits are closer than that may
+# take either class. Maps are held equal where the CPU's top-two margin is
+# above SEG_MARGIN_REL of max |logit|, a hundred times the rounding.
+SEG_MARGIN_REL = 1e-4
+# Segmentation score card vs CPU: a dice over 256² pixels moves by ~1e-5
+# per flipped pixel of its class; 1e-3 leaves room for the near-tie pixels
+# above and none for a wrong class map.
+SIS_ATOL = 1e-3
 
 
 def fail(msg):
@@ -1381,6 +1417,332 @@ def up_conv_timings(model, line):
               exp_ms, err, ref, line))
 
 
+def seg_cli_phase():
+  """Phase 17 (a): the segmentation CLI on the card at the full widths of
+  configs/3-train-segmentation-unet.json, one epoch of Synthetic 256²
+  (B = 8), counters around it; it keeps the best checkpoint by
+  dice_class_1. Returns (the runner, the config as a dict, the best
+  checkpoint, the K2 launches)."""
+  from csmri_refinement_tpu_torch import train
+  from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
+  from csmri_refinement_tpu_torch.profile_seg import (
+      synthetic_segmentation_conf)
+  from csmri_refinement_tpu_torch.utils import checkpoints
+  conf_d = synthetic_segmentation_conf(SIZE, SEG_TRAIN, SEG_VAL, SEG_BATCH)
+  os.makedirs(GAN_DIR, exist_ok=True)
+  conf_path = os.path.join(GAN_DIR, '3-train-segmentation-synthetic.json')
+  with open(conf_path, 'w') as f:
+    json.dump(conf_d, f)
+  log_dir = os.path.join(GAN_DIR, 'runs')
+  shutil.rmtree(log_dir, ignore_errors=True)
+  sync()
+  dc_kernel.dc_cuda.launches = 0
+  conv_chain.conv_layer_cuda.launches = 0
+  t0 = time.perf_counter()
+  runner = train.main([conf_path, '--log-dir', log_dir])
+  sync()
+  secs = time.perf_counter() - t0
+  k2, k1 = conv_chain.conv_layer_cuda.launches, dc_kernel.dc_cuda.launches
+  steps, val_batches = runner.step, SEG_VAL // SEG_BATCH
+  best = glob.glob(os.path.join(log_dir, '*', 'best_dice_class_1', '*.ckpt'))
+  print('segmentation main path: {} steps + {} validation batches in {:.1f} '
+        's, K2 launches {}, K1 launches {}, best checkpoints {}'.format(
+            steps, val_batches, secs, k2, k1, best))
+  require(steps == SEG_TRAIN // SEG_BATCH, 'expected 5 segmentation steps')
+  require(k2 == SEG_CHAIN_LAYERS * val_batches,
+          'expected 18 K2 launches per validation forward and none in train '
+          'mode')
+  require(k1 == 0, 'the segmentation path launched K1')
+  require(len(best) == 1, 'expected one best checkpoint by dice_class_1')
+  vals = checkpoints.load_checkpoint(best[0])['best_val_metrics']
+  vals = {k: v['value'] for k, v in vals.items()}
+  print('segmentation main path validation: {}'.format(vals))
+  require(all(0 <= vals[k] <= 1 for k in ('dice_class_0', 'dice_class_1'))
+          and math.isfinite(vals['loss_CrossEntropy']),
+          'segmentation validation metrics out of range')
+  return runner, conf_d, best[0], k2
+
+
+def sis_gan_phase(gan_conf_path, gen_state, seg_conf_d, best):
+  """Phase 17 (b): the segmentation score as a validation metric of the GAN
+  runner, its network from (a)'s best checkpoint, the generator phase 16
+  trained; counters around the validation. Returns (the score, the K2
+  launches of its network)."""
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
+  from csmri_refinement_tpu_torch.training import build_runner
+  from csmri_refinement_tpu_torch.utils import checkpoints
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  with open(gan_conf_path) as f:
+    conf_d = json.load(f)
+  conf_d.update(
+      include_labels=True,
+      validation_metrics=['psnr', 'ssim', 'segmentation_score'],
+      segmentation_score_metric={'model': dict(
+          seg_conf_d['model'], pretrained_weights=[best, 'model']),
+                                 'class': 1})
+  conf_path = os.path.join(GAN_DIR, '2-refinement-synthetic-sis.json')
+  with open(conf_path, 'w') as f:
+    json.dump(conf_d, f)
+  conf = Configuration.from_json(conf_path)
+  runner = build_runner(conf, 'adversarial', 'train', DEVICE)
+  runner.gen.load_state_dict(gen_state)
+  loader = DataLoader(load_dataset(conf, 'Synthetic', 'val'), GAN_BATCH)
+  sync()
+  dc_kernel.dc_cuda.launches = 0
+  conv_chain.conv_layer_cuda.launches = 0
+  val_losses, val_metrics = runner.validate(loader)
+  sync()
+  k1, k2 = dc_kernel.dc_cuda.launches, conv_chain.conv_layer_cuda.launches
+  val_batches = GAN_VAL // GAN_BATCH
+  vals = {k: v.value for k, v in list(val_losses.items()) +
+          list(val_metrics.items())}
+  print('GAN validation with the segmentation score: {} batches, K1 '
+        'launches {}, K2 launches {} (10 generator + 18 segmentation per '
+        'batch): {}'.format(val_batches, k1, k2, vals))
+  require(k1 == 3 * val_batches, 'expected 3 K1 launches per generator '
+          'forward')
+  require(k2 == (10 + SEG_CHAIN_LAYERS) * val_batches,
+          'expected 10 + 18 K2 launches per validation batch')
+  sis = vals['gen_segmentation_score']
+  require(0 <= sis <= 1 and all(math.isfinite(v) for v in vals.values()),
+          'GAN validation with the segmentation score out of range')
+  score = runner.val_metric_fns['segmentation_score'].metric_fn
+  want = checkpoints.load_model_state_dict(best, 'model')
+  require(all(torch.equal(v.cpu(), want[k])
+              for k, v in score.model.state_dict().items()),
+          'the segmentation score\'s network differs from its checkpoint')
+  return score, k1, k2
+
+
+def chain_launches(net, x):
+  """The K2 launches of ``net``'s eval-mode forward on ``x``, redone one by
+  one: each chain unit's input is caught on the way (a forward pre-hook),
+  then its layers are launched on it in turn. Returns [(x, layer, pad,
+  y)], in the forward's order."""
+  from csmri_refinement_tpu_torch.models.unet import ConvEncodeUnit
+  from csmri_refinement_tpu_torch.ops import conv_chain
+  from csmri_refinement_tpu_torch.utils.precision import full_f32
+  inputs = []
+  hooks = [m.register_forward_pre_hook(
+      lambda unit, args: inputs.append((unit, args[0])))
+           for m in net.modules() if isinstance(m, ConvEncodeUnit)]
+  try:
+    with torch.no_grad(), full_f32():
+      net(x)
+  finally:
+    for hook in hooks:
+      hook.remove()
+  calls = []
+  with torch.no_grad():
+    for unit, xi in inputs:
+      xi = xi.float().contiguous()
+      for layer in unit.chain_layers():
+        y = conv_chain.conv_layer_cuda(xi, layer, unit.padding)
+        calls.append((xi, layer, unit.padding, y))
+        xi = y
+  sync()
+  return calls
+
+
+def seg_inputs(size, n, fold='val', noise=0.0):
+  """n Synthetic segmentation items of side ``size``: (inp (n, size, size,
+  2) with ``noise`` added, labels (n, size, size)), on the CPU."""
+  from csmri_refinement_tpu_torch.data import load_dataset
+  from csmri_refinement_tpu_torch.profile_seg import (
+      synthetic_segmentation_conf)
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_dict(synthetic_segmentation_conf(size, n, n))
+  data = load_dataset(conf, 'Synthetic', fold)
+  inp = torch.stack([torch.from_numpy(data[i]['inp']) for i in range(n)])
+  if noise:
+    inp = inp + noise * torch.randn(
+        inp.shape, generator=torch.Generator().manual_seed(SEED + 17))
+  label = torch.stack([torch.from_numpy(data[i]['target'])
+                       for i in range(n)])
+  return inp, label
+
+
+def seg_kernel_checks(score):
+  """Phase 17 (c): every K2 launch of one segmentation-score forward (256²,
+  B = 5), of a validation forward (256², B = 8) and of one forward at 128²,
+  B = 1 against ``conv_layer_plain``, to F32_ATOL of max(1, max |ref|).
+  Returns the B = 8 launches."""
+  from csmri_refinement_tpu_torch.ops import conv_chain
+  cases = {}
+  for label, size, b in (('SIS', SIZE, GAN_BATCH), ('validation', SIZE,
+                                                    SEG_BATCH),
+                         ('single image', SIZE // 2, 1)):
+    x = seg_inputs(size, b)[0].to(DEVICE)
+    calls = chain_launches(score.network(x.device), x)
+    require(len(calls) == SEG_CHAIN_LAYERS, 'expected 18 K2 launches per '
+            'segmentation forward, got {}'.format(len(calls)))
+    errs = []
+    for xi, layer, pad, y in calls:
+      want = conv_chain.conv_layer_plain(xi, layer, pad)
+      err = (y - want).abs().max().item()
+      tol = F32_ATOL * max(1.0, want.abs().max().item())
+      require(y.shape == want.shape and err <= tol,
+              'K2 f32 layer {} {} differs from its plain version ({:.3e} > '
+              '{:.3e})'.format(tuple(xi.shape), tuple(layer.kernel.shape),
+                               err, tol))
+      errs.append(err)
+    sides = sorted({c[0].shape[1] for c in calls})
+    print('K2 f32 {} forward {}^2 B{}: {} launches (images {}^2 to {}^2, Cin '
+          '{} to {}), max|kernel-plain| {:.3e} (tol {} of max(1, max|ref|))'
+          .format(label, size, b, len(calls), sides[0], sides[-1],
+                  min(c[1].kernel.shape[2] for c in calls),
+                  max(c[1].kernel.shape[2] for c in calls), max(errs),
+                  F32_ATOL))
+    cases[label] = calls
+  return cases['validation']
+
+
+def seg_runner_pair(conf_d):
+  """A CPU and a card segmentation Runner of ``conf_d``, the card's weights
+  copied from the CPU's."""
+  from csmri_refinement_tpu_torch.training.runner import Runner
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_dict(conf_d)
+  cpu = Runner(conf, 'train', 'cpu')
+  gpu = Runner(conf, 'train', DEVICE)
+  gpu.model.load_state_dict(cpu.model.state_dict())
+  return cpu, gpu
+
+
+def seg_steps(label, cpu, gpu, size, gated):
+  """SEG_PARITY_STEPS updates of both runners on the same Synthetic
+  batches; each loss printed, held within LOSS_RTOL where
+  ``gated(step)``."""
+  inp, target = seg_inputs(size, SEG_PARITY_STEPS * SEG_PARITY_BATCH,
+                           fold='train')
+  for step in range(SEG_PARITY_STEPS):
+    rows = slice(step * SEG_PARITY_BATCH, (step + 1) * SEG_PARITY_BATCH)
+    host = {'inp': inp[rows], 'target': target[rows]}
+    want = cpu.train_batch(cpu.preparer.prepare_train(None, host))[0]
+    got = gpu.train_batch(gpu.preparer.prepare_train(None, host))[0]
+    w, g = want['loss'].item(), got['loss'].item()
+    rel = abs(g - w) / abs(w)
+    print('segmentation parity {} step {}: loss card {:.8e}, CPU {:.8e}, rel '
+          '{:.2e} (tol {})'.format(label, step, g, w, rel,
+                                   LOSS_RTOL if gated(step) else 'none'))
+    require(math.isfinite(g) and (rel <= LOSS_RTOL or not gated(step)),
+            'card and CPU segmentation losses differ')
+
+
+def seg_parity_phase(conf_d, best):
+  """Phase 17 (d): card against CPU at 128², B = 2, TF32 off. The network
+  of (a)'s checkpoint in eval mode: logits within E2E_ATOL of max |ref|,
+  class maps equal where the CPU's top-two margin is above SEG_MARGIN_REL
+  of max |logit|, the segmentation score within SIS_ATOL. Training at full
+  width: the first step's loss within LOSS_RTOL, the later ones printed
+  (after Adam's first step rounding-decided gradient signs part the
+  weights, as in phase 16); at narrow widths at 64² every step's."""
+  from csmri_refinement_tpu_torch.metrics.segmentation_score import (
+      SegmentationScore)
+  from csmri_refinement_tpu_torch.profile_seg import (
+      synthetic_segmentation_conf)
+  size, b = SEG_PARITY_SIZE, SEG_PARITY_BATCH
+  x, label = seg_inputs(size, b, noise=0.05)
+  section = dict(conf_d['model'], pretrained_weights=[best, 'model'])
+  scores = {}
+  logits = {}
+  for dev in ('cpu', DEVICE):
+    score = SegmentationScore(section, None, class_idx=1)
+    net = score.network(torch.device(dev))
+    with torch.no_grad():
+      logits[dev] = net(x.to(dev)).cpu()
+    scores[dev] = score(x.to(dev), label.to(dev))
+  want, got = logits['cpu'], logits[DEVICE]
+  scale = want.abs().max().item()
+  err = (got - want).abs().max().item()
+  top2 = want.topk(2, dim=-1).values
+  sure = (top2[..., 0] - top2[..., 1]) > SEG_MARGIN_REL * scale
+  differ = want.argmax(-1) != got.argmax(-1)
+  print('segmentation eval {}^2 B{} card vs CPU: logits max|diff| {:.3e} of '
+        'max {:.3e} (tol {} of it); class maps differ at {} pixels, {} of '
+        'them with a CPU margin above {} of max (tol 0), {} pixels under it; '
+        'segmentation score card {} CPU {} (tol {})'.format(
+            size, b, err, scale, E2E_ATOL, int(differ.sum()),
+            int((differ & sure).sum()), SEG_MARGIN_REL, int((~sure).sum()),
+            scores[DEVICE], scores['cpu'], SIS_ATOL))
+  require(err <= E2E_ATOL * scale, 'card and CPU segmentation logits differ')
+  require(not bool((differ & sure).any()), 'card and CPU class maps differ')
+  require(all(abs(g - w) <= SIS_ATOL
+              for g, w in zip(scores[DEVICE], scores['cpu'])),
+          'card and CPU segmentation scores differ')
+
+  cpu, gpu = seg_runner_pair(synthetic_segmentation_conf(
+      size, SEG_PARITY_STEPS * b, b, b))
+  seg_steps('{}^2'.format(size), cpu, gpu, size, lambda step: step == 0)
+  cpu, gpu = seg_runner_pair(synthetic_segmentation_conf(
+      SEG_NARROW_SIZE, SEG_PARITY_STEPS * b, b, b, narrow=True))
+  seg_steps('{}^2 narrow'.format(SEG_NARROW_SIZE), cpu, gpu, SEG_NARROW_SIZE,
+            lambda step: True)
+
+
+def seg_timing_phase(runner, score, calls, line):
+  """Phase 17 (e): ms per segmentation train step at 256², B = 8, TF32 off
+  and on (no K2 launch in train mode), ms per segmentation-score call at
+  B = 5, and K2's f32 route on each of the 18 validation-forward layers as
+  device time (``graph_ms``) with TFLOP/s and share of its bound at the f32
+  peak, beside the plain version and cuDNN f32 (TF32 off) on the same
+  layers. Returns the sums (K2, plain, cuDNN, bound ms)."""
+  from csmri_refinement_tpu_torch.ops import conv_chain
+  inp, target = seg_inputs(SIZE, SEG_BATCH, fold='train')
+  batch = runner.preparer.prepare_train(None, {'inp': inp, 'target': target})
+  conv_chain.conv_layer_cuda.launches = 0
+  runner.train_batch(batch)
+  sync()
+  require(conv_chain.conv_layer_cuda.launches == 0,
+          'a segmentation train step launched K2')
+  step_ms = {}
+  for tf32 in (False, True):
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    step_ms[tf32] = time_ms(lambda: runner.train_batch(batch), iters=10,
+                            warmup=2)
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  for tf32, ms in step_ms.items():
+    print('segmentation train step {}^2 f32 B{} TF32 {}: {:.3f} ms, {:.1f} '
+          'slices/s ({})'.format(SIZE, SEG_BATCH, 'on' if tf32 else 'off', ms,
+                                 SEG_BATCH / ms * 1e3, line))
+  pred, label = (t.to(DEVICE) for t in seg_inputs(SIZE, GAN_BATCH,
+                                                  noise=0.05))
+  sis_ms = time_ms(lambda: score(pred, label), iters=10, warmup=2)
+  print('segmentation score call {}^2 B{}: {:.3f} ms, {:.1f} slices/s '
+        '({})'.format(SIZE, GAN_BATCH, sis_ms, GAN_BATCH / sis_ms * 1e3,
+                      line))
+  totals = [0.0] * 4
+  for i, (x, layer, pad, _) in enumerate(calls):
+    b, h, w, cin = x.shape
+    cout = layer.kernel.shape[3]
+    x_cl = x.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    ms = graph_ms(lambda: conv_chain.conv_layer_cuda(x, layer, pad),
+                  calls=3, replays=2)
+    plain_ms = graph_ms(lambda: conv_chain.conv_layer_plain(x, layer, pad),
+                        calls=3, replays=2)
+    lib_ms = graph_ms(lambda: library_chain(x_cl, [layer], pad), calls=3,
+                      replays=2)
+    flops = 2 * b * h * w * 9 * cin * cout
+    bytes_ = 4 * (b * h * w * (cin + cout) + 9 * cin * cout + cout)
+    b_ms, by = bound(flops, bytes_, F32_FLOPS)
+    print('K2 f32 segmentation layer {:2d} B{} {}^2 {}->{} k3: {:.4f} ms, '
+          '{:.1f} TFLOP/s, {:.1%} of its bound {:.4f} ms ({}); plain {:.4f} '
+          'ms, cuDNN f32 {:.4f} ms ({})'.format(
+              i, b, h, cin, cout, ms, flops / ms / 1e9, b_ms / ms, b_ms, by,
+              plain_ms, lib_ms, line))
+    for j, v in enumerate((ms, plain_ms, lib_ms, b_ms)):
+      totals[j] += v
+  print('K2 f32 segmentation layers B{} {}^2 (18): kernel {:.3f} ms, plain '
+        '{:.3f} ms, cuDNN f32 {:.3f} ms, bound {:.3f} ms ({:.1%}) ({})'.format(
+            SEG_BATCH, SIZE, totals[0], totals[1], totals[2], totals[3],
+            totals[3] / totals[0], line))
+  return totals
+
+
 def build_phase(names):
   """Phase 2: build the named kernel sources in parallel; print each
   kernel's ptxas lines, and fail if ptxas drained a wgmma pipeline
@@ -1613,16 +1975,26 @@ def main(argv=None):
           0 < vals['gen_ssim'] <= 1 and vals['gen_psnr'] > 10,
           'GAN validation metrics out of range')
   gan_kernel_checks(gan_runner)
+  gen_state = gan_runner.gen.state_dict()
   del gan_runner
   gan_parity_phase()
   gan_timing_phase(gan_conf_path, frozen, line)
   up_conv_timings(model, line)
 
+  # Phase 17: segmentation training and the segmentation score
+  seg_runner, seg_conf_d, seg_best, seg_k2 = seg_cli_phase()
+  score, sis_k1, sis_k2 = sis_gan_phase(gan_conf_path, gen_state,
+                                        seg_conf_d, seg_best)
+  seg_calls = seg_kernel_checks(score)
+  seg_parity_phase(seg_conf_d, seg_best)
+  seg_timing_phase(seg_runner, score, seg_calls, line)
+
   kernels = [
       {'name': 'dc', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
        'replaces': 'csmri_refinement_tpu/ops/dc_pallas.py:36',
-       'launches': dc_launches + train_fwd + gan_k1, 'max_abs_err': dc_err,
+       'launches': dc_launches + train_fwd + gan_k1 + sis_k1,
+       'max_abs_err': dc_err,
        'ms': dc_ms,
        'plain_ms': dc_plain_ms, 'bound_ms': dc_bound,
        'bound_by': dc_by,
@@ -1630,7 +2002,8 @@ def main(argv=None):
       {'name': 'conv_chain', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/conv_chain.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
-       'launches': conv_launches + gan_k2, 'max_abs_err': conv_err,
+       'launches': conv_launches + gan_k2 + seg_k2 + sis_k2,
+       'max_abs_err': conv_err,
        'ms': conv_ms,
        'plain_ms': conv_plain_ms, 'bound_ms': conv_bound,
        'bound_by': conv_by,

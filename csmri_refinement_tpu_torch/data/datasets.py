@@ -1,34 +1,59 @@
 """Datasets: ``SliceDataset`` and the ``Synthetic`` phantom builder.
 
 Port of ``csmri_refinement_tpu/data/datasets.py`` (``SliceDataset``
-``:56-135``, ``_make_phantoms``/``_build_synthetic`` ``:206-259``) for
-reconstruction: items are ``{'gt': (H, W) float32 in (0, 1), 'index':
-int32}``. The phantoms are numpy, drawn from the same ``RandomState`` seeds,
-so they equal the JAX package's bit for bit. ScarSeg (needs the LGE data),
-segmentation mode, labels, augmentation and the native batch path are not
-ported yet (ROADMAP Queue 1 items 7 and 8).
+``:56-135``, ``_make_phantoms``/``_build_synthetic`` ``:206-259``). Items:
+
+* reconstruction mode: ``{'gt': (H, W) float32 in (0, 1), 'index':
+  int32}``, plus the un-augmented, downscaled ``'label'`` (H, W) int64 with
+  ``include_labels`` (for the segmentation score);
+* segmentation mode: ``{'inp': (H, W, 2) float32 ground truth as complex,
+  'target': (H, W) int64, 'index': int32}``.
+
+The phantoms and their labels are numpy, drawn from the same
+``RandomState`` seeds, so they equal the JAX package's bit for bit. ScarSeg
+(needs the LGE data), augmentation and the native batch path are not
+ported yet (ROADMAP Queue 1).
 """
 
 import logging
 
 import numpy as np
 
-from csmri_refinement_tpu_torch.data.transforms import RecHostTransform
+from csmri_refinement_tpu_torch.data.transforms import (RecHostTransform,
+                                                        RecSegHostTransform)
 
 
 class SliceDataset:
-  """2D slices with the host-side reconstruction transform."""
+  """2D slices with the host-side reconstruction or segmentation
+  transform."""
 
-  def __init__(self, images, image_size, downscale=1):
+  def __init__(self, images, labels, image_size, mode='reconstruction',
+               downscale=1, include_labels=False):
+    if mode not in ('reconstruction', 'segmentation'):
+      raise ValueError('Unknown dataset mode {!r}'.format(mode))
     self.images = images
-    self.transform = RecHostTransform(image_size, downscale)
+    self.labels = labels
+    self.mode = mode
+    self.downscale = downscale
+    self.include_labels = include_labels and labels is not None
+    self.transform = RecHostTransform(image_size, downscale) \
+        if mode == 'reconstruction' else \
+        RecSegHostTransform(image_size, downscale)
 
   def __len__(self):
     return len(self.images)
 
   def __getitem__(self, index):
-    return {'gt': self.transform(self.images[index]),
-            'index': np.int32(index)}
+    image = self.images[index]
+    if self.mode == 'reconstruction':
+      item = {'gt': self.transform(image), 'index': np.int32(index)}
+      if self.include_labels:
+        label = self.labels[index][::self.downscale, ::self.downscale]
+        item['label'] = np.round(label).astype(np.int64)
+      return item
+    gt, label = self.transform(image, self.labels[index])
+    return {'inp': np.stack([gt, np.zeros_like(gt)], axis=-1),
+            'target': label, 'index': np.int32(index)}
 
 
 def _make_phantoms(num_images, size, seed, num_ellipses=6):
@@ -60,21 +85,21 @@ def _make_phantoms(num_images, size, seed, num_ellipses=6):
 
 
 def _build_synthetic(conf, fold):
-  for key in ('augmentation', 'include_labels', 'native_pipeline'):
+  for key in ('augmentation', 'native_pipeline'):
     if conf.get_attr(key):
       raise NotImplementedError('{} is not ported yet'.format(key))
-  if conf.get_attr('dataset_mode', default='reconstruction') != \
-      'reconstruction':
-    raise NotImplementedError('only reconstruction datasets are ported')
   synth = conf.get_attr('synthetic', default={})
   size = synth.get('image_size', 256)
   sizes = {'train': synth.get('num_train', 64),
            'val': synth.get('num_val', 16),
            'test': synth.get('num_test', 16)}
   fold_seed = {'train': 0, 'val': 1, 'test': 2}[fold] + 100 * conf.seed
-  images, _ = _make_phantoms(sizes[fold], size, fold_seed)
-  return SliceDataset(images, size,
-                      downscale=conf.get_attr('downscale', default=1))
+  images, labels = _make_phantoms(sizes[fold], size, fold_seed)
+  return SliceDataset(
+      images, labels, size,
+      mode=conf.get_attr('dataset_mode', default='reconstruction'),
+      downscale=conf.get_attr('downscale', default=1),
+      include_labels=conf.get_attr('include_labels', default=False))
 
 
 _DATASET_BUILDERS = {

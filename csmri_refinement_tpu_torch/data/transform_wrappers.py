@@ -5,10 +5,9 @@ transform maps (prediction, target) to the space metrics are computed in.
 
 * reconstruction: packed complex (..., 2) → magnitude (..., 1), clamped to
   (0, 1);
+* segmentation: NHWC logits → softmax → argmax class map with a trailing
+  channel dim; a (B, H, W) target gains the same dim;
 * none: no transform.
-
-The segmentation transform waits for the segmentation slice (ROADMAP
-Queue 1 item 7).
 """
 
 import torch
@@ -23,10 +22,18 @@ def rec_output_transform(pred, target):
   return _mag_clamp(pred.float()), _mag_clamp(target.float())
 
 
+def seg_output_transform(pred, target):
+  classes = torch.argmax(torch.softmax(pred.float(), dim=-1), dim=-1)
+  if target.dim() == 3:
+    target = target[..., None]
+  return classes[..., None], target
+
+
 def get_output_transform(application):
   if application == 'reconstruction':
     return rec_output_transform
+  if application == 'segmentation':
+    return seg_output_transform
   if application == 'none':
     return None
-  raise NotImplementedError(
-      'output transform for {!r} is not ported yet'.format(application))
+  raise ValueError('Unknown application {!r}'.format(application))

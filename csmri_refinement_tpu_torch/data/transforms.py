@@ -1,10 +1,12 @@
-"""Host-side per-item transform feeding the device pipeline.
+"""Host-side per-item transforms feeding the device pipeline.
 
-Port of ``RecHostTransform`` and ``center_crop_in_kspace_np``
-(``csmri_refinement_tpu/data/transforms.py:21-92``) without augmentation:
-the host emits clean ground-truth slices in (0, 1); undersampling runs on
-the device in the train/val step (``training/prep.py``). Augmentation waits
-for the data-pipeline slice (ROADMAP Queue 1 item 8).
+Port of ``RecHostTransform``, ``RecSegHostTransform`` and
+``center_crop_in_kspace_np`` (``csmri_refinement_tpu/data/transforms.py``)
+without augmentation: the host emits clean ground-truth slices in (0, 1)
+(and, for segmentation, their label maps); undersampling runs on the device
+in the train/val step (``training/prep.py``). Augmentation and the
+segmentation input options ``normalize``/``scale_by_max``, which no dataset
+of the JAX package sets, wait for the data-pipeline slice (ROADMAP Queue 1).
 """
 
 import numpy as np
@@ -48,3 +50,21 @@ class RecHostTransform:
     if peak > 0:
       img2d = img2d / peak
     return img2d.astype(np.float32)
+
+
+class RecSegHostTransform:
+  """Joint image + label prep for segmentation: the image as
+  ``RecHostTransform`` makes it, the label subsampled by ``downscale`` and
+  rounded to int64."""
+
+  def __init__(self, image_size, downscale=1):
+    self.image = RecHostTransform(image_size, downscale)
+    self.downscale = downscale
+
+  def __call__(self, image, label):
+    """image, label: (H, W) or (H, W, 1) → ((size, size) float32,
+    (H / downscale, W / downscale) int64)."""
+    if label.ndim == 3:
+      label = label[..., 0]
+    label = label.astype(np.float32)[::self.downscale, ::self.downscale]
+    return self.image(image), np.round(label).astype(np.int64)

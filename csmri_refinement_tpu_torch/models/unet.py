@@ -12,19 +12,34 @@ Port of ``csmri_refinement_tpu/models/unet.py``:
   the flag is ignored (``unet.py:324``). BN in train mode updates its
   running variance with the biased batch variance, as flax's ``BatchNorm``
   does (``BatchNorm2d`` below; ``nn.BatchNorm2d`` takes the unbiased one).
-* ``ConvDecodeUnit`` (``:365-471``) in the ``nn-resize-conv`` and ``nn``
-  modes, with ``act_upsampling_only``. The up-conv is nearest-up2 → SAME pad
-  of the upsampled image → conv; for k = 4 it runs as
-  ``SubpixelNNResizeConv`` (``:87-169``, chosen at ``:416-421``), in train
-  and eval mode: one 3×3 conv to 4·Cout phase channels on the
-  low-resolution image, then depth-to-space, without the upsampled
-  intermediate. Other k keep the explicit path (``:422-430``).
+* ``ConvDecodeUnit`` (``:365-471``) with ``act_upsampling_only`` and the
+  up-sampling modes
+  - ``transposed`` (the ``UNET`` default, ``:393-406``): a k×k stride-2
+    VALID transposed conv, cropped by k − 2 at the bottom/right. Its
+    ``up_conv`` is an ``nn.ConvTranspose2d``; flax's ``ConvTranspose``
+    applies its kernel unflipped, so the weight bridge flips it
+    (``utils/jax_weights.py``);
+  - ``pixelshuffle`` (``:409-415``): a SAME k×k conv to 4·Cout channels at
+    the low resolution, then depth-to-space in torch ``PixelShuffle``'s
+    channel order;
+  - ``nn`` and ``nn-resize-conv``: nearest-up2, then (``nn-resize-conv``)
+    a SAME pad of the upsampled image and a conv; for k = 4 that runs as
+    ``SubpixelNNResizeConv`` (``:87-169``, chosen at ``:416-421``), in
+    train and eval mode: one 3×3 conv to 4·Cout phase channels on the
+    low-resolution image, then depth-to-space, without the upsampled
+    intermediate. Other k keep the explicit path (``:422-430``).
+  Without ``act_upsampling_only`` BN and LeakyReLU act on the
+  skip-concatenated tensor (``merge_bn``) before the decode chain, and do
+  not fold into it.
 * ``UNET`` (``:474-594``): encoders, skip concat with pad-to-target,
   decoders, 1×1 head, output activation.
 
-The other upsampling modes are not ported yet. Submodule names follow the
-flax tree (``encode_{s}.conv_{i}``, ``bn_{i}``, ``decode_{s}.up_conv``,
-``decode_{s}.decode.conv_{i}``, ``head``) so the weight bridge is a 1:1 walk.
+The modes ``bilinear`` and ``nn-biresize-conv`` and the options
+``use_refinement``, ``encoder_features`` and ``remat`` are not ported yet
+and raise. Submodule names follow the flax tree (``encode_{s}.conv_{i}``,
+``bn_{i}``, ``decode_{s}.up_conv``, ``decode_{s}.merge_bn``,
+``decode_{s}.decode.conv_{i}``, ``head``) so the weight bridge is a 1:1
+walk.
 """
 
 import torch
@@ -38,7 +53,8 @@ from csmri_refinement_tpu_torch.ops import conv_chain
 from csmri_refinement_tpu_torch.ops import quantize
 
 DEFAULT_RELU_LEAKINESS = 0.1
-PORTED_UPSAMPLING_MODES = ('nn', 'nn-resize-conv')
+PORTED_UPSAMPLING_MODES = ('transposed', 'pixelshuffle', 'nn',
+                           'nn-resize-conv')
 
 
 def _nchw(x):
@@ -228,8 +244,8 @@ class ConvDecodeUnit(nn.Module):
 
   def __init__(self, in_channels, encoder_channels, num_filters,
                relu_leakiness, use_bn, use_act=True, kernel_size=3,
-               num_layers=0, mode='nn-resize-conv', padding='zero',
-               act_upsampling_only=False, dtype=None,
+               transposed_kernel_size=2, num_layers=0, mode='transposed',
+               padding='zero', act_upsampling_only=False, dtype=None,
                quantize_inference=False):
     super().__init__()
     if mode not in PORTED_UPSAMPLING_MODES:
@@ -242,14 +258,23 @@ class ConvDecodeUnit(nn.Module):
     self.dtype = dtype
     self.num_layers = num_layers
     self.subpixel = mode == 'nn-resize-conv' and kernel_size == 4
-    up_channels = in_channels
-    if mode == 'nn-resize-conv':
-      use_bias = not use_bn or encoder_channels == 0
-      self.up_conv = SubpixelNNResizeConv(
-          in_channels, num_filters, use_bias, padding) if self.subpixel \
-          else nn.Conv2d(in_channels, num_filters, kernel_size,
-                         bias=use_bias)
-      up_channels = num_filters
+    up_channels = num_filters
+    use_bias = not use_bn or encoder_channels == 0
+    if mode == 'transposed':
+      self.up_conv = nn.ConvTranspose2d(in_channels, num_filters,
+                                        transposed_kernel_size, stride=2,
+                                        bias=use_bias)
+    elif mode == 'pixelshuffle':
+      self.up_conv = nn.Conv2d(in_channels, 4 * num_filters, kernel_size,
+                               bias=use_bias)
+    elif self.subpixel:
+      self.up_conv = SubpixelNNResizeConv(in_channels, num_filters, use_bias,
+                                          padding)
+    elif mode == 'nn-resize-conv':
+      self.up_conv = nn.Conv2d(in_channels, num_filters, kernel_size,
+                               bias=use_bias)
+    else:
+      up_channels = in_channels
     if use_bn and act_upsampling_only:
       self.up_bn = BatchNorm2d(up_channels, eps=1e-5, momentum=0.1)
     merged = encoder_channels + up_channels
@@ -266,13 +291,22 @@ class ConvDecodeUnit(nn.Module):
   def forward(self, decode_path, encode_path=None):
     dt = self.dtype or decode_path.dtype
     x = _nchw(decode_path.to(dt))
+    conv = getattr(self, 'up_conv', None)
+    bias = None if conv is None or conv.bias is None else conv.bias.to(dt)
     if self.subpixel:
       x = self.up_conv(x)
+    elif self.mode == 'transposed':
+      x = F.conv_transpose2d(x, conv.weight.to(dt), bias, stride=2)
+      extra = conv.kernel_size[0] - 2        # VALID gives 2H + k − 2
+      if extra > 0:
+        x = x[:, :, :x.shape[2] - extra, :x.shape[3] - extra]
+      x = _nhwc(x)
+    elif self.mode == 'pixelshuffle':
+      x = _nhwc(F.pixel_shuffle(
+          same_conv(x, conv.weight.to(dt), bias, self.padding), 2))
     else:
       x = F.interpolate(x, scale_factor=2, mode='nearest')
       if self.mode == 'nn-resize-conv':
-        conv = self.up_conv
-        bias = None if conv.bias is None else conv.bias.to(dt)
         x = same_conv(x, conv.weight.to(dt), bias, self.padding)
       x = _nhwc(x)
     if self.act_upsampling_only:
@@ -296,14 +330,21 @@ class UNET(nn.Module):
 
   def __init__(self, num_inputs, num_outputs, num_layers_per_scale,
                encode_filters, decode_filters, output_activation,
-               kernel_size=3, relu_leakiness=DEFAULT_RELU_LEAKINESS,
-               use_bn=True, upsampling_mode='transposed', padding='zero',
+               kernel_size=3, transposed_kernel_size=2,
+               relu_leakiness=DEFAULT_RELU_LEAKINESS, use_bn=True,
+               upsampling_mode='transposed', padding='zero',
                decoder_act_upsampling_only=False, fused_inference=False,
-               quantize_inference=False, weight_init=None, dtype=None):
+               quantize_inference=False, weight_init=None, dtype=None,
+               use_refinement=False, encoder_features=None, remat=False):
     super().__init__()
     if output_activation not in ('softmax', 'tanh', 'none'):
       raise ValueError('Unknown output activation {}'.format(
           output_activation))
+    for name, value in (('use_refinement', use_refinement),
+                        ('encoder_features', encoder_features),
+                        ('remat', remat)):
+      if value:
+        raise NotImplementedError('UNET {} is not ported yet'.format(name))
     if isinstance(relu_leakiness, (int, float)):
       relu_leakiness = (relu_leakiness, relu_leakiness)
     self.output_activation = output_activation
@@ -326,6 +367,7 @@ class UNET(nn.Module):
       unit = ConvDecodeUnit(
           cin, encode_filters[-(scale + 2)] if skip else 0, f,
           relu_leakiness[1], use_bn, kernel_size=kernel_size,
+          transposed_kernel_size=transposed_kernel_size,
           num_layers=num_layers_per_scale, mode=upsampling_mode,
           padding=padding, act_upsampling_only=decoder_act_upsampling_only,
           dtype=dtype, quantize_inference=quantize_inference)
@@ -342,13 +384,22 @@ class UNET(nn.Module):
     return [getattr(self, n) for n in names]
 
   def init_weights(self, generator):
-    """Seeded init: he_normal(0.1) convs and BN weight U(0.98, 1.02) unless
-    the config overrides them."""
+    """Seeded init: he_normal(0.1) convs and transposed convs and BN weight
+    U(0.98, 1.02) unless the config overrides them. A transposed conv's
+    weight (Cin, Cout, k, k) is drawn in the flax kernel's law, fan_in
+    Cin·k·k, through its (Cout, Cin, k, k) view; its bias takes the conv
+    bias init, as in JAX."""
     inits = weight_inits.resolve_inits(
         {'conv_weight': ('he_normal', DEFAULT_RELU_LEAKINESS),
+         'conv_transposed_weight': ('he_normal', DEFAULT_RELU_LEAKINESS),
          'batchnorm_weight': ('uniform', 0.98, 1.02)}, self.weight_init)
     for module in self.modules():
-      if isinstance(module, nn.Conv2d):
+      if isinstance(module, nn.ConvTranspose2d):
+        weight_inits.init_(module.weight.data.transpose(0, 1),
+                           inits['conv_transposed_weight'], generator)
+        if module.bias is not None:
+          weight_inits.init_(module.bias, inits['conv_bias'], generator)
+      elif isinstance(module, nn.Conv2d):
         weight_inits.init_(module.weight, inits['conv_weight'], generator)
         if module.bias is not None:
           weight_inits.init_(module.bias, inits['conv_bias'], generator)

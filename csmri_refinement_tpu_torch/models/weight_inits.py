@@ -21,6 +21,8 @@ import torch
 DEFAULT_INITS = {
     'conv_weight': ('he_normal', 0.0),
     'conv_bias': ('constant', 0.0),
+    'conv_transposed_weight': ('he_normal', 0.0),
+    'conv_transposed_bias': ('constant', 0.0),
     'batchnorm_weight': ('constant', 1.0),
     'batchnorm_bias': ('constant', 0.0),
     'linear_weight': ('xavier_normal', 'linear'),

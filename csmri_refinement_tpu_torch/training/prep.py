@@ -1,9 +1,14 @@
 """On-device batch preparation: the k-space forward model inside the step.
 
-Port of ``RecBatchPreparer`` (``csmri_refinement_tpu/training/prep.py``)
-for the ``varden`` and ``cartesian`` schemes, through the port's
-``undersample_batch``. The host hands over clean ground-truth slices
-``{'gt', 'index'}``; masks, undersampling and noise run on the device.
+Port of ``RecBatchPreparer`` and ``SegBatchPreparer``
+(``csmri_refinement_tpu/training/prep.py``). For reconstruction, the
+``varden`` and ``cartesian`` schemes, through the port's
+``undersample_batch``: the host hands over clean ground-truth slices
+``{'gt', 'index'}`` (and ``'label'`` with ``include_labels``); masks,
+undersampling and noise run on the device, and ``label`` and ``index``
+ride along untouched (the segmentation score reads ``label``). For
+segmentation the host has built ``inp`` and ``target`` already; they are
+moved to the device.
 
 * train: masks (and noise) from the ``torch.Generator`` the caller passes,
   a new one every step;
@@ -43,11 +48,17 @@ class RecBatchPreparer:
     return torch.as_tensor(host_batch['gt'], dtype=torch.float32).to(
         self.device)
 
+  def _passthrough(self, batch, host_batch):
+    for key in ('label', 'index'):
+      if key in host_batch:
+        batch[key] = torch.as_tensor(host_batch[key]).to(self.device)
+    return batch
+
   def prepare_train(self, generator, host_batch):
-    return us_ops.undersample_batch(
+    return self._passthrough(us_ops.undersample_batch(
         generator, self._gt(host_batch), sampling_scheme=self.scheme,
         acceleration_factor=self.acc, variable_acceleration=self.variable,
-        noise=self.noise)
+        noise=self.noise), host_batch)
 
   def _val_mask(self, index, height, width):
     if index not in self._val_masks:
@@ -64,12 +75,30 @@ class RecBatchPreparer:
     mask = torch.stack([self._val_mask(int(i), height, width)
                         for i in host_batch['index']])
     gen = torch.Generator(device=self.device).manual_seed(VAL_MASK_SEED)
-    return us_ops.undersample_batch(gen, gt, noise=self.noise,
-                                    fixed_mask=mask)
+    return self._passthrough(us_ops.undersample_batch(
+        gen, gt, noise=self.noise, fixed_mask=mask), host_batch)
+
+
+class SegBatchPreparer:
+  """{inp, target} batches on ``device``, as the host built them."""
+
+  def __init__(self, device):
+    self.device = torch.device(device)
+
+  def prepare_train(self, generator, host_batch):
+    return {'inp': torch.as_tensor(host_batch['inp'],
+                                   dtype=torch.float32).to(self.device),
+            'target': torch.as_tensor(host_batch['target']).to(self.device)}
+
+  def prepare_val(self, host_batch):
+    return self.prepare_train(None, host_batch)
 
 
 def get_batch_preparer(conf, device):
   application = conf.get_attr('application', default='reconstruction')
+  if conf.get_attr('dataset_mode') == 'segmentation' or \
+      application == 'segmentation':
+    return SegBatchPreparer(device)
   if application in ('reconstruction', 'none'):
     return RecBatchPreparer(conf, device)
   raise NotImplementedError(

@@ -7,6 +7,11 @@ np.asarray, variables)``). The port's submodules carry the flax names
 ``head``, ``pretrained_model``, ``scale``, ...), so loading is a 1:1 walk:
 
 * a conv's ``kernel`` (HWIO) becomes ``weight`` (OIHW), ``bias`` stays;
+* a ``ConvTranspose`` ``kernel`` (k, k, Cin, Cout) becomes an
+  ``nn.ConvTranspose2d`` ``weight`` (Cin, Cout, k, k) flipped in both
+  spatial axes: flax applies the kernel unflipped
+  (``transpose_kernel=False``), torch's ``conv_transpose2d`` is the adjoint
+  of a correlation, which flips it;
 * a ``Dense`` ``kernel`` (in, out) becomes an ``nn.Linear`` ``weight``
   (out, in);
 * a BatchNorm's ``scale``/``bias`` become ``weight``/``bias``, its
@@ -52,6 +57,12 @@ def _load(module, params, stats, path, used):
   if isinstance(module, nn.Conv2d):
     _copy(module.weight, np.transpose(take(params, 'kernel', 'params'),
                                       (3, 2, 0, 1)), path)
+    if module.bias is not None:
+      _copy(module.bias, take(params, 'bias', 'params'), path)
+    return
+  if isinstance(module, nn.ConvTranspose2d):
+    kernel = np.flip(take(params, 'kernel', 'params'), (0, 1))
+    _copy(module.weight, np.transpose(kernel, (2, 3, 0, 1)), path)
     if module.bias is not None:
       _copy(module.bias, take(params, 'bias', 'params'), path)
     return

@@ -678,3 +678,75 @@ def test_gan_steps_on_card_match_cpu(cuda):
   assert dc_kernel.dc_bwd_cuda.launches == 0
   for name, value in gpu.gen.pretrained_model.state_dict().items():
     assert torch.equal(value.cpu(), frozen[name]), name
+
+
+@pytest.mark.parametrize('b', [1, 8])
+@pytest.mark.parametrize('side', [8, 16, 32])
+@pytest.mark.parametrize('pad', ['reflection', 'zero'])
+@pytest.mark.parametrize('cin,cout', [(256, 256), (256, 512), (512, 256),
+                                      (512, 512)])
+def test_conv_layer_f32_segmentation_widths(cuda, cin, cout, pad, side, b):
+  """K2's f32 route at the segmentation U-Net's deep widths: one 16×16
+  tile per image at 16², a partial tile (and an 8-pixel reflection) at 8²,
+  a single image."""
+  _conv_case(cuda, 3, cin, cout, pad, torch.float32, (b, side, side))
+
+
+def _segmentation_unet(mode):
+  import json
+  import os
+  from csmri_refinement_tpu_torch.models import construct_model
+  repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+  with open(os.path.join(repo, 'configs',
+                         '3-train-segmentation-unet.json')) as f:
+    section = json.load(f)['model']
+  model = construct_model(dict(section, upsampling_mode=mode))
+  model.init_weights(torch.Generator().manual_seed(0))
+  return model, section
+
+
+@pytest.mark.parametrize('mode', ['pixelshuffle', 'transposed'])
+def test_segmentation_unet_eval_on_card_matches_cpu(cuda, mode):
+  """The full-width segmentation U-Net (configs/3-train-segmentation-
+  unet.json) in eval mode at 64², B = 2: its 18 chain layers launch K2's f32
+  route, and the logits agree with the CPU's within 5e-4 of max |ref|."""
+  model, _ = _segmentation_unet(mode)
+  model.eval()
+  x = torch.rand(2, 64, 64, 2, generator=torch.Generator().manual_seed(1))
+  with torch.no_grad():
+    want = model(x)
+    before = cc.conv_layer_cuda.launches
+    got = model.to(cuda)(x.to(cuda)).cpu()
+  torch.cuda.synchronize()
+  assert cc.conv_layer_cuda.launches - before == 18
+  assert got.shape == want.shape == (2, 64, 64, 2)
+  assert (got - want).abs().max().item() <= 5e-4 * want.abs().max().item()
+
+
+def test_segmentation_score_on_card_matches_cpu(cuda, tmp_path):
+  """The segmentation score of the full-width network from a port
+  checkpoint, on the card and on the CPU, on phantoms with a little noise:
+  the same per-example scores within 1e-3."""
+  from csmri_refinement_tpu_torch.metrics.segmentation_score import (
+      SegmentationScore)
+  from csmri_refinement_tpu_torch.profile_seg import (
+      synthetic_segmentation_conf)
+  from csmri_refinement_tpu_torch.data import load_dataset
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  model, section = _segmentation_unet('pixelshuffle')
+  path = str(tmp_path / 'seg.ckpt')
+  torch.save({'runner': {'model': model.state_dict()}}, path)
+  conf = Configuration.from_dict(synthetic_segmentation_conf(64, 2, 3))
+  data = load_dataset(conf, 'Synthetic', 'val')
+  gen = torch.Generator().manual_seed(2)
+  pred = torch.stack([torch.from_numpy(data[i]['inp']) for i in range(3)])
+  pred = pred + 0.05 * torch.randn(pred.shape, generator=gen)
+  label = torch.stack([torch.from_numpy(data[i]['target']) for i in range(3)])
+  scores = []
+  for device in ('cpu', cuda):
+    score = SegmentationScore(dict(section, pretrained_weights=[path,
+                                                                'model']),
+                              None, class_idx=[0, 1])
+    scores.append(score(pred.to(device), label.to(device)))
+  for want, got in zip(*scores):
+    assert abs(got - want) <= 1e-3
