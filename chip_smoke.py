@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch + CUDA port (``csmri_refinement_tpu_torch``).
 
-    python3 chip_smoke.py [--probes-only | --int8-only [--tree DIR]]
+    python3 chip_smoke.py [--probes-only | --int8-only [--tree DIR] |
+                           --f32-only [--tree DIR]]
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit. Phases, each failing loudly with a non-zero exit:
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the four hand-written kernel sources of ``csrc/`` (nvcc, in
-   parallel), printing ``ptxas``'s register and spill lines; the probes'
-   must show no C7517 (a drained ``wgmma`` pipeline);
+2. build the five hand-written kernel sources of ``csrc/`` (nvcc, in
+   parallel), printing ``ptxas``'s register and spill lines; the probes',
+   K3's and K2's f32 route's must show no C7517 (a drained ``wgmma``
+   pipeline);
 3. DC kernel vs its plain version (cuFFT) at 256², B=32 and 512², B=8, f32,
    and the sampled k-space lines of its output vs k0;
 4. conv-chain kernel vs its plain version on the five flagship U-Net chains
@@ -70,14 +72,17 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     batches), the VGG19 from its seeded init, the frozen RecNet grafted
     from a checkpoint of phase 9's runner, with the counters set to 0 just
     before and read just after: 3 K1 per generator forward, 0 K1-bwd, 10
-    K2 per validation forward, the RecNet equal to its checkpoint; K1 and
-    K2 (f32) at the path's B = 5 shapes against their plain versions; GAN
+    K2 per validation forward, all on the f32 routes (``csrc/conv_f32.cu``),
+    the RecNet equal to its checkpoint; K1 and K2 (f32) at the path's
+    B = 5 shapes against their plain versions; GAN
     updates on the card and on the CPU at 128² (the discriminator's
     gradients on the same inputs within 1e-3 of each tensor's max, the
     first update's losses and the second's gen_loss within 1e-3, the
     third's printed) and at narrow widths at 64² (every loss of three
-    updates within 1e-3); ms per GAN step at 256², B = 5, TF32 off and on; the flagship decoders'
-    subpixel up-convs beside the explicit path they replace (device time);
+    updates within 1e-3); ms per GAN step at 256², B = 5, TF32 off and on;
+    the validation forward's 10 f32 layers timed as in 17 (e); the
+    flagship decoders' subpixel up-convs beside the explicit path they
+    replace (device time);
 17. the fifth main path, segmentation training, and the segmentation score
     (SIS): (a) the trainer's CLI on ``configs/3-train-segmentation-unet.json``
     at its full widths on Synthetic 256² phantoms (40 train, 16 validation,
@@ -93,9 +98,16 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     full-width training step and three narrow ones at 64² (the later
     full-width steps printed); (e) ms per segmentation train step (TF32
     off and on) and per score call at B = 5, and K2's f32 route on each of
-    the 18 layers of a validation forward (device time, TFLOP/s, share of
-    its bound) beside its plain version and cuDNN f32.
+    the 18 layers of a validation forward: route, device time, TFLOP/s,
+    share of the route's bound (3 TF32 products per MAC at 495 TFLOP/s;
+    the direct stem's bytes) and of the f32-FMA bound, beside its plain
+    version and the faster cuDNN f32 call (plain or channels-last) under
+    cuDNN's heuristic and under ``cudnn.benchmark``, and the sums.
 
+``--f32-only`` runs phases 1 and 2 for the conv sources and times K2's f32
+route on the 18 segmentation layer shapes (seeded weights) after holding
+each to its plain version (no result line); with ``--tree DIR`` an earlier
+tree times its own f32 route on the same layers in the same call.
 ``--probes-only`` runs phases 1 and 2 for the probes' source and the
 probes of phase 15 alone, and prints their ``{"kernels": [...]}`` entries
 (no result line). ``--int8-only`` runs phases 1 and 2 for the conv
@@ -133,6 +145,7 @@ BATCH = 32         # slices per forward on the main path
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 INT8_OPS = 1979e12
 
 # bf16 chain tolerance, relative to max |ref|: kernel and plain version
@@ -468,6 +481,83 @@ def k2_layer_table(cases, line):
       total += ms
       x = conv_chain.conv_layer_cuda(x, layer, pad)
   print('K2 layers one by one: {:.3f} ms ({})'.format(total, line))
+
+
+def f32_layer_cost(x, layer):
+  """(flops, bytes, the route's bound (ms, by), the FMA bound (ms, by)) of
+  one f32 layer: its input, weights, bias and output each moved once; the
+  3xTF32 route does 3 TF32 products per MAC at the TF32 peak, the direct
+  route and the FMA kernel one f32 FMA per MAC at the f32 peak."""
+  from csmri_refinement_tpu_torch.ops import conv_chain
+  b, h, w, cin = x.shape
+  k, _, _, cout = layer.kernel.shape
+  flops = 2 * b * h * w * k * k * cin * cout
+  bytes_ = 4 * (b * h * w * (cin + cout) + k * k * cin * cout + cout)
+  route = conv_chain.conv_route(cin, cout, torch.float32)
+  own = bound(flops, bytes_, F32_FLOPS) if route == 'direct' else \
+      bound(3 * flops, bytes_, TF32_FLOPS)
+  return flops, bytes_, own, bound(flops, bytes_, F32_FLOPS)
+
+
+def cudnn_f32_ms(x, layer, pad):
+  """The faster of the two cuDNN f32 calls on one layer (TF32 off): the
+  plain version's F.pad + F.conv2d and ``library_chain`` channels-last;
+  device time. Returns (plain ms, faster ms)."""
+  from csmri_refinement_tpu_torch.ops import conv_chain
+  x_cl = x.permute(0, 3, 1, 2).contiguous(
+      memory_format=torch.channels_last).permute(0, 2, 3, 1)
+  plain_ms = graph_ms(lambda: conv_chain.conv_layer_plain(x, layer, pad),
+                      calls=3, replays=2)
+  lib_ms = graph_ms(lambda: library_chain(x_cl, [layer], pad), calls=3,
+                    replays=2)
+  return plain_ms, min(plain_ms, lib_ms)
+
+
+def f32_layer_table(label, calls, line):
+  """K2's f32 route on each layer of ``calls`` ([(x, layer, pad, ...)]) as
+  device time (``graph_ms``): route, ms, TFLOP/s, the share of the route's
+  bound and of the f32-FMA bound; beside the plain version and the faster
+  cuDNN f32 call under cuDNN's heuristic and under ``cudnn.benchmark``
+  (the flag restored after). Returns the sums {'ms', 'plain_ms',
+  'cudnn_ms', 'cudnn_bench_ms', 'cudnn_best_ms' (the faster of the two
+  modes per layer), 'bound_ms', 'fma_bound_ms'}."""
+  from csmri_refinement_tpu_torch.ops import conv_chain
+  sums = dict.fromkeys(('ms', 'plain_ms', 'cudnn_ms', 'cudnn_bench_ms',
+                        'cudnn_best_ms', 'bound_ms', 'fma_bound_ms'), 0.0)
+  flag = torch.backends.cudnn.benchmark
+  for i, (x, layer, pad) in enumerate(c[:3] for c in calls):
+    b, h, w, cin = x.shape
+    k, _, _, cout = layer.kernel.shape
+    flops, _, (b_ms, by), (f_ms, f_by) = f32_layer_cost(x, layer)
+    ms = graph_ms(lambda: conv_chain.conv_layer_cuda(x, layer, pad),
+                  calls=3, replays=2)
+    plain_ms, lib_ms = cudnn_f32_ms(x, layer, pad)
+    torch.backends.cudnn.benchmark = True
+    try:
+      _, bench_ms = cudnn_f32_ms(x, layer, pad)
+    finally:
+      torch.backends.cudnn.benchmark = flag
+    route = conv_chain.conv_route(cin, cout, x.dtype)
+    print('K2 f32 {} layer {:2d} B{} {}x{} {}->{} k{}: route {}, {:.4f} ms, '
+          '{:.1f} TFLOP/s, {:.1%} of its bound {:.4f} ms ({}), {:.1%} of the '
+          'FMA bound {:.4f} ms ({}); plain {:.4f} ms; faster cuDNN f32 call '
+          '{:.4f} ms (heuristic), {:.4f} ms (cudnn.benchmark) ({})'.format(
+              label, i, b, h, w, cin, cout, k, route, ms, flops / ms / 1e9,
+              b_ms / ms, b_ms, by, f_ms / ms, f_ms, f_by, plain_ms, lib_ms,
+              bench_ms, line))
+    for key, v in (('ms', ms), ('plain_ms', plain_ms), ('cudnn_ms', lib_ms),
+                   ('cudnn_bench_ms', bench_ms),
+                   ('cudnn_best_ms', min(lib_ms, bench_ms)), ('bound_ms', b_ms),
+                   ('fma_bound_ms', f_ms)):
+      sums[key] += v
+  print('K2 f32 {} layers ({}): kernel {:.3f} ms, plain {:.3f} ms, faster '
+        'cuDNN f32 call {:.3f} ms (heuristic), {:.3f} ms (cudnn.benchmark); '
+        'bound {:.3f} ms ({:.1%}), FMA bound {:.3f} ms ({:.1%}) ({})'.format(
+            label, len(calls), sums['ms'], sums['plain_ms'], sums['cudnn_ms'],
+            sums['cudnn_bench_ms'], sums['bound_ms'],
+            sums['bound_ms'] / sums['ms'], sums['fma_bound_ms'],
+            sums['fma_bound_ms'] / sums['ms'], line))
+  return sums
 
 
 def dc_bwd_phase():
@@ -1032,6 +1122,45 @@ def int8_only(P, line):
   k3_table(cases, line)
 
 
+def f32_only(P, line):
+  """``--f32-only``: K2's f32 route on the 18 segmentation layer shapes at
+  256², B = 8 (seeded He weights, LeakyReLU'd inputs), against its plain
+  version, then each layer's device time and the sum, on the tree whose
+  package was imported (an earlier tree times its own f32 route)."""
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
+  print('tree: {}'.format(os.path.dirname(os.path.dirname(
+      os.path.abspath(P.__file__)))))
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+  side, cin, total = SIZE, 2, 0.0
+  widths = [32, 32, 64, 64, 128, 128, 256, 256, 512, 512, 256, 256, 128,
+            128, 64, 64, 32, 32]
+  sides = [1, 1, 2, 2, 4, 4, 8, 8, 16, 16, 8, 8, 4, 4, 2, 2, 1, 1]
+  for i, (cout, f) in enumerate(zip(widths, sides)):
+    side = SIZE // f
+    x = F.leaky_relu(torch.randn(SEG_BATCH, side, side, cin, device=DEVICE,
+                                 generator=gen), 0.2)
+    w = torch.randn(3, 3, cin, cout, device=DEVICE, generator=gen) * (
+        2.0 / (9 * cin)) ** 0.5
+    layer = cc.ChainLayer(w, 0.1 * torch.randn(cout, device=DEVICE,
+                                               generator=gen), 0.2)
+    got = cc.conv_layer_cuda(x, layer, 'reflection')
+    sync()
+    want = cc.conv_layer_plain(x, layer, 'reflection')
+    err = (got - want).abs().max().item()
+    require(err <= F32_ATOL * max(1.0, want.abs().max().item()),
+            'K2 f32 layer {} differs from its plain version'.format(i))
+    ms = graph_ms(lambda: cc.conv_layer_cuda(x, layer, 'reflection'),
+                  calls=3, replays=2)
+    total += ms
+    print('K2 f32 layer {:2d} B{} {}^2 {}->{} k3: route {}, {:.4f} ms, '
+          'max|kernel-plain| {:.3e} ({})'.format(
+              i, SEG_BATCH, side, cin, cout,
+              cc.conv_route(cin, cout, torch.float32), ms, err, line))
+    cin = cout
+  print('K2 f32 the 18 segmentation layers B{} {}^2: {:.3f} ms ({})'.format(
+      SEG_BATCH, SIZE, total, line))
+
+
 def probe_phase(line):
   """Phase 15, probes: each probe entry point driven as its own path with
   its counter set to 0 before and read after; then timings. Returns the
@@ -1144,7 +1273,7 @@ def probe_timings(line):
 
 # Sources whose wgmma K loops must keep the MMA pipe full: ptxas warns
 # C7517 where it drains it.
-NO_C7517 = ('probes', 'conv_int8')
+NO_C7517 = ('probes', 'conv_int8', 'conv_f32')
 
 
 def gan_cli_phase(recnet_runner):
@@ -1169,22 +1298,24 @@ def gan_cli_phase(recnet_runner):
   dc_kernel.dc_cuda.launches = 0
   dc_kernel.dc_bwd_cuda.launches = 0
   conv_chain.conv_layer_cuda.launches = 0
+  conv_chain.conv_layer_f32_cuda.launches = 0
   t0 = time.perf_counter()
   runner = train.main([conf_path, '--dry'])
   sync()
   secs = time.perf_counter() - t0
   k1, k1_bwd = dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches
   k2 = conv_chain.conv_layer_cuda.launches
+  k2_f32 = conv_chain.conv_layer_f32_cuda.launches
   steps, val_batches = runner.step, GAN_VAL // GAN_BATCH
   print('GAN main path: {} steps + {} validation batches in {:.1f} s, K1 '
-        'launches {}, K1-bwd launches {}, K2 launches {}'.format(
-            steps, val_batches, secs, k1, k1_bwd, k2))
+        'launches {}, K1-bwd launches {}, K2 launches {} (f32 routes {})'
+        .format(steps, val_batches, secs, k1, k1_bwd, k2, k2_f32))
   require(steps == GAN_TRAIN // GAN_BATCH, 'expected 8 GAN steps (40 / 5)')
   require(k1 == 3 * (steps + val_batches),
           'expected 3 K1 launches per generator forward')
   require(k1_bwd == 0, 'the frozen RecNet launched K1-bwd')
-  require(k2 == 10 * val_batches,
-          'expected 10 K2 launches per validation forward')
+  require(k2 == k2_f32 == 10 * val_batches,
+          'expected 10 K2 f32 launches per validation forward')
   require_frozen(runner, frozen, 'after the CLI epoch')
   return runner, conf_path, frozen, k1, k2
 
@@ -1193,7 +1324,8 @@ def gan_kernel_checks(runner):
   """Phase 16: K1 and K2 at the GAN path's shapes against their plain
   versions: the DC at 256², B = 5 (each generator forward), and the f32
   conv chains of the trained generator's U-Net at B = 5 (validation), to
-  F32_ATOL of max(1, max |ref|)."""
+  F32_ATOL of max(1, max |ref|). Returns (the chains' max |kernel - plain|,
+  their 10 layers [(x, layer, pad)] as the chains launch them)."""
   from csmri_refinement_tpu_torch.ops import conv_chain as cc
   from csmri_refinement_tpu_torch.ops import dc_kernel, masks
   gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
@@ -1209,12 +1341,17 @@ def gan_kernel_checks(runner):
       b, SIZE, SIZE, err, F32_ATOL))
   require(err <= F32_ATOL, 'DC kernel differs from its plain version')
   runner.gen.eval()
+  worst, layers = 0.0, []
   with torch.no_grad():
     for name, unit in unet_chains(runner.gen):
       h, w, _ = CHAIN_SHAPES[name]
       chain = unit.chain_layers()
       cin = chain[0].kernel.shape[2]
       x = torch.randn(b, h, w, cin, device=DEVICE, generator=gen)
+      xi = x
+      for layer in chain:
+        layers.append((xi, layer, unit.padding))
+        xi = cc.conv_layer_cuda(xi, layer, unit.padding)
       got = cc.fused_conv_chain(x, chain, pad_mode=unit.padding)
       sync()
       want = plain_chain(x, chain, unit.padding)
@@ -1224,6 +1361,8 @@ def gan_kernel_checks(runner):
             .format(name, tuple(x.shape), err, tol))
       require(err <= tol, 'f32 conv chain {} differs from its plain '
               'version'.format(name))
+      worst = max(worst, err)
+  return worst, layers
 
 
 def require_frozen(runner, frozen, when):
@@ -1438,20 +1577,22 @@ def seg_cli_phase():
   sync()
   dc_kernel.dc_cuda.launches = 0
   conv_chain.conv_layer_cuda.launches = 0
+  conv_chain.conv_layer_f32_cuda.launches = 0
   t0 = time.perf_counter()
   runner = train.main([conf_path, '--log-dir', log_dir])
   sync()
   secs = time.perf_counter() - t0
   k2, k1 = conv_chain.conv_layer_cuda.launches, dc_kernel.dc_cuda.launches
+  k2_f32 = conv_chain.conv_layer_f32_cuda.launches
   steps, val_batches = runner.step, SEG_VAL // SEG_BATCH
   best = glob.glob(os.path.join(log_dir, '*', 'best_dice_class_1', '*.ckpt'))
   print('segmentation main path: {} steps + {} validation batches in {:.1f} '
-        's, K2 launches {}, K1 launches {}, best checkpoints {}'.format(
-            steps, val_batches, secs, k2, k1, best))
+        's, K2 launches {} (f32 routes {}), K1 launches {}, best checkpoints '
+        '{}'.format(steps, val_batches, secs, k2, k2_f32, k1, best))
   require(steps == SEG_TRAIN // SEG_BATCH, 'expected 5 segmentation steps')
-  require(k2 == SEG_CHAIN_LAYERS * val_batches,
-          'expected 18 K2 launches per validation forward and none in train '
-          'mode')
+  require(k2 == k2_f32 == SEG_CHAIN_LAYERS * val_batches,
+          'expected 18 K2 f32 launches per validation forward and none in '
+          'train mode')
   require(k1 == 0, 'the segmentation path launched K1')
   require(len(best) == 1, 'expected one best checkpoint by dice_class_1')
   vals = checkpoints.load_checkpoint(best[0])['best_val_metrics']
@@ -1491,19 +1632,22 @@ def sis_gan_phase(gan_conf_path, gen_state, seg_conf_d, best):
   sync()
   dc_kernel.dc_cuda.launches = 0
   conv_chain.conv_layer_cuda.launches = 0
+  conv_chain.conv_layer_f32_cuda.launches = 0
   val_losses, val_metrics = runner.validate(loader)
   sync()
   k1, k2 = dc_kernel.dc_cuda.launches, conv_chain.conv_layer_cuda.launches
+  k2_f32 = conv_chain.conv_layer_f32_cuda.launches
   val_batches = GAN_VAL // GAN_BATCH
   vals = {k: v.value for k, v in list(val_losses.items()) +
           list(val_metrics.items())}
   print('GAN validation with the segmentation score: {} batches, K1 '
-        'launches {}, K2 launches {} (10 generator + 18 segmentation per '
-        'batch): {}'.format(val_batches, k1, k2, vals))
+        'launches {}, K2 launches {} (f32 routes {}; 10 generator + 18 '
+        'segmentation per batch): {}'.format(val_batches, k1, k2, k2_f32,
+                                             vals))
   require(k1 == 3 * val_batches, 'expected 3 K1 launches per generator '
           'forward')
-  require(k2 == (10 + SEG_CHAIN_LAYERS) * val_batches,
-          'expected 10 + 18 K2 launches per validation batch')
+  require(k2 == k2_f32 == (10 + SEG_CHAIN_LAYERS) * val_batches,
+          'expected 10 + 18 K2 f32 launches per validation batch')
   sis = vals['gen_segmentation_score']
   require(0 <= sis <= 1 and all(math.isfinite(v) for v in vals.values()),
           'GAN validation with the segmentation score out of range')
@@ -1567,9 +1711,9 @@ def seg_kernel_checks(score):
   """Phase 17 (c): every K2 launch of one segmentation-score forward (256²,
   B = 5), of a validation forward (256², B = 8) and of one forward at 128²,
   B = 1 against ``conv_layer_plain``, to F32_ATOL of max(1, max |ref|).
-  Returns the B = 8 launches."""
+  Returns (the B = 8 launches, the largest |kernel - plain|)."""
   from csmri_refinement_tpu_torch.ops import conv_chain
-  cases = {}
+  cases, worst = {}, 0.0
   for label, size, b in (('SIS', SIZE, GAN_BATCH), ('validation', SIZE,
                                                     SEG_BATCH),
                          ('single image', SIZE // 2, 1)):
@@ -1595,7 +1739,8 @@ def seg_kernel_checks(score):
                   max(c[1].kernel.shape[2] for c in calls), max(errs),
                   F32_ATOL))
     cases[label] = calls
-  return cases['validation']
+    worst = max(worst, max(errs))
+  return cases['validation'], worst
 
 
 def seg_runner_pair(conf_d):
@@ -1684,10 +1829,8 @@ def seg_parity_phase(conf_d, best):
 def seg_timing_phase(runner, score, calls, line):
   """Phase 17 (e): ms per segmentation train step at 256², B = 8, TF32 off
   and on (no K2 launch in train mode), ms per segmentation-score call at
-  B = 5, and K2's f32 route on each of the 18 validation-forward layers as
-  device time (``graph_ms``) with TFLOP/s and share of its bound at the f32
-  peak, beside the plain version and cuDNN f32 (TF32 off) on the same
-  layers. Returns the sums (K2, plain, cuDNN, bound ms)."""
+  B = 5, and K2's f32 route on each of the 18 validation-forward layers
+  (``f32_layer_table``). Returns the table's sums."""
   from csmri_refinement_tpu_torch.ops import conv_chain
   inp, target = seg_inputs(SIZE, SEG_BATCH, fold='train')
   batch = runner.preparer.prepare_train(None, {'inp': inp, 'target': target})
@@ -1714,39 +1857,13 @@ def seg_timing_phase(runner, score, calls, line):
   print('segmentation score call {}^2 B{}: {:.3f} ms, {:.1f} slices/s '
         '({})'.format(SIZE, GAN_BATCH, sis_ms, GAN_BATCH / sis_ms * 1e3,
                       line))
-  totals = [0.0] * 4
-  for i, (x, layer, pad, _) in enumerate(calls):
-    b, h, w, cin = x.shape
-    cout = layer.kernel.shape[3]
-    x_cl = x.permute(0, 3, 1, 2).contiguous(
-        memory_format=torch.channels_last).permute(0, 2, 3, 1)
-    ms = graph_ms(lambda: conv_chain.conv_layer_cuda(x, layer, pad),
-                  calls=3, replays=2)
-    plain_ms = graph_ms(lambda: conv_chain.conv_layer_plain(x, layer, pad),
-                        calls=3, replays=2)
-    lib_ms = graph_ms(lambda: library_chain(x_cl, [layer], pad), calls=3,
-                      replays=2)
-    flops = 2 * b * h * w * 9 * cin * cout
-    bytes_ = 4 * (b * h * w * (cin + cout) + 9 * cin * cout + cout)
-    b_ms, by = bound(flops, bytes_, F32_FLOPS)
-    print('K2 f32 segmentation layer {:2d} B{} {}^2 {}->{} k3: {:.4f} ms, '
-          '{:.1f} TFLOP/s, {:.1%} of its bound {:.4f} ms ({}); plain {:.4f} '
-          'ms, cuDNN f32 {:.4f} ms ({})'.format(
-              i, b, h, cin, cout, ms, flops / ms / 1e9, b_ms / ms, b_ms, by,
-              plain_ms, lib_ms, line))
-    for j, v in enumerate((ms, plain_ms, lib_ms, b_ms)):
-      totals[j] += v
-  print('K2 f32 segmentation layers B{} {}^2 (18): kernel {:.3f} ms, plain '
-        '{:.3f} ms, cuDNN f32 {:.3f} ms, bound {:.3f} ms ({:.1%}) ({})'.format(
-            SEG_BATCH, SIZE, totals[0], totals[1], totals[2], totals[3],
-            totals[3] / totals[0], line))
-  return totals
+  return f32_layer_table('segmentation', calls, line)
 
 
 def build_phase(names):
   """Phase 2: build the named kernel sources in parallel; print each
   kernel's ptxas lines, and fail if ptxas drained a wgmma pipeline
-  (C7517) in a probe or in K3."""
+  (C7517) in a probe, in K3 or in K2's f32 route."""
   from csmri_refinement_tpu_torch.ops import native
   t0 = time.perf_counter()
   report = native.build(names)
@@ -1767,6 +1884,7 @@ def main(argv=None):
   argv = sys.argv[1:] if argv is None else argv
   probes_only = '--probes-only' in argv
   int8_only_mode = '--int8-only' in argv
+  f32_only_mode = '--f32-only' in argv
   tree = os.path.realpath(argv[argv.index('--tree') + 1]) if '--tree' in \
       argv else REPO
   require(os.path.commonpath([tree, REPO]) == REPO,
@@ -1793,6 +1911,11 @@ def main(argv=None):
   if int8_only_mode:   # phases 1, 2 and the K3 table of 15 alone
     build_phase(('conv_chain', 'conv_int8'))
     int8_only(P, line)
+    return
+  if f32_only_mode:    # phases 1, 2 and the f32 layers of 17 (e) alone
+    build_phase(tuple(n for n in ('conv_chain', 'conv_f32')
+                      if n in native.KERNELS))
+    f32_only(P, line)
     return
   build_phase(native.KERNELS)
 
@@ -1974,20 +2097,21 @@ def main(argv=None):
   require(all(math.isfinite(v) for v in vals.values()) and
           0 < vals['gen_ssim'] <= 1 and vals['gen_psnr'] > 10,
           'GAN validation metrics out of range')
-  gan_kernel_checks(gan_runner)
+  gan_f32_err, gan_layers = gan_kernel_checks(gan_runner)
   gen_state = gan_runner.gen.state_dict()
   del gan_runner
   gan_parity_phase()
   gan_timing_phase(gan_conf_path, frozen, line)
+  f32_layer_table('GAN validation', gan_layers, line)
   up_conv_timings(model, line)
 
   # Phase 17: segmentation training and the segmentation score
   seg_runner, seg_conf_d, seg_best, seg_k2 = seg_cli_phase()
   score, sis_k1, sis_k2 = sis_gan_phase(gan_conf_path, gen_state,
                                         seg_conf_d, seg_best)
-  seg_calls = seg_kernel_checks(score)
+  seg_calls, seg_f32_err = seg_kernel_checks(score)
   seg_parity_phase(seg_conf_d, seg_best)
-  seg_timing_phase(seg_runner, score, seg_calls, line)
+  f32 = seg_timing_phase(seg_runner, score, seg_calls, line)
 
   kernels = [
       {'name': 'dc', 'route': 'cuda',
@@ -2002,12 +2126,19 @@ def main(argv=None):
       {'name': 'conv_chain', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/conv_chain.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
-       'launches': conv_launches + gan_k2 + seg_k2 + sis_k2,
-       'max_abs_err': conv_err,
+       'launches': conv_launches, 'max_abs_err': conv_err,
        'ms': conv_ms,
        'plain_ms': conv_plain_ms, 'bound_ms': conv_bound,
        'bound_by': conv_by,
        'library_ms': conv_lib_ms},
+      {'name': 'conv_chain_f32', 'route': 'cuda',
+       'source': 'csmri_refinement_tpu_torch/csrc/conv_f32.cu',
+       'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
+       'launches': gan_k2 + seg_k2 + sis_k2,
+       'max_abs_err': max(gan_f32_err, seg_f32_err),
+       'ms': f32['ms'], 'plain_ms': f32['plain_ms'],
+       'bound_ms': f32['bound_ms'], 'bound_by': 'operations',
+       'library_ms': f32['cudnn_best_ms']},
       {'name': 'dc_bwd', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
        'replaces': 'csmri_refinement_tpu/ops/dc.py:99',

@@ -56,9 +56,8 @@
 //     gathered halo").
 //   - The epilogue runs from the accumulator registers: + bias, LeakyReLU,
 //     bf16, a 4x4 transpose within each lane quad, 16-byte stores.
-// f32 (parity and tests only): a direct conv with exact FMAs on the CUDA
-// cores (wgmma would round f32 to TF32), staged per 16-channel chunk.
-// One launch per layer: keeping a whole chain on chip is later work.
+// f32 is csrc/conv_f32.cu (3xTF32). One launch per layer: keeping a whole
+// chain on chip is later work.
 
 #include <cuda_bf16.h>
 
@@ -67,180 +66,6 @@
 namespace {
 
 using namespace sm90;
-
-// --- f32: direct conv with FMAs ----------------------------------------
-
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kTileH = 16;     // output rows per block
-constexpr int kTileWf = 16;    // output columns per block
-constexpr int kChunk = 16;     // input channels staged per step
-
-template <int K, int NT>
-struct F32Tile {
-  static constexpr int kPad = (K - 1) / 2;  // top/left SAME pad
-  static constexpr int kHaloH = kTileH + K - 1;
-  static constexpr int kHaloW = kTileWf + K - 1;
-  static constexpr int kHaloBytes =
-      (kHaloH * kHaloW * kChunk * 4 + 127) / 128 * 128;
-  static constexpr int kWLd = NT + 8;  // padded weight rows
-  static constexpr int kWBytes = K * K * kChunk * kWLd * 4;
-  static constexpr int kOutBytes = kTileH * kTileWf * NT * 4;
-  static constexpr int kSmem = kHaloBytes + kWBytes > kOutBytes
-                                   ? kHaloBytes + kWBytes
-                                   : kOutBytes;
-};
-
-template <int K, int NT>
-__global__ void __launch_bounds__(kThreads)
-conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-                const float* __restrict__ bias, float* __restrict__ y, int h,
-                int w, int cin, int cout, int pad_mode, int has_leak,
-                float leak, int vec_x) {
-  using TL = F32Tile<K, NT>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* halo = reinterpret_cast<float*>(smem);
-  float* ws = reinterpret_cast<float*>(smem + TL::kHaloBytes);
-  float* out = reinterpret_cast<float*>(smem);  // after the channel loop
-
-  const int tiles_w = (w + kTileWf - 1) / kTileWf;
-  const int oy0 = (blockIdx.x / tiles_w) * kTileH;
-  const int ox0 = (blockIdx.x % tiles_w) * kTileWf;
-  const int n0 = blockIdx.z * NT;
-  const float* xb = x + (size_t)blockIdx.y * h * w * cin;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  // pixels 128*(warp/4) + lane + 32*i by channels (warp%4)*NQ + j
-  constexpr int NQ = NT / 4;
-  const int pbase = (warp >> 2) * 128 + lane;
-  const int qbase = (warp & 3) * NQ;
-  float acc[4][NQ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) acc[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < cin; c0 += kChunk) {
-    if (vec_x) {  // cin % 16 == 0 and x 16-byte aligned
-      constexpr int NV = kChunk / 4;
-      for (int i = tid; i < TL::kHaloH * TL::kHaloW * NV; i += kThreads) {
-        const int v = i % NV;
-        const int p = i / NV;
-        const int sy = pad_index(oy0 + p / TL::kHaloW - TL::kPad, h, pad_mode);
-        const int sx = pad_index(ox0 + p % TL::kHaloW - TL::kPad, w, pad_mode);
-        float4 val = zero4;
-        if (sy >= 0 && sx >= 0)
-          val = *reinterpret_cast<const float4*>(
-              xb + ((size_t)sy * w + sx) * cin + c0 + v * 4);
-        *reinterpret_cast<float4*>(halo + p * kChunk + v * 4) = val;
-      }
-    } else {
-      for (int i = tid; i < TL::kHaloH * TL::kHaloW * kChunk; i += kThreads) {
-        const int c = i % kChunk;
-        const int p = i / kChunk;
-        const int sy = pad_index(oy0 + p / TL::kHaloW - TL::kPad, h, pad_mode);
-        const int sx = pad_index(ox0 + p % TL::kHaloW - TL::kPad, w, pad_mode);
-        float v = 0.f;
-        if (sy >= 0 && sx >= 0 && c0 + c < cin)
-          v = xb[((size_t)sy * w + sx) * cin + c0 + c];
-        halo[i] = v;
-      }
-    }
-    {  // weights: NT-wide rows, 16-byte loads (cout % 16 == 0, aligned)
-      constexpr int WV = NT / 4;
-      for (int i = tid; i < K * K * kChunk * WV; i += kThreads) {
-        const int v = i % WV;
-        const int q = i / WV;
-        const int c = q % kChunk;
-        const int tap = q / kChunk;
-        float4 val = zero4;
-        if (c0 + c < cin)
-          val = *reinterpret_cast<const float4*>(
-              wt + ((size_t)tap * cin + c0 + c) * cout + n0 + v * 4);
-        *reinterpret_cast<float4*>(ws + q * TL::kWLd + v * 4) = val;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int tap = 0; tap < K * K; ++tap) {
-      const int dy = tap / K, dx = tap % K;
-#pragma unroll 2
-      for (int c = 0; c < kChunk; ++c) {
-        float a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int p = pbase + 32 * i;
-          a[i] = halo[((p / kTileWf + dy) * TL::kHaloW + p % kTileWf + dx) *
-                          kChunk + c];
-        }
-        const float* wrow = ws + (tap * kChunk + c) * TL::kWLd + qbase;
-#pragma unroll
-        for (int j = 0; j < NQ; ++j) {
-          const float wv = wrow[j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], wv, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-      out[(pbase + 32 * i) * NT + qbase + j] = acc[i][j];
-  __syncthreads();
-
-  float* yb = y + (size_t)blockIdx.y * h * w * cout;
-  for (int i = tid; i < kTileH * kTileWf * NT; i += kThreads) {
-    const int n = i % NT;
-    const int p = i / NT;
-    const int oy = oy0 + p / kTileWf;
-    const int ox = ox0 + p % kTileWf;
-    if (oy < h && ox < w) {
-      float v = out[i] + bias[n0 + n];
-      if (has_leak && v < 0.f) v *= leak;
-      yb[((size_t)oy * w + ox) * cout + n0 + n] = v;
-    }
-  }
-}
-
-template <int K, int NT>
-int launch_f32(const void* x, const void* wt, const void* bias, void* y,
-               int batch, int h, int w, int cin, int cout, int pad_mode,
-               int has_leak, float leak, cudaStream_t st) {
-  auto kern = conv_f32_kernel<K, NT>;
-  const int smem = F32Tile<K, NT>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned tiles =
-      (unsigned)((h + kTileH - 1) / kTileH) * ((w + kTileWf - 1) / kTileWf);
-  const int vec_x = cin % kChunk == 0 && (uintptr_t)x % 16 == 0;
-  dim3 grid(tiles, batch, cout / NT);
-  kern<<<grid, kThreads, smem, st>>>((const float*)x, (const float*)wt,
-                                     (const float*)bias, (float*)y, h, w, cin,
-                                     cout, pad_mode, has_leak, leak, vec_x);
-  return (int)cudaGetLastError();
-}
-
-template <int K>
-int launch_f32_nt(const void* x, const void* wt, const void* bias, void* y,
-                  int batch, int h, int w, int cin, int cout, int pad_mode,
-                  int has_leak, float leak, cudaStream_t st) {
-  if (cout % 64 == 0)
-    return launch_f32<K, 64>(x, wt, bias, y, batch, h, w, cin, cout,
-                             pad_mode, has_leak, leak, st);
-  if (cout % 32 == 0)
-    return launch_f32<K, 32>(x, wt, bias, y, batch, h, w, cin, cout,
-                             pad_mode, has_leak, leak, st);
-  return launch_f32<K, 16>(x, wt, bias, y, batch, h, w, cin, cout, pad_mode,
-                           has_leak, leak, st);
-}
 
 // --- bf16: wgmma implicit GEMM -----------------------------------------
 
@@ -713,17 +538,16 @@ void gemm_layout(int cin, int k, int* cc_log2, int* chunks, int* ktot,
 
 }  // namespace
 
-// x: (batch, h, w, cin), y: (batch, h, w, cout), contiguous in the compute
-// type (bf16 if is_bf16, else f32); cout a multiple of 16 (the wrapper pads
-// other Couts with zero output channels); bias: (cout,) f32. f32: wt is the
-// HWIO weight (k, k, cin, cout), 16-byte aligned. bf16: wt is the packed
-// (cout, kp) weight of ops/conv_chain.py::pack_weights, kp its row length
-// (checked), x and wt 16-byte aligned. pad_mode: 0 zero, 1 reflect,
-// 2 replicate. Launches on `stream`; returns cudaGetLastError() after it.
+// x: (batch, h, w, cin), y: (batch, h, w, cout), contiguous bf16; cout a
+// multiple of 16 (the wrapper pads other Couts with zero output channels);
+// bias: (cout,) f32; wt is the packed (cout, kp) weight of
+// ops/conv_chain.py::pack_weights, kp its row length (checked), x, wt and y
+// 16-byte aligned. pad_mode: 0 zero, 1 reflect, 2 replicate. Launches on
+// `stream`; returns cudaGetLastError() after it.
 extern "C" int conv_layer(const void* x, const void* wt, const void* bias,
                           void* y, int batch, int h, int w, int cin, int cout,
-                          int k, int kp, int pad_mode, int is_bf16,
-                          int has_leak, float leak, void* stream) {
+                          int k, int kp, int pad_mode, int has_leak,
+                          float leak, void* stream) {
   if (batch < 1 || batch > 65535 || h < 1 || w < 1 || cin < 1 || cout < 16 ||
       cout % 16 || cout / 16 > 65535 || pad_mode < 0 || pad_mode > 2 ||
       (k != 3 && k != 4) || (uintptr_t)wt % 16 ||
@@ -731,13 +555,6 @@ extern "C" int conv_layer(const void* x, const void* wt, const void* bias,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  if (!is_bf16) {
-    if (k == 3)
-      return launch_f32_nt<3>(x, wt, bias, y, batch, h, w, cin, cout,
-                              pad_mode, has_leak, leak, st);
-    return launch_f32_nt<4>(x, wt, bias, y, batch, h, w, cin, cout, pad_mode,
-                            has_leak, leak, st);
-  }
   GemmArgs ga;
   ga.batch = batch;
   ga.x = (const __nv_bfloat16*)x;

@@ -111,10 +111,10 @@ def _vgg_criterion(conf, loss_name, target_key, device):
 
 
 def get_criterion(conf, loss_name, target_key=None, input_key=None,
-                  loss_type=None, device='cpu'):
+                  loss_type=None, device='cuda'):
   """Criterion factory; ``loss_target_keys`` remaps a loss's target key,
   ``loss_type`` picks an adversarial loss's direction, ``device`` holds a
-  VGG19's weights."""
+  VGG19's weights (the card unless the caller asks for the CPU)."""
   if input_key is None:
     input_key = 'pred'
   if target_key is None:

@@ -33,11 +33,11 @@ def _to_vgg_input(x):
 
 class VGGLoss:
   """``loss(prediction, target)`` on NHWC images; the VGG19 lives on
-  ``device``."""
+  ``device`` (the card unless the caller asks for the CPU)."""
 
   def __init__(self, loss_name, blocks=-1, criterion='L1', weights=None,
                weights_path=None, conf_path=None, allow_random_init=False,
-               seed=0, device='cpu'):
+               seed=0, device='cuda'):
     if loss_name != 'VGG19':
       raise ValueError('Unknown VGG loss {}'.format(loss_name))
     if blocks == -1:

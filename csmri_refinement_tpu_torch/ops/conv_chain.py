@@ -14,14 +14,20 @@ accumulation and every layer's output rounded to the compute dtype.
 * ``conv_layer_plain`` — the plain PyTorch version (``F.pad`` + ``F.conv2d``
   in f32 on the compute-dtype values, + bias, LeakyReLU, cast): the CPU path
   and the oracle the kernel is held against.
-* ``conv_layer_cuda`` — the wrapper of ``csrc/conv_chain.cu``: one launch
-  per layer, counted in ``conv_layer_cuda.launches``. bf16 runs a ``wgmma``
-  implicit GEMM on weights packed by ``pack_weights`` (layout
-  ``gemm_layout``); f32 a direct FMA conv on the HWIO weights. Any Cout:
-  the weights and bias are padded with zero output channels to a multiple
-  of 16 (``pad_cout``), the kernel writes the padded output and the
-  wrapper keeps its first Cout channels.
-  ``conv_route`` names the route a layer takes, decided by its shape.
+* ``conv_layer_cuda`` — the kernel wrapper: one launch per layer, counted
+  in ``conv_layer_cuda.launches`` (both dtypes). bf16 runs
+  ``csrc/conv_chain.cu``, a ``wgmma`` implicit GEMM on weights packed by
+  ``pack_weights`` (layout ``gemm_layout``); f32 goes to
+  ``conv_layer_f32_cuda`` (``csrc/conv_f32.cu``, its own count in
+  ``conv_layer_f32_cuda.launches``): a 3xTF32 ``wgmma`` implicit GEMM on
+  weights split and packed by ``pack_weights_f32`` (layout
+  ``gemm_layout_f32``, split ``tf32_split``; the kernel splits its
+  activations the same way), or for Cin < 8 a direct conv
+  with exact FMAs on the HWIO weights. Any Cout: the weights and bias are
+  padded with zero output channels to a multiple of 16 (``pad_cout``), the
+  kernel writes the padded output and the wrapper keeps its first Cout
+  channels. ``conv_route`` names the route a layer takes, decided by its
+  shape.
 * ``conv_layer`` — the device dispatch: CPU → plain, CUDA → kernel or raise.
 
 The JAX kernel's Mosaic layout (pixel groups, block-Toeplitz weights, lane
@@ -136,10 +142,65 @@ def pack_weights(kernel, dtype=torch.bfloat16, layout=gemm_layout):
   return F.pad(w, (0, kp - w.shape[1])).contiguous()
 
 
+# K order within each 16 channels of the f32 route: position kk of a k16
+# group holds channel F32_PERM[kk]. A thread of the kernel loads channels
+# 4t .. 4t + 3 of a position in one 16-byte read; wgmma's tf32 A fragment
+# wants columns t and t + 4 of each k8 step from it, so column t + 4h of
+# step s is channel 4t + 2s + h.
+F32_PERM = tuple(4 * (kk % 4) + 2 * (kk // 8) + (kk % 8) // 4
+                 for kk in range(16))
+
+
+def gemm_layout_f32(cin, k):
+  """K layout of the f32 route's 3xTF32 kernel: ``(cin_pad, chunk, kp)``.
+
+  The halo is staged in chunks of ``chunk`` channels: one chunk of Cin
+  rounded up to 16 for Cin ≤ 16; else chunks of 32 for k3 (9·32 = 288 of
+  K, nine whole 32-wide stages) and of 16 for k4 (16·16 = 256, eight).
+  K runs over (chunk, tap, 16 channels in ``F32_PERM`` order), k·k·cin_pad
+  values, padded to ``kp``, a multiple of 32 (``csrc/conv_f32.cu``
+  computes the same and checks ``kp``).
+  """
+  chunk = 16 if (cin <= 16 or k == 4) else 32
+  cin_pad = -(-cin // chunk) * chunk
+  return cin_pad, chunk, -(-(k * k * cin_pad) // 32) * 32
+
+
+def tf32_split(v):
+  """f32 ``v`` → ``(big, small)``: ``big`` is v rounded to the nearest
+  tf32 (ties away from zero, as ``cvt.rna.tf32.f32``) with its low 13 bits
+  cleared, ``small`` the same rounding of ``v - big``. ``big + small`` is
+  within 2^-22 of v's magnitude, where ``big`` alone is within 2^-11."""
+  def rna(t):
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+  v = v.float()
+  big = rna(v)
+  return big, rna(v - big)
+
+
+def pack_weights_f32(kernel):
+  """f32 HWIO weights → the 3xTF32 kernel's ``(2·Cout, kp)`` operand:
+  rows 0 .. Cout - 1 hold the big parts of ``tf32_split``, rows Cout ..
+  2·Cout - 1 the small parts, each K-major in the K order of
+  ``gemm_layout_f32``, zeros in the padding."""
+  k, _, cin, cout = kernel.shape
+  cin_pad, chunk, kp = gemm_layout_f32(cin, k)
+  w = F.pad(kernel.float(), (0, 0, 0, cin_pad - cin))
+  # channel 4t + 2s + h of a 16-group goes to K position 8s + 4h + t
+  # (F32_PERM), a permute of its (t, s, h) axes to (s, h, t)
+  w = w.reshape(k * k, cin_pad // chunk, chunk // 16, 4, 2, 2, cout)
+  w = w.permute(6, 1, 0, 2, 4, 5, 3)
+  w = F.pad(w.reshape(cout, k * k * cin_pad), (0, kp - k * k * cin_pad))
+  return torch.cat(tf32_split(w)).contiguous()
+
+
 def conv_route(cin, cout, dtype):
   """The kernel route of a layer, decided by its shape and dtype alone."""
   if dtype == torch.float32:
-    return 'fma'
+    if cin < 8:
+      return 'direct'                    # exact FMAs, the stem
+    return '3xtf32' if cin % 4 == 0 else '3xtf32, 4-byte staging'
   if cin % 8 == 0:
     return 'wgmma'                       # 16-byte cp.async halo
   return 'wgmma, 4-byte staging' if cin % 2 == 0 else 'wgmma, gathered halo'
@@ -148,44 +209,95 @@ def conv_route(cin, cout, dtype):
 @functools.lru_cache(maxsize=None)
 def _lib():
   lib = native.library('conv_chain')
-  lib.conv_layer.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 +
+  lib.conv_layer.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 +
                              [ctypes.c_float, ctypes.c_void_p])
   lib.conv_layer.restype = ctypes.c_int
   return lib
 
 
-def conv_layer_cuda(x, layer, pad_mode='reflection'):
-  """Launch the conv-layer kernel (csrc/conv_chain.cu) on a CUDA tensor."""
+@functools.lru_cache(maxsize=None)
+def _lib_f32():
+  lib = native.library('conv_f32')
+  lib.conv_layer_f32.argtypes = (
+      [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2 +
+      [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+  lib.conv_layer_f32.restype = ctypes.c_int
+  return lib
+
+
+def _check_layer(x, layer, pad_mode, who):
+  """Raise on what the conv kernels do not take; returns (B, H, W, Cin,
+  k, Cout)."""
   if x.device.type != 'cuda':
-    raise ValueError('conv_layer_cuda takes CUDA tensors, got {}'.format(
-        x.device))
-  if x.dtype not in _DTYPES:
-    raise ValueError('conv_layer_cuda takes float32 or bfloat16, got '
-                     '{}'.format(x.dtype))
+    raise ValueError('{} takes CUDA tensors, got {}'.format(who, x.device))
   if not x.is_contiguous() or x.ndim != 4:
-    raise ValueError('conv_layer_cuda: x must be a contiguous NHWC tensor')
+    raise ValueError('{}: x must be a contiguous NHWC tensor'.format(who))
   if pad_mode not in PAD_MODES:
     raise ValueError('unknown pad mode {!r}'.format(pad_mode))
   b, h, w, cin = x.shape
   kh, kw, kcin, cout = layer.kernel.shape
   if kh != kw or kh not in (3, 4) or kcin != cin:
-    raise ValueError('conv_layer_cuda: kernel {} does not fit input {} (k '
-                     'must be 3 or 4)'.format(tuple(layer.kernel.shape),
-                                              tuple(x.shape)))
+    raise ValueError('{}: kernel {} does not fit input {} (k must be 3 or '
+                     '4)'.format(who, tuple(layer.kernel.shape),
+                                 tuple(x.shape)))
   if not 1 <= b <= 65535:
-    raise ValueError('conv_layer_cuda takes 1 to 65535 images, got '
-                     '{}'.format(b))
+    raise ValueError('{} takes 1 to 65535 images, got {}'.format(who, b))
   if pad_mode == 'reflection' and min(h, w) < 2:
     raise ValueError('reflection padding needs images of at least 2x2')
+  return b, h, w, cin, kh, cout
+
+
+def conv_layer_f32_cuda(x, layer, pad_mode='reflection'):
+  """Launch the f32 conv-layer kernel (csrc/conv_f32.cu) on a CUDA f32
+  tensor: the 3xTF32 route for Cin ≥ 8, the direct route below."""
+  if x.dtype != torch.float32:
+    raise ValueError('conv_layer_f32_cuda takes float32, got {}'.format(
+        x.dtype))
+  b, h, w, cin, k, cout = _check_layer(x, layer, pad_mode,
+                                       'conv_layer_f32_cuda')
   if x.data_ptr() % 16:          # the kernel reads 16 bytes at a time
     x = x.clone()
   kernel, bias = pad_cout(layer.kernel.to(x.device), layer.bias)
-  if x.dtype == torch.bfloat16:
-    kernel = pack_weights(kernel)
-    kp = kernel.shape[1]
+  if cin < 8:
+    kernel, kp = kernel.float().contiguous(), 0
   else:
-    kernel = kernel.to(x.dtype).contiguous()
-    kp = 0
+    kernel = pack_weights_f32(kernel)
+    kp = kernel.shape[1]
+  if kernel.data_ptr() % 16:
+    kernel = kernel.clone()
+  cout_pad = bias.shape[0]
+  y = torch.empty((b, h, w, cout_pad), device=x.device, dtype=x.dtype)
+  leak = layer.leakiness
+  with torch.cuda.device(x.device):
+    status = _lib_f32().conv_layer_f32(
+        native.ptr(x), native.ptr(kernel), kp, native.ptr(bias),
+        native.ptr(y), b, h, w, cin, cout_pad, k, PAD_MODES[pad_mode],
+        int(leak is not None), float(leak or 0.0), native.stream_of(x))
+  native.check(status, 'conv_layer_f32')
+  conv_layer_f32_cuda.launches += 1
+  return y if cout_pad == cout else y[..., :cout].contiguous()
+
+
+conv_layer_f32_cuda.launches = 0
+
+
+def conv_layer_cuda(x, layer, pad_mode='reflection'):
+  """Launch the conv-layer kernel on a CUDA tensor: csrc/conv_chain.cu for
+  bf16, ``conv_layer_f32_cuda`` for f32."""
+  if x.dtype not in _DTYPES:
+    raise ValueError('conv_layer_cuda takes float32 or bfloat16, got '
+                     '{}'.format(x.dtype))
+  if x.dtype == torch.float32:
+    y = conv_layer_f32_cuda(x, layer, pad_mode)
+    conv_layer_cuda.launches += 1
+    return y
+  b, h, w, cin, kh, cout = _check_layer(x, layer, pad_mode,
+                                        'conv_layer_cuda')
+  if x.data_ptr() % 16:          # the kernel reads 16 bytes at a time
+    x = x.clone()
+  kernel, bias = pad_cout(layer.kernel.to(x.device), layer.bias)
+  kernel = pack_weights(kernel)
+  kp = kernel.shape[1]
   if kernel.data_ptr() % 16:
     kernel = kernel.clone()
   cout_pad = bias.shape[0]
@@ -194,7 +306,7 @@ def conv_layer_cuda(x, layer, pad_mode='reflection'):
   with torch.cuda.device(x.device):
     status = _lib().conv_layer(
         native.ptr(x), native.ptr(kernel), native.ptr(bias), native.ptr(y),
-        b, h, w, cin, cout_pad, kh, kp, PAD_MODES[pad_mode], _DTYPES[x.dtype],
+        b, h, w, cin, cout_pad, kh, kp, PAD_MODES[pad_mode],
         int(leak is not None), float(leak or 0.0), native.stream_of(x))
   native.check(status, 'conv_layer')
   conv_layer_cuda.launches += 1

@@ -23,7 +23,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
-KERNELS = ('dc', 'conv_chain', 'conv_int8', 'probes')
+KERNELS = ('dc', 'conv_chain', 'conv_f32', 'conv_int8', 'probes')
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')

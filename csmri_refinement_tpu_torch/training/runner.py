@@ -106,7 +106,8 @@ class Runner(BaseRunner):
           list(conf.get_attr('losses', default=[]))
       if not names:
         raise ValueError('Need at least one loss to optimize something!')
-      self.criteria = {name: get_criterion(conf, name) for name in names}
+      self.criteria = {name: get_criterion(conf, name, device=self.device)
+                       for name in names}
       self.loss_weights = self._loss_weights(
           conf.get_attr('loss_weights', default={}), self.criteria)
       opt_conf = Configuration.from_dict(conf.optimizer, conf)

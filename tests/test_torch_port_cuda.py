@@ -692,6 +692,122 @@ def test_conv_layer_f32_segmentation_widths(cuda, cin, cout, pad, side, b):
   _conv_case(cuda, 3, cin, cout, pad, torch.float32, (b, side, side))
 
 
+# The 18 eval-chain layers of configs/3-train-segmentation-unet.json at a
+# 256² input: (side, Cin, Cout), k3, reflection.
+SEG_LAYERS = [(256, 2, 32), (256, 32, 32), (128, 32, 64), (128, 64, 64),
+              (64, 64, 128), (64, 128, 128), (32, 128, 256), (32, 256, 256),
+              (16, 256, 512), (16, 512, 512), (32, 512, 256), (32, 256, 256),
+              (64, 256, 128), (64, 128, 128), (128, 128, 64), (128, 64, 64),
+              (256, 64, 32), (256, 32, 32)]
+
+
+@pytest.mark.parametrize('layer', range(len(SEG_LAYERS)))
+def test_conv_layer_f32_segmentation_layers(cuda, layer):
+  """Each segmentation layer at its shape, B = 2: the stem on the direct
+  route, the others on 3xTF32 (conv_f32.cu), within the f32 bar."""
+  side, cin, cout = SEG_LAYERS[layer]
+  _conv_case(cuda, 3, cin, cout, 'reflection', torch.float32,
+             (2, side, side))
+
+
+@pytest.mark.parametrize('pad', ['reflection', 'replication', 'zero'])
+@pytest.mark.parametrize('cin,cout', [(32, 32), (32, 64), (64, 128),
+                                      (128, 128), (128, 64)])
+def test_conv_layer_f32_k4_gan_widths(cuda, cin, cout, pad):
+  """The GAN generator's k4 chain widths (32-128) with every pad mode."""
+  _conv_case(cuda, 4, cin, cout, pad, torch.float32, (2, 40, 72))
+
+
+@pytest.mark.parametrize('pad', ['reflection', 'replication', 'zero'])
+@pytest.mark.parametrize('k', [3, 4])
+@pytest.mark.parametrize('cin', [1, 2, 3, 5, 8, 9, 12])
+def test_conv_layer_f32_small_cin(cuda, cin, k, pad):
+  """The direct route (Cin < 8) and the smallest 3xTF32 ones: Cin 8, 9
+  (4-byte staging) and 12 (a zero-padded 16-channel chunk)."""
+  _conv_case(cuda, k, cin, 32, pad, torch.float32, (3, 21, 13))
+
+
+@pytest.mark.parametrize('shape', [(2, 8, 8), (3, 16, 16), (2, 32, 32),
+                                   (1, 3, 130), (2, 70, 5), (1, 2, 2),
+                                   (4, 24, 40), (1, 65, 64)])
+@pytest.mark.parametrize('k', [3, 4])
+def test_conv_layer_f32_image_shapes(cuda, shape, k):
+  """Narrow images (M tiles across rows), two segments with a partial one,
+  tall and tiny images; replicate padding so a side of 2 takes k4."""
+  _conv_case(cuda, k, 64, 64, 'replication', torch.float32, shape)
+
+
+@pytest.mark.parametrize('cout', [8, 24, 40, 100])
+def test_conv_layer_f32_cout_not_a_multiple_of_16(cuda, cout):
+  _conv_case(cuda, 3, 64, cout, 'reflection', torch.float32, (2, 16, 16))
+  _conv_case(cuda, 3, 2, cout, 'zero', torch.float32, (2, 16, 16))
+
+
+@pytest.mark.parametrize('side,cin,cout', [(16, 512, 512), (256, 2, 32),
+                                           (64, 128, 128)])
+def test_conv_layer_f32_launches_are_bit_identical(cuda, side, cin, cout):
+  """No atomics and one fixed K order per output: two launches of a layer
+  give the same bits, and each counts one f32 launch."""
+  gen = torch.Generator(device=cuda).manual_seed(side + cin)
+  x = torch.randn(2, side, side, cin, device=cuda, generator=gen)
+  layer = cc.ChainLayer(torch.randn(3, 3, cin, cout, device=cuda,
+                                    generator=gen) * 0.05,
+                        torch.randn(cout, device=cuda, generator=gen), 0.2)
+  before = cc.conv_layer_f32_cuda.launches
+  first = cc.conv_layer_cuda(x, layer, 'reflection')
+  second = cc.conv_layer_cuda(x, layer, 'reflection')
+  torch.cuda.synchronize()
+  assert cc.conv_layer_f32_cuda.launches - before == 2
+  assert torch.equal(first, second)
+
+
+def test_conv_layer_f32_raises_outside_its_routes(cuda):
+  x = torch.zeros(1, 8, 8, 16, device=cuda)
+  with pytest.raises(ValueError):
+    cc.conv_layer_f32_cuda(x.to(torch.bfloat16),
+                           cc.ChainLayer(torch.zeros(3, 3, 16, 16)))
+  with pytest.raises(ValueError):                       # k5
+    cc.conv_layer_f32_cuda(x, cc.ChainLayer(torch.zeros(5, 5, 16, 16)))
+  with pytest.raises(ValueError):                       # 65536 images
+    cc.conv_layer_f32_cuda(torch.zeros(65536, 2, 2, 16, device=cuda),
+                           cc.ChainLayer(torch.zeros(3, 3, 16, 16)))
+  with pytest.raises(ValueError):                       # reflect a side of 1
+    cc.conv_layer_f32_cuda(torch.zeros(1, 1, 8, 16, device=cuda),
+                           cc.ChainLayer(torch.zeros(3, 3, 16, 16)))
+
+
+def test_reconstruction_runner_with_vgg19_loss_on_card(cuda):
+  """A reconstruction Runner with losses MSE and VGG19 builds its VGG19 on
+  its own device and takes a train step on the card."""
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  from csmri_refinement_tpu_torch.training.runner import Runner
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_dict({
+      'seed': 0, 'run_name': 'vgg', 'train_dataset': 'Synthetic',
+      'validation_dataset': 'Synthetic',
+      'synthetic': {'image_size': 32, 'num_train': 4, 'num_val': 2},
+      'undersampling': {'sampling_scheme': 'varden',
+                        'acceleration_factor': 4},
+      'runner_type': 'standard', 'application': 'reconstruction',
+      'model': {'name': 'RecNet', 'num_blocks': 1, 'num_convs': 2,
+                'num_filters': 8},
+      'losses': ['MSE', 'VGG19'], 'loss_weights': {'VGG19': 0.1},
+      'vgg_random_init': True, 'vgg_loss': {'criterion': 'MSE'},
+      'optimizer': {'name': 'Adam', 'learning_rate': 0.0002},
+      'num_epochs': 1, 'batch_size': 2, 'num_data_workers': 0})
+  runner = Runner(conf, 'train', cuda)
+  vgg = runner.criteria['VGG19'].criterion.vgg
+  assert next(vgg.parameters()).device.type == 'cuda'
+  gen = torch.Generator().manual_seed(0)
+  gt = torch.rand(2, 32, 32, generator=gen)
+  mask = masks.cartesian_mask(gen, (2, 32, 32), 4)
+  losses, _ = runner.train_batch(us.undersample_batch(
+      None, gt.to(cuda), fixed_mask=mask.to(cuda)))
+  assert runner.step == 1
+  assert all(bool(torch.isfinite(v).all()) for v in losses.values())
+  assert set(losses) >= {'MSE', 'VGG19', 'loss'}
+
+
 def _segmentation_unet(mode):
   import json
   import os

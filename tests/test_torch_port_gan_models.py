@@ -394,7 +394,8 @@ def test_vgg_loss_value_and_gradient_match_jax(vgg_pair, channels):
       vgg_params=variables['params'], criterion=jvgg_loss._CRITERIONS['MSE'],
       remat=False, weights=[1.0, 0.5])
   tloss = tvgg_loss.VGGLoss('VGG19', blocks=[4, 1], criterion='MSE',
-                            weights=[1.0, 0.5], allow_random_init=True)
+                            weights=[1.0, 0.5], allow_random_init=True,
+                            device='cpu')
   load_flax_variables(tloss.vgg, _np(variables))
   rng = np.random.RandomState(channels)
   pred = rng.randn(2, 32, 32, channels).astype(np.float32) * 0.5

@@ -20,6 +20,12 @@ decided on the host and can be replayed here:
   address through its stage and chunk cursors, which must give the exact
   int32 sums of ``conv_layer_int8_plain`` (and must not with a mutated
   LBO, SBO or plane).
+* K2's f32 route (``csrc/conv_f32.cu``): the TF32 split (``tf32_split``),
+  the 3xTF32 sum's accuracy against a single TF32 pass, and the packed
+  big and small weights (``pack_weights_f32``) with the kernel's halo
+  positions and A-fragment rule replayed tile by tile, which must give
+  ``conv_layer_plain`` (and must not with a mutated channel order or
+  stage layout).
 * K1's route by shape (``dc_route``) and the dense-DFT route's root table.
 * K5's s8 product and K4's odd-pixel probe (``csrc/probes.cu``): the
   ``wgmma`` descriptors' layout fields (``probes/int8_prims.py::
@@ -170,12 +176,17 @@ def test_pack_weights_bf16_rounds_once():
 
 def test_conv_route_by_shape():
   """The flagship's layers: the 2-channel stem stages 4 bytes at a time,
-  the rest 16; f32 is the FMA route."""
+  the rest 16. f32: Cin < 8 takes the direct route, the rest 3xTF32 (Cin
+  not a multiple of 4 staged 4 bytes at a time)."""
   assert cc.conv_route(2, 32, torch.bfloat16) == 'wgmma, 4-byte staging'
   for cin in (32, 64, 128):
     assert cc.conv_route(cin, 32, torch.bfloat16) == 'wgmma'
   assert cc.conv_route(3, 16, torch.bfloat16) == 'wgmma, gathered halo'
-  assert cc.conv_route(64, 64, torch.float32) == 'fma'
+  assert cc.conv_route(64, 64, torch.float32) == '3xtf32'
+  for cin in (1, 2, 3, 5, 7):
+    assert cc.conv_route(cin, 32, torch.float32) == 'direct'
+  for cin in (9, 10, 30):
+    assert cc.conv_route(cin, 16, torch.float32) == '3xtf32, 4-byte staging'
 
 
 # --- K5 and K4: the probes' wgmma operand layouts --------------------------
@@ -587,6 +598,253 @@ def test_pack_weights_int8_layout():
   assert cc.gemm_layout_int8(32, 3) == (32, 32, 384)
   assert cc.gemm_layout_int8(64, 4) == (64, 32, 1024)
   assert cc.gemm_layout_int8(160, 3) == (256, 128, 2304)
+
+
+# --- K2's f32 route: 3xTF32 ----------------------------------------------
+
+F32_K_STAGE = 32     # csrc/conv_f32.cu kKStage: K per stage, 128 bytes
+F32_SEG_W = 64       # kSegW: widest column segment
+F32_POS_BYTES = 64   # kPosBytes: 16 f32 channels of a halo position
+
+
+def test_tf32_split_bits():
+  """big has its low 13 bits clear and is v rounded to nearest (ties away
+  from zero); big + small is within 2^-22 of |v|, big alone within
+  2^-11."""
+  gen = torch.Generator().manual_seed(0)
+  v = torch.cat([torch.randn(4096, generator=gen) * 10 ** torch.randint(
+      -6, 6, (4096,), generator=gen).float(),
+                 torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -12,
+                               0.0, -0.0, 3.0e38])])
+  big, small = cc.tf32_split(v)
+  for part in (big, small):
+    assert not (part.view(torch.int32) & 0x1FFF).any()
+  err = (big.double() + small.double() - v.double()).abs()
+  assert (err <= 2.0 ** -22 * v.double().abs()).all()
+  assert ((big.double() - v.double()).abs() <=
+          2.0 ** -11 * v.double().abs()).all()
+  # ties round away from zero, others to nearest
+  assert big[-6].item() == 1 + 2 ** -10 and big[-5].item() == -(1 + 2 ** -10)
+  assert big[-4].item() == 1 + 2 ** -10
+
+
+def _f32_deep_layer(gen, cin, cout):
+  x = layers.leaky_relu(torch.randn(1, 8, 8, cin, generator=gen), 0.2)
+  w = torch.randn(3, 3, cin, cout, generator=gen) * (2.0 / (9 * cin)) ** 0.5
+  return x, cc.ChainLayer(w, torch.randn(cout, generator=gen) * 0.1, 0.2)
+
+
+def _split_conv(x, layer, terms):
+  """The layer with its products split as ``terms`` lists ((A part, B
+  part), ...), each product summed in float64."""
+  xs, ws = cc.tf32_split(x), cc.tf32_split(layer.kernel)
+  xp = lambda i: layers.same_pad(xs[i].double().permute(0, 3, 1, 2), 3,
+                                 'reflection')
+  y = sum(F.conv2d(xp(i), ws[j].double().permute(3, 2, 0, 1))
+          for i, j in terms)
+  y = layers.leaky_relu(y + layer.bias.double()[:, None, None],
+                        layer.leakiness)
+  return y.permute(0, 2, 3, 1)
+
+
+def test_3xtf32_keeps_f32_accuracy_at_cin_512():
+  """A k3 layer at Cin 512 (the deepest segmentation layers): the three
+  split products agree with the f32 ``conv_layer_plain`` within 1e-5 of
+  max(1, max |ref|); one TF32 product does not."""
+  x, layer = _f32_deep_layer(torch.Generator().manual_seed(1), 512, 64)
+  want = cc.conv_layer_plain(x, layer).double()
+  bar = 1e-5 * max(1.0, want.abs().max().item())
+  three = _split_conv(x, layer, ((1, 0), (0, 1), (0, 0)))
+  one = _split_conv(x, layer, ((0, 0),))
+  assert (three - want).abs().max().item() <= bar
+  assert (one - want).abs().max().item() > 10 * bar
+
+
+def _pad_index(i, n, mode):
+  """csrc/sm90.cuh::pad_index on arrays: the source index of padded
+  position i, or -1 for a zero."""
+  i = np.asarray(i)
+  if mode == 'zero':
+    return np.where((i >= 0) & (i < n), i, -1)
+  if mode == 'reflection':
+    i = np.where(i < 0, -i, np.where(i >= n, 2 * (n - 1) - i, i))
+  return np.clip(i, 0, n - 1)
+
+
+def _stage_rows(rows):
+  """A (R, 32) f32 block of packed rows as TMA stores it: 128-byte rows,
+  16-byte chunk c of row r at chunk c ^ r % 8."""
+  raw = np.ascontiguousarray(rows, np.float32).view(np.uint8)
+  out = np.zeros(raw.size, np.uint8)
+  for r in range(rows.shape[0]):
+    for ch in range(8):
+      at = r * 128 + 16 * (ch ^ (r % 8))
+      out[at:at + 16] = raw[r, 16 * ch:16 * ch + 16]
+  return out
+
+
+def _f32_replay(x, layer, pad_mode, mt, n_blk, mutate=None):
+  """K2's f32 route replayed tile by tile as csrc/conv_f32.cu walks it:
+  column segments of TW = min(W, 64) columns at pitch HW = TW + k - 1;
+  tiles of 128 MT flattened positions; per chunk the halo positions q0 + p
+  staged through ``pad_index``; per stage the big and small weight rows of
+  ``pack_weights_f32`` stored as TMA does and read through the B
+  descriptor at each k8 step; A gathered by the kernel's fragment rule
+  (channel 4 t + 2 s + h at column t + 4 h of k8 step s); the three
+  products summed in float64, then the epilogue. ``mutate``: 'perm' (the
+  rule with s and h swapped) or 'sbo' (a B descriptor with SBO 512)."""
+  b, h, w, cin = x.shape
+  k, _, _, cout = layer.kernel.shape
+  pad_t = (k - 1) // 2
+  cin_pad, chunk, kp = cc.gemm_layout_f32(cin, k)
+  packed = cc.pack_weights_f32(layer.kernel).numpy()
+  assert packed.shape == (2 * cout, kp)
+  big_w, small_w = packed[:cout], packed[cout:]
+  b_fields = probes.descriptor(16, 512 if mutate == 'sbo' else 1024, 128)
+  tw = min(w, F32_SEG_W)
+  hw, segs = tw + k - 1, -(-w // tw)
+  m_pos = 128 * mt
+  npos = m_pos + (k - 1) * hw + (k - 1)
+  tiles = -(-(h * hw) // m_pos)
+  span, stages, ktot = k * k * chunk, kp // F32_K_STAGE, k * k * cin_pad
+  xs = [np.asarray(p.numpy(), np.float64) for p in cc.tf32_split(x)]
+  col = np.arange(8)
+  t4, hh = col % 4, col // 4
+  nn, kk = np.arange(n_blk)[:, None], 4 * np.arange(8)[None]
+  out = np.zeros((b, h, w, cout))
+  for img in range(b):
+    for seg in range(segs):
+      x0 = seg * tw
+      for tile in range(tiles):
+        gq = tile * m_pos + np.arange(npos)
+        sy = _pad_index(gq // hw - pad_t, h, pad_mode)
+        sx = _pad_index(x0 + gq % hw - pad_t, w, pad_mode)
+        inside = (sy >= 0) & (sx >= 0)
+        for n0 in range(0, cout, n_blk):
+          acc = np.zeros((m_pos, n_blk))
+          rem = c = 0
+          for s in range(stages):
+            if rem == 0:        # load_halo: zeros outside and past Cin
+              halo = []
+              for part in xs:
+                hv = np.zeros((npos, chunk))
+                lo, hi = c * chunk, min(cin, (c + 1) * chunk)
+                hv[inside, :hi - lo] = part[img, sy[inside], sx[inside],
+                                            lo:hi]
+                halo.append(hv)
+            sl = slice(s * F32_K_STAGE, (s + 1) * F32_K_STAGE)
+            stage = [_stage_rows(big_w[n0:n0 + n_blk, sl]),
+                     _stage_rows(small_w[n0:n0 + n_blk, sl])]
+            for q in range(min(4, (ktot - s * F32_K_STAGE) // 8)):
+              rq = rem + 8 * q
+              tap, j = rq // chunk, (rq % chunk) // 16
+              st = (rq % 16) // 8
+              dy, dx = divmod(tap, k)
+              ch = 16 * j + (4 * t4 + st + 2 * hh if mutate == 'perm' else
+                             4 * t4 + 2 * st + hh)
+              pos = np.arange(m_pos)[:, None] + dy * hw + dx
+              a_big, a_small = (hv[pos, ch[None]] for hv in halo)
+              at = _kmajor_address(32 * (q % 4), b_fields, nn, kk)
+              at = at[..., None] + np.arange(4)
+              b_big, b_small = (
+                  np.asarray(sg[at].view(np.float32)[..., 0], np.float64)
+                  for sg in stage)
+              acc += a_small @ b_big.T + a_big @ b_small.T + a_big @ b_big.T
+            rem += F32_K_STAGE
+            if rem >= span:
+              rem, c = 0, c + 1
+          q = tile * m_pos + np.arange(m_pos)
+          oy, ox = q // hw, q % hw
+          ok = (oy < h) & (ox < tw) & (x0 + ox < w)
+          out[img, oy[ok], x0 + ox[ok], n0:n0 + n_blk] = acc[ok]
+  y = torch.from_numpy(out) + layer.bias.double()
+  return y if layer.leakiness is None else layers.leaky_relu(y,
+                                                             layer.leakiness)
+
+
+F32_CASES = [(3, 40, 16, 5, 70), (4, 20, 32, 5, 19), (3, 8, 16, 9, 7),
+             (3, 12, 32, 3, 16), (4, 64, 16, 3, 9)]
+
+
+@pytest.mark.parametrize('mt', [1, 2])
+@pytest.mark.parametrize('pad_mode', ['reflection', 'replication', 'zero'])
+@pytest.mark.parametrize('k,cin,cout,h,w', F32_CASES)
+def test_f32_operand_replay_matches_conv_layer_plain(k, cin, cout, h, w,
+                                                     pad_mode, mt):
+  """Two 32-channel chunks, two column segments (one partial) and positions
+  across rows (5 x 70, k3); two 16-channel k4 chunks at a 19-wide image;
+  a single chunk with a partial last stage (Cin 8, k3: 144 of K); Cin 12
+  with zero channels; a tile taller than the image. Within 1e-5 of
+  max(1, max |ref|) of the f32 plain version."""
+  gen = torch.Generator().manual_seed(k * cin + cout)
+  x = torch.randn(1, h, w, cin, generator=gen)
+  w_ = torch.randn(k, k, cin, cout, generator=gen) * (2.0 / (k * k * cin)) ** .5
+  layer = cc.ChainLayer(w_, torch.randn(cout, generator=gen), 0.1)
+  want = cc.conv_layer_plain(x, layer, pad_mode).double()
+  got = _f32_replay(x, layer, pad_mode, mt, 16)
+  assert (got - want).abs().max().item() <= 1e-5 * max(
+      1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize('mutate', ['perm', 'sbo'])
+def test_f32_operand_replay_fails_with_a_mutated_layout(mutate):
+  gen = torch.Generator().manual_seed(5)
+  x = torch.randn(1, 4, 12, 32, generator=gen)
+  layer = cc.ChainLayer(torch.randn(3, 3, 32, 16, generator=gen) * 0.1,
+                        torch.zeros(16), None)
+  want = cc.conv_layer_plain(x, layer, 'zero').double()
+  got = _f32_replay(x, layer, 'zero', 1, 16, mutate)
+  assert (got - want).abs().max().item() > 1e-3
+
+
+def test_pack_weights_f32_layout():
+  """(2 Cout, kp) f32 rows: the big parts, then the small parts (low 13
+  bits clear), in the order (chunk, tap, 16 channels in F32_PERM order);
+  big + small = the weights within 2^-22, zeros past Cin and past
+  k·k·Cin_pad."""
+  assert sorted(cc.F32_PERM) == list(range(16))
+  assert cc.F32_PERM[:8] == (0, 4, 8, 12, 1, 5, 9, 13)
+  gen = torch.Generator().manual_seed(0)
+  kernel = torch.randn(3, 3, 40, 16, generator=gen)
+  packed = cc.pack_weights_f32(kernel)
+  cin_pad, chunk, kp = cc.gemm_layout_f32(40, 3)
+  assert (cin_pad, chunk, kp) == (64, 32, 576)
+  assert packed.dtype == torch.float32 and packed.shape == (32, 576)
+  assert not (packed.view(torch.int32) & 0x1FFF).any()
+  big, small = packed[:16].double(), packed[16:].double()
+  perm = torch.tensor(cc.F32_PERM)
+  padded = F.pad(kernel, (0, 0, 0, 24)).double()
+  for c in range(2):
+    for tap in range(9):
+      dy, dx = divmod(tap, 3)
+      for j in range(2):
+        at = c * 288 + tap * 32 + 16 * j
+        want = padded[dy, dx][c * 32 + 16 * j + perm].t()
+        got = big[:, at:at + 16] + small[:, at:at + 16]
+        assert ((got - want).abs() <= 2.0 ** -22 * want.abs()).all()
+  assert cc.gemm_layout_f32(8, 3) == (16, 16, 160)
+  assert not cc.pack_weights_f32(kernel[:, :, :8])[:, 144:].any()
+  assert cc.gemm_layout_f32(32, 4) == (32, 16, 512)
+  assert cc.gemm_layout_f32(512, 3) == (512, 32, 4608)
+
+
+def test_f32_layout_constants_match_the_kernel():
+  """The replay's constants are the ones compiled into conv_f32.cu; its B
+  descriptor is sm90.cuh's (128-byte swizzle, SBO 1024)."""
+  src = ''
+  for name in ('conv_f32.cu', 'sm90.cuh'):
+    with open(os.path.join(CSRC, name)) as f:
+      src += f.read()
+  const = lambda name: int(re.search(r'constexpr int {} = (\d+);'.format(
+      name), src).group(1))
+  assert const('kKStage') == F32_K_STAGE and const('kSegW') == F32_SEG_W
+  assert const('kPosBytes') == F32_POS_BYTES
+  assert 'return 128 * mt + (k - 1) * hw + (k - 1);' in src
+  assert 'split4(lo.x, hi.x, lo.y, hi.y, big[mt][0], small[mt][0]);' in src
+  assert 'split4(lo.z, hi.z, lo.w, hi.w, big[mt][1], small[mt][1]);' in src
+  assert 'constexpr int kPromote = 4;' in src
+  assert '((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62)' in src
+  assert 'const int cc = (cin <= 16 || k == 4) ? 16 : 32;' in src
 
 
 # --- K1: the route by shape and the dense-DFT roots ------------------------

@@ -206,6 +206,35 @@ def test_criteria_match_jax(name):
   np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
 
 
+def test_vgg_criterion_defaults_to_the_card(monkeypatch):
+  """``get_criterion`` called without a device builds its VGG19 on the
+  card, as every entry point of the port does unless the caller asks for
+  the CPU."""
+  from csmri_refinement_tpu_torch.models import vgg_loss
+  seen = []
+  monkeypatch.setattr(vgg_loss, 'VGGLoss',
+                      lambda *args, **kw: seen.append(kw['device']))
+  criteria.get_criterion(Configuration.from_dict(_conf_dict()), 'VGG19')
+  assert [torch.device(d).type for d in seen] == ['cuda']
+
+
+def test_runner_builds_criteria_on_its_device(monkeypatch):
+  """The standard Runner hands its own device to every criterion, so a
+  reconstruction run with a VGG19 loss puts the VGG19 beside its model
+  (the JAX Runner takes any criterion, VGG19 included)."""
+  from csmri_refinement_tpu_torch.training import runner as trunner
+  seen = []
+
+  def recording(conf, name, **kw):
+    seen.append((name, kw.get('device')))
+    return criteria.get_criterion(conf, name, device='cpu')
+  monkeypatch.setattr(trunner, 'get_criterion', recording)
+  conf_d = _conf_dict(losses=['MSE', 'L1'])
+  del conf_d['loss_name']
+  Runner(Configuration.from_dict(conf_d), 'train', 'cpu')
+  assert seen == [('MSE', torch.device('cpu')), ('L1', torch.device('cpu'))]
+
+
 @pytest.mark.parametrize('opt', [
     {'learning_rate': 0.1, 'lr_scheduler': 'multistep',
      'decay_steps': [2, 4], 'decay_factor': 0.5},
