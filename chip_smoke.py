@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch + CUDA port (``csmri_refinement_tpu_torch``).
 
     python3 chip_smoke.py [--probes-only | --int8-only [--tree DIR] |
-                           --f32-only [--tree DIR]]
+                           --f32-only [--tree DIR] | --scarseg-only]
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit. Phases, each failing loudly with a non-zero exit:
@@ -102,8 +102,35 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     share of the route's bound (3 TF32 products per MAC at 495 TFLOP/s;
     the direct stem's bytes) and of the f32-FMA bound, beside its plain
     version and the faster cuDNN f32 call (plain or channels-last) under
-    cuDNN's heuristic and under ``cudnn.benchmark``, and the sums.
+    cuDNN's heuristic and under ``cudnn.benchmark``, and the sums;
+18. the paper's data and evaluation path at 512²: (1) a ScarSeg-format
+    tree written under the git-ignored ``resources/chip_smoke/`` (the 36
+    cases of ``STATIC_SPLIT``, phantom LGE volumes 512² × 4 slices int16
+    and their uint8 labels, ~150 MB, removed at the end), its write and a
+    fold's load timed; (2) ``configs/1-recnet.json`` as written through the
+    training CLI (``--data-dir``, one epoch: 5 steps at B = 20 and 2
+    validation batches), counters around it: 21 K1 and 15 K1-bwd; K1 and
+    K1-bwd at (20, 512, 512, 2) against their plain versions; (3) the
+    validate CLI on its best checkpoint (metrics at -b 20, 24 ``.mat``
+    records at -b 1 --raw), the first 4 slices again on the CPU: each
+    prediction within 5e-4 of max |target|, PSNR within 0.01 dB, SSIM
+    within 1e-4; ``eval_results`` over both record dirs (24 finite rows,
+    equal means over the 4 common slices); (4) ``configs/2-refinement.json``
+    through the CLI (a copy naming (2)'s checkpoint as its RecNet,
+    ``vgg_random_init``, 10 + 10 slices: 2 steps and 2 validation batches
+    at B = 5): 3 K1 per generator forward, 10 K2 f32 per validation
+    forward, each K2 launch of one forward against its plain version, then
+    validate -b 5 -i with its PNGs decoded; (5)
+    ``configs/3-train-segmentation-unet.json`` through the CLI (16 + 8
+    slices: 2 steps and 1 validation batch at B = 8): 18 K2 f32 per eval
+    forward and none in train mode, each launch of one eval forward held to
+    its plain version, then validate; (6) the three train steps at 512²
+    (TF32 off and on), the loader's host ms per batch and the step loop's
+    wait with prefetch, the RecNet's validation forward at B = 1 and 20,
+    K1 and K1-bwd beside their plain versions, cuFFT and the bound, and
+    the GAN's 10 K2 f32 layers at 512², B = 5 as in 17 (e).
 
+``--scarseg-only`` runs phases 1, 2 and 18 alone (no result line).
 ``--f32-only`` runs phases 1 and 2 for the conv sources and times K2's f32
 route on the 18 segmentation layer shapes (seeded weights) after holding
 each to its plain version (no result line); with ``--tree DIR`` an earlier
@@ -127,10 +154,13 @@ import json
 import math
 import os
 import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+import zlib
 
 import torch
 import torch.nn.functional as F
@@ -236,6 +266,16 @@ SEG_MARGIN_REL = 1e-4
 # per flipped pixel of its class; 1e-3 leaves room for the near-tie pixels
 # above and none for a wrong class map.
 SIS_ATOL = 1e-3
+# Phase 18: the paper's configs as written on a ScarSeg-format tree of the
+# 36 cases at 512² (4 slices each: 96 train, 24 validation slices).
+# configs/1-recnet.json trains at B = 20: 5 steps (the last of 16) and 2
+# validation batches (20 + 4).
+SCAR_SIZE, SCAR_SLICES = 512, 4
+RECNET_CONFIG = os.path.join(REPO, 'configs', '1-recnet.json')
+REC_BATCH, REC_STEPS, REC_VAL_BATCHES = 20, 5, 2
+# validate card vs CPU on the same slices: the f32 forward bars of phase 6
+# (predictions within E2E_ATOL of max |target|), the PSNR bar tighter.
+SCAR_PSNR_DB, SCAR_SSIM = 0.01, 1e-4
 
 
 def fail(msg):
@@ -662,7 +702,7 @@ def fixed_batches(conf, n):
   """n host batches of the config's phantoms with fixed varden masks."""
   from csmri_refinement_tpu_torch.data import load_dataset
   from csmri_refinement_tpu_torch.ops import masks
-  data = load_dataset(conf, 'Synthetic', 'train')
+  data = load_dataset(conf, None, 'Synthetic', 'train')
   gen = torch.Generator().manual_seed(SEED + 5)
   out = []
   for i in range(n):
@@ -1378,7 +1418,7 @@ def gan_batches(conf, n, size):
   """n host batches of the config's phantoms with fixed varden masks."""
   from csmri_refinement_tpu_torch.data import load_dataset
   from csmri_refinement_tpu_torch.ops import masks
-  data = load_dataset(conf, 'Synthetic', 'train')
+  data = load_dataset(conf, None, 'Synthetic', 'train')
   gen = torch.Generator().manual_seed(SEED + 7)
   out = []
   for i in range(n):
@@ -1628,12 +1668,12 @@ def sis_gan_phase(gan_conf_path, gen_state, seg_conf_d, best):
   conf = Configuration.from_json(conf_path)
   runner = build_runner(conf, 'adversarial', 'train', DEVICE)
   runner.gen.load_state_dict(gen_state)
-  loader = DataLoader(load_dataset(conf, 'Synthetic', 'val'), GAN_BATCH)
+  loader = DataLoader(load_dataset(conf, None, 'Synthetic', 'val'), GAN_BATCH)
   sync()
   dc_kernel.dc_cuda.launches = 0
   conv_chain.conv_layer_cuda.launches = 0
   conv_chain.conv_layer_f32_cuda.launches = 0
-  val_losses, val_metrics = runner.validate(loader)
+  _, val_losses, val_metrics = runner.validate(loader)
   sync()
   k1, k2 = dc_kernel.dc_cuda.launches, conv_chain.conv_layer_cuda.launches
   k2_f32 = conv_chain.conv_layer_f32_cuda.launches
@@ -1659,11 +1699,11 @@ def sis_gan_phase(gan_conf_path, gen_state, seg_conf_d, best):
   return score, k1, k2
 
 
-def chain_launches(net, x):
-  """The K2 launches of ``net``'s eval-mode forward on ``x``, redone one by
-  one: each chain unit's input is caught on the way (a forward pre-hook),
-  then its layers are launched on it in turn. Returns [(x, layer, pad,
-  y)], in the forward's order."""
+def chain_launches(net, *net_inputs):
+  """The K2 launches of ``net``'s eval-mode forward on ``net_inputs``,
+  redone one by one: each chain unit's input is caught on the way (a forward
+  pre-hook), then its layers are launched on it in turn. Returns [(x,
+  layer, pad, y)], in the forward's order."""
   from csmri_refinement_tpu_torch.models.unet import ConvEncodeUnit
   from csmri_refinement_tpu_torch.ops import conv_chain
   from csmri_refinement_tpu_torch.utils.precision import full_f32
@@ -1673,7 +1713,7 @@ def chain_launches(net, x):
            for m in net.modules() if isinstance(m, ConvEncodeUnit)]
   try:
     with torch.no_grad(), full_f32():
-      net(x)
+      net(*net_inputs)
   finally:
     for hook in hooks:
       hook.remove()
@@ -1697,7 +1737,7 @@ def seg_inputs(size, n, fold='val', noise=0.0):
       synthetic_segmentation_conf)
   from csmri_refinement_tpu_torch.utils.config import Configuration
   conf = Configuration.from_dict(synthetic_segmentation_conf(size, n, n))
-  data = load_dataset(conf, 'Synthetic', fold)
+  data = load_dataset(conf, None, 'Synthetic', fold)
   inp = torch.stack([torch.from_numpy(data[i]['inp']) for i in range(n)])
   if noise:
     inp = inp + noise * torch.randn(
@@ -1860,6 +1900,426 @@ def seg_timing_phase(runner, score, calls, line):
   return f32_layer_table('segmentation', calls, line)
 
 
+def decode_png(path):
+  """(width, height, pixels) of an 8-bit grayscale PNG, its zlib stream
+  inflated and each row's filter byte checked to be 0 (the validate CLI's
+  PNGs); fails on anything else."""
+  with open(path, 'rb') as f:
+    data = f.read()
+  require(data[:8] == b'\x89PNG\r\n\x1a\n', path + ' is not a PNG')
+  pos, chunks = 8, {}
+  while pos < len(data):
+    n, kind = struct.unpack('>I4s', data[pos:pos + 8])
+    body = data[pos + 8:pos + 8 + n]
+    crc, = struct.unpack('>I', data[pos + 8 + n:pos + 12 + n])
+    require(zlib.crc32(kind + body) & 0xffffffff == crc,
+            'bad CRC in ' + path)
+    chunks[kind] = chunks.get(kind, b'') + body
+    pos += 12 + n
+  width, height, depth, color = struct.unpack('>IIBB', chunks[b'IHDR'][:10])
+  require(depth == 8 and color == 0, path + ' is not 8-bit grayscale')
+  rows = zlib.decompress(chunks[b'IDAT'])
+  require(len(rows) == height * (width + 1), 'bad IDAT size in ' + path)
+  require(all(rows[r * (width + 1)] == 0 for r in range(height)),
+          'unexpected row filter in ' + path)
+  return width, height, rows
+
+
+def scarseg_data_phase(root):
+  """Phase 18 (1): the ScarSeg-format tree of 36 cases at 512² × 4 slices
+  under ``root``, then a fold's load timed."""
+  from csmri_refinement_tpu_torch.data import datasets, load_dataset
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  t0 = time.perf_counter()
+  written = datasets.write_scarseg_phantoms(root, SCAR_SIZE, SCAR_SLICES,
+                                            seed=SEED)
+  write_s = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  train_set = load_dataset(Configuration.from_json(RECNET_CONFIG), root,
+                           'ScarSeg', 'train')
+  load_s = time.perf_counter() - t0
+  print('ScarSeg tree: 36 cases of {}^2 x {} slices, {:.1f} MB written in '
+        '{:.2f} s; train fold ({} slices) loaded in {:.2f} s (host)'.format(
+            SCAR_SIZE, SCAR_SLICES, written / 1e6, write_s, len(train_set),
+            load_s))
+  require(len(train_set) == 24 * SCAR_SLICES, 'expected 96 training slices')
+
+
+def scarseg_recnet_phase(data_dir, run_root):
+  """Phase 18 (2): configs/1-recnet.json as written through the training
+  CLI, one epoch on the tree, counters around it. Returns (the runner,
+  its best checkpoint, K1 and K1-bwd launches)."""
+  from csmri_refinement_tpu_torch import train
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  sync()
+  dc_kernel.dc_cuda.launches = 0
+  dc_kernel.dc_bwd_cuda.launches = 0
+  t0 = time.perf_counter()
+  runner = train.main([RECNET_CONFIG, '--data-dir', data_dir, '--log-dir',
+                       run_root, '--device', DEVICE, '--conf',
+                       'num_epochs=1'])
+  sync()
+  secs = time.perf_counter() - t0
+  k1, k1_bwd = dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches
+  best = glob.glob(os.path.join(run_root, '1-recnet_*', 'best_loss_MSE',
+                                '*.ckpt'))
+  print('ScarSeg 1-recnet: {} steps (B {}) + {} validation batches in {:.1f} '
+        's, K1 launches {}, K1-bwd launches {}'.format(
+            runner.step, REC_BATCH, REC_VAL_BATCHES, secs, k1, k1_bwd))
+  require(runner.step == REC_STEPS, 'expected 5 steps (96 slices / 20)')
+  require(k1 == 3 * (REC_STEPS + REC_VAL_BATCHES) and k1_bwd == 3 * REC_STEPS,
+          'expected 21 K1 and 15 K1-bwd launches')
+  require(len(best) == 1, 'expected one best checkpoint by loss_MSE')
+  return runner, best[0], k1, k1_bwd
+
+
+def scarseg_dc_phase(line):
+  """Phase 18 (2, 6): K1 and K1-bwd at (20, 512, 512, 2) against their
+  plain versions, then as device time beside them, cuFFT's composition and
+  the bytes bound. Returns {name: (err, ms, plain ms, bound ms, by,
+  cuFFT ms)}."""
+  from csmri_refinement_tpu_torch.ops import dc_kernel, fft, masks
+  b, n = REC_BATCH, SCAR_SIZE
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+  x = torch.randn(b, n, n, 2, device=DEVICE, generator=gen)
+  mask = masks.cartesian_mask(gen, (b, n, n), 8, device=DEVICE)
+  m = mask[..., None].contiguous()
+  k0 = torch.randn(b, n, n, 2, device=DEVICE, generator=gen) * m
+  xc, k0c = fft.unpack_complex(x), fft.unpack_complex(k0)
+  flops = 10 * b * n * n * math.log2(n * n)
+  out = {}
+  for name, tol, nbytes, kern, plain, lib in (
+      ('K1', F32_ATOL, 28, lambda: dc_kernel.dc_cuda(x, k0, m),
+       lambda: dc_kernel.dc_plain(x, k0, m),
+       lambda: torch.fft.ifft2((1 - mask) * torch.fft.fft2(
+           xc, norm='ortho') + k0c, norm='ortho')),
+      ('K1-bwd', GRAD_ATOL, 20, lambda: dc_kernel.dc_bwd_cuda(x, m),
+       lambda: dc_kernel.dc_plain_vjp(x, m, False)[0],
+       lambda: torch.fft.ifft2((1 - mask) * torch.fft.fft2(
+           xc, norm='ortho'), norm='ortho'))):
+    got = kern()
+    sync()
+    err = (got - plain()).abs().max().item()
+    print('{} dc 1-recnet shape {}x{}x{}x2: max|kernel-plain| {:.3e} (tol '
+          '{})'.format(name, b, n, n, err, tol))
+    require(err <= tol, name + ' differs from its plain version at 512^2, '
+            'B = 20')
+    b_ms, by = bound(flops, nbytes * b * n * n, F32_FLOPS)
+    ms, plain_ms, lib_ms = graph_ms(kern), graph_ms(plain), graph_ms(lib)
+    print('{} dc B{} {}^2: kernel {:.4f} ms, plain {:.4f} ms, cuFFT {:.4f} '
+          'ms, bound {:.4f} ms ({}) ({})'.format(name, b, n, ms, plain_ms,
+                                                 lib_ms, b_ms, by, line))
+    out[name] = (err, ms, plain_ms, b_ms, by, lib_ms)
+  return out
+
+
+def mat_records(out_dir):
+  from scipy.io import loadmat
+  return {os.path.basename(p): loadmat(p)
+          for p in glob.glob(os.path.join(out_dir, '*.mat'))}
+
+
+def scarseg_validate_phase(data_dir, best, out_root, line):
+  """Phase 18 (3): the validate CLI on the run's best checkpoint: metrics
+  at -b 20, .mat records at -b 1 --raw, on the card; the first 4 slices
+  on the card and on the CPU, held to each other; eval_results over both
+  record dirs."""
+  from csmri_refinement_tpu_torch import eval_results, validate
+  common = [RECNET_CONFIG, best, '--data-dir', data_dir, '-f', 'val']
+  runs = {}
+  for label, device, flags in (
+      ('metrics -b 20', DEVICE, ['-b', '20']),
+      ('raw -b 1', DEVICE, ['-b', '1', '--raw']),
+      ('metrics, 4 slices', DEVICE, ['-b', '4', '--conf',
+                                     'num_validation_subset_samples=4']),
+      ('metrics, 4 slices', 'cpu', ['-b', '4', '--conf',
+                                    'num_validation_subset_samples=4']),
+      ('raw, 4 slices', 'cpu', ['-b', '1', '--raw', '--conf',
+                                'num_validation_subset_samples=4'])):
+    sync()
+    t0 = time.perf_counter()
+    res = validate.main(common + flags + ['--device', device, '--out-dir',
+                                          os.path.join(out_root, device)])
+    sync()
+    secs = time.perf_counter() - t0
+    runs[(label, device)] = res['ScarSeg']
+    print('validate {} on {}: {:.2f} s (CLI, host clock), metrics {}'.format(
+        label, device, secs, res['ScarSeg']['metrics']))
+  card = mat_records(runs[('raw -b 1', DEVICE)]['output_dir'])
+  cpu = mat_records(runs[('raw, 4 slices', 'cpu')]['output_dir'])
+  require(len(card) == 24 and len(cpu) == 4 and set(cpu) <= set(card),
+          'expected 24 card and 4 CPU .mat records')
+  worst = 0.0
+  for name, want in cpu.items():
+    got = card[name]
+    require(str(got['case'][0]) == str(want['case'][0]) and
+            int(got['slice'][0]) == int(want['slice'][0]),
+            'record names differ for ' + name)
+    err = float(abs(got['pred'] - want['pred']).max())
+    bar = E2E_ATOL * float(abs(want['target']).max())
+    require(err <= bar and got['pred'].shape == (SCAR_SIZE, SCAR_SIZE, 2),
+            'card and CPU predictions differ for {} ({:.3e} > {:.3e})'.format(
+                name, err, bar))
+    worst = max(worst, err / bar)
+  want = runs[('metrics, 4 slices', 'cpu')]['metrics']
+  got = runs[('metrics, 4 slices', DEVICE)]['metrics']
+  print('validate card vs CPU, 4 slices at {}^2: predictions within {:.3f} '
+        'of the bar ({} of max|target|); PSNR {:.6f} / {:.6f} dB, SSIM {:.6f}'
+        ' / {:.6f}'.format(SCAR_SIZE, worst, E2E_ATOL, got['psnr'],
+                           want['psnr'], got['ssim'], want['ssim']))
+  require(abs(got['psnr'] - want['psnr']) <= SCAR_PSNR_DB and
+          abs(got['ssim'] - want['ssim']) <= SCAR_SSIM,
+          'card and CPU validation metrics differ')
+  src = os.path.join(data_dir, 'scar_segmentation')
+  evals = {}
+  for side, device, key in (('card', DEVICE, 'raw -b 1'),
+                            ('cpu', 'cpu', 'raw, 4 slices')):
+    res_dir = os.path.join(out_root, 'eval_' + side)
+    os.makedirs(res_dir)
+    _, evals[side] = eval_results.main([
+        '--src-path', src, '--results-path', res_dir, '--device', device,
+        runs[(key, device)]['output_dir']])
+  card, cpu = evals['card'], evals['cpu']
+  require(len(card['psnr']) == 24 and all(
+      math.isfinite(v) for m in card.values() for v in m.values()),
+          'eval_results: expected 24 finite rows')
+  keys = list(cpu['psnr'])
+  for metric, bar in (('psnr', SCAR_PSNR_DB), ('ssim', SCAR_SSIM)):
+    a = sum(card[metric][k] for k in keys) / len(keys)
+    b = sum(cpu[metric][k] for k in keys) / len(keys)
+    print('eval_results {} over the 4 common slices: card {:.6f}, CPU {:.6f}'
+          .format(metric, a, b))
+    require(abs(a - b) <= bar, 'eval_results means differ for ' + metric)
+  print('eval_results card: {} rows, PSNR mean {:.4f} dB, SSIM mean {:.4f}'
+        .format(len(card['psnr']), sum(card['psnr'].values()) / 24,
+                sum(card['ssim'].values()) / 24))
+
+
+def hold_launches(label, calls, expected, batch):
+  """Phase 18: ``calls`` ([(x, layer, pad, y)], ``chain_launches``) are
+  ``expected`` K2 f32 launches, each within F32_ATOL of max(1, max |ref|)
+  of its plain version. Returns the largest |kernel - plain|."""
+  from csmri_refinement_tpu_torch.ops import conv_chain
+  require(len(calls) == expected, 'expected {} K2 launches per {} forward, '
+          'got {}'.format(expected, label, len(calls)))
+  worst = 0.0
+  for xi, layer, pad, y in calls:
+    want = conv_chain.conv_layer_plain(xi, layer, pad)
+    err = (y - want).abs().max().item()
+    tol = F32_ATOL * max(1.0, want.abs().max().item())
+    require(err <= tol, 'K2 f32 {} layer {} differs from its plain version '
+            '({:.3e} > {:.3e})'.format(label, tuple(xi.shape), err, tol))
+    worst = max(worst, err)
+  print('K2 f32 {} forward {}^2 B{}: {} launches, max|kernel-plain| {:.3e} '
+        '(tol {} of max(1, max|ref|))'.format(label, SCAR_SIZE, batch,
+                                              expected, worst, F32_ATOL))
+  return worst
+
+
+def scarseg_gan_phase(data_dir, best, work, line):
+  """Phase 18 (4): configs/2-refinement.json through the training CLI, its
+  frozen RecNet from (2)'s checkpoint (a copy of the config naming it),
+  2 steps and 2 validation batches at 512², B = 5, counters around it;
+  every K2 f32 launch of one validation forward held to its plain
+  version; then validate -i and its PNGs decoded. Returns (the config
+  path, K1 and K2 launches, the largest |kernel - plain|, the forward's
+  launches)."""
+  from csmri_refinement_tpu_torch import train, validate
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
+  with open(os.path.join(REPO, 'configs', '2-refinement.json')) as f:
+    conf_d = json.load(f)
+  conf_d['generator_model']['pretrained_model']['pretrained_weights'] = [
+      best, 'model']
+  conf_path = os.path.join(work, '2-refinement.json')
+  with open(conf_path, 'w') as f:
+    json.dump(conf_d, f)
+  overrides = ['vgg_random_init=true', 'num_train_subset_samples=10',
+               'num_validation_subset_samples=10']
+  sync()
+  dc_kernel.dc_cuda.launches = 0
+  dc_kernel.dc_bwd_cuda.launches = 0
+  conv_chain.conv_layer_cuda.launches = 0
+  conv_chain.conv_layer_f32_cuda.launches = 0
+  t0 = time.perf_counter()
+  runner = train.main([conf_path, '--data-dir', data_dir, '--log-dir',
+                       os.path.join(work, 'runs'), '--device', DEVICE,
+                       '--conf', 'num_epochs=1'] + overrides)
+  sync()
+  secs = time.perf_counter() - t0
+  k1, k1_bwd = dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches
+  k2, k2_f32 = (conv_chain.conv_layer_cuda.launches,
+                conv_chain.conv_layer_f32_cuda.launches)
+  print('ScarSeg 2-refinement: {} steps + 2 validation batches at {}^2 B{} '
+        'in {:.1f} s, K1 launches {}, K1-bwd {}, K2 {} (f32 routes {})'
+        .format(runner.step, SCAR_SIZE, GAN_BATCH, secs, k1, k1_bwd, k2,
+                k2_f32))
+  require(runner.step == 2, 'expected 2 GAN steps (10 slices / 5)')
+  require(k1 == 3 * (2 + 2) and k1_bwd == 0,
+          'expected 3 K1 launches per generator forward, no K1-bwd')
+  require(k2 == k2_f32 == 10 * 2,
+          'expected 10 K2 f32 launches per validation forward')
+  conf = runner.conf
+  host = next(iter(DataLoader(load_dataset(conf, data_dir, 'ScarSeg', 'val'),
+                              GAN_BATCH)))
+  batch = runner.preparer.prepare_val(host)
+  runner.gen.eval()
+  calls = chain_launches(runner.gen, *[batch[k]
+                                       for k in runner.gen_input_keys])
+  worst = hold_launches('GAN validation', calls, 10, GAN_BATCH)
+  ckpt = glob.glob(os.path.join(work, 'runs', '2-refinement_*',
+                                'periodic-chkpt_*.ckpt'))
+  require(len(ckpt) == 1, 'expected one periodic GAN checkpoint')
+  res = validate.main([conf_path, ckpt[0], '--data-dir', data_dir, '-b',
+                       str(GAN_BATCH), '-i', '--device', DEVICE,
+                       '--out-dir', os.path.join(work, 'gan_out'), '--conf']
+                      + overrides)['ScarSeg']
+  pngs = sorted(glob.glob(os.path.join(res['output_dir'], '*_pred.png')))
+  require(len(pngs) == 10, 'expected 10 prediction PNGs')
+  for path in pngs:
+    width, height, _ = decode_png(path)
+    require((width, height) == (SCAR_SIZE, SCAR_SIZE), path + ' size')
+  print('validate -b 5 -i of the GAN: {} PNGs of {}^2 decoded, metrics {}'
+        .format(len(pngs), SCAR_SIZE, res['metrics']))
+  return conf_path, k1, k2, worst, calls, runner
+
+
+def scarseg_seg_phase(data_dir, work):
+  """Phase 18 (5): configs/3-train-segmentation-unet.json through the
+  training CLI, 2 steps and 1 validation batch at 512², B = 8; every K2
+  launch of one eval forward held to its plain version; then validate.
+  Returns (the runner, K2 launches, the largest |kernel - plain|)."""
+  from csmri_refinement_tpu_torch import train, validate
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.ops import conv_chain
+  config = os.path.join(REPO, 'configs', '3-train-segmentation-unet.json')
+  overrides = ['num_train_subset_samples=16', 'num_validation_subset_samples=8']
+  sync()
+  conv_chain.conv_layer_cuda.launches = 0
+  conv_chain.conv_layer_f32_cuda.launches = 0
+  t0 = time.perf_counter()
+  runner = train.main([config, '--data-dir', data_dir, '--log-dir',
+                       os.path.join(work, 'seg_runs'), '--device', DEVICE,
+                       '--conf', 'num_epochs=1'] + overrides)
+  sync()
+  secs = time.perf_counter() - t0
+  k2, k2_f32 = (conv_chain.conv_layer_cuda.launches,
+                conv_chain.conv_layer_f32_cuda.launches)
+  print('ScarSeg segmentation: {} steps + 1 validation batch at {}^2 B{} in '
+        '{:.1f} s, K2 launches {} (f32 routes {})'.format(
+            runner.step, SCAR_SIZE, SEG_BATCH, secs, k2, k2_f32))
+  require(runner.step == 2, 'expected 2 segmentation steps (16 / 8)')
+  require(k2 == k2_f32 == SEG_CHAIN_LAYERS,
+          'expected 18 K2 f32 launches per eval forward and none in train '
+          'mode')
+  host = next(iter(DataLoader(load_dataset(runner.conf, data_dir, 'ScarSeg',
+                                           'val'), SEG_BATCH)))
+  batch = runner.preparer.prepare_val(host)
+  runner.model.eval()
+  calls = chain_launches(runner.model, batch['inp'])
+  worst = hold_launches('segmentation eval', calls, SEG_CHAIN_LAYERS,
+                        SEG_BATCH)
+  best = glob.glob(os.path.join(work, 'seg_runs', '*', 'best_dice_class_1',
+                                '*.ckpt'))
+  require(len(best) == 1, 'expected one best checkpoint by dice_class_1')
+  metrics = validate.main([config, best[0], '--data-dir', data_dir, '-b',
+                           str(SEG_BATCH), '--device', DEVICE, '--conf']
+                          + overrides)['ScarSeg']['metrics']
+  print('validate of the segmentation U-Net: {}'.format(metrics))
+  require(all(0 <= metrics[k] <= 1 for k in ('dice_class_0',
+                                                'dice_class_1')),
+          'segmentation dice out of range')
+  return runner, k2, worst
+
+
+def step_times(label, runner, batch, batch_size, line):
+  """ms per train step, TF32 off and on, CUDA events around whole steps on
+  one prepared batch after warm-up."""
+  step_ms = {}
+  for tf32 in (False, True):
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    step_ms[tf32] = time_ms(lambda: runner.train_batch(batch), iters=5,
+                            warmup=2)
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  for tf32, ms in step_ms.items():
+    print('{} train step {}^2 f32 B{} TF32 {}: {:.3f} ms, {:.1f} slices/s '
+          '({})'.format(label, SCAR_SIZE, batch_size, 'on' if tf32 else 'off',
+                        ms, batch_size / ms * 1e3, line))
+
+
+def scarseg_timings(data_dir, rec_runner, gan_runner, seg_runner, line):
+  """Phase 18 (6): train steps of the three configs at 512², TF32 off and
+  on; the loader's host ms per batch without prefetch and the step loop's
+  wait for a batch with it; the RecNet's validation forward at B = 1 and
+  20."""
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  conf = rec_runner.conf
+  train_set = load_dataset(conf, data_dir, 'ScarSeg', 'train')
+  loader = DataLoader(train_set, REC_BATCH, shuffle=True, seed=SEED,
+                      num_workers=conf.num_data_workers, prefetch=1)
+  t0 = time.perf_counter()
+  hosts = list(loader)
+  host_ms = (time.perf_counter() - t0) * 1e3 / len(hosts)
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+  batch = rec_runner.preparer.prepare_train(gen, hosts[0])
+  step_times('1-recnet', rec_runner, batch, REC_BATCH, line)
+  loader = DataLoader(train_set, REC_BATCH, shuffle=True, seed=SEED,
+                      num_workers=conf.num_data_workers, prefetch=2)
+  sync()
+  t0 = time.perf_counter()
+  rec_runner.train_epoch(loader, 2, steps_per_train_summary=100)
+  sync()
+  epoch_ms = (time.perf_counter() - t0) * 1e3 / len(loader)
+  print('1-recnet loader at {}^2 B{} ({} threads): host {:.2f} ms per batch '
+        'without prefetch; with prefetch 2 the step loop waits {:.2f} ms per '
+        'batch in next(loader), {:.2f} ms per step in all ({})'.format(
+            SCAR_SIZE, REC_BATCH, conf.num_data_workers, host_ms,
+            loader.wait_s * 1e3 / len(loader), epoch_ms, line))
+  val_set = load_dataset(conf, data_dir, 'ScarSeg', 'val')
+  for b in (1, REC_BATCH):
+    host = next(iter(DataLoader(val_set, b)))
+    vbatch = rec_runner.preparer.prepare_val(host)
+    ms = time_ms(lambda: rec_runner.predict(vbatch), iters=5, warmup=2)
+    print('1-recnet validation forward {}^2 B{}: {:.3f} ms, {:.1f} slices/s '
+          '({})'.format(SCAR_SIZE, b, ms, b / ms * 1e3, line))
+  host = next(iter(DataLoader(load_dataset(gan_runner.conf, data_dir,
+                                           'ScarSeg', 'train'), GAN_BATCH)))
+  step_times('2-refinement', gan_runner, gan_runner.preparer.prepare_train(
+      gen, host), GAN_BATCH, line)
+  host = next(iter(DataLoader(load_dataset(seg_runner.conf, data_dir,
+                                           'ScarSeg', 'train'), SEG_BATCH)))
+  step_times('segmentation', seg_runner, seg_runner.preparer.prepare_train(
+      gen, host), SEG_BATCH, line)
+
+
+def scarseg_phase(line):
+  """Phase 18: the paper's three configs on a ScarSeg-format tree at 512²,
+  the validate and eval_results CLIs; the tree is removed after. Returns
+  the launches and errors for the kernels line."""
+  os.makedirs(GAN_DIR, exist_ok=True)
+  work = tempfile.mkdtemp(prefix='scarseg_', dir=GAN_DIR)
+  try:
+    data_dir = os.path.join(work, 'data')
+    scarseg_data_phase(data_dir)
+    rec_runner, best, k1, k1_bwd = scarseg_recnet_phase(
+        data_dir, os.path.join(work, 'runs'))
+    dc = scarseg_dc_phase(line)
+    scarseg_validate_phase(data_dir, best, os.path.join(work, 'out'), line)
+    _, gan_k1, gan_k2, gan_err, gan_calls, gan_runner = scarseg_gan_phase(
+        data_dir, best, work, line)
+    seg_runner, seg_k2, seg_err = scarseg_seg_phase(data_dir, work)
+    scarseg_timings(data_dir, rec_runner, gan_runner, seg_runner, line)
+    f32_layer_table('GAN validation {}^2'.format(SCAR_SIZE),
+                    [c[:3] for c in gan_calls], line)
+  finally:
+    shutil.rmtree(work, ignore_errors=True)
+  return {'k1': k1 + gan_k1, 'k1_bwd': k1_bwd, 'k2_f32': gan_k2 + seg_k2,
+          'dc_err': dc['K1'][0], 'dc_bwd_err': dc['K1-bwd'][0],
+          'f32_err': max(gan_err, seg_err)}
+
+
 def build_phase(names):
   """Phase 2: build the named kernel sources in parallel; print each
   kernel's ptxas lines, and fail if ptxas drained a wgmma pipeline
@@ -1885,6 +2345,7 @@ def main(argv=None):
   probes_only = '--probes-only' in argv
   int8_only_mode = '--int8-only' in argv
   f32_only_mode = '--f32-only' in argv
+  scarseg_only = '--scarseg-only' in argv
   tree = os.path.realpath(argv[argv.index('--tree') + 1]) if '--tree' in \
       argv else REPO
   require(os.path.commonpath([tree, REPO]) == REPO,
@@ -1918,6 +2379,9 @@ def main(argv=None):
     f32_only(P, line)
     return
   build_phase(native.KERNELS)
+  if scarseg_only:     # phases 1, 2 and 18 alone
+    print(json.dumps(scarseg_phase(line)))
+    return
 
   # Phase 3: DC kernel
   dc_err, dc_inputs = dc_phase()
@@ -2014,8 +2478,8 @@ def main(argv=None):
   # Phase 9: the training main path
   runner, train_fwd, train_bwd = train_main_path()
   from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
-  val_set = load_dataset(runner.conf, 'Synthetic', 'val')
-  val_losses, val_metrics = runner.validate(
+  val_set = load_dataset(runner.conf, None, 'Synthetic', 'val')
+  _, val_losses, val_metrics = runner.validate(
       DataLoader(val_set, TRAIN_BATCH))
   vals = {k: v.value for k, v in list(val_losses.items()) +
           list(val_metrics.items())}
@@ -2089,8 +2553,8 @@ def main(argv=None):
   # Phase 16: the GAN refinement path
   gan_runner, gan_conf_path, frozen, gan_k1, gan_k2 = gan_cli_phase(runner)
   from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
-  val_losses, val_metrics = gan_runner.validate(DataLoader(
-      load_dataset(gan_runner.conf, 'Synthetic', 'val'), GAN_BATCH))
+  _, val_losses, val_metrics = gan_runner.validate(DataLoader(
+      load_dataset(gan_runner.conf, None, 'Synthetic', 'val'), GAN_BATCH))
   vals = {k: v.value for k, v in list(val_losses.items()) +
           list(val_metrics.items())}
   print('GAN main path validation: {}'.format(vals))
@@ -2112,13 +2576,17 @@ def main(argv=None):
   seg_calls, seg_f32_err = seg_kernel_checks(score)
   seg_parity_phase(seg_conf_d, seg_best)
   f32 = seg_timing_phase(seg_runner, score, seg_calls, line)
+  del seg_runner, score, seg_calls, gpu_runner, runner
+
+  # Phase 18: the paper's data and evaluation path at 512²
+  scar = scarseg_phase(line)
 
   kernels = [
       {'name': 'dc', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
        'replaces': 'csmri_refinement_tpu/ops/dc_pallas.py:36',
-       'launches': dc_launches + train_fwd + gan_k1 + sis_k1,
-       'max_abs_err': dc_err,
+       'launches': dc_launches + train_fwd + gan_k1 + sis_k1 + scar['k1'],
+       'max_abs_err': max(dc_err, scar['dc_err']),
        'ms': dc_ms,
        'plain_ms': dc_plain_ms, 'bound_ms': dc_bound,
        'bound_by': dc_by,
@@ -2134,15 +2602,16 @@ def main(argv=None):
       {'name': 'conv_chain_f32', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/conv_f32.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
-       'launches': gan_k2 + seg_k2 + sis_k2,
-       'max_abs_err': max(gan_f32_err, seg_f32_err),
+       'launches': gan_k2 + seg_k2 + sis_k2 + scar['k2_f32'],
+       'max_abs_err': max(gan_f32_err, seg_f32_err, scar['f32_err']),
        'ms': f32['ms'], 'plain_ms': f32['plain_ms'],
        'bound_ms': f32['bound_ms'], 'bound_by': 'operations',
        'library_ms': f32['cudnn_best_ms']},
       {'name': 'dc_bwd', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
        'replaces': 'csmri_refinement_tpu/ops/dc.py:99',
-       'launches': train_bwd, 'max_abs_err': bwd_err, 'ms': bwd_ms,
+       'launches': train_bwd + scar['k1_bwd'],
+       'max_abs_err': max(bwd_err, scar['dc_bwd_err']), 'ms': bwd_ms,
        'plain_ms': bwd_plain_ms, 'bound_ms': bwd_bound,
        'bound_by': bwd_by,
        'library_ms': bwd_lib_ms},

@@ -12,8 +12,11 @@ rewritten by hand in CUDA C++ under ``csrc/``:
 * ``ops/conv_chain.py`` + ``csrc/conv_chain.cu`` — the SAME-conv chain with
   folded BN (JAX ``ops/conv_pallas.py``, float mode).
 
-Entry points: ``build_flagship`` (serving forward) and the trainer CLI
-``python -m csmri_refinement_tpu_torch.train`` (standard runner).
+Entry points: ``build_flagship`` (serving forward) and the CLIs
+``python -m csmri_refinement_tpu_torch.train`` (the standard and
+adversarial runners), ``.validate`` (metrics, PNGs or ``.mat`` records of
+a checkpoint of either package) and ``.eval_results`` (per-slice tables of
+those records).
 Public functions keep the JAX layout: NHWC, packed complex as a trailing dim
 of 2, masks ``(B, H, W, 1)`` float. Entry points run on the card unless the
 caller asks for the CPU; a CPU tensor takes each kernel's plain PyTorch

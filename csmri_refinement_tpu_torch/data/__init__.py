@@ -1,4 +1,5 @@
-"""Host data pipeline: synthetic datasets, batching, output transforms."""
+"""Host data pipeline: ScarSeg and Synthetic datasets, batching with a
+prefetch queue, output transforms, results I/O and statistics."""
 
 from csmri_refinement_tpu_torch.data.datasets import load_dataset
 from csmri_refinement_tpu_torch.data.loader import DataLoader

@@ -1,16 +1,26 @@
-"""Batched data loading.
+"""Batched data loading with a prefetch queue.
 
 Port of ``csmri_refinement_tpu/data/loader.py`` for one process: batches of
 dict items stacked into numpy arrays, shuffled per epoch by a
 ``RandomState(seed)`` (the same index stream as the JAX loader), an
 optional subset (``num_samples``), a ragged final batch unless
 ``drop_last``. Items are prepared by ``num_workers`` threads when that is
-above 0. The prefetch queue and the multi-process shard are not ported.
+above 0 (numpy's FFTs and reductions release the GIL). With ``prefetch``
+above 1 a producer thread prepares up to ``prefetch`` batches ahead of the
+consumer, so the host's work on the next batch overlaps the card's on this
+one; an exception raised while preparing a batch is raised in the consumer
+at that batch. ``wait_s`` sums the seconds the consumer spent waiting for
+batches. The multi-process shard is not ported.
 """
 
+import queue
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+_END = object()
 
 
 def _collate(items):
@@ -21,12 +31,14 @@ class DataLoader:
   """Iterable over batches of a ``SliceDataset``-like dataset."""
 
   def __init__(self, dataset, batch_size, shuffle=False, seed=0,
-               num_workers=0, drop_last=False, num_samples=None):
+               num_workers=0, drop_last=False, prefetch=2, num_samples=None):
     self.dataset = dataset
     self.batch_size = batch_size
     self.shuffle = shuffle
     self.num_workers = num_workers
     self.drop_last = drop_last
+    self.prefetch = max(prefetch, 1)
+    self.wait_s = 0.0
     self._rng = np.random.RandomState(seed)
     if num_samples is not None and num_samples > 0:
       if num_samples > len(dataset):
@@ -52,11 +64,59 @@ class DataLoader:
         return
       yield chunk
 
-  def __iter__(self):
-    if not self.num_workers:
-      for chunk in self._batch_indices():
+  def _batches(self, pool):
+    for chunk in self._batch_indices():
+      if pool is None:
         yield _collate([self.dataset[i] for i in chunk])
-      return
-    with ThreadPoolExecutor(self.num_workers) as pool:
-      for chunk in self._batch_indices():
+      else:
         yield _collate(list(pool.map(self.dataset.__getitem__, chunk)))
+
+  def __iter__(self):
+    pool = ThreadPoolExecutor(self.num_workers) if self.num_workers else None
+    try:
+      if self.prefetch <= 1:
+        for batch in self._batches(pool):
+          yield batch
+      else:
+        yield from self._prefetched(pool)
+    finally:
+      if pool is not None:
+        pool.shutdown(cancel_futures=True)
+
+  def _prefetched(self, pool):
+    q = queue.Queue(maxsize=self.prefetch)
+    stop = threading.Event()
+
+    def put(item):
+      while not stop.is_set():
+        try:
+          q.put(item, timeout=0.1)
+          return True
+        except queue.Full:
+          pass
+      return False
+
+    def producer():
+      try:
+        for batch in self._batches(pool):
+          if not put(batch):
+            return
+      except Exception as e:  # raised again in the consumer
+        put(e)
+      put(_END)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+      while True:
+        t0 = time.perf_counter()
+        item = q.get()
+        self.wait_s += time.perf_counter() - t0
+        if item is _END:
+          return
+        if isinstance(item, Exception):
+          raise item
+        yield item
+    finally:
+      stop.set()
+      thread.join()

@@ -258,6 +258,12 @@ def conv_layer_f32_cuda(x, layer, pad_mode='reflection'):
   if x.data_ptr() % 16:          # the kernel reads 16 bytes at a time
     x = x.clone()
   kernel, bias = pad_cout(layer.kernel.to(x.device), layer.bias)
+  # The kernel counts tiles, positions and channel offsets within an image
+  # in int32.
+  if b * h * w * max(cin, bias.shape[0]) >= 2 ** 31:
+    raise ValueError('conv_layer_f32_cuda: {}x{}x{} with {} channels is '
+                     'over the int32 index range'.format(
+                         b, h, w, max(cin, bias.shape[0])))
   if cin < 8:
     kernel, kp = kernel.float().contiguous(), 0
   else:

@@ -1,17 +1,20 @@
 """Training CLI of the port.
 
     python -m csmri_refinement_tpu_torch.train CONFIG [--conf key=value ...]
-        [--log-dir DIR] [--run-dir DIR] [--resume CHECKPOINT] [--dry]
-        [--device cuda|cpu]
+        [--data-dir DIR] [--log-dir DIR] [--run-dir DIR]
+        [--resume CHECKPOINT] [--dry] [--device cuda|cpu]
 
 Counterpart of the JAX package's ``train.py:241-420``: JSON config plus
 ``--conf`` overrides, a timestamped run dir with the resolved config,
 periodic checkpoints with pruning, per-metric best checkpoints after
 ``best_value_warmup_epochs``, early stopping and resume. It runs on the card
 unless ``--device cpu`` is given (then every kernel's plain version runs);
-with no card and no ``--device cpu`` it raises. ``--dry`` writes nothing.
-TensorBoard summaries, preemption handling, multi-host runs and
-``--data-dir`` (no on-disk dataset is ported) are not ported.
+with no card and no ``--device cpu`` it raises. ``--data-dir`` holds the
+ScarSeg tree (``scar_segmentation/<case>/...``). The log goes to the run
+dir, ``log_train_<time>.txt``; ``--dry`` writes nothing. ``--resume`` takes
+a checkpoint of the port (a JAX checkpoint's optax state is not ported
+yet: it raises). TensorBoard summaries (``use_tensorboard`` is ignored),
+preemption handling and multi-host runs are not ported.
 """
 
 import argparse
@@ -28,11 +31,13 @@ from csmri_refinement_tpu_torch.training import build_runner
 from csmri_refinement_tpu_torch.training.early_stopping import EarlyStopper
 from csmri_refinement_tpu_torch.utils.checkpoint_paths import (
     get_best_checkpoint_path, get_config_path, get_periodic_checkpoint_path,
-    get_run_dir)
-from csmri_refinement_tpu_torch.utils.checkpoints import (prune_checkpoints,
+    get_run_dir, get_time_string)
+from csmri_refinement_tpu_torch.utils.checkpoints import (is_flax_checkpoint,
+                                                          prune_checkpoints,
                                                           restore_checkpoint,
                                                           save_checkpoint)
 from csmri_refinement_tpu_torch.utils.config import Configuration
+from csmri_refinement_tpu_torch.utils.logging import setup_logging
 
 DEFAULT_EPOCHS_PER_CHECKPOINT = 5
 DEFAULT_EPOCHS_PER_VALIDATION = 5
@@ -50,6 +55,8 @@ def _parser():
                       help='Do not create output directories')
   parser.add_argument('--conf', nargs='+',
                       help='Optional config values to set (key=value)')
+  parser.add_argument('--data-dir', default='resources/data',
+                      help='Path to data directory')
   parser.add_argument('--log-dir', default='resources/models',
                       help='Path to log directory')
   parser.add_argument('--run-dir', help='Path to specific output directory')
@@ -91,7 +98,7 @@ def run_validation(conf, runner, epoch, val_loader, best_val_metrics,
   best_value_warmup = conf.get_attr('best_value_warmup_epochs',
                                     default=DEFAULT_BEST_VALUE_WARMUP_EPOCHS)
   val_start_time = time.time()
-  val_losses, val_metrics = runner.validate(val_loader)
+  _, val_losses, val_metrics = runner.validate(val_loader)
   logging.info('===> Validation: %s, time: %.4fs\n%s', ', '.join(
       '{}: {}'.format(name, loss) for name, loss in val_losses.items()),
                time.time() - val_start_time, '\n'.join(
@@ -189,7 +196,8 @@ def main(argv):
     conf.run_dir = get_run_dir(args.log_dir,
                                conf.get_attr('run_name',
                                              default='unnamed_run'))
-  logging.basicConfig(level=logging.INFO, format='%(asctime)s %(message)s')
+  setup_logging(None if args.dry else conf.run_dir, 'train',
+                get_time_string())
   logging.info('Commandline arguments: %s', ' '.join(argv))
   if not args.dry:
     os.makedirs(conf.run_dir, exist_ok=True)
@@ -202,18 +210,23 @@ def main(argv):
     if not os.path.exists(args.resume):
       raise FileNotFoundError('Checkpoint {} to restore from not '
                               'found'.format(args.resume))
+    if is_flax_checkpoint(args.resume):
+      raise NotImplementedError('--resume from a JAX checkpoint (its optax '
+                                'state) is not ported yet')
     restore_state = restore_checkpoint(args.resume, runner)
     logging.info('Restored checkpoint from %s', args.resume)
 
   num_workers = conf.get_attr('num_data_workers', default=DEFAULT_NUM_WORKERS)
   train_dataset = load_dataset(
-      conf, conf.get_attr('train_dataset', alternative='dataset'), 'train')
+      conf, args.data_dir,
+      conf.get_attr('train_dataset', alternative='dataset'), 'train')
   train_loader = DataLoader(
       train_dataset, conf.batch_size, shuffle=True, seed=conf.seed,
       num_workers=num_workers,
       num_samples=conf.get_attr('num_train_subset_samples'))
   val_dataset = load_dataset(
-      conf, conf.get_attr('validation_dataset', alternative='dataset'), 'val')
+      conf, args.data_dir,
+      conf.get_attr('validation_dataset', alternative='dataset'), 'val')
   val_loader = DataLoader(
       val_dataset,
       conf.get_attr('validation_batch_size', default=conf.batch_size),

@@ -33,7 +33,10 @@ streams differ.
 
 Validation (``:589-636``): the generator in eval mode (its U-Net through
 the conv-chain kernel), the discriminator on fakes and reals without the
-pool, the plain generator losses, in full f32. ``steps_per_fetch``,
+pool, the plain generator losses, in full f32; the inference loop's step
+(``compute_metrics=False``) runs the generator alone. ``predict`` and
+``get_named_outputs`` (``:720-756``, ``disc_fake`` included) serve the
+validate CLI. ``steps_per_fetch``,
 ``train_remat`` and ``train_dtype`` are not ported yet and raise, as in
 the standard runner.
 """
@@ -62,6 +65,7 @@ from csmri_refinement_tpu_torch.training.optimizers import (get_optimizer,
                                                             set_learning_rate)
 from csmri_refinement_tpu_torch.training.prep import get_batch_preparer
 from csmri_refinement_tpu_torch.training.runner import _cast_f32, _detach
+from csmri_refinement_tpu_torch.utils.checkpoints import load_network_state
 from csmri_refinement_tpu_torch.utils.config import Configuration
 from csmri_refinement_tpu_torch.utils.precision import full_f32
 
@@ -325,12 +329,13 @@ class AdversarialRunner(BaseRunner):
     return len(batches), {name: metric.average()
                           for name, metric in loss_metrics.items()}, data
 
-  def _val_step(self, host_batch):
+  def _val_step(self, host_batch, compute_metrics=True):
     batch = self.preparer.prepare_val(host_batch)
-    self.gen.eval()
+    out_gen = _cast_f32(self.predict(batch))
+    if not compute_metrics:
+      return {}, (batch, out_gen)
     out_fake = out_real = None
     with torch.no_grad(), full_f32():
-      out_gen = _cast_f32(self.gen(*self._gen_inputs(batch)))
       if self.disc is not None:
         self.disc.eval()
         out_fake = _cast_f32(self.disc(self.val_disc_input_fn(
@@ -347,6 +352,13 @@ class AdversarialRunner(BaseRunner):
     self.gen.eval()
     with torch.no_grad(), full_f32():
       return self.gen(*self._gen_inputs(batch))
+
+  def get_named_outputs(self, data):
+    """The base runner's names, and ``disc_fake`` (None without a
+    discriminator pass)."""
+    named = super().get_named_outputs(data)
+    named['disc_fake'] = data[2] if len(data) > 2 else None
+    return named
 
   # -- metrics ----------------------------------------------------------------
 
@@ -409,14 +421,16 @@ class AdversarialRunner(BaseRunner):
     return out
 
   def load_state_dict(self, state_dict):
-    self.gen.load_state_dict(state_dict['generator'])
+    """Restore from a runner state of either package (each network a port
+    state dict or a flax tree)."""
+    load_network_state(self.gen, state_dict['generator'])
     self.step = int(state_dict.get('step', 0))
     if 'gen_optimizer' in state_dict and self.gen_optimizer is not None:
       self.gen_optimizer.load_state_dict(state_dict['gen_optimizer'])
     if self.disc is not None:
       if 'discriminator' not in state_dict:
         raise ValueError('Incompatible checkpoint: no discriminator')
-      self.disc.load_state_dict(state_dict['discriminator'])
+      load_network_state(self.disc, state_dict['discriminator'])
       if 'disc_optimizer' in state_dict:
         self.disc_optimizer.load_state_dict(state_dict['disc_optimizer'])
     logging.debug('Restored adversarial runner state')

@@ -1,15 +1,31 @@
 """BaseRunner: the epoch loop over a runner's train and validation steps.
 
 Port of ``csmri_refinement_tpu/training/base_runner.py``: the epoch loop,
-metric accumulation and the validation loop are the same; a subclass
-supplies the steps. Returned validation batches (image summaries) and the
-inference loop are not ported. ``steps_per_fetch`` (several updates per
-loss fetch) is not ported: each step's losses are fetched as it ends.
+metric accumulation, the validation loop (which returns its first
+``num_batches_to_return`` batches, moved to the host) and the inference
+loop (every batch, no losses or metrics) are the same; a subclass supplies
+the steps. ``steps_per_fetch`` (several updates per loss fetch) is not
+ported: each step's losses are fetched as it ends.
 """
 
 import logging
 
+import torch
+
+from csmri_refinement_tpu_torch.data.transform_wrappers import (
+    get_output_transform)
 from csmri_refinement_tpu_torch.metrics import accumulate_metric
+
+
+def to_host(tree):
+  """``tree`` with every tensor moved to the CPU."""
+  if isinstance(tree, dict):
+    return {k: to_host(v) for k, v in tree.items()}
+  if isinstance(tree, (list, tuple)):
+    return type(tree)(to_host(v) for v in tree)
+  if isinstance(tree, torch.Tensor):
+    return tree.cpu()
+  return tree
 
 
 class BaseRunner:
@@ -18,6 +34,8 @@ class BaseRunner:
     self.conf = conf
     self.mode = mode
     self.epoch = 0
+    self.output_transform = get_output_transform(
+        conf.get_attr('application', default='reconstruction'))
 
   # -- subclass hooks ---------------------------------------------------------
 
@@ -26,7 +44,9 @@ class BaseRunner:
     (num_batches_consumed, loss_metrics, data for _compute_train_metrics)."""
     raise NotImplementedError
 
-  def _val_step(self, batch):
+  def _val_step(self, batch, compute_metrics=True):
+    """Returns (loss metrics, or {} without ``compute_metrics``; data for
+    _compute_test_metrics and get_named_outputs)."""
     raise NotImplementedError
 
   def _compute_train_metrics(self, data):
@@ -72,13 +92,17 @@ class BaseRunner:
     value_by_metric = {name: m.average() for name, m in epoch_metrics.items()}
     return value_by_loss, value_by_metric
 
-  def validate(self, loader):
-    """Returns ({loss name: metric}, {metric name: metric}) averaged over
-    the loader."""
+  def validate(self, loader, num_batches_to_return=0):
+    """Returns (the first ``num_batches_to_return`` batches' data on the
+    host, {loss name: metric}, {metric name: metric}) averaged over the
+    loader."""
+    epoch_data = []
     epoch_loss_metrics = {}
     epoch_metrics = {}
     for batch in loader:
       loss_metrics, data = self._val_step(batch)
+      if len(epoch_data) < num_batches_to_return:
+        epoch_data.append(to_host(data))
       metrics = self._compute_test_metrics(data)
       del data
       for name, loss_metric in loss_metrics.items():
@@ -89,7 +113,24 @@ class BaseRunner:
     value_by_loss = {name: m.average()
                      for name, m in epoch_loss_metrics.items()}
     value_by_metric = {name: m.average() for name, m in epoch_metrics.items()}
-    return value_by_loss, value_by_metric
+    return epoch_data, value_by_loss, value_by_metric
+
+  def get_named_outputs(self, data):
+    """{'input', 'prediction', 'target'} of a validation step's data
+    (batch, model output, ...), the prediction and target through the
+    application's output transform."""
+    batch, out = data[0], data[1]
+    prediction = out['pred'] if isinstance(out, dict) else out
+    target = batch['target']
+    if self.output_transform is not None:
+      prediction, target = self.output_transform(prediction, target)
+    return {'input': batch['inp'], 'prediction': prediction,
+            'target': target}
+
+  def infer(self, loader):
+    """Every batch's data on the host, without losses or metrics."""
+    return [to_host(self._val_step(batch, compute_metrics=False)[1])
+            for batch in loader]
 
   @staticmethod
   def _loss_weights(weights_by_criterion, *criteria_dicts):

@@ -4,16 +4,17 @@ Port of ``csmri_refinement_tpu/training/model_setup.py``: a model section
 (or, for a ``RefinementWrapper``, its ``pretrained_model`` or
 ``learnable_model`` section) may name another run's checkpoint with
 ``pretrained_weights: [path, key]``; the network state found there
-replaces the seeded init of that (sub-)model, every tensor of it
-(``load_state_dict`` strict). Paths are relative to the config file;
-``null`` disables loading. Checkpoints are the port's ``torch.save``
-files.
+replaces the seeded init of that (sub-)model, every tensor of it. Paths
+are relative to the config file; ``null`` disables loading. A checkpoint
+of either package serves: a port state dict loads strict, a JAX
+checkpoint's flax tree through ``utils/jax_weights.py``
+(``utils/checkpoints.py::load_network_state``).
 """
 
 import logging
 
 from csmri_refinement_tpu_torch.utils.checkpoints import (
-    resolve_pretrained_weights)
+    load_network_state, resolve_pretrained_weights)
 
 
 def apply_pretrained_weights(model, model_conf, conf_file):
@@ -22,11 +23,11 @@ def apply_pretrained_weights(model, model_conf, conf_file):
   if 'pretrained_weights' in model_conf:
     state = resolve_pretrained_weights(model_conf, conf_file)
     if state is not None:
-      model.load_state_dict(state)
+      load_network_state(model, state)
   for sub_key in ('pretrained_model', 'learnable_model'):
     sub = model_conf.get(sub_key)
     if isinstance(sub, dict) and 'pretrained_weights' in sub:
       state = resolve_pretrained_weights(sub, conf_file)
       if state is not None:
-        getattr(model, sub_key).load_state_dict(state)
+        load_network_state(getattr(model, sub_key), state)
         logging.info('Grafted pretrained weights into %s', sub_key)

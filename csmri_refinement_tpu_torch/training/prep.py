@@ -12,11 +12,12 @@ moved to the device.
 
 * train: masks (and noise) from the ``torch.Generator`` the caller passes,
   a new one every step;
-* validation: each slice's mask is drawn from a generator seeded with
-  ``VAL_MASK_SEED + slice index`` and kept, so a slice gets the same mask
-  on every validation run whatever the batch order (the JAX package folds
-  the index into a fixed key, ``prep.py:58-64``; the bits differ, the
-  contract is the same).
+* validation: each slice's mask is drawn on the host from a CPU generator
+  seeded with ``VAL_MASK_SEED + slice index``, moved to the device and
+  kept, so a slice gets the same mask on every validation run whatever
+  the batch order and the device (the JAX package folds the index into a
+  fixed key, ``prep.py:58-64``; the bits differ, the contract is the
+  same).
 
 Radial masks wait (ROADMAP Queue 1 item 1).
 """
@@ -62,11 +63,10 @@ class RecBatchPreparer:
 
   def _val_mask(self, index, height, width):
     if index not in self._val_masks:
-      gen = torch.Generator(device=self.device).manual_seed(
-          VAL_MASK_SEED + index)
+      gen = torch.Generator().manual_seed(VAL_MASK_SEED + index)
       self._val_masks[index] = mask_ops.make_masks(
           gen, 1, height, width, sampling_scheme=self.scheme,
-          acceleration_factor=self.acc, device=self.device)[0]
+          acceleration_factor=self.acc)[0].to(self.device)
     return self._val_masks[index]
 
   def prepare_val(self, host_batch):

@@ -3,7 +3,10 @@
 Port of ``csmri_refinement_tpu/training/runner.py``. The train step
 (``runner.py:195-227``): forward, float32 loss epilogue, weighted criteria,
 backward, optimizer step. The validation step (``runner.py:288-304``):
-forward and criteria without gradients.
+forward and criteria without gradients (no criteria with
+``compute_metrics=False``, the inference loop's step). ``predict`` is the
+model's eval-mode output on a prepared batch, for the validate CLI
+(``runner.py:334-409``).
 
 Precision. The validation step always runs in full float32
 (``utils/precision.py::full_f32``: TF32 off), as the JAX package pins
@@ -35,6 +38,7 @@ from csmri_refinement_tpu_torch.training.model_setup import (
 from csmri_refinement_tpu_torch.training.optimizers import (get_optimizer,
                                                             set_learning_rate)
 from csmri_refinement_tpu_torch.training.prep import get_batch_preparer
+from csmri_refinement_tpu_torch.utils.checkpoints import load_network_state
 from csmri_refinement_tpu_torch.utils.config import Configuration
 from csmri_refinement_tpu_torch.utils.precision import full_f32
 
@@ -152,14 +156,21 @@ class Runner(BaseRunner):
     losses, out = self.train_batch(batch)
     return 1, _loss_metrics(losses), (batch, out)
 
-  def _val_step(self, host_batch):
+  def _val_step(self, host_batch, compute_metrics=True):
     batch = self.preparer.prepare_val(host_batch)
-    self.model.eval()
+    out = _cast_f32(self.predict(batch))
+    if not compute_metrics:
+      return {}, (batch, out)
     with torch.no_grad(), full_f32():
-      out = _cast_f32(self.model(*self._model_inputs(batch)))
       losses = {name: crit(out, batch)
                 for name, crit in self.criteria.items()}
     return _loss_metrics(losses), (batch, out)
+
+  def predict(self, batch):
+    """The model's eval-mode output on a prepared batch, in full f32."""
+    self.model.eval()
+    with torch.no_grad(), full_f32():
+      return self.model(*self._model_inputs(batch))
 
   def _compute_train_metrics(self, data):
     batch, out = data
@@ -184,7 +195,9 @@ class Runner(BaseRunner):
     return out
 
   def load_state_dict(self, state_dict):
-    self.model.load_state_dict(state_dict['model'])
+    """Restore from a runner state of either package (the model a port
+    state dict or a flax tree)."""
+    load_network_state(self.model, state_dict['model'])
     self.step = int(state_dict.get('step', 0))
     if 'optimizer' in state_dict and self.optimizer is not None:
       self.optimizer.load_state_dict(state_dict['optimizer'])

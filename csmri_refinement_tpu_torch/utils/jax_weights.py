@@ -2,7 +2,9 @@
 
 ``variables`` is the JAX package's ``{'params': ..., 'batch_stats': ...}``
 tree as nested dicts of numpy arrays (e.g. ``jax.tree_util.tree_map(
-np.asarray, variables)``). The port's submodules carry the flax names
+np.asarray, variables)``, or a network of a JAX checkpoint as
+``utils/flax_msgpack.py`` decodes it; a ``bfloat16`` leaf may be a torch
+tensor). The port's submodules carry the flax names
 (``block_{i}.conv_{j}``, ``encode_{s}.bn_{i}``, ``decode_{s}.up_conv``,
 ``head``, ``pretrained_model``, ``scale``, ...), so loading is a 1:1 walk:
 
@@ -20,7 +22,9 @@ np.asarray, variables)``). The port's submodules carry the flax names
   PReLU's ``slope``, an instance norm's ``scale``/``bias``.
 
 Every tensor of the module must be found and every leaf of the tree used;
-anything else raises.
+anything else raises. A RecNet saved with ``use_scan`` holds its blocks
+stacked under ``blocks``: that layout is not ported yet and raises by
+name.
 """
 
 from collections.abc import Mapping
@@ -39,7 +43,8 @@ def _leaves(tree, prefix=()):
 
 
 def _copy(dst, value, path):
-  value = torch.from_numpy(np.array(value))
+  value = value.detach().clone() if isinstance(value, torch.Tensor) else \
+      torch.from_numpy(np.array(value))
   if tuple(value.shape) != tuple(dst.shape):
     raise ValueError('{}: flax shape {} does not fit {}'.format(
         '/'.join(path), tuple(value.shape), tuple(dst.shape)))
@@ -89,6 +94,10 @@ def load_flax_variables(module, variables):
   """Copy a flax variable tree (numpy leaves) into ``module`` in place."""
   params = variables.get('params', {})
   stats = variables.get('batch_stats', {})
+  if any('blocks' in path for path in _leaves(params)):
+    raise NotImplementedError(
+        "a flax tree of a use_scan RecNet (stacked 'blocks') is not ported "
+        'yet')
   used = set()
   _load(module, params, stats, (), used)
   unused = ({('params',) + p for p in _leaves(params)} |

@@ -10,6 +10,8 @@ Hopper GPU and nvcc:
 may not have; this file needs only torch.)
 """
 
+import os
+
 import pytest
 import torch
 
@@ -853,7 +855,7 @@ def test_segmentation_score_on_card_matches_cpu(cuda, tmp_path):
   path = str(tmp_path / 'seg.ckpt')
   torch.save({'runner': {'model': model.state_dict()}}, path)
   conf = Configuration.from_dict(synthetic_segmentation_conf(64, 2, 3))
-  data = load_dataset(conf, 'Synthetic', 'val')
+  data = load_dataset(conf, None, 'Synthetic', 'val')
   gen = torch.Generator().manual_seed(2)
   pred = torch.stack([torch.from_numpy(data[i]['inp']) for i in range(3)])
   pred = pred + 0.05 * torch.randn(pred.shape, generator=gen)
@@ -866,3 +868,103 @@ def test_segmentation_score_on_card_matches_cpu(cuda, tmp_path):
     scores.append(score(pred.to(device), label.to(device)))
   for want, got in zip(*scores):
     assert abs(got - want) <= 1e-3
+
+
+@pytest.mark.parametrize('b', [1, 5])
+@pytest.mark.parametrize('k,cin,cout', [(4, 2, 32), (4, 32, 32), (3, 2, 32),
+                                        (3, 32, 32)],
+                         ids=['k4-stem', 'k4', 'k3-stem', 'k3'])
+def test_conv_layer_f32_at_512(cuda, k, cin, cout, b):
+  """K2's f32 route at the paper's 512² (the GAN's k4 layers at B = 5 in
+  validation, B = 1 in ``validate -b 1``; the segmentation U-Net's k3),
+  reflection padding, the stem on the direct route: one launch each,
+  within the f32 bar."""
+  before = cc.conv_layer_f32_cuda.launches
+  _conv_case(cuda, k, cin, cout, 'reflection', torch.float32, (b, 512, 512))
+  assert cc.conv_layer_f32_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize('kernel', ['dc', 'dc_bwd'])
+def test_dc_kernels_at_the_1_recnet_shape(cuda, kernel):
+  """K1 and K1-bwd at (20, 512, 512, 2), configs/1-recnet.json's training
+  batch, against their plain versions (2e-4 and 2e-3,
+  tests/test_dc_pallas.py:26,46)."""
+  b, n = 20, 512
+  gen = torch.Generator(device=cuda).manual_seed(20)
+  x = torch.randn(b, n, n, 2, device=cuda, generator=gen)
+  m = masks.cartesian_mask(gen, (b, n, n), 8, device=cuda)[..., None]
+  m = m.contiguous()
+  if kernel == 'dc':
+    k0 = torch.randn(b, n, n, 2, device=cuda, generator=gen) * m
+    got = dc_kernel.dc_cuda(x, k0, m)
+    torch.cuda.synchronize()
+    err, tol = (got - dc_kernel.dc_plain(x, k0, m)).abs().max().item(), 2e-4
+  else:
+    got = dc_kernel.dc_bwd_cuda(x, m)
+    torch.cuda.synchronize()
+    err = (got - dc_kernel.dc_plain_vjp(x, m, False)[0]).abs().max().item()
+    tol = 2e-3
+  assert err <= tol
+
+
+def test_validation_masks_do_not_depend_on_the_device(cuda):
+  """A slice's validation mask is drawn on the host, so the card and the
+  CPU validate the same undersampled inputs."""
+  from csmri_refinement_tpu_torch.training import prep
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_dict({'undersampling': {
+      'sampling_scheme': 'varden', 'acceleration_factor': 8}})
+  masks_by_device = [prep.RecBatchPreparer(conf, device)._val_mask(i, 512,
+                                                                   512)
+                     for device in ('cpu', cuda) for i in (0, 7)]
+  assert masks_by_device[2].device.type == 'cuda'
+  for want, got in zip(masks_by_device[:2], masks_by_device[2:]):
+    assert torch.equal(got.cpu(), want)
+  assert not torch.equal(masks_by_device[0], masks_by_device[1])
+
+
+def test_validate_on_card_matches_cpu(cuda, tmp_path):
+  """The validate CLI on a 128² ScarSeg-format tree (downscale 4: 16 mask
+  lines, 6 of them drawn), the same seeded RecNet checkpoint on the card
+  and on the CPU: --raw predictions within 5e-4 of max |target|
+  (chip_smoke.py phase 6's f32 bar), the averaged PSNR within 0.01 dB and
+  SSIM within 1e-4."""
+  import glob
+  import json
+  import numpy as np
+  from scipy.io import loadmat
+  from csmri_refinement_tpu_torch import validate
+  from csmri_refinement_tpu_torch.data import datasets
+  from csmri_refinement_tpu_torch.training.runner import Runner
+  from csmri_refinement_tpu_torch.utils import checkpoints
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  data_dir = str(tmp_path / 'data')
+  datasets.write_scarseg_phantoms(data_dir, 128, 3, seed=1)
+  with open(os.path.join(os.path.dirname(os.path.dirname(
+      os.path.abspath(__file__))), 'configs', '1-recnet.json')) as f:
+    conf_d = json.load(f)
+  conf_d.update(downscale=4, model={'name': 'RecNet', 'num_blocks': 2,
+                                    'num_convs': 2, 'num_filters': 16})
+  conf_path = str(tmp_path / 'recnet.json')
+  with open(conf_path, 'w') as f:
+    json.dump(conf_d, f)
+  conf = Configuration.from_json(conf_path)
+  ckpt = str(tmp_path / 'recnet.ckpt')
+  checkpoints.save_checkpoint(ckpt, conf, Runner(conf, 'test', 'cpu'), 1, {})
+  results, records = {}, {}
+  for device in ('cpu', 'cuda'):
+    common = [conf_path, ckpt, '--data-dir', data_dir, '--device', device,
+              '--out-dir', str(tmp_path / device)]
+    results[device] = validate.main(common + ['-b', '6'])['ScarSeg'][
+        'metrics']
+    out = validate.main(common + ['--raw'])['ScarSeg']['output_dir']
+    records[device] = {os.path.basename(p): loadmat(p)
+                       for p in glob.glob(os.path.join(out, '*.mat'))}
+  assert len(records['cuda']) == 18 and records['cuda'].keys() == \
+      records['cpu'].keys()
+  for name, want in records['cpu'].items():
+    got = records['cuda'][name]
+    bar = 5e-4 * np.abs(want['target']).max()
+    assert np.abs(got['pred'] - want['pred']).max() <= bar, name
+  assert abs(results['cuda']['psnr'] - results['cpu']['psnr']) <= 0.01
+  assert abs(results['cuda']['ssim'] - results['cpu']['ssim']) <= 1e-4

@@ -153,7 +153,7 @@ def _batches(n):
   """n (JAX, port) prepared batches of phantoms with fixed masks."""
   conf = Configuration.from_dict(_conf_dict(
       synthetic={'image_size': SIZE, 'num_train': n * BATCH}))
-  data = load_dataset(conf, 'Synthetic', 'train')
+  data = load_dataset(conf, None, 'Synthetic', 'train')
   out = []
   for i in range(n):
     gt = np.stack([data[j]['gt'] for j in range(i * BATCH, (i + 1) * BATCH)])

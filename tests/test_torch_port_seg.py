@@ -170,7 +170,7 @@ def test_synthetic_items_equal_jax(case, fold):
     conf_d['downscale'] = 2
   want = jload_dataset(JConfiguration.from_dict(conf_d), '/tmp', 'Synthetic',
                        fold)
-  got = load_dataset(Configuration.from_dict(conf_d), 'Synthetic', fold)
+  got = load_dataset(Configuration.from_dict(conf_d), None, 'Synthetic', fold)
   assert len(got) == len(want)
   keys = {'segmentation': {'inp', 'target', 'index'}}.get(
       case, {'gt', 'label', 'index'})
@@ -187,7 +187,7 @@ def test_batch_preparers_match_jax():
   ``label`` and ``index`` untouched."""
   conf_d = _seg_conf_dict()
   host = next(iter(DataLoader(load_dataset(
-      Configuration.from_dict(conf_d), 'Synthetic', 'val'), 4)))
+      Configuration.from_dict(conf_d), None, 'Synthetic', 'val'), 4)))
   preparer = prep.get_batch_preparer(Configuration.from_dict(conf_d), 'cpu')
   assert isinstance(preparer, prep.SegBatchPreparer)
   want = jprep.get_batch_preparer(JConfiguration.from_dict(conf_d))
@@ -201,7 +201,7 @@ def test_batch_preparers_match_jax():
   conf_d.update(dataset_mode='reconstruction', application='reconstruction',
                 include_labels=True)
   host = next(iter(DataLoader(load_dataset(
-      Configuration.from_dict(conf_d), 'Synthetic', 'val'), 4)))
+      Configuration.from_dict(conf_d), None, 'Synthetic', 'val'), 4)))
   preparer = prep.get_batch_preparer(Configuration.from_dict(conf_d), 'cpu')
   for batch in (preparer.prepare_train(torch.Generator().manual_seed(0),
                                        host),
@@ -429,7 +429,7 @@ def test_dice_registry_needs_its_section():
 
 
 def _host_batches(conf_d, fold, n, batch):
-  data = load_dataset(Configuration.from_dict(conf_d), 'Synthetic', fold)
+  data = load_dataset(Configuration.from_dict(conf_d), None, 'Synthetic', fold)
   return [{k: np.stack([data[j][k] for j in range(i * batch,
                                                     (i + 1) * batch)])
            for k in ('inp', 'target')} for i in range(n)]
@@ -475,8 +475,8 @@ def seg_record(tmp_path_factory):
   jval = JDataLoader(jload_dataset(val_conf, '/tmp', 'Synthetic', 'val'), 2)
   _, jval_losses, jval_metrics = jrunner.validate(jval)
   tval = DataLoader(load_dataset(Configuration.from_dict(conf_d),
-                                 'Synthetic', 'val'), 2)
-  tval_losses, tval_metrics = trunner.validate(tval)
+                                 None, 'Synthetic', 'val'), 2)
+  _, tval_losses, tval_metrics = trunner.validate(tval)
   record['val'] = ({k: m.value for k, m in {**jval_losses,
                                             **jval_metrics}.items()},
                    {k: m.value for k, m in {**tval_losses,
@@ -537,7 +537,7 @@ def _sis_inputs(conf_d, n=6, noise=0.05):
   label maps, from the Synthetic validation phantoms."""
   data = load_dataset(Configuration.from_dict(dict(
       conf_d, synthetic={'image_size': SIZE, 'num_val': n})),
-                      'Synthetic', 'val')
+                      None, 'Synthetic', 'val')
   rng = np.random.RandomState(8)
   pred = np.stack([data[i]['inp'] for i in range(n)])
   pred = (pred + noise * rng.randn(*pred.shape)).astype(np.float32)
@@ -725,7 +725,8 @@ def test_gan_validation_segmentation_score_matches_jax(seg_record):
   jconf_d = copy.deepcopy(conf_d)
   jconf_d['segmentation_score_metric']['model']['pretrained_weights'] = [
       seg_record['jckpt'], 'model']
-  data = load_dataset(Configuration.from_dict(conf_d), 'Synthetic', 'val')
+  data = load_dataset(Configuration.from_dict(conf_d), None, 'Synthetic',
+                      'val')
   gt = np.stack([data[i]['gt'] for i in range(GAN_BATCH)])
   label = np.stack([data[i]['label'] for i in range(GAN_BATCH)])
   mask = np.array(jmasks.cartesian_mask(jax.random.PRNGKey(0),

@@ -93,7 +93,7 @@ def _batches(n):
   """n batches of synthetic phantoms with fixed 16-line cartesian masks."""
   conf = Configuration.from_dict(_conf_dict(
       synthetic={'image_size': SIZE, 'num_train': n * BATCH}))
-  data = load_dataset(conf, 'Synthetic', 'train')
+  data = load_dataset(conf, None, 'Synthetic', 'train')
   out = []
   for i in range(n):
     gt = np.stack([data[j]['gt'] for j in range(i * BATCH, (i + 1) * BATCH)])
@@ -140,7 +140,8 @@ def test_synthetic_phantoms_equal_jax():
   for fold in ('train', 'val'):
     want = jload_dataset(JConfiguration.from_dict(conf_d), '/tmp',
                          'Synthetic', fold)
-    got = load_dataset(Configuration.from_dict(conf_d), 'Synthetic', fold)
+    got = load_dataset(Configuration.from_dict(conf_d), None, 'Synthetic',
+                       fold)
     assert len(got) == len(want)
     for i in range(len(got)):
       np.testing.assert_array_equal(got[i]['gt'], want[i]['gt'])
@@ -151,7 +152,7 @@ def test_loader_batches_equal_jax():
   conf_d = _conf_dict(synthetic={'image_size': 8, 'num_train': 10})
   want_set = jload_dataset(JConfiguration.from_dict(conf_d), '/tmp',
                            'Synthetic', 'train')
-  got_set = load_dataset(Configuration.from_dict(conf_d), 'Synthetic',
+  got_set = load_dataset(Configuration.from_dict(conf_d), None, 'Synthetic',
                          'train')
   for kw in (dict(shuffle=True, seed=3, num_samples=9),
              dict(shuffle=False, drop_last=True)):
