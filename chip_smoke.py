@@ -128,9 +128,27 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     (TF32 off and on), the loader's host ms per batch and the step loop's
     wait with prefetch, the RecNet's validation forward at B = 1 and 20,
     K1 and K1-bwd beside their plain versions, cuFFT and the bound, and
-    the GAN's 10 K2 f32 layers at 512², B = 5 as in 17 (e).
+    the GAN's 10 K2 f32 layers at 512², B = 5 as in 17 (e);
+19. the trainer's surface on (4)'s config and tree, before the tree is
+    removed (2 steps and 2 validation batches per epoch, each step's losses
+    summarised, 4 epochs): (a) the training CLI as a process, SIGTERM once
+    its log shows epoch 1's first step: exit 0 after that epoch, the
+    preemption logged, a checkpoint for the next epoch; (b) ``--resume`` on
+    it in this process with ``--profile-dir``, ``-v`` and
+    ``--print-parameters`` and a recording writer in place of
+    ``train._summary_writer``: both networks and both optimizers equal the
+    checkpoint bit for bit right after the restore, the run trains on to
+    epoch 4 with the counters around it (3 K1 per generator forward, 10 K2
+    f32 per validation forward), ``train/<name>`` scalars at the JAX
+    global steps, ``validation/<name>`` scalars and one finite grid per
+    validation (the last grid and metrics equal a validation of the trained
+    runner), and the profiler's trace names K1's and K2 f32's kernels;
+    (c) ``deploy_checkpoint adversarial`` on the last checkpoint, then
+    ``validate`` on both files: identical metrics; (d) an epoch with the
+    recording writer and with summaries off, and the train step with and
+    without the profiler, in turns.
 
-``--scarseg-only`` runs phases 1, 2 and 18 alone (no result line).
+``--scarseg-only`` runs phases 1, 2, 18 and 19 alone (no result line).
 ``--f32-only`` runs phases 1 and 2 for the conv sources and times K2's f32
 route on the 18 segmentation layer shapes (seeded weights) after holding
 each to its plain version (no result line); with ``--tree DIR`` an earlier
@@ -141,7 +159,8 @@ probes of phase 15 alone, and prints their ``{"kernels": [...]}`` entries
 sources and the K3 table of phase 15 alone (no result line); with
 ``--tree DIR`` it imports the port package from another checkout inside
 this one (an earlier tree, unpacked by ``git archive`` into a git-ignored
-directory), so that two trees are timed in turns on one card.
+directory, one that has ``utils/profiling.py``), so that two trees are
+timed in turns on one card.
 
 Prints a ``{"kernels": [...]}`` line, then, last, ``{"ok": true, "device":
 {...}}``. TF32 is off throughout (except the one TF32 step timing), so every
@@ -151,9 +170,11 @@ f32 reference is full f32.
 import copy
 import glob
 import json
+import logging
 import math
 import os
 import shutil
+import signal
 import struct
 import subprocess
 import sys
@@ -162,6 +183,7 @@ import time
 import warnings
 import zlib
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -299,23 +321,9 @@ def sync():
   torch.cuda.synchronize()
 
 
-def time_ms(fn, iters=20, warmup=3):
-  """Mean ms per call with CUDA events, after warm-up."""
-  for _ in range(warmup):
-    fn()
-  start = torch.cuda.Event(enable_timing=True)
-  end = torch.cuda.Event(enable_timing=True)
-  start.record()
-  for _ in range(iters):
-    fn()
-  end.record()
-  sync()
-  return start.elapsed_time(end) / iters
-
-
 def graph_ms(fn, calls=20, replays=5):
   """Device ms per call of ``fn``: ``calls`` calls captured in one CUDA
-  graph after a warm-up, the graph replayed. Unlike ``time_ms`` it leaves
+  graph after a warm-up, the graph replayed. Unlike ``timed_ms`` it leaves
   out the host's cost of each call (a wrapper's checks, allocations and
   launch), which bounds an eager loop of kernels shorter than it."""
   side = torch.cuda.Stream()
@@ -1094,11 +1102,11 @@ def int8_timings(cases, line):
   function's bound and cuDNN's bf16 convs on the same layers."""
   from csmri_refinement_tpu_torch.ops import conv_chain as cc
   sums = k3_table(cases, line)
-  conv_plain_ms = time_ms(lambda: [cc.conv_layer_int8_plain(*a)
+  conv_plain_ms = timed_ms(lambda: [cc.conv_layer_int8_plain(*a)
                                    for _, a, _, _ in cases],
                           iters=2, warmup=1)
   fed = [f for _, _, f, _ in cases if f is not None]
-  rq_plain_ms = time_ms(lambda: [cc.requant_plain(*f) for f in fed], iters=5)
+  rq_plain_ms = timed_ms(lambda: [cc.requant_plain(*f) for f in fed], iters=5)
   cl = torch.channels_last
   yard = [(torch.randn(a[0].shape, device=DEVICE).to(torch.bfloat16).permute(
       0, 3, 1, 2).contiguous(memory_format=cl).permute(0, 2, 3, 1), layer,
@@ -1279,7 +1287,7 @@ def probe_library_calls():
 def probe_timings(line):
   """Every probe on its own inputs: kernel, plain version and library call
   as device time (``graph_ms``), and the kernel's eager calls
-  (``time_ms``, with the wrapper's host time). Prints one line a probe;
+  (``timed_ms``, with the wrapper's host time). Prints one line a probe;
   returns {name: {'ms', 'plain_ms', 'library_ms', 'eager_ms'}}."""
   from csmri_refinement_tpu_torch.probes import int8_prims, mosaic_prims
   library = probe_library_calls()
@@ -1301,7 +1309,7 @@ def probe_timings(line):
     runs = [(k, graph_ms(fns[k])) for k in list(fns) + list(fns)[::-1]]
     t = {key: sum(ms for k, ms in runs if k == key) / 2 for key in fns}
     t.setdefault('library_ms', None)
-    t['eager_ms'] = time_ms(fns['ms'])
+    t['eager_ms'] = timed_ms(fns['ms'])
     out[name] = t
     print('probe {:34s} device ms: kernel {:.5f}, plain {:.5f}, library {}; '
           'kernel eager {:.5f} ms ({})'.format(
@@ -1553,7 +1561,7 @@ def gan_timing_phase(conf_path, frozen, line):
   for tf32 in (False, True):
     torch.backends.cudnn.allow_tf32 = tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
-    step_ms[tf32] = time_ms(lambda: runner.train_batch(batch), iters=10,
+    step_ms[tf32] = timed_ms(lambda: runner.train_batch(batch), iters=10,
                             warmup=3)
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -1883,7 +1891,7 @@ def seg_timing_phase(runner, score, calls, line):
   for tf32 in (False, True):
     torch.backends.cudnn.allow_tf32 = tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
-    step_ms[tf32] = time_ms(lambda: runner.train_batch(batch), iters=10,
+    step_ms[tf32] = timed_ms(lambda: runner.train_batch(batch), iters=10,
                             warmup=2)
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -1893,7 +1901,7 @@ def seg_timing_phase(runner, score, calls, line):
                                  SEG_BATCH / ms * 1e3, line))
   pred, label = (t.to(DEVICE) for t in seg_inputs(SIZE, GAN_BATCH,
                                                   noise=0.05))
-  sis_ms = time_ms(lambda: score(pred, label), iters=10, warmup=2)
+  sis_ms = timed_ms(lambda: score(pred, label), iters=10, warmup=2)
   print('segmentation score call {}^2 B{}: {:.3f} ms, {:.1f} slices/s '
         '({})'.format(SIZE, GAN_BATCH, sis_ms, GAN_BATCH / sis_ms * 1e3,
                       line))
@@ -2239,7 +2247,7 @@ def step_times(label, runner, batch, batch_size, line):
   for tf32 in (False, True):
     torch.backends.cudnn.allow_tf32 = tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
-    step_ms[tf32] = time_ms(lambda: runner.train_batch(batch), iters=5,
+    step_ms[tf32] = timed_ms(lambda: runner.train_batch(batch), iters=5,
                             warmup=2)
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -2281,7 +2289,7 @@ def scarseg_timings(data_dir, rec_runner, gan_runner, seg_runner, line):
   for b in (1, REC_BATCH):
     host = next(iter(DataLoader(val_set, b)))
     vbatch = rec_runner.preparer.prepare_val(host)
-    ms = time_ms(lambda: rec_runner.predict(vbatch), iters=5, warmup=2)
+    ms = timed_ms(lambda: rec_runner.predict(vbatch), iters=5, warmup=2)
     print('1-recnet validation forward {}^2 B{}: {:.3f} ms, {:.1f} slices/s '
           '({})'.format(SCAR_SIZE, b, ms, b / ms * 1e3, line))
   host = next(iter(DataLoader(load_dataset(gan_runner.conf, data_dir,
@@ -2292,6 +2300,387 @@ def scarseg_timings(data_dir, rec_runner, gan_runner, seg_runner, line):
                                            'ScarSeg', 'train'), SEG_BATCH)))
   step_times('segmentation', seg_runner, seg_runner.preparer.prepare_train(
       gen, host), SEG_BATCH, line)
+
+
+class RecordingWriter:
+  """Phase 19: tensorboardX's ``SummaryWriter`` surface that the training
+  CLI calls, recording what it is given (the card machine has no
+  tensorboardX)."""
+
+  def __init__(self):
+    self.scalars = []
+    self.images = []
+    self.closed = False
+
+  def add_scalar(self, tag, value, step):
+    self.scalars.append((tag, float(value), int(step)))
+
+  def add_image(self, tag, image, step):
+    self.images.append((tag, np.array(image), int(step)))
+
+  def close(self):
+    self.closed = True
+
+
+# Phase 19: configs/2-refinement.json as phase 18 (4) runs it, each step's
+# losses summarised, checkpoints only at the last epoch or on preemption.
+SURFACE_EPOCHS = 4
+SURFACE_OVERRIDES = ['vgg_random_init=true', 'num_train_subset_samples=10',
+                     'num_validation_subset_samples=10',
+                     'steps_per_train_summary=1', 'epochs_per_checkpoint=100',
+                     'num_epochs={}'.format(SURFACE_EPOCHS)]
+SURFACE_STEPS = 10 // GAN_BATCH      # train steps per epoch
+# K1 per epoch: one generator forward per train step and per validation
+# batch; K2 f32: 10 per validation forward.
+SURFACE_K1, SURFACE_K2 = 3 * (SURFACE_STEPS + 2), 10 * 2
+
+
+def preemption_phase(data_dir, conf_path, run_dir):
+  """Phase 19 (a): the training CLI as a process, SIGTERM once the log
+  shows epoch 1's first step: it must exit 0 after that epoch with a
+  checkpoint for the next one. Returns (the epoch it stopped after, the
+  checkpoint)."""
+  cmd = [sys.executable, '-m', 'csmri_refinement_tpu_torch.train', conf_path,
+         '--data-dir', data_dir, '--run-dir', run_dir, '--device', DEVICE,
+         '--conf'] + SURFACE_OVERRIDES
+  t0 = time.perf_counter()
+  proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+  try:
+    deadline = time.time() + 300
+    log = ''
+    while time.time() < deadline and proc.poll() is None:
+      logs = glob.glob(os.path.join(run_dir, 'log_train_*.txt'))
+      if logs:
+        with open(logs[0]) as f:
+          log = f.read()
+        if '===> Epoch[1](1/' in log:
+          break
+      time.sleep(0.05)
+    signalled = time.perf_counter() - t0
+    if proc.poll() is None and '===> Epoch[1](1/' in log:
+      proc.send_signal(signal.SIGTERM)
+    out, _ = proc.communicate(timeout=300)
+  finally:
+    if proc.poll() is None:
+      proc.kill()
+      proc.communicate()
+  if proc.returncode != 0 or '===> Epoch[1](1/' not in log:
+    print(out[-4000:], file=sys.stderr)
+  require('===> Epoch[1](1/' in log,
+          'the preempted CLI never logged its first step')
+  require(proc.returncode == 0, 'the preempted CLI exited {}'.format(
+      proc.returncode))
+  stops = [ln for ln in out.splitlines() if 'Preemption: stopping after' in ln]
+  require(len(stops) == 1 and 'Preemption requested' in out,
+          'the preempted CLI did not log its preemption')
+  epoch = int(stops[0].split('after epoch ')[1].split()[0])
+  require(epoch < SURFACE_EPOCHS, 'the preempted run reached the last epoch')
+  ckpts = glob.glob(os.path.join(run_dir, 'periodic-chkpt_*_{}.ckpt'.format(
+      epoch + 1)))
+  require(len(ckpts) == 1, 'no checkpoint for epoch {}'.format(epoch + 1))
+  print('preemption: SIGTERM {:.1f} s after start, at epoch 1\'s first step; '
+        'exit 0 after epoch {} of {} in {:.1f} s; {}'.format(
+            signalled, epoch, SURFACE_EPOCHS, time.perf_counter() - t0,
+            os.path.basename(ckpts[0])))
+  print('preemption: logged "{}"'.format(stops[0].split(': ', 1)[1]))
+  return epoch, ckpts[0]
+
+
+def require_restored(path, runner):
+  """Phase 19 (b): right after the restore, both networks (parameters and
+  BN statistics) and both optimizers (moments, steps, groups) equal the
+  checkpoint's bit for bit. Returns the number of tensors compared."""
+  want = torch.load(path, map_location='cpu', weights_only=True)['runner']
+  count = 0
+
+  def same(got, ref, what):
+    nonlocal count
+    if isinstance(ref, dict):
+      require(isinstance(got, dict) and set(got) == set(ref),
+              what + ': other keys')
+      for key in ref:
+        same(got[key], ref[key], '{}/{}'.format(what, key))
+    elif isinstance(ref, list):
+      require(len(got) == len(ref), what + ': other length')
+      for i, (g, r) in enumerate(zip(got, ref)):
+        same(g, r, '{}/{}'.format(what, i))
+    elif isinstance(ref, torch.Tensor):
+      require(got.dtype == ref.dtype and torch.equal(got.cpu(), ref),
+              what + ' differs from the checkpoint')
+      count += 1
+    else:
+      require(got == ref, what + ' differs from the checkpoint')
+  same(runner.gen.state_dict(), want['generator'], 'generator')
+  same(runner.disc.state_dict(), want['discriminator'], 'discriminator')
+  same(runner.gen_optimizer.state_dict(), want['gen_optimizer'],
+       'gen_optimizer')
+  same(runner.disc_optimizer.state_dict(), want['disc_optimizer'],
+       'disc_optimizer')
+  require(runner.step == want['step'], 'step differs from the checkpoint')
+  return count
+
+
+def resume_phase(data_dir, conf_path, ckpt, start, prof_dir):
+  """Phase 19 (b): ``--resume`` in this process with ``--profile-dir``,
+  ``-v`` and ``--print-parameters`` and a recording writer: the bit-exact
+  restore, epochs ``start``..4 with K1 and K2 f32 counted, the summaries,
+  the trace. Returns (the runner, the writer, K1 and K2 f32 launches)."""
+  import contextlib
+  import io
+  from csmri_refinement_tpu_torch import train
+  from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
+  from csmri_refinement_tpu_torch.utils.diagnostics import parameter_shapes
+  writer = RecordingWriter()
+  restored = []
+  original = (train._summary_writer, train.restore_checkpoint)
+
+  def checked_restore(path, runner):
+    state = original[1](path, runner)
+    restored.append(require_restored(path, runner))
+    return state
+  train._summary_writer = lambda run_dir: writer
+  train.restore_checkpoint = checked_restore
+  out = io.StringIO()
+  sync()
+  dc_kernel.dc_cuda.launches = 0
+  conv_chain.conv_layer_f32_cuda.launches = 0
+  t0 = time.perf_counter()
+  try:
+    with contextlib.redirect_stdout(out):
+      runner = train.main([conf_path, '--data-dir', data_dir, '--resume',
+                           ckpt, '--device', DEVICE, '--profile-dir',
+                           prof_dir, '-v', '--print-parameters', '--conf'] +
+                          SURFACE_OVERRIDES)
+    sync()
+  finally:
+    train._summary_writer, train.restore_checkpoint = original
+    logging.getLogger().setLevel(logging.INFO)
+  secs = time.perf_counter() - t0
+  k1, k2 = dc_kernel.dc_cuda.launches, conv_chain.conv_layer_f32_cuda.launches
+  text = out.getvalue()
+  epochs = SURFACE_EPOCHS - start + 1
+  require(restored and restored[0] > 0, 'the resume restored nothing')
+  print('resume: {} tensors of both networks and both optimizers equal the '
+        'checkpoint\'s bit for bit right after the restore'.format(
+            restored[0]))
+  done = [e for e in range(1, SURFACE_EPOCHS + 1)
+          if '===> Epoch {} Complete'.format(e) in text]
+  require(done == list(range(start, SURFACE_EPOCHS + 1)),
+          'the resumed run trained epochs {}'.format(done))
+  print('resume: epochs {} to {} in {:.1f} s (profiled), {} steps; K1 '
+        'launches {} (3 per generator forward), K2 f32 {} (10 per validation '
+        'forward)'.format(start, SURFACE_EPOCHS, secs, runner.step, k1, k2))
+  require(k1 == SURFACE_K1 * epochs and k2 == SURFACE_K2 * epochs,
+          'expected {} K1 and {} K2 f32 launches'.format(SURFACE_K1 * epochs,
+                                                         SURFACE_K2 * epochs))
+  for name, module in (('generator', runner.gen),
+                       ('discriminator', runner.disc)):
+    n = sum(math.prod(shape) for _, shape in parameter_shapes(module))
+    require('{}: {:,} parameters'.format(name, n) in text and
+            n == sum(p.numel() for p in module.parameters()),
+            '--print-parameters did not count the ' + name)
+    print('--print-parameters: {}: {:,} parameters'.format(name, n))
+  require('DEBUG: Configuration object' in text and
+          '\n     gen_psnr: ' in text, '-v logged no config or step metrics')
+  print('-v: the resolved config and each step\'s metrics logged at DEBUG '
+        '({} lines captured)'.format(text.count('\n')))
+  return runner, writer, k1, k2
+
+
+def require_summaries(runner, writer, start, data_dir):
+  """Phase 19 (b): ``train/<name>`` scalars at the JAX global steps,
+  ``validation/<name>`` at the epochs' ends, one grid per validation: a
+  finite (1, H, W) array; the last grid and metrics equal a validation of
+  the trained runner."""
+  from csmri_refinement_tpu_torch import train
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  require(writer.closed, 'the writer was not closed')
+  steps = {}
+  for tag, value, step in writer.scalars:
+    require(math.isfinite(value), '{} at {} is not finite'.format(tag, step))
+    steps.setdefault(tag, []).append(step)
+  epochs = range(start, SURFACE_EPOCHS + 1)
+  train_steps = [SURFACE_STEPS * (e - 1) + b for e in epochs
+                 for b in range(1, SURFACE_STEPS + 1)]
+  val_steps = [SURFACE_STEPS * e for e in epochs]
+  train_tags = sorted(t for t in steps if t.startswith('train/'))
+  val_tags = sorted(t for t in steps if t.startswith('validation/'))
+  for tag in ('train/gen_loss', 'train/disc_loss', 'train/gen_loss_gan',
+              'train/gen_loss_VGG19', 'train/gen_psnr', 'validation/gen_psnr',
+              'validation/gen_ssim', 'validation/gen_loss_VGG19'):
+    require(tag in steps, 'no {} scalars'.format(tag))
+  for tag in train_tags:
+    require(steps[tag] == train_steps, '{} at steps {}'.format(tag,
+                                                                steps[tag]))
+  for tag in val_tags:
+    require(steps[tag] == val_steps, '{} at steps {}'.format(tag, steps[tag]))
+  print('summaries: {} train tags at steps {}, {} validation tags at steps '
+        '{}'.format(len(train_tags), train_steps, len(val_tags), val_steps))
+  grids = [(tag, img, step) for tag, img, step in writer.images]
+  require([(t, s) for t, _, s in grids] ==
+          [('validation/targets_and_predictions_0', s) for s in val_steps],
+          'image summaries {}'.format([(t, s) for t, _, s in grids]))
+  side = SCAR_SIZE + 2
+  for _, img, _ in grids:
+    require(img.shape == (1, 3 * side + 2, 4 * side + 2) and
+            np.isfinite(img).all(), 'a grid of shape {}'.format(img.shape))
+  conf = runner.conf
+  loader = DataLoader(load_dataset(conf, data_dir, 'ScarSeg', 'val'),
+                      GAN_BATCH, num_samples=10)
+  data, _, metrics = runner.validate(loader, num_batches_to_return=1)
+  named = runner.get_named_outputs(data[0])
+  grid = train.make_comparison_grid(named['target'], named['prediction'],
+                                    GAN_BATCH)
+  require(np.array_equal(grid, grids[-1][1]),
+          'the last grid differs from a validation of the trained runner')
+  last = {t: v for t, v, s in writer.scalars if s == val_steps[-1] and
+          t.startswith('validation/')}
+  for name, metric in metrics.items():
+    require(last['validation/' + name] == metric.value,
+            'validation/{} differs from the runner\'s'.format(name))
+  print('summaries: {} grids of {}, finite; the last grid and the {} '
+        'validation metrics equal a validation of the trained runner'.format(
+            len(grids), grids[0][1].shape, len(metrics)))
+
+
+def require_trace(prof_dir):
+  """Phase 19 (b): the profiler's Chrome trace names K1's and K2 f32's
+  kernels among its CUDA kernels."""
+  traces = glob.glob(os.path.join(prof_dir, '*.pt.trace.json'))
+  require(len(traces) == 1, 'expected one trace, found {}'.format(traces))
+  with open(traces[0]) as f:
+    events = json.load(f)['traceEvents']
+  kernels = {}
+  for e in events:
+    if e.get('cat') == 'kernel':
+      kernels[e['name']] = kernels.get(e['name'], 0) + 1
+  found = {}
+  for label, symbols in (('K1 (csrc/dc.cu)', ('row_fft', 'col_dc')),
+                         ('K2 f32 (csrc/conv_f32.cu)',
+                          ('conv_tf32x3_kernel', 'conv_direct_kernel'))):
+    found[label] = sum(n for name, n in kernels.items()
+                       if any(s in name for s in symbols))
+    require(found[label] > 0, 'the trace names no {} kernel'.format(label))
+  print('trace {}: {:.1f} MB, {} CUDA kernel names, {} launches; {}'.format(
+      os.path.basename(traces[0]), os.path.getsize(traces[0]) / 1e6,
+      len(kernels), sum(kernels.values()), ', '.join(
+          '{} {}'.format(k, v) for k, v in found.items())))
+
+
+def deploy_phase(data_dir, conf_path, run_dir, work):
+  """Phase 19 (c): deploy_checkpoint on the last checkpoint; validate on
+  the deployed file and on the training checkpoint: identical metrics."""
+  from csmri_refinement_tpu_torch import deploy_checkpoint, validate
+  last = sorted(glob.glob(os.path.join(run_dir, 'periodic-chkpt_*.ckpt')),
+                key=lambda p: int(p.rsplit('_', 1)[1].split('.')[0]))[-1]
+  deployed = os.path.join(work, 'deployed.ckpt')
+  deploy_checkpoint.main(['adversarial', last, deployed])
+  require(set(torch.load(deployed, weights_only=True)['runner']) ==
+          {'generator'}, 'the deployed file holds more than the generator')
+  results = [validate.main([conf_path, path, '--data-dir', data_dir, '-b',
+                            str(GAN_BATCH), '--dry', '--device', DEVICE,
+                            '--conf'] + SURFACE_OVERRIDES)['ScarSeg']
+             ['metrics'] for path in (last, deployed)]
+  require(results[0] == results[1], 'validate differs on the deployed '
+          'checkpoint: {} vs {}'.format(results[1], results[0]))
+  print('deploy: {} ({:.1f} MB) -> deployed ({:.1f} MB); validate metrics '
+        'identical: {}'.format(os.path.basename(last),
+                               os.path.getsize(last) / 1e6,
+                               os.path.getsize(deployed) / 1e6, results[0]))
+
+
+def surface_timings(runner, data_dir, line):
+  """Phase 19 (d): one epoch (its train steps and validation) with the
+  recording writer and with summaries off, in turns; the train step with
+  and without the profiler, in turns."""
+  from csmri_refinement_tpu_torch import train
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.utils.profiling import trace
+  conf = runner.conf
+  train_loader = DataLoader(load_dataset(conf, data_dir, 'ScarSeg', 'train'),
+                            GAN_BATCH, shuffle=True, seed=conf.seed,
+                            num_samples=10, num_workers=4)
+  val_loader = DataLoader(load_dataset(conf, data_dir, 'ScarSeg', 'val'),
+                          GAN_BATCH, num_samples=10, num_workers=4)
+
+  def epoch(writer):
+    sync()
+    t0 = time.perf_counter()
+    runner.train_epoch(train_loader, SURFACE_EPOCHS, writer, 1)
+    train.run_validation(conf, runner, SURFACE_EPOCHS, val_loader, {}, {},
+                         writer, len(train_loader))
+    sync()
+    return (time.perf_counter() - t0) * 1e3
+  epoch(None)
+  times = {False: [], True: []}
+  for on in (False, True, True, False):
+    times[on].append(epoch(RecordingWriter() if on else None))
+  off, on = (sum(times[k]) / 2 for k in (False, True))
+  print('GAN epoch at {}^2 B{} ({} steps + 2 validation batches), TF32 off: '
+        'summaries off {:.3f} ms, recording writer {:.3f} ms ({:+.2f}%) '
+        '({})'.format(SCAR_SIZE, GAN_BATCH, SURFACE_STEPS, off, on,
+                      100 * (on / off - 1), line))
+  # where the summaries' time goes: the validation batch returned to the
+  # host for the grid (``BaseRunner.validate``'s ``to_host``), then the grid
+  returned, batches = {}, {}
+  for n in (0, 1, 1, 0):
+    sync()
+    t0 = time.perf_counter()
+    batches[n], _, _ = runner.validate(val_loader, num_batches_to_return=n)
+    returned.setdefault(n, []).append((time.perf_counter() - t0) * 1e3)
+  data = batches[1][0]
+  nbytes = sum(t.numel() * t.element_size() for t in _tensors(data))
+  t0 = time.perf_counter()
+  named = runner.get_named_outputs(data)
+  train.save_images_to_tensorboard(RecordingWriter(), conf, GAN_BATCH, 0,
+                                   'grid', named['prediction'],
+                                   named['target'])
+  grid_ms = (time.perf_counter() - t0) * 1e3
+  v0, v1 = (sum(returned[k]) / 2 for k in (0, 1))
+  print('GAN validation (2 batches): {:.3f} ms, returning one batch to the '
+        'host {:.3f} ms ({:.1f} MB: the batch, the generator\'s outputs and '
+        'the discriminator\'s features on fakes and reals); its grid {:.3f} '
+        'ms on the host ({})'.format(v0, v1, nbytes / 1e6, grid_ms, line))
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+  host = next(iter(DataLoader(load_dataset(conf, data_dir, 'ScarSeg',
+                                           'train'), GAN_BATCH)))
+  batch = runner.preparer.prepare_train(gen, host)
+  step = {False: [], True: []}
+  with tempfile.TemporaryDirectory(dir=GAN_DIR) as prof:
+    for on in (False, True, True, False):
+      with trace(prof if on else None):
+        step[on].append(timed_ms(lambda: runner.train_batch(batch), iters=5,
+                                 warmup=1))
+  off, on = (sum(step[k]) / 2 for k in (False, True))
+  print('GAN train step at {}^2 B{}, TF32 off: {:.3f} ms, under '
+        '--profile-dir\'s profiler {:.3f} ms ({:+.2f}%) ({})'.format(
+            SCAR_SIZE, GAN_BATCH, off, on, 100 * (on / off - 1), line))
+
+
+def _tensors(tree):
+  """Every tensor of a nested dict, list or tuple."""
+  if isinstance(tree, dict):
+    tree = list(tree.values())
+  if isinstance(tree, (list, tuple)):
+    return [t for item in tree for t in _tensors(item)]
+  return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def surface_phase(data_dir, conf_path, work, line):
+  """Phase 19: the trainer's surface on the paper's GAN config at 512²
+  (phase 18 (4)'s config copy and tree). Returns the K1 and K2 f32
+  launches of the resumed run."""
+  run_dir = os.path.join(work, 'surface_run')
+  start, ckpt = preemption_phase(data_dir, conf_path, run_dir)
+  prof_dir = os.path.join(work, 'surface_trace')
+  runner, writer, k1, k2 = resume_phase(data_dir, conf_path, ckpt, start + 1,
+                                        prof_dir)
+  require_summaries(runner, writer, start + 1, data_dir)
+  require_trace(prof_dir)
+  deploy_phase(data_dir, conf_path, run_dir, work)
+  surface_timings(runner, data_dir, line)
+  return k1, k2
 
 
 def scarseg_phase(line):
@@ -2307,15 +2696,19 @@ def scarseg_phase(line):
         data_dir, os.path.join(work, 'runs'))
     dc = scarseg_dc_phase(line)
     scarseg_validate_phase(data_dir, best, os.path.join(work, 'out'), line)
-    _, gan_k1, gan_k2, gan_err, gan_calls, gan_runner = scarseg_gan_phase(
-        data_dir, best, work, line)
+    gan_conf, gan_k1, gan_k2, gan_err, gan_calls, gan_runner = \
+        scarseg_gan_phase(data_dir, best, work, line)
     seg_runner, seg_k2, seg_err = scarseg_seg_phase(data_dir, work)
     scarseg_timings(data_dir, rec_runner, gan_runner, seg_runner, line)
     f32_layer_table('GAN validation {}^2'.format(SCAR_SIZE),
                     [c[:3] for c in gan_calls], line)
+    del rec_runner, gan_runner, seg_runner, gan_calls
+    # Phase 19: the trainer's surface on the same tree
+    surf_k1, surf_k2 = surface_phase(data_dir, gan_conf, work, line)
   finally:
     shutil.rmtree(work, ignore_errors=True)
-  return {'k1': k1 + gan_k1, 'k1_bwd': k1_bwd, 'k2_f32': gan_k2 + seg_k2,
+  return {'k1': k1 + gan_k1 + surf_k1, 'k1_bwd': k1_bwd,
+          'k2_f32': gan_k2 + seg_k2 + surf_k2,
           'dc_err': dc['K1'][0], 'dc_bwd_err': dc['K1-bwd'][0],
           'f32_err': max(gan_err, seg_err)}
 
@@ -2356,6 +2749,9 @@ def main(argv=None):
   require(torch.cuda.is_available(), 'no CUDA device')
   sys.path.insert(0, os.path.abspath(tree))
   import csmri_refinement_tpu_torch as P
+  # CUDA-event timing: utils/profiling.py's timed_ms, for every phase
+  global timed_ms
+  from csmri_refinement_tpu_torch.utils.profiling import timed_ms
   from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel, native
   line = card_line()
   print(line)
@@ -2438,22 +2834,22 @@ def main(argv=None):
   def chains(fn):
     return lambda: [fn(cx, ch, pad) for _, cx, ch, pad in chain_cases]
 
-  conv_ms = time_ms(chains(
+  conv_ms = timed_ms(chains(
       lambda cx, ch, pad: conv_chain.fused_conv_chain(cx, ch, pad_mode=pad)),
                     iters=5, warmup=1)
-  conv_plain_ms = time_ms(chains(plain_chain), iters=3, warmup=1)
+  conv_plain_ms = timed_ms(chains(plain_chain), iters=3, warmup=1)
   cl_cases = [(nm, cx.permute(0, 3, 1, 2).contiguous(
       memory_format=torch.channels_last).permute(0, 2, 3, 1), ch, pad)
               for nm, cx, ch, pad in chain_cases]
-  conv_lib_ms = time_ms(lambda: [library_chain(cx, ch, pad)
+  conv_lib_ms = timed_ms(lambda: [library_chain(cx, ch, pad)
                                         for _, cx, ch, pad in cl_cases],
                         iters=5, warmup=1)
   c_flops, c_bytes = chain_cost(chain_cases)
   conv_bound, conv_by = bound(c_flops, c_bytes, BF16_FLOPS)
   for name, cx, ch, pad in chain_cases:
-    one = time_ms(lambda: conv_chain.fused_conv_chain(
+    one = timed_ms(lambda: conv_chain.fused_conv_chain(
         cx, ch, pad_mode=pad), iters=5, warmup=1)
-    lib = time_ms(lambda: library_chain(cx, ch, pad), iters=5,
+    lib = timed_ms(lambda: library_chain(cx, ch, pad), iters=5,
                   warmup=1)
     f, _ = chain_cost([(name, cx, ch, pad)])
     print('K2 {} B{}: kernel {:.3f} ms ({:.1f} TFLOP/s), cuDNN {:.3f} ms, '
@@ -2466,7 +2862,7 @@ def main(argv=None):
   k2_layer_table(chain_cases, line)
 
   with torch.inference_mode():
-    fwd_ms = time_ms(lambda: model(*args), iters=5, warmup=1)
+    fwd_ms = timed_ms(lambda: model(*args), iters=5, warmup=1)
   print('flagship forward {}^2 bf16 B{}: {:.3f} ms, {:.1f} slices/s; of '
         'which DC kernel {:.3f} ms, conv-chain kernel {:.3f} ms ({})'.format(
             SIZE, BATCH, fwd_ms, BATCH / fwd_ms * 1e3, 3 * dc_ms,
@@ -2497,7 +2893,7 @@ def main(argv=None):
   gc = fft.unpack_complex(g)
   gmask = gm[..., 0]
   bwd_ms = graph_ms(lambda: dc_kernel.dc_bwd_cuda(g, gm))
-  bwd_eager_ms = time_ms(lambda: dc_kernel.dc_bwd_cuda(g, gm))
+  bwd_eager_ms = timed_ms(lambda: dc_kernel.dc_bwd_cuda(g, gm))
   dc16_ms = graph_ms(lambda: dc_kernel.dc_cuda(g, g, gm))
   bwd_plain_ms = graph_ms(lambda: dc_kernel.dc_plain_vjp(g, gm, False))
   bwd_lib_ms = graph_ms(lambda: torch.fft.ifft2(
@@ -2519,7 +2915,7 @@ def main(argv=None):
   step_ms = {}
   for tf32 in (False, True):
     torch.backends.cudnn.allow_tf32 = tf32
-    step_ms[tf32] = time_ms(lambda: gpu_runner.train_batch(tbatch),
+    step_ms[tf32] = timed_ms(lambda: gpu_runner.train_batch(tbatch),
                             iters=10, warmup=2)
   torch.backends.cudnn.allow_tf32 = False
   for tf32, ms in step_ms.items():
@@ -2543,7 +2939,7 @@ def main(argv=None):
   # Phase 15: int8 and probe timings
   k3 = int8_timings(k3_cases(model), line)
   with torch.inference_mode():
-    fwd8_ms = time_ms(lambda: model8(*args), iters=5, warmup=1)
+    fwd8_ms = timed_ms(lambda: model8(*args), iters=5, warmup=1)
   print('flagship forward {}^2 B{}: int8 {:.3f} ms, {:.1f} slices/s; bf16 '
         '{:.3f} ms, {:.1f} slices/s ({})'.format(
             SIZE, BATCH, fwd8_ms, BATCH / fwd8_ms * 1e3, fwd_ms,

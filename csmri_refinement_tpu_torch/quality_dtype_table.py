@@ -15,14 +15,17 @@ table gives PSNR and SSIM of the reconstruction magnitudes (clipped to
 
     python -m csmri_refinement_tpu_torch.quality_dtype_table \
         [--sizes 256 512] [--batch 8] [--device cuda|cpu] \
-        [--refinement-scale 0.5]
+        [--refinement-scale S] [--checkpoint CKPT [--model-key KEY]]
 
-Prints one markdown table. Weights are the seeded random init; the JAX
-script's ``--checkpoint`` (trained weights) waits for the port's checkpoint
-loaders. The random init sets the wrapper's ``scale`` to 0, so the U-Net
-(the only part that int8 changes) does not reach the output and the int8
-row equals the bf16 row; ``--refinement-scale`` (default 0.5) sets the
-scale so that it does. ``--refinement-scale 0`` keeps the init.
+Prints one markdown table. Weights are the seeded random init, or with
+``--checkpoint`` the network ``--model-key`` (default ``generator``) of a
+checkpoint of either package, read by
+``utils/checkpoints.py::load_model_state_dict`` (it must have the flagship's
+architecture). The random init sets the wrapper's ``scale`` to 0, so the
+U-Net (the only part that int8 changes) does not reach the output and the
+int8 row equals the bf16 row; ``--refinement-scale`` (default 0.5 without
+a checkpoint, the checkpoint's own scale with one) sets the scale so that
+it does. ``--refinement-scale 0`` keeps the init.
 """
 
 import argparse
@@ -34,6 +37,8 @@ from csmri_refinement_tpu_torch.data.datasets import _make_phantoms
 from csmri_refinement_tpu_torch.flagship import build_flagship
 from csmri_refinement_tpu_torch.ops import quantize
 from csmri_refinement_tpu_torch.ops.ssim import ssim
+from csmri_refinement_tpu_torch.utils.checkpoints import (
+    load_model_state_dict, load_network_state)
 
 MODES = (('f32', torch.float32, False), ('bf16', torch.bfloat16, False),
          ('int8', torch.bfloat16, True))
@@ -48,9 +53,11 @@ def _scores(pred, target):
   return psnr.item(), ssim(mag[..., None], target[..., None]).item()
 
 
-def table(sizes=(256, 512), batch=8, device='cuda', refinement_scale=None):
+def table(sizes=(256, 512), batch=8, device='cuda', refinement_scale=None,
+          state=None):
   """Rows ``(size, label, psnr, dpsnr, ssim, dssim)``, deltas against the
-  f32 row of the same size; weights and masks from seed 0."""
+  f32 row of the same size; masks from seed 0, weights from seed 0 or
+  the network ``state`` (a port state dict or a flax tree)."""
   device = torch.device(device)
   rows = []
   for size in sizes:
@@ -61,6 +68,8 @@ def table(sizes=(256, 512), batch=8, device='cuda', refinement_scale=None):
     for name, dtype, quantized in MODES:
       model, undersample_batch = build_flagship(
           size, dtype, device, 0, quantize_inference=quantized)
+      if state is not None:
+        load_network_state(model, state)
       if refinement_scale is not None:
         with torch.no_grad():
           model.scale.fill_(refinement_scale)
@@ -92,14 +101,24 @@ def main(argv=None):
   parser.add_argument('--sizes', type=int, nargs='*', default=[256, 512])
   parser.add_argument('--batch', type=int, default=8)
   parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda')
-  parser.add_argument('--refinement-scale', type=float, default=0.5,
-                      help='the wrapper\'s scale (0 at the random init, where '
-                      'the U-Net does not reach the output)')
+  parser.add_argument('--refinement-scale', type=float, default=None,
+                      help='the wrapper\'s scale (default 0.5 without a '
+                      'checkpoint: 0 at the random init, where the U-Net '
+                      'does not reach the output)')
+  parser.add_argument('--checkpoint', default=None,
+                      help='trained checkpoint of either package; its '
+                      'network replaces the random init')
+  parser.add_argument('--model-key', default='generator')
   args = parser.parse_args(argv)
   if args.device == 'cuda':
     torch.backends.cudnn.allow_tf32 = False    # f32 means f32
     torch.backends.cuda.matmul.allow_tf32 = False
-  rows = table(args.sizes, args.batch, args.device, args.refinement_scale)
+  state, scale = None, args.refinement_scale
+  if args.checkpoint:
+    state = load_model_state_dict(args.checkpoint, args.model_key)
+  elif scale is None:
+    scale = 0.5
+  rows = table(args.sizes, args.batch, args.device, scale, state)
   print_table(rows)
   return rows
 

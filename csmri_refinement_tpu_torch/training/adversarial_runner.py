@@ -65,7 +65,8 @@ from csmri_refinement_tpu_torch.training.optimizers import (get_optimizer,
                                                             set_learning_rate)
 from csmri_refinement_tpu_torch.training.prep import get_batch_preparer
 from csmri_refinement_tpu_torch.training.runner import _cast_f32, _detach
-from csmri_refinement_tpu_torch.utils.checkpoints import load_network_state
+from csmri_refinement_tpu_torch.utils.checkpoints import (
+    load_network_state, load_optimizer_state)
 from csmri_refinement_tpu_torch.utils.config import Configuration
 from csmri_refinement_tpu_torch.utils.precision import full_f32
 
@@ -384,6 +385,12 @@ class AdversarialRunner(BaseRunner):
 
   # -- bookkeeping ------------------------------------------------------------
 
+  def __str__(self):
+    s = 'Generator:\n{}'.format(self.gen)
+    if self.disc is not None:
+      s += '\nDiscriminator:\n{}'.format(self.disc)
+    return s
+
   def epoch_beginning(self, epoch):
     for name, scheduler, optimizer in (
         ('generator', self.gen_lr_scheduler, self.gen_optimizer),
@@ -426,11 +433,13 @@ class AdversarialRunner(BaseRunner):
     load_network_state(self.gen, state_dict['generator'])
     self.step = int(state_dict.get('step', 0))
     if 'gen_optimizer' in state_dict and self.gen_optimizer is not None:
-      self.gen_optimizer.load_state_dict(state_dict['gen_optimizer'])
+      load_optimizer_state(self.gen_optimizer, self.gen,
+                           state_dict['gen_optimizer'])
     if self.disc is not None:
       if 'discriminator' not in state_dict:
         raise ValueError('Incompatible checkpoint: no discriminator')
       load_network_state(self.disc, state_dict['discriminator'])
       if 'disc_optimizer' in state_dict:
-        self.disc_optimizer.load_state_dict(state_dict['disc_optimizer'])
+        load_optimizer_state(self.disc_optimizer, self.disc,
+                             state_dict['disc_optimizer'])
     logging.debug('Restored adversarial runner state')

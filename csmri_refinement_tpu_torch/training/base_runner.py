@@ -5,10 +5,15 @@ metric accumulation, the validation loop (which returns its first
 ``num_batches_to_return`` batches, moved to the host) and the inference
 loop (every batch, no losses or metrics) are the same; a subclass supplies
 the steps. ``steps_per_fetch`` (several updates per loss fetch) is not
-ported: each step's losses are fetched as it ends.
+ported: each step's losses are fetched as it ends. With a summary writer
+``train_epoch`` adds each summarised step's losses and metrics as
+``train/<name>`` scalars at the JAX package's global step, ``n · (epoch −
+1) + batch`` for n batches per epoch; they are the values the step already
+fetched for its log line.
 """
 
 import logging
+from itertools import chain
 
 import torch
 
@@ -58,9 +63,13 @@ class BaseRunner:
   def epoch_beginning(self, epoch):
     pass
 
+  def epoch_finished(self, epoch):
+    pass
+
   # -- engine -----------------------------------------------------------------
 
-  def train_epoch(self, loader, epoch, steps_per_train_summary=1):
+  def train_epoch(self, loader, epoch, summary_writer=None,
+                  steps_per_train_summary=1, verbose=False):
     self.epoch = epoch
     num_batches_per_epoch = len(loader)
     epoch_loss_metrics = {}
@@ -82,10 +91,19 @@ class BaseRunner:
         accumulate_metric(epoch_metrics, name, metric)
 
       if current_batch % steps_per_train_summary == 0:
-        logging.info('===> Epoch[%d](%d/%d): %s', epoch, current_batch,
-                     num_batches_per_epoch, ', '.join(
-                         '{}: {}'.format(name, metric)
-                         for name, metric in loss_metrics.items()))
+        s = '===> Epoch[{}]({}/{}): '.format(epoch, current_batch,
+                                             num_batches_per_epoch)
+        s += ', '.join('{}: {}'.format(name, metric)
+                       for name, metric in loss_metrics.items())
+        if verbose:
+          s += '\n' + '\n'.join('     {}: {}'.format(name, metric)
+                                for name, metric in metrics.items())
+        logging.info(s)
+        if summary_writer is not None:
+          global_step = num_batches_per_epoch * (epoch - 1) + current_batch
+          for name, metric in chain(loss_metrics.items(), metrics.items()):
+            summary_writer.add_scalar('train/{}'.format(name), metric.value,
+                                      global_step)
 
     value_by_loss = {name: m.average()
                      for name, m in epoch_loss_metrics.items()}

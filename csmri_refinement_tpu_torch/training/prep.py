@@ -17,7 +17,9 @@ moved to the device.
   kept, so a slice gets the same mask on every validation run whatever
   the batch order and the device (the JAX package folds the index into a
   fixed key, ``prep.py:58-64``; the bits differ, the contract is the
-  same).
+  same). Validation adds no noise, as the JAX package's
+  ``_val_cartesian`` passes none: ``undersampling.noise`` is training
+  randomness only.
 
 Radial masks wait (ROADMAP Queue 1 item 1).
 """
@@ -74,9 +76,8 @@ class RecBatchPreparer:
     _, height, width = gt.shape[:3]
     mask = torch.stack([self._val_mask(int(i), height, width)
                         for i in host_batch['index']])
-    gen = torch.Generator(device=self.device).manual_seed(VAL_MASK_SEED)
     return self._passthrough(us_ops.undersample_batch(
-        gen, gt, noise=self.noise, fixed_mask=mask), host_batch)
+        None, gt, fixed_mask=mask), host_batch)
 
 
 class SegBatchPreparer:

@@ -38,7 +38,8 @@ from csmri_refinement_tpu_torch.training.model_setup import (
 from csmri_refinement_tpu_torch.training.optimizers import (get_optimizer,
                                                             set_learning_rate)
 from csmri_refinement_tpu_torch.training.prep import get_batch_preparer
-from csmri_refinement_tpu_torch.utils.checkpoints import load_network_state
+from csmri_refinement_tpu_torch.utils.checkpoints import (
+    load_network_state, load_optimizer_state)
 from csmri_refinement_tpu_torch.utils.config import Configuration
 from csmri_refinement_tpu_torch.utils.precision import full_f32
 
@@ -182,6 +183,9 @@ class Runner(BaseRunner):
 
   # -- bookkeeping ------------------------------------------------------------
 
+  def __str__(self):
+    return 'Model:\n{}'.format(self.model)
+
   def epoch_beginning(self, epoch):
     if self.lr_scheduler is not None:
       lr = self.lr_scheduler(epoch - 1)
@@ -200,5 +204,6 @@ class Runner(BaseRunner):
     load_network_state(self.model, state_dict['model'])
     self.step = int(state_dict.get('step', 0))
     if 'optimizer' in state_dict and self.optimizer is not None:
-      self.optimizer.load_state_dict(state_dict['optimizer'])
+      load_optimizer_state(self.optimizer, self.model,
+                           state_dict['optimizer'])
     logging.debug('Restored runner state')

@@ -18,10 +18,12 @@ only), any other the JAX package's (``utils/flax_msgpack.py``, no flax).
 In a JAX checkpoint each network (``model``, ``generator``,
 ``discriminator``) is a flax variable tree ``{'params', 'batch_stats'}`` of
 numpy arrays, which ``load_network_state`` copies into a port module
-through ``utils/jax_weights.py``; its optax state has no port counterpart
-yet, so ``restore_checkpoint`` restores the networks, their BN statistics
-and the step of a JAX checkpoint and leaves the optimizers as they are
-(ROADMAP Queue 1: ``--resume`` from a JAX checkpoint).
+through ``utils/jax_weights.py``, and each optimizer (``optimizer``,
+``gen_optimizer``, ``disc_optimizer``) an optax state, which
+``load_optimizer_state`` maps onto the port's optimizer
+(``jax_weights.load_optax_state``: moments, step count, learning rate).
+So ``restore_checkpoint`` resumes a run of either package. The port saves
+its own format only.
 ``load_model_state_dict`` and ``resolve_pretrained_weights`` read one
 network's state out of another run's checkpoint, for a config's
 ``pretrained_weights: [path, key]``.
@@ -37,12 +39,10 @@ from csmri_refinement_tpu_torch.metrics.metric import (MaxMetric, Metric,
 from csmri_refinement_tpu_torch.utils.checkpoint_paths import (
     is_checkpoint_path)
 from csmri_refinement_tpu_torch.utils.flax_msgpack import msgpack_restore
-from csmri_refinement_tpu_torch.utils.jax_weights import load_flax_variables
+from csmri_refinement_tpu_torch.utils.jax_weights import (
+    load_flax_variables, load_optax_state)
 
 _ZIP_MAGIC = b'PK\x03\x04'
-# Runner-state keys of optimizer state, which a JAX checkpoint holds as
-# optax trees.
-OPTIMIZER_KEYS = ('optimizer', 'gen_optimizer', 'disc_optimizer')
 
 
 def _encode_metrics(best_val_metrics):
@@ -85,6 +85,15 @@ def load_network_state(module, state):
     load_flax_variables(module, {'params': state})
 
 
+def load_optimizer_state(optimizer, module, state):
+  """Load a port optimizer state dict or a JAX checkpoint's optax tree
+  into ``optimizer``, which holds parameters of ``module``."""
+  if 'param_groups' in state:
+    optimizer.load_state_dict(state)
+  else:
+    load_optax_state(optimizer, module, state)
+
+
 def save_checkpoint(path, conf, runner, epoch, best_val_metrics):
   """Write {conf, runner state, epoch, best metrics} to ``path``."""
   state = {
@@ -116,15 +125,7 @@ def restore_checkpoint(checkpoint_path, runner):
   {conf, start_epoch, best_val_metrics} (the last two where the checkpoint
   has them)."""
   checkpoint = load_checkpoint(checkpoint_path, runner.device)
-  runner_state = checkpoint['runner']
-  dropped = [k for k in OPTIMIZER_KEYS if k in runner_state] if \
-      is_flax_checkpoint(checkpoint_path) else []
-  if dropped:
-    logging.warning('Not restoring %s of the JAX checkpoint %s (optax '
-                    'state)', ', '.join(dropped), checkpoint_path)
-    runner_state = {k: v for k, v in runner_state.items()
-                    if k not in dropped}
-  runner.load_state_dict(runner_state)
+  runner.load_state_dict(checkpoint['runner'])
   state = {'conf': checkpoint.get('conf')}
   if 'epoch' in checkpoint:
     state['start_epoch'] = int(checkpoint['epoch'])

@@ -64,6 +64,12 @@ class Configuration:
 
   # -- serialization --------------------------------------------------------
 
+  def __str__(self):
+    lines = ['Configuration object']
+    for key, value in self.__dict__.items():
+      lines.append('  {}: {}'.format(key, value))
+    return '\n'.join(lines)
+
   def to_dict(self):
     """Plain-dict view including private fields (for serialization)."""
     out = {}

@@ -923,6 +923,160 @@ def test_validation_masks_do_not_depend_on_the_device(cuda):
   assert not torch.equal(masks_by_device[0], masks_by_device[1])
 
 
+def test_validation_inputs_with_noise_do_not_depend_on_the_device(cuda):
+  """With ``undersampling.noise`` > 0 validation adds no noise (as the JAX
+  package's ``_val_cartesian``), so the card and the CPU validate the same
+  inputs: the image-domain tensors within 1e-6 of max |target|, one ortho
+  FFT pair apart; ``kspace`` within 1e-6 of its own max (its DC term is
+  ~26 × max |target| at 256², where cuFFT and pocketfft round apart by
+  1.9e-6, 7e-8 of it; a noise of 0.05 would move it by ~1)."""
+  import numpy as np
+  from csmri_refinement_tpu_torch.data import datasets
+  from csmri_refinement_tpu_torch.training import prep
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_dict({'undersampling': {
+      'sampling_scheme': 'varden', 'acceleration_factor': 8,
+      'noise': 0.05}})
+  host = {'gt': datasets._make_phantoms(4, 256, 3)[0],
+          'index': np.arange(4, dtype=np.int32)}
+  want = prep.RecBatchPreparer(conf, 'cpu').prepare_val(host)
+  got = prep.RecBatchPreparer(conf, cuda).prepare_val(host)
+  for key in ('mask', 'target', 'inp', 'kspace'):
+    scale = want['kspace' if key == 'kspace' else 'target'].abs().max()
+    assert got[key].device.type == 'cuda'
+    err = (got[key].cpu() - want[key]).abs().max().item()
+    assert err <= 1e-6 * scale.item(), (key, err)
+
+
+def _twin_wrapper(widths_seed=0):
+  """The flagship RefinementWrapper as a reference-layout twin
+  (``tests/torch_twins.py``) at the widths of configs/2-refinement.json,
+  seeded weights and BN statistics, eval mode, and its converted port
+  module."""
+  import torch_twins
+  from csmri_refinement_tpu_torch.flagship import flagship_model
+  from csmri_refinement_tpu_torch.utils import torch_import
+  from csmri_refinement_tpu_torch.utils.jax_weights import (
+      load_flax_variables)
+  unet = dict(num_inputs=2, num_outputs=1, num_layers_per_scale=2,
+              encode_filters=[32, 64, 128], decode_filters=[64, 32],
+              kernel_size=4, upsampling_mode='nn-resize-conv',
+              output_activation='none', padding='reflection',
+              decoder_act_upsampling_only=True)
+  twin = torch_twins.TorchRefinementWrapper(
+      torch_twins.TorchRecNet(num_blocks=3, num_convs=3, num_filters=32),
+      torch_twins.TorchUNET(**unet))
+  gen = torch.Generator().manual_seed(widths_seed)
+  with torch.no_grad():
+    for name, t in list(twin.named_parameters()) + list(
+        twin.named_buffers()):
+      if not t.is_floating_point():
+        continue
+      if t.ndim > 1:
+        t.copy_(torch.randn(t.shape, generator=gen) / t[0].numel() ** 0.5)
+      elif name.endswith('running_var') or name.endswith('weight'):
+        t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+      else:
+        t.copy_(0.2 * torch.randn(t.shape, generator=gen))
+    twin.scale.fill_(0.3)
+  twin.eval()
+  tree = torch_import.convert_refinement_wrapper(
+      twin.state_dict(), {'num_blocks': 3, 'num_convs': 3},
+      torch_import._unet_convert_kwargs(unet))
+  port = flagship_model()
+  load_flax_variables(port, tree)
+  return twin, port.eval()
+
+
+def test_imported_reference_wrapper_on_card_matches_its_twin(cuda):
+  """A reference-layout flagship wrapper through ``torch_import`` runs on
+  the card (K1 and K2's f32 route) at 256², B = 2, TF32 off, within 5e-4
+  of the twin's forward on the CPU."""
+  from csmri_refinement_tpu_torch.ops import undersample
+  twin, port = _twin_wrapper()
+  gen = torch.Generator().manual_seed(1)
+  gt = torch.rand(2, 256, 256, generator=gen)
+  batch = undersample.undersample_batch(gen, gt, 'varden', 8)
+  with torch.no_grad():
+    want = twin(*[batch[k].permute(0, 3, 1, 2)
+                  for k in ('inp', 'kspace', 'mask')])['pred']
+    port.to(cuda)
+    got = port(*[batch[k].to(cuda) for k in ('inp', 'kspace', 'mask')])
+  torch.cuda.synchronize()
+  err = (got['pred'].cpu() - want.permute(0, 2, 3, 1)).abs().max().item()
+  assert err <= 5e-4, err
+
+
+def _flax_tree(module, moments=None):
+  """``module``'s tensors as a flax variable tree (numpy, the JAX
+  layouts); with ``moments`` (a seeded RandomState) params-shaped random
+  values in their place."""
+  import numpy as np
+  from csmri_refinement_tpu_torch.utils.jax_weights import (flax_shape,
+                                                            flax_tensors)
+  tree = {}
+  for tensor, collection, path, move in flax_tensors(module):
+    if moments is not None and collection != 'params':
+      continue
+    flip, perm = move
+    value = tensor.detach().cpu().numpy()
+    if perm:
+      value = np.transpose(value, np.argsort(perm))
+    if flip:
+      value = np.flip(value, flip).copy()
+    if moments is not None:
+      value = moments.rand(*flax_shape(tensor, move)).astype(np.float32)
+    node = tree.setdefault(collection, {})
+    for key in path[:-1]:
+      node = node.setdefault(key, {})
+    node[path[-1]] = value
+  return tree if moments is None else tree['params']
+
+
+def test_optax_state_restores_onto_the_card(cuda):
+  """A JAX checkpoint's runner state (a flax tree and an Adam optax state
+  in the layout ``flax.serialization.to_state_dict`` writes) restored
+  into a runner on the card: the moments sit on the card beside their
+  parameters, hold the moved values, and a step runs."""
+  import numpy as np
+  from csmri_refinement_tpu_torch.training.runner import Runner
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_dict({
+      'seed': 0, 'runner_type': 'standard',
+      'model': {'name': 'RecNet', 'num_blocks': 2, 'num_convs': 2,
+                'num_filters': 8},
+      'loss_name': 'MSE',
+      'optimizer': {'name': 'Adam', 'learning_rate': 0.0002}})
+  runner = Runner(conf, 'train', cuda)
+  rng = np.random.RandomState(0)
+  mu, nu = _flax_tree(runner.model, rng), _flax_tree(runner.model, rng)
+  state = {'model': _flax_tree(runner.model), 'step': 7, 'optimizer': {
+      'count': np.int32(7),
+      'hyperparams': {'learning_rate': np.float32(1e-4),
+                      'b1': np.float32(0.9), 'b2': np.float32(0.999),
+                      'eps': np.float32(1e-8), 'eps_root': np.float32(0)},
+      'hyperparams_states': {},
+      'inner_state': {'0': {'count': np.int32(7), 'mu': mu, 'nu': nu},
+                      '1': {}}}}
+  runner.load_state_dict(state)
+  kernel = mu['block_0']['conv_0']['kernel']
+  p = runner.model.block_0.conv_0.weight
+  entry = runner.optimizer.state[p]
+  assert p.device.type == entry['exp_avg'].device.type == 'cuda'
+  assert entry['exp_avg_sq'].device == p.device
+  assert torch.equal(entry['exp_avg'].cpu(), torch.from_numpy(
+      np.transpose(kernel, (3, 2, 0, 1)).copy()))
+  assert entry['step'].item() == 7 and runner.step == 7
+  assert runner.optimizer.param_groups[0]['lr'] == pytest.approx(1e-4)
+  gen = torch.Generator().manual_seed(2)
+  from csmri_refinement_tpu_torch.ops import undersample
+  batch = undersample.undersample_batch(
+      gen, torch.rand(2, 64, 64, generator=gen), 'varden', 4)
+  losses, _ = runner.train_batch({k: v.to(cuda) for k, v in batch.items()})
+  assert torch.isfinite(losses['loss']).item()
+  assert entry['step'].item() == 8
+
+
 def test_validate_on_card_matches_cpu(cuda, tmp_path):
   """The validate CLI on a 128² ScarSeg-format tree (downscale 4: 16 mask
   lines, 6 of them drawn), the same seeded RecNet checkpoint on the card

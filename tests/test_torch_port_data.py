@@ -31,13 +31,14 @@ from csmri_refinement_tpu.metrics.metric import MinMetric as JMinMetric
 from csmri_refinement_tpu.ops import masks as jmasks
 from csmri_refinement_tpu.ops import undersample as jus
 from csmri_refinement_tpu.training import build_runner as jbuild_runner
+from csmri_refinement_tpu.training import prep as jprep
 from csmri_refinement_tpu.utils import checkpoints as jcheckpoints
 from csmri_refinement_tpu.utils.config import Configuration as JConfiguration
-from csmri_refinement_tpu_torch.data import DataLoader
+from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
 from csmri_refinement_tpu_torch.data import analyze_io, datasets
 from csmri_refinement_tpu_torch.models import construct_model
 from csmri_refinement_tpu_torch.ops import undersample as tus
-from csmri_refinement_tpu_torch.training import build_runner
+from csmri_refinement_tpu_torch.training import build_runner, prep
 from csmri_refinement_tpu_torch.utils import checkpoints, flax_msgpack
 from csmri_refinement_tpu_torch.utils.config import Configuration
 from csmri_refinement_tpu_torch.utils.jax_weights import load_flax_variables
@@ -199,7 +200,7 @@ def jax_checkpoints(tmp_path_factory):
   return out
 
 
-# --- Analyze ----------------------------------------------------------------
+# --- Analyze -----------------------------------------------------------------
 
 
 @pytest.mark.parametrize('big_endian', [False, True], ids=['le', 'be'])
@@ -228,7 +229,7 @@ def test_analyze_reader_squeezes_and_reads_hdr_path(tmp_path):
     analyze_io.load_analyze(str(tmp_path / 'missing.img'))
 
 
-# --- ScarSeg ----------------------------------------------------------------
+# --- ScarSeg -----------------------------------------------------------------
 
 
 @pytest.fixture(scope='module')
@@ -327,7 +328,7 @@ def test_scarseg_refuses_a_missing_case_and_unported_options(tmp_path):
     datasets.load_dataset(conf, root, 'Nope', 'train')
 
 
-# --- loader -----------------------------------------------------------------
+# --- loader ------------------------------------------------------------------
 
 
 @pytest.mark.parametrize('workers', [0, 2])
@@ -380,7 +381,7 @@ def test_loader_stops_its_producer_when_left_early():
   assert next(iter(loader))['x'][:, 0].tolist() == [0, 1]
 
 
-# --- msgpack ----------------------------------------------------------------
+# --- msgpack -----------------------------------------------------------------
 
 
 def _assert_trees_equal(got, want, path='root'):
@@ -482,7 +483,7 @@ def test_stacked_scan_tree_raises_by_name():
     load_flax_variables(port, variables)
 
 
-# --- restoring JAX checkpoints ------------------------------------------------
+# --- restoring JAX checkpoints -----------------------------------------------
 
 
 def _pred(out):
@@ -520,7 +521,10 @@ def test_port_runner_restored_from_jax_checkpoint_predicts_as_jax(
 def test_train_mode_runner_restores_jax_networks_not_optax_state(
     jax_checkpoints):
   """A train-mode GAN runner takes a JAX checkpoint's generator,
-  discriminator and BN statistics; its optimizers stay as built."""
+  discriminator and BN statistics; its optimizers take the optax state,
+  which is the initial one here (the JAX runner took no step): zero
+  moments and step counts (``tests/test_torch_port_cli.py`` restores
+  trained ones)."""
   path, conf_d, jrunner, _ = jax_checkpoints['gan']
   runner = build_runner(Configuration.from_dict(conf_d), 'adversarial',
                         'train', 'cpu')
@@ -534,7 +538,13 @@ def test_train_mode_runner_restores_jax_networks_not_optax_state(
     for key, value in module.state_dict().items():
       np.testing.assert_array_equal(value.numpy(), want_sd[key].numpy(),
                                     err_msg=key)
-  assert not runner.gen_optimizer.state_dict()['state']
+  for optimizer in (runner.gen_optimizer, runner.disc_optimizer):
+    state = optimizer.state_dict()['state']
+    assert len(state) == sum(len(g['params'])
+                             for g in optimizer.param_groups)
+    for entry in state.values():
+      assert entry['step'].item() == 0
+      assert not entry['exp_avg'].any() and not entry['exp_avg_sq'].any()
 
 
 def test_jax_recnet_grafts_into_a_refinement_generator(jax_checkpoints,
@@ -615,3 +625,36 @@ def test_named_outputs_equal_jax(jax_checkpoints, name):
       np.testing.assert_array_equal(g, w, err_msg=key)
     else:
       np.testing.assert_allclose(g, w, atol=UNET_ATOL, err_msg=key)
+
+
+# --- validation inputs -------------------------------------------------------
+
+
+def test_validation_inputs_with_noise_match_jax(monkeypatch):
+  """With ``undersampling.noise`` > 0 the port's validation inputs equal
+  the JAX package's: JAX's ``_val_cartesian`` adds no noise (the noise is
+  training randomness), so on the same slices and masks (JAX's, handed to
+  the port slice by slice) ``inp`` and ``kspace`` are one ortho FFT pair
+  apart."""
+  conf_d = recnet_conf(
+      train_dataset='Synthetic', validation_dataset='Synthetic',
+      synthetic={'image_size': SIZE, 'num_train': 4, 'num_val': 4},
+      undersampling=dict(recnet_conf()['undersampling'], noise=0.05))
+  jpreparer = jprep.get_batch_preparer(JConfiguration.from_dict(conf_d))
+
+  def jax_val_mask(self, index, height, width):
+    mask = np.array(jpreparer.prepare_val({
+        'gt': np.zeros((1, height, width), np.float32),
+        'index': np.array([index], np.int32)})['mask'])[0]
+    return torch.from_numpy(mask[..., 0])
+  monkeypatch.setattr(prep.RecBatchPreparer, '_val_mask', jax_val_mask)
+  conf = Configuration.from_dict(conf_d)
+  host = next(iter(DataLoader(load_dataset(conf, None, 'Synthetic', 'val'),
+                              4)))
+  assert sorted(host['index'].tolist()) == [0, 1, 2, 3]
+  want = jpreparer.prepare_val(host)
+  got = prep.RecBatchPreparer(conf, 'cpu').prepare_val(host)
+  bar = 1e-6 * float(np.abs(np.asarray(want['target'])).max())
+  for key in ('mask', 'target', 'inp', 'kspace'):
+    np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                               atol=bar, rtol=0, err_msg=key)

@@ -211,8 +211,8 @@ def test_port_imports_no_jax():
     files += [os.path.join(root, n) for n in names if n.endswith('.py')]
   assert len(files) > 35
   # nor pandas, PIL or msgpack, which the card machine need not have
-  banned = ('jax', 'jaxlib', 'flax', 'csmri_refinement_tpu', 'pandas', 'PIL',
-            'msgpack')
+  banned = ('jax', 'jaxlib', 'flax', 'optax', 'csmri_refinement_tpu',
+            'pandas', 'PIL', 'msgpack')
   for path in files:
     for mod in _imports(path):
       assert mod.split('.')[0] not in banned, (path, mod)
@@ -236,10 +236,16 @@ def test_port_imports_no_jax():
           'csmri_refinement_tpu_torch.ops.quantize, '
           'csmri_refinement_tpu_torch.quality_dtype_table, '
           'csmri_refinement_tpu_torch.probes.mosaic_prims, '
-          'csmri_refinement_tpu_torch.probes.int8_prims; '
+          'csmri_refinement_tpu_torch.probes.int8_prims, '
+          'csmri_refinement_tpu_torch.deploy_checkpoint, '
+          'csmri_refinement_tpu_torch.utils.tensor_transforms, '
+          'csmri_refinement_tpu_torch.utils.diagnostics, '
+          'csmri_refinement_tpu_torch.utils.preemption, '
+          'csmri_refinement_tpu_torch.utils.profiling, '
+          'csmri_refinement_tpu_torch.utils.torch_import; '
           'bad = [m for m in set(sys.modules) - before if m.split(".")[0] in '
-          '("jax", "flax", "csmri_refinement_tpu", "pandas", "PIL", '
-          '"msgpack")]; '
+          '("jax", "flax", "optax", "csmri_refinement_tpu", "pandas", '
+          '"PIL", "msgpack")]; '
           'assert not bad, bad')
   subprocess.run([sys.executable, '-c', code], cwd=REPO, check=True,
                  timeout=120)

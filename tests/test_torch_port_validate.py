@@ -247,7 +247,7 @@ def test_train_cli_on_scarseg_writes_a_checkpoint_validate_reads(tree,
                                                                  tmp_path):
   """configs/1-recnet.json as written, cut to downscale 8 and narrow
   widths, one epoch on the CPU from ``--data-dir``; the best checkpoint
-  then validates."""
+  then validates, and the JAX package's checkpoint (epoch 3) resumes."""
   data_dir = tree[0]
   config = os.path.join(REPO, 'configs', '1-recnet.json')
   runner = train.main([
@@ -267,9 +267,14 @@ def test_train_cli_on_scarseg_writes_a_checkpoint_validate_reads(tree,
   metrics = got['ScarSeg']['metrics']
   assert 5 < metrics['psnr'] < 60 and 0 < metrics['ssim'] <= 1
   assert os.path.exists(os.path.join(os.path.dirname(best), 'log_eval.txt'))
-  with pytest.raises(NotImplementedError, match='JAX checkpoint'):
-    train.main([config, '--device', 'cpu', '--dry', '--data-dir', data_dir,
-                '--resume', tree[1]])
+  resumed = train.main([
+      config, '--device', 'cpu', '--dry', '--data-dir', data_dir,
+      '--resume', tree[1], '--conf', 'num_epochs=3', 'downscale=8',
+      'num_data_workers=2', 'num_validation_subset_samples=20',
+      'model={"name": "RecNet", "num_blocks": 2, "num_convs": 2, '
+      '"num_filters": 8}'])
+  assert resumed.step == 2         # epoch 3 alone, from the JAX step 0
+  assert resumed.optimizer.state_dict()['state'][0]['step'].item() == 2
 
 
 def test_validate_refuses_raw_batches_and_a_missing_checkpoint(tree):
