@@ -146,9 +146,32 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     (c) ``deploy_checkpoint adversarial`` on the last checkpoint, then
     ``validate`` on both files: identical metrics; (d) an epoch with the
     recording writer and with summaries off, and the train step with and
-    without the profiler, in turns.
+    without the profiler, in turns;
+20. the training options of the JAX package's recipe on the same tree:
+    (a) the three configs as written with ``train_dtype`` bfloat16 through
+    the training CLI (2 steps each and phase 18's validation batches),
+    counters around each: 1-recnet 12 K1 and 6 K1-bwd, the GAN 12 K1 and
+    20 K2 on the bf16 route, segmentation 18 K2 bf16; ms per step, slices/s
+    and the step's peak memory beside phase 18's f32 numbers (TF32 off and
+    on); the GAN's and segmentation's bf16 step with the model's pad
+    (``layers.pad``) and with plain ``F.pad``, in turns; (b) ``train_remat`` on the GAN and 1-recnet, f32 (TF32 off) and
+    bf16: after 2 updates every parameter and statistic within 1e-5 of max
+    |ref| of the plain run from the same weights and seeds (deterministic
+    algorithms on both: ``torch.use_deterministic_algorithms`` and cuDNN's
+    deterministic convolutions; the model's reflect and replicate pads have
+    a deterministic backward everywhere), ms per step and peak memory of
+    both; (c)
+    ``steps_per_fetch`` 4 on 1-recnet and the GAN in bf16: 4 updates within
+    (b)'s bar of 4 single steps, ms per update of both; (d) every K2 bf16
+    launch of one bf16 GAN and one bf16 segmentation eval forward at 512²
+    against its plain version at phase 4's bar, each segmentation layer's
+    device time beside one cuDNN bf16 call, the K1 and K1-bwd launches
+    of one bf16 1-recnet step against theirs (phases 3, 8); (e) one bf16
+    update of each runner on the card and on the CPU at 64²: losses and
+    outputs within 2e-2; (f) 1-recnet with ``use_scan``: 2 updates within
+    (b)'s bar of the unrolled runner's.
 
-``--scarseg-only`` runs phases 1, 2, 18 and 19 alone (no result line).
+``--scarseg-only`` runs phases 1, 2 and 18-20 alone (no result line).
 ``--f32-only`` runs phases 1 and 2 for the conv sources and times K2's f32
 route on the 18 segmentation layer shapes (seeded weights) after holding
 each to its plain version (no result line); with ``--tree DIR`` an earlier
@@ -167,6 +190,7 @@ Prints a ``{"kernels": [...]}`` line, then, last, ``{"ok": true, "device":
 f32 reference is full f32.
 """
 
+import contextlib
 import copy
 import glob
 import json
@@ -294,6 +318,7 @@ SIS_ATOL = 1e-3
 # validation batches (20 + 4).
 SCAR_SIZE, SCAR_SLICES = 512, 4
 RECNET_CONFIG = os.path.join(REPO, 'configs', '1-recnet.json')
+SEG_CONFIG = os.path.join(REPO, 'configs', '3-train-segmentation-unet.json')
 REC_BATCH, REC_STEPS, REC_VAL_BATCHES = 20, 5, 2
 # validate card vs CPU on the same slices: the f32 forward bars of phase 6
 # (predictions within E2E_ATOL of max |target|), the PSNR bar tighter.
@@ -1710,8 +1735,9 @@ def sis_gan_phase(gan_conf_path, gen_state, seg_conf_d, best):
 def chain_launches(net, *net_inputs):
   """The K2 launches of ``net``'s eval-mode forward on ``net_inputs``,
   redone one by one: each chain unit's input is caught on the way (a forward
-  pre-hook), then its layers are launched on it in turn. Returns [(x,
-  layer, pad, y)], in the forward's order."""
+  pre-hook), then its layers are launched on it in turn, in the unit's
+  compute dtype (f32, or bf16 for a bf16 network). Returns [(x, layer, pad,
+  y)], in the forward's order."""
   from csmri_refinement_tpu_torch.models.unet import ConvEncodeUnit
   from csmri_refinement_tpu_torch.ops import conv_chain
   from csmri_refinement_tpu_torch.utils.precision import full_f32
@@ -1728,7 +1754,7 @@ def chain_launches(net, *net_inputs):
   calls = []
   with torch.no_grad():
     for unit, xi in inputs:
-      xi = xi.float().contiguous()
+      xi = xi.to(unit.dtype or torch.float32).contiguous()
       for layer in unit.chain_layers():
         y = conv_chain.conv_layer_cuda(xi, layer, unit.padding)
         calls.append((xi, layer, unit.padding, y))
@@ -2104,23 +2130,29 @@ def scarseg_validate_phase(data_dir, best, out_root, line):
 
 
 def hold_launches(label, calls, expected, batch):
-  """Phase 18: ``calls`` ([(x, layer, pad, y)], ``chain_launches``) are
-  ``expected`` K2 f32 launches, each within F32_ATOL of max(1, max |ref|)
-  of its plain version. Returns the largest |kernel - plain|."""
+  """Phases 18, 20: ``calls`` ([(x, layer, pad, y)], ``chain_launches``)
+  are ``expected`` K2 launches, each within its route's bar of its plain
+  version: F32_ATOL of max(1, max |ref|) in f32, phase 4's BF16_REL_TOL of
+  max |ref| in bf16. Returns the largest |kernel - plain|."""
   from csmri_refinement_tpu_torch.ops import conv_chain
   require(len(calls) == expected, 'expected {} K2 launches per {} forward, '
           'got {}'.format(expected, label, len(calls)))
+  bf16 = calls[0][0].dtype == torch.bfloat16
   worst = 0.0
   for xi, layer, pad, y in calls:
     want = conv_chain.conv_layer_plain(xi, layer, pad)
-    err = (y - want).abs().max().item()
-    tol = F32_ATOL * max(1.0, want.abs().max().item())
-    require(err <= tol, 'K2 f32 {} layer {} differs from its plain version '
-            '({:.3e} > {:.3e})'.format(label, tuple(xi.shape), err, tol))
+    err = (y.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tol = BF16_REL_TOL * scale if bf16 else F32_ATOL * max(1.0, scale)
+    require(y.dtype == xi.dtype and err <= tol,
+            'K2 {} layer {} differs from its plain version ({:.3e} > {:.3e})'
+            .format(label, tuple(xi.shape), err, tol))
     worst = max(worst, err)
-  print('K2 f32 {} forward {}^2 B{}: {} launches, max|kernel-plain| {:.3e} '
-        '(tol {} of max(1, max|ref|))'.format(label, SCAR_SIZE, batch,
-                                              expected, worst, F32_ATOL))
+  print('K2 {} {} forward {}^2 B{}: {} launches, max|kernel-plain| {:.3e} '
+        '(tol {} of {})'.format('bf16' if bf16 else 'f32', label, SCAR_SIZE,
+                                batch, expected, worst,
+                                BF16_REL_TOL if bf16 else F32_ATOL,
+                                'max|ref|' if bf16 else 'max(1, max|ref|)'))
   return worst
 
 
@@ -2200,13 +2232,12 @@ def scarseg_seg_phase(data_dir, work):
   from csmri_refinement_tpu_torch import train, validate
   from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
   from csmri_refinement_tpu_torch.ops import conv_chain
-  config = os.path.join(REPO, 'configs', '3-train-segmentation-unet.json')
   overrides = ['num_train_subset_samples=16', 'num_validation_subset_samples=8']
   sync()
   conv_chain.conv_layer_cuda.launches = 0
   conv_chain.conv_layer_f32_cuda.launches = 0
   t0 = time.perf_counter()
-  runner = train.main([config, '--data-dir', data_dir, '--log-dir',
+  runner = train.main([SEG_CONFIG, '--data-dir', data_dir, '--log-dir',
                        os.path.join(work, 'seg_runs'), '--device', DEVICE,
                        '--conf', 'num_epochs=1'] + overrides)
   sync()
@@ -2230,7 +2261,7 @@ def scarseg_seg_phase(data_dir, work):
   best = glob.glob(os.path.join(work, 'seg_runs', '*', 'best_dice_class_1',
                                 '*.ckpt'))
   require(len(best) == 1, 'expected one best checkpoint by dice_class_1')
-  metrics = validate.main([config, best[0], '--data-dir', data_dir, '-b',
+  metrics = validate.main([SEG_CONFIG, best[0], '--data-dir', data_dir, '-b',
                            str(SEG_BATCH), '--device', DEVICE, '--conf']
                           + overrides)['ScarSeg']['metrics']
   print('validate of the segmentation U-Net: {}'.format(metrics))
@@ -2240,9 +2271,22 @@ def scarseg_seg_phase(data_dir, work):
   return runner, k2, worst
 
 
+def step_peak_gib(runner, batch):
+  """GiB that one train step allocates on the card above what was
+  allocated before it (activations, gradients, workspaces: the memory
+  that remat trades for time)."""
+  sync()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  runner.train_batch(batch)
+  sync()
+  return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
 def step_times(label, runner, batch, batch_size, line):
   """ms per train step, TF32 off and on, CUDA events around whole steps on
-  one prepared batch after warm-up."""
+  one prepared batch after warm-up, and the step's peak memory. Returns
+  {TF32 on: ms} and the peak."""
   step_ms = {}
   for tf32 in (False, True):
     torch.backends.cudnn.allow_tf32 = tf32
@@ -2251,17 +2295,21 @@ def step_times(label, runner, batch, batch_size, line):
                             warmup=2)
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
+  peak = step_peak_gib(runner, batch)
   for tf32, ms in step_ms.items():
     print('{} train step {}^2 f32 B{} TF32 {}: {:.3f} ms, {:.1f} slices/s '
           '({})'.format(label, SCAR_SIZE, batch_size, 'on' if tf32 else 'off',
                         ms, batch_size / ms * 1e3, line))
+  print('{} train step {}^2 f32 B{}: peak {:.3f} GiB above the resident '
+        'state ({})'.format(label, SCAR_SIZE, batch_size, peak, line))
+  return step_ms, peak
 
 
 def scarseg_timings(data_dir, rec_runner, gan_runner, seg_runner, line):
   """Phase 18 (6): train steps of the three configs at 512², TF32 off and
   on; the loader's host ms per batch without prefetch and the step loop's
   wait for a batch with it; the RecNet's validation forward at B = 1 and
-  20."""
+  20. Returns {config: ({TF32 on: ms per step}, peak GiB)}."""
   from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
   conf = rec_runner.conf
   train_set = load_dataset(conf, data_dir, 'ScarSeg', 'train')
@@ -2272,7 +2320,8 @@ def scarseg_timings(data_dir, rec_runner, gan_runner, seg_runner, line):
   host_ms = (time.perf_counter() - t0) * 1e3 / len(hosts)
   gen = torch.Generator(device=DEVICE).manual_seed(SEED)
   batch = rec_runner.preparer.prepare_train(gen, hosts[0])
-  step_times('1-recnet', rec_runner, batch, REC_BATCH, line)
+  f32 = {'1-recnet': step_times('1-recnet', rec_runner, batch, REC_BATCH,
+                                line)}
   loader = DataLoader(train_set, REC_BATCH, shuffle=True, seed=SEED,
                       num_workers=conf.num_data_workers, prefetch=2)
   sync()
@@ -2294,12 +2343,15 @@ def scarseg_timings(data_dir, rec_runner, gan_runner, seg_runner, line):
           '({})'.format(SCAR_SIZE, b, ms, b / ms * 1e3, line))
   host = next(iter(DataLoader(load_dataset(gan_runner.conf, data_dir,
                                            'ScarSeg', 'train'), GAN_BATCH)))
-  step_times('2-refinement', gan_runner, gan_runner.preparer.prepare_train(
-      gen, host), GAN_BATCH, line)
+  f32['2-refinement'] = step_times(
+      '2-refinement', gan_runner, gan_runner.preparer.prepare_train(
+          gen, host), GAN_BATCH, line)
   host = next(iter(DataLoader(load_dataset(seg_runner.conf, data_dir,
                                            'ScarSeg', 'train'), SEG_BATCH)))
-  step_times('segmentation', seg_runner, seg_runner.preparer.prepare_train(
-      gen, host), SEG_BATCH, line)
+  f32['segmentation'] = step_times(
+      'segmentation', seg_runner, seg_runner.preparer.prepare_train(
+          gen, host), SEG_BATCH, line)
+  return f32
 
 
 class RecordingWriter:
@@ -2683,6 +2735,416 @@ def surface_phase(data_dir, conf_path, work, line):
   return k1, k2
 
 
+# Phase 20: the training options of the JAX recipe (train_dtype,
+# train_remat, steps_per_fetch, use_scan) on the paper's configs at 512².
+# The remat, steps_per_fetch and use_scan runs against the plain run after
+# the same updates, each tensor's max |Δ| over its max |ref| (deterministic
+# algorithms on both sides).
+OPTION_REL = 1e-5
+OPTION_STEPS = 2
+SPF = 4                 # steps_per_fetch of (c)
+OPTION_SMALL = 64       # (e)'s side
+OPTION_CLI = ['num_epochs=1', 'train_dtype=bfloat16']
+
+
+def record_dc_launches(fn):
+  """Run ``fn()`` with K1's and K1-bwd's wrappers keeping each launch's
+  inputs and output: {'K1': [(x, k0, mask, y)], 'K1-bwd': [(g, mask, y)]}.
+  ``_DCFunction`` looks both up at call time."""
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  calls = {'K1': [], 'K1-bwd': []}
+  dc, dc_bwd = dc_kernel.dc_cuda, dc_kernel.dc_bwd_cuda
+
+  def k1(x, k0, mask):
+    y = dc(x, k0, mask)
+    calls['K1'].append((x, k0, mask, y))
+    return y
+
+  def k1_bwd(g, mask):
+    y = dc_bwd(g, mask)
+    calls['K1-bwd'].append((g, mask, y))
+    return y
+  # each wrapper counts through its module-level name
+  k1.launches, k1_bwd.launches = dc.launches, dc_bwd.launches
+  dc_kernel.dc_cuda, dc_kernel.dc_bwd_cuda = k1, k1_bwd
+  try:
+    fn()
+    sync()
+  finally:
+    dc_kernel.dc_cuda, dc_kernel.dc_bwd_cuda = dc, dc_bwd
+    dc.launches, dc_bwd.launches = k1.launches, k1_bwd.launches
+  return calls
+
+
+def option_conf(path, **overrides):
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_json(path)
+  for key, value in dict(vgg_random_init=True, **overrides).items():
+    setattr(conf, key, value)
+  return conf
+
+
+def option_hosts(conf, data_dir, batch, n):
+  """The train fold's first n host batches, unshuffled."""
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  it = iter(DataLoader(load_dataset(conf, data_dir, 'ScarSeg', 'train'),
+                       batch, shuffle=False))
+  return [next(it) for _ in range(n)]
+
+
+def option_runner(conf):
+  from csmri_refinement_tpu_torch.training import build_runner
+  return build_runner(conf, conf.runner_type, 'train', DEVICE)
+
+
+@contextlib.contextmanager
+def deterministic():
+  """Deterministic algorithms (``torch.use_deterministic_algorithms``, a
+  warning for an op that has none; cuDNN's deterministic convolutions):
+  two runs then compare as their arithmetic does, not as the order of
+  atomic additions falls."""
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  torch.backends.cudnn.deterministic = True
+  try:
+    yield
+  finally:
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+
+
+def deterministic_updates(conf, hosts, per_fetch=1):
+  """A runner of ``conf`` after ``_train_step`` over ``hosts`` (each call
+  taking ``per_fetch`` batches), under ``deterministic()``."""
+  runner = option_runner(conf)
+  with deterministic():
+    it = iter(hosts)
+    for _ in range(len(hosts) // per_fetch):
+      runner._train_step(it)
+    sync()
+  return runner
+
+
+def state_rel(got, want):
+  """The largest max |Δ| / max |ref| over every float tensor (parameters
+  and BN statistics) of the runners' networks."""
+  from csmri_refinement_tpu_torch.utils.diagnostics import runner_networks
+  worst = 0.0
+  for name, net in runner_networks(want).items():
+    ref = net.state_dict()
+    for key, value in runner_networks(got)[name].state_dict().items():
+      if value.is_floating_point():
+        scale = max(ref[key].abs().max().item(), 1e-30)
+        worst = max(worst, (value - ref[key]).abs().max().item() / scale)
+  return worst
+
+
+def option_step_cost(runner, batch):
+  """(ms per train step, CUDA events after warm-up; the step's peak GiB
+  above the resident state)."""
+  ms = timed_ms(lambda: runner.train_batch(batch), iters=5, warmup=2)
+  return ms, step_peak_gib(runner, batch)
+
+
+@contextlib.contextmanager
+def plain_f_pad():
+  """The model's reflect and replicate pads as plain ``F.pad`` (whose CUDA
+  backward accumulates with atomics), for timing against ``layers.pad``."""
+  from csmri_refinement_tpu_torch.models import layers
+
+  class FPad:
+    apply = staticmethod(lambda x, pads, mode: F.pad(x, pads, mode=mode))
+  saved, layers._Pad = layers._Pad, FPad
+  try:
+    yield
+  finally:
+    layers._Pad = saved
+
+
+def pad_cost(name, runner, prepared, line):
+  """ms per bf16 train step with ``layers.pad`` and with plain ``F.pad``,
+  two turns each (pad, F.pad, F.pad, pad)."""
+  ms = {'pad': [], 'F.pad': []}
+  for which in ('pad', 'F.pad', 'F.pad', 'pad'):
+    with plain_f_pad() if which == 'F.pad' else contextlib.nullcontext():
+      ms[which].append(timed_ms(lambda: runner.train_batch(prepared),
+                                iters=5, warmup=2))
+  mean = {k: sum(v) / len(v) for k, v in ms.items()}
+  print('bf16 {} train step {}^2, reflect pads: layers.pad {:.3f} / {:.3f} '
+        'ms, F.pad {:.3f} / {:.3f} ms ({:+.2f}% for layers.pad) ({})'.format(
+            name, SCAR_SIZE, *ms['pad'], *ms['F.pad'],
+            100 * (mean['pad'] / mean['F.pad'] - 1), line))
+
+
+def bf16_cli_phase(data_dir, gan_conf, work, f32, line):
+  """Phase 20 (a): the three configs as written with train_dtype bfloat16
+  through the training CLI at 512², 2 steps and phase 18's validation
+  batches, counters around each; ms per step, slices/s and peak beside
+  phase 18's f32 numbers; the reflect-padded GAN and segmentation steps
+  with ``layers.pad`` and with ``F.pad``. Returns ({config: runner}, K1, K1-bwd and K2
+  bf16 launches)."""
+  from csmri_refinement_tpu_torch import train
+  from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
+  runs = (('1-recnet', RECNET_CONFIG, REC_BATCH,
+           ['num_train_subset_samples=40'], (3 * (2 + REC_VAL_BATCHES),
+                                             3 * 2, 0)),
+          ('2-refinement', gan_conf, GAN_BATCH,
+           ['vgg_random_init=true', 'num_train_subset_samples=10',
+            'num_validation_subset_samples=10'], (3 * (2 + 2), 0, 10 * 2)),
+          ('segmentation', SEG_CONFIG, SEG_BATCH,
+           ['num_train_subset_samples=16', 'num_validation_subset_samples=8'],
+           (0, 0, SEG_CHAIN_LAYERS)))
+  runners, totals = {}, [0, 0, 0]
+  for name, config, batch, overrides, expected in runs:
+    sync()
+    dc_kernel.dc_cuda.launches = dc_kernel.dc_bwd_cuda.launches = 0
+    conv_chain.conv_layer_cuda.launches = 0
+    conv_chain.conv_layer_f32_cuda.launches = 0
+    runner = train.main([config, '--data-dir', data_dir, '--log-dir',
+                         os.path.join(work, 'bf16_runs'), '--device', DEVICE,
+                         '--conf'] + OPTION_CLI + overrides)
+    sync()
+    k2_bf16 = conv_chain.conv_layer_cuda.launches - \
+        conv_chain.conv_layer_f32_cuda.launches
+    got = (dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches,
+           k2_bf16)
+    print('bf16 {} CLI at {}^2 B{}: {} steps, K1 {}, K1-bwd {}, K2 bf16 {} '
+          '(f32 route {})'.format(name, SCAR_SIZE, batch, runner.step,
+                                  *got, conv_chain.conv_layer_f32_cuda
+                                  .launches))
+    require(runner.step == 2 and got == expected and
+            conv_chain.conv_layer_f32_cuda.launches == 0,
+            'bf16 {}: expected 2 steps and launches {}'.format(name,
+                                                                expected))
+    totals = [a + b for a, b in zip(totals, got)]
+    host = option_hosts(runner.conf, data_dir, batch, 1)[0]
+    prepared = runner.preparer.prepare_train(
+        torch.Generator(device=DEVICE).manual_seed(SEED), host)
+    ms, peak = option_step_cost(runner, prepared)
+    f32_ms, f32_peak = f32[name]
+    print('bf16 {} train step {}^2 B{}: {:.3f} ms, {:.1f} slices/s, peak '
+          '{:.3f} GiB; f32 TF32 off {:.3f} ms ({:.2f}x), TF32 on {:.3f} ms '
+          '({:.2f}x), peak {:.3f} GiB ({})'.format(
+              name, SCAR_SIZE, batch, ms, batch / ms * 1e3, peak,
+              f32_ms[False], f32_ms[False] / ms, f32_ms[True],
+              f32_ms[True] / ms, f32_peak, line))
+    if name != '1-recnet':
+      pad_cost(name, runner, prepared, line)
+    runners[name] = (runner, prepared)
+  return runners, totals
+
+
+def remat_phase(data_dir, gan_conf, line):
+  """Phase 20 (b): train_remat on the GAN and on 1-recnet, f32 (TF32 off)
+  and bf16: the remat run's parameters and statistics after 2 updates
+  within OPTION_REL of the plain run's from the same weights and seeds;
+  ms per step and peak, plain and remat."""
+  for name, config, batch in (('1-recnet', RECNET_CONFIG, REC_BATCH),
+                              ('2-refinement', gan_conf, GAN_BATCH)):
+    for dtype in (None, 'bfloat16'):
+      conf = option_conf(config, train_dtype=dtype)
+      hosts = option_hosts(conf, data_dir, batch, OPTION_STEPS)
+      runners = {remat: deterministic_updates(option_conf(
+          config, train_dtype=dtype, train_remat=remat), hosts)
+                 for remat in (False, True)}
+      rel = state_rel(runners[True], runners[False])
+      prepared = runners[False].preparer.prepare_train(
+          torch.Generator(device=DEVICE).manual_seed(SEED), hosts[0])
+      cost = {remat: option_step_cost(runner, prepared)
+              for remat, runner in runners.items()}
+      del runners
+      label = dtype or 'f32 TF32 off'
+      print('{} {} at {}^2 B{}: remat after {} updates within {:.2e} of '
+            'max|ref| of the plain run (tol {}); step {:.3f} ms plain, '
+            '{:.3f} ms remat ({:+.1f}%), peak {:.3f} / {:.3f} GiB '
+            '({:+.1f}%) ({})'.format(
+                name, label, SCAR_SIZE, batch, OPTION_STEPS, rel, OPTION_REL,
+                cost[False][0], cost[True][0],
+                100 * (cost[True][0] / cost[False][0] - 1), cost[False][1],
+                cost[True][1], 100 * (cost[True][1] / cost[False][1] - 1),
+                line))
+      require(rel <= OPTION_REL, '{} {}: the remat run parts from the plain '
+              'run'.format(name, label))
+
+
+def steps_per_fetch_phase(data_dir, gan_conf, line):
+  """Phase 20 (c): steps_per_fetch 4 on 1-recnet and the GAN in bf16:
+  after 4 updates within OPTION_REL of 4 single steps; ms per update of
+  each (the steps with their host batch preparation and loss fetches)."""
+  for name, config, batch in (('1-recnet', RECNET_CONFIG, REC_BATCH),
+                              ('2-refinement', gan_conf, GAN_BATCH)):
+    conf = option_conf(config, train_dtype='bfloat16')
+    hosts = option_hosts(conf, data_dir, batch, SPF)
+    runners = {k: deterministic_updates(option_conf(
+        config, train_dtype='bfloat16', steps_per_fetch=k), hosts, k)
+               for k in (1, SPF)}
+    rel = state_rel(runners[SPF], runners[1])
+    ms = {}
+    for k in (1, SPF, SPF, 1):
+      def steps(runner=runners[k], k=k):
+        it = iter(hosts)
+        for _ in range(SPF // k):
+          runner._train_step(it)
+      ms.setdefault(k, []).append(timed_ms(steps, iters=2, warmup=1) / SPF)
+    one, spf = (sum(ms[k]) / 2 for k in (1, SPF))
+    print('{} bf16 at {}^2 B{}: steps_per_fetch {} after {} updates within '
+          '{:.2e} of max|ref| of single steps (tol {}); {:.3f} ms per update '
+          'with a fetch each, {:.3f} ms with one fetch per {} ({:+.2f}%) '
+          '({})'.format(name, SCAR_SIZE, batch, SPF, SPF, rel, OPTION_REL,
+                        one, spf, SPF, 100 * (spf / one - 1), line))
+    require(rel <= OPTION_REL, name + ': steps_per_fetch parts from single '
+            'steps')
+    del runners
+
+
+def bf16_layer_table(label, calls, line):
+  """K2's bf16 route on each layer of ``calls`` (``chain_launches``) as
+  device time (``graph_ms``) beside the same layer as one cuDNN bf16 call
+  (channels-last, ``F.pad`` + ``F.conv2d``): route, TFLOP/s, share of the
+  layer's bound, and the sums."""
+  from csmri_refinement_tpu_torch.ops import conv_chain
+  totals = [0.0, 0.0, 0.0]
+  for xi, layer, pad, _ in calls:
+    b, h, w, cin = xi.shape
+    k, _, _, cout = layer.kernel.shape
+    x_cl = xi.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    ms = graph_ms(lambda: conv_chain.conv_layer_cuda(xi, layer, pad),
+                  calls=5, replays=2)
+    lib_ms = graph_ms(lambda: library_chain(x_cl, [layer], pad), calls=5,
+                      replays=2)
+    flops = 2 * b * h * w * k * k * cin * cout
+    b_ms, by = bound(flops, 2 * (b * h * w * (cin + cout) + k * k * cin * cout)
+                     + 4 * cout, BF16_FLOPS)
+    print('K2 bf16 {} B{} {}^2 {}->{} k{}: route {}, {:.4f} ms, {:.1f} '
+          'TFLOP/s, {:.1%} of its bound {:.4f} ms ({}); cuDNN bf16 {:.4f} '
+          'ms ({})'.format(label, b, h, cin, cout, k,
+                           conv_chain.conv_route(cin, cout, xi.dtype), ms,
+                           flops / ms / 1e9, b_ms / ms, b_ms, by, lib_ms,
+                           line))
+    totals = [t + v for t, v in zip(totals, (ms, lib_ms, b_ms))]
+  print('K2 bf16 {}: {} layers {:.3f} ms, cuDNN bf16 {:.3f} ms, bound {:.3f} '
+        'ms ({})'.format(label, len(calls), *totals, line))
+
+
+def bf16_kernel_checks(runners, data_dir, line):
+  """Phase 20 (d): every K2 bf16 launch of one bf16 GAN and one bf16
+  segmentation eval forward at 512² against its plain version (phase 4's
+  bar), the segmentation layers timed; the K1 and K1-bwd launches of one
+  bf16 1-recnet step against theirs (phases 3 and 8). Returns the largest
+  errors (K2, K1, K1-bwd)."""
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  k2 = 0.0
+  for name, batch, expected in (('2-refinement', GAN_BATCH, 10),
+                                ('segmentation', SEG_BATCH,
+                                 SEG_CHAIN_LAYERS)):
+    runner = runners[name][0]
+    net = runner.gen if name == '2-refinement' else runner.model
+    keys = runner.gen_input_keys if name == '2-refinement' else ('inp',)
+    host = next(iter(DataLoader(load_dataset(runner.conf, data_dir, 'ScarSeg',
+                                             'val'), batch)))
+    vbatch = runner.preparer.prepare_val(host)
+    net.eval()
+    calls = chain_launches(net, *[vbatch[k] for k in keys])
+    require(all(c[0].dtype == torch.bfloat16 for c in calls),
+            name + ': the bf16 eval forward left the bf16 route')
+    k2 = max(k2, hold_launches(name + ' eval', calls, expected,
+                               batch))
+    if name == 'segmentation':
+      bf16_layer_table('segmentation eval', calls, line)
+    del calls
+  runner, batch = runners['1-recnet']
+  calls = record_dc_launches(lambda: runner.train_batch(batch))
+  require(len(calls['K1']) == len(calls['K1-bwd']) == 3,
+          'expected 3 K1 and 3 K1-bwd launches per bf16 1-recnet step')
+  k1 = max((y - dc_kernel.dc_plain(x, k0, m)).abs().max().item()
+           for x, k0, m, y in calls['K1'])
+  k1_bwd = max((y - dc_kernel.dc_plain_vjp(g, m, False)[0]).abs().max()
+               .item() for g, m, y in calls['K1-bwd'])
+  print('bf16 1-recnet step {}^2 B{}: 3 K1 launches within {:.3e} of plain '
+        '(tol {}), 3 K1-bwd within {:.3e} (tol {}), inputs {}'.format(
+            SCAR_SIZE, REC_BATCH, k1, F32_ATOL, k1_bwd, GRAD_ATOL,
+            calls['K1'][0][0].dtype))
+  require(k1 <= F32_ATOL and k1_bwd <= GRAD_ATOL,
+          'K1 or K1-bwd differs from its plain version in a bf16 step')
+  return k2, k1, k1_bwd
+
+
+def bf16_parity_phase():
+  """Phase 20 (e): one bf16 update of each runner on the card and on the
+  CPU from the same weights and batch at 64² (the synthetic RecNet at full
+  width; the GAN narrow, dropout off): every loss within BF16_REL_TOL (the
+  CPU tests' bf16 bar too), the output within it of its max |ref|."""
+  from csmri_refinement_tpu_torch.ops import masks
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  from csmri_refinement_tpu_torch.profile_gan import (
+      synthetic_refinement_conf)
+  from csmri_refinement_tpu_torch.training.runner import Runner
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  rec = Configuration.from_json(TRAIN_CONFIG)
+  rec.train_dtype = 'bfloat16'
+  cpu, gpu = Runner(rec, 'train', 'cpu'), Runner(rec, 'train', DEVICE)
+  gpu.model.load_state_dict(cpu.model.state_dict())
+  gan_d = synthetic_refinement_conf(OPTION_SMALL, 8, 4, 4, dropout=False,
+                                    narrow=True)
+  gan_d['train_dtype'] = 'bfloat16'
+  _, gcpu, ggpu = gan_runner_pair(gan_d)
+  gen = torch.Generator().manual_seed(SEED + 20)
+  n = OPTION_SMALL
+  for label, c, g, b in (('standard', cpu, gpu, 4), ('adversarial', gcpu,
+                                                     ggpu, 4)):
+    gt = torch.rand(b, n, n, generator=gen)
+    mask = masks.cartesian_mask(gen, (b, n, n), 4)
+    want, wout = c.train_batch(us.undersample_batch(None, gt,
+                                                    fixed_mask=mask))
+    got, gout = g.train_batch(us.undersample_batch(
+        None, gt.to(DEVICE), fixed_mask=mask.to(DEVICE)))
+    loss_rel = max(abs(got[k].item() - v.item()) / abs(v.item())
+                   for k, v in want.items())
+    if label == 'adversarial':       # (batch, generator output, ...)
+      wout, gout = wout[1], gout[1]
+    wpred = wout['pred'] if isinstance(wout, dict) else wout
+    gpred = gout['pred'] if isinstance(gout, dict) else gout
+    out_rel = (gpred.cpu() - wpred).abs().max().item() / \
+        wpred.abs().max().item()
+    print('bf16 {} update card vs CPU at {}^2 B{}: losses within {:.2e}, '
+          'output within {:.2e} of max|ref| (tol {})'.format(
+              label, n, b, loss_rel, out_rel, BF16_REL_TOL))
+    require(loss_rel <= BF16_REL_TOL and out_rel <= BF16_REL_TOL,
+            'bf16 {} update: card and CPU differ'.format(label))
+
+
+def use_scan_phase(data_dir):
+  """Phase 20 (f): 1-recnet with use_scan: its 2 updates from the same
+  seeded weights within OPTION_REL of the unrolled runner's."""
+  conf = option_conf(RECNET_CONFIG)
+  hosts = option_hosts(conf, data_dir, REC_BATCH, OPTION_STEPS)
+  plain = deterministic_updates(conf, hosts)
+  scan = deterministic_updates(option_conf(RECNET_CONFIG, model=dict(
+      conf.model, use_scan=True)), hosts)
+  require(scan.model.scan_layout, 'the 1-recnet cascade is homogeneous')
+  rel = state_rel(scan, plain)
+  print('1-recnet use_scan at {}^2 B{}: after {} updates within {:.2e} of '
+        'max|ref| of the unrolled runner (tol {})'.format(
+            SCAR_SIZE, REC_BATCH, OPTION_STEPS, rel, OPTION_REL))
+  require(rel <= OPTION_REL, 'use_scan parts from the unrolled RecNet')
+
+
+def options_phase(data_dir, gan_conf, work, f32, line):
+  """Phase 20: (a)-(f). Returns the launches and errors for the kernels
+  line."""
+  runners, (k1, k1_bwd, k2) = bf16_cli_phase(data_dir, gan_conf, work, f32,
+                                             line)
+  k2_err, k1_err, k1_bwd_err = bf16_kernel_checks(runners, data_dir, line)
+  del runners
+  remat_phase(data_dir, gan_conf, line)
+  steps_per_fetch_phase(data_dir, gan_conf, line)
+  bf16_parity_phase()
+  use_scan_phase(data_dir)
+  return {'k1': k1, 'k1_bwd': k1_bwd, 'k2_bf16': k2, 'k2_err': k2_err,
+          'dc_err': k1_err, 'dc_bwd_err': k1_bwd_err}
+
+
 def scarseg_phase(line):
   """Phase 18: the paper's three configs on a ScarSeg-format tree at 512²,
   the validate and eval_results CLIs; the tree is removed after. Returns
@@ -2699,18 +3161,22 @@ def scarseg_phase(line):
     gan_conf, gan_k1, gan_k2, gan_err, gan_calls, gan_runner = \
         scarseg_gan_phase(data_dir, best, work, line)
     seg_runner, seg_k2, seg_err = scarseg_seg_phase(data_dir, work)
-    scarseg_timings(data_dir, rec_runner, gan_runner, seg_runner, line)
+    f32 = scarseg_timings(data_dir, rec_runner, gan_runner, seg_runner, line)
     f32_layer_table('GAN validation {}^2'.format(SCAR_SIZE),
                     [c[:3] for c in gan_calls], line)
     del rec_runner, gan_runner, seg_runner, gan_calls
     # Phase 19: the trainer's surface on the same tree
     surf_k1, surf_k2 = surface_phase(data_dir, gan_conf, work, line)
+    # Phase 20: the training options on the same tree
+    opt = options_phase(data_dir, gan_conf, work, f32, line)
   finally:
     shutil.rmtree(work, ignore_errors=True)
-  return {'k1': k1 + gan_k1 + surf_k1, 'k1_bwd': k1_bwd,
-          'k2_f32': gan_k2 + seg_k2 + surf_k2,
-          'dc_err': dc['K1'][0], 'dc_bwd_err': dc['K1-bwd'][0],
-          'f32_err': max(gan_err, seg_err)}
+  return {'k1': k1 + gan_k1 + surf_k1 + opt['k1'],
+          'k1_bwd': k1_bwd + opt['k1_bwd'],
+          'k2_f32': gan_k2 + seg_k2 + surf_k2, 'k2_bf16': opt['k2_bf16'],
+          'dc_err': max(dc['K1'][0], opt['dc_err']),
+          'dc_bwd_err': max(dc['K1-bwd'][0], opt['dc_bwd_err']),
+          'f32_err': max(gan_err, seg_err), 'bf16_err': opt['k2_err']}
 
 
 def build_phase(names):
@@ -2775,7 +3241,7 @@ def main(argv=None):
     f32_only(P, line)
     return
   build_phase(native.KERNELS)
-  if scarseg_only:     # phases 1, 2 and 18 alone
+  if scarseg_only:     # phases 1, 2 and 18-20 alone
     print(json.dumps(scarseg_phase(line)))
     return
 
@@ -2990,7 +3456,8 @@ def main(argv=None):
       {'name': 'conv_chain', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/conv_chain.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
-       'launches': conv_launches, 'max_abs_err': conv_err,
+       'launches': conv_launches + scar['k2_bf16'],
+       'max_abs_err': max(conv_err, scar['bf16_err']),
        'ms': conv_ms,
        'plain_ms': conv_plain_ms, 'bound_ms': conv_bound,
        'bound_by': conv_by,

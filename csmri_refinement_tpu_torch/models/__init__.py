@@ -22,7 +22,9 @@ import torch
 MODEL_NAMES = ('RecNet', 'UNET', 'RefinementWrapper', 'CNNDiscriminator')
 
 
-def _dtype(value):
+def torch_dtype(value):
+  """A config's dtype name ('float32', 'bfloat16'), or a torch dtype, or
+  None, as a torch dtype or None."""
   if value is None or isinstance(value, torch.dtype):
     return value
   return {'float32': torch.float32, 'bfloat16': torch.bfloat16}[value]
@@ -43,7 +45,7 @@ def construct_model(section, dtype=None):
     raise ValueError('Unknown model {}'.format(name))
   params.pop('pretrained_weights', None)
   undersampling = params.pop('undersampling', None)
-  dtype = _dtype(params.pop('dtype', dtype))
+  dtype = torch_dtype(params.pop('dtype', dtype))
   if name == 'RefinementWrapper':
     pretrained = construct_model(params.pop('pretrained_model'), dtype)
     learnable = construct_model(params.pop('learnable_model'), dtype)

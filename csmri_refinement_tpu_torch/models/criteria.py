@@ -96,17 +96,19 @@ _ADVERSARIAL = ('GAN', 'LSGAN', 'WGAN', 'FeatureMatching',
 
 
 def _vgg_criterion(conf, loss_name, target_key, device):
+  from csmri_refinement_tpu_torch.models import torch_dtype
   from csmri_refinement_tpu_torch.models.vgg_loss import VGGLoss
   section = conf.get_attr('vgg_loss', default={})
-  if section.get('dtype') is not None:
-    raise NotImplementedError('vgg_loss.dtype is not ported yet')
+  dtype = section.get('dtype') or conf.get_attr('train_dtype')
   vgg_loss = VGGLoss(loss_name, section.get('blocks', -1),
                      section.get('criterion', 'MSE'), section.get('weights'),
                      weights_path=conf.get_attr('vgg_weights_path'),
                      conf_path=conf.file,
                      allow_random_init=conf.get_attr('vgg_random_init',
                                                      default=False),
-                     device=device)
+                     device=device,
+                     remat=conf.get_attr('train_remat', default=False),
+                     dtype=torch_dtype(dtype))
   return CriterionWrapper(vgg_loss, target_key)
 
 
@@ -114,7 +116,11 @@ def get_criterion(conf, loss_name, target_key=None, input_key=None,
                   loss_type=None, device='cuda'):
   """Criterion factory; ``loss_target_keys`` remaps a loss's target key,
   ``loss_type`` picks an adversarial loss's direction, ``device`` holds a
-  VGG19's weights (the card unless the caller asks for the CPU)."""
+  VGG19's weights (the card unless the caller asks for the CPU). The
+  VGG19 computes in ``vgg_loss.dtype`` if given, else in the run's
+  ``train_dtype`` (JAX ``criteria.py:105-140``): the runners build
+  criteria in mode 'train' only. The other criteria are dtype-free
+  reductions."""
   if input_key is None:
     input_key = 'pred'
   if target_key is None:

@@ -30,10 +30,53 @@ def pad_sizes(kernel_size, dilation=1, stride=1):
   return (side, side) if total % 2 == 0 else (side, side + 1)
 
 
+def _fold(grad, dim, before, after, mode):
+  """The gradient of a reflect or replicate pad of ``before`` and
+  ``after`` along ``dim``, summed back onto the unpadded tensor."""
+  n = grad.shape[dim] - before - after
+  out = grad.narrow(dim, before, n).clone()
+  lead, tail = grad.narrow(dim, 0, before), grad.narrow(dim, before + n, after)
+  if mode == 'reflect':
+    out.narrow(dim, 1, before).add_(lead.flip(dim))
+    out.narrow(dim, n - 1 - after, after).add_(tail.flip(dim))
+  else:
+    out.narrow(dim, 0, 1).add_(lead.sum(dim, keepdim=True))
+    out.narrow(dim, n - 1, 1).add_(tail.sum(dim, keepdim=True))
+  return out
+
+
+class _Pad(torch.autograd.Function):
+  """``F.pad`` forward; a backward that folds the border's gradient back
+  by slices, in a fixed order. F.pad's own CUDA backward for reflect and
+  replicate accumulates with atomics, in no fixed order: two runs of one
+  step would differ, and ``torch.use_deterministic_algorithms`` refuses
+  it."""
+
+  @staticmethod
+  def forward(ctx, x, pads, mode):
+    ctx.pads, ctx.mode = pads, mode
+    return F.pad(x, pads, mode=mode)
+
+  @staticmethod
+  def backward(ctx, grad):
+    (left, right, top, bottom), mode = ctx.pads, ctx.mode
+    grad = _fold(grad, -1, left, right, mode)
+    return _fold(grad, -2, top, bottom, mode), None, None
+
+
+def pad(x, pads, mode):
+  """``F.pad`` of an NCHW tensor by (left, right, top, bottom), ``mode``
+  'constant', 'reflect' or 'replicate'; the last two with a deterministic
+  backward (``_Pad``)."""
+  if mode == 'constant':
+    return F.pad(x, pads)
+  return _Pad.apply(x, tuple(pads), mode)
+
+
 def same_pad(x, kernel_size, mode='zero', dilation=1, stride=1):
   """Explicit SAME padding of an NCHW tensor before a VALID conv."""
   p1, p2 = pad_sizes(kernel_size, dilation, stride)
-  return F.pad(x, (p1, p2, p1, p2), mode=_PAD_MODES[mode])
+  return pad(x, (p1, p2, p1, p2), _PAD_MODES[mode])
 
 
 def same_conv(x, weight, bias=None, mode='zero', dilation=1, stride=1):

@@ -11,7 +11,10 @@ Port of ``csmri_refinement_tpu/models/recnet.py`` (``ConvBlock``
 * init: first conv of each block xavier_uniform(1), the rest
   he_normal(relu_leakiness), unless the config overrides ``conv_weight``.
 
-The DC always runs in float32 even under a bf16 compute dtype, and is
+Under a bf16 compute dtype the parameters stay f32 (each conv casts its
+weights, as flax's ``param_dtype`` default keeps them) and the DC runs in
+float32: ``ops/dc.py::data_consistency`` casts its input and the result
+goes back to the compute dtype (JAX ``:194-197``). The DC is
 differentiable on the card (``ops/dc_kernel.py::_DCFunction``: K1 forward,
 K1-bwd backward). The convs are plain ``F.conv2d`` (cuDNN on the card), as
 the JAX package leaves them to XLA. ``dc_lines_acc`` and
@@ -19,9 +22,13 @@ the JAX package leaves them to XLA. ``dc_lines_acc`` and
 former from a threaded ``undersampling`` section, as the JAX runner does)
 but every DC runs the dense K1 kernel: the JAX package's
 ``CSMRI_TPU_FUSED_DC=1`` route, which its sampled-lines ("skinny") lowering
-equals exactly (its ``ops/dc.py:310-332``). The skinny lowering and
-``use_scan`` are not ported. Submodule names follow the flax tree
-(``block_{i}.conv_{j}``).
+equals exactly (its ``ops/dc.py:310-332``). The skinny lowering is not ported.
+``use_scan`` (JAX ``:170-179``, ``_forward_scan`` ``:205-231``) runs the
+same loop: the scan only bounds XLA's compile time, and its
+``(block, DC)`` step is the loop's. It changes the flax tree, which keeps a
+homogeneous cascade's blocks stacked under ``blocks/block``; ``scan_layout``
+says when (``utils/jax_weights.py`` reads that layout). Submodule names
+follow the flax tree otherwise (``block_{i}.conv_{j}``).
 """
 
 import torch
@@ -79,8 +86,9 @@ class RecNet(nn.Module):
                dilations_per_conv=1, kernel_size=3,
                relu_leakiness=DEFAULT_RELU_LEAKINESS, padding='zero',
                use_refinement=False, skip_final_dc=False,
-               return_intermediate_recs=False, weight_init=None, dtype=None,
-               dc_lines_acc=None, dc_zero_filled_input=True):
+               return_intermediate_recs=False, use_scan=False,
+               weight_init=None, dtype=None, dc_lines_acc=None,
+               dc_zero_filled_input=True):
     super().__init__()
     if isinstance(num_filters, int):
       num_filters = [num_filters] * num_blocks
@@ -97,6 +105,12 @@ class RecNet(nn.Module):
     self.return_intermediate_recs = return_intermediate_recs
     self.relu_leakiness = relu_leakiness
     self.weight_init = weight_init or {}
+    self.dtype = dtype
+    # JAX scans (and stacks the blocks' parameters) only over a cascade
+    # whose blocks are all alike.
+    self.scan_layout = use_scan and len(set(num_filters)) == 1 and \
+        num_final_outputs == 2 and not skip_final_dc and \
+        not return_intermediate_recs
     # Kept for the config's sake; the dense DC they would lower is exact.
     self.dc_lines_acc = dc_lines_acc
     self.dc_zero_filled_input = dc_zero_filled_input

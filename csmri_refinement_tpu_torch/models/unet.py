@@ -34,12 +34,16 @@ Port of ``csmri_refinement_tpu/models/unet.py``:
 * ``UNET`` (``:474-594``): encoders, skip concat with pad-to-target,
   decoders, 1×1 head, output activation.
 
-The modes ``bilinear`` and ``nn-biresize-conv`` and the options
-``use_refinement``, ``encoder_features`` and ``remat`` are not ported yet
-and raise. Submodule names follow the flax tree (``encode_{s}.conv_{i}``,
-``bn_{i}``, ``decode_{s}.up_conv``, ``decode_{s}.merge_bn``,
-``decode_{s}.decode.conv_{i}``, ``head``) so the weight bridge is a 1:1
-walk.
+``remat`` (``:490``, ``:519-520``) recomputes every encode and decode
+unit in the backward of a train-mode forward (``models/remat.py``; the BN
+statistics move once). The modes ``bilinear`` and ``nn-biresize-conv`` and
+the options ``use_refinement`` and ``encoder_features`` are not ported yet
+and raise. Under a bf16 ``dtype`` the parameters and BN statistics stay
+f32: each conv casts its weights, and BN normalises in f32 and returns the
+compute dtype, as flax's ``BatchNorm`` does. Submodule names follow the
+flax tree (``encode_{s}.conv_{i}``, ``bn_{i}``, ``decode_{s}.up_conv``,
+``decode_{s}.merge_bn``, ``decode_{s}.decode.conv_{i}``, ``head``) so the
+weight bridge is a 1:1 walk.
 """
 
 import torch
@@ -47,8 +51,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from csmri_refinement_tpu_torch.models import weight_inits
-from csmri_refinement_tpu_torch.models.layers import (leaky_relu, same_conv,
-                                                      same_pad)
+from csmri_refinement_tpu_torch.models import remat as remat_lib
+from csmri_refinement_tpu_torch.models.layers import (leaky_relu, pad,
+                                                      same_conv, same_pad)
 from csmri_refinement_tpu_torch.ops import conv_chain
 from csmri_refinement_tpu_torch.ops import quantize
 
@@ -79,16 +84,18 @@ class BatchNorm2d(nn.BatchNorm2d):
   """``nn.BatchNorm2d`` whose train-mode update of ``running_var`` takes
   the biased batch variance, as flax's ``BatchNorm`` does (torch takes
   the unbiased one, N/(N−1) times larger). The output is unchanged: both
-  normalise with the biased variance."""
+  normalise with the biased variance. A backward's recompute
+  (``models/remat.py``) leaves the statistics alone."""
 
   def forward(self, x):
     if not self.training:
       return super().forward(x)
-    with torch.no_grad():
-      var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-      self.running_mean.lerp_(mean, self.momentum)
-      self.running_var.lerp_(var, self.momentum)
-      self.num_batches_tracked += 1
+    if not remat_lib.recomputing():
+      with torch.no_grad():
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
+        self.num_batches_tracked += 1
     return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                         self.eps)
 
@@ -152,9 +159,9 @@ class SubpixelNNResizeConv(nn.Conv2d):
       up = lambda v: F.interpolate(v, scale_factor=2, mode='nearest')
       # Rows 2H-4..2H-1 of the upsampled image, padded inside the slab
       # (which holds every row the reflection reaches): output row 2H-1.
-      row = F.pad(up(x[:, :, -2:]), (1, 2, 0, 2), mode='reflect')
+      row = pad(up(x[:, :, -2:]), (1, 2, 0, 2), 'reflect')
       y[:, -1:] = _nhwc(F.conv2d(row, weight, bias)[:, :, 2:3])
-      col = F.pad(up(x[:, :, :, -2:]), (0, 2, 1, 2), mode='reflect')
+      col = pad(up(x[:, :, :, -2:]), (0, 2, 1, 2), 'reflect')
       y[:, :, -1:] = _nhwc(F.conv2d(col, weight, bias)[:, :, :, 2:3])
     return y
 
@@ -164,7 +171,7 @@ def _pad_to_target(x, target):
   pad_bottom = target.shape[1] - x.shape[1]
   pad_right = target.shape[2] - x.shape[2]
   if pad_bottom or pad_right:
-    x = _nhwc(F.pad(_nchw(x), (0, pad_right, 0, pad_bottom), mode='reflect'))
+    x = _nhwc(pad(_nchw(x), (0, pad_right, 0, pad_bottom), 'reflect'))
   return x
 
 
@@ -341,8 +348,7 @@ class UNET(nn.Module):
       raise ValueError('Unknown output activation {}'.format(
           output_activation))
     for name, value in (('use_refinement', use_refinement),
-                        ('encoder_features', encoder_features),
-                        ('remat', remat)):
+                        ('encoder_features', encoder_features)):
       if value:
         raise NotImplementedError('UNET {} is not ported yet'.format(name))
     if isinstance(relu_leakiness, (int, float)):
@@ -350,6 +356,7 @@ class UNET(nn.Module):
     self.output_activation = output_activation
     self.weight_init = weight_init or {}
     self.dtype = dtype
+    self.remat = remat
     n_enc = len(encode_filters)
     self.n_enc = n_enc
     self.n_dec = len(decode_filters)
@@ -409,18 +416,24 @@ class UNET(nn.Module):
         weight_inits.init_(module.bias, inits['batchnorm_bias'], generator)
         module.reset_running_stats()
 
+  def _run(self, unit, *args):
+    if self.remat and self.training and torch.is_grad_enabled():
+      return remat_lib.checkpoint(unit, *args)
+    return unit(*args)
+
   def forward(self, inp):
     x = inp
     features = []
     for scale in range(self.n_enc):
       unit = getattr(self, 'encode_{}'.format(scale))
       if unit.downsample:
-        x, feat = unit(x)
+        x, feat = self._run(unit, x)
         features.append(feat)
       else:
-        x = unit(x)
+        x = self._run(unit, x)
     for scale, unit in enumerate(self._decoders()):
-      x = unit(x, features[-(scale + 1)] if scale < self.n_enc - 1 else None)
+      x = self._run(unit, x, features[-(scale + 1)]
+                    if scale < self.n_enc - 1 else None)
     dt = self.dtype or x.dtype
     pred = _nhwc(F.conv2d(_nchw(x.to(dt)), self.head.weight.to(dt),
                           self.head.bias.to(dt)))

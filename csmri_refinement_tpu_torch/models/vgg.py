@@ -11,7 +11,9 @@ checked against torchvision's artifact (every key, every shape, and the
 embedded ``__sha256__`` content hash where the file has one), or from a
 seeded random init when the config opts in with ``vgg_random_init: true``;
 otherwise loading raises. Submodules are named ``conv_{i}`` as in the flax
-tree.
+tree. With a ``dtype`` (bf16 under ``train_dtype``) the convs compute in
+it and the parameters stay f32; the ImageNet normalisation runs in f32
+before the first conv's cast, as in flax.
 """
 
 import hashlib
@@ -38,9 +40,10 @@ class VGG19(nn.Module):
 
   LAST_FEATURE_MAP = LAST_FEATURE_MAP
 
-  def __init__(self, output_blocks=(LAST_FEATURE_MAP,)):
+  def __init__(self, output_blocks=(LAST_FEATURE_MAP,), dtype=None):
     super().__init__()
     self.output_blocks = sorted(output_blocks)
+    self.dtype = dtype
     if not self.output_blocks or self.output_blocks[-1] > 5:
       raise ValueError('VGG19 output blocks must lie in 0..5')
     cin = 3
@@ -70,7 +73,10 @@ class VGG19(nn.Module):
         block_idx += 1
         x = F.max_pool2d(x, 2, 2)
       else:
-        x = torch.relu(getattr(self, 'conv_{}'.format(conv_idx))(x))
+        conv = getattr(self, 'conv_{}'.format(conv_idx))
+        dt = self.dtype or x.dtype
+        x = torch.relu(F.conv2d(x.to(dt), conv.weight.to(dt),
+                                conv.bias.to(dt), padding=1))
         conv_idx += 1
     if last == 5:   # the pool-only block after the last conv
       out.append(x)
@@ -149,12 +155,12 @@ def _load_raw(path):
 
 def load_vgg19_params(weights_path=None, conf_path=None,
                       allow_random_init=False, seed=0,
-                      output_blocks=(LAST_FEATURE_MAP,)):
-  """A frozen ``VGG19`` in eval mode, on the CPU: its weights from
-  ``weights_path`` (relative to the config file), or a seeded random init
-  (LeCun normal truncated at 2σ, zero bias, as flax's default) when
-  ``allow_random_init``."""
-  model = VGG19(output_blocks)
+                      output_blocks=(LAST_FEATURE_MAP,), dtype=None):
+  """A frozen ``VGG19`` computing in ``dtype``, in eval mode, on the CPU:
+  its weights from ``weights_path`` (relative to the config file), or a
+  seeded random init (LeCun normal truncated at 2σ, zero bias, as flax's
+  default) when ``allow_random_init``."""
+  model = VGG19(output_blocks, dtype)
   if weights_path is None:
     if not allow_random_init:
       raise ValueError(

@@ -6,11 +6,15 @@ gradient 0 at an exact zero, where JAX's is NaN), other images are taken in
 (−1, 1) and mapped to (0, 1); the loss is the weighted sum over the chosen
 VGG19 blocks of the L1 or MSE distance between the prediction's features and
 the target's. The target branch runs under ``torch.no_grad()`` (JAX's
-``stop_gradient``), the VGG19 is frozen, and the distances are taken in f32.
+``stop_gradient``), the VGG19 is frozen, and the distances are taken in f32
+whatever the VGG19's compute ``dtype`` (JAX ``:83-90``). With ``remat`` the
+prediction branch's features are recomputed in the backward (JAX ``:77``);
+the target branch stores nothing either way.
 """
 
 import torch
 
+from csmri_refinement_tpu_torch.models import remat as remat_lib
 from csmri_refinement_tpu_torch.models.vgg import VGG19, load_vgg19_params
 from csmri_refinement_tpu_torch.ops import fft
 
@@ -37,7 +41,7 @@ class VGGLoss:
 
   def __init__(self, loss_name, blocks=-1, criterion='L1', weights=None,
                weights_path=None, conf_path=None, allow_random_init=False,
-               seed=0, device='cuda'):
+               seed=0, device='cuda', remat=False, dtype=None):
     if loss_name != 'VGG19':
       raise ValueError('Unknown VGG loss {}'.format(loss_name))
     if blocks == -1:
@@ -46,8 +50,9 @@ class VGGLoss:
       blocks = [blocks]
     self.blocks = blocks
     self.vgg = load_vgg19_params(weights_path, conf_path, allow_random_init,
-                                 seed, tuple(blocks)).to(device)
+                                 seed, tuple(blocks), dtype).to(device)
     self.criterion = _CRITERIA[criterion]
+    self.remat = remat
     if weights is not None and len(weights) != len(blocks):
       raise ValueError('need one VGG loss weight per block')
     self.weights = list(weights) if weights is not None else \
@@ -56,7 +61,9 @@ class VGGLoss:
   def __call__(self, prediction, target):
     if prediction.shape[-1] == 2 and target.shape[-1] != 2:
       raise ValueError('complex prediction needs a complex target')
-    pred_features = self.vgg(_to_vgg_input(prediction.float()))
+    pred_in = _to_vgg_input(prediction.float())
+    pred_features = remat_lib.checkpoint(self.vgg, pred_in) if self.remat \
+        else self.vgg(pred_in)
     with torch.no_grad():
       target_features = self.vgg(_to_vgg_input(target.float()))
     loss = 0.0

@@ -1,6 +1,7 @@
 """Where a GAN refinement step's device time goes, by kernel.
 
-    python -m csmri_refinement_tpu_torch.profile_gan [--tf32]
+    python -m csmri_refinement_tpu_torch.profile_gan [--tf32] [--size N]
+                                                      [--train-dtype bfloat16]
 
 Builds the port's ``AdversarialRunner`` on the card from
 ``configs/2-refinement.json`` at its full widths (RecNet 3×3×32 frozen,
@@ -13,7 +14,8 @@ one prepared batch with ``torch.profiler`` (CPU + CUDA activities) and
 prints the card's name and power limit, the wall time per step, the summed
 device time of every kernel, the device's idle share over the window and
 the kernels with the most device time. TF32 is off unless ``--tf32``.
-Needs a CUDA device.
+``--size`` sets the phantoms' side (256 by default; the paper's slices are
+512²), ``--train-dtype`` the run's ``train_dtype``. Needs a CUDA device.
 """
 
 import argparse
@@ -26,7 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'configs', '2-refinement.json')
-SIZE, BATCH = 256, 5
+BATCH = 5
 WARMUP, STEPS = 3, 5
 
 
@@ -70,16 +72,22 @@ def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--tf32', action='store_true',
                       help='let cuDNN run the f32 convs in TF32')
+  parser.add_argument('--size', type=int, default=256,
+                      help='side of the phantoms')
+  parser.add_argument('--train-dtype', choices=('bfloat16',),
+                      help='the run\'s train_dtype')
   args = parser.parse_args(argv)
   torch.backends.cudnn.allow_tf32 = args.tf32
   torch.backends.cuda.matmul.allow_tf32 = args.tf32
 
   card = card_line()
-  conf = Configuration.from_dict(synthetic_refinement_conf(
-      SIZE, 8 * BATCH, 2 * BATCH, BATCH))
+  conf_d = synthetic_refinement_conf(args.size, 8 * BATCH, 2 * BATCH, BATCH)
+  if args.train_dtype:
+    conf_d['train_dtype'] = args.train_dtype
+  conf = Configuration.from_dict(conf_d)
   runner = AdversarialRunner(conf, 'train', 'cuda')
   gen = torch.Generator(device='cuda').manual_seed(0)
-  gt = torch.rand(BATCH, SIZE, SIZE, device='cuda', generator=gen)
+  gt = torch.rand(BATCH, args.size, args.size, device='cuda', generator=gen)
   batch = runner.preparer.prepare_train(gen, {'gt': gt})
   for _ in range(WARMUP):
     runner.train_batch(batch)
@@ -92,8 +100,9 @@ def main(argv=None):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
   print(card)
-  report(prof, wall_ms, STEPS, 'GAN refinement step {}^2 f32 B{} TF32 {}'
-         .format(SIZE, BATCH, 'on' if args.tf32 else 'off'), 'step')
+  report(prof, wall_ms, STEPS, 'GAN refinement step {}^2 {} B{} TF32 {}'
+         .format(args.size, args.train_dtype or 'f32', BATCH,
+                 'on' if args.tf32 else 'off'), 'step')
 
 
 if __name__ == '__main__':

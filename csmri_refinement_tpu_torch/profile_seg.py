@@ -2,6 +2,7 @@
 goes, by kernel.
 
     python -m csmri_refinement_tpu_torch.profile_seg [--tf32] [--forward]
+        [--size N] [--train-dtype bfloat16]
 
 Builds the port's standard ``Runner`` on the card from
 ``configs/3-train-segmentation-unet.json`` at its full widths (U-Net
@@ -15,7 +16,10 @@ kernel, the device's idle share over the window and the kernels with the
 most device time. ``--forward`` traces the eval-mode forward instead (the
 validation forward and the segmentation score's, whose conv chains run the
 conv-chain kernel's f32 route), in full f32. TF32 is off unless ``--tf32``
-(train steps only). Needs a CUDA device.
+(train steps only). ``--size`` sets the phantoms' side (256 by default;
+the paper's slices are 512²), ``--train-dtype`` the run's ``train_dtype``
+(the model built in mode 'train' computes in it, its eval forward too,
+whose chains then take the kernel's bf16 route). Needs a CUDA device.
 """
 
 import argparse
@@ -28,7 +32,6 @@ from torch.profiler import ProfilerActivity, profile
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'configs', '3-train-segmentation-unet.json')
-SIZE = 256
 WARMUP, STEPS = 3, 5
 NARROW = {'encode_filters': [8, 16, 32], 'decode_filters': [16, 8]}
 
@@ -61,17 +64,25 @@ def main(argv=None):
                       'TF32')
   parser.add_argument('--forward', action='store_true',
                       help='trace the eval-mode forward, not a train step')
+  parser.add_argument('--size', type=int, default=256,
+                      help='side of the phantoms')
+  parser.add_argument('--train-dtype', choices=('bfloat16',),
+                      help='the run\'s train_dtype')
   args = parser.parse_args(argv)
+  size, dtype = args.size, args.train_dtype or 'f32'
   torch.backends.cudnn.allow_tf32 = args.tf32
   torch.backends.cuda.matmul.allow_tf32 = args.tf32
 
   card = card_line()
-  conf = Configuration.from_dict(synthetic_segmentation_conf(SIZE, 8, 8))
+  conf_d = synthetic_segmentation_conf(size, 8, 8)
+  if args.train_dtype:
+    conf_d['train_dtype'] = args.train_dtype
+  conf = Configuration.from_dict(conf_d)
   runner = Runner(conf, 'train', 'cuda')
   gen = torch.Generator().manual_seed(0)
   batch = runner.preparer.prepare_train(None, {
-      'inp': torch.rand(conf.batch_size, SIZE, SIZE, 2, generator=gen),
-      'target': torch.randint(0, 2, (conf.batch_size, SIZE, SIZE),
+      'inp': torch.rand(conf.batch_size, size, size, 2, generator=gen),
+      'target': torch.randint(0, 2, (conf.batch_size, size, size),
                               generator=gen)})
   if args.forward:
     runner.model.eval()
@@ -79,13 +90,13 @@ def main(argv=None):
     def step():
       with torch.no_grad(), full_f32():
         runner.model(batch['inp'])
-    label = 'segmentation U-Net eval forward {}^2 f32 B{}'.format(
-        SIZE, conf.batch_size)
+    label = 'segmentation U-Net eval forward {}^2 {} B{}'.format(
+        size, dtype, conf.batch_size)
   else:
     def step():
       runner.train_batch(batch)
-    label = 'segmentation train step {}^2 f32 B{} TF32 {}'.format(
-        SIZE, conf.batch_size, 'on' if args.tf32 else 'off')
+    label = 'segmentation train step {}^2 {} B{} TF32 {}'.format(
+        size, dtype, conf.batch_size, 'on' if args.tf32 else 'off')
   for _ in range(WARMUP):
     step()
   torch.cuda.synchronize()

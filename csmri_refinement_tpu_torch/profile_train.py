@@ -1,6 +1,7 @@
 """Where a RecNet train step's device time goes, by kernel.
 
-    python -m csmri_refinement_tpu_torch.profile_train [--tf32]
+    python -m csmri_refinement_tpu_torch.profile_train [--tf32] [--size N]
+                                                        [--train-dtype bfloat16]
 
 Builds the port's standard ``Runner`` from ``configs/synthetic-recnet.json``
 on the card (RecNet 3 blocks × 3 convs × 32 filters, f32, 256², B = 16,
@@ -8,8 +9,10 @@ varden 8×, MSE, Adam), warms up, then traces a few train steps on one
 prepared batch with ``torch.profiler`` (CPU + CUDA activities) and prints:
 the card's name and power limit, the wall time per step, the summed device
 time of every kernel, the device's idle share over the window, and the
-kernels with the most device time. TF32 is off unless ``--tf32``. Needs a
-CUDA device.
+kernels with the most device time. TF32 is off unless ``--tf32``.
+``--size`` sets the side (the config's 256 by default; the paper's slices
+are 512²), ``--train-dtype`` the run's ``train_dtype``. Needs a CUDA
+device.
 """
 
 import argparse
@@ -32,14 +35,19 @@ def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--tf32', action='store_true',
                       help='let cuDNN run the f32 convs in TF32')
+  parser.add_argument('--size', type=int, help='side of the slices')
+  parser.add_argument('--train-dtype', choices=('bfloat16',),
+                      help='the run\'s train_dtype')
   args = parser.parse_args(argv)
   torch.backends.cudnn.allow_tf32 = args.tf32
   torch.backends.cuda.matmul.allow_tf32 = False
 
   card = card_line()
   conf = Configuration.from_json(CONFIG)
+  if args.train_dtype:
+    conf.train_dtype = args.train_dtype
   runner = Runner(conf, 'train', 'cuda')
-  size = conf.synthetic['image_size']
+  size = args.size or conf.synthetic['image_size']
   gen = torch.Generator(device='cuda').manual_seed(0)
   gt = torch.rand(conf.batch_size, size, size, device='cuda', generator=gen)
   batch = runner.preparer.prepare_train(gen, {'gt': gt})
@@ -54,8 +62,9 @@ def main(argv=None):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
   print(card)
-  report(prof, wall_ms, STEPS, 'RecNet train step {}^2 f32 B{} TF32 {}'.format(
-      size, conf.batch_size, 'on' if args.tf32 else 'off'), 'step')
+  report(prof, wall_ms, STEPS, 'RecNet train step {}^2 {} B{} TF32 {}'.format(
+      size, args.train_dtype or 'f32', conf.batch_size,
+      'on' if args.tf32 else 'off'), 'step')
 
 
 if __name__ == '__main__':

@@ -36,9 +36,19 @@ the conv-chain kernel), the discriminator on fakes and reals without the
 pool, the plain generator losses, in full f32; the inference loop's step
 (``compute_metrics=False``) runs the generator alone. ``predict`` and
 ``get_named_outputs`` (``:720-756``, ``disc_fake`` included) serve the
-validate CLI. ``steps_per_fetch``,
-``train_remat`` and ``train_dtype`` are not ported yet and raise, as in
-the standard runner.
+validate CLI.
+
+The training options, as in the standard runner (``runner.py``), in mode
+``'train'`` only: ``train_dtype`` is the compute dtype of the generator
+(and through a ``RefinementWrapper`` of both its models) and of the
+discriminator, unless a model section names its own (JAX ``:85-90``,
+``:118-122``); the image pool stays f32 (the generator's outputs are cast
+at the loss boundary) and the discriminator casts what it is given.
+``train_remat`` recomputes the generator forward and each discriminator
+apply in the backward (JAX ``:326-350``), the discriminator's dropout
+masks replayed from the same generator state. ``steps_per_fetch`` = k runs
+k full D-then-G updates per fetch, when ``updates_per_step`` is 1 on both
+optimizers and the generator is enabled (JAX ``:540-548``).
 """
 
 import logging
@@ -48,13 +58,15 @@ import torch
 from csmri_refinement_tpu_torch.metrics import (accumulate_metric,
                                                 get_loss_metric,
                                                 get_metric_fn)
-from csmri_refinement_tpu_torch.models import construct_model, get_input_keys
+from csmri_refinement_tpu_torch.models import (construct_model,
+                                               get_input_keys, remat)
 from csmri_refinement_tpu_torch.models.adversarial_loss import (
     FeatureMatchingLoss)
 from csmri_refinement_tpu_torch.models.criteria import get_criterion
 from csmri_refinement_tpu_torch.training.adversarial_training import (
     get_discriminator_input_fn)
-from csmri_refinement_tpu_torch.training.base_runner import BaseRunner
+from csmri_refinement_tpu_torch.training.base_runner import (
+    BaseRunner, cast_outputs_f32, detach, mean_losses)
 from csmri_refinement_tpu_torch.training.image_pool import (
     ImagePool, pool_size_from_conf)
 from csmri_refinement_tpu_torch.training.lr_schedulers import (
@@ -64,7 +76,6 @@ from csmri_refinement_tpu_torch.training.model_setup import (
 from csmri_refinement_tpu_torch.training.optimizers import (get_optimizer,
                                                             set_learning_rate)
 from csmri_refinement_tpu_torch.training.prep import get_batch_preparer
-from csmri_refinement_tpu_torch.training.runner import _cast_f32, _detach
 from csmri_refinement_tpu_torch.utils.checkpoints import (
     load_network_state, load_optimizer_state)
 from csmri_refinement_tpu_torch.utils.config import Configuration
@@ -82,12 +93,10 @@ def _get_pretraining_schedule(epochs):
   return tuple(epochs)
 
 
-def _loss_metrics(losses):
-  """{name: MinMetric}, in one host fetch."""
-  if not losses:
-    return {}
-  values = torch.stack([v.float() for v in losses.values()]).tolist()
-  return {name: get_loss_metric(value) for name, value in zip(losses, values)}
+def _loss_metrics(updates):
+  """{name: MinMetric} of the updates' mean losses, in one host fetch."""
+  return {name: get_loss_metric(value)
+          for name, value in mean_losses(updates).items()}
 
 
 def _weighted(losses, weights):
@@ -104,11 +113,7 @@ class AdversarialRunner(BaseRunner):
     if self.device.type == 'cuda' and not torch.cuda.is_available():
       raise RuntimeError('AdversarialRunner: no CUDA device; pass '
                          'device="cpu" to run the plain versions on the CPU')
-    if conf.get_attr('steps_per_fetch', default=1) != 1 or \
-        conf.get_attr('train_remat') or conf.get_attr('train_dtype'):
-      raise NotImplementedError('steps_per_fetch, train_remat and '
-                                'train_dtype are not ported yet')
-    gen_conf = dict(conf.generator_model)
+    gen_conf = self._train_dtype(dict(conf.generator_model))
     if conf.has_attr('undersampling'):
       gen_conf.setdefault('undersampling', conf.undersampling)
     self.gen = construct_model(gen_conf)
@@ -132,12 +137,17 @@ class AdversarialRunner(BaseRunner):
     self.train_gen_metric_fns = {}
     self.train_disc_metric_fns = {}
     self.val_disc_metric_fns = {}
+    self.steps_per_fetch = 1
+    self.train_remat = False
     if mode == 'train':
       self._build_training(conf)
 
   def _build_training(self, conf):
+    self.steps_per_fetch = conf.get_attr('steps_per_fetch', default=1)
+    self.train_remat = conf.get_attr('train_remat', default=False)
     disc_conf = dict(conf.discriminator_model)
-    self.disc = construct_model(dict(disc_conf, name='CNNDiscriminator'))
+    self.disc = construct_model(self._train_dtype(
+        dict(disc_conf, name='CNNDiscriminator')))
     self.disc.init_weights(torch.Generator().manual_seed(conf.seed + 1))
     apply_pretrained_weights(self.disc, disc_conf, conf.file)
     self.disc.to(self.device)
@@ -201,16 +211,22 @@ class AdversarialRunner(BaseRunner):
     return [batch[k] for k in self.gen_input_keys]
 
   def _disc(self, x):
-    return _cast_f32(self.disc(x, self.dropout_generator))
+    if self.train_remat and torch.is_grad_enabled():
+      out = remat.checkpoint(self.disc, x, self.dropout_generator,
+                             generators=(self.dropout_generator,))
+    else:
+      out = self.disc(x, self.dropout_generator)
+    return cast_outputs_f32(out)
 
   def _gen_forward(self, inputs, update_gen):
     """The train-mode generator output; without a generator update it
     records no graph and leaves the BN statistics as they were."""
     if update_gen:
-      return _cast_f32(self.gen(*inputs))
+      return cast_outputs_f32(remat.checkpoint(self.gen, *inputs)
+                              if self.train_remat else self.gen(*inputs))
     saved = [b.clone() for b in self.gen.buffers()]
     with torch.no_grad():
-      out = _cast_f32(self.gen(*inputs))
+      out = cast_outputs_f32(self.gen(*inputs))
       for b, s in zip(self.gen.buffers(), saved):
         b.copy_(s)
     return out
@@ -234,7 +250,7 @@ class AdversarialRunner(BaseRunner):
     self.disc.train()
     inputs = self._gen_inputs(batch)
     out_gen = self._gen_forward(inputs, update_gen)
-    out_gen_d = _detach(out_gen)
+    out_gen_d = detach(out_gen)
     losses = {}
     out_fake = out_real = None
 
@@ -282,25 +298,27 @@ class AdversarialRunner(BaseRunner):
         p.grad = g
       self.gen_optimizer.step()
     self.step += 1
-    return losses, (batch, out_gen_d, _detach(out_fake) if out_fake else None,
-                    _detach(out_real) if out_real else None)
+    return losses, (batch, out_gen_d, detach(out_fake), detach(out_real))
 
   def _mask_generator(self):
     return torch.Generator(device=self.device).manual_seed(
         self.conf.seed * 2 ** 32 + self.step)
 
-  def _run_one_update(self, host_batch, update_gen, update_disc):
+  def _update(self, host_batch, update_gen, update_disc):
     batch = self.preparer.prepare_train(self._mask_generator(), host_batch)
-    losses, data = self.train_batch(batch, update_gen, update_disc)
-    return _loss_metrics(losses), data
+    return self.train_batch(batch, update_gen, update_disc)
 
   def _train_step(self, batch_iter):
     if self.gen_updates_per_step == 1 and self.disc_updates_per_step == 1:
-      host_batch = next(batch_iter, None)
-      if host_batch is None:
-        return 0, None, None
-      loss_metrics, data = self._run_one_update(host_batch, True, True)
-      return 1, loss_metrics, data
+      k = self.steps_per_fetch if self.generator_enabled else 1
+      host_batches = self._collect_stackable_batches(batch_iter, k)
+      updates, data = [], None
+      for host_batch in host_batches:
+        losses, data = self._update(host_batch, True, True)
+        updates.append(losses)
+      if k > 1:
+        data = None
+      return len(host_batches), _loss_metrics(updates), data
 
     # Several updates per step (JAX :540-587): max(gen, disc) batches,
     # the discriminator's updates first, then the generator's.
@@ -323,29 +341,28 @@ class AdversarialRunner(BaseRunner):
       updates += [(b, True, False)
                   for b in batches[:self.gen_updates_per_step]]
     for host_batch, update_gen, update_disc in updates:
-      metrics, data = self._run_one_update(host_batch, update_gen,
-                                           update_disc)
-      for name, metric in metrics.items():
+      losses, data = self._update(host_batch, update_gen, update_disc)
+      for name, metric in _loss_metrics([losses]).items():
         accumulate_metric(loss_metrics, name, metric)
     return len(batches), {name: metric.average()
                           for name, metric in loss_metrics.items()}, data
 
   def _val_step(self, host_batch, compute_metrics=True):
     batch = self.preparer.prepare_val(host_batch)
-    out_gen = _cast_f32(self.predict(batch))
+    out_gen = cast_outputs_f32(self.predict(batch))
     if not compute_metrics:
       return {}, (batch, out_gen)
     out_fake = out_real = None
     with torch.no_grad(), full_f32():
       if self.disc is not None:
         self.disc.eval()
-        out_fake = _cast_f32(self.disc(self.val_disc_input_fn(
+        out_fake = cast_outputs_f32(self.disc(self.val_disc_input_fn(
             out_gen, is_real_input=False, detach=True)))
-        out_real = _cast_f32(self.disc(self.val_disc_input_fn(
+        out_real = cast_outputs_f32(self.disc(self.val_disc_input_fn(
             batch['target'], is_real_input=True, detach=True)))
       losses = {'gen_loss_' + name: crit(out_gen, batch)
                 for name, crit in self.gen_criteria.items()}
-    return _loss_metrics(losses), (batch, out_gen, out_fake, out_real)
+    return _loss_metrics([losses]), (batch, out_gen, out_fake, out_real)
 
   def predict(self, batch):
     """The generator's eval-mode output on a prepared batch, in full

@@ -4,8 +4,12 @@ Port of ``csmri_refinement_tpu/training/base_runner.py``: the epoch loop,
 metric accumulation, the validation loop (which returns its first
 ``num_batches_to_return`` batches, moved to the host) and the inference
 loop (every batch, no losses or metrics) are the same; a subclass supplies
-the steps. ``steps_per_fetch`` (several updates per loss fetch) is not
-ported: each step's losses are fetched as it ends. With a summary writer
+the steps. With ``steps_per_fetch`` = k a runner's step runs k updates
+and fetches their mean losses once (``mean_losses``), on up to k batches
+of one size that ``_collect_stackable_batches`` takes from the loader (JAX
+``:45-70``: a batch of another size is held back for the next step, never
+dropped); such a step returns no data, so it has no train metrics. With a
+summary writer
 ``train_epoch`` adds each summarised step's losses and metrics as
 ``train/<name>`` scalars at the JAX package's global step, ``n · (epoch −
 1) + batch`` for n batches per epoch; they are the values the step already
@@ -22,15 +26,41 @@ from csmri_refinement_tpu_torch.data.transform_wrappers import (
 from csmri_refinement_tpu_torch.metrics import accumulate_metric
 
 
-def to_host(tree):
-  """``tree`` with every tensor moved to the CPU."""
+def _map(fn, tree):
   if isinstance(tree, dict):
-    return {k: to_host(v) for k, v in tree.items()}
+    return {k: _map(fn, v) for k, v in tree.items()}
   if isinstance(tree, (list, tuple)):
-    return type(tree)(to_host(v) for v in tree)
-  if isinstance(tree, torch.Tensor):
-    return tree.cpu()
-  return tree
+    return type(tree)(_map(fn, v) for v in tree)
+  return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def cast_outputs_f32(tree):
+  """Float tensors of a network's output as float32: the loss boundary of
+  mixed-precision training (``train_dtype``), so that every criterion
+  reduces in f32 (JAX ``:27-40``). A no-op for f32 outputs."""
+  return _map(lambda t: t.float() if t.is_floating_point() else t, tree)
+
+
+def detach(tree):
+  return _map(torch.Tensor.detach, tree)
+
+
+def to_host(tree):
+  """``tree`` with every tensor moved to the CPU, bf16 as f32 (numpy has
+  no bf16)."""
+  return _map(lambda t: (t.float() if t.dtype == torch.bfloat16 else t).cpu(),
+              tree)
+
+
+def mean_losses(updates):
+  """{name: float} of a list of updates' loss dicts (the same names in
+  each), each loss's mean over the updates, in one host fetch."""
+  if not updates or not updates[0]:
+    return {}
+  names = list(updates[0])
+  values = torch.stack([torch.stack([u[n].float() for n in names])
+                        for u in updates]).mean(0).tolist()
+  return dict(zip(names, values))
 
 
 class BaseRunner:
@@ -41,6 +71,37 @@ class BaseRunner:
     self.epoch = 0
     self.output_transform = get_output_transform(
         conf.get_attr('application', default='reconstruction'))
+    self._pending_host_batch = None
+
+  def _train_dtype(self, section):
+    """A model section with the run's ``train_dtype`` as its ``dtype``, in
+    mode 'train' and where the section names no ``dtype`` of its own (JAX
+    ``runner.py:54-61``, ``adversarial_runner.py:85-90``)."""
+    if self.mode == 'train' and self.conf.get_attr('train_dtype') and \
+        'dtype' not in section:
+      section['dtype'] = self.conf.train_dtype
+    return section
+
+  def _collect_stackable_batches(self, batch_iter, k):
+    """Up to k host batches of one size: the held-back batch first, then
+    the loader's; a batch of another size ends the list and is held back
+    for the next call."""
+
+    def size(host_batch):
+      return len(next(iter(host_batch.values())))
+
+    host_batches = []
+    while len(host_batches) < k:
+      host_batch, self._pending_host_batch = self._pending_host_batch, None
+      if host_batch is None:
+        host_batch = next(batch_iter, None)
+      if host_batch is None:
+        break
+      if host_batches and size(host_batch) != size(host_batches[0]):
+        self._pending_host_batch = host_batch
+        break
+      host_batches.append(host_batch)
+    return host_batches
 
   # -- subclass hooks ---------------------------------------------------------
 

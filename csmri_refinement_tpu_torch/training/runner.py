@@ -19,8 +19,24 @@ in f32 either way (K1 and K1-bwd are f32 FFTs).
 
 Masks of a train step come from a ``torch.Generator`` seeded with the run's
 seed and the step count, so a resumed run continues the same stream.
-``steps_per_fetch``, ``train_remat`` and ``train_dtype`` are not ported yet
-and raise.
+
+The training options of mode ``'train'`` (JAX ``:54-61``, ``:108-118``);
+mode ``'test'`` ignores all three, as JAX does (``:59``, ``:127-128``):
+
+* ``train_dtype`` (e.g. ``"bfloat16"``): the model's compute dtype, unless
+  the model section names its own ``dtype``, which wins. Parameters,
+  optimizer state and BN statistics stay f32; the outputs are cast to f32
+  at the loss boundary (``base_runner.cast_outputs_f32``). The model built
+  so also runs the run's validation. This is the JAX package's per-module
+  compute dtype, not ``torch.autocast``: each module casts its inputs and
+  weights, so the port's bf16 networks compute what JAX's do.
+* ``train_remat``: the forward is recomputed in the backward
+  (``models/remat.py``; a VGG19 loss recomputes its prediction branch).
+* ``steps_per_fetch`` = k: k updates, then one fetch of their mean losses
+  (JAX ``:259-286``, ``:308-315``). Every update draws from the same mask
+  generators as k single steps, so the trajectory is theirs. JAX takes
+  this path only with a device-pure preparer; every ported preparer is one
+  (radial masks, drawn on the host, are not ported).
 """
 
 import logging
@@ -28,9 +44,11 @@ import logging
 import torch
 
 from csmri_refinement_tpu_torch.metrics import get_loss_metric, get_metric_fn
-from csmri_refinement_tpu_torch.models import construct_model, get_input_keys
+from csmri_refinement_tpu_torch.models import (construct_model,
+                                               get_input_keys, remat)
 from csmri_refinement_tpu_torch.models.criteria import get_criterion
-from csmri_refinement_tpu_torch.training.base_runner import BaseRunner
+from csmri_refinement_tpu_torch.training.base_runner import (
+    BaseRunner, cast_outputs_f32, detach, mean_losses)
 from csmri_refinement_tpu_torch.training.lr_schedulers import (
     get_lr_scheduler)
 from csmri_refinement_tpu_torch.training.model_setup import (
@@ -44,32 +62,11 @@ from csmri_refinement_tpu_torch.utils.config import Configuration
 from csmri_refinement_tpu_torch.utils.precision import full_f32
 
 
-def _cast_f32(tree):
-  """Float outputs to float32 at the loss boundary (no-op for f32)."""
-  if isinstance(tree, dict):
-    return {k: _cast_f32(v) for k, v in tree.items()}
-  if isinstance(tree, (list, tuple)):
-    return type(tree)(_cast_f32(v) for v in tree)
-  if tree.is_floating_point() and tree.dtype != torch.float32:
-    return tree.float()
-  return tree
-
-
-def _detach(tree):
-  if isinstance(tree, dict):
-    return {k: _detach(v) for k, v in tree.items()}
-  if isinstance(tree, (list, tuple)):
-    return type(tree)(_detach(v) for v in tree)
-  return tree.detach()
-
-
-def _loss_metrics(losses):
-  """{'loss_<criterion>' and 'loss': MinMetric}, in one host fetch."""
-  if not losses:
-    return {}
-  values = torch.stack([v.float() for v in losses.values()]).tolist()
+def _loss_metrics(updates):
+  """{'loss_<criterion>' and 'loss': MinMetric} of the updates' mean
+  losses, in one host fetch."""
   return {name if name == 'loss' else 'loss_' + name: get_loss_metric(value)
-          for name, value in zip(losses, values)}
+          for name, value in mean_losses(updates).items()}
 
 
 class Runner(BaseRunner):
@@ -82,11 +79,7 @@ class Runner(BaseRunner):
     if self.device.type == 'cuda' and not torch.cuda.is_available():
       raise RuntimeError('Runner: no CUDA device; pass device="cpu" to run '
                          'the plain versions on the CPU')
-    if conf.get_attr('steps_per_fetch', default=1) != 1 or \
-        conf.get_attr('train_remat') or conf.get_attr('train_dtype'):
-      raise NotImplementedError('steps_per_fetch, train_remat and '
-                                'train_dtype are not ported yet')
-    model_conf = dict(conf.model)
+    model_conf = self._train_dtype(dict(conf.model))
     # The run's undersampling section gives RecNet its dc_lines_acc, as
     # the JAX runner threads it (runner.py:49-53).
     if conf.has_attr('undersampling'):
@@ -106,7 +99,11 @@ class Runner(BaseRunner):
     self.train_metric_fns = {}
     self.optimizer = None
     self.lr_scheduler = None
+    self.steps_per_fetch = 1
+    self.train_remat = False
     if mode == 'train':
+      self.steps_per_fetch = conf.get_attr('steps_per_fetch', default=1)
+      self.train_remat = conf.get_attr('train_remat', default=False)
       names = [conf.loss_name] if conf.has_attr('loss_name') else \
           list(conf.get_attr('losses', default=[]))
       if not names:
@@ -133,7 +130,9 @@ class Runner(BaseRunner):
     """One update on a prepared batch; returns (losses with the weighted
     total under 'loss', model output), detached."""
     self.model.train()
-    out = _cast_f32(self.model(*self._model_inputs(batch)))
+    inputs = self._model_inputs(batch)
+    out = cast_outputs_f32(remat.checkpoint(self.model, *inputs)
+                           if self.train_remat else self.model(*inputs))
     losses = {name: crit(out, batch) for name, crit in self.criteria.items()}
     total = sum(self.loss_weights[name] * loss
                 for name, loss in losses.items())
@@ -143,29 +142,37 @@ class Runner(BaseRunner):
     self.step += 1
     losses = {name: loss.detach() for name, loss in losses.items()}
     losses['loss'] = total.detach()
-    return losses, _detach(out)
+    return losses, detach(out)
 
   def _mask_generator(self):
     return torch.Generator(device=self.device).manual_seed(
         self.conf.seed * 2 ** 32 + self.step)
 
-  def _train_step(self, batch_iter):
-    host_batch = next(batch_iter, None)
-    if host_batch is None:
-      return 0, None, None
+  def _update(self, host_batch):
     batch = self.preparer.prepare_train(self._mask_generator(), host_batch)
     losses, out = self.train_batch(batch)
-    return 1, _loss_metrics(losses), (batch, out)
+    return losses, (batch, out)
+
+  def _train_step(self, batch_iter):
+    host_batches = self._collect_stackable_batches(batch_iter,
+                                                   self.steps_per_fetch)
+    updates, data = [], None
+    for host_batch in host_batches:
+      losses, data = self._update(host_batch)
+      updates.append(losses)
+    if self.steps_per_fetch > 1:
+      data = None
+    return len(host_batches), _loss_metrics(updates), data
 
   def _val_step(self, host_batch, compute_metrics=True):
     batch = self.preparer.prepare_val(host_batch)
-    out = _cast_f32(self.predict(batch))
+    out = cast_outputs_f32(self.predict(batch))
     if not compute_metrics:
       return {}, (batch, out)
     with torch.no_grad(), full_f32():
       losses = {name: crit(out, batch)
                 for name, crit in self.criteria.items()}
-    return _loss_metrics(losses), (batch, out)
+    return _loss_metrics([losses]), (batch, out)
 
   def predict(self, batch):
     """The model's eval-mode output on a prepared batch, in full f32."""
@@ -174,6 +181,8 @@ class Runner(BaseRunner):
       return self.model(*self._model_inputs(batch))
 
   def _compute_train_metrics(self, data):
+    if data is None:      # steps_per_fetch: no per-step train metrics
+      return {}
     batch, out = data
     return {name: fn(out, batch) for name, fn in self.train_metric_fns.items()}
 

@@ -27,10 +27,18 @@ def runner_networks(runner):
 
 def parameter_shapes(module):
   """[(flax path, flax shape)] of ``module``'s parameters, in the JAX
-  tree's order."""
-  return sorted((path, flax_shape(tensor, move))
-                for tensor, collection, path, move in flax_tensors(module)
-                if collection == 'params')
+  tree's order; a stacked (``use_scan``) leaf once, its entries along a
+  first axis."""
+  shapes = {}
+  for tensor, collection, path, move in flax_tensors(module):
+    if collection != 'params':
+      continue
+    shape = flax_shape(tensor, move)
+    if isinstance(path[-1], int):
+      path = path[:-1]
+      shape = (shapes[path][0] + 1 if path in shapes else 1,) + shape
+    shapes[path] = shape
+  return sorted(shapes.items())
 
 
 def print_model_parameters(runner):

@@ -22,9 +22,12 @@ tensor). The port's submodules carry the flax names
   PReLU's ``slope``, an instance norm's ``scale``/``bias``.
 
 Every tensor of the module must be found and every leaf of the tree used;
-anything else raises. A RecNet saved with ``use_scan`` holds its blocks
-stacked under ``blocks``: that layout is not ported yet and raises by
-name.
+anything else raises. A homogeneous RecNet saved with ``use_scan``
+(``RecNet.scan_layout``) holds its blocks stacked under ``blocks/block``:
+block i's tensor is entry i along a leaf's first axis, which its flax
+path names by a trailing integer (``('blocks', 'block', 'conv_0',
+'kernel', i)``); a stacked leaf counts as used when each of its entries
+is.
 
 ``flax_tensors`` is that walk: every tensor of a module with its flax
 collection, path and layout move. ``load_flax_variables`` copies a tree's
@@ -81,6 +84,12 @@ def flax_tensors(module, path=()):
       elif name == 'bias':
         yield tensor, 'params', path + ('bias',), _SAME
     return
+  if getattr(module, 'scan_layout', False):
+    for i, block in enumerate(module.blocks()):
+      for tensor, collection, sub, move in flax_tensors(
+          block, path + ('blocks', 'block')):
+        yield tensor, collection, sub + (i,), move
+    return
   for name, param in module.named_parameters(recurse=False):
     yield param, 'params', path + (name,), _SAME
   for name, child in module.named_children():
@@ -114,36 +123,46 @@ def _to_torch(value, move):
   return torch.from_numpy(np.array(value))
 
 
+def _name(path):
+  return '/'.join(str(key) for key in path)
+
+
 def _lookup(tree, path, kind, used):
+  """The leaf at ``path`` (a trailing integer: that entry of a stacked
+  leaf)."""
   node = tree
   for key in path:
-    if not isinstance(node, Mapping) or key not in node:
-      raise KeyError('missing flax {} {}'.format(kind, '/'.join(path)))
+    if isinstance(key, int):
+      found = not isinstance(node, Mapping) and np.ndim(node) > 0 and \
+          key < len(node)
+    else:
+      found = isinstance(node, Mapping) and key in node
+    if not found:
+      raise KeyError('missing flax {} {}'.format(kind, _name(path)))
     node = node[key]
   used.add((kind,) + path)
   return node
 
 
 def _check_all_used(trees, used):
-  unused = {(kind,) + p for kind, tree in trees.items()
-            for p in _leaves(tree)} - used
+  unused = []
+  for kind, tree in trees.items():
+    for p in _leaves(tree):
+      leaf = _lookup(tree, p, kind, set())
+      entries = {(kind,) + p + (i,) for i in range(len(leaf))} \
+          if np.ndim(leaf) else {None}
+      if (kind,) + p not in used and not entries <= used:
+        unused.append(_name(p))
   if unused:
     raise ValueError('flax variables not used by the module: {}'.format(
-        sorted('/'.join(p) for p in unused)))
-
-
-def _refuse_scan(params):
-  if any('blocks' in path for path in _leaves(params)):
-    raise NotImplementedError(
-        "a flax tree of a use_scan RecNet (stacked 'blocks') is not ported "
-        'yet')
+        sorted(unused)))
 
 
 def _moved(tensor, value, move, path):
   """``value`` in ``tensor``'s layout; raises unless the shapes fit."""
   if tuple(np.shape(value)) != flax_shape(tensor, move):
     raise ValueError('{}: flax shape {} does not fit {}'.format(
-        '/'.join(path), tuple(np.shape(value)), flax_shape(tensor, move)))
+        _name(path), tuple(np.shape(value)), flax_shape(tensor, move)))
   return _to_torch(value, move)
 
 
@@ -151,7 +170,6 @@ def load_flax_variables(module, variables):
   """Copy a flax variable tree (numpy leaves) into ``module`` in place."""
   trees = {'params': variables.get('params', {}),
            'batch_stats': variables.get('batch_stats', {})}
-  _refuse_scan(trees['params'])
   used = set()
   for tensor, collection, path, move in flax_tensors(module):
     value = _lookup(trees[collection], path, collection, used)
@@ -178,8 +196,6 @@ def load_optax_state(optimizer, module, tree):
   if set(keys) != set(inner) - {'count'}:
     raise ValueError('optax state {} does not fit {}'.format(
         sorted(inner), type(optimizer).__name__))
-  for key in keys:
-    _refuse_scan(inner[key])
   params = [p for group in optimizer.param_groups for p in group['params']]
   index = {id(p): i for i, p in enumerate(params)}
   state, used = {}, set()
@@ -191,7 +207,7 @@ def load_optax_state(optimizer, module, tree):
     if id(tensor) not in index:
       if any(bool(m.any()) for m in moments.values()):
         raise ValueError('{}: a parameter outside the optimizer has non-zero '
-                         'optax moments'.format('/'.join(path)))
+                         'optax moments'.format(_name(path)))
       continue
     if adam:
       moments['step'] = torch.tensor(float(inner['count']))

@@ -1122,3 +1122,77 @@ def test_validate_on_card_matches_cpu(cuda, tmp_path):
     assert np.abs(got['pred'] - want['pred']).max() <= bar, name
   assert abs(results['cuda']['psnr'] - results['cpu']['psnr']) <= 0.01
   assert abs(results['cuda']['ssim'] - results['cpu']['ssim']) <= 1e-4
+
+
+# -- mixed-precision and memory-mode training ---------------------------------
+
+
+@pytest.mark.parametrize('layer', range(len(SEG_LAYERS)))
+def test_conv_layer_bf16_segmentation_layers_at_512(cuda, layer):
+  """K2's bf16 route on each of the 18 eval-chain layers of a bf16
+  segmentation U-Net (``train_dtype``) at a 512² input, B = 2: the stem
+  (Cin 2, padded to 16) and the widths up to 512 from 512² down to 32²,
+  within the bf16 bar (phase 4's of chip_smoke.py)."""
+  side, cin, cout = SEG_LAYERS[layer]
+  before = cc.conv_layer_f32_cuda.launches
+  _conv_case(cuda, 3, cin, cout, 'reflection', torch.bfloat16,
+             (2, 2 * side, 2 * side))
+  assert cc.conv_layer_f32_cuda.launches == before
+
+
+def _max_rel(got, want):
+  """The largest max |Δ| / max |ref| over the float tensors of two state
+  dicts."""
+  return max((v - want[k]).abs().max().item() /
+             max(want[k].abs().max().item(), 1e-30)
+             for k, v in got.items() if v.is_floating_point())
+
+
+@pytest.mark.parametrize('runner_type', ['standard', 'adversarial'])
+def test_bf16_remat_updates_match_plain_on_card(cuda, runner_type):
+  """Two bf16 updates with ``train_remat`` on the card against the same
+  updates storing the forward, from the same weights, seeds and batches
+  (the GAN narrow, its discriminator dropping out), under deterministic
+  algorithms (cuDNN's convolutions; the model's reflect pads have a
+  deterministic backward): every parameter and statistic within 1e-5 of
+  its max |ref| (chip_smoke.py phase 20 (b))."""
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  from csmri_refinement_tpu_torch.profile_gan import (
+      synthetic_refinement_conf)
+  from csmri_refinement_tpu_torch.training import build_runner
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  from csmri_refinement_tpu_torch.utils.diagnostics import runner_networks
+  if runner_type == 'standard':
+    conf_d = {'seed': 0, 'runner_type': 'standard',
+              'application': 'reconstruction',
+              'undersampling': {'sampling_scheme': 'varden',
+                                'acceleration_factor': 8},
+              'model': {'name': 'RecNet', 'num_blocks': 3, 'num_convs': 3,
+                        'num_filters': 32},
+              'loss_name': 'MSE',
+              'optimizer': {'name': 'Adam', 'learning_rate': 2e-4}}
+  else:
+    conf_d = synthetic_refinement_conf(64, 8, 4, 4, narrow=True)
+  gen = torch.Generator().manual_seed(2)
+  batches = [us.undersample_batch(None, torch.rand(4, 64, 64, generator=gen)
+                                  .to(cuda), fixed_mask=masks.cartesian_mask(
+                                      gen, (4, 64, 64), 4).to(cuda))
+             for _ in range(2)]
+  states = []
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  torch.backends.cudnn.deterministic = True
+  try:
+    for remat in (False, True):
+      conf = Configuration.from_dict(dict(conf_d, train_dtype='bfloat16',
+                                          train_remat=remat))
+      runner = build_runner(conf, runner_type, 'train', cuda)
+      for batch in batches:
+        runner.train_batch(batch)
+      states.append({name: {k: v.clone() for k, v in
+                            net.state_dict().items()}
+                     for name, net in runner_networks(runner).items()})
+  finally:
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+  for name, want in states[0].items():
+    assert _max_rel(states[1][name], want) <= 1e-5, name

@@ -186,12 +186,14 @@ def jax_checkpoint(path, conf_d, seed=0):
 
 @pytest.fixture(scope='module')
 def jax_checkpoints(tmp_path_factory):
-  """{'recnet', 'gan', 'seg', 'deploy'}: (path, conf dict, JAX runner,
-  JAX batch) of checkpoints the JAX package wrote."""
+  """{'recnet', 'gan', 'seg', 'recnet_scan', 'deploy'}: (path, conf dict,
+  JAX runner, JAX batch) of checkpoints the JAX package wrote
+  ('recnet_scan': a use_scan RecNet, its blocks stacked)."""
   root = tmp_path_factory.mktemp('jax_checkpoints')
   out = {}
+  scan = recnet_conf(model=dict(recnet_conf()['model'], use_scan=True))
   for name, conf_d in (('recnet', recnet_conf()), ('gan', gan_conf()),
-                       ('seg', seg_conf())):
+                       ('seg', seg_conf()), ('recnet_scan', scan)):
     path = str(root / '{}.ckpt'.format(name))
     out[name] = (path, conf_d) + jax_checkpoint(path, conf_d)
   deploy = str(root / 'gan-deploy.ckpt')
@@ -468,19 +470,33 @@ def test_msgpack_reassembles_chunked_arrays(monkeypatch):
                       serialization.msgpack_restore(data))
 
 
-def test_stacked_scan_tree_raises_by_name():
+def test_stacked_scan_tree_loads_into_the_per_block_modules():
+  """A use_scan RecNet's flax tree (blocks stacked under ``blocks/block``)
+  fills the port's per-block modules: block i takes entry i of each
+  stacked leaf; a tree with another number of blocks raises."""
   import csmri_refinement_tpu.models.recnet as jrecnet
-  model = jrecnet.RecNet(num_blocks=2, num_convs=2, num_filters=4,
-                         use_scan=True)
+  section = {'name': 'RecNet', 'num_blocks': 3, 'num_convs': 2,
+             'num_filters': 4, 'use_scan': True}
+  model = jrecnet.RecNet(**{k: v for k, v in section.items() if k != 'name'})
   x = jnp.zeros((1, 8, 8, 2))
   shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x, x,
                           jnp.zeros((1, 8, 8, 1)))
-  variables = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
-                                     shapes)
-  port = construct_model({'name': 'RecNet', 'num_blocks': 2, 'num_convs': 2,
-                          'num_filters': 4})
-  with pytest.raises(NotImplementedError, match='use_scan'):
-    load_flax_variables(port, variables)
+  variables = randomize(shapes, 4)
+  assert set(variables['params']) == {'blocks'}
+  stacked = jax.tree_util.tree_map(np.asarray, variables)
+  port = construct_model(section)
+  assert port.scan_layout
+  load_flax_variables(port, stacked)
+  for i, block in enumerate(port.blocks()):
+    kernel = stacked['params']['blocks']['block']['conv_1']['kernel'][i]
+    np.testing.assert_array_equal(block.conv_1.weight.detach().numpy(),
+                                  kernel.transpose(3, 2, 0, 1))
+  with pytest.raises(ValueError, match='not used'):
+    load_flax_variables(construct_model(dict(section, num_blocks=2)),
+                        stacked)
+  with pytest.raises(KeyError, match='blocks/block'):
+    load_flax_variables(construct_model(dict(section, num_blocks=4)),
+                        stacked)
 
 
 # --- restoring JAX checkpoints -----------------------------------------------
@@ -498,7 +514,8 @@ def _port_batch(name):
 @pytest.mark.parametrize('name,atol', [('recnet', RECNET_ATOL),
                                        ('gan', UNET_ATOL),
                                        ('deploy', UNET_ATOL),
-                                       ('seg', UNET_ATOL)])
+                                       ('seg', UNET_ATOL),
+                                       ('recnet_scan', RECNET_ATOL)])
 def test_port_runner_restored_from_jax_checkpoint_predicts_as_jax(
     jax_checkpoints, name, atol):
   path, conf_d, jrunner, jbatch = jax_checkpoints[name]
@@ -514,8 +531,10 @@ def test_port_runner_restored_from_jax_checkpoint_predicts_as_jax(
   else:
     assert state['start_epoch'] == 3
     assert state['best_val_metrics']['psnr'].value == 31.5
-  if name == 'recnet':
+  if name.startswith('recnet'):
     assert runner.step == 0 or runner.step == int(jrunner.state['step'])
+  if name == 'recnet_scan':
+    assert runner.model.scan_layout
 
 
 def test_train_mode_runner_restores_jax_networks_not_optax_state(

@@ -336,9 +336,9 @@ def test_conv_transposed_init_law():
 
 @pytest.mark.parametrize('overrides', [
     {'upsampling_mode': 'bilinear'}, {'upsampling_mode': 'nn-biresize-conv'},
-    {'use_refinement': True}, {'encoder_features': [0]}, {'remat': True}],
+    {'use_refinement': True}, {'encoder_features': [0]}],
     ids=['bilinear', 'nn-biresize-conv', 'use_refinement',
-         'encoder_features', 'remat'])
+         'encoder_features'])
 def test_unported_unet_options_raise(overrides):
   with pytest.raises(NotImplementedError, match=str(
       overrides.get('upsampling_mode', next(iter(overrides))))):
