@@ -169,9 +169,27 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     of one bf16 1-recnet step against theirs (phases 3, 8); (e) one bf16
     update of each runner on the card and on the CPU at 64²: losses and
     outputs within 2e-2; (f) 1-recnet with ``use_scan``: 2 updates within
-    (b)'s bar of the unrolled runner's.
+    (b)'s bar of the unrolled runner's;
+21. the data, sampling and metric options on the same tree: (a)
+    ``configs/1-recnet.json`` with ``augmentation`` (elastic, shift,
+    rotate, scale), radial masks (8 spokes) and the validation metrics
+    psnr, ssim, hfen and mutual_information through the training CLI (2
+    steps and 2 validation batches at B = 20), counters around it: 12 K1
+    and 6 K1-bwd; every K1 and K1-bwd launch of one radial step against its
+    plain version (phases 3 and 8's bars) and the step's ms; ``validate``
+    on 4 slices on the card and on the CPU (phase 18's bars, HFEN and MI
+    within 1e-4 relative); (b) the same with ``native_pipeline`` after the
+    host library's ``g++`` build (2 steps, 1 validation batch: 9 K1, 6
+    K1-bwd, every batch from the library), then the loader's host ms per
+    batch of 20 and the step loop's wait per step for the native path, the
+    scipy augmentation and phase 18's unaugmented path, in turns; (c)
+    ``configs/3-train-segmentation-unet.json`` with ``augmentation``
+    (shift, rotate, scale; 2 steps and 1 validation batch at B = 8): 18 K2
+    f32 launches per eval forward, each against its plain version; (d) the
+    host ms per 512² slice of each augmentation and of HFEN and MI per
+    example, beside (a)'s step; the phase's wall seconds.
 
-``--scarseg-only`` runs phases 1, 2 and 18-20 alone (no result line).
+``--scarseg-only`` runs phases 1, 2 and 18-21 alone (no result line).
 ``--f32-only`` runs phases 1 and 2 for the conv sources and times K2's f32
 route on the 18 segmentation layer shapes (seeded weights) after holding
 each to its plain version (no result line); with ``--tree DIR`` an earlier
@@ -3145,6 +3163,316 @@ def options_phase(data_dir, gan_conf, work, f32, line):
           'dc_err': k1_err, 'dc_bwd_err': k1_bwd_err}
 
 
+# Phase 21: the data, sampling and metric options on phase 18's tree. The
+# repository names no augmentation values, so these are chosen at 512²:
+# an elastic field of alpha 100 px and sigma 10 px, shifts up to 20 px,
+# rotations up to 10 degrees and zooms of 0.9-1.1. Radial masks take the
+# acceleration factor as their spoke count (configs/1-recnet.json's 8).
+DATA_AUG = {'elastic_transform_alpha': 100.0, 'elastic_transform_sigma': 10.0,
+            'shift': 20, 'rotate': 10, 'scale': [0.9, 1.1]}
+SEG_AUG = {'shift': 20, 'rotate': 10, 'scale': [0.9, 1.1]}
+RADIAL = {'sampling_scheme': 'radial', 'acceleration_factor': 8,
+          'variable_acceleration': False}
+IMAGE_METRICS = ['psnr', 'ssim', 'hfen', 'mutual_information']
+HOST_METRIC_REL = 1e-4   # HFEN and MI, validate card vs CPU
+LOADER_BATCHES = 4       # batches per loader reading
+
+
+def radial_overrides(**extra):
+  """``--conf`` values of phase 21's radial, augmented 1-recnet."""
+  conf = dict(dict(augmentation=DATA_AUG, undersampling=RADIAL,
+                   validation_metrics=IMAGE_METRICS), **extra)
+  return ['{}={}'.format(k, json.dumps(v)) for k, v in conf.items()]
+
+
+def radial_cli_phase(data_dir, work, line):
+  """Phase 21 (a): configs/1-recnet.json with augmentation, radial masks
+  and the four image metrics through the training CLI at 512², 2 steps and
+  2 validation batches, counters around it (3 K1 per forward, 3 K1-bwd per
+  step); every K1 and K1-bwd launch of one radial step against its plain
+  version; the step's ms; then validate on the card and on the CPU on 4
+  slices. Returns (the runner, the prepared radial batch, K1 and K1-bwd
+  launches, their largest errors, the step's ms)."""
+  from csmri_refinement_tpu_torch import train, validate
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  overrides = radial_overrides(num_train_subset_samples=40)
+  sync()
+  dc_kernel.dc_cuda.launches = dc_kernel.dc_bwd_cuda.launches = 0
+  t0 = time.perf_counter()
+  runner = train.main([RECNET_CONFIG, '--data-dir', data_dir, '--log-dir',
+                       os.path.join(work, 'radial_runs'), '--device', DEVICE,
+                       '--conf', 'num_epochs=1'] + overrides)
+  sync()
+  secs = time.perf_counter() - t0
+  k1, k1_bwd = dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches
+  print('radial augmented 1-recnet CLI at {}^2 B{}: {} steps + {} validation '
+        'batches in {:.1f} s, K1 {}, K1-bwd {}'.format(
+            SCAR_SIZE, REC_BATCH, runner.step, REC_VAL_BATCHES, secs, k1,
+            k1_bwd))
+  require(runner.step == 2 and not runner.preparer.device_pure,
+          'expected 2 radial steps')
+  require(k1 == 3 * (2 + REC_VAL_BATCHES) and k1_bwd == 3 * 2,
+          'expected 3 K1 per forward and 3 K1-bwd per radial step')
+  host = option_hosts(runner.conf, data_dir, REC_BATCH, 1)[0]
+  batch = runner.preparer.prepare_train(
+      torch.Generator(device=DEVICE).manual_seed(SEED + 21), host)
+  mask = batch['mask'][..., 0]
+  lines = bool((mask == mask[:, :, :1]).all())
+  require(not lines, 'a radial mask came out line-structured')
+  calls = record_dc_launches(lambda: runner.train_batch(batch))
+  require(len(calls['K1']) == len(calls['K1-bwd']) == 3,
+          'expected 3 K1 and 3 K1-bwd launches per radial step')
+  k1_err = max((y - dc_kernel.dc_plain(x, k0, m)).abs().max().item()
+               for x, k0, m, y in calls['K1'])
+  k1_bwd_err = max((y - dc_kernel.dc_plain_vjp(g, m, False)[0]).abs().max()
+                   .item() for g, m, y in calls['K1-bwd'])
+  del calls
+  print('radial 1-recnet step {}^2 B{} ({:.2%} of k-space sampled): 3 K1 '
+        'within {:.3e} of plain (tol {}), 3 K1-bwd within {:.3e} (tol {})'
+        .format(SCAR_SIZE, REC_BATCH, mask.mean().item(), k1_err, F32_ATOL,
+                k1_bwd_err, GRAD_ATOL))
+  require(k1_err <= F32_ATOL and k1_bwd_err <= GRAD_ATOL,
+          'K1 or K1-bwd differs from its plain version on radial masks')
+  step_ms = timed_ms(lambda: runner.train_batch(batch), iters=5, warmup=2)
+  print('radial 1-recnet train step {}^2 f32 B{} (TF32 off, prepared '
+        'batch): {:.3f} ms, {:.1f} slices/s ({})'.format(
+            SCAR_SIZE, REC_BATCH, step_ms, REC_BATCH / step_ms * 1e3, line))
+  best = glob.glob(os.path.join(work, 'radial_runs', '1-recnet_*',
+                                'best_loss_MSE', '*.ckpt'))
+  require(len(best) == 1, 'expected one best radial checkpoint')
+  res = {}
+  for device in (DEVICE, 'cpu'):
+    t0 = time.perf_counter()
+    res[device] = validate.main(
+        [RECNET_CONFIG, best[0], '--data-dir', data_dir, '-b', '4', '--dry',
+         '--device', device, '--conf', 'num_validation_subset_samples=4']
+        + overrides)['ScarSeg']['metrics']
+    print('validate radial 1-recnet on {}, 4 slices: {:.2f} s (host clock), '
+          'metrics {}'.format(device, time.perf_counter() - t0, res[device]))
+  got, want = res[DEVICE], res['cpu']
+  require(set(got) == set(IMAGE_METRICS) and
+          abs(got['psnr'] - want['psnr']) <= SCAR_PSNR_DB and
+          abs(got['ssim'] - want['ssim']) <= SCAR_SSIM,
+          'radial validate: card and CPU PSNR or SSIM differ')
+  for name in ('hfen', 'mutual_information'):
+    rel = abs(got[name] - want[name]) / abs(want[name])
+    print('validate radial {} card vs CPU: {:.6f} / {:.6f}, {:.2e} relative '
+          '(tol {})'.format(name, got[name], want[name], rel,
+                            HOST_METRIC_REL))
+    require(rel <= HOST_METRIC_REL, 'radial validate: card and CPU {} '
+            'differ'.format(name))
+  return runner, batch, k1, k1_bwd, k1_err, k1_bwd_err, step_ms
+
+
+@contextlib.contextmanager
+def counted_native_batches():
+  """Count the host library's batches (``data/native.py::prepare_batch``
+  calls) in ``counts['batches']``."""
+  from csmri_refinement_tpu_torch.data import native
+  counts = {'batches': 0}
+  prepare = native.prepare_batch
+
+  def counted(*args, **kwargs):
+    counts['batches'] += 1
+    return prepare(*args, **kwargs)
+  native.prepare_batch = counted
+  try:
+    yield counts
+  finally:
+    native.prepare_batch = prepare
+
+
+def native_cli_phase(data_dir, work):
+  """Phase 21 (b): the radial, augmented 1-recnet with native_pipeline
+  through the training CLI (2 steps, 1 validation batch), after the host
+  library's build: every batch from the library (the validation fold's
+  too, unaugmented, as in the JAX package). Returns the K1 and K1-bwd
+  launches."""
+  from csmri_refinement_tpu_torch import train
+  from csmri_refinement_tpu_torch.data import native
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  t0 = time.perf_counter()
+  path = native.build()
+  print('host library {} built in {:.2f} s (g++ {})'.format(
+      os.path.basename(path), time.perf_counter() - t0,
+      ' '.join(native._flags())))
+  sync()
+  dc_kernel.dc_cuda.launches = dc_kernel.dc_bwd_cuda.launches = 0
+  with counted_native_batches() as counts:
+    runner = train.main(
+        [RECNET_CONFIG, '--data-dir', data_dir, '--log-dir',
+         os.path.join(work, 'native_runs'), '--device', DEVICE, '--conf',
+         'num_epochs=1'] + radial_overrides(
+             native_pipeline=True, num_train_subset_samples=40,
+             num_validation_subset_samples=REC_BATCH,
+             validation_metrics=['psnr', 'ssim']))
+  sync()
+  k1, k1_bwd = dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches
+  print('native radial 1-recnet CLI at {}^2 B{}: {} steps, {} batches from '
+        'the host library, K1 {}, K1-bwd {}'.format(
+            SCAR_SIZE, REC_BATCH, runner.step, counts['batches'], k1,
+            k1_bwd))
+  require(runner.step == 2 and counts['batches'] == 2 + 1,
+          'expected 2 training and 1 validation batch from the host library')
+  require(k1 == 3 * (2 + 1) and k1_bwd == 3 * 2,
+          'expected 9 K1 and 6 K1-bwd launches on the native path')
+  return k1, k1_bwd
+
+
+def loader_costs(runner, data_dir, line):
+  """Phase 21 (b): the loader's host ms per batch of 20 (no prefetch) and
+  the step loop's wait per step (prefetch 2, a train epoch of the radial
+  runner) for the native path, the scipy augmentation and phase 18's
+  unaugmented path, in turns (native, scipy, plain, plain, scipy, native),
+  each over LOADER_BATCHES batches with the config's worker threads."""
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  workers = runner.conf.num_data_workers
+  sets = {}
+  for name, extra in (('native', dict(augmentation=DATA_AUG,
+                                      native_pipeline=True)),
+                      ('scipy', dict(augmentation=DATA_AUG)),
+                      ('plain', {})):
+    conf = Configuration.from_json(RECNET_CONFIG)
+    for key, value in extra.items():
+      setattr(conf, key, value)
+    sets[name] = load_dataset(conf, data_dir, 'ScarSeg', 'train')
+  require(sets['native']._native_slices is not None,
+          'the native path is off for the 512^2 training fold')
+  n = LOADER_BATCHES * REC_BATCH
+  readings = {name: [] for name in sets}
+  for name in ('native', 'scipy', 'plain', 'plain', 'scipy', 'native'):
+    loader = DataLoader(sets[name], REC_BATCH, shuffle=True, seed=SEED,
+                        num_workers=workers, prefetch=1, num_samples=n)
+    t0 = time.perf_counter()
+    hosts = list(loader)
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(hosts)
+    loader = DataLoader(sets[name], REC_BATCH, shuffle=True, seed=SEED,
+                        num_workers=workers, prefetch=2, num_samples=n)
+    sync()
+    t0 = time.perf_counter()
+    runner.train_epoch(loader, 2, steps_per_train_summary=100)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / len(loader)
+    readings[name].append((host_ms, loader.wait_s * 1e3 / len(loader),
+                           step_ms))
+  for name, runs in readings.items():
+    print('loader {} at {}^2 B{} ({} threads; two turns): host {} ms per '
+          'batch; the step loop waits {} ms per step, {} ms per step in all '
+          '({})'.format(name, SCAR_SIZE, REC_BATCH, workers,
+                        ' / '.join('{:.2f}'.format(r[0]) for r in runs),
+                        ' / '.join('{:.2f}'.format(r[1]) for r in runs),
+                        ' / '.join('{:.2f}'.format(r[2]) for r in runs),
+                        line))
+  return readings
+
+
+def host_costs(step_ms, line):
+  """Phase 21 (d): host ms per 512² slice of each augmentation (scipy) and
+  of HFEN and MI per example; the host library's batch of 20 and a radial
+  train step's 20 masks; beside the radial step."""
+  from csmri_refinement_tpu_torch.data import augment, native
+  from csmri_refinement_tpu_torch.metrics import image_metrics
+  from csmri_refinement_tpu_torch.ops import masks
+  rng = np.random.RandomState(SEED)
+  image = rng.rand(SCAR_SIZE, SCAR_SIZE, 1).astype(np.float32)
+  label = (rng.rand(SCAR_SIZE, SCAR_SIZE, 1) > 0.7).astype(np.float32)
+  pred = np.clip(image + 0.05 * rng.randn(*image.shape), 0, 1).astype(
+      np.float32)[None]
+  pool = rng.rand(2 * REC_BATCH, SCAR_SIZE, SCAR_SIZE).astype(np.float32)
+  cases = (
+      ('elastic_transform', lambda r: augment.elastic_transform(
+          image, DATA_AUG['elastic_transform_alpha'],
+          DATA_AUG['elastic_transform_sigma'], r)),
+      ('random_translate', lambda r: augment.random_translate(image, 20, r)),
+      ('random_rotate (order 2)', lambda r: augment.random_rotate(
+          image, (-10, 10), r)),
+      ('random_zoom (order 2)', lambda r: augment.random_zoom(
+          image, (0.9, 1.1), r)),
+      ('random_rotate_pair', lambda r: augment.random_rotate_pair(
+          image, label, (-10, 10), r)),
+      ('random_zoom_pair', lambda r: augment.random_zoom_pair(
+          image, label, (0.9, 1.1), r)),
+      ('compute_hfen', lambda r: image_metrics.compute_hfen(pred,
+                                                            image[None])),
+      ('compute_mutual_information',
+       lambda r: image_metrics.compute_mutual_information(pred,
+                                                          image[None])),
+      ('native prepare_batch (B 20)', lambda r: native.prepare_batch(
+          pool, r.permutation(len(pool))[:REC_BATCH], shift=20,
+          max_rotate=10.0, zoom_range=(0.9, 1.1), seed=r.randint(1 << 30))),
+      ('radial train masks (B 20)', lambda r: masks.radial_masks_np(
+          (REC_BATCH, SCAR_SIZE, SCAR_SIZE), RADIAL['acceleration_factor'],
+          r)))
+  for name, fn in cases:
+    fn(np.random.RandomState(1))
+    reps = 3
+    t0 = time.perf_counter()
+    for i in range(reps):
+      fn(np.random.RandomState(i))
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    print('host {} at {}^2: {:.2f} ms ({:.2f}x the radial step of {:.3f} '
+          'ms) ({})'.format(name, SCAR_SIZE, ms, ms / step_ms, step_ms,
+                            line))
+
+
+def aug_seg_phase(data_dir, work):
+  """Phase 21 (c): configs/3-train-segmentation-unet.json with augmentation
+  through the training CLI, 2 steps and 1 validation batch at 512², B = 8;
+  18 K2 f32 launches per validation forward, none in train mode; every
+  launch of one eval forward against its plain version. Returns (K2
+  launches, the largest |kernel - plain|)."""
+  from csmri_refinement_tpu_torch import train
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.ops import conv_chain
+  overrides = ['num_train_subset_samples=16',
+               'num_validation_subset_samples=8',
+               'augmentation=' + json.dumps(SEG_AUG)]
+  sync()
+  conv_chain.conv_layer_cuda.launches = 0
+  conv_chain.conv_layer_f32_cuda.launches = 0
+  t0 = time.perf_counter()
+  runner = train.main([SEG_CONFIG, '--data-dir', data_dir, '--log-dir',
+                       os.path.join(work, 'aug_seg_runs'), '--device', DEVICE,
+                       '--conf', 'num_epochs=1'] + overrides)
+  sync()
+  secs = time.perf_counter() - t0
+  k2, k2_f32 = (conv_chain.conv_layer_cuda.launches,
+                conv_chain.conv_layer_f32_cuda.launches)
+  print('augmented segmentation CLI at {}^2 B{}: {} steps + 1 validation '
+        'batch in {:.1f} s, K2 {} (f32 routes {})'.format(
+            SCAR_SIZE, SEG_BATCH, runner.step, secs, k2, k2_f32))
+  require(runner.step == 2 and k2 == k2_f32 == SEG_CHAIN_LAYERS,
+          'expected 2 steps and 18 K2 f32 launches per eval forward')
+  train_set = load_dataset(runner.conf, data_dir, 'ScarSeg', 'train')
+  require(train_set.augmentation == SEG_AUG, 'the training fold is not '
+          'augmented')
+  host = next(iter(DataLoader(load_dataset(runner.conf, data_dir, 'ScarSeg',
+                                           'val'), SEG_BATCH)))
+  batch = runner.preparer.prepare_val(host)
+  runner.model.eval()
+  calls = chain_launches(runner.model, batch['inp'])
+  worst = hold_launches('augmented segmentation eval', calls,
+                        SEG_CHAIN_LAYERS, SEG_BATCH)
+  return k2, worst
+
+
+def data_options_phase(data_dir, work, line):
+  """Phase 21: (a)-(d). Returns the launches and errors for the kernels
+  line."""
+  t0 = time.perf_counter()
+  runner, _, k1, k1_bwd, k1_err, k1_bwd_err, step_ms = radial_cli_phase(
+      data_dir, work, line)
+  nat_k1, nat_k1_bwd = native_cli_phase(data_dir, work)
+  loader_costs(runner, data_dir, line)
+  del runner
+  k2, k2_err = aug_seg_phase(data_dir, work)
+  host_costs(step_ms, line)
+  print('phase 21: {:.1f} s wall'.format(time.perf_counter() - t0))
+  return {'k1': k1 + nat_k1, 'k1_bwd': k1_bwd + nat_k1_bwd, 'k2_f32': k2,
+          'dc_err': k1_err, 'dc_bwd_err': k1_bwd_err, 'f32_err': k2_err}
+
+
 def scarseg_phase(line):
   """Phase 18: the paper's three configs on a ScarSeg-format tree at 512²,
   the validate and eval_results CLIs; the tree is removed after. Returns
@@ -3169,14 +3497,19 @@ def scarseg_phase(line):
     surf_k1, surf_k2 = surface_phase(data_dir, gan_conf, work, line)
     # Phase 20: the training options on the same tree
     opt = options_phase(data_dir, gan_conf, work, f32, line)
+    # Phase 21: the data, sampling and metric options on the same tree
+    data = data_options_phase(data_dir, work, line)
   finally:
     shutil.rmtree(work, ignore_errors=True)
-  return {'k1': k1 + gan_k1 + surf_k1 + opt['k1'],
-          'k1_bwd': k1_bwd + opt['k1_bwd'],
-          'k2_f32': gan_k2 + seg_k2 + surf_k2, 'k2_bf16': opt['k2_bf16'],
-          'dc_err': max(dc['K1'][0], opt['dc_err']),
-          'dc_bwd_err': max(dc['K1-bwd'][0], opt['dc_bwd_err']),
-          'f32_err': max(gan_err, seg_err), 'bf16_err': opt['k2_err']}
+  return {'k1': k1 + gan_k1 + surf_k1 + opt['k1'] + data['k1'],
+          'k1_bwd': k1_bwd + opt['k1_bwd'] + data['k1_bwd'],
+          'k2_f32': gan_k2 + seg_k2 + surf_k2 + data['k2_f32'],
+          'k2_bf16': opt['k2_bf16'],
+          'dc_err': max(dc['K1'][0], opt['dc_err'], data['dc_err']),
+          'dc_bwd_err': max(dc['K1-bwd'][0], opt['dc_bwd_err'],
+                            data['dc_bwd_err']),
+          'f32_err': max(gan_err, seg_err, data['f32_err']),
+          'bf16_err': opt['k2_err']}
 
 
 def build_phase(names):
@@ -3241,7 +3574,7 @@ def main(argv=None):
     f32_only(P, line)
     return
   build_phase(native.KERNELS)
-  if scarseg_only:     # phases 1, 2 and 18-20 alone
+  if scarseg_only:     # phases 1, 2 and 18-21 alone
     print(json.dumps(scarseg_phase(line)))
     return
 

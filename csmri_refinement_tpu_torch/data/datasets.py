@@ -25,8 +25,16 @@ counts ``NUM_SLICES`` per case whatever the volume holds, which names every
 slice after the first case wrongly when a volume is shorter; and a volume
 of one slice is read as one slice (the JAX loader fails on it).
 ``write_scarseg_phantoms`` writes such a tree from the phantoms (the LGE
-data is not in the repository). Augmentation and the native batch path are
-not ported yet (ROADMAP Queue 1) and raise by name.
+data is not in the repository).
+
+The training fold takes the config's ``augmentation`` (JAX ``:75-81``,
+``:183``, ``:251``): the dataset owns one ``RandomState(seed)`` that its
+transform draws from, item by item. With ``num_data_workers`` above 0 the
+loader's threads share it, so the order of the draws is not fixed (as in
+the JAX package). ``native_pipeline`` (JAX ``:86-108``) prepares whole
+batches in the host library (``data/native.py``) when the items need no
+k-space crop and carry no labels; unlike the JAX package, which then falls
+back to the numpy path, a library that cannot be built raises.
 """
 
 import glob
@@ -36,6 +44,7 @@ import re
 
 import numpy as np
 
+from csmri_refinement_tpu_torch.data import native
 from csmri_refinement_tpu_torch.data.analyze_io import (load_analyze,
                                                         save_analyze)
 from csmri_refinement_tpu_torch.data.transforms import (RecHostTransform,
@@ -71,7 +80,8 @@ class SliceDataset:
 
   def __init__(self, images, labels, image_size, mode='reconstruction',
                downscale=1, include_labels=False, image_ids=None,
-               name='SliceDataset'):
+               name='SliceDataset', augmentation=None, seed=0,
+               native_pipeline=False):
     if mode not in ('reconstruction', 'segmentation'):
       raise ValueError('Unknown dataset mode {!r}'.format(mode))
     self.images = images
@@ -81,9 +91,38 @@ class SliceDataset:
     self.mode = mode
     self.downscale = downscale
     self.include_labels = include_labels and labels is not None
-    self.transform = RecHostTransform(image_size, downscale) \
+    self.seed = seed
+    self.augmentation = augmentation
+    rng = np.random.RandomState(seed)
+    self.transform = \
+        RecHostTransform(image_size, downscale, augmentation, rng) \
         if mode == 'reconstruction' else \
-        RecSegHostTransform(image_size, downscale)
+        RecSegHostTransform(image_size, downscale, augmentation, rng)
+
+    # The native batch path: only where no k-space crop is needed and the
+    # items carry no labels.
+    self._native_slices = None
+    size = image_size // downscale
+    if (native_pipeline and mode == 'reconstruction' and
+        not self.include_labels and images.shape[-2:] == (size, size)):
+      native.library()      # raises if the library cannot be built
+      self._native_slices = np.ascontiguousarray(images, np.float32)
+      self._native_counter = 0
+
+  def native_batch(self, indices):
+    """A whole batch prepared by the host library, or None off that path.
+    Batch n (from 1) is seeded ``seed * 1000003 + n``."""
+    if self._native_slices is None:
+      return None
+    aug = self.augmentation or {}
+    self._native_counter += 1
+    gt = native.prepare_batch(
+        self._native_slices, np.asarray(indices, np.int32),
+        shift=aug.get('shift', 0) or 0,
+        max_rotate=aug.get('rotate', 0) or 0,
+        zoom_range=tuple(aug.get('scale', (1.0, 1.0))),
+        seed=self.seed * 1000003 + self._native_counter)
+    return {'gt': gt, 'index': np.asarray(indices, np.int32)}
 
   def __len__(self):
     return len(self.images)
@@ -110,12 +149,6 @@ class SliceDataset:
     if m is None:
       raise ValueError('not a ScarSeg slice name: {!r}'.format(name))
     return m.group(1), m.group(3)
-
-
-def _refuse_unported(conf):
-  for key in ('augmentation', 'native_pipeline'):
-    if conf.get_attr(key):
-      raise NotImplementedError('{} is not ported yet'.format(key))
 
 
 def _split_scarseg(data_dir, ratio, static_split=True):
@@ -164,20 +197,28 @@ def _load_scarseg_volumes(case_paths, nz=NUM_SLICES):
   return images, labels, image_ids
 
 
+def _dataset_options(conf, fold):
+  """The SliceDataset keywords that ``_build_scarseg`` and
+  ``_build_synthetic`` take from the config; the augmentation only in the
+  training fold."""
+  return dict(
+      mode=conf.get_attr('dataset_mode', default='reconstruction'),
+      downscale=conf.get_attr('downscale', default=1),
+      include_labels=conf.get_attr('include_labels', default=False),
+      augmentation=conf.get_attr('augmentation') if fold == 'train' else None,
+      seed=conf.seed,
+      native_pipeline=conf.get_attr('native_pipeline', default=False))
+
+
 def _build_scarseg(conf, data_dir, fold):
-  _refuse_unported(conf)
   data_path = os.path.join(data_dir, 'scar_segmentation')
   ratio = conf.get_attr('split_ratio', default=DEFAULT_SPLIT_RATIO)
   static = not conf.get_attr('random_split', default=False)
   fold_idx = ('train', 'val', 'test').index(fold)
   case_paths = _split_scarseg(data_path, ratio, static)[fold_idx]
   images, labels, image_ids = _load_scarseg_volumes(case_paths)
-  return SliceDataset(
-      images, labels, IMAGE_SIZE,
-      mode=conf.get_attr('dataset_mode', default='reconstruction'),
-      downscale=conf.get_attr('downscale', default=1),
-      include_labels=conf.get_attr('include_labels', default=False),
-      image_ids=image_ids, name='ScarSeg')
+  return SliceDataset(images, labels, IMAGE_SIZE, image_ids=image_ids,
+                      name='ScarSeg', **_dataset_options(conf, fold))
 
 
 def write_scarseg_phantoms(data_dir, size=IMAGE_SIZE, num_slices=4, seed=0,
@@ -233,7 +274,6 @@ def _make_phantoms(num_images, size, seed, num_ellipses=6):
 
 
 def _build_synthetic(conf, data_dir, fold):
-  _refuse_unported(conf)
   synth = conf.get_attr('synthetic', default={})
   size = synth.get('image_size', 256)
   sizes = {'train': synth.get('num_train', 64),
@@ -243,11 +283,8 @@ def _build_synthetic(conf, data_dir, fold):
   images, labels = _make_phantoms(sizes[fold], size, fold_seed)
   return SliceDataset(
       images, labels, size,
-      mode=conf.get_attr('dataset_mode', default='reconstruction'),
-      downscale=conf.get_attr('downscale', default=1),
-      include_labels=conf.get_attr('include_labels', default=False),
       image_ids=['c00_pre_slice{:02d}'.format(i) for i in range(len(images))],
-      name='Synthetic')
+      name='Synthetic', **_dataset_options(conf, fold))
 
 
 _DATASET_BUILDERS = {

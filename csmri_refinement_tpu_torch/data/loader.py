@@ -5,12 +5,14 @@ dict items stacked into numpy arrays, shuffled per epoch by a
 ``RandomState(seed)`` (the same index stream as the JAX loader), an
 optional subset (``num_samples``), a ragged final batch unless
 ``drop_last``. Items are prepared by ``num_workers`` threads when that is
-above 0 (numpy's FFTs and reductions release the GIL). With ``prefetch``
-above 1 a producer thread prepares up to ``prefetch`` batches ahead of the
-consumer, so the host's work on the next batch overlaps the card's on this
-one; an exception raised while preparing a batch is raised in the consumer
-at that batch. ``wait_s`` sums the seconds the consumer spent waiting for
-batches. The multi-process shard is not ported.
+above 0 (numpy's FFTs and reductions release the GIL); a dataset with a
+``native_batch`` method (the host library's path) prepares whole batches
+there when it returns one. With ``prefetch`` above 1 a producer thread
+prepares up to ``prefetch`` batches ahead of the consumer, so the host's
+work on the next batch overlaps the card's on this one; an exception
+raised while preparing a batch is raised in the consumer at that batch.
+``wait_s`` sums the seconds the consumer spent waiting for batches. The
+multi-process shard is not ported.
 """
 
 import queue
@@ -64,12 +66,20 @@ class DataLoader:
         return
       yield chunk
 
+  def _make_batch(self, chunk, pool):
+    # The dataset's native batch path first, where it has one
+    native_batch = getattr(self.dataset, 'native_batch', None)
+    if native_batch is not None:
+      batch = native_batch(chunk)
+      if batch is not None:
+        return batch
+    if pool is None:
+      return _collate([self.dataset[i] for i in chunk])
+    return _collate(list(pool.map(self.dataset.__getitem__, chunk)))
+
   def _batches(self, pool):
     for chunk in self._batch_indices():
-      if pool is None:
-        yield _collate([self.dataset[i] for i in chunk])
-      else:
-        yield _collate(list(pool.map(self.dataset.__getitem__, chunk)))
+      yield self._make_batch(chunk, pool)
 
   def __iter__(self):
     pool = ThreadPoolExecutor(self.num_workers) if self.num_workers else None

@@ -1,15 +1,19 @@
 """Host-side per-item transforms feeding the device pipeline.
 
-Port of ``RecHostTransform``, ``RecSegHostTransform`` and
-``center_crop_in_kspace_np`` (``csmri_refinement_tpu/data/transforms.py``)
-without augmentation: the host emits clean ground-truth slices in (0, 1)
-(and, for segmentation, their label maps); undersampling runs on the device
-in the train/val step (``training/prep.py``). Augmentation and the
-segmentation input options ``normalize``/``scale_by_max``, which no dataset
-of the JAX package sets, wait for the data-pipeline slice (ROADMAP Queue 1).
+Port of ``csmri_refinement_tpu/data/transforms.py``:
+``center_crop_in_kspace_np``, ``_apply_augmentation`` (``:43-62``),
+``RecHostTransform`` (``:65-92``) and ``RecSegHostTransform``
+(``:95-153``). The host emits clean ground-truth slices in (0, 1) (and,
+for segmentation, their label maps), augmented in the training fold from
+the transform's ``RandomState``; undersampling runs on the device in the
+train/val step (``training/prep.py``). The draws and the arithmetic are
+the JAX package's, so equal ``RandomState``s give equal items, bit for
+bit.
 """
 
 import numpy as np
+
+from csmri_refinement_tpu_torch.data import augment
 
 
 def center_crop_in_kspace_np(img, size):
@@ -30,41 +34,99 @@ def center_crop_in_kspace_np(img, size):
   return np.abs(out)
 
 
-class RecHostTransform:
-  """GT slice prep for reconstruction: k-space crop → normalise."""
+def _apply_augmentation(image, augmentation, rng):
+  """One image's augmentation chain: elastic → translate → rotate → zoom."""
+  alpha = augmentation.get('elastic_transform_alpha')
+  sigma = augmentation.get('elastic_transform_sigma')
+  if alpha is not None and sigma is not None:
+    image = augment.elastic_transform(image, alpha, sigma, rng)
 
-  def __init__(self, image_size, downscale=1):
+  shift = augmentation.get('shift')
+  if shift is not None:
+    image = augment.random_translate(image, shift, rng)
+
+  rot = augmentation.get('rotate')
+  if rot is not None:
+    image = augment.random_rotate(image, (-rot, rot), rng)
+
+  zoom_range = augmentation.get('scale')
+  if zoom_range is not None:
+    image = augment.random_zoom(image, zoom_range, rng)
+  return image
+
+
+def _crop_and_normalise(img2d, target_size):
+  """The k-space crop to ``target_size`` (or the magnitude when the slice
+  has that size already), divided by its peak."""
+  if img2d.shape[0] != target_size or img2d.shape[1] != target_size:
+    img2d = center_crop_in_kspace_np(img2d, target_size)
+  else:
+    img2d = np.abs(img2d)
+  peak = np.max(np.abs(img2d))
+  if peak > 0:
+    img2d = img2d / peak
+  return img2d
+
+
+class RecHostTransform:
+  """GT slice prep for reconstruction: augment → k-space crop → normalise."""
+
+  def __init__(self, image_size, downscale=1, augmentation=None, rng=None):
     self.target_size = image_size // downscale
+    self.augmentation = augmentation
+    self.rng = rng if rng is not None else np.random
 
   def __call__(self, image):
     """image: (H, W) or (H, W, 1) raw slice → (size, size) float32 in (0,1)."""
-    img2d = image.astype(np.float32)
-    if img2d.ndim == 3:
-      img2d = img2d[..., 0]
-    if img2d.shape[0] != self.target_size or \
-       img2d.shape[1] != self.target_size:
-      img2d = center_crop_in_kspace_np(img2d, self.target_size)
-    else:
-      img2d = np.abs(img2d)
-    peak = np.max(np.abs(img2d))
-    if peak > 0:
-      img2d = img2d / peak
-    return img2d.astype(np.float32)
+    if image.ndim == 2:
+      image = image[:, :, None]
+    image = image.astype(np.float32)
+    if self.augmentation is not None:
+      image = _apply_augmentation(image, self.augmentation, self.rng)
+    return _crop_and_normalise(image[..., 0],
+                               self.target_size).astype(np.float32)
 
 
 class RecSegHostTransform:
-  """Joint image + label prep for segmentation: the image as
-  ``RecHostTransform`` makes it, the label subsampled by ``downscale`` and
-  rounded to int64."""
+  """Joint image + label prep for segmentation.
 
-  def __init__(self, image_size, downscale=1):
-    self.image = RecHostTransform(image_size, downscale)
+  Augmentation moves image and label together: one translate of the two
+  stacked, then ``random_rotate_pair`` and ``random_zoom_pair`` with spline
+  orders (2, 0), so the label stays a label map. The label is subsampled by
+  ``downscale`` and rounded to int64. The input options ``normalize`` and
+  ``scale_by_max`` (JAX ``:147-150``), which no config sets, are not
+  ported.
+  """
+
+  def __init__(self, image_size, downscale=1, augmentation=None, rng=None):
+    self.target_size = image_size // downscale
     self.downscale = downscale
+    self.augmentation = augmentation
+    self.rng = rng if rng is not None else np.random
 
   def __call__(self, image, label):
     """image, label: (H, W) or (H, W, 1) → ((size, size) float32,
     (H / downscale, W / downscale) int64)."""
-    if label.ndim == 3:
-      label = label[..., 0]
-    label = label.astype(np.float32)[::self.downscale, ::self.downscale]
-    return self.image(image), np.round(label).astype(np.int64)
+    if image.ndim == 2:
+      image = image[:, :, None]
+    if label.ndim == 2:
+      label = label[:, :, None]
+    image = image.astype(np.float32)
+    label = label.astype(np.float32)
+
+    if self.augmentation is not None:
+      shift = self.augmentation.get('shift', 0)
+      rot = self.augmentation.get('rotate', 0)
+      zoom_range = self.augmentation.get('scale', (1, 1))
+      if shift:
+        merged = np.concatenate([image, label], axis=-1)
+        merged = augment.random_translate(merged, shift, self.rng)
+        image, label = merged[..., :1], merged[..., 1:]
+      image, label = augment.random_rotate_pair(
+          image, label, (-rot, rot), self.rng, orders=(2, 0))
+      image, label = augment.random_zoom_pair(
+          image, label, zoom_range, self.rng, orders=(2, 0))
+
+    img2d = _crop_and_normalise(image[..., 0], self.target_size)
+    label2d = label[::self.downscale, ::self.downscale, 0]
+    return img2d.astype(np.float32), np.round(label2d).astype(np.int64)

@@ -10,7 +10,8 @@ Per-metric ``<name>_metric`` config keys (``pred_key``, ``target_key``,
 ``transform``) override the defaults. ``segmentation_score`` reads the
 batch's ``label`` without a transform unless its section says otherwise
 (JAX ``metrics/__init__.py:176-205``), and runs its network once per batch
-(``per_batch``). HFEN and mutual information are not ported yet.
+(``per_batch``). HFEN and mutual information (``on_host``) fetch the batch
+to the host once and score each example there, as the JAX package does.
 """
 
 from functools import partial
@@ -41,6 +42,8 @@ class MetricFunction:
     if isinstance(target, dict):
       target = target[self.target_key]
     transform = self.transform if transform else None
+    if getattr(self.metric_fn, 'on_host', False):
+      prediction, target = prediction.cpu(), target.cpu()
     with torch.no_grad():
       if getattr(self.metric_fn, 'per_batch', False):
         if transform is not None:
@@ -104,6 +107,10 @@ def _segmentation_score_metric(conf, metric_name):
 _METRICS = {
     'psnr': (lambda conf, name: _image_metric('compute_psnr'), MaxMetric),
     'ssim': (lambda conf, name: _image_metric('compute_ssim'), MaxMetric),
+    'hfen': (lambda conf, name: _image_metric('compute_hfen'), MinMetric),
+    'mutual_information': (
+        lambda conf, name: _image_metric('compute_mutual_information'),
+        MaxMetric),
     'binary_accuracy': (_disc_accuracy_metric, MaxMetric),
     'accuracy': (_disc_accuracy_metric, MaxMetric),
     'accuracy_fake': (_disc_accuracy_metric, MaxMetric),
@@ -122,8 +129,7 @@ def get_metric_fn(conf, metric_name, pred_key='pred', target_key='target'):
   from csmri_refinement_tpu_torch.data.transform_wrappers import (
       get_output_transform)
   if metric_name not in _METRICS:
-    raise NotImplementedError('metric {} is not ported yet'.format(
-        metric_name))
+    raise ValueError('Unknown metric {}'.format(metric_name))
   metric_constructor, metric_type = _METRICS[metric_name]
   metric_fn = metric_constructor(conf, metric_name)
   metric_conf = conf.get_attr('{}_metric'.format(metric_name), default={})

@@ -1,18 +1,22 @@
-"""Cartesian undersampling masks: host numpy and on-device torch.
+"""Undersampling masks: host numpy and on-device torch.
 
 Port of ``csmri_refinement_tpu/ops/masks.py``:
 
-* ``cartesian_mask_np`` (``masks.py:37``) — the reference-faithful numpy
-  generator, bit-identical to the JAX package's for the same ``RandomState``;
+* ``cartesian_mask_np`` (``:37``) and ``radial_sampling_np`` (``:75``) —
+  the JAX package's code, so the same ``RandomState`` gives the same mask,
+  bit for bit;
+* ``radial_masks_np``: the radial path of ``get_mask_generator_np``
+  (``:295-316``), which the batch preparer's train and validation masks
+  both take;
 * ``cartesian_num_lines`` (``:282``) and ``_cartesian_pdf`` (``:334``);
 * ``cartesian_mask`` (``:348-412``) — Gumbel top-k line selection, drawn
   from an explicit ``torch.Generator`` on the mask's device;
 * ``make_masks`` (``:415-445``) for the ``varden``/``cartesian`` schemes.
 
 ``jax.random`` and ``torch.Generator`` give different bits from one seed:
-the two packages agree on the line count and the sampling distribution,
-not on the lines drawn. Tests that compare models feed both the same numpy
-mask. Radial masks are not ported yet.
+for cartesian masks the two packages agree on the line count and the
+sampling distribution, not on the lines drawn. Tests that compare models
+feed both the same numpy mask.
 """
 
 import numpy as np
@@ -61,12 +65,81 @@ def cartesian_mask_np(shape, acc, sample_n=10, centred=False, rng=None):
   return mask
 
 
+def radial_sampling_np(shape, n_lines, angle_begin=0, rand=False,
+                       golden_angle=False, centred=True, rng=None):
+  """Golden-angle or uniform radial spokes gridded to cartesian, on the
+  square of the larger side (cropped back to (nx, ny)). ``n_lines`` is the
+  number of spokes per mask."""
+  if rng is None:
+    rng = np.random
+  GOLDEN_ANGLE = np.pi / ((1 + np.sqrt(5)) / 2)
+
+  n, nx0, ny0 = int(np.prod(shape[:-2])), shape[-2], shape[-1]
+  nx = ny = max(nx0, ny0)
+
+  mask = np.zeros((n, nx, ny), dtype=int)
+
+  if rand:
+    angle_begin = np.pi * rng.random_sample()
+
+  y = np.arange(-nx / 2, nx / 2, 1)
+  x = np.arange(-ny / 2, ny / 2, 1)
+
+  if golden_angle:
+    angles = np.array([angle_begin + i * GOLDEN_ANGLE
+                       for i in range(n_lines * n)])
+  else:
+    angles = np.tile(np.arange(0, np.pi, np.pi / n_lines), n)
+    angles = angles + np.repeat(rng.random_sample(n) * np.pi / n_lines,
+                                n_lines)
+
+  kloc_all = np.outer(y, np.cos(angles)) + 1j * np.outer(x, np.sin(angles))
+
+  # Round to the nearest cartesian location, recentre, wrap out-of-range.
+  kloc1 = np.round(kloc_all + (0.5 + 0.5j)) + ((nx / 2) + (ny / 2) * 1j)
+  kloc1real = np.real(kloc1)
+  kloc1real = kloc1real - nx * (kloc1real > nx)
+  kloc1imag = np.imag(kloc1)
+  kloc1imag = kloc1imag - ny * (kloc1imag > ny)
+  kloc1real = kloc1real + nx * (kloc1real < 1)
+  kloc1imag = kloc1imag + ny * (kloc1imag < 1)
+  t = np.repeat(np.arange(n), n_lines * nx)
+  xi = (kloc1real.transpose().reshape(-1) - 1).astype(int)
+  yi = (kloc1imag.transpose().reshape(-1) - 1).astype(int)
+  mask[t, xi, yi] = 1
+
+  if nx0 != ny0:
+    xpad = (nx - nx0) // 2
+    ypad = (ny - ny0) // 2
+    mask = mask[:, xpad:nx - xpad, ypad:ny - ypad]
+
+  if not centred:
+    mask = np.fft.ifftshift(mask, axes=(-2, -1))
+  return mask.reshape(shape)
+
+
 def cartesian_num_lines(nx, acc, sample_n=CARTESIAN_CENTRAL_LINES):
   """Total sampled-line count of a static-acceleration cartesian mask:
   the reference's f64 ``int(nx // acc)``, floored at the guaranteed centre
   lines."""
   base = int(nx // float(acc))
   return max(base, int(sample_n)) if sample_n else base
+
+
+def radial_masks_np(shape, spokes, rng, variable=False):
+  """(B, n, n) radial masks from ``rng``: golden-angle spokes from a random
+  start, uncentred. ``spokes`` per mask, or with ``variable`` a count
+  drawn per mask from [1, n/2 - 1)."""
+  if variable:
+    size = shape[-1]
+    counts = rng.randint(1, len(np.arange(1, size // 2)), shape[0])
+    mask = np.array([
+        radial_sampling_np((1, size, size), int(counts[i]), rand=True,
+                           golden_angle=True, centred=False, rng=rng)
+        for i in range(shape[0])])
+    return mask.reshape(shape)
+  return radial_sampling_np(shape, int(spokes), rand=True, golden_angle=True,
+                            centred=False, rng=rng)
 
 
 def _centre(nx, sample_n, device):
@@ -123,16 +196,23 @@ def cartesian_mask(generator, shape, acc, sample_n=CARTESIAN_CENTRAL_LINES,
   return mask.contiguous()
 
 
+def draw_seed(generator, device=None):
+  """One seed in [0, 2**31 - 1) from ``generator`` (on ``device``), for a
+  host ``RandomState``."""
+  return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator,
+                           device=device))
+
+
 def make_masks(generator, batch, height, width, sampling_scheme='varden',
                acceleration_factor=8, variable_acceleration=False,
                sample_n=CARTESIAN_CENTRAL_LINES, device=None):
-  """Batched on-device masks from an undersampling config.
+  """Batched cartesian (``varden``/``cartesian``) masks on ``device``.
 
-  Variable acceleration draws per-example acc ~ U(1, 1.5·acc).
+  Variable acceleration draws per-example acc ~ U(1, 1.5·acc). Radial
+  masks are drawn on the host (``radial_masks_np``).
   """
   if sampling_scheme not in ('varden', 'cartesian'):
-    raise NotImplementedError(
-        'sampling scheme {!r} is not ported yet'.format(sampling_scheme))
+    raise ValueError('Unknown sampling scheme {}'.format(sampling_scheme))
   if variable_acceleration:
     u = torch.rand((batch,), generator=generator, device=device)
     acc = 1.0 + u * (acceleration_factor * 1.5 - 1.0)

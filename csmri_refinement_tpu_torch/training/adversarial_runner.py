@@ -48,7 +48,8 @@ at the loss boundary) and the discriminator casts what it is given.
 apply in the backward (JAX ``:326-350``), the discriminator's dropout
 masks replayed from the same generator state. ``steps_per_fetch`` = k runs
 k full D-then-G updates per fetch, when ``updates_per_step`` is 1 on both
-optimizers and the generator is enabled (JAX ``:540-548``).
+optimizers, the generator is enabled and the preparer is ``device_pure``
+(not with radial masks; JAX ``:540-548``).
 """
 
 import logging
@@ -310,7 +311,8 @@ class AdversarialRunner(BaseRunner):
 
   def _train_step(self, batch_iter):
     if self.gen_updates_per_step == 1 and self.disc_updates_per_step == 1:
-      k = self.steps_per_fetch if self.generator_enabled else 1
+      k = self.steps_per_fetch if (self.generator_enabled and
+                                   self.preparer.device_pure) else 1
       host_batches = self._collect_stackable_batches(batch_iter, k)
       updates, data = [], None
       for host_batch in host_batches:

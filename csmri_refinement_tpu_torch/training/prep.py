@@ -1,14 +1,15 @@
 """On-device batch preparation: the k-space forward model inside the step.
 
 Port of ``RecBatchPreparer`` and ``SegBatchPreparer``
-(``csmri_refinement_tpu/training/prep.py``). For reconstruction, the
-``varden`` and ``cartesian`` schemes, through the port's
-``undersample_batch``: the host hands over clean ground-truth slices
-``{'gt', 'index'}`` (and ``'label'`` with ``include_labels``); masks,
-undersampling and noise run on the device, and ``label`` and ``index``
-ride along untouched (the segmentation score reads ``label``). For
-segmentation the host has built ``inp`` and ``target`` already; they are
-moved to the device.
+(``csmri_refinement_tpu/training/prep.py``). For reconstruction, through
+the port's ``undersample_batch``: the host hands over clean ground-truth
+slices ``{'gt', 'index'}`` (and ``'label'`` with ``include_labels``);
+masks, undersampling and noise run on the device, and ``label`` and
+``index`` ride along untouched (the segmentation score reads ``label``).
+For segmentation the host has built ``inp`` and ``target`` already; they
+are moved to the device.
+
+``varden`` and ``cartesian`` masks:
 
 * train: masks (and noise) from the ``torch.Generator`` the caller passes,
   a new one every step;
@@ -17,13 +18,24 @@ moved to the device.
   kept, so a slice gets the same mask on every validation run whatever
   the batch order and the device (the JAX package folds the index into a
   fixed key, ``prep.py:58-64``; the bits differ, the contract is the
-  same). Validation adds no noise, as the JAX package's
-  ``_val_cartesian`` passes none: ``undersampling.noise`` is training
-  randomness only.
+  same).
 
-Radial masks wait (ROADMAP Queue 1 item 1).
+``radial`` masks (JAX ``prep.py:30-111``), whose spokes are drawn on the
+host, so the preparer is not ``device_pure``:
+
+* train: one seed drawn from the caller's generator seeds a
+  ``RandomState`` for ``radial_masks_np`` (which honours
+  ``variable_acceleration``, as JAX's ``get_mask_generator_np`` does); the
+  batch is undersampled with that mask and no noise, as the JAX
+  ``_fixed_fn`` passes none;
+* validation: each slice's mask from ``RandomState(VAL_MASK_SEED +
+  index)``, kept per index: the JAX package's masks, bit for bit.
+
+Validation adds no noise, as the JAX package's ``_val_cartesian`` passes
+none: ``undersampling.noise`` is training randomness only.
 """
 
+import numpy as np
 import torch
 
 from csmri_refinement_tpu_torch.ops import masks as mask_ops
@@ -41,11 +53,16 @@ class RecBatchPreparer:
     self.acc = cs.get('acceleration_factor', 8)
     self.variable = cs.get('variable_acceleration', False)
     self.noise = cs.get('noise', 0.0)
-    if self.scheme not in ('varden', 'cartesian'):
-      raise NotImplementedError(
-          'sampling scheme {!r} is not ported yet'.format(self.scheme))
+    if self.scheme not in ('varden', 'cartesian', 'radial'):
+      raise ValueError('Unknown sampling scheme {}'.format(self.scheme))
     self.device = torch.device(device)
     self._val_masks = {}
+
+  @property
+  def device_pure(self):
+    """False for radial masks, drawn on the host in every train step (the
+    runners then take one update per fetch, as JAX's do)."""
+    return self.scheme != 'radial'
 
   def _gt(self, host_batch):
     return torch.as_tensor(host_batch['gt'], dtype=torch.float32).to(
@@ -58,17 +75,31 @@ class RecBatchPreparer:
     return batch
 
   def prepare_train(self, generator, host_batch):
-    return self._passthrough(us_ops.undersample_batch(
-        generator, self._gt(host_batch), sampling_scheme=self.scheme,
-        acceleration_factor=self.acc, variable_acceleration=self.variable,
-        noise=self.noise), host_batch)
+    gt = self._gt(host_batch)
+    if self.scheme == 'radial':
+      rng = np.random.RandomState(mask_ops.draw_seed(generator, self.device))
+      mask = mask_ops.radial_masks_np(tuple(gt.shape), self.acc, rng,
+                                      self.variable)
+      batch = us_ops.undersample_batch(None, gt, fixed_mask=mask)
+    else:
+      batch = us_ops.undersample_batch(
+          generator, gt, sampling_scheme=self.scheme,
+          acceleration_factor=self.acc,
+          variable_acceleration=self.variable, noise=self.noise)
+    return self._passthrough(batch, host_batch)
 
   def _val_mask(self, index, height, width):
     if index not in self._val_masks:
-      gen = torch.Generator().manual_seed(VAL_MASK_SEED + index)
-      self._val_masks[index] = mask_ops.make_masks(
-          gen, 1, height, width, sampling_scheme=self.scheme,
-          acceleration_factor=self.acc)[0].to(self.device)
+      if self.scheme == 'radial':
+        mask = torch.from_numpy(mask_ops.radial_masks_np(
+            (1, height, width), self.acc,
+            np.random.RandomState(VAL_MASK_SEED + index))[0])
+      else:
+        gen = torch.Generator().manual_seed(VAL_MASK_SEED + index)
+        mask = mask_ops.make_masks(
+            gen, 1, height, width, sampling_scheme=self.scheme,
+            acceleration_factor=self.acc)[0]
+      self._val_masks[index] = mask.to(self.device, torch.float32)
     return self._val_masks[index]
 
   def prepare_val(self, host_batch):
@@ -82,6 +113,8 @@ class RecBatchPreparer:
 
 class SegBatchPreparer:
   """{inp, target} batches on ``device``, as the host built them."""
+
+  device_pure = True
 
   def __init__(self, device):
     self.device = torch.device(device)

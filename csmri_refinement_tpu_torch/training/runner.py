@@ -34,9 +34,9 @@ mode ``'test'`` ignores all three, as JAX does (``:59``, ``:127-128``):
   (``models/remat.py``; a VGG19 loss recomputes its prediction branch).
 * ``steps_per_fetch`` = k: k updates, then one fetch of their mean losses
   (JAX ``:259-286``, ``:308-315``). Every update draws from the same mask
-  generators as k single steps, so the trajectory is theirs. JAX takes
-  this path only with a device-pure preparer; every ported preparer is one
-  (radial masks, drawn on the host, are not ported).
+  generators as k single steps, so the trajectory is theirs. As in JAX,
+  only with a ``device_pure`` preparer: with radial masks, drawn on the
+  host, a step is one update and one fetch (JAX ``:309-310``).
 """
 
 import logging
@@ -154,13 +154,13 @@ class Runner(BaseRunner):
     return losses, (batch, out)
 
   def _train_step(self, batch_iter):
-    host_batches = self._collect_stackable_batches(batch_iter,
-                                                   self.steps_per_fetch)
+    k = self.steps_per_fetch if self.preparer.device_pure else 1
+    host_batches = self._collect_stackable_batches(batch_iter, k)
     updates, data = [], None
     for host_batch in host_batches:
       losses, data = self._update(host_batch)
       updates.append(losses)
-    if self.steps_per_fetch > 1:
+    if k > 1:
       data = None
     return len(host_batches), _loss_metrics(updates), data
 

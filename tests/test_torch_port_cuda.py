@@ -1196,3 +1196,85 @@ def test_bf16_remat_updates_match_plain_on_card(cuda, runner_type):
     torch.backends.cudnn.deterministic = False
   for name, want in states[0].items():
     assert _max_rel(states[1][name], want) <= 1e-5, name
+
+
+# -- the data, sampling and metric options ------------------------------------
+
+
+def _radial_recnet_conf(**overrides):
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf_d = {'seed': 0, 'runner_type': 'standard',
+            'application': 'reconstruction',
+            'undersampling': {'sampling_scheme': 'radial',
+                              'acceleration_factor': 8},
+            'model': {'name': 'RecNet', 'num_blocks': 3, 'num_convs': 3,
+                      'num_filters': 32},
+            'loss_name': 'MSE',
+            'optimizer': {'name': 'Adam', 'learning_rate': 0.0002}}
+  conf_d.update(overrides)
+  return Configuration.from_dict(conf_d)
+
+
+def test_radial_dc_launches_match_plain_on_card(cuda, monkeypatch):
+  """Every K1 and K1-bwd launch of a radial 1-recnet step at 512², B = 4,
+  against its plain version (2e-4 and 2e-3, tests/test_dc_pallas.py:26,46):
+  radial masks are not line-structured, and the dense K1 takes them."""
+  from csmri_refinement_tpu_torch.training.runner import Runner
+  calls = {'K1': [], 'K1-bwd': []}
+  dc, dc_bwd = dc_kernel.dc_cuda, dc_kernel.dc_bwd_cuda
+
+  def k1(x, k0, mask):
+    y = dc(x, k0, mask)
+    calls['K1'].append((x, k0, mask, y))
+    return y
+
+  def k1_bwd(g, mask):
+    y = dc_bwd(g, mask)
+    calls['K1-bwd'].append((g, mask, y))
+    return y
+  # each wrapper counts through its module-level name
+  k1.launches = k1_bwd.launches = 0
+  monkeypatch.setattr(dc_kernel, 'dc_cuda', k1)
+  monkeypatch.setattr(dc_kernel, 'dc_bwd_cuda', k1_bwd)
+  runner = Runner(_radial_recnet_conf(), 'train', cuda)
+  gt = torch.rand(4, 512, 512, generator=torch.Generator().manual_seed(1))
+  batch = runner.preparer.prepare_train(
+      torch.Generator(device=cuda).manual_seed(2), {'gt': gt.numpy()})
+  mask = batch['mask'][..., 0]
+  assert not bool((mask == mask[:, :, :1]).all())
+  runner.train_batch(batch)
+  torch.cuda.synchronize()
+  assert len(calls['K1']) == len(calls['K1-bwd']) == 3
+  for x, k0, m, y in calls['K1']:
+    assert (y - dc_kernel.dc_plain(x, k0, m)).abs().max().item() <= 2e-4
+  for g, m, y in calls['K1-bwd']:
+    want = dc_kernel.dc_plain_vjp(g, m, False)[0]
+    assert (y - want).abs().max().item() <= 2e-3
+
+
+def test_native_loader_feeds_a_512_step_on_card(cuda, tmp_path):
+  """native_pipeline on a 512² ScarSeg-format tree: the host library is
+  built from the port's source, every training batch comes from it, and a
+  radial 1-recnet step on the card takes it."""
+  import numpy as np
+  from csmri_refinement_tpu_torch.data import DataLoader, datasets, native
+  from csmri_refinement_tpu_torch.data import load_dataset
+  from csmri_refinement_tpu_torch.training.runner import Runner
+  data_dir = str(tmp_path / 'data')
+  datasets.write_scarseg_phantoms(data_dir, 512, 1, seed=3)
+  conf = _radial_recnet_conf(
+      native_pipeline=True, augmentation={'shift': 20, 'rotate': 10,
+                                          'scale': [0.9, 1.1]})
+  train_set = load_dataset(conf, data_dir, 'ScarSeg', 'train')
+  assert os.path.exists(native.lib_path())
+  batches = list(DataLoader(train_set, 8, shuffle=True, seed=0,
+                            num_workers=2, prefetch=2))
+  assert len(batches) == 3 and train_set._native_counter == 3
+  for batch in batches:
+    assert batch['gt'].shape == (8, 512, 512)
+    np.testing.assert_allclose(np.abs(batch['gt']).max(axis=(1, 2)), 1.0,
+                               rtol=1e-6)
+  runner = Runner(conf, 'train', cuda)
+  losses, out = runner.train_batch(runner.preparer.prepare_train(
+      torch.Generator(device=cuda).manual_seed(0), batches[0]))
+  assert out.is_cuda and bool(torch.isfinite(losses['loss']))

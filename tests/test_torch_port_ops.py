@@ -210,9 +210,10 @@ def test_port_imports_no_jax():
   for root, _, names in os.walk(PKG):
     files += [os.path.join(root, n) for n in names if n.endswith('.py')]
   assert len(files) > 35
-  # nor pandas, PIL or msgpack, which the card machine need not have
+  # nor pandas, PIL, msgpack or scikit-learn, which the card machine need
+  # not have
   banned = ('jax', 'jaxlib', 'flax', 'optax', 'csmri_refinement_tpu',
-            'pandas', 'PIL', 'msgpack')
+            'pandas', 'PIL', 'msgpack', 'sklearn')
   for path in files:
     for mod in _imports(path):
       assert mod.split('.')[0] not in banned, (path, mod)
@@ -242,10 +243,20 @@ def test_port_imports_no_jax():
           'csmri_refinement_tpu_torch.utils.diagnostics, '
           'csmri_refinement_tpu_torch.utils.preemption, '
           'csmri_refinement_tpu_torch.utils.profiling, '
-          'csmri_refinement_tpu_torch.utils.torch_import; '
+          'csmri_refinement_tpu_torch.utils.torch_import, '
+          'csmri_refinement_tpu_torch.data.augment, '
+          'csmri_refinement_tpu_torch.data.native, '
+          'csmri_refinement_tpu_torch.data.datasets, '
+          'csmri_refinement_tpu_torch.ops.masks, '
+          'csmri_refinement_tpu_torch.ops.dc, '
+          'csmri_refinement_tpu_torch.training.prep, '
+          'csmri_refinement_tpu_torch.metrics; '
+          'from csmri_refinement_tpu_torch.metrics import image_metrics; '
+          'image_metrics.compute_mutual_information([0.5], [0.25]); '
+          'image_metrics.compute_hfen([[0.5, 1.0]], [[0.25, 1.0]]); '
           'bad = [m for m in set(sys.modules) - before if m.split(".")[0] in '
           '("jax", "flax", "optax", "csmri_refinement_tpu", "pandas", '
-          '"PIL", "msgpack")]; '
+          '"PIL", "msgpack", "sklearn")]; '
           'assert not bad, bad')
   subprocess.run([sys.executable, '-c', code], cwd=REPO, check=True,
                  timeout=120)
