@@ -2,7 +2,8 @@
 """On-card smoke run of the PyTorch + CUDA port (``csmri_refinement_tpu_torch``).
 
     python3 chip_smoke.py [--probes-only | --int8-only [--tree DIR] |
-                           --f32-only [--tree DIR] | --scarseg-only]
+                           --f32-only [--tree DIR] | --scarseg-only |
+                           --dist-export-only]
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit. Phases, each failing loudly with a non-zero exit:
@@ -187,9 +188,29 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     (shift, rotate, scale; 2 steps and 1 validation batch at B = 8): 18 K2
     f32 launches per eval forward, each against its plain version; (d) the
     host ms per 512² slice of each augmentation and of HFEN and MI per
-    example, beside (a)'s step; the phase's wall seconds.
+    example, beside (a)'s step; the phase's wall seconds;
+22. data parallelism, the serving artifact and the summary on the same
+    tree: (a) ``configs/1-recnet.json`` (B = 20, 2 steps and 2 validation
+    batches) and ``configs/3-train-segmentation-unet.json`` (B = 8, 2 steps
+    and 1 validation batch) through the training CLI without a process
+    group and with a one-rank NCCL group from a ``distributed`` section
+    (NCCL takes one rank per card), deterministic algorithms on both:
+    parameters, losses and metrics within 1e-5 of each value's max |ref|,
+    the counters around the group's runs (12 K1 and 6 K1-bwd; 18 K2 f32),
+    then ms per train step with the group and without, in turns; (b) the
+    export CLI with ``--verify`` on phase 18's GAN checkpoint (the
+    generator, B = 5) and (a)'s 1-recnet checkpoint (B = 20), each artifact
+    replayed in a fresh process (which imports no model code) on the card
+    (one replay counted: K1 3 and K2 f32 10, K1 3) and on the CPU: the card
+    replay within 1e-6 of ``runner.predict``'s max |ref|, the CPU replay
+    within 5e-4 of the card's, the artifact's KiB and replay ms beside
+    predict ms; (c) ``summarize_results`` over phase 18's eval_results CSV.
 
-``--scarseg-only`` runs phases 1, 2 and 18-21 alone (no result line).
+``--scarseg-only`` runs phases 1, 2 and 18-22 alone (no result line).
+``--dist-export-only`` runs phases 1, 2, phase 18's tree and phase 22
+alone (no result line): the generator is exported from its seeded init on
+(a)'s RecNet, and (c) reads the eval_results CSV of 4 slices of (a)'s
+1-recnet checkpoint.
 ``--f32-only`` runs phases 1 and 2 for the conv sources and times K2's f32
 route on the 18 segmentation layer shapes (seeded weights) after holding
 each to its plain version (no result line); with ``--tree DIR`` an earlier
@@ -3473,21 +3494,28 @@ def data_options_phase(data_dir, work, line):
           'dc_err': k1_err, 'dc_bwd_err': k1_bwd_err, 'f32_err': k2_err}
 
 
-def scarseg_phase(line):
+def scarseg_phase(line, dist_export_only=False):
   """Phase 18: the paper's three configs on a ScarSeg-format tree at 512²,
   the validate and eval_results CLIs; the tree is removed after. Returns
-  the launches and errors for the kernels line."""
+  the launches and errors for the kernels line. ``dist_export_only``:
+  the tree and phase 22 alone."""
   os.makedirs(GAN_DIR, exist_ok=True)
   work = tempfile.mkdtemp(prefix='scarseg_', dir=GAN_DIR)
   try:
     data_dir = os.path.join(work, 'data')
     scarseg_data_phase(data_dir)
+    if dist_export_only:
+      return dist_export_phase(data_dir, work, None, None, None, line)
     rec_runner, best, k1, k1_bwd = scarseg_recnet_phase(
         data_dir, os.path.join(work, 'runs'))
     dc = scarseg_dc_phase(line)
     scarseg_validate_phase(data_dir, best, os.path.join(work, 'out'), line)
     gan_conf, gan_k1, gan_k2, gan_err, gan_calls, gan_runner = \
         scarseg_gan_phase(data_dir, best, work, line)
+    gan_ckpt, = glob.glob(os.path.join(work, 'runs', '2-refinement_*',
+                                       'periodic-chkpt_*.ckpt'))
+    # the card's records only: the CPU's 4 slices share the run's name
+    eval_csvs = glob.glob(os.path.join(work, 'out', 'eval_card', '*.csv'))
     seg_runner, seg_k2, seg_err = scarseg_seg_phase(data_dir, work)
     f32 = scarseg_timings(data_dir, rec_runner, gan_runner, seg_runner, line)
     f32_layer_table('GAN validation {}^2'.format(SCAR_SIZE),
@@ -3499,17 +3527,354 @@ def scarseg_phase(line):
     opt = options_phase(data_dir, gan_conf, work, f32, line)
     # Phase 21: the data, sampling and metric options on the same tree
     data = data_options_phase(data_dir, work, line)
+    # Phase 22: data parallelism, the serving artifact, summarize_results
+    dist = dist_export_phase(data_dir, work, gan_conf, gan_ckpt, eval_csvs,
+                             line)
   finally:
     shutil.rmtree(work, ignore_errors=True)
-  return {'k1': k1 + gan_k1 + surf_k1 + opt['k1'] + data['k1'],
-          'k1_bwd': k1_bwd + opt['k1_bwd'] + data['k1_bwd'],
-          'k2_f32': gan_k2 + seg_k2 + surf_k2 + data['k2_f32'],
+  return {'k1': k1 + gan_k1 + surf_k1 + opt['k1'] + data['k1'] + dist['k1'],
+          'k1_bwd': k1_bwd + opt['k1_bwd'] + data['k1_bwd'] + dist['k1_bwd'],
+          'k2_f32': (gan_k2 + seg_k2 + surf_k2 + data['k2_f32'] +
+                     dist['k2_f32']),
           'k2_bf16': opt['k2_bf16'],
           'dc_err': max(dc['K1'][0], opt['dc_err'], data['dc_err']),
           'dc_bwd_err': max(dc['K1-bwd'][0], opt['dc_bwd_err'],
                             data['dc_bwd_err']),
           'f32_err': max(gan_err, seg_err, data['f32_err']),
           'bf16_err': opt['k2_err']}
+
+
+# Phase 22: data parallelism in a one-rank NCCL group, the serving
+# artifact replayed through K1 and K2, and summarize_results, on phase 18's
+# tree. A card takes one NCCL rank, so a one-card machine runs a world of
+# one (two ranks are held to one process by the CPU tests).
+DIST_REC = ['num_epochs=1', 'num_train_subset_samples=40']      # 2 steps
+DIST_SEG = ['num_epochs=1', 'num_train_subset_samples=16',
+            'num_validation_subset_samples=8']                   # 2 + 1
+DIST_REL = 1e-5          # with the group against without, each tensor
+REPLAY_REL = 1e-6        # the artifact against predict: the same kernels
+REPLAY_TIMEOUT_S = 300
+REPLAY_CODE = r"""
+import json, sys, torch
+from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
+from csmri_refinement_tpu_torch.utils.export import load_callable
+from csmri_refinement_tpu_torch.utils.profiling import timed_ms
+torch.backends.cudnn.allow_tf32 = False
+out = {'modules': []}
+for name, artifact, feed in json.loads(sys.argv[1]):
+  batch = torch.load(feed)
+  call, _ = load_callable(artifact, 'cuda')
+  torch.cuda.synchronize()
+  dc_kernel.dc_cuda.launches = 0
+  conv_chain.conv_layer_f32_cuda.launches = 0
+  card = call(batch)
+  torch.cuda.synchronize()
+  launches = (dc_kernel.dc_cuda.launches,
+              conv_chain.conv_layer_f32_cuda.launches)
+  ms = timed_ms(lambda: call(batch), iters=5, warmup=1)
+  cpu_call, _ = load_callable(artifact, 'cpu')
+  cpu = cpu_call({k: v.cpu() for k, v in batch.items()})
+  to_cpu = lambda t: {k: v.cpu() for k, v in t.items()} \
+      if isinstance(t, dict) else {'pred': t.cpu()}
+  out[name] = {'card': to_cpu(card), 'cpu': to_cpu(cpu),
+               'launches': launches, 'ms': ms}
+out['modules'] = sorted(m for m in sys.modules if m.startswith('csmri'))
+torch.save(out, sys.argv[2])
+"""
+
+
+def free_port():
+  import socket
+  s = socket.socket()
+  s.bind(('127.0.0.1', 0))
+  port = s.getsockname()[1]
+  s.close()
+  return port
+
+
+def group_section(port):
+  """A one-rank ``distributed`` section, as a JAX config writes it."""
+  return {'coordinator_address': 'localhost:{}'.format(port),
+          'num_processes': 1, 'process_id': 0}
+
+
+@contextlib.contextmanager
+def recorded_epochs():
+  """{'train': [loss values of each epoch], 'val': [...]}: what the runners'
+  epoch loops return while the block runs."""
+  from csmri_refinement_tpu_torch.training.base_runner import BaseRunner
+  seen = {'train': [], 'val': []}
+  train_epoch, validate = BaseRunner.train_epoch, BaseRunner.validate
+
+  def record_train(self, *args, **kwargs):
+    losses, metrics = train_epoch(self, *args, **kwargs)
+    seen['train'].append({k: m.value for k, m in losses.items()})
+    return losses, metrics
+
+  def record_val(self, *args, **kwargs):
+    data, losses, metrics = validate(self, *args, **kwargs)
+    seen['val'].append({k: m.value for k, m in {**losses,
+                                                 **metrics}.items()})
+    return data, losses, metrics
+  BaseRunner.train_epoch, BaseRunner.validate = record_train, record_val
+  try:
+    yield seen
+  finally:
+    BaseRunner.train_epoch, BaseRunner.validate = train_epoch, validate
+
+
+def dist_cli(config, data_dir, run_root, overrides):
+  """The training CLI under ``deterministic()``: (runner, recorded)."""
+  from csmri_refinement_tpu_torch import train
+  with recorded_epochs() as seen, deterministic():
+    runner = train.main([config, '--data-dir', data_dir, '--log-dir',
+                         run_root, '--device', DEVICE, '--conf'] + overrides)
+    sync()
+  return runner, seen
+
+
+def values_rel(got, want):
+  """The largest |Δ| / |ref| over the recorded epochs' values."""
+  worst = 0.0
+  for phase in ('train', 'val'):
+    require(len(got[phase]) == len(want[phase]), 'epochs differ')
+    for g, w in zip(got[phase], want[phase]):
+      require(set(g) == set(w), 'recorded names differ')
+      worst = max([worst] + [abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                             for k in w])
+  return worst
+
+
+def dist_phase(data_dir, work, line):
+  """Phase 22 (a): 1-recnet (B = 20, 2 steps and 2 validation batches) and
+  segmentation (B = 8, 2 steps and 1 validation batch) through the
+  training CLI with a one-rank NCCL group (the ``distributed`` section)
+  and without one; the counters around the group's runs; losses and
+  parameters of the two within ``DIST_REL``; the train step with and
+  without the group in turns. Returns (the launches, the 1-recnet
+  checkpoint of the run without the group)."""
+  import torch.distributed as dist
+  from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
+  from csmri_refinement_tpu_torch.parallel import distributed
+  runs = {}
+  launches = {'k1': 0, 'k1_bwd': 0, 'k2_f32': 0}
+  for label, config, overrides in (('1-recnet', RECNET_CONFIG, DIST_REC),
+                                   ('segmentation', SEG_CONFIG, DIST_SEG)):
+    t0 = time.perf_counter()
+    plain = dist_cli(config, data_dir, os.path.join(work, 'plain_runs'),
+                     overrides)
+    sync()
+    dc_kernel.dc_cuda.launches = dc_kernel.dc_bwd_cuda.launches = 0
+    conv_chain.conv_layer_f32_cuda.launches = 0
+    group = dist_cli(config, data_dir, os.path.join(work, 'group_runs'),
+                     overrides + ['distributed=' + json.dumps(
+                         group_section(free_port()))])
+    k1, k1_bwd = dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches
+    k2 = conv_chain.conv_layer_f32_cuda.launches
+    secs = time.perf_counter() - t0
+    require(not dist.is_initialized(), 'the CLI left its group running')
+    require(group[0].mesh is not None and group[0].mesh.world == 1 and
+            plain[0].mesh is None, 'expected a mesh of one only with the '
+            'group')
+    state, values = state_rel(group[0], plain[0]), values_rel(group[1],
+                                                              plain[1])
+    print('{} CLI with a one-rank NCCL group and without (deterministic): '
+          'parameters within {:.3e} of max|ref|, losses and metrics within '
+          '{:.3e}; K1 {}, K1-bwd {}, K2 f32 {} with the group; {:.1f} s'
+          .format(label, state, values, k1, k1_bwd, k2, secs))
+    require(state <= DIST_REL and values <= DIST_REL,
+            label + ' with the group differs from without')
+    if label == '1-recnet':
+      require((k1, k1_bwd, k2) == (3 * (2 + 2), 3 * 2, 0),
+              'expected 12 K1 and 6 K1-bwd launches')
+    else:
+      require((k1, k1_bwd, k2) == (0, 0, SEG_CHAIN_LAYERS),
+              'expected 18 K2 f32 launches per eval forward')
+    for key, n in zip(('k1', 'k1_bwd', 'k2_f32'), (k1, k1_bwd, k2)):
+      launches[key] += n
+    runs[label] = plain[0]
+  best = glob.glob(os.path.join(work, 'plain_runs', '1-recnet_*',
+                                'best_loss_MSE', '*.ckpt'))
+  require(len(best) == 1, 'expected one 1-recnet checkpoint')
+  dist_timings(data_dir, runs, line)
+  return launches, best[0]
+
+
+def dist_timings(data_dir, runs, line):
+  """Phase 22 (a): ms per train step with the one-rank group (the gradient
+  and loss all-reduces; BatchNorm keeps its local statistics in a world of
+  one) and without, in turns (with, without, without, with)."""
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.parallel import distributed
+  from csmri_refinement_tpu_torch.training import build_runner
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_dict({'distributed': group_section(free_port())})
+  device = distributed.initialize(conf, DEVICE)
+  try:
+    for label, plain in runs.items():
+      conf = copy.deepcopy(plain.conf)
+      grouped = build_runner(conf, conf.runner_type, 'train', device)
+      require(grouped.mesh is not None and grouped.mesh.group is not None,
+              'expected a runner in the group')
+      host = next(iter(DataLoader(load_dataset(conf, data_dir, 'ScarSeg',
+                                               'train'), conf.batch_size)))
+      batch = plain.preparer.prepare_train(
+          torch.Generator(device=DEVICE).manual_seed(SEED), host)
+      ms = {'with': [], 'without': []}
+      for turn in ('with', 'without', 'without', 'with'):
+        runner = grouped if turn == 'with' else plain
+        ms[turn].append(timed_ms(lambda: runner.train_batch(batch), iters=5,
+                                 warmup=2))
+      print('{} train step at {}^2 B{} (TF32 off), one-rank NCCL group: '
+            'with {:.3f} / {:.3f} ms, without {:.3f} / {:.3f} ms ({:+.2f}%) '
+            '({})'.format(label, SCAR_SIZE, conf.batch_size, *ms['with'],
+                          *ms['without'], 100 * (sum(ms['with']) /
+                                                 sum(ms['without']) - 1),
+                          line))
+      del grouped
+  finally:
+    distributed.shutdown()
+
+
+def export_phase(data_dir, work, gan_conf, gan_ckpt, rec_ckpt, line):
+  """Phase 22 (b): the 2-refinement generator (B = 5) and 1-recnet (B =
+  20) through the export CLI with --verify, each artifact replayed on the
+  card and on the CPU in a fresh process that imports no model code;
+  the card replay against ``runner.predict`` within ``REPLAY_REL``, the
+  CPU's against the card's within ``E2E_ATOL`` of max |ref|, the launches
+  of one card replay (K1 3 and K2 f32 10 for the generator, K1 3 for
+  1-recnet), the artifact's KiB and replay ms against predict ms. Returns
+  the launches."""
+  from csmri_refinement_tpu_torch import export_model
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.training import build_runner
+  from csmri_refinement_tpu_torch.utils.checkpoints import restore_checkpoint
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  cases, wants, sizes, predict_ms = [], {}, {}, {}
+  for name, conf_path, ckpt, batch_size, expect in (
+      ('2-refinement', gan_conf, gan_ckpt, GAN_BATCH, (3, 10)),
+      ('1-recnet', RECNET_CONFIG, rec_ckpt, REC_BATCH, (3, 0))):
+    artifact = os.path.join(work, name + '.pt2')
+    t0 = time.perf_counter()
+    rc = export_model.main([conf_path, ckpt, artifact, '-b', str(batch_size),
+                            '--data-dir', data_dir, '--device', DEVICE,
+                            '--verify'])
+    secs = time.perf_counter() - t0
+    require(rc == 0, 'export_model failed for ' + name)
+    sizes[name] = os.path.getsize(artifact) / 1024.0
+    conf = Configuration.from_json(conf_path)
+    runner = build_runner(conf, conf.runner_type, 'test', DEVICE)
+    if ckpt != 'NONE':
+      restore_checkpoint(ckpt, runner)
+    host = next(iter(DataLoader(load_dataset(conf, data_dir, 'ScarSeg',
+                                             'val'), batch_size)))
+    batch = {k: v for k, v in runner.preparer.prepare_val(host).items()
+             if isinstance(v, torch.Tensor)}
+    want = runner.predict(batch)
+    wants[name] = {k: v.cpu() for k, v in want.items()} \
+        if isinstance(want, dict) else {'pred': want.cpu()}
+    predict_ms[name] = timed_ms(lambda: runner.predict(batch), iters=5,
+                                warmup=1)
+    feed = os.path.join(work, name + '_feed.pt')
+    torch.save(batch, feed)
+    cases.append((name, artifact, feed, expect))
+    print('export_model {} at {}^2 B{}: {:.1f} KiB, export and verify in '
+          '{:.1f} s'.format(name, SCAR_SIZE, batch_size, sizes[name], secs))
+    del runner
+  out = os.path.join(work, 'replay.pt')
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [sys.executable, '-c', REPLAY_CODE,
+       json.dumps([c[:3] for c in cases]), out],
+      cwd=REPO, capture_output=True, text=True, timeout=REPLAY_TIMEOUT_S)
+  require(proc.returncode == 0, 'the replay process failed:\n' +
+          proc.stderr[-3000:])
+  replay = torch.load(out)
+  print('replay process: {:.1f} s (host clock)'.format(
+      time.perf_counter() - t0))
+  require(not [m for m in replay['modules'] if m.split('.', 1)[-1].startswith(
+      ('models.recnet', 'models.unet', 'training', 'flagship'))],
+          'the replay imported model code: {}'.format(replay['modules']))
+  launches = {'k1': 0, 'k2_f32': 0}
+  for name, _, _, expect in cases:
+    got, want = replay[name], wants[name]
+    require(sorted(got['card']) == sorted(want), name + ': output keys')
+    card_rel = max(output_rel(got['card'][k], want[k]) for k in want)
+    cpu_rel = max(output_rel(got['cpu'][k], got['card'][k]) for k in want)
+    print('artifact {} replayed on the card: K1 {}, K2 f32 {}; within {:.3e} '
+          'of max|predict| (bar {}), the CPU replay within {:.3e} of the '
+          'card (bar {}); replay {:.3f} ms, predict {:.3f} ms, {:.1f} KiB '
+          '({})'.format(name, *got['launches'], card_rel, REPLAY_REL,
+                        cpu_rel, E2E_ATOL, got['ms'], predict_ms[name],
+                        sizes[name], line))
+    require(tuple(got['launches']) == expect,
+            '{}: expected K1 {} and K2 f32 {} per replay'.format(name,
+                                                                 *expect))
+    require(card_rel <= REPLAY_REL, name + ': replay differs from predict')
+    require(cpu_rel <= E2E_ATOL, name + ': CPU replay differs from card')
+    launches['k1'] += got['launches'][0]
+    launches['k2_f32'] += got['launches'][1]
+  return launches
+
+
+def output_rel(got, ref):
+  """max |got − ref| over max |ref|, or over 1 for an all-zero output (a
+  refinement scale still at 0)."""
+  scale = ref.abs().max().item() or 1.0
+  return (got - ref).abs().max().item() / scale
+
+
+def summarize_phase(csvs):
+  """Phase 22 (c): the port's summarize_results over eval_results CSVs."""
+  import io
+  from csmri_refinement_tpu_torch import summarize_results
+  require(csvs, 'no eval_results CSV to summarize')
+  out = io.StringIO()
+  with contextlib.redirect_stdout(out):
+    summarize_results.main(csvs + ['--metric-name', 'psnr,ssim'])
+  print('summarize_results over {} CSV(s):\n{}'.format(len(csvs),
+                                                       out.getvalue()))
+  require('psnr' in out.getvalue(), 'summarize_results printed no table')
+
+
+def eval_csv(data_dir, ckpt, work):
+  """One eval_results CSV: ``validate --raw`` of ``ckpt`` on 4 validation
+  slices, then ``eval_results`` over the records."""
+  from csmri_refinement_tpu_torch import eval_results, validate
+  res = validate.main([RECNET_CONFIG, ckpt, '--data-dir', data_dir, '-b',
+                       '1', '--raw', '--device', DEVICE, '--out-dir',
+                       os.path.join(work, 'raw'), '--conf',
+                       'num_validation_subset_samples=4'])['ScarSeg']
+  res_dir = os.path.join(work, 'eval')
+  os.makedirs(res_dir)
+  path, _ = eval_results.main([
+      '--src-path', os.path.join(data_dir, 'scar_segmentation'),
+      '--results-path', res_dir, '--device', DEVICE, res['output_dir']])
+  return [path]
+
+
+def dist_export_phase(data_dir, work, gan_conf, gan_ckpt, csvs, line):
+  """Phase 22 on phase 18's tree. Without phase 18's runs (``gan_conf``
+  None: ``--dist-export-only``) the generator is exported from its seeded
+  init on a RecNet from (a)'s checkpoint, and (c) reads the eval_results
+  CSV of (a)'s checkpoint. Returns the launches."""
+  t0 = time.perf_counter()
+  launches, rec_ckpt = dist_phase(data_dir, work, line)
+  if gan_conf is None:
+    with open(os.path.join(REPO, 'configs', '2-refinement.json')) as f:
+      conf_d = json.load(f)
+    conf_d['generator_model']['pretrained_model']['pretrained_weights'] = [
+        rec_ckpt, 'model']
+    gan_conf, gan_ckpt = os.path.join(work, '2-refinement.json'), 'NONE'
+    with open(gan_conf, 'w') as f:
+      json.dump(conf_d, f)
+    csvs = eval_csv(data_dir, rec_ckpt, work)
+  exported = export_phase(data_dir, work, gan_conf, gan_ckpt, rec_ckpt, line)
+  summarize_phase(csvs)
+  print('phase 22: {:.1f} s wall'.format(time.perf_counter() - t0))
+  return {'k1': launches['k1'] + exported['k1'],
+          'k1_bwd': launches['k1_bwd'],
+          'k2_f32': launches['k2_f32'] + exported['k2_f32']}
 
 
 def build_phase(names):
@@ -3538,6 +3903,7 @@ def main(argv=None):
   int8_only_mode = '--int8-only' in argv
   f32_only_mode = '--f32-only' in argv
   scarseg_only = '--scarseg-only' in argv
+  dist_export_only = '--dist-export-only' in argv
   tree = os.path.realpath(argv[argv.index('--tree') + 1]) if '--tree' in \
       argv else REPO
   require(os.path.commonpath([tree, REPO]) == REPO,
@@ -3574,8 +3940,8 @@ def main(argv=None):
     f32_only(P, line)
     return
   build_phase(native.KERNELS)
-  if scarseg_only:     # phases 1, 2 and 18-21 alone
-    print(json.dumps(scarseg_phase(line)))
+  if scarseg_only or dist_export_only:   # phases 1, 2 and 18-22, or 22
+    print(json.dumps(scarseg_phase(line, dist_export_only)))
     return
 
   # Phase 3: DC kernel

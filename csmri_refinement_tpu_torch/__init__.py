@@ -25,6 +25,14 @@ version, a CUDA tensor takes the kernel or raises.
 This package never imports ``jax``, ``flax`` or ``csmri_refinement_tpu``.
 """
 
-from csmri_refinement_tpu_torch.flagship import build_flagship
-
 __all__ = ['build_flagship']
+
+
+def __getattr__(name):
+  # Imported on first use, so that loading a serving artifact
+  # (``utils/export.py``) imports the kernels' op registrations only.
+  if name == 'build_flagship':
+    from csmri_refinement_tpu_torch.flagship import build_flagship
+    return build_flagship
+  raise AttributeError('module {!r} has no attribute {!r}'.format(__name__,
+                                                                  name))

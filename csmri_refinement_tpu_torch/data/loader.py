@@ -11,8 +11,15 @@ there when it returns one. With ``prefetch`` above 1 a producer thread
 prepares up to ``prefetch`` batches ahead of the consumer, so the host's
 work on the next batch overlaps the card's on this one; an exception
 raised while preparing a batch is raised in the consumer at that batch.
-``wait_s`` sums the seconds the consumer spent waiting for batches. The
-multi-process shard is not ported.
+``wait_s`` sums the seconds the consumer spent waiting for batches.
+
+``process_shard=(rank, world)`` is the multi-process data path (JAX
+``loader.py:31-92``): ``batch_size`` stays the global batch size, the
+index stream (shuffle order, epoch boundaries) is the global one on every
+process (same ``seed``), and each process makes only its contiguous
+1/world slice of every batch, so that the slices in rank order are the
+single-process batch. A ragged final batch shrinks to a multiple of world,
+or is dropped when smaller than world; ``__len__`` counts so.
 """
 
 import queue
@@ -33,7 +40,8 @@ class DataLoader:
   """Iterable over batches of a ``SliceDataset``-like dataset."""
 
   def __init__(self, dataset, batch_size, shuffle=False, seed=0,
-               num_workers=0, drop_last=False, prefetch=2, num_samples=None):
+               num_workers=0, drop_last=False, prefetch=2, num_samples=None,
+               process_shard=None):
     self.dataset = dataset
     self.batch_size = batch_size
     self.shuffle = shuffle
@@ -41,6 +49,15 @@ class DataLoader:
     self.drop_last = drop_last
     self.prefetch = max(prefetch, 1)
     self.wait_s = 0.0
+    self.process_shard = process_shard
+    if process_shard is not None:
+      rank, world = process_shard
+      if not 0 <= rank < world:
+        raise ValueError('process_shard {} names no rank of its world'
+                         .format(process_shard))
+      if batch_size % world:
+        raise ValueError('Global batch size {} must divide evenly over {} '
+                         'processes'.format(batch_size, world))
     self._rng = np.random.RandomState(seed)
     if num_samples is not None and num_samples > 0:
       if num_samples > len(dataset):
@@ -54,6 +71,9 @@ class DataLoader:
     n = len(self._indices)
     if self.drop_last:
       return n // self.batch_size
+    if self.process_shard is not None:
+      full, rem = divmod(n, self.batch_size)
+      return full + (1 if rem >= self.process_shard[1] else 0)
     return -(-n // self.batch_size)
 
   def _batch_indices(self):
@@ -64,6 +84,12 @@ class DataLoader:
       chunk = indices[start:start + self.batch_size]
       if self.drop_last and len(chunk) < self.batch_size:
         return
+      if self.process_shard is not None:
+        rank, world = self.process_shard
+        per = len(chunk) // world
+        if per == 0:
+          return      # a final batch smaller than the process count
+        chunk = chunk[rank * per:(rank + 1) * per]
       yield chunk
 
   def _make_batch(self, chunk, pool):

@@ -14,6 +14,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 from scipy.ndimage import gaussian_filter
+from scipy.stats import wilcoxon
 
 from csmri_refinement_tpu_torch.data.io_mat import (CASE_KEY, LABEL_KEY,
                                                     PRED_KEY, SLICE_KEY,
@@ -31,6 +32,17 @@ def _get_index_key(data):
 def psnr(target, pred, data_range):
   mse = np.mean((target.astype(np.float64) - pred.astype(np.float64)) ** 2)
   return 10.0 * np.log10((data_range ** 2) / mse)
+
+
+def complex_psnr(x, y, peak='normalized'):
+  """PSNR of complex arrays: ``'normalized'`` takes a unit peak, ``'max'``
+  the largest |x| (JAX ``:36-45``)."""
+  x = np.asarray(x)
+  y = np.asarray(y)
+  mse = np.mean(np.abs(x - y) ** 2)
+  if peak == 'max':
+    return 10.0 * np.log10(np.max(np.abs(x)) ** 2 / mse)
+  return 10.0 * np.log10(1.0 / mse)
 
 
 def ssim_gaussian(target, pred, data_range, sigma=1.5, truncate=3.5):
@@ -115,3 +127,11 @@ def compute_dice_scores(dataset, num_classes, absent_value=0.0):
           data[LABEL_KEY], data[TARGET_LABEL_KEY], class_idx, absent_value)
   return [('dice_class_{}'.format(c), values)
           for c, values in enumerate(values_per_class)]
+
+
+def compute_wilcoxon(values1, values2):
+  """The Wilcoxon signed-rank test of two paired per-slice results (arrays,
+  or the ``compute_*`` OrderedDicts; JAX ``:139-140``)."""
+  as_array = lambda v: np.asarray(list(v.values()) if isinstance(v, dict)
+                                  else v, np.float64)
+  return wilcoxon(as_array(values1), as_array(values2))

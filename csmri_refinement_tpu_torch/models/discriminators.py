@@ -49,7 +49,10 @@ def _nhwc(x):
 class CNNDiscriminator(nn.Module):
   """``forward(inp, generator=None)``: (B, H, W, num_inputs) → {prob,
   logits[, features]}; ``generator`` draws the dropout decisions in train
-  mode."""
+  mode, of the global batch with ``batch_shard`` (``layers.channel_dropout``,
+  set by a data-parallel runner)."""
+
+  batch_shard = None
 
   def __init__(self, num_inputs, num_filters_per_layer, strides,
                kernel_sizes=None, fc_layers=(), spatial_shape=None,
@@ -177,7 +180,8 @@ class CNNDiscriminator(nn.Module):
       if self.compute_features:
         features.append(_nhwc(x))
       if idx in self.dropout_after:
-        x = channel_dropout(x, self.dropout_prob, self.training, generator)
+        x = channel_dropout(x, self.dropout_prob, self.training, generator,
+                            self.batch_shard)
 
     if self.fc_layers:
       x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)

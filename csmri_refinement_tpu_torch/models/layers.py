@@ -173,14 +173,19 @@ def need_bias(use_norm_layers, norm_layer):
           norm_layer == 'instance')
 
 
-def channel_dropout(x, rate, training, generator=None):
+def channel_dropout(x, rate, training, generator=None, shard=None):
   """``nn.Dropout2d`` on an NCHW map: whole channels of each example are
   zeroed with probability ``rate``, the rest scaled by 1/(1 − rate). The
-  keep decisions come from ``generator`` (on ``x``'s device)."""
+  keep decisions come from ``generator`` (on ``x``'s device). With
+  ``shard=(rank, world)`` (a data-parallel run) the decisions of the
+  global batch are drawn and the rank's rows kept, so that they do not
+  depend on the world."""
   if not training or rate == 0.0:
     return x
-  u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
-                 device=x.device)
+  b = x.shape[0]
+  rank, world = shard or (0, 1)
+  u = torch.rand((b * world, x.shape[1], 1, 1), generator=generator,
+                 device=x.device)[rank * b:(rank + 1) * b]
   keep = u < 1.0 - rate
   return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                          device=x.device))

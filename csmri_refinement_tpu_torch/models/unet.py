@@ -85,11 +85,24 @@ class BatchNorm2d(nn.BatchNorm2d):
   the biased batch variance, as flax's ``BatchNorm`` does (torch takes
   the unbiased one, N/(N−1) times larger). The output is unchanged: both
   normalise with the biased variance. A backward's recompute
-  (``models/remat.py``) leaves the statistics alone."""
+  (``models/remat.py``) leaves the statistics alone.
+
+  With a ``process_group`` (``parallel/mesh.py::sync_batchnorm``) the
+  train-mode statistics are the global batch's, as GSPMD gives the JAX
+  package one logical batch: the per-channel sum, sum of squares and count
+  are all-reduced with autograd (``parallel/mesh.py::all_reduce_sum``), so the
+  gradients reach every rank's rows; the variance is flax's
+  ``E[x²] − E[x]²`` (biased). ``nn.SyncBatchNorm`` would update the
+  running variance with the unbiased one.
+  """
+
+  process_group = None
 
   def forward(self, x):
     if not self.training:
       return super().forward(x)
+    if self.process_group is not None:
+      return self._synced(x)
     if not remat_lib.recomputing():
       with torch.no_grad():
         var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
@@ -98,6 +111,25 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.num_batches_tracked += 1
     return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                         self.eps)
+
+  def _synced(self, x):
+    from csmri_refinement_tpu_torch.parallel.mesh import all_reduce_sum
+    count = torch.full((1,), x.numel() // x.shape[1], dtype=x.dtype,
+                       device=x.device)
+    stats = all_reduce_sum(torch.cat([x.sum((0, 2, 3)),
+                                      (x * x).sum((0, 2, 3)), count]),
+                           self.process_group)
+    c = x.shape[1]
+    mean = stats[:c] / stats[-1]
+    var = (stats[c:2 * c] / stats[-1] - mean * mean).clamp_min(0.0)
+    if not remat_lib.recomputing():
+      with torch.no_grad():
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
+        self.num_batches_tracked += 1
+    view = lambda t: t[None, :, None, None]
+    mul = torch.rsqrt(var + self.eps) * self.weight
+    return (x - view(mean)) * view(mul) + view(self.bias)
 
 
 # Per-axis tap-collapse matrices of the k4 up-conv on the nearest-upsampled

@@ -28,7 +28,9 @@ accumulation and every layer's output rounded to the compute dtype.
   kernel writes the padded output and the wrapper keeps its first Cout
   channels. ``conv_route`` names the route a layer takes, decided by its
   shape.
-* ``conv_layer`` — the device dispatch: CPU → plain, CUDA → kernel or raise.
+* ``conv_layer`` — the device dispatch: CPU → plain, CUDA → kernel or raise;
+  without a gradient through the custom ops ``csmri::conv_bf16`` and
+  ``csmri::conv_f32`` (below).
 
 The JAX kernel's Mosaic layout (pixel groups, block-Toeplitz weights, lane
 rolls, guard rows) is TPU-specific and not carried over; neither are its
@@ -52,7 +54,17 @@ through ``ops/quantize.py::chain_forward_int8``) is the kernel of
   requant kernels, each counting its launches in ``.launches``. The conv
   is an s8 ``wgmma`` implicit GEMM on weights packed K-major by
   ``pack_weights_int8`` (layout ``gemm_layout_int8``).
-* ``fused_conv_chain_int8`` — a quantized chain, layer by layer.
+* ``fused_conv_chain_int8`` — a quantized chain, layer by layer, through
+  the custom ops ``csmri::conv_int8`` and ``csmri::requant``.
+
+Each serving kernel is a ``torch.library`` custom op: its CPU
+implementation is the plain version, its CUDA one the wrapper (looked up
+by its module-level name at each call, so that its launch count and a
+recording replacement see every launch), and a fake implementation gives
+``torch.export`` the output's shape and dtype. Ops take tensors and
+scalars, so a ``ChainLayer`` is passed as its fields. The ctypes launch is
+opaque to ``torch.export``; the ops are what lets a serving artifact's
+graph hold the kernels (``utils/export.py``).
 * ``int8_suffix_start`` — which layers of a chain are quantized. The JAX
   package quantizes only the suffix its Pallas kernel packs
   (``layer_fusable``) and fits in VMEM; that choice changes the output, so
@@ -61,7 +73,7 @@ through ``ops/quantize.py::chain_forward_int8``) is the kernel of
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -322,8 +334,50 @@ def conv_layer_cuda(x, layer, pad_mode='reflection'):
 conv_layer_cuda.launches = 0
 
 
+def _layer_args(layer):
+  return (layer.kernel, layer.bias,
+          None if layer.leakiness is None else float(layer.leakiness))
+
+
+def _define_conv_op(name, dtype):
+  """``csmri::<name>``: one float layer of ``dtype`` (K2)."""
+
+  @torch.library.custom_op('csmri::' + name, mutates_args=(),
+                           device_types='cpu')
+  def op(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+         leakiness: Optional[float], pad_mode: str) -> torch.Tensor:
+    return conv_layer_plain(x, ChainLayer(kernel, bias, leakiness), pad_mode)
+
+  @op.register_kernel('cuda')
+  def _(x, kernel, bias, leakiness, pad_mode):
+    if x.dtype != dtype:
+      raise ValueError('csmri::{} takes {}, got {}'.format(name, dtype,
+                                                          x.dtype))
+    return conv_layer_cuda(x, ChainLayer(kernel, bias, leakiness), pad_mode)
+
+  @op.register_fake
+  def _(x, kernel, bias, leakiness, pad_mode):
+    return x.new_empty(tuple(x.shape[:3]) + (kernel.shape[3],))
+
+  return op
+
+
+conv_bf16_op = _define_conv_op('conv_bf16', torch.bfloat16)
+conv_f32_op = _define_conv_op('conv_f32', torch.float32)
+_CONV_OPS = {torch.bfloat16: conv_bf16_op, torch.float32: conv_f32_op}
+
+
+def _needs_grad(*tensors):
+  return torch.is_grad_enabled() and any(
+      t is not None and t.requires_grad for t in tensors)
+
+
 def conv_layer(x, layer, pad_mode='reflection'):
-  """One chain layer: the kernel on CUDA, the plain version on CPU."""
+  """One chain layer: the kernel on CUDA, the plain version on CPU;
+  without a gradient, through its custom op."""
+  op = _CONV_OPS.get(x.dtype)
+  if op is not None and not _needs_grad(x, layer.kernel, layer.bias):
+    return op(x, *_layer_args(layer), pad_mode)
   if x.device.type == 'cpu':
     return conv_layer_plain(x, layer, pad_mode)
   return conv_layer_cuda(x, layer, pad_mode)
@@ -608,17 +662,71 @@ def requant_cuda(y, amax):
 requant_cuda.launches = 0
 
 
+@torch.library.custom_op('csmri::conv_int8', mutates_args=(),
+                         device_types='cpu')
+def conv_int8_op(x: torch.Tensor, act_scale: torch.Tensor,
+                 kernel: torch.Tensor, w_scale: torch.Tensor,
+                 bias: Optional[torch.Tensor], leakiness: Optional[float],
+                 pad_mode: str, out_dtype: torch.dtype,
+                 want_amax: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+  """K3: the plain version on the CPU; ``(y, amax)``, amax empty unless
+  ``want_amax``."""
+  y, amax = conv_layer_int8_plain(
+      x, act_scale, ChainLayer(kernel, bias, leakiness, w_scale), pad_mode,
+      out_dtype, want_amax)
+  return y, amax if want_amax else act_scale.new_empty(0)
+
+
+@conv_int8_op.register_kernel('cuda')
+def _conv_int8_op_cuda(x, act_scale, kernel, w_scale, bias, leakiness,
+                       pad_mode, out_dtype, want_amax):
+  y, amax = conv_layer_int8_cuda(
+      x, act_scale, ChainLayer(kernel, bias, leakiness, w_scale), pad_mode,
+      out_dtype, want_amax)
+  return y, amax if want_amax else act_scale.new_empty(0)
+
+
+@conv_int8_op.register_fake
+def _conv_int8_op_fake(x, act_scale, kernel, w_scale, bias, leakiness,
+                       pad_mode, out_dtype, want_amax):
+  y = x.new_empty(tuple(x.shape[:3]) + (kernel.shape[3],), dtype=out_dtype)
+  return y, x.new_empty((x.shape[0] if want_amax else 0,),
+                        dtype=torch.float32)
+
+
+@torch.library.custom_op('csmri::requant', mutates_args=(),
+                         device_types='cpu')
+def requant_op(y: torch.Tensor,
+               amax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The requant kernel: the plain version on the CPU."""
+  return requant_plain(y, amax)
+
+
+@requant_op.register_kernel('cuda')
+def _requant_op_cuda(y, amax):
+  return requant_cuda(y, amax)
+
+
+@requant_op.register_fake
+def _requant_op_fake(y, amax):
+  return (y.new_empty(y.shape, dtype=torch.int8),
+          amax.new_empty(amax.shape, dtype=torch.float32))
+
+
 def conv_layer_int8(x, act_scale, layer, pad_mode='reflection',
                     out_dtype=torch.float32, want_amax=False):
-  """One quantized layer: the kernel on CUDA, the plain version on CPU."""
-  fn = conv_layer_int8_plain if x.device.type == 'cpu' else \
-      conv_layer_int8_cuda
-  return fn(x, act_scale, layer, pad_mode, out_dtype, want_amax)
+  """One quantized layer through ``csmri::conv_int8``: the kernel on CUDA,
+  the plain version on CPU."""
+  kernel, bias, leakiness = _layer_args(layer)
+  y, amax = conv_int8_op(x, act_scale, kernel, layer.w_scale, bias,
+                         leakiness, pad_mode, out_dtype, want_amax)
+  return y, amax if want_amax else None
 
 
 def requant(y, amax):
-  """Requantize for the next layer: the kernel on CUDA, plain on CPU."""
-  return (requant_plain if y.device.type == 'cpu' else requant_cuda)(y, amax)
+  """Requantize for the next layer through ``csmri::requant``: the kernel
+  on CUDA, plain on CPU."""
+  return requant_op(y, amax)
 
 
 def fused_conv_chain_int8(x_int8, act_scale, qlayers, pad_mode='reflection',

@@ -21,8 +21,15 @@ on packed ``(B, H, W, 2)`` float32 images, ``(B, H, W, 1)`` float32 masks.
 * ``_DCFunction`` — the ``torch.autograd.Function``: forward K1, backward
   K1-bwd; ``grad_k0`` only when k0 needs it, by ``torch.fft.fft2`` (the JAX
   package computes it outside Pallas too); the mask gets none.
-* ``dc_fused`` — the device dispatch: a CPU tensor takes ``dc_plain``
-  (autodiffed ``torch.fft``); a CUDA tensor the kernels.
+* ``dc_op`` — K1 as the custom op ``csmri::dc`` (``torch.library``): its
+  CPU implementation is ``dc_plain``, its CUDA one ``dc_cuda`` (looked up
+  by its module-level name at each call, so the launch count and a
+  recording replacement see every launch); a fake implementation gives
+  ``torch.export`` its shape, so that a serving artifact's graph holds the
+  kernel (``utils/export.py``).
+* ``dc_fused`` — the device dispatch: where a gradient is needed, a CPU
+  tensor takes ``dc_plain`` (autodiffed ``torch.fft``) and a CUDA tensor
+  ``_DCFunction``; elsewhere (evaluation, a frozen network) the custom op.
 
 The kernel takes images of sides 2 to 512, by the route ``dc_route`` names
 by shape: square power-of-two sides by mixed-radix line FFTs
@@ -226,9 +233,32 @@ class _DCFunction(torch.autograd.Function):
     return grad_x, grad_k0, None
 
 
+@torch.library.custom_op('csmri::dc', mutates_args=(), device_types='cpu')
+def dc_op(x: torch.Tensor, k0: torch.Tensor,
+          mask: torch.Tensor) -> torch.Tensor:
+  """K1 without a gradient: the plain version on the CPU."""
+  return dc_plain(x, k0, mask)
+
+
+@dc_op.register_kernel('cuda')
+def _dc_op_cuda(x, k0, mask):
+  return dc_cuda(x, k0, mask)
+
+
+@dc_op.register_fake
+def _dc_op_fake(x, k0, mask):
+  return torch.empty(x.shape, dtype=torch.float32, device=x.device)
+
+
+def _needs_grad(*tensors):
+  return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def dc_fused(x, k0, mask):
   """DC on packed tensors: the kernels (forward and backward) on CUDA, the
-  autodiffed plain version on CPU."""
+  autodiffed plain version on CPU; without a gradient, ``csmri::dc``."""
+  if not _needs_grad(x, k0):
+    return torch.ops.csmri.dc(x, k0, mask)
   if x.device.type == 'cpu':
     return dc_plain(x, k0, mask)
   return _DCFunction.apply(x, k0, mask)

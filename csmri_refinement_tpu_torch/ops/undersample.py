@@ -13,17 +13,27 @@ from csmri_refinement_tpu_torch.ops import fft
 from csmri_refinement_tpu_torch.ops import masks as mask_ops
 
 
-def undersample(x, mask, generator=None, noise=0.0):
+def shard_rows(draw, shape, shard):
+  """``draw(shape)`` of the global batch cut to the rank's rows of
+  ``shard=(rank, world)`` (``shape`` the rank's own)."""
+  rank, world = shard or (0, 1)
+  b = shape[0]
+  return draw((b * world,) + tuple(shape[1:]))[rank * b:(rank + 1) * b]
+
+
+def undersample(x, mask, generator=None, noise=0.0, shard=None):
   """Undersample complex image(s) ``x`` (..., H, W) with k-space ``mask``.
 
   ``noise`` > 0 adds complex AWGN of that power (fraction of peak signal),
-  drawn from ``generator``. Returns (x_und, k_und), both complex.
+  drawn from ``generator`` (for the global batch, kept for the rank's rows,
+  with ``shard``). Returns (x_und, k_und), both complex.
   """
   k = fft.fft2(x)
   if noise and generator is not None:
     shape = tuple(x.shape)
-    nr = torch.randn(shape, generator=generator, device=x.device)
-    ni = torch.randn(shape, generator=generator, device=x.device)
+    randn = lambda s: torch.randn(s, generator=generator, device=x.device)
+    nr = shard_rows(randn, shape, shard)
+    ni = shard_rows(randn, shape, shard)
     nz = math.sqrt(0.5) * torch.complex(nr, ni)
     # ortho-norm multiplicative factor
     k = k + nz * math.sqrt(noise) * math.sqrt(shape[-2] * shape[-1])
@@ -34,13 +44,16 @@ def undersample(x, mask, generator=None, noise=0.0):
 
 def undersample_batch(generator, gt, sampling_scheme='varden',
                       acceleration_factor=8, variable_acceleration=False,
-                      noise=0.0, fixed_mask=None):
+                      noise=0.0, fixed_mask=None, shard=None):
   """Forward model for a batch of ground-truth slices.
 
   generator : torch.Generator on ``gt.device`` (masks and noise); may be
     None with ``fixed_mask`` and no noise
   gt : float (B, H, W) or (B, H, W, 1) — real slices in (0, 1)
   fixed_mask : optional (B, H, W) mask used instead of drawing one
+  shard : ``(rank, world)`` of a data-parallel run: masks and noise are
+    drawn for the global batch of ``B · world`` slices and the rank's
+    rows kept, so that the draws do not depend on the world
 
   Returns NHWC float32 tensors:
     inp (B, H, W, 2), kspace (B, H, W, 2), mask (B, H, W, 1),
@@ -53,14 +66,15 @@ def undersample_batch(generator, gt, sampling_scheme='varden',
   if fixed_mask is not None:
     mask = torch.as_tensor(fixed_mask, dtype=torch.float32, device=gt.device)
   else:
-    mask = mask_ops.make_masks(generator, batch, height, width,
-                               sampling_scheme=sampling_scheme,
-                               acceleration_factor=acceleration_factor,
-                               variable_acceleration=variable_acceleration,
-                               device=gt.device)
+    mask = shard_rows(lambda s: mask_ops.make_masks(
+        generator, s[0], height, width, sampling_scheme=sampling_scheme,
+        acceleration_factor=acceleration_factor,
+        variable_acceleration=variable_acceleration, device=gt.device),
+                 gt.shape, shard)
 
   x = gt.to(torch.complex64)
-  x_und, k_und = undersample(x, mask, generator=generator, noise=noise)
+  x_und, k_und = undersample(x, mask, generator=generator, noise=noise,
+                             shard=shard)
   return {
       'inp': fft.pack_complex(x_und),
       'kspace': fft.pack_complex(k_und),

@@ -27,7 +27,23 @@ checkpoint for the next one and exit status 0 (``utils/preemption.py``).
 ``-p`` prints the runner's networks; ``--print-parameters`` their
 parameters under the flax names (``utils/diagnostics.py``);
 ``--profile-dir`` writes a ``torch.profiler`` trace of the training
-(``utils/profiling.py``). Multi-host runs are not ported.
+(``utils/profiling.py``).
+
+Data-parallel runs, one process per card (JAX ``train.py:90``,
+``:335-338``, ``:401-424``): ``parallel.distributed.initialize`` starts the
+process group from the config's ``distributed`` section, the JAX cluster
+environment or torchrun's before the runner is built, e.g.
+
+    torchrun --nproc-per-node 4 -m csmri_refinement_tpu_torch.train CONFIG
+
+or on the CPU, one gloo process per rank with ``--device cpu`` and
+``distributed={"coordinator_address": "127.0.0.1:PORT", "num_processes":
+2, "process_id": R}``. Both loaders then take the process's slice of
+every global batch (``process_shard``; ``batch_size`` stays global), the
+runner averages gradients and losses and gathers the validation data, and
+only rank 0 writes the run dir, its log file, summaries and checkpoints. A
+SIGTERM on any rank stops every rank after the epoch, rank 0 saving once.
+The group is destroyed at exit.
 """
 
 import argparse
@@ -42,6 +58,7 @@ import numpy as np
 import torch
 
 from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+from csmri_refinement_tpu_torch.parallel import distributed
 from csmri_refinement_tpu_torch.training import build_runner
 from csmri_refinement_tpu_torch.training.early_stopping import EarlyStopper
 from csmri_refinement_tpu_torch.utils.checkpoint_paths import (
@@ -96,7 +113,27 @@ def _parser():
   return parser
 
 
+def _rank_zero():
+  """Rank 0 writes (the state is the same on every rank)."""
+  return not torch.distributed.is_initialized() or \
+      torch.distributed.get_rank() == 0
+
+
+def _stop_requested(runner):
+  """A preemption notice on any rank, so that every rank stops at the same
+  epoch."""
+  requested = preemption.requested()
+  if runner.mesh is None or runner.mesh.group is None:
+    return requested
+  flag = torch.tensor([float(requested)], device=runner.device)
+  torch.distributed.all_reduce(flag, torch.distributed.ReduceOp.MAX,
+                               group=runner.mesh.group)
+  return bool(flag.item())
+
+
 def _save(path, keep, conf, runner, epoch, best_val_metrics):
+  if not _rank_zero():
+    return
   if not os.path.isdir(os.path.dirname(path)):
     logging.warning('Skip saving checkpoint: %s does not exist',
                     os.path.dirname(path))
@@ -287,7 +324,7 @@ def train_net(conf, runner, train_loader, val_loader, chkpt_metric_dirs=None,
     if saved_this_epoch:
       save_periodic_checkpoint(conf, runner, epoch + 1, best_val_metrics)
 
-    if preemption.requested():
+    if _stop_requested(runner):
       logging.info('Preemption: stopping after epoch %d (resume with '
                    '--resume to continue at epoch %d)', epoch, epoch + 1)
       if not saved_this_epoch:
@@ -317,6 +354,18 @@ def main(argv):
   conf = Configuration.from_json(args.config)
   if args.conf:
     conf.update(dict(arg.split('=', 1) for arg in args.conf))
+  started = not torch.distributed.is_initialized()
+  device = distributed.initialize(conf, args.device)
+  try:
+    return _main(args, argv, conf, device)
+  finally:
+    if started:
+      distributed.shutdown()
+
+
+def _main(args, argv, conf, device):
+  writer = _rank_zero()
+  dry = args.dry or not writer
 
   if args.run_dir:
     conf.run_dir = args.run_dir
@@ -326,18 +375,18 @@ def main(argv):
     conf.run_dir = get_run_dir(args.log_dir,
                                conf.get_attr('run_name',
                                              default='unnamed_run'))
-  setup_logging(None if args.dry else conf.run_dir, 'train',
+  setup_logging(None if dry else conf.run_dir, 'train',
                 get_time_string(), verbose=args.verbose)
   logging.info('Commandline arguments: %s', ' '.join(argv))
-  if not args.dry:
+  if not dry:
     os.makedirs(conf.run_dir, exist_ok=True)
     logging.info('This run is saved to: %s', conf.run_dir)
     conf.serialize(get_config_path(conf.run_dir))
   if args.verbose:
     logging.debug(str(conf))
 
-  runner = build_runner(conf, conf.runner_type, 'train', args.device)
-  if args.print_model:
+  runner = build_runner(conf, conf.runner_type, 'train', device)
+  if args.print_model and writer:
     print(str(runner))
   restore_state = None
   if args.resume:
@@ -349,17 +398,19 @@ def main(argv):
 
   summary_writer = None
   if conf.get_attr('use_tensorboard', default=DEFAULT_USE_TENSORBOARD) and \
-      not args.dry:
+      not dry:
     summary_writer = _summary_writer(conf.run_dir)
 
   num_workers = conf.get_attr('num_data_workers', default=DEFAULT_NUM_WORKERS)
+  shard = None if runner.mesh is None else runner.mesh.shard
   train_dataset = load_dataset(
       conf, args.data_dir,
       conf.get_attr('train_dataset', alternative='dataset'), 'train')
   train_loader = DataLoader(
       train_dataset, conf.batch_size, shuffle=True, seed=conf.seed,
       num_workers=num_workers,
-      num_samples=conf.get_attr('num_train_subset_samples'))
+      num_samples=conf.get_attr('num_train_subset_samples'),
+      process_shard=shard)
   val_dataset = load_dataset(
       conf, args.data_dir,
       conf.get_attr('validation_dataset', alternative='dataset'), 'val')
@@ -367,25 +418,26 @@ def main(argv):
       val_dataset,
       conf.get_attr('validation_batch_size', default=conf.batch_size),
       num_workers=num_workers,
-      num_samples=conf.get_attr('num_validation_subset_samples'))
+      num_samples=conf.get_attr('num_validation_subset_samples'),
+      process_shard=shard)
 
   chkpt_metrics = conf.get_attr(
       'validation_checkpoint_metrics',
       default=conf.get_attr('best_checkpoint_metrics', default=[]))
   chkpt_metric_dirs = {metric: os.path.join(conf.run_dir, 'best_' + metric)
                        for metric in chkpt_metrics}
-  if not args.dry:
+  if not dry:
     for metric_dir in chkpt_metric_dirs.values():
       os.makedirs(metric_dir, exist_ok=True)
 
-  if args.print_parameters:
+  if args.print_parameters and writer:
     print_model_parameters(runner)
   preemption.install()
 
   logging.info('Starting training run of %s epochs on %s', conf.num_epochs,
                runner.device)
   try:
-    with trace(args.profile_dir):
+    with trace(args.profile_dir if writer else None):
       train_net(conf, runner, train_loader, val_loader, chkpt_metric_dirs,
                 restore_state, summary_writer, build_early_stoppers(conf),
                 args.verbose)

@@ -50,6 +50,15 @@ masks replayed from the same generator state. ``steps_per_fetch`` = k runs
 k full D-then-G updates per fetch, when ``updates_per_step`` is 1 on both
 optimizers, the generator is enabled and the preparer is ``device_pure``
 (not with radial masks; JAX ``:540-548``).
+
+In a data-parallel run (``base_runner``'s docstring) both networks'
+gradients are averaged over the group in one all-reduce before the
+optimizer steps, and the image pool sees the global batch: the detached
+fakes are gathered in rank order, every rank queries its own copy of the
+pool with the same decisions (the pool generator is seeded alike) and keeps
+its rows, so that the pools stay equal to each other and to a single
+process's. The discriminator's dropout decisions are drawn for the global
+batch (``batch_shard``).
 """
 
 import logging
@@ -64,6 +73,7 @@ from csmri_refinement_tpu_torch.models import (construct_model,
 from csmri_refinement_tpu_torch.models.adversarial_loss import (
     FeatureMatchingLoss)
 from csmri_refinement_tpu_torch.models.criteria import get_criterion
+from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 from csmri_refinement_tpu_torch.training.adversarial_training import (
     get_discriminator_input_fn)
 from csmri_refinement_tpu_torch.training.base_runner import (
@@ -94,10 +104,11 @@ def _get_pretraining_schedule(epochs):
   return tuple(epochs)
 
 
-def _loss_metrics(updates):
-  """{name: MinMetric} of the updates' mean losses, in one host fetch."""
+def _loss_metrics(updates, mesh=None):
+  """{name: MinMetric} of the updates' mean losses (over the mesh's ranks
+  too), in one host fetch."""
   return {name: get_loss_metric(value)
-          for name, value in mean_losses(updates).items()}
+          for name, value in mean_losses(updates, mesh).items()}
 
 
 def _weighted(losses, weights):
@@ -142,6 +153,9 @@ class AdversarialRunner(BaseRunner):
     self.train_remat = False
     if mode == 'train':
       self._build_training(conf)
+      self._setup_mesh(self.preparer, self.gen, self.disc)
+      if self.mesh is not None:
+        self.disc.batch_shard = self.mesh.shard
 
   def _build_training(self, conf):
     self.steps_per_fetch = conf.get_attr('steps_per_fetch', default=1)
@@ -259,15 +273,16 @@ class AdversarialRunner(BaseRunner):
       fake_in = self.disc_input_fn(
           out_gen_d, is_real_input=False, detach=True,
           pool=self._pool_for(out_gen_d),
-          generator=self.pool_generator)
+          generator=self.pool_generator, mesh=self.mesh)
       out_fake = self._disc(fake_in)
       out_real = self._disc(self.disc_input_fn(
           batch['target'], is_real_input=True, detach=True))
       dlosses = {name: crit(out_fake, out_real)
                  for name, crit in self.disc_adv_criteria.items()}
       d_total = _weighted(dlosses, self.disc_loss_weights)
-      d_grads = torch.autograd.grad(d_total, self.disc_params,
-                                    allow_unused=True, materialize_grads=True)
+      d_grads = list(torch.autograd.grad(
+          d_total, self.disc_params, allow_unused=True,
+          materialize_grads=True))
       losses.update(('disc_loss_' + n, v.detach()) for n, v in dlosses.items())
       losses['disc_loss'] = d_total.detach()
 
@@ -285,11 +300,14 @@ class AdversarialRunner(BaseRunner):
       glosses.update((name, crit(out_gen, batch))
                      for name, crit in self.gen_criteria.items())
       g_total = _weighted(glosses, self.gen_loss_weights)
-      g_grads = torch.autograd.grad(g_total, self.gen_params,
-                                    allow_unused=True, materialize_grads=True)
+      g_grads = list(torch.autograd.grad(
+          g_total, self.gen_params, allow_unused=True,
+          materialize_grads=True))
       losses.update(('gen_loss_' + n, v.detach()) for n, v in glosses.items())
       losses['gen_loss'] = g_total.detach()
 
+    mesh_lib.average_((d_grads if update_disc else []) +
+                      (g_grads if update_gen else []), self.mesh)
     if update_disc:
       for p, g in zip(self.disc_params, d_grads):
         p.grad = g
@@ -320,7 +338,7 @@ class AdversarialRunner(BaseRunner):
         updates.append(losses)
       if k > 1:
         data = None
-      return len(host_batches), _loss_metrics(updates), data
+      return len(host_batches), _loss_metrics(updates, self.mesh), data
 
     # Several updates per step (JAX :540-587): max(gen, disc) batches,
     # the discriminator's updates first, then the generator's.
@@ -344,7 +362,7 @@ class AdversarialRunner(BaseRunner):
                   for b in batches[:self.gen_updates_per_step]]
     for host_batch, update_gen, update_disc in updates:
       losses, data = self._update(host_batch, update_gen, update_disc)
-      for name, metric in _loss_metrics([losses]).items():
+      for name, metric in _loss_metrics([losses], self.mesh).items():
         accumulate_metric(loss_metrics, name, metric)
     return len(batches), {name: metric.average()
                           for name, metric in loss_metrics.items()}, data
@@ -364,7 +382,8 @@ class AdversarialRunner(BaseRunner):
             batch['target'], is_real_input=True, detach=True)))
       losses = {'gen_loss_' + name: crit(out_gen, batch)
                 for name, crit in self.gen_criteria.items()}
-    return _loss_metrics([losses]), (batch, out_gen, out_fake, out_real)
+    return _loss_metrics([losses], self.mesh), (batch, out_gen, out_fake,
+                                                out_real)
 
   def predict(self, batch):
     """The generator's eval-mode output on a prepared batch, in full
@@ -372,6 +391,10 @@ class AdversarialRunner(BaseRunner):
     self.gen.eval()
     with torch.no_grad(), full_f32():
       return self.gen(*self._gen_inputs(batch))
+
+  def export_predict_parts(self):
+    """(network, input keys) of ``predict``, for ``utils/export.py``."""
+    return self.gen, self.gen_input_keys
 
   def get_named_outputs(self, data):
     """The base runner's names, and ``disc_fake`` (None without a
@@ -396,7 +419,11 @@ class AdversarialRunner(BaseRunner):
     return metrics
 
   def _compute_train_metrics(self, data):
-    return self._metrics(data, self.train_gen_metric_fns,
+    if data is None or not (self.train_gen_metric_fns or
+                            self.train_disc_metric_fns):
+      return {}
+    return self._metrics(mesh_lib.gather_to_replicated(data, self.mesh),
+                         self.train_gen_metric_fns,
                          self.train_disc_metric_fns)
 
   def _compute_test_metrics(self, data):

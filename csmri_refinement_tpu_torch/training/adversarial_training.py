@@ -5,19 +5,24 @@ prediction (or the target) to the discriminator's input with the methods
 ``simple`` and ``simple-magnitude`` (packed complex → magnitude,
 ``ops/fft.complex_abs``: gradient 0 at an exact zero) and optional
 per-example mean/std normalisation. A detached input goes through the image
-pool when it is a fake (or any input with ``image_pool_label_swapping``).
-The reference's conditional-input and background-stripping keys change no
-input of these methods and are refused.
+pool when it is a fake (or any input with ``image_pool_label_swapping``);
+in a data-parallel run the pool sees the global batch (the rank's rows
+gathered in rank order, queried, the rank's rows kept).
+
+``strip_bg_class`` drops channel 0 (the background class) of the
+prediction first. The conditional-input keys are taken as the JAX package
+takes them (``:58-125``): ``conditional_input_source`` must be ``'input'``
+or ``'generator'``, and it, ``conditional_input_generator_key`` and
+``scale_input_zero_one`` change no input of the two methods, which do not
+consume the conditional input (JAX computes it and drops it, ``:89``).
 """
 
 import torch
 
 from csmri_refinement_tpu_torch.ops import fft
+from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 
 DEFAULT_INPUT_METHOD = 'simple'
-UNSUPPORTED_KEYS = ('conditional_input_source',
-                    'conditional_input_generator_key', 'strip_bg_class',
-                    'scale_input_zero_one')
 
 
 def _normalize_per_example(x):
@@ -31,13 +36,22 @@ def _normalize_per_example(x):
 
 class DiscriminatorInputFn:
   """``fn(prediction_or_target, is_real_input, detach, pool=None,
-  generator=None)`` → the discriminator's input."""
+  generator=None, mesh=None)`` → the discriminator's input."""
 
   def __init__(self, method, normalize=False, use_pool=False,
-               pool_sample_prob=0.5, pool_label_swapping=False):
+               pool_sample_prob=0.5, pool_label_swapping=False,
+               strip_bg_class=False, cond_input_source='input',
+               cond_input_gen_key=None, scale_input_to_zero_one=False):
     if method not in ('simple', 'simple-magnitude'):
       raise ValueError('Unknown discriminator input method {}'.format(method))
+    if cond_input_source not in ('input', 'generator'):
+      raise ValueError('Unknown conditional input source {!r}'.format(
+          cond_input_source))
     self.method = method
+    self.strip_bg_class = strip_bg_class
+    self.cond_input_source = cond_input_source
+    self.cond_input_gen_key = cond_input_gen_key
+    self.scale_input_to_zero_one = scale_input_to_zero_one
     self.normalize = normalize
     self.use_pool = use_pool
     self.pool_sample_prob = pool_sample_prob
@@ -46,6 +60,8 @@ class DiscriminatorInputFn:
   def build(self, prediction_or_target):
     prediction = prediction_or_target['pred'] \
         if isinstance(prediction_or_target, dict) else prediction_or_target
+    if self.strip_bg_class:
+      prediction = prediction[..., 1:]
     if self.method == 'simple-magnitude':
       prediction = fft.complex_abs(prediction)
     if self.normalize:
@@ -53,25 +69,27 @@ class DiscriminatorInputFn:
     return prediction
 
   def __call__(self, prediction_or_target, is_real_input, detach, pool=None,
-               generator=None):
+               generator=None, mesh=None):
     disc_input = self.build(prediction_or_target)
     if detach:
       disc_input = disc_input.detach()
       if self.use_pool and pool is not None and \
           (not is_real_input or self.pool_label_swapping):
-        disc_input = pool.query(disc_input, generator, self.pool_sample_prob)
+        queried = pool.query(mesh_lib.gather_to_replicated(disc_input, mesh),
+                             generator, self.pool_sample_prob)
+        disc_input = mesh_lib.shard_batch(queried, mesh)
     return disc_input
 
 
 def get_discriminator_input_fn(disc_conf, no_pool=False):
   """From a discriminator section (a dict)."""
-  unsupported = [k for k in UNSUPPORTED_KEYS if k in disc_conf]
-  if unsupported:
-    raise NotImplementedError(
-        'discriminator_model keys {} are not supported'.format(unsupported))
   return DiscriminatorInputFn(
       method=disc_conf.get('input_method', DEFAULT_INPUT_METHOD),
       normalize=disc_conf.get('normalize_input', False),
       use_pool=disc_conf.get('use_image_pool', False) and not no_pool,
       pool_sample_prob=disc_conf.get('image_pool_sample_prob', 0.5),
-      pool_label_swapping=disc_conf.get('image_pool_label_swapping', False))
+      pool_label_swapping=disc_conf.get('image_pool_label_swapping', False),
+      strip_bg_class=disc_conf.get('strip_bg_class', False),
+      cond_input_source=disc_conf.get('conditional_input_source', 'input'),
+      cond_input_gen_key=disc_conf.get('conditional_input_generator_key'),
+      scale_input_to_zero_one=disc_conf.get('scale_input_zero_one', False))

@@ -14,6 +14,20 @@ summary writer
 ``train/<name>`` scalars at the JAX package's global step, ``n · (epoch −
 1) + batch`` for n batches per epoch; they are the values the step already
 fetched for its log line.
+
+Data parallelism (``parallel/``): a runner of mode ``'train'`` takes the
+run's mesh (``mesh_from_conf``: a process group started by
+``parallel.distributed.initialize``, or a ``mesh`` section). Each process
+then trains on its rows of every global batch: the runner averages the
+gradients over the group before each optimizer step (``average_gradients``:
+one flat all-reduce, not ``DistributedDataParallel``, which refuses the
+GAN step's discriminator called on fakes and reals before one backward),
+averages the fetched losses (``mean_losses``), gathers the train and
+validation data before the metrics (``gather_to_replicated``), so that
+every rank logs and checks the global batch's numbers, and its BatchNorm
+layers take the global batch's statistics. Every loss of the port is a mean
+over equally many rows per rank, so the mean of the ranks' losses (and of
+their gradients) is the global batch's.
 """
 
 import logging
@@ -24,6 +38,7 @@ import torch
 from csmri_refinement_tpu_torch.data.transform_wrappers import (
     get_output_transform)
 from csmri_refinement_tpu_torch.metrics import accumulate_metric
+from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 
 
 def _map(fn, tree):
@@ -52,15 +67,17 @@ def to_host(tree):
               tree)
 
 
-def mean_losses(updates):
+def mean_losses(updates, mesh=None):
   """{name: float} of a list of updates' loss dicts (the same names in
-  each), each loss's mean over the updates, in one host fetch."""
+  each), each loss's mean over the updates and the mesh's ranks, in one
+  host fetch."""
   if not updates or not updates[0]:
     return {}
   names = list(updates[0])
   values = torch.stack([torch.stack([u[n].float() for n in names])
-                        for u in updates]).mean(0).tolist()
-  return dict(zip(names, values))
+                        for u in updates])
+  mesh_lib.average_([values], mesh)
+  return dict(zip(names, values.mean(0).tolist()))
 
 
 class BaseRunner:
@@ -72,6 +89,21 @@ class BaseRunner:
     self.output_transform = get_output_transform(
         conf.get_attr('application', default='reconstruction'))
     self._pending_host_batch = None
+    self.mesh = None
+
+  def _setup_mesh(self, preparer, *models):
+    """Take the run's mesh in mode 'train': the models' states broadcast
+    from rank 0, their BatchNorm statistics over the group, the preparer's
+    draws sharded."""
+    if self.mode != 'train':
+      return
+    self.mesh = mesh_lib.mesh_from_conf(self.conf, self.device)
+    if self.mesh is None:
+      return
+    for model in models:
+      mesh_lib.replicate(model, self.mesh)
+      mesh_lib.sync_batchnorm(model, self.mesh)
+    preparer.shard = self.mesh.shard
 
   def _train_dtype(self, section):
     """A model section with the run's ``train_dtype`` as its ``dtype``, in
@@ -180,6 +212,7 @@ class BaseRunner:
     epoch_metrics = {}
     for batch in loader:
       loss_metrics, data = self._val_step(batch)
+      data = mesh_lib.gather_to_replicated(data, self.mesh)
       if len(epoch_data) < num_batches_to_return:
         epoch_data.append(to_host(data))
       metrics = self._compute_test_metrics(data)

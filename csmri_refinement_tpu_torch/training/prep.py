@@ -33,6 +33,11 @@ host, so the preparer is not ``device_pure``:
 
 Validation adds no noise, as the JAX package's ``_val_cartesian`` passes
 none: ``undersampling.noise`` is training randomness only.
+
+In a data-parallel run the runner sets ``shard = (rank, world)``: a train
+step's masks and noise (and a radial step's host masks) are drawn for the
+global batch and the rank keeps its rows, as the JAX package draws over
+its one global batch; validation masks go by slice index anyway.
 """
 
 import numpy as np
@@ -56,6 +61,7 @@ class RecBatchPreparer:
     if self.scheme not in ('varden', 'cartesian', 'radial'):
       raise ValueError('Unknown sampling scheme {}'.format(self.scheme))
     self.device = torch.device(device)
+    self.shard = None
     self._val_masks = {}
 
   @property
@@ -78,14 +84,15 @@ class RecBatchPreparer:
     gt = self._gt(host_batch)
     if self.scheme == 'radial':
       rng = np.random.RandomState(mask_ops.draw_seed(generator, self.device))
-      mask = mask_ops.radial_masks_np(tuple(gt.shape), self.acc, rng,
-                                      self.variable)
+      mask = us_ops.shard_rows(lambda shape: mask_ops.radial_masks_np(
+          shape, self.acc, rng, self.variable), tuple(gt.shape), self.shard)
       batch = us_ops.undersample_batch(None, gt, fixed_mask=mask)
     else:
       batch = us_ops.undersample_batch(
           generator, gt, sampling_scheme=self.scheme,
           acceleration_factor=self.acc,
-          variable_acceleration=self.variable, noise=self.noise)
+          variable_acceleration=self.variable, noise=self.noise,
+          shard=self.shard)
     return self._passthrough(batch, host_batch)
 
   def _val_mask(self, index, height, width):
@@ -115,6 +122,7 @@ class SegBatchPreparer:
   """{inp, target} batches on ``device``, as the host built them."""
 
   device_pure = True
+  shard = None      # nothing is drawn: the rows are the host's
 
   def __init__(self, device):
     self.device = torch.device(device)

@@ -37,6 +37,9 @@ mode ``'test'`` ignores all three, as JAX does (``:59``, ``:127-128``):
   generators as k single steps, so the trajectory is theirs. As in JAX,
   only with a ``device_pure`` preparer: with radial masks, drawn on the
   host, a step is one update and one fetch (JAX ``:309-310``).
+
+In a data-parallel run (``base_runner``'s docstring) each update averages
+the model's gradients over the group before the optimizer step.
 """
 
 import logging
@@ -47,6 +50,7 @@ from csmri_refinement_tpu_torch.metrics import get_loss_metric, get_metric_fn
 from csmri_refinement_tpu_torch.models import (construct_model,
                                                get_input_keys, remat)
 from csmri_refinement_tpu_torch.models.criteria import get_criterion
+from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 from csmri_refinement_tpu_torch.training.base_runner import (
     BaseRunner, cast_outputs_f32, detach, mean_losses)
 from csmri_refinement_tpu_torch.training.lr_schedulers import (
@@ -62,11 +66,11 @@ from csmri_refinement_tpu_torch.utils.config import Configuration
 from csmri_refinement_tpu_torch.utils.precision import full_f32
 
 
-def _loss_metrics(updates):
+def _loss_metrics(updates, mesh=None):
   """{'loss_<criterion>' and 'loss': MinMetric} of the updates' mean
-  losses, in one host fetch."""
+  losses (over the mesh's ranks too), in one host fetch."""
   return {name if name == 'loss' else 'loss_' + name: get_loss_metric(value)
-          for name, value in mean_losses(updates).items()}
+          for name, value in mean_losses(updates, mesh).items()}
 
 
 class Runner(BaseRunner):
@@ -93,6 +97,7 @@ class Runner(BaseRunner):
         name: get_metric_fn(conf, name)
         for name in conf.get_attr('validation_metrics', default=[])}
     self.preparer = get_batch_preparer(conf, self.device)
+    self._setup_mesh(self.preparer, self.model)
     self.step = 0
 
     self.criteria = {}
@@ -138,6 +143,7 @@ class Runner(BaseRunner):
                 for name, loss in losses.items())
     self.optimizer.zero_grad(set_to_none=True)
     total.backward()
+    mesh_lib.average_gradients(self.model.parameters(), self.mesh)
     self.optimizer.step()
     self.step += 1
     losses = {name: loss.detach() for name, loss in losses.items()}
@@ -162,7 +168,7 @@ class Runner(BaseRunner):
       updates.append(losses)
     if k > 1:
       data = None
-    return len(host_batches), _loss_metrics(updates), data
+    return len(host_batches), _loss_metrics(updates, self.mesh), data
 
   def _val_step(self, host_batch, compute_metrics=True):
     batch = self.preparer.prepare_val(host_batch)
@@ -172,7 +178,7 @@ class Runner(BaseRunner):
     with torch.no_grad(), full_f32():
       losses = {name: crit(out, batch)
                 for name, crit in self.criteria.items()}
-    return _loss_metrics([losses]), (batch, out)
+    return _loss_metrics([losses], self.mesh), (batch, out)
 
   def predict(self, batch):
     """The model's eval-mode output on a prepared batch, in full f32."""
@@ -180,10 +186,14 @@ class Runner(BaseRunner):
     with torch.no_grad(), full_f32():
       return self.model(*self._model_inputs(batch))
 
+  def export_predict_parts(self):
+    """(network, input keys) of ``predict``, for ``utils/export.py``."""
+    return self.model, self.input_keys
+
   def _compute_train_metrics(self, data):
-    if data is None:      # steps_per_fetch: no per-step train metrics
-      return {}
-    batch, out = data
+    if data is None or not self.train_metric_fns:
+      return {}           # (steps_per_fetch: no per-step train metrics)
+    batch, out = mesh_lib.gather_to_replicated(data, self.mesh)
     return {name: fn(out, batch) for name, fn in self.train_metric_fns.items()}
 
   def _compute_test_metrics(self, data):

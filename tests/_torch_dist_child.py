@@ -1,0 +1,277 @@
+"""Child process of tests/test_torch_port_parallel.py: the port's
+data-parallel training on the CPU.
+
+Runs tiny synthetic scenarios (JAX's ``tests/_dist_child.py`` configs in
+the port's runners) either as one process (world 1, no process group) or as
+one rank of a gloo group started by the production
+``parallel.distributed.initialize`` from the config's ``distributed``
+section. Each scenario trains two epochs on a process-sharded loader and
+validates; the child prints one ``DISTRESULT <scenario> {json}`` line per
+scenario (per-epoch train losses, validation losses and metrics) and saves
+the runner's networks' state dicts after the first update and at the end to
+``<out>/<scenario>_rank<r>.pt``.
+
+The ``standard_jax`` scenario replays the JAX package's run: its initial
+weights and its train and validation masks come from ``<out>/jax.npz`` and
+``<out>/jax_init.pt``, written by the parent. ``bn`` runs the synced
+``BatchNorm2d`` on the rank's rows of ``bn_inputs()`` and saves its output,
+gradients and statistics; ``cli`` runs the training CLI for one epoch and
+lists the files this rank wrote.
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+
+
+def bn_inputs():
+  """The global batch (NCHW), the output cotangent, BN scale and bias."""
+  rng = np.random.RandomState(11)
+  x = (2.0 * rng.randn(4, 3, 5, 5) + 1.0).astype(np.float32)
+  c = rng.randn(4, 3, 5, 5).astype(np.float32)
+  return (x, c, rng.uniform(0.5, 1.5, 3).astype(np.float32),
+          rng.randn(3).astype(np.float32))
+
+
+def _standard_conf():
+  return {
+      'seed': 3,
+      'train_dataset': 'Synthetic',
+      'validation_dataset': 'Synthetic',
+      'synthetic': {'image_size': 32, 'num_train': 16, 'num_val': 8},
+      'undersampling': {'sampling_scheme': 'varden',
+                        'acceleration_factor': 2,
+                        'variable_acceleration': False},
+      'runner_type': 'standard',
+      'application': 'reconstruction',
+      'model': {'name': 'RecNet', 'num_blocks': 2, 'num_convs': 2,
+                'num_filters': 8},
+      'loss_name': 'MSE',
+      'optimizer': {'name': 'Adam', 'learning_rate': 0.001},
+      'batch_size': 8,
+      'validation_metrics': ['psnr'],
+      'mesh': {'data': -1},
+  }
+
+
+def _adversarial_conf():
+  return {
+      'seed': 4,
+      'train_dataset': 'Synthetic',
+      'validation_dataset': 'Synthetic',
+      'synthetic': {'image_size': 32, 'num_train': 16, 'num_val': 8},
+      'undersampling': {'sampling_scheme': 'varden',
+                        'acceleration_factor': 2,
+                        'variable_acceleration': False},
+      'runner_type': 'adversarial',
+      'vgg_random_init': True,
+      'application': 'reconstruction',
+      'generator_model': {
+          'name': 'RefinementWrapper',
+          'mode': 'real-penalty-add',
+          'input_mode': 'output',
+          'pretrained_model': {'name': 'RecNet', 'num_blocks': 1,
+                               'num_convs': 2, 'num_filters': 4},
+          'learnable_model': {
+              'name': 'UNET', 'num_inputs': 2, 'num_outputs': 1,
+              'num_layers_per_scale': 1, 'encode_filters': [4, 8],
+              'decode_filters': [4], 'kernel_size': 4,
+              'upsampling_mode': 'nn-resize-conv',
+              'output_activation': 'none', 'padding': 'reflection',
+              'decoder_act_upsampling_only': True},
+      },
+      'discriminator_model': {
+          'num_inputs': 1, 'input_method': 'simple-magnitude',
+          'num_filters_per_layer': [8, 16], 'strides': [2, 2],
+          'kernel_sizes': 4, 'final_conv_kernel_size': 4,
+          'padding': 'reflection', 'use_norm_layers': 'not-first',
+          'norm_layer': 'batch', 'compute_features': True,
+          'use_image_pool': True, 'image_pool_size': 16,
+          'dropout_after': [0], 'dropout_prob': 0.25,
+      },
+      'generator_adversarial_losses': ['gan', 'FeatureMatching'],
+      'generator_losses': ['VGG19', 'FeaturePenalty'],
+      'generator_loss_weights': {'gan': 0.5, 'VGG19': 10,
+                                 'FeaturePenalty': 2},
+      'discriminator_losses': ['gan'],
+      'discriminator_label_smoothing': 0.1,
+      'feature_penalty': {'criterion': 'L1',
+                          'input_key': 'prescaled_refinement'},
+      'generator_optimizer': {'name': 'Adam', 'learning_rate': 2e-4,
+                              'beta1': 0.5},
+      'discriminator_optimizer': {'name': 'Adam', 'learning_rate': 2e-4,
+                                  'beta1': 0.5},
+      'batch_size': 8,
+      'validation_metrics': ['psnr'],
+      'mesh': {'data': -1},
+  }
+
+
+def _segmentation_conf(repo):
+  with open(os.path.join(repo, 'configs',
+                         '3-train-segmentation-unet.json')) as f:
+    conf = json.load(f)
+  conf['model'].update(encode_filters=[8, 16, 32], decode_filters=[16, 8])
+  conf.update(seed=5, train_dataset='Synthetic',
+              validation_dataset='Synthetic',
+              synthetic={'image_size': 32, 'num_train': 16, 'num_val': 8},
+              num_data_workers=0, use_tensorboard=False,
+              mesh={'data': -1})
+  return conf
+
+
+def _conf_dict(name, repo):
+  if name == 'adversarial':
+    return _adversarial_conf()
+  if name.startswith('segmentation'):
+    conf = _segmentation_conf(repo)
+    conf['train_remat'] = name == 'segmentation_remat'
+    return conf
+  conf = _standard_conf()
+  if name == 'standard_spf2':
+    conf['steps_per_fetch'] = 2
+  return conf
+
+
+def _replay_jax(runner, out_dir):
+  """Give the runner the JAX run's initial weights and masks."""
+  import torch
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  runner.model.load_state_dict(torch.load(
+      os.path.join(out_dir, 'jax_init.pt')))
+  masks = np.load(os.path.join(out_dir, 'jax.npz'))
+  prep = runner.preparer
+
+  def prepare_train(generator, host_batch):
+    mask = masks['train'][runner.step][runner.mesh.rows(8)] \
+        if runner.mesh is not None else masks['train'][runner.step]
+    return prep._passthrough(us.undersample_batch(
+        None, prep._gt(host_batch), fixed_mask=torch.from_numpy(mask)),
+                             host_batch)
+
+  prep.prepare_train = prepare_train
+  prep._val_mask = lambda index, h, w: torch.from_numpy(masks['val'][index])
+
+
+def _networks(runner):
+  if hasattr(runner, 'gen'):
+    return {'generator': runner.gen.state_dict(),
+            'discriminator': runner.disc.state_dict()}
+  return {'model': runner.model.state_dict()}
+
+
+def run_bn(cfg):
+  import torch
+  import torch.distributed as dist
+  from csmri_refinement_tpu_torch.models.unet import BatchNorm2d
+  from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
+  mesh = mesh_lib.Mesh(cfg['world'], cfg['rank'], torch.device('cpu'),
+                       dist.group.WORLD)
+  x, c, scale, bias = (torch.from_numpy(a) for a in bn_inputs())
+  bn = mesh_lib.sync_batchnorm(BatchNorm2d(3, eps=1e-5, momentum=0.1), mesh)
+  with torch.no_grad():
+    bn.weight.copy_(scale)
+    bn.bias.copy_(bias)
+  rows = mesh.rows(x.shape[0])
+  xl = x[rows].clone().requires_grad_()
+  y = bn(xl)
+  (y * c[rows]).sum().backward()
+  grads = [bn.weight.grad, bn.bias.grad]     # the rank's share: summed
+  for g in grads:
+    dist.all_reduce(g)
+  torch.save({'y': y.detach(), 'grad_x': xl.grad, 'grad_weight': grads[0],
+              'grad_bias': grads[1], 'running_mean': bn.running_mean,
+              'running_var': bn.running_var},
+             os.path.join(cfg['out'], 'bn_rank{}.pt'.format(cfg['rank'])))
+  print('DISTRESULT bn {}')
+
+
+def run_cli(cfg):
+  from csmri_refinement_tpu_torch import train
+  conf = _standard_conf()
+  conf.update(num_epochs=1, epochs_per_validation=1, epochs_per_checkpoint=1,
+              num_data_workers=0, validation_checkpoint_metrics=['psnr'],
+              run_name='cli')
+  conf_path = os.path.join(cfg['out'], 'cli_rank{}.json'.format(cfg['rank']))
+  with open(conf_path, 'w') as f:
+    json.dump(conf, f)
+  log_dir = os.path.join(cfg['out'], 'cli_rank{}'.format(cfg['rank']))
+  runner = train.main([conf_path, '--device', 'cpu', '--log-dir', log_dir])
+  files = sorted(os.path.relpath(os.path.join(d, f), log_dir)
+                 for d, _, fs in os.walk(log_dir) for f in fs)
+  params = float(sum(p.double().abs().sum()
+                     for p in runner.model.parameters()))
+  print('DISTRESULT cli {}'.format(json.dumps({'files': files,
+                                               'val': params})))
+
+
+def run(name, cfg):
+  import torch
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.training import build_runner
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+
+  if name in ('bn', 'cli'):
+    return (run_bn if name == 'bn' else run_cli)(cfg)
+  conf = Configuration.from_dict(_conf_dict(name, cfg['repo']))
+  device = torch.device('cpu')
+  runner = build_runner(conf, conf.runner_type, 'train', device)
+  if name == 'standard_jax':
+    _replay_jax(runner, cfg['out'])
+  shard = None if runner.mesh is None else runner.mesh.shard
+  first = {}
+  train_batch = runner.train_batch
+
+  def snapshot_first_update(*args, **kwargs):
+    out = train_batch(*args, **kwargs)
+    if not first:
+      first.update({net: {k: v.clone() for k, v in state.items()}
+                    for net, state in _networks(runner).items()})
+    return out
+
+  runner.train_batch = snapshot_first_update
+  loader = DataLoader(load_dataset(conf, None, 'Synthetic', 'train'),
+                      conf.batch_size, shuffle=True, seed=conf.seed,
+                      process_shard=shard)
+  result = {'train': []}
+  for epoch in (1, 2):
+    runner.epoch_beginning(epoch)
+    losses, _ = runner.train_epoch(loader, epoch,
+                                   steps_per_train_summary=10 ** 6)
+    runner.epoch_finished(epoch)
+    result['train'].append({k: float(m.value) for k, m in losses.items()})
+  val_loader = DataLoader(load_dataset(conf, None, 'Synthetic', 'val'),
+                          conf.batch_size, process_shard=shard)
+  _, val_losses, val_metrics = runner.validate(val_loader)
+  result['val'] = {k: float(m.value)
+                   for k, m in {**val_losses, **val_metrics}.items()}
+  torch.save({'final': _networks(runner), 'first_update': first},
+             os.path.join(cfg['out'], '{}_rank{}.pt'.format(name,
+                                                            cfg['rank'])))
+  print('DISTRESULT {} {}'.format(name, json.dumps(result)))
+  sys.stdout.flush()
+
+
+def main():
+  cfg = json.loads(sys.argv[1])
+  sys.path.insert(0, cfg['repo'])
+  import torch
+  torch.set_num_threads(cfg.get('threads', 2))
+  from csmri_refinement_tpu_torch.parallel.distributed import (initialize,
+                                                                shutdown)
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  if cfg['world'] > 1:     # the production entry, from a distributed section
+    initialize(Configuration.from_dict({'distributed': {
+        'coordinator_address': '127.0.0.1:{}'.format(cfg['port']),
+        'num_processes': cfg['world'], 'process_id': cfg['rank']}}), 'cpu')
+  try:
+    for name in cfg['scenarios']:
+      run(name, cfg)
+  finally:
+    shutdown()
+
+
+if __name__ == '__main__':
+  main()

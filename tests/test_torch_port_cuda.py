@@ -1278,3 +1278,127 @@ def test_native_loader_feeds_a_512_step_on_card(cuda, tmp_path):
   losses, out = runner.train_batch(runner.preparer.prepare_train(
       torch.Generator(device=cuda).manual_seed(0), batches[0]))
   assert out.is_cuda and bool(torch.isfinite(losses['loss']))
+
+
+# -- the serving artifact's custom ops and data parallelism ------------------
+
+def _same(got, want):
+  return got.dtype == want.dtype and bool(torch.equal(got, want))
+
+
+def test_custom_ops_equal_their_wrappers_on_card(cuda):
+  """Each ``csmri::*`` op on a CUDA tensor runs its wrapper: the same
+  kernel launch (bit-identical output) and one count on the wrapper."""
+  gen = torch.Generator(device=cuda).manual_seed(21)
+  x = torch.randn(2, 64, 64, 2, device=cuda, generator=gen)
+  k0 = torch.randn(2, 64, 64, 2, device=cuda, generator=gen)
+  m = (torch.rand(2, 64, 64, 1, device=cuda, generator=gen) > 0.5).float()
+  before = dc_kernel.dc_cuda.launches
+  assert _same(torch.ops.csmri.dc(x, k0, m), dc_kernel.dc_cuda(x, k0, m))
+  assert dc_kernel.dc_cuda.launches == before + 2
+
+  w = torch.randn(3, 3, 32, 48, device=cuda, generator=gen) * 0.1
+  b = torch.randn(48, device=cuda, generator=gen)
+  layer = cc.ChainLayer(w, b, 0.1)
+  for dtype, op in ((torch.float32, torch.ops.csmri.conv_f32),
+                    (torch.bfloat16, torch.ops.csmri.conv_bf16)):
+    xi = torch.randn(2, 32, 32, 32, device=cuda, generator=gen).to(dtype)
+    before = cc.conv_layer_cuda.launches
+    assert _same(op(xi, w, b, 0.1, 'reflection'),
+                 cc.conv_layer_cuda(xi, layer, 'reflection'))
+    assert cc.conv_layer_cuda.launches == before + 2
+  with pytest.raises(ValueError, match='takes torch.bfloat16'):
+    torch.ops.csmri.conv_bf16(xi.float(), w, b, 0.1, 'reflection')
+
+  qlayer = quantize.quantize_chain([layer])[0]
+  xq, scale = quantize.quantize_act(
+      torch.randn(2, 32, 32, 32, device=cuda, generator=gen))
+  for want_amax in (True, False):
+    before = cc.conv_layer_int8_cuda.launches
+    got = torch.ops.csmri.conv_int8(xq, scale, qlayer.kernel, qlayer.w_scale,
+                                    qlayer.bias, 0.1, 'zero', torch.float32,
+                                    want_amax)
+    want = cc.conv_layer_int8_cuda(xq, scale, qlayer, 'zero', torch.float32,
+                                   want_amax)
+    assert _same(got[0], want[0])
+    assert _same(got[1], want[1]) if want_amax else got[1].numel() == 0
+    assert cc.conv_layer_int8_cuda.launches == before + 2
+  y, amax = want[0], got[0].abs().amax(dim=(1, 2, 3))
+  before = cc.requant_cuda.launches
+  for g, w_ in zip(torch.ops.csmri.requant(y, amax), cc.requant_cuda(y, amax)):
+    assert _same(g, w_)
+  assert cc.requant_cuda.launches == before + 2
+
+
+def test_replayed_artifact_launches_k1_and_k2_f32_on_card(cuda, tmp_path):
+  """The narrow 2-refinement generator exported on the card and replayed
+  there: 3 K1 and 10 K2 f32 launches per replay, within 1e-6 of max |ref|
+  of ``predict`` (the same kernels on the same weights)."""
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.profile_gan import (
+      synthetic_refinement_conf)
+  from csmri_refinement_tpu_torch.training import build_runner
+  from csmri_refinement_tpu_torch.utils import export
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_dict(synthetic_refinement_conf(
+      64, 2, 2, 2, narrow=True))
+  runner = build_runner(conf, 'adversarial', 'test', cuda)
+  host = next(iter(DataLoader(load_dataset(conf, None, 'Synthetic', 'val'),
+                              2)))
+  exported, header = export.export_predict(runner, host)
+  path = str(tmp_path / 'gen.pt2')
+  export.save_artifact(path, exported, header)
+  call, _ = export.load_callable(path, 'cuda')
+  batch = runner.preparer.prepare_val(host)
+  want = runner.predict(batch)['pred']
+  torch.cuda.synchronize()
+  dc_kernel.dc_cuda.launches = 0
+  cc.conv_layer_f32_cuda.launches = 0
+  got = call(batch)['pred']
+  torch.cuda.synchronize()
+  assert dc_kernel.dc_cuda.launches == 3
+  assert cc.conv_layer_f32_cuda.launches == 10
+  assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-6
+
+
+def test_nccl_group_of_one_runs_a_synced_batchnorm_step(cuda):
+  """A one-rank NCCL group from a ``distributed`` section: init, the
+  synced BatchNorm path (forced, as a world of one keeps the local path)
+  against the local one, the mesh it gives a runner, teardown."""
+  import copy
+  import socket
+  import torch.distributed as dist
+  from csmri_refinement_tpu_torch.models.unet import BatchNorm2d
+  from csmri_refinement_tpu_torch.parallel import distributed
+  from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  s = socket.socket()
+  s.bind(('127.0.0.1', 0))
+  port = s.getsockname()[1]
+  s.close()
+  conf = Configuration.from_dict({'distributed': {
+      'coordinator_address': 'localhost:{}'.format(port),
+      'num_processes': 1, 'process_id': 0}})
+  try:
+    device = distributed.initialize(conf, 'cuda')
+    assert device.type == 'cuda' and dist.get_backend() == 'nccl'
+    mesh = mesh_lib.mesh_from_conf(conf, device)
+    assert (mesh.world, mesh.rank) == (1, 0) and mesh.group is not None
+    local = BatchNorm2d(8).to(device)
+    synced = copy.deepcopy(local)
+    synced.process_group = mesh.group
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(4, 8, 16, 16, device=device, generator=gen) * 2 + 1
+    c = torch.randn(4, 8, 16, 16, device=device, generator=gen)
+    outs = []
+    for bn in (local, synced):
+      xi = x.clone().requires_grad_()
+      y = bn(xi)
+      (y * c).sum().backward()
+      outs.append((y.detach(), xi.grad, bn.weight.grad, bn.running_var))
+    torch.cuda.synchronize()
+    for got, want in zip(outs[1], outs[0]):
+      assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+  finally:
+    distributed.shutdown()
+  assert not dist.is_initialized()

@@ -190,12 +190,49 @@ def test_discriminator_input_matches_jax(kw):
                                  'conditional_input_generator_key',
                                  'strip_bg_class', 'scale_input_zero_one'])
 def test_discriminator_input_refuses_unsupported_keys(key):
-  """Keys that change no input of the ported methods fail loudly."""
+  """The discriminator-input keys are taken as the JAX factory takes them
+  (``get_discriminator_input_fn``), and a conditional input source that
+  is neither 'input' nor 'generator' is refused, as JAX asserts."""
+  from csmri_refinement_tpu.training import adversarial_training as jat
   from csmri_refinement_tpu_torch.training import adversarial_training as tat
-  assert isinstance(tat.get_discriminator_input_fn({}),
-                    tat.DiscriminatorInputFn)
-  with pytest.raises(NotImplementedError, match=key):
-    tat.get_discriminator_input_fn({key: None})
+  value = {'conditional_input_source': 'generator',
+           'conditional_input_generator_key': 'pred',
+           'strip_bg_class': True, 'scale_input_zero_one': True}[key]
+  disc_conf = {'input_method': 'simple', key: value}
+  if key == 'conditional_input_source':    # JAX reads out_gen[its key]
+    disc_conf['conditional_input_generator_key'] = 'pred'
+  pred = np.random.RandomState(5).randn(2, 6, 6, 3).astype(np.float32)
+  jfn = jat.get_discriminator_input_fn(
+      None, JConfiguration.from_dict(disc_conf))
+  want = jfn._build({'pred': jnp.asarray(pred)}, jnp.asarray(pred),
+                    {'pred': jnp.asarray(pred)})
+  got = tat.get_discriminator_input_fn(disc_conf).build({'pred': _t(pred)})
+  _close(got.numpy(), want)
+  with pytest.raises(ValueError, match='conditional input source'):
+    tat.get_discriminator_input_fn({'conditional_input_source': 'labels'})
+
+
+@pytest.mark.parametrize('method', ['simple', 'simple-magnitude'])
+@pytest.mark.parametrize('strip', [False, True], ids=['keep_bg', 'strip_bg'])
+@pytest.mark.parametrize('source', ['input', 'generator'])
+def test_discriminator_input_keys_match_jax_build(method, strip, source):
+  """``strip_bg_class`` and the conditional-input keys against JAX's
+  ``_build`` on both input methods (a packed complex prediction, with a
+  background channel in front where it is stripped)."""
+  from csmri_refinement_tpu.training import adversarial_training as jat
+  from csmri_refinement_tpu_torch.training import adversarial_training as tat
+  rng = np.random.RandomState(6)
+  pred = rng.randn(2, 6, 6, 3 if strip else 2).astype(np.float32)
+  inp = rng.randn(2, 6, 6, 2).astype(np.float32)
+  kw = dict(method=method, normalize=True, strip_bg_class=strip,
+            cond_input_source=source, scale_input_to_zero_one=True,
+            cond_input_gen_key='pred' if source == 'generator' else None)
+  want = jat.DiscriminatorInputFn(**kw)._build(
+      {'pred': jnp.asarray(pred)}, jnp.asarray(inp),
+      {'pred': jnp.asarray(pred)})
+  got = tat.DiscriminatorInputFn(**kw).build({'pred': _t(pred)})
+  assert got.shape == want.shape
+  _close(got.numpy(), want)
 
 
 def test_channel_dropout_drops_whole_channels():
