@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--probes-only | --int8-only [--tree DIR] |
                            --f32-only [--tree DIR] | --scarseg-only |
-                           --dist-export-only]
+                           --dist-export-only | --spatial-only]
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit. Phases, each failing loudly with a non-zero exit:
@@ -204,9 +204,28 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     (one replay counted: K1 3 and K2 f32 10, K1 3) and on the CPU: the card
     replay within 1e-6 of ``runner.predict``'s max |ref|, the CPU replay
     within 5e-4 of the card's, the artifact's KiB and replay ms beside
-    predict ms; (c) ``summarize_results`` over phase 18's eval_results CSV.
+    predict ms; (c) ``summarize_results`` over phase 18's eval_results CSV;
+23. the mesh's spatial axis on the same tree, ``{"data": 1, "spatial":
+    2}`` on two processes that share the card (``--spatial-rank`` children
+    of this script, each starting a gloo group): (a) gloo's all_gather,
+    all_reduce and broadcast on CUDA tensors, checked, and an all_gather
+    of 20 MiB parts timed; (b) ``configs/1-recnet.json`` (B = 20, 2
+    updates), ``configs/2-refinement.json`` (B = 5, 1 update, its RecNet
+    from this phase's 1-recnet checkpoint) and
+    ``configs/3-train-segmentation-unet.json`` (B = 8, 1 update), each with
+    1 validation batch, through the training CLI in this process and on the
+    two ranks, deterministic algorithms on all: every rank within the JAX
+    suite's spatial bars of the one process (``SPATIAL_BARS``), each rank's
+    K1, K1-bwd and K2 f32 launches (counted around its CLI run) equal to
+    the one process's, one train step's K1 and K1-bwd and one eval forward's
+    K2 f32 launches (on halo tiles) against their plain versions; per rank
+    the ms per step, the step's peak GiB and the MB each collective call
+    site moves, beside one process's ms (two ranks on one card: not a
+    scaling number).
 
-``--scarseg-only`` runs phases 1, 2 and 18-22 alone (no result line).
+``--scarseg-only`` runs phases 1, 2 and 18-23 alone (no result line).
+``--spatial-only`` runs phases 1, 2, phase 18's tree and phase 23 alone
+(no result line).
 ``--dist-export-only`` runs phases 1, 2, phase 18's tree and phase 22
 alone (no result line): the generator is exported from its seeded init on
 (a)'s RecNet, and (c) reads the eval_results CSV of 4 slices of (a)'s
@@ -382,7 +401,8 @@ def card_line():
 
 
 def sync():
-  torch.cuda.synchronize()
+  if DEVICE != 'cpu':     # a rehearsal on the CPU has nothing to wait for
+    torch.cuda.synchronize()
 
 
 def graph_ms(fn, calls=20, replays=5):
@@ -3494,11 +3514,12 @@ def data_options_phase(data_dir, work, line):
           'dc_err': k1_err, 'dc_bwd_err': k1_bwd_err, 'f32_err': k2_err}
 
 
-def scarseg_phase(line, dist_export_only=False):
+def scarseg_phase(line, dist_export_only=False, spatial_only=False):
   """Phase 18: the paper's three configs on a ScarSeg-format tree at 512²,
   the validate and eval_results CLIs; the tree is removed after. Returns
   the launches and errors for the kernels line. ``dist_export_only``:
-  the tree and phase 22 alone."""
+  the tree and phase 22 alone; ``spatial_only``: the tree and phase 23
+  alone."""
   os.makedirs(GAN_DIR, exist_ok=True)
   work = tempfile.mkdtemp(prefix='scarseg_', dir=GAN_DIR)
   try:
@@ -3506,6 +3527,8 @@ def scarseg_phase(line, dist_export_only=False):
     scarseg_data_phase(data_dir)
     if dist_export_only:
       return dist_export_phase(data_dir, work, None, None, None, line)
+    if spatial_only:
+      return spatial_phase(data_dir, work, line)
     rec_runner, best, k1, k1_bwd = scarseg_recnet_phase(
         data_dir, os.path.join(work, 'runs'))
     dc = scarseg_dc_phase(line)
@@ -3530,17 +3553,23 @@ def scarseg_phase(line, dist_export_only=False):
     # Phase 22: data parallelism, the serving artifact, summarize_results
     dist = dist_export_phase(data_dir, work, gan_conf, gan_ckpt, eval_csvs,
                              line)
+    # Phase 23: the mesh's spatial axis on the same tree
+    spatial = spatial_phase(data_dir, work, line)
   finally:
     shutil.rmtree(work, ignore_errors=True)
-  return {'k1': k1 + gan_k1 + surf_k1 + opt['k1'] + data['k1'] + dist['k1'],
-          'k1_bwd': k1_bwd + opt['k1_bwd'] + data['k1_bwd'] + dist['k1_bwd'],
+  return {'k1': (k1 + gan_k1 + surf_k1 + opt['k1'] + data['k1'] + dist['k1'] +
+                 spatial['k1']),
+          'k1_bwd': (k1_bwd + opt['k1_bwd'] + data['k1_bwd'] +
+                     dist['k1_bwd'] + spatial['k1_bwd']),
           'k2_f32': (gan_k2 + seg_k2 + surf_k2 + data['k2_f32'] +
-                     dist['k2_f32']),
+                     dist['k2_f32'] + spatial['k2_f32']),
           'k2_bf16': opt['k2_bf16'],
-          'dc_err': max(dc['K1'][0], opt['dc_err'], data['dc_err']),
+          'dc_err': max(dc['K1'][0], opt['dc_err'], data['dc_err'],
+                        spatial['dc_err']),
           'dc_bwd_err': max(dc['K1-bwd'][0], opt['dc_bwd_err'],
-                            data['dc_bwd_err']),
-          'f32_err': max(gan_err, seg_err, data['f32_err']),
+                            data['dc_bwd_err'], spatial['dc_bwd_err']),
+          'f32_err': max(gan_err, seg_err, data['f32_err'],
+                         spatial['f32_err']),
           'bf16_err': opt['k2_err']}
 
 
@@ -3877,6 +3906,431 @@ def dist_export_phase(data_dir, work, gan_conf, gan_ckpt, csvs, line):
           'k2_f32': launches['k2_f32'] + exported['k2_f32']}
 
 
+# Phase 23: the mesh's spatial axis. The three paper configs at 512² with
+# each image's rows sharded over two processes that share the one card
+# (NCCL takes one rank per card): each child starts a gloo group before it
+# builds its runner, and ``parallel/distributed.py::initialize`` accepts the
+# running group. Two ranks on one card are not a scaling number: their
+# times say what the halos, the row gathers and the S-fold DC cost beside
+# one process, not what two cards would do.
+SPATIAL_MESH = {'data': 1, 'spatial': 2}
+# (label, CLI overrides): 1-recnet 2 updates, the GAN and segmentation 1
+# update each, then 1 validation batch. At full width a BN network's first
+# Adam step is ±lr·sign(g) on every weight, and a near-zero gradient whose
+# sign the ranks' summation order flips moves its weight by 2·lr = 4e-4
+# (a CPU rehearsal at 128² moved one U-Net weight by 3.998e-4 in the
+# generator and in segmentation, the update's losses agreeing to 4e-7 and
+# 3e-6 relative); later updates then part as the weights do.
+SPATIAL_RUNS = (
+    ('1-recnet', ['num_epochs=1', 'num_train_subset_samples=40',
+                  'num_validation_subset_samples=20']),
+    ('2-refinement', ['num_epochs=1', 'num_train_subset_samples=5',
+                      'num_validation_subset_samples=5',
+                      'vgg_random_init=true']),
+    ('segmentation', ['num_epochs=1', 'num_train_subset_samples=8',
+                      'num_validation_subset_samples=8']))
+# The JAX suite's spatial bars (tests/test_parallel.py:199-310): (losses,
+# parameters); the discriminator's 5e-4 (2·lr and slack, its
+# ``test_adversarial_spatial_mesh_matches_single_device``) holds the BN
+# networks of the GAN and segmentation, for the reason above. BN
+# statistics 5e-5, validation PSNR 1e-3 dB; SSIM and dice (a count of
+# pixels on either side of an argmax) 1e-3.
+SPATIAL_BARS = {'1-recnet': (1e-5, 5e-5), '2-refinement': (1e-4, 5e-4),
+                'segmentation': (1e-5, 5e-4)}
+SPATIAL_DISC_ATOL, SPATIAL_BN_ATOL = 5e-4, 5e-5
+SPATIAL_PSNR_ATOL, SPATIAL_METRIC_ATOL = 1e-3, 1e-3
+SPATIAL_RTOL = 1e-5
+SPATIAL_STEPS = 3        # timed train steps per rank
+SPATIAL_TIMEOUT_S = 600
+GLOO_PROBES = ('all_gather', 'all_reduce', 'broadcast')
+GLOO_TIMED_MB, GLOO_TIMED_CALLS = 20, 5     # MiB of each rank's part
+
+
+def child_group(cfg):
+  """Start the two-rank gloo group of a phase-23 child."""
+  import torch.distributed as dist
+  dist.init_process_group(
+      'gloo', init_method='tcp://127.0.0.1:{}'.format(cfg['port']),
+      world_size=2, rank=cfg['rank'])
+
+
+def gloo_probe(cfg):
+  """``--gloo-probe JSON``: each of ``GLOO_PROBES`` run by gloo itself on
+  CUDA tensors (no host copy) and checked; prints ``GLOO {name: 'ok' |
+  'wrong' | 'refused: ...'}``."""
+  import torch.distributed as dist
+  child_group(cfg)
+  rank, seen = cfg['rank'], {}
+  try:
+    for name in GLOO_PROBES:
+      t = torch.full((1024,), float(rank + 1), device='cuda')
+      try:
+        if name == 'all_gather':
+          parts = [torch.empty_like(t) for _ in range(2)]
+          dist.all_gather(parts, t)
+          good = all(bool((p == r + 1).all()) for r, p in enumerate(parts))
+        elif name == 'all_reduce':
+          dist.all_reduce(t)
+          good = bool((t == 3).all())
+        else:
+          dist.broadcast(t, 0)
+          good = bool((t == 1).all())
+        seen[name] = 'ok' if good else 'wrong'
+      except Exception as e:  # noqa: BLE001 - the probe reports it
+        seen[name] = 'refused: {}'.format(str(e).splitlines()[0][:120])
+    # the transport's rate: an all_gather of a 1-recnet DC gather's part
+    part = torch.ones(GLOO_TIMED_MB * 2 ** 18, device='cuda')
+    parts = [torch.empty_like(part) for _ in range(2)]
+    dist.all_gather(parts, part)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GLOO_TIMED_CALLS):
+      dist.all_gather(parts, part)
+    torch.cuda.synchronize()
+    seen['all_gather_ms'] = (time.perf_counter() - t0) * 1e3 / \
+        GLOO_TIMED_CALLS
+  finally:
+    dist.destroy_process_group()
+  print('GLOO ' + json.dumps(seen))
+
+
+def spawn_ranks(mode, cfg, outs=None):
+  """Two children ``chip_smoke.py --<mode> JSON`` in one gloo group; their
+  stdout, or a failure naming the rank."""
+  cfg = dict(cfg, port=free_port())
+  procs = [subprocess.Popen(
+      [sys.executable, os.path.realpath(__file__), '--' + mode,
+       json.dumps(dict(cfg, rank=r, out=None if outs is None else outs[r]))],
+      cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+           for r in range(2)]
+  outputs = []
+  try:
+    for r, p in enumerate(procs):
+      try:
+        out, _ = p.communicate(timeout=SPATIAL_TIMEOUT_S)
+      except subprocess.TimeoutExpired:
+        fail('{} rank {} timed out'.format(mode, r))
+      if p.returncode:
+        print(out[-6000:], file=sys.stderr)
+        fail('{} rank {} exited {}'.format(mode, r, p.returncode))
+      outputs.append(out)
+  finally:
+    for p in procs:
+      if p.poll() is None:
+        p.kill()
+        p.communicate()
+  return outputs
+
+
+def gloo_phase(line):
+  """Phase 23 (a): gloo runs the mesh's collectives on CUDA tensors itself
+  (``parallel/mesh.py`` gives them to it as they are); the host ms of an
+  all_gather of ``GLOO_TIMED_MB`` MiB parts."""
+  seen = [json.loads(ln.split(' ', 1)[1]) for out in spawn_ranks(
+      'gloo-probe', {}) for ln in out.splitlines() if ln.startswith('GLOO ')]
+  require(len(seen) == 2, 'the gloo probe printed no result')
+  for name in GLOO_PROBES:
+    print('gloo {} on CUDA tensors: rank 0 {}, rank 1 {}'.format(
+        name, seen[0][name], seen[1][name]))
+    require(seen[0][name] == seen[1][name] == 'ok',
+            'gloo {} fails on CUDA tensors'.format(name))
+  ms = max(r['all_gather_ms'] for r in seen)
+  print('gloo all_gather of {} MiB CUDA parts between two ranks on one card: '
+        '{:.3f} ms, {:.2f} GB/s of each rank\'s part ({})'.format(
+            GLOO_TIMED_MB, ms, GLOO_TIMED_MB * 2 ** 20 / ms / 1e6, line))
+
+
+def record_k2_launches(fn):
+  """Run ``fn()`` with K2's f32 wrapper keeping each launch's inputs and
+  output: [(x, layer, pad, y)] (``conv_layer_cuda`` looks it up at call
+  time)."""
+  from csmri_refinement_tpu_torch.ops import conv_chain
+  calls = []
+  k2 = conv_chain.conv_layer_f32_cuda
+
+  def record(x, layer, pad_mode='reflection'):
+    y = k2(x, layer, pad_mode)
+    calls.append((x, layer, pad_mode, y))
+    return y
+  record.launches = k2.launches
+  conv_chain.conv_layer_f32_cuda = record
+  try:
+    fn()
+    sync()
+  finally:
+    conv_chain.conv_layer_f32_cuda = k2
+    k2.launches = record.launches
+  return calls
+
+
+@contextlib.contextmanager
+def counted_collectives():
+  """{call site: bytes} that ``parallel/mesh.py``'s all_gather and
+  all_reduce move for this rank while the block runs (all_gather: the
+  rank's part; all_reduce: the tensor)."""
+  from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
+  moved = {}
+  gather, reduce = mesh_lib.all_gather, mesh_lib.all_reduce
+
+  def site():   # the caller of ``halo.gather_rows`` rather than its frames
+    frame = sys._getframe(2)
+    while frame.f_back is not None and frame.f_code.co_qualname in (
+        '_GatherRows.forward', 'Function.apply', 'gather_rows'):
+      frame = frame.f_back
+    return frame.f_code.co_qualname
+
+  def counted_gather(t, group):
+    key = 'all_gather in ' + site()
+    moved[key] = moved.get(key, 0) + t.numel() * t.element_size()
+    return gather(t, group)
+
+  def counted_reduce(t, group, *args):
+    key = 'all_reduce in ' + site()
+    moved[key] = moved.get(key, 0) + t.numel() * t.element_size()
+    return reduce(t, group, *args)
+  mesh_lib.all_gather, mesh_lib.all_reduce = counted_gather, counted_reduce
+  try:
+    yield moved
+  finally:
+    mesh_lib.all_gather, mesh_lib.all_reduce = gather, reduce
+
+
+def spatial_checks(runner, data_dir):
+  """Phase 23, each rank after its CLI run: one train step's K1 and K1-bwd
+  launches and one eval forward's K2 f32 launches against their plain
+  versions; the bytes each collective site moves in a step; ms per step
+  over ``SPATIAL_STEPS`` steps and the step's peak GiB."""
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
+  conf = runner.conf
+  host = next(iter(DataLoader(load_dataset(conf, data_dir, 'ScarSeg',
+                                           'train'), conf.batch_size,
+                              process_shard=runner.mesh.shard)))
+  batch = runner.preparer.prepare_train(
+      torch.Generator(device=DEVICE).manual_seed(SEED), host)
+  with deterministic():
+    dc_calls = record_dc_launches(lambda: runner.train_batch(batch))
+    k2_calls = record_k2_launches(lambda: runner.predict(batch))
+  errs = {'dc': 0.0, 'dc_bwd': 0.0, 'f32': 0.0}
+  for x, k0, mask, y in dc_calls['K1']:
+    errs['dc'] = max(errs['dc'], (y - dc_kernel.dc_plain(x, k0, mask))
+                     .abs().max().item())
+  for g, mask, y in dc_calls['K1-bwd']:
+    errs['dc_bwd'] = max(errs['dc_bwd'], (y - dc_kernel.dc_plain_vjp(
+        g, mask, False)[0]).abs().max().item())
+  for x, layer, pad, y in k2_calls:
+    want = conv_chain.conv_layer_plain(x, layer, pad)
+    err = (y - want).abs().max().item()
+    require(err <= F32_ATOL * max(1.0, want.abs().max().item()),
+            'K2 f32 on a halo tile {} differs from its plain version'
+            .format(tuple(x.shape)))
+    errs['f32'] = max(errs['f32'], err)
+  require(errs['dc'] <= F32_ATOL and errs['dc_bwd'] <= GRAD_ATOL,
+          'K1 or K1-bwd on the gathered image differs from its plain '
+          'version')
+  with counted_collectives() as moved:
+    runner.train_batch(batch)
+    sync()
+  return {'errs': errs, 'checked': {k: len(v) for k, v in
+                                    (('K1', dc_calls['K1']),
+                                     ('K1-bwd', dc_calls['K1-bwd']),
+                                     ('K2 f32', k2_calls))},
+          'moved': moved, 'ms': step_wall_ms(runner, batch),
+          'peak': step_peak_gib(runner, batch) if DEVICE == 'cuda' else 0.0}
+
+
+def step_wall_ms(runner, batch):
+  """ms per train step: the host clock over ``SPATIAL_STEPS`` steps on one
+  prepared batch, synchronised, after a warm-up step."""
+  runner.train_batch(batch)
+  sync()
+  t0 = time.perf_counter()
+  for _ in range(SPATIAL_STEPS):
+    runner.train_batch(batch)
+  sync()
+  return (time.perf_counter() - t0) * 1e3 / SPATIAL_STEPS
+
+
+def spatial_rank(cfg):
+  """``--spatial-rank JSON``: one rank of phase 23's two. The training CLI
+  on ``cfg['config']`` with the spatial mesh, the launch counters set to
+  0 just before and read just after; then ``spatial_checks``. Saves the
+  networks' states, the recorded epochs, the counts and the checks to
+  ``cfg['out']``."""
+  global DEVICE, SCAR_SIZE
+  DEVICE, SCAR_SIZE = cfg['device'], cfg['size']
+  require(DEVICE == 'cpu' or torch.cuda.is_available(), 'no CUDA device')
+  import torch.distributed as dist
+  from csmri_refinement_tpu_torch.data import datasets
+  from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
+  from csmri_refinement_tpu_torch.utils.diagnostics import runner_networks
+  datasets.IMAGE_SIZE = SCAR_SIZE
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  child_group(cfg)
+  try:
+    dc_kernel.dc_cuda.launches = dc_kernel.dc_bwd_cuda.launches = 0
+    conv_chain.conv_layer_f32_cuda.launches = 0
+    runner, seen = dist_cli(cfg['config'], cfg['data_dir'], cfg['run_root'],
+                            cfg['overrides'] + ['mesh=' + json.dumps(
+                                SPATIAL_MESH)])
+    launches = (dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches,
+                conv_chain.conv_layer_f32_cuda.launches)
+    mesh = runner.mesh
+    require(mesh is not None and (mesh.world, mesh.spatial, mesh.rank) ==
+            (2, 2, cfg['rank']), 'expected rank {} of a (1, 2) mesh'.format(
+                cfg['rank']))
+    result = {'seen': seen, 'launches': launches,
+              'route': dist.get_backend(mesh.group),
+              'state': {name: {k: v.detach().cpu().clone() for k, v in
+                               net.state_dict().items()}
+                        for name, net in runner_networks(runner).items()}}
+    result.update(spatial_checks(runner, cfg['data_dir']))
+    torch.save(result, cfg['out'])
+  finally:
+    dist.destroy_process_group()
+
+
+def spatial_compare(label, one, ranks, one_launches):
+  """Phase 23: both ranks against the one-process run at
+  ``SPATIAL_BARS``; each rank's launches equal the one process's."""
+  from csmri_refinement_tpu_torch.utils.diagnostics import runner_networks
+  loss_atol, param_atol = SPATIAL_BARS[label]
+  worst = {'losses': 0.0, 'psnr': 0.0, 'metrics': 0.0, 'params': 0.0,
+           'disc': 0.0, 'bn': 0.0}
+
+  def over(got, want, atol, key, what):
+    excess = abs(got - want) - SPATIAL_RTOL * abs(want)
+    worst[key] = max(worst[key], abs(got - want))
+    require(excess <= atol, '{} rank differs from one process in {}: '
+            '{:.6g} vs {:.6g} (atol {})'.format(label, what, got, want, atol))
+
+  nets = {name: net.state_dict()
+          for name, net in runner_networks(one[0]).items()}
+  for rank, got in enumerate(ranks):
+    require(got['launches'] == one_launches, '{} rank {} launched K1, '
+            'K1-bwd, K2 f32 {} times, one process {}'.format(
+                label, rank, got['launches'], one_launches))
+    for phase in ('train', 'val'):
+      require(len(got['seen'][phase]) == len(one[1][phase]),
+              label + ': epochs differ')
+      for g, w in zip(got['seen'][phase], one[1][phase]):
+        require(set(g) == set(w), label + ': recorded names differ')
+        for k in w:
+          if 'psnr' in k:
+            over(g[k], w[k], SPATIAL_PSNR_ATOL, 'psnr', k)
+          elif 'loss' in k:
+            over(g[k], w[k], loss_atol, 'losses', k)
+          else:
+            over(g[k], w[k], SPATIAL_METRIC_ATOL, 'metrics', k)
+    for name, want_state in nets.items():
+      for k, w in want_state.items():
+        if not w.is_floating_point():
+          continue
+        key, atol = ('bn', SPATIAL_BN_ATOL) if 'running_' in k else \
+            ('disc', SPATIAL_DISC_ATOL) if name == 'discriminator' else \
+            ('params', param_atol)
+        g = got['state'][name][k].double()
+        w = w.detach().cpu().double()
+        excess = ((g - w).abs() - SPATIAL_RTOL * w.abs()).max().item()
+        worst[key] = max(worst[key], (g - w).abs().max().item())
+        require(excess <= atol, '{} rank {} differs from one process in '
+                '{}.{} by {:.3e} (max |ref| {:.3e}, atol {})'.format(
+                    label, rank, name, k, (g - w).abs().max().item(),
+                    w.abs().max().item(), atol))
+  return worst
+
+
+def spatial_phase(data_dir, work, line):
+  """Phase 23: (a) the gloo probe; (b) 1-recnet (B = 20), 2-refinement
+  (B = 5, its RecNet from (b)'s one-process checkpoint) and segmentation
+  (B = 8) through the training CLI, 2 steps and 1 validation batch, once
+  in this process and once on two spatial ranks sharing the card; ranks
+  against the one process at ``SPATIAL_BARS``; each rank's K1, K1-bwd and
+  K2 f32 launches equal the one process's, each checked launch within its
+  bar of the plain version; ms per step, peak GiB and the bytes each
+  collective site moves, per rank. Returns the launches (rank 0's) and
+  errors for the kernels line."""
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
+  t0 = time.perf_counter()
+  gloo_phase(line)
+  total = {'k1': 0, 'k1_bwd': 0, 'k2_f32': 0, 'dc_err': 0.0,
+           'dc_bwd_err': 0.0, 'f32_err': 0.0}
+  configs = {'1-recnet': RECNET_CONFIG, 'segmentation': SEG_CONFIG}
+  for label, overrides in SPATIAL_RUNS:
+    t1 = time.perf_counter()
+    if label == '2-refinement':
+      best = glob.glob(os.path.join(work, 'spatial_one', '1-recnet_*',
+                                    'best_loss_MSE', '*.ckpt'))
+      require(len(best) == 1, 'expected one 1-recnet checkpoint')
+      with open(os.path.join(REPO, 'configs', '2-refinement.json')) as f:
+        conf_d = json.load(f)
+      conf_d['generator_model']['pretrained_model']['pretrained_weights'] = \
+          [best[0], 'model']
+      configs[label] = os.path.join(work, 'spatial_2-refinement.json')
+      with open(configs[label], 'w') as f:
+        json.dump(conf_d, f)
+    sync()
+    dc_kernel.dc_cuda.launches = dc_kernel.dc_bwd_cuda.launches = 0
+    conv_chain.conv_layer_f32_cuda.launches = 0
+    one = dist_cli(configs[label], data_dir, os.path.join(work,
+                                                          'spatial_one'),
+                   overrides)
+    one_launches = (dc_kernel.dc_cuda.launches,
+                    dc_kernel.dc_bwd_cuda.launches,
+                    conv_chain.conv_layer_f32_cuda.launches)
+    outs = [os.path.join(work, 'spatial_{}_rank{}.pt'.format(label, r))
+            for r in range(2)]
+    if DEVICE == 'cuda':      # the ranks share the card with this process
+      torch.cuda.empty_cache()
+    spawn_ranks('spatial-rank', {
+        'config': configs[label], 'data_dir': data_dir, 'device': DEVICE,
+        'size': SCAR_SIZE, 'overrides': overrides,
+        'run_root': os.path.join(work, 'spatial_ranks')}, outs)
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    worst = spatial_compare(label, one, ranks, one_launches)
+    k1, k1_bwd, k2 = ranks[0]['launches']
+    path = {'1-recnet': (k1, k1_bwd), '2-refinement': (k1, k2),
+            'segmentation': (k2,)}[label]
+    require(min(path) > 0,
+            label + ': a kernel of the path was not launched on the ranks')
+    print('phase 23 {} at {}^2, mesh {}, collectives {}: both ranks '
+          'against one process: losses within {:.3e}, PSNR {:.3e} dB, other metrics '
+          '{:.3e}, parameters {:.3e}, discriminator {:.3e}, BN statistics '
+          '{:.3e}; launches per rank K1 {}, K1-bwd {}, K2 f32 {} (one '
+          'process: the same); {:.1f} s'.format(
+              label, SCAR_SIZE, SPATIAL_MESH, ranks[0]['route'],
+              worst['losses'], worst['psnr'], worst['metrics'],
+              worst['params'], worst['disc'], worst['bn'], k1, k1_bwd, k2,
+              time.perf_counter() - t1))
+    for r, got in enumerate(ranks):
+      print('  rank {}: checked launches {} against their plain versions '
+            '(max |kernel-plain| K1 {:.3e}, K1-bwd {:.3e}, K2 f32 {:.3e}); '
+            'train step {:.3f} ms, peak {:.3f} GiB above the resident state; '
+            'per step it moves {} ({}; two ranks share one card: not a '
+            'scaling number)'.format(
+                r, got['checked'], got['errs']['dc'], got['errs']['dc_bwd'],
+                got['errs']['f32'], got['ms'], got['peak'],
+                ', '.join('{} {:.2f} MB'.format(k, v / 1e6) for k, v in
+                          sorted(got['moved'].items())), line))
+    host = next(iter(DataLoader(load_dataset(one[0].conf, data_dir,
+                                             'ScarSeg', 'train'),
+                                one[0].conf.batch_size)))
+    print('  one process: train step {:.3f} ms ({})'.format(step_wall_ms(
+        one[0], one[0].preparer.prepare_train(
+            torch.Generator(device=DEVICE).manual_seed(SEED), host)), line))
+    total['k1'] += k1
+    total['k1_bwd'] += k1_bwd
+    total['k2_f32'] += k2
+    for key in ('dc', 'dc_bwd', 'f32'):
+      total[key + '_err'] = max([total[key + '_err']] +
+                                [got['errs'][key] for got in ranks])
+    del one, ranks
+  print('phase 23: {:.1f} s wall'.format(time.perf_counter() - t0))
+  return total
+
+
 def build_phase(names):
   """Phase 2: build the named kernel sources in parallel; print each
   kernel's ptxas lines, and fail if ptxas drained a wgmma pipeline
@@ -3904,6 +4358,9 @@ def main(argv=None):
   f32_only_mode = '--f32-only' in argv
   scarseg_only = '--scarseg-only' in argv
   dist_export_only = '--dist-export-only' in argv
+  spatial_only = '--spatial-only' in argv
+  child = next((a for a in ('--spatial-rank', '--gloo-probe') if a in argv),
+               None)
   tree = os.path.realpath(argv[argv.index('--tree') + 1]) if '--tree' in \
       argv else REPO
   require(os.path.commonpath([tree, REPO]) == REPO,
@@ -3911,11 +4368,16 @@ def main(argv=None):
   # graph_ms of a plain version that is a view (the unaligned row read,
   # the mid-dim read) captures an empty graph, which times as ~0
   warnings.filterwarnings('ignore', 'The CUDA Graph is empty')
+  if child is not None:   # a rank of phase 23, started by phase 23
+    sys.path.insert(0, REPO)
+    global timed_ms
+    from csmri_refinement_tpu_torch.utils.profiling import timed_ms
+    cfg = json.loads(argv[argv.index(child) + 1])
+    return (spatial_rank if child == '--spatial-rank' else gloo_probe)(cfg)
   require(torch.cuda.is_available(), 'no CUDA device')
   sys.path.insert(0, os.path.abspath(tree))
   import csmri_refinement_tpu_torch as P
   # CUDA-event timing: utils/profiling.py's timed_ms, for every phase
-  global timed_ms
   from csmri_refinement_tpu_torch.utils.profiling import timed_ms
   from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel, native
   line = card_line()
@@ -3940,8 +4402,9 @@ def main(argv=None):
     f32_only(P, line)
     return
   build_phase(native.KERNELS)
-  if scarseg_only or dist_export_only:   # phases 1, 2 and 18-22, or 22
-    print(json.dumps(scarseg_phase(line, dist_export_only)))
+  if scarseg_only or dist_export_only or spatial_only:
+    # phases 1, 2 and 18-23, or phase 18's tree and 22 or 23
+    print(json.dumps(scarseg_phase(line, dist_export_only, spatial_only)))
     return
 
   # Phase 3: DC kernel

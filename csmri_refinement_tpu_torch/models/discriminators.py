@@ -20,6 +20,16 @@ variance), computed in f32. The FC head's input width comes from
 too): flax infers it at trace time, a torch module needs it when built.
 Submodule names follow the flax tree (``conv_{i}``, ``norm_{i}``,
 ``prelu_{i}``, ``fc_{i}``, ``final_conv``).
+
+Under a spatial mesh (``parallel/halo.py``) the conv stack runs on the
+rank's rows (the stride-2 reflection convs through ``layers.same_conv``'s
+halos, BN over the world, instance norm and dropout as ``layers`` has
+them), and so are its ``features``. The head needs every row: the rows are
+gathered before it (``halo.gather_rows``), so that the PatchGAN conv
+(VALID, its output rows not a multiple of the ranks) or the FC head's
+flatten sees the whole map, and every rank of the spatial group holds the
+whole ``prob``, ``logits`` and head feature (``parallel/mesh.py``'s
+``WHOLE_KEYS``). ``row_factor`` is the product of the strides.
 """
 
 import torch
@@ -30,6 +40,7 @@ from csmri_refinement_tpu_torch.models.layers import (
     InstanceNorm, PReLU, channel_dropout, leaky_relu, need_bias, pad_sizes,
     same_conv)
 from csmri_refinement_tpu_torch.models.unet import BatchNorm2d
+from csmri_refinement_tpu_torch.parallel import halo
 
 DEFAULT_RELU_LEAKINESS = 0.2
 NORM_LAYERS = ('batch', 'instance', 'instance-affine')
@@ -86,6 +97,9 @@ class CNNDiscriminator(nn.Module):
     self.weight_init = weight_init or {}
     self.dtype = dtype
     self.num_layers = len(num_filters_per_layer)
+    self.row_factor = 1
+    for stride in self.strides:
+      self.row_factor *= stride
 
     use_norm = use_norm_layers
     self.normed = []
@@ -183,6 +197,9 @@ class CNNDiscriminator(nn.Module):
         x = channel_dropout(x, self.dropout_prob, self.training, generator,
                             self.batch_shard)
 
+    mesh = halo.current()
+    if mesh is not None:
+      x = halo.gather_rows(x, mesh)
     if self.fc_layers:
       x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
       for fc_idx in range(len(self.fc_layers)):

@@ -5,11 +5,25 @@ on NCHW tensors (torch's conv layout; a permuted NHWC tensor is an NCHW
 tensor in ``channels_last`` memory). ``same_conv`` keeps the semantics of
 the JAX ``same_conv`` — an exact SAME-padded conv — not its TPU
 border-strip lowering.
+
+Under a spatial mesh (``parallel/halo.py::sharded_rows``) ``pad``,
+``same_pad`` and ``same_conv`` are the choke point of every training conv:
+the H padding at an edge between two ranks becomes halo rows of the
+neighbour, and the zero, reflect or replicate padding applies at the
+image's top and bottom only (a reflection there reads the pad + 1 rows the
+rank's tile starts or ends with, as on the whole image). A stride-2 conv
+starts each rank's first output row on the global stride grid, since
+every rank holds an even number of rows. ``InstanceNorm`` takes its
+statistics over the spatial group, and ``channel_dropout`` draws the same
+decisions on every rank of an image's spatial group (they share the
+generator's state and the batch shard).
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from csmri_refinement_tpu_torch.parallel import halo
 
 _PAD_MODES = {
     'zero': 'constant',
@@ -64,13 +78,27 @@ class _Pad(torch.autograd.Function):
     return _fold(grad, -2, top, bottom, mode), None, None
 
 
-def pad(x, pads, mode):
+def local_pad(x, pads, mode):
   """``F.pad`` of an NCHW tensor by (left, right, top, bottom), ``mode``
   'constant', 'reflect' or 'replicate'; the last two with a deterministic
-  backward (``_Pad``)."""
+  backward (``_Pad``). The tensor is padded as it is, under a spatial mesh
+  too."""
   if mode == 'constant':
     return F.pad(x, pads)
   return _Pad.apply(x, tuple(pads), mode)
+
+
+def pad(x, pads, mode):
+  """``local_pad`` of the image ``x`` holds rows of: under a spatial mesh,
+  the rows above and below come from the neighbouring ranks (``halo``)
+  and ``mode`` pads the image's top and bottom edges only."""
+  mesh = halo.current()
+  if mesh is None:
+    return local_pad(x, pads, mode)
+  left, right, top, bottom = pads
+  x = halo.halo_rows(x, top, bottom, mesh)
+  above, below = halo.taken(mesh, top, bottom)
+  return local_pad(x, (left, right, top - above, bottom - below), mode)
 
 
 def same_pad(x, kernel_size, mode='zero', dilation=1, stride=1):
@@ -83,7 +111,7 @@ def same_conv(x, weight, bias=None, mode='zero', dilation=1, stride=1):
   """SAME conv of NCHW ``x`` with OIHW ``weight``."""
   k = weight.shape[-1]
   p1, p2 = pad_sizes(k, dilation, stride)
-  if mode == 'zero' and p1 == p2:
+  if mode == 'zero' and p1 == p2 and halo.current() is None:
     return F.conv2d(x, weight, bias, stride=stride, padding=p1,
                     dilation=dilation)
   return F.conv2d(same_pad(x, k, mode, dilation, stride), weight, bias,
@@ -141,7 +169,14 @@ class InstanceNorm(nn.Module):
       self.scale = self.bias = None
 
   def forward(self, x):
-    var, mean = torch.var_mean(x, dim=(2, 3), keepdim=True, correction=0)
+    mesh = halo.current()
+    if mesh is None:
+      var, mean = torch.var_mean(x, dim=(2, 3), keepdim=True, correction=0)
+    else:     # two passes over the spatial group's rows
+      n = x.shape[2] * x.shape[3] * mesh.spatial
+      mean = halo.sum_rows(x.sum((2, 3), keepdim=True), mesh) / n
+      var = halo.sum_rows(((x - mean) ** 2).sum((2, 3), keepdim=True),
+                          mesh) / n
     y = (x - mean) * torch.rsqrt(var + self.eps)
     if self.scale is not None:
       y = y * self.scale.reshape(1, -1, 1, 1) + self.bias.reshape(1, -1, 1, 1)
@@ -179,7 +214,8 @@ def channel_dropout(x, rate, training, generator=None, shard=None):
   keep decisions come from ``generator`` (on ``x``'s device). With
   ``shard=(rank, world)`` (a data-parallel run) the decisions of the
   global batch are drawn and the rank's rows kept, so that they do not
-  depend on the world."""
+  depend on the world; the ranks of a spatial group pass the same shard and
+  generator state, and draw the same decisions for their image rows."""
   if not training or rate == 0.0:
     return x
   b = x.shape[0]

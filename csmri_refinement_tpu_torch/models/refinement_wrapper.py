@@ -19,6 +19,11 @@ Port of ``csmri_refinement_tpu/models/refinement_wrapper.py``:
   (``train`` below), as the JAX wrapper calls it with ``train=False``
   (``:135-137``): a BN model there normalises with its running stats and
   leaves them unchanged.
+
+Under a spatial mesh (``parallel/halo.py``) the per-example minimum and
+maximum of ``_scale`` are the whole image's: the ranks' own extremes are
+gathered over the spatial group (differentiably, for an unfrozen
+pretrained model).
 """
 
 import contextlib
@@ -26,8 +31,20 @@ import contextlib
 import torch
 from torch import nn
 
+from csmri_refinement_tpu_torch.parallel import halo
+
 MODES = ('add', 'real-penalty-add')
 INPUT_MODES = ('input', 'output', 'concat')
+
+
+def _extreme(flat, reduce):
+  """``reduce`` (amin or amax) over axis 1, over the whole image's rows
+  under a spatial mesh."""
+  value = reduce(flat, dim=1, keepdim=True)
+  mesh = halo.current()
+  if mesh is not None:
+    value = reduce(halo.gather_rows(value[None], mesh, dim=0), dim=0)
+  return value
 
 
 def _scale(tensor):
@@ -35,9 +52,9 @@ def _scale(tensor):
   max-after-min)."""
   b, h, w, c = tensor.shape
   flat = tensor.reshape(b, h * w, c)
-  minimum = flat.amin(dim=1, keepdim=True)
+  minimum = _extreme(flat, torch.amin)
   flat = flat - minimum
-  maximum = flat.amax(dim=1, keepdim=True)
+  maximum = _extreme(flat, torch.amax)
   flat = flat / maximum * 2.0 - 1.0
   return flat.reshape(b, h, w, c), minimum, maximum
 

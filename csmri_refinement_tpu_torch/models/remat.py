@@ -16,12 +16,18 @@ bit-equal to a stored one:
   ``generators`` is set back to its state at the forward for the
   recompute, so the same masks are drawn, and then to where it stood, so
   the stream goes on as without the recompute.
+
+A recompute under a spatial mesh runs in the backward, outside the
+runner's ``parallel/halo.py::sharded_rows`` block (and in autograd's own
+thread on the card): the block of the forward is entered again for it.
 """
 
 import contextlib
 import threading
 
 import torch.utils.checkpoint
+
+from csmri_refinement_tpu_torch.parallel import halo
 
 _state = threading.local()
 
@@ -33,14 +39,15 @@ def recomputing():
 
 
 @contextlib.contextmanager
-def _recompute(generators, states):
+def _recompute(generators, states, mesh):
   before = getattr(_state, 'recomputing', False)
   now = [g.get_state() for g in generators]
   for g, s in zip(generators, states):
     g.set_state(s)
   _state.recomputing = True
   try:
-    yield
+    with halo.sharded_rows(mesh):
+      yield
   finally:
     _state.recomputing = before
     for g, s in zip(generators, now):
@@ -51,7 +58,8 @@ def checkpoint(fn, *args, generators=()):
   """``fn(*args)``, recomputed in the backward instead of stored; the
   ``generators`` that ``fn`` draws from replay their draws."""
   states = [g.get_state() for g in generators]
+  mesh = halo.current()
   return torch.utils.checkpoint.checkpoint(
       fn, *args, use_reentrant=False,
       context_fn=lambda: (contextlib.nullcontext(),
-                          _recompute(generators, states)))
+                          _recompute(generators, states, mesh)))

@@ -44,6 +44,19 @@ compute dtype, as flax's ``BatchNorm`` does. Submodule names follow the
 flax tree (``encode_{s}.conv_{i}``, ``bn_{i}``, ``decode_{s}.up_conv``,
 ``decode_{s}.merge_bn``, ``decode_{s}.decode.conv_{i}``, ``head``) so the
 weight bridge is a 1:1 walk.
+
+Under a spatial mesh (``parallel/halo.py``) each rank holds its rows, a
+multiple of ``row_factor`` (2 per pool): the SAME convs take halo rows
+(``layers.same_conv``), max-pool and the 1×1 head are local, a
+``transposed`` up-conv of k > 2 takes the (k − 1) // 2 rows above whose
+overhang reaches its rows, ``pixelshuffle`` and the subpixel k4 up-conv
+are convs on the low-resolution grid (the latter recomputes the image's
+last row on the bottom rank only), ``_pad_to_target`` is a no-op, and BN
+takes the world's statistics. An eval chain through the conv kernel runs
+on its rows with a halo of L·pad rows per side (L layers), and drops the
+halo rows of its output, which hold every row the tile's own edges made
+wrong; the kernel is unchanged. The int8 mode is a single-card serving
+mode and raises there.
 """
 
 import torch
@@ -52,10 +65,11 @@ from torch import nn
 
 from csmri_refinement_tpu_torch.models import weight_inits
 from csmri_refinement_tpu_torch.models import remat as remat_lib
-from csmri_refinement_tpu_torch.models.layers import (leaky_relu, pad,
-                                                      same_conv, same_pad)
+from csmri_refinement_tpu_torch.models.layers import (
+    leaky_relu, local_pad, pad, pad_sizes, same_conv, same_pad)
 from csmri_refinement_tpu_torch.ops import conv_chain
 from csmri_refinement_tpu_torch.ops import quantize
+from csmri_refinement_tpu_torch.parallel import halo
 
 DEFAULT_RELU_LEAKINESS = 0.1
 PORTED_UPSAMPLING_MODES = ('transposed', 'pixelshuffle', 'nn',
@@ -189,10 +203,12 @@ class SubpixelNNResizeConv(nn.Conv2d):
     if self.pad_mode == 'reflection':
       weight = self.weight.to(dt)
       up = lambda v: F.interpolate(v, scale_factor=2, mode='nearest')
-      # Rows 2H-4..2H-1 of the upsampled image, padded inside the slab
-      # (which holds every row the reflection reaches): output row 2H-1.
-      row = pad(up(x[:, :, -2:]), (1, 2, 0, 2), 'reflect')
-      y[:, -1:] = _nhwc(F.conv2d(row, weight, bias)[:, :, 2:3])
+      mesh = halo.current()
+      if mesh is None or mesh.s == mesh.spatial - 1:
+        # Rows 2H-4..2H-1 of the upsampled image, padded inside the slab
+        # (which holds every row the reflection reaches): output row 2H-1.
+        row = local_pad(up(x[:, :, -2:]), (1, 2, 0, 2), 'reflect')
+        y[:, -1:] = _nhwc(F.conv2d(row, weight, bias)[:, :, 2:3])
       col = pad(up(x[:, :, :, -2:]), (0, 2, 1, 2), 'reflect')
       y[:, :, -1:] = _nhwc(F.conv2d(col, weight, bias)[:, :, :, 2:3])
     return y
@@ -251,12 +267,23 @@ class ConvEncodeUnit(nn.Module):
 
   def _fused_chain(self, x):
     """Eval-mode chain through the conv kernel (``ops/conv_chain.py``),
-    or its int8 mode with ``quantize_inference``."""
+    or its int8 mode with ``quantize_inference``; under a spatial mesh on
+    the rank's rows with a halo of L·pad rows per side."""
     dt = self.dtype or x.dtype
     forward = quantize.chain_forward_int8 if self.quantize_inference else \
         conv_chain.chain_forward
-    return forward(x.to(dt).contiguous(), self.chain_layers(),
-                   pad_mode=self.padding)
+    mesh = halo.current()
+    if mesh is None:
+      return forward(x.to(dt).contiguous(), self.chain_layers(),
+                     pad_mode=self.padding)
+    if self.quantize_inference:
+      raise NotImplementedError('quantize_inference is a single-card '
+                                'serving mode; it has no spatial mesh')
+    p1, p2 = pad_sizes(self.kernel_size)
+    top, bottom = self.num_layers * p1, self.num_layers * p2
+    tile = halo.halo_rows(x.to(dt), top, bottom, mesh, dim=1)
+    y = forward(tile.contiguous(), self.chain_layers(), pad_mode=self.padding)
+    return y.narrow(1, halo.taken(mesh, top, bottom)[0], x.shape[1])
 
   def _plain(self, x):
     dt = self.dtype or x.dtype
@@ -335,11 +362,16 @@ class ConvDecodeUnit(nn.Module):
     if self.subpixel:
       x = self.up_conv(x)
     elif self.mode == 'transposed':
+      h, w = x.shape[2:]
+      mesh = halo.current()
+      above = 0
+      if mesh is not None:     # the overhang of the rows above
+        reach = (conv.kernel_size[0] - 1) // 2
+        x = halo.halo_rows(x, reach, 0, mesh)
+        above = halo.taken(mesh, reach, 0)[0]
       x = F.conv_transpose2d(x, conv.weight.to(dt), bias, stride=2)
-      extra = conv.kernel_size[0] - 2        # VALID gives 2H + k − 2
-      if extra > 0:
-        x = x[:, :, :x.shape[2] - extra, :x.shape[3] - extra]
-      x = _nhwc(x)
+      # VALID gives 2H + k − 2: crop the overhang at the bottom/right
+      x = _nhwc(x[:, :, 2 * above:2 * (above + h), :2 * w])
     elif self.mode == 'pixelshuffle':
       x = _nhwc(F.pixel_shuffle(
           same_conv(x, conv.weight.to(dt), bias, self.padding), 2))
@@ -392,6 +424,7 @@ class UNET(nn.Module):
     n_enc = len(encode_filters)
     self.n_enc = n_enc
     self.n_dec = len(decode_filters)
+    self.row_factor = 2 ** (n_enc - 1)
 
     cin = num_inputs
     for scale, f in enumerate(encode_filters):

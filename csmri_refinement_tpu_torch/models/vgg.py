@@ -13,7 +13,9 @@ seeded random init when the config opts in with ``vgg_random_init: true``;
 otherwise loading raises. Submodules are named ``conv_{i}`` as in the flax
 tree. With a ``dtype`` (bf16 under ``train_dtype``) the convs compute in
 it and the parameters stay f32; the ImageNet normalisation runs in f32
-before the first conv's cast, as in flax.
+before the first conv's cast, as in flax. Under a spatial mesh the convs
+take halo rows (``layers.same_conv``) and the pools are local;
+``row_factor`` is 2 per pool before the last block taken.
 """
 
 import hashlib
@@ -24,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from csmri_refinement_tpu_torch.models.layers import same_conv
 
 # torchvision vgg19 cfg 'E'; 'M' = max-pool
 _CFG = [64, 64, 'M', 128, 128, 'M', 256, 256, 256, 256, 'M',
@@ -46,6 +50,7 @@ class VGG19(nn.Module):
     self.dtype = dtype
     if not self.output_blocks or self.output_blocks[-1] > 5:
       raise ValueError('VGG19 output blocks must lie in 0..5')
+    self.row_factor = 2 ** self.output_blocks[-1]
     cin = 3
     conv_idx = 0
     for item in _CFG:
@@ -75,8 +80,8 @@ class VGG19(nn.Module):
       else:
         conv = getattr(self, 'conv_{}'.format(conv_idx))
         dt = self.dtype or x.dtype
-        x = torch.relu(F.conv2d(x.to(dt), conv.weight.to(dt),
-                                conv.bias.to(dt), padding=1))
+        x = torch.relu(same_conv(x.to(dt), conv.weight.to(dt),
+                                 conv.bias.to(dt)))
         conv_idx += 1
     if last == 5:   # the pool-only block after the last conv
       out.append(x)

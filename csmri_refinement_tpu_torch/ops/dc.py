@@ -14,12 +14,20 @@ The noisy merge, the sampled-lines ("skinny") lowering and the JAX
 package's TPU lowering selectors are not ported: the dense DC is what the
 JAX package runs under ``CSMRI_TPU_FUSED_DC=1``, and the skinny lowering
 equals it exactly (its ``ops/dc.py:310-332``).
+
+Under a spatial mesh (``parallel/halo.py``) ``x`` holds the rank's image
+rows and ``k0`` and ``mask`` the whole images (every rank of the spatial
+group holds them: a layout the JAX package shards, the same values):
+``dc_kernel.dc_rows`` gathers x's rows and runs the same DC on the whole
+image. The JAX package's ``set_spatial_mesh`` switches XLA lowerings only
+and has no counterpart here.
 """
 
 import torch
 
 from csmri_refinement_tpu_torch.ops import dc_kernel
 from csmri_refinement_tpu_torch.ops.dc_kernel import kspace_merge_reference
+from csmri_refinement_tpu_torch.parallel import halo
 
 __all__ = ['data_consistency', 'kspace_merge_reference',
            'lines_acc_from_undersampling']
@@ -48,4 +56,7 @@ def data_consistency(x, k0, mask):
   Returns the (B, H, W, 2) float32 image with sampled k-space restored.
   """
   f32 = lambda t: t.to(torch.float32).contiguous()
+  mesh = halo.current()
+  if mesh is not None:
+    return dc_kernel.dc_rows(f32(x), f32(k0), f32(mask), mesh)
   return dc_kernel.dc_fused(f32(x), f32(k0), f32(mask))

@@ -30,6 +30,19 @@ on packed ``(B, H, W, 2)`` float32 images, ``(B, H, W, 1)`` float32 masks.
 * ``dc_fused`` — the device dispatch: where a gradient is needed, a CPU
   tensor takes ``dc_plain`` (autodiffed ``torch.fft``) and a CUDA tensor
   ``_DCFunction``; elsewhere (evaluation, a frozen network) the custom op.
+* ``dc_rows`` — the DC of a spatial mesh's rank (``parallel/halo.py``): x
+  holds the rank's image rows, k0 and mask the whole images. x's rows are
+  all-gathered within the spatial group and the DC runs on the whole image
+  (K1 on the card, the custom op without a gradient), of which the rank
+  keeps its rows: K1's output equals the one-process run's bit for bit.
+  The backward (``_RowsDCFunction``) all-gathers the gradient's rows, runs
+  K1-bwd on the whole image and keeps the rank's rows. The DC's
+  x-Jacobian is linear and Hermitian, so K1-bwd of the gathered gradient
+  is the sum of every rank's contribution: no reduce-scatter is needed.
+  ``grad_k0`` is the rank's share, ``fft2`` of its rows of the gradient
+  (zero elsewhere), as each rank's loss is its share. Every rank of the
+  group runs the whole DC: S-fold redundant work, left for a row-distributed
+  DC (``ROADMAP.md``, Queue 2).
 
 The kernel takes images of sides 2 to 512, by the route ``dc_route`` names
 by shape: square power-of-two sides by mixed-radix line FFTs
@@ -46,6 +59,7 @@ import torch
 
 from csmri_refinement_tpu_torch.ops import fft
 from csmri_refinement_tpu_torch.ops import native
+from csmri_refinement_tpu_torch.parallel import halo
 
 MAX_SIZE = 512
 
@@ -262,3 +276,55 @@ def dc_fused(x, k0, mask):
   if x.device.type == 'cpu':
     return dc_plain(x, k0, mask)
   return _DCFunction.apply(x, k0, mask)
+
+
+def _own_rows(y, mesh):
+  return halo.local_rows(y, mesh, 1).contiguous()
+
+
+class _RowsDCFunction(torch.autograd.Function):
+  """``dc_rows`` with a gradient: K1 on the gathered image forward, K1-bwd
+  on the gathered gradient backward (plain versions on CPU tensors)."""
+
+  @staticmethod
+  def forward(ctx, x, k0, mask, mesh):
+    ctx.save_for_backward(mask)
+    ctx.mesh, ctx.h = mesh, x.shape[1]
+    whole = halo.gather_rows(x, mesh, dim=1)
+    y = dc_plain(whole, k0, mask) if x.device.type == 'cpu' else \
+        dc_cuda(whole, k0, mask)
+    return _own_rows(y, mesh)
+
+  @staticmethod
+  def backward(ctx, g):
+    mask, = ctx.saved_tensors
+    mesh, h = ctx.mesh, ctx.h
+    need_x, need_k0 = ctx.needs_input_grad[:2]
+    g = g.float().contiguous()
+    grad_x = grad_k0 = None
+    if need_x:
+      whole = halo.gather_rows(g, mesh, dim=1)
+      grad_x = _own_rows(dc_plain_vjp(whole, mask, False)[0]
+                         if g.device.type == 'cpu' else
+                         dc_bwd_cuda(whole, mask), mesh)
+    if need_k0:
+      share = g.new_zeros(mask.shape[:3] + (2,))
+      share[:, mesh.s * h:(mesh.s + 1) * h] = g
+      grad_k0 = fft.pack_complex(fft.fft2(fft.unpack_complex(share)))
+    return grad_x, grad_k0, None, None
+
+
+def dc_rows(x, k0, mask, mesh):
+  """The DC of the rank's rows ``x`` (B, H/S, W, 2) of a spatial mesh,
+  with the whole images' ``k0`` (B, H, W, 2) and ``mask`` (B, H, W, 1):
+  the rank's rows of the whole image's DC."""
+  h = x.shape[1]
+  if k0.shape[1] != h * mesh.spatial or mask.shape[1] != k0.shape[1]:
+    raise ValueError('dc_rows: {} rows on each of {} ranks need k0 and mask '
+                     'of {} rows, got {} and {}'.format(
+                         h, mesh.spatial, h * mesh.spatial, k0.shape[1],
+                         mask.shape[1]))
+  if not _needs_grad(x, k0):
+    return _own_rows(torch.ops.csmri.dc(halo.gather_rows(x, mesh, dim=1),
+                                        k0, mask), mesh)
+  return _RowsDCFunction.apply(x, k0, mask, mesh)

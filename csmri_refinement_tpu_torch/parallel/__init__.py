@@ -9,7 +9,9 @@ synchronise the BatchNorm statistics in train mode and gather the
 validation outputs before the metrics. ``distributed.initialize`` starts
 the group (config ``distributed`` section, the JAX cluster environment or
 torchrun's); ``mesh.mesh_from_conf`` reads the config's ``mesh`` section.
-Only the ``data`` axis is ported: ``spatial`` raises.
+Its ``spatial`` axis shards each image's rows over the ranks of a spatial
+group as well (``halo``: the halo rows of the convs, the DC's row
+gathers).
 """
 
 from csmri_refinement_tpu_torch.parallel.mesh import (  # noqa: F401

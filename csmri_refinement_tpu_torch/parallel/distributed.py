@@ -17,7 +17,9 @@ Otherwise it starts ``torch.distributed``'s default group over TCP at the
 coordinator's address: NCCL when the run is on the card, gloo on the CPU.
 On the card each process takes ``cuda:LOCAL_RANK`` (torchrun's), or
 ``cuda:(process_id mod the visible card count)`` without it. NCCL takes
-one process per card, so a one-card machine runs a group of one.
+one process per card, so a one-card machine runs a group of one; a group
+the caller started already (two gloo ranks that share one card, say) is
+accepted as it is.
 """
 
 import logging

@@ -1,35 +1,61 @@
-"""The data-parallel mesh and its collectives, one process per card.
+"""The (data, spatial) mesh and its collectives, one process per rank.
 
 Port of ``csmri_refinement_tpu/parallel/mesh.py`` under the JAX names, with
 torch meaning. The JAX package shards one logical global batch over a
 GSPMD mesh and lets the compiler insert the collectives; here each process
-holds its own rows of every global batch, and the runners call the
-collectives themselves:
+holds its own part of every global batch, and the runners and layers call
+the collectives themselves.
 
-* ``Mesh``: the process group's size (``world``), this process's ``rank``,
-  its device and the group (None in a single-process run);
+The mesh is JAX's ``np.array(devices).reshape(D, S)``: ``spatial`` is the
+minor axis, so rank = d·S + s. The S adjacent ranks of one ``d`` form a
+spatial group and hold the same images, each its own H/S image rows (row
+block ``s``); the D ranks of one ``s`` form a data group.
+
+* ``Mesh``: the world, this process's rank, its device, the world group
+  (None in a single-process run), ``spatial`` (S) and the data and spatial
+  groups; ``d``, ``s``, ``data`` (D) and ``shard`` = ``(d, D)``, the
+  loader's ``process_shard`` (the S ranks of a spatial group load the same
+  items);
 * ``mesh_from_conf``: the config's ``mesh`` section against the running
-  group; ``{"data": -1}`` (or no section) and ``{"data": world}`` give one
-  card per process; any other ``data`` count and every ``spatial`` > 1
-  raise;
-* ``shard_batch`` / ``shard_stacked_batch``: this rank's contiguous rows of
-  a global batch (axis 0, or axis 1 of a ``(steps, batch, ...)`` stack);
-  a batch that does not divide over the world raises;
+  group. ``{"data": -1}`` (or no section) and ``{"data": world}`` give one
+  data shard per process; ``{"data": D, "spatial": S}`` needs D·S
+  processes (``data`` -1 takes world / S);
+* ``shard_batch`` / ``shard_stacked_batch``: this rank's contiguous batch
+  rows by ``d`` (axis 0, or axis 1 of a ``(steps, batch, ...)`` stack),
+  then, for leaves of three or more dims after those, its image rows by
+  ``s`` (the next axis); a batch or an image that does not divide raises.
+  Image rows must divide by S times the model's largest downsampling
+  factor (``row_factor``, which the runner sets): each rank's rows then
+  pool, stride and up-sample like the whole image's. JAX's GSPMD would pad
+  an uneven split; the port raises instead, naming the key;
 * ``replicate``: parameters and buffers broadcast from rank 0;
-* ``gather_to_replicated``: batch-leading tensors all-gathered in rank
-  order, so that every rank holds the global batch (the validation
-  metrics);
-* ``average_``: tensors averaged over the group in place (the gradients
-  and the fetched losses; every rank's rows are equally many, so the mean
-  of the ranks' means is the global batch's mean);
+* ``gather_to_replicated``: image rows all-gathered over the spatial group,
+  then the batch over the data group, in rank order, so that every rank
+  holds the global batch (the metrics). Leaves under ``WHOLE_KEYS`` are
+  whole on every rank of a spatial group already (the DC's k-space and
+  mask, the discriminator's head outputs) and are gathered over the data
+  group only;
+* ``average_``: tensors averaged over the world in place. Every rank's loss
+  is S times its share of its data group's loss: a mean over its rows,
+  which are equally many on every rank, or a value every rank of the
+  spatial group holds whole. Averaging over the world therefore sums the
+  shares over the spatial group and averages over the data group, for the
+  fetched losses and for the gradients alike;
 * ``sync_batchnorm``: the BatchNorm layers of a model take their train-mode
-  statistics over the group (``models/unet.py::BatchNorm2d``, through the
+  statistics over the world (``models/unet.py::BatchNorm2d``, through the
   differentiable ``all_reduce_sum``) when the world is above 1.
+
+The collectives go through ``all_gather``, ``all_reduce`` and
+``broadcast`` below, on the group's backend: NCCL, or gloo, which takes
+CUDA tensors for all three (the two ranks that share one card in
+``chip_smoke.py`` phase 23, which checks it on every run).
 
 Every other collective runs whenever the mesh has a group, a group of one
 included (its results are then the single process's, bit for bit); without
 a group each is the identity. A world of one keeps BatchNorm's local path,
-whose statistics are the global batch's already.
+whose statistics are the global batch's already. The layers' spatial side
+(halos, row gathers, sums over the spatial group) is
+``parallel/halo.py``.
 """
 
 import dataclasses
@@ -41,28 +67,59 @@ import torch.distributed as dist
 
 DATA_AXIS = 'data'
 SPATIAL_AXIS = 'spatial'
+# Batch keys whose leaves every rank of a spatial group holds whole.
+WHOLE_KEYS = ('kspace', 'mask', 'prob', 'logits')
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-  """One card per process: ``world`` processes, this one ``rank``."""
+  """``world`` processes as a (world / spatial, spatial) grid; this one is
+  ``rank``."""
   world: int
   rank: int
   device: torch.device
   group: Optional[Any] = None
+  spatial: int = 1
+  data_group: Optional[Any] = None
+  spatial_group: Optional[Any] = None
+  row_factor: int = 1
+
+  @property
+  def data(self):
+    return self.world // self.spatial
+
+  @property
+  def d(self):
+    return self.rank // self.spatial
+
+  @property
+  def s(self):
+    return self.rank % self.spatial
 
   @property
   def shard(self):
-    """``(rank, world)``, the loader's ``process_shard``."""
-    return self.rank, self.world
+    """``(d, D)``, the loader's ``process_shard``."""
+    return self.d, self.data
 
   def rows(self, n):
-    """This rank's slice of a global axis of ``n``."""
-    if n % self.world:
+    """This rank's slice of a global batch axis of ``n``."""
+    if n % self.data:
       raise ValueError('a global batch of {} does not divide over {} '
-                       'processes'.format(n, self.world))
-    per = n // self.world
-    return slice(self.rank * per, (self.rank + 1) * per)
+                       'processes'.format(n, self.data))
+    per = n // self.data
+    return slice(self.d * per, (self.d + 1) * per)
+
+  def image_rows(self, n):
+    """This rank's slice of an image axis of ``n`` rows."""
+    if n % (self.spatial * self.row_factor):
+      raise ValueError(
+          'mesh spatial={}: an image of {} rows does not divide into {} '
+          'row blocks of a multiple of {} (the model\'s largest '
+          'downsampling factor); use a spatial count that divides H / {}'
+          .format(self.spatial, n, self.spatial, self.row_factor,
+                  self.row_factor))
+    per = n // self.spatial
+    return slice(self.s * per, (self.s + 1) * per)
 
 
 def _running_group():
@@ -71,27 +128,53 @@ def _running_group():
   return 1, 0, None
 
 
+def _groups(world, rank, spatial):
+  """(data group, spatial group) of ``rank``. Every process creates every
+  group, in one order, as ``dist.new_group`` requires."""
+  data = world // spatial
+  if spatial == 1:
+    return dist.group.WORLD, None
+  if data == 1:
+    return None, dist.group.WORLD
+  mine = {}
+  for s in range(spatial):
+    group = dist.new_group([d * spatial + s for d in range(data)])
+    if rank % spatial == s:
+      mine['data'] = group
+  for d in range(data):
+    group = dist.new_group([d * spatial + s for s in range(spatial)])
+    if rank // spatial == d:
+      mine['spatial'] = group
+  return mine['data'], mine['spatial']
+
+
 def mesh_from_conf(conf, device='cuda'):
   """The run's mesh from the config's ``mesh`` section and the process
   group ``parallel.distributed.initialize`` started; None for a
   single-process run without a ``mesh`` section."""
   mesh_conf = conf.get_attr('mesh', default=None) or {}
   spatial = int(mesh_conf.get(SPATIAL_AXIS, 1) or 1)
-  if spatial > 1:
-    raise NotImplementedError(
-        'mesh spatial={}: image rows sharded over cards are not ported '
-        '(ROADMAP.md, Queue 1); use the data axis'.format(spatial))
   world, rank, group = _running_group()
   n = mesh_conf.get(DATA_AXIS, -1)
-  if n not in (-1, 0, None) and int(n) != world:
+  if n in (-1, 0, None):
+    if world % spatial:
+      raise ValueError(
+          'mesh spatial={} does not divide the {} processes of this run'
+          .format(spatial, world))
+    n = world // spatial
+  n = int(n)
+  if n * spatial != world:
     raise ValueError(
-        'mesh data={} needs {} processes, one per card, and this run has {}: '
-        'start them with torchrun or the config\'s distributed section '
-        '(coordinator_address, num_processes, process_id)'.format(
-            n, n, world))
+        'mesh data={} spatial={} needs {} processes, one per rank, and this '
+        'run has {}: start them with torchrun or the config\'s distributed '
+        'section (coordinator_address, num_processes, process_id)'.format(
+            n, spatial, n * spatial, world))
   if group is None and not mesh_conf:
     return None
-  return Mesh(world, rank, torch.device(device), group)
+  data_group, spatial_group = (None, None) if group is None else \
+      _groups(world, rank, spatial)
+  return Mesh(world, rank, torch.device(device), group, spatial, data_group,
+              spatial_group)
 
 
 def multiprocess():
@@ -99,34 +182,82 @@ def multiprocess():
   return _running_group()[0] > 1
 
 
-def _map(fn, tree):
+# -- collectives ---------------------------------------------------------------
+
+def all_gather(t, group):
+  """The list of every rank's ``t`` (one shape on every rank) in the
+  group's rank order."""
+  t = t.contiguous()
+  parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+  dist.all_gather(parts, t, group=group)
+  return parts
+
+
+def all_reduce(t, group, op=dist.ReduceOp.SUM):
+  """``t`` reduced over the group, in place; returns ``t``."""
+  dist.all_reduce(t, op, group=group)
+  return t
+
+
+def broadcast(t, src, group):
+  """``t`` from the world rank ``src``, in place."""
+  dist.broadcast(t, src, group=group)
+  return t
+
+
+# -- trees ---------------------------------------------------------------------
+
+def _map(fn, tree, whole=False):
+  """``fn(leaf, whole)`` over a tree; ``whole`` is True under a dict key of
+  ``WHOLE_KEYS``."""
   if isinstance(tree, dict):
-    return {k: _map(fn, v) for k, v in tree.items()}
+    return {k: _map(fn, v, whole or k in WHOLE_KEYS)
+            for k, v in tree.items()}
   if isinstance(tree, (list, tuple)):
-    return type(tree)(_map(fn, v) for v in tree)
-  return fn(tree)
+    return type(tree)(_map(fn, v, whole) for v in tree)
+  return fn(tree, whole)
 
 
-def _rows_of(x, mesh, axis):
-  if getattr(x, 'ndim', 0) <= axis:
+def _image_rows(x, mesh, axis):
+  return x[(slice(None),) * axis + (mesh.image_rows(x.shape[axis]),)]
+
+
+def _cut(x, mesh, axis, rows):
+  ndim = getattr(x, 'ndim', 0)
+  if ndim <= axis:
     return x
-  index = (slice(None),) * axis + (mesh.rows(x.shape[axis]),)
-  return x[index]
+  x = x[(slice(None),) * axis + (mesh.rows(x.shape[axis]),)]
+  if rows and mesh.spatial > 1 and ndim - axis >= 3:
+    x = _image_rows(x, mesh, axis + 1)
+  return x
 
 
-def shard_batch(batch, mesh):
-  """This rank's rows of a global batch (arrays or tensors, leading axis
-  the batch); the batch itself without a mesh."""
+def shard_batch(batch, mesh, rows=True):
+  """This rank's part of a global batch (arrays or tensors, leading axis
+  the batch): its batch rows and, with ``rows``, its image rows of every
+  leaf of three or more dims; the batch itself without a mesh."""
   if mesh is None:
     return batch
-  return _map(lambda x: _rows_of(x, mesh, 0), batch)
+  return _map(lambda x, whole: _cut(x, mesh, 0, rows and not whole), batch)
 
 
 def shard_stacked_batch(batch, mesh):
-  """This rank's rows of a ``(steps, batch, ...)`` stack (axis 1)."""
+  """This rank's part of a ``(steps, batch, ...)`` stack (axis 1, then its
+  image rows)."""
   if mesh is None:
     return batch
-  return _map(lambda x: _rows_of(x, mesh, 1), batch)
+  return _map(lambda x, whole: _cut(x, mesh, 1, not whole), batch)
+
+
+def split_image_rows(batch, mesh):
+  """This rank's image rows (axis 1) of every leaf of three or more dims of
+  a batch the rank holds whole, except those under ``WHOLE_KEYS``: a
+  batch prepared on whole images, cut for a spatial mesh."""
+  if mesh is None or mesh.spatial == 1:
+    return batch
+
+  return _map(lambda x, whole: x if whole or getattr(x, 'ndim', 0) < 3
+              else _image_rows(x, mesh, 1), batch)
 
 
 def replicate(module, mesh):
@@ -136,31 +267,39 @@ def replicate(module, mesh):
     return module
   with torch.no_grad():
     for t in chain(module.parameters(), module.buffers()):
-      dist.broadcast(t.data, 0, group=mesh.group)
+      broadcast(t.data, 0, mesh.group)
   return module
 
 
-def _gather(t, mesh):
-  if not isinstance(t, torch.Tensor) or t.ndim == 0:
-    return t
-  wire = t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
-  parts = [torch.empty_like(wire) for _ in range(mesh.world)]
-  dist.all_gather(parts, wire, group=mesh.group)
-  out = torch.cat(parts)
+def _gather(t, group, dim):
+  wire = t.to(torch.uint8) if t.dtype == torch.bool else t
+  out = torch.cat(all_gather(wire, group), dim)
   return out.to(torch.bool) if t.dtype == torch.bool else out
 
 
-def gather_to_replicated(tree, mesh):
-  """Every batch-leading tensor of ``tree`` all-gathered over the group in
-  rank order: the global batch on every rank. Numpy arrays and scalars
-  pass unchanged; so does the tree without a group."""
+def gather_to_replicated(tree, mesh, rows=True):
+  """Every tensor of ``tree`` gathered to the global batch in rank order:
+  with ``rows``, the image rows (axis 1) of leaves of three or more dims
+  over the spatial group (not those under ``WHOLE_KEYS``), then axis 0
+  over the data group. Numpy arrays and scalars pass unchanged; so does
+  the tree without a group."""
   if mesh is None or mesh.group is None:
     return tree
-  return _map(lambda t: _gather(t, mesh), tree)
+
+  def gather(t, whole):
+    if not isinstance(t, torch.Tensor) or t.ndim == 0:
+      return t
+    if rows and mesh.spatial_group is not None and not whole and \
+        t.ndim >= 3:
+      t = _gather(t, mesh.spatial_group, 1)
+    if mesh.data_group is not None:
+      t = _gather(t, mesh.data_group, 0)
+    return t
+  return _map(gather, tree)
 
 
 def average_(tensors, mesh):
-  """Average ``tensors`` over the group in place: one flat all-reduce per
+  """Average ``tensors`` over the world in place: one flat all-reduce per
   dtype, divided by the world."""
   if mesh is None or mesh.group is None:
     return
@@ -170,7 +309,7 @@ def average_(tensors, mesh):
   with torch.no_grad():
     for ts in by_dtype.values():
       flat = torch.cat([t.reshape(-1) for t in ts])
-      dist.all_reduce(flat, group=mesh.group)
+      all_reduce(flat, mesh.group)
       flat /= mesh.world
       offset = 0
       for t in ts:
@@ -179,7 +318,7 @@ def average_(tensors, mesh):
 
 
 def average_gradients(params, mesh):
-  """Average the ``.grad`` of ``params`` over the group (before the
+  """Average the ``.grad`` of ``params`` over the world (before the
   optimizer step); a parameter without a gradient keeps None."""
   average_([p.grad for p in params if p.grad is not None], mesh)
 
@@ -191,15 +330,11 @@ class _AllReduceSum(torch.autograd.Function):
   @staticmethod
   def forward(ctx, t, group):
     ctx.group = group
-    t = t.clone()
-    dist.all_reduce(t, group=group)
-    return t
+    return all_reduce(t.clone(), group)
 
   @staticmethod
   def backward(ctx, g):
-    g = g.clone()
-    dist.all_reduce(g, group=ctx.group)
-    return g, None
+    return all_reduce(g.clone(), ctx.group), None
 
 
 def all_reduce_sum(t, group):
@@ -209,7 +344,7 @@ def all_reduce_sum(t, group):
 
 def sync_batchnorm(module, mesh):
   """Make every BatchNorm layer of ``module`` compute its train-mode
-  statistics over the mesh's group (a no-op without one, or in a world of
+  statistics over the mesh's world (a no-op without one, or in a world of
   one)."""
   from csmri_refinement_tpu_torch.models.unet import BatchNorm2d
   group = mesh.group if mesh is not None and mesh.world > 1 else None
@@ -217,4 +352,3 @@ def sync_batchnorm(module, mesh):
     if isinstance(m, BatchNorm2d):
       m.process_group = group
   return module
-

@@ -43,7 +43,10 @@ every global batch (``process_shard``; ``batch_size`` stays global), the
 runner averages gradients and losses and gathers the validation data, and
 only rank 0 writes the run dir, its log file, summaries and checkpoints. A
 SIGTERM on any rank stops every rank after the epoch, rank 0 saving once.
-The group is destroyed at exit.
+The group is destroyed at exit. A config's ``"mesh": {"data": D,
+"spatial": S}`` takes D·S processes (``torchrun --nproc-per-node`` D·S);
+the S ranks of a spatial group load the same items and each trains on its
+image rows (``parallel/halo.py``).
 """
 
 import argparse
@@ -59,6 +62,7 @@ import torch
 
 from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
 from csmri_refinement_tpu_torch.parallel import distributed
+from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 from csmri_refinement_tpu_torch.training import build_runner
 from csmri_refinement_tpu_torch.training.early_stopping import EarlyStopper
 from csmri_refinement_tpu_torch.utils.checkpoint_paths import (
@@ -126,8 +130,7 @@ def _stop_requested(runner):
   if runner.mesh is None or runner.mesh.group is None:
     return requested
   flag = torch.tensor([float(requested)], device=runner.device)
-  torch.distributed.all_reduce(flag, torch.distributed.ReduceOp.MAX,
-                               group=runner.mesh.group)
+  mesh_lib.all_reduce(flag, runner.mesh.group, torch.distributed.ReduceOp.MAX)
   return bool(flag.item())
 
 

@@ -58,7 +58,13 @@ fakes are gathered in rank order, every rank queries its own copy of the
 pool with the same decisions (the pool generator is seeded alike) and keeps
 its rows, so that the pools stay equal to each other and to a single
 process's. The discriminator's dropout decisions are drawn for the global
-batch (``batch_shard``).
+batch (``batch_shard``). Under a spatial mesh the update and the
+validation step run on the rank's image rows
+(``parallel/halo.py::sharded_rows``): each rank's pool stores its rows,
+the discriminator's head outputs are whole on every rank of a spatial
+group, and the metrics' data gathers the rows and the batch of the
+generator's output and the batch of the head outputs (the feature maps
+are left out).
 """
 
 import logging
@@ -73,6 +79,7 @@ from csmri_refinement_tpu_torch.models import (construct_model,
 from csmri_refinement_tpu_torch.models.adversarial_loss import (
     FeatureMatchingLoss)
 from csmri_refinement_tpu_torch.models.criteria import get_criterion
+from csmri_refinement_tpu_torch.parallel import halo
 from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 from csmri_refinement_tpu_torch.training.adversarial_training import (
     get_discriminator_input_fn)
@@ -153,9 +160,12 @@ class AdversarialRunner(BaseRunner):
     self.train_remat = False
     if mode == 'train':
       self._build_training(conf)
-      self._setup_mesh(self.preparer, self.gen, self.disc)
+      self._setup_mesh(self.preparer, self.gen, self.disc,
+                       criteria=self.gen_criteria.values())
       if self.mesh is not None:
         self.disc.batch_shard = self.mesh.shard
+    else:
+      self._setup_mesh(self.preparer, self.gen)
 
   def _build_training(self, conf):
     self.steps_per_fetch = conf.get_attr('steps_per_fetch', default=1)
@@ -258,6 +268,10 @@ class AdversarialRunner(BaseRunner):
     """One update on a prepared batch; returns (losses, detached data for
     the train metrics: batch, generator output, discriminator outputs on
     fakes and reals or None)."""
+    with halo.sharded_rows(self.mesh):
+      return self._train_batch(batch, update_gen, update_disc)
+
+  def _train_batch(self, batch, update_gen, update_disc):
     use_disc = self.discriminator_enabled
     update_gen = update_gen and self.generator_enabled
     update_disc = update_disc and use_disc
@@ -373,7 +387,7 @@ class AdversarialRunner(BaseRunner):
     if not compute_metrics:
       return {}, (batch, out_gen)
     out_fake = out_real = None
-    with torch.no_grad(), full_f32():
+    with torch.no_grad(), full_f32(), halo.sharded_rows(self.mesh):
       if self.disc is not None:
         self.disc.eval()
         out_fake = cast_outputs_f32(self.disc(self.val_disc_input_fn(
@@ -389,7 +403,7 @@ class AdversarialRunner(BaseRunner):
     """The generator's eval-mode output on a prepared batch, in full
     f32."""
     self.gen.eval()
-    with torch.no_grad(), full_f32():
+    with torch.no_grad(), full_f32(), halo.sharded_rows(self.mesh):
       return self.gen(*self._gen_inputs(batch))
 
   def export_predict_parts(self):
@@ -422,9 +436,17 @@ class AdversarialRunner(BaseRunner):
     if data is None or not (self.train_gen_metric_fns or
                             self.train_disc_metric_fns):
       return {}
-    return self._metrics(mesh_lib.gather_to_replicated(data, self.mesh),
-                         self.train_gen_metric_fns,
+    return self._metrics(self._gather(data), self.train_gen_metric_fns,
                          self.train_disc_metric_fns)
+
+  def _gather(self, data):
+    """The base runner's gather; under a spatial mesh the discriminator's
+    outputs keep their whole head outputs only."""
+    if self.mesh is not None and self.mesh.spatial > 1 and len(data) > 2:
+      data = data[:2] + tuple(
+          None if out is None else {k: out[k] for k in ('prob', 'logits')}
+          for out in data[2:])
+    return super()._gather(data)
 
   def _compute_test_metrics(self, data):
     return self._metrics(data, self.val_metric_fns, self.val_disc_metric_fns)

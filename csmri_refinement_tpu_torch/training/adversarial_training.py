@@ -7,7 +7,10 @@ prediction (or the target) to the discriminator's input with the methods
 per-example mean/std normalisation. A detached input goes through the image
 pool when it is a fake (or any input with ``image_pool_label_swapping``);
 in a data-parallel run the pool sees the global batch (the rank's rows
-gathered in rank order, queried, the rank's rows kept).
+gathered in rank order, queried, the rank's rows kept). Under a spatial
+mesh each rank's pool stores its image rows of the global batch's images,
+with the decisions every rank draws alike; the per-example normalisation
+takes the whole image's statistics (sums over the spatial group).
 
 ``strip_bg_class`` drops channel 0 (the background class) of the
 prediction first. The conditional-input keys are taken as the JAX package
@@ -20,6 +23,7 @@ consume the conditional input (JAX computes it and drops it, ``:89``).
 import torch
 
 from csmri_refinement_tpu_torch.ops import fft
+from csmri_refinement_tpu_torch.parallel import halo
 from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 
 DEFAULT_INPUT_METHOD = 'simple'
@@ -29,8 +33,16 @@ def _normalize_per_example(x):
   """Zero mean, unit (population) std per example and channel."""
   b, h, w, c = x.shape
   flat = x.reshape(b, h * w, c)
-  flat = flat - flat.mean(dim=1, keepdim=True)
-  flat = flat / (flat.std(dim=1, keepdim=True, correction=0) + 1e-12)
+  mesh = halo.current()
+  if mesh is None:
+    flat = flat - flat.mean(dim=1, keepdim=True)
+    std = flat.std(dim=1, keepdim=True, correction=0)
+  else:
+    n = h * w * mesh.spatial
+    flat = flat - halo.sum_rows(flat.sum(1, keepdim=True), mesh) / n
+    std = torch.sqrt(halo.sum_rows((flat * flat).sum(1, keepdim=True),
+                                   mesh) / n)
+  flat = flat / (std + 1e-12)
   return flat.reshape(b, h, w, c)
 
 
@@ -75,9 +87,10 @@ class DiscriminatorInputFn:
       disc_input = disc_input.detach()
       if self.use_pool and pool is not None and \
           (not is_real_input or self.pool_label_swapping):
-        queried = pool.query(mesh_lib.gather_to_replicated(disc_input, mesh),
-                             generator, self.pool_sample_prob)
-        disc_input = mesh_lib.shard_batch(queried, mesh)
+        queried = pool.query(
+            mesh_lib.gather_to_replicated(disc_input, mesh, rows=False),
+            generator, self.pool_sample_prob)
+        disc_input = mesh_lib.shard_batch(queried, mesh, rows=False)
     return disc_input
 
 

@@ -28,8 +28,19 @@ every rank logs and checks the global batch's numbers, and its BatchNorm
 layers take the global batch's statistics. Every loss of the port is a mean
 over equally many rows per rank, so the mean of the ranks' losses (and of
 their gradients) is the global batch's.
+
+A spatial mesh (``{"data": D, "spatial": S}``) shards each image's rows
+over the S ranks of a spatial group as well: the preparer cuts its batch
+to the rank's rows, the steps run inside ``parallel/halo.py::sharded_rows``
+(the layers' halos, the DC's row gathers), and the metrics' data gathers
+the rows, then the batch (``_gather``). The loss of a rank is then S times
+its share (a mean over its rows, or a value every rank of the group holds
+whole), so the same world averages give the global batch's losses and
+gradients (``parallel/mesh.py``). The first batch whose image rows do not
+divide by S times the models' largest downsampling factor raises.
 """
 
+import dataclasses
 import logging
 from itertools import chain
 
@@ -38,6 +49,7 @@ import torch
 from csmri_refinement_tpu_torch.data.transform_wrappers import (
     get_output_transform)
 from csmri_refinement_tpu_torch.metrics import accumulate_metric
+from csmri_refinement_tpu_torch.parallel import halo
 from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 
 
@@ -91,19 +103,35 @@ class BaseRunner:
     self._pending_host_batch = None
     self.mesh = None
 
-  def _setup_mesh(self, preparer, *models):
-    """Take the run's mesh in mode 'train': the models' states broadcast
-    from rank 0, their BatchNorm statistics over the group, the preparer's
-    draws sharded."""
-    if self.mode != 'train':
+  def _setup_mesh(self, preparer, *models, criteria=()):
+    """Take the run's mesh in mode 'train', and in mode 'test' under a
+    process group (the validate CLI under torchrun): the models' states
+    broadcast from rank 0, their BatchNorm statistics over the group, the
+    preparer's draws and rows sharded; the image rows must divide by the
+    largest downsampling factor of the models and of the criteria's
+    networks. A single process in mode 'test' evaluates whole images."""
+    if self.mode != 'train' and not mesh_lib.multiprocess():
+      if (self.conf.get_attr('mesh', default=None) or {}).get(
+          mesh_lib.SPATIAL_AXIS, 1) not in (1, None):
+        logging.warning('mesh: one process evaluates whole images; start '
+                        'the processes of the spatial axis to shard rows')
       return
-    self.mesh = mesh_lib.mesh_from_conf(self.conf, self.device)
-    if self.mesh is None:
+    mesh = mesh_lib.mesh_from_conf(self.conf, self.device)
+    if mesh is None:
       return
+    networks = [getattr(getattr(c, 'criterion', None), 'vgg', None)
+                for c in criteria]
+    self.mesh = dataclasses.replace(
+        mesh, row_factor=halo.row_factor(*models, *networks))
     for model in models:
       mesh_lib.replicate(model, self.mesh)
       mesh_lib.sync_batchnorm(model, self.mesh)
     preparer.shard = self.mesh.shard
+    preparer.mesh = self.mesh
+
+  def _gather(self, data):
+    """A step's data for the metrics: the global batch's whole images."""
+    return mesh_lib.gather_to_replicated(data, self.mesh)
 
   def _train_dtype(self, section):
     """A model section with the run's ``train_dtype`` as its ``dtype``, in
@@ -212,7 +240,7 @@ class BaseRunner:
     epoch_metrics = {}
     for batch in loader:
       loss_metrics, data = self._val_step(batch)
-      data = mesh_lib.gather_to_replicated(data, self.mesh)
+      data = self._gather(data)
       if len(epoch_data) < num_batches_to_return:
         epoch_data.append(to_host(data))
       metrics = self._compute_test_metrics(data)
@@ -241,7 +269,8 @@ class BaseRunner:
 
   def infer(self, loader):
     """Every batch's data on the host, without losses or metrics."""
-    return [to_host(self._val_step(batch, compute_metrics=False)[1])
+    return [to_host(self._gather(self._val_step(batch,
+                                                compute_metrics=False)[1]))
             for batch in loader]
 
   @staticmethod

@@ -34,10 +34,15 @@ host, so the preparer is not ``device_pure``:
 Validation adds no noise, as the JAX package's ``_val_cartesian`` passes
 none: ``undersampling.noise`` is training randomness only.
 
-In a data-parallel run the runner sets ``shard = (rank, world)``: a train
-step's masks and noise (and a radial step's host masks) are drawn for the
-global batch and the rank keeps its rows, as the JAX package draws over
-its one global batch; validation masks go by slice index anyway.
+In a data-parallel run the runner sets ``shard = (d, D)`` and ``mesh``: a
+train step's masks and noise (and a radial step's host masks) are drawn for
+the global batch and the rank keeps its batch rows, as the JAX package
+draws over its one global batch; validation masks go by slice index
+anyway. Under a spatial mesh the forward model runs on the whole images of
+the rank's batch rows, with the same draws as a one-process run, and the
+batch is then cut to the rank's image rows
+(``parallel/mesh.py::split_image_rows``); ``kspace`` and ``mask`` stay
+whole, for the DC (``ops/dc.py``).
 """
 
 import numpy as np
@@ -45,6 +50,7 @@ import torch
 
 from csmri_refinement_tpu_torch.ops import masks as mask_ops
 from csmri_refinement_tpu_torch.ops import undersample as us_ops
+from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 
 VAL_MASK_SEED = 0
 
@@ -62,6 +68,7 @@ class RecBatchPreparer:
       raise ValueError('Unknown sampling scheme {}'.format(self.scheme))
     self.device = torch.device(device)
     self.shard = None
+    self.mesh = None
     self._val_masks = {}
 
   @property
@@ -78,7 +85,7 @@ class RecBatchPreparer:
     for key in ('label', 'index'):
       if key in host_batch:
         batch[key] = torch.as_tensor(host_batch[key]).to(self.device)
-    return batch
+    return mesh_lib.split_image_rows(batch, self.mesh)
 
   def prepare_train(self, generator, host_batch):
     gt = self._gt(host_batch)
@@ -123,14 +130,17 @@ class SegBatchPreparer:
 
   device_pure = True
   shard = None      # nothing is drawn: the rows are the host's
+  mesh = None
 
   def __init__(self, device):
     self.device = torch.device(device)
 
   def prepare_train(self, generator, host_batch):
-    return {'inp': torch.as_tensor(host_batch['inp'],
-                                   dtype=torch.float32).to(self.device),
-            'target': torch.as_tensor(host_batch['target']).to(self.device)}
+    return mesh_lib.split_image_rows(
+        {'inp': torch.as_tensor(host_batch['inp'],
+                                dtype=torch.float32).to(self.device),
+         'target': torch.as_tensor(host_batch['target']).to(self.device)},
+        self.mesh)
 
   def prepare_val(self, host_batch):
     return self.prepare_train(None, host_batch)

@@ -39,7 +39,9 @@ mode ``'test'`` ignores all three, as JAX does (``:59``, ``:127-128``):
   host, a step is one update and one fetch (JAX ``:309-310``).
 
 In a data-parallel run (``base_runner``'s docstring) each update averages
-the model's gradients over the group before the optimizer step.
+the model's gradients over the group before the optimizer step; under a
+spatial mesh the update and the validation step run on the rank's image
+rows (``parallel/halo.py::sharded_rows``).
 """
 
 import logging
@@ -50,6 +52,7 @@ from csmri_refinement_tpu_torch.metrics import get_loss_metric, get_metric_fn
 from csmri_refinement_tpu_torch.models import (construct_model,
                                                get_input_keys, remat)
 from csmri_refinement_tpu_torch.models.criteria import get_criterion
+from csmri_refinement_tpu_torch.parallel import halo
 from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 from csmri_refinement_tpu_torch.training.base_runner import (
     BaseRunner, cast_outputs_f32, detach, mean_losses)
@@ -97,7 +100,6 @@ class Runner(BaseRunner):
         name: get_metric_fn(conf, name)
         for name in conf.get_attr('validation_metrics', default=[])}
     self.preparer = get_batch_preparer(conf, self.device)
-    self._setup_mesh(self.preparer, self.model)
     self.step = 0
 
     self.criteria = {}
@@ -125,6 +127,8 @@ class Runner(BaseRunner):
       self.train_metric_fns = {
           name: get_metric_fn(conf, name)
           for name in conf.get_attr('train_metrics', default=[])}
+    self._setup_mesh(self.preparer, self.model,
+                     criteria=self.criteria.values())
 
   def _model_inputs(self, batch):
     return [batch[k] for k in self.input_keys]
@@ -134,6 +138,10 @@ class Runner(BaseRunner):
   def train_batch(self, batch):
     """One update on a prepared batch; returns (losses with the weighted
     total under 'loss', model output), detached."""
+    with halo.sharded_rows(self.mesh):
+      return self._train_batch(batch)
+
+  def _train_batch(self, batch):
     self.model.train()
     inputs = self._model_inputs(batch)
     out = cast_outputs_f32(remat.checkpoint(self.model, *inputs)
@@ -175,7 +183,7 @@ class Runner(BaseRunner):
     out = cast_outputs_f32(self.predict(batch))
     if not compute_metrics:
       return {}, (batch, out)
-    with torch.no_grad(), full_f32():
+    with torch.no_grad(), full_f32(), halo.sharded_rows(self.mesh):
       losses = {name: crit(out, batch)
                 for name, crit in self.criteria.items()}
     return _loss_metrics([losses], self.mesh), (batch, out)
@@ -183,7 +191,7 @@ class Runner(BaseRunner):
   def predict(self, batch):
     """The model's eval-mode output on a prepared batch, in full f32."""
     self.model.eval()
-    with torch.no_grad(), full_f32():
+    with torch.no_grad(), full_f32(), halo.sharded_rows(self.mesh):
       return self.model(*self._model_inputs(batch))
 
   def export_predict_parts(self):
@@ -193,7 +201,7 @@ class Runner(BaseRunner):
   def _compute_train_metrics(self, data):
     if data is None or not self.train_metric_fns:
       return {}           # (steps_per_fetch: no per-step train metrics)
-    batch, out = mesh_lib.gather_to_replicated(data, self.mesh)
+    batch, out = self._gather(data)
     return {name: fn(out, batch) for name, fn in self.train_metric_fns.items()}
 
   def _compute_test_metrics(self, data):

@@ -17,6 +17,12 @@ unprocessed input, prediction and target (the output transform off, so
 The log goes beside the checkpoint unless ``--dry``. It runs on the card
 unless ``--device cpu`` is given; with no card and no ``--device cpu`` it
 raises. PNGs are written with ``zlib`` and ``struct`` (no PIL).
+
+Under torchrun or a config's ``distributed`` section it starts the process
+group as the training CLI does: each rank evaluates its part of every
+batch (its batch rows, and its image rows under the ``mesh`` section's
+``spatial`` axis), the metrics and outputs are gathered to every rank,
+and only rank 0 writes.
 """
 
 import argparse
@@ -32,6 +38,7 @@ import torch
 from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
 from csmri_refinement_tpu_torch.data.datasets import is_dataset
 from csmri_refinement_tpu_torch.data.io_mat import save_raw
+from csmri_refinement_tpu_torch.parallel import distributed
 from csmri_refinement_tpu_torch.training import build_runner
 from csmri_refinement_tpu_torch.utils.checkpoint_paths import get_run_dir
 from csmri_refinement_tpu_torch.utils.checkpoints import restore_checkpoint
@@ -134,20 +141,32 @@ def main(argv):
                        'CPU with the plain versions')
   if args.raw and args.batch_size != 1:
     raise ValueError('--raw writes one slice per record: use -b 1')
-  setup_logging(None if args.dry else os.path.dirname(args.checkpoint),
-                'eval', verbose=args.verbose)
-  logging.info('Commandline arguments: %s', ' '.join(argv))
-
   conf = Configuration.from_json(args.config)
   if args.conf:
     conf.update(dict(arg.split('=', 1) for arg in args.conf))
+  started = not torch.distributed.is_initialized()
+  device = distributed.initialize(conf, args.device)
+  try:
+    return _main(args, argv, conf, device)
+  finally:
+    if started:
+      distributed.shutdown()
+
+
+def _main(args, argv, conf, device):
+  rank_zero = not torch.distributed.is_initialized() or \
+      torch.distributed.get_rank() == 0
+  dry = args.dry or not rank_zero
+  setup_logging(None if dry else os.path.dirname(args.checkpoint),
+                'eval', verbose=args.verbose)
+  logging.info('Commandline arguments: %s', ' '.join(argv))
   if args.verbose:
     logging.debug(str(conf.to_dict()))
   if args.raw:
     # Raw matrices: no output transform
     conf.application = 'none'
 
-  runner = build_runner(conf, conf.runner_type, 'test', args.device)
+  runner = build_runner(conf, conf.runner_type, 'test', device)
   if args.checkpoint != 'NONE':
     if not os.path.exists(args.checkpoint):
       raise FileNotFoundError('Checkpoint {} to restore from not '
@@ -159,13 +178,15 @@ def main(argv):
   datasets = [load_dataset(conf, args.data_dir, name, args.fold)
               for name in names if is_dataset(name)]
   num_samples = conf.get_attr('num_validation_subset_samples')
-  write = not args.dry and (args.infer or args.dump or args.raw)
+  write = not dry and (args.infer or args.dump or args.raw)
   results = {}
   for dataset in datasets:
     logging.info('Evaluating dataset %s', dataset.name)
     loader = DataLoader(dataset, args.batch_size,
                         num_workers=DEFAULT_NUM_WORKERS,
-                        num_samples=num_samples)
+                        num_samples=num_samples,
+                        process_shard=None if runner.mesh is None else
+                        runner.mesh.shard)
     metrics = None
     if args.raw:
       data = runner.infer(loader)

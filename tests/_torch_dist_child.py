@@ -1,5 +1,6 @@
-"""Child process of tests/test_torch_port_parallel.py: the port's
-data-parallel training on the CPU.
+"""Child process of tests/test_torch_port_parallel.py and
+tests/test_torch_port_spatial.py: the port's data-parallel and spatial
+training on the CPU.
 
 Runs tiny synthetic scenarios (JAX's ``tests/_dist_child.py`` configs in
 the port's runners) either as one process (world 1, no process group) or as
@@ -16,7 +17,19 @@ weights and its train and validation masks come from ``<out>/jax.npz`` and
 ``<out>/jax_init.pt``, written by the parent. ``bn`` runs the synced
 ``BatchNorm2d`` on the rank's rows of ``bn_inputs()`` and saves its output,
 gradients and statistics; ``cli`` runs the training CLI for one epoch and
-lists the files this rank wrote.
+lists the files this rank wrote; ``validate_cli`` runs the validate CLI
+(``-i``, the seeded init) and prints its metrics and the files this rank
+wrote.
+
+A ``mesh`` entry of the child's config replaces every scenario's ``mesh``
+section (e.g. ``{"data": -1, "spatial": 2}``), and an ``epochs`` entry
+({scenario: count}) a scenario's two epochs. ``units`` holds the spatial
+layers on the rank's rows (a spatial group of the whole world) against
+the whole image, which every rank computes too, and prints one
+``DISTRESULT units`` line of {case: [output error, input-gradient error,
+parameter-gradient error]}, each the largest |Δ| over max |ref| (the DC's:
+0.0 when equal bit for bit, else 1.0; the parameter gradients are summed
+over the ranks first).
 """
 
 import json
@@ -128,6 +141,8 @@ def _conf_dict(name, repo):
   if name.startswith('segmentation'):
     conf = _segmentation_conf(repo)
     conf['train_remat'] = name == 'segmentation_remat'
+    if name == 'segmentation2':     # two scales
+      conf['model'].update(encode_filters=[8, 16], decode_filters=[8])
     return conf
   conf = _standard_conf()
   if name == 'standard_spf2':
@@ -207,15 +222,213 @@ def run_cli(cfg):
                                                'val': params})))
 
 
+def _rel(got, want):
+  got, want = got.detach(), want.detach()
+  return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+UNETS = ('unet nn-resize-conv k4 reflection', 'unet pixelshuffle k3 reflection',
+         'unet transposed k4 zero', 'unet nn-resize-conv k3 replication')
+DISCRIMINATORS = ('batch patchgan', 'instance fc', 'batch average')
+UNIT_CASES = tuple(
+    ['same_conv {} k{} s{}'.format(mode, k, stride)
+     for mode in ('zero', 'reflection', 'replication') for k in (3, 4)
+     for stride in (1, 2)] + ['instance_norm'] +
+    ['{} {}'.format(net, mode) for net in UNETS for mode in ('train', 'eval')] +
+    ['discriminator ' + d for d in DISCRIMINATORS] +
+    ['vgg19 blocks 1 2', 'refinement scale', 'dc'])
+
+
+def _unit_cases():
+  """{case: (layout, fn(x) → output, parameters)}: the layers the spatial
+  runs go through, each on an NCHW or NHWC input of 32 rows. A train-mode
+  U-Net's BatchNorm takes the group's statistics under the spatial mesh
+  (its rows) and the local ones on the whole image."""
+  import torch
+  import torch.distributed as dist
+  from csmri_refinement_tpu_torch.models import construct_model, layers
+  from csmri_refinement_tpu_torch.models.unet import BatchNorm2d
+  from csmri_refinement_tpu_torch.parallel import halo
+  from csmri_refinement_tpu_torch.models.refinement_wrapper import _scale
+  from csmri_refinement_tpu_torch.models.vgg import VGG19
+  cases = {}
+  gen = torch.Generator().manual_seed(5)
+  for mode in ('zero', 'reflection', 'replication'):
+    for k in (3, 4):
+      for stride in (1, 2):
+        w = torch.randn(5, 3, k, k, generator=gen).requires_grad_()
+        b = torch.randn(5, generator=gen).requires_grad_()
+        cases['same_conv {} k{} s{}'.format(mode, k, stride)] = (
+            'nchw', lambda x, w=w, b=b, m=mode, s=stride: layers.same_conv(
+                x, w, b, m, stride=s), [w, b])
+  norm = layers.InstanceNorm(3, affine=True)
+  with torch.no_grad():
+    norm.scale.uniform_(0.5, 1.5, generator=gen)
+    norm.bias.normal_(generator=gen)
+  cases['instance_norm'] = ('nchw', norm, list(norm.parameters()))
+
+  def train_unet(x, net):
+    for m in net.modules():
+      if isinstance(m, BatchNorm2d):
+        m.process_group = dist.group.WORLD if halo.current() else None
+    return net.train()(x)
+  unets = {
+      'unet nn-resize-conv k4 reflection': dict(
+          num_inputs=3, num_outputs=2, num_layers_per_scale=1,
+          encode_filters=[4, 8], decode_filters=[4], kernel_size=4,
+          upsampling_mode='nn-resize-conv', padding='reflection',
+          decoder_act_upsampling_only=True),
+      'unet pixelshuffle k3 reflection': dict(
+          num_inputs=3, num_outputs=2, num_layers_per_scale=2,
+          encode_filters=[4, 8, 8], decode_filters=[8, 4],
+          upsampling_mode='pixelshuffle', padding='reflection'),
+      'unet transposed k4 zero': dict(
+          num_inputs=3, num_outputs=2, num_layers_per_scale=1,
+          encode_filters=[4, 8], decode_filters=[4],
+          transposed_kernel_size=4),
+      'unet nn-resize-conv k3 replication': dict(
+          num_inputs=3, num_outputs=2, num_layers_per_scale=1,
+          encode_filters=[4, 8], decode_filters=[4],
+          upsampling_mode='nn-resize-conv', padding='replication'),
+  }
+  assert tuple(unets) == UNETS
+  for name, section in unets.items():
+    net = construct_model(dict(section, name='UNET', output_activation='none'))
+    net.init_weights(torch.Generator().manual_seed(6))
+    params = list(net.parameters())
+    cases[name + ' train'] = ('nhwc', lambda x, m=net: train_unet(x, m),
+                              params)
+    cases[name + ' eval'] = ('nhwc', lambda x, m=net: m.eval()(x), [])
+  discriminators = (('batch patchgan', {}),
+                    ('instance fc', {'norm_layer': 'instance-affine',
+                                     'fc_layers': [6, 1],
+                                     'spatial_shape': [32, 12]}),
+                    ('batch average', {'final_conv_kernel_size': 1,
+                                       'final_average_pooling': True}))
+  assert tuple(d for d, _ in discriminators) == DISCRIMINATORS
+  for name, extra in discriminators:
+    section = dict(
+        name='CNNDiscriminator', num_inputs=3, num_filters_per_layer=[4, 8],
+        strides=[2, 1], kernel_sizes=4, final_conv_kernel_size=3,
+        padding='reflection', use_norm_layers='not-first',
+        compute_features=True)
+    disc = construct_model(dict(section, **extra))
+    disc.init_weights(torch.Generator().manual_seed(7))
+    cases['discriminator ' + name] = (
+        'nhwc', lambda x, d=disc: d.eval()(x)['logits'],
+        list(disc.parameters()))
+  vgg = VGG19((1, 2))
+  for conv in vgg.children():
+    torch.nn.init.normal_(conv.weight, 0.0, 0.1, generator=gen)
+    torch.nn.init.normal_(conv.bias, 0.0, 0.1, generator=gen)
+  cases['vgg19 blocks 1 2'] = ('nhwc>nchw', lambda x: vgg(x.sigmoid())[1],
+                               list(vgg.parameters()))
+  cases['refinement scale'] = ('nhwc', lambda x: _scale(x)[0], [])
+  return cases
+
+
+def run_units(cfg):
+  import torch
+  import torch.distributed as dist
+  from csmri_refinement_tpu_torch.ops import dc as dc_ops
+  from csmri_refinement_tpu_torch.parallel import halo
+  from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
+  world, rank = cfg['world'], cfg['rank']
+  mesh = mesh_lib.Mesh(world, rank, torch.device('cpu'), dist.group.WORLD,
+                       world, None, dist.group.WORLD)
+  errors = {}
+  cases = _unit_cases()
+  assert tuple(cases) + ('dc',) == UNIT_CASES
+  for name, (layout, fn, params) in cases.items():
+    dim = 2 if layout.startswith('nchw') else 1
+    out_dim = 2 if layout.endswith('nchw') else 1
+    gen = torch.Generator().manual_seed(len(name))
+    x = torch.randn((2, 3, 32, 12) if dim == 2 else (2, 32, 12, 3),
+                    generator=gen)
+    xw = x.clone().requires_grad_()
+    want = fn(xw)
+    c = torch.randn(want.shape, generator=gen)
+    want_grads = torch.autograd.grad((want * c).sum(), [xw] + params,
+                                     allow_unused=True,
+                                     materialize_grads=True)
+    xl = halo.local_rows(x, mesh, dim).clone().requires_grad_()
+    with halo.sharded_rows(mesh):
+      got = fn(xl)
+    held_whole = name.startswith('discriminator')   # the head's outputs
+    cl = c if held_whole else halo.local_rows(c, mesh, out_dim)
+    # each rank's loss is its share: of a whole output, 1/S of it
+    scale = 1.0 / world if held_whole else 1.0
+    grads = torch.autograd.grad((got * cl).sum() * scale, [xl] + params,
+                                allow_unused=True, materialize_grads=True)
+    param_grads = [g.clone() for g in grads[1:]]
+    for g in param_grads:
+      dist.all_reduce(g)
+    ref = want if held_whole else halo.local_rows(want, mesh, out_dim)
+    errors[name] = [
+        _rel(got, ref), _rel(grads[0], halo.local_rows(want_grads[0], mesh,
+                                                       dim)),
+        max([0.0] + [_rel(g, w) for g, w in zip(param_grads,
+                                                 want_grads[1:])])]
+  # the DC on the plain path: bit for bit, forward and backward
+  gen = torch.Generator().manual_seed(9)
+  xi, k0, g = (torch.randn(2, 16, 16, 2, generator=gen) for _ in range(3))
+  mask = (torch.rand(2, 16, 16, 1, generator=gen) > 0.5).float()
+  xw = xi.clone().requires_grad_()
+  want = dc_ops.data_consistency(xw, k0, mask)
+  want_grad, = torch.autograd.grad((want * g).sum(), [xw])
+  xl = halo.local_rows(xi, mesh, 1).clone().requires_grad_()
+  with halo.sharded_rows(mesh):
+    got = dc_ops.data_consistency(xl, k0, mask)
+    with torch.no_grad():
+      got_eval = dc_ops.data_consistency(xl.detach(), k0, mask)
+  got_grad, = torch.autograd.grad((got * halo.local_rows(g, mesh, 1)).sum(),
+                                  [xl])
+  same = lambda a, b: 0.0 if torch.equal(a, b) else 1.0
+  errors['dc'] = [max(same(got, halo.local_rows(want, mesh, 1)),
+                      same(got_eval, halo.local_rows(want, mesh, 1))),
+                  same(got_grad, halo.local_rows(want_grad, mesh, 1)), 0.0]
+  print('DISTRESULT units {}'.format(json.dumps(errors)))
+  sys.stdout.flush()
+
+
+def run_validate_cli(cfg):
+  from csmri_refinement_tpu_torch import validate
+  from csmri_refinement_tpu_torch.training import build_runner
+  from csmri_refinement_tpu_torch.utils.checkpoints import save_checkpoint
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = _standard_conf()
+  conf['mesh'] = cfg.get('mesh') or conf['mesh']
+  out_dir = os.path.join(cfg['out'], 'validate_rank{}'.format(cfg['rank']))
+  os.makedirs(out_dir)
+  conf_path = os.path.join(out_dir, 'conf.json')
+  with open(conf_path, 'w') as f:
+    json.dump(conf, f)
+  ckpt = os.path.join(out_dir, 'init.ckpt')     # the seeded init
+  conf_obj = Configuration.from_dict(conf)
+  save_checkpoint(ckpt, conf_obj, build_runner(conf_obj, 'standard', 'test',
+                                               'cpu'), 1, {})
+  results = validate.main([conf_path, ckpt, '--device', 'cpu', '-i', '-b',
+                           '4', '--out-dir', os.path.join(out_dir, 'out')])
+  out_dir = os.path.join(out_dir, 'out')
+  files = sorted(os.path.basename(f) for d, _, fs in os.walk(out_dir)
+                 for f in fs)
+  print('DISTRESULT validate_cli {}'.format(json.dumps({
+      'files': files, 'metrics': results['Synthetic']['metrics']})))
+
+
 def run(name, cfg):
   import torch
   from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
   from csmri_refinement_tpu_torch.training import build_runner
   from csmri_refinement_tpu_torch.utils.config import Configuration
 
-  if name in ('bn', 'cli'):
-    return (run_bn if name == 'bn' else run_cli)(cfg)
-  conf = Configuration.from_dict(_conf_dict(name, cfg['repo']))
+  if name in ('bn', 'cli', 'units', 'validate_cli'):
+    return {'bn': run_bn, 'cli': run_cli, 'units': run_units,
+            'validate_cli': run_validate_cli}[name](cfg)
+  conf_d = _conf_dict(name, cfg['repo'])
+  if cfg.get('mesh'):
+    conf_d['mesh'] = cfg['mesh']
+  conf = Configuration.from_dict(conf_d)
   device = torch.device('cpu')
   runner = build_runner(conf, conf.runner_type, 'train', device)
   if name == 'standard_jax':
@@ -236,7 +449,7 @@ def run(name, cfg):
                       conf.batch_size, shuffle=True, seed=conf.seed,
                       process_shard=shard)
   result = {'train': []}
-  for epoch in (1, 2):
+  for epoch in range(1, cfg.get('epochs', {}).get(name, 2) + 1):
     runner.epoch_beginning(epoch)
     losses, _ = runner.train_epoch(loader, epoch,
                                    steps_per_train_summary=10 ** 6)

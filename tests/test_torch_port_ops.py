@@ -250,6 +250,7 @@ def test_port_imports_no_jax():
           'csmri_refinement_tpu_torch.ops.masks, '
           'csmri_refinement_tpu_torch.ops.dc, '
           'csmri_refinement_tpu_torch.training.prep, '
+          'csmri_refinement_tpu_torch.parallel.halo, '
           'csmri_refinement_tpu_torch.metrics; '
           'from csmri_refinement_tpu_torch.metrics import image_metrics; '
           'image_metrics.compute_mutual_information([0.5], [0.25]); '

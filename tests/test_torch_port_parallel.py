@@ -131,8 +131,20 @@ def test_mesh_from_conf():
     assert (mesh.world, mesh.rank, mesh.group) == (1, 0, None)
   with pytest.raises(ValueError, match='torchrun'):
     mesh_lib.mesh_from_conf(_conf(mesh={'data': 2}), 'cpu')
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
+  # a spatial mesh needs data × spatial processes
+  with pytest.raises(ValueError, match='spatial=2 does not divide'):
     mesh_lib.mesh_from_conf(_conf(mesh={'data': -1, 'spatial': 2}), 'cpu')
+  with pytest.raises(ValueError, match='needs 4 processes'):
+    mesh_lib.mesh_from_conf(_conf(mesh={'data': 2, 'spatial': 2}), 'cpu')
+  mesh = mesh_lib.mesh_from_conf(_conf(mesh={'data': 1, 'spatial': 1}),
+                                 'cpu')
+  assert (mesh.data, mesh.spatial, mesh.shard) == (1, 1, (0, 1))
+  # image rows that do not divide by spatial × the downsampling factor
+  mesh = mesh_lib.Mesh(4, 3, torch.device('cpu'), spatial=2, row_factor=8)
+  assert (mesh.d, mesh.s, mesh.shard) == (1, 1, (1, 2))
+  assert mesh.image_rows(32) == slice(16, 32)
+  with pytest.raises(ValueError, match='spatial=2: an image of 24 rows'):
+    mesh.image_rows(24)
   assert not mesh_lib.multiprocess()
 
 
@@ -152,10 +164,11 @@ def test_shard_batch_takes_the_rank_rows_and_requires_divisible_batch():
 
 # -- the runs ----------------------------------------------------------------
 
-def _jax_standard_run(out_dir):
+def _jax_standard_run(out_dir, mesh=None, epochs=2):
   """JAX's one-process run of ``_run_world(1, 'standard')`` on its 8-device
-  CPU mesh, recording its initial weights (as a port state dict) and its
-  train and validation masks for the ``standard_jax`` scenario."""
+  CPU mesh (``mesh`` replacing the config's section), recording its initial
+  and final weights (as port state dicts) and its train and validation
+  masks for the ``standard_jax`` scenario."""
   from csmri_refinement_tpu.data import load_dataset as jload_dataset
   from csmri_refinement_tpu.training import build_runner as jbuild_runner
   from csmri_refinement_tpu.utils.config import Configuration as JConf
@@ -164,6 +177,8 @@ def _jax_standard_run(out_dir):
       load_flax_variables)
 
   conf_d = child._standard_conf()
+  if mesh is not None:
+    conf_d['mesh'] = mesh
   conf = JConf.from_dict(conf_d)
   runner = jbuild_runner(conf, 'standard', 'train')
   train_masks, val_masks, init = [], {}, []
@@ -193,7 +208,7 @@ def _jax_standard_run(out_dir):
   loader = JDataLoader(jload_dataset(conf, '/tmp', 'Synthetic', 'train'),
                        conf.batch_size, shuffle=True, seed=conf.seed)
   result = {'train': []}
-  for epoch in (1, 2):
+  for epoch in range(1, epochs + 1):
     runner.epoch_beginning(epoch)
     losses, _ = runner.train_epoch(loader, epoch,
                                    steps_per_train_summary=10 ** 6)
@@ -209,6 +224,9 @@ def _jax_standard_run(out_dir):
                                undersampling=conf_d['undersampling']))
   load_flax_variables(model, {'params': init[0]})
   torch.save(model.state_dict(), os.path.join(out_dir, 'jax_init.pt'))
+  load_flax_variables(model, {'params': jax.tree_util.tree_map(
+      np.asarray, runner.state['params'])})
+  torch.save(model.state_dict(), os.path.join(out_dir, 'jax_final.pt'))
   np.savez(os.path.join(out_dir, 'jax.npz'),
            train=np.stack(train_masks).astype(np.float32),
            val=np.stack([val_masks[i] for i in range(len(val_masks))])
@@ -216,10 +234,12 @@ def _jax_standard_run(out_dir):
   return result
 
 
-def _spawn(world, rank, port, out_dir, scenarios):
+def _spawn(world, rank, port, out_dir, scenarios, mesh=None, threads=2,
+           epochs=None):
   cfg = {'repo': REPO, 'world': world, 'rank': rank, 'port': port,
-         'out': out_dir, 'scenarios': list(scenarios), 'threads': 2}
-  env = dict(os.environ, OMP_NUM_THREADS='2')
+         'out': out_dir, 'scenarios': list(scenarios), 'threads': threads,
+         'mesh': mesh, 'epochs': epochs or {}}
+  env = dict(os.environ, OMP_NUM_THREADS=str(threads))
   return subprocess.Popen([sys.executable, CHILD, json.dumps(cfg)], env=env,
                           cwd=REPO, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
