@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--probes-only | --int8-only [--tree DIR] |
                            --f32-only [--tree DIR] | --scarseg-only |
-                           --dist-export-only | --spatial-only]
+                           --dist-export-only | --spatial-only |
+                           --options-only]
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit. Phases, each failing loudly with a non-zero exit:
@@ -221,9 +222,36 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     K2 f32 launches (on halo tiles) against their plain versions; per rank
     the ms per step, the step's peak GiB and the MB each collective call
     site moves, beside one process's ms (two ranks on one card: not a
-    scaling number).
+    scaling number);
+24. the U-Net's remaining options of the JAX package, at full width:
+    (a) ``configs/2-refinement.json``'s generator (seeded) with its
+    U-Net's ``upsampling_mode`` set to ``nn-biresize-conv`` and to
+    ``bilinear`` as ``train.py --conf`` sets it, 256², B = 32, bf16, three
+    forwards with the counters around them (3 K1 and one K2 bf16 launch
+    per chain layer each), every K2 launch of one forward against its
+    plain version, the f32 forward at B = 2 against the CPU (phase 6's
+    bars), ms per forward beside ``nn-resize-conv`` in turns, and the
+    bilinear up-sample (a two-tap stencil) at the decoders' shapes as
+    device time beside ``F.interpolate``; (b) phase 16 (b)'s full-width
+    card-against-CPU GAN updates with ``nn-biresize-conv``, two card
+    updates under deterministic algorithms that raise on an op without a
+    deterministic implementation (bit-equal), and ms per GAN step at 512²,
+    B = 5, f32 and bf16, beside ``nn-resize-conv`` in turns; (c)
+    ``configs/3-train-segmentation-unet.json``'s U-Net with
+    ``use_refinement`` and ``encoder_features`` [0, 2, 4], eval f32 at
+    256², B = 8: its K2 f32 launches counted and held to their plain
+    versions, ``pred`` and the features against the CPU within 5e-4 of
+    max |ref|; (d) the nn-biresize-conv GAN (Synthetic 256², one update and
+    one validation batch) on two spatial gloo ranks sharing the card
+    against one process at ``SPATIAL_BARS['2-refinement']``, per rank the
+    ms per step and the bytes of the bilinear up-sample's halo; (e) the
+    noisy DC, ``fft2c``/``ifft2c`` and ``center_crop_in_kspace`` at 512²,
+    B = 4, card against CPU within 2e-4, the noisy DC's device time beside
+    K1's.
 
 ``--scarseg-only`` runs phases 1, 2 and 18-23 alone (no result line).
+``--options-only`` runs phases 1, 2 and 24 alone (no result line; a JSON
+line of phase 24's launches and errors).
 ``--spatial-only`` runs phases 1, 2, phase 18's tree and phase 23 alone
 (no result line).
 ``--dist-export-only`` runs phases 1, 2, phase 18's tree and phase 22
@@ -1565,21 +1593,27 @@ def gan_updates(label, cpu, gpu, batches, gated):
   return worst
 
 
-def gan_parity_phase():
+def gan_parity_phase(mode=None):
   """Phase 16 (b): card against CPU, TF32 off, dropout off, the pool in
   its fill phase, the same weights and Synthetic batches. Full widths at
   128² (the smallest side whose discriminator keeps its 4×4 head): the
   discriminator's gradients on the same inputs within GAN_GRAD_REL, the
   first update's losses and the second's gen_loss within LOSS_RTOL, the
   rest printed (GAN_GRAD_REL's comment says why). The narrow widths at
-  64²: every loss of three updates within LOSS_RTOL."""
+  64²: every loss of three updates within LOSS_RTOL. Phase 24 (b): with
+  the generator's up-sampling ``mode``, the full widths alone."""
   from csmri_refinement_tpu_torch.ops import undersample as us
   from csmri_refinement_tpu_torch.profile_gan import (
       synthetic_refinement_conf)
   size = GAN_PARITY_SIZE
-  conf, cpu, gpu = gan_runner_pair(synthetic_refinement_conf(
+  conf_d = synthetic_refinement_conf(
       size, GAN_PARITY_STEPS * GAN_BATCH, GAN_BATCH, GAN_BATCH,
-      dropout=False))
+      dropout=False)
+  label = '{}^2'.format(size)
+  if mode is not None:
+    conf_d = with_upsampling(conf_d, mode)
+    label += ' ' + mode
+  conf, cpu, gpu = gan_runner_pair(conf_d)
   batches = gan_batches(conf, GAN_PARITY_STEPS, size)
 
   # The discriminator's gradients on the same inputs, before any update.
@@ -1608,18 +1642,19 @@ def gan_parity_phase():
                for (n, _), x, y in zip(cpu.disc.named_parameters(),
                                        grads[a], grads[b]))
   err = worst('card', 'cpu')
-  print('GAN parity {}^2: discriminator gradients on the same inputs, worst '
+  print('GAN parity {}: discriminator gradients on the same inputs, worst '
         'max|diff| / max|grad|: card vs CPU {:.2e} ({}) (tol {}); card vs '
         'f64 {:.2e}, CPU vs f64 {:.2e}; the CPU\'s own under 1e-5 relative '
         'input noise {:.2e} ({})'.format(
-            size, err[0], err[1], GAN_GRAD_REL, worst('card', 'f64')[0],
+            label, err[0], err[1], GAN_GRAD_REL, worst('card', 'f64')[0],
             worst('cpu', 'f64')[0], *worst('noisy', 'cpu')))
   require(err[0] <= GAN_GRAD_REL, 'card and CPU discriminator gradients '
           'differ')
-  gan_updates('{}^2'.format(size), cpu, gpu, batches,
+  gan_updates(label, cpu, gpu, batches,
               lambda step, name: step == 0 or (step == 1 and
                                                name == 'gen_loss'))
-
+  if mode is not None:
+    return
   size = GAN_NARROW_SIZE
   conf, cpu, gpu = gan_runner_pair(synthetic_refinement_conf(
       size, GAN_PARITY_STEPS * GAN_BATCH, GAN_BATCH, GAN_BATCH,
@@ -2188,11 +2223,12 @@ def scarseg_validate_phase(data_dir, best, out_root, line):
                 sum(card['ssim'].values()) / 24))
 
 
-def hold_launches(label, calls, expected, batch):
-  """Phases 18, 20: ``calls`` ([(x, layer, pad, y)], ``chain_launches``)
-  are ``expected`` K2 launches, each within its route's bar of its plain
-  version: F32_ATOL of max(1, max |ref|) in f32, phase 4's BF16_REL_TOL of
-  max |ref| in bf16. Returns the largest |kernel - plain|."""
+def hold_launches(label, calls, expected, batch, size=None):
+  """Phases 18, 20, 24: ``calls`` ([(x, layer, pad, y)], ``chain_launches``)
+  are ``expected`` K2 launches of a forward at ``size``² (SCAR_SIZE by
+  default), each within its route's bar of its plain version: F32_ATOL of
+  max(1, max |ref|) in f32, phase 4's BF16_REL_TOL of max |ref| in bf16.
+  Returns the largest |kernel - plain|."""
   from csmri_refinement_tpu_torch.ops import conv_chain
   require(len(calls) == expected, 'expected {} K2 launches per {} forward, '
           'got {}'.format(expected, label, len(calls)))
@@ -2208,7 +2244,8 @@ def hold_launches(label, calls, expected, batch):
             .format(label, tuple(xi.shape), err, tol))
     worst = max(worst, err)
   print('K2 {} {} forward {}^2 B{}: {} launches, max|kernel-plain| {:.3e} '
-        '(tol {} of {})'.format('bf16' if bf16 else 'f32', label, SCAR_SIZE,
+        '(tol {} of {})'.format('bf16' if bf16 else 'f32', label,
+                                size or SCAR_SIZE,
                                 batch, expected, worst,
                                 BF16_REL_TOL if bf16 else F32_ATOL,
                                 'max|ref|' if bf16 else 'max(1, max|ref|)'))
@@ -4072,10 +4109,12 @@ def counted_collectives():
   moved = {}
   gather, reduce = mesh_lib.all_gather, mesh_lib.all_reduce
 
-  def site():   # the caller of ``halo.gather_rows`` rather than its frames
+  def site():   # the caller of ``halo.gather_rows``, ``halo.halo_rows`` or
+    # ``layers.pad`` rather than their frames
     frame = sys._getframe(2)
     while frame.f_back is not None and frame.f_code.co_qualname in (
-        '_GatherRows.forward', 'Function.apply', 'gather_rows'):
+        '_GatherRows.forward', '_HaloRows.forward', 'Function.apply',
+        'gather_rows', 'halo_rows', 'pad'):
       frame = frame.f_back
     return frame.f_code.co_qualname
 
@@ -4103,9 +4142,9 @@ def spatial_checks(runner, data_dir):
   from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
   from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
   conf = runner.conf
-  host = next(iter(DataLoader(load_dataset(conf, data_dir, 'ScarSeg',
-                                           'train'), conf.batch_size,
-                              process_shard=runner.mesh.shard)))
+  host = next(iter(DataLoader(load_dataset(
+      conf, data_dir, conf.get_attr('train_dataset', default='ScarSeg'),
+      'train'), conf.batch_size, process_shard=runner.mesh.shard)))
   batch = runner.preparer.prepare_train(
       torch.Generator(device=DEVICE).manual_seed(SEED), host)
   with deterministic():
@@ -4330,6 +4369,429 @@ def spatial_phase(data_dir, work, line):
   print('phase 23: {:.1f} s wall'.format(time.perf_counter() - t0))
   return total
 
+# Phase 24: the U-Net's remaining options at full width: the up-sampling
+# modes bilinear and nn-biresize-conv (the 2× bilinear up-sample as a
+# two-tap stencil, ``models/unet.py::_bilinear_up2``), use_refinement and
+# encoder_features, and the noisy DC, centred FFTs and k-space crop.
+REFINE_CONFIG = os.path.join(REPO, 'configs', '2-refinement.json')
+NEW_MODES = ('nn-biresize-conv', 'bilinear')
+OPTION_MODES = ('nn-resize-conv',) + NEW_MODES   # the first: phase 7's mode
+OPT_GAN_SIZE = 512       # (b)'s timed steps
+OPT_SEG_BATCH = 8        # (c)
+OPT_SEG_FEATURES = [0, 2, 4]
+OPT_SPATIAL_SIZE = 256   # (d)
+OPT_DC_SIZE, OPT_DC_BATCH = 512, 4    # (e)
+OPT_NOISE = 0.1
+
+
+def with_upsampling(conf_d, mode):
+  """``conf_d`` with its generator's U-Net in up-sampling ``mode``: the
+  whole ``generator_model`` section replaced as ``train.py --conf
+  'generator_model={...}'`` replaces it."""
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  gen = copy.deepcopy(conf_d['generator_model'])
+  gen['learnable_model']['upsampling_mode'] = mode
+  conf = Configuration.from_dict(conf_d)
+  conf.update({'generator_model': json.dumps(gen)})
+  return dict(conf_d, generator_model=conf.generator_model)
+
+
+def refinement_generator(mode, dtype, device):
+  """``configs/2-refinement.json``'s generator with its U-Net in ``mode``,
+  seeded weights (the RecNet's too: no checkpoint is read), the wrapper's
+  scale at 0.5 (at its zero init the U-Net would not reach the output),
+  in eval mode on ``device``."""
+  from csmri_refinement_tpu_torch.models import construct_model
+  with open(REFINE_CONFIG) as f:
+    conf_d = with_upsampling(json.load(f), mode)
+  model = construct_model(dict(conf_d['generator_model']), dtype)
+  model.init_weights(torch.Generator().manual_seed(SEED))
+  with torch.no_grad():
+    model.scale.fill_(0.5)
+  return model.to(device).eval()
+
+
+def chain_layer_count(net):
+  from csmri_refinement_tpu_torch.models.unet import ConvEncodeUnit
+  return sum(m.num_layers for m in net.modules()
+             if isinstance(m, ConvEncodeUnit))
+
+
+def mode_forward_phase(line):
+  """Phase 24 (a): the serving forward of each new mode at 256², B = 32,
+  bf16, counters around 3 forwards (3 K1 each, K2 bf16 once per chain
+  layer), every K2 launch of one forward against its plain version, the
+  card's f32 forward at B = 2 against the CPU's (phase 6's bars); ms per
+  forward beside nn-resize-conv in turns; the bilinear up-sample's device
+  time at the two decoders' shapes beside ``F.interpolate``'s."""
+  from csmri_refinement_tpu_torch.models import unet as unet_lib
+  from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  out = {'k1': 0, 'k2_bf16': 0, 'k2_err': 0.0}
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
+  gt = torch.rand(BATCH, SIZE, SIZE, device=DEVICE, generator=gen)
+  batch = us.undersample_batch(gen, gt, 'varden', 8)
+  args = [batch[k] for k in ('inp', 'kspace', 'mask')]
+  models = {}
+  for mode in OPTION_MODES:
+    model = refinement_generator(mode, torch.bfloat16, DEVICE)
+    models[mode] = model
+    if mode not in NEW_MODES:
+      continue
+    expected = chain_layer_count(model)
+    n_forwards = 3
+    sync()
+    dc_kernel.dc_cuda.launches = 0
+    conv_chain.conv_layer_cuda.launches = 0
+    with torch.inference_mode():
+      for _ in range(n_forwards):
+        pred = model(*args)['pred']
+        sync()
+    k1, k2 = dc_kernel.dc_cuda.launches, conv_chain.conv_layer_cuda.launches
+    print('phase 24 (a) {} forward {}^2 bf16 B{}: {} forwards, K1 launches '
+          '{}, K2 bf16 launches {} ({} chain layers a forward)'.format(
+              mode, SIZE, BATCH, n_forwards, k1, k2, expected))
+    require(k1 == 3 * n_forwards, mode + ': expected 3 K1 launches a forward')
+    require(k2 == expected * n_forwards, mode + ': expected one K2 launch '
+            'per chain layer a forward')
+    require(tuple(pred.shape) == (BATCH, SIZE, SIZE, 2) and
+            bool(torch.isfinite(pred.float()).all()),
+            mode + ': pred is not finite or of the wrong shape')
+    calls = chain_launches(model, *args)
+    require(all(c[0].dtype == torch.bfloat16 for c in calls),
+            mode + ': the bf16 forward left the bf16 route')
+    out['k2_err'] = max(out['k2_err'], hold_launches(
+        mode + ' eval', calls, expected, BATCH, SIZE))
+    del calls
+    out['k1'] += k1
+    out['k2_bf16'] += k2
+    # the f32 forward, card against CPU (phase 6's bars)
+    cpu = refinement_generator(mode, torch.float32, 'cpu')
+    card = copy.deepcopy(cpu).to(DEVICE)
+    cgen = torch.Generator().manual_seed(SEED + 2)
+    cbatch = us.undersample_batch(cgen, torch.rand(2, SIZE, SIZE,
+                                                   generator=cgen),
+                                  'varden', 8)
+    cargs = [cbatch[k] for k in ('inp', 'kspace', 'mask')]
+    with torch.inference_mode():
+      want = cpu(*cargs)
+      got = card(*[a.to(DEVICE) for a in cargs])
+      sync()
+    for key in ('pred', 'prescaled_refinement'):
+      err = (got[key].cpu() - want[key]).abs().max().item()
+      print('phase 24 (a) {} f32 {}: max|card-CPU| {:.3e} (max|ref| {:.3e}, '
+            'tol {})'.format(mode, key, err, want[key].abs().max().item(),
+                             E2E_ATOL))
+      require(err <= E2E_ATOL, mode + ': the f32 forward differs between '
+              'card and CPU in ' + key)
+    p_card = psnr(got['pred'].cpu(), cbatch['target'])
+    p_cpu = psnr(want['pred'], cbatch['target'])
+    print('phase 24 (a) {} f32 PSNR: card {:.4f} dB, CPU {:.4f} dB'.format(
+        mode, p_card, p_cpu))
+    require(abs(p_card - p_cpu) < PSNR_TOL_DB, mode + ': PSNR differs')
+    del cpu, card
+  ms = {mode: [] for mode in OPTION_MODES}
+  with torch.inference_mode():
+    for mode in OPTION_MODES + OPTION_MODES[::-1]:
+      ms[mode].append(timed_ms(lambda: models[mode](*args), iters=5,
+                               warmup=1))
+  for mode in OPTION_MODES:
+    print('phase 24 (a) forward {}^2 bf16 B{} {}: {:.3f} / {:.3f} ms, {:.1f} '
+          'slices/s (in turns with the other modes; {}: phase 7\'s mode) '
+          '({})'.format(SIZE, BATCH, mode, *ms[mode],
+                        2 * BATCH / sum(ms[mode]) * 1e3, OPTION_MODES[0],
+                        line))
+  out['fwd_ms'] = {mode: min(v) for mode, v in ms.items()}
+  del models
+  # the bilinear up-sample at the decoders' inputs, against the library
+  for name, size, cin in (('decode_0', SIZE // 4, 128),
+                          ('decode_1', SIZE // 2, 64)):
+    x = torch.randn(BATCH, size, size, cin, device=DEVICE,
+                    dtype=torch.bfloat16)
+    x_cl = x.permute(0, 3, 1, 2)             # NCHW view, channels-last
+    lib = lambda: F.interpolate(x_cl, scale_factor=2, mode='bilinear',
+                                align_corners=False)
+    with torch.inference_mode():
+      got = unet_lib._bilinear_up2(x).float()
+      want = lib().permute(0, 2, 3, 1).float()
+      err = (got - want).abs().max().item()
+      ref = want.abs().max().item()
+      st_ms = graph_ms(lambda: unet_lib._bilinear_up2(x))
+      lib_ms = graph_ms(lib)
+    # 6 operations per output (two 2-tap passes), 4 outputs per input;
+    # bf16 in once, 4× out once
+    b_ms, by = bound(24 * x.numel(), 10 * x.numel(), BF16_FLOPS)
+    require(err <= BF16_REL_TOL * ref, 'the bilinear stencil differs from '
+            'F.interpolate at ' + name)
+    print('phase 24 (a) bilinear up-sample {} {}^2->{}^2 C{} B{} bf16: '
+          'stencil {:.4f} ms, F.interpolate {:.4f} ms, bound {:.4f} ms ({}), '
+          'max|diff| {:.3e} of max {:.3e} ({})'.format(
+              name, size, 2 * size, cin, BATCH, st_ms, lib_ms, b_ms, by, err,
+              ref, line))
+  return out
+
+
+def gan_deterministic_phase():
+  """Phase 24 (b): two card GAN updates of the nn-biresize-conv generator
+  from one seeded state at 256², B = 5, under
+  ``torch.use_deterministic_algorithms(True)`` (errors, not warnings) and
+  cuDNN's deterministic convolutions: no op raises, and every parameter,
+  statistic and loss of the two runs is equal bit for bit."""
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  from csmri_refinement_tpu_torch.profile_gan import (
+      synthetic_refinement_conf)
+  from csmri_refinement_tpu_torch.training.adversarial_runner import (
+      AdversarialRunner)
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  from csmri_refinement_tpu_torch.utils.diagnostics import runner_networks
+  conf = Configuration.from_dict(with_upsampling(synthetic_refinement_conf(
+      SIZE, GAN_BATCH, GAN_BATCH, GAN_BATCH), 'nn-biresize-conv'))
+  gt, mask = gan_batches(conf, 1, SIZE)[0]
+  batch = us.undersample_batch(None, gt.to(DEVICE),
+                               fixed_mask=mask.to(DEVICE))
+  runs = []
+  torch.use_deterministic_algorithms(True, warn_only=False)
+  torch.backends.cudnn.deterministic = True
+  try:
+    for _ in range(2):
+      runner = AdversarialRunner(conf, 'train', DEVICE)
+      losses = runner.train_batch(batch)[0]
+      sync()
+      runs.append(({k: v.item() for k, v in losses.items()},
+                   {'{}.{}'.format(n, k): v.detach().clone() for n, net in
+                    runner_networks(runner).items()
+                    for k, v in net.state_dict().items()}))
+      del runner
+  finally:
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+  (loss_a, state_a), (loss_b, state_b) = runs
+  differ = [k for k in state_a if not torch.equal(state_a[k], state_b[k])]
+  print('phase 24 (b) nn-biresize-conv GAN update {}^2 B{}, deterministic '
+        'algorithms (warn_only=False): no op raised; two runs: losses {} and '
+        '{}, {} of {} state tensors differ'.format(
+            SIZE, GAN_BATCH, loss_a, loss_b, len(differ), len(state_a)))
+  require(loss_a == loss_b and not differ,
+          'two deterministic GAN updates differ: ' + ', '.join(differ[:5]))
+
+
+def gan_mode_timings(line):
+  """Phase 24 (b): ms per GAN step at 512², B = 5, TF32 off, in f32 and
+  with ``train_dtype: bfloat16``, nn-resize-conv (phase 20's mode) and
+  nn-biresize-conv in turns."""
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  from csmri_refinement_tpu_torch.profile_gan import (
+      synthetic_refinement_conf)
+  from csmri_refinement_tpu_torch.training.adversarial_runner import (
+      AdversarialRunner)
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  size = OPT_GAN_SIZE
+  for dtype in (None, 'bfloat16'):
+    runners, batch = {}, None
+    for mode in OPTION_MODES[:2]:
+      conf_d = with_upsampling(synthetic_refinement_conf(
+          size, GAN_BATCH, GAN_BATCH, GAN_BATCH), mode)
+      if dtype:
+        conf_d['train_dtype'] = dtype
+      conf = Configuration.from_dict(conf_d)
+      runners[mode] = AdversarialRunner(conf, 'train', DEVICE)
+      if batch is None:
+        gt, mask = gan_batches(conf, 1, size)[0]
+        batch = us.undersample_batch(None, gt.to(DEVICE),
+                                     fixed_mask=mask.to(DEVICE))
+    ms = {mode: [] for mode in runners}
+    for mode in OPTION_MODES[:2] + OPTION_MODES[1::-1]:
+      ms[mode].append(timed_ms(lambda: runners[mode].train_batch(batch),
+                               iters=5, warmup=2))
+    for mode, v in ms.items():
+      print('phase 24 (b) GAN step {}^2 B{} {} TF32 off, {}: {:.3f} / {:.3f} '
+            'ms, {:.1f} slices/s (in turns) ({})'.format(
+                size, GAN_BATCH, dtype or 'f32', mode, *v,
+                2 * GAN_BATCH / sum(v) * 1e3, line))
+    del runners
+
+
+def seg_features_phase(line):
+  """Phase 24 (c): ``configs/3-train-segmentation-unet.json``'s U-Net with
+  ``use_refinement`` and ``encoder_features`` [0, 2, 4], eval f32 at 256²,
+  B = 8, seeded weights: the K2 f32 launches of a forward counted (one per
+  chain layer), each held to its plain version; ``pred`` and every feature
+  on the card within E2E_ATOL of max |ref| of the CPU's."""
+  from csmri_refinement_tpu_torch.models import construct_model
+  from csmri_refinement_tpu_torch.ops import conv_chain
+  with open(SEG_CONFIG) as f:
+    section = json.load(f)['model']
+  section.update(use_refinement=True, encoder_features=OPT_SEG_FEATURES)
+  cpu = construct_model(section)
+  cpu.init_weights(torch.Generator().manual_seed(SEED))
+  cpu.eval()
+  card = copy.deepcopy(cpu).to(DEVICE)
+  b = OPT_SEG_BATCH
+  x = torch.randn(b, SIZE, SIZE, section['num_inputs'],
+                  generator=torch.Generator().manual_seed(SEED + 24))
+  xc = x.to(DEVICE)
+  expected = chain_layer_count(card)
+  sync()
+  conv_chain.conv_layer_f32_cuda.launches = 0
+  with torch.inference_mode():
+    got = card(xc)
+    sync()
+  k2 = conv_chain.conv_layer_f32_cuda.launches
+  require(k2 == expected, 'segmentation U-Net with features: expected {} K2 '
+          'f32 launches, got {}'.format(expected, k2))
+  with torch.inference_mode():
+    want = cpu(x)
+  err = hold_launches('segmentation features', chain_launches(card, xc),
+                      expected, b, SIZE)
+  require(sorted(got) == ['features', 'pred'] and
+          len(got['features']) == len(OPT_SEG_FEATURES),
+          'expected pred and {} features'.format(len(OPT_SEG_FEATURES)))
+  worst = 0.0
+  for name, g, w in [('pred', got['pred'], want['pred'])] + [
+      ('feature {}'.format(i), gf, wf) for i, gf, wf in zip(
+          OPT_SEG_FEATURES, got['features'], want['features'])]:
+    rel = (g.cpu() - w).abs().max().item() / w.abs().max().item()
+    print('phase 24 (c) segmentation U-Net {} {}: max|card-CPU| / max|ref| '
+          '{:.3e} (tol {})'.format(name, tuple(g.shape), rel, E2E_ATOL))
+    require(g.shape == w.shape and rel <= E2E_ATOL, 'the card\'s {} differs '
+            'from the CPU\'s'.format(name))
+    worst = max(worst, rel)
+  with torch.inference_mode():
+    fwd = timed_ms(lambda: card(xc), iters=5, warmup=1)
+  print('phase 24 (c) segmentation U-Net eval f32 {}^2 B{} with '
+        'use_refinement and encoder_features {}: {} K2 f32 launches, worst '
+        'card-CPU {:.3e}, {:.3f} ms a forward ({})'.format(
+            SIZE, b, OPT_SEG_FEATURES, k2, worst, fwd, line))
+  return {'k2_f32': k2, 'f32_err': err}
+
+
+def options_spatial_phase(work, line):
+  """Phase 24 (d): the GAN with nn-biresize-conv (Synthetic 256², B = 5,
+  one update and one validation batch) through the training CLI in this
+  process and on two spatial gloo ranks sharing the card (phase 23's
+  ``--spatial-rank`` children): both ranks within
+  ``SPATIAL_BARS['2-refinement']`` of the one process, each rank's launches
+  equal to its, each checked launch held to its plain version; the ms per
+  step per rank and the bytes the bilinear up-sample's halo moves."""
+  from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
+  from csmri_refinement_tpu_torch.profile_gan import (
+      synthetic_refinement_conf)
+  size = OPT_SPATIAL_SIZE
+  conf_d = with_upsampling(synthetic_refinement_conf(
+      size, GAN_BATCH, GAN_BATCH, GAN_BATCH), 'nn-biresize-conv')
+  config = os.path.join(work, 'options_spatial.json')
+  with open(config, 'w') as f:
+    json.dump(conf_d, f)
+  overrides = ['num_epochs=1']
+  sync()
+  dc_kernel.dc_cuda.launches = dc_kernel.dc_bwd_cuda.launches = 0
+  conv_chain.conv_layer_f32_cuda.launches = 0
+  one = dist_cli(config, work, os.path.join(work, 'options_one'), overrides)
+  one_launches = (dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches,
+                  conv_chain.conv_layer_f32_cuda.launches)
+  outs = [os.path.join(work, 'options_rank{}.pt'.format(r)) for r in range(2)]
+  if DEVICE == 'cuda':
+    torch.cuda.empty_cache()
+  spawn_ranks('spatial-rank', {
+      'config': config, 'data_dir': work, 'device': DEVICE, 'size': size,
+      'overrides': overrides, 'run_root': os.path.join(work, 'options_ranks')},
+              outs)
+  ranks = [torch.load(o, weights_only=False) for o in outs]
+  worst = spatial_compare('2-refinement', one, ranks, one_launches)
+  k1, _, k2 = ranks[0]['launches']
+  require(k1 > 0 and k2 > 0, 'nn-biresize-conv GAN: a kernel of the path '
+          'was not launched on the ranks')
+  print('phase 24 (d) nn-biresize-conv GAN at {}^2, mesh {}: both ranks '
+        'against one process: losses within {:.3e}, parameters {:.3e}, '
+        'discriminator {:.3e}, BN statistics {:.3e}; launches per rank K1 {}, '
+        'K2 f32 {} (one process: the same)'.format(
+            size, SPATIAL_MESH, worst['losses'], worst['params'],
+            worst['disc'], worst['bn'], k1, k2))
+  for r, got in enumerate(ranks):
+    halo = got['moved'].get('all_gather in _bilinear_up2', 0)
+    require(halo > 0, 'rank {}: the bilinear up-sample took no halo'.format(r))
+    print('  rank {}: checked launches {} (max |kernel-plain| K1 {:.3e}, K2 '
+          'f32 {:.3e}); train step {:.3f} ms, peak {:.3f} GiB; the bilinear '
+          'up-sample\'s halo moves {:.3f} MB a step forward (its backward '
+          'the same, within _HaloRows.backward); all sites: {} ({}; two '
+          'ranks share one card)'.format(
+              r, got['checked'], got['errs']['dc'], got['errs']['f32'],
+              got['ms'], got['peak'], halo / 1e6,
+              ', '.join('{} {:.2f} MB'.format(k, v / 1e6) for k, v in
+                        sorted(got['moved'].items())), line))
+  return {'k1': k1, 'k2_f32': k2,
+          'dc_err': max(r['errs']['dc'] for r in ranks),
+          'f32_err': max(r['errs']['f32'] for r in ranks)}
+
+
+def kspace_utils_phase(line):
+  """Phase 24 (e): at 512², B = 4, the noisy DC, ``fft2c``/``ifft2c`` and
+  ``center_crop_in_kspace`` on the card against the CPU within F32_ATOL;
+  the noisy DC's device time beside K1's on the same inputs."""
+  from csmri_refinement_tpu_torch.ops import dc, dc_kernel, fft, masks
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  b, n = OPT_DC_BATCH, OPT_DC_SIZE
+  gen = torch.Generator().manual_seed(SEED + 25)
+  x = torch.randn(b, n, n, 2, generator=gen)
+  mask = masks.cartesian_mask(gen, (b, n, n), 8)[..., None].contiguous()
+  k0 = torch.randn(b, n, n, 2, generator=gen) * mask
+  img = torch.rand(b, n, n, generator=gen)
+  xd, k0d, md = x.to(DEVICE), k0.to(DEVICE), mask.to(DEVICE)
+  xc = fft.unpack_complex(x)
+  checks = (
+      ('noisy DC', lambda *t: dc.data_consistency(*t, noise_lvl=OPT_NOISE),
+       (x, k0, mask)),
+      ('fft2c', fft.fft2c, (xc,)),
+      ('ifft2c', fft.ifft2c, (xc,)),
+      ('center_crop_in_kspace', lambda t: torch.stack(
+          [us.center_crop_in_kspace(i, n // 2) for i in t]), (img,)))
+  for name, fn, args in checks:
+    want = fn(*args)
+    got = fn(*[a.to(DEVICE) for a in args])
+    sync()
+    err = (got.cpu() - want).abs().max().item()
+    print('phase 24 (e) {} {}x{}^2: max|card-CPU| {:.3e} (max|ref| {:.3e}, '
+          'tol {})'.format(name, b, n, err, want.abs().max().item(),
+                           F32_ATOL))
+    require(err <= F32_ATOL, name + ' differs between card and CPU')
+  noisy_ms = graph_ms(lambda: dc.data_consistency(xd, k0d, md,
+                                                  noise_lvl=OPT_NOISE))
+  k1_ms = graph_ms(lambda: dc_kernel.dc_cuda(xd, k0d, md))
+  print('phase 24 (e) DC {}x{}^2: noisy (torch.fft composition) {:.4f} ms, '
+        'K1 (noiseless) {:.4f} ms ({})'.format(b, n, noisy_ms, k1_ms, line))
+
+
+def unet_options_phase(line):
+  """Phase 24: (a)-(e). Returns the launches and errors for the kernels
+  line."""
+  t0 = time.perf_counter()
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  os.makedirs(GAN_DIR, exist_ok=True)
+  work = tempfile.mkdtemp(prefix='options_', dir=GAN_DIR)
+  try:
+    fwd = mode_forward_phase(line)
+    t1 = time.perf_counter()
+    gan_parity_phase('nn-biresize-conv')
+    gan_deterministic_phase()
+    gan_mode_timings(line)
+    t2 = time.perf_counter()
+    seg = seg_features_phase(line)
+    t3 = time.perf_counter()
+    spatial = options_spatial_phase(work, line)
+    t4 = time.perf_counter()
+    kspace_utils_phase(line)
+  finally:
+    shutil.rmtree(work, ignore_errors=True)
+  print('phase 24: (a) {:.1f} s, (b) {:.1f} s, (c) {:.1f} s, (d) {:.1f} s, '
+        '(e) {:.1f} s; {:.1f} s wall'.format(
+            t1 - t0, t2 - t1, t3 - t2, t4 - t3, time.perf_counter() - t4,
+            time.perf_counter() - t0))
+  return {'k1': fwd['k1'] + spatial['k1'], 'k2_bf16': fwd['k2_bf16'],
+          'k2_f32': seg['k2_f32'] + spatial['k2_f32'],
+          'k2_err': fwd['k2_err'], 'dc_err': spatial['dc_err'],
+          'f32_err': max(seg['f32_err'], spatial['f32_err'])}
+
 
 def build_phase(names):
   """Phase 2: build the named kernel sources in parallel; print each
@@ -4352,6 +4814,7 @@ def build_phase(names):
 
 
 def main(argv=None):
+  t_start = time.perf_counter()
   argv = sys.argv[1:] if argv is None else argv
   probes_only = '--probes-only' in argv
   int8_only_mode = '--int8-only' in argv
@@ -4359,6 +4822,7 @@ def main(argv=None):
   scarseg_only = '--scarseg-only' in argv
   dist_export_only = '--dist-export-only' in argv
   spatial_only = '--spatial-only' in argv
+  options_only = '--options-only' in argv
   child = next((a for a in ('--spatial-rank', '--gloo-probe') if a in argv),
                None)
   tree = os.path.realpath(argv[argv.index('--tree') + 1]) if '--tree' in \
@@ -4402,6 +4866,9 @@ def main(argv=None):
     f32_only(P, line)
     return
   build_phase(native.KERNELS)
+  if options_only:     # phases 1, 2 and 24
+    print(json.dumps(unet_options_phase(line)))
+    return
   if scarseg_only or dist_export_only or spatial_only:
     # phases 1, 2 and 18-23, or phase 18's tree and 22 or 23
     print(json.dumps(scarseg_phase(line, dist_export_only, spatial_only)))
@@ -4605,12 +5072,16 @@ def main(argv=None):
   # Phase 18: the paper's data and evaluation path at 512²
   scar = scarseg_phase(line)
 
+  # Phase 24: the U-Net options, the noisy DC and the k-space utilities
+  opts = unet_options_phase(line)
+
   kernels = [
       {'name': 'dc', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
        'replaces': 'csmri_refinement_tpu/ops/dc_pallas.py:36',
-       'launches': dc_launches + train_fwd + gan_k1 + sis_k1 + scar['k1'],
-       'max_abs_err': max(dc_err, scar['dc_err']),
+       'launches': (dc_launches + train_fwd + gan_k1 + sis_k1 + scar['k1'] +
+                    opts['k1']),
+       'max_abs_err': max(dc_err, scar['dc_err'], opts['dc_err']),
        'ms': dc_ms,
        'plain_ms': dc_plain_ms, 'bound_ms': dc_bound,
        'bound_by': dc_by,
@@ -4618,8 +5089,8 @@ def main(argv=None):
       {'name': 'conv_chain', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/conv_chain.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
-       'launches': conv_launches + scar['k2_bf16'],
-       'max_abs_err': max(conv_err, scar['bf16_err']),
+       'launches': conv_launches + scar['k2_bf16'] + opts['k2_bf16'],
+       'max_abs_err': max(conv_err, scar['bf16_err'], opts['k2_err']),
        'ms': conv_ms,
        'plain_ms': conv_plain_ms, 'bound_ms': conv_bound,
        'bound_by': conv_by,
@@ -4627,8 +5098,9 @@ def main(argv=None):
       {'name': 'conv_chain_f32', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/conv_f32.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
-       'launches': gan_k2 + seg_k2 + sis_k2 + scar['k2_f32'],
-       'max_abs_err': max(gan_f32_err, seg_f32_err, scar['f32_err']),
+       'launches': gan_k2 + seg_k2 + sis_k2 + scar['k2_f32'] + opts['k2_f32'],
+       'max_abs_err': max(gan_f32_err, seg_f32_err, scar['f32_err'],
+                          opts['f32_err']),
        'ms': f32['ms'], 'plain_ms': f32['plain_ms'],
        'bound_ms': f32['bound_ms'], 'bound_by': 'operations',
        'library_ms': f32['cudnn_best_ms']},
@@ -4655,6 +5127,8 @@ def main(argv=None):
        'bound_ms': k3['requant'][2], 'bound_by': k3['requant'][3],
        'library_ms': None},
   ] + probe_entries
+  print('chip_smoke: all phases passed in {:.1f} s wall, the kernels\' build '
+        'included ({})'.format(time.perf_counter() - t_start, line))
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

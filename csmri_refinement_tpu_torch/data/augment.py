@@ -1,10 +1,10 @@
 """Host-side data augmentation (scipy), drawn from an explicit RandomState.
 
-Port of the functions of ``csmri_refinement_tpu/data/augment.py:19-106``
-and ``:141-144`` that the host transforms call, line for line: elastic
-deformation, random translate, rotate (single and paired) and zoom through
-``clipped_zoom`` (single and paired). Each function draws from the ``rng``
-it is given,
+Port of ``csmri_refinement_tpu/data/augment.py``, line for line: elastic
+deformation, random translate, rotate (single and paired), zoom through
+``clipped_zoom`` (single and paired), which the host transforms call, and
+gaussian noise and blur, centre and random crops, which no transform
+calls. Each function draws from the ``rng`` it is given,
 in the JAX module's order (``random_translate`` draws the width's offset
 before the height's), so equal ``RandomState``s give equal arrays, bit for
 bit.
@@ -111,3 +111,36 @@ def random_zoom_pair(image, label, zoom_range, rng, orders=(2, 0)):
   return (clipped_zoom(image, factor, order=orders[0]),
           clipped_zoom(label, factor, order=orders[1]))
 
+
+def gaussian_noise(image, sigma, rng):
+  """Additive gaussian noise of std ``sigma``, in the image's dtype."""
+  return image + sigma * rng.randn(*image.shape).astype(image.dtype)
+
+
+def gaussian_blur(image, sigma):
+  """Gaussian blur over the spatial dims of an HWC image."""
+  out = np.empty_like(image)
+  for c in range(image.shape[2]):
+    out[:, :, c] = gaussian_filter(image[:, :, c], sigma)
+  return out
+
+
+def center_crop(image, size):
+  """Centre crop of an HWC image to (size, size)."""
+  if isinstance(size, int):
+    size = (size, size)
+  h, w = image.shape[:2]
+  top = (h - size[0]) // 2
+  left = (w - size[1]) // 2
+  return image[top:top + size[0], left:left + size[1]]
+
+
+def random_crop(image, size, rng):
+  """Random crop of an HWC image to (size, size): the top row, then the
+  left column, from ``rng``."""
+  if isinstance(size, int):
+    size = (size, size)
+  h, w = image.shape[:2]
+  top = rng.randint(0, h - size[0] + 1)
+  left = rng.randint(0, w - size[1] + 1)
+  return image[top:top + size[0], left:left + size[1]]

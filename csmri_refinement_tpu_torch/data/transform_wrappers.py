@@ -8,6 +8,10 @@ transform maps (prediction, target) to the space metrics are computed in.
 * segmentation: NHWC logits → softmax → argmax class map with a trailing
   channel dim; a (B, H, W) target gains the same dim;
 * none: no transform.
+
+``get_input_batch_transform`` is the JAX package's hook for a transform of
+the input batch: no application has one, so it returns None for the three
+applications and raises on another.
 """
 
 import torch
@@ -29,6 +33,16 @@ def seg_output_transform(pred, target):
   return classes[..., None], target
 
 
+def get_rec_output_transform(conf=None, mode=None):
+  """The reconstruction output transform (JAX's factory signature)."""
+  return rec_output_transform
+
+
+def get_seg_output_transform(conf=None, mode=None):
+  """The segmentation output transform (JAX's factory signature)."""
+  return seg_output_transform
+
+
 def get_output_transform(application):
   if application == 'reconstruction':
     return rec_output_transform
@@ -37,3 +51,14 @@ def get_output_transform(application):
   if application == 'none':
     return None
   raise ValueError('Unknown application {!r}'.format(application))
+
+
+APPLICATIONS = ('reconstruction', 'segmentation', 'none')
+
+
+def get_input_batch_transform(conf, application, mode):
+  """None: no application transforms its input batch (JAX
+  ``transform_wrappers.py:71-75``)."""
+  if application not in APPLICATIONS:
+    raise ValueError('Unknown application {!r}'.format(application))
+  return None

@@ -93,16 +93,20 @@ class RecSegHostTransform:
   Augmentation moves image and label together: one translate of the two
   stacked, then ``random_rotate_pair`` and ``random_zoom_pair`` with spline
   orders (2, 0), so the label stays a label map. The label is subsampled by
-  ``downscale`` and rounded to int64. The input options ``normalize`` and
-  ``scale_by_max`` (JAX ``:147-150``), which no config sets, are not
-  ported.
+  ``downscale`` and rounded to int64. The input options (JAX ``:147-150``,
+  which no config sets): ``normalize`` takes the cropped image to zero
+  mean and unit std, then ``scale_by_max`` divides by its maximum and clips
+  to [0, 1].
   """
 
-  def __init__(self, image_size, downscale=1, augmentation=None, rng=None):
+  def __init__(self, image_size, downscale=1, augmentation=None, rng=None,
+               normalize=False, scale_by_max=False):
     self.target_size = image_size // downscale
     self.downscale = downscale
     self.augmentation = augmentation
     self.rng = rng if rng is not None else np.random
+    self.normalize = normalize
+    self.scale_by_max = scale_by_max
 
   def __call__(self, image, label):
     """image, label: (H, W) or (H, W, 1) → ((size, size) float32,
@@ -128,5 +132,9 @@ class RecSegHostTransform:
           image, label, zoom_range, self.rng, orders=(2, 0))
 
     img2d = _crop_and_normalise(image[..., 0], self.target_size)
+    if self.normalize:
+      img2d = (img2d - img2d.mean()) / (img2d.std() + 1e-9)
+    if self.scale_by_max:
+      img2d = np.clip(img2d / (np.max(img2d) + 1e-9), 0, 1)
     label2d = label[::self.downscale, ::self.downscale, 0]
     return img2d.astype(np.float32), np.round(label2d).astype(np.int64)

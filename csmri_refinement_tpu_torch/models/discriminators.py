@@ -158,11 +158,12 @@ class CNNDiscriminator(nn.Module):
         weight_inits.init_(module.weight, inits[kind + '_weight'], generator)
         if module.bias is not None:
           spec = inits.get('final_layer_bias') if module is final else None
+          spec = spec and weight_inits.direct_spec(spec, 'final_layer_bias')
           weight_inits.init_(module.bias, spec or inits[kind + '_bias'],
                              generator)
       elif isinstance(module, nn.BatchNorm2d):
-        weight_inits.init_(module.weight, inits['batchnorm_weight'],
-                           generator)
+        weight_inits.init_(module.weight, weight_inits.direct_spec(
+            inits['batchnorm_weight'], 'batchnorm_weight'), generator)
         module.bias.data.zero_()
         module.reset_running_stats()
       elif isinstance(module, PReLU):

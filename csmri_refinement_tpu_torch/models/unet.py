@@ -27,23 +27,30 @@ Port of ``csmri_refinement_tpu/models/unet.py``:
     ``SubpixelNNResizeConv`` (``:87-169``, chosen at ``:416-421``), in
     train and eval mode: one 3×3 conv to 4·Cout phase channels on the
     low-resolution image, then depth-to-space, without the upsampled
-    intermediate. Other k keep the explicit path (``:422-430``).
+    intermediate. Other k keep the explicit path (``:422-430``);
+  - ``bilinear`` and ``nn-biresize-conv`` (``:407-408``, ``:422-429``):
+    the 2× bilinear up-sample of ``jax.image.resize`` (half-pixel centres,
+    edge rows repeated), written as its two-tap stencil (``_bilinear_up2``)
+    rather than ``F.interpolate``, whose CUDA backward adds with atomics in
+    no fixed order; then (``nn-biresize-conv``) a SAME k×k conv.
   Without ``act_upsampling_only`` BN and LeakyReLU act on the
   skip-concatenated tensor (``merge_bn``) before the decode chain, and do
   not fold into it.
 * ``UNET`` (``:474-594``): encoders, skip concat with pad-to-target,
-  decoders, 1×1 head, output activation.
+  decoders, 1×1 head, output activation; ``use_refinement`` adds the input
+  to the prediction, and ``encoder_features`` (indices into each
+  downsampling scale's pre-pool features, then the last encoder's output)
+  makes the forward return ``{'pred': ..., 'features': [...]}``.
 
 ``remat`` (``:490``, ``:519-520``) recomputes every encode and decode
 unit in the backward of a train-mode forward (``models/remat.py``; the BN
-statistics move once). The modes ``bilinear`` and ``nn-biresize-conv`` and
-the options ``use_refinement`` and ``encoder_features`` are not ported yet
-and raise. Under a bf16 ``dtype`` the parameters and BN statistics stay
-f32: each conv casts its weights, and BN normalises in f32 and returns the
-compute dtype, as flax's ``BatchNorm`` does. Submodule names follow the
-flax tree (``encode_{s}.conv_{i}``, ``bn_{i}``, ``decode_{s}.up_conv``,
-``decode_{s}.merge_bn``, ``decode_{s}.decode.conv_{i}``, ``head``) so the
-weight bridge is a 1:1 walk.
+statistics move once). Under a bf16 ``dtype`` the parameters and BN
+statistics stay f32: each conv casts its weights, and BN normalises in f32
+and returns the compute dtype, as flax's ``BatchNorm`` does. Submodule
+names follow the flax tree (``encode_{s}.conv_{i}``, ``bn_{i}``,
+``decode_{s}.up_conv``, ``decode_{s}.merge_bn``,
+``decode_{s}.decode.conv_{i}``, ``head``) so the weight bridge is a 1:1
+walk.
 
 Under a spatial mesh (``parallel/halo.py``) each rank holds its rows, a
 multiple of ``row_factor`` (2 per pool): the SAME convs take halo rows
@@ -51,12 +58,14 @@ multiple of ``row_factor`` (2 per pool): the SAME convs take halo rows
 ``transposed`` up-conv of k > 2 takes the (k − 1) // 2 rows above whose
 overhang reaches its rows, ``pixelshuffle`` and the subpixel k4 up-conv
 are convs on the low-resolution grid (the latter recomputes the image's
-last row on the bottom rank only), ``_pad_to_target`` is a no-op, and BN
-takes the world's statistics. An eval chain through the conv kernel runs
-on its rows with a halo of L·pad rows per side (L layers), and drops the
-halo rows of its output, which hold every row the tile's own edges made
-wrong; the kernel is unchanged. The int8 mode is a single-card serving
-mode and raises there.
+last row on the bottom rank only), the bilinear up-sample reads one halo
+row per side (its edge rows repeated at the image's top and bottom only),
+``_pad_to_target`` is a no-op, BN takes the world's statistics, and the
+encoder features are the rank's rows. An eval chain through the conv
+kernel runs on its rows with a halo of L·pad rows per side (L layers), and
+drops the halo rows of its output, which hold every row the tile's own
+edges made wrong; the kernel is unchanged. The int8 mode is a single-card
+serving mode and raises there.
 """
 
 import torch
@@ -72,8 +81,8 @@ from csmri_refinement_tpu_torch.ops import quantize
 from csmri_refinement_tpu_torch.parallel import halo
 
 DEFAULT_RELU_LEAKINESS = 0.1
-PORTED_UPSAMPLING_MODES = ('transposed', 'pixelshuffle', 'nn',
-                           'nn-resize-conv')
+UPSAMPLING_MODES = ('transposed', 'nn', 'bilinear', 'pixelshuffle',
+                    'nn-resize-conv', 'nn-biresize-conv')
 
 
 def _nchw(x):
@@ -82,6 +91,29 @@ def _nchw(x):
 
 def _nhwc(x):
   return x.permute(0, 2, 3, 1)
+
+
+def _up2_axis(p, dim):
+  """2× linear up-sampling with half-pixel centres along ``dim`` of ``p``,
+  which holds one extra row at each end: output 2i is 0.75·x[i] +
+  0.25·x[i − 1], output 2i + 1 is 0.75·x[i] + 0.25·x[i + 1] (one ``lerp``
+  each)."""
+  n = p.shape[dim] - 2
+  mid = p.narrow(dim, 1, n)
+  even = torch.lerp(mid, p.narrow(dim, 0, n), 0.25)
+  odd = torch.lerp(mid, p.narrow(dim, 2, n), 0.25)
+  return torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
+
+
+def _bilinear_up2(x):
+  """``jax.image.resize(x, (B, 2H, 2W, C), 'bilinear')`` of an NHWC
+  tensor, as slices and ``lerp``s (a backward without atomics), NHWC
+  throughout. The edge rows and columns repeat (``layers.pad``,
+  'replicate'); under a spatial mesh the rows above and below a rank's
+  tile are the neighbours' halo rows instead, so each rank computes exactly
+  its 2·(H/S) output rows."""
+  p = _nhwc(pad(_nchw(x), (1, 1, 1, 1), 'replicate'))
+  return _up2_axis(_up2_axis(p, 1), 2)
 
 
 def _bn_act(x, bn, leak, dt):
@@ -314,9 +346,8 @@ class ConvDecodeUnit(nn.Module):
                padding='zero', act_upsampling_only=False, dtype=None,
                quantize_inference=False):
     super().__init__()
-    if mode not in PORTED_UPSAMPLING_MODES:
-      raise NotImplementedError(
-          'upsampling mode {!r} is not ported yet'.format(mode))
+    if mode not in UPSAMPLING_MODES:
+      raise ValueError('Unknown upsampling mode {!r}'.format(mode))
     self.mode = mode
     self.leak = relu_leakiness if use_act else None
     self.padding = padding
@@ -336,7 +367,7 @@ class ConvDecodeUnit(nn.Module):
     elif self.subpixel:
       self.up_conv = SubpixelNNResizeConv(in_channels, num_filters, use_bias,
                                           padding)
-    elif mode == 'nn-resize-conv':
+    elif mode in ('nn-resize-conv', 'nn-biresize-conv'):
       self.up_conv = nn.Conv2d(in_channels, num_filters, kernel_size,
                                bias=use_bias)
     else:
@@ -376,8 +407,11 @@ class ConvDecodeUnit(nn.Module):
       x = _nhwc(F.pixel_shuffle(
           same_conv(x, conv.weight.to(dt), bias, self.padding), 2))
     else:
-      x = F.interpolate(x, scale_factor=2, mode='nearest')
-      if self.mode == 'nn-resize-conv':
+      if self.mode in ('nn', 'nn-resize-conv'):
+        x = F.interpolate(x, scale_factor=2, mode='nearest')
+      else:
+        x = _nchw(_bilinear_up2(_nhwc(x)))
+      if conv is not None:
         x = same_conv(x, conv.weight.to(dt), bias, self.padding)
       x = _nhwc(x)
     if self.act_upsampling_only:
@@ -411,16 +445,14 @@ class UNET(nn.Module):
     if output_activation not in ('softmax', 'tanh', 'none'):
       raise ValueError('Unknown output activation {}'.format(
           output_activation))
-    for name, value in (('use_refinement', use_refinement),
-                        ('encoder_features', encoder_features)):
-      if value:
-        raise NotImplementedError('UNET {} is not ported yet'.format(name))
     if isinstance(relu_leakiness, (int, float)):
       relu_leakiness = (relu_leakiness, relu_leakiness)
     self.output_activation = output_activation
     self.weight_init = weight_init or {}
     self.dtype = dtype
     self.remat = remat
+    self.use_refinement = use_refinement
+    self.encoder_features = encoder_features
     n_enc = len(encode_filters)
     self.n_enc = n_enc
     self.n_dec = len(decode_filters)
@@ -476,8 +508,8 @@ class UNET(nn.Module):
         if module.bias is not None:
           weight_inits.init_(module.bias, inits['conv_bias'], generator)
       elif isinstance(module, nn.BatchNorm2d):
-        weight_inits.init_(module.weight, inits['batchnorm_weight'],
-                           generator)
+        weight_inits.init_(module.weight, weight_inits.direct_spec(
+            inits['batchnorm_weight'], 'batchnorm_weight'), generator)
         weight_inits.init_(module.bias, inits['batchnorm_bias'], generator)
         module.reset_running_stats()
 
@@ -496,6 +528,7 @@ class UNET(nn.Module):
         features.append(feat)
       else:
         x = self._run(unit, x)
+        last = x
     for scale, unit in enumerate(self._decoders()):
       x = self._run(unit, x, features[-(scale + 1)]
                     if scale < self.n_enc - 1 else None)
@@ -506,4 +539,10 @@ class UNET(nn.Module):
       pred = torch.softmax(pred, dim=-1)
     elif self.output_activation == 'tanh':
       pred = torch.tanh(pred)
+    if self.use_refinement:
+      pred = inp + pred
+    if self.encoder_features is not None:
+      encoded = features + [last]
+      return {'pred': pred,
+              'features': [encoded[i] for i in self.encoder_features]}
     return pred

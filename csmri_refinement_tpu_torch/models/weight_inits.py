@@ -9,9 +9,19 @@ Specs: ``'zero'``, ``('constant', c)``, ``('normal', mean, std)``,
 ``('uniform', a, b)``, ``('xavier', gain)`` (uniform) and
 ``('xavier_normal', gain)``, ``('he_normal', a)`` and ``('he_uniform', a)``
 (a: the rectifier's negative slope), ``('orthogonal',
-gain_or_nonlinearity)``. Fans follow torch's (and the JAX package's)
-convention: fan_in = Cin·k·k, fan_out = Cout·k·k. The normal laws are
-untruncated, as the JAX package's ``variance_scaling(..., 'normal')``.
+gain_or_nonlinearity)`` and ``'torch_default'``. Fans follow torch's (and
+the JAX package's) convention: fan_in = Cin·k·k, fan_out = Cout·k·k. The
+normal laws are untruncated, as the JAX package's ``variance_scaling(...,
+'normal')``.
+
+``'torch_default'`` keeps flax's default, as the JAX package's
+``kernel_and_bias`` does (its ``weight_inits.py:126-137``): a weight (conv,
+transposed conv, linear) takes ``lecun_normal``, a normal truncated at ±2
+standard deviations and rescaled to std √(1/fan_in), drawn by the inverse
+CDF of a uniform draw; a bias takes zero. The JAX package hands the spec
+of its other slots (the BN scale, the discriminator's final bias) to flax
+as it is, where ``'torch_default'`` resolves to None and flax fails on it:
+``direct_spec`` raises there.
 """
 
 import math
@@ -77,6 +87,30 @@ def _orthogonal(shape, gain, generator):
   return flax_view.permute(3, 2, 0, 1) if kernel else flax_view.T
 
 
+# flax's truncated_normal: the std of a standard normal truncated to [-2, 2]
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def _truncated_normal(shape, std, generator):
+  """``std`` times a standard normal truncated to [-2, 2] (f64): the
+  inverse CDF of a uniform draw between the bounds' CDFs."""
+  lo, hi = torch.special.ndtr(torch.tensor([-2.0, 2.0], dtype=torch.float64))
+  u = torch.rand(shape, generator=generator, dtype=torch.float64)
+  return std * torch.special.ndtri(lo + (hi - lo) * u)
+
+
+def direct_spec(spec, slot):
+  """``spec`` of a slot whose initializer the JAX package passes to flax
+  unresolved; ``'torch_default'`` fails there (flax calls None), so here it
+  raises, naming ``slot``."""
+  name = spec[0] if isinstance(spec, (tuple, list)) else spec
+  if name == 'torch_default':
+    raise ValueError("weight init 'torch_default' has no law for {}: the "
+                     'JAX package passes None to flax there, which fails'
+                     .format(slot))
+  return spec
+
+
 def init_(tensor, spec, generator):
   """Fill ``tensor`` in place from an init spec, drawing from
   ``generator``."""
@@ -113,6 +147,11 @@ def init_(tensor, spec, generator):
           uniform(std * math.sqrt(3.0))
     if name == 'orthogonal':
       return tensor.copy_(_orthogonal(shape, _gain(spec), generator))
+    if name == 'torch_default':     # flax's lecun_normal weight, zero bias
+      if len(shape) < 2:
+        return tensor.zero_()
+      std = math.sqrt(1.0 / _fans(shape)[0]) / _TRUNCATED_STD
+      return tensor.copy_(_truncated_normal(shape, std, generator))
   raise ValueError('Unknown weight init {}'.format(name))
 
 

@@ -1,35 +1,47 @@
 """k-space data-consistency operator — the RecNet hot op.
 
 Port of the dense ``data_consistency`` of
-``csmri_refinement_tpu/ops/dc.py:448-486``:
+``csmri_refinement_tpu/ops/dc.py:448-501``:
 
     k   = fft2(x)                    # ortho, unshifted
     out = (1 - mask) * k + k0        # noiseless merge
     x'  = ifft2(out)
 
-On a CUDA tensor it runs the hand-written DC kernel (``ops/dc_kernel.py``)
-through ``_DCFunction``, whose backward is the same kernel (K1-bwd); on a
-CPU tensor, its autodiffed plain ``torch.fft`` version. Always in float32.
-The noisy merge, the sampled-lines ("skinny") lowering and the JAX
-package's TPU lowering selectors are not ported: the dense DC is what the
-JAX package runs under ``CSMRI_TPU_FUSED_DC=1``, and the skinny lowering
+On a CUDA tensor the noiseless DC runs the hand-written DC kernel
+(``ops/dc_kernel.py``) through ``_DCFunction``, whose backward is the same
+kernel (K1-bwd); on a CPU tensor, its autodiffed plain ``torch.fft``
+version. Always in float32.
+
+With a ``noise_lvl`` the merge weighs the prediction against the noisy
+samples (``kspace_merge_reference``), and the DC is the ``torch.fft``
+composition (cuFFT on the card), autodiffed: the JAX package sends a noisy
+DC to its non-Pallas composition too (its ``_gemm_mode``, ``dc.py:70-77``),
+so there is no TPU kernel of it to port. ``data_consistency_complex``
+takes complex64 images, ``data_consistency_np`` numpy arrays (the
+reference's golden formula). The sampled-lines ("skinny") lowering and the
+JAX package's TPU lowering selectors are not ported: the dense DC is what
+the JAX package runs under ``CSMRI_TPU_FUSED_DC=1``, and the skinny lowering
 equals it exactly (its ``ops/dc.py:310-332``).
 
 Under a spatial mesh (``parallel/halo.py``) ``x`` holds the rank's image
 rows and ``k0`` and ``mask`` the whole images (every rank of the spatial
 group holds them: a layout the JAX package shards, the same values):
 ``dc_kernel.dc_rows`` gathers x's rows and runs the same DC on the whole
-image. The JAX package's ``set_spatial_mesh`` switches XLA lowerings only
-and has no counterpart here.
+image; the noisy DC gathers them too (``halo.gather_rows``), composes, and
+keeps the rank's rows. The JAX package's ``set_spatial_mesh`` switches XLA
+lowerings only and has no counterpart here.
 """
 
+import numpy as np
 import torch
 
 from csmri_refinement_tpu_torch.ops import dc_kernel
+from csmri_refinement_tpu_torch.ops import fft
 from csmri_refinement_tpu_torch.ops.dc_kernel import kspace_merge_reference
 from csmri_refinement_tpu_torch.parallel import halo
 
-__all__ = ['data_consistency', 'kspace_merge_reference',
+__all__ = ['data_consistency', 'data_consistency_complex',
+           'data_consistency_np', 'kspace_merge_reference',
            'lines_acc_from_undersampling']
 
 
@@ -46,17 +58,46 @@ def lines_acc_from_undersampling(us):
   return float(us.get('acceleration_factor', 8))
 
 
-def data_consistency(x, k0, mask):
+def data_consistency(x, k0, mask, noise_lvl=None):
   """Data-consistency step on packed tensors.
 
   x : (B, H, W, 2) float — current image estimate (real/imag channels)
   k0 : (B, H, W, 2) float — originally sampled k-space
   mask : (B, H, W, 1) float — 1 where k-space was sampled
+  noise_lvl : None (the DC kernel), or the noisy merge's level (the
+    ``torch.fft`` composition)
 
   Returns the (B, H, W, 2) float32 image with sampled k-space restored.
   """
   f32 = lambda t: t.to(torch.float32).contiguous()
   mesh = halo.current()
+  if noise_lvl is not None:
+    if mesh is None:
+      return _dc_composed(f32(x), k0, mask, noise_lvl)
+    whole = _dc_composed(halo.gather_rows(f32(x), mesh, dim=1), k0, mask,
+                         noise_lvl)
+    return halo.local_rows(whole, mesh, dim=1)
   if mesh is not None:
     return dc_kernel.dc_rows(f32(x), f32(k0), f32(mask), mesh)
   return dc_kernel.dc_fused(f32(x), f32(k0), f32(mask))
+
+
+def _dc_composed(x, k0, mask, noise_lvl):
+  out = data_consistency_complex(fft.unpack_complex(x),
+                                 fft.unpack_complex(k0),
+                                 mask[..., 0].float(), noise_lvl)
+  return fft.pack_complex(out)
+
+
+def data_consistency_complex(xc, k0c, m, noise_lvl=None):
+  """The DC on complex64 (B, H, W) images with a (B, H, W) mask, through
+  ``torch.fft``."""
+  k = kspace_merge_reference(fft.fft2(xc), k0c, m, noise_lvl)
+  return fft.ifft2(k)
+
+
+def data_consistency_np(x, y, mask, norm='ortho'):
+  """The DC of numpy arrays: ``ifft2((1 − mask)·fft2(x) + y)`` over the
+  last two axes (the reference's uncentred golden formula)."""
+  xf = np.fft.fft2(x, axes=(-2, -1), norm=norm)
+  return np.fft.ifft2((1 - mask) * xf + y, axes=(-2, -1), norm=norm)

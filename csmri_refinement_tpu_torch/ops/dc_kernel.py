@@ -64,8 +64,12 @@ from csmri_refinement_tpu_torch.parallel import halo
 MAX_SIZE = 512
 
 
-def kspace_merge_reference(k, k0, mask):
-  """Merge predicted k-space with the sampled lines (noiseless)."""
+def kspace_merge_reference(k, k0, mask, noise_lvl=None):
+  """Merge predicted k-space with the sampled lines: noiseless, or with a
+  ``noise_lvl`` weighing the prediction against the noisy samples (JAX
+  ``ops/dc.py:448-452``; a ``noise_lvl`` of 0 merges as noiseless)."""
+  if noise_lvl:
+    return (1 - mask) * k + mask * (k + noise_lvl * k0) / (1 + noise_lvl)
   return (1 - mask) * k + k0
 
 

@@ -1,6 +1,6 @@
 """FFT helpers and complex ⇄ real packing on channel-last layout.
 
-Port of ``csmri_refinement_tpu/ops/fft.py:168-222`` on ``torch.fft``
+Port of ``csmri_refinement_tpu/ops/fft.py:168-231`` on ``torch.fft``
 (cuFFT on the card). The JAX package's matmul-DFT and radix splits
 (``fft.py:127-165``) exist only because the TPU has no FFT unit and are not
 ported.
@@ -10,7 +10,8 @@ Conventions (as in the JAX package):
 * complex images are ``complex64`` tensors ``(..., H, W)``;
 * packed images are ``float32`` tensors ``(..., H, W, 2)`` with
   ``[..., 0] = real`` and ``[..., 1] = imag``;
-* ``fft2``/``ifft2`` are ortho-normalised and unshifted.
+* ``fft2``/``ifft2`` are ortho-normalised and unshifted; ``fft2c`` and
+  ``ifft2c`` are their centred variants over any two ``axes``.
 """
 
 import torch
@@ -39,6 +40,19 @@ def fft2(x):
 def ifft2(x):
   """Ortho-normalised, unshifted 2D inverse FFT over the last two axes."""
   return torch.fft.ifft2(x, dim=(-2, -1), norm='ortho')
+
+
+def fft2c(x, axes=(-2, -1)):
+  """Centred ortho 2D FFT: ifftshift, fft2, fftshift over ``axes``."""
+  return torch.fft.fftshift(torch.fft.fft2(torch.fft.ifftshift(x, dim=axes),
+                                           dim=axes, norm='ortho'), dim=axes)
+
+
+def ifft2c(x, axes=(-2, -1)):
+  """Centred ortho 2D inverse FFT: ifftshift, ifft2, fftshift over
+  ``axes``."""
+  return torch.fft.fftshift(torch.fft.ifft2(torch.fft.ifftshift(x, dim=axes),
+                                            dim=axes, norm='ortho'), dim=axes)
 
 
 def complex_abs(x, keepdims=True):

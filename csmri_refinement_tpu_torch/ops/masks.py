@@ -2,16 +2,20 @@
 
 Port of ``csmri_refinement_tpu/ops/masks.py``:
 
-* ``cartesian_mask_np`` (``:37``) and ``radial_sampling_np`` (``:75``) —
-  the JAX package's code, so the same ``RandomState`` gives the same mask,
-  bit for bit;
-* ``radial_masks_np``: the radial path of ``get_mask_generator_np``
-  (``:295-316``), which the batch preparer's train and validation masks
-  both take;
+* the host generators — ``cartesian_mask_np`` (``:37``),
+  ``radial_sampling_np`` (``:75``), ``var_dens_mask_2d`` (``:128``),
+  ``nlines_mask`` (``:151``), ``lowres_mask`` (``:177``),
+  ``shear_grid_mask`` (``:198``), ``undersampling_rate`` (``:235``),
+  ``get_undersampling_sensitivity`` (``:240``) and
+  ``get_mask_generator_np`` (``:295``) — the JAX package's code with its
+  draw order, so the same ``RandomState`` gives the same mask, bit for bit;
+* ``radial_masks_np``: the radial path of ``get_mask_generator_np``,
+  which the batch preparer's train and validation masks both take;
 * ``cartesian_num_lines`` (``:282``) and ``_cartesian_pdf`` (``:334``);
 * ``cartesian_mask`` (``:348-412``) — Gumbel top-k line selection, drawn
   from an explicit ``torch.Generator`` on the mask's device;
-* ``make_masks`` (``:415-445``) for the ``varden``/``cartesian`` schemes.
+* ``make_masks`` (``:415-445``): cartesian masks on the device; radial
+  ones on the host from a ``RandomState`` seeded by the generator.
 
 ``jax.random`` and ``torch.Generator`` give different bits from one seed:
 for cartesian masks the two packages agree on the line count and the
@@ -118,6 +122,153 @@ def radial_sampling_np(shape, n_lines, angle_begin=0, rand=False,
   return mask.reshape(shape)
 
 
+def var_dens_mask_2d(shape, ivar, sample_high_freq=True, rng=None,
+                     sample_n=9):
+  """Variable-density 2D Bernoulli mask from a separable gaussian pdf of
+  sensitivity ``ivar``, with a fully sampled centre block of side
+  ``sample_n`` (odd)."""
+  if rng is None:
+    rng = np.random
+  if len(shape) == 3:
+    nt, nx, ny = shape
+  else:
+    nx, ny = shape
+    nt = 1
+  pdf = np.outer(normal_pdf(nx, ivar), normal_pdf(ny, ivar))
+  if sample_high_freq:
+    pdf = pdf / 1.1 + 0.01
+  mask = rng.binomial(1, np.broadcast_to(pdf, (nt, nx, ny)))
+  xc, yc = nx // 2, ny // 2
+  half = sample_n // 2
+  mask[:, xc - half:xc + half + 1, yc - half:yc + half + 1] = 1
+  if nt == 1 and len(shape) == 2:
+    return mask.reshape(nx, ny)
+  return mask
+
+
+def nlines_mask(shape, n, centred=False, sample_centre=True, sample_n=1,
+                rng=None):
+  """``n`` k-space lines per frame of a (nt, nx, ny) mask, uniformly at
+  random, ``sample_n`` of them the central lines (redrawn until the random
+  ones miss the centre)."""
+  if rng is None:
+    rng = np.random
+  nt, nx, ny = shape
+  mask = np.zeros(shape)
+  center = set()
+  if sample_centre:
+    xc = nx // 2
+    s = sample_n // 2
+    center = set(range(xc - s, xc - s + sample_n))
+    mask[:, xc - s:xc - s + sample_n, :] = 1
+    n -= sample_n
+  if n > 0:
+    for t in range(nt):
+      idx = rng.choice(nx, n, replace=False)
+      while center and center.intersection(idx.tolist()):
+        idx = rng.choice(nx, n, replace=False)
+      mask[t, idx, :] = 1
+  if not centred:
+    mask = np.fft.ifftshift(mask, axes=(-2, -1))
+  return mask
+
+
+def lowres_mask(shape, n, centred=False, skip=True, rng=None):
+  """Low-resolution acquisition: the ``n`` central lines, or with ``skip``
+  ``n`` offsets from the centre with random signs."""
+  if rng is None:
+    rng = np.random
+  nt, nx, ny = shape
+  mask = np.zeros((nt, nx, 1))
+  xc = nx // 2
+  for t in range(nt):
+    if skip:
+      sign = ((rng.binomial(1, 0.5, n) - 0.5) * 2).astype(int)
+      mask[t, xc + np.arange(n) * sign, :] = 1
+    else:
+      s = n // 2
+      mask[t, xc - s:xc - s + n, :] = 1
+  mask = np.repeat(mask, ny, axis=-1)
+  if not centred:
+    mask = np.fft.ifftshift(mask, axes=(-2, -1))
+  return mask
+
+
+def shear_grid_mask(shape, acceleration_rate, sample_low_freq=True,
+                    centred=False, sample_n=10, rng=None, perturb=False):
+  """Shear-grid (k-t) sampling: frame t samples every
+  ``acceleration_rate``-th line from a phase shifted by t, optionally each
+  line moved by -1, 0 or 1, plus ``sample_n`` low-frequency lines."""
+  if rng is None:
+    rng = np.random
+  nt, nx, ny = shape
+  start = rng.randint(0, acceleration_rate)
+  mask = np.zeros((nt, nx))
+  for t in range(nt):
+    mask[t, (start + t) % acceleration_rate::acceleration_rate] = 1
+
+  if perturb:
+    shift = np.array([-1, 0, 1])[rng.randint(0, 3, size=nt * nx)]
+    new_mask = np.zeros_like(mask)
+    for t in range(nt):
+      for x in range(nx):
+        if mask[t, x]:
+          new_mask[t, (x + shift[t * x]) % nx] = 1
+    mask = new_mask
+
+  xc = nx // 2
+  xl = sample_n // 2
+  if sample_low_freq and centred:
+    xh = xl + (1 if sample_n % 2 == 0 else 0)
+    mask[:, xc - xl:xc + xh + 1] = 1
+  elif sample_low_freq:
+    xh = xl - (1 if sample_n % 2 == 1 else 0)
+    if xl > 0:
+      mask[:, :xl] = 1
+    if xh > 0:
+      mask[:, -xh:] = 1
+
+  return np.repeat(mask[..., np.newaxis], ny, axis=-1)
+
+
+def undersampling_rate(mask):
+  """Fraction of k-space sampled."""
+  return float(np.sum(mask)) / mask.size
+
+
+def get_undersampling_sensitivity(dim, target_factor, num_trials=20,
+                                  tol=1.0, rng=None, max_iters=40):
+  """The ``var_dens_mask_2d`` sensitivity whose masks of side ``dim``
+  sample 1/``target_factor`` of k-space on average (``num_trials`` masks
+  per reading, within ``tol`` percent), by bisection in log space."""
+  if rng is None:
+    rng = np.random.RandomState(0)
+  target_rate = 1.0 / target_factor
+
+  def mean_rate(ivar):
+    masks = var_dens_mask_2d((num_trials,) + tuple(dim), ivar, rng=rng)
+    return masks.mean()
+
+  lo, hi = 1e-8, 1e-2
+  while mean_rate(hi) > target_rate and hi < 1e3:
+    hi *= 10
+  if mean_rate(lo) < target_rate:
+    raise ValueError(
+        'Cannot reach target rate {}: masks sample a fully-covered center '
+        'block; ensure (central samples)/mask.size < 1/factor'.format(
+            target_rate))
+  for _ in range(max_iters):
+    mid = np.sqrt(lo * hi)
+    rate = mean_rate(mid)
+    if abs(rate - target_rate) <= tol * target_rate / 100.0:
+      return mid
+    if rate > target_rate:
+      lo = mid
+    else:
+      hi = mid
+  return np.sqrt(lo * hi)
+
+
 def cartesian_num_lines(nx, acc, sample_n=CARTESIAN_CENTRAL_LINES):
   """Total sampled-line count of a static-acceleration cartesian mask:
   the reference's f64 ``int(nx // acc)``, floored at the guaranteed centre
@@ -140,6 +291,32 @@ def radial_masks_np(shape, spokes, rng, variable=False):
     return mask.reshape(shape)
   return radial_sampling_np(shape, int(spokes), rand=True, golden_angle=True,
                             centred=False, rng=rng)
+
+
+def get_mask_generator_np(sampling_scheme, im_shape, acceleration_factor,
+                          variable=False, rng=None):
+  """A closure drawing one (B, n, n) host mask per call from ``rng``:
+  radial (``radial_masks_np``) or cartesian with 8 centre lines, with
+  ``variable`` a count of spokes or an acceleration U(1, 1.5·acc) per
+  mask."""
+  if rng is None:
+    rng = np.random
+
+  def mask_gen():
+    if sampling_scheme == 'radial':
+      return radial_masks_np(im_shape, acceleration_factor, rng, variable)
+    if variable:
+      mask = np.zeros(im_shape)
+      for i in range(im_shape[0]):
+        acc_r = float(rng.uniform(1, acceleration_factor * 1.5))
+        mask[i] = cartesian_mask_np(im_shape[1:], acc_r,
+                                    CARTESIAN_CENTRAL_LINES,
+                                    centred=False, rng=rng)
+      return mask
+    return cartesian_mask_np(im_shape, acceleration_factor,
+                             CARTESIAN_CENTRAL_LINES, centred=False, rng=rng)
+
+  return mask_gen
 
 
 def _centre(nx, sample_n, device):
@@ -206,11 +383,17 @@ def draw_seed(generator, device=None):
 def make_masks(generator, batch, height, width, sampling_scheme='varden',
                acceleration_factor=8, variable_acceleration=False,
                sample_n=CARTESIAN_CENTRAL_LINES, device=None):
-  """Batched cartesian (``varden``/``cartesian``) masks on ``device``.
-
-  Variable acceleration draws per-example acc ~ U(1, 1.5·acc). Radial
-  masks are drawn on the host (``radial_masks_np``).
+  """Batched masks on ``device``: cartesian (``varden``/``cartesian``)
+  drawn there, variable acceleration taking acc ~ U(1, 1.5·acc) per
+  example; ``radial`` rasterised on the host, as in the JAX package, from
+  a ``RandomState`` seeded by one draw of ``generator`` (f32).
   """
+  if sampling_scheme == 'radial':
+    rng = np.random.RandomState(draw_seed(generator, device))
+    mask = radial_sampling_np((batch, height, width),
+                              int(acceleration_factor), rand=True,
+                              golden_angle=True, centred=False, rng=rng)
+    return torch.as_tensor(mask, dtype=torch.float32, device=device)
   if sampling_scheme not in ('varden', 'cartesian'):
     raise ValueError('Unknown sampling scheme {}'.format(sampling_scheme))
   if variable_acceleration:

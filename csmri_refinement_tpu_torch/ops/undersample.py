@@ -1,8 +1,10 @@
 """k-space forward model: retrospective undersampling.
 
-Port of ``csmri_refinement_tpu/ops/undersample.py:19-96``: a batch of
+Port of ``csmri_refinement_tpu/ops/undersample.py``: a batch of
 ground-truth magnitude slices becomes the dict ``{inp, kspace, mask,
-target}`` on the slices' device.
+target}`` on the slices' device; ``center_crop_in_kspace`` crops a slice's
+centred spectrum (the host pipeline's numpy twin is
+``data/transforms.py::center_crop_in_kspace_np``).
 """
 
 import math
@@ -81,3 +83,15 @@ def undersample_batch(generator, gt, sampling_scheme='varden',
       'mask': mask[..., None].to(torch.float32).contiguous(),
       'target': fft.pack_complex(x),
   }
+
+
+def center_crop_in_kspace(img, size):
+  """|ifft2c(centre crop(fft2c(img)))|: a real (H, W) tensor to
+  (size, size) (or ``size`` = (h, w)), in f32."""
+  if isinstance(size, int):
+    size = (size, size)
+  k = fft.fft2c(img.to(torch.complex64), axes=(0, 1))
+  h, w = img.shape[0], img.shape[1]
+  th, tw = size
+  top, left = h // 2 - th // 2, w // 2 - tw // 2
+  return fft.ifft2c(k[top:top + th, left:left + tw], axes=(0, 1)).abs()

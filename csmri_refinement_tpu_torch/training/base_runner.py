@@ -47,7 +47,7 @@ from itertools import chain
 import torch
 
 from csmri_refinement_tpu_torch.data.transform_wrappers import (
-    get_output_transform)
+    get_input_batch_transform, get_output_transform)
 from csmri_refinement_tpu_torch.metrics import accumulate_metric
 from csmri_refinement_tpu_torch.parallel import halo
 from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
@@ -98,8 +98,9 @@ class BaseRunner:
     self.conf = conf
     self.mode = mode
     self.epoch = 0
-    self.output_transform = get_output_transform(
-        conf.get_attr('application', default='reconstruction'))
+    application = conf.get_attr('application', default='reconstruction')
+    self.output_transform = get_output_transform(application)
+    get_input_batch_transform(conf, application, 'test')
     self._pending_host_batch = None
     self.mesh = None
 

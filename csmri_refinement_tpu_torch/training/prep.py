@@ -153,5 +153,4 @@ def get_batch_preparer(conf, device):
     return SegBatchPreparer(device)
   if application in ('reconstruction', 'none'):
     return RecBatchPreparer(conf, device)
-  raise NotImplementedError(
-      'batch preparation for {!r} is not ported yet'.format(application))
+  raise ValueError('Unknown application {}'.format(application))

@@ -14,9 +14,11 @@ the runner's networks' state dicts after the first update and at the end to
 
 The ``standard_jax`` scenario replays the JAX package's run: its initial
 weights and its train and validation masks come from ``<out>/jax.npz`` and
-``<out>/jax_init.pt``, written by the parent. ``bn`` runs the synced
-``BatchNorm2d`` on the rank's rows of ``bn_inputs()`` and saves its output,
-gradients and statistics; ``cli`` runs the training CLI for one epoch and
+``<out>/jax_init.pt``, written by the parent; ``unet_jax`` likewise
+(``<out>/unet_jax.npz``, ``<out>/unet_jax_init.pt``) for the standard
+config with an ``nn-biresize-conv`` U-Net in RecNet's place. ``bn`` runs
+the synced ``BatchNorm2d`` on the rank's rows of ``bn_inputs()`` and saves
+its output, gradients and statistics; ``cli`` runs the training CLI for one epoch and
 lists the files this rank wrote; ``validate_cli`` runs the validate CLI
 (``-i``, the seeded init) and prints its metrics and the files this rank
 wrote.
@@ -135,6 +137,22 @@ def _segmentation_conf(repo):
   return conf
 
 
+# a reconstruction U-Net whose decoders up-sample bilinearly (no BN: the
+# JAX replay carries parameters only)
+UNET_RECONSTRUCTION = {
+    'name': 'UNET', 'num_inputs': 2, 'num_outputs': 2,
+    'num_layers_per_scale': 1, 'encode_filters': [4, 8],
+    'decode_filters': [4], 'upsampling_mode': 'nn-biresize-conv',
+    'output_activation': 'none', 'padding': 'reflection',
+    'decoder_act_upsampling_only': True, 'use_bn': False}
+
+
+def jax_prefix(name):
+  """The file prefix of a JAX replay scenario's initial weights and
+  masks."""
+  return 'jax' if name == 'standard_jax' else name
+
+
 def _conf_dict(name, repo):
   if name == 'adversarial':
     return _adversarial_conf()
@@ -147,16 +165,18 @@ def _conf_dict(name, repo):
   conf = _standard_conf()
   if name == 'standard_spf2':
     conf['steps_per_fetch'] = 2
+  if name == 'unet_jax':
+    conf['model'] = dict(UNET_RECONSTRUCTION)
   return conf
 
 
-def _replay_jax(runner, out_dir):
+def _replay_jax(runner, out_dir, name):
   """Give the runner the JAX run's initial weights and masks."""
   import torch
   from csmri_refinement_tpu_torch.ops import undersample as us
-  runner.model.load_state_dict(torch.load(
-      os.path.join(out_dir, 'jax_init.pt')))
-  masks = np.load(os.path.join(out_dir, 'jax.npz'))
+  prefix = os.path.join(out_dir, jax_prefix(name))
+  runner.model.load_state_dict(torch.load(prefix + '_init.pt'))
+  masks = np.load(prefix + '.npz')
   prep = runner.preparer
 
   def prepare_train(generator, host_batch):
@@ -228,7 +248,8 @@ def _rel(got, want):
 
 
 UNETS = ('unet nn-resize-conv k4 reflection', 'unet pixelshuffle k3 reflection',
-         'unet transposed k4 zero', 'unet nn-resize-conv k3 replication')
+         'unet transposed k4 zero', 'unet nn-resize-conv k3 replication',
+         'unet nn-biresize-conv k3 reflection')
 DISCRIMINATORS = ('batch patchgan', 'instance fc', 'batch average')
 UNIT_CASES = tuple(
     ['same_conv {} k{} s{}'.format(mode, k, stride)
@@ -236,7 +257,8 @@ UNIT_CASES = tuple(
      for stride in (1, 2)] + ['instance_norm'] +
     ['{} {}'.format(net, mode) for net in UNETS for mode in ('train', 'eval')] +
     ['discriminator ' + d for d in DISCRIMINATORS] +
-    ['vgg19 blocks 1 2', 'refinement scale', 'dc'])
+    ['vgg19 blocks 1 2', 'refinement scale', 'bilinear up2', 'dc noisy',
+     'dc'])
 
 
 def _unit_cases():
@@ -247,7 +269,9 @@ def _unit_cases():
   import torch
   import torch.distributed as dist
   from csmri_refinement_tpu_torch.models import construct_model, layers
-  from csmri_refinement_tpu_torch.models.unet import BatchNorm2d
+  from csmri_refinement_tpu_torch.models.unet import (BatchNorm2d,
+                                                      _bilinear_up2)
+  from csmri_refinement_tpu_torch.ops import dc as dc_ops
   from csmri_refinement_tpu_torch.parallel import halo
   from csmri_refinement_tpu_torch.models.refinement_wrapper import _scale
   from csmri_refinement_tpu_torch.models.vgg import VGG19
@@ -290,6 +314,11 @@ def _unit_cases():
           num_inputs=3, num_outputs=2, num_layers_per_scale=1,
           encode_filters=[4, 8], decode_filters=[4],
           upsampling_mode='nn-resize-conv', padding='replication'),
+      'unet nn-biresize-conv k3 reflection': dict(
+          num_inputs=3, num_outputs=2, num_layers_per_scale=1,
+          encode_filters=[4, 8, 8], decode_filters=[8, 4],
+          upsampling_mode='nn-biresize-conv', padding='reflection',
+          decoder_act_upsampling_only=True),
   }
   assert tuple(unets) == UNETS
   for name, section in unets.items():
@@ -324,6 +353,12 @@ def _unit_cases():
   cases['vgg19 blocks 1 2'] = ('nhwc>nchw', lambda x: vgg(x.sigmoid())[1],
                                list(vgg.parameters()))
   cases['refinement scale'] = ('nhwc', lambda x: _scale(x)[0], [])
+  cases['bilinear up2'] = ('nhwc', _bilinear_up2, [])
+  # the noisy DC: the torch.fft composition on the gathered rows
+  k0 = torch.randn(2, 32, 12, 2, generator=gen)
+  mask = (torch.rand(2, 32, 12, 1, generator=gen) > 0.5).float()
+  cases['dc noisy'] = ('nhwc', lambda x: dc_ops.data_consistency(
+      x[..., :2], k0 * mask, mask, noise_lvl=0.1), [])
   return cases
 
 
@@ -431,8 +466,8 @@ def run(name, cfg):
   conf = Configuration.from_dict(conf_d)
   device = torch.device('cpu')
   runner = build_runner(conf, conf.runner_type, 'train', device)
-  if name == 'standard_jax':
-    _replay_jax(runner, cfg['out'])
+  if name in ('standard_jax', 'unet_jax'):
+    _replay_jax(runner, cfg['out'], name)
   shard = None if runner.mesh is None else runner.mesh.shard
   first = {}
   train_batch = runner.train_batch

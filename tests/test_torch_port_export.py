@@ -5,7 +5,9 @@ against the port's ``predict`` and the JAX runner's, on the CPU.
   artifact, each raising ``ValueError`` as in JAX.
 * The CLI for ``configs/1-recnet.json`` (RecNet 8 filters, 32², B = 2)
   and the generator of ``configs/2-refinement.json`` (narrow widths, 32²,
-  B = 2), each exporting a checkpoint the JAX runner wrote: the artifact
+  B = 2; as written, and with its U-Net's ``upsampling_mode`` set to
+  ``bilinear`` and to ``nn-biresize-conv``), each exporting a checkpoint
+  the JAX runner wrote (the weight bridge uses every leaf of it): the artifact
   replayed in a fresh process, which imports no model code, equals the
   port's ``predict`` within 1e-6 of max |ref| (the same ops on the same
   weights), and the JAX runner's ``predict`` on the same weights and batch
@@ -105,12 +107,20 @@ def _recnet_conf():
   return conf
 
 
-def _generator_conf():
-  return synthetic_refinement_conf(SIZE, 2, 4, BATCH, narrow=True)
+def _generator_conf(upsampling_mode=None):
+  conf = synthetic_refinement_conf(SIZE, 2, 4, BATCH, narrow=True)
+  if upsampling_mode is not None:
+    conf['generator_model']['learnable_model']['upsampling_mode'] = \
+        upsampling_mode
+  return conf
 
 
 CASES = {'1-recnet': (_recnet_conf, 3, 0),
-         '2-refinement': (_generator_conf, 3, 10)}
+         '2-refinement': (_generator_conf, 3, 10),
+         '2-refinement bilinear': (
+             lambda: _generator_conf('bilinear'), 3, 10),
+         '2-refinement nn-biresize-conv': (
+             lambda: _generator_conf('nn-biresize-conv'), 3, 10)}
 
 
 def _host_batch(conf):

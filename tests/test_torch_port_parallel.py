@@ -164,11 +164,13 @@ def test_shard_batch_takes_the_rank_rows_and_requires_divisible_batch():
 
 # -- the runs ----------------------------------------------------------------
 
-def _jax_standard_run(out_dir, mesh=None, epochs=2):
-  """JAX's one-process run of ``_run_world(1, 'standard')`` on its 8-device
-  CPU mesh (``mesh`` replacing the config's section), recording its initial
-  and final weights (as port state dicts) and its train and validation
-  masks for the ``standard_jax`` scenario."""
+def _jax_standard_run(out_dir, mesh=None, epochs=2, scenario='standard_jax'):
+  """JAX's one-process run of ``_run_world(1, 'standard')`` (or of the
+  child's ``scenario``'s config) on its 8-device CPU mesh (``mesh``
+  replacing the config's section), recording its initial and final weights
+  (as port state dicts) and its train and validation masks for the
+  ``scenario`` replay (files ``child.jax_prefix(scenario)`` + ``.npz``,
+  ``_init.pt``, ``_final.pt``)."""
   from csmri_refinement_tpu.data import load_dataset as jload_dataset
   from csmri_refinement_tpu.training import build_runner as jbuild_runner
   from csmri_refinement_tpu.utils.config import Configuration as JConf
@@ -176,7 +178,8 @@ def _jax_standard_run(out_dir, mesh=None, epochs=2):
   from csmri_refinement_tpu_torch.utils.jax_weights import (
       load_flax_variables)
 
-  conf_d = child._standard_conf()
+  conf_d = child._conf_dict(scenario, REPO)
+  prefix = os.path.join(out_dir, child.jax_prefix(scenario))
   if mesh is not None:
     conf_d['mesh'] = mesh
   conf = JConf.from_dict(conf_d)
@@ -223,11 +226,11 @@ def _jax_standard_run(out_dir, mesh=None, epochs=2):
   model = construct_model(dict(conf_d['model'],
                                undersampling=conf_d['undersampling']))
   load_flax_variables(model, {'params': init[0]})
-  torch.save(model.state_dict(), os.path.join(out_dir, 'jax_init.pt'))
+  torch.save(model.state_dict(), prefix + '_init.pt')
   load_flax_variables(model, {'params': jax.tree_util.tree_map(
       np.asarray, runner.state['params'])})
-  torch.save(model.state_dict(), os.path.join(out_dir, 'jax_final.pt'))
-  np.savez(os.path.join(out_dir, 'jax.npz'),
+  torch.save(model.state_dict(), prefix + '_final.pt')
+  np.savez(prefix + '.npz',
            train=np.stack(train_masks).astype(np.float32),
            val=np.stack([val_masks[i] for i in range(len(val_masks))])
            .astype(np.float32))

@@ -74,12 +74,20 @@ def test_radial_masks_equal_jax_generator(variable):
 
 
 def test_make_masks_takes_cartesian_schemes_only():
-  """Radial masks come from the host (``radial_masks_np``), never from
-  ``make_masks``, which refuses a scheme it does not draw."""
+  """``make_masks`` draws cartesian masks on the device and (as the JAX
+  function does) radial ones on the host, from a ``RandomState`` seeded by
+  one draw of the generator; it refuses a scheme it does not draw. The
+  batch preparer's radial masks come from ``radial_masks_np``."""
   gen = torch.Generator().manual_seed(0)
-  for scheme in ('radial', 'spiral'):
-    with pytest.raises(ValueError, match=scheme):
-      masks.make_masks(gen, 2, SIZE, SIZE, scheme)
+  got = masks.make_masks(gen, 2, SIZE, SIZE, 'radial', 4)
+  seed = masks.draw_seed(torch.Generator().manual_seed(0))
+  want = masks.radial_sampling_np((2, SIZE, SIZE), 4, rand=True,
+                                  golden_angle=True, centred=False,
+                                  rng=np.random.RandomState(seed))
+  assert got.dtype == torch.float32
+  np.testing.assert_array_equal(got.numpy(), want)
+  with pytest.raises(ValueError, match='spiral'):
+    masks.make_masks(gen, 2, SIZE, SIZE, 'spiral')
 
 
 def test_draw_seed_is_one_draw_of_the_generator():

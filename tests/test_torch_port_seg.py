@@ -340,9 +340,22 @@ def test_conv_transposed_init_law():
     ids=['bilinear', 'nn-biresize-conv', 'use_refinement',
          'encoder_features'])
 def test_unported_unet_options_raise(overrides):
-  with pytest.raises(NotImplementedError, match=str(
-      overrides.get('upsampling_mode', next(iter(overrides))))):
-    construct_model(_seg_model(**overrides))
+  """The U-Net options that once raised in the port now build and
+  run (their parity with JAX: ``tests/test_torch_port_unet_modes.py``);
+  an unknown up-sampling mode raises."""
+  model = construct_model(_seg_model(**overrides))
+  model.init_weights(torch.Generator().manual_seed(0))
+  x = torch.randn(2, SIZE, SIZE, 2, generator=torch.Generator().manual_seed(1))
+  with torch.no_grad():
+    out = model.eval()(x)
+  if 'encoder_features' in overrides:
+    assert sorted(out) == ['features', 'pred']
+    assert out['features'][0].shape == (2, SIZE, SIZE, 8)
+    out = out['pred']
+  assert out.shape == (2, SIZE, SIZE, 2)
+  assert bool(torch.isfinite(out).all())
+  with pytest.raises(ValueError, match='bicubic'):
+    construct_model(_seg_model(upsampling_mode='bicubic'))
 
 
 # --- loss, output transform, dice ---------------------------------------------

@@ -23,7 +23,9 @@ one process and against the JAX package, on the CPU.
 * Four gloo ranks under ``{"data": 2, "spatial": 2}``: the standard run.
 * The two-rank standard run against the JAX package's 8-device ``{"data":
   4, "spatial": 2}`` run from JAX's initial weights and masks, one epoch as
-  there, at ``tests/test_parallel.py:216-222``'s bars.
+  there, at ``tests/test_parallel.py:216-222``'s bars; the same for the
+  standard config with an ``nn-biresize-conv`` U-Net
+  (``_torch_dist_child.py::UNET_RECONSTRUCTION``) in RecNet's place.
 * The validate CLI on two spatial ranks (``-i``): the metrics of one
   process within 1e-5 (PSNR 1e-3 dB), the same PNGs written by rank 0
   only.
@@ -48,6 +50,7 @@ from test_torch_port_parallel import (  # noqa: E402
 CHILD_TIMEOUT_S = 180
 SPATIAL = {'data': -1, 'spatial': 2}
 SCENARIOS = ('standard', 'standard_spf2', 'adversarial', 'segmentation2')
+JAX_SCENARIOS = ('standard_jax', 'unet_jax')
 RANKS_ATOL = 1e-6
 # (losses and validation, parameters) per scenario; the GAN's parameter bar
 # is the generator's, the discriminator's is DISC_ATOL.
@@ -105,14 +108,17 @@ def runs(tmp_path_factory):
   dirs = {k: str(tmp_path_factory.mktemp(k))
           for k in ('two', 'four', 'one')}
   try:
-    jax_result = _jax_standard_run(dirs['two'], {'data': 4, 'spatial': 2},
-                                   epochs=1)
+    jax_result = {name: _jax_standard_run(dirs['two'], {'data': 4,
+                                                        'spatial': 2},
+                                          epochs=1, scenario=name)
+                  for name in JAX_SCENARIOS}
   finally:
     jax_dc.set_spatial_mesh(False)
   port2, port4 = _free_port(), _free_port()
   procs = [_spawn(2, r, port2, dirs['two'],
-                  SCENARIOS + ('standard_jax', 'units', 'validate_cli'),
-                  SPATIAL, epochs={'standard_jax': 1}) for r in range(2)]
+                  SCENARIOS + JAX_SCENARIOS + ('units', 'validate_cli'),
+                  SPATIAL, epochs={name: 1 for name in JAX_SCENARIOS})
+           for r in range(2)]
   procs += [_spawn(4, r, port4, dirs['four'], ('standard', 'units'),
                    {'data': 2, 'spatial': 2}, threads=1) for r in range(4)]
   procs.append(_spawn(1, 0, 0, dirs['one'], SCENARIOS + ('validate_cli',)))
@@ -168,13 +174,24 @@ def test_four_ranks_data_and_spatial_match_one_process(runs):
                                 r)['final']['model'], one, 5e-5)
 
 
-def test_two_spatial_ranks_match_jax_data_and_spatial_mesh(runs):
-  r0, r1 = (ranks['standard_jax'] for ranks in runs['two'])
+def _assert_matches_jax(runs, scenario):
+  r0, r1 = (ranks[scenario] for ranks in runs['two'])
   _assert_run_close(r1, r0, RANKS_ATOL)
-  _assert_run_close(r0, runs['jax'], 1e-5)
-  want = torch.load(os.path.join(runs['dirs']['two'], 'jax_final.pt'))
-  _assert_state_close(_states(runs['dirs']['two'], 'standard_jax',
+  _assert_run_close(r0, runs['jax'][scenario], 1e-5)
+  want = torch.load(os.path.join(runs['dirs']['two'], '{}_final.pt'.format(
+      child.jax_prefix(scenario))))
+  _assert_state_close(_states(runs['dirs']['two'], scenario,
                               0)['final']['model'], want, 5e-5)
+
+
+def test_two_spatial_ranks_match_jax_data_and_spatial_mesh(runs):
+  _assert_matches_jax(runs, 'standard_jax')
+
+
+def test_two_spatial_ranks_match_jax_with_a_biresize_unet(runs):
+  """The bilinear up-sample's halo rows and the resize conv's on two ranks
+  against JAX's GSPMD run of the same U-Net."""
+  _assert_matches_jax(runs, 'unet_jax')
 
 
 def test_validate_cli_on_two_spatial_ranks_writes_from_rank_zero(runs):
