@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--probes-only | --int8-only [--tree DIR] |
                            --f32-only [--tree DIR] | --scarseg-only |
                            --dist-export-only | --spatial-only |
-                           --options-only]
+                           --options-only | --bench-only]
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit. Phases, each failing loudly with a non-zero exit:
@@ -247,11 +247,33 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     ms per step and the bytes of the bilinear up-sample's halo; (e) the
     noisy DC, ``fft2c``/``ifft2c`` and ``center_crop_in_kspace`` at 512²,
     B = 4, card against CPU within 2e-4, the noisy DC's device time beside
-    K1's.
+    K1's;
+25. the port's benchmark command, ``python -m
+    csmri_refinement_tpu_torch.bench``: (a) its ``build_forward`` at 256²,
+    B = 4, in bf16, f32 and int8 (and at 48², a side that is no power of
+    two, in bf16 and f32), one forward each with the counters set to 0
+    just before and read just after (K1 3 and K2 bf16 10; K1 3 and K2 f32
+    10; K1 3, K2 bf16 3, K3 7 and requant 2), ``pred`` bit-equal to
+    ``build_flagship``'s on the same batch and seed, and every launch of a
+    second forward against its plain version (K1 at F32_ATOL, K2 at phase
+    4's and 17's bars, K3 at ``int8_gate``'s, the requant within one int8
+    step); then the 512², B = 128 forward of the default 512² row in bf16,
+    int8 and f32 with its peak memory, and K2 bf16 and f32 on the widest
+    layer there ((128, 512, 512, 64), 2^31 elements), its first and last
+    two images against the plain version; (b) the command as a subprocess:
+    the default run (B = 128 at 256², the 512² row) with ``--latency
+    --components --train --train-steps 4``, then ``--dtype int8`` and
+    ``--dtype f32`` (``--iters 4``) and ``--image-size 48 --batch-size 4
+    --extra-sizes``,
+    each with exactly one bare JSON line (value > 0) in its merged output
+    and no ``extra:`` row carrying an error, every row printed; (c)
+    ``--budget 2`` gives ``budget_exceeded``.
 
 ``--scarseg-only`` runs phases 1, 2 and 18-23 alone (no result line).
 ``--options-only`` runs phases 1, 2 and 24 alone (no result line; a JSON
 line of phase 24's launches and errors).
+``--bench-only`` runs phases 1, 2 and 25 alone (no result line; a JSON
+line of phase 25's launches and errors).
 ``--spatial-only`` runs phases 1, 2, phase 18's tree and phase 23 alone
 (no result line).
 ``--dist-export-only`` runs phases 1, 2, phase 18's tree and phase 22
@@ -2843,33 +2865,43 @@ OPTION_SMALL = 64       # (e)'s side
 OPTION_CLI = ['num_epochs=1', 'train_dtype=bfloat16']
 
 
-def record_dc_launches(fn):
-  """Run ``fn()`` with K1's and K1-bwd's wrappers keeping each launch's
-  inputs and output: {'K1': [(x, k0, mask, y)], 'K1-bwd': [(g, mask, y)]}.
-  ``_DCFunction`` looks both up at call time."""
-  from csmri_refinement_tpu_torch.ops import dc_kernel
-  calls = {'K1': [], 'K1-bwd': []}
-  dc, dc_bwd = dc_kernel.dc_cuda, dc_kernel.dc_bwd_cuda
+@contextlib.contextmanager
+def recorded_launches(module, names):
+  """Wrap the named kernel wrappers of ``module`` so that each launch's
+  arguments and result are kept, {name: [(args, result)]}. The ops look
+  the wrappers up by their module-level names at call time, and each
+  wrapper counts through that name, so the counts carry over."""
+  calls = {name: [] for name in names}
+  saved = {name: getattr(module, name) for name in names}
 
-  def k1(x, k0, mask):
-    y = dc(x, k0, mask)
-    calls['K1'].append((x, k0, mask, y))
-    return y
+  def wrap(name, fn):
+    def record(*args):
+      out = fn(*args)
+      calls[name].append((args, out))
+      return out
+    record.launches = fn.launches
+    return record
 
-  def k1_bwd(g, mask):
-    y = dc_bwd(g, mask)
-    calls['K1-bwd'].append((g, mask, y))
-    return y
-  # each wrapper counts through its module-level name
-  k1.launches, k1_bwd.launches = dc.launches, dc_bwd.launches
-  dc_kernel.dc_cuda, dc_kernel.dc_bwd_cuda = k1, k1_bwd
+  wrapped = {name: wrap(name, fn) for name, fn in saved.items()}
+  for name, fn in wrapped.items():
+    setattr(module, name, fn)
   try:
-    fn()
+    yield calls
     sync()
   finally:
-    dc_kernel.dc_cuda, dc_kernel.dc_bwd_cuda = dc, dc_bwd
-    dc.launches, dc_bwd.launches = k1.launches, k1_bwd.launches
-  return calls
+    for name, fn in saved.items():
+      fn.launches = wrapped[name].launches
+      setattr(module, name, fn)
+
+
+def record_dc_launches(fn):
+  """Run ``fn()`` with K1's and K1-bwd's wrappers recorded: {'K1': [(x, k0,
+  mask, y)], 'K1-bwd': [(g, mask, y)]}."""
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  with recorded_launches(dc_kernel, ('dc_cuda', 'dc_bwd_cuda')) as calls:
+    fn()
+  return {key: [args + (y,) for args, y in calls[name]]
+          for key, name in (('K1', 'dc_cuda'), ('K1-bwd', 'dc_bwd_cuda'))}
 
 
 def option_conf(path, **overrides):
@@ -4078,26 +4110,12 @@ def gloo_phase(line):
 
 
 def record_k2_launches(fn):
-  """Run ``fn()`` with K2's f32 wrapper keeping each launch's inputs and
-  output: [(x, layer, pad, y)] (``conv_layer_cuda`` looks it up at call
-  time)."""
+  """Run ``fn()`` with K2's f32 wrapper recorded: [(x, layer, pad, y)]
+  (``conv_layer_cuda`` looks it up at call time)."""
   from csmri_refinement_tpu_torch.ops import conv_chain
-  calls = []
-  k2 = conv_chain.conv_layer_f32_cuda
-
-  def record(x, layer, pad_mode='reflection'):
-    y = k2(x, layer, pad_mode)
-    calls.append((x, layer, pad_mode, y))
-    return y
-  record.launches = k2.launches
-  conv_chain.conv_layer_f32_cuda = record
-  try:
+  with recorded_launches(conv_chain, ('conv_layer_f32_cuda',)) as calls:
     fn()
-    sync()
-  finally:
-    conv_chain.conv_layer_f32_cuda = k2
-    k2.launches = record.launches
-  return calls
+  return [args + (y,) for args, y in calls['conv_layer_f32_cuda']]
 
 
 @contextlib.contextmanager
@@ -4793,6 +4811,281 @@ def unet_options_phase(line):
           'f32_err': max(seg['f32_err'], spatial['f32_err'])}
 
 
+# Phase 25: the port's benchmark command (``csmri_refinement_tpu_torch.bench``)
+BENCH_SIZE, BENCH_BATCH = 256, 4      # (a)'s in-process forwards
+BENCH_SMALL = 48                      # a side that is no power of two
+# Launches per bench forward: K1, K2 bf16, K2 f32, K3 conv, K3 requant.
+BENCH_LAUNCHES = {'bf16': (3, 10, 0, 0, 0), 'f32': (3, 0, 10, 0, 0),
+                  'int8': (3, 3, 0, 7, 2)}
+BENCH_BIG, BENCH_BIG_BATCH = 512, 128  # the default 512² row's forward
+BENCH_TIMEOUT_S = 600
+# The command's runs: (label, arguments, extra rows expected). The default
+# run's rows: batch-1 latency at 256² and 512², two rows for each of the
+# four training batches, the 512² row. The int8 and f32 runs time 4
+# forwards a pass (10 by default) to keep the phase short.
+BENCH_RUNS = (
+    ('default', ['--latency', '--components', '--train', '--train-steps',
+                 '4'], 11),
+    ('int8', ['--dtype', 'int8', '--iters', '4'], 1),
+    ('f32', ['--dtype', 'f32', '--iters', '4'], 1),
+    ('48', ['--image-size', str(BENCH_SMALL), '--batch-size', '4',
+            '--extra-sizes'], 0),
+)
+
+
+def hold_int8_launches(label, conv_calls, requant_calls):
+  """Each K3 conv launch within ``int8_gate``'s bar of its plain version on
+  the same inputs, each requant launch within one int8 step of its plain
+  version (a tie may round the other way) at no more than INT8_MAX_SHARE
+  of the elements, its scales within float noise. Returns (conv, requant)
+  max errors."""
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
+  conv_err = requant_err = 0.0
+  for args, (y, _) in conv_calls:
+    want, _ = cc.conv_layer_int8_plain(*args)
+    diff = (y.float() - want.float()).abs()
+    ref = want.float().abs().max().item()
+    off = int((diff > INT8_NOISE * ref).sum().item())
+    require(y.shape == want.shape and y.dtype == want.dtype and
+            diff.max().item() <= INT8_STEP * ref and
+            off <= INT8_MAX_SHARE * diff.numel(),
+            'K3 {} launch {} differs from its plain version ({:.3e} of '
+            'max|ref| {:.3e}, {} elements off)'.format(
+                label, tuple(y.shape), diff.max().item(), ref, off))
+    conv_err = max(conv_err, diff.max().item())
+  for args, (xi, scale) in requant_calls:
+    want_x, want_s = cc.requant_plain(*args)
+    steps = (xi.int() - want_x.int()).abs()
+    s_rel = ((scale - want_s).abs() / want_s).max().item()
+    off = int((steps > 0).sum().item())
+    require(steps.max().item() <= 1 and off <= INT8_MAX_SHARE *
+            steps.numel() and s_rel <= INT8_NOISE,
+            'requant {} launch {} differs from its plain version ({} '
+            'elements a step off, scales {:.3e})'.format(
+                label, tuple(xi.shape), off, s_rel))
+    requant_err = max(requant_err, float(steps.max().item()), s_rel)
+  print('K3 {}: {} conv launches within {:.3e} of their plain versions, '
+        '{} requant launches within {:g} int8 steps'.format(
+            label, len(conv_calls), conv_err, len(requant_calls),
+            requant_err))
+  return conv_err, requant_err
+
+
+def bench_forward_phase(P, size, batch, dtypes, out):
+  """Phase 25 (a): one forward of the bench's ``build_forward`` per dtype at
+  ``size``², B = ``batch``, with the launch counters set to 0 just before
+  and read just after (``BENCH_LAUNCHES``), its ``pred`` bit-equal to
+  ``build_flagship``'s on the same batch and seed; then every kernel launch
+  of a second forward against its plain version (K1 at F32_ATOL, K2 at
+  ``hold_launches``' bars, K3 and the requant at ``hold_int8_launches``').
+  Adds the launches and errors to ``out``."""
+  from csmri_refinement_tpu_torch import bench
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  counters = (dc_kernel.dc_cuda, cc.conv_layer_cuda, cc.conv_layer_f32_cuda,
+              cc.conv_layer_int8_cuda, cc.requant_cuda)
+  for dtype_str in dtypes:
+    forward, model, batch_for = bench.build_forward(size, dtype_str,
+                                                    device=DEVICE)
+    inputs = batch_for(batch)
+    args = [inputs[k] for k in ('inp', 'kspace', 'mask')]
+    sync()
+    for c in counters:
+      c.launches = 0
+    with torch.inference_mode():
+      pred = forward(*args)
+      sync()
+    k1, k2_all, k2_f32, k3, requants = (c.launches for c in counters)
+    got = (k1, k2_all - k2_f32, k2_f32, k3, requants)
+    print('phase 25 (a) bench forward {}^2 {} B{}: launches K1 {}, K2 bf16 '
+          '{}, K2 f32 {}, K3 {}, requant {}'.format(size, dtype_str, batch,
+                                                    *got))
+    require(got == BENCH_LAUNCHES[dtype_str], 'bench forward {}: expected '
+            'launches {}'.format(dtype_str, BENCH_LAUNCHES[dtype_str]))
+    require(tuple(pred.shape) == (batch, size, size, 2) and
+            bool(torch.isfinite(pred.float()).all()),
+            'bench pred {} is not finite or of the wrong shape'.format(
+                dtype_str))
+    for key, n in zip(('k1', 'k2_bf16', 'k2_f32', 'k3', 'requant'), got):
+      out[key] += n
+    ref_model, _ = P.build_flagship(
+        size, torch.float32 if dtype_str == 'f32' else torch.bfloat16,
+        DEVICE, 0, quantize_inference=dtype_str == 'int8')
+    with torch.inference_mode():
+      ref = ref_model(*args)['pred']
+      sync()
+    require(torch.equal(pred, ref), 'the bench\'s {} pred differs from '
+            'build_flagship\'s'.format(dtype_str))
+    del ref_model, ref
+    label = 'bench {} {}^2'.format(dtype_str, size)
+    with torch.inference_mode():
+      with recorded_launches(dc_kernel, ('dc_cuda',)) as dc, \
+          recorded_launches(cc, ('conv_layer_cuda', 'conv_layer_int8_cuda',
+                                 'requant_cuda')) as conv:
+        forward(*args)
+      k2 = [(a[0], a[1], a[2], y) for a, y in conv['conv_layer_cuda']]
+      require(len(dc['dc_cuda']) == k1 and len(k2) == k2_all and
+              len(conv['conv_layer_int8_cuda']) == k3 and
+              len(conv['requant_cuda']) == requants,
+              'the recorded launches of {} differ from the counted'.format(
+                  label))
+      for (x, k0, m), y in dc['dc_cuda']:
+        err = (y - dc_kernel.dc_plain(x, k0, m)).abs().max().item()
+        require(err <= F32_ATOL, 'K1 {} differs from its plain version '
+                '({:.3e})'.format(label, err))
+        out['dc_err'] = max(out['dc_err'], err)
+      print('K1 {}: {} launches within {:.3e} of their plain versions (tol '
+            '{})'.format(label, k1, out['dc_err'], F32_ATOL))
+      key = 'f32_err' if dtype_str == 'f32' else 'k2_err'
+      out[key] = max(out[key], hold_launches(label, k2, k2_all, batch, size))
+      if k3:
+        c_err, r_err = hold_int8_launches(label,
+                                          conv['conv_layer_int8_cuda'],
+                                          conv['requant_cuda'])
+        out['k3_err'] = max(out['k3_err'], c_err)
+        out['requant_err'] = max(out['requant_err'], r_err)
+    del model, forward, pred, dc, conv, k2
+
+
+def bench_big_phase(line, out):
+  """Phase 25 (a'): the 512², B = 128 forward of the default 512² row in
+  each dtype, its peak memory (``max_memory_allocated`` above what was
+  held before); and K2 on the flagship's widest layer (decode_1's first:
+  (128, 512, 512, 64), 2^31 elements) in bf16 and f32, the first and last
+  two images against the plain version."""
+  from csmri_refinement_tpu_torch import bench
+  from csmri_refinement_tpu_torch.ops import conv_chain as cc
+  for dtype_str in ('bf16', 'int8', 'f32'):
+    forward, model, batch_for = bench.build_forward(BENCH_BIG, dtype_str,
+                                                    device=DEVICE)
+    inputs = batch_for(BENCH_BIG_BATCH)
+    args = [inputs[k] for k in ('inp', 'kspace', 'mask')]
+    sync()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+      pred = forward(*args)
+      sync()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    require(bool(torch.isfinite(pred.float()).all()),
+            'the 512^2 B128 {} pred is not finite'.format(dtype_str))
+    print('phase 25 bench forward {}^2 {} B{}: peak {:.3f} GiB allocated, '
+          '{:.3f} GiB above the model and batch; first forward {:.3f} s '
+          '({})'.format(BENCH_BIG, dtype_str, BENCH_BIG_BATCH, peak / 2 ** 30,
+                        (peak - held) / 2 ** 30, secs, line))
+    layer = model.learnable_model.decode_1.decode.chain_layers()[0]
+    pad = model.learnable_model.decode_1.decode.padding
+    del forward, inputs, args, pred, model
+    if dtype_str == 'int8':
+      torch.cuda.empty_cache()
+      continue
+    dt = torch.float32 if dtype_str == 'f32' else torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 25)
+    x = torch.randn(BENCH_BIG_BATCH, BENCH_BIG, BENCH_BIG, 64, device=DEVICE,
+                    generator=gen).to(dt)
+    require(x.numel() == 2 ** 31, 'the widest layer has 2^31 elements')
+    with torch.inference_mode():
+      y = cc.conv_layer_cuda(x, layer, pad)
+      sync()
+      calls = [(x[i].contiguous(), layer, pad, y[i].contiguous())
+               for i in (slice(0, 2), slice(-2, None))]
+      del x, y
+      key = 'f32_err' if dt == torch.float32 else 'k2_err'
+      out[key] = max(out[key], hold_launches(
+          'widest layer {}, the first and last 2 images of B{},'.format(
+              dtype_str, BENCH_BIG_BATCH), calls, 2, 2, BENCH_BIG))
+    del calls
+    torch.cuda.empty_cache()
+
+
+def bench_rows(label, proc):
+  """The command's stdout contract on one run: one JSON line on stdout
+  with value > 0, one bare JSON line in stdout and stderr merged; returns
+  (headline, extra rows, component lines)."""
+  def tail():
+    return '\n'.join(proc.stderr.splitlines()[-40:])
+  lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+  require(proc.returncode == 0 and len(lines) == 1,
+          'bench {}: exit {}, stdout {!r}\n{}'.format(
+              label, proc.returncode, proc.stdout[-2000:], tail()))
+  rec = json.loads(lines[0])
+  bare = []
+  for ln in (proc.stdout + '\n' + proc.stderr).splitlines():
+    try:
+      bare.append(json.loads(ln))
+    except ValueError:
+      pass
+  require(bare == [rec], 'bench {}: {} bare JSON lines in the merged '
+          'stream'.format(label, len(bare)))
+  require('error' not in rec and rec.get('value', 0) > 0,
+          'bench {}: headline {}\n{}'.format(label, rec, tail()))
+  rows = [json.loads(ln[len('extra: '):]) for ln in proc.stderr.splitlines()
+          if ln.startswith('extra: ')]
+  components = [ln for ln in proc.stderr.splitlines()
+                if ln.startswith('component ')]
+  return rec, rows, components
+
+
+def bench_cli_phase(line):
+  """Phase 25 (b), (c): the command as a subprocess on the card
+  (``BENCH_RUNS``), every row printed, no row with an error; then
+  ``--budget 2``."""
+  root = os.path.dirname(os.path.dirname(os.path.abspath(
+      sys.modules['csmri_refinement_tpu_torch'].__file__)))
+  cmd = [sys.executable, '-m', 'csmri_refinement_tpu_torch.bench']
+  for label, extra, n_rows in BENCH_RUNS:
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd + extra, cwd=root, capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT_S)
+    rec, rows, components = bench_rows(label, proc)
+    print('phase 25 (b) bench {} ({:.1f} s): {} ({})'.format(
+        ' '.join(extra) or 'default', time.perf_counter() - t0,
+        json.dumps(rec), line))
+    for ln in components:
+      print('phase 25 (b)   ' + ln)
+    for row in rows:
+      print('phase 25 (b)   extra: {}'.format(json.dumps(row)))
+    require(len(rows) == n_rows, 'bench {}: expected {} extra rows, got '
+            '{}'.format(label, n_rows, len(rows)))
+    require(all('error' not in r and r.get('value', 0) > 0 for r in rows),
+            'bench {}: an extra row failed\n{}'.format(
+                label, '\n'.join(proc.stderr.splitlines()[-60:])))
+    require(label != 'default' or len(components) == 3,
+            'bench default: expected 3 component lines')
+  proc = subprocess.run(cmd + ['--budget', '2'], cwd=root,
+                        capture_output=True, text=True, timeout=120)
+  lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+  rec = json.loads(lines[0]) if len(lines) == 1 else {}
+  print('phase 25 (c) bench --budget 2: exit {}, {}'.format(
+      proc.returncode, json.dumps(rec)))
+  require(proc.returncode != 0 and rec.get('error') == 'budget_exceeded' and
+          'stage' in rec and 'metric' in rec,
+          'bench --budget 2 did not give budget_exceeded')
+
+
+def bench_phase(P, line):
+  """Phase 25: (a) the bench's forward in process, (a') the 512², B = 128
+  forward's peak memory and the widest layer, (b) the command on the card,
+  (c) its budget. Returns the launches and errors for the kernels line."""
+  t0 = time.perf_counter()
+  out = {'k1': 0, 'k2_bf16': 0, 'k2_f32': 0, 'k3': 0, 'requant': 0,
+         'dc_err': 0.0, 'k2_err': 0.0, 'f32_err': 0.0, 'k3_err': 0.0,
+         'requant_err': 0.0}
+  bench_forward_phase(P, BENCH_SIZE, BENCH_BATCH, ('bf16', 'f32', 'int8'),
+                      out)
+  bench_forward_phase(P, BENCH_SMALL, BENCH_BATCH, ('bf16', 'f32'), out)
+  t1 = time.perf_counter()
+  bench_big_phase(line, out)
+  t2 = time.perf_counter()
+  bench_cli_phase(line)
+  print('phase 25: (a) {:.1f} s, (a\') {:.1f} s, (b, c) {:.1f} s; {:.1f} s '
+        'wall'.format(t1 - t0, t2 - t1, time.perf_counter() - t2,
+                      time.perf_counter() - t0))
+  return out
+
+
 def build_phase(names):
   """Phase 2: build the named kernel sources in parallel; print each
   kernel's ptxas lines, and fail if ptxas drained a wgmma pipeline
@@ -4823,6 +5116,7 @@ def main(argv=None):
   dist_export_only = '--dist-export-only' in argv
   spatial_only = '--spatial-only' in argv
   options_only = '--options-only' in argv
+  bench_only = '--bench-only' in argv
   child = next((a for a in ('--spatial-rank', '--gloo-probe') if a in argv),
                None)
   tree = os.path.realpath(argv[argv.index('--tree') + 1]) if '--tree' in \
@@ -4868,6 +5162,9 @@ def main(argv=None):
   build_phase(native.KERNELS)
   if options_only:     # phases 1, 2 and 24
     print(json.dumps(unet_options_phase(line)))
+    return
+  if bench_only:       # phases 1, 2 and 25
+    print(json.dumps(bench_phase(P, line)))
     return
   if scarseg_only or dist_export_only or spatial_only:
     # phases 1, 2 and 18-23, or phase 18's tree and 22 or 23
@@ -5075,13 +5372,17 @@ def main(argv=None):
   # Phase 24: the U-Net options, the noisy DC and the k-space utilities
   opts = unet_options_phase(line)
 
+  # Phase 25: the port's benchmark command
+  bench = bench_phase(P, line)
+
   kernels = [
       {'name': 'dc', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
        'replaces': 'csmri_refinement_tpu/ops/dc_pallas.py:36',
        'launches': (dc_launches + train_fwd + gan_k1 + sis_k1 + scar['k1'] +
-                    opts['k1']),
-       'max_abs_err': max(dc_err, scar['dc_err'], opts['dc_err']),
+                    opts['k1'] + bench['k1']),
+       'max_abs_err': max(dc_err, scar['dc_err'], opts['dc_err'],
+                          bench['dc_err']),
        'ms': dc_ms,
        'plain_ms': dc_plain_ms, 'bound_ms': dc_bound,
        'bound_by': dc_by,
@@ -5089,8 +5390,10 @@ def main(argv=None):
       {'name': 'conv_chain', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/conv_chain.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
-       'launches': conv_launches + scar['k2_bf16'] + opts['k2_bf16'],
-       'max_abs_err': max(conv_err, scar['bf16_err'], opts['k2_err']),
+       'launches': (conv_launches + scar['k2_bf16'] + opts['k2_bf16'] +
+                    bench['k2_bf16']),
+       'max_abs_err': max(conv_err, scar['bf16_err'], opts['k2_err'],
+                          bench['k2_err']),
        'ms': conv_ms,
        'plain_ms': conv_plain_ms, 'bound_ms': conv_bound,
        'bound_by': conv_by,
@@ -5098,9 +5401,10 @@ def main(argv=None):
       {'name': 'conv_chain_f32', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/conv_f32.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
-       'launches': gan_k2 + seg_k2 + sis_k2 + scar['k2_f32'] + opts['k2_f32'],
+       'launches': (gan_k2 + seg_k2 + sis_k2 + scar['k2_f32'] +
+                    opts['k2_f32'] + bench['k2_f32']),
        'max_abs_err': max(gan_f32_err, seg_f32_err, scar['f32_err'],
-                          opts['f32_err']),
+                          opts['f32_err'], bench['f32_err']),
        'ms': f32['ms'], 'plain_ms': f32['plain_ms'],
        'bound_ms': f32['bound_ms'], 'bound_by': 'operations',
        'library_ms': f32['cudnn_best_ms']},
@@ -5115,14 +5419,16 @@ def main(argv=None):
       {'name': 'conv_int8', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/conv_int8.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
-       'launches': int8_launches[0], 'max_abs_err': int8_conv_err,
+       'launches': int8_launches[0] + bench['k3'],
+       'max_abs_err': max(int8_conv_err, bench['k3_err']),
        'ms': k3['conv'][0], 'plain_ms': k3['conv'][1],
        'bound_ms': k3['conv'][2], 'bound_by': k3['conv'][3],
        'library_ms': None},
       {'name': 'requant_int8', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/conv_int8.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:381',
-       'launches': int8_launches[1], 'max_abs_err': requant_err,
+       'launches': int8_launches[1] + bench['requant'],
+       'max_abs_err': max(requant_err, bench['requant_err']),
        'ms': k3['requant'][0], 'plain_ms': k3['requant'][1],
        'bound_ms': k3['requant'][2], 'bound_by': k3['requant'][3],
        'library_ms': None},

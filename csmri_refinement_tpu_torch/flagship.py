@@ -56,9 +56,14 @@ def build_flagship(image_size=256, dtype=torch.bfloat16, device='cuda',
   if device.type == 'cuda' and not torch.cuda.is_available():
     raise RuntimeError('build_flagship: no CUDA device; pass device="cpu" '
                        'to run the plain versions on the CPU')
-  if image_size > MAX_SIZE or image_size < 16 or image_size & (image_size - 1):
-    raise ValueError('image_size must be a power of two in [16, {}], got '
-                     '{}'.format(MAX_SIZE, image_size))
+  # The U-Net pools twice; the DC kernel takes every side up to MAX_SIZE
+  # (``ops/dc_kernel.py::dc_route``), the plain version any side.
+  if image_size < 16 or image_size % 4:
+    raise ValueError('image_size must be a multiple of 4 and at least 16, '
+                     'got {}'.format(image_size))
+  if device.type == 'cuda' and image_size > MAX_SIZE:
+    raise ValueError('the DC kernel takes sides up to {}, got {}'.format(
+        MAX_SIZE, image_size))
   model = flagship_model(dtype, quantize_inference)
   model.init_weights(torch.Generator().manual_seed(seed))
   return model.to(device).eval(), undersample_batch

@@ -271,11 +271,11 @@ def conv_layer_f32_cuda(x, layer, pad_mode='reflection'):
     x = x.clone()
   kernel, bias = pad_cout(layer.kernel.to(x.device), layer.bias)
   # The kernel counts tiles, positions and channel offsets within an image
-  # in int32.
-  if b * h * w * max(cin, bias.shape[0]) >= 2 ** 31:
-    raise ValueError('conv_layer_f32_cuda: {}x{}x{} with {} channels is '
-                     'over the int32 index range'.format(
-                         b, h, w, max(cin, bias.shape[0])))
+  # in int32 and offsets whole images in size_t.
+  if h * w * max(cin, bias.shape[0]) >= 2 ** 31:
+    raise ValueError('conv_layer_f32_cuda: a {}x{} image with {} channels '
+                     'is over the int32 index range'.format(
+                         h, w, max(cin, bias.shape[0])))
   if cin < 8:
     kernel, kp = kernel.float().contiguous(), 0
   else:

@@ -1,12 +1,14 @@
 """Where the flagship forward's device time goes, by kernel.
 
     python -m csmri_refinement_tpu_torch.profile_flagship [--dtype bf16]
+        [--size 256] [--batch 32]
 
 ``--dtype int8`` is bf16 compute with the U-Net's int8 serving mode
 (``quantize_inference``), as ``bench.py --dtype int8``.
 
 Builds ``build_flagship`` on the card at the flagship's 256² and B = 32
-(as ``chip_smoke.py``), warms up, times ten forwards untraced with CUDA
+(as ``chip_smoke.py``; ``--size`` and ``--batch`` change them, e.g. B = 1
+for the bench's batch-1 latency rows), warms up, times ten forwards untraced with CUDA
 events, then traces three forwards with ``torch.profiler`` (CPU + CUDA
 activities) and prints: the card's name and power limit, the untraced
 time per forward, the traced wall time per forward, the summed device time
@@ -32,16 +34,19 @@ UNTRACED = 10
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--dtype', choices=sorted(_DTYPES), default='bf16')
+  parser.add_argument('--size', type=int, default=SIZE)
+  parser.add_argument('--batch', type=int, default=BATCH)
   args = parser.parse_args(argv)
   torch.backends.cudnn.allow_tf32 = False    # f32 means f32, as in chip_smoke
   torch.backends.cuda.matmul.allow_tf32 = False
 
   card = card_line()
+  size, b = args.size, args.batch
   model, undersample_batch = build_flagship(
-      SIZE, _DTYPES[args.dtype], 'cuda', seed=0,
+      size, _DTYPES[args.dtype], 'cuda', seed=0,
       quantize_inference=args.dtype == 'int8')
   gen = torch.Generator(device='cuda').manual_seed(0)
-  batch = undersample_batch(gen, torch.rand(BATCH, SIZE, SIZE, device='cuda',
+  batch = undersample_batch(gen, torch.rand(b, size, size, device='cuda',
                                             generator=gen), 'varden', 8)
   inputs = [batch[k] for k in ('inp', 'kspace', 'mask')]
   with torch.inference_mode():
@@ -64,10 +69,10 @@ def main(argv=None):
 
   print(card)
   print('flagship forward {}^2 {} B{}: {:.3f} ms per forward untraced (CUDA '
-        'events, {} forwards)'.format(SIZE, args.dtype, BATCH, untraced_ms,
+        'events, {} forwards)'.format(size, args.dtype, b, untraced_ms,
                                       UNTRACED))
   report(prof, wall_ms, FORWARDS, 'flagship forward {}^2 {} B{}'.format(
-      SIZE, args.dtype, BATCH), 'forward')
+      size, args.dtype, b), 'forward')
 
 
 def card_line():
