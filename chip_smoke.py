@@ -208,21 +208,33 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     predict ms; (c) ``summarize_results`` over phase 18's eval_results CSV;
 23. the mesh's spatial axis on the same tree, ``{"data": 1, "spatial":
     2}`` on two processes that share the card (``--spatial-rank`` children
-    of this script, each starting a gloo group): (a) gloo's all_gather,
-    all_reduce and broadcast on CUDA tensors, checked, and an all_gather
-    of 20 MiB parts timed; (b) ``configs/1-recnet.json`` (B = 20, 2
-    updates), ``configs/2-refinement.json`` (B = 5, 1 update, its RecNet
-    from this phase's 1-recnet checkpoint) and
+    of this script, each starting a gloo group; each rank holds its rows
+    of the images and all rows of its column block of k-space and mask):
+    (a) gloo's all_gather, all_to_all (``all_to_all_single``), all_reduce
+    and broadcast on CUDA tensors, checked, and an all_gather and an
+    all_to_all of 20 MiB parts timed; (b) ``configs/1-recnet.json`` (B =
+    20, 2 updates), ``configs/2-refinement.json`` (B = 5, 1 update, its
+    RecNet from this phase's 1-recnet checkpoint) and
     ``configs/3-train-segmentation-unet.json`` (B = 8, 1 update), each with
     1 validation batch, through the training CLI in this process and on the
     two ranks, deterministic algorithms on all: every rank within the JAX
-    suite's spatial bars of the one process (``SPATIAL_BARS``), each rank's
-    K1, K1-bwd and K2 f32 launches (counted around its CLI run) equal to
-    the one process's, one train step's K1 and K1-bwd and one eval forward's
-    K2 f32 launches (on halo tiles) against their plain versions; per rank
-    the ms per step, the step's peak GiB and the MB each collective call
-    site moves, beside one process's ms (two ranks on one card: not a
-    scaling number);
+    suite's spatial bars of the one process (``SPATIAL_BARS``); each rank
+    launched each of K1's three passes as often as the one process launched
+    K1, each of K1-bwd's as often as K1-bwd, K2 f32 as often, and
+    whole-image K1 and K1-bwd never (counted around its CLI run); one train
+    step's pass launches and one eval forward's K2 f32 launches (on halo
+    tiles) against their plain versions; per rank each pass's device ms
+    beside its plain version's, its ``torch.fft`` call's and its bound (the
+    ranks in turn), the ms per step, the step's peak GiB and the MB each
+    collective call site moves, beside one process's ms (two ranks on one
+    card: not a scaling number); (c) the f32 and the int8 eval forward
+    (``quantize_inference`` set on every chain) of (b)'s one-process
+    2-refinement generator, its state loaded on the two ranks and in this
+    process, on one validation batch: the int8 output within
+    ``SPATIAL_INT8_REL``, every K3 and requant launch against its plain
+    version, the ranks' scales equal at every quantization and their
+    tiles' halo rows each other's rows exactly, and the int8 mode's steps
+    against this process's, the first that differs marked;
 24. the U-Net's remaining options of the JAX package, at full width:
     (a) ``configs/2-refinement.json``'s generator (seeded) with its
     U-Net's ``upsampling_mode`` set to ``nn-biresize-conv`` and to
@@ -2866,18 +2878,29 @@ OPTION_CLI = ['num_epochs=1', 'train_dtype=bfloat16']
 
 
 @contextlib.contextmanager
-def recorded_launches(module, names):
+def recorded_launches(module, names, order=None, copy=False):
   """Wrap the named kernel wrappers of ``module`` so that each launch's
-  arguments and result are kept, {name: [(args, result)]}. The ops look
+  arguments and result are kept, {name: [(args, result)]}, and (name,
+  index) appended to ``order`` where given; with ``copy``, copies of their
+  tensors, where the caller may change them in place after. The ops look
   the wrappers up by their module-level names at call time, and each
   wrapper counts through that name, so the counts carry over."""
   calls = {name: [] for name in names}
   saved = {name: getattr(module, name) for name in names}
 
+  def kept(v):               # the arguments, or a result or tuple of them
+    if not copy:
+      return v
+    if isinstance(v, torch.Tensor):
+      return v.clone()
+    return tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in v)
+
   def wrap(name, fn):
     def record(*args):
       out = fn(*args)
-      calls[name].append((args, out))
+      calls[name].append((kept(args), kept(out)))
+      if order is not None:
+        order.append((name, len(calls[name]) - 1))
       return out
     record.launches = fn.launches
     return record
@@ -3639,7 +3662,10 @@ def scarseg_phase(line, dist_export_only=False, spatial_only=False):
                             data['dc_bwd_err'], spatial['dc_bwd_err']),
           'f32_err': max(gan_err, seg_err, data['f32_err'],
                          spatial['f32_err']),
-          'bf16_err': opt['k2_err']}
+          'bf16_err': opt['k2_err'],
+          'passes': spatial['passes'], 'pass_times': spatial['pass_times'],
+          'k3': spatial['k3'], 'requant': spatial['requant'],
+          'k3_err': spatial['k3_err'], 'requant_err': spatial['requant_err']}
 
 
 # Phase 22: data parallelism in a one-rank NCCL group, the serving
@@ -3980,8 +4006,11 @@ def dist_export_phase(data_dir, work, gan_conf, gan_ckpt, csvs, line):
 # (NCCL takes one rank per card): each child starts a gloo group before it
 # builds its runner, and ``parallel/distributed.py::initialize`` accepts the
 # running group. Two ranks on one card are not a scaling number: their
-# times say what the halos, the row gathers and the S-fold DC cost beside
-# one process, not what two cards would do.
+# times say what the halos and the DC's all-to-alls cost beside one
+# process, not what two cards would do. Each rank holds its rows of the
+# images and its column block of k-space and mask; its DC is K1's three
+# passes (``ops/dc_kernel.py::dc_distributed``), its int8 chains run layer
+# by layer on halo tiles (``ops/quantize.py``).
 SPATIAL_MESH = {'data': 1, 'spatial': 2}
 # (label, CLI overrides): 1-recnet 2 updates, the GAN and segmentation 1
 # update each, then 1 validation batch. At full width a BN network's first
@@ -4011,8 +4040,30 @@ SPATIAL_PSNR_ATOL, SPATIAL_METRIC_ATOL = 1e-3, 1e-3
 SPATIAL_RTOL = 1e-5
 SPATIAL_STEPS = 3        # timed train steps per rank
 SPATIAL_TIMEOUT_S = 600
-GLOO_PROBES = ('all_gather', 'all_reduce', 'broadcast')
+GLOO_PROBES = ('all_gather', 'all_to_all', 'all_reduce', 'broadcast')
 GLOO_TIMED_MB, GLOO_TIMED_CALLS = 20, 5     # MiB of each rank's part
+# K1's and K1-bwd's pass wrappers (``ops/dc_kernel.py``): (label, the
+# plain version each launch is held against, whether it is K1-bwd's).
+DC_PASSES = {
+    'dc_rows_fft_cuda': ('K1 pass 1', 'dc_rows_fft_plain', False),
+    'dc_cols_cuda': ('K1 pass 2', 'dc_cols_plain', False),
+    'dc_rows_ifft_cuda': ('K1 pass 3', 'dc_rows_ifft_plain', False),
+    'dc_bwd_rows_fft_cuda': ('K1-bwd pass 1', 'dc_rows_fft_plain', True),
+    'dc_bwd_cols_cuda': ('K1-bwd pass 2', 'dc_cols_plain', True),
+    'dc_bwd_rows_ifft_cuda': ('K1-bwd pass 3', 'dc_rows_ifft_plain', True)}
+# A pass against its plain version, relative to the plain output's max
+# |value|: both are f32 FFTs of one length (and the same merge) summed in
+# another order; the card reads 1e-7 to 3e-7 at 512² (PERF.md), and a zero
+# or wrong output reads 1.
+PASS_REL = 1e-5
+# The int8 eval forward of the 2-refinement generator on the two ranks
+# against one process, on the same weights and batch: max |Δ| over max
+# |ref|. Not bit for bit: the first quantized chain's float prefix on a
+# halo tile rounds 6e-7 of max |ref| off the whole image's, which moves
+# the group's amax by ulps and so a few int8 ties; the card reads 1.5e-6
+# (the f32 forward 4.7e-7), the CPU 1.7e-6 at 128² (PERF.md). A tile whose
+# halo or scale is wrong moves whole rows by an int8 step or more.
+SPATIAL_INT8_REL = 1e-5
 
 
 def child_group(cfg):
@@ -4025,8 +4076,9 @@ def child_group(cfg):
 
 def gloo_probe(cfg):
   """``--gloo-probe JSON``: each of ``GLOO_PROBES`` run by gloo itself on
-  CUDA tensors (no host copy) and checked; prints ``GLOO {name: 'ok' |
-  'wrong' | 'refused: ...'}``."""
+  CUDA tensors (no host copy of ours) and checked (the all-to-all as
+  ``all_to_all_single``, the form ``parallel/mesh.py`` uses); prints
+  ``GLOO {name: 'ok' | 'wrong' | 'refused: ...'}``."""
   import torch.distributed as dist
   child_group(cfg)
   rank, seen = cfg['rank'], {}
@@ -4038,6 +4090,13 @@ def gloo_probe(cfg):
           parts = [torch.empty_like(t) for _ in range(2)]
           dist.all_gather(parts, t)
           good = all(bool((p == r + 1).all()) for r, p in enumerate(parts))
+        elif name == 'all_to_all':
+          # part j of each rank goes to rank j: rank r gets (r, 10 + r)
+          t = torch.arange(2, device='cuda', dtype=torch.float32) + \
+              10 * rank
+          out = torch.empty_like(t)
+          dist.all_to_all_single(out, t)
+          good = out.tolist() == [float(rank), float(10 + rank)]
         elif name == 'all_reduce':
           dist.all_reduce(t)
           good = bool((t == 3).all())
@@ -4047,17 +4106,22 @@ def gloo_probe(cfg):
         seen[name] = 'ok' if good else 'wrong'
       except Exception as e:  # noqa: BLE001 - the probe reports it
         seen[name] = 'refused: {}'.format(str(e).splitlines()[0][:120])
-    # the transport's rate: an all_gather of a 1-recnet DC gather's part
+    # the transport's rates: an all_gather of a 1-recnet DC gather's part,
+    # an all_to_all of the same bytes
     part = torch.ones(GLOO_TIMED_MB * 2 ** 18, device='cuda')
     parts = [torch.empty_like(part) for _ in range(2)]
-    dist.all_gather(parts, part)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(GLOO_TIMED_CALLS):
-      dist.all_gather(parts, part)
-    torch.cuda.synchronize()
-    seen['all_gather_ms'] = (time.perf_counter() - t0) * 1e3 / \
-        GLOO_TIMED_CALLS
+    out = torch.empty_like(part)
+    for name, call in (('all_gather', lambda: dist.all_gather(parts, part)),
+                       ('all_to_all',
+                        lambda: dist.all_to_all_single(out, part))):
+      call()
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      for _ in range(GLOO_TIMED_CALLS):
+        call()
+      torch.cuda.synchronize()
+      seen[name + '_ms'] = (time.perf_counter() - t0) * 1e3 / \
+          GLOO_TIMED_CALLS
   finally:
     dist.destroy_process_group()
   print('GLOO ' + json.dumps(seen))
@@ -4094,7 +4158,7 @@ def spawn_ranks(mode, cfg, outs=None):
 def gloo_phase(line):
   """Phase 23 (a): gloo runs the mesh's collectives on CUDA tensors itself
   (``parallel/mesh.py`` gives them to it as they are); the host ms of an
-  all_gather of ``GLOO_TIMED_MB`` MiB parts."""
+  all_gather and of an all_to_all of ``GLOO_TIMED_MB`` MiB parts."""
   seen = [json.loads(ln.split(' ', 1)[1]) for out in spawn_ranks(
       'gloo-probe', {}) for ln in out.splitlines() if ln.startswith('GLOO ')]
   require(len(seen) == 2, 'the gloo probe printed no result')
@@ -4103,10 +4167,12 @@ def gloo_phase(line):
         name, seen[0][name], seen[1][name]))
     require(seen[0][name] == seen[1][name] == 'ok',
             'gloo {} fails on CUDA tensors'.format(name))
-  ms = max(r['all_gather_ms'] for r in seen)
-  print('gloo all_gather of {} MiB CUDA parts between two ranks on one card: '
-        '{:.3f} ms, {:.2f} GB/s of each rank\'s part ({})'.format(
-            GLOO_TIMED_MB, ms, GLOO_TIMED_MB * 2 ** 20 / ms / 1e6, line))
+  for name in ('all_gather', 'all_to_all'):
+    ms = max(r[name + '_ms'] for r in seen)
+    print('gloo {} of {} MiB CUDA parts between two ranks on one card: '
+          '{:.3f} ms, {:.2f} GB/s of each rank\'s part ({})'.format(
+              name, GLOO_TIMED_MB, ms, GLOO_TIMED_MB * 2 ** 20 / ms / 1e6,
+              line))
 
 
 def record_k2_launches(fn):
@@ -4120,45 +4186,154 @@ def record_k2_launches(fn):
 
 @contextlib.contextmanager
 def counted_collectives():
-  """{call site: bytes} that ``parallel/mesh.py``'s all_gather and
-  all_reduce move for this rank while the block runs (all_gather: the
-  rank's part; all_reduce: the tensor)."""
+  """{call site: bytes} that ``parallel/mesh.py``'s all_gather, all_to_all
+  and all_reduce move for this rank while the block runs (all_gather: the
+  rank's part; all_to_all: the parts it sends to the other ranks;
+  all_reduce: the tensor)."""
   from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
   moved = {}
-  gather, reduce = mesh_lib.all_gather, mesh_lib.all_reduce
+  gather, exchange, reduce = (mesh_lib.all_gather, mesh_lib.all_to_all,
+                              mesh_lib.all_reduce)
 
   def site():   # the caller of ``halo.gather_rows``, ``halo.halo_rows`` or
-    # ``layers.pad`` rather than their frames
-    frame = sys._getframe(2)
+    # ``layers.pad`` rather than their frames (0 this, 1 count, 2 the
+    # counted collective)
+    frame = sys._getframe(3)
     while frame.f_back is not None and frame.f_code.co_qualname in (
         '_GatherRows.forward', '_HaloRows.forward', 'Function.apply',
         'gather_rows', 'halo_rows', 'pad'):
       frame = frame.f_back
     return frame.f_code.co_qualname
 
+  def count(kind, nbytes):
+    key = '{} in {}'.format(kind, site())
+    moved[key] = moved.get(key, 0) + nbytes
+
   def counted_gather(t, group):
-    key = 'all_gather in ' + site()
-    moved[key] = moved.get(key, 0) + t.numel() * t.element_size()
+    count('all_gather', t.numel() * t.element_size())
     return gather(t, group)
 
+  def counted_exchange(t, group):
+    count('all_to_all', t.numel() * t.element_size() * (t.shape[0] - 1) //
+          t.shape[0])
+    return exchange(t, group)
+
   def counted_reduce(t, group, *args):
-    key = 'all_reduce in ' + site()
-    moved[key] = moved.get(key, 0) + t.numel() * t.element_size()
+    count('all_reduce', t.numel() * t.element_size())
     return reduce(t, group, *args)
-  mesh_lib.all_gather, mesh_lib.all_reduce = counted_gather, counted_reduce
+  mesh_lib.all_gather, mesh_lib.all_to_all, mesh_lib.all_reduce = (
+      counted_gather, counted_exchange, counted_reduce)
   try:
     yield moved
   finally:
-    mesh_lib.all_gather, mesh_lib.all_reduce = gather, reduce
+    mesh_lib.all_gather, mesh_lib.all_to_all, mesh_lib.all_reduce = (
+        gather, exchange, reduce)
+
+
+def pass_plain(name, args):
+  """The plain version of DC pass ``name`` on the arguments its wrapper
+  was given."""
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  _, plain, bwd = DC_PASSES[name]
+  fn = getattr(dc_kernel, plain)
+  if 'cols' not in name:
+    return fn(args[0])
+  return fn(args[0], None, args[1]) if bwd else fn(*args[:3])
+
+
+def pass_cost(name, args):
+  """(operations, bytes) of one DC pass: 5 n log2 n per line transform
+  (two in the column pass), each input read and the output written
+  once."""
+  t = args[0]
+  b, rows, cols = t.shape[:3]
+  pixels = b * rows * cols
+  if 'cols' not in name:
+    return 5 * pixels * math.log2(cols), 16 * pixels
+  return 10 * pixels * math.log2(rows), (20 if DC_PASSES[name][2] else 28) * \
+      pixels
+
+
+def pass_library_call(name, args):
+  """One ``torch.fft`` call that computes a row pass, or None (the column
+  pass has none: two transforms and the merge)."""
+  if 'cols' in name:
+    return None
+  xc = torch.view_as_complex(args[0])
+  f = torch.fft.ifft if 'ifft' in name else torch.fft.fft
+  return lambda: f(xc, dim=2, norm='ortho')
+
+
+def record_pass_launches(fn):
+  """Run ``fn()`` with the DC passes' wrappers recorded: {wrapper: [(args,
+  y)]}."""
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  with recorded_launches(dc_kernel, tuple(DC_PASSES)) as calls:
+    fn()
+  return calls
+
+
+def pass_checks(calls):
+  """{wrapper: [launches, max |kernel − plain|, that over max |plain|]}:
+  every recorded launch against its plain version, within PASS_REL of the
+  plain version's max |value| (K1-bwd's inputs are loss gradients near
+  1e-6, so no absolute floor)."""
+  checked = {}
+  for name, launched in calls.items():
+    label = DC_PASSES[name][0]
+    worst = [len(launched), 0.0, 0.0]
+    for args, y in launched:
+      want = pass_plain(name, args)
+      err = (y - want).abs().max().item()
+      rel = err / max(want.abs().max().item(), 1e-30)
+      require(rel <= PASS_REL,
+              '{} on {} differs from its plain version by {:.3e} of its '
+              'max |value| (bar {})'.format(label, tuple(args[0].shape), rel,
+                                           PASS_REL))
+      worst[1:] = max(worst[1], err), max(worst[2], rel)
+    checked[name] = worst
+  return checked
+
+
+def pass_timings(calls, mesh):
+  """Each pass's device ms (``graph_ms``: a pass is shorter than its
+  wrapper's host cost) on its first recorded launch's inputs, the plain
+  version's and the library call's, and its bound: the ranks time in
+  turn, the other waiting at a barrier, so that neither shares the card
+  with the other's kernels."""
+  import torch.distributed as dist
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  times = {}
+  for turn in range(mesh.spatial):
+    dist.barrier()
+    if turn != mesh.s:
+      continue
+    for name, launched in calls.items():
+      if not launched:
+        continue
+      args, _ = launched[0]
+      wrapper = getattr(dc_kernel, name)
+      ms = graph_ms(lambda: wrapper(*args))
+      plain_ms = graph_ms(lambda: pass_plain(name, args))
+      lib = pass_library_call(name, args)
+      lib_ms = None if lib is None else graph_ms(lib)
+      ops, nbytes = pass_cost(name, args)
+      b_ms, by = bound(ops, nbytes, F32_FLOPS)
+      times[name] = {'shape': list(args[0].shape), 'ms': ms,
+                     'plain_ms': plain_ms, 'library_ms': lib_ms,
+                     'bound_ms': b_ms, 'bound_by': by}
+  dist.barrier()
+  return times
 
 
 def spatial_checks(runner, data_dir):
-  """Phase 23, each rank after its CLI run: one train step's K1 and K1-bwd
+  """Phase 23, each rank after its CLI run: one train step's DC pass
   launches and one eval forward's K2 f32 launches against their plain
-  versions; the bytes each collective site moves in a step; ms per step
-  over ``SPATIAL_STEPS`` steps and the step's peak GiB."""
+  versions; the passes' times; the bytes each collective site moves in a
+  step; ms per step over ``SPATIAL_STEPS`` steps and the step's peak
+  GiB."""
   from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
-  from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
+  from csmri_refinement_tpu_torch.ops import conv_chain
   conf = runner.conf
   host = next(iter(DataLoader(load_dataset(
       conf, data_dir, conf.get_attr('train_dataset', default='ScarSeg'),
@@ -4166,34 +4341,29 @@ def spatial_checks(runner, data_dir):
   batch = runner.preparer.prepare_train(
       torch.Generator(device=DEVICE).manual_seed(SEED), host)
   with deterministic():
-    dc_calls = record_dc_launches(lambda: runner.train_batch(batch))
+    calls = record_pass_launches(lambda: runner.train_batch(batch))
     k2_calls = record_k2_launches(lambda: runner.predict(batch))
-  errs = {'dc': 0.0, 'dc_bwd': 0.0, 'f32': 0.0}
-  for x, k0, mask, y in dc_calls['K1']:
-    errs['dc'] = max(errs['dc'], (y - dc_kernel.dc_plain(x, k0, mask))
-                     .abs().max().item())
-  for g, mask, y in dc_calls['K1-bwd']:
-    errs['dc_bwd'] = max(errs['dc_bwd'], (y - dc_kernel.dc_plain_vjp(
-        g, mask, False)[0]).abs().max().item())
+  passes = pass_checks(calls)
+  f32_err = 0.0
   for x, layer, pad, y in k2_calls:
     want = conv_chain.conv_layer_plain(x, layer, pad)
     err = (y - want).abs().max().item()
     require(err <= F32_ATOL * max(1.0, want.abs().max().item()),
             'K2 f32 on a halo tile {} differs from its plain version'
             .format(tuple(x.shape)))
-    errs['f32'] = max(errs['f32'], err)
-  require(errs['dc'] <= F32_ATOL and errs['dc_bwd'] <= GRAD_ATOL,
-          'K1 or K1-bwd on the gathered image differs from its plain '
-          'version')
+    f32_err = max(f32_err, err)
+  times = pass_timings(calls, runner.mesh) if DEVICE == 'cuda' else {}
+  k2_checked = len(k2_calls)
+  del calls, k2_calls
   with counted_collectives() as moved:
     runner.train_batch(batch)
     sync()
-  return {'errs': errs, 'checked': {k: len(v) for k, v in
-                                    (('K1', dc_calls['K1']),
-                                     ('K1-bwd', dc_calls['K1-bwd']),
-                                     ('K2 f32', k2_calls))},
-          'moved': moved, 'ms': step_wall_ms(runner, batch),
-          'peak': step_peak_gib(runner, batch) if DEVICE == 'cuda' else 0.0}
+  result = {'passes': passes, 'times': times, 'f32_err': f32_err,
+            'k2_checked': k2_checked,
+            'moved': moved, 'ms': step_wall_ms(runner, batch),
+            'peak': step_peak_gib(runner, batch) if DEVICE == 'cuda'
+            else 0.0}
+  return result
 
 
 def step_wall_ms(runner, batch):
@@ -4208,12 +4378,89 @@ def step_wall_ms(runner, batch):
   return (time.perf_counter() - t0) * 1e3 / SPATIAL_STEPS
 
 
+def quantize_generator(runner):
+  """Put every chain of the runner's generator in the int8 serving mode."""
+  for m in runner.gen.modules():
+    if hasattr(m, 'quantize_inference'):
+      m.quantize_inference = True
+
+
+def int8_forward(runner, data_dir, label):
+  """The eval forward of the runner's generator on the first validation
+  batch (its rank's part under a mesh), in f32 and then in the int8
+  serving mode, whose K3 and requant launches are recorded and held
+  against their plain versions. Returns {'f32', 'int8': outputs,
+  'launches': (K3, requant), 'errs': their max errors, 'steps': the int8
+  mode's steps in call order, on the rank's rows, on the host}: each
+  quantized chain's float-prefix output, its int8 image and scale
+  ('act'); each K3 launch's int8 input, scale and output ('K3'); each
+  requant's int8 output and scale ('requant')."""
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.models import layers
+  from csmri_refinement_tpu_torch.ops import conv_chain, quantize
+  from csmri_refinement_tpu_torch.parallel import halo
+  conf, mesh = runner.conf, runner.mesh
+  host = next(iter(DataLoader(load_dataset(conf, data_dir, 'ScarSeg', 'val'),
+                              conf.batch_size, process_shard=None if mesh is
+                              None else mesh.shard)))
+  batch = runner.preparer.prepare_val(host)
+
+  def pred():
+    with deterministic():
+      out = runner.predict(batch)
+      sync()
+    return (out['pred'] if isinstance(out, dict) else out).float().cpu()
+  result = {'f32': pred()}
+  quantize_generator(runner)
+  order, acts, quantize_act = [], [], quantize.quantize_act
+
+  def record_act(x, *rest):
+    xi, scale = quantize_act(x, *rest)
+    acts.append((x.float().cpu(), xi.cpu(), scale.cpu()))
+    order.append(('act', len(acts) - 1))
+    return xi, scale
+  names = ('conv_layer_int8_cuda', 'requant_cuda')
+  for name in names:
+    getattr(conv_chain, name).launches = 0
+  quantize.quantize_act = record_act
+  try:
+    with recorded_launches(conv_chain, names, order, copy=True) as calls:
+      result['int8'] = pred()
+  finally:
+    quantize.quantize_act = quantize_act
+  result['launches'] = tuple(getattr(conv_chain, n).launches for n in names)
+  result['errs'] = hold_int8_launches(label, calls[names[0]], calls[names[1]])
+
+  def halo_of(layer):       # (rows above, below) of a K3 launch's tile
+    if mesh is None:
+      return 0, 0
+    return halo.taken(mesh, *layers.pad_sizes(layer.kernel.shape[0]))
+
+  def rows(x, layer):       # the rank's rows of a K3 launch's halo tile
+    top, bottom = halo_of(layer)
+    return x.narrow(1, top, x.shape[1] - top - bottom).cpu()
+  steps, result['tiles'] = [], []
+  for name, i in order:
+    if name == 'act':
+      steps.append(('act', acts[i]))
+    elif name == names[0]:
+      args, (y, _) = calls[name][i]
+      steps.append(('K3', (rows(args[0], args[2]), args[1].cpu(),
+                           rows(y, args[2]).float())))
+      result['tiles'].append((args[0].cpu(),) + tuple(halo_of(args[2])))
+    else:
+      steps.append(('requant', tuple(t.cpu() for t in calls[name][i][1])))
+  result['steps'] = steps
+  return result
+
+
 def spatial_rank(cfg):
   """``--spatial-rank JSON``: one rank of phase 23's two. The training CLI
   on ``cfg['config']`` with the spatial mesh, the launch counters set to
-  0 just before and read just after; then ``spatial_checks``. Saves the
-  networks' states, the recorded epochs, the counts and the checks to
-  ``cfg['out']``."""
+  0 just before and read just after; then ``spatial_checks``, and with
+  ``cfg['int8_state']`` the int8 generator forward on those weights.
+  Saves the networks' states, the recorded epochs, the counts and the
+  checks to ``cfg['out']``."""
   global DEVICE, SCAR_SIZE
   DEVICE, SCAR_SIZE = cfg['device'], cfg['size']
   require(DEVICE == 'cpu' or torch.cuda.is_available(), 'no CUDA device')
@@ -4225,14 +4472,15 @@ def spatial_rank(cfg):
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
   child_group(cfg)
+  counters = [getattr(dc_kernel, n) for n in ('dc_cuda', 'dc_bwd_cuda') +
+              tuple(DC_PASSES)] + [conv_chain.conv_layer_f32_cuda]
   try:
-    dc_kernel.dc_cuda.launches = dc_kernel.dc_bwd_cuda.launches = 0
-    conv_chain.conv_layer_f32_cuda.launches = 0
+    for fn in counters:
+      fn.launches = 0
     runner, seen = dist_cli(cfg['config'], cfg['data_dir'], cfg['run_root'],
                             cfg['overrides'] + ['mesh=' + json.dumps(
                                 SPATIAL_MESH)])
-    launches = (dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches,
-                conv_chain.conv_layer_f32_cuda.launches)
+    launches = tuple(fn.launches for fn in counters)
     mesh = runner.mesh
     require(mesh is not None and (mesh.world, mesh.spatial, mesh.rank) ==
             (2, 2, cfg['rank']), 'expected rank {} of a (1, 2) mesh'.format(
@@ -4243,6 +4491,10 @@ def spatial_rank(cfg):
                                net.state_dict().items()}
                         for name, net in runner_networks(runner).items()}}
     result.update(spatial_checks(runner, cfg['data_dir']))
+    if cfg.get('int8_state'):
+      runner.gen.load_state_dict(torch.load(cfg['int8_state']))
+      result['int8'] = int8_forward(runner, cfg['data_dir'],
+                                    'phase 23 rank {}'.format(cfg['rank']))
     torch.save(result, cfg['out'])
   finally:
     dist.destroy_process_group()
@@ -4250,7 +4502,9 @@ def spatial_rank(cfg):
 
 def spatial_compare(label, one, ranks, one_launches):
   """Phase 23: both ranks against the one-process run at
-  ``SPATIAL_BARS``; each rank's launches equal the one process's."""
+  ``SPATIAL_BARS``; each rank launched each of K1's three passes as often
+  as the one process launched K1, each of K1-bwd's as often as K1-bwd, K2
+  f32 as often, and whole-image K1 and K1-bwd never."""
   from csmri_refinement_tpu_torch.utils.diagnostics import runner_networks
   loss_atol, param_atol = SPATIAL_BARS[label]
   worst = {'losses': 0.0, 'psnr': 0.0, 'metrics': 0.0, 'params': 0.0,
@@ -4262,11 +4516,14 @@ def spatial_compare(label, one, ranks, one_launches):
     require(excess <= atol, '{} rank differs from one process in {}: '
             '{:.6g} vs {:.6g} (atol {})'.format(label, what, got, want, atol))
 
+  k1, k1_bwd, k2 = one_launches
+  want_launches = (0, 0) + (k1,) * 3 + (k1_bwd,) * 3 + (k2,)
   nets = {name: net.state_dict()
           for name, net in runner_networks(one[0]).items()}
   for rank, got in enumerate(ranks):
-    require(got['launches'] == one_launches, '{} rank {} launched K1, '
-            'K1-bwd, K2 f32 {} times, one process {}'.format(
+    require(got['launches'] == want_launches, '{} rank {} launched K1, '
+            'K1-bwd, K1\'s passes, K1-bwd\'s passes, K2 f32 {} times; one '
+            'process launched K1, K1-bwd, K2 f32 {} times'.format(
                 label, rank, got['launches'], one_launches))
     for phase in ('train', 'val'):
       require(len(got['seen'][phase]) == len(one[1][phase]),
@@ -4298,22 +4555,164 @@ def spatial_compare(label, one, ranks, one_launches):
   return worst
 
 
+def int8_tiles_check(ranks):
+  """Exact checks of the two ranks' int8 tiles, whatever float noise came
+  before them: at every quantization (each chain's, each requant's) the
+  ranks hold one scale, the group's, and each K3 launch's halo rows are
+  the other rank's own rows of that launch's input. Returns the K3
+  launches checked."""
+  a, b = (r['int8'] for r in ranks)
+  for i, ((kind, got_a), (_, got_b)) in enumerate(zip(a['steps'],
+                                                      b['steps'])):
+    at = {'act': 2, 'K3': 1, 'requant': 1}[kind]
+    require(torch.equal(got_a[at], got_b[at]), 'int8 step {} ({}): the '
+            'ranks quantize with different scales'.format(i, kind))
+  for i, ((t0, top0, bottom0), (t1, top1, bottom1)) in enumerate(
+      zip(a['tiles'], b['tiles'])):
+    h0 = t0.shape[1] - top0 - bottom0
+    h1 = t1.shape[1] - top1 - bottom1
+    require(top0 == bottom1 == 0 and torch.equal(
+        t0.narrow(1, top0 + h0, bottom0), t1.narrow(1, top1, bottom0)) and
+            torch.equal(t1.narrow(1, 0, top1), t0.narrow(1, h0 - top1, top1))
+            and h0 == h1, 'K3 launch {}: a rank\'s halo rows are not the '
+            'other rank\'s rows'.format(i))
+  return len(a['tiles'])
+
+
+def int8_steps_compare(one, ranks):
+  """The int8 mode's steps on the ranks against the one process's, step
+  by step (``int8_forward``): one line each, and the first step that
+  differs. Where a K3 launch's int8 input and scale equal the one
+  process's on both ranks, its output must too, bit for bit: a halo or
+  scale fault of the tiles shows there, whatever float noise came
+  before; where a chain's float-prefix output does, its int8 image and
+  the group's scale must."""
+  kinds = [k for k, _ in one['steps']]
+  for r, got in enumerate(ranks):
+    require([k for k, _ in got['int8']['steps']] == kinds,
+            'int8 rank {}: its steps {} are not the one process\'s {}'.format(
+                r, [k for k, _ in got['int8']['steps']], kinds))
+  first, lines = None, []
+  for i, (kind, want) in enumerate(one['steps']):
+    parts = [[] for _ in want]
+    for r, got in enumerate(ranks):
+      for j, t in enumerate(got['int8']['steps'][i][1]):
+        w = want[j]
+        if t.ndim == 4:         # rows: the rank's of the whole image
+          w = w.narrow(1, r * t.shape[1], t.shape[1])
+        parts[j].append((t, w))
+    same = [all(torch.equal(t, w) for t, w in p) for p in parts]
+
+    def off(p):                 # elements that differ, on both ranks
+      return sum(int((t != w).sum().item()) for t, w in p)
+
+    def rel(p):
+      return max((t.float() - w.float()).abs().max().item() /
+                 max(w.float().abs().max().item(), 1e-30) for t, w in p)
+    if kind == 'act':
+      desc = ('chain {}\'s float-prefix output max |Δ| {:.3e} of max |ref|, '
+              'int8 image {} elements off, scale {}'.format(
+                  kinds[:i].count('act'), rel(parts[0]), off(parts[1]),
+                  'equal' if same[2] else 'differs'))
+      if same[0]:
+        require(same[1] and same[2], 'int8: equal float-prefix outputs '
+                'quantize differently on the ranks (step {})'.format(i))
+    elif kind == 'K3':
+      desc = ('K3 launch {}: int8 input {} elements off, scale {}, output '
+              'max |Δ| {:.3e} of max |ref|'.format(
+                  kinds[:i].count('K3'), off(parts[0]),
+                  'equal' if same[1] else 'differs', rel(parts[2])))
+      if same[0] and same[1]:
+        require(same[2], 'K3 launch {} on halo tiles differs from the whole '
+                'image on the same int8 input and scale'.format(
+                    kinds[:i].count('K3')))
+    else:
+      desc = 'requant {}: int8 output {} elements off, scale {}'.format(
+          kinds[:i].count('requant'), off(parts[0]),
+          'equal' if same[1] else 'differs')
+    if first is None and not all(same):
+      first = i
+    lines.append(('* ' if first == i else '  ') + desc)
+  return first, lines
+
+
+def int8_compare(one_runner, state, data_dir, ranks, line):
+  """Phase 23 (c): the two ranks' eval forward of the generator, f32 and
+  int8, against this process's on the same weights (``state``, which the
+  ranks loaded too) and batch, and the int8 mode's steps against each
+  other (``int8_steps_compare``). Returns the ranks' K3 and requant
+  launches (rank 0's) and the max errors of every K3 and requant launch
+  against its plain version."""
+  one_runner.gen.load_state_dict(torch.load(state))
+  one = int8_forward(one_runner, data_dir, 'phase 23 one process')
+  for r, rank in enumerate(ranks):
+    require(min(rank['int8']['launches']) > 0,
+            'int8 rank {}: K3 or requant not launched'.format(r))
+  require(min(one['launches']) > 0, 'int8: K3 or requant not launched')
+  diffs = {}
+  for mode in ('f32', 'int8'):
+    got = torch.cat([r['int8'][mode] for r in ranks], dim=1)
+    want = one[mode]
+    require(got.shape == want.shape, '{} forward shapes {} and {}'.format(
+        mode, tuple(got.shape), tuple(want.shape)))
+    diffs[mode] = ((got - want).abs().max().item() /
+                   want.abs().max().item(), torch.equal(got, want))
+  first, lines = int8_steps_compare(one, ranks)
+  print('phase 23 (c) eval forward of the 2-refinement generator at {}^2, B '
+        '{}, on two spatial ranks against one process: f32 {}, max |Δ| '
+        '{:.3e} of max |ref|; int8 {}, max |Δ| {:.3e} of max |ref| (bar {}); '
+        'K3, requant launches per rank {} and {} (one process {}), each '
+        'within {:.3e} and {:g} int8 steps of its plain version; the int8 '
+        'mode\'s steps against one process, the first that differs marked '
+        '{} ({})'.format(
+            SCAR_SIZE, one['f32'].shape[0],
+            'bit for bit' if diffs['f32'][1] else 'not bit for bit',
+            diffs['f32'][0], 'bit for bit' if diffs['int8'][1] else
+            'not bit for bit', diffs['int8'][0], SPATIAL_INT8_REL,
+            ranks[0]['int8']['launches'], ranks[1]['int8']['launches'],
+            one['launches'],
+            max(r['int8']['errs'][0] for r in ranks),
+            max(r['int8']['errs'][1] for r in ranks),
+            '*' if first is not None else '(none differs)', line))
+  for ln in lines:
+    print('  ' + ln)
+  print('  the ranks\' scales equal at every quantization and the halo rows '
+        'of {} K3 launches the other rank\'s rows, exactly'.format(
+            int8_tiles_check(ranks)))
+  require(diffs['int8'][0] <= SPATIAL_INT8_REL,
+          'the ranks\' int8 forward differs from one process by {:.3e} of '
+          'max |ref| (bar {})'.format(diffs['int8'][0], SPATIAL_INT8_REL))
+  errs = [r['int8']['errs'] for r in ranks] + [one['errs']]
+  return (ranks[0]['int8']['launches'],
+          (max(e[0] for e in errs), max(e[1] for e in errs)))
+
+
+def dc_exchange_mb(moved):
+  """MB the DC's two all-to-alls sent."""
+  return sum(v for k, v in moved.items() if k.startswith('all_to_all')) / 1e6
+
+
 def spatial_phase(data_dir, work, line):
   """Phase 23: (a) the gloo probe; (b) 1-recnet (B = 20), 2-refinement
   (B = 5, its RecNet from (b)'s one-process checkpoint) and segmentation
   (B = 8) through the training CLI, 2 steps and 1 validation batch, once
   in this process and once on two spatial ranks sharing the card; ranks
-  against the one process at ``SPATIAL_BARS``; each rank's K1, K1-bwd and
-  K2 f32 launches equal the one process's, each checked launch within its
-  bar of the plain version; ms per step, peak GiB and the bytes each
-  collective site moves, per rank. Returns the launches (rank 0's) and
-  errors for the kernels line."""
+  against the one process at ``SPATIAL_BARS``; each rank's DC pass and K2
+  f32 launches against the one process's K1, K1-bwd and K2 f32 launches,
+  each checked launch within its bar of the plain version; the passes'
+  times, ms per step, peak GiB and the bytes each collective site moves,
+  per rank; (c) the f32 and int8 eval forwards of the 2-refinement
+  generator on the two ranks against one process (``int8_compare``).
+  Returns the launches (rank 0's) and errors for the kernels
+  line, with 1-recnet's rank-0 pass times."""
   from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
   from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
   t0 = time.perf_counter()
   gloo_phase(line)
-  total = {'k1': 0, 'k1_bwd': 0, 'k2_f32': 0, 'dc_err': 0.0,
-           'dc_bwd_err': 0.0, 'f32_err': 0.0}
+  total = {'k1': 0, 'k1_bwd': 0, 'k2_f32': 0, 'k3': 0, 'requant': 0,
+           'k3_err': 0.0, 'requant_err': 0.0, 'dc_err': 0.0, 'dc_bwd_err': 0.0, 'f32_err': 0.0,
+           'passes': {name: [0, 0.0, 0.0] for name in DC_PASSES},
+           'pass_times': {}}
   configs = {'1-recnet': RECNET_CONFIG, 'segmentation': SEG_CONFIG}
   for label, overrides in SPATIAL_RUNS:
     t1 = time.perf_counter()
@@ -4339,51 +4738,85 @@ def spatial_phase(data_dir, work, line):
                     conv_chain.conv_layer_f32_cuda.launches)
     outs = [os.path.join(work, 'spatial_{}_rank{}.pt'.format(label, r))
             for r in range(2)]
+    int8_state = None
+    if label == '2-refinement':    # (c)'s weights: the one process's
+      int8_state = os.path.join(work, 'spatial_int8_generator.pt')
+      torch.save(one[0].gen.state_dict(), int8_state)
     if DEVICE == 'cuda':      # the ranks share the card with this process
       torch.cuda.empty_cache()
     spawn_ranks('spatial-rank', {
         'config': configs[label], 'data_dir': data_dir, 'device': DEVICE,
         'size': SCAR_SIZE, 'overrides': overrides,
-        'run_root': os.path.join(work, 'spatial_ranks')}, outs)
+        'run_root': os.path.join(work, 'spatial_ranks'),
+        'int8_state': int8_state},
+                outs)
     ranks = [torch.load(o, weights_only=False) for o in outs]
     worst = spatial_compare(label, one, ranks, one_launches)
-    k1, k1_bwd, k2 = ranks[0]['launches']
+    k1, k1_bwd, k2 = one_launches
     path = {'1-recnet': (k1, k1_bwd), '2-refinement': (k1, k2),
             'segmentation': (k2,)}[label]
     require(min(path) > 0,
             label + ': a kernel of the path was not launched on the ranks')
     print('phase 23 {} at {}^2, mesh {}, collectives {}: both ranks '
-          'against one process: losses within {:.3e}, PSNR {:.3e} dB, other metrics '
-          '{:.3e}, parameters {:.3e}, discriminator {:.3e}, BN statistics '
-          '{:.3e}; launches per rank K1 {}, K1-bwd {}, K2 f32 {} (one '
-          'process: the same); {:.1f} s'.format(
+          'against one process: losses within {:.3e}, PSNR {:.3e} dB, other '
+          'metrics {:.3e}, parameters {:.3e}, discriminator {:.3e}, BN '
+          'statistics {:.3e}; launches per rank: each of K1\'s 3 passes {}, '
+          'each of K1-bwd\'s {}, K2 f32 {}, whole-image K1 and K1-bwd 0 '
+          '(one process: K1 {}, K1-bwd {}, K2 f32 {}); {:.1f} s'.format(
               label, SCAR_SIZE, SPATIAL_MESH, ranks[0]['route'],
               worst['losses'], worst['psnr'], worst['metrics'],
               worst['params'], worst['disc'], worst['bn'], k1, k1_bwd, k2,
-              time.perf_counter() - t1))
+              k1, k1_bwd, k2, time.perf_counter() - t1))
     for r, got in enumerate(ranks):
-      print('  rank {}: checked launches {} against their plain versions '
-            '(max |kernel-plain| K1 {:.3e}, K1-bwd {:.3e}, K2 f32 {:.3e}); '
-            'train step {:.3f} ms, peak {:.3f} GiB above the resident state; '
-            'per step it moves {} ({}; two ranks share one card: not a '
+      print('  rank {}: checked launches against their plain versions (max '
+            '|kernel-plain|, and that over max |plain|, bar {}): {}; K2 f32 '
+            '{} launches within {:.3e}; train step {:.3f} ms, peak {:.3f} GiB '
+            'above the resident state; per step the DC\'s all-to-alls send '
+            '{:.2f} MB and it moves {} ({}; two ranks share one card: not a '
             'scaling number)'.format(
-                r, got['checked'], got['errs']['dc'], got['errs']['dc_bwd'],
-                got['errs']['f32'], got['ms'], got['peak'],
-                ', '.join('{} {:.2f} MB'.format(k, v / 1e6) for k, v in
-                          sorted(got['moved'].items())), line))
+                r, PASS_REL, ', '.join('{} {} launches {:.3e} ({:.3e})'.format(
+                    DC_PASSES[n][0], c, e, rel) for n, (c, e, rel) in
+                    got['passes'].items()),
+                got['k2_checked'], got['f32_err'], got['ms'], got['peak'],
+                dc_exchange_mb(got['moved']), ', '.join(
+                    '{} {:.2f} MB'.format(k, v / 1e6) for k, v in
+                    sorted(got['moved'].items())), line))
+      for name, t in got['times'].items():
+        print('  rank {} {} on {}: {:.4f} ms, plain {:.4f} ms, library {}, '
+              'bound {:.4f} ms ({}) ({})'.format(
+                  r, DC_PASSES[name][0], tuple(t['shape']), t['ms'],
+                  t['plain_ms'], 'none' if t['library_ms'] is None else
+                  '{:.4f} ms'.format(t['library_ms']), t['bound_ms'],
+                  t['bound_by'], line))
     host = next(iter(DataLoader(load_dataset(one[0].conf, data_dir,
                                              'ScarSeg', 'train'),
                                 one[0].conf.batch_size)))
     print('  one process: train step {:.3f} ms ({})'.format(step_wall_ms(
         one[0], one[0].preparer.prepare_train(
             torch.Generator(device=DEVICE).manual_seed(SEED), host)), line))
+    if label == '2-refinement':
+      (k3, requant), (k3_err, rq_err) = int8_compare(
+          one[0], int8_state, data_dir, ranks, line)
+      total['k3'] += k3
+      total['requant'] += requant
+      total['k3_err'], total['requant_err'] = k3_err, rq_err
+    if label == '1-recnet':
+      total['pass_times'] = ranks[0]['times']
     total['k1'] += k1
     total['k1_bwd'] += k1_bwd
     total['k2_f32'] += k2
-    for key in ('dc', 'dc_bwd', 'f32'):
-      total[key + '_err'] = max([total[key + '_err']] +
-                                [got['errs'][key] for got in ranks])
+    total['f32_err'] = max([total['f32_err']] +
+                           [got['f32_err'] for got in ranks])
+    for name in DC_PASSES:
+      count, err, rel = total['passes'][name]
+      total['passes'][name] = [
+          count + ranks[0]['passes'][name][0],
+          max([err] + [got['passes'][name][1] for got in ranks]),
+          max([rel] + [got['passes'][name][2] for got in ranks])]
     del one, ranks
+  for name, (_, err, _) in total['passes'].items():
+    key = 'dc_bwd_err' if DC_PASSES[name][2] else 'dc_err'
+    total[key] = max(total[key], err)
   print('phase 23: {:.1f} s wall'.format(time.perf_counter() - t0))
   return total
 
@@ -4716,30 +5149,36 @@ def options_spatial_phase(work, line):
               outs)
   ranks = [torch.load(o, weights_only=False) for o in outs]
   worst = spatial_compare('2-refinement', one, ranks, one_launches)
-  k1, _, k2 = ranks[0]['launches']
+  k1, _, k2 = one_launches       # each of K1's passes k1 times per rank
   require(k1 > 0 and k2 > 0, 'nn-biresize-conv GAN: a kernel of the path '
           'was not launched on the ranks')
   print('phase 24 (d) nn-biresize-conv GAN at {}^2, mesh {}: both ranks '
         'against one process: losses within {:.3e}, parameters {:.3e}, '
-        'discriminator {:.3e}, BN statistics {:.3e}; launches per rank K1 {}, '
-        'K2 f32 {} (one process: the same)'.format(
-            size, SPATIAL_MESH, worst['losses'], worst['params'],
-            worst['disc'], worst['bn'], k1, k2))
+        'discriminator {:.3e}, BN statistics {:.3e}; launches per rank: '
+        'each of K1\'s passes {}, K2 f32 {} (one process: K1 {}, K2 f32 '
+        '{})'.format(size, SPATIAL_MESH, worst['losses'], worst['params'],
+                     worst['disc'], worst['bn'], k1, k2, k1, k2))
+  dc_err = 0.0
   for r, got in enumerate(ranks):
     halo = got['moved'].get('all_gather in _bilinear_up2', 0)
     require(halo > 0, 'rank {}: the bilinear up-sample took no halo'.format(r))
-    print('  rank {}: checked launches {} (max |kernel-plain| K1 {:.3e}, K2 '
-          'f32 {:.3e}); train step {:.3f} ms, peak {:.3f} GiB; the bilinear '
-          'up-sample\'s halo moves {:.3f} MB a step forward (its backward '
-          'the same, within _HaloRows.backward); all sites: {} ({}; two '
-          'ranks share one card)'.format(
-              r, got['checked'], got['errs']['dc'], got['errs']['f32'],
-              got['ms'], got['peak'], halo / 1e6,
+    dc_err = max([dc_err] + [e for n, (_, e, _) in got['passes'].items()
+                             if not DC_PASSES[n][2]])
+    print('  rank {}: checked launches {} (max |kernel-plain| of K1\'s '
+          'passes {:.3e}, each within {} of max |plain|; K2 f32 {} launches '
+          '{:.3e}); '
+          'train step {:.3f} ms, peak {:.3f} GiB; the bilinear up-sample\'s '
+          'halo moves {:.3f} MB a step forward (its backward the same, '
+          'within _HaloRows.backward); all sites: {} ({}; two ranks share '
+          'one card)'.format(
+              r, {DC_PASSES[n][0]: c for n, (c, _, _) in
+                  got['passes'].items()},
+              dc_err, PASS_REL, got['k2_checked'], got['f32_err'], got['ms'],
+              got['peak'], halo / 1e6,
               ', '.join('{} {:.2f} MB'.format(k, v / 1e6) for k, v in
                         sorted(got['moved'].items())), line))
-  return {'k1': k1, 'k2_f32': k2,
-          'dc_err': max(r['errs']['dc'] for r in ranks),
-          'f32_err': max(r['errs']['f32'] for r in ranks)}
+  return {'k1': k1, 'k2_f32': k2, 'dc_err': dc_err,
+          'f32_err': max(r['f32_err'] for r in ranks)}
 
 
 def kspace_utils_phase(line):
@@ -5086,6 +5525,25 @@ def bench_phase(P, line):
   return out
 
 
+def pass_entries(scar):
+  """The kernels line's entries of K1's and K1-bwd's passes: phase 23's
+  launches (rank 0's) and errors, and the times of 1-recnet's rank 0
+  (512², B = 20, S = 2)."""
+  entries = []
+  for name, (label, _, bwd) in DC_PASSES.items():
+    launches, err, _ = scar['passes'][name]
+    t = scar['pass_times'][name]
+    entries.append({
+        'name': label, 'route': 'cuda',
+        'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
+        'replaces': 'csmri_refinement_tpu/ops/dc.py:99' if bwd else
+                    'csmri_refinement_tpu/ops/dc_pallas.py:36',
+        'launches': launches, 'max_abs_err': err, 'ms': t['ms'],
+        'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+        'bound_by': t['bound_by'], 'library_ms': t['library_ms']})
+  return entries
+
+
 def build_phase(names):
   """Phase 2: build the named kernel sources in parallel; print each
   kernel's ptxas lines, and fail if ptxas drained a wgmma pipeline
@@ -5419,20 +5877,21 @@ def main(argv=None):
       {'name': 'conv_int8', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/conv_int8.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
-       'launches': int8_launches[0] + bench['k3'],
-       'max_abs_err': max(int8_conv_err, bench['k3_err']),
+       'launches': int8_launches[0] + bench['k3'] + scar['k3'],
+       'max_abs_err': max(int8_conv_err, bench['k3_err'], scar['k3_err']),
        'ms': k3['conv'][0], 'plain_ms': k3['conv'][1],
        'bound_ms': k3['conv'][2], 'bound_by': k3['conv'][3],
        'library_ms': None},
       {'name': 'requant_int8', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/conv_int8.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:381',
-       'launches': int8_launches[1] + bench['requant'],
-       'max_abs_err': max(requant_err, bench['requant_err']),
+       'launches': int8_launches[1] + bench['requant'] + scar['requant'],
+       'max_abs_err': max(requant_err, bench['requant_err'],
+                          scar['requant_err']),
        'ms': k3['requant'][0], 'plain_ms': k3['requant'][1],
        'bound_ms': k3['requant'][2], 'bound_by': k3['requant'][3],
        'library_ms': None},
-  ] + probe_entries
+  ] + pass_entries(scar) + probe_entries
   print('chip_smoke: all phases passed in {:.1f} s wall, the kernels\' build '
         'included ({})'.format(time.perf_counter() - t_start, line))
   print(json.dumps({'kernels': kernels}))

@@ -24,7 +24,10 @@
 //      along H, in place in scratch: k-space makes no HBM round trip;
 //   3. inverse FFT along W: scratch -> y.
 // That moves 60 B/pixel against the 28 B bound; one launch per DC with
-// thread-block clusters is later work.
+// thread-block clusters is later work. Each pass is an entry of its own
+// too (dc_rows_pass, dc_cols_pass and their _dft twins, at the end): a DC
+// whose image rows are split over ranks runs them with an all-to-all
+// between passes 1 and 2 and another between 2 and 3.
 //
 // Each 1D line transform is a Stockham mixed-radix FFT whose butterflies
 // run in registers: a thread holds P = 8 or 16 points of a line and does
@@ -359,7 +362,7 @@ struct ColPlan {
 
 // A strip: `cols` columns of one image, all H rows, row-major in smem.
 template <int H>
-__device__ __forceinline__ void stage_cols(const float2* __restrict__ t,
+__device__ __forceinline__ void stage_cols(const float2* t,
                                            float2* s, int tile, int tiles_w,
                                            int w, int cols) {
   const size_t base =
@@ -371,9 +374,12 @@ __device__ __forceinline__ void stage_cols(const float2* __restrict__ t,
   }
 }
 
+// `in` and `out` may be one buffer (dc_forward runs the pass in place):
+// a strip is read whole before its own output is written, and no other
+// strip reads it.
 template <int H, bool HAS_K0>
 __global__ void __launch_bounds__(ColPlan<H>::kThreads)
-col_dc(float2* __restrict__ t, const float2* __restrict__ k0,
+col_dc(const float2* in, float2* out, const float2* __restrict__ k0,
        const float* __restrict__ mask, int batch, int w,
        const float2* __restrict__ tw_g, float scale) {
   using CP = ColPlan<H>;
@@ -389,12 +395,12 @@ col_dc(float2* __restrict__ t, const float2* __restrict__ k0,
   const int tiles = batch * tiles_w;
   const int c = threadIdx.x % cols, tt = threadIdx.x / cols;
   int tile = blockIdx.x;
-  if (tile < tiles) stage_cols<H>(t, smem, tile, tiles_w, w, cols);
+  if (tile < tiles) stage_cols<H>(in, smem, tile, tiles_w, w, cols);
   cp_async_commit();
   for (int buf = 0; tile < tiles; tile += gridDim.x, buf ^= 1) {
     const int next = tile + gridDim.x;
     if (next < tiles)
-      stage_cols<H>(t, smem + (buf ^ 1) * elems, next, tiles_w, w, cols);
+      stage_cols<H>(in, smem + (buf ^ 1) * elems, next, tiles_w, w, cols);
     cp_async_commit();
     // The merge operands of the points this thread will hold after the
     // forward transform: rows tt + b * TPL + q * kSpan of column c. Loaded
@@ -434,7 +440,7 @@ col_dc(float2* __restrict__ t, const float2* __restrict__ k0,
     store_stage<H, CP::S - 1>(ln, tt, v);
     __syncthreads();
     const int per_row = cols / 2;
-    float2* dst = t + col0 - c;
+    float2* dst = out + col0 - c;
     for (int i = threadIdx.x; i < H * per_row; i += blockDim.x) {
       const int r = i / per_row, cc = 2 * (i % per_row);
       const float2* p = s + r * cols + cc;
@@ -489,8 +495,9 @@ int launch_rows(const float2* in, float2* out, long rows, const float2* tw,
 }
 
 template <int H>
-int launch_cols(float2* t, const float2* k0, const float* mask, int batch,
-                int w, const float2* tw, float scale, cudaStream_t st) {
+int launch_cols(const float2* in, float2* t, const float2* k0,
+                const float* mask, int batch, int w, const float2* tw,
+                float scale, cudaStream_t st) {
   const int cols = w < kCols ? w : kCols;
   const int threads = cols * ColPlan<H>::TPL;
   const int smem = (2 * H * cols + plan_tw_size(H)) * 8;
@@ -500,12 +507,13 @@ int launch_cols(float2* t, const float2* k0, const float* mask, int batch,
     auto kern = col_dc<H, true>;
     const int err = walk_grid(kern, threads, smem, tiles, &grid);
     if (err) return err;
-    kern<<<grid, threads, smem, st>>>(t, k0, mask, batch, w, tw, scale);
+    kern<<<grid, threads, smem, st>>>(in, t, k0, mask, batch, w, tw, scale);
   } else {
     auto kern = col_dc<H, false>;
     const int err = walk_grid(kern, threads, smem, tiles, &grid);
     if (err) return err;
-    kern<<<grid, threads, smem, st>>>(t, nullptr, mask, batch, w, tw, scale);
+    kern<<<grid, threads, smem, st>>>(in, t, nullptr, mask, batch, w, tw,
+                                      scale);
   }
   return (int)cudaGetLastError();
 }
@@ -527,19 +535,15 @@ int rows_pass(int n, const float2* in, float2* out, long rows,
   return (int)cudaErrorInvalidValue;
 }
 
-int cols_pass(int h, float2* t, const float2* k0, const float* mask,
-              int batch, int w, const float2* tw, float scale,
-              cudaStream_t st) {
+int cols_pass(int h, const float2* in, float2* t, const float2* k0,
+              const float* mask, int batch, int w, const float2* tw,
+              float scale, cudaStream_t st) {
   switch (h) {
-    case 2: return launch_cols<2>(t, k0, mask, batch, w, tw, scale, st);
-    case 4: return launch_cols<4>(t, k0, mask, batch, w, tw, scale, st);
-    case 8: return launch_cols<8>(t, k0, mask, batch, w, tw, scale, st);
-    case 16: return launch_cols<16>(t, k0, mask, batch, w, tw, scale, st);
-    case 32: return launch_cols<32>(t, k0, mask, batch, w, tw, scale, st);
-    case 64: return launch_cols<64>(t, k0, mask, batch, w, tw, scale, st);
-    case 128: return launch_cols<128>(t, k0, mask, batch, w, tw, scale, st);
-    case 256: return launch_cols<256>(t, k0, mask, batch, w, tw, scale, st);
-    case 512: return launch_cols<512>(t, k0, mask, batch, w, tw, scale, st);
+#define CSMRI_COLS(n) \
+    case n: return launch_cols<n>(in, t, k0, mask, batch, w, tw, scale, st);
+    CSMRI_COLS(2) CSMRI_COLS(4) CSMRI_COLS(8) CSMRI_COLS(16) CSMRI_COLS(32)
+    CSMRI_COLS(64) CSMRI_COLS(128) CSMRI_COLS(256) CSMRI_COLS(512)
+#undef CSMRI_COLS
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -592,10 +596,11 @@ dft_rows(const float2* __restrict__ in, float2* __restrict__ out, long rows,
 
 // Pass 2: per strip of up to kCols columns of one image, the DFT along H
 // (h points, roots tw_g), the merge (1 - m) k + k0, the inverse DFT along
-// H, in place.
+// H, from `in` to `out` (one buffer in dc_forward_dft: a strip is read
+// whole before it is written).
 template <bool HAS_K0>
 __global__ void __launch_bounds__(kDftThreads)
-dft_cols(float2* __restrict__ t, const float2* __restrict__ k0,
+dft_cols(const float2* in, float2* out, const float2* __restrict__ k0,
          const float* __restrict__ mask, int batch, int h, int w,
          const float2* __restrict__ tw_g, float scale) {
   extern __shared__ __align__(16) float2 smem[];
@@ -611,7 +616,7 @@ dft_cols(float2* __restrict__ t, const float2* __restrict__ k0,
     __syncthreads();
     for (int i = threadIdx.x; i < h * cols; i += blockDim.x)
       a[(i / cols) * kCols + i % cols] =
-          t[base + (size_t)(i / cols) * w + i % cols];
+          in[base + (size_t)(i / cols) * w + i % cols];
     __syncthreads();
     for (int i = threadIdx.x; i < h * cols; i += blockDim.x) {
       const int k = i / cols, c = i % cols;
@@ -626,10 +631,49 @@ dft_cols(float2* __restrict__ t, const float2* __restrict__ k0,
     for (int i = threadIdx.x; i < h * cols; i += blockDim.x) {
       const int k = i / cols, c = i % cols;
       const float2 v = dft_point<true>(b + c, kCols, tw, h, k);
-      t[base + (size_t)k * w + c] = make_float2(v.x * scale, v.y * scale);
+      out[base + (size_t)k * w + c] = make_float2(v.x * scale, v.y * scale);
     }
   }
 }
+
+// The dense route's passes 1 and 3 (INV) on `rows` lines of n points.
+template <bool INV>
+int dft_rows_pass(const float2* in, float2* out, long rows, int n,
+                  const float2* roots, float scale, cudaStream_t st) {
+  unsigned grid = 0;
+  const int smem = 2 * n * 8;
+  const int err = walk_grid(dft_rows<INV>, kDftThreads, smem, rows, &grid);
+  if (err) return err;
+  dft_rows<INV><<<grid, kDftThreads, smem, st>>>(in, out, rows, n, roots,
+                                                 scale);
+  return (int)cudaGetLastError();
+}
+
+// The dense route's pass 2 on (batch, h, w) images.
+int dft_cols_pass(const float2* in, float2* out, const float2* k0,
+                  const float* mask, int batch, int h, int w,
+                  const float2* roots, float scale, cudaStream_t st) {
+  unsigned grid = 0;
+  const int smem = (h + 2 * h * kCols) * 8;
+  const long strips = (long)batch * ((w + kCols - 1) / kCols);
+  if (k0 != nullptr) {
+    const int err = walk_grid(dft_cols<true>, kDftThreads, smem, strips,
+                              &grid);
+    if (err) return err;
+    dft_cols<true><<<grid, kDftThreads, smem, st>>>(in, out, k0, mask, batch,
+                                                    h, w, roots, scale);
+  } else {
+    const int err = walk_grid(dft_cols<false>, kDftThreads, smem, strips,
+                              &grid);
+    if (err) return err;
+    dft_cols<false><<<grid, kDftThreads, smem, st>>>(in, out, nullptr, mask,
+                                                     batch, h, w, roots,
+                                                     scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+float ortho(int n) { return (float)(1.0 / sqrt((double)n)); }
 
 }  // namespace
 
@@ -656,7 +700,7 @@ extern "C" int dc_forward(const void* x, const void* k0, const void* mask,
   int err = rows_pass<false>(w, (const float2*)x, t, rows,
                              (const float2*)tw_w, sw, st);
   if (err) return err;
-  err = cols_pass(h, t, (const float2*)k0, (const float*)mask, batch, w,
+  err = cols_pass(h, t, t, (const float2*)k0, (const float*)mask, batch, w,
                   (const float2*)tw_h, sh, st);
   if (err) return err;
   return rows_pass<true>(w, t, (float2*)y, rows, (const float2*)tw_w, sw, st);
@@ -674,36 +718,83 @@ extern "C" int dc_forward_dft(const void* x, const void* k0, const void* mask,
   if (h < 2 || h > kMaxN || w < 2 || w > kMaxN || batch < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const float sh = (float)(1.0 / sqrt((double)h));
-  const float sw = (float)(1.0 / sqrt((double)w));
   const long rows = (long)batch * h;
   float2* t = (float2*)scratch;
   const float2* roots_h = (const float2*)tw_h;
   const float2* roots_w = (const float2*)tw_w;
-  unsigned grid = 0;
-  const int row_smem = 2 * w * 8;
-  int err = walk_grid(dft_rows<false>, kDftThreads, row_smem, rows, &grid);
+  int err = dft_rows_pass<false>((const float2*)x, t, rows, w, roots_w,
+                                 ortho(w), st);
   if (err) return err;
-  dft_rows<false><<<grid, kDftThreads, row_smem, st>>>(
-      (const float2*)x, t, rows, w, roots_w, sw);
-  if ((err = (int)cudaGetLastError())) return err;
-  const int col_smem = (h + 2 * h * kCols) * 8;
-  const long strips = (long)batch * ((w + kCols - 1) / kCols);
-  if (k0 != nullptr) {
-    err = walk_grid(dft_cols<true>, kDftThreads, col_smem, strips, &grid);
-    if (err) return err;
-    dft_cols<true><<<grid, kDftThreads, col_smem, st>>>(
-        t, (const float2*)k0, (const float*)mask, batch, h, w, roots_h, sh);
-  } else {
-    err = walk_grid(dft_cols<false>, kDftThreads, col_smem, strips, &grid);
-    if (err) return err;
-    dft_cols<false><<<grid, kDftThreads, col_smem, st>>>(
-        t, nullptr, (const float*)mask, batch, h, w, roots_h, sh);
-  }
-  if ((err = (int)cudaGetLastError())) return err;
-  err = walk_grid(dft_rows<true>, kDftThreads, row_smem, rows, &grid);
+  err = dft_cols_pass(t, t, (const float2*)k0, (const float*)mask, batch, h,
+                      w, roots_h, ortho(h), st);
   if (err) return err;
-  dft_rows<true><<<grid, kDftThreads, row_smem, st>>>(t, (float2*)y, rows, w,
-                                                      roots_w, sw);
-  return (int)cudaGetLastError();
+  return dft_rows_pass<true>(t, (float2*)y, rows, w, roots_w, ortho(w), st);
+}
+
+// --- K1's passes one at a time: the DC distributed over a spatial group ---
+//
+// ops/dc_kernel.py::dc_distributed runs the DC of an image whose rows are
+// split over S ranks: pass 1 on the rank's rows, an all-to-all that gives
+// each rank all rows of its W/S columns, pass 2 on those columns (with the
+// rank's columns of k0 and the mask), the all-to-all back, pass 3. Each
+// entry launches the same kernel, with the same plan, twiddles and scale,
+// as the pass inside dc_forward / dc_forward_dft, so a line's result is
+// the same bits: the whole-image DC's rows, on every rank.
+//
+// The row passes (1, and 3 with `inverse`): `rows` lines of n points,
+// (rows, n, 2) float32 from `in` to `out`; n is the image's width W, plan
+// and tw its radix plan and twiddles (dc_forward's plan_w and tw_w).
+extern "C" int dc_rows_pass(const void* in, void* out, const void* tw,
+                            int plan, int rows, int n, int inverse,
+                            void* stream) {
+  if (!supported(n, plan) || rows < 1 ||
+      ((uintptr_t)in | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  return inverse ? rows_pass<true>(n, (const float2*)in, (float2*)out, rows,
+                                   (const float2*)tw, ortho(n),
+                                   (cudaStream_t)stream)
+                 : rows_pass<false>(n, (const float2*)in, (float2*)out, rows,
+                                    (const float2*)tw, ortho(n),
+                                    (cudaStream_t)stream);
+}
+
+// The column pass: (batch, h, w, 2) float32 column blocks, all h rows of w
+// columns (the row stride is w), from `in` to `out` (distinct or the same
+// buffer); k0 (batch, h, w, 2) or null (zero: K1-bwd), mask (batch, h, w).
+// plan and tw are the plan of h, the image's height. w is whole 16-column
+// strips, or one strip of a power of two below 16.
+extern "C" int dc_cols_pass(const void* in, const void* k0, const void* mask,
+                            void* out, const void* tw, int plan, int batch,
+                            int h, int w, void* stream) {
+  const int strip = w < kCols ? w : kCols;
+  if (!supported(h, plan) || batch < 1 || w < 2 || w % strip ||
+      (strip & (strip - 1)) ||
+      ((uintptr_t)in | (uintptr_t)out | (uintptr_t)k0) % 16)
+    return (int)cudaErrorInvalidValue;
+  return cols_pass(h, (const float2*)in, (float2*)out, (const float2*)k0,
+                   (const float*)mask, batch, w, (const float2*)tw, ortho(h),
+                   (cudaStream_t)stream);
+}
+
+// The same two on the dense route (dc_forward_dft's passes): tw holds the
+// n (rows) or h (columns) roots; any w from 1 up (partial strips).
+extern "C" int dc_rows_pass_dft(const void* in, void* out, const void* tw,
+                                int rows, int n, int inverse, void* stream) {
+  if (n < 2 || n > kMaxN || rows < 1) return (int)cudaErrorInvalidValue;
+  return inverse ? dft_rows_pass<true>((const float2*)in, (float2*)out, rows,
+                                       n, (const float2*)tw, ortho(n),
+                                       (cudaStream_t)stream)
+                 : dft_rows_pass<false>((const float2*)in, (float2*)out,
+                                        rows, n, (const float2*)tw, ortho(n),
+                                        (cudaStream_t)stream);
+}
+
+extern "C" int dc_cols_pass_dft(const void* in, const void* k0,
+                                const void* mask, void* out, const void* tw,
+                                int batch, int h, int w, void* stream) {
+  if (h < 2 || h > kMaxN || w < 1 || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  return dft_cols_pass((const float2*)in, (float2*)out, (const float2*)k0,
+                       (const float*)mask, batch, h, w, (const float2*)tw,
+                       ortho(h), (cudaStream_t)stream);
 }

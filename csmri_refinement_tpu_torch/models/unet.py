@@ -64,8 +64,9 @@ row per side (its edge rows repeated at the image's top and bottom only),
 encoder features are the rank's rows. An eval chain through the conv
 kernel runs on its rows with a halo of L·pad rows per side (L layers), and
 drops the halo rows of its output, which hold every row the tile's own
-edges made wrong; the kernel is unchanged. The int8 mode is a single-card
-serving mode and raises there.
+edges made wrong; the kernel is unchanged. The int8 mode runs its float
+prefix so, and its quantized layers one at a time on halo tiles, with the
+whole image's activation scales (``ops/quantize.py``).
 """
 
 import torch
@@ -300,21 +301,23 @@ class ConvEncodeUnit(nn.Module):
   def _fused_chain(self, x):
     """Eval-mode chain through the conv kernel (``ops/conv_chain.py``),
     or its int8 mode with ``quantize_inference``; under a spatial mesh on
-    the rank's rows with a halo of L·pad rows per side."""
+    the rank's rows, the float chain with a halo of L·pad rows per side
+    (the int8 mode: ``ops/quantize.py``)."""
     dt = self.dtype or x.dtype
-    forward = quantize.chain_forward_int8 if self.quantize_inference else \
-        conv_chain.chain_forward
     mesh = halo.current()
-    if mesh is None:
-      return forward(x.to(dt).contiguous(), self.chain_layers(),
-                     pad_mode=self.padding)
     if self.quantize_inference:
-      raise NotImplementedError('quantize_inference is a single-card '
-                                'serving mode; it has no spatial mesh')
+      return quantize.chain_forward_int8(x.to(dt).contiguous(),
+                                         self.chain_layers(),
+                                         pad_mode=self.padding, mesh=mesh)
+    if mesh is None:
+      return conv_chain.chain_forward(x.to(dt).contiguous(),
+                                      self.chain_layers(),
+                                      pad_mode=self.padding)
     p1, p2 = pad_sizes(self.kernel_size)
     top, bottom = self.num_layers * p1, self.num_layers * p2
     tile = halo.halo_rows(x.to(dt), top, bottom, mesh, dim=1)
-    y = forward(tile.contiguous(), self.chain_layers(), pad_mode=self.padding)
+    y = conv_chain.chain_forward(tile.contiguous(), self.chain_layers(),
+                                 pad_mode=self.padding)
     return y.narrow(1, halo.taken(mesh, top, bottom)[0], x.shape[1])
 
   def _plain(self, x):

@@ -24,12 +24,13 @@ the JAX package runs under ``CSMRI_TPU_FUSED_DC=1``, and the skinny lowering
 equals it exactly (its ``ops/dc.py:310-332``).
 
 Under a spatial mesh (``parallel/halo.py``) ``x`` holds the rank's image
-rows and ``k0`` and ``mask`` the whole images (every rank of the spatial
-group holds them: a layout the JAX package shards, the same values):
-``dc_kernel.dc_rows`` gathers x's rows and runs the same DC on the whole
-image; the noisy DC gathers them too (``halo.gather_rows``), composes, and
-keeps the rank's rows. The JAX package's ``set_spatial_mesh`` switches XLA
-lowerings only and has no counterpart here.
+rows and ``k0`` and ``mask`` all rows of its column block
+(``parallel/mesh.py::COLUMN_KEYS``): ``dc_kernel.dc_distributed`` runs K1's
+three passes with an all-to-all between each two, and each rank gets its
+rows of the whole image's DC, bit for bit; the noisy DC runs the same
+pipeline on the plain ``torch.fft`` passes with the noisy merge. The JAX
+package's ``set_spatial_mesh`` switches XLA lowerings only and has no
+counterpart here.
 """
 
 import numpy as np
@@ -74,19 +75,17 @@ def data_consistency(x, k0, mask, noise_lvl=None):
   if noise_lvl is not None:
     if mesh is None:
       return _dc_composed(f32(x), k0, mask, noise_lvl)
-    whole = _dc_composed(halo.gather_rows(f32(x), mesh, dim=1), k0, mask,
-                         noise_lvl)
-    return halo.local_rows(whole, mesh, dim=1)
+    return dc_kernel.dc_distributed_noisy(f32(x), k0, mask, noise_lvl, mesh)
   if mesh is not None:
-    return dc_kernel.dc_rows(f32(x), f32(k0), f32(mask), mesh)
+    return dc_kernel.dc_distributed(f32(x), f32(k0), f32(mask), mesh)
   return dc_kernel.dc_fused(f32(x), f32(k0), f32(mask))
 
 
 def _dc_composed(x, k0, mask, noise_lvl):
-  out = data_consistency_complex(fft.unpack_complex(x),
-                                 fft.unpack_complex(k0),
-                                 mask[..., 0].float(), noise_lvl)
-  return fft.pack_complex(out)
+  """The noisy DC of whole images: the plain passes of the DC kernel
+  (per-axis ``torch.fft``), as on a spatial mesh."""
+  return dc_kernel.dc_rows_ifft_plain(dc_kernel.dc_cols_plain(
+      dc_kernel.dc_rows_fft_plain(x), k0, mask, noise_lvl))
 
 
 def data_consistency_complex(xc, k0c, m, noise_lvl=None):

@@ -30,19 +30,34 @@ on packed ``(B, H, W, 2)`` float32 images, ``(B, H, W, 1)`` float32 masks.
 * ``dc_fused`` — the device dispatch: where a gradient is needed, a CPU
   tensor takes ``dc_plain`` (autodiffed ``torch.fft``) and a CUDA tensor
   ``_DCFunction``; elsewhere (evaluation, a frozen network) the custom op.
-* ``dc_rows`` — the DC of a spatial mesh's rank (``parallel/halo.py``): x
-  holds the rank's image rows, k0 and mask the whole images. x's rows are
-  all-gathered within the spatial group and the DC runs on the whole image
-  (K1 on the card, the custom op without a gradient), of which the rank
-  keeps its rows: K1's output equals the one-process run's bit for bit.
-  The backward (``_RowsDCFunction``) all-gathers the gradient's rows, runs
-  K1-bwd on the whole image and keeps the rank's rows. The DC's
-  x-Jacobian is linear and Hermitian, so K1-bwd of the gathered gradient
-  is the sum of every rank's contribution: no reduce-scatter is needed.
-  ``grad_k0`` is the rank's share, ``fft2`` of its rows of the gradient
-  (zero elsewhere), as each rank's loss is its share. Every rank of the
-  group runs the whole DC: S-fold redundant work, left for a row-distributed
-  DC (``ROADMAP.md``, Queue 2).
+* ``dc_rows_fft_cuda``, ``dc_cols_cuda``, ``dc_rows_ifft_cuda`` — K1's
+  three passes one at a time (``csrc/dc.cu``'s ``dc_rows_pass`` and
+  ``dc_cols_pass``, or their dense-DFT twins): the forward FFT along W of
+  a block of rows, the column pass (FFT along H, merge, inverse FFT along
+  H) on a block of whole columns, and the inverse FFT along W. Each runs
+  the kernel, plan, twiddles and scale of that pass inside ``dc_cuda``, so
+  a line's result is the same bits. ``dc_bwd_rows_fft_cuda``,
+  ``dc_bwd_cols_cuda`` (no k0) and ``dc_bwd_rows_ifft_cuda`` are the same
+  launches for K1-bwd. Each counts its own launches. Their plain versions
+  (``dc_rows_fft_plain``, ``dc_cols_plain``, ``dc_rows_ifft_plain``) are
+  per-axis ``torch.fft`` with ``norm='ortho'``; ``dc_plain`` and
+  ``dc_plain_vjp`` are their composition. The forward passes are the custom
+  ops ``csmri::dc_rows_fft``, ``csmri::dc_cols`` and ``csmri::dc_rows_ifft``,
+  as K1 is ``csmri::dc``.
+* ``dc_distributed`` — the DC of a spatial mesh's rank (``parallel/halo.py``):
+  x holds the rank's H/S image rows, k0 and mask all H rows of its W/S
+  columns (``parallel/mesh.py``). Pass 1 on the rank's rows,
+  ``halo.rows_to_cols`` (one all-to-all over the spatial group), pass 2 on
+  the rank's columns with its k0 and mask columns, ``halo.cols_to_rows``,
+  pass 3: every line is transformed once in the group, and each rank's
+  output is its rows of the whole image's DC, bit for bit. Each rank sends
+  2(S − 1)/S² of an image per DC. The backward (``_DistributedDCFunction``)
+  is the same pipeline on the gradient with a null k0 (K1-bwd's
+  ``DC(g, 0, m)``), so no autograd runs through the collectives;
+  ``grad_k0``, where k0 needs one, is the FFT along H of the exchanged
+  gradient: the rank's columns of ``fft2`` of the whole image's gradient.
+  The noisy DC (``ops/dc.py``) runs the same pipeline on the plain passes,
+  autodiffed through the exchanges.
 
 The kernel takes images of sides 2 to 512, by the route ``dc_route`` names
 by shape: square power-of-two sides by mixed-radix line FFTs
@@ -73,12 +88,48 @@ def kspace_merge_reference(k, k0, mask, noise_lvl=None):
   return (1 - mask) * k + k0
 
 
+def _line_fft(xc, dim, inverse=False):
+  """Ortho 1D (inverse) FFT of complex (B, H, W) lines along ``dim`` (1:
+  H, 2: W), taken over a contiguous last axis: a line's result then does
+  not depend on the other lines in the call (a CPU FFT along a strided
+  axis rounds one image differently from a batch of them)."""
+  f = torch.fft.ifft if inverse else torch.fft.fft
+  if dim == 2:
+    return f(xc, dim=-1, norm='ortho')
+  return f(xc.transpose(1, 2).contiguous(), dim=-1,
+           norm='ortho').transpose(1, 2)
+
+
+def _fft_along(x, dim, inverse=False):
+  """``_line_fft`` of a packed (B, H, W, 2) tensor."""
+  return fft.pack_complex(_line_fft(fft.unpack_complex(x.float()), dim,
+                                    inverse))
+
+
+def dc_rows_fft_plain(x):
+  """Pass 1 (plain): the FFT along W of (B, h, W, 2) rows."""
+  return _fft_along(x, 2)
+
+
+def dc_cols_plain(t, k0, mask, noise_lvl=None):
+  """Pass 2 (plain): on (B, H, w, 2) columns, the FFT along H, the merge
+  with k0 (None: zero) and the (B, H, w, 1) mask, the inverse FFT along
+  H."""
+  k = _line_fft(fft.unpack_complex(t.float()), 1)
+  m = mask[..., 0].float()
+  k = (1 - m) * k if k0 is None else kspace_merge_reference(
+      k, fft.unpack_complex(k0.float()), m, noise_lvl)
+  return fft.pack_complex(_line_fft(k, 1, inverse=True))
+
+
+def dc_rows_ifft_plain(t):
+  """Pass 3 (plain): the inverse FFT along W of (B, h, W, 2) rows."""
+  return _fft_along(t, 2, inverse=True)
+
+
 def dc_plain(x, k0, mask):
-  """Plain PyTorch DC on packed tensors, in float32."""
-  xc = fft.unpack_complex(x.float())
-  k0c = fft.unpack_complex(k0.float())
-  k = kspace_merge_reference(fft.fft2(xc), k0c, mask[..., 0].float())
-  return fft.pack_complex(fft.ifft2(k))
+  """Plain PyTorch DC on packed tensors, in float32: the three passes."""
+  return dc_rows_ifft_plain(dc_cols_plain(dc_rows_fft_plain(x), k0, mask))
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,6 +141,17 @@ def _lib():
   lib.dc_forward_dft.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
       ctypes.c_void_p]
   lib.dc_forward_dft.restype = ctypes.c_int
+  lib.dc_rows_pass.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+      ctypes.c_void_p]
+  lib.dc_cols_pass.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+      ctypes.c_void_p]
+  lib.dc_rows_pass_dft.argtypes = [ctypes.c_void_p] * 3 + [
+      ctypes.c_int] * 3 + [ctypes.c_void_p]
+  lib.dc_cols_pass_dft.argtypes = [ctypes.c_void_p] * 5 + [
+      ctypes.c_int] * 3 + [ctypes.c_void_p]
+  for fn in (lib.dc_rows_pass, lib.dc_cols_pass, lib.dc_rows_pass_dft,
+             lib.dc_cols_pass_dft):
+    fn.restype = ctypes.c_int
   return lib
 
 
@@ -221,9 +283,9 @@ dc_bwd_cuda.launches = 0
 def dc_plain_vjp(g, mask, need_k0=True):
   """Plain Hermitian VJP of the DC: ``(grad_x, grad_k0)`` for the output
   gradient ``g``; ``grad_k0`` is None unless ``need_k0``."""
-  k = fft.fft2(fft.unpack_complex(g.float()))
-  grad_x = fft.pack_complex(fft.ifft2((1 - mask[..., 0].float()) * k))
-  return grad_x, fft.pack_complex(k) if need_k0 else None
+  t = dc_rows_fft_plain(g)
+  grad_x = dc_rows_ifft_plain(dc_cols_plain(t, None, mask))
+  return grad_x, _fft_along(t, 1) if need_k0 else None
 
 
 class _DCFunction(torch.autograd.Function):
@@ -282,53 +344,263 @@ def dc_fused(x, k0, mask):
   return _DCFunction.apply(x, k0, mask)
 
 
-def _own_rows(y, mesh):
-  return halo.local_rows(y, mesh, 1).contiguous()
+# --- K1's passes: the DC distributed over a spatial group ---
+
+def _require_cuda(name, t):
+  if t.device.type != 'cuda':
+    raise ValueError('{} takes CUDA tensors, got {}'.format(name, t.device))
+  if t.ndim != 4 or t.shape[-1] != 2:
+    raise ValueError('{}: expected a (B, rows, cols, 2) tensor, got {}'
+                     .format(name, tuple(t.shape)))
 
 
-class _RowsDCFunction(torch.autograd.Function):
-  """``dc_rows`` with a gradient: K1 on the gathered image forward, K1-bwd
-  on the gathered gradient backward (plain versions on CPU tensors)."""
+def _image_route(name, h, w):
+  route = dc_route(h, w)
+  if route is None:
+    raise ValueError('{} takes images of sides 2 to {}, got {}x{}'.format(
+        name, MAX_SIZE, h, w))
+  return route
+
+
+def _aligned(t):
+  return t.clone() if t.data_ptr() % 16 else t
+
+
+def _rows_launch(name, x, height, inverse):
+  """Pass 1 (or 3, ``inverse``) on x (B, h, W, 2): rows of images of
+  ``height`` rows."""
+  _require_cuda(name, x)
+  b, rows, w, _ = x.shape
+  route = _image_route(name, height, w)
+  _check('x', x, (b, rows, w, 2), x.device)
+  x = _aligned(x)
+  y = torch.empty_like(x)
+  tw = _tables(route, w, x.device)
+  with torch.cuda.device(x.device):
+    if route == 'fft':
+      status = _lib().dc_rows_pass(native.ptr(x), native.ptr(y),
+                                   native.ptr(tw), plan_code(w), b * rows, w,
+                                   int(inverse), native.stream_of(x))
+    else:
+      status = _lib().dc_rows_pass_dft(native.ptr(x), native.ptr(y),
+                                       native.ptr(tw), b * rows, w,
+                                       int(inverse), native.stream_of(x))
+  native.check(status, 'dc_rows_pass')
+  return y
+
+
+def check_cols_block(name, w, width, route):
+  """Raise unless a block of ``w`` of an image's ``width`` columns is one
+  the column pass takes on ``route``: a block that divides the width and,
+  on the radix route, whole 16-column strips (or one strip of a power of
+  two below 16)."""
+  strip = min(w, 16)
+  if width % w or (route == 'fft' and (w % strip or strip & (strip - 1))):
+    raise ValueError(
+        '{}: a block of {} of the image\'s {} columns; the column pass '
+        'takes a block that divides the width and, on the radix route, '
+        'whole 16-column strips (or one strip of a power of two below 16)'
+        .format(name, w, width))
+
+
+def _cols_launch(name, t, k0, mask, width):
+  """Pass 2 on t (B, H, w, 2): whole columns of images of ``width``
+  columns; ``k0`` None launches the no-k0 mode."""
+  _require_cuda(name, t)
+  b, h, w, _ = t.shape
+  route = _image_route(name, h, width)
+  check_cols_block(name, w, width, route)
+  _check('t', t, (b, h, w, 2), t.device)
+  if k0 is not None:
+    _check('k0', k0, (b, h, w, 2), t.device)
+    k0 = _aligned(k0)
+  _check('mask', mask, (b, h, w, 1), t.device)
+  t = _aligned(t)
+  y = torch.empty_like(t)
+  tw = _tables(route, h, t.device)
+  k0_ptr = None if k0 is None else native.ptr(k0)
+  with torch.cuda.device(t.device):
+    if route == 'fft':
+      status = _lib().dc_cols_pass(native.ptr(t), k0_ptr, native.ptr(mask),
+                                   native.ptr(y), native.ptr(tw),
+                                   plan_code(h), b, h, w,
+                                   native.stream_of(t))
+    else:
+      status = _lib().dc_cols_pass_dft(native.ptr(t), k0_ptr,
+                                       native.ptr(mask), native.ptr(y),
+                                       native.ptr(tw), b, h, w,
+                                       native.stream_of(t))
+  native.check(status, 'dc_cols_pass')
+  return y
+
+
+def dc_rows_fft_cuda(x, height):
+  """K1's pass 1 on CUDA rows x (B, h, W, 2) of images of ``height``
+  rows."""
+  y = _rows_launch('dc_rows_fft_cuda', x, height, False)
+  dc_rows_fft_cuda.launches += 1
+  return y
+
+
+def dc_cols_cuda(t, k0, mask, width):
+  """K1's pass 2 on CUDA columns t (B, H, w, 2) of images of ``width``
+  columns, with the same columns of k0 and the mask."""
+  y = _cols_launch('dc_cols_cuda', t, k0, mask, width)
+  dc_cols_cuda.launches += 1
+  return y
+
+
+def dc_rows_ifft_cuda(t, height):
+  """K1's pass 3 on CUDA rows t (B, h, W, 2)."""
+  y = _rows_launch('dc_rows_ifft_cuda', t, height, True)
+  dc_rows_ifft_cuda.launches += 1
+  return y
+
+
+def dc_bwd_rows_fft_cuda(g, height):
+  """K1-bwd's pass 1: as ``dc_rows_fft_cuda``."""
+  y = _rows_launch('dc_bwd_rows_fft_cuda', g, height, False)
+  dc_bwd_rows_fft_cuda.launches += 1
+  return y
+
+
+def dc_bwd_cols_cuda(t, mask, width):
+  """K1-bwd's pass 2: ``dc_cols_cuda`` without k0."""
+  y = _cols_launch('dc_bwd_cols_cuda', t, None, mask, width)
+  dc_bwd_cols_cuda.launches += 1
+  return y
+
+
+def dc_bwd_rows_ifft_cuda(t, height):
+  """K1-bwd's pass 3: as ``dc_rows_ifft_cuda``."""
+  y = _rows_launch('dc_bwd_rows_ifft_cuda', t, height, True)
+  dc_bwd_rows_ifft_cuda.launches += 1
+  return y
+
+
+dc_rows_fft_cuda.launches = dc_cols_cuda.launches = 0
+dc_rows_ifft_cuda.launches = dc_bwd_rows_fft_cuda.launches = 0
+dc_bwd_cols_cuda.launches = dc_bwd_rows_ifft_cuda.launches = 0
+
+
+@torch.library.custom_op('csmri::dc_rows_fft', mutates_args=(),
+                         device_types='cpu')
+def dc_rows_fft_op(x: torch.Tensor, height: int) -> torch.Tensor:
+  """K1's pass 1: the plain version on the CPU."""
+  return dc_rows_fft_plain(x)
+
+
+@dc_rows_fft_op.register_kernel('cuda')
+def _dc_rows_fft_op_cuda(x, height):
+  return dc_rows_fft_cuda(x, height)
+
+
+@torch.library.custom_op('csmri::dc_cols', mutates_args=(),
+                         device_types='cpu')
+def dc_cols_op(t: torch.Tensor, k0: torch.Tensor, mask: torch.Tensor,
+               width: int) -> torch.Tensor:
+  """K1's pass 2: the plain version on the CPU."""
+  return dc_cols_plain(t, k0, mask)
+
+
+@dc_cols_op.register_kernel('cuda')
+def _dc_cols_op_cuda(t, k0, mask, width):
+  return dc_cols_cuda(t, k0, mask, width)
+
+
+@torch.library.custom_op('csmri::dc_rows_ifft', mutates_args=(),
+                         device_types='cpu')
+def dc_rows_ifft_op(t: torch.Tensor, height: int) -> torch.Tensor:
+  """K1's pass 3: the plain version on the CPU."""
+  return dc_rows_ifft_plain(t)
+
+
+@dc_rows_ifft_op.register_kernel('cuda')
+def _dc_rows_ifft_op_cuda(t, height):
+  return dc_rows_ifft_cuda(t, height)
+
+
+@dc_rows_fft_op.register_fake
+@dc_cols_op.register_fake
+@dc_rows_ifft_op.register_fake
+def _dc_pass_fake(t, *args):
+  return torch.empty(t.shape, dtype=torch.float32, device=t.device)
+
+
+def _pipeline(x, k0, mask, mesh, rows_fft, cols, rows_ifft):
+  """Pass 1 on the rows, the exchange to columns, pass 2, the exchange
+  back, pass 3."""
+  t = halo.rows_to_cols(rows_fft(x), mesh)
+  return rows_ifft(halo.cols_to_rows(cols(t, k0, mask), mesh))
+
+
+def _forward_passes(height, width):
+  return (lambda x: torch.ops.csmri.dc_rows_fft(x, height),
+          lambda t, k0, m: torch.ops.csmri.dc_cols(t, k0, m, width),
+          lambda t: torch.ops.csmri.dc_rows_ifft(t, height))
+
+
+def _backward_passes(device, height, width):
+  if device.type == 'cpu':
+    return dc_rows_fft_plain, dc_cols_plain, dc_rows_ifft_plain
+  return (lambda g: dc_bwd_rows_fft_cuda(g, height),
+          lambda t, k0, m: dc_bwd_cols_cuda(t, m, width),
+          lambda t: dc_bwd_rows_ifft_cuda(t, height))
+
+
+class _DistributedDCFunction(torch.autograd.Function):
+  """``dc_distributed`` with a gradient: K1's passes forward, K1-bwd's
+  backward (plain versions on CPU tensors)."""
 
   @staticmethod
   def forward(ctx, x, k0, mask, mesh):
     ctx.save_for_backward(mask)
-    ctx.mesh, ctx.h = mesh, x.shape[1]
-    whole = halo.gather_rows(x, mesh, dim=1)
-    y = dc_plain(whole, k0, mask) if x.device.type == 'cpu' else \
-        dc_cuda(whole, k0, mask)
-    return _own_rows(y, mesh)
+    ctx.mesh = mesh
+    ctx.sides = (x.shape[1] * mesh.spatial, x.shape[2])
+    return _pipeline(x, k0, mask, mesh, *_forward_passes(*ctx.sides))
 
   @staticmethod
   def backward(ctx, g):
     mask, = ctx.saved_tensors
-    mesh, h = ctx.mesh, ctx.h
+    mesh = ctx.mesh
     need_x, need_k0 = ctx.needs_input_grad[:2]
-    g = g.float().contiguous()
-    grad_x = grad_k0 = None
-    if need_x:
-      whole = halo.gather_rows(g, mesh, dim=1)
-      grad_x = _own_rows(dc_plain_vjp(whole, mask, False)[0]
-                         if g.device.type == 'cpu' else
-                         dc_bwd_cuda(whole, mask), mesh)
-    if need_k0:
-      share = g.new_zeros(mask.shape[:3] + (2,))
-      share[:, mesh.s * h:(mesh.s + 1) * h] = g
-      grad_k0 = fft.pack_complex(fft.fft2(fft.unpack_complex(share)))
+    rows_fft, cols, rows_ifft = _backward_passes(g.device, *ctx.sides)
+    t = halo.rows_to_cols(rows_fft(g.float().contiguous()), mesh)
+    grad_k0 = _fft_along(t, 1) if need_k0 else None
+    grad_x = rows_ifft(halo.cols_to_rows(cols(t, None, mask), mesh)) \
+        if need_x else None
     return grad_x, grad_k0, None, None
 
 
-def dc_rows(x, k0, mask, mesh):
-  """The DC of the rank's rows ``x`` (B, H/S, W, 2) of a spatial mesh,
-  with the whole images' ``k0`` (B, H, W, 2) and ``mask`` (B, H, W, 1):
-  the rank's rows of the whole image's DC."""
-  h = x.shape[1]
-  if k0.shape[1] != h * mesh.spatial or mask.shape[1] != k0.shape[1]:
-    raise ValueError('dc_rows: {} rows on each of {} ranks need k0 and mask '
-                     'of {} rows, got {} and {}'.format(
-                         h, mesh.spatial, h * mesh.spatial, k0.shape[1],
-                         mask.shape[1]))
+def check_distributed(x, k0, mask, mesh):
+  """Raise unless x (B, H/S, W, 2) rows and k0 (B, H, W/S, 2), mask
+  (B, H, W/S, 1) columns are one rank's parts of (B, H, W) images."""
+  b, h, w = x.shape[:3]
+  s = mesh.spatial
+  want = (b, h * s, w // s)
+  if w % s or tuple(k0.shape[:3]) != want or tuple(mask.shape[:3]) != want:
+    raise ValueError(
+        'the DC on {} ranks: x of {} rows and {} columns needs k0 and mask '
+        'of {} rows and {} columns (a width that divides by {}), got {} and '
+        '{}'.format(s, h, w, h * s, w // s, s, tuple(k0.shape),
+                    tuple(mask.shape)))
+
+
+def dc_distributed(x, k0, mask, mesh):
+  """The DC of a spatial mesh's rank: x (B, H/S, W, 2) its rows, k0
+  (B, H, W/S, 2) and mask (B, H, W/S, 1) its columns; returns its rows of
+  the whole image's DC."""
+  check_distributed(x, k0, mask, mesh)
   if not _needs_grad(x, k0):
-    return _own_rows(torch.ops.csmri.dc(halo.gather_rows(x, mesh, dim=1),
-                                        k0, mask), mesh)
-  return _RowsDCFunction.apply(x, k0, mask, mesh)
+    return _pipeline(x, k0, mask, mesh, *_forward_passes(
+        x.shape[1] * mesh.spatial, x.shape[2]))
+  return _DistributedDCFunction.apply(x, k0, mask, mesh)
+
+
+def dc_distributed_noisy(x, k0, mask, noise_lvl, mesh):
+  """The noisy DC on a spatial mesh's rank (layout as ``dc_distributed``):
+  the plain passes, the noisy merge in the column pass, autodiffed."""
+  check_distributed(x, k0, mask, mesh)
+  return _pipeline(x, k0, mask, mesh, dc_rows_fft_plain,
+                   lambda t, k, m: dc_cols_plain(t, k, m, noise_lvl),
+                   dc_rows_ifft_plain)

@@ -13,12 +13,28 @@ Rounding is half to even (``torch.round``), as ``jnp.round`` is. A scale is
 ``amax · f32(1/127)``: the JAX package writes ``amax / 127.0``, which XLA
 rewrites under ``jit`` into a multiply by the constant's reciprocal
 (measured on its CPU backend), and one ulp of scale moves rounding ties.
+
+Under a spatial mesh (``parallel/halo.py``; ``chain_forward_int8``'s
+``mesh``) each rank holds its image rows. Every per-image amax is taken
+over the spatial group (an ``all_reduce`` MAX), so each rank quantizes with
+the whole image's scale; which layers are quantized is decided at the whole
+image's height. The float prefix runs on one halo tile of its layers' pad
+rows, as an eval chain does (``models/unet.py``); the quantized layers run
+one at a time, each on a halo tile of its own pad rows, since each requant
+needs the group's amax of the layer before. A layer's amax is then taken
+over the rank's own rows of its output (the kernel's would include the
+tile's halo rows, which the tile's own edges made wrong). int32 sums are
+exact, so each rank's rows are the one-process output's, bit for bit.
 """
 
 import torch
+import torch.distributed as dist
 
+from csmri_refinement_tpu_torch.models import layers
 from csmri_refinement_tpu_torch.ops import conv_chain
 from csmri_refinement_tpu_torch.ops.conv_chain import INV_127
+from csmri_refinement_tpu_torch.parallel import halo
+from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 
 # (layers, quantized layers) of every chain run since reset_trace_log(). A
 # set, so that a serving loop does not grow it: only whether some chain ran
@@ -48,14 +64,24 @@ def quantize_weight(w):
   return wi, scale.float()
 
 
-def quantize_act(x):
+def image_amax(y, mesh=None):
+  """Per-image max |y| (B,) f32 of an NHWC tensor; under ``mesh``, of the
+  whole image whose rows the ranks of the spatial group hold."""
+  amax = y.float().abs().amax(dim=(1, 2, 3))
+  if mesh is not None:
+    mesh_lib.all_reduce(amax, mesh.spatial_group, dist.ReduceOp.MAX)
+  return amax
+
+
+def quantize_act(x, mesh=None):
   """Dynamic per-image symmetric int8 quantization of an NHWC tensor.
 
   Returns (x_int8, scale) with scale (B,) f32. Divides by the scale, as
-  the JAX package does (not a multiply by its reciprocal).
+  the JAX package does (not a multiply by its reciprocal). Under ``mesh``
+  x holds the rank's rows and the scale is the whole image's.
   """
   xf = x.float()
-  amax = xf.abs().amax(dim=(1, 2, 3)).clamp_min(1e-12)
+  amax = image_amax(xf, mesh).clamp_min(1e-12)
   scale = amax * INV_127
   xi = torch.clamp(torch.round(xf / scale[:, None, None, None]), -127, 127)
   return xi.to(torch.int8), scale
@@ -71,7 +97,7 @@ def quantize_chain(chain):
   return out
 
 
-def chain_forward_int8(x, chain, *, pad_mode='reflection'):
+def chain_forward_int8(x, chain, *, pad_mode='reflection', mesh=None):
   """int8 serving-mode counterpart of ``conv_chain.chain_forward``.
 
   The suffix of layers ``conv_chain.int8_suffix_start`` picks runs
@@ -80,11 +106,15 @@ def chain_forward_int8(x, chain, *, pad_mode='reflection'):
   on the card. The JAX package runs those prefix layers as XLA convs with
   the bias added in the compute dtype; the math is the same, and the
   roundings differ slightly. Returns (B, H, W, Cout_last) in ``x.dtype``.
+  Under a spatial ``mesh`` x holds the rank's rows (module docstring).
   """
   _, h, w, _ = x.shape
   n = len(chain)
-  start = conv_chain.int8_suffix_start(chain, h, w)
+  start = conv_chain.int8_suffix_start(
+      chain, h * (mesh.spatial if mesh is not None else 1), w)
   _TRACE_LOG.add((n, n - start))
+  if mesh is not None:
+    return _chain_rows_int8(x, chain, start, pad_mode, mesh)
   for layer in chain[:start]:
     x = conv_chain.conv_layer(x, layer, pad_mode)
   if start == n:
@@ -93,3 +123,40 @@ def chain_forward_int8(x, chain, *, pad_mode='reflection'):
   return conv_chain.fused_conv_chain_int8(
       xi, a_scale, quantize_chain(chain[start:]), pad_mode=pad_mode,
       out_dtype=x.dtype)
+
+
+def _pads(layer):
+  return layers.pad_sizes(layer.kernel.shape[0])
+
+
+def _on_tile(x, top, bottom, mesh, fn):
+  """``fn`` on the rank's rows of ``x`` with ``top`` and ``bottom`` halo
+  rows; the rank's rows of its output."""
+  tile = halo.halo_rows(x, top, bottom, mesh, dim=1).contiguous()
+  y = fn(tile)
+  return y.narrow(1, halo.taken(mesh, top, bottom)[0], x.shape[1])
+
+
+def _chain_rows_int8(x, chain, start, pad_mode, mesh):
+  """``chain_forward_int8`` on the rank's rows of a spatial mesh."""
+  n = len(chain)
+  if start:
+    def prefix(tile):
+      for layer in chain[:start]:
+        tile = conv_chain.conv_layer(tile, layer, pad_mode)
+      return tile
+    pads = [_pads(layer) for layer in chain[:start]]
+    x = _on_tile(x, sum(p[0] for p in pads), sum(p[1] for p in pads), mesh,
+                 prefix)
+  if start == n:
+    return x
+  xi, scale = quantize_act(x, mesh)
+  for i, layer in enumerate(quantize_chain(chain[start:])):
+    last = start + i + 1 == n
+    out_dtype = x.dtype if last else torch.float32
+    y = _on_tile(xi, *_pads(layer), mesh, lambda tile: conv_chain.
+                 conv_layer_int8(tile, scale, layer, pad_mode,
+                                 out_dtype)[0]).contiguous()
+    if last:
+      return y
+    xi, scale = conv_chain.requant(y, image_amax(y, mesh))

@@ -21,6 +21,11 @@ SAME-padded convs and the DC's collectives). Here the layers call them:
   the spatial group, forward and backward;
 * ``gather_rows``: the whole image on every rank of the spatial group; its
   backward sums the gradient over the group and keeps this rank's rows;
+* ``rows_to_cols`` / ``cols_to_rows``: a (B, H/S, W, ...) block of this
+  rank's rows to the (B, H, W/S, ...) block of all rows of its columns
+  (column block ``mesh.s``), and back: one all-to-all over the spatial
+  group each (``mesh.all_to_all``), each the other's backward. The DC
+  runs its column pass between them (``ops/dc_kernel.py``);
 * ``sum_rows``: a sum over the spatial group whose backward sums the
   gradients over the group (``mesh.all_reduce_sum``);
 * ``row_factor``: the largest downsampling factor of some models, which
@@ -147,6 +152,67 @@ def gather_rows(x, mesh, dim=2):
   """The spatial group's rows of ``x`` along ``dim`` in rank order: the
   whole image on every rank of the group."""
   return _GatherRows.apply(x, mesh, dim)
+
+
+def _rows_to_cols(x, mesh):
+  b, h, width = x.shape[:3]
+  s = mesh.spatial
+  if width % s:
+    raise ValueError('{} columns do not divide over {} ranks'.format(width,
+                                                                   s))
+  w = width // s
+  rest = tuple(x.shape[3:])
+  # part j: the columns of rank j; what arrives from rank i: its rows
+  send = x.reshape((b, h, s, w) + rest).movedim(2, 0)
+  got = mesh_lib.all_to_all(send, mesh.spatial_group)
+  return got.movedim(0, 1).reshape((b, s * h, w) + rest)
+
+
+def _cols_to_rows(t, mesh):
+  b, height, w = t.shape[:3]
+  s = mesh.spatial
+  h = height // s
+  rest = tuple(t.shape[3:])
+  # part j: the rows of rank j; what arrives from rank j: its columns
+  send = t.reshape((b, s, h, w) + rest).movedim(1, 0)
+  got = mesh_lib.all_to_all(send, mesh.spatial_group)
+  return got.movedim(0, 2).reshape((b, h, s * w) + rest)
+
+
+class _RowsToCols(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, x, mesh):
+    ctx.mesh = mesh
+    return _rows_to_cols(x, mesh)
+
+  @staticmethod
+  def backward(ctx, g):
+    return _cols_to_rows(g, ctx.mesh), None
+
+
+class _ColsToRows(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, t, mesh):
+    ctx.mesh = mesh
+    return _cols_to_rows(t, mesh)
+
+  @staticmethod
+  def backward(ctx, g):
+    return _rows_to_cols(g, ctx.mesh), None
+
+
+def rows_to_cols(x, mesh):
+  """This rank's rows x (B, H/S, W, ...) → all H rows of its W/S columns
+  (B, H, W/S, ...), in row order."""
+  return _RowsToCols.apply(x, mesh)
+
+
+def cols_to_rows(t, mesh):
+  """All rows of this rank's columns t (B, H, W/S, ...) → its rows of all
+  W columns (B, H/S, W, ...)."""
+  return _ColsToRows.apply(t, mesh)
 
 
 def local_rows(x, mesh, dim):

@@ -23,18 +23,23 @@ block ``s``); the D ranks of one ``s`` form a data group.
 * ``shard_batch`` / ``shard_stacked_batch``: this rank's contiguous batch
   rows by ``d`` (axis 0, or axis 1 of a ``(steps, batch, ...)`` stack),
   then, for leaves of three or more dims after those, its image rows by
-  ``s`` (the next axis); a batch or an image that does not divide raises.
+  ``s`` (the next axis), or for ``COLUMN_KEYS`` its image columns (the
+  axis after); a batch or an image that does not divide raises.
   Image rows must divide by S times the model's largest downsampling
   factor (``row_factor``, which the runner sets): each rank's rows then
   pool, stride and up-sample like the whole image's. JAX's GSPMD would pad
-  an uneven split; the port raises instead, naming the key;
+  an uneven split; the port raises instead, naming the key. The k-space
+  and the mask (``COLUMN_KEYS``) are cut into column blocks, where JAX's
+  ``_batch_spec`` cuts rows like every image: the DC's merge runs on whole
+  columns (``ops/dc_kernel.py::dc_distributed``), so its k-space operands
+  arrive in the layout they are used in;
 * ``replicate``: parameters and buffers broadcast from rank 0;
 * ``gather_to_replicated``: image rows all-gathered over the spatial group,
   then the batch over the data group, in rank order, so that every rank
-  holds the global batch (the metrics). Leaves under ``WHOLE_KEYS`` are
-  whole on every rank of a spatial group already (the DC's k-space and
-  mask, the discriminator's head outputs) and are gathered over the data
-  group only;
+  holds the global batch (the metrics). Leaves under ``COLUMN_KEYS`` are
+  gathered along their columns instead; leaves under ``WHOLE_KEYS`` are
+  whole on every rank of a spatial group already (the discriminator's head
+  outputs) and are gathered over the data group only;
 * ``average_``: tensors averaged over the world in place. Every rank's loss
   is S times its share of its data group's loss: a mean over its rows,
   which are equally many on every rank, or a value every rank of the
@@ -45,9 +50,9 @@ block ``s``); the D ranks of one ``s`` form a data group.
   statistics over the world (``models/unet.py::BatchNorm2d``, through the
   differentiable ``all_reduce_sum``) when the world is above 1.
 
-The collectives go through ``all_gather``, ``all_reduce`` and
-``broadcast`` below, on the group's backend: NCCL, or gloo, which takes
-CUDA tensors for all three (the two ranks that share one card in
+The collectives go through ``all_gather``, ``all_to_all``, ``all_reduce``
+and ``broadcast`` below, on the group's backend: NCCL, or gloo, which takes
+CUDA tensors for all four (the two ranks that share one card in
 ``chip_smoke.py`` phase 23, which checks it on every run).
 
 Every other collective runs whenever the mesh has a group, a group of one
@@ -68,7 +73,10 @@ import torch.distributed as dist
 DATA_AXIS = 'data'
 SPATIAL_AXIS = 'spatial'
 # Batch keys whose leaves every rank of a spatial group holds whole.
-WHOLE_KEYS = ('kspace', 'mask', 'prob', 'logits')
+WHOLE_KEYS = ('prob', 'logits')
+# Batch keys whose leaves a spatial group splits into column blocks (all
+# rows of W/S columns each; the DC's operands).
+COLUMN_KEYS = ('kspace', 'mask')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +126,15 @@ class Mesh:
           'downsampling factor); use a spatial count that divides H / {}'
           .format(self.spatial, n, self.spatial, self.row_factor,
                   self.row_factor))
+    per = n // self.spatial
+    return slice(self.s * per, (self.s + 1) * per)
+
+  def image_cols(self, n):
+    """This rank's slice of an image axis of ``n`` columns."""
+    if n % self.spatial:
+      raise ValueError('mesh spatial={}: an image of {} columns does not '
+                       'divide into {} column blocks'.format(
+                           self.spatial, n, self.spatial))
     per = n // self.spatial
     return slice(self.s * per, (self.s + 1) * per)
 
@@ -193,6 +210,17 @@ def all_gather(t, group):
   return parts
 
 
+def all_to_all(t, group):
+  """Part i of ``t`` (its axis 0, one part per rank of the group) to rank
+  i; returns what every rank sent this one, in rank order along axis 0.
+  ``dist.all_to_all_single``, which gloo runs on CUDA tensors too (its list
+  form it refuses)."""
+  t = t.contiguous()
+  out = torch.empty_like(t)
+  dist.all_to_all_single(out, t, group=group)
+  return out
+
+
 def all_reduce(t, group, op=dist.ReduceOp.SUM):
   """``t`` reduced over the group, in place; returns ``t``."""
   dist.all_reduce(t, op, group=group)
@@ -207,57 +235,70 @@ def broadcast(t, src, group):
 
 # -- trees ---------------------------------------------------------------------
 
-def _map(fn, tree, whole=False):
-  """``fn(leaf, whole)`` over a tree; ``whole`` is True under a dict key of
-  ``WHOLE_KEYS``."""
+ROWS, COLS, WHOLE = 'rows', 'cols', 'whole'
+
+
+def _map(fn, tree, kind=ROWS):
+  """``fn(leaf, kind)`` over a tree; ``kind`` is ``WHOLE`` under a dict key
+  of ``WHOLE_KEYS``, ``COLS`` under one of ``COLUMN_KEYS``, else ``ROWS``."""
   if isinstance(tree, dict):
-    return {k: _map(fn, v, whole or k in WHOLE_KEYS)
+    return {k: _map(fn, v, WHOLE if k in WHOLE_KEYS else
+                    COLS if k in COLUMN_KEYS else kind)
             for k, v in tree.items()}
   if isinstance(tree, (list, tuple)):
-    return type(tree)(_map(fn, v, whole) for v in tree)
-  return fn(tree, whole)
+    return type(tree)(_map(fn, v, kind) for v in tree)
+  return fn(tree, kind)
 
 
-def _image_rows(x, mesh, axis):
-  return x[(slice(None),) * axis + (mesh.image_rows(x.shape[axis]),)]
+def _image_part(x, mesh, axis, kind):
+  """This rank's image rows (axis ``axis``) or, for ``COLS``, columns (the
+  axis after) of ``x``; ``x`` itself for ``WHOLE``."""
+  if kind == WHOLE:
+    return x
+  if kind == COLS:
+    axis += 1
+  part = mesh.image_cols if kind == COLS else mesh.image_rows
+  return x[(slice(None),) * axis + (part(x.shape[axis]),)]
 
 
-def _cut(x, mesh, axis, rows):
+def _cut(x, mesh, axis, kind):
   ndim = getattr(x, 'ndim', 0)
   if ndim <= axis:
     return x
   x = x[(slice(None),) * axis + (mesh.rows(x.shape[axis]),)]
-  if rows and mesh.spatial > 1 and ndim - axis >= 3:
-    x = _image_rows(x, mesh, axis + 1)
+  if kind and mesh.spatial > 1 and ndim - axis >= 3:
+    x = _image_part(x, mesh, axis + 1, kind)
   return x
 
 
 def shard_batch(batch, mesh, rows=True):
   """This rank's part of a global batch (arrays or tensors, leading axis
-  the batch): its batch rows and, with ``rows``, its image rows of every
-  leaf of three or more dims; the batch itself without a mesh."""
+  the batch): its batch rows and, with ``rows``, its image rows (or
+  columns) of every leaf of three or more dims; the batch itself without a
+  mesh."""
   if mesh is None:
     return batch
-  return _map(lambda x, whole: _cut(x, mesh, 0, rows and not whole), batch)
+  return _map(lambda x, kind: _cut(x, mesh, 0, rows and kind), batch)
 
 
 def shard_stacked_batch(batch, mesh):
   """This rank's part of a ``(steps, batch, ...)`` stack (axis 1, then its
-  image rows)."""
+  image rows or columns)."""
   if mesh is None:
     return batch
-  return _map(lambda x, whole: _cut(x, mesh, 1, not whole), batch)
+  return _map(lambda x, kind: _cut(x, mesh, 1, kind), batch)
 
 
 def split_image_rows(batch, mesh):
   """This rank's image rows (axis 1) of every leaf of three or more dims of
-  a batch the rank holds whole, except those under ``WHOLE_KEYS``: a
-  batch prepared on whole images, cut for a spatial mesh."""
+  a batch the rank holds whole, its image columns (axis 2) of those under
+  ``COLUMN_KEYS``, and those under ``WHOLE_KEYS`` whole: a batch prepared
+  on whole images, cut for a spatial mesh."""
   if mesh is None or mesh.spatial == 1:
     return batch
 
-  return _map(lambda x, whole: x if whole or getattr(x, 'ndim', 0) < 3
-              else _image_rows(x, mesh, 1), batch)
+  return _map(lambda x, kind: x if getattr(x, 'ndim', 0) < 3
+              else _image_part(x, mesh, 1, kind), batch)
 
 
 def replicate(module, mesh):
@@ -280,18 +321,19 @@ def _gather(t, group, dim):
 def gather_to_replicated(tree, mesh, rows=True):
   """Every tensor of ``tree`` gathered to the global batch in rank order:
   with ``rows``, the image rows (axis 1) of leaves of three or more dims
-  over the spatial group (not those under ``WHOLE_KEYS``), then axis 0
-  over the data group. Numpy arrays and scalars pass unchanged; so does
-  the tree without a group."""
+  over the spatial group (the columns, axis 2, of those under
+  ``COLUMN_KEYS``; not those under ``WHOLE_KEYS``), then axis 0 over the
+  data group. Numpy arrays and scalars pass unchanged; so does the tree
+  without a group."""
   if mesh is None or mesh.group is None:
     return tree
 
-  def gather(t, whole):
+  def gather(t, kind):
     if not isinstance(t, torch.Tensor) or t.ndim == 0:
       return t
-    if rows and mesh.spatial_group is not None and not whole and \
+    if rows and mesh.spatial_group is not None and kind != WHOLE and \
         t.ndim >= 3:
-      t = _gather(t, mesh.spatial_group, 1)
+      t = _gather(t, mesh.spatial_group, 2 if kind == COLS else 1)
     if mesh.data_group is not None:
       t = _gather(t, mesh.data_group, 0)
     return t

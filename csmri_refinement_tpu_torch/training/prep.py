@@ -40,9 +40,10 @@ the global batch and the rank keeps its batch rows, as the JAX package
 draws over its one global batch; validation masks go by slice index
 anyway. Under a spatial mesh the forward model runs on the whole images of
 the rank's batch rows, with the same draws as a one-process run, and the
-batch is then cut to the rank's image rows
-(``parallel/mesh.py::split_image_rows``); ``kspace`` and ``mask`` stay
-whole, for the DC (``ops/dc.py``).
+batch is then cut (``parallel/mesh.py::split_image_rows``): ``inp``,
+``target`` and ``label`` to the rank's image rows, ``kspace`` and ``mask``
+to all rows of its column block, the layout the DC's column pass takes
+(``ops/dc_kernel.py::dc_distributed``).
 """
 
 import numpy as np

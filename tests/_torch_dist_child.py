@@ -29,9 +29,13 @@ section (e.g. ``{"data": -1, "spatial": 2}``), and an ``epochs`` entry
 layers on the rank's rows (a spatial group of the whole world) against
 the whole image, which every rank computes too, and prints one
 ``DISTRESULT units`` line of {case: [output error, input-gradient error,
-parameter-gradient error]}, each the largest |Δ| over max |ref| (the DC's:
-0.0 when equal bit for bit, else 1.0; the parameter gradients are summed
-over the ranks first).
+parameter-gradient error]}, each the largest |Δ| over max |ref| (the
+parameter gradients summed over the ranks first; ``EXACT_CASES``: 0.0
+when equal bit for bit, else 1.0; the int8 U-Net's: ``_int8_unet_case``),
+and under ``dc_moved`` the bytes each collective sends off the rank in one
+DC, over the image's. Each scenario's result records the shapes of its
+first prepared train batch (``shapes``); ``int8_validate`` validates the
+int8 U-Net from the parent's weights (``run_int8_validate``).
 """
 
 import json
@@ -258,7 +262,22 @@ UNIT_CASES = tuple(
     ['{} {}'.format(net, mode) for net in UNETS for mode in ('train', 'eval')] +
     ['discriminator ' + d for d in DISCRIMINATORS] +
     ['vgg19 blocks 1 2', 'refinement scale', 'bilinear up2', 'dc noisy',
-     'dc'])
+     'dc', 'dc dft', 'int8 chain', 'unet int8 eval'])
+# The cases whose rank rows must equal the whole image's bit for bit (each
+# error 0.0 when equal, else 1.0): the DC on K1's passes (output, input
+# gradient, k0 gradient) on the radix route's square power-of-two side and
+# on a non-square image of the dense-DFT route; a chain of quantized layers
+# (int32 sums, the group's amax before each requant).
+EXACT_CASES = ('dc', 'dc dft', 'int8 chain')
+# (B, H, W) of each DC case; every side divides by 4 ranks
+DC_SHAPES = {'dc': (2, 16, 16), 'dc dft': (2, 24, 20)}
+# a U-Net whose chains quantize (the JAX suite's int8 U-Net,
+# ``tests/test_torch_port_quant.py``), with an output per packed channel
+UNET_INT8 = dict(num_inputs=2, num_outputs=2, num_layers_per_scale=2,
+                 encode_filters=[32, 64], decode_filters=[32], kernel_size=4,
+                 upsampling_mode='nn-resize-conv', output_activation='none',
+                 padding='reflection', decoder_act_upsampling_only=True)
+INT8_SIZE = 64      # the quantized layers' width rule needs a multiple of 64
 
 
 def _unit_cases():
@@ -354,18 +373,125 @@ def _unit_cases():
                                list(vgg.parameters()))
   cases['refinement scale'] = ('nhwc', lambda x: _scale(x)[0], [])
   cases['bilinear up2'] = ('nhwc', _bilinear_up2, [])
-  # the noisy DC: the torch.fft composition on the gathered rows
+  # the noisy DC: the plain passes with the noisy merge, exchanged between
+  # rows and columns; k0 and the mask are the rank's columns on the mesh
   k0 = torch.randn(2, 32, 12, 2, generator=gen)
   mask = (torch.rand(2, 32, 12, 1, generator=gen) > 0.5).float()
   cases['dc noisy'] = ('nhwc', lambda x: dc_ops.data_consistency(
-      x[..., :2], k0 * mask, mask, noise_lvl=0.1), [])
+      x[..., :2], *own_cols(k0 * mask, mask), noise_lvl=0.1), [])
   return cases
+
+
+def own_cols(*tensors):
+  """The rank's column blocks (axis 2) of whole tensors under the spatial
+  mesh (the layout of ``kspace`` and ``mask``); the tensors without one."""
+  from csmri_refinement_tpu_torch.parallel import halo
+  mesh = halo.current()
+  if mesh is None:
+    return tensors
+  return tuple(t[:, :, mesh.image_cols(t.shape[2])] for t in tensors)
+
+
+def _dc_case(mesh, shape):
+  """The DC on K1's passes on the rank's rows and columns against the
+  whole image: [output (with and without a gradient), input gradient, k0
+  gradient], each 0.0 when equal bit for bit; and the bytes each
+  collective moved in the forward, over the image's."""
+  import torch
+  from csmri_refinement_tpu_torch.ops import dc as dc_ops
+  from csmri_refinement_tpu_torch.parallel import halo
+  from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
+  gen = torch.Generator().manual_seed(9)
+  xi, k0, g = (torch.randn(shape + (2,), generator=gen) for _ in range(3))
+  mask = (torch.rand(shape + (1,), generator=gen) > 0.5).float()
+  xw, kw = xi.clone().requires_grad_(), k0.clone().requires_grad_()
+  want = dc_ops.data_consistency(xw, kw, mask)
+  want_grads = torch.autograd.grad((want * g).sum(), [xw, kw])
+  rows = lambda t: halo.local_rows(t, mesh, 1)
+  xl = rows(xi).clone().requires_grad_()
+  moved = {}
+  exchange, gather = mesh_lib.all_to_all, mesh_lib.all_gather
+
+  def counted(fn, name):
+    def run(t, group):
+      # what leaves this rank: all parts but its own
+      share = 1.0 if name == 'all_gather' else 1 - 1 / mesh.spatial
+      moved[name] = moved.get(name, 0) + share * t.numel() * t.element_size()
+      return fn(t, group)
+    return run
+  with halo.sharded_rows(mesh):
+    kl, ml = own_cols(k0, mask)
+    kl = kl.clone().requires_grad_()
+    got = dc_ops.data_consistency(xl, kl, ml)
+    mesh_lib.all_to_all = counted(exchange, 'all_to_all')
+    mesh_lib.all_gather = counted(gather, 'all_gather')
+    try:
+      with torch.no_grad():
+        got_eval = dc_ops.data_consistency(xl.detach(), kl.detach(), ml)
+    finally:
+      mesh_lib.all_to_all, mesh_lib.all_gather = exchange, gather
+  got_grads = torch.autograd.grad((got * rows(g)).sum(), [xl, kl])
+  with halo.sharded_rows(mesh):
+    want_k0_grad, = own_cols(want_grads[1])
+  same = lambda a, b: 0.0 if torch.equal(a, b) else 1.0
+  image = xi.numel() * xi.element_size()
+  return ([max(same(got, rows(want)), same(got_eval, rows(want))),
+           same(got_grads[0], rows(want_grads[0])),
+           same(got_grads[1], want_k0_grad)],
+          {k: v / image for k, v in moved.items()})
+
+
+def _int8_chain_case(mesh):
+  """Three quantized k4 layers (two requants) on the rank's rows against
+  the whole image: [0.0 when equal bit for bit, else 1.0, 0.0, 0.0]."""
+  import torch
+  from csmri_refinement_tpu_torch.ops import conv_chain, quantize
+  from csmri_refinement_tpu_torch.parallel import halo
+  gen = torch.Generator().manual_seed(12)
+  chain = [conv_chain.ChainLayer(0.1 * torch.randn(4, 4, 32, 32,
+                                                   generator=gen),
+                                 torch.randn(32, generator=gen), 0.2)
+           for _ in range(3)]
+  x = torch.randn(2, INT8_SIZE, INT8_SIZE, 32, generator=gen)
+  quantize.reset_trace_log()
+  want = quantize.chain_forward_int8(x, chain)
+  got = quantize.chain_forward_int8(halo.local_rows(x, mesh, 1).contiguous(),
+                                    chain, mesh=mesh)
+  exact = quantize._TRACE_LOG == {(3, 3)} and torch.equal(
+      got, halo.local_rows(want, mesh, 1))
+  return [0.0 if exact else 1.0, 0.0, 0.0]
+
+
+def _int8_unet_case(mesh):
+  """The int8 U-Net (eval, ``quantize_inference``) on the rank's rows
+  against the whole image: [max |Δ| over max |ref|, the share of elements
+  that differ by more than 1e-5 of max |ref|, 0.0 if some chain quantized
+  else 1.0]."""
+  import torch
+  from csmri_refinement_tpu_torch.models import construct_model
+  from csmri_refinement_tpu_torch.ops import quantize
+  from csmri_refinement_tpu_torch.parallel import halo
+  net = construct_model(dict(UNET_INT8, name='UNET', quantize_inference=True))
+  net.init_weights(torch.Generator().manual_seed(8))
+  net.eval()
+  x = torch.randn(2, INT8_SIZE, INT8_SIZE, 2,
+                  generator=torch.Generator().manual_seed(10))
+  quantize.reset_trace_log()
+  with torch.no_grad():
+    want = halo.local_rows(net(x), mesh, 1)
+    with halo.sharded_rows(mesh):
+      got = net(halo.local_rows(x, mesh, 1).contiguous())
+  scale = want.abs().max()
+  diff = (got - want).abs()
+  quantized = any(q > 0 for _, q in quantize._TRACE_LOG)
+  return [float(diff.max() / scale),
+          float((diff > 1e-5 * scale).float().mean()),
+          0.0 if quantized else 1.0]
 
 
 def run_units(cfg):
   import torch
   import torch.distributed as dist
-  from csmri_refinement_tpu_torch.ops import dc as dc_ops
   from csmri_refinement_tpu_torch.parallel import halo
   from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
   world, rank = cfg['world'], cfg['rank']
@@ -373,7 +499,7 @@ def run_units(cfg):
                        world, None, dist.group.WORLD)
   errors = {}
   cases = _unit_cases()
-  assert tuple(cases) + ('dc',) == UNIT_CASES
+  assert tuple(cases) + EXACT_CASES + ('unet int8 eval',) == UNIT_CASES
   for name, (layout, fn, params) in cases.items():
     dim = 2 if layout.startswith('nchw') else 1
     out_dim = 2 if layout.endswith('nchw') else 1
@@ -404,25 +530,13 @@ def run_units(cfg):
                                                        dim)),
         max([0.0] + [_rel(g, w) for g, w in zip(param_grads,
                                                  want_grads[1:])])]
-  # the DC on the plain path: bit for bit, forward and backward
-  gen = torch.Generator().manual_seed(9)
-  xi, k0, g = (torch.randn(2, 16, 16, 2, generator=gen) for _ in range(3))
-  mask = (torch.rand(2, 16, 16, 1, generator=gen) > 0.5).float()
-  xw = xi.clone().requires_grad_()
-  want = dc_ops.data_consistency(xw, k0, mask)
-  want_grad, = torch.autograd.grad((want * g).sum(), [xw])
-  xl = halo.local_rows(xi, mesh, 1).clone().requires_grad_()
-  with halo.sharded_rows(mesh):
-    got = dc_ops.data_consistency(xl, k0, mask)
-    with torch.no_grad():
-      got_eval = dc_ops.data_consistency(xl.detach(), k0, mask)
-  got_grad, = torch.autograd.grad((got * halo.local_rows(g, mesh, 1)).sum(),
-                                  [xl])
-  same = lambda a, b: 0.0 if torch.equal(a, b) else 1.0
-  errors['dc'] = [max(same(got, halo.local_rows(want, mesh, 1)),
-                      same(got_eval, halo.local_rows(want, mesh, 1))),
-                  same(got_grad, halo.local_rows(want_grad, mesh, 1)), 0.0]
-  print('DISTRESULT units {}'.format(json.dumps(errors)))
+  moved = {}
+  for name, shape in DC_SHAPES.items():
+    errors[name], moved[name] = _dc_case(mesh, shape)
+  errors['int8 chain'] = _int8_chain_case(mesh)
+  errors['unet int8 eval'] = _int8_unet_case(mesh)
+  print('DISTRESULT units {}'.format(json.dumps(dict(errors,
+                                                     dc_moved=moved))))
   sys.stdout.flush()
 
 
@@ -451,15 +565,54 @@ def run_validate_cli(cfg):
       'files': files, 'metrics': results['Synthetic']['metrics']})))
 
 
+def int8_conf(mesh=None):
+  """The standard config with the int8 U-Net (``UNET_INT8``,
+  ``quantize_inference``) in RecNet's place, on images of ``INT8_SIZE``."""
+  conf = _standard_conf()
+  conf['model'] = dict(UNET_INT8, name='UNET', quantize_inference=True)
+  conf['synthetic'] = {'image_size': INT8_SIZE, 'num_train': 8,
+                       'num_val': 8}
+  conf['mesh'] = mesh or conf['mesh']
+  return conf
+
+
+def run_int8_validate(cfg):
+  """``int8_conf`` validated in mode 'test' from the weights in
+  ``<out>/int8_init.pt`` (the JAX package's init, written by the parent):
+  saves the first validation batch's gathered ``inp`` and prediction to
+  ``<out>/int8_validate_rank<r>.pt`` and prints the metrics."""
+  import torch
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.training import build_runner
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_dict(int8_conf(cfg.get('mesh')))
+  runner = build_runner(conf, 'standard', 'test', 'cpu')
+  runner.model.load_state_dict(torch.load(os.path.join(cfg['out'],
+                                                       'int8_init.pt')))
+  shard = None if runner.mesh is None else runner.mesh.shard
+  loader = DataLoader(load_dataset(conf, None, 'Synthetic', 'val'),
+                      conf.batch_size, process_shard=shard)
+  data, _, metrics = runner.validate(loader, num_batches_to_return=1)
+  batch, out = data[0][0], data[0][1]
+  torch.save({'inp': batch['inp'], 'pred': out},
+             os.path.join(cfg['out'], 'int8_validate_rank{}.pt'.format(
+                 cfg['rank'])))
+  print('DISTRESULT int8_validate {}'.format(json.dumps(
+      {k: float(m.value) for k, m in metrics.items()})))
+  sys.stdout.flush()
+
+
 def run(name, cfg):
   import torch
   from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
   from csmri_refinement_tpu_torch.training import build_runner
   from csmri_refinement_tpu_torch.utils.config import Configuration
 
-  if name in ('bn', 'cli', 'units', 'validate_cli'):
-    return {'bn': run_bn, 'cli': run_cli, 'units': run_units,
-            'validate_cli': run_validate_cli}[name](cfg)
+  extra = {'bn': run_bn, 'cli': run_cli, 'units': run_units,
+           'validate_cli': run_validate_cli,
+           'int8_validate': run_int8_validate}
+  if name in extra:
+    return extra[name](cfg)
   conf_d = _conf_dict(name, cfg['repo'])
   if cfg.get('mesh'):
     conf_d['mesh'] = cfg['mesh']
@@ -480,6 +633,16 @@ def run(name, cfg):
     return out
 
   runner.train_batch = snapshot_first_update
+  prepare_train, shapes = runner.preparer.prepare_train, {}
+
+  def record_shapes(*args):
+    batch = prepare_train(*args)
+    if not shapes:
+      shapes.update({k: list(v.shape) for k, v in batch.items()
+                     if getattr(v, 'ndim', 0) >= 3})
+    return batch
+
+  runner.preparer.prepare_train = record_shapes
   loader = DataLoader(load_dataset(conf, None, 'Synthetic', 'train'),
                       conf.batch_size, shuffle=True, seed=conf.seed,
                       process_shard=shard)
@@ -495,6 +658,7 @@ def run(name, cfg):
   _, val_losses, val_metrics = runner.validate(val_loader)
   result['val'] = {k: float(m.value)
                    for k, m in {**val_losses, **val_metrics}.items()}
+  result['shapes'] = shapes
   torch.save({'final': _networks(runner), 'first_update': first},
              os.path.join(cfg['out'], '{}_rank{}.pt'.format(name,
                                                             cfg['rank'])))

@@ -148,6 +148,66 @@ def test_dc_kernel_dense_dft_sides(cuda, shape, with_k0):
   assert (got - want).abs().max().item() <= 2e-4
 
 
+def _dc_on_blocks(x, k0, m, s, bwd):
+  """K1's (``bwd``: K1-bwd's) three passes on ``s`` row blocks and ``s``
+  column blocks in one process, the all-to-alls done by slicing: the
+  arithmetic of a DC distributed over ``s`` ranks."""
+  b, h, w, _ = x.shape
+  hs, ws = h // s, w // s
+  rows_fft = dc_kernel.dc_bwd_rows_fft_cuda if bwd else \
+      dc_kernel.dc_rows_fft_cuda
+  rows_ifft = dc_kernel.dc_bwd_rows_ifft_cuda if bwd else \
+      dc_kernel.dc_rows_ifft_cuda
+  row = lambda t, i: t[:, i * hs:(i + 1) * hs].contiguous()
+  col = lambda t, j: t[:, :, j * ws:(j + 1) * ws].contiguous()
+  t = torch.cat([rows_fft(row(x, i), h) for i in range(s)], 1)
+  t = torch.cat([dc_kernel.dc_bwd_cols_cuda(col(t, j), col(m, j), w) if bwd
+                 else dc_kernel.dc_cols_cuda(col(t, j), col(k0, j),
+                                             col(m, j), w)
+                 for j in range(s)], 2)
+  return torch.cat([rows_ifft(row(t, i), h) for i in range(s)], 1)
+
+
+@pytest.mark.parametrize('bwd', [False, True], ids=['K1', 'K1-bwd'])
+@pytest.mark.parametrize('s', [2, 4])
+@pytest.mark.parametrize('shape', [(16, 16), (64, 64), (256, 256),
+                                   (512, 512), (320, 320), (256, 192),
+                                   (24, 20)],
+                         ids=['16', '64', '256', '512', '320', '256x192',
+                              '24x20'])
+def test_dc_passes_on_blocks_equal_the_whole_dc(cuda, shape, s, bwd):
+  """The passes on a rank's rows and columns give the whole-image K1's
+  (K1-bwd's) output bit for bit, on both routes; each pass is within 2e-4
+  of its plain version."""
+  h, w = shape
+  gen = torch.Generator(device=cuda).manual_seed(h + w + s)
+  x, k0 = (torch.randn(2, h, w, 2, device=cuda, generator=gen)
+           for _ in range(2))
+  m = (torch.rand(2, h, w, 1, device=cuda, generator=gen) > 0.5).float()
+  got = _dc_on_blocks(x, k0, m, s, bwd)
+  want = dc_kernel.dc_bwd_cuda(x, m) if bwd else dc_kernel.dc_cuda(x, k0, m)
+  torch.cuda.synchronize()
+  assert torch.equal(got, want)
+  t = dc_kernel.dc_rows_fft_cuda(x, h)
+  rel = lambda a, b: ((a - b).abs().max() / b.abs().max().clamp_min(1.0))
+  assert rel(t, dc_kernel.dc_rows_fft_plain(x)).item() <= 2e-4
+  c = dc_kernel.dc_bwd_cols_cuda(t, m, w) if bwd else \
+      dc_kernel.dc_cols_cuda(t, k0, m, w)
+  assert rel(c, dc_kernel.dc_cols_plain(t, None if bwd else k0,
+                                        m)).item() <= 2e-4
+  y = dc_kernel.dc_rows_ifft_cuda(c, h)
+  assert rel(y, dc_kernel.dc_rows_ifft_plain(c)).item() <= 2e-4
+
+
+def test_dc_passes_raise_on_blocks_they_cannot_take(cuda):
+  t = torch.zeros(1, 64, 24, 2, device=cuda)
+  m = torch.zeros(1, 64, 24, 1, device=cuda)
+  with pytest.raises(ValueError, match='a block of 24 of the image'):
+    dc_kernel.dc_cols_cuda(t, t, m, 64)
+  with pytest.raises(ValueError, match='sides 2 to 512'):
+    dc_kernel.dc_rows_fft_cuda(torch.zeros(1, 4, 1024, 2, device=cuda), 8)
+
+
 @pytest.mark.parametrize('shape', [(1024, 1024), (256, 513), (1, 64)],
                          ids=['1024', '256x513', '1x64'])
 def test_dc_fused_raises_outside_the_kernel_sides(cuda, shape):
