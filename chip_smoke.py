@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--probes-only | --int8-only [--tree DIR] |
                            --f32-only [--tree DIR] | --scarseg-only |
                            --dist-export-only | --spatial-only |
-                           --options-only | --bench-only]
+                           --uneven-only | --options-only | --bench-only]
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit. Phases, each failing loudly with a non-zero exit:
@@ -210,8 +210,9 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     2}`` on two processes that share the card (``--spatial-rank`` children
     of this script, each starting a gloo group; each rank holds its rows
     of the images and all rows of its column block of k-space and mask):
-    (a) gloo's all_gather, all_to_all (``all_to_all_single``), all_reduce
-    and broadcast on CUDA tensors, checked, and an all_gather and an
+    (a) gloo's all_gather, all_to_all (``all_to_all_single``, with equal
+    parts and with split sizes), all_reduce and broadcast on CUDA
+    tensors, checked, and an all_gather and an
     all_to_all of 20 MiB parts timed; (b) ``configs/1-recnet.json`` (B =
     20, 2 updates), ``configs/2-refinement.json`` (B = 5, 1 update, its
     RecNet from this phase's 1-recnet checkpoint) and
@@ -234,7 +235,19 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     ``SPATIAL_INT8_REL``, every K3 and requant launch against its plain
     version, the ranks' scales equal at every quantization and their
     tiles' halo rows each other's rows exactly, and the int8 mode's steps
-    against this process's, the first that differs marked;
+    against this process's, the first that differs marked; then phase 26;
+26. (run inside phase 18, after 23) spatial meshes whose per-rank rows a
+    stride or a pool splits, as JAX's GSPMD runs them: (a) K1's and
+    K1-bwd's three passes on (2, 240, 237) as two ranks run them (rows
+    0-119 and 120-239, column blocks of 119 and 118) against the
+    whole-image K1 and K1-bwd, within ``PASS_REL``; (b) phase 23 (b)'s
+    three configs, runs, checks and launch holds on a ScarSeg-format tree
+    at 240² (BraTS's slice matrix: 120 rows a rank, which the
+    discriminator's fourth stride and the segmentation U-Net's fourth pool
+    split), with per rank the rows its conv tiles held; (c) phase 23 (c)
+    on 244 × 256 images (the generator U-Net's second pool splits 61 rows
+    a rank; 256 columns let the int8 mode quantize, which 244 would not),
+    the ranks' scales equal and their K3 tiles' halo rows each other's;
 24. the U-Net's remaining options of the JAX package, at full width:
     (a) ``configs/2-refinement.json``'s generator (seeded) with its
     U-Net's ``upsampling_mode`` set to ``nn-biresize-conv`` and to
@@ -275,8 +288,8 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     two images against the plain version; (b) the command as a subprocess:
     the default run (B = 128 at 256², the 512² row) with ``--latency
     --components --train --train-steps 4``, then ``--dtype int8`` and
-    ``--dtype f32`` (``--iters 4``) and ``--image-size 48 --batch-size 4
-    --extra-sizes``,
+    ``--dtype f32``, each at ``--iters 4``, and ``--image-size 48
+    --batch-size 4 --extra-sizes``,
     each with exactly one bare JSON line (value > 0) in its merged output
     and no ``extra:`` row carrying an error, every row printed; (c)
     ``--budget 2`` gives ``budget_exceeded``.
@@ -286,8 +299,10 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
 line of phase 24's launches and errors).
 ``--bench-only`` runs phases 1, 2 and 25 alone (no result line; a JSON
 line of phase 25's launches and errors).
-``--spatial-only`` runs phases 1, 2, phase 18's tree and phase 23 alone
-(no result line).
+``--spatial-only`` runs phases 1, 2, phase 18's tree, phase 23 and phase
+26 alone (no result line). ``--uneven-only`` runs phases 1, 2, phase 23
+(a)'s gloo probe and phase 26 alone (no result line; a JSON line of phase
+26's launches and errors).
 ``--dist-export-only`` runs phases 1, 2, phase 18's tree and phase 22
 alone (no result line): the generator is exported from its seeded init on
 (a)'s RecNet, and (c) reads the eval_results CSV of 4 slices of (a)'s
@@ -3620,7 +3635,8 @@ def scarseg_phase(line, dist_export_only=False, spatial_only=False):
     if dist_export_only:
       return dist_export_phase(data_dir, work, None, None, None, line)
     if spatial_only:
-      return spatial_phase(data_dir, work, line)
+      return merge_spatial(spatial_phase(data_dir, work, line),
+                           uneven_phase(line))
     rec_runner, best, k1, k1_bwd = scarseg_recnet_phase(
         data_dir, os.path.join(work, 'runs'))
     dc = scarseg_dc_phase(line)
@@ -3647,6 +3663,8 @@ def scarseg_phase(line, dist_export_only=False, spatial_only=False):
                              line)
     # Phase 23: the mesh's spatial axis on the same tree
     spatial = spatial_phase(data_dir, work, line)
+    # Phase 26: spatial meshes whose per-rank rows a layer splits
+    spatial = merge_spatial(spatial, uneven_phase(line))
   finally:
     shutil.rmtree(work, ignore_errors=True)
   return {'k1': (k1 + gan_k1 + surf_k1 + opt['k1'] + data['k1'] + dist['k1'] +
@@ -4040,7 +4058,8 @@ SPATIAL_PSNR_ATOL, SPATIAL_METRIC_ATOL = 1e-3, 1e-3
 SPATIAL_RTOL = 1e-5
 SPATIAL_STEPS = 3        # timed train steps per rank
 SPATIAL_TIMEOUT_S = 600
-GLOO_PROBES = ('all_gather', 'all_to_all', 'all_reduce', 'broadcast')
+GLOO_PROBES = ('all_gather', 'all_to_all', 'all_to_all_v', 'all_reduce',
+               'broadcast')
 GLOO_TIMED_MB, GLOO_TIMED_CALLS = 20, 5     # MiB of each rank's part
 # K1's and K1-bwd's pass wrappers (``ops/dc_kernel.py``): (label, the
 # plain version each launch is held against, whether it is K1-bwd's).
@@ -4077,7 +4096,8 @@ def child_group(cfg):
 def gloo_probe(cfg):
   """``--gloo-probe JSON``: each of ``GLOO_PROBES`` run by gloo itself on
   CUDA tensors (no host copy of ours) and checked (the all-to-all as
-  ``all_to_all_single``, the form ``parallel/mesh.py`` uses); prints
+  ``all_to_all_single``, the form ``parallel/mesh.py`` uses, with equal
+  parts and with split sizes); prints
   ``GLOO {name: 'ok' | 'wrong' | 'refused: ...'}``."""
   import torch.distributed as dist
   child_group(cfg)
@@ -4097,6 +4117,17 @@ def gloo_probe(cfg):
           out = torch.empty_like(t)
           dist.all_to_all_single(out, t)
           good = out.tolist() == [float(rank), float(10 + rank)]
+        elif name == 'all_to_all_v':
+          # split sizes (``mesh.all_to_all``'s uneven blocks): rank 0
+          # sends 1 and 2 elements, rank 1 3 and 1
+          send = [1, 2] if rank == 0 else [3, 1]
+          recv = [1, 3] if rank == 0 else [2, 1]
+          t = torch.arange(sum(send), device='cuda',
+                           dtype=torch.float32) + 10 * rank
+          out = t.new_empty(sum(recv))
+          dist.all_to_all_single(out, t, recv, send)
+          good = out.tolist() == ([0.0, 10.0, 11.0, 12.0] if rank == 0 else
+                                  [1.0, 2.0, 13.0])
         elif name == 'all_reduce':
           dist.all_reduce(t)
           good = bool((t == 3).all())
@@ -4189,19 +4220,24 @@ def counted_collectives():
   """{call site: bytes} that ``parallel/mesh.py``'s all_gather, all_to_all
   and all_reduce move for this rank while the block runs (all_gather: the
   rank's part; all_to_all: the parts it sends to the other ranks;
-  all_reduce: the tensor)."""
+  all_reduce: the tensor), and under 'conv rows' the (largest, smallest)
+  row count of a tile any ``F.conv2d`` read."""
+  import torch.distributed as dist
+  import torch.nn.functional as F
   from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
   moved = {}
   gather, exchange, reduce = (mesh_lib.all_gather, mesh_lib.all_to_all,
                               mesh_lib.all_reduce)
+  conv2d = F.conv2d
 
-  def site():   # the caller of ``halo.gather_rows``, ``halo.halo_rows`` or
-    # ``layers.pad`` rather than their frames (0 this, 1 count, 2 the
-    # counted collective)
+  def site():   # the caller of ``halo.gather_rows``, ``halo.halo_rows``,
+    # ``halo.fetch``, ``layers.pad`` or ``mesh.gather_blocks`` rather than
+    # their frames (0 this, 1 count, 2 the counted collective)
     frame = sys._getframe(3)
     while frame.f_back is not None and frame.f_code.co_qualname in (
-        '_GatherRows.forward', '_HaloRows.forward', 'Function.apply',
-        'gather_rows', 'halo_rows', 'pad'):
+        'gather_blocks', '_GatherRows.forward', '_HaloRows.forward',
+        '_Fetch.forward', 'Function.apply', 'gather_rows', 'halo_rows',
+        'fetch', 'tile', 'pad', 'same_pad'):
       frame = frame.f_back
     return frame.f_code.co_qualname
 
@@ -4213,21 +4249,30 @@ def counted_collectives():
     count('all_gather', t.numel() * t.element_size())
     return gather(t, group)
 
-  def counted_exchange(t, group):
-    count('all_to_all', t.numel() * t.element_size() * (t.shape[0] - 1) //
-          t.shape[0])
-    return exchange(t, group)
+  def counted_exchange(t, group, send_sizes, recv_sizes):
+    own = send_sizes[dist.get_rank(group)]
+    count('all_to_all', (sum(send_sizes) - own) * t[:1].numel() *
+          t.element_size())
+    return exchange(t, group, send_sizes, recv_sizes)
 
   def counted_reduce(t, group, *args):
     count('all_reduce', t.numel() * t.element_size())
     return reduce(t, group, *args)
+
+  def counted_conv2d(x, *args, **kwargs):
+    most, least = moved.get('conv rows', (0, None))
+    moved['conv rows'] = (max(most, x.shape[2]), x.shape[2] if least is None
+                          else min(least, x.shape[2]))
+    return conv2d(x, *args, **kwargs)
   mesh_lib.all_gather, mesh_lib.all_to_all, mesh_lib.all_reduce = (
       counted_gather, counted_exchange, counted_reduce)
+  F.conv2d = counted_conv2d
   try:
     yield moved
   finally:
     mesh_lib.all_gather, mesh_lib.all_to_all, mesh_lib.all_reduce = (
         gather, exchange, reduce)
+    F.conv2d = conv2d
 
 
 def pass_plain(name, args):
@@ -4360,6 +4405,7 @@ def spatial_checks(runner, data_dir):
     sync()
   result = {'passes': passes, 'times': times, 'f32_err': f32_err,
             'k2_checked': k2_checked,
+            'conv_rows': moved.pop('conv rows', (0, 0)),
             'moved': moved, 'ms': step_wall_ms(runner, batch),
             'peak': step_peak_gib(runner, batch) if DEVICE == 'cuda'
             else 0.0}
@@ -4385,7 +4431,7 @@ def quantize_generator(runner):
       m.quantize_inference = True
 
 
-def int8_forward(runner, data_dir, label):
+def int8_forward(runner, data_dir, label, size=None, rows=None):
   """The eval forward of the runner's generator on the first validation
   batch (its rank's part under a mesh), in f32 and then in the int8
   serving mode, whose K3 and requant launches are recorded and held
@@ -4394,15 +4440,29 @@ def int8_forward(runner, data_dir, label):
   mode's steps in call order, on the rank's rows, on the host}: each
   quantized chain's float-prefix output, its int8 image and scale
   ('act'); each K3 launch's int8 input, scale and output ('K3'); each
-  requant's int8 output and scale ('requant')."""
-  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  requant's int8 output and scale ('requant'). ``size``: the side of
+  ``data_dir``'s tree, where it is not ``datasets.IMAGE_SIZE``; ``rows``:
+  the images' first rows kept (a batch of rows × size)."""
+  from csmri_refinement_tpu_torch.data import DataLoader, datasets
+  from csmri_refinement_tpu_torch.data import load_dataset
   from csmri_refinement_tpu_torch.models import layers
   from csmri_refinement_tpu_torch.ops import conv_chain, quantize
   from csmri_refinement_tpu_torch.parallel import halo
   conf, mesh = runner.conf, runner.mesh
-  host = next(iter(DataLoader(load_dataset(conf, data_dir, 'ScarSeg', 'val'),
-                              conf.batch_size, process_shard=None if mesh is
-                              None else mesh.shard)))
+  side = datasets.IMAGE_SIZE
+  datasets.IMAGE_SIZE = size or side
+  try:
+    host = next(iter(DataLoader(load_dataset(conf, data_dir, 'ScarSeg',
+                                             'val'),
+                                conf.batch_size, process_shard=None if mesh
+                                is None else mesh.shard)))
+  finally:
+    datasets.IMAGE_SIZE = side
+  if rows:
+    host = {k: v[:, :rows] if getattr(v, 'ndim', 0) >= 3 else v
+            for k, v in host.items()}
+  if size and size != side:   # its cached masks are of the run's side
+    runner.preparer._val_masks.clear()
   batch = runner.preparer.prepare_val(host)
 
   def pred():
@@ -4493,8 +4553,10 @@ def spatial_rank(cfg):
     result.update(spatial_checks(runner, cfg['data_dir']))
     if cfg.get('int8_state'):
       runner.gen.load_state_dict(torch.load(cfg['int8_state']))
-      result['int8'] = int8_forward(runner, cfg['data_dir'],
-                                    'phase 23 rank {}'.format(cfg['rank']))
+      result['int8'] = int8_forward(
+          runner, cfg.get('int8_dir') or cfg['data_dir'],
+          '{} rank {}'.format(cfg['label'], cfg['rank']),
+          cfg.get('int8_size'), cfg.get('int8_rows'))
     torch.save(result, cfg['out'])
   finally:
     dist.destroy_process_group()
@@ -4555,12 +4617,13 @@ def spatial_compare(label, one, ranks, one_launches):
   return worst
 
 
-def int8_tiles_check(ranks):
+def int8_tiles_check(ranks, spread=0):
   """Exact checks of the two ranks' int8 tiles, whatever float noise came
   before them: at every quantization (each chain's, each requant's) the
   ranks hold one scale, the group's, and each K3 launch's halo rows are
-  the other rank's own rows of that launch's input. Returns the K3
-  launches checked."""
+  the other rank's own rows of that launch's input, the ranks' own rows
+  differing in count by ``spread`` at most (0: equal blocks). Returns the
+  K3 launches checked."""
   a, b = (r['int8'] for r in ranks)
   for i, ((kind, got_a), (_, got_b)) in enumerate(zip(a['steps'],
                                                       b['steps'])):
@@ -4574,8 +4637,9 @@ def int8_tiles_check(ranks):
     require(top0 == bottom1 == 0 and torch.equal(
         t0.narrow(1, top0 + h0, bottom0), t1.narrow(1, top1, bottom0)) and
             torch.equal(t1.narrow(1, 0, top1), t0.narrow(1, h0 - top1, top1))
-            and h0 == h1, 'K3 launch {}: a rank\'s halo rows are not the '
-            'other rank\'s rows'.format(i))
+            and abs(h0 - h1) <= spread, 'K3 launch {}: a rank\'s halo rows '
+            'are not the other rank\'s rows, or the ranks hold {} and {} '
+            'rows'.format(i, h0, h1))
   return len(a['tiles'])
 
 
@@ -4595,11 +4659,13 @@ def int8_steps_compare(one, ranks):
   first, lines = None, []
   for i, (kind, want) in enumerate(one['steps']):
     parts = [[] for _ in want]
-    for r, got in enumerate(ranks):
+    start = [0] * len(want)     # the ranks' rows of a map may differ by one
+    for got in ranks:
       for j, t in enumerate(got['int8']['steps'][i][1]):
         w = want[j]
         if t.ndim == 4:         # rows: the rank's of the whole image
-          w = w.narrow(1, r * t.shape[1], t.shape[1])
+          w = w.narrow(1, start[j], t.shape[1])
+          start[j] += t.shape[1]
         parts[j].append((t, w))
     same = [all(torch.equal(t, w) for t, w in p) for p in parts]
 
@@ -4636,7 +4702,8 @@ def int8_steps_compare(one, ranks):
   return first, lines
 
 
-def int8_compare(one_runner, state, data_dir, ranks, line):
+def int8_compare(one_runner, state, data_dir, ranks, line,
+                 label='phase 23 (c)', size=None, rows=None):
   """Phase 23 (c): the two ranks' eval forward of the generator, f32 and
   int8, against this process's on the same weights (``state``, which the
   ranks loaded too) and batch, and the int8 mode's steps against each
@@ -4644,7 +4711,8 @@ def int8_compare(one_runner, state, data_dir, ranks, line):
   launches (rank 0's) and the max errors of every K3 and requant launch
   against its plain version."""
   one_runner.gen.load_state_dict(torch.load(state))
-  one = int8_forward(one_runner, data_dir, 'phase 23 one process')
+  one = int8_forward(one_runner, data_dir, label + ' one process', size,
+                     rows)
   for r, rank in enumerate(ranks):
     require(min(rank['int8']['launches']) > 0,
             'int8 rank {}: K3 or requant not launched'.format(r))
@@ -4658,14 +4726,15 @@ def int8_compare(one_runner, state, data_dir, ranks, line):
     diffs[mode] = ((got - want).abs().max().item() /
                    want.abs().max().item(), torch.equal(got, want))
   first, lines = int8_steps_compare(one, ranks)
-  print('phase 23 (c) eval forward of the 2-refinement generator at {}^2, B '
+  print('{} eval forward of the 2-refinement generator at {}x{}, B '
         '{}, on two spatial ranks against one process: f32 {}, max |Δ| '
         '{:.3e} of max |ref|; int8 {}, max |Δ| {:.3e} of max |ref| (bar {}); '
         'K3, requant launches per rank {} and {} (one process {}), each '
         'within {:.3e} and {:g} int8 steps of its plain version; the int8 '
         'mode\'s steps against one process, the first that differs marked '
         '{} ({})'.format(
-            SCAR_SIZE, one['f32'].shape[0],
+            label, rows or size or SCAR_SIZE, size or SCAR_SIZE,
+            one['f32'].shape[0],
             'bit for bit' if diffs['f32'][1] else 'not bit for bit',
             diffs['f32'][0], 'bit for bit' if diffs['int8'][1] else
             'not bit for bit', diffs['int8'][0], SPATIAL_INT8_REL,
@@ -4678,7 +4747,7 @@ def int8_compare(one_runner, state, data_dir, ranks, line):
     print('  ' + ln)
   print('  the ranks\' scales equal at every quantization and the halo rows '
         'of {} K3 launches the other rank\'s rows, exactly'.format(
-            int8_tiles_check(ranks)))
+            int8_tiles_check(ranks, 0 if rows is None else 1)))
   require(diffs['int8'][0] <= SPATIAL_INT8_REL,
           'the ranks\' int8 forward differs from one process by {:.3e} of '
           'max |ref| (bar {})'.format(diffs['int8'][0], SPATIAL_INT8_REL))
@@ -4689,10 +4758,12 @@ def int8_compare(one_runner, state, data_dir, ranks, line):
 
 def dc_exchange_mb(moved):
   """MB the DC's two all-to-alls sent."""
-  return sum(v for k, v in moved.items() if k.startswith('all_to_all')) / 1e6
+  return sum(v for k, v in moved.items() if k.startswith('all_to_all') and
+             k.endswith(('_rows_to_cols', '_cols_to_rows'))) / 1e6
 
 
-def spatial_phase(data_dir, work, line):
+def spatial_phase(data_dir, work, line, phase='phase 23', size=None,
+                  int8=None, probe=True):
   """Phase 23: (a) the gloo probe; (b) 1-recnet (B = 20), 2-refinement
   (B = 5, its RecNet from (b)'s one-process checkpoint) and segmentation
   (B = 8) through the training CLI, 2 steps and 1 validation batch, once
@@ -4704,11 +4775,16 @@ def spatial_phase(data_dir, work, line):
   per rank; (c) the f32 and int8 eval forwards of the 2-refinement
   generator on the two ranks against one process (``int8_compare``).
   Returns the launches (rank 0's) and errors for the kernels
-  line, with 1-recnet's rank-0 pass times."""
+  line, with 1-recnet's rank-0 pass times. Phase 26 runs the same on a
+  tree of ``size`` (``phase``, no probe: phase 23 ran it), with (c) on
+  ``int8`` = (tree, its side, the rows kept of each image)."""
   from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
   from csmri_refinement_tpu_torch.ops import conv_chain, dc_kernel
   t0 = time.perf_counter()
-  gloo_phase(line)
+  size = size or SCAR_SIZE
+  int8_dir, int8_size, int8_rows = int8 or (data_dir, size, None)
+  if probe:
+    gloo_phase(line)
   total = {'k1': 0, 'k1_bwd': 0, 'k2_f32': 0, 'k3': 0, 'requant': 0,
            'k3_err': 0.0, 'requant_err': 0.0, 'dc_err': 0.0, 'dc_bwd_err': 0.0, 'f32_err': 0.0,
            'passes': {name: [0, 0.0, 0.0] for name in DC_PASSES},
@@ -4746,9 +4822,10 @@ def spatial_phase(data_dir, work, line):
       torch.cuda.empty_cache()
     spawn_ranks('spatial-rank', {
         'config': configs[label], 'data_dir': data_dir, 'device': DEVICE,
-        'size': SCAR_SIZE, 'overrides': overrides,
+        'size': size, 'overrides': overrides,
         'run_root': os.path.join(work, 'spatial_ranks'),
-        'int8_state': int8_state},
+        'int8_state': int8_state, 'label': phase, 'int8_dir': int8_dir,
+        'int8_size': int8_size, 'int8_rows': int8_rows},
                 outs)
     ranks = [torch.load(o, weights_only=False) for o in outs]
     worst = spatial_compare(label, one, ranks, one_launches)
@@ -4757,13 +4834,13 @@ def spatial_phase(data_dir, work, line):
             'segmentation': (k2,)}[label]
     require(min(path) > 0,
             label + ': a kernel of the path was not launched on the ranks')
-    print('phase 23 {} at {}^2, mesh {}, collectives {}: both ranks '
+    print('{} {} at {}^2, mesh {}, collectives {}: both ranks '
           'against one process: losses within {:.3e}, PSNR {:.3e} dB, other '
           'metrics {:.3e}, parameters {:.3e}, discriminator {:.3e}, BN '
           'statistics {:.3e}; launches per rank: each of K1\'s 3 passes {}, '
           'each of K1-bwd\'s {}, K2 f32 {}, whole-image K1 and K1-bwd 0 '
           '(one process: K1 {}, K1-bwd {}, K2 f32 {}); {:.1f} s'.format(
-              label, SCAR_SIZE, SPATIAL_MESH, ranks[0]['route'],
+              phase, label, size, SPATIAL_MESH, ranks[0]['route'],
               worst['losses'], worst['psnr'], worst['metrics'],
               worst['params'], worst['disc'], worst['bn'], k1, k1_bwd, k2,
               k1, k1_bwd, k2, time.perf_counter() - t1))
@@ -4771,13 +4848,15 @@ def spatial_phase(data_dir, work, line):
       print('  rank {}: checked launches against their plain versions (max '
             '|kernel-plain|, and that over max |plain|, bar {}): {}; K2 f32 '
             '{} launches within {:.3e}; train step {:.3f} ms, peak {:.3f} GiB '
-            'above the resident state; per step the DC\'s all-to-alls send '
+            'above the resident state; the tiles its convs read held {} to {} '
+            'rows; per step the DC\'s all-to-alls send '
             '{:.2f} MB and it moves {} ({}; two ranks share one card: not a '
             'scaling number)'.format(
                 r, PASS_REL, ', '.join('{} {} launches {:.3e} ({:.3e})'.format(
                     DC_PASSES[n][0], c, e, rel) for n, (c, e, rel) in
                     got['passes'].items()),
                 got['k2_checked'], got['f32_err'], got['ms'], got['peak'],
+                got['conv_rows'][1], got['conv_rows'][0],
                 dc_exchange_mb(got['moved']), ', '.join(
                     '{} {:.2f} MB'.format(k, v / 1e6) for k, v in
                     sorted(got['moved'].items())), line))
@@ -4791,12 +4870,16 @@ def spatial_phase(data_dir, work, line):
     host = next(iter(DataLoader(load_dataset(one[0].conf, data_dir,
                                              'ScarSeg', 'train'),
                                 one[0].conf.batch_size)))
-    print('  one process: train step {:.3f} ms ({})'.format(step_wall_ms(
-        one[0], one[0].preparer.prepare_train(
-            torch.Generator(device=DEVICE).manual_seed(SEED), host)), line))
+    one_batch = one[0].preparer.prepare_train(
+        torch.Generator(device=DEVICE).manual_seed(SEED), host)
+    print('  one process: train step {:.3f} ms, peak {:.3f} GiB ({})'.format(
+        step_wall_ms(one[0], one_batch), step_peak_gib(one[0], one_batch)
+        if DEVICE == 'cuda' else 0.0, line))
+    del one_batch
     if label == '2-refinement':
       (k3, requant), (k3_err, rq_err) = int8_compare(
-          one[0], int8_state, data_dir, ranks, line)
+          one[0], int8_state, int8_dir, ranks, line, phase + ' (c)',
+          int8_size, int8_rows)
       total['k3'] += k3
       total['requant'] += requant
       total['k3_err'], total['requant_err'] = k3_err, rq_err
@@ -4817,8 +4900,124 @@ def spatial_phase(data_dir, work, line):
   for name, (_, err, _) in total['passes'].items():
     key = 'dc_bwd_err' if DC_PASSES[name][2] else 'dc_err'
     total[key] = max(total[key], err)
-  print('phase 23: {:.1f} s wall'.format(time.perf_counter() - t0))
+  print('{}: {:.1f} s wall'.format(phase, time.perf_counter() - t0))
   return total
+
+# Phase 26: spatial meshes whose per-rank rows a stride or a pool splits,
+# as JAX's GSPMD runs them: the paper's three configs at BraTS's 240×240
+# slice matrix on the two ranks of phase 23, 120 rows a rank, which the
+# discriminator's fourth stride and the segmentation U-Net's fourth pool
+# split (15 rows → 8 and 7); the generator's eval forward on images of 244
+# rows, whose second pool splits 61 rows a rank, and 256 columns: the int8
+# mode quantizes a chain only where W / P is a multiple of 16 (JAX's
+# ``layer_fusable``), which no side of 4 · odd rows meets, so at 244² it
+# would run every chain in float; and K1's passes on a non-square image
+# whose width two ranks split unequally.
+UNEVEN_SIZE = 240
+UNEVEN_INT8_SIZE, UNEVEN_INT8_ROWS = 256, 244
+UNEVEN_DC_SHAPE = (2, 240, 237)       # column blocks of 119 and 118
+
+
+def uneven_dc_check(line):
+  """Phase 26 (a): K1's and K1-bwd's passes as two ranks run them on
+  ``UNEVEN_DC_SHAPE`` (rows 0-119 and 120-239, then column blocks of
+  ``mesh.col_bounds``: 119 and 118), the exchanges as copies in this
+  process, against the whole-image K1 and K1-bwd on the same inputs.
+  Returns the largest |Δ| of the forward and of the backward."""
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
+  b, h, w = UNEVEN_DC_SHAPE
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 26)
+  x, k0, g = (torch.randn((b, h, w, 2), device=DEVICE, generator=gen)
+              for _ in range(3))
+  mask = (torch.rand((b, h, w, 1), device=DEVICE, generator=gen) > 0.6)
+  mask = mask.float()
+  k0 = k0 * mask
+  rows = [slice(0, h // 2), slice(h // 2, h)]
+  cols = [slice(*mesh_lib.col_bounds(w, 2).block(r)) for r in range(2)]
+
+  def passes(t, fft, col, ifft):
+    ranks_rows = torch.cat([fft(t[:, r].contiguous(), h) for r in rows], 1)
+    ranks_cols = torch.cat([col(ranks_rows[:, :, c].contiguous(), c)
+                            for c in cols], 2)
+    return torch.cat([ifft(ranks_cols[:, r].contiguous(), h) for r in rows],
+                     1)
+  with deterministic():
+    got = passes(x, dc_kernel.dc_rows_fft_cuda,
+                 lambda t, c: dc_kernel.dc_cols_cuda(
+                     t, k0[:, :, c].contiguous(), mask[:, :, c].contiguous(),
+                     w), dc_kernel.dc_rows_ifft_cuda)
+    want = dc_kernel.dc_cuda(x, k0, mask)
+    got_bwd = passes(g, dc_kernel.dc_bwd_rows_fft_cuda,
+                     lambda t, c: dc_kernel.dc_bwd_cols_cuda(
+                         t, mask[:, :, c].contiguous(), w),
+                     dc_kernel.dc_bwd_rows_ifft_cuda)
+    want_bwd = dc_kernel.dc_bwd_cuda(g, mask)
+    sync()
+  errs = []
+  for what, a, ref in (('K1', got, want), ('K1-bwd', got_bwd, want_bwd)):
+    err = (a - ref).abs().max().item()
+    rel = err / max(ref.abs().max().item(), 1e-30)
+    require(rel <= PASS_REL, 'phase 26 (a) {}\'s passes on column blocks '
+            '{} and {} differ from the whole image by {:.3e} of its max '
+            '|value|'.format(what, cols[0].stop, w - cols[0].stop, rel))
+    print('phase 26 (a) {}\'s three passes on {} as two ranks run them '
+          '(rows {} and {}, column blocks {} and {}) against the whole-image '
+          '{}: {}, max |Δ| {:.3e} ({})'.format(
+              what, UNEVEN_DC_SHAPE, h // 2, h - h // 2, cols[0].stop,
+              w - cols[0].stop, what, 'bit for bit' if torch.equal(a, ref)
+              else 'not bit for bit', err, line))
+    errs.append(err)
+  return errs
+
+
+def uneven_phase(line, probe=False):
+  """Phase 26: (a) ``uneven_dc_check``; (b) phase 23's runs, checks and
+  launch holds (``spatial_phase``) on a ScarSeg-format tree at
+  ``UNEVEN_SIZE`` on two ranks, and its (c) on the first
+  ``UNEVEN_INT8_ROWS`` rows of a tree at ``UNEVEN_INT8_SIZE``. The trees
+  are removed after.
+  Returns ``spatial_phase``'s totals with (a)'s errors folded in."""
+  from csmri_refinement_tpu_torch.data import datasets
+  t0 = time.perf_counter()
+  os.makedirs(GAN_DIR, exist_ok=True)
+  work = tempfile.mkdtemp(prefix='uneven_', dir=GAN_DIR)
+  side = datasets.IMAGE_SIZE
+  try:
+    dc_err, dc_bwd_err = uneven_dc_check(line)
+    data_dir, int8_dir = (os.path.join(work, d) for d in ('data', 'int8'))
+    datasets.write_scarseg_phantoms(data_dir, UNEVEN_SIZE, SCAR_SLICES,
+                                    seed=SEED)
+    datasets.write_scarseg_phantoms(int8_dir, UNEVEN_INT8_SIZE, SCAR_SLICES,
+                                    seed=SEED)
+    datasets.IMAGE_SIZE = UNEVEN_SIZE
+    total = spatial_phase(data_dir, work, line, 'phase 26', UNEVEN_SIZE,
+                          (int8_dir, UNEVEN_INT8_SIZE, UNEVEN_INT8_ROWS),
+                          probe)
+  finally:
+    datasets.IMAGE_SIZE = side
+    shutil.rmtree(work, ignore_errors=True)
+  total['dc_err'] = max(total['dc_err'], dc_err)
+  total['dc_bwd_err'] = max(total['dc_bwd_err'], dc_bwd_err)
+  print('phase 26 with (a) and its trees: {:.1f} s wall'.format(
+      time.perf_counter() - t0))
+  return total
+
+
+def merge_spatial(a, b):
+  """Phase 23's and 26's totals for the kernels line: launches added,
+  errors the larger, the pass times phase 23's."""
+  out = dict(a)
+  for key in ('k1', 'k1_bwd', 'k2_f32', 'k3', 'requant'):
+    out[key] = a[key] + b[key]
+  for key in ('dc_err', 'dc_bwd_err', 'f32_err', 'k3_err', 'requant_err'):
+    out[key] = max(a[key], b[key])
+  out['passes'] = {name: [a['passes'][name][0] + b['passes'][name][0],
+                          max(a['passes'][name][1], b['passes'][name][1]),
+                          max(a['passes'][name][2], b['passes'][name][2])]
+                   for name in a['passes']}
+  return out
+
 
 # Phase 24: the U-Net's remaining options at full width: the up-sampling
 # modes bilinear and nn-biresize-conv (the 2× bilinear up-sample as a
@@ -5260,11 +5459,11 @@ BENCH_BIG, BENCH_BIG_BATCH = 512, 128  # the default 512² row's forward
 BENCH_TIMEOUT_S = 600
 # The command's runs: (label, arguments, extra rows expected). The default
 # run's rows: batch-1 latency at 256² and 512², two rows for each of the
-# four training batches, the 512² row. The int8 and f32 runs time 4
-# forwards a pass (10 by default) to keep the phase short.
+# four training batches, the 512² row. Every run times 4 forwards a pass
+# (10 by default) to keep the phase short.
 BENCH_RUNS = (
     ('default', ['--latency', '--components', '--train', '--train-steps',
-                 '4'], 11),
+                 '4', '--iters', '4'], 11),
     ('int8', ['--dtype', 'int8', '--iters', '4'], 1),
     ('f32', ['--dtype', 'f32', '--iters', '4'], 1),
     ('48', ['--image-size', str(BENCH_SMALL), '--batch-size', '4',
@@ -5573,6 +5772,7 @@ def main(argv=None):
   scarseg_only = '--scarseg-only' in argv
   dist_export_only = '--dist-export-only' in argv
   spatial_only = '--spatial-only' in argv
+  uneven_only = '--uneven-only' in argv
   options_only = '--options-only' in argv
   bench_only = '--bench-only' in argv
   child = next((a for a in ('--spatial-rank', '--gloo-probe') if a in argv),
@@ -5623,6 +5823,9 @@ def main(argv=None):
     return
   if bench_only:       # phases 1, 2 and 25
     print(json.dumps(bench_phase(P, line)))
+    return
+  if uneven_only:      # phases 1, 2, the gloo probe and 26
+    print(json.dumps(uneven_phase(line, probe=True)))
     return
   if scarseg_only or dist_export_only or spatial_only:
     # phases 1, 2 and 18-23, or phase 18's tree and 22 or 23

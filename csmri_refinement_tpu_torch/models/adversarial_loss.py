@@ -4,10 +4,15 @@ Port of ``csmri_refinement_tpu/models/adversarial_loss.py``: each loss
 takes the discriminator's outputs ``{prob, logits[, features]}`` on fakes
 and reals. ``loss_type`` 'gen' is the generator's objective, 'disc' the
 discriminator's (with label smoothing of the real label). The real
-features of feature matching are detached.
+features of feature matching are detached; under a spatial mesh a feature
+map whose rows the ranks hold unequally (its layout in the
+discriminator's ``feature_rows``) is averaged as S times the rank's share
+(``halo.mean``).
 """
 
 import torch
+
+from csmri_refinement_tpu_torch.parallel import halo
 
 _EPS = 1e-7
 
@@ -76,9 +81,10 @@ class FeatureMatchingLoss:
   """Mean distance between the fakes' and the (detached) reals'
   discriminator features; negated for the discriminator."""
 
+  # (features a, b, their NHWC row layout or None) → the mean distance
   DISTANCES = {
-      'MSE': lambda a, b: torch.mean((a - b) ** 2),
-      'L1': lambda a, b: torch.mean(torch.abs(a - b)),
+      'MSE': lambda a, b, rows: halo.mean((a - b) ** 2, rows, 1),
+      'L1': lambda a, b, rows: halo.mean(torch.abs(a - b), rows, 1),
   }
 
   def __init__(self, loss_type, distance_fn='L1'):
@@ -90,9 +96,11 @@ class FeatureMatchingLoss:
 
   def __call__(self, out_disc_fake, out_disc_real):
     features_fake = out_disc_fake['features']
+    layouts = out_disc_fake.get('feature_rows', [None] * len(features_fake))
     loss = 0.0
-    for f_fake, f_real in zip(features_fake, out_disc_real['features']):
-      loss = loss + self.distance_fn(f_fake, f_real.detach())
+    for f_fake, f_real, rows in zip(features_fake, out_disc_real['features'],
+                                    layouts):
+      loss = loss + self.distance_fn(f_fake, f_real.detach(), rows)
     loss = loss / len(features_fake)
     return -loss if self.loss_type == 'disc' else loss
 

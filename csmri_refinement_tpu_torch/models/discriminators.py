@@ -23,13 +23,16 @@ Submodule names follow the flax tree (``conv_{i}``, ``norm_{i}``,
 
 Under a spatial mesh (``parallel/halo.py``) the conv stack runs on the
 rank's rows (the stride-2 reflection convs through ``layers.same_conv``'s
-halos, BN over the world, instance norm and dropout as ``layers`` has
-them), and so are its ``features``. The head needs every row: the rows are
-gathered before it (``halo.gather_rows``), so that the PatchGAN conv
-(VALID, its output rows not a multiple of the ranks) or the FC head's
-flatten sees the whole map, and every rank of the spatial group holds the
-whole ``prob``, ``logits`` and head feature (``parallel/mesh.py``'s
-``WHOLE_KEYS``). ``row_factor`` is the product of the strides.
+halos, each layer's output rows by the layout ``halo.Rows.strided`` gives
+it, so that a stride that splits a rank's rows leaves the ranks unequal
+blocks; BN over the world, instance norm and dropout as ``layers`` has
+them), and so are its ``features``, whose layouts the output gives under
+``feature_rows`` for the feature-matching loss. The head needs every row:
+the rows are gathered before it (``halo.gather_rows``), so that the
+PatchGAN conv (VALID, its output rows not a multiple of the ranks) or the
+FC head's flatten sees the whole map, and every rank of the spatial group
+holds the whole ``prob``, ``logits`` and head feature
+(``parallel/mesh.py``'s ``WHOLE_KEYS``).
 """
 
 import torch
@@ -37,8 +40,8 @@ from torch import nn
 
 from csmri_refinement_tpu_torch.models import weight_inits
 from csmri_refinement_tpu_torch.models.layers import (
-    InstanceNorm, PReLU, channel_dropout, leaky_relu, need_bias, pad_sizes,
-    same_conv)
+    InstanceNorm, PReLU, channel_dropout, conv_rows, leaky_relu, need_bias,
+    pad_sizes, same_conv)
 from csmri_refinement_tpu_torch.models.unet import BatchNorm2d
 from csmri_refinement_tpu_torch.parallel import halo
 
@@ -97,9 +100,6 @@ class CNNDiscriminator(nn.Module):
     self.weight_init = weight_init or {}
     self.dtype = dtype
     self.num_layers = len(num_filters_per_layer)
-    self.row_factor = 1
-    for stride in self.strides:
-      self.row_factor *= stride
 
     use_norm = use_norm_layers
     self.normed = []
@@ -182,25 +182,29 @@ class CNNDiscriminator(nn.Module):
   def forward(self, inp, generator=None):
     dt = self.dtype or inp.dtype
     x = inp.to(dt).permute(0, 3, 1, 2)
-    features = []
+    mesh = halo.current()
+    rows = halo.equal_rows(x, mesh, 2)
+    features, feature_rows = [], []
     for idx in range(self.num_layers):
       conv = getattr(self, 'conv_{}'.format(idx))
       bias = None if conv.bias is None else conv.bias.to(dt)
       x = same_conv(x, conv.weight.to(dt), bias, self.padding,
-                    stride=self.strides[idx])
+                    stride=self.strides[idx], rows=rows)
+      rows = conv_rows(rows, self.kernel_sizes[idx],
+                       stride=self.strides[idx])
       if self.normed[idx]:
         x = getattr(self, 'norm_{}'.format(idx))(
             x.to(torch.promote_types(dt, torch.float32))).to(dt)
       x = self._act(x, str(idx))
       if self.compute_features:
         features.append(_nhwc(x))
+        feature_rows.append(rows)
       if idx in self.dropout_after:
         x = channel_dropout(x, self.dropout_prob, self.training, generator,
                             self.batch_shard)
 
-    mesh = halo.current()
     if mesh is not None:
-      x = halo.gather_rows(x, mesh)
+      x = halo.gather_rows(x, mesh, rows=rows)
     if self.fc_layers:
       x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
       for fc_idx in range(len(self.fc_layers)):
@@ -225,4 +229,7 @@ class CNNDiscriminator(nn.Module):
     out = {'prob': torch.sigmoid(x), 'logits': x}
     if self.compute_features:
       out['features'] = features
+      if mesh is not None:   # the head's features are whole on every rank
+        out['feature_rows'] = feature_rows + [None] * (
+            len(features) - len(feature_rows))
     return out

@@ -11,10 +11,14 @@ Under a spatial mesh (``parallel/halo.py::sharded_rows``) ``pad``,
 the H padding at an edge between two ranks becomes halo rows of the
 neighbour, and the zero, reflect or replicate padding applies at the
 image's top and bottom only (a reflection there reads the pad + 1 rows the
-rank's tile starts or ends with, as on the whole image). A stride-2 conv
-starts each rank's first output row on the global stride grid, since
-every rank holds an even number of rows. ``InstanceNorm`` takes its
-statistics over the spatial group, and ``channel_dropout`` draws the same
+rank's tile starts or ends with, as on the whole image). Each takes the
+map's row layout (``rows``, a ``halo.Rows``; None: equal blocks, an
+image's). A stride-2 conv and ``max_pool2`` give output row o to the rank
+holding input row 2·o (``halo.Rows.strided``): where a rank's rows start
+off the stride grid or its window reaches past a neighbour, it fetches
+its window from the owners (``halo.fetch``), and a rank whose window is
+empty holds no output rows. ``InstanceNorm`` takes its statistics and its
+count over the spatial group, and ``channel_dropout`` draws the same
 decisions on every rank of an image's spatial group (they share the
 generator's state and the batch shard).
 """
@@ -88,34 +92,99 @@ def local_pad(x, pads, mode):
   return _Pad.apply(x, tuple(pads), mode)
 
 
-def pad(x, pads, mode):
+def pad(x, pads, mode, rows=None):
   """``local_pad`` of the image ``x`` holds rows of: under a spatial mesh,
-  the rows above and below come from the neighbouring ranks (``halo``)
-  and ``mode`` pads the image's top and bottom edges only."""
+  the rows above and below come from the ranks that hold them (``halo``;
+  ``rows`` the map's layout, None: equal blocks) and ``mode`` pads the
+  image's top and bottom edges only."""
   mesh = halo.current()
   if mesh is None:
     return local_pad(x, pads, mode)
   left, right, top, bottom = pads
+  rows = rows or halo.equal_rows(x, mesh, 2)
+  windows = rows.halo(top, bottom)
+  if halo.one_hop(rows, windows) is None:
+    x = halo.fetch(x, mesh, rows, windows, mode)
+    if not x.shape[2]:
+      return halo.no_rows(x.shape[:3] + (x.shape[3] + left + right,), x)
+    return local_pad(x, (left, right, 0, 0), mode)
   x = halo.halo_rows(x, top, bottom, mesh)
   above, below = halo.taken(mesh, top, bottom)
   return local_pad(x, (left, right, top - above, bottom - below), mode)
 
 
-def same_pad(x, kernel_size, mode='zero', dilation=1, stride=1):
+def same_pad(x, kernel_size, mode='zero', dilation=1, stride=1, rows=None):
   """Explicit SAME padding of an NCHW tensor before a VALID conv."""
   p1, p2 = pad_sizes(kernel_size, dilation, stride)
-  return pad(x, (p1, p2, p1, p2), _PAD_MODES[mode])
+  return pad(x, (p1, p2, p1, p2), _PAD_MODES[mode], rows)
 
 
-def same_conv(x, weight, bias=None, mode='zero', dilation=1, stride=1):
-  """SAME conv of NCHW ``x`` with OIHW ``weight``."""
+def tile_pad(x, kernel_size, mode='zero'):
+  """SAME padding of an NCHW tensor as it stands (``local_pad``), under a
+  spatial mesh too: how the conv kernels pad a halo tile's edges, which
+  the plain versions follow."""
+  p1, p2 = pad_sizes(kernel_size)
+  return local_pad(x, (p1, p2, p1, p2), _PAD_MODES[mode])
+
+
+def conv_rows(rows, kernel_size, dilation=1, stride=1):
+  """The row layout of ``same_conv``'s output on a map of layout
+  ``rows`` (None without one)."""
+  if rows is None:
+    return None
+  p1, p2 = pad_sizes(kernel_size, dilation, stride)
+  return rows.strided(kernel_size + (kernel_size - 1) * (dilation - 1),
+                      stride, p1, p2)[0]
+
+
+def same_conv(x, weight, bias=None, mode='zero', dilation=1, stride=1,
+              rows=None):
+  """SAME conv of NCHW ``x`` with OIHW ``weight``; under a spatial mesh on
+  the rank's rows of a map of layout ``rows`` (None: equal blocks)."""
   k = weight.shape[-1]
+  span = k + (k - 1) * (dilation - 1)
   p1, p2 = pad_sizes(k, dilation, stride)
-  if mode == 'zero' and p1 == p2 and halo.current() is None:
+  mesh = halo.current()
+  if mode == 'zero' and p1 == p2 and mesh is None:
     return F.conv2d(x, weight, bias, stride=stride, padding=p1,
                     dilation=dilation)
-  return F.conv2d(same_pad(x, k, mode, dilation, stride), weight, bias,
-                  stride=stride, dilation=dilation)
+  if mesh is None:
+    return F.conv2d(same_pad(x, k, mode, dilation, stride), weight, bias,
+                    stride=stride, dilation=dilation)
+  rows = rows or halo.equal_rows(x, mesh, 2)
+  out, windows = rows.strided(span, stride, p1, p2)
+  if windows == rows.halo(p1, p2):
+    tile = same_pad(x, k, mode, dilation, stride, rows)
+  else:     # a stride-2 conv whose rows start off the stride grid
+    tile = halo.fetch(x, mesh, rows, windows, _PAD_MODES[mode])
+    if tile.shape[2]:
+      tile = local_pad(tile, (p1, p2, 0, 0), _PAD_MODES[mode])
+  if not out.count(mesh.s):
+    return halo.no_rows((x.shape[0], weight.shape[0], 0,
+                         (x.shape[3] + p1 + p2 - span) // stride + 1), tile,
+                        weight, bias)
+  return F.conv2d(tile, weight, bias, stride=stride, dilation=dilation)
+
+
+def max_pool2(x, rows=None):
+  """2×2 max-pool at stride 2 of an NCHW map (floor); under a spatial mesh
+  on the rank's rows of a map of layout ``rows`` (None: equal blocks),
+  output row o on the rank holding input row 2·o."""
+  mesh = halo.current()
+  if mesh is None:
+    return F.max_pool2d(x, 2, 2)
+  rows = rows or halo.equal_rows(x, mesh, 2)
+  out, windows = rows.strided(2, 2, 0, 0)
+  if windows != rows.halo(0, 0):
+    x = halo.fetch(x, mesh, rows, windows)
+  if not out.count(mesh.s):
+    return halo.no_rows(x.shape[:2] + (0, x.shape[3] // 2), x)
+  return F.max_pool2d(x, 2, 2)
+
+
+def pool_rows(rows):
+  """The row layout of ``max_pool2``'s output (None without one)."""
+  return None if rows is None else rows.strided(2, 2, 0, 0)[0]
 
 
 class _LeakyReLU(torch.autograd.Function):
@@ -172,9 +241,14 @@ class InstanceNorm(nn.Module):
     mesh = halo.current()
     if mesh is None:
       var, mean = torch.var_mean(x, dim=(2, 3), keepdim=True, correction=0)
-    else:     # two passes over the spatial group's rows
-      n = x.shape[2] * x.shape[3] * mesh.spatial
-      mean = halo.sum_rows(x.sum((2, 3), keepdim=True), mesh) / n
+    else:     # two passes over the spatial group's rows, whose count the
+      # first sums too (the ranks may hold unequal rows)
+      c = x.shape[1]
+      count = x.new_full(x.shape[:1] + (1, 1, 1), x.shape[2] * x.shape[3])
+      stats = halo.sum_rows(torch.cat([x.sum((2, 3), keepdim=True), count],
+                                      1), mesh)
+      n = stats[:, c:]
+      mean = stats[:, :c] / n
       var = halo.sum_rows(((x - mean) ** 2).sum((2, 3), keepdim=True),
                           mesh) / n
     y = (x - mean) * torch.rsqrt(var + self.eps)

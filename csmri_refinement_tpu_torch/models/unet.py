@@ -52,21 +52,28 @@ names follow the flax tree (``encode_{s}.conv_{i}``, ``bn_{i}``,
 ``decode_{s}.decode.conv_{i}``, ``head``) so the weight bridge is a 1:1
 walk.
 
-Under a spatial mesh (``parallel/halo.py``) each rank holds its rows, a
-multiple of ``row_factor`` (2 per pool): the SAME convs take halo rows
-(``layers.same_conv``), max-pool and the 1×1 head are local, a
-``transposed`` up-conv of k > 2 takes the (k − 1) // 2 rows above whose
-overhang reaches its rows, ``pixelshuffle`` and the subpixel k4 up-conv
-are convs on the low-resolution grid (the latter recomputes the image's
-last row on the bottom rank only), the bilinear up-sample reads one halo
-row per side (its edge rows repeated at the image's top and bottom only),
-``_pad_to_target`` is a no-op, BN takes the world's statistics, and the
-encoder features are the rank's rows. An eval chain through the conv
-kernel runs on its rows with a halo of L·pad rows per side (L layers), and
-drops the halo rows of its output, which hold every row the tile's own
-edges made wrong; the kernel is unchanged. The int8 mode runs its float
-prefix so, and its quantized layers one at a time on halo tiles, with the
-whole image's activation scales (``ops/quantize.py``).
+Under a spatial mesh (``parallel/halo.py``) each rank holds its rows of
+every map, by the layout the forward derives for each scale from the
+input's equal blocks (``halo.Rows``): a pool gives output row o to the
+rank holding input row 2·o, so a scale whose rows a pool splits (61 rows
+a rank, say) is held unequally, and each up-sampling doubles its input's
+layout. The SAME convs take halo rows (``layers.same_conv``), the
+max-pool fetches the row its last pair lacks (``layers.max_pool2``), the
+1×1 head is local, a ``transposed`` up-conv of k > 2 takes the (k − 1) //
+2 rows above whose overhang reaches its rows, ``pixelshuffle`` and the
+subpixel k4 up-conv are convs on the low-resolution grid (the latter
+recomputes the image's last row on the rank that holds it), the bilinear
+up-sample reads one halo row per side (its edge rows repeated at the
+image's top and bottom only), ``_pad_to_target`` re-lays the up-sampled
+map onto its skip's rows (and reflects the row an odd skip has more),
+BN takes the world's statistics, and the encoder features are the rank's
+rows (``parallel/mesh.py::gather_to_replicated`` exchanges their lengths).
+An eval chain through the conv kernel
+runs on its rows with a halo of L·pad rows per side (L layers), and drops
+the halo rows of its output, which hold every row the tile's own edges
+made wrong; the kernel is unchanged. The int8 mode runs its float prefix
+so, and its quantized layers one at a time on halo tiles, with the whole
+image's activation scales (``ops/quantize.py``).
 """
 
 import torch
@@ -76,7 +83,8 @@ from torch import nn
 from csmri_refinement_tpu_torch.models import weight_inits
 from csmri_refinement_tpu_torch.models import remat as remat_lib
 from csmri_refinement_tpu_torch.models.layers import (
-    leaky_relu, local_pad, pad, pad_sizes, same_conv, same_pad)
+    leaky_relu, local_pad, max_pool2, pad, pad_sizes, pool_rows, same_conv,
+    same_pad)
 from csmri_refinement_tpu_torch.ops import conv_chain
 from csmri_refinement_tpu_torch.ops import quantize
 from csmri_refinement_tpu_torch.parallel import halo
@@ -106,15 +114,25 @@ def _up2_axis(p, dim):
   return torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
 
 
-def _bilinear_up2(x):
+def _bilinear_up2(x, rows=None):
   """``jax.image.resize(x, (B, 2H, 2W, C), 'bilinear')`` of an NHWC
   tensor, as slices and ``lerp``s (a backward without atomics), NHWC
   throughout. The edge rows and columns repeat (``layers.pad``,
   'replicate'); under a spatial mesh the rows above and below a rank's
-  tile are the neighbours' halo rows instead, so each rank computes exactly
-  its 2·(H/S) output rows."""
-  p = _nhwc(pad(_nchw(x), (1, 1, 1, 1), 'replicate'))
+  tile are the neighbours' halo rows instead (``rows``: the layout), so
+  each rank computes exactly twice its rows."""
+  p = _nhwc(pad(_nchw(x), (1, 1, 1, 1), 'replicate', rows))
+  if not x.shape[1]:
+    return halo.no_rows((x.shape[0], 0, 2 * x.shape[2], x.shape[3]), p)
   return _up2_axis(_up2_axis(p, 1), 2)
+
+
+def _nearest_up2(x):
+  """Nearest 2× up-sampling of an NCHW map (a rank's block of no rows
+  gives none)."""
+  if not x.shape[2]:
+    return halo.no_rows(x.shape[:2] + (0, 2 * x.shape[3]), x)
+  return F.interpolate(x, scale_factor=2, mode='nearest')
 
 
 def _bn_act(x, bn, leak, dt):
@@ -222,38 +240,69 @@ class SubpixelNNResizeConv(nn.Conv2d):
     cout, cin = self.weight.shape[:2]
     return ksub.reshape(4 * cout, cin, 3, 3).to(dtype)
 
-  def forward(self, x):
-    """x: NCHW (B, Cin, H, W) → NHWC (B, 2H, 2W, Cout), in x's dtype."""
+  def forward(self, x, rows=None):
+    """x: NCHW (B, Cin, H, W) → NHWC (B, 2H, 2W, Cout), in x's dtype;
+    under a spatial mesh the rank's rows of a map of layout ``rows``."""
     dt = x.dtype
     bias = None if self.bias is None else self.bias.to(dt)
     low_pad = 'zero' if self.pad_mode == 'zero' else 'replication'
-    y4 = F.conv2d(same_pad(x, 3, low_pad), self.phase_weight(dt),
-                  None if bias is None else bias.repeat(4))
+    tile = same_pad(x, 3, low_pad, rows=rows)
+    phase_bias = None if bias is None else bias.repeat(4)
+    if x.shape[2]:
+      y4 = F.conv2d(tile, self.phase_weight(dt), phase_bias)
+    else:
+      y4 = halo.no_rows((x.shape[0], 4 * self.out_channels, 0, x.shape[3]),
+                        tile, self.weight, self.bias)
     b, c4, h, w = y4.shape
     cout = c4 // 4
     y = _nhwc(y4).reshape(b, h, w, 2, 2, cout).permute(0, 1, 3, 2, 4, 5) \
         .reshape(b, 2 * h, 2 * w, cout)
     if self.pad_mode == 'reflection':
       weight = self.weight.to(dt)
-      up = lambda v: F.interpolate(v, scale_factor=2, mode='nearest')
       mesh = halo.current()
-      if mesh is None or mesh.s == mesh.spatial - 1:
+      tail, fetched = x[:, :, -2:], False
+      if mesh is not None:     # the rank holding the image's last row
+        rows = rows or halo.equal_rows(x, mesh, 2)
+        last = max(r for r in range(mesh.spatial) if rows.count(r))
+        if rows.count(last) < 2:
+          tail, fetched = halo.fetch(x, mesh, rows, tuple(
+              (rows.height - 2, rows.height) if r == last else None
+              for r in range(mesh.spatial))), True
+      if mesh is None or mesh.s == last:
         # Rows 2H-4..2H-1 of the upsampled image, padded inside the slab
         # (which holds every row the reflection reaches): output row 2H-1.
-        row = local_pad(up(x[:, :, -2:]), (1, 2, 0, 2), 'reflect')
+        row = local_pad(_nearest_up2(tail), (1, 2, 0, 2), 'reflect')
         y[:, -1:] = _nhwc(F.conv2d(row, weight, bias)[:, :, 2:3])
-      col = pad(up(x[:, :, :, -2:]), (0, 2, 1, 2), 'reflect')
-      y[:, :, -1:] = _nhwc(F.conv2d(col, weight, bias)[:, :, :, 2:3])
+      elif fetched:
+        # an empty fetch of the rows the last rank lacked: every rank runs
+        # its backward's exchange
+        y = y + tail.sum() * 0
+      col = pad(_nearest_up2(x[:, :, :, -2:]), (0, 2, 1, 2), 'reflect',
+                None if rows is None else rows.up2())
+      if y.shape[1]:
+        y[:, :, -1:] = _nhwc(F.conv2d(col, weight, bias)[:, :, :, 2:3])
+      else:
+        y = y + col.sum() * 0
     return y
 
 
-def _pad_to_target(x, target):
-  """Reflect-pad bottom/right so x's spatial dims match target's."""
-  pad_bottom = target.shape[1] - x.shape[1]
+def _pad_to_target(x, target, rows=None, target_rows=None):
+  """Reflect-pad bottom/right so x's spatial dims match target's; under a
+  spatial mesh x of layout ``rows`` is re-laid onto ``target_rows``, the
+  target's (``halo.fetch``; the rows past x's last reflected)."""
+  if rows is None or rows == target_rows:
+    pad_bottom = target.shape[1] - x.shape[1]
+    pad_right = target.shape[2] - x.shape[2]
+    if pad_bottom or pad_right:
+      x = _nhwc(pad(_nchw(x), (0, pad_right, 0, pad_bottom), 'reflect'))
+    return x
   pad_right = target.shape[2] - x.shape[2]
-  if pad_bottom or pad_right:
-    x = _nhwc(pad(_nchw(x), (0, pad_right, 0, pad_bottom), 'reflect'))
-  return x
+  if pad_right and x.shape[1]:
+    x = _nhwc(local_pad(_nchw(x), (0, pad_right, 0, 0), 'reflect'))
+  elif pad_right:
+    x = halo.no_rows(x.shape[:2] + (target.shape[2], x.shape[3]), x)
+  return halo.fetch(x, halo.current(), rows, target_rows.halo(0, 0),
+                    'reflect', dim=1)
 
 
 class ConvEncodeUnit(nn.Module):
@@ -298,46 +347,52 @@ class ConvEncodeUnit(nn.Module):
       chain.append(conv_chain.ChainLayer(kernel, bias, self.leak))
     return chain
 
-  def _fused_chain(self, x):
+  def _fused_chain(self, x, rows=None):
     """Eval-mode chain through the conv kernel (``ops/conv_chain.py``),
     or its int8 mode with ``quantize_inference``; under a spatial mesh on
-    the rank's rows, the float chain with a halo of L·pad rows per side
-    (the int8 mode: ``ops/quantize.py``)."""
+    the rank's rows (layout ``rows``), the float chain with a halo of
+    L·pad rows per side (the int8 mode: ``ops/quantize.py``)."""
     dt = self.dtype or x.dtype
     mesh = halo.current()
     if self.quantize_inference:
       return quantize.chain_forward_int8(x.to(dt).contiguous(),
                                          self.chain_layers(),
-                                         pad_mode=self.padding, mesh=mesh)
+                                         pad_mode=self.padding, mesh=mesh,
+                                         rows=rows)
     if mesh is None:
       return conv_chain.chain_forward(x.to(dt).contiguous(),
                                       self.chain_layers(),
                                       pad_mode=self.padding)
     p1, p2 = pad_sizes(self.kernel_size)
-    top, bottom = self.num_layers * p1, self.num_layers * p2
-    tile = halo.halo_rows(x.to(dt), top, bottom, mesh, dim=1)
-    y = conv_chain.chain_forward(tile.contiguous(), self.chain_layers(),
+    tile, above = halo.tile(x.to(dt), mesh, rows or halo.equal_rows(x, mesh, 1),
+                            self.num_layers * p1, self.num_layers * p2, 1)
+    chain = self.chain_layers()
+    if not x.shape[1]:
+      return x.new_zeros(x.shape[:3] + (chain[-1].kernel.shape[-1],),
+                         dtype=dt)
+    y = conv_chain.chain_forward(tile.contiguous(), chain,
                                  pad_mode=self.padding)
-    return y.narrow(1, halo.taken(mesh, top, bottom)[0], x.shape[1])
+    return y.narrow(1, above, x.shape[1])
 
-  def _plain(self, x):
+  def _plain(self, x, rows=None):
     dt = self.dtype or x.dtype
     for i in range(self.num_layers):
       conv, bn = self._layer(i)
       bias = None if conv.bias is None else conv.bias.to(dt)
       x = _nhwc(same_conv(_nchw(x.to(dt)), conv.weight.to(dt), bias,
-                          self.padding))
+                          self.padding, rows=rows))
       x = _bn_act(x, bn, self.leak, dt)
     return x
 
-  def forward(self, x):
-    """x: (B, H, W, C). Returns (pooled, features) when downsampling."""
+  def forward(self, x, rows=None):
+    """x: (B, H, W, C), under a spatial mesh the rank's rows of a map of
+    layout ``rows``. Returns (pooled, features) when downsampling."""
     if not self.training and self.kernel_size in (3, 4):
-      x = self._fused_chain(x)
+      x = self._fused_chain(x, rows)
     else:
-      x = self._plain(x)
+      x = self._plain(x, rows)
     if self.downsample:
-      return _nhwc(F.max_pool2d(_nchw(x), 2, 2)), x
+      return _nhwc(max_pool2(_nchw(x), rows)), x
     return x
 
 
@@ -388,44 +443,54 @@ class ConvDecodeUnit(nn.Module):
           dtype=dtype, quantize_inference=quantize_inference)
       self.out_channels = num_filters
 
-  def forward(self, decode_path, encode_path=None):
+  def forward(self, decode_path, encode_path=None, rows=None,
+              skip_rows=None):
+    """Under a spatial mesh ``rows`` is the layout of ``decode_path`` and
+    ``skip_rows`` that of ``encode_path``, onto whose rows the up-sampled
+    map is re-laid."""
     dt = self.dtype or decode_path.dtype
     x = _nchw(decode_path.to(dt))
     conv = getattr(self, 'up_conv', None)
     bias = None if conv is None or conv.bias is None else conv.bias.to(dt)
+    up_rows = None if rows is None else rows.up2()
     if self.subpixel:
-      x = self.up_conv(x)
+      x = self.up_conv(x, rows)
     elif self.mode == 'transposed':
-      h, w = x.shape[2:]
+      b, _, h, w = x.shape
       mesh = halo.current()
       above = 0
       if mesh is not None:     # the overhang of the rows above
         reach = (conv.kernel_size[0] - 1) // 2
-        x = halo.halo_rows(x, reach, 0, mesh)
-        above = halo.taken(mesh, reach, 0)[0]
-      x = F.conv_transpose2d(x, conv.weight.to(dt), bias, stride=2)
-      # VALID gives 2H + k − 2: crop the overhang at the bottom/right
-      x = _nhwc(x[:, :, 2 * above:2 * (above + h), :2 * w])
+        x, above = halo.tile(x, mesh, rows or halo.equal_rows(x, mesh, 2), reach,
+                             0, 2)
+      if h:
+        x = F.conv_transpose2d(x, conv.weight.to(dt), bias, stride=2)
+        # VALID gives 2H + k − 2: crop the overhang at the bottom/right
+        x = _nhwc(x[:, :, 2 * above:2 * (above + h), :2 * w])
+      else:
+        x = _nhwc(halo.no_rows((b, conv.weight.shape[1], 0, 2 * w), x,
+                               conv.weight, bias))
     elif self.mode == 'pixelshuffle':
       x = _nhwc(F.pixel_shuffle(
-          same_conv(x, conv.weight.to(dt), bias, self.padding), 2))
+          same_conv(x, conv.weight.to(dt), bias, self.padding, rows=rows), 2))
     else:
       if self.mode in ('nn', 'nn-resize-conv'):
-        x = F.interpolate(x, scale_factor=2, mode='nearest')
+        x = _nearest_up2(x)
       else:
-        x = _nchw(_bilinear_up2(_nhwc(x)))
+        x = _nchw(_bilinear_up2(_nhwc(x), rows))
       if conv is not None:
-        x = same_conv(x, conv.weight.to(dt), bias, self.padding)
+        x = same_conv(x, conv.weight.to(dt), bias, self.padding, rows=up_rows)
       x = _nhwc(x)
     if self.act_upsampling_only:
       x = _bn_act(x, getattr(self, 'up_bn', None), self.leak, dt)
     if encode_path is not None:
-      x = _pad_to_target(x, encode_path)
+      x = _pad_to_target(x, encode_path, up_rows, skip_rows)
       x = torch.cat([encode_path.to(dt), x], dim=-1)
+      up_rows = skip_rows
     if not self.act_upsampling_only:
       x = _bn_act(x, getattr(self, 'merge_bn', None), self.leak, dt)
     if self.num_layers > 0:
-      x = self.decode(x)
+      x = self.decode(x, up_rows)
     return x
 
 
@@ -459,7 +524,6 @@ class UNET(nn.Module):
     n_enc = len(encode_filters)
     self.n_enc = n_enc
     self.n_dec = len(decode_filters)
-    self.row_factor = 2 ** (n_enc - 1)
 
     cin = num_inputs
     for scale, f in enumerate(encode_filters):
@@ -523,18 +587,27 @@ class UNET(nn.Module):
 
   def forward(self, inp):
     x = inp
-    features = []
+    # each scale's row layout under a spatial mesh (None without one)
+    rows = halo.equal_rows(inp, halo.current(), 1)
+    features, feature_rows = [], []
     for scale in range(self.n_enc):
       unit = getattr(self, 'encode_{}'.format(scale))
       if unit.downsample:
-        x, feat = self._run(unit, x)
+        x, feat = self._run(unit, x, rows)
         features.append(feat)
+        feature_rows.append(rows)
+        rows = pool_rows(rows)
       else:
-        x = self._run(unit, x)
+        x = self._run(unit, x, rows)
         last = x
     for scale, unit in enumerate(self._decoders()):
-      x = self._run(unit, x, features[-(scale + 1)]
-                    if scale < self.n_enc - 1 else None)
+      if scale < self.n_enc - 1:
+        skip_rows = feature_rows[-(scale + 1)]
+        x = self._run(unit, x, features[-(scale + 1)], rows, skip_rows)
+        rows = skip_rows
+      else:
+        x = self._run(unit, x, None, rows, None)
+        rows = None if rows is None else rows.up2()
     dt = self.dtype or x.dtype
     pred = _nhwc(F.conv2d(_nchw(x.to(dt)), self.head.weight.to(dt),
                           self.head.bias.to(dt)))

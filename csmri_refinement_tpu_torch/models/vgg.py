@@ -14,8 +14,10 @@ otherwise loading raises. Submodules are named ``conv_{i}`` as in the flax
 tree. With a ``dtype`` (bf16 under ``train_dtype``) the convs compute in
 it and the parameters stay f32; the ImageNet normalisation runs in f32
 before the first conv's cast, as in flax. Under a spatial mesh the convs
-take halo rows (``layers.same_conv``) and the pools are local;
-``row_factor`` is 2 per pool before the last block taken.
+take halo rows (``layers.same_conv``) and the pools fetch the row a
+rank's last pair lacks (``layers.max_pool2``), each block's rows by the
+layout its pools give (``halo.Rows``); ``feature_rows`` gives the
+outputs' layouts, for the loss.
 """
 
 import hashlib
@@ -24,10 +26,11 @@ import os
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from csmri_refinement_tpu_torch.models.layers import same_conv
+from csmri_refinement_tpu_torch.models.layers import (max_pool2, pool_rows,
+                                                     same_conv)
+from csmri_refinement_tpu_torch.parallel import halo
 
 # torchvision vgg19 cfg 'E'; 'M' = max-pool
 _CFG = [64, 64, 'M', 128, 128, 'M', 256, 256, 256, 256, 'M',
@@ -50,7 +53,6 @@ class VGG19(nn.Module):
     self.dtype = dtype
     if not self.output_blocks or self.output_blocks[-1] > 5:
       raise ValueError('VGG19 output blocks must lie in 0..5')
-    self.row_factor = 2 ** self.output_blocks[-1]
     cin = 3
     conv_idx = 0
     for item in _CFG:
@@ -64,8 +66,24 @@ class VGG19(nn.Module):
     self.register_buffer('std', torch.tensor(_IMAGENET_STD).reshape(
         1, 3, 1, 1), persistent=False)
 
+  @staticmethod
+  def block_rows(rows):
+    """The row layout of blocks 0..5 of an input of layout ``rows`` (each
+    block's is its first pool's input's; None without a mesh)."""
+    layouts = [rows]
+    for _ in range(5):
+      layouts.append(pool_rows(layouts[-1]))
+    return layouts
+
+  def feature_rows(self, inp):
+    """The row layouts of ``forward(inp)``'s outputs on this rank's rows
+    of the image ``inp`` (None each without a spatial mesh)."""
+    layouts = self.block_rows(halo.equal_rows(inp, halo.current(), 1))
+    return [layouts[b] for b in self.output_blocks]
+
   def forward(self, inp):
     x = (inp.permute(0, 3, 1, 2) - self.mean) / self.std
+    layouts = self.block_rows(halo.equal_rows(x, halo.current(), 2))
     last = self.output_blocks[-1]
     out = []
     block_idx = conv_idx = 0
@@ -75,13 +93,13 @@ class VGG19(nn.Module):
           out.append(x)
         if block_idx == last:
           break
+        x = max_pool2(x, layouts[block_idx])
         block_idx += 1
-        x = F.max_pool2d(x, 2, 2)
       else:
         conv = getattr(self, 'conv_{}'.format(conv_idx))
         dt = self.dtype or x.dtype
         x = torch.relu(same_conv(x.to(dt), conv.weight.to(dt),
-                                 conv.bias.to(dt)))
+                                 conv.bias.to(dt), rows=layouts[block_idx]))
         conv_idx += 1
     if last == 5:   # the pool-only block after the last conv
       out.append(x)

@@ -9,7 +9,10 @@ the target's. The target branch runs under ``torch.no_grad()`` (JAX's
 ``stop_gradient``), the VGG19 is frozen, and the distances are taken in f32
 whatever the VGG19's compute ``dtype`` (JAX ``:83-90``). With ``remat`` the
 prediction branch's features are recomputed in the backward (JAX ``:77``);
-the target branch stores nothing either way.
+the target branch stores nothing either way. Under a spatial mesh a block
+whose rows the ranks hold unequally (below a pool that split a rank's
+rows; its layout from ``VGG19.feature_rows``) is averaged as S times the
+rank's share (``halo.mean``).
 """
 
 import torch
@@ -17,10 +20,12 @@ import torch
 from csmri_refinement_tpu_torch.models import remat as remat_lib
 from csmri_refinement_tpu_torch.models.vgg import VGG19, load_vgg19_params
 from csmri_refinement_tpu_torch.ops import fft
+from csmri_refinement_tpu_torch.parallel import halo
 
+# (features a, b, their NCHW row layout) → the mean distance
 _CRITERIA = {
-    'MSE': lambda a, b: torch.mean((a - b) ** 2),
-    'L1': lambda a, b: torch.mean(torch.abs(a - b)),
+    'MSE': lambda a, b, rows: halo.mean((a - b) ** 2, rows, 2),
+    'L1': lambda a, b, rows: halo.mean(torch.abs(a - b), rows, 2),
 }
 
 
@@ -69,7 +74,9 @@ class VGGLoss:
     loss = 0.0
     # Features in ascending block order; the weights follow the blocks'
     # config order, which the JAX loss pairs with its sorted outputs too.
-    for weight, pred_f, target_f in zip(self.weights, pred_features,
-                                        target_features):
-      loss = loss + weight * self.criterion(pred_f.float(), target_f.float())
+    for weight, pred_f, target_f, rows in zip(
+        self.weights, pred_features, target_features,
+        self.vgg.feature_rows(pred_in)):
+      loss = loss + weight * self.criterion(pred_f.float(), target_f.float(),
+                                            rows)
     return loss

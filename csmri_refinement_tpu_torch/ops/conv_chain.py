@@ -105,7 +105,7 @@ def conv_layer_plain(x, layer, pad_mode='reflection'):
   dt = x.dtype
   k = layer.kernel.shape[0]
   weight = layer.kernel.to(dt).float().permute(3, 2, 0, 1)
-  y = F.conv2d(layers.same_pad(x.float().permute(0, 3, 1, 2), k, pad_mode),
+  y = F.conv2d(layers.tile_pad(x.float().permute(0, 3, 1, 2), k, pad_mode),
                weight)
   if layer.bias is not None:
     y = y + layer.bias.float()[:, None, None]
@@ -521,7 +521,7 @@ def conv_layer_int8_plain(x, act_scale, layer, pad_mode='reflection',
   """
   k = layer.kernel.shape[0]
   weight = layer.kernel.double().permute(3, 2, 0, 1)
-  acc = F.conv2d(layers.same_pad(x.double().permute(0, 3, 1, 2), k,
+  acc = F.conv2d(layers.tile_pad(x.double().permute(0, 3, 1, 2), k,
                                  pad_mode), weight).permute(0, 2, 3, 1)
   y = _epilogue(acc, act_scale, layer)
   amax = y.abs().amax(dim=(1, 2, 3)) if want_amax else None

@@ -45,13 +45,14 @@ on packed ``(B, H, W, 2)`` float32 images, ``(B, H, W, 1)`` float32 masks.
   ops ``csmri::dc_rows_fft``, ``csmri::dc_cols`` and ``csmri::dc_rows_ifft``,
   as K1 is ``csmri::dc``.
 * ``dc_distributed`` — the DC of a spatial mesh's rank (``parallel/halo.py``):
-  x holds the rank's H/S image rows, k0 and mask all H rows of its W/S
-  columns (``parallel/mesh.py``). Pass 1 on the rank's rows,
+  x holds the rank's H/S image rows, k0 and mask all H rows of its column
+  block (``parallel/mesh.py::col_bounds``: W/S columns, one more on the
+  first W mod S ranks, so S need not divide W). Pass 1 on the rank's rows,
   ``halo.rows_to_cols`` (one all-to-all over the spatial group), pass 2 on
   the rank's columns with its k0 and mask columns, ``halo.cols_to_rows``,
   pass 3: every line is transformed once in the group, and each rank's
   output is its rows of the whole image's DC, bit for bit. Each rank sends
-  2(S − 1)/S² of an image per DC. The backward (``_DistributedDCFunction``)
+  2(S − 1)/S² of an image per DC (its blocks' share, where they differ). The backward (``_DistributedDCFunction``)
   is the same pipeline on the gradient with a null k0 (K1-bwd's
   ``DC(g, 0, m)``), so no autograd runs through the collectives;
   ``grad_k0``, where k0 needs one, is the FFT along H of the exchanged
@@ -75,6 +76,7 @@ import torch
 from csmri_refinement_tpu_torch.ops import fft
 from csmri_refinement_tpu_torch.ops import native
 from csmri_refinement_tpu_torch.parallel import halo
+from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 
 MAX_SIZE = 512
 
@@ -391,16 +393,20 @@ def _rows_launch(name, x, height, inverse):
 
 def check_cols_block(name, w, width, route):
   """Raise unless a block of ``w`` of an image's ``width`` columns is one
-  the column pass takes on ``route``: a block that divides the width and,
-  on the radix route, whole 16-column strips (or one strip of a power of
-  two below 16)."""
+  the column pass takes on ``route``: on the radix route a block that
+  divides the width in whole 16-column strips (or one strip of a power of
+  two below 16); on the dense route any block of 1 to ``width`` columns
+  (``csrc/dc.cu``'s ``dft_cols`` walks partial strips and takes the block
+  as its row stride)."""
   strip = min(w, 16)
-  if width % w or (route == 'fft' and (w % strip or strip & (strip - 1))):
+  if not 1 <= w <= width or (route == 'fft' and (
+      width % w or w % strip or strip & (strip - 1))):
     raise ValueError(
         '{}: a block of {} of the image\'s {} columns; the column pass '
-        'takes a block that divides the width and, on the radix route, '
-        'whole 16-column strips (or one strip of a power of two below 16)'
-        .format(name, w, width))
+        'takes, on the radix route, a block that divides the width in whole '
+        '16-column strips (or one strip of a power of two below 16), on the '
+        'dense route a block of 1 to {} columns'.format(name, w, width,
+                                                       width))
 
 
 def _cols_launch(name, t, k0, mask, width):
@@ -531,7 +537,7 @@ def _pipeline(x, k0, mask, mesh, rows_fft, cols, rows_ifft):
   """Pass 1 on the rows, the exchange to columns, pass 2, the exchange
   back, pass 3."""
   t = halo.rows_to_cols(rows_fft(x), mesh)
-  return rows_ifft(halo.cols_to_rows(cols(t, k0, mask), mesh))
+  return rows_ifft(halo.cols_to_rows(cols(t, k0, mask), mesh, x.shape[2]))
 
 
 def _forward_passes(height, width):
@@ -567,23 +573,24 @@ class _DistributedDCFunction(torch.autograd.Function):
     rows_fft, cols, rows_ifft = _backward_passes(g.device, *ctx.sides)
     t = halo.rows_to_cols(rows_fft(g.float().contiguous()), mesh)
     grad_k0 = _fft_along(t, 1) if need_k0 else None
-    grad_x = rows_ifft(halo.cols_to_rows(cols(t, None, mask), mesh)) \
-        if need_x else None
+    grad_x = rows_ifft(halo.cols_to_rows(cols(t, None, mask), mesh,
+                                         ctx.sides[1])) if need_x else None
     return grad_x, grad_k0, None, None
 
 
 def check_distributed(x, k0, mask, mesh):
-  """Raise unless x (B, H/S, W, 2) rows and k0 (B, H, W/S, 2), mask
-  (B, H, W/S, 1) columns are one rank's parts of (B, H, W) images."""
+  """Raise unless x (B, H/S, W, 2) rows and k0 (B, H, w_s, 2), mask
+  (B, H, w_s, 1) columns (this rank's column block of ``col_bounds``) are
+  one rank's parts of (B, H, W) images."""
   b, h, w = x.shape[:3]
   s = mesh.spatial
-  want = (b, h * s, w // s)
-  if w % s or tuple(k0.shape[:3]) != want or tuple(mask.shape[:3]) != want:
+  want = (b, h * s, mesh_lib.col_bounds(w, s).count(mesh.s))
+  if tuple(k0.shape[:3]) != want or tuple(mask.shape[:3]) != want:
     raise ValueError(
-        'the DC on {} ranks: x of {} rows and {} columns needs k0 and mask '
-        'of {} rows and {} columns (a width that divides by {}), got {} and '
-        '{}'.format(s, h, w, h * s, w // s, s, tuple(k0.shape),
-                    tuple(mask.shape)))
+        'the DC on {} ranks: x of {} rows and {} columns needs, on rank {}, '
+        'k0 and mask of {} rows and {} columns, got {} and {}'.format(
+            s, h, w, mesh.s, want[1], want[2], tuple(k0.shape),
+            tuple(mask.shape)))
 
 
 def dc_distributed(x, k0, mask, mesh):

@@ -15,10 +15,12 @@ rewrites under ``jit`` into a multiply by the constant's reciprocal
 (measured on its CPU backend), and one ulp of scale moves rounding ties.
 
 Under a spatial mesh (``parallel/halo.py``; ``chain_forward_int8``'s
-``mesh``) each rank holds its image rows. Every per-image amax is taken
-over the spatial group (an ``all_reduce`` MAX), so each rank quantizes with
-the whole image's scale; which layers are quantized is decided at the whole
-image's height. The float prefix runs on one halo tile of its layers' pad
+``mesh``) each rank holds its rows of the map (``rows``: their layout,
+equal blocks or the unequal ones a pool that split a rank's rows left).
+Every per-image amax is taken over the spatial group (an ``all_reduce``
+MAX; a rank holding no rows adds 0), so each rank quantizes with the whole
+image's scale; which layers are quantized is decided at the whole map's
+height. The float prefix runs on one halo tile of its layers' pad
 rows, as an eval chain does (``models/unet.py``); the quantized layers run
 one at a time, each on a halo tile of its own pad rows, since each requant
 needs the group's amax of the layer before. A layer's amax is then taken
@@ -67,7 +69,10 @@ def quantize_weight(w):
 def image_amax(y, mesh=None):
   """Per-image max |y| (B,) f32 of an NHWC tensor; under ``mesh``, of the
   whole image whose rows the ranks of the spatial group hold."""
-  amax = y.float().abs().amax(dim=(1, 2, 3))
+  if y.shape[1]:
+    amax = y.float().abs().amax(dim=(1, 2, 3))
+  else:     # a rank that holds none of the rows
+    amax = y.new_zeros(y.shape[:1], dtype=torch.float32)
   if mesh is not None:
     mesh_lib.all_reduce(amax, mesh.spatial_group, dist.ReduceOp.MAX)
   return amax
@@ -97,7 +102,8 @@ def quantize_chain(chain):
   return out
 
 
-def chain_forward_int8(x, chain, *, pad_mode='reflection', mesh=None):
+def chain_forward_int8(x, chain, *, pad_mode='reflection', mesh=None,
+                       rows=None):
   """int8 serving-mode counterpart of ``conv_chain.chain_forward``.
 
   The suffix of layers ``conv_chain.int8_suffix_start`` picks runs
@@ -106,15 +112,18 @@ def chain_forward_int8(x, chain, *, pad_mode='reflection', mesh=None):
   on the card. The JAX package runs those prefix layers as XLA convs with
   the bias added in the compute dtype; the math is the same, and the
   roundings differ slightly. Returns (B, H, W, Cout_last) in ``x.dtype``.
-  Under a spatial ``mesh`` x holds the rank's rows (module docstring).
+  Under a spatial ``mesh`` x holds the rank's rows of a map of layout
+  ``rows`` (None: equal blocks; module docstring).
   """
   _, h, w, _ = x.shape
   n = len(chain)
-  start = conv_chain.int8_suffix_start(
-      chain, h * (mesh.spatial if mesh is not None else 1), w)
+  if mesh is not None:
+    rows = rows or halo.equal_rows(x, mesh, 1)
+    h = rows.height
+  start = conv_chain.int8_suffix_start(chain, h, w)
   _TRACE_LOG.add((n, n - start))
   if mesh is not None:
-    return _chain_rows_int8(x, chain, start, pad_mode, mesh)
+    return _chain_rows_int8(x, chain, start, pad_mode, mesh, rows)
   for layer in chain[:start]:
     x = conv_chain.conv_layer(x, layer, pad_mode)
   if start == n:
@@ -129,17 +138,20 @@ def _pads(layer):
   return layers.pad_sizes(layer.kernel.shape[0])
 
 
-def _on_tile(x, top, bottom, mesh, fn):
-  """``fn`` on the rank's rows of ``x`` with ``top`` and ``bottom`` halo
-  rows; the rank's rows of its output."""
-  tile = halo.halo_rows(x, top, bottom, mesh, dim=1).contiguous()
-  y = fn(tile)
-  return y.narrow(1, halo.taken(mesh, top, bottom)[0], x.shape[1])
+def _on_tile(x, top, bottom, mesh, rows, fn, channels, dtype):
+  """``fn`` on the rank's rows of ``x`` (layout ``rows``) with ``top`` and
+  ``bottom`` halo rows; the rank's rows of its output (``channels`` of
+  ``dtype``: none on a rank that holds no rows)."""
+  tile, above = halo.tile(x, mesh, rows, top, bottom, 1)
+  if not x.shape[1]:
+    return x.new_zeros(x.shape[:3] + (channels,), dtype=dtype)
+  return fn(tile.contiguous()).narrow(1, above, x.shape[1])
 
 
-def _chain_rows_int8(x, chain, start, pad_mode, mesh):
+def _chain_rows_int8(x, chain, start, pad_mode, mesh, rows):
   """``chain_forward_int8`` on the rank's rows of a spatial mesh."""
   n = len(chain)
+  cout = lambda layer: layer.kernel.shape[-1]
   if start:
     def prefix(tile):
       for layer in chain[:start]:
@@ -147,16 +159,21 @@ def _chain_rows_int8(x, chain, start, pad_mode, mesh):
       return tile
     pads = [_pads(layer) for layer in chain[:start]]
     x = _on_tile(x, sum(p[0] for p in pads), sum(p[1] for p in pads), mesh,
-                 prefix)
+                 rows, prefix, cout(chain[start - 1]), x.dtype)
   if start == n:
     return x
   xi, scale = quantize_act(x, mesh)
   for i, layer in enumerate(quantize_chain(chain[start:])):
     last = start + i + 1 == n
     out_dtype = x.dtype if last else torch.float32
-    y = _on_tile(xi, *_pads(layer), mesh, lambda tile: conv_chain.
+    y = _on_tile(xi, *_pads(layer), mesh, rows, lambda tile: conv_chain.
                  conv_layer_int8(tile, scale, layer, pad_mode,
-                                 out_dtype)[0]).contiguous()
+                                 out_dtype)[0], cout(layer),
+                 out_dtype).contiguous()
     if last:
       return y
-    xi, scale = conv_chain.requant(y, image_amax(y, mesh))
+    amax = image_amax(y, mesh)
+    if y.shape[1]:
+      xi, scale = conv_chain.requant(y, amax)
+    else:     # no rows to requantize: only the group's scale
+      xi, scale = y.to(torch.int8), amax.clamp_min(1e-8) * INV_127

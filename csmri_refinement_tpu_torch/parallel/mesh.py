@@ -24,28 +24,35 @@ block ``s``); the D ranks of one ``s`` form a data group.
   rows by ``d`` (axis 0, or axis 1 of a ``(steps, batch, ...)`` stack),
   then, for leaves of three or more dims after those, its image rows by
   ``s`` (the next axis), or for ``COLUMN_KEYS`` its image columns (the
-  axis after); a batch or an image that does not divide raises.
-  Image rows must divide by S times the model's largest downsampling
-  factor (``row_factor``, which the runner sets): each rank's rows then
-  pool, stride and up-sample like the whole image's. JAX's GSPMD would pad
-  an uneven split; the port raises instead, naming the key. The k-space
-  and the mask (``COLUMN_KEYS``) are cut into column blocks, where JAX's
-  ``_batch_spec`` cuts rows like every image: the DC's merge runs on whole
-  columns (``ops/dc_kernel.py::dc_distributed``), so its k-space operands
-  arrive in the layout they are used in;
+  axis after); a batch, or image rows, that S does not divide raise, as
+  JAX's ``shard_batch`` (``device_put`` of an uneven split) does. Inside
+  a network a map's rows need not divide: where a stride or a pool splits
+  a rank's rows, the layers hand the rows on by ``parallel/halo.py``'s
+  layouts, as GSPMD reshards. The k-space and the mask (``COLUMN_KEYS``)
+  are cut into column blocks by one balanced rule, ``col_bounds``: W // S
+  columns each, and one more on each of the first W mod S ranks, so any
+  width goes through. JAX's ``_batch_spec`` cuts their rows like every
+  image; the DC's merge runs on whole columns
+  (``ops/dc_kernel.py::dc_distributed``), so its k-space operands arrive
+  in the layout they are used in;
 * ``replicate``: parameters and buffers broadcast from rank 0;
 * ``gather_to_replicated``: image rows all-gathered over the spatial group,
   then the batch over the data group, in rank order, so that every rank
   holds the global batch (the metrics). Leaves under ``COLUMN_KEYS`` are
-  gathered along their columns instead; leaves under ``WHOLE_KEYS`` are
-  whole on every rank of a spatial group already (the discriminator's head
-  outputs) and are gathered over the data group only;
+  gathered along their columns instead; the ranks' blocks may differ in
+  length, which the ranks exchange first (``gather_blocks`` pads each to
+  the longest); leaves under ``WHOLE_KEYS`` are whole on every rank of a
+  spatial group already (the discriminator's head outputs) and are
+  gathered over the data group only;
 * ``average_``: tensors averaged over the world in place. Every rank's loss
-  is S times its share of its data group's loss: a mean over its rows,
-  which are equally many on every rank, or a value every rank of the
-  spatial group holds whole. Averaging over the world therefore sums the
-  shares over the spatial group and averages over the data group, for the
-  fetched losses and for the gradients alike;
+  is S times its share of its data group's loss: of a mean over an image's
+  rows, which are equally many on every rank, the rank's mean; of a mean
+  over a map whose rows the ranks hold unequally (a feature map below a
+  split stride), S times the rank's sum over the whole map's count
+  (``halo.mean``); of a value every rank of the spatial group holds whole,
+  the value. Averaging over the world therefore sums the shares over the
+  spatial group and averages over the data group, for the fetched losses
+  and for the gradients alike;
 * ``sync_batchnorm``: the BatchNorm layers of a model take their train-mode
   statistics over the world (``models/unet.py::BatchNorm2d``, through the
   differentiable ``all_reduce_sum``) when the world is above 1.
@@ -90,7 +97,6 @@ class Mesh:
   spatial: int = 1
   data_group: Optional[Any] = None
   spatial_group: Optional[Any] = None
-  row_factor: int = 1
 
   @property
   def data(self):
@@ -118,25 +124,27 @@ class Mesh:
     return slice(self.d * per, (self.d + 1) * per)
 
   def image_rows(self, n):
-    """This rank's slice of an image axis of ``n`` rows."""
-    if n % (self.spatial * self.row_factor):
-      raise ValueError(
-          'mesh spatial={}: an image of {} rows does not divide into {} '
-          'row blocks of a multiple of {} (the model\'s largest '
-          'downsampling factor); use a spatial count that divides H / {}'
-          .format(self.spatial, n, self.spatial, self.row_factor,
-                  self.row_factor))
+    """This rank's slice of an image axis of ``n`` rows (H/S each)."""
+    if n % self.spatial:
+      raise ValueError('mesh spatial={}: an image of {} rows does not divide '
+                       'into {} row blocks'.format(self.spatial, n,
+                                                   self.spatial))
     per = n // self.spatial
     return slice(self.s * per, (self.s + 1) * per)
 
   def image_cols(self, n):
-    """This rank's slice of an image axis of ``n`` columns."""
-    if n % self.spatial:
-      raise ValueError('mesh spatial={}: an image of {} columns does not '
-                       'divide into {} column blocks'.format(
-                           self.spatial, n, self.spatial))
-    per = n // self.spatial
-    return slice(self.s * per, (self.s + 1) * per)
+    """This rank's slice of an image axis of ``n`` columns
+    (``col_bounds``)."""
+    return slice(*col_bounds(n, self.spatial).block(self.s))
+
+
+def col_bounds(n, spatial):
+  """The column blocks of an image of ``n`` columns over ``spatial``
+  ranks: n // spatial each, and one more on each of the first n mod
+  spatial ranks (a ``halo.Rows`` layout of the columns)."""
+  from csmri_refinement_tpu_torch.parallel.halo import Rows
+  per, extra = divmod(n, spatial)
+  return Rows(tuple(r * per + min(r, extra) for r in range(spatial + 1)))
 
 
 def _running_group():
@@ -210,14 +218,16 @@ def all_gather(t, group):
   return parts
 
 
-def all_to_all(t, group):
-  """Part i of ``t`` (its axis 0, one part per rank of the group) to rank
-  i; returns what every rank sent this one, in rank order along axis 0.
-  ``dist.all_to_all_single``, which gloo runs on CUDA tensors too (its list
-  form it refuses)."""
+def all_to_all(t, group, send_sizes, recv_sizes):
+  """Part i of ``t``, its next ``send_sizes[i]`` slices along axis 0, to
+  rank i of the group; returns what every rank sent this one, in rank
+  order along axis 0 (``recv_sizes[i]`` slices from rank i).
+  ``dist.all_to_all_single``, which gloo runs on CUDA tensors too (its
+  list form it refuses)."""
   t = t.contiguous()
-  out = torch.empty_like(t)
-  dist.all_to_all_single(out, t, group=group)
+  out = t.new_empty((sum(recv_sizes),) + tuple(t.shape[1:]))
+  dist.all_to_all_single(out, t, list(recv_sizes), list(send_sizes),
+                         group=group)
   return out
 
 
@@ -256,9 +266,9 @@ def _image_part(x, mesh, axis, kind):
   if kind == WHOLE:
     return x
   if kind == COLS:
-    axis += 1
-  part = mesh.image_cols if kind == COLS else mesh.image_rows
-  return x[(slice(None),) * axis + (part(x.shape[axis]),)]
+    return x[(slice(None),) * (axis + 1) +
+             (mesh.image_cols(x.shape[axis + 1]),)]
+  return x[(slice(None),) * axis + (mesh.image_rows(x.shape[axis]),)]
 
 
 def _cut(x, mesh, axis, kind):
@@ -312,9 +322,18 @@ def replicate(module, mesh):
   return module
 
 
-def _gather(t, group, dim):
+def gather_blocks(t, group, dim, counts=None):
+  """``t`` of every rank of ``group`` joined along ``dim`` in rank order;
+  rank r's block is ``counts[r]`` long (None: every block as long as
+  this rank's). Each is padded to the longest for the ``all_gather`` and
+  cut back."""
   wire = t.to(torch.uint8) if t.dtype == torch.bool else t
-  out = torch.cat(all_gather(wire, group), dim)
+  if counts is None:
+    counts = [wire.shape[dim]] * dist.get_world_size(group)
+  sizes = list(wire.shape)
+  sizes[dim] = max(counts) - wire.shape[dim]
+  parts = all_gather(torch.cat([wire, wire.new_zeros(sizes)], dim), group)
+  out = torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, counts)], dim)
   return out.to(torch.bool) if t.dtype == torch.bool else out
 
 
@@ -323,19 +342,40 @@ def gather_to_replicated(tree, mesh, rows=True):
   with ``rows``, the image rows (axis 1) of leaves of three or more dims
   over the spatial group (the columns, axis 2, of those under
   ``COLUMN_KEYS``; not those under ``WHOLE_KEYS``), then axis 0 over the
-  data group. Numpy arrays and scalars pass unchanged; so does the tree
-  without a group."""
+  data group. The ranks' blocks along the spatial axis may differ (a
+  column block of a width S does not divide, a feature map below a stride
+  that split a rank's rows): the leaves' lengths there are exchanged first,
+  in one ``all_gather`` over the spatial group. Numpy arrays and scalars
+  pass unchanged; so does the tree without a group."""
   if mesh is None or mesh.group is None:
     return tree
+  spatial = rows and mesh.spatial_group is not None
+
+  def axis(t, kind):
+    """The axis of ``t`` that the spatial group splits, or None."""
+    if spatial and isinstance(t, torch.Tensor) and t.ndim >= 3 and \
+        kind != WHOLE:
+      return 2 if kind == COLS else 1
+    return None
+
+  split = []
+
+  def length(t, kind):
+    if axis(t, kind):
+      split.append(t.shape[axis(t, kind)])
+  _map(length, tree)
+  if split:
+    lengths = all_gather(torch.tensor(split, device=mesh.device),
+                         mesh.spatial_group)
+    counts = iter(torch.stack(lengths, 1).tolist())
 
   def gather(t, kind):
     if not isinstance(t, torch.Tensor) or t.ndim == 0:
       return t
-    if rows and mesh.spatial_group is not None and kind != WHOLE and \
-        t.ndim >= 3:
-      t = _gather(t, mesh.spatial_group, 2 if kind == COLS else 1)
+    if axis(t, kind):
+      t = gather_blocks(t, mesh.spatial_group, axis(t, kind), next(counts))
     if mesh.data_group is not None:
-      t = _gather(t, mesh.data_group, 0)
+      t = gather_blocks(t, mesh.data_group, 0)
     return t
   return _map(gather, tree)
 

@@ -160,8 +160,7 @@ class AdversarialRunner(BaseRunner):
     self.train_remat = False
     if mode == 'train':
       self._build_training(conf)
-      self._setup_mesh(self.preparer, self.gen, self.disc,
-                       criteria=self.gen_criteria.values())
+      self._setup_mesh(self.preparer, self.gen, self.disc)
       if self.mesh is not None:
         self.disc.batch_shard = self.mesh.shard
     else:

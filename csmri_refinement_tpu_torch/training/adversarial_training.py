@@ -10,7 +10,8 @@ in a data-parallel run the pool sees the global batch (the rank's rows
 gathered in rank order, queried, the rank's rows kept). Under a spatial
 mesh each rank's pool stores its image rows of the global batch's images,
 with the decisions every rank draws alike; the per-example normalisation
-takes the whole image's statistics (sums over the spatial group).
+takes the whole image's statistics (sums over the spatial group, the
+count of its elements among them).
 
 ``strip_bg_class`` drops channel 0 (the background class) of the
 prediction first. The conditional-input keys are taken as the JAX package
@@ -38,8 +39,11 @@ def _normalize_per_example(x):
     flat = flat - flat.mean(dim=1, keepdim=True)
     std = flat.std(dim=1, keepdim=True, correction=0)
   else:
-    n = h * w * mesh.spatial
-    flat = flat - halo.sum_rows(flat.sum(1, keepdim=True), mesh) / n
+    count = flat.new_full((b, 1, c), h * w)
+    stats = halo.sum_rows(torch.cat([flat.sum(1, keepdim=True), count], 1),
+                          mesh)
+    n = stats[:, 1:]
+    flat = flat - stats[:, :1] / n
     std = torch.sqrt(halo.sum_rows((flat * flat).sum(1, keepdim=True),
                                    mesh) / n)
   flat = flat / (std + 1e-12)

@@ -34,13 +34,13 @@ over the S ranks of a spatial group as well: the preparer cuts its batch
 to the rank's rows, the steps run inside ``parallel/halo.py::sharded_rows``
 (the layers' halos, the DC's row gathers), and the metrics' data gathers
 the rows, then the batch (``_gather``). The loss of a rank is then S times
-its share (a mean over its rows, or a value every rank of the group holds
-whole), so the same world averages give the global batch's losses and
-gradients (``parallel/mesh.py``). The first batch whose image rows do not
-divide by S times the models' largest downsampling factor raises.
+its share (a mean over its rows, a feature map's weighted by the rank's
+part of its rows where a stride split them, or a value every rank of the
+group holds whole), so the same world averages give the global batch's
+losses and gradients (``parallel/mesh.py``). The first batch whose image
+rows do not divide by S raises, as JAX's ``shard_batch`` does.
 """
 
-import dataclasses
 import logging
 from itertools import chain
 
@@ -49,7 +49,6 @@ import torch
 from csmri_refinement_tpu_torch.data.transform_wrappers import (
     get_input_batch_transform, get_output_transform)
 from csmri_refinement_tpu_torch.metrics import accumulate_metric
-from csmri_refinement_tpu_torch.parallel import halo
 from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 
 
@@ -104,26 +103,21 @@ class BaseRunner:
     self._pending_host_batch = None
     self.mesh = None
 
-  def _setup_mesh(self, preparer, *models, criteria=()):
+  def _setup_mesh(self, preparer, *models):
     """Take the run's mesh in mode 'train', and in mode 'test' under a
     process group (the validate CLI under torchrun): the models' states
     broadcast from rank 0, their BatchNorm statistics over the group, the
-    preparer's draws and rows sharded; the image rows must divide by the
-    largest downsampling factor of the models and of the criteria's
-    networks. A single process in mode 'test' evaluates whole images."""
+    preparer's draws and rows sharded. A single process in mode 'test'
+    evaluates whole images."""
     if self.mode != 'train' and not mesh_lib.multiprocess():
       if (self.conf.get_attr('mesh', default=None) or {}).get(
           mesh_lib.SPATIAL_AXIS, 1) not in (1, None):
         logging.warning('mesh: one process evaluates whole images; start '
                         'the processes of the spatial axis to shard rows')
       return
-    mesh = mesh_lib.mesh_from_conf(self.conf, self.device)
-    if mesh is None:
+    self.mesh = mesh_lib.mesh_from_conf(self.conf, self.device)
+    if self.mesh is None:
       return
-    networks = [getattr(getattr(c, 'criterion', None), 'vgg', None)
-                for c in criteria]
-    self.mesh = dataclasses.replace(
-        mesh, row_factor=halo.row_factor(*models, *networks))
     for model in models:
       mesh_lib.replicate(model, self.mesh)
       mesh_lib.sync_batchnorm(model, self.mesh)

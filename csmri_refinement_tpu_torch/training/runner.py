@@ -127,8 +127,7 @@ class Runner(BaseRunner):
       self.train_metric_fns = {
           name: get_metric_fn(conf, name)
           for name in conf.get_attr('train_metrics', default=[])}
-    self._setup_mesh(self.preparer, self.model,
-                     criteria=self.criteria.values())
+    self._setup_mesh(self.preparer, self.model)
 
   def _model_inputs(self, batch):
     return [batch[k] for k in self.input_keys]

@@ -34,8 +34,15 @@ parameter gradients summed over the ranks first; ``EXACT_CASES``: 0.0
 when equal bit for bit, else 1.0; the int8 U-Net's: ``_int8_unet_case``),
 and under ``dc_moved`` the bytes each collective sends off the rank in one
 DC, over the image's. Each scenario's result records the shapes of its
-first prepared train batch (``shapes``); ``int8_validate`` validates the
-int8 U-Net from the parent's weights (``run_int8_validate``).
+first prepared train batch (``shapes``), and those of ``WIDTHS`` save
+their first validation batch as the metrics' gather gave it
+(``<name>_val_rank<r>.npz``); ``int8_validate`` validates the
+int8 U-Net from the parent's weights (``run_int8_validate``). The
+scenarios of ``UNEVEN_SIDES`` run at sides whose rows per spatial rank a
+stride or a pool splits (those of ``WIDTHS`` on images cut to fewer
+columns); ``adversarial_jax36`` replays the JAX package's
+spatial GAN update (``<out>/adversarial_jax36_init.pt``, ``.npz``), and
+``uneven_units`` is ``tests/_torch_uneven_child.py``'s.
 """
 
 import json
@@ -157,14 +164,38 @@ def jax_prefix(name):
   return 'jax' if name == 'standard_jax' else name
 
 
+# Sides whose rows per spatial rank a stride or a pool splits: the GAN's
+# discriminator and VGG19 at 36² (18 rows a rank on two), a 2-scale
+# segmentation U-Net at 34² (17).
+UNEVEN_SIDES = {'adversarial36': 36, 'adversarial_jax36': 36,
+                'adversarial36x35': 36, 'segmentation2_34': 34}
+# Scenarios whose images are cut to fewer columns (the Synthetic phantoms
+# are square): the GAN at 36 × 35, whose k-space and mask split into column
+# blocks of 18 and 17 on two spatial ranks.
+WIDTHS = {'adversarial36x35': 35}
+
+
 def _conf_dict(name, repo):
-  if name == 'adversarial':
-    return _adversarial_conf()
+  if name.startswith('adversarial'):
+    conf = _adversarial_conf()
+    if name == 'adversarial_jax36':
+      # JAX's ``tests/test_parallel.py::_adv_conf``: no dropout, one update
+      # of 8 images, whose pool of 16 hands the fakes back as they come
+      del conf['discriminator_model']['dropout_after']
+      del conf['discriminator_model']['dropout_prob']
+      conf['synthetic'] = {'image_size': 36, 'num_train': 8, 'num_val': 8}
+    elif name in UNEVEN_SIDES:
+      conf['synthetic'] = dict(conf['synthetic'],
+                               image_size=UNEVEN_SIDES[name])
+    return conf
   if name.startswith('segmentation'):
     conf = _segmentation_conf(repo)
     conf['train_remat'] = name == 'segmentation_remat'
-    if name == 'segmentation2':     # two scales
+    if name.startswith('segmentation2'):     # two scales
       conf['model'].update(encode_filters=[8, 16], decode_filters=[8])
+    if name in UNEVEN_SIDES:
+      conf['synthetic'] = dict(conf['synthetic'],
+                               image_size=UNEVEN_SIDES[name])
     return conf
   conf = _standard_conf()
   if name == 'standard_spf2':
@@ -192,6 +223,40 @@ def _replay_jax(runner, out_dir, name):
 
   prep.prepare_train = prepare_train
   prep._val_mask = lambda index, h, w: torch.from_numpy(masks['val'][index])
+
+
+def _replay_jax_gan(runner, out_dir):
+  """Give the GAN runner the JAX run's initial generator, discriminator
+  and VGG19 weights and its train masks (``adversarial_jax36``)."""
+  import torch
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  prefix = os.path.join(out_dir, jax_prefix('adversarial_jax36'))
+  init = torch.load(prefix + '_init.pt')
+  runner.gen.load_state_dict(init['generator'])
+  runner.disc.load_state_dict(init['discriminator'])
+  runner.gen_criteria['VGG19'].criterion.vgg.load_state_dict(init['vgg'])
+  masks = np.load(prefix + '.npz')
+  prep = runner.preparer
+
+  def prepare_train(generator, host_batch):
+    mask = masks['train'][runner.step][runner.mesh.rows(8)] \
+        if runner.mesh is not None else masks['train'][runner.step]
+    return prep._passthrough(us.undersample_batch(
+        None, prep._gt(host_batch), fixed_mask=torch.from_numpy(mask)),
+                             host_batch)
+
+  prep.prepare_train = prepare_train
+
+
+def _crop_columns(prep, width):
+  """Hand the preparer every host batch's images cut to their first
+  ``width`` columns."""
+  def crop(host):
+    return {k: v[:, :, :width] if getattr(v, 'ndim', 0) >= 3 else v
+            for k, v in host.items()}
+  train, val = prep.prepare_train, prep.prepare_val
+  prep.prepare_train = lambda generator, host: train(generator, crop(host))
+  prep.prepare_val = lambda host: val(crop(host))
 
 
 def _networks(runner):
@@ -413,11 +478,12 @@ def _dc_case(mesh, shape):
   exchange, gather = mesh_lib.all_to_all, mesh_lib.all_gather
 
   def counted(fn, name):
-    def run(t, group):
+    def run(t, group, *sizes):
       # what leaves this rank: all parts but its own
-      share = 1.0 if name == 'all_gather' else 1 - 1 / mesh.spatial
+      share = 1.0 if name == 'all_gather' else \
+          1 - sizes[0][mesh.s] / sum(sizes[0])
       moved[name] = moved.get(name, 0) + share * t.numel() * t.element_size()
-      return fn(t, group)
+      return fn(t, group, *sizes)
     return run
   with halo.sharded_rows(mesh):
     kl, ml = own_cols(k0, mask)
@@ -608,9 +674,11 @@ def run(name, cfg):
   from csmri_refinement_tpu_torch.training import build_runner
   from csmri_refinement_tpu_torch.utils.config import Configuration
 
+  from _torch_uneven_child import run_uneven_units
   extra = {'bn': run_bn, 'cli': run_cli, 'units': run_units,
            'validate_cli': run_validate_cli,
-           'int8_validate': run_int8_validate}
+           'int8_validate': run_int8_validate,
+           'uneven_units': run_uneven_units}
   if name in extra:
     return extra[name](cfg)
   conf_d = _conf_dict(name, cfg['repo'])
@@ -621,6 +689,10 @@ def run(name, cfg):
   runner = build_runner(conf, conf.runner_type, 'train', device)
   if name in ('standard_jax', 'unet_jax'):
     _replay_jax(runner, cfg['out'], name)
+  if name == 'adversarial_jax36':
+    _replay_jax_gan(runner, cfg['out'])
+  if name in WIDTHS:
+    _crop_columns(runner.preparer, WIDTHS[name])
   shard = None if runner.mesh is None else runner.mesh.shard
   first = {}
   train_batch = runner.train_batch
@@ -655,7 +727,12 @@ def run(name, cfg):
     result['train'].append({k: float(m.value) for k, m in losses.items()})
   val_loader = DataLoader(load_dataset(conf, None, 'Synthetic', 'val'),
                           conf.batch_size, process_shard=shard)
-  _, val_losses, val_metrics = runner.validate(val_loader)
+  val_data, val_losses, val_metrics = runner.validate(
+      val_loader, num_batches_to_return=1 if name in WIDTHS else 0)
+  if val_data:    # the first validation batch as the metrics saw it
+    np.savez(os.path.join(cfg['out'], '{}_val_rank{}.npz'.format(
+        name, cfg['rank'])), **{k: v.numpy() for k, v in val_data[0][0].items()
+                                if k in ('inp', 'target', 'kspace', 'mask')})
   result['val'] = {k: float(m.value)
                    for k, m in {**val_losses, **val_metrics}.items()}
   result['shapes'] = shapes

@@ -150,16 +150,18 @@ def test_dc_kernel_dense_dft_sides(cuda, shape, with_k0):
 
 def _dc_on_blocks(x, k0, m, s, bwd):
   """K1's (``bwd``: K1-bwd's) three passes on ``s`` row blocks and ``s``
-  column blocks in one process, the all-to-alls done by slicing: the
-  arithmetic of a DC distributed over ``s`` ranks."""
+  column blocks (``mesh.col_bounds``: one column more on the first W mod s)
+  in one process, the all-to-alls done by slicing: the arithmetic of a DC
+  distributed over ``s`` ranks."""
+  from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
   b, h, w, _ = x.shape
-  hs, ws = h // s, w // s
+  hs, cols = h // s, mesh_lib.col_bounds(w, s)
   rows_fft = dc_kernel.dc_bwd_rows_fft_cuda if bwd else \
       dc_kernel.dc_rows_fft_cuda
   rows_ifft = dc_kernel.dc_bwd_rows_ifft_cuda if bwd else \
       dc_kernel.dc_rows_ifft_cuda
   row = lambda t, i: t[:, i * hs:(i + 1) * hs].contiguous()
-  col = lambda t, j: t[:, :, j * ws:(j + 1) * ws].contiguous()
+  col = lambda t, j: t[:, :, slice(*cols.block(j))].contiguous()
   t = torch.cat([rows_fft(row(x, i), h) for i in range(s)], 1)
   t = torch.cat([dc_kernel.dc_bwd_cols_cuda(col(t, j), col(m, j), w) if bwd
                  else dc_kernel.dc_cols_cuda(col(t, j), col(k0, j),
@@ -172,13 +174,14 @@ def _dc_on_blocks(x, k0, m, s, bwd):
 @pytest.mark.parametrize('s', [2, 4])
 @pytest.mark.parametrize('shape', [(16, 16), (64, 64), (256, 256),
                                    (512, 512), (320, 320), (256, 192),
-                                   (24, 20)],
+                                   (24, 20), (240, 237), (16, 15)],
                          ids=['16', '64', '256', '512', '320', '256x192',
-                              '24x20'])
+                              '24x20', '240x237', '16x15'])
 def test_dc_passes_on_blocks_equal_the_whole_dc(cuda, shape, s, bwd):
   """The passes on a rank's rows and columns give the whole-image K1's
-  (K1-bwd's) output bit for bit, on both routes; each pass is within 2e-4
-  of its plain version."""
+  (K1-bwd's) output bit for bit, on both routes, and on the dense route
+  on column blocks that differ by one where S does not divide W; each
+  pass is within 2e-4 of its plain version."""
   h, w = shape
   gen = torch.Generator(device=cuda).manual_seed(h + w + s)
   x, k0 = (torch.randn(2, h, w, 2, device=cuda, generator=gen)

@@ -139,12 +139,14 @@ def test_mesh_from_conf():
   mesh = mesh_lib.mesh_from_conf(_conf(mesh={'data': 1, 'spatial': 1}),
                                  'cpu')
   assert (mesh.data, mesh.spatial, mesh.shard) == (1, 1, (0, 1))
-  # image rows that do not divide by spatial × the downsampling factor
-  mesh = mesh_lib.Mesh(4, 3, torch.device('cpu'), spatial=2, row_factor=8)
+  # image rows that do not divide by spatial raise, as JAX's shard_batch
+  # does; 24 rows split into 12 a rank, which a third pool would split
+  mesh = mesh_lib.Mesh(4, 3, torch.device('cpu'), spatial=2)
   assert (mesh.d, mesh.s, mesh.shard) == (1, 1, (1, 2))
   assert mesh.image_rows(32) == slice(16, 32)
-  with pytest.raises(ValueError, match='spatial=2: an image of 24 rows'):
-    mesh.image_rows(24)
+  assert mesh.image_rows(24) == slice(12, 24)
+  with pytest.raises(ValueError, match='spatial=2: an image of 25 rows'):
+    mesh.image_rows(25)
   assert not mesh_lib.multiprocess()
 
 

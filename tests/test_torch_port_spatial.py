@@ -42,7 +42,9 @@ one process and against the JAX package, on the CPU.
   against one process within one int8 step.
 * Each spatial rank's batch holds its rows of ``inp`` and ``target`` and
   all rows of its column block of ``kspace`` and ``mask``.
-* A spatial mesh raises on image rows that do not divide.
+* A spatial mesh raises on image rows that S does not divide, as JAX's
+  ``shard_batch`` does, and splits those that a model's pools would split
+  later (``tests/test_torch_port_uneven.py`` holds those runs).
 
 Every child has its own timeout and is killed on expiry.
 """
@@ -313,8 +315,11 @@ def test_validate_cli_on_two_spatial_ranks_writes_from_rank_zero(runs):
 
 
 def test_spatial_rows_must_divide():
+  """Image rows must divide by S, as JAX's ``shard_batch`` (an uneven
+  ``device_put``) has it; a model's downsampling factor does not matter
+  (48 rows split into 24 a rank, which a U-Net's fourth pool splits)."""
   from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
-  mesh = mesh_lib.Mesh(2, 1, torch.device('cpu'), spatial=2, row_factor=16)
+  mesh = mesh_lib.Mesh(2, 1, torch.device('cpu'), spatial=2)
   batch = {'inp': np.zeros((4, 64, 8, 2)), 'mask': np.zeros((4, 64, 8, 1)),
            'index': np.arange(4)}
   got = mesh_lib.split_image_rows(batch, mesh)
@@ -322,8 +327,11 @@ def test_spatial_rows_must_divide():
   assert got['mask'].shape == (4, 64, 4, 1)        # the rank's columns
   np.testing.assert_array_equal(got['mask'], batch['mask'][:, :, 4:])
   assert got['index'].shape == (4,)
+  inp = np.arange(4 * 48 * 8 * 2).reshape(4, 48, 8, 2)
+  np.testing.assert_array_equal(
+      mesh_lib.split_image_rows({'inp': inp}, mesh)['inp'], inp[:, 24:])
   with pytest.raises(ValueError, match='spatial=2'):
-    mesh_lib.split_image_rows({'inp': np.zeros((4, 48, 8, 2))}, mesh)
+    mesh_lib.split_image_rows({'inp': np.zeros((4, 51, 8, 2))}, mesh)
 
 
 def test_dc_passes_compose_the_plain_dc():
@@ -370,9 +378,10 @@ def test_dc_pass_wrappers_take_cuda_tensors_only(shape):
 
 
 def test_column_pass_block_rule():
-  """The radix route's column pass takes whole 16-column strips (or one
-  power-of-two strip below 16); the dense route any block that divides
-  the width; a block that does not divide the width raises."""
+  """The radix route's column pass takes a block that divides the width
+  in whole 16-column strips (or one power-of-two strip below 16); the
+  dense route any block of 1 to W columns (its kernel walks partial
+  strips), so uneven column blocks run there."""
   from csmri_refinement_tpu_torch.ops import dc_kernel
   check = dc_kernel.check_cols_block
   for w, width in ((16, 32), (32, 64), (8, 32), (2, 16), (256, 512)):
@@ -380,10 +389,11 @@ def test_column_pass_block_rule():
   for w, width in ((24, 48), (12, 48), (6, 12)):
     with pytest.raises(ValueError, match='{} of the image'.format(w)):
       check('pass', w, width, 'fft')
-  for w, width in ((5, 20), (10, 20), (48, 192)):
+  for w, width in ((5, 20), (10, 20), (48, 192), (7, 20), (119, 237)):
     check('pass', w, width, 'dft')
-  with pytest.raises(ValueError, match='7 of the image'):
-    check('pass', 7, 20, 'dft')
+  for w in (0, 21):
+    with pytest.raises(ValueError, match='{} of the image'.format(w)):
+      check('pass', w, 20, 'dft')
 
 
 def test_distributed_dc_checks_the_layout():
@@ -394,7 +404,8 @@ def test_distributed_dc_checks_the_layout():
     dc_kernel.dc_distributed(torch.zeros(1, 8, 16, 2),
                              torch.zeros(1, 16, 16, 2),
                              torch.zeros(1, 16, 16, 1), mesh)
-  with pytest.raises(ValueError, match='divides by 2'):
+  # 15 columns: rank 0's block is 8 (``mesh.col_bounds``), not 7
+  with pytest.raises(ValueError, match='16 rows and 8 columns'):
     dc_kernel.dc_distributed(torch.zeros(1, 8, 15, 2),
                              torch.zeros(1, 16, 7, 2),
                              torch.zeros(1, 16, 7, 1), mesh)
