@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--probes-only | --int8-only [--tree DIR] |
                            --f32-only [--tree DIR] | --scarseg-only |
+                           --dc-routes-only [--tree DIR] |
                            --dist-export-only | --spatial-only |
                            --uneven-only | --options-only | --bench-only]
 
@@ -41,9 +42,13 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
 10. the same init and the same five fixed-mask batches, trained on the card
     (kernels) and on the CPU (plain versions): losses must agree;
 11. timings: K1-bwd, its plain version and the cuFFT composition; K1's
-    dense-DFT route (no main path takes it) at 320² and 256×192, B=2, K1
-    and K1-bwd against their plain versions and timed beside them; the
-    train step with TF32 off and on;
+    non-power-of-two routes (``DC_ROUTE_SHAPES``: the mixed-radix route at
+    240² with B = 2 and 20, 320², 384², 192² and 256×192, H mixed-radix
+    and W dense at 240×237, the dense route at 244² and 509²), each axis's
+    route, K1 and K1-bwd against their plain versions within 2e-4 and
+    timed beside them, cuFFT's composition and the bound (on the dense
+    route K1 alone is timed); the train step with TF32 off and on; the
+    phase's wall seconds;
 12. the int8 conv kernel (K3) and its requant kernel vs their plain
     versions: the quantized layers of the five flagship chains at 256²,
     B=32 (real weights, ``quantize_act`` inputs), a k3 zero-pad and a k4
@@ -238,13 +243,14 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     against this process's, the first that differs marked; then phase 26;
 26. (run inside phase 18, after 23) spatial meshes whose per-rank rows a
     stride or a pool splits, as JAX's GSPMD runs them: (a) K1's and
-    K1-bwd's three passes on (2, 240, 237) as two ranks run them (rows
-    0-119 and 120-239, column blocks of 119 and 118) against the
-    whole-image K1 and K1-bwd, within ``PASS_REL``; (b) phase 23 (b)'s
-    three configs, runs, checks and launch holds on a ScarSeg-format tree
-    at 240² (BraTS's slice matrix: 120 rows a rank, which the
+    K1-bwd's three passes on (2, 240, 237) and (2, 240, 240) as two ranks
+    run them (rows 0-119 and 120-239, column blocks of 119 and 118, and of
+    120) against the whole-image K1 and K1-bwd, bit for bit; (b) phase 23
+    (b)'s three configs, runs, checks and launch holds on a ScarSeg-format
+    tree at 240² (BraTS's slice matrix: 120 rows a rank, which the
     discriminator's fourth stride and the segmentation U-Net's fourth pool
-    split), with per rank the rows its conv tiles held; (c) phase 23 (c)
+    split), with per rank the rows its conv tiles held; each of the one
+    process's K1 and K1-bwd launches on the mixed-radix route; (c) phase 23 (c)
     on 244 × 256 images (the generator U-Net's second pool splits 61 rows
     a rank; 256 columns let the int8 mode quantize, which 244 would not),
     the ranks' scales equal and their K3 tiles' halo rows each other's;
@@ -311,6 +317,11 @@ alone (no result line): the generator is exported from its seeded init on
 route on the 18 segmentation layer shapes (seeded weights) after holding
 each to its plain version (no result line); with ``--tree DIR`` an earlier
 tree times its own f32 route on the same layers in the same call.
+``--dc-routes-only`` runs phases 1 and 2 for ``csrc/dc.cu`` and phase
+11's table of K1's routes and passes alone, with the radix route at 256²,
+B = 32 and 512², B = 20 (no result line); ``--tree DIR`` as for
+``--int8-only`` times an earlier tree's routes on the same shapes: the
+A/B run of a change to K1, parent and change in turns in one call.
 ``--probes-only`` runs phases 1 and 2 for the probes' source and the
 probes of phase 15 alone, and prints their ``{"kernels": [...]}`` entries
 (no result line). ``--int8-only`` runs phases 1 and 2 for the conv
@@ -801,21 +812,42 @@ def dc_bwd_phase():
   return errs[SIZE], inputs
 
 
-def dc_dft_phase(line):
-  """Phase 11, K1's dense-DFT route (sides with no radix plan, non-square
-  images), which no main path takes: at 320² and 256×192, B=2, K1 with k0
-  against ``dc_plain`` and K1-bwd against ``dc_plain_vjp``, then each as
-  device time beside its plain version, cuFFT's composition and the DC's
-  bound."""
+# Phase 11's shapes for K1's non-power-of-two routes, (B, H, W): the
+# mixed-radix route at BraTS's 240² (B = 2, and 20 as 1-recnet's batch),
+# fastMRI's 320² crops and 384², 192², a non-square image whose
+# power-of-two H takes the mixed-radix route beside W's, one with H on the
+# mixed-radix route and W dense, and the dense route at 244² and 509².
+DC_ROUTE_SHAPES = ((2, 240, 240), (20, 240, 240), (2, 320, 320),
+                   (2, 384, 384), (2, 192, 192), (2, 256, 192),
+                   (2, 240, 237), (2, 244, 244), (2, 509, 509))
+
+
+# The passes' shapes on a rank of two at 240², B = 20 (1-recnet in phase
+# 26): rows (20, 120, 240) for passes 1 and 3, columns (20, 240, 120)
+DC_PASS_SHAPES = ((20, 120, 240), (20, 240, 120))
+# The radix route's shapes that a change to the other routes must not move
+DC_RADIX_SHAPES = ((32, 256, 256), (20, 512, 512))
+
+
+def dc_routes_phase(line, shapes=DC_ROUTE_SHAPES):
+  """Phase 11, K1's non-power-of-two routes: at each of ``shapes`` each
+  axis's route, K1 with k0 against ``dc_plain`` and K1-bwd against
+  ``dc_plain_vjp`` (``F32_ATOL``), then each as device time beside its
+  plain version, cuFFT's composition and the DC's bound (where both axes
+  are dense, K1 alone: that route is not redesigned); then
+  ``dc_pass_table``. Prints its wall seconds. Returns {'K1', 'K1-bwd':
+  {'err': the largest error where an axis takes the mixed-radix route,
+  'times': the (20, 240, 240) times}}."""
   from csmri_refinement_tpu_torch.ops import dc_kernel, fft, masks
-  for h, w in ((320, 320), (256, 192)):
-    b = 2
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + h + w)
+  t0 = time.perf_counter()
+  out = {name: {'err': 0.0, 'times': None} for name in ('K1', 'K1-bwd')}
+  for b, h, w in shapes:
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + b + h + w)
     x = torch.randn(b, h, w, 2, device=DEVICE, generator=gen)
     k0 = torch.randn(b, h, w, 2, device=DEVICE, generator=gen)
     mask = masks.cartesian_mask(gen, (b, h, w), 8, device=DEVICE)
     m = mask[..., None].contiguous()
-    require(dc_kernel.dc_route(h, w) == 'dft', 'route of {}x{}'.format(h, w))
+    routes = dc_kernel.dc_route(h, w)
     fwd = dc_kernel.dc_cuda(x, k0, m)
     bwd = dc_kernel.dc_bwd_cuda(x, m)
     sync()
@@ -832,15 +864,70 @@ def dc_dft_phase(line):
          lambda: dc_kernel.dc_plain_vjp(x, m, False),
          lambda: torch.fft.ifft2((1 - mask) * torch.fft.fft2(
              xc, norm='ortho'), norm='ortho'), 20)):
+      if name == 'K1-bwd' and routes == ('dft', 'dft'):
+        print('K1-bwd dc B{} {}x{}, routes (H, W) {}: max|kernel-plain| '
+              '{:.3e} (tol {}); not timed ({})'.format(
+                  b, h, w, routes, err, F32_ATOL, line))
+        continue
       b_ms, by = bound(flops, nbytes * b * h * w, F32_FLOPS)
-      print('{} dc dense-DFT route B{} {}x{}: max|kernel-plain| {:.3e} (tol '
-            '{}); kernel {:.4f} ms, plain {:.4f} ms, cuFFT {:.4f} ms, bound '
-            '{:.4f} ms ({}) ({})'.format(name, b, h, w, err, F32_ATOL,
-                                         graph_ms(kern), graph_ms(plain),
-                                         graph_ms(lib), b_ms, by, line))
+      t = {'ms': graph_ms(kern), 'plain_ms': graph_ms(plain),
+           'library_ms': graph_ms(lib), 'bound_ms': b_ms, 'bound_by': by}
+      print('{} dc B{} {}x{}, routes (H, W) {}: max|kernel-plain| {:.3e} '
+            '(tol {}); kernel {:.4f} ms, plain {:.4f} ms, cuFFT {:.4f} ms, '
+            'bound {:.4f} ms ({}) ({})'.format(
+                name, b, h, w, routes, err, F32_ATOL, t['ms'], t['plain_ms'],
+                t['library_ms'], b_ms, by, line))
+      if 'mixed' in routes:
+        out[name]['err'] = max(out[name]['err'], err)
+      if (b, h, w) == (20, 240, 240):
+        out[name]['times'] = t
     require(max(errs) <= F32_ATOL,
-            'DC dense-DFT route differs from its plain version at '
-            '{}x{}'.format(h, w))
+            'DC kernel differs from its plain version at {}x{} (routes '
+            '{})'.format(h, w, routes))
+  dc_pass_table(line)
+  print('phase 11, K1\'s non-power-of-two routes: {:.1f} s wall'.format(
+      time.perf_counter() - t0))
+  return out
+
+
+def dc_pass_table(line):
+  """K1's and K1-bwd's passes at ``DC_PASS_SHAPES`` (a rank of two at
+  240², B = 20), each against its plain version (``PASS_REL``) and as
+  device time beside it, one ``torch.fft`` call (the row passes) and its
+  bound."""
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  (b, hr, w), (_, h, wc) = DC_PASS_SHAPES
+  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+  x = torch.randn(b, hr, w, 2, device=DEVICE, generator=gen)
+  t = torch.randn(b, h, wc, 2, device=DEVICE, generator=gen)
+  k0 = torch.randn(b, h, wc, 2, device=DEVICE, generator=gen)
+  m = (torch.rand(b, h, wc, 1, device=DEVICE, generator=gen) > 0.6).float()
+  for name, (label, _, bwd) in DC_PASSES.items():
+    args = ((t, m, w) if bwd else (t, k0, m, w)) if 'cols' in name else \
+        (x, h)
+    fn = getattr(dc_kernel, name)
+    y = fn(*args)
+    sync()
+    want = pass_plain(name, args)
+    rel = (y - want).abs().max().item() / want.abs().max().item()
+    require(rel <= PASS_REL, '{} at {} differs from its plain version by '
+            '{:.3e} of its max |value|'.format(label, tuple(args[0].shape),
+                                              rel))
+    ops, nbytes = pass_cost(name, args)
+    b_ms, by = bound(ops, nbytes, F32_FLOPS)
+    lib = pass_library_call(name, args)
+    print('{} on {}: {:.3e} of max |plain|; kernel {:.4f} ms, plain {:.4f} '
+          'ms, torch.fft {}, bound {:.4f} ms ({}) ({})'.format(
+              label, tuple(args[0].shape), rel, graph_ms(lambda: fn(*args)),
+              graph_ms(lambda: pass_plain(name, args)),
+              'none' if lib is None else '{:.4f} ms'.format(graph_ms(lib)),
+              b_ms, by, line))
+
+
+def dc_routes_only(line):
+  """``--dc-routes-only``: phase 11's route table and passes, and the
+  radix route at ``DC_RADIX_SHAPES``."""
+  dc_routes_phase(line, DC_ROUTE_SHAPES + DC_RADIX_SHAPES)
 
 
 def train_main_path():
@@ -3681,6 +3768,8 @@ def scarseg_phase(line, dist_export_only=False, spatial_only=False):
           'f32_err': max(gan_err, seg_err, data['f32_err'],
                          spatial['f32_err']),
           'bf16_err': opt['k2_err'],
+          'k1_mixed': spatial['k1_mixed'],
+          'k1_bwd_mixed': spatial['k1_bwd_mixed'],
           'passes': spatial['passes'], 'pass_times': spatial['pass_times'],
           'k3': spatial['k3'], 'requant': spatial['requant'],
           'k3_err': spatial['k3_err'], 'requant_err': spatial['requant_err']}
@@ -4915,59 +5004,65 @@ def spatial_phase(data_dir, work, line, phase='phase 23', size=None,
 # whose width two ranks split unequally.
 UNEVEN_SIZE = 240
 UNEVEN_INT8_SIZE, UNEVEN_INT8_ROWS = 256, 244
-UNEVEN_DC_SHAPE = (2, 240, 237)       # column blocks of 119 and 118
+# K1's passes on two ranks: column blocks of 119 and 118 (H on the
+# mixed-radix route, W dense), and of 120 (both axes mixed-radix)
+UNEVEN_DC_SHAPES = ((2, 240, 237), (2, 240, 240))
 
 
 def uneven_dc_check(line):
-  """Phase 26 (a): K1's and K1-bwd's passes as two ranks run them on
-  ``UNEVEN_DC_SHAPE`` (rows 0-119 and 120-239, then column blocks of
-  ``mesh.col_bounds``: 119 and 118), the exchanges as copies in this
-  process, against the whole-image K1 and K1-bwd on the same inputs.
-  Returns the largest |Δ| of the forward and of the backward."""
+  """Phase 26 (a): K1's and K1-bwd's passes as two ranks run them on each
+  of ``UNEVEN_DC_SHAPES`` (rows 0-119 and 120-239, then column blocks of
+  ``mesh.col_bounds``), the exchanges as copies in this process, against
+  the whole-image K1 and K1-bwd on the same inputs. Returns the largest
+  |Δ| of the forward and of the backward."""
   from csmri_refinement_tpu_torch.ops import dc_kernel
   from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
-  b, h, w = UNEVEN_DC_SHAPE
-  gen = torch.Generator(device=DEVICE).manual_seed(SEED + 26)
-  x, k0, g = (torch.randn((b, h, w, 2), device=DEVICE, generator=gen)
-              for _ in range(3))
-  mask = (torch.rand((b, h, w, 1), device=DEVICE, generator=gen) > 0.6)
-  mask = mask.float()
-  k0 = k0 * mask
-  rows = [slice(0, h // 2), slice(h // 2, h)]
-  cols = [slice(*mesh_lib.col_bounds(w, 2).block(r)) for r in range(2)]
+  errs = [0.0, 0.0]
+  for b, h, w in UNEVEN_DC_SHAPES:
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 26 + w)
+    x, k0, g = (torch.randn((b, h, w, 2), device=DEVICE, generator=gen)
+                for _ in range(3))
+    mask = (torch.rand((b, h, w, 1), device=DEVICE, generator=gen) > 0.6)
+    mask = mask.float()
+    k0 = k0 * mask
+    rows = [slice(0, h // 2), slice(h // 2, h)]
+    cols = [slice(*mesh_lib.col_bounds(w, 2).block(r)) for r in range(2)]
 
-  def passes(t, fft, col, ifft):
-    ranks_rows = torch.cat([fft(t[:, r].contiguous(), h) for r in rows], 1)
-    ranks_cols = torch.cat([col(ranks_rows[:, :, c].contiguous(), c)
-                            for c in cols], 2)
-    return torch.cat([ifft(ranks_cols[:, r].contiguous(), h) for r in rows],
-                     1)
-  with deterministic():
-    got = passes(x, dc_kernel.dc_rows_fft_cuda,
-                 lambda t, c: dc_kernel.dc_cols_cuda(
-                     t, k0[:, :, c].contiguous(), mask[:, :, c].contiguous(),
-                     w), dc_kernel.dc_rows_ifft_cuda)
-    want = dc_kernel.dc_cuda(x, k0, mask)
-    got_bwd = passes(g, dc_kernel.dc_bwd_rows_fft_cuda,
-                     lambda t, c: dc_kernel.dc_bwd_cols_cuda(
-                         t, mask[:, :, c].contiguous(), w),
-                     dc_kernel.dc_bwd_rows_ifft_cuda)
-    want_bwd = dc_kernel.dc_bwd_cuda(g, mask)
-    sync()
-  errs = []
-  for what, a, ref in (('K1', got, want), ('K1-bwd', got_bwd, want_bwd)):
-    err = (a - ref).abs().max().item()
-    rel = err / max(ref.abs().max().item(), 1e-30)
-    require(rel <= PASS_REL, 'phase 26 (a) {}\'s passes on column blocks '
-            '{} and {} differ from the whole image by {:.3e} of its max '
-            '|value|'.format(what, cols[0].stop, w - cols[0].stop, rel))
-    print('phase 26 (a) {}\'s three passes on {} as two ranks run them '
-          '(rows {} and {}, column blocks {} and {}) against the whole-image '
-          '{}: {}, max |Δ| {:.3e} ({})'.format(
-              what, UNEVEN_DC_SHAPE, h // 2, h - h // 2, cols[0].stop,
-              w - cols[0].stop, what, 'bit for bit' if torch.equal(a, ref)
-              else 'not bit for bit', err, line))
-    errs.append(err)
+    def passes(t, fft, col, ifft):
+      ranks_rows = torch.cat([fft(t[:, r].contiguous(), h) for r in rows],
+                             1)
+      ranks_cols = torch.cat([col(ranks_rows[:, :, c].contiguous(), c)
+                              for c in cols], 2)
+      return torch.cat([ifft(ranks_cols[:, r].contiguous(), h)
+                        for r in rows], 1)
+    with deterministic():
+      got = passes(x, dc_kernel.dc_rows_fft_cuda,
+                   lambda t, c: dc_kernel.dc_cols_cuda(
+                       t, k0[:, :, c].contiguous(),
+                       mask[:, :, c].contiguous(), w),
+                   dc_kernel.dc_rows_ifft_cuda)
+      want = dc_kernel.dc_cuda(x, k0, mask)
+      got_bwd = passes(g, dc_kernel.dc_bwd_rows_fft_cuda,
+                       lambda t, c: dc_kernel.dc_bwd_cols_cuda(
+                           t, mask[:, :, c].contiguous(), w),
+                       dc_kernel.dc_bwd_rows_ifft_cuda)
+      want_bwd = dc_kernel.dc_bwd_cuda(g, mask)
+      sync()
+    for i, (what, a, ref) in enumerate((('K1', got, want),
+                                        ('K1-bwd', got_bwd, want_bwd))):
+      err = (a - ref).abs().max().item()
+      rel = err / max(ref.abs().max().item(), 1e-30)
+      require(torch.equal(a, ref), 'phase 26 (a) {}\'s passes on column '
+              'blocks {} and {} differ from the whole image by {:.3e} of its '
+              'max |value|'.format(what, cols[0].stop, w - cols[0].stop, rel))
+      print('phase 26 (a) {}\'s three passes on {} as two ranks run them '
+            '(rows {} and {}, column blocks {} and {}; H on the {} route, W '
+            'on the {}) against the whole-image {}: {}, max |Δ| {:.3e} '
+            '({})'.format(what, (b, h, w), h // 2, h - h // 2, cols[0].stop,
+                          w - cols[0].stop, *dc_kernel.dc_route(h, w), what,
+                          'bit for bit' if torch.equal(a, ref) else
+                          'not bit for bit', err, line))
+      errs[i] = max(errs[i], err)
   return errs
 
 
@@ -4979,6 +5074,7 @@ def uneven_phase(line, probe=False):
   are removed after.
   Returns ``spatial_phase``'s totals with (a)'s errors folded in."""
   from csmri_refinement_tpu_torch.data import datasets
+  from csmri_refinement_tpu_torch.ops import dc_kernel
   t0 = time.perf_counter()
   os.makedirs(GAN_DIR, exist_ok=True)
   work = tempfile.mkdtemp(prefix='uneven_', dir=GAN_DIR)
@@ -4999,6 +5095,17 @@ def uneven_phase(line, probe=False):
     shutil.rmtree(work, ignore_errors=True)
   total['dc_err'] = max(total['dc_err'], dc_err)
   total['dc_bwd_err'] = max(total['dc_bwd_err'], dc_bwd_err)
+  # the one process's DCs are whole 240² images: a route is a function of
+  # the shape, and there both axes take the mixed-radix route
+  routes = dc_kernel.dc_route(UNEVEN_SIZE, UNEVEN_SIZE)
+  require(routes == ('mixed', 'mixed') and total['k1'] > 0 and
+          total['k1_bwd'] > 0,
+          'phase 26: K1 {}, K1-bwd {} launches at {}², routes {}: expected '
+          'launches on the mixed-radix route'.format(
+              total['k1'], total['k1_bwd'], UNEVEN_SIZE, routes))
+  total['k1_mixed'], total['k1_bwd_mixed'] = total['k1'], total['k1_bwd']
+  print('phase 26 (b): one process launched K1 {} and K1-bwd {} times, all '
+        'on the mixed-radix route'.format(total['k1'], total['k1_bwd']))
   print('phase 26 with (a) and its trees: {:.1f} s wall'.format(
       time.perf_counter() - t0))
   return total
@@ -5006,10 +5113,12 @@ def uneven_phase(line, probe=False):
 
 def merge_spatial(a, b):
   """Phase 23's and 26's totals for the kernels line: launches added,
-  errors the larger, the pass times phase 23's."""
+  errors the larger, the pass times phase 23's, the mixed-radix route's
+  launches phase 26's."""
   out = dict(a)
   for key in ('k1', 'k1_bwd', 'k2_f32', 'k3', 'requant'):
     out[key] = a[key] + b[key]
+  out['k1_mixed'], out['k1_bwd_mixed'] = b['k1_mixed'], b['k1_bwd_mixed']
   for key in ('dc_err', 'dc_bwd_err', 'f32_err', 'k3_err', 'requant_err'):
     out[key] = max(a[key], b[key])
   out['passes'] = {name: [a['passes'][name][0] + b['passes'][name][0],
@@ -5724,6 +5833,27 @@ def bench_phase(P, line):
   return out
 
 
+def route_entries(routes, scar):
+  """The kernels line's entries of K1's and K1-bwd's mixed-radix route:
+  the whole-image launches where an axis took it in phase 26's one-process
+  runs at 240², the largest error of phase 11's shapes on it, and phase
+  11's times at (20, 240, 240)."""
+  entries = []
+  for label, name, launches in (
+      ('K1', 'dc (mixed-radix route)', scar['k1_mixed']),
+      ('K1-bwd', 'dc_bwd (mixed-radix route)', scar['k1_bwd_mixed'])):
+    t = routes[label]['times']
+    entries.append({
+        'name': name, 'route': 'cuda',
+        'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
+        'replaces': 'csmri_refinement_tpu/ops/dc.py:99' if label == 'K1-bwd'
+                    else 'csmri_refinement_tpu/ops/dc_pallas.py:36',
+        'launches': launches, 'max_abs_err': routes[label]['err'],
+        'ms': t['ms'], 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+        'bound_by': t['bound_by'], 'library_ms': t['library_ms']})
+  return entries
+
+
 def pass_entries(scar):
   """The kernels line's entries of K1's and K1-bwd's passes: phase 23's
   launches (rank 0's) and errors, and the times of 1-recnet's rank 0
@@ -5768,6 +5898,7 @@ def main(argv=None):
   argv = sys.argv[1:] if argv is None else argv
   probes_only = '--probes-only' in argv
   int8_only_mode = '--int8-only' in argv
+  dc_routes_mode = '--dc-routes-only' in argv
   f32_only_mode = '--f32-only' in argv
   scarseg_only = '--scarseg-only' in argv
   dist_export_only = '--dist-export-only' in argv
@@ -5807,6 +5938,10 @@ def main(argv=None):
   if probes_only:   # phases 1, 2 and the probes of 15 alone
     build_phase(('probes',))
     print(json.dumps({'kernels': probe_phase(line)}))
+    return
+  if dc_routes_mode:   # phases 1, 2 and phase 11's routes alone
+    build_phase(('dc',))
+    dc_routes_only(line)
     return
   if int8_only_mode:   # phases 1, 2 and the K3 table of 15 alone
     build_phase(('conv_chain', 'conv_int8'))
@@ -5942,6 +6077,7 @@ def main(argv=None):
   gpu_runner = train_parity_phase()
 
   # Phase 11: timings of the training path
+  t11 = time.perf_counter()
   from csmri_refinement_tpu_torch.ops import fft
   gc = fft.unpack_complex(g)
   gmask = gm[..., 0]
@@ -5960,7 +6096,7 @@ def main(argv=None):
         'ms, bound {:.4f} ms ({})'.format(b, n, bwd_ms, bwd_eager_ms,
                                           bwd_plain_ms, bwd_lib_ms,
                                           bwd_bound, line))
-  dc_dft_phase(line)
+  routes = dc_routes_phase(line)
   gt, mask = fixed_batches(gpu_runner.conf, 1)[0]
   from csmri_refinement_tpu_torch.ops import undersample as us
   tbatch = us.undersample_batch(None, gt.to(DEVICE),
@@ -5977,6 +6113,7 @@ def main(argv=None):
               SIZE, TRAIN_BATCH, 'on' if tf32 else 'off', ms,
               TRAIN_BATCH / ms * 1e3, 3 * dc16_ms,
               3 * bwd_ms, line))
+  print('phase 11: {:.1f} s wall'.format(time.perf_counter() - t11))
 
   # Phase 12: the int8 conv kernel (K3) and its requant
   int8_errs = int8_phase(model)
@@ -6094,7 +6231,7 @@ def main(argv=None):
        'ms': k3['requant'][0], 'plain_ms': k3['requant'][1],
        'bound_ms': k3['requant'][2], 'bound_by': k3['requant'][3],
        'library_ms': None},
-  ] + pass_entries(scar) + probe_entries
+  ] + route_entries(routes, scar) + pass_entries(scar) + probe_entries
   print('chip_smoke: all phases passed in {:.1f} s wall, the kernels\' build '
         'included ({})'.format(time.perf_counter() - t_start, line))
   print(json.dumps({'kernels': kernels}))

@@ -19,41 +19,47 @@
 //
 // Design. Three launches, each a pass at memory speed:
 //   1. forward FFT along W: x -> scratch;
-//   2. per 16 adjacent columns of one image (a whole 128-byte line of each
-//      row), forward FFT along H, the merge (1 - m) k + k0, inverse FFT
-//      along H, in place in scratch: k-space makes no HBM round trip;
+//   2. per strip of adjacent columns of one image, forward FFT along H,
+//      the merge (1 - m) k + k0, inverse FFT along H, in place in scratch:
+//      k-space makes no HBM round trip;
 //   3. inverse FFT along W: scratch -> y.
 // That moves 60 B/pixel against the 28 B bound; one launch per DC with
 // thread-block clusters is later work. Each pass is an entry of its own
-// too (dc_rows_pass, dc_cols_pass and their _dft twins, at the end): a DC
-// whose image rows are split over ranks runs them with an all-to-all
-// between passes 1 and 2 and another between 2 and 3.
+// too (dc_rows_pass, dc_cols_pass, at the end): a DC whose image rows are
+// split over ranks runs them with an all-to-all between passes 1 and 2
+// and another between 2 and 3, and dc_forward is the same three launches.
 //
-// Each 1D line transform is a Stockham mixed-radix FFT whose butterflies
-// run in registers: a thread holds P = 8 or 16 points of a line and does
-// whole radix-8 or radix-16 DFTs on them (a radix-2 network, constant
-// twiddles), so a 256-point line is 16 x 16 with one exchange through
-// shared memory between the two stages. The plan (radices per n, below) is
-// chosen on the host (ops/dc_kernel.py::FFT_PLANS) and checked here; the
-// inter-stage twiddles exp(-2 pi i m q / (Ns r)) come from the host,
-// computed in f64 and rounded once to f32, and sit in shared memory. f32
-// FMA throughout (TF32 would lose ~2e-2 in k-space).
-//
-// Staging: every block walks several tiles (rows, or 16-column strips) and
-// copies the next tile into shared memory with 16-byte cp.async while it
-// transforms the current one. Row tiles are padded by 16 bytes per 16
-// points against bank conflicts; column strips need none (lines are the
-// fastest index). The merge operands (mask, k0) of the points a thread
-// will hold are loaded before its forward transform starts.
-// Supported: H, W powers of two from 2 to 512.
-//
-// Other sides from 2 to 512 (320, 384, 192, odd ones) have no radix plan;
-// dc_forward_dft runs them, and every non-square image, as the TPU kernel
-// does, by a dense DFT per line (its DFT matrices, dc_pallas.py:77): the
-// same three passes, each output point a sum over its whole line against a
-// table of the n roots exp(-2 pi i m / n) of its axis (f64 on the host,
-// rounded once to f32), indexed by (j k) mod n. n^2 operations a line
-// instead of n log n: right and simple, not fast.
+// One route per axis: passes 1 and 3 take W's, pass 2 H's
+// (ops/dc_kernel.py::dc_route):
+//   * radix: powers of two from 2 to 512. A thread holds P = 8 or 16
+//     points of a line and does whole radix-8 or radix-16 DFTs on them (a
+//     radix-2 network, constant twiddles), so a 256-point line is 16 x 16
+//     with one exchange through shared memory between the two stages. The
+//     plan (radices per n, below) is compiled per side, chosen on the host
+//     (ops/dc_kernel.py::FFT_PLANS) and checked here. Row tiles are padded
+//     by 16 bytes per 16 points against bank conflicts; 16-column strips
+//     need none (lines are the fastest index). The merge operands (mask,
+//     k0) of the points a thread will hold are loaded before its forward
+//     transform starts.
+//   * mixed radix: every other side whose prime factors are at most 13
+//     (240 = 16 x 15, 320 = 8 x 8 x 5, 384 = 16 x 8 x 3, ...), and a power
+//     of two H beside a W that is not one (ops/dc_kernel.py::dc_route), so
+//     that a spatial rank's column block is never one that the radix column
+//     pass cannot walk. The plan is a
+//     runtime argument over one stage function per radix (2, 4, 8, 16 as
+//     above; 3, 5, 7, 9, 11, 13, 15 as odd DFTs with constant roots); see
+//     "mixed-radix lines" below.
+//   * dense: sides with a larger prime factor (17, 237 = 3 x 79, 509, ...),
+//     as the TPU kernel computes every side (its DFT matrices,
+//     dc_pallas.py:77): each output point a sum over its whole line
+//     against a table of the n roots exp(-2 pi i m / n) of its axis,
+//     indexed by (j k) mod n. n^2 operations a line instead of n log n.
+// On the FFT routes the inter-stage twiddles exp(-2 pi i m q / (Ns r)) come
+// from the host, computed in f64 and rounded once to f32, and sit in
+// shared memory. f32 FMA throughout (TF32 would lose ~2e-2 in k-space).
+// Staging: every block walks several tiles (rows, or column strips) and
+// copies the next tile into shared memory with cp.async while it
+// transforms the current one.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -552,7 +558,7 @@ bool supported(int n, int code) {
   return n >= 2 && n <= kMaxN && !(n & (n - 1)) && code == plan_code(n);
 }
 
-// --- dense DFT lines (sides with no radix plan) ---
+// --- dense DFT lines (sides with a prime factor above 13) ---
 
 constexpr int kDftThreads = 256;
 
@@ -596,8 +602,8 @@ dft_rows(const float2* __restrict__ in, float2* __restrict__ out, long rows,
 
 // Pass 2: per strip of up to kCols columns of one image, the DFT along H
 // (h points, roots tw_g), the merge (1 - m) k + k0, the inverse DFT along
-// H, from `in` to `out` (one buffer in dc_forward_dft: a strip is read
-// whole before it is written).
+// H, from `in` to `out` (one buffer in dc_forward: a strip is read whole
+// before it is written).
 template <bool HAS_K0>
 __global__ void __launch_bounds__(kDftThreads)
 dft_cols(const float2* in, float2* out, const float2* __restrict__ k0,
@@ -673,128 +679,522 @@ int dft_cols_pass(const float2* in, float2* out, const float2* k0,
   return (int)cudaGetLastError();
 }
 
+// --- mixed-radix lines (sides whose prime factors are at most 13) ---
+//
+// A plan is a runtime argument (ops/dc_kernel.py::mixed_plan, one byte
+// per stage's radix), run by one stage function per radix: the radix-2
+// networks of 2 to 16 points above, and odd DFTs of 3 to 15 points with
+// constant roots. A tile of lines sits in shared memory with the line
+// index fastest (point e of line l at e * cs + l), and each stage hands
+// its butterflies out over the whole block: butterfly i is j = i / lines
+// of line i % lines, so a half-warp works on 16 (8) neighbouring lines at
+// one j and reads and writes neighbouring words whatever the stage's
+// strides, odd or not. A stage reads one buffer and writes another
+// (Stockham ping-pong: no register array sized by the plan), then the
+// block syncs. The pass's staging is the radix route's: cp.async (8
+// bytes, since a row tile is stored transposed) of the next tile while
+// the block transforms the current one.
+
+constexpr int kMixThreads = 256;
+constexpr int kMaxStages = 4;   // ops/dc_kernel.py::MIXED_MAX_STAGES
+
+struct MixPlan {
+  int n, stages, tw_size;
+  int radix[kMaxStages];
+  int span[kMaxStages];     // Ns: the product of the earlier radices
+  int tw_off[kMaxStages];   // stage s >= 1's table, [q * Ns + m]
+};
+
+constexpr bool mix_radix(int r) {
+  return r == 2 || r == 3 || r == 4 || r == 5 || r == 7 || r == 8 ||
+         r == 9 || r == 11 || r == 13 || r == 15 || r == 16;
+}
+
+// Decode and check a plan code: radices of the set, product n.
+bool mix_plan(int n, unsigned long long code, MixPlan* p) {
+  if (n < 2 || n > kMaxN) return false;
+  p->n = n;
+  p->stages = 0;
+  int span = 1, off = 0;
+  for (int s = 0; s < 8; ++s) {
+    const int r = (int)((code >> (8 * s)) & 255);
+    if (r == 0) break;
+    if (s >= kMaxStages || !mix_radix(r)) return false;
+    p->radix[s] = r;
+    p->span[s] = span;
+    p->tw_off[s] = off;
+    if (s) off += span * r;
+    span *= r;
+    p->stages = s + 1;
+  }
+  p->tw_size = off;
+  return p->stages > 0 && span == n && (code >> (8 * p->stages)) == 0;
+}
+
+// (cos, sin) of 2 pi m / R for R odd and 0 < m <= (R - 1) / 2, in f64
+// rounded once to f32 (ops/dc_kernel.py::odd_roots); r * 8 + m is a
+// constant once the callers' loops are unrolled.
+__device__ __forceinline__ float2 odd_root(int r, int m) {
+  switch (r * 8 + m) {
+    case 25: return make_float2(-0.5f, 0.8660253882408142f);
+    case 41: return make_float2(0.30901700258255005f, 0.9510565400123596f);
+    case 42: return make_float2(-0.80901700258255f, 0.5877852439880371f);
+    case 57: return make_float2(0.6234897971153259f, 0.7818315029144287f);
+    case 58: return make_float2(-0.22252093255519867f, 0.9749279022216797f);
+    case 59: return make_float2(-0.9009688496589661f, 0.4338837265968323f);
+    case 73: return make_float2(0.7660444378852844f, 0.6427876353263855f);
+    case 74: return make_float2(0.1736481785774231f, 0.9848077297210693f);
+    case 75: return make_float2(-0.5f, 0.8660253882408142f);
+    case 76: return make_float2(-0.9396926164627075f, 0.3420201539993286f);
+    case 89: return make_float2(0.8412535190582275f, 0.5406408309936523f);
+    case 90: return make_float2(0.4154150187969208f, 0.9096319675445557f);
+    case 91: return make_float2(-0.1423148363828659f, 0.9898214340209961f);
+    case 92: return make_float2(-0.6548607349395752f, 0.7557495832443237f);
+    case 93: return make_float2(-0.9594929814338684f, 0.28173255920410156f);
+    case 105: return make_float2(0.8854560256004333f, 0.4647231698036194f);
+    case 106: return make_float2(0.5680647492408752f, 0.8229838609695435f);
+    case 107: return make_float2(0.1205366775393486f, 0.9927088618278503f);
+    case 108: return make_float2(-0.35460489988327026f, 0.9350162148475647f);
+    case 109: return make_float2(-0.7485107779502869f, 0.6631226539611816f);
+    case 110: return make_float2(-0.9709418416023254f, 0.23931565880775452f);
+    case 121: return make_float2(0.9135454297065735f, 0.4067366421222687f);
+    case 122: return make_float2(0.6691306233406067f, 0.7431448101997375f);
+    case 123: return make_float2(0.30901700258255005f, 0.9510565400123596f);
+    case 124: return make_float2(-0.10452846437692642f, 0.9945219159126282f);
+    case 125: return make_float2(-0.5f, 0.8660253882408142f);
+    case 126: return make_float2(-0.80901700258255f, 0.5877852439880371f);
+    case 127: return make_float2(-0.9781476259231567f, 0.2079116851091385f);
+  }
+  return make_float2(1.f, 0.f);
+}
+
+// In-register odd R-point DFT: with a_j = v_j + v_(R-j), b_j = v_j -
+// v_(R-j), y_k = v_0 + sum_j a_j cos(2 pi jk / R) -+ i sum_j b_j sin(...)
+// and y_(R-k) the other sign: (R - 1)^2 real FMAs per component.
+template <int R, bool INV>
+__device__ __forceinline__ void odd_dft(float2 (&v)[R]) {
+  constexpr int H = (R - 1) / 2;
+  float2 a[H], b[H];
+  float2 y0 = v[0];
+#pragma unroll
+  for (int j = 1; j <= H; ++j) {
+    a[j - 1] = make_float2(v[j].x + v[R - j].x, v[j].y + v[R - j].y);
+    b[j - 1] = make_float2(v[j].x - v[R - j].x, v[j].y - v[R - j].y);
+    y0 = make_float2(y0.x + a[j - 1].x, y0.y + a[j - 1].y);
+  }
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float2 c = v[0];
+    float2 t = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int j = 1; j <= H; ++j) {
+      const int m = j * k % R;
+      if (m == 0) {   // R = 9 or 15: cos 1, sin 0
+        c = make_float2(c.x + a[j - 1].x, c.y + a[j - 1].y);
+        continue;
+      }
+      const float2 w = odd_root(R, m <= H ? m : R - m);
+      const float sn = m <= H ? w.y : -w.y;
+      c = make_float2(fmaf(a[j - 1].x, w.x, c.x), fmaf(a[j - 1].y, w.x, c.y));
+      t = make_float2(fmaf(b[j - 1].x, sn, t.x), fmaf(b[j - 1].y, sn, t.y));
+    }
+    // forward: y_k = c - i t, y_(R-k) = c + i t; the inverse conjugates
+    const float2 minus = make_float2(c.x + t.y, c.y - t.x);
+    const float2 plus = make_float2(c.x - t.y, c.y + t.x);
+    v[k] = INV ? plus : minus;
+    v[R - k] = INV ? minus : plus;
+  }
+  v[0] = y0;
+}
+
+template <int R, bool INV>
+__device__ __forceinline__ void small_dft(float2 (&v)[R]) {
+  if constexpr (R & 1)
+    odd_dft<R, INV>(v);
+  else
+    dft<R, INV>(v, 0);
+}
+
+// One Stockham stage of radix R on `lines` = 1 << lg lines of n points,
+// from src to dst (tile layout above): butterfly j of a line reads points
+// j + q * n / R, twiddles them by exp(-+2 pi i k q / (Ns R)), k = j mod Ns,
+// runs the R-point DFT and writes point q to (j - k) R + k + q Ns.
+template <int R, bool INV>
+__device__ __forceinline__ void mix_stage(const float2* src, float2* dst,
+                                          int n, int ns, const float2* tw,
+                                          int lg, int cs) {
+  const int m = n / R;
+  const int count = m << lg;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const int l = i & ((1 << lg) - 1), j = i >> lg;
+    float2 v[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) v[q] = src[(j + q * m) * cs + l];
+    const int k = j % ns;
+    if (ns > 1) {
+#pragma unroll
+      for (int q = 1; q < R; ++q)
+        v[q] = INV ? cmulc(v[q], tw[q * ns + k]) : cmul(v[q], tw[q * ns + k]);
+    }
+    small_dft<R, INV>(v);
+    const int d = (j - k) * R + k;
+#pragma unroll
+    for (int q = 0; q < R; ++q) dst[(d + q * ns) * cs + l] = v[q];
+  }
+}
+
+// The whole line transform of a tile: the plan's stages between buffers a
+// and b, a block-wide barrier after each. Returns the buffer that holds
+// the result (a or b). Every thread of the block calls it.
+template <bool INV>
+__device__ __forceinline__ float2* mix_fft(float2* a, float2* b,
+                                           const MixPlan& p,
+                                           const float2* tw, int lg,
+                                           int cs) {
+  for (int s = 0; s < p.stages; ++s) {
+    const float2* t = tw + p.tw_off[s];
+    const int ns = p.span[s];
+    switch (p.radix[s]) {
+#define CSMRI_STAGE(r) \
+      case r: mix_stage<r, INV>(a, b, p.n, ns, t, lg, cs); break;
+      CSMRI_STAGE(2) CSMRI_STAGE(3) CSMRI_STAGE(4) CSMRI_STAGE(5)
+      CSMRI_STAGE(7) CSMRI_STAGE(8) CSMRI_STAGE(9) CSMRI_STAGE(11)
+      CSMRI_STAGE(13) CSMRI_STAGE(15) CSMRI_STAGE(16)
+#undef CSMRI_STAGE
+    }
+    __syncthreads();
+    float2* c = a;
+    a = b;
+    b = c;
+  }
+  return a;
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// The plan and twiddles into shared memory (the plan's arrays are indexed
+// by the stage, a runtime value).
+__device__ __forceinline__ void mix_setup(MixPlan* sp, const MixPlan& p,
+                                          float2* tw,
+                                          const float2* __restrict__ g) {
+  if (threadIdx.x == 0) *sp = p;
+  for (int i = threadIdx.x; i < p.tw_size; i += blockDim.x) tw[i] = g[i];
+}
+
+// Passes 1 and 3: a tile is 1 << lg rows of n points, stored transposed
+// (cs = (1 << lg) + 1, odd: staging a row's neighbouring points hits
+// every bank); `lines` of them are real (the last tile may be partial, and
+// its other lines are transformed and dropped).
+__device__ __forceinline__ void mix_stage_rows(const float2* __restrict__ in,
+                                               float2* s, long r0, int lines,
+                                               int n, int cs) {
+  const float2* src = in + r0 * n;
+  for (int i = threadIdx.x; i < lines * n; i += blockDim.x) {
+    const int l = i / n, e = i - l * n;
+    cp_async8(s + e * cs + l, src + i);
+  }
+}
+
+template <bool INV>
+__global__ void __launch_bounds__(kMixThreads)
+mix_rows(const float2* __restrict__ in, float2* __restrict__ out, long rows,
+         MixPlan p, const float2* __restrict__ tw_g, float scale, int lg) {
+  __shared__ MixPlan sp;
+  extern __shared__ __align__(16) float2 smem[];
+  const int n = p.n, tl = 1 << lg, cs = tl + 1, elems = n * cs;
+  float2* tw = smem + 3 * elems;
+  mix_setup(&sp, p, tw, tw_g);
+  const long tiles = (rows + tl - 1) / tl;
+  auto lines_of = [&](long tile) {
+    return rows - tile * tl < tl ? (int)(rows - tile * tl) : tl;
+  };
+  long tile = blockIdx.x;
+  if (tile < tiles) mix_stage_rows(in, smem, tile * tl, lines_of(tile), n, cs);
+  cp_async_commit();
+  for (int buf = 0; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    const long next = tile + gridDim.x;
+    if (next < tiles)
+      mix_stage_rows(in, smem + (buf ^ 1) * elems, next * tl, lines_of(next),
+                     n, cs);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    const float2* s =
+        mix_fft<INV>(smem + buf * elems, smem + 2 * elems, sp, tw, lg, cs);
+    const int lines = lines_of(tile);
+    float2* dst = out + tile * tl * n;
+    for (int i = threadIdx.x; i < lines * n; i += blockDim.x) {
+      const int l = i / n, e = i - l * n;
+      const float2 v = s[e * cs + l];
+      dst[i] = make_float2(v.x * scale, v.y * scale);
+    }
+    __syncthreads();
+  }
+}
+
+// Pass 2: per strip of up to 8 columns of one image (64-byte row
+// segments; point e of column c at e * strip + c), the FFT along H, the
+// merge (1 - m) k + k0 (operands loaded before the forward transform,
+// kMerge rows a thread), the inverse FFT along H, from `in` to `out` (one
+// buffer in dc_forward: a strip is read whole before it is written). A
+// thread keeps one column c of every strip; threads of columns past a
+// partial strip's stage, merge and write nothing, and their lines are
+// transformed and dropped.
+constexpr int kMixColLg = 3;
+constexpr int kMerge = 16;   // rows a thread merges: h * strip / threads
+
+template <bool HAS_K0>
+__global__ void __launch_bounds__(kMixThreads)
+mix_cols(const float2* in, float2* out, const float2* __restrict__ k0,
+         const float* __restrict__ mask, int batch, int w, MixPlan p,
+         const float2* __restrict__ tw_g, float scale) {
+  constexpr int lg = kMixColLg, strip = 1 << lg;
+  __shared__ MixPlan sp;
+  extern __shared__ __align__(16) float2 smem[];
+  const int h = p.n, elems = h * strip;
+  float2* tw = smem + 3 * elems;
+  mix_setup(&sp, p, tw, tw_g);
+  const int groups = (w + strip - 1) / strip;
+  const int tiles = batch * groups;
+  const int c = threadIdx.x & (strip - 1), e0 = threadIdx.x >> lg;
+  const int step = blockDim.x >> lg;
+  auto base_of = [&](int tile) {
+    return (size_t)(tile / groups) * h * w + (size_t)(tile % groups) * strip;
+  };
+  auto cols_of = [&](int tile) {
+    const int c0 = (tile % groups) * strip;
+    return w - c0 < strip ? w - c0 : strip;
+  };
+  auto stage = [&](int tile, float2* s) {
+    if (c < cols_of(tile)) {
+      const float2* src = in + base_of(tile) + c;
+      for (int e = e0; e < h; e += step)
+        cp_async8(s + e * strip + c, src + (size_t)e * w);
+    }
+  };
+  int tile = blockIdx.x;
+  if (tile < tiles) stage(tile, smem);
+  cp_async_commit();
+  for (int buf = 0; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    const int next = tile + gridDim.x;
+    if (next < tiles) stage(next, smem + (buf ^ 1) * elems);
+    cp_async_commit();
+    const bool mine = c < cols_of(tile);
+    const size_t col = base_of(tile) + c;
+    float keep[kMerge];
+    float2 kk[kMerge];
+#pragma unroll
+    for (int i = 0; i < kMerge; ++i) {
+      const int e = e0 + i * step;
+      if (mine && e < h) {
+        keep[i] = 1.f - __ldg(mask + col + (size_t)e * w);
+        kk[i] = HAS_K0 ? __ldg(k0 + col + (size_t)e * w)
+                       : make_float2(0.f, 0.f);
+      }
+    }
+    cp_async_wait1();
+    __syncthreads();
+    float2* cur = smem + buf * elems;
+    float2* work = smem + 2 * elems;
+    float2* f = mix_fft<false>(cur, work, sp, tw, lg, strip);
+    if (mine) {
+#pragma unroll
+      for (int i = 0; i < kMerge; ++i) {
+        const int e = e0 + i * step;
+        if (e < h) {
+          float2& v = f[e * strip + c];
+          v = make_float2(fmaf(keep[i], v.x * scale, kk[i].x),
+                          fmaf(keep[i], v.y * scale, kk[i].y));
+        }
+      }
+    }
+    __syncthreads();
+    const float2* y = mix_fft<true>(f, f == cur ? work : cur, sp, tw, lg,
+                                    strip);
+    if (mine) {
+      float2* dst = out + col;
+      for (int e = e0; e < h; e += step) {
+        const float2 v = y[e * strip + c];
+        dst[(size_t)e * w] = make_float2(v.x * scale, v.y * scale);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Lines per row tile: 16 up to n = 128, 8 above. A column strip takes
+// 128 threads up to h = 256 and 256 above, so that a thread merges at
+// most kMerge rows. A block's three buffers stay under 110 KB, and up to
+// h = 256 four blocks share an SM: 240^2 at B = 20 (600 strips, 300 a rank
+// of two) then runs in about one wave (faster there than 16-column strips
+// or 256 threads, timed in turns on one card).
+int mix_row_lg(int n) { return n <= 128 ? 4 : 3; }
+int mix_col_threads(int h) { return h <= 256 ? 128 : 256; }
+
+template <bool INV>
+int mix_rows_pass(const float2* in, float2* out, long rows, const MixPlan& p,
+                  const float2* tw, float scale, cudaStream_t st) {
+  const int lg = mix_row_lg(p.n), tl = 1 << lg;
+  const int smem = (3 * p.n * (tl + 1) + p.tw_size) * 8;
+  unsigned grid = 0;
+  const int err = walk_grid(mix_rows<INV>, kMixThreads, smem,
+                            (rows + tl - 1) / tl, &grid);
+  if (err) return err;
+  mix_rows<INV><<<grid, kMixThreads, smem, st>>>(in, out, rows, p, tw, scale,
+                                                 lg);
+  return (int)cudaGetLastError();
+}
+
+int mix_cols_pass(const float2* in, float2* out, const float2* k0,
+                  const float* mask, int batch, int w, const MixPlan& p,
+                  const float2* tw, float scale, cudaStream_t st) {
+  constexpr int strip = 1 << kMixColLg;
+  const int threads = mix_col_threads(p.n);
+  const int smem = (3 * p.n * strip + p.tw_size) * 8;
+  const long strips = (long)batch * ((w + strip - 1) / strip);
+  unsigned grid = 0;
+  if (k0 != nullptr) {
+    const int err = walk_grid(mix_cols<true>, threads, smem, strips, &grid);
+    if (err) return err;
+    mix_cols<true><<<grid, threads, smem, st>>>(in, out, k0, mask, batch, w,
+                                                p, tw, scale);
+  } else {
+    const int err = walk_grid(mix_cols<false>, threads, smem, strips, &grid);
+    if (err) return err;
+    mix_cols<false><<<grid, threads, smem, st>>>(in, out, nullptr, mask,
+                                                 batch, w, p, tw, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 float ortho(int n) { return (float)(1.0 / sqrt((double)n)); }
+
+// --- one route per axis ---
+
+enum Route { kRadix = 0, kMixed = 1, kDense = 2 };  // ops/dc_kernel.py
+
+bool aligned16(const void* a, const void* b, const void* c = nullptr) {
+  return ((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) % 16 == 0;
+}
+
+// Passes 1 and 3 (`inverse`): `rows` lines of n points from in to out on
+// `route` with its plan and table, times 1 / sqrt(n).
+int rows_launch(int route, unsigned long long plan, const float2* in,
+                float2* out, long rows, int n, const float2* tw, bool inverse,
+                cudaStream_t st) {
+  if (rows < 1) return (int)cudaErrorInvalidValue;
+  const float scale = ortho(n);
+  if (route == kRadix) {
+    if (!supported(n, (int)plan) || plan >> 31 || !aligned16(in, out))
+      return (int)cudaErrorInvalidValue;
+    return inverse ? rows_pass<true>(n, in, out, rows, tw, scale, st)
+                   : rows_pass<false>(n, in, out, rows, tw, scale, st);
+  }
+  if (route == kMixed) {
+    MixPlan p;
+    if (!mix_plan(n, plan, &p)) return (int)cudaErrorInvalidValue;
+    return inverse ? mix_rows_pass<true>(in, out, rows, p, tw, scale, st)
+                   : mix_rows_pass<false>(in, out, rows, p, tw, scale, st);
+  }
+  if (route == kDense && n >= 2 && n <= kMaxN)
+    return inverse ? dft_rows_pass<true>(in, out, rows, n, tw, scale, st)
+                   : dft_rows_pass<false>(in, out, rows, n, tw, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Pass 2 on (batch, h, w) column blocks (row stride w) from in to out
+// (distinct or the same buffer), k0 null for K1-bwd. The radix route
+// takes w in whole 16-column strips, or one strip of a power of two below
+// 16; the others any w from 1 (partial strips).
+int cols_launch(int route, unsigned long long plan, const float2* in,
+                float2* out, const float2* k0, const float* mask, int batch,
+                int h, int w, const float2* tw, cudaStream_t st) {
+  if (batch < 1 || w < 1) return (int)cudaErrorInvalidValue;
+  const float scale = ortho(h);
+  if (route == kRadix) {
+    const int strip = w < kCols ? w : kCols;
+    if (!supported(h, (int)plan) || plan >> 31 || w < 2 || w % strip ||
+        (strip & (strip - 1)) || !aligned16(in, out, k0))
+      return (int)cudaErrorInvalidValue;
+    return cols_pass(h, in, out, k0, mask, batch, w, tw, scale, st);
+  }
+  if (route == kMixed) {
+    MixPlan p;
+    if (!mix_plan(h, plan, &p)) return (int)cudaErrorInvalidValue;
+    return mix_cols_pass(in, out, k0, mask, batch, w, p, tw, scale, st);
+  }
+  if (route == kDense && h >= 2 && h <= kMaxN)
+    return dft_cols_pass(in, out, k0, mask, batch, h, w, tw, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
-// x, k0, y, scratch: (batch, h, w, 2) float32, 16-byte aligned; k0 may be
-// null (zero); mask: (batch, h, w) float32. tw_h, tw_w: the twiddle tables
-// of the plans for n = h, w (ops/dc_kernel.py::fft_tables, stage s >= 1 at
-// plan_tw_offset, entry [q * Ns + m] = exp(-2 pi i m q / (Ns r)));
-// plan_h, plan_w: the plans' radices, one byte per stage, which must be
-// the plans compiled here. Launches on `stream`; returns a CUDA error code.
+// x, k0, y, scratch: (batch, h, w, 2) float32 (16-byte aligned where an
+// axis takes the radix route); k0 may be null (zero); mask: (batch, h, w)
+// float32. route_h, plan_h, tw_h: H's route (0 radix, 1 mixed-radix, 2
+// dense), its plan (one byte per stage's radix: FFT_PLANS or mixed_plan;
+// unused by the dense route) and its table (ops/dc_kernel.py::fft_tables,
+// mixed_tables: stage s >= 1 at its offset, entry [q * Ns + m] =
+// exp(-2 pi i m q / (Ns r)); dft_table: the h roots exp(-2 pi i m / h));
+// route_w, plan_w, tw_w: W's. Pass 1 and pass 3 run on W's route, pass 2
+// on H's, each the launch of dc_rows_pass / dc_cols_pass below. Launches
+// on `stream`; returns a CUDA error code.
 extern "C" int dc_forward(const void* x, const void* k0, const void* mask,
                           void* y, void* scratch, const void* tw_h,
-                          const void* tw_w, int plan_h, int plan_w, int batch,
-                          int h, int w, void* stream) {
-  if (!supported(h, plan_h) || !supported(w, plan_w) || batch < 1 ||
-      ((uintptr_t)x | (uintptr_t)y | (uintptr_t)scratch |
-       (uintptr_t)k0) % 16) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = (cudaStream_t)stream;
-  const float sh = (float)(1.0 / sqrt((double)h));
-  const float sw = (float)(1.0 / sqrt((double)w));
-  const long rows = (long)batch * h;
-  float2* t = (float2*)scratch;
-  int err = rows_pass<false>(w, (const float2*)x, t, rows,
-                             (const float2*)tw_w, sw, st);
-  if (err) return err;
-  err = cols_pass(h, t, t, (const float2*)k0, (const float*)mask, batch, w,
-                  (const float2*)tw_h, sh, st);
-  if (err) return err;
-  return rows_pass<true>(w, t, (float2*)y, rows, (const float2*)tw_w, sw, st);
-}
-
-// The same DC for any H x W with sides from 2 to 512 (those with no radix
-// plan, and non-square images), by dense DFT lines (see above). tw_h, tw_w:
-// the h and w roots exp(-2 pi i m / n), m < n (ops/dc_kernel.py::
-// dft_table). Other arguments as dc_forward's, with nothing checked for
-// alignment (the passes move 8 bytes at a time).
-extern "C" int dc_forward_dft(const void* x, const void* k0, const void* mask,
-                              void* y, void* scratch, const void* tw_h,
-                              const void* tw_w, int batch, int h, int w,
-                              void* stream) {
-  if (h < 2 || h > kMaxN || w < 2 || w > kMaxN || batch < 1)
+                          const void* tw_w, int route_h,
+                          unsigned long long plan_h, int route_w,
+                          unsigned long long plan_w, int batch, int h, int w,
+                          void* stream) {
+  if (batch < 1 || h < 2 || h > kMaxN || w < 2 || w > kMaxN)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long rows = (long)batch * h;
   float2* t = (float2*)scratch;
-  const float2* roots_h = (const float2*)tw_h;
-  const float2* roots_w = (const float2*)tw_w;
-  int err = dft_rows_pass<false>((const float2*)x, t, rows, w, roots_w,
-                                 ortho(w), st);
+  int err = rows_launch(route_w, plan_w, (const float2*)x, t, rows, w,
+                        (const float2*)tw_w, false, st);
   if (err) return err;
-  err = dft_cols_pass(t, t, (const float2*)k0, (const float*)mask, batch, h,
-                      w, roots_h, ortho(h), st);
+  err = cols_launch(route_h, plan_h, t, t, (const float2*)k0,
+                    (const float*)mask, batch, h, w, (const float2*)tw_h, st);
   if (err) return err;
-  return dft_rows_pass<true>(t, (float2*)y, rows, w, roots_w, ortho(w), st);
+  return rows_launch(route_w, plan_w, t, (float2*)y, rows, w,
+                     (const float2*)tw_w, true, st);
 }
 
 // --- K1's passes one at a time: the DC distributed over a spatial group ---
 //
 // ops/dc_kernel.py::dc_distributed runs the DC of an image whose rows are
 // split over S ranks: pass 1 on the rank's rows, an all-to-all that gives
-// each rank all rows of its W/S columns, pass 2 on those columns (with the
-// rank's columns of k0 and the mask), the all-to-all back, pass 3. Each
-// entry launches the same kernel, with the same plan, twiddles and scale,
-// as the pass inside dc_forward / dc_forward_dft, so a line's result is
-// the same bits: the whole-image DC's rows, on every rank.
+// each rank all rows of its column block, pass 2 on those columns (with
+// the rank's columns of k0 and the mask), the all-to-all back, pass 3.
+// Each entry is the launch dc_forward makes for that pass, with the same
+// route, plan, twiddles and scale, so a line's result is the same bits:
+// the whole-image DC's rows, on every rank.
 //
 // The row passes (1, and 3 with `inverse`): `rows` lines of n points,
-// (rows, n, 2) float32 from `in` to `out`; n is the image's width W, plan
-// and tw its radix plan and twiddles (dc_forward's plan_w and tw_w).
+// (rows, n, 2) float32 from `in` to `out`; n is the image's width W,
+// route, plan and tw W's (dc_forward's route_w, plan_w and tw_w).
 extern "C" int dc_rows_pass(const void* in, void* out, const void* tw,
-                            int plan, int rows, int n, int inverse,
-                            void* stream) {
-  if (!supported(n, plan) || rows < 1 ||
-      ((uintptr_t)in | (uintptr_t)out) % 16)
-    return (int)cudaErrorInvalidValue;
-  return inverse ? rows_pass<true>(n, (const float2*)in, (float2*)out, rows,
-                                   (const float2*)tw, ortho(n),
-                                   (cudaStream_t)stream)
-                 : rows_pass<false>(n, (const float2*)in, (float2*)out, rows,
-                                    (const float2*)tw, ortho(n),
-                                    (cudaStream_t)stream);
+                            int route, unsigned long long plan, int rows,
+                            int n, int inverse, void* stream) {
+  return rows_launch(route, plan, (const float2*)in, (float2*)out, rows, n,
+                     (const float2*)tw, inverse != 0, (cudaStream_t)stream);
 }
 
 // The column pass: (batch, h, w, 2) float32 column blocks, all h rows of w
 // columns (the row stride is w), from `in` to `out` (distinct or the same
 // buffer); k0 (batch, h, w, 2) or null (zero: K1-bwd), mask (batch, h, w).
-// plan and tw are the plan of h, the image's height. w is whole 16-column
-// strips, or one strip of a power of two below 16.
+// route, plan and tw are H's, the image's height.
 extern "C" int dc_cols_pass(const void* in, const void* k0, const void* mask,
-                            void* out, const void* tw, int plan, int batch,
-                            int h, int w, void* stream) {
-  const int strip = w < kCols ? w : kCols;
-  if (!supported(h, plan) || batch < 1 || w < 2 || w % strip ||
-      (strip & (strip - 1)) ||
-      ((uintptr_t)in | (uintptr_t)out | (uintptr_t)k0) % 16)
-    return (int)cudaErrorInvalidValue;
-  return cols_pass(h, (const float2*)in, (float2*)out, (const float2*)k0,
-                   (const float*)mask, batch, w, (const float2*)tw, ortho(h),
-                   (cudaStream_t)stream);
-}
-
-// The same two on the dense route (dc_forward_dft's passes): tw holds the
-// n (rows) or h (columns) roots; any w from 1 up (partial strips).
-extern "C" int dc_rows_pass_dft(const void* in, void* out, const void* tw,
-                                int rows, int n, int inverse, void* stream) {
-  if (n < 2 || n > kMaxN || rows < 1) return (int)cudaErrorInvalidValue;
-  return inverse ? dft_rows_pass<true>((const float2*)in, (float2*)out, rows,
-                                       n, (const float2*)tw, ortho(n),
-                                       (cudaStream_t)stream)
-                 : dft_rows_pass<false>((const float2*)in, (float2*)out,
-                                        rows, n, (const float2*)tw, ortho(n),
-                                        (cudaStream_t)stream);
-}
-
-extern "C" int dc_cols_pass_dft(const void* in, const void* k0,
-                                const void* mask, void* out, const void* tw,
-                                int batch, int h, int w, void* stream) {
-  if (h < 2 || h > kMaxN || w < 1 || batch < 1)
-    return (int)cudaErrorInvalidValue;
-  return dft_cols_pass((const float2*)in, (float2*)out, (const float2*)k0,
-                       (const float*)mask, batch, h, w, (const float2*)tw,
-                       ortho(h), (cudaStream_t)stream);
+                            void* out, const void* tw, int route,
+                            unsigned long long plan, int batch, int h, int w,
+                            void* stream) {
+  return cols_launch(route, plan, (const float2*)in, (float2*)out,
+                     (const float2*)k0, (const float*)mask, batch, h, w,
+                     (const float2*)tw, (cudaStream_t)stream);
 }

@@ -32,13 +32,13 @@ on packed ``(B, H, W, 2)`` float32 images, ``(B, H, W, 1)`` float32 masks.
   ``_DCFunction``; elsewhere (evaluation, a frozen network) the custom op.
 * ``dc_rows_fft_cuda``, ``dc_cols_cuda``, ``dc_rows_ifft_cuda`` — K1's
   three passes one at a time (``csrc/dc.cu``'s ``dc_rows_pass`` and
-  ``dc_cols_pass``, or their dense-DFT twins): the forward FFT along W of
-  a block of rows, the column pass (FFT along H, merge, inverse FFT along
-  H) on a block of whole columns, and the inverse FFT along W. Each runs
-  the kernel, plan, twiddles and scale of that pass inside ``dc_cuda``, so
-  a line's result is the same bits. ``dc_bwd_rows_fft_cuda``,
-  ``dc_bwd_cols_cuda`` (no k0) and ``dc_bwd_rows_ifft_cuda`` are the same
-  launches for K1-bwd. Each counts its own launches. Their plain versions
+  ``dc_cols_pass``, the launches ``dc_forward`` makes): the forward FFT
+  along W of a block of rows, the column pass (FFT along H, merge, inverse
+  FFT along H) on a block of whole columns, and the inverse FFT along W.
+  Each runs the kernel, plan, twiddles and scale of that pass inside
+  ``dc_cuda``, so a line's result is the same bits.
+  ``dc_bwd_rows_fft_cuda``, ``dc_bwd_cols_cuda`` (no k0) and
+  ``dc_bwd_rows_ifft_cuda`` are the same launches for K1-bwd. Each counts its own launches. Their plain versions
   (``dc_rows_fft_plain``, ``dc_cols_plain``, ``dc_rows_ifft_plain``) are
   per-axis ``torch.fft`` with ``norm='ortho'``; ``dc_plain`` and
   ``dc_plain_vjp`` are their composition. The forward passes are the custom
@@ -60,11 +60,14 @@ on packed ``(B, H, W, 2)`` float32 images, ``(B, H, W, 1)`` float32 masks.
   The noisy DC (``ops/dc.py``) runs the same pipeline on the plain passes,
   autodiffed through the exchanges.
 
-The kernel takes images of sides 2 to 512, by the route ``dc_route`` names
-by shape: square power-of-two sides by mixed-radix line FFTs
-(``FFT_PLANS``), every other side and every non-square image by dense DFT
-lines, as the TPU kernel computes every side (its DFT matrices,
-``dc_pallas.py:77``). A CUDA tensor of a larger side raises.
+The kernel takes images of sides 2 to 512, square or not, with one route
+per axis (``dc_route``; passes 1 and 3 take W's, pass 2 H's): powers of two
+by the radix plans compiled per side (``FFT_PLANS``), the other sides whose
+prime factors are at most 13 (240, 320, 384, 192, ...) by mixed-radix
+plans passed at run time (``mixed_plan``), the sides with a larger prime
+factor (17, 237, 509, ...) by dense DFT lines, as the TPU kernel computes
+every side (its DFT matrices, ``dc_pallas.py:77``). A CUDA tensor of a
+larger side raises; nothing falls back to ``torch.fft``.
 """
 
 import ctypes
@@ -137,40 +140,72 @@ def dc_plain(x, k0, mask):
 @functools.lru_cache(maxsize=None)
 def _lib():
   lib = native.library('dc')
-  lib.dc_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-      ctypes.c_void_p]
-  lib.dc_forward.restype = ctypes.c_int
-  lib.dc_forward_dft.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-      ctypes.c_void_p]
-  lib.dc_forward_dft.restype = ctypes.c_int
-  lib.dc_rows_pass.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-      ctypes.c_void_p]
-  lib.dc_cols_pass.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-      ctypes.c_void_p]
-  lib.dc_rows_pass_dft.argtypes = [ctypes.c_void_p] * 3 + [
+  plan = [ctypes.c_int, ctypes.c_uint64]      # a route and its plan
+  lib.dc_forward.argtypes = [ctypes.c_void_p] * 7 + plan * 2 + [
       ctypes.c_int] * 3 + [ctypes.c_void_p]
-  lib.dc_cols_pass_dft.argtypes = [ctypes.c_void_p] * 5 + [
+  lib.dc_rows_pass.argtypes = [ctypes.c_void_p] * 3 + plan + [
       ctypes.c_int] * 3 + [ctypes.c_void_p]
-  for fn in (lib.dc_rows_pass, lib.dc_cols_pass, lib.dc_rows_pass_dft,
-             lib.dc_cols_pass_dft):
+  lib.dc_cols_pass.argtypes = [ctypes.c_void_p] * 5 + plan + [
+      ctypes.c_int] * 3 + [ctypes.c_void_p]
+  for fn in (lib.dc_forward, lib.dc_rows_pass, lib.dc_cols_pass):
     fn.restype = ctypes.c_int
   return lib
 
 
-# The line FFT's mixed-radix plan, per n: the radices of its stages, each
-# an in-register DFT of 2 to 16 points (``csrc/dc.cu`` compiles the same
-# plans and refuses any other). A thread holds the largest radix's points.
+# The radix route's line FFT plan, per power-of-two n: the radices of its
+# stages, each an in-register DFT of 2 to 16 points (``csrc/dc.cu``
+# compiles the same plans and refuses any other). A thread holds the
+# largest radix's points.
 FFT_PLANS = {2: (2,), 4: (4,), 8: (8,), 16: (16,), 32: (8, 4), 64: (8, 8),
              128: (16, 8), 256: (16, 16), 512: (8, 8, 8)}
 
+# The mixed-radix route's radices (``csrc/dc.cu``'s ``mix_stage``): the
+# radix-2 networks of 2 to 16 points and the odd DFTs with constant roots.
+MIXED_RADICES = (2, 3, 4, 5, 7, 8, 9, 11, 13, 15, 16)
+MIXED_MAX_STAGES = 4
+
+
+@functools.lru_cache(maxsize=None)
+def mixed_plan(n):
+  """The mixed-radix route's plan for a side n of 2 to 512 whose prime
+  factors are at most 13, or None: the power of two as ``FFT_PLANS``
+  splits it, then 15 for each pair of 3 and 5, 9 for each pair of 3s, and
+  the remaining 3, 5, 7, 11 and 13."""
+  if not 2 <= n <= MAX_SIZE:
+    return None
+  count = {}
+  rest = n
+  for p in (2, 3, 5, 7, 11, 13):
+    count[p] = 0
+    while rest % p == 0:
+      rest //= p
+      count[p] += 1
+  if rest != 1:
+    return None
+  fifteens = min(count[3], count[5])
+  threes, fives = count[3] - fifteens, count[5] - fifteens
+  return (FFT_PLANS.get(1 << count[2], ()) + (15,) * fifteens +
+          (9,) * (threes // 2) + (3,) * (threes % 2) + (5,) * fives +
+          (7,) * count[7] + (11,) * count[11] + (13,) * count[13])
+
+
+def _code(plan):
+  """A plan as the kernel checks it: one byte per stage's radix."""
+  return sum(r << (8 * s) for s, r in enumerate(plan))
+
 
 def plan_code(n):
-  """The plan as the kernel checks it: one byte per stage's radix."""
-  return sum(r << (8 * s) for s, r in enumerate(FFT_PLANS[n]))
+  """The radix route's plan of n as the kernel checks it."""
+  return _code(FFT_PLANS[n])
 
 
-def fft_tables(n):
-  """The inter-stage twiddles of the plan, in f64 rounded once to f32.
+def mixed_plan_code(n):
+  """The mixed-radix route's plan of n as the kernel checks it."""
+  return _code(mixed_plan(n))
+
+
+def stage_twiddles(plan):
+  """The inter-stage twiddles of a plan, in f64 rounded once to f32.
 
   Stage s ≥ 1 (span Ns = product of the earlier radices, radix r) has a
   table of Ns·r entries, ``[q·Ns + m] = exp(−2πi·m·q/(Ns·r))``; the tables
@@ -179,13 +214,31 @@ def fft_tables(n):
   """
   parts = []
   span = 1
-  for s, r in enumerate(FFT_PLANS[n]):
+  for s, r in enumerate(plan):
     if s:
       q, m = np.meshgrid(np.arange(r), np.arange(span), indexing='ij')
       parts.append(np.exp(-2j * np.pi * m * q / (span * r)).reshape(-1))
     span *= r
   w = np.concatenate(parts) if parts else np.zeros(1, np.complex128)
   return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+
+
+def fft_tables(n):
+  """The radix route's twiddles of n (``stage_twiddles``)."""
+  return stage_twiddles(FFT_PLANS[n])
+
+
+def mixed_tables(n):
+  """The mixed-radix route's twiddles of n (``stage_twiddles``)."""
+  return stage_twiddles(mixed_plan(n))
+
+
+def odd_roots(r):
+  """The constant roots of the kernel's odd r-point DFT: (cos, sin) of
+  2π·m/r for 0 < m ≤ (r − 1)/2, in f64 rounded once to f32, an
+  ((r − 1)/2, 2) float32 array (``csrc/dc.cu``'s ``odd_root`` literals)."""
+  t = 2 * np.pi * np.arange(1, (r - 1) // 2 + 1) / r
+  return np.stack([np.cos(t), np.sin(t)], axis=-1).astype(np.float32)
 
 
 def dft_table(n):
@@ -195,18 +248,50 @@ def dft_table(n):
   return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
 
 
-def dc_route(h, w):
-  """How the kernel transforms an image of H×W: ``'fft'`` (its radix plans,
-  square power-of-two sides), ``'dft'`` (its dense DFT lines, any other
-  sides from 2 to 512) or None (no route: a side outside 2 to 512)."""
-  if not (2 <= h <= MAX_SIZE and 2 <= w <= MAX_SIZE):
+def axis_route(n):
+  """How the kernel transforms lines of n points: ``'fft'`` (the radix
+  plans of ``FFT_PLANS``, powers of two), ``'mixed'`` (the mixed-radix
+  plans of ``mixed_plan``, the other sides whose prime factors are at most
+  13), ``'dft'`` (dense DFT lines, the sides with a larger prime factor)
+  or None (a side outside 2 to 512)."""
+  if not 2 <= n <= MAX_SIZE:
     return None
-  return 'fft' if h == w and h in FFT_PLANS else 'dft'
+  if n in FFT_PLANS:
+    return 'fft'
+  return 'mixed' if mixed_plan(n) else 'dft'
+
+
+def dc_route(h, w):
+  """The kernel's routes for an H×W image, one per axis: ``(route of H,
+  route of W)`` by ``axis_route``. Passes 1 and 3 (along W) take W's,
+  pass 2 (along H) H's. A power-of-two H keeps the radix route only when
+  W is a power of two too: a spatial group of S ranks divides H, so S is a
+  power of two and every rank's W / S columns are a block the radix column
+  pass takes (``check_cols_block``); beside any other W it takes the
+  mixed-radix route with the same radices, which takes any block. None for
+  a side outside 2 to 512."""
+  route_h, route_w = axis_route(h), axis_route(w)
+  if route_h is None or route_w is None:
+    return None
+  if route_h == 'fft' and route_w != 'fft':
+    route_h = 'mixed'
+  return route_h, route_w
+
+
+_ROUTE_CODES = {'fft': 0, 'mixed': 1, 'dft': 2}
+
+
+def _plan_args(route, n):
+  """(route code, plan code) of ``csrc/dc.cu``'s entries."""
+  code = plan_code(n) if route == 'fft' else \
+      mixed_plan_code(n) if route == 'mixed' else 0
+  return _ROUTE_CODES[route], code
 
 
 @functools.lru_cache(maxsize=None)
 def _tables(route, n, device):
-  table = fft_tables(n) if route == 'fft' else dft_table(n)
+  table = {'fft': fft_tables, 'mixed': mixed_tables,
+           'dft': dft_table}[route](n)
   return torch.from_numpy(table).to(device)
 
 
@@ -230,34 +315,29 @@ def _launch(name, x, k0, mask):
     raise ValueError('{}: x must be (B, H, W, 2), got {}'.format(
         name, tuple(x.shape)))
   b, h, w, _ = x.shape
-  route = dc_route(h, w)
-  if route is None or not 1 <= b <= 65535:
+  routes = dc_route(h, w)
+  if routes is None or not 1 <= b <= 65535:
     raise ValueError('{} takes images of sides 2 to {} and 1 to 65535 of '
                      'them, got {}'.format(name, MAX_SIZE, tuple(x.shape)))
   _check('x', x, (b, h, w, 2), x.device)
   if k0 is not None:
     _check('k0', k0, (b, h, w, 2), x.device)
   _check('mask', mask, (b, h, w, 1), x.device)
-  # the kernel moves 16 bytes at a time
-  x = x.clone() if x.data_ptr() % 16 else x
-  if k0 is not None and k0.data_ptr() % 16:
-    k0 = k0.clone()
+  # the radix route moves 16 bytes at a time
+  x = _aligned(x)
+  if k0 is not None:
+    k0 = _aligned(k0)
   y = torch.empty_like(x)
   scratch = torch.empty_like(x)
-  tw_h, tw_w = _tables(route, h, x.device), _tables(route, w, x.device)
+  route_h, route_w = routes
+  tw_h, tw_w = _tables(route_h, h, x.device), _tables(route_w, w, x.device)
   k0_ptr = None if k0 is None else native.ptr(k0)
   with torch.cuda.device(x.device):
-    if route == 'fft':
-      code = plan_code(h)
-      status = _lib().dc_forward(
-          native.ptr(x), k0_ptr, native.ptr(mask), native.ptr(y),
-          native.ptr(scratch), native.ptr(tw_h), native.ptr(tw_w), code, code,
-          b, h, w, native.stream_of(x))
-    else:
-      status = _lib().dc_forward_dft(
-          native.ptr(x), k0_ptr, native.ptr(mask), native.ptr(y),
-          native.ptr(scratch), native.ptr(tw_h), native.ptr(tw_w), b, h, w,
-          native.stream_of(x))
+    status = _lib().dc_forward(
+        native.ptr(x), k0_ptr, native.ptr(mask), native.ptr(y),
+        native.ptr(scratch), native.ptr(tw_h), native.ptr(tw_w),
+        *_plan_args(route_h, h), *_plan_args(route_w, w), b, h, w,
+        native.stream_of(x))
   native.check(status, 'dc_forward')
   return y
 
@@ -356,12 +436,12 @@ def _require_cuda(name, t):
                      .format(name, tuple(t.shape)))
 
 
-def _image_route(name, h, w):
-  route = dc_route(h, w)
-  if route is None:
+def _image_routes(name, h, w):
+  routes = dc_route(h, w)
+  if routes is None:
     raise ValueError('{} takes images of sides 2 to {}, got {}x{}'.format(
         name, MAX_SIZE, h, w))
-  return route
+  return routes
 
 
 def _aligned(t):
@@ -373,20 +453,16 @@ def _rows_launch(name, x, height, inverse):
   ``height`` rows."""
   _require_cuda(name, x)
   b, rows, w, _ = x.shape
-  route = _image_route(name, height, w)
+  route = _image_routes(name, height, w)[1]
   _check('x', x, (b, rows, w, 2), x.device)
   x = _aligned(x)
   y = torch.empty_like(x)
   tw = _tables(route, w, x.device)
   with torch.cuda.device(x.device):
-    if route == 'fft':
-      status = _lib().dc_rows_pass(native.ptr(x), native.ptr(y),
-                                   native.ptr(tw), plan_code(w), b * rows, w,
-                                   int(inverse), native.stream_of(x))
-    else:
-      status = _lib().dc_rows_pass_dft(native.ptr(x), native.ptr(y),
-                                       native.ptr(tw), b * rows, w,
-                                       int(inverse), native.stream_of(x))
+    status = _lib().dc_rows_pass(native.ptr(x), native.ptr(y),
+                                 native.ptr(tw), *_plan_args(route, w),
+                                 b * rows, w, int(inverse),
+                                 native.stream_of(x))
   native.check(status, 'dc_rows_pass')
   return y
 
@@ -395,9 +471,9 @@ def check_cols_block(name, w, width, route):
   """Raise unless a block of ``w`` of an image's ``width`` columns is one
   the column pass takes on ``route``: on the radix route a block that
   divides the width in whole 16-column strips (or one strip of a power of
-  two below 16); on the dense route any block of 1 to ``width`` columns
-  (``csrc/dc.cu``'s ``dft_cols`` walks partial strips and takes the block
-  as its row stride)."""
+  two below 16); on the mixed-radix and dense routes any block of 1 to
+  ``width`` columns (``csrc/dc.cu``'s ``mix_cols`` and ``dft_cols`` walk
+  partial strips and take the block as their row stride)."""
   strip = min(w, 16)
   if not 1 <= w <= width or (route == 'fft' and (
       width % w or w % strip or strip & (strip - 1))):
@@ -405,8 +481,8 @@ def check_cols_block(name, w, width, route):
         '{}: a block of {} of the image\'s {} columns; the column pass '
         'takes, on the radix route, a block that divides the width in whole '
         '16-column strips (or one strip of a power of two below 16), on the '
-        'dense route a block of 1 to {} columns'.format(name, w, width,
-                                                       width))
+        'mixed-radix and dense routes a block of 1 to {} columns'.format(
+            name, w, width, width))
 
 
 def _cols_launch(name, t, k0, mask, width):
@@ -414,7 +490,7 @@ def _cols_launch(name, t, k0, mask, width):
   columns; ``k0`` None launches the no-k0 mode."""
   _require_cuda(name, t)
   b, h, w, _ = t.shape
-  route = _image_route(name, h, width)
+  route = _image_routes(name, h, width)[0]
   check_cols_block(name, w, width, route)
   _check('t', t, (b, h, w, 2), t.device)
   if k0 is not None:
@@ -426,16 +502,10 @@ def _cols_launch(name, t, k0, mask, width):
   tw = _tables(route, h, t.device)
   k0_ptr = None if k0 is None else native.ptr(k0)
   with torch.cuda.device(t.device):
-    if route == 'fft':
-      status = _lib().dc_cols_pass(native.ptr(t), k0_ptr, native.ptr(mask),
-                                   native.ptr(y), native.ptr(tw),
-                                   plan_code(h), b, h, w,
-                                   native.stream_of(t))
-    else:
-      status = _lib().dc_cols_pass_dft(native.ptr(t), k0_ptr,
-                                       native.ptr(mask), native.ptr(y),
-                                       native.ptr(tw), b, h, w,
-                                       native.stream_of(t))
+    status = _lib().dc_cols_pass(native.ptr(t), k0_ptr, native.ptr(mask),
+                                 native.ptr(y), native.ptr(tw),
+                                 *_plan_args(route, h), b, h, w,
+                                 native.stream_of(t))
   native.check(status, 'dc_cols_pass')
   return y
 

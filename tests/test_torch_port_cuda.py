@@ -117,26 +117,27 @@ def test_conv_layer_staging_routes(cuda, cin, k):
   _conv_case(cuda, k, cin, 32, 'reflection', torch.bfloat16, (2, 21, 70))
 
 
-DFT_SHAPES = {'3': (3, 3), '100': (100, 100), '192': (192, 192),
-              '320': (320, 320), '384': (384, 384), '256x192': (256, 192),
-              '192x256': (192, 256), '512x320': (512, 320), '5x7': (5, 7),
-              '2x512': (2, 512)}
+# Sides with no power-of-two plan: the mixed-radix route (prime factors
+# at most 13) on at least one axis, the dense route (a larger prime
+# factor) on at least one axis.
+MIXED_SHAPES = {'3': (3, 3), '100': (100, 100), '192': (192, 192),
+                '240': (240, 240), '320': (320, 320), '384': (384, 384),
+                '160': (160, 160), '120': (120, 120), '360': (360, 360),
+                '480': (480, 480), '256x192': (256, 192),
+                '192x256': (192, 256), '512x320': (512, 320), '5x7': (5, 7),
+                '16x15': (16, 15), '128x24': (128, 24), '2x512': (2, 512)}
+DFT_SHAPES = {'17': (17, 17), '244': (244, 244), '509': (509, 509),
+              '240x237': (240, 237)}
 
 
-@pytest.mark.parametrize('with_k0', [True, False], ids=['k0', 'no_k0'])
-@pytest.mark.parametrize('shape', list(DFT_SHAPES.values()),
-                         ids=list(DFT_SHAPES))
-def test_dc_kernel_dense_dft_sides(cuda, shape, with_k0):
-  """Sides with no radix plan and non-square images run the kernel's dense
-  DFT lines, a root table per axis: K1 against dc_plain, K1-bwd against
-  dc_plain_vjp."""
+def _dc_case(cuda, shape, with_k0):
+  """K1 against dc_plain, K1-bwd against dc_plain_vjp, on (b, h, w)."""
   h, w = shape
   b = 3 if h * w <= 192 * 192 else 2
   gen = torch.Generator(device=cuda).manual_seed(h if h == w else h + w)
   x = torch.randn(b, h, w, 2, device=cuda, generator=gen)
   k0 = torch.randn(b, h, w, 2, device=cuda, generator=gen)
   m = (torch.rand(b, h, w, 1, device=cuda, generator=gen) > 0.5).float()
-  assert dc_kernel.dc_route(h, w) == 'dft'
   if with_k0:
     got = dc_kernel.dc_cuda(x, k0, m)
     torch.cuda.synchronize()
@@ -148,19 +149,41 @@ def test_dc_kernel_dense_dft_sides(cuda, shape, with_k0):
   assert (got - want).abs().max().item() <= 2e-4
 
 
+@pytest.mark.parametrize('with_k0', [True, False], ids=['k0', 'no_k0'])
+@pytest.mark.parametrize('shape', list(MIXED_SHAPES.values()),
+                         ids=list(MIXED_SHAPES))
+def test_dc_kernel_mixed_radix_sides(cuda, shape, with_k0):
+  """Sides with no power-of-two plan whose prime factors are at most 13
+  run the mixed-radix route on their axis, non-square images one route
+  per axis: K1 against dc_plain, K1-bwd against dc_plain_vjp."""
+  assert 'mixed' in dc_kernel.dc_route(*shape) or shape == (2, 512)
+  _dc_case(cuda, shape, with_k0)
+
+
+@pytest.mark.parametrize('with_k0', [True, False], ids=['k0', 'no_k0'])
+@pytest.mark.parametrize('shape', list(DFT_SHAPES.values()),
+                         ids=list(DFT_SHAPES))
+def test_dc_kernel_dense_dft_sides(cuda, shape, with_k0):
+  """Axes with a prime factor above 13 run the kernel's dense DFT lines,
+  a root table per axis (240×237: H on the mixed-radix route, W dense):
+  K1 against dc_plain, K1-bwd against dc_plain_vjp."""
+  assert 'dft' in dc_kernel.dc_route(*shape)
+  _dc_case(cuda, shape, with_k0)
+
+
 def _dc_on_blocks(x, k0, m, s, bwd):
   """K1's (``bwd``: K1-bwd's) three passes on ``s`` row blocks and ``s``
-  column blocks (``mesh.col_bounds``: one column more on the first W mod s)
-  in one process, the all-to-alls done by slicing: the arithmetic of a DC
-  distributed over ``s`` ranks."""
+  column blocks (``mesh.col_bounds``: one row or column more on the first
+  H or W mod s) in one process, the all-to-alls done by slicing: the
+  arithmetic of a DC distributed over ``s`` ranks."""
   from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
   b, h, w, _ = x.shape
-  hs, cols = h // s, mesh_lib.col_bounds(w, s)
+  rows, cols = mesh_lib.col_bounds(h, s), mesh_lib.col_bounds(w, s)
   rows_fft = dc_kernel.dc_bwd_rows_fft_cuda if bwd else \
       dc_kernel.dc_rows_fft_cuda
   rows_ifft = dc_kernel.dc_bwd_rows_ifft_cuda if bwd else \
       dc_kernel.dc_rows_ifft_cuda
-  row = lambda t, i: t[:, i * hs:(i + 1) * hs].contiguous()
+  row = lambda t, i: t[:, slice(*rows.block(i))].contiguous()
   col = lambda t, j: t[:, :, slice(*cols.block(j))].contiguous()
   t = torch.cat([rows_fft(row(x, i), h) for i in range(s)], 1)
   t = torch.cat([dc_kernel.dc_bwd_cols_cuda(col(t, j), col(m, j), w) if bwd
@@ -174,9 +197,10 @@ def _dc_on_blocks(x, k0, m, s, bwd):
 @pytest.mark.parametrize('s', [2, 4])
 @pytest.mark.parametrize('shape', [(16, 16), (64, 64), (256, 256),
                                    (512, 512), (320, 320), (256, 192),
-                                   (24, 20), (240, 237), (16, 15)],
+                                   (24, 20), (240, 237), (16, 15),
+                                   (256, 128)],
                          ids=['16', '64', '256', '512', '320', '256x192',
-                              '24x20', '240x237', '16x15'])
+                              '24x20', '240x237', '16x15', '256x128'])
 def test_dc_passes_on_blocks_equal_the_whole_dc(cuda, shape, s, bwd):
   """The passes on a rank's rows and columns give the whole-image K1's
   (K1-bwd's) output bit for bit, on both routes, and on the dense route
@@ -200,6 +224,30 @@ def test_dc_passes_on_blocks_equal_the_whole_dc(cuda, shape, s, bwd):
                                         m)).item() <= 2e-4
   y = dc_kernel.dc_rows_ifft_cuda(c, h)
   assert rel(y, dc_kernel.dc_rows_ifft_plain(c)).item() <= 2e-4
+
+
+@pytest.mark.parametrize('bwd', [False, True], ids=['K1', 'K1-bwd'])
+@pytest.mark.parametrize('shape,s', [((240, 240), 2), ((240, 240), 3),
+                                     ((320, 320), 3), ((256, 240), 2),
+                                     ((512, 240), 2), ((256, 192), 8)],
+                         ids=['240-S2', '240-S3', '320-S3', '256x240-S2',
+                              '512x240-S2', '256x192-S8'])
+def test_dc_passes_on_uneven_blocks_equal_the_whole_dc(cuda, shape, s, bwd):
+  """The mixed-radix route's passes on a rank's column blocks (120 of 240
+  on two ranks, 80 on three; 107, 107 and 106 of 320 on three, rows split
+  alike; 24 of 192 on eight, a power-of-two H beside a width of no
+  power-of-two plan) give the whole-image K1's (K1-bwd's) output bit for
+  bit."""
+  h, w = shape
+  assert dc_kernel.dc_route(h, w) == ('mixed', 'mixed')
+  gen = torch.Generator(device=cuda).manual_seed(h + w + s)
+  x, k0 = (torch.randn(2, h, w, 2, device=cuda, generator=gen)
+           for _ in range(2))
+  m = (torch.rand(2, h, w, 1, device=cuda, generator=gen) > 0.5).float()
+  got = _dc_on_blocks(x, k0, m, s, bwd)
+  want = dc_kernel.dc_bwd_cuda(x, m) if bwd else dc_kernel.dc_cuda(x, k0, m)
+  torch.cuda.synchronize()
+  assert torch.equal(got, want)
 
 
 def test_dc_passes_raise_on_blocks_they_cannot_take(cuda):

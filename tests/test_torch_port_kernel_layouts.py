@@ -26,7 +26,9 @@ decided on the host and can be replayed here:
   positions and A-fragment rule replayed tile by tile, which must give
   ``conv_layer_plain`` (and must not with a mutated channel order or
   stage layout).
-* K1's route by shape (``dc_route``) and the dense-DFT route's root table.
+* K1's routes by shape, one per axis (``dc_route``), and the dense-DFT
+  route's root table (the mixed-radix route's plans are replayed in
+  ``tests/test_torch_port_dc_mixed.py``).
 * K5's s8 product and K4's odd-pixel probe (``csrc/probes.cu``): the
   ``wgmma`` descriptors' layout fields (``probes/int8_prims.py::
   mma_descriptors``, ``probes/mosaic_prims.py::odd_pixel_descriptors``).
@@ -851,17 +853,33 @@ def test_f32_layout_constants_match_the_kernel():
 
 
 def test_dc_route_by_shape():
-  assert dc_kernel.dc_route(256, 256) == 'fft'
-  assert all(dc_kernel.dc_route(n, n) == 'fft' for n in SIDES)
-  for n in (3, 5, 100, 192, 320, 384, 511):
-    assert dc_kernel.dc_route(n, n) == 'dft'
-  for h, w in ((256, 192), (192, 256), (256, 128), (2, 512)):
-    assert dc_kernel.dc_route(h, w) == 'dft'
+  """One route per axis, ``(route of H, route of W)``: powers of two on
+  the radix plans, other sides whose prime factors are at most 13 on the
+  mixed-radix plans (``tests/test_torch_port_dc_mixed.py``), the rest on
+  dense DFT lines; a power-of-two H keeps the radix route only beside a
+  power-of-two W, and takes the mixed-radix route beside any other."""
+  assert dc_kernel.dc_route(256, 256) == ('fft', 'fft')
+  assert all(dc_kernel.dc_route(n, n) == ('fft', 'fft') for n in SIDES)
+  for n in (3, 5, 100, 192, 240, 320, 384):
+    assert dc_kernel.dc_route(n, n) == ('mixed', 'mixed')
+  for n in (17, 237, 244, 509, 511):
+    assert dc_kernel.dc_route(n, n) == ('dft', 'dft')
+  for h, w, want in ((256, 192, ('mixed', 'mixed')),
+                     (256, 240, ('mixed', 'mixed')),
+                     (512, 240, ('mixed', 'mixed')),
+                     (256, 244, ('mixed', 'dft')),
+                     (192, 256, ('mixed', 'fft')),
+                     (256, 128, ('fft', 'fft')), (2, 512, ('fft', 'fft')),
+                     (240, 237, ('mixed', 'dft')),
+                     (16, 15, ('mixed', 'mixed')),
+                     (128, 24, ('mixed', 'mixed')),
+                     (512, 320, ('mixed', 'mixed'))):
+    assert dc_kernel.dc_route(h, w) == want
   for h, w in ((1024, 1024), (1, 1), (1, 256), (256, 513)):
     assert dc_kernel.dc_route(h, w) is None
 
 
-@pytest.mark.parametrize('n', [3, 192, 320, 384])
+@pytest.mark.parametrize('n', [3, 192, 320, 384, 17, 237, 509])
 def test_dft_table_lines_match_torch_fft(n):
   """A line through the dense-DFT route: out(k) = sum_j x(j) w[(j k) mod
   n] with the f32 roots, forward and inverse, against ``torch.fft``."""
