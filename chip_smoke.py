@@ -5,7 +5,8 @@
                            --f32-only [--tree DIR] | --scarseg-only |
                            --dc-routes-only [--tree DIR] |
                            --dist-export-only | --spatial-only |
-                           --uneven-only | --options-only | --bench-only]
+                           --uneven-only | --options-only | --bench-only |
+                           --large-only]
 
 Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit. Phases, each failing loudly with a non-zero exit:
@@ -44,11 +45,13 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
 11. timings: K1-bwd, its plain version and the cuFFT composition; K1's
     non-power-of-two routes (``DC_ROUTE_SHAPES``: the mixed-radix route at
     240² with B = 2 and 20, 320², 384², 192² and 256×192, H mixed-radix
-    and W dense at 240×237, the dense route at 244² and 509²), each axis's
-    route, K1 and K1-bwd against their plain versions within 2e-4 and
-    timed beside them, cuFFT's composition and the bound (on the dense
-    route K1 alone is timed); the train step with TF32 off and on; the
-    phase's wall seconds;
+    and W dense at 240×237, the dense route at 244² and 509²) and the
+    sides above 512 (``DC_LARGE_SHAPES``: 640² at B = 4, 768², 1024²,
+    640×368, 1021²), then the radix route at 256², B = 32 and 512², B = 20
+    (``DC_RADIX_SHAPES``), each axis's route, K1 and K1-bwd against their
+    plain versions within 2e-4 and timed beside them, cuFFT's composition
+    and the bound (on the dense route K1 alone is timed); the train step
+    with TF32 off and on; the phase's wall seconds;
 12. the int8 conv kernel (K3) and its requant kernel vs their plain
     versions: the quantized layers of the five flagship chains at 256²,
     B=32 (real weights, ``quantize_act`` inputs), a k3 zero-pad and a k4
@@ -298,13 +301,24 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     --batch-size 4 --extra-sizes``,
     each with exactly one bare JSON line (value > 0) in its merged output
     and no ``extra:`` row carrying an error, every row printed; (c)
-    ``--budget 2`` gives ``budget_exceeded``.
+    ``--budget 2`` gives ``budget_exceeded``;
+27. sides above 512 on the main paths: (a) the training CLI on
+    ``configs/synthetic-recnet.json`` with ``synthetic.image_size`` 640
+    (3 steps of B = 16 and a validation batch), K1 and K1-bwd counted
+    (3 a step each, 3 K1 a validation batch), the validation loss finite,
+    then one step's K1 and K1-bwd launches against their plain versions
+    and the step timed; (b) ``build_flagship(1024, bf16)`` at B = 2 as
+    phase 25 (a) holds the bench's forward (K1 3, K2 bf16 10 counted, every
+    launch of a second forward against its plain version); (c) the bench
+    command with ``--extra-sizes 640 1024``, both rows read.
 
 ``--scarseg-only`` runs phases 1, 2 and 18-23 alone (no result line).
 ``--options-only`` runs phases 1, 2 and 24 alone (no result line; a JSON
 line of phase 24's launches and errors).
 ``--bench-only`` runs phases 1, 2 and 25 alone (no result line; a JSON
 line of phase 25's launches and errors).
+``--large-only`` runs phases 1, 2 and 27 alone (no result line; a JSON
+line of phase 27's launches and errors).
 ``--spatial-only`` runs phases 1, 2, phase 18's tree, phase 23 and phase
 26 alone (no result line). ``--uneven-only`` runs phases 1, 2, phase 23
 (a)'s gloo probe and phase 26 alone (no result line; a JSON line of phase
@@ -318,10 +332,10 @@ route on the 18 segmentation layer shapes (seeded weights) after holding
 each to its plain version (no result line); with ``--tree DIR`` an earlier
 tree times its own f32 route on the same layers in the same call.
 ``--dc-routes-only`` runs phases 1 and 2 for ``csrc/dc.cu`` and phase
-11's table of K1's routes and passes alone, with the radix route at 256²,
-B = 32 and 512², B = 20 (no result line); ``--tree DIR`` as for
-``--int8-only`` times an earlier tree's routes on the same shapes: the
-A/B run of a change to K1, parent and change in turns in one call.
+11's table of K1's routes and passes alone (no result line); ``--tree
+DIR`` as for ``--int8-only`` times an earlier tree's routes on the same
+shapes, skipping those it has no route for: the A/B run of a change to
+K1, parent and change in turns in one call.
 ``--probes-only`` runs phases 1 and 2 for the probes' source and the
 probes of phase 15 alone, and prints their ``{"kernels": [...]}`` entries
 (no result line). ``--int8-only`` runs phases 1 and 2 for the conv
@@ -816,10 +830,16 @@ def dc_bwd_phase():
 # mixed-radix route at BraTS's 240² (B = 2, and 20 as 1-recnet's batch),
 # fastMRI's 320² crops and 384², 192², a non-square image whose
 # power-of-two H takes the mixed-radix route beside W's, one with H on the
-# mixed-radix route and W dense, and the dense route at 244² and 509².
+# mixed-radix route and W dense, and the dense route at 244² and 509²;
+# then the sides above 512 (``DC_LARGE_SHAPES``).
 DC_ROUTE_SHAPES = ((2, 240, 240), (20, 240, 240), (2, 320, 320),
                    (2, 384, 384), (2, 192, 192), (2, 256, 192),
                    (2, 240, 237), (2, 244, 244), (2, 509, 509))
+# Sides above 512 on each route: 640² (mixed-radix) at B = 4, 768²
+# (mixed-radix), 1024² (radix), fastMRI's 640 × 368 knee k-space (H
+# mixed-radix, W dense) and 1021² (dense).
+DC_LARGE_SHAPES = ((4, 640, 640), (2, 768, 768), (2, 1024, 1024),
+                   (2, 640, 368), (2, 1021, 1021))
 
 
 # The passes' shapes on a rank of two at 240², B = 20 (1-recnet in phase
@@ -829,19 +849,26 @@ DC_PASS_SHAPES = ((20, 120, 240), (20, 240, 120))
 DC_RADIX_SHAPES = ((32, 256, 256), (20, 512, 512))
 
 
-def dc_routes_phase(line, shapes=DC_ROUTE_SHAPES):
-  """Phase 11, K1's non-power-of-two routes: at each of ``shapes`` each
-  axis's route, K1 with k0 against ``dc_plain`` and K1-bwd against
-  ``dc_plain_vjp`` (``F32_ATOL``), then each as device time beside its
-  plain version, cuFFT's composition and the DC's bound (where both axes
-  are dense, K1 alone: that route is not redesigned); then
-  ``dc_pass_table``. Prints its wall seconds. Returns {'K1', 'K1-bwd':
-  {'err': the largest error where an axis takes the mixed-radix route,
-  'times': the (20, 240, 240) times}}."""
+def dc_routes_phase(line, skip_refused=False):
+  """Phase 11, K1's non-power-of-two routes, the sides above 512 and the
+  radix route (``DC_ROUTE_SHAPES``, ``DC_LARGE_SHAPES``,
+  ``DC_RADIX_SHAPES``): at each shape each axis's route, K1 with k0
+  against ``dc_plain`` and K1-bwd against ``dc_plain_vjp`` (``F32_ATOL``),
+  then each as device time beside its plain version, cuFFT's composition
+  and the DC's bound (where both axes are dense, K1 alone: that route is
+  not redesigned); then ``dc_pass_table``. With ``skip_refused`` (an earlier tree, ``--tree``) a
+  shape the tree's ``dc_route`` refuses is named and skipped. Prints its
+  wall seconds. Returns {'K1', 'K1-bwd': {'err': the largest error where
+  an axis takes the mixed-radix route, 'large_err': the largest at a side
+  above 512, 'times': the (20, 240, 240) times}}."""
   from csmri_refinement_tpu_torch.ops import dc_kernel, fft, masks
   t0 = time.perf_counter()
-  out = {name: {'err': 0.0, 'times': None} for name in ('K1', 'K1-bwd')}
-  for b, h, w in shapes:
+  out = {name: {'err': 0.0, 'large_err': 0.0, 'times': None}
+         for name in ('K1', 'K1-bwd')}
+  for b, h, w in DC_ROUTE_SHAPES + DC_LARGE_SHAPES + DC_RADIX_SHAPES:
+    if skip_refused and dc_kernel.dc_route(h, w) is None:
+      print('K1 dc B{} {}x{}: no route in this tree, skipped'.format(b, h, w))
+      continue
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + b + h + w)
     x = torch.randn(b, h, w, 2, device=DEVICE, generator=gen)
     k0 = torch.randn(b, h, w, 2, device=DEVICE, generator=gen)
@@ -884,8 +911,11 @@ def dc_routes_phase(line, shapes=DC_ROUTE_SHAPES):
     require(max(errs) <= F32_ATOL,
             'DC kernel differs from its plain version at {}x{} (routes '
             '{})'.format(h, w, routes))
+    if max(h, w) > 512:
+      for name, err in zip(('K1', 'K1-bwd'), errs):
+        out[name]['large_err'] = max(out[name]['large_err'], err)
   dc_pass_table(line)
-  print('phase 11, K1\'s non-power-of-two routes: {:.1f} s wall'.format(
+  print('phase 11, K1\'s routes: {:.1f} s wall'.format(
       time.perf_counter() - t0))
   return out
 
@@ -922,12 +952,6 @@ def dc_pass_table(line):
               graph_ms(lambda: pass_plain(name, args)),
               'none' if lib is None else '{:.4f} ms'.format(graph_ms(lib)),
               b_ms, by, line))
-
-
-def dc_routes_only(line):
-  """``--dc-routes-only``: phase 11's route table and passes, and the
-  radix route at ``DC_RADIX_SHAPES``."""
-  dc_routes_phase(line, DC_ROUTE_SHAPES + DC_RADIX_SHAPES)
 
 
 def train_main_path():
@@ -5618,7 +5642,7 @@ def hold_int8_launches(label, conv_calls, requant_calls):
   return conv_err, requant_err
 
 
-def bench_forward_phase(P, size, batch, dtypes, out):
+def bench_forward_phase(P, size, batch, dtypes, out, phase='25 (a)'):
   """Phase 25 (a): one forward of the bench's ``build_forward`` per dtype at
   ``size``², B = ``batch``, with the launch counters set to 0 just before
   and read just after (``BENCH_LAUNCHES``), its ``pred`` bit-equal to
@@ -5644,9 +5668,9 @@ def bench_forward_phase(P, size, batch, dtypes, out):
       sync()
     k1, k2_all, k2_f32, k3, requants = (c.launches for c in counters)
     got = (k1, k2_all - k2_f32, k2_f32, k3, requants)
-    print('phase 25 (a) bench forward {}^2 {} B{}: launches K1 {}, K2 bf16 '
-          '{}, K2 f32 {}, K3 {}, requant {}'.format(size, dtype_str, batch,
-                                                    *got))
+    print('phase {} bench forward {}^2 {} B{}: launches K1 {}, K2 bf16 '
+          '{}, K2 f32 {}, K3 {}, requant {}'.format(phase, size, dtype_str,
+                                                    batch, *got))
     require(got == BENCH_LAUNCHES[dtype_str], 'bench forward {}: expected '
             'launches {}'.format(dtype_str, BENCH_LAUNCHES[dtype_str]))
     require(tuple(pred.shape) == (batch, size, size, 2) and
@@ -5775,25 +5799,25 @@ def bench_rows(label, proc):
   return rec, rows, components
 
 
-def bench_cli_phase(line):
+def bench_cli_phase(line, runs=BENCH_RUNS, budget=True, phase='25 (b)'):
   """Phase 25 (b), (c): the command as a subprocess on the card
-  (``BENCH_RUNS``), every row printed, no row with an error; then
-  ``--budget 2``."""
+  (``runs``), every row printed, no row with an error; then, with
+  ``budget``, ``--budget 2``."""
   root = os.path.dirname(os.path.dirname(os.path.abspath(
       sys.modules['csmri_refinement_tpu_torch'].__file__)))
   cmd = [sys.executable, '-m', 'csmri_refinement_tpu_torch.bench']
-  for label, extra, n_rows in BENCH_RUNS:
+  for label, extra, n_rows in runs:
     t0 = time.perf_counter()
     proc = subprocess.run(cmd + extra, cwd=root, capture_output=True,
                           text=True, timeout=BENCH_TIMEOUT_S)
     rec, rows, components = bench_rows(label, proc)
-    print('phase 25 (b) bench {} ({:.1f} s): {} ({})'.format(
-        ' '.join(extra) or 'default', time.perf_counter() - t0,
+    print('phase {} bench {} ({:.1f} s): {} ({})'.format(
+        phase, ' '.join(extra) or 'default', time.perf_counter() - t0,
         json.dumps(rec), line))
     for ln in components:
-      print('phase 25 (b)   ' + ln)
+      print('phase {}   {}'.format(phase, ln))
     for row in rows:
-      print('phase 25 (b)   extra: {}'.format(json.dumps(row)))
+      print('phase {}   extra: {}'.format(phase, json.dumps(row)))
     require(len(rows) == n_rows, 'bench {}: expected {} extra rows, got '
             '{}'.format(label, n_rows, len(rows)))
     require(all('error' not in r and r.get('value', 0) > 0 for r in rows),
@@ -5801,6 +5825,8 @@ def bench_cli_phase(line):
                 label, '\n'.join(proc.stderr.splitlines()[-60:])))
     require(label != 'default' or len(components) == 3,
             'bench default: expected 3 component lines')
+  if not budget:
+    return
   proc = subprocess.run(cmd + ['--budget', '2'], cwd=root,
                         capture_output=True, text=True, timeout=120)
   lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
@@ -5828,6 +5854,100 @@ def bench_phase(P, line):
   t2 = time.perf_counter()
   bench_cli_phase(line)
   print('phase 25: (a) {:.1f} s, (a\') {:.1f} s, (b, c) {:.1f} s; {:.1f} s '
+        'wall'.format(t1 - t0, t2 - t1, time.perf_counter() - t2,
+                      time.perf_counter() - t0))
+  return out
+
+
+# Phase 27: sides above 512 on the main paths. (a) the training CLI at
+# LARGE_TRAIN_SIZE² (3 steps of TRAIN_BATCH, one validation batch), (b)
+# the flagship at LARGE_FLAGSHIP_SIZE², (c) the bench's extra sizes.
+LARGE_TRAIN_SIZE = 640
+LARGE_TRAIN_STEPS = 3
+LARGE_FLAGSHIP_SIZE, LARGE_FLAGSHIP_BATCH = 1024, 2
+LARGE_BENCH = ['--image-size', str(BENCH_SMALL), '--batch-size', '4',
+               '--iters', '4', '--warmup', '1', '--extra-sizes', '640',
+               '1024']
+
+
+def large_train_phase(line, out):
+  """Phase 27 (a): the training CLI at LARGE_TRAIN_SIZE², counters set
+  to 0 just before and read just after; one more step's K1 and K1-bwd
+  launches against ``dc_plain`` (F32_ATOL) and ``dc_plain_vjp``
+  (GRAD_ATOL); the step timed, TF32 off."""
+  from csmri_refinement_tpu_torch import train
+  from csmri_refinement_tpu_torch.data import DataLoader, load_dataset
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  size, steps = LARGE_TRAIN_SIZE, LARGE_TRAIN_STEPS
+  synthetic = {'image_size': size, 'num_train': steps * TRAIN_BATCH,
+               'num_val': TRAIN_BATCH}
+  sync()
+  dc_kernel.dc_cuda.launches = dc_kernel.dc_bwd_cuda.launches = 0
+  t0 = time.perf_counter()
+  runner = train.main([TRAIN_CONFIG, '--dry', '--conf', 'num_epochs=1',
+                       'epochs_per_validation=1',
+                       'synthetic=' + json.dumps(synthetic)])
+  sync()
+  secs = time.perf_counter() - t0
+  fwd, bwd = dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches
+  print('phase 27 (a) train CLI {}^2 B{}: {} steps + validation in {:.1f} '
+        's, K1 launches {}, K1-bwd launches {}'.format(
+            size, TRAIN_BATCH, runner.step, secs, fwd, bwd))
+  require(runner.step == steps, 'expected {} train steps'.format(steps))
+  require(fwd == 3 * (steps + 1) and bwd == 3 * steps,
+          'expected 3 K1 a step and validation batch, 3 K1-bwd a step')
+  _, val_losses, _ = runner.validate(DataLoader(
+      load_dataset(runner.conf, None, 'Synthetic', 'val'), TRAIN_BATCH))
+  loss = {k: v.value for k, v in val_losses.items()}
+  require(all(math.isfinite(v) for v in loss.values()),
+          'the validation loss at {}^2 is not finite'.format(size))
+  gt, mask = fixed_batches(runner.conf, 1)[0]
+  batch = us.undersample_batch(None, gt.to(DEVICE), fixed_mask=mask.to(DEVICE))
+  step = {}
+  calls = record_dc_launches(
+      lambda: step.update(runner.train_batch(batch)[0]))
+  require(math.isfinite(step['loss'].item()), 'the train loss is not finite')
+  require(len(calls['K1']) == 3 and len(calls['K1-bwd']) == 3,
+          'expected 3 K1 and 3 K1-bwd launches a step')
+  for x, k0, m, y in calls['K1']:
+    out['dc_err'] = max(out['dc_err'], (y - dc_kernel.dc_plain(
+        x, k0, m)).abs().max().item())
+  for g, m, y in calls['K1-bwd']:
+    out['dc_bwd_err'] = max(out['dc_bwd_err'], (y - dc_kernel.dc_plain_vjp(
+        g, m, False)[0]).abs().max().item())
+  require(out['dc_err'] <= F32_ATOL and out['dc_bwd_err'] <= GRAD_ATOL,
+          'K1 or K1-bwd at {}^2 differs from its plain version'.format(size))
+  ms = timed_ms(lambda: runner.train_batch(batch), iters=5, warmup=1)
+  print('phase 27 (a) RecNet {}^2 B{}: validation {}, train loss '
+        '{:.6e}; K1 and K1-bwd of a step within {:.3e} / {:.3e} of their '
+        'plain versions (tol {} / {}); step {:.3f} ms, {:.1f} slices/s, TF32 '
+        'off ({})'.format(size, TRAIN_BATCH, loss, step['loss'].item(),
+                          out['dc_err'], out['dc_bwd_err'], F32_ATOL,
+                          GRAD_ATOL, ms, TRAIN_BATCH / ms * 1e3, line))
+  out['k1'] += fwd + 3
+  out['k1_bwd'] += bwd + 3
+  del runner, batch, calls
+
+
+def large_sides_phase(P, line):
+  """Phase 27: (a) ``large_train_phase``, (b) ``build_flagship`` at
+  LARGE_FLAGSHIP_SIZE², B = LARGE_FLAGSHIP_BATCH, through
+  ``bench_forward_phase`` (counted, bit-equal to the bench's forward, every
+  launch held to its plain version), (c) the bench command's extra sizes
+  640 and 1024. Returns the launches and errors for the kernels line."""
+  t0 = time.perf_counter()
+  out = {'k1': 0, 'k1_bwd': 0, 'k2_bf16': 0, 'k2_f32': 0, 'k3': 0,
+         'requant': 0, 'dc_err': 0.0, 'dc_bwd_err': 0.0, 'k2_err': 0.0,
+         'f32_err': 0.0, 'k3_err': 0.0, 'requant_err': 0.0}
+  large_train_phase(line, out)
+  t1 = time.perf_counter()
+  bench_forward_phase(P, LARGE_FLAGSHIP_SIZE, LARGE_FLAGSHIP_BATCH,
+                      ('bf16',), out, phase='27 (b)')
+  t2 = time.perf_counter()
+  bench_cli_phase(line, (('extra sizes', LARGE_BENCH, 2),), budget=False,
+                  phase='27 (c)')
+  print('phase 27: (a) {:.1f} s, (b) {:.1f} s, (c) {:.1f} s; {:.1f} s '
         'wall'.format(t1 - t0, t2 - t1, time.perf_counter() - t2,
                       time.perf_counter() - t0))
   return out
@@ -5906,6 +6026,7 @@ def main(argv=None):
   uneven_only = '--uneven-only' in argv
   options_only = '--options-only' in argv
   bench_only = '--bench-only' in argv
+  large_only = '--large-only' in argv
   child = next((a for a in ('--spatial-rank', '--gloo-probe') if a in argv),
                None)
   tree = os.path.realpath(argv[argv.index('--tree') + 1]) if '--tree' in \
@@ -5941,7 +6062,7 @@ def main(argv=None):
     return
   if dc_routes_mode:   # phases 1, 2 and phase 11's routes alone
     build_phase(('dc',))
-    dc_routes_only(line)
+    dc_routes_phase(line, skip_refused=tree != REPO)
     return
   if int8_only_mode:   # phases 1, 2 and the K3 table of 15 alone
     build_phase(('conv_chain', 'conv_int8'))
@@ -5958,6 +6079,9 @@ def main(argv=None):
     return
   if bench_only:       # phases 1, 2 and 25
     print(json.dumps(bench_phase(P, line)))
+    return
+  if large_only:       # phases 1, 2 and 27
+    print(json.dumps(large_sides_phase(P, line)))
     return
   if uneven_only:      # phases 1, 2, the gloo probe and 26
     print(json.dumps(uneven_phase(line, probe=True)))
@@ -6173,14 +6297,18 @@ def main(argv=None):
   # Phase 25: the port's benchmark command
   bench = bench_phase(P, line)
 
+  # Phase 27: sides above 512 on the main paths
+  large = large_sides_phase(P, line)
+
   kernels = [
       {'name': 'dc', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
        'replaces': 'csmri_refinement_tpu/ops/dc_pallas.py:36',
        'launches': (dc_launches + train_fwd + gan_k1 + sis_k1 + scar['k1'] +
-                    opts['k1'] + bench['k1']),
+                    opts['k1'] + bench['k1'] + large['k1']),
        'max_abs_err': max(dc_err, scar['dc_err'], opts['dc_err'],
-                          bench['dc_err']),
+                          bench['dc_err'], routes['K1']['large_err'],
+                          large['dc_err']),
        'ms': dc_ms,
        'plain_ms': dc_plain_ms, 'bound_ms': dc_bound,
        'bound_by': dc_by,
@@ -6189,9 +6317,9 @@ def main(argv=None):
        'source': 'csmri_refinement_tpu_torch/csrc/conv_chain.cu',
        'replaces': 'csmri_refinement_tpu/ops/conv_pallas.py:247',
        'launches': (conv_launches + scar['k2_bf16'] + opts['k2_bf16'] +
-                    bench['k2_bf16']),
+                    bench['k2_bf16'] + large['k2_bf16']),
        'max_abs_err': max(conv_err, scar['bf16_err'], opts['k2_err'],
-                          bench['k2_err']),
+                          bench['k2_err'], large['k2_err']),
        'ms': conv_ms,
        'plain_ms': conv_plain_ms, 'bound_ms': conv_bound,
        'bound_by': conv_by,
@@ -6209,8 +6337,10 @@ def main(argv=None):
       {'name': 'dc_bwd', 'route': 'cuda',
        'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
        'replaces': 'csmri_refinement_tpu/ops/dc.py:99',
-       'launches': train_bwd + scar['k1_bwd'],
-       'max_abs_err': max(bwd_err, scar['dc_bwd_err']), 'ms': bwd_ms,
+       'launches': train_bwd + scar['k1_bwd'] + large['k1_bwd'],
+       'max_abs_err': max(bwd_err, scar['dc_bwd_err'],
+                          routes['K1-bwd']['large_err'], large['dc_bwd_err']),
+       'ms': bwd_ms,
        'plain_ms': bwd_plain_ms, 'bound_ms': bwd_bound,
        'bound_by': bwd_by,
        'library_ms': bwd_lib_ms},

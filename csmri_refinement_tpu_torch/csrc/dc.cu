@@ -29,16 +29,17 @@
 // split over ranks runs them with an all-to-all between passes 1 and 2
 // and another between 2 and 3, and dc_forward is the same three launches.
 //
-// One route per axis: passes 1 and 3 take W's, pass 2 H's
-// (ops/dc_kernel.py::dc_route):
-//   * radix: powers of two from 2 to 512. A thread holds P = 8 or 16
+// Every side from 2 to 1024, square or not, with one route per axis:
+// passes 1 and 3 take W's, pass 2 H's (ops/dc_kernel.py::dc_route):
+//   * radix: powers of two from 2 to 1024. A thread holds P = 8 or 16
 //     points of a line and does whole radix-8 or radix-16 DFTs on them (a
 //     radix-2 network, constant twiddles), so a 256-point line is 16 x 16
 //     with one exchange through shared memory between the two stages. The
 //     plan (radices per n, below) is compiled per side, chosen on the host
 //     (ops/dc_kernel.py::FFT_PLANS) and checked here. Row tiles are padded
-//     by 16 bytes per 16 points against bank conflicts; 16-column strips
-//     need none (lines are the fastest index). The merge operands (mask,
+//     by 16 bytes per 16 points against bank conflicts; column strips
+//     (16 columns, 8 above 512 rows) need none (lines are the fastest
+//     index). The merge operands (mask,
 //     k0) of the points a thread will hold are loaded before its forward
 //     transform starts.
 //   * mixed radix: every other side whose prime factors are at most 13
@@ -59,7 +60,9 @@
 // shared memory. f32 FMA throughout (TF32 would lose ~2e-2 in k-space).
 // Staging: every block walks several tiles (rows, or column strips) and
 // copies the next tile into shared memory with cp.async while it
-// transforms the current one.
+// transforms the current one. Above 512 points the tiles are narrower
+// (col_strip, mix_row_lg, mix_col_lg), so that every block fits the
+// H100's 227 KB of shared memory; the tiles up to 512 are as they were.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,13 +71,19 @@
 namespace {
 
 constexpr int kRowThreads = 128;  // 256 measured 5% slower at B = 32, 256^2
-constexpr int kCols = 16;     // columns per strip in the column pass
-constexpr int kMaxN = 512;
+constexpr int kMaxN = 1024;       // ops/dc_kernel.py::MAX_SIZE
+
+// Columns per strip in the radix and dense column passes
+// (ops/dc_kernel.py::radix_strip): 16, and 8 above 512 rows, where a
+// strip's two 16-column buffers of 1024 rows (256 KB) would not fit.
+__host__ __device__ constexpr int col_strip(int h) {
+  return h > 512 ? 8 : 16;
+}
 
 // --- the plan: radices per stage for each n (ops/dc_kernel.py::FFT_PLANS) ---
 
 __host__ __device__ constexpr int plan_stages(int n) {
-  return n <= 16 ? 1 : n == 512 ? 3 : 2;
+  return n <= 16 ? 1 : n >= 512 ? 3 : 2;
 }
 __host__ __device__ constexpr int plan_radix(int n, int s) {
   return n <= 16     ? (s == 0 ? n : 1)
@@ -83,11 +92,12 @@ __host__ __device__ constexpr int plan_radix(int n, int s) {
          : n == 128  ? (s == 0 ? 16 : s == 1 ? 8 : 1)
          : n == 256  ? (s < 2 ? 16 : 1)
          : n == 512  ? (s < 3 ? 8 : 1)
+         : n == 1024 ? (s == 0 ? 16 : s < 3 ? 8 : 1)
                      : 0;
 }
 // points per thread: the largest radix
 __host__ __device__ constexpr int plan_points(int n) {
-  return n <= 16 ? n : (n == 128 || n == 256) ? 16 : 8;
+  return n <= 16 ? n : (n == 128 || n == 256 || n == 1024) ? 16 : 8;
 }
 // Ns: the product of the radices before stage s
 __host__ __device__ constexpr int plan_span(int n, int s) {
@@ -363,7 +373,8 @@ struct ColPlan {
   static constexpr int TPL = H / P;
   static constexpr int S = plan_stages(H);
   static constexpr int RL = plan_radix(H, S - 1);  // the last radix
-  static constexpr int kThreads = kCols * TPL;
+  static constexpr int kStrip = col_strip(H);
+  static constexpr int kThreads = kStrip * TPL;
 };
 
 // A strip: `cols` columns of one image, all H rows, row-major in smem.
@@ -392,7 +403,7 @@ col_dc(const float2* in, float2* out, const float2* __restrict__ k0,
   constexpr int P = CP::P, TPL = CP::TPL, RL = CP::RL;
   constexpr int kSpan = H / RL;   // Ns of the last stage
   constexpr bool kPrefetch = H <= 256;
-  const int cols = w < kCols ? w : kCols;
+  const int cols = w < CP::kStrip ? w : CP::kStrip;
   const int elems = H * cols;
   extern __shared__ __align__(16) float2 smem[];
   float2* tw = smem + 2 * elems;
@@ -411,7 +422,8 @@ col_dc(const float2* in, float2* out, const float2* __restrict__ k0,
     // The merge operands of the points this thread will hold after the
     // forward transform: rows tt + b * TPL + q * kSpan of column c. Loaded
     // before the transform up to H = 256; at 512 (1024 threads, 64
-    // registers each) they would spill, and are loaded at the merge.
+    // registers each) and 1024 (512 threads, 16 points each) they would
+    // spill, and are loaded at the merge.
     const size_t col0 = (size_t)(tile / tiles_w) * H * w +
                         (tile % tiles_w) * cols + c;
     float keep[P];
@@ -504,7 +516,8 @@ template <int H>
 int launch_cols(const float2* in, float2* t, const float2* k0,
                 const float* mask, int batch, int w, const float2* tw,
                 float scale, cudaStream_t st) {
-  const int cols = w < kCols ? w : kCols;
+  constexpr int strip = ColPlan<H>::kStrip;
+  const int cols = w < strip ? w : strip;
   const int threads = cols * ColPlan<H>::TPL;
   const int smem = (2 * H * cols + plan_tw_size(H)) * 8;
   const long tiles = (long)batch * (w / cols);
@@ -537,6 +550,7 @@ int rows_pass(int n, const float2* in, float2* out, long rows,
     case 128: return launch_rows<128, INVERSE>(in, out, rows, tw, scale, st);
     case 256: return launch_rows<256, INVERSE>(in, out, rows, tw, scale, st);
     case 512: return launch_rows<512, INVERSE>(in, out, rows, tw, scale, st);
+    case 1024: return launch_rows<1024, INVERSE>(in, out, rows, tw, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -549,6 +563,7 @@ int cols_pass(int h, const float2* in, float2* t, const float2* k0,
     case n: return launch_cols<n>(in, t, k0, mask, batch, w, tw, scale, st);
     CSMRI_COLS(2) CSMRI_COLS(4) CSMRI_COLS(8) CSMRI_COLS(16) CSMRI_COLS(32)
     CSMRI_COLS(64) CSMRI_COLS(128) CSMRI_COLS(256) CSMRI_COLS(512)
+    CSMRI_COLS(1024)
 #undef CSMRI_COLS
   }
   return (int)cudaErrorInvalidValue;
@@ -600,43 +615,43 @@ dft_rows(const float2* __restrict__ in, float2* __restrict__ out, long rows,
   }
 }
 
-// Pass 2: per strip of up to kCols columns of one image, the DFT along H
-// (h points, roots tw_g), the merge (1 - m) k + k0, the inverse DFT along
-// H, from `in` to `out` (one buffer in dc_forward: a strip is read whole
-// before it is written).
-template <bool HAS_K0>
+// Pass 2: per strip of up to STRIP columns of one image (col_strip(h)),
+// the DFT along H (h points, roots tw_g), the merge (1 - m) k + k0, the
+// inverse DFT along H, from `in` to `out` (one buffer in dc_forward: a
+// strip is read whole before it is written).
+template <bool HAS_K0, int STRIP>
 __global__ void __launch_bounds__(kDftThreads)
 dft_cols(const float2* in, float2* out, const float2* __restrict__ k0,
          const float* __restrict__ mask, int batch, int h, int w,
          const float2* __restrict__ tw_g, float scale) {
   extern __shared__ __align__(16) float2 smem[];
   float2* tw = smem;
-  float2* a = smem + h;              // the strip, h rows of kCols
-  float2* b = a + h * kCols;         // its merged k-space
+  float2* a = smem + h;              // the strip, h rows of STRIP
+  float2* b = a + h * STRIP;         // its merged k-space
   for (int i = threadIdx.x; i < h; i += blockDim.x) tw[i] = tw_g[i];
-  const int groups = (w + kCols - 1) / kCols;
+  const int groups = (w + STRIP - 1) / STRIP;
   for (int tile = blockIdx.x; tile < batch * groups; tile += gridDim.x) {
-    const int c0 = (tile % groups) * kCols;
-    const int cols = w - c0 < kCols ? w - c0 : kCols;
+    const int c0 = (tile % groups) * STRIP;
+    const int cols = w - c0 < STRIP ? w - c0 : STRIP;
     const size_t base = (size_t)(tile / groups) * h * w + c0;
     __syncthreads();
     for (int i = threadIdx.x; i < h * cols; i += blockDim.x)
-      a[(i / cols) * kCols + i % cols] =
+      a[(i / cols) * STRIP + i % cols] =
           in[base + (size_t)(i / cols) * w + i % cols];
     __syncthreads();
     for (int i = threadIdx.x; i < h * cols; i += blockDim.x) {
       const int k = i / cols, c = i % cols;
       const size_t g = base + (size_t)k * w + c;
-      const float2 v = dft_point<false>(a + c, kCols, tw, h, k);
+      const float2 v = dft_point<false>(a + c, STRIP, tw, h, k);
       const float keep = 1.f - __ldg(mask + g);
       const float2 kk = HAS_K0 ? __ldg(k0 + g) : make_float2(0.f, 0.f);
-      b[k * kCols + c] = make_float2(fmaf(keep, v.x * scale, kk.x),
+      b[k * STRIP + c] = make_float2(fmaf(keep, v.x * scale, kk.x),
                                      fmaf(keep, v.y * scale, kk.y));
     }
     __syncthreads();
     for (int i = threadIdx.x; i < h * cols; i += blockDim.x) {
       const int k = i / cols, c = i % cols;
-      const float2 v = dft_point<true>(b + c, kCols, tw, h, k);
+      const float2 v = dft_point<true>(b + c, STRIP, tw, h, k);
       out[base + (size_t)k * w + c] = make_float2(v.x * scale, v.y * scale);
     }
   }
@@ -655,28 +670,39 @@ int dft_rows_pass(const float2* in, float2* out, long rows, int n,
   return (int)cudaGetLastError();
 }
 
-// The dense route's pass 2 on (batch, h, w) images.
+// The dense route's pass 2 on (batch, h, w) images, in strips of STRIP
+// columns.
+template <int STRIP>
+int dft_cols_strips(const float2* in, float2* out, const float2* k0,
+                    const float* mask, int batch, int h, int w,
+                    const float2* roots, float scale, cudaStream_t st) {
+  unsigned grid = 0;
+  const int smem = (h + 2 * h * STRIP) * 8;
+  const long strips = (long)batch * ((w + STRIP - 1) / STRIP);
+  if (k0 != nullptr) {
+    auto kern = dft_cols<true, STRIP>;
+    const int err = walk_grid(kern, kDftThreads, smem, strips, &grid);
+    if (err) return err;
+    kern<<<grid, kDftThreads, smem, st>>>(in, out, k0, mask, batch, h, w,
+                                          roots, scale);
+  } else {
+    auto kern = dft_cols<false, STRIP>;
+    const int err = walk_grid(kern, kDftThreads, smem, strips, &grid);
+    if (err) return err;
+    kern<<<grid, kDftThreads, smem, st>>>(in, out, nullptr, mask, batch, h,
+                                          w, roots, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 int dft_cols_pass(const float2* in, float2* out, const float2* k0,
                   const float* mask, int batch, int h, int w,
                   const float2* roots, float scale, cudaStream_t st) {
-  unsigned grid = 0;
-  const int smem = (h + 2 * h * kCols) * 8;
-  const long strips = (long)batch * ((w + kCols - 1) / kCols);
-  if (k0 != nullptr) {
-    const int err = walk_grid(dft_cols<true>, kDftThreads, smem, strips,
-                              &grid);
-    if (err) return err;
-    dft_cols<true><<<grid, kDftThreads, smem, st>>>(in, out, k0, mask, batch,
-                                                    h, w, roots, scale);
-  } else {
-    const int err = walk_grid(dft_cols<false>, kDftThreads, smem, strips,
-                              &grid);
-    if (err) return err;
-    dft_cols<false><<<grid, kDftThreads, smem, st>>>(in, out, nullptr, mask,
-                                                     batch, h, w, roots,
-                                                     scale);
-  }
-  return (int)cudaGetLastError();
+  return col_strip(h) == 16
+             ? dft_cols_strips<16>(in, out, k0, mask, batch, h, w, roots,
+                                   scale, st)
+             : dft_cols_strips<8>(in, out, k0, mask, batch, h, w, roots,
+                                  scale, st);
 }
 
 // --- mixed-radix lines (sides whose prime factors are at most 13) ---
@@ -937,23 +963,23 @@ mix_rows(const float2* __restrict__ in, float2* __restrict__ out, long rows,
   }
 }
 
-// Pass 2: per strip of up to 8 columns of one image (64-byte row
-// segments; point e of column c at e * strip + c), the FFT along H, the
-// merge (1 - m) k + k0 (operands loaded before the forward transform,
-// kMerge rows a thread), the inverse FFT along H, from `in` to `out` (one
-// buffer in dc_forward: a strip is read whole before it is written). A
-// thread keeps one column c of every strip; threads of columns past a
-// partial strip's stage, merge and write nothing, and their lines are
-// transformed and dropped.
-constexpr int kMixColLg = 3;
+// Pass 2: per strip of up to 1 << LG columns of one image (8 columns,
+// 64-byte row segments, up to h = 512; 4 above, where three 8-column
+// buffers of 1024 rows would take 196 KB; point e of column c at
+// e * strip + c), the FFT along H, the merge (1 - m) k + k0 (operands
+// loaded before the forward transform, kMerge rows a thread), the inverse
+// FFT along H, from `in` to `out` (one buffer in dc_forward: a strip is
+// read whole before it is written). A thread keeps one column c of every
+// strip; threads of columns past a partial strip's stage, merge and write
+// nothing, and their lines are transformed and dropped.
 constexpr int kMerge = 16;   // rows a thread merges: h * strip / threads
 
-template <bool HAS_K0>
+template <bool HAS_K0, int LG>
 __global__ void __launch_bounds__(kMixThreads)
 mix_cols(const float2* in, float2* out, const float2* __restrict__ k0,
          const float* __restrict__ mask, int batch, int w, MixPlan p,
          const float2* __restrict__ tw_g, float scale) {
-  constexpr int lg = kMixColLg, strip = 1 << lg;
+  constexpr int lg = LG, strip = 1 << lg;
   __shared__ MixPlan sp;
   extern __shared__ __align__(16) float2 smem[];
   const int h = p.n, elems = h * strip;
@@ -1027,13 +1053,15 @@ mix_cols(const float2* in, float2* out, const float2* __restrict__ k0,
   }
 }
 
-// Lines per row tile: 16 up to n = 128, 8 above. A column strip takes
-// 128 threads up to h = 256 and 256 above, so that a thread merges at
-// most kMerge rows. A block's three buffers stay under 110 KB, and up to
-// h = 256 four blocks share an SM: 240^2 at B = 20 (600 strips, 300 a rank
-// of two) then runs in about one wave (faster there than 16-column strips
-// or 256 threads, timed in turns on one card).
-int mix_row_lg(int n) { return n <= 128 ? 4 : 3; }
+// Lines per row tile: 16 up to n = 128, 8 up to 512, 4 above. Columns
+// per strip: 8 up to h = 512, 4 above. A column strip takes 128 threads
+// up to h = 256 and 256 above, so that a thread merges at most kMerge
+// rows. A block's three buffers stay under 134 KB (under 110 KB up to
+// 512), and up to h = 256 four blocks share an SM: 240^2 at B = 20 (600
+// strips, 300 a rank of two) then runs in about one wave (faster there
+// than 16-column strips or 256 threads, timed in turns on one card).
+int mix_row_lg(int n) { return n <= 128 ? 4 : n <= 512 ? 3 : 2; }
+int mix_col_lg(int h) { return h <= 512 ? 3 : 2; }
 int mix_col_threads(int h) { return h <= 256 ? 128 : 256; }
 
 template <bool INV>
@@ -1050,26 +1078,39 @@ int mix_rows_pass(const float2* in, float2* out, long rows, const MixPlan& p,
   return (int)cudaGetLastError();
 }
 
-int mix_cols_pass(const float2* in, float2* out, const float2* k0,
-                  const float* mask, int batch, int w, const MixPlan& p,
-                  const float2* tw, float scale, cudaStream_t st) {
-  constexpr int strip = 1 << kMixColLg;
+template <int LG>
+int mix_cols_strips(const float2* in, float2* out, const float2* k0,
+                    const float* mask, int batch, int w, const MixPlan& p,
+                    const float2* tw, float scale, cudaStream_t st) {
+  constexpr int strip = 1 << LG;
   const int threads = mix_col_threads(p.n);
   const int smem = (3 * p.n * strip + p.tw_size) * 8;
   const long strips = (long)batch * ((w + strip - 1) / strip);
   unsigned grid = 0;
   if (k0 != nullptr) {
-    const int err = walk_grid(mix_cols<true>, threads, smem, strips, &grid);
+    auto kern = mix_cols<true, LG>;
+    const int err = walk_grid(kern, threads, smem, strips, &grid);
     if (err) return err;
-    mix_cols<true><<<grid, threads, smem, st>>>(in, out, k0, mask, batch, w,
-                                                p, tw, scale);
+    kern<<<grid, threads, smem, st>>>(in, out, k0, mask, batch, w, p, tw,
+                                      scale);
   } else {
-    const int err = walk_grid(mix_cols<false>, threads, smem, strips, &grid);
+    auto kern = mix_cols<false, LG>;
+    const int err = walk_grid(kern, threads, smem, strips, &grid);
     if (err) return err;
-    mix_cols<false><<<grid, threads, smem, st>>>(in, out, nullptr, mask,
-                                                 batch, w, p, tw, scale);
+    kern<<<grid, threads, smem, st>>>(in, out, nullptr, mask, batch, w, p,
+                                      tw, scale);
   }
   return (int)cudaGetLastError();
+}
+
+int mix_cols_pass(const float2* in, float2* out, const float2* k0,
+                  const float* mask, int batch, int w, const MixPlan& p,
+                  const float2* tw, float scale, cudaStream_t st) {
+  return mix_col_lg(p.n) == 3
+             ? mix_cols_strips<3>(in, out, k0, mask, batch, w, p, tw, scale,
+                                  st)
+             : mix_cols_strips<2>(in, out, k0, mask, batch, w, p, tw, scale,
+                                  st);
 }
 
 float ortho(int n) { return (float)(1.0 / sqrt((double)n)); }
@@ -1109,15 +1150,15 @@ int rows_launch(int route, unsigned long long plan, const float2* in,
 
 // Pass 2 on (batch, h, w) column blocks (row stride w) from in to out
 // (distinct or the same buffer), k0 null for K1-bwd. The radix route
-// takes w in whole 16-column strips, or one strip of a power of two below
-// 16; the others any w from 1 (partial strips).
+// takes w in whole strips of col_strip(h) columns, or one strip of a
+// power of two below that; the others any w from 1 (partial strips).
 int cols_launch(int route, unsigned long long plan, const float2* in,
                 float2* out, const float2* k0, const float* mask, int batch,
                 int h, int w, const float2* tw, cudaStream_t st) {
   if (batch < 1 || w < 1) return (int)cudaErrorInvalidValue;
   const float scale = ortho(h);
   if (route == kRadix) {
-    const int strip = w < kCols ? w : kCols;
+    const int strip = w < col_strip(h) ? w : col_strip(h);
     if (!supported(h, (int)plan) || plan >> 31 || w < 2 || w % strip ||
         (strip & (strip - 1)) || !aligned16(in, out, k0))
       return (int)cudaErrorInvalidValue;

@@ -56,8 +56,9 @@ def build_flagship(image_size=256, dtype=torch.bfloat16, device='cuda',
   if device.type == 'cuda' and not torch.cuda.is_available():
     raise RuntimeError('build_flagship: no CUDA device; pass device="cpu" '
                        'to run the plain versions on the CPU')
-  # The U-Net pools twice; the DC kernel takes every side up to MAX_SIZE
-  # (``ops/dc_kernel.py::dc_route``), the plain version any side.
+  # The U-Net pools twice. On the card the DC kernel takes every side from
+  # 2 to MAX_SIZE (1024), one route per axis (``ops/dc_kernel.py::
+  # dc_route``); on the CPU the plain version takes any side.
   if image_size < 16 or image_size % 4:
     raise ValueError('image_size must be a multiple of 4 and at least 16, '
                      'got {}'.format(image_size))

@@ -60,7 +60,7 @@ on packed ``(B, H, W, 2)`` float32 images, ``(B, H, W, 1)`` float32 masks.
   The noisy DC (``ops/dc.py``) runs the same pipeline on the plain passes,
   autodiffed through the exchanges.
 
-The kernel takes images of sides 2 to 512, square or not, with one route
+The kernel takes images of sides 2 to 1024, square or not, with one route
 per axis (``dc_route``; passes 1 and 3 take W's, pass 2 H's): powers of two
 by the radix plans compiled per side (``FFT_PLANS``), the other sides whose
 prime factors are at most 13 (240, 320, 384, 192, ...) by mixed-radix
@@ -81,7 +81,7 @@ from csmri_refinement_tpu_torch.ops import native
 from csmri_refinement_tpu_torch.parallel import halo
 from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 
-MAX_SIZE = 512
+MAX_SIZE = 1024
 
 
 def kspace_merge_reference(k, k0, mask, noise_lvl=None):
@@ -157,7 +157,8 @@ def _lib():
 # compiles the same plans and refuses any other). A thread holds the
 # largest radix's points.
 FFT_PLANS = {2: (2,), 4: (4,), 8: (8,), 16: (16,), 32: (8, 4), 64: (8, 8),
-             128: (16, 8), 256: (16, 16), 512: (8, 8, 8)}
+             128: (16, 8), 256: (16, 16), 512: (8, 8, 8),
+             1024: (16, 8, 8)}
 
 # The mixed-radix route's radices (``csrc/dc.cu``'s ``mix_stage``): the
 # radix-2 networks of 2 to 16 points and the odd DFTs with constant roots.
@@ -167,7 +168,7 @@ MIXED_MAX_STAGES = 4
 
 @functools.lru_cache(maxsize=None)
 def mixed_plan(n):
-  """The mixed-radix route's plan for a side n of 2 to 512 whose prime
+  """The mixed-radix route's plan for a side n of 2 to 1024 whose prime
   factors are at most 13, or None: the power of two as ``FFT_PLANS``
   splits it, then 15 for each pair of 3 and 5, 9 for each pair of 3s, and
   the remaining 3, 5, 7, 11 and 13."""
@@ -253,7 +254,7 @@ def axis_route(n):
   plans of ``FFT_PLANS``, powers of two), ``'mixed'`` (the mixed-radix
   plans of ``mixed_plan``, the other sides whose prime factors are at most
   13), ``'dft'`` (dense DFT lines, the sides with a larger prime factor)
-  or None (a side outside 2 to 512)."""
+  or None (a side outside 2 to 1024)."""
   if not 2 <= n <= MAX_SIZE:
     return None
   if n in FFT_PLANS:
@@ -269,7 +270,7 @@ def dc_route(h, w):
   power of two and every rank's W / S columns are a block the radix column
   pass takes (``check_cols_block``); beside any other W it takes the
   mixed-radix route with the same radices, which takes any block. None for
-  a side outside 2 to 512."""
+  a side outside 2 to 1024."""
   route_h, route_w = axis_route(h), axis_route(w)
   if route_h is None or route_w is None:
     return None
@@ -467,22 +468,32 @@ def _rows_launch(name, x, height, inverse):
   return y
 
 
-def check_cols_block(name, w, width, route):
+def radix_strip(height):
+  """Columns per strip of the radix route's column pass on images of
+  ``height`` rows (``csrc/dc.cu``'s ``col_strip``): 16, and 8 above 512
+  rows, where a strip's two 16-column buffers would not fit a block's
+  shared memory."""
+  return 16 if height <= 512 else 8
+
+
+def check_cols_block(name, w, width, route, height):
   """Raise unless a block of ``w`` of an image's ``width`` columns is one
-  the column pass takes on ``route``: on the radix route a block that
-  divides the width in whole 16-column strips (or one strip of a power of
-  two below 16); on the mixed-radix and dense routes any block of 1 to
-  ``width`` columns (``csrc/dc.cu``'s ``mix_cols`` and ``dft_cols`` walk
-  partial strips and take the block as their row stride)."""
-  strip = min(w, 16)
+  the column pass takes on ``route`` at ``height`` rows: on the radix route
+  a block that divides the width in whole strips of ``radix_strip(height)``
+  columns (or one strip of a power of two below that); on the mixed-radix
+  and dense routes any block of 1 to ``width`` columns (``csrc/dc.cu``'s
+  ``mix_cols`` and ``dft_cols`` walk partial strips and take the block as
+  their row stride)."""
+  full = radix_strip(height)
+  strip = min(w, full)
   if not 1 <= w <= width or (route == 'fft' and (
       width % w or w % strip or strip & (strip - 1))):
     raise ValueError(
         '{}: a block of {} of the image\'s {} columns; the column pass '
-        'takes, on the radix route, a block that divides the width in whole '
-        '16-column strips (or one strip of a power of two below 16), on the '
-        'mixed-radix and dense routes a block of 1 to {} columns'.format(
-            name, w, width, width))
+        'takes, on the radix route at {} rows, a block that divides the '
+        'width in whole {}-column strips (or one strip of a power of two '
+        'below {}), on the mixed-radix and dense routes a block of 1 to {} '
+        'columns'.format(name, w, width, height, full, full, width))
 
 
 def _cols_launch(name, t, k0, mask, width):
@@ -491,7 +502,7 @@ def _cols_launch(name, t, k0, mask, width):
   _require_cuda(name, t)
   b, h, w, _ = t.shape
   route = _image_routes(name, h, width)[0]
-  check_cols_block(name, w, width, route)
+  check_cols_block(name, w, width, route, h)
   _check('t', t, (b, h, w, 2), t.device)
   if k0 is not None:
     _check('k0', k0, (b, h, w, 2), t.device)

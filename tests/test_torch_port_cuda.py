@@ -255,20 +255,20 @@ def test_dc_passes_raise_on_blocks_they_cannot_take(cuda):
   m = torch.zeros(1, 64, 24, 1, device=cuda)
   with pytest.raises(ValueError, match='a block of 24 of the image'):
     dc_kernel.dc_cols_cuda(t, t, m, 64)
-  with pytest.raises(ValueError, match='sides 2 to 512'):
-    dc_kernel.dc_rows_fft_cuda(torch.zeros(1, 4, 1024, 2, device=cuda), 8)
+  with pytest.raises(ValueError, match='sides 2 to 1024'):
+    dc_kernel.dc_rows_fft_cuda(torch.zeros(1, 4, 1025, 2, device=cuda), 8)
 
 
-@pytest.mark.parametrize('shape', [(1024, 1024), (256, 513), (1, 64)],
-                         ids=['1024', '256x513', '1x64'])
+@pytest.mark.parametrize('shape', [(1025, 1025), (256, 1025), (1, 64)],
+                         ids=['1025', '256x1025', '1x64'])
 def test_dc_fused_raises_outside_the_kernel_sides(cuda, shape):
-  """A CUDA image with a side outside 2 to 512 has no kernel route: the
+  """A CUDA image with a side outside 2 to 1024 has no kernel route: the
   DC raises and nothing falls back to the plain version."""
   h, w = shape
   x = torch.zeros(1, h, w, 2, device=cuda)
   m = torch.zeros(1, h, w, 1, device=cuda)
   before = dc_kernel.dc_cuda.launches
-  with pytest.raises(ValueError, match='sides 2 to 512'):
+  with pytest.raises(ValueError, match='sides 2 to 1024'):
     dc_kernel.dc_fused(x, x, m)
   assert dc_kernel.dc_cuda.launches == before
 
@@ -279,6 +279,10 @@ def test_data_consistency_other_shapes_on_card(cuda, shape):
   """RecNet's DC at sides the JAX package runs, through the kernels
   (forward and backward, one launch each), against the plain versions, the
   gradients at 2e-3 (tests/test_dc_pallas.py:46)."""
+  _data_consistency_case(cuda, shape)
+
+
+def _data_consistency_case(cuda, shape):
   from csmri_refinement_tpu_torch.ops.dc import data_consistency
   h, w = shape
   gen = torch.Generator(device=cuda).manual_seed(h + w)
@@ -296,6 +300,94 @@ def test_data_consistency_other_shapes_on_card(cuda, shape):
   assert (y - dc_kernel.dc_plain(x, k0, m)).abs().max().item() <= 2e-4
   want_x, _ = dc_kernel.dc_plain_vjp(g, m, need_k0=False)
   assert (x.grad - want_x).abs().max().item() <= 2e-3
+
+
+LARGE_SHAPES = {'640': (640, 640), '768': (768, 768), '1024': (1024, 1024),
+                '640x368': (640, 368), '1021': (1021, 1021)}
+
+
+@pytest.mark.parametrize('with_k0', [True, False], ids=['k0', 'no_k0'])
+@pytest.mark.parametrize('shape', list(LARGE_SHAPES.values()),
+                         ids=list(LARGE_SHAPES))
+def test_dc_kernel_large_sides(cuda, shape, with_k0):
+  """Sides above 512 on every route (1024 radix, 640 and 768 mixed-radix,
+  1021 dense, 640×368 mixed-radix H and dense W): K1 against dc_plain,
+  K1-bwd against dc_plain_vjp within 2e-4, one launch each."""
+  assert dc_kernel.dc_route(*shape) is not None
+  name = 'dc_cuda' if with_k0 else 'dc_bwd_cuda'
+  before = getattr(dc_kernel, name).launches
+  _dc_case(cuda, shape, with_k0)
+  assert getattr(dc_kernel, name).launches == before + 1
+
+
+@pytest.mark.parametrize('bwd', [False, True], ids=['K1', 'K1-bwd'])
+@pytest.mark.parametrize('shape,s', [((640, 640), 2), ((640, 640), 3),
+                                     ((1024, 1024), 2), ((1024, 1024), 4),
+                                     ((1024, 640), 3), ((640, 368), 3)],
+                         ids=['640-S2', '640-S3', '1024-S2', '1024-S4',
+                              '1024x640-S3', '640x368-S3'])
+def test_dc_passes_on_large_blocks_equal_the_whole_dc(cuda, shape, s, bwd):
+  """The passes on a rank's rows and columns above 512 (the radix route's
+  8-column strips at 1024 rows, the mixed-radix route's 4-column strips,
+  uneven blocks at S = 3) give the whole-image K1's (K1-bwd's) output bit
+  for bit."""
+  h, w = shape
+  gen = torch.Generator(device=cuda).manual_seed(h + w + s)
+  x, k0 = (torch.randn(1, h, w, 2, device=cuda, generator=gen)
+           for _ in range(2))
+  m = (torch.rand(1, h, w, 1, device=cuda, generator=gen) > 0.5).float()
+  got = _dc_on_blocks(x, k0, m, s, bwd)
+  want = dc_kernel.dc_bwd_cuda(x, m) if bwd else dc_kernel.dc_cuda(x, k0, m)
+  torch.cuda.synchronize()
+  assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('size', [640, 1024])
+def test_build_flagship_above_512_on_card(cuda, size):
+  """``build_flagship`` takes sides up to 1024 on the card: a bf16 forward
+  at B = 2 through 3 K1 and 10 K2 launches, finite, its K1 launches
+  against the plain DC."""
+  model, undersample_batch = build_flagship(size, torch.bfloat16, 'cuda', 0)
+  gen = torch.Generator(device=cuda).manual_seed(size)
+  gt = torch.rand(2, size, size, device=cuda, generator=gen)
+  batch = undersample_batch(gen, gt, 'varden', 8)
+  calls = []
+  kernel = dc_kernel.dc_cuda
+
+  def recorded(x, k0, mask):   # the wrapper counts through this name
+    y = kernel(x, k0, mask)
+    calls.append((x, k0, mask, y))
+    return y
+  recorded.launches = 0
+  conv_before = cc.conv_layer_cuda.launches
+  dc_kernel.dc_cuda = recorded
+  try:
+    with torch.inference_mode():
+      out = model(batch['inp'], batch['kspace'], batch['mask'])
+    torch.cuda.synchronize()
+  finally:
+    dc_kernel.dc_cuda = kernel
+    kernel.launches += recorded.launches
+  assert (recorded.launches, len(calls),
+          cc.conv_layer_cuda.launches - conv_before) == (3, 3, 10)
+  assert out['pred'].shape == (2, size, size, 2)
+  assert bool(torch.isfinite(out['pred'].float()).all())
+  for x, k0, mask, y in calls:
+    assert (y - dc_kernel.dc_plain(x, k0, mask)).abs().max().item() <= 2e-4
+
+
+def test_build_flagship_refuses_sides_above_1024_on_card(cuda):
+  with pytest.raises(ValueError, match='sides up to 1024'):
+    build_flagship(1028, torch.bfloat16, 'cuda', 0)
+
+
+@pytest.mark.parametrize('shape', [(640, 368), (768, 768)],
+                         ids=['640x368', '768'])
+def test_data_consistency_large_shapes_on_card(cuda, shape):
+  """RecNet's DC at fastMRI's 640×368 knee k-space and 768², forward and
+  backward through the kernels (one launch each), against the plain
+  versions (2e-4, and 2e-3 for the gradient)."""
+  _data_consistency_case(cuda, shape)
 
 
 UNET_WIDTHS = {   # tests/test_torch_port_models.py UNET_CASES, and 4 filters
@@ -792,6 +884,31 @@ def test_gan_steps_on_card_match_cpu(cuda):
   for name, value in gpu.gen.pretrained_model.state_dict().items():
     assert torch.equal(value.cpu(), frozen[name]), name
 
+
+def test_gan_step_above_512_on_card(cuda):
+  """One update of configs/2-refinement.json at full width on 640²
+  Synthetic phantoms, B = 2: the frozen RecNet's DC runs on K1 (3 launches
+  a generator forward, no K1-bwd) and the losses are finite."""
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  from csmri_refinement_tpu_torch.profile_gan import (
+      synthetic_refinement_conf)
+  from csmri_refinement_tpu_torch.training.adversarial_runner import (
+      AdversarialRunner)
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  conf = Configuration.from_dict(synthetic_refinement_conf(640, 2, 2, 2))
+  runner = AdversarialRunner(conf, 'train', cuda)
+  gen = torch.Generator().manual_seed(640)
+  gt = torch.rand(2, 640, 640, generator=gen)
+  mask = masks.cartesian_mask(gen, (2, 640, 640), 8)
+  before = (dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches)
+  losses = runner.train_batch(us.undersample_batch(
+      None, gt.to(cuda), fixed_mask=mask.to(cuda)))[0]
+  torch.cuda.synchronize()
+  k1 = dc_kernel.dc_cuda.launches - before[0]
+  assert k1 > 0 and k1 % 3 == 0
+  assert dc_kernel.dc_bwd_cuda.launches == before[1]
+  for name in ('gen_loss', 'disc_loss'):
+    assert torch.isfinite(losses[name]).item(), name
 
 @pytest.mark.parametrize('b', [1, 8])
 @pytest.mark.parametrize('side', [8, 16, 32])

@@ -157,7 +157,7 @@ def test_mixed_plans_cover_the_smooth_sides():
   assert len(SMOOTH) == 168
   for n in (240, 320, 384, 192, 160, 120, 360, 480):
     assert n in SMOOTH
-  for n in (17, 237, 244, 509, 511, 1, 513, 1024):
+  for n in (17, 237, 244, 509, 511, 1, 513, 1025):
     assert dc_kernel.mixed_plan(n) is None
   assert dc_kernel.mixed_plan(240) == (16, 15)
   assert dc_kernel.mixed_plan(320) == (8, 8, 5)
@@ -248,19 +248,19 @@ def test_mixed_route_takes_column_blocks_of_any_width():
     bounds = mesh_lib.col_bounds(width, s)
     for r in range(s):
       lo, hi = bounds.block(r)
-      dc_kernel.check_cols_block('pass', hi - lo, width, 'mixed')
+      dc_kernel.check_cols_block('pass', hi - lo, width, 'mixed', 240)
   for w in (0, 241):
     with pytest.raises(ValueError, match='{} of the image'.format(w)):
-      dc_kernel.check_cols_block('pass', w, 240, 'mixed')
+      dc_kernel.check_cols_block('pass', w, 240, 'mixed', 240)
   with pytest.raises(ValueError, match='86 of the image'):
-    dc_kernel.check_cols_block('pass', 86, 256, 'fft')
+    dc_kernel.check_cols_block('pass', 86, 256, 'fft', 256)
 
 
 @pytest.mark.parametrize('h', [2 ** k for k in range(1, 10)])
 def test_every_rank_column_block_takes_its_route(h):
   """A spatial group of S ranks divides H (JAX's ``shard_batch``), and
   ``mesh.col_bounds`` cuts any width W into S blocks: at a power-of-two H,
-  for every W from 2 to 512 and every S up to 16 that divides H, each
+  for every W from 2 to 1024 and every S up to 16 that divides H, each
   rank's block is one that H's route (``dc_route``) takes in the column
   pass, 256×240 at S = 2 and 256×192 at S = 8 among them."""
   from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
@@ -272,4 +272,4 @@ def test_every_rank_column_block_takes_its_route(h):
       bounds = mesh_lib.col_bounds(w, s)
       for r in range(s):
         lo, hi = bounds.block(r)
-        dc_kernel.check_cols_block('pass', hi - lo, w, route)
+        dc_kernel.check_cols_block('pass', hi - lo, w, route, h)

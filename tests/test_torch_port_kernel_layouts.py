@@ -7,7 +7,8 @@ decided on the host and can be replayed here:
   inter-stage twiddle tables (``ops/dc_kernel.py::FFT_PLANS``,
   ``fft_tables``). The replay runs the kernel's Stockham stages in
   complex64, with the in-register radix-2 networks and their f32 roots,
-  and must match ``torch.fft.fft`` for every side from 2 to 512.
+  and must match ``torch.fft.fft`` for every side from 2 to 512 (1024 in
+  ``tests/test_torch_port_dc_large.py``).
 * K2 (``csrc/conv_chain.cu``): the bf16 route's K order and packed weights
   (``ops/conv_chain.py::gemm_layout``, ``pack_weights``). An implicit GEMM
   over the packed weights, in the kernel's K order, must equal
@@ -857,7 +858,8 @@ def test_dc_route_by_shape():
   the radix plans, other sides whose prime factors are at most 13 on the
   mixed-radix plans (``tests/test_torch_port_dc_mixed.py``), the rest on
   dense DFT lines; a power-of-two H keeps the radix route only beside a
-  power-of-two W, and takes the mixed-radix route beside any other."""
+  power-of-two W, and takes the mixed-radix route beside any other. Sides
+  from 2 to 1024 have a route, larger ones none."""
   assert dc_kernel.dc_route(256, 256) == ('fft', 'fft')
   assert all(dc_kernel.dc_route(n, n) == ('fft', 'fft') for n in SIDES)
   for n in (3, 5, 100, 192, 240, 320, 384):
@@ -873,9 +875,11 @@ def test_dc_route_by_shape():
                      (240, 237, ('mixed', 'dft')),
                      (16, 15, ('mixed', 'mixed')),
                      (128, 24, ('mixed', 'mixed')),
-                     (512, 320, ('mixed', 'mixed'))):
+                     (512, 320, ('mixed', 'mixed')),
+                     (1024, 1024, ('fft', 'fft')),
+                     (256, 513, ('mixed', 'dft'))):
     assert dc_kernel.dc_route(h, w) == want
-  for h, w in ((1024, 1024), (1, 1), (1, 256), (256, 513)):
+  for h, w in ((1025, 1025), (1, 1), (1, 256), (256, 1025)):
     assert dc_kernel.dc_route(h, w) is None
 
 

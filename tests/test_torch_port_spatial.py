@@ -379,21 +379,23 @@ def test_dc_pass_wrappers_take_cuda_tensors_only(shape):
 
 def test_column_pass_block_rule():
   """The radix route's column pass takes a block that divides the width
-  in whole 16-column strips (or one power-of-two strip below 16); the
+  in whole 16-column strips at up to 512 rows (or one power-of-two strip
+  below 16; 8-column strips above 512 rows,
+  ``tests/test_torch_port_dc_large.py``); the
   dense route any block of 1 to W columns (its kernel walks partial
   strips), so uneven column blocks run there."""
   from csmri_refinement_tpu_torch.ops import dc_kernel
   check = dc_kernel.check_cols_block
   for w, width in ((16, 32), (32, 64), (8, 32), (2, 16), (256, 512)):
-    check('pass', w, width, 'fft')
+    check('pass', w, width, 'fft', 256)
   for w, width in ((24, 48), (12, 48), (6, 12)):
     with pytest.raises(ValueError, match='{} of the image'.format(w)):
-      check('pass', w, width, 'fft')
+      check('pass', w, width, 'fft', 256)
   for w, width in ((5, 20), (10, 20), (48, 192), (7, 20), (119, 237)):
-    check('pass', w, width, 'dft')
+    check('pass', w, width, 'dft', 20)
   for w in (0, 21):
     with pytest.raises(ValueError, match='{} of the image'.format(w)):
-      check('pass', w, 20, 'dft')
+      check('pass', w, 20, 'dft', 20)
 
 
 def test_distributed_dc_checks_the_layout():
