@@ -45,13 +45,17 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
 11. timings: K1-bwd, its plain version and the cuFFT composition; K1's
     non-power-of-two routes (``DC_ROUTE_SHAPES``: the mixed-radix route at
     240² with B = 2 and 20, 320², 384², 192² and 256×192, H mixed-radix
-    and W dense at 240×237, the dense route at 244² and 509²) and the
-    sides above 512 (``DC_LARGE_SHAPES``: 640² at B = 4, 768², 1024²,
-    640×368, 1021²), then the radix route at 256², B = 32 and 512², B = 20
-    (``DC_RADIX_SHAPES``), each axis's route, K1 and K1-bwd against their
-    plain versions within 2e-4 and timed beside them, cuFFT's composition
-    and the bound (on the dense route K1 alone is timed); the train step
-    with TF32 off and on; the phase's wall seconds;
+    and W on the chirp route at 240×237, the chirp route at 244² and 509²)
+    and the sides above 512 (``DC_LARGE_SHAPES``: 640² at B = 4, 768²,
+    1024², 640×368, 1021², the chirp route in one block at 1031² and on
+    device stages at 2053², the split route in one block at 2048² and
+    1280² and on device stages at 16 × 16384), then the radix route at
+    256², B = 32 and 512², B = 20 (``DC_RADIX_SHAPES``), each axis's route
+    and plan, K1 and K1-bwd against their plain versions within 2e-4 and
+    timed beside them, cuFFT's composition and the bound; the dense route
+    against the chirp route at the sides around ``DENSE_MAX``
+    (``DC_DENSE_SIDES``); the train step with TF32 off and on; the phase's
+    wall seconds;
 12. the int8 conv kernel (K3) and its requant kernel vs their plain
     versions: the quantized layers of the five flagship chains at 256²,
     B=32 (real weights, ``quantize_act`` inputs), a k3 zero-pad and a k4
@@ -307,10 +311,14 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     (3 steps of B = 16 and a validation batch), K1 and K1-bwd counted
     (3 a step each, 3 K1 a validation batch), the validation loss finite,
     then one step's K1 and K1-bwd launches against their plain versions
-    and the step timed; (b) ``build_flagship(1024, bf16)`` at B = 2 as
-    phase 25 (a) holds the bench's forward (K1 3, K2 bf16 10 counted, every
-    launch of a second forward against its plain version); (c) the bench
-    command with ``--extra-sizes 640 1024``, both rows read.
+    and the step timed; (b) ``build_flagship(1024, bf16)`` at B = 2 and
+    ``build_flagship(2048, bf16)`` at B = 1 (the split route) as phase 25
+    (a) holds the bench's forward (K1 3, K2 bf16 10 counted, every launch
+    of a second forward against its plain version); (c) the bench command
+    with ``--extra-sizes 640 1024``, both rows read; (d) RecNet train
+    steps at 1031², B = 2 (the chirp route in one block) and 2053², B = 1
+    (on device stages), K1 and K1-bwd counted (3 each) and held to their
+    plain versions, each step timed.
 
 ``--scarseg-only`` runs phases 1, 2 and 18-23 alone (no result line).
 ``--options-only`` runs phases 1, 2 and 24 alone (no result line; a JSON
@@ -830,16 +838,26 @@ def dc_bwd_phase():
 # mixed-radix route at BraTS's 240² (B = 2, and 20 as 1-recnet's batch),
 # fastMRI's 320² crops and 384², 192², a non-square image whose
 # power-of-two H takes the mixed-radix route beside W's, one with H on the
-# mixed-radix route and W dense, and the dense route at 244² and 509²;
+# mixed-radix route and W on the chirp route, and the chirp route at 244²
+# and 509² (the dense route's sides until the chirp route came);
 # then the sides above 512 (``DC_LARGE_SHAPES``).
 DC_ROUTE_SHAPES = ((2, 240, 240), (20, 240, 240), (2, 320, 320),
                    (2, 384, 384), (2, 192, 192), (2, 256, 192),
                    (2, 240, 237), (2, 244, 244), (2, 509, 509))
 # Sides above 512 on each route: 640² (mixed-radix) at B = 4, 768²
 # (mixed-radix), 1024² (radix), fastMRI's 640 × 368 knee k-space (H
-# mixed-radix, W dense) and 1021² (dense).
+# mixed-radix, W chirp in one block), 1021² and 1031² (chirp in one
+# block, m = 2048 and 4096; 1031² the RecNet step of phase 27 (d)), 2053²
+# (chirp on device stages, m = 8192 = 64 × 128), 2048² (split in one
+# block, phase 27 (b)'s flagship), 1280² (split in one block) and a long
+# thin image whose W takes the split route on device stages (128 × 128).
 DC_LARGE_SHAPES = ((4, 640, 640), (2, 768, 768), (2, 1024, 1024),
-                   (2, 640, 368), (2, 1021, 1021))
+                   (2, 640, 368), (2, 1021, 1021), (2, 1031, 1031),
+                   (1, 2053, 2053), (1, 2048, 2048), (1, 1280, 1280),
+                   (1, 16, 16384))
+# Sides with a prime factor above 13 timed on the dense and the chirp
+# routes (B = 2 and 32): the evidence for ``dc_kernel.DENSE_MAX``.
+DC_DENSE_SIDES = (17, 31, 61, 67, 79, 89, 97, 109, 127)
 
 
 # The passes' shapes on a rank of two at 240², B = 20 (1-recnet in phase
@@ -849,21 +867,40 @@ DC_PASS_SHAPES = ((20, 120, 240), (20, 240, 120))
 DC_RADIX_SHAPES = ((32, 256, 256), (20, 512, 512))
 
 
+def route_plan(dc_kernel, route, n):
+  """An axis's route and the plan it launches with, as phase 11 prints
+  them (an earlier tree's routes by name where it lacks the plans)."""
+  if route == 'fft':
+    return 'fft {}'.format(dc_kernel.FFT_PLANS[n])
+  if route == 'mixed':
+    return 'mixed {}'.format(dc_kernel.mixed_plan(n))
+  if route == 'chirp':
+    return 'chirp m={} on {}'.format(dc_kernel.chirp_length(n),
+                                     dc_kernel.axis_stages(route, n))
+  if route == 'split':
+    return 'split {}'.format(dc_kernel.axis_stages(route, n))
+  return route
+
+
 def dc_routes_phase(line, skip_refused=False):
   """Phase 11, K1's non-power-of-two routes, the sides above 512 and the
   radix route (``DC_ROUTE_SHAPES``, ``DC_LARGE_SHAPES``,
-  ``DC_RADIX_SHAPES``): at each shape each axis's route, K1 with k0
-  against ``dc_plain`` and K1-bwd against ``dc_plain_vjp`` (``F32_ATOL``),
-  then each as device time beside its plain version, cuFFT's composition
-  and the DC's bound (where both axes are dense, K1 alone: that route is
-  not redesigned); then ``dc_pass_table``. With ``skip_refused`` (an earlier tree, ``--tree``) a
-  shape the tree's ``dc_route`` refuses is named and skipped. Prints its
-  wall seconds. Returns {'K1', 'K1-bwd': {'err': the largest error where
-  an axis takes the mixed-radix route, 'large_err': the largest at a side
-  above 512, 'times': the (20, 240, 240) times}}."""
+  ``DC_RADIX_SHAPES``): at each shape each axis's route and plan, K1 with
+  k0 against ``dc_plain`` and K1-bwd against ``dc_plain_vjp``
+  (``F32_ATOL``), then each as device time beside its plain version,
+  cuFFT's composition and the DC's bound; then ``dc_pass_table`` and, in
+  this tree, ``dense_chirp_table``. With ``skip_refused`` (an earlier
+  tree, ``--tree``) a shape the tree's ``dc_route`` refuses is named and
+  skipped. Prints its wall seconds. Returns {'K1', 'K1-bwd': {'err': the
+  largest error where an axis takes the mixed-radix route, 'large_err':
+  the largest at a side above 512, 'chirp_err' and 'split_err' on those
+  routes, 'times': the (20, 240, 240) times, 'chirp_times' at (2, 1031,
+  1031) and 'split_times' at (1, 2048, 2048)}}."""
   from csmri_refinement_tpu_torch.ops import dc_kernel, fft, masks
   t0 = time.perf_counter()
-  out = {name: {'err': 0.0, 'large_err': 0.0, 'times': None}
+  out = {name: {'err': 0.0, 'large_err': 0.0, 'chirp_err': 0.0,
+                'split_err': 0.0, 'times': None, 'chirp_times': None,
+                'split_times': None}
          for name in ('K1', 'K1-bwd')}
   for b, h, w in DC_ROUTE_SHAPES + DC_LARGE_SHAPES + DC_RADIX_SHAPES:
     if skip_refused and dc_kernel.dc_route(h, w) is None:
@@ -875,13 +912,17 @@ def dc_routes_phase(line, skip_refused=False):
     mask = masks.cartesian_mask(gen, (b, h, w), 8, device=DEVICE)
     m = mask[..., None].contiguous()
     routes = dc_kernel.dc_route(h, w)
+    plans = '{}, {}'.format(route_plan(dc_kernel, routes[0], h),
+                            route_plan(dc_kernel, routes[1], w))
     fwd = dc_kernel.dc_cuda(x, k0, m)
     bwd = dc_kernel.dc_bwd_cuda(x, m)
     sync()
     errs = ((fwd - dc_kernel.dc_plain(x, k0, m)).abs().max().item(),
             (bwd - dc_kernel.dc_plain_vjp(x, m, False)[0]).abs().max().item())
+    del fwd, bwd
     xc, k0c = fft.unpack_complex(x), fft.unpack_complex(k0)
     flops = 10 * b * h * w * math.log2(h * w)
+    calls = 5 if b * h * w > 2 ** 21 else 20
     for name, err, kern, plain, lib, nbytes in (
         ('K1', errs[0], lambda: dc_kernel.dc_cuda(x, k0, m),
          lambda: dc_kernel.dc_plain(x, k0, m),
@@ -891,23 +932,24 @@ def dc_routes_phase(line, skip_refused=False):
          lambda: dc_kernel.dc_plain_vjp(x, m, False),
          lambda: torch.fft.ifft2((1 - mask) * torch.fft.fft2(
              xc, norm='ortho'), norm='ortho'), 20)):
-      if name == 'K1-bwd' and routes == ('dft', 'dft'):
-        print('K1-bwd dc B{} {}x{}, routes (H, W) {}: max|kernel-plain| '
-              '{:.3e} (tol {}); not timed ({})'.format(
-                  b, h, w, routes, err, F32_ATOL, line))
-        continue
       b_ms, by = bound(flops, nbytes * b * h * w, F32_FLOPS)
-      t = {'ms': graph_ms(kern), 'plain_ms': graph_ms(plain),
-           'library_ms': graph_ms(lib), 'bound_ms': b_ms, 'bound_by': by}
+      t = {'ms': graph_ms(kern, calls), 'plain_ms': graph_ms(plain, calls),
+           'library_ms': graph_ms(lib, calls), 'bound_ms': b_ms,
+           'bound_by': by}
       print('{} dc B{} {}x{}, routes (H, W) {}: max|kernel-plain| {:.3e} '
             '(tol {}); kernel {:.4f} ms, plain {:.4f} ms, cuFFT {:.4f} ms, '
             'bound {:.4f} ms ({}) ({})'.format(
-                name, b, h, w, routes, err, F32_ATOL, t['ms'], t['plain_ms'],
+                name, b, h, w, plans, err, F32_ATOL, t['ms'], t['plain_ms'],
                 t['library_ms'], b_ms, by, line))
       if 'mixed' in routes:
         out[name]['err'] = max(out[name]['err'], err)
-      if (b, h, w) == (20, 240, 240):
-        out[name]['times'] = t
+      for route in ('chirp', 'split'):
+        if route in routes:
+          out[name][route + '_err'] = max(out[name][route + '_err'], err)
+      key = {(20, 240, 240): 'times', (2, 1031, 1031): 'chirp_times',
+             (1, 2048, 2048): 'split_times'}.get((b, h, w))
+      if key:
+        out[name][key] = t
     require(max(errs) <= F32_ATOL,
             'DC kernel differs from its plain version at {}x{} (routes '
             '{})'.format(h, w, routes))
@@ -915,9 +957,55 @@ def dc_routes_phase(line, skip_refused=False):
       for name, err in zip(('K1', 'K1-bwd'), errs):
         out[name]['large_err'] = max(out[name]['large_err'], err)
   dc_pass_table(line)
+  if not skip_refused:
+    dense_chirp_table(line)
   print('phase 11, K1\'s routes: {:.1f} s wall'.format(
       time.perf_counter() - t0))
   return out
+
+
+@contextlib.contextmanager
+def named_route(dc_kernel, route):
+  """``dc_kernel``'s launches of both axes on ``route`` (its ``dc_route``
+  replaced for the duration)."""
+  saved = dc_kernel.dc_route
+  dc_kernel.dc_route = lambda h, w: (route, route)
+  try:
+    yield
+  finally:
+    dc_kernel.dc_route = saved
+
+
+def dense_chirp_table(line):
+  """K1 and K1-bwd at ``DC_DENSE_SIDES``² on the dense route and on the
+  chirp route (the wrapper's launch on a named route, uncounted), each
+  against its plain version (``F32_ATOL``) and as device time, B = 2 and
+  32: where the dense route is faster, ``dc_kernel.DENSE_MAX`` gives it
+  the side."""
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  route_taken = dc_kernel.axis_route
+  for b in (2, 32):
+    for n in DC_DENSE_SIDES:
+      gen = torch.Generator(device=DEVICE).manual_seed(SEED + b + n)
+      x = torch.randn(b, n, n, 2, device=DEVICE, generator=gen)
+      k0 = torch.randn(b, n, n, 2, device=DEVICE, generator=gen)
+      m = (torch.rand(b, n, n, 1, device=DEVICE, generator=gen) > 0.6).float()
+      want = (dc_kernel.dc_plain(x, k0, m),
+              dc_kernel.dc_plain_vjp(x, m, False)[0])
+      cells = []
+      for route in ('dft', 'chirp'):
+        runs = (lambda: dc_kernel._launch('dc', x, k0, m),
+                lambda: dc_kernel._launch('dc_bwd', x, None, m))
+        with named_route(dc_kernel, route):
+          for run, ref in zip(runs, want):
+            err = (run() - ref).abs().max().item()
+            require(err <= F32_ATOL, 'K1 on the {} route at {}^2 differs '
+                    'from its plain version ({:.3e})'.format(route, n, err))
+            cells.append(graph_ms(run))
+      print('dense vs chirp B{} {}^2 (route taken: {}): K1 {:.4f} / {:.4f} '
+            'ms, K1-bwd {:.4f} / {:.4f} ms ({})'.format(
+                b, n, route_taken(n), cells[0], cells[2], cells[1],
+                cells[3], line))
 
 
 def dc_pass_table(line):
@@ -5865,6 +5953,11 @@ def bench_phase(P, line):
 LARGE_TRAIN_SIZE = 640
 LARGE_TRAIN_STEPS = 3
 LARGE_FLAGSHIP_SIZE, LARGE_FLAGSHIP_BATCH = 1024, 2
+# (b)'s flagship on the split route, and (d)'s RecNet steps on the chirp
+# route (primes: 1031 in one block, m = 4096; 2053 on device stages, m =
+# 8192 = 64 × 128), (side, B)
+SPLIT_FLAGSHIP_SIZE, SPLIT_FLAGSHIP_BATCH = 2048, 1
+CHIRP_STEPS = ((1031, 2), (2053, 1))
 LARGE_BENCH = ['--image-size', str(BENCH_SMALL), '--batch-size', '4',
                '--iters', '4', '--warmup', '1', '--extra-sizes', '640',
                '1024']
@@ -5930,47 +6023,132 @@ def large_train_phase(line, out):
   del runner, batch, calls
 
 
+def chirp_step_phase(line, out):
+  """Phase 27 (d): at each of CHIRP_STEPS a RecNet train step
+  (``TRAIN_CONFIG``'s model and Adam), counters set to 0 just before and
+  read just after (3 K1 and 3 K1-bwd on the chirp route), the loss finite;
+  one more step's launches held to ``dc_plain`` (F32_ATOL) and
+  ``dc_plain_vjp`` (GRAD_ATOL); the step timed, TF32 off."""
+  from csmri_refinement_tpu_torch.ops import dc_kernel, masks
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  from csmri_refinement_tpu_torch.training.runner import Runner
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  for size, b in CHIRP_STEPS:
+    routes = dc_kernel.dc_route(size, size)
+    require(routes == ('chirp', 'chirp'), 'expected the chirp route at '
+            '{}^2, got {}'.format(size, routes))
+    runner = Runner(Configuration.from_json(TRAIN_CONFIG), 'train', DEVICE)
+    gen = torch.Generator().manual_seed(SEED + size)
+    gt = torch.rand(b, size, size, generator=gen)
+    mask = masks.cartesian_mask(gen, (b, size, size), 8)
+    batch = us.undersample_batch(None, gt.to(DEVICE),
+                                 fixed_mask=mask.to(DEVICE))
+    sync()
+    dc_kernel.dc_cuda.launches = dc_kernel.dc_bwd_cuda.launches = 0
+    loss = runner.train_batch(batch)[0]['loss']
+    sync()
+    fwd, bwd = dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches
+    require((fwd, bwd) == (3, 3), 'expected 3 K1 and 3 K1-bwd launches a '
+            'step at {}^2, got {} and {}'.format(size, fwd, bwd))
+    require(math.isfinite(loss.item()), 'the train loss is not finite')
+    calls = record_dc_launches(lambda: runner.train_batch(batch))
+    errs = [0.0, 0.0]
+    for x, k0, m, y in calls['K1']:
+      errs[0] = max(errs[0], (y - dc_kernel.dc_plain(x, k0, m)).abs().max()
+                    .item())
+    for g, m, y in calls['K1-bwd']:
+      errs[1] = max(errs[1], (y - dc_kernel.dc_plain_vjp(g, m, False)[0])
+                    .abs().max().item())
+    require(len(calls['K1']) == 3 and len(calls['K1-bwd']) == 3 and
+            errs[0] <= F32_ATOL and errs[1] <= GRAD_ATOL,
+            'K1 or K1-bwd at {}^2 differs from its plain version'.format(
+                size))
+    del calls
+    ms = timed_ms(lambda: runner.train_batch(batch), iters=5, warmup=1)
+    print('phase 27 (d) RecNet step {}^2 B{}, routes {} ({}): K1 {} and '
+          'K1-bwd {} launches, train loss {:.6e}; a step\'s K1 and K1-bwd '
+          'within {:.3e} / {:.3e} of their plain versions (tol {} / {}); '
+          'step {:.3f} ms, TF32 off ({})'.format(
+              size, b, routes, route_plan(dc_kernel, 'chirp', size), fwd,
+              bwd, loss.item(), errs[0], errs[1], F32_ATOL, GRAD_ATOL, ms,
+              line))
+    out['k1'] += fwd + 3
+    out['k1_bwd'] += bwd + 3
+    out['chirp_k1'] += fwd + 3
+    out['chirp_k1_bwd'] += bwd + 3
+    out['dc_err'] = max(out['dc_err'], errs[0])
+    out['dc_bwd_err'] = max(out['dc_bwd_err'], errs[1])
+    del runner, batch
+
+
 def large_sides_phase(P, line):
   """Phase 27: (a) ``large_train_phase``, (b) ``build_flagship`` at
-  LARGE_FLAGSHIP_SIZE², B = LARGE_FLAGSHIP_BATCH, through
+  LARGE_FLAGSHIP_SIZE², B = LARGE_FLAGSHIP_BATCH, and at
+  SPLIT_FLAGSHIP_SIZE², B = SPLIT_FLAGSHIP_BATCH, through
   ``bench_forward_phase`` (counted, bit-equal to the bench's forward, every
   launch held to its plain version), (c) the bench command's extra sizes
-  640 and 1024. Returns the launches and errors for the kernels line."""
+  640 and 1024, (d) ``chirp_step_phase``. Returns the launches and errors
+  for the kernels line ('split_k1': (b)'s launches at 2048², 'chirp_k1',
+  'chirp_k1_bwd': (d)'s)."""
+  from csmri_refinement_tpu_torch.ops import dc_kernel
   t0 = time.perf_counter()
   out = {'k1': 0, 'k1_bwd': 0, 'k2_bf16': 0, 'k2_f32': 0, 'k3': 0,
          'requant': 0, 'dc_err': 0.0, 'dc_bwd_err': 0.0, 'k2_err': 0.0,
-         'f32_err': 0.0, 'k3_err': 0.0, 'requant_err': 0.0}
+         'f32_err': 0.0, 'k3_err': 0.0, 'requant_err': 0.0, 'split_k1': 0,
+         'chirp_k1': 0, 'chirp_k1_bwd': 0}
   large_train_phase(line, out)
   t1 = time.perf_counter()
   bench_forward_phase(P, LARGE_FLAGSHIP_SIZE, LARGE_FLAGSHIP_BATCH,
                       ('bf16',), out, phase='27 (b)')
+  size = SPLIT_FLAGSHIP_SIZE
+  require(dc_kernel.dc_route(size, size) == ('split', 'split'),
+          'expected the split route at {}^2'.format(size))
+  before = out['k1']
+  bench_forward_phase(P, size, SPLIT_FLAGSHIP_BATCH, ('bf16',), out,
+                      phase='27 (b)')
+  out['split_k1'] = out['k1'] - before
   t2 = time.perf_counter()
   bench_cli_phase(line, (('extra sizes', LARGE_BENCH, 2),), budget=False,
                   phase='27 (c)')
-  print('phase 27: (a) {:.1f} s, (b) {:.1f} s, (c) {:.1f} s; {:.1f} s '
-        'wall'.format(t1 - t0, t2 - t1, time.perf_counter() - t2,
-                      time.perf_counter() - t0))
+  t3 = time.perf_counter()
+  chirp_step_phase(line, out)
+  print('phase 27: (a) {:.1f} s, (b) {:.1f} s, (c) {:.1f} s, (d) {:.1f} s; '
+        '{:.1f} s wall'.format(t1 - t0, t2 - t1, t3 - t2,
+                               time.perf_counter() - t3,
+                               time.perf_counter() - t0))
   return out
 
 
-def route_entries(routes, scar):
-  """The kernels line's entries of K1's and K1-bwd's mixed-radix route:
-  the whole-image launches where an axis took it in phase 26's one-process
-  runs at 240², the largest error of phase 11's shapes on it, and phase
-  11's times at (20, 240, 240)."""
+def route_entries(routes, scar, large):
+  """The kernels line's entries of K1's and K1-bwd's routes past the
+  radix one: the mixed-radix route's whole-image launches in phase 26's
+  one-process runs at 240², the largest error of phase 11's shapes on it,
+  and phase 11's times at (20, 240, 240); the chirp route's launches of
+  phase 27 (d) (1031² and 2053²), the split route's of phase 27 (b)
+  (2048²), their largest errors in phase 11 and its times at (2, 1031,
+  1031) and (1, 2048, 2048) (no main path runs K1-bwd on the split
+  route)."""
   entries = []
-  for label, name, launches in (
-      ('K1', 'dc (mixed-radix route)', scar['k1_mixed']),
-      ('K1-bwd', 'dc_bwd (mixed-radix route)', scar['k1_bwd_mixed'])):
-    t = routes[label]['times']
+  for label, name, launches, err, times in (
+      ('K1', 'dc (mixed-radix route)', scar['k1_mixed'], 'err', 'times'),
+      ('K1-bwd', 'dc_bwd (mixed-radix route)', scar['k1_bwd_mixed'], 'err',
+       'times'),
+      ('K1', 'dc (chirp route)', large['chirp_k1'], 'chirp_err',
+       'chirp_times'),
+      ('K1-bwd', 'dc_bwd (chirp route)', large['chirp_k1_bwd'], 'chirp_err',
+       'chirp_times'),
+      ('K1', 'dc (split route)', large['split_k1'], 'split_err',
+       'split_times')):
+    t = routes[label][times]
     entries.append({
         'name': name, 'route': 'cuda',
         'source': 'csmri_refinement_tpu_torch/csrc/dc.cu',
         'replaces': 'csmri_refinement_tpu/ops/dc.py:99' if label == 'K1-bwd'
                     else 'csmri_refinement_tpu/ops/dc_pallas.py:36',
-        'launches': launches, 'max_abs_err': routes[label]['err'],
+        'launches': launches, 'max_abs_err': routes[label][err],
         'ms': t['ms'], 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
         'bound_by': t['bound_by'], 'library_ms': t['library_ms']})
+    require(launches > 0, '{} was not launched on the main path'.format(name))
   return entries
 
 
@@ -6361,7 +6539,7 @@ def main(argv=None):
        'ms': k3['requant'][0], 'plain_ms': k3['requant'][1],
        'bound_ms': k3['requant'][2], 'bound_by': k3['requant'][3],
        'library_ms': None},
-  ] + route_entries(routes, scar) + pass_entries(scar) + probe_entries
+  ] + route_entries(routes, scar, large) + pass_entries(scar) + probe_entries
   print('chip_smoke: all phases passed in {:.1f} s wall, the kernels\' build '
         'included ({})'.format(time.perf_counter() - t_start, line))
   print(json.dumps({'kernels': kernels}))

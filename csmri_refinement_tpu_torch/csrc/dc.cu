@@ -29,8 +29,8 @@
 // split over ranks runs them with an all-to-all between passes 1 and 2
 // and another between 2 and 3, and dc_forward is the same three launches.
 //
-// Every side from 2 to 1024, square or not, with one route per axis:
-// passes 1 and 3 take W's, pass 2 H's (ops/dc_kernel.py::dc_route):
+// Every side from 2 up, square or not, with one route per axis: passes 1
+// and 3 take W's, pass 2 H's (ops/dc_kernel.py::dc_route):
 //   * radix: powers of two from 2 to 1024. A thread holds P = 8 or 16
 //     points of a line and does whole radix-8 or radix-16 DFTs on them (a
 //     radix-2 network, constant twiddles), so a 256-point line is 16 x 16
@@ -42,19 +42,31 @@
 //     index). The merge operands (mask,
 //     k0) of the points a thread will hold are loaded before its forward
 //     transform starts.
-//   * mixed radix: every other side whose prime factors are at most 13
-//     (240 = 16 x 15, 320 = 8 x 8 x 5, 384 = 16 x 8 x 3, ...), and a power
-//     of two H beside a W that is not one (ops/dc_kernel.py::dc_route), so
-//     that a spatial rank's column block is never one that the radix column
-//     pass cannot walk. The plan is a
+//   * mixed radix: every other side to 1024 whose prime factors are at
+//     most 13 (240 = 16 x 15, 320 = 8 x 8 x 5, 384 = 16 x 8 x 3, ...), and
+//     a power of two H beside a W that is not one (ops/dc_kernel.py::
+//     dc_route), so that a spatial rank's column block is never one that
+//     the radix column pass cannot walk. The plan is a
 //     runtime argument over one stage function per radix (2, 4, 8, 16 as
 //     above; 3, 5, 7, 9, 11, 13, 15 as odd DFTs with constant roots); see
 //     "mixed-radix lines" below.
-//   * dense: sides with a larger prime factor (17, 237 = 3 x 79, 509, ...),
-//     as the TPU kernel computes every side (its DFT matrices,
-//     dc_pallas.py:77): each output point a sum over its whole line
-//     against a table of the n roots exp(-2 pi i m / n) of its axis,
-//     indexed by (j k) mod n. n^2 operations a line instead of n log n.
+//   * split: longer sides whose prime factors are at most 13 (1280, 2048,
+//     4096, 16384, ...): up to kBlockLine (4096) one launch a pass of
+//     block_lines, a tile of whole lines in a block on the mixed-radix
+//     stage functions; above, device stages, each a launch of stage_lines
+//     whose butterflies are whole mixed-radix lines in a block; see "device
+//     stages" below.
+//   * chirp: the sides with a prime factor above 13 past 80 (89, 127,
+//     244, 368, 509, 1021, 1031, ...): Bluestein's chirp, a cyclic
+//     convolution of a power-of-two length m >= 2n - 1 on the mixed-radix
+//     stage functions, in one launch a pass of block_lines up to m =
+//     kBlockLine and on device stages above; see "Bluestein's chirp".
+//   * dense: the sides with a prime factor above 13 up to 80
+//     (ops/dc_kernel.py::DENSE_MAX: 17, 31, 61, 79, where n^2 operations
+//     a line beat the chirp's four FFTs of m >= 2n): each output point a
+//     sum over its whole line against a table of its n roots
+//     exp(-2 pi i m / n), indexed by (j k) mod n, as the TPU kernel
+//     computes every side (its DFT matrices, dc_pallas.py:77).
 // On the FFT routes the inter-stage twiddles exp(-2 pi i m q / (Ns r)) come
 // from the host, computed in f64 and rounded once to f32, and sit in
 // shared memory. f32 FMA throughout (TF32 would lose ~2e-2 in k-space).
@@ -71,7 +83,11 @@
 namespace {
 
 constexpr int kRowThreads = 128;  // 256 measured 5% slower at B = 32, 256^2
-constexpr int kMaxN = 1024;       // ops/dc_kernel.py::MAX_SIZE
+// The longest line of the radix, mixed-radix and dense routes' tiles
+// (ops/dc_kernel.py::TILE_LINE), and of a chirp or device-stage block's
+// line (BLOCK_LINE).
+constexpr int kTileLine = 1024;
+constexpr int kBlockLine = 4096;
 
 // Columns per strip in the radix and dense column passes
 // (ops/dc_kernel.py::radix_strip): 16, and 8 above 512 rows, where a
@@ -570,7 +586,7 @@ int cols_pass(int h, const float2* in, float2* t, const float2* k0,
 }
 
 bool supported(int n, int code) {
-  return n >= 2 && n <= kMaxN && !(n & (n - 1)) && code == plan_code(n);
+  return n >= 2 && n <= kTileLine && !(n & (n - 1)) && code == plan_code(n);
 }
 
 // --- dense DFT lines (sides with a prime factor above 13) ---
@@ -736,9 +752,10 @@ constexpr bool mix_radix(int r) {
          r == 9 || r == 11 || r == 13 || r == 15 || r == 16;
 }
 
-// Decode and check a plan code: radices of the set, product n.
+// Decode and check a plan code: radices of the set, product n (a line of
+// at most kBlockLine points).
 bool mix_plan(int n, unsigned long long code, MixPlan* p) {
-  if (n < 2 || n > kMaxN) return false;
+  if (n < 2 || n > kBlockLine) return false;
   p->n = n;
   p->stages = 0;
   int span = 1, off = 0;
@@ -1113,21 +1130,508 @@ int mix_cols_pass(const float2* in, float2* out, const float2* k0,
                                   st);
 }
 
+// --- Bluestein's chirp (sides with a prime factor above 13) ---
+//
+// With c_j = exp(i pi j^2 / n), the DFT X_k = sum_j x_j exp(-2 pi i jk / n)
+// is X_k = conj(c_k) sum_j (x_j conj(c_j)) c_(k - j), since 2jk = j^2 + k^2
+// - (k - j)^2: a cyclic convolution of length m (a power of two >= 2n - 1)
+// of the chirped line, zero-padded to m, with the filter b (b_j = c_j for
+// 0 <= j < n and b_(m - j) = c_j for 0 < j < n, zero between). It runs as
+// FFT_m, the pointwise product with F = FFT_m(b) / m, inverse FFT_m, on
+// the mixed-radix stage functions. The inverse DFT is the forward one
+// conjugated on the way in and on the way out, so one filter serves both
+// directions. Host tables (ops/dc_kernel.py::axis_tables, f64 rounded once
+// to f32): c (n entries), F (m), then the transform's twiddles.
+//
+// Up to m = kBlockLine a pass is one launch of block_lines: a tile of
+// lines (rows, or columns of a strip) in shared memory in the mixed-radix
+// layout (point e of line l at e * cs + l), two FFTs of m a direction;
+// pass 2 runs the DFT along H, the merge (1 - m) X + k0 and the inverse
+// DFT along H in the same block. The split route's lines up to kBlockLine
+// run in the same kernel with one FFT of n a direction. Above, the
+// convolution runs on device stages (stage_lines, below). What bounds it:
+// shared memory, two FFTs of m >= 2n points a line and direction where a
+// radix line does one of n.
+
+// Lines of one axis in device memory: line l's point p at
+// (l / lpg) * gs + l % lpg + p * ps. Rows: lpg 1, gs the row length, ps 1;
+// a block of w columns of (batch, h, w) images: lpg w, gs h * w, ps w.
+struct Lines {
+  long count;
+  int lpg;
+  long gs;
+  int ps;
+  __host__ __device__ long base(long l) const {
+    return (l / lpg) * gs + l % lpg;
+  }
+};
+
+__device__ __forceinline__ float2 conj2(float2 a) {
+  return make_float2(a.x, -a.y);
+}
+
+constexpr int kMaxTileLines = 16;
+
+// Lines per tile (log2) of a block's line of r points: 8 up to 128, 4 up
+// to 512, 2 up to 2048, 1 above, so that a tile's two buffers stay under
+// 65 KB and three or four blocks share an SM (their registers allow four),
+// and a pass of a few hundred lines still fills the card. The device
+// stages' tiles of short radices hold 16 lines, so that a tile's loads and
+// stores are 128-byte runs. A line's twiddles stay in device memory, read
+// through L1 (a warp's threads read one entry at a time: lines are the
+// fastest index).
+int block_tile_lg(int r) {
+  return r <= 128 ? 3 : r <= 512 ? 2 : r <= 2048 ? 1 : 0;
+}
+int stage_tile_lg(int r) {
+  return r <= 128 ? 4 : r <= 512 ? 3 : r <= 1024 ? 2 : r <= 2048 ? 1 : 0;
+}
+
+// A tile's stride between a line's points: odd, so that staging a row's
+// neighbouring points hits every bank; one line needs none.
+__host__ __device__ inline int tile_stride(int lg) {
+  return lg ? (1 << lg) + 1 : 1;
+}
+
+// Element i of a tile of 1 << lg lines of `len` points: points fastest
+// (rows in memory), or lines fastest (columns, and device stages).
+__device__ __forceinline__ void tile_at(int i, bool points, int lg, int len,
+                                        int* l, int* e) {
+  if (points) {
+    *l = i / len;
+    *e = i - *l * len;
+  } else {
+    *l = i & ((1 << lg) - 1);
+    *e = i >> lg;
+  }
+}
+
+// The cyclic convolution of a tile with the filter: FFT_m, the product
+// with F, inverse FFT_m, between buffers a and b. Returns the buffer that
+// holds the result. Every thread of the block calls it.
+__device__ __forceinline__ float2* chirp_conv(float2* a, float2* b,
+                                              const MixPlan& p,
+                                              const float2* tw,
+                                              const float2* __restrict__ filt,
+                                              int lg, int cs) {
+  float2* f = mix_fft<false>(a, b, p, tw, lg, cs);
+  for (int i = threadIdx.x; i < (p.n << lg); i += blockDim.x) {
+    float2& v = f[(i >> lg) * cs + (i & ((1 << lg) - 1))];
+    v = cmul(v, __ldg(filt + (i >> lg)));
+  }
+  __syncthreads();
+  return mix_fft<true>(f, f == a ? b : a, p, tw, lg, cs);
+}
+
+enum LineMode { kLineFwd = 0, kLineInv = 1, kLineDc = 2 };
+
+struct BlockArgs {
+  const float2* in;
+  float2* out;          // may be `in`: a tile is read whole before written
+  const float2* k0;     // kLineDc; null: zero (K1-bwd)
+  const float* mask;    // kLineDc
+  Lines ln;
+  int n;
+  const float2* chirp;  // CHIRP: c_j, n entries
+  const float2* filt;   // CHIRP: F, m entries
+  float scale;          // 1 / sqrt(n)
+};
+
+// A pass on a line one block holds (the chirp route at m <= kBlockLine,
+// the split route at n <= kBlockLine): kLineFwd the DFT of each line
+// (pass 1), kLineInv the inverse DFT (pass 3), kLineDc the column pass (DFT
+// along H, merge, inverse DFT along H); each times `scale`. p is the
+// plan of the block's line (m with CHIRP, else n), tw_g its twiddles, read
+// through L1.
+template <int MODE, bool CHIRP>
+__global__ void __launch_bounds__(kMixThreads)
+block_lines(BlockArgs a, MixPlan p, const float2* __restrict__ tw_g, int lg) {
+  __shared__ MixPlan sp;
+  __shared__ long base[kMaxTileLines];
+  extern __shared__ __align__(16) float2 smem[];
+  const int m = p.n, n = a.n, tl = 1 << lg, cs = tile_stride(lg);
+  float2* buf0 = smem;
+  float2* buf1 = smem + m * cs;
+  if (threadIdx.x == 0) sp = p;
+  const bool points = a.ln.lpg == 1 && a.ln.ps == 1;
+  const long tiles = (a.ln.count + tl - 1) / tl;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long l0 = tile * tl;
+    const int lines = a.ln.count - l0 < tl ? (int)(a.ln.count - l0) : tl;
+    const int x = threadIdx.x;
+    if (x < tl) base[x] = a.ln.base(l0 + (x < lines ? x : 0));
+    __syncthreads();
+    // the line (chirped and zero-padded to m on the chirp route)
+    for (int i = threadIdx.x; i < tl * m; i += blockDim.x) {
+      int l, e;
+      tile_at(i, points, lg, m, &l, &e);
+      float2 v = make_float2(0.f, 0.f);
+      if (l < lines && e < n) {
+        v = a.in[base[l] + (long)e * a.ln.ps];
+        if (CHIRP)
+          v = cmulc(MODE == kLineInv ? conj2(v) : v, __ldg(a.chirp + e));
+      }
+      buf0[e * cs + l] = v;
+    }
+    __syncthreads();
+    float2* f = CHIRP ? chirp_conv(buf0, buf1, sp, tw_g, a.filt, lg, cs)
+                      : mix_fft<MODE == kLineInv>(buf0, buf1, sp, tw_g, lg,
+                                                  cs);
+    if constexpr (MODE == kLineDc) {
+      // the DFT along H scaled, the merge, and on the chirp route the
+      // inverse DFT's way in: conj(merged) conj(c), zero-padded
+      for (int i = threadIdx.x; i < tl * m; i += blockDim.x) {
+        int l, e;
+        tile_at(i, points, lg, m, &l, &e);
+        float2& v = f[e * cs + l];
+        if (l < lines && e < n) {
+          const long g = base[l] + (long)e * a.ln.ps;
+          const float2 y = CHIRP ? cmulc(v, __ldg(a.chirp + e)) : v;
+          const float keep = 1.f - __ldg(a.mask + g);
+          const float2 kk = a.k0 ? __ldg(a.k0 + g) : make_float2(0.f, 0.f);
+          const float2 k = make_float2(fmaf(keep, y.x * a.scale, kk.x),
+                                       fmaf(keep, y.y * a.scale, kk.y));
+          v = CHIRP ? cmulc(conj2(k), __ldg(a.chirp + e)) : k;
+        } else {
+          v = make_float2(0.f, 0.f);
+        }
+      }
+      __syncthreads();
+      float2* other = f == buf0 ? buf1 : buf0;
+      f = CHIRP ? chirp_conv(f, other, sp, tw_g, a.filt, lg, cs)
+                : mix_fft<true>(f, other, sp, tw_g, lg, cs);
+    }
+    for (int i = threadIdx.x; i < tl * n; i += blockDim.x) {
+      int l, e;
+      tile_at(i, points, lg, n, &l, &e);
+      if (l < lines) {
+        float2 y = f[e * cs + l];
+        if (CHIRP) {
+          y = cmulc(y, __ldg(a.chirp + e));
+          if (MODE != kLineFwd) y = conj2(y);
+        }
+        a.out[base[l] + (long)e * a.ln.ps] =
+            make_float2(y.x * a.scale, y.y * a.scale);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// --- device stages (lines longer than a block holds) ---
+//
+// A transform of N = R_0 R_1 ... R_(S-1) points (S >= 2; each R_s at most
+// kBlockLine with a mixed-radix plan; ops/dc_kernel.py::split_radices) is
+// S launches of stage_lines, one Stockham stage each at device level:
+// butterfly j < N / R of a line reads points j + q N / R (q < R),
+// twiddles them by exp(-+2 pi i k q / (Ns R)) (k = j mod Ns, Ns = R_0 ...
+// R_(s-1); host table [q Ns + k]), runs the R-point DFT in the block
+// (mix_fft on a tile of butterflies in the mixed-radix layout) and writes
+// point q to (j - k) R + k + q Ns, between device buffers. The last stage
+// leaves a line in natural order, so every pass keeps its layout, k0 and
+// the mask are read at their own positions and a spatial rank's column
+// block is any block. A tile's butterflies are neighbours in memory
+// (points j of one row, or the same j of neighbouring columns), so loads
+// and stores coalesce; the first stage of a row writes whole runs of R
+// points. The pointwise steps ride on a stage: the chirp's way in on the
+// first; the filter, the chirp's way out, the merge and the scale on the
+// last. What bounds it: bytes, 16 B a point a stage through device memory.
+
+enum StageIn { kIn = 0, kInChirp = 1 };
+enum StageOut { kOut = 0, kOutFilter = 1, kOutChirp = 2, kOutMerge = 4 };
+
+struct StageArgs {
+  const float2* src;
+  float2* dst;
+  Lines in, out;          // the same lines, each with its own strides
+  int n_in, n_out;        // points a line reads (zeros above) and writes
+  int len, span;          // N and this stage's Ns
+  const float2* dtw;      // this stage's twiddles, [q * Ns + k], Ns > 1
+  const float2* chirp;    // kInChirp, kOutChirp
+  const float2* filt;     // kOutFilter
+  const float2* k0;       // kOutMerge; null: zero (K1-bwd)
+  const float* mask;      // kOutMerge, at dst's positions
+  float scale;
+  int pre, post, conj_in, conj_out;
+};
+
+template <bool INV>
+__global__ void __launch_bounds__(kMixThreads)
+stage_lines(StageArgs a, MixPlan p, const float2* __restrict__ tw_g, int lg) {
+  __shared__ MixPlan sp;
+  __shared__ long src0[kMaxTileLines], dst0[kMaxTileLines];
+  __shared__ int pos0[kMaxTileLines], dpos0[kMaxTileLines], kq[kMaxTileLines];
+  extern __shared__ __align__(16) float2 smem[];
+  const int r = p.n, tl = 1 << lg, cs = tile_stride(lg), elems = r * cs;
+  const int fly = a.len / r;   // butterflies a line
+  float2* buf0 = smem;
+  float2* buf1 = smem + elems;
+  if (threadIdx.x == 0) sp = p;
+  const long total = a.in.count * fly;
+  const long tiles = (total + tl - 1) / tl;
+  const bool runs = a.out.lpg == 1 && a.out.ps == 1 && a.span == 1;
+  const int lpg = a.in.lpg;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long t0 = tile * tl;
+    const int lines = total - t0 < tl ? (int)(total - t0) : tl;
+    const int x = threadIdx.x;
+    if (x < tl) {   // butterfly x of the tile: point j of its line
+      const long b = t0 + (x < lines ? x : 0);
+      const long t = b / lpg;
+      const int j = (int)(t % fly);
+      const long line = (t / fly) * lpg + b % lpg;
+      const int k = j % a.span;
+      src0[x] = a.in.base(line);
+      dst0[x] = a.out.base(line);
+      pos0[x] = j;
+      kq[x] = k;
+      dpos0[x] = (j - k) * r + k;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < tl * r; i += blockDim.x) {
+      const int l = i & (tl - 1), q = i >> lg;
+      const int pos = pos0[l] + q * fly;
+      float2 v = make_float2(0.f, 0.f);
+      if (l < lines && pos < a.n_in) {
+        v = a.src[src0[l] + (long)pos * a.in.ps];
+        if (a.pre == kInChirp)
+          v = cmulc(a.conj_in ? conj2(v) : v, __ldg(a.chirp + pos));
+        if (a.span > 1) {
+          const float2 w = __ldg(a.dtw + q * a.span + kq[l]);
+          v = INV ? cmulc(v, w) : cmul(v, w);
+        }
+      }
+      buf0[q * cs + l] = v;
+    }
+    __syncthreads();
+    const float2* f = mix_fft<INV>(buf0, buf1, sp, tw_g, lg, cs);
+    for (int i = threadIdx.x; i < tl * r; i += blockDim.x) {
+      int l, q;
+      tile_at(i, runs, lg, r, &l, &q);
+      const int d = dpos0[l] + q * a.span;
+      if (l >= lines || d >= a.n_out) continue;
+      float2 v = f[q * cs + l];
+      if (a.post & kOutFilter) v = cmul(v, __ldg(a.filt + d));
+      if (a.post & kOutChirp) {
+        v = cmulc(v, __ldg(a.chirp + d));
+        if (a.conj_out) v = conj2(v);
+      }
+      const long g = dst0[l] + (long)d * a.out.ps;
+      if (a.post & kOutMerge) {
+        const float keep = 1.f - __ldg(a.mask + g);
+        const float2 kk = a.k0 ? __ldg(a.k0 + g) : make_float2(0.f, 0.f);
+        v = make_float2(fmaf(keep, v.x * a.scale, kk.x),
+                        fmaf(keep, v.y * a.scale, kk.y));
+      } else {
+        v = make_float2(v.x * a.scale, v.y * a.scale);
+      }
+      a.dst[g] = v;
+    }
+    __syncthreads();
+  }
+}
+
 float ortho(int n) { return (float)(1.0 / sqrt((double)n)); }
 
 // --- one route per axis ---
 
-enum Route { kRadix = 0, kMixed = 1, kDense = 2 };  // ops/dc_kernel.py
+// ops/dc_kernel.py::_ROUTE_CODES
+enum Route { kRadix = 0, kMixed = 1, kDense = 2, kChirp = 3, kSplit = 4 };
 
 bool aligned16(const void* a, const void* b, const void* c = nullptr) {
   return ((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) % 16 == 0;
 }
 
+// --- the chirp and split routes' launches ---
+
+constexpr int kMaxDeviceStages = 8;
+
+// An axis on the chirp or split route (ops/dc_kernel.py::_plan_args,
+// axis_tables): its side n, the transform's length len (the chirp's m, or
+// n), the device stages' in-block plans and spans, and the offsets of its
+// tables: the chirp at 0 and the filter at n (chirp route), then each
+// stage's in-block twiddles, then the device twiddles of stages 1...
+struct AxisPlan {
+  bool chirp;
+  int n, len, stages;
+  MixPlan block[kMaxDeviceStages];
+  int span[kMaxDeviceStages];
+  long tw_block[kMaxDeviceStages], tw_dev[kMaxDeviceStages];
+};
+
+// Decode and check an axis's plan: len is m >= 2n - 1 on the chirp route,
+// n on the split route; codes = [S, R_0, plan code of R_0, ...], each a
+// mixed-radix plan of its radix, their product len; one stage (a block's
+// line) up to kBlockLine, several above.
+bool axis_plan(int route, int n, unsigned long long len,
+               const unsigned long long* codes, AxisPlan* ap) {
+  ap->chirp = route == kChirp;
+  if (codes == nullptr || n < 2 || len > (1ull << 30) ||
+      (ap->chirp ? len < 2ull * n - 1 : len != (unsigned long long)n))
+    return false;
+  const unsigned long long stages = codes[0];
+  if (stages < 1 || stages > kMaxDeviceStages ||
+      (stages > 1 && len <= kBlockLine))
+    return false;
+  ap->n = n;
+  ap->len = (int)len;
+  ap->stages = (int)stages;
+  long off = ap->chirp ? n + (long)len : 0;
+  unsigned long long prod = 1;
+  for (int s = 0; s < ap->stages; ++s) {
+    const unsigned long long r = codes[1 + 2 * s];
+    if (r < 2 || r > kBlockLine ||
+        !mix_plan((int)r, codes[2 + 2 * s], &ap->block[s]))
+      return false;
+    ap->span[s] = (int)prod;
+    prod *= r;
+    if (prod > len) return false;
+    ap->tw_block[s] = off;
+    off += ap->block[s].tw_size;
+  }
+  if (prod != len) return false;
+  ap->tw_dev[0] = 0;
+  for (int s = 1; s < ap->stages; ++s) {
+    ap->tw_dev[s] = off;
+    off += (long)ap->span[s] * ap->block[s].n;
+  }
+  return true;
+}
+
+// A pass of lines one block holds (block_lines), `mode` a LineMode.
+int block_launch(int mode, const AxisPlan& ap, const float2* in, float2* out,
+                 const float2* k0, const float* mask, Lines ln,
+                 const float2* tabs, float scale, cudaStream_t st) {
+  const MixPlan& p = ap.block[0];
+  const int lg = block_tile_lg(p.n), tl = 1 << lg;
+  const int smem = 2 * p.n * tile_stride(lg) * 8;
+  const BlockArgs a = {in, out, k0, mask, ln, ap.n, tabs, tabs + ap.n,
+                       scale};
+  void (*kern)(BlockArgs, MixPlan, const float2*, int) =
+      ap.chirp ? (mode == kLineFwd   ? block_lines<kLineFwd, true>
+                  : mode == kLineInv ? block_lines<kLineInv, true>
+                                     : block_lines<kLineDc, true>)
+               : (mode == kLineFwd   ? block_lines<kLineFwd, false>
+                  : mode == kLineInv ? block_lines<kLineInv, false>
+                                     : block_lines<kLineDc, false>);
+  unsigned grid = 0;
+  const int err = walk_grid(kern, kMixThreads, smem, (ln.count + tl - 1) / tl,
+                            &grid);
+  if (err) return err;
+  kern<<<grid, kMixThreads, smem, st>>>(a, p, tabs + ap.tw_block[0], lg);
+  return (int)cudaGetLastError();
+}
+
+// Stage s of the axis (the inverse transform's with `inv`) on a's lines.
+int stage_launch(const AxisPlan& ap, int s, bool inv, StageArgs a,
+                 const float2* tabs, cudaStream_t st) {
+  const MixPlan& p = ap.block[s];
+  const int lg = stage_tile_lg(p.n), tl = 1 << lg;
+  const int smem = 2 * p.n * tile_stride(lg) * 8;
+  a.len = ap.len;
+  a.span = ap.span[s];
+  a.dtw = s ? tabs + ap.tw_dev[s] : nullptr;
+  void (*kern)(StageArgs, MixPlan, const float2*, int) =
+      inv ? stage_lines<true> : stage_lines<false>;
+  unsigned grid = 0;
+  const int err = walk_grid(
+      kern, kMixThreads, smem,
+      (a.in.count * (ap.len / p.n) + tl - 1) / tl, &grid);
+  if (err) return err;
+  kern<<<grid, kMixThreads, smem, st>>>(a, p, tabs + ap.tw_block[s], lg);
+  return (int)cudaGetLastError();
+}
+
+// The DFT (the inverse with `inverse`) of every line of src (layout `in`,
+// n points) into dst (layout `out`) on the device stages, through the work
+// buffers w0 and w1 in turn (layout `work`, len points a line): S launches
+// on the split route; on the chirp route 2S, the convolution's forward
+// and inverse transforms. The last launch stores times `scale`, or with
+// `merge` merges with k0 and the mask at dst's positions.
+int stage_dft(const AxisPlan& ap, const float2* tabs, const float2* src,
+              float2* dst, Lines in, Lines out, Lines work, float2* w0,
+              float2* w1, bool inverse, bool merge, const float2* k0,
+              const float* mask, float scale, cudaStream_t st) {
+  const int count = ap.chirp ? 2 * ap.stages : ap.stages;
+  for (int i = 0; i < count; ++i) {
+    const bool first = i == 0, last = i == count - 1;
+    StageArgs a = {};
+    a.src = first ? src : (i - 1) % 2 ? w1 : w0;
+    a.dst = last ? dst : i % 2 ? w1 : w0;
+    a.in = first ? in : work;
+    a.out = last ? out : work;
+    a.n_in = first ? ap.n : ap.len;
+    a.n_out = last ? ap.n : ap.len;
+    a.chirp = tabs;
+    a.filt = tabs + ap.n;
+    a.k0 = k0;
+    a.mask = mask;
+    a.scale = 1.f;
+    bool inv = inverse;
+    if (ap.chirp) {
+      inv = i >= ap.stages;
+      if (first) {
+        a.pre = kInChirp;
+        a.conj_in = inverse;
+      }
+      if (i == ap.stages - 1) a.post = kOutFilter;
+      if (last) {
+        a.post = kOutChirp;
+        a.conj_out = inverse;
+      }
+    }
+    if (last) {
+      a.post |= merge ? kOutMerge : kOut;
+      a.scale = scale;
+    }
+    const int err = stage_launch(ap, i % ap.stages, inv, a, tabs, st);
+    if (err) return err;
+  }
+  return 0;
+}
+
+// Passes 1 and 3 on the chirp and split routes: `rows` lines of n points.
+int lines_rows(const AxisPlan& ap, const float2* in, float2* out,
+               float2* work, long rows, const float2* tabs, bool inverse,
+               cudaStream_t st) {
+  const float scale = ortho(ap.n);
+  const Lines ln = {rows, 1, ap.n, 1};
+  if (ap.stages == 1)
+    return block_launch(inverse ? kLineInv : kLineFwd, ap, in, out, nullptr,
+                        nullptr, ln, tabs, scale, st);
+  if (work == nullptr) return (int)cudaErrorInvalidValue;
+  const Lines wl = {rows, 1, ap.len, 1};
+  return stage_dft(ap, tabs, in, out, ln, ln, wl, work, work + rows * ap.len,
+                   inverse, false, nullptr, nullptr, scale, st);
+}
+
+// Pass 2 on the chirp and split routes: (batch, h, w) column blocks.
+int lines_cols(const AxisPlan& ap, const float2* in, float2* out,
+               const float2* k0, const float* mask, float2* work, int batch,
+               int h, int w, const float2* tabs, cudaStream_t st) {
+  const float scale = ortho(h);
+  const long lines = (long)batch * w;
+  const Lines ln = {lines, w, (long)h * w, w};
+  if (ap.stages == 1)
+    return block_launch(kLineDc, ap, in, out, k0, mask, ln, tabs, scale, st);
+  if (work == nullptr) return (int)cudaErrorInvalidValue;
+  const Lines wl = {lines, w, (long)ap.len * w, w};
+  float2* w1 = work + lines * ap.len;
+  const int err = stage_dft(ap, tabs, in, out, ln, ln, wl, work, w1, false,
+                            true, k0, mask, scale, st);
+  if (err) return err;
+  return stage_dft(ap, tabs, out, out, ln, ln, wl, work, w1, true, false,
+                   nullptr, nullptr, scale, st);
+}
+
+
 // Passes 1 and 3 (`inverse`): `rows` lines of n points from in to out on
-// `route` with its plan and table, times 1 / sqrt(n).
-int rows_launch(int route, unsigned long long plan, const float2* in,
-                float2* out, long rows, int n, const float2* tw, bool inverse,
-                cudaStream_t st) {
+// `route` with its plan (and on the chirp and split routes its device
+// stages and work buffer) and table, times 1 / sqrt(n).
+int rows_launch(int route, unsigned long long plan,
+                const unsigned long long* stages, const float2* in,
+                float2* out, float2* work, long rows, int n,
+                const float2* tw, bool inverse, cudaStream_t st) {
   if (rows < 1) return (int)cudaErrorInvalidValue;
   const float scale = ortho(n);
   if (route == kRadix) {
@@ -1138,13 +1642,18 @@ int rows_launch(int route, unsigned long long plan, const float2* in,
   }
   if (route == kMixed) {
     MixPlan p;
-    if (!mix_plan(n, plan, &p)) return (int)cudaErrorInvalidValue;
+    if (n > kTileLine || !mix_plan(n, plan, &p))
+      return (int)cudaErrorInvalidValue;
     return inverse ? mix_rows_pass<true>(in, out, rows, p, tw, scale, st)
                    : mix_rows_pass<false>(in, out, rows, p, tw, scale, st);
   }
-  if (route == kDense && n >= 2 && n <= kMaxN)
+  if (route == kDense && n >= 2 && n <= kTileLine)
     return inverse ? dft_rows_pass<true>(in, out, rows, n, tw, scale, st)
                    : dft_rows_pass<false>(in, out, rows, n, tw, scale, st);
+  AxisPlan ap;
+  if ((route == kChirp || route == kSplit) &&
+      axis_plan(route, n, plan, stages, &ap))
+    return lines_rows(ap, in, out, work, rows, tw, inverse, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1152,9 +1661,11 @@ int rows_launch(int route, unsigned long long plan, const float2* in,
 // (distinct or the same buffer), k0 null for K1-bwd. The radix route
 // takes w in whole strips of col_strip(h) columns, or one strip of a
 // power of two below that; the others any w from 1 (partial strips).
-int cols_launch(int route, unsigned long long plan, const float2* in,
-                float2* out, const float2* k0, const float* mask, int batch,
-                int h, int w, const float2* tw, cudaStream_t st) {
+int cols_launch(int route, unsigned long long plan,
+                const unsigned long long* stages, const float2* in,
+                float2* out, const float2* k0, const float* mask,
+                float2* work, int batch, int h, int w, const float2* tw,
+                cudaStream_t st) {
   if (batch < 1 || w < 1) return (int)cudaErrorInvalidValue;
   const float scale = ortho(h);
   if (route == kRadix) {
@@ -1166,11 +1677,16 @@ int cols_launch(int route, unsigned long long plan, const float2* in,
   }
   if (route == kMixed) {
     MixPlan p;
-    if (!mix_plan(h, plan, &p)) return (int)cudaErrorInvalidValue;
+    if (h > kTileLine || !mix_plan(h, plan, &p))
+      return (int)cudaErrorInvalidValue;
     return mix_cols_pass(in, out, k0, mask, batch, w, p, tw, scale, st);
   }
-  if (route == kDense && h >= 2 && h <= kMaxN)
+  if (route == kDense && h >= 2 && h <= kTileLine)
     return dft_cols_pass(in, out, k0, mask, batch, h, w, tw, scale, st);
+  AxisPlan ap;
+  if ((route == kChirp || route == kSplit) &&
+      axis_plan(route, h, plan, stages, &ap))
+    return lines_cols(ap, in, out, k0, mask, work, batch, h, w, tw, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1178,33 +1694,42 @@ int cols_launch(int route, unsigned long long plan, const float2* in,
 
 // x, k0, y, scratch: (batch, h, w, 2) float32 (16-byte aligned where an
 // axis takes the radix route); k0 may be null (zero); mask: (batch, h, w)
-// float32. route_h, plan_h, tw_h: H's route (0 radix, 1 mixed-radix, 2
-// dense), its plan (one byte per stage's radix: FFT_PLANS or mixed_plan;
-// unused by the dense route) and its table (ops/dc_kernel.py::fft_tables,
-// mixed_tables: stage s >= 1 at its offset, entry [q * Ns + m] =
-// exp(-2 pi i m q / (Ns r)); dft_table: the h roots exp(-2 pi i m / h));
-// route_w, plan_w, tw_w: W's. Pass 1 and pass 3 run on W's route, pass 2
-// on H's, each the launch of dc_rows_pass / dc_cols_pass below. Launches
-// on `stream`; returns a CUDA error code.
+// float32. route_h, plan_h, stages_h, tw_h: H's route (0 radix, 1
+// mixed-radix, 2 dense, 3 chirp, 4 split), its plan (one byte per stage's
+// radix: FFT_PLANS or mixed_plan; unused by the dense route; the
+// transform's length on the chirp and split routes), its device stages
+// (null, or on the chirp and split routes a host array [S, R_0, plan of
+// R_0, ...]: ops/dc_kernel.py::_plan_args) and its table
+// (ops/dc_kernel.py::fft_tables, mixed_tables: stage s >= 1 at its offset,
+// entry [q * Ns + m] = exp(-2 pi i m q / (Ns r)); dft_table: the h roots
+// exp(-2 pi i m / h); axis_tables on the chirp and split routes); route_w,
+// plan_w, stages_w, tw_w: W's. work: null, or where an axis runs on device
+// stages two buffers of len points a line of the pass with the most
+// (ops/dc_kernel.py::work_elems). Pass 1 and pass 3 run on W's route, pass
+// 2 on H's, each the launches of dc_rows_pass / dc_cols_pass below.
+// Launches on `stream`; returns a CUDA error code.
 extern "C" int dc_forward(const void* x, const void* k0, const void* mask,
-                          void* y, void* scratch, const void* tw_h,
-                          const void* tw_w, int route_h,
-                          unsigned long long plan_h, int route_w,
-                          unsigned long long plan_w, int batch, int h, int w,
+                          void* y, void* scratch, void* work,
+                          const void* tw_h, const void* tw_w, int route_h,
+                          unsigned long long plan_h, const void* stages_h,
+                          int route_w, unsigned long long plan_w,
+                          const void* stages_w, int batch, int h, int w,
                           void* stream) {
-  if (batch < 1 || h < 2 || h > kMaxN || w < 2 || w > kMaxN)
-    return (int)cudaErrorInvalidValue;
+  if (batch < 1 || h < 2 || w < 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long rows = (long)batch * h;
   float2* t = (float2*)scratch;
-  int err = rows_launch(route_w, plan_w, (const float2*)x, t, rows, w,
-                        (const float2*)tw_w, false, st);
+  const auto* sw = (const unsigned long long*)stages_w;
+  int err = rows_launch(route_w, plan_w, sw, (const float2*)x, t,
+                        (float2*)work, rows, w, (const float2*)tw_w, false,
+                        st);
   if (err) return err;
-  err = cols_launch(route_h, plan_h, t, t, (const float2*)k0,
-                    (const float*)mask, batch, h, w, (const float2*)tw_h, st);
+  err = cols_launch(route_h, plan_h, (const unsigned long long*)stages_h, t,
+                    t, (const float2*)k0, (const float*)mask, (float2*)work,
+                    batch, h, w, (const float2*)tw_h, st);
   if (err) return err;
-  return rows_launch(route_w, plan_w, t, (float2*)y, rows, w,
-                     (const float2*)tw_w, true, st);
+  return rows_launch(route_w, plan_w, sw, t, (float2*)y, (float2*)work, rows,
+                     w, (const float2*)tw_w, true, st);
 }
 
 // --- K1's passes one at a time: the DC distributed over a spatial group ---
@@ -1219,23 +1744,28 @@ extern "C" int dc_forward(const void* x, const void* k0, const void* mask,
 //
 // The row passes (1, and 3 with `inverse`): `rows` lines of n points,
 // (rows, n, 2) float32 from `in` to `out`; n is the image's width W,
-// route, plan and tw W's (dc_forward's route_w, plan_w and tw_w).
-extern "C" int dc_rows_pass(const void* in, void* out, const void* tw,
-                            int route, unsigned long long plan, int rows,
-                            int n, int inverse, void* stream) {
-  return rows_launch(route, plan, (const float2*)in, (float2*)out, rows, n,
+// route, plan, stages and tw W's (dc_forward's route_w, plan_w, stages_w
+// and tw_w); work as dc_forward's for these rows.
+extern "C" int dc_rows_pass(const void* in, void* out, void* work,
+                            const void* tw, int route,
+                            unsigned long long plan, const void* stages,
+                            int rows, int n, int inverse, void* stream) {
+  return rows_launch(route, plan, (const unsigned long long*)stages,
+                     (const float2*)in, (float2*)out, (float2*)work, rows, n,
                      (const float2*)tw, inverse != 0, (cudaStream_t)stream);
 }
 
 // The column pass: (batch, h, w, 2) float32 column blocks, all h rows of w
 // columns (the row stride is w), from `in` to `out` (distinct or the same
 // buffer); k0 (batch, h, w, 2) or null (zero: K1-bwd), mask (batch, h, w).
-// route, plan and tw are H's, the image's height.
+// route, plan, stages and tw are H's, the image's height; work as
+// dc_forward's for these columns.
 extern "C" int dc_cols_pass(const void* in, const void* k0, const void* mask,
-                            void* out, const void* tw, int route,
-                            unsigned long long plan, int batch, int h, int w,
-                            void* stream) {
-  return cols_launch(route, plan, (const float2*)in, (float2*)out,
-                     (const float2*)k0, (const float*)mask, batch, h, w,
+                            void* out, void* work, const void* tw, int route,
+                            unsigned long long plan, const void* stages,
+                            int batch, int h, int w, void* stream) {
+  return cols_launch(route, plan, (const unsigned long long*)stages,
+                     (const float2*)in, (float2*)out, (const float2*)k0,
+                     (const float*)mask, (float2*)work, batch, h, w,
                      (const float2*)tw, (cudaStream_t)stream);
 }

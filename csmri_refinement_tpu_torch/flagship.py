@@ -21,7 +21,6 @@ from csmri_refinement_tpu_torch.models.recnet import RecNet
 from csmri_refinement_tpu_torch.models.refinement_wrapper import (
     RefinementWrapper)
 from csmri_refinement_tpu_torch.models.unet import UNET
-from csmri_refinement_tpu_torch.ops.dc_kernel import MAX_SIZE
 from csmri_refinement_tpu_torch.ops.undersample import undersample_batch
 
 
@@ -56,15 +55,11 @@ def build_flagship(image_size=256, dtype=torch.bfloat16, device='cuda',
   if device.type == 'cuda' and not torch.cuda.is_available():
     raise RuntimeError('build_flagship: no CUDA device; pass device="cpu" '
                        'to run the plain versions on the CPU')
-  # The U-Net pools twice. On the card the DC kernel takes every side from
-  # 2 to MAX_SIZE (1024), one route per axis (``ops/dc_kernel.py::
-  # dc_route``); on the CPU the plain version takes any side.
+  # The U-Net pools twice. The DC kernel takes every side, one route per
+  # axis (``ops/dc_kernel.py::dc_route``); on the CPU the plain version.
   if image_size < 16 or image_size % 4:
     raise ValueError('image_size must be a multiple of 4 and at least 16, '
                      'got {}'.format(image_size))
-  if device.type == 'cuda' and image_size > MAX_SIZE:
-    raise ValueError('the DC kernel takes sides up to {}, got {}'.format(
-        MAX_SIZE, image_size))
   model = flagship_model(dtype, quantize_inference)
   model.init_weights(torch.Generator().manual_seed(seed))
   return model.to(device).eval(), undersample_batch

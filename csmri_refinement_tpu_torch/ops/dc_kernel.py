@@ -60,14 +60,19 @@ on packed ``(B, H, W, 2)`` float32 images, ``(B, H, W, 1)`` float32 masks.
   The noisy DC (``ops/dc.py``) runs the same pipeline on the plain passes,
   autodiffed through the exchanges.
 
-The kernel takes images of sides 2 to 1024, square or not, with one route
-per axis (``dc_route``; passes 1 and 3 take W's, pass 2 H's): powers of two
-by the radix plans compiled per side (``FFT_PLANS``), the other sides whose
-prime factors are at most 13 (240, 320, 384, 192, ...) by mixed-radix
-plans passed at run time (``mixed_plan``), the sides with a larger prime
-factor (17, 237, 509, ...) by dense DFT lines, as the TPU kernel computes
-every side (its DFT matrices, ``dc_pallas.py:77``). A CUDA tensor of a
-larger side raises; nothing falls back to ``torch.fft``.
+The kernel takes images of any side from 2 up, square or not, with one
+route per axis (``dc_route``; passes 1 and 3 take W's, pass 2 H's): powers
+of two to 1024 by the radix plans compiled per side (``FFT_PLANS``), the
+other sides to 1024 whose prime factors are at most 13 (240, 320, 384, 192,
+...) by mixed-radix plans passed at run time (``mixed_plan``), longer such
+sides (1280, 2048, 4096, 16384, ...) by those plans on a block's line up to
+4096 and on device stages above (``'split'``, ``axis_stages``), the sides
+with a larger prime factor by dense DFT lines up to ``DENSE_MAX`` (17, 31,
+61, 79) and by Bluestein's chirp (``'chirp'``) above (89, 127, 244, 368,
+509, 1031, ...): a cyclic convolution of a power-of-two length
+``chirp_length(n)``, on a block's line up to 4096 and on device stages
+above. Nothing falls back to ``torch.fft``; a CUDA tensor is refused only
+at an index range the kernels count in int32 (``_check_ranges``).
 """
 
 import ctypes
@@ -81,7 +86,17 @@ from csmri_refinement_tpu_torch.ops import native
 from csmri_refinement_tpu_torch.parallel import halo
 from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 
-MAX_SIZE = 1024
+# The longest line of the radix, mixed-radix and dense routes' tiles
+# (``csrc/dc.cu``'s ``kTileLine``).
+TILE_LINE = 1024
+# The longest line one block of the chirp and split routes holds in shared
+# memory (``kBlockLine``): one launch a pass up to it (the chirp's m, the
+# split route's n), device stages above, each radix at most it.
+BLOCK_LINE = 4096
+# The longest side with a prime factor above 13 that takes dense DFT lines:
+# up to it the dense route's n² a line is faster on the card than the
+# chirp's four FFTs of m ≥ 2n points (``chip_smoke.py`` phase 11).
+DENSE_MAX = 80
 
 
 def kspace_merge_reference(k, k0, mask, noise_lvl=None):
@@ -140,12 +155,13 @@ def dc_plain(x, k0, mask):
 @functools.lru_cache(maxsize=None)
 def _lib():
   lib = native.library('dc')
-  plan = [ctypes.c_int, ctypes.c_uint64]      # a route and its plan
-  lib.dc_forward.argtypes = [ctypes.c_void_p] * 7 + plan * 2 + [
+  # a route, its plan code and its device stages (a host array or null)
+  plan = [ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p]
+  lib.dc_forward.argtypes = [ctypes.c_void_p] * 8 + plan * 2 + [
       ctypes.c_int] * 3 + [ctypes.c_void_p]
-  lib.dc_rows_pass.argtypes = [ctypes.c_void_p] * 3 + plan + [
+  lib.dc_rows_pass.argtypes = [ctypes.c_void_p] * 4 + plan + [
       ctypes.c_int] * 3 + [ctypes.c_void_p]
-  lib.dc_cols_pass.argtypes = [ctypes.c_void_p] * 5 + plan + [
+  lib.dc_cols_pass.argtypes = [ctypes.c_void_p] * 6 + plan + [
       ctypes.c_int] * 3 + [ctypes.c_void_p]
   for fn in (lib.dc_forward, lib.dc_rows_pass, lib.dc_cols_pass):
     fn.restype = ctypes.c_int
@@ -159,6 +175,9 @@ def _lib():
 FFT_PLANS = {2: (2,), 4: (4,), 8: (8,), 16: (16,), 32: (8, 4), 64: (8, 8),
              128: (16, 8), 256: (16, 16), 512: (8, 8, 8),
              1024: (16, 8, 8)}
+# The power-of-two part of a mixed-radix plan above TILE_LINE (a block's
+# line on the chirp and split routes).
+_BLOCK_POW2 = {2048: (16, 16, 8), 4096: (16, 16, 16)}
 
 # The mixed-radix route's radices (``csrc/dc.cu``'s ``mix_stage``): the
 # radix-2 networks of 2 to 16 points and the odd DFTs with constant roots.
@@ -166,28 +185,37 @@ MIXED_RADICES = (2, 3, 4, 5, 7, 8, 9, 11, 13, 15, 16)
 MIXED_MAX_STAGES = 4
 
 
-@functools.lru_cache(maxsize=None)
-def mixed_plan(n):
-  """The mixed-radix route's plan for a side n of 2 to 1024 whose prime
-  factors are at most 13, or None: the power of two as ``FFT_PLANS``
-  splits it, then 15 for each pair of 3 and 5, 9 for each pair of 3s, and
-  the remaining 3, 5, 7, 11 and 13."""
-  if not 2 <= n <= MAX_SIZE:
-    return None
+def _prime_counts(n):
+  """{p: exponent} of n's prime factors up to 13, and the rest of n."""
   count = {}
-  rest = n
   for p in (2, 3, 5, 7, 11, 13):
     count[p] = 0
-    while rest % p == 0:
-      rest //= p
+    while n % p == 0:
+      n //= p
       count[p] += 1
+  return count, n
+
+
+@functools.lru_cache(maxsize=None)
+def mixed_plan(n):
+  """The mixed-radix plan of a line of 2 to BLOCK_LINE points whose prime
+  factors are at most 13, in at most ``MIXED_MAX_STAGES`` stages, or None:
+  the power of two as ``FFT_PLANS`` splits it, then 15 for each pair of 3
+  and 5, 9 for each pair of 3s, and the remaining 3, 5, 7, 11 and 13. The
+  mixed-radix route takes the sides to TILE_LINE; the chirp and split
+  routes run a block's line on the same plans to BLOCK_LINE."""
+  if not 2 <= n <= BLOCK_LINE:
+    return None
+  count, rest = _prime_counts(n)
   if rest != 1:
     return None
   fifteens = min(count[3], count[5])
   threes, fives = count[3] - fifteens, count[5] - fifteens
-  return (FFT_PLANS.get(1 << count[2], ()) + (15,) * fifteens +
-          (9,) * (threes // 2) + (3,) * (threes % 2) + (5,) * fives +
-          (7,) * count[7] + (11,) * count[11] + (13,) * count[13])
+  pow2 = 1 << count[2]
+  plan = (FFT_PLANS.get(pow2) or _BLOCK_POW2.get(pow2, ())) + \
+      (15,) * fifteens + (9,) * (threes // 2) + (3,) * (threes % 2) + \
+      (5,) * fives + (7,) * count[7] + (11,) * count[11] + (13,) * count[13]
+  return plan if len(plan) <= MIXED_MAX_STAGES else None
 
 
 def _code(plan):
@@ -249,17 +277,129 @@ def dft_table(n):
   return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
 
 
+def chirp_length(n):
+  """The chirp route's convolution length for a side n: the power of two
+  m ≥ 2n − 1."""
+  return 1 << (2 * n - 2).bit_length()
+
+
+def _divisors(n):
+  small = [d for d in range(1, int(n ** 0.5) + 1) if n % d == 0]
+  return sorted(set(small + [n // d for d in small]))
+
+
+@functools.lru_cache(maxsize=None)
+def _even_split(n, k):
+  """n as k radices of at most BLOCK_LINE with mixed-radix plans, the
+  largest as small as it can be (ascending), or None."""
+  if k == 1:
+    return (n,) if mixed_plan(n) else None
+  best = None
+  for d in _divisors(n):
+    if not mixed_plan(d):
+      continue
+    rest = _even_split(n // d, k - 1)
+    if rest is None or rest[0] < d:
+      continue
+    cand = (d,) + rest
+    if best is None or max(cand) < max(best):
+      best = cand
+  return best
+
+
+@functools.lru_cache(maxsize=None)
+def split_radices(n):
+  """Device stages of a line of n points whose prime factors are at most
+  13: as few radices as possible (at least two), each at most BLOCK_LINE
+  with a mixed-radix plan, their product n, as even as possible (16384 =
+  128·128, and 1280 = 32·40, 2048 = 32·64 were a line not one block's);
+  None if n has a larger prime factor."""
+  if n < 4 or _prime_counts(n)[1] != 1:
+    return None
+  k = 2
+  while True:
+    radices = _even_split(n, k)
+    if radices:
+      return radices
+    k += 1
+
+
 def axis_route(n):
   """How the kernel transforms lines of n points: ``'fft'`` (the radix
-  plans of ``FFT_PLANS``, powers of two), ``'mixed'`` (the mixed-radix
-  plans of ``mixed_plan``, the other sides whose prime factors are at most
-  13), ``'dft'`` (dense DFT lines, the sides with a larger prime factor)
-  or None (a side outside 2 to 1024)."""
-  if not 2 <= n <= MAX_SIZE:
+  plans of ``FFT_PLANS``, powers of two to TILE_LINE), ``'mixed'`` (the
+  mixed-radix plans of ``mixed_plan``, the other sides to TILE_LINE whose
+  prime factors are at most 13), ``'split'`` (longer such sides: a
+  block's line up to BLOCK_LINE, device stages above, ``axis_stages``),
+  ``'dft'`` (dense DFT lines, sides with a larger prime factor up to
+  DENSE_MAX), ``'chirp'`` (the longer ones, ``chirp_length``) or None (a
+  side below 2)."""
+  if n < 2:
     return None
-  if n in FFT_PLANS:
-    return 'fft'
-  return 'mixed' if mixed_plan(n) else 'dft'
+  if n <= TILE_LINE:
+    if n in FFT_PLANS:
+      return 'fft'
+    if mixed_plan(n):
+      return 'mixed'
+    if n <= DENSE_MAX:
+      return 'dft'
+  elif split_radices(n):
+    return 'split'
+  return 'chirp'
+
+
+def axis_length(route, n):
+  """The length of the transform a chirp or split axis of n points runs:
+  the chirp's m, or n."""
+  return chirp_length(n) if route == 'chirp' else n
+
+
+def axis_stages(route, n):
+  """The device stages of an axis on the chirp or split route: the radices
+  whose product is ``axis_length`` (one, the whole line, where it fits one
+  block: up to BLOCK_LINE with a mixed-radix plan)."""
+  length = axis_length(route, n)
+  return (length,) if length <= BLOCK_LINE and mixed_plan(length) else \
+      split_radices(length)
+
+
+def chirp_tables(n):
+  """The chirp route's tables of n, in f64 rounded once to f32: the chirp
+  ``c_j = exp(iπ·j²/n)`` (n entries, its phase π·(j² mod 2n)/n from exact
+  integers) and the transform of the padded filter ``b`` (b_j = c_j and
+  b_(m−j) = c_j for j < n, zero between) of length m = ``chirp_length(n)``,
+  divided by m: ((n, 2), (m, 2)) float32 arrays."""
+  m = chirp_length(n)
+  j = np.arange(n, dtype=np.int64)
+  c = np.exp(1j * np.pi * ((j * j) % (2 * n)) / n)
+  b = np.zeros(m, np.complex128)
+  b[:n] = c
+  b[m - n + 1:] = c[1:][::-1]
+  f = np.fft.fft(b) / m
+  return tuple(np.stack([v.real, v.imag], axis=-1).astype(np.float32)
+               for v in (c, f))
+
+
+def _block_twiddles(r):
+  """The in-block plan's twiddles of a radix r, without the padding entry
+  of a one-stage plan."""
+  plan = mixed_plan(r)
+  size = sum(int(np.prod(plan[:s])) * plan[s] for s in range(1, len(plan)))
+  return stage_twiddles(plan)[:size]
+
+
+def axis_tables(route, n):
+  """The table of an axis on the chirp or split route, as ``csrc/dc.cu``
+  reads it: on the chirp route the chirp and the filter (``chirp_tables``);
+  then each device stage's in-block twiddles (``stage_twiddles`` of its
+  radix's ``mixed_plan``) in stage order; then the device stages' own
+  twiddles, ``stage_twiddles`` of the radices (stage s ≥ 1:
+  ``[q·Ns + k] = exp(−2πi·k·q/(Ns·R_s))``)."""
+  radices = axis_stages(route, n)
+  parts = list(chirp_tables(n)) if route == 'chirp' else []
+  parts += [_block_twiddles(r) for r in radices]
+  if len(radices) > 1:
+    parts.append(stage_twiddles(radices))
+  return np.concatenate(parts)
 
 
 def dc_route(h, w):
@@ -270,29 +410,51 @@ def dc_route(h, w):
   power of two and every rank's W / S columns are a block the radix column
   pass takes (``check_cols_block``); beside any other W it takes the
   mixed-radix route with the same radices, which takes any block. None for
-  a side outside 2 to 1024."""
+  a side below 2."""
   route_h, route_w = axis_route(h), axis_route(w)
   if route_h is None or route_w is None:
     return None
-  if route_h == 'fft' and route_w != 'fft':
+  if route_h == 'fft' and w & (w - 1):
     route_h = 'mixed'
   return route_h, route_w
 
 
-_ROUTE_CODES = {'fft': 0, 'mixed': 1, 'dft': 2}
+_ROUTE_CODES = {'fft': 0, 'mixed': 1, 'dft': 2, 'chirp': 3, 'split': 4}
 
 
 def _plan_args(route, n):
-  """(route code, plan code) of ``csrc/dc.cu``'s entries."""
+  """(route code, plan code, stages) of ``csrc/dc.cu``'s entries: the plan
+  code is the radix or mixed-radix plan (one byte per stage's radix), or on
+  the chirp and split routes the transform's length; stages is None, or on
+  those routes a host array [S, R_0, plan code of R_0, ..., R_(S−1), ...]
+  of the device stages."""
+  if route in ('chirp', 'split'):
+    radices = axis_stages(route, n)
+    codes = [len(radices)]
+    for r in radices:
+      codes += [r, _code(mixed_plan(r))]
+    return (_ROUTE_CODES[route], axis_length(route, n),
+            ctypes.cast((ctypes.c_uint64 * len(codes))(*codes),
+                        ctypes.c_void_p))
   code = plan_code(n) if route == 'fft' else \
       mixed_plan_code(n) if route == 'mixed' else 0
-  return _ROUTE_CODES[route], code
+  return _ROUTE_CODES[route], code, None
+
+
+def work_elems(route, n, lines):
+  """Complex elements of the work buffer a pass of ``lines`` lines of n
+  points needs on ``route``: two buffers of ``axis_length`` points a line
+  where the transform runs on device stages, else none."""
+  if route not in ('chirp', 'split') or len(axis_stages(route, n)) == 1:
+    return 0
+  return 2 * lines * axis_length(route, n)
 
 
 @functools.lru_cache(maxsize=None)
 def _tables(route, n, device):
-  table = {'fft': fft_tables, 'mixed': mixed_tables,
-           'dft': dft_table}[route](n)
+  table = {'fft': fft_tables, 'mixed': mixed_tables, 'dft': dft_table,
+           'chirp': lambda n: axis_tables('chirp', n),
+           'split': lambda n: axis_tables('split', n)}[route](n)
   return torch.from_numpy(table).to(device)
 
 
@@ -307,19 +469,41 @@ def _check(name, t, shape, device):
     raise ValueError('dc_cuda: {} must be contiguous'.format(name))
 
 
+# The kernels count images, lines and a line's points in int32.
+INT32_LIMIT = 2 ** 31
+MAX_IMAGES = 65535          # a grid's y extent, as K2 and K3 take
+MAX_SIDE = 2 ** 29          # a chirp's m = 2^30 stays an int32 position
+
+
+def _check_ranges(name, b, h, w):
+  """Raise where an index the kernels count in int32 would overflow: 1 to
+  MAX_IMAGES images, B·H rows and B·W columns below 2^31, sides up to
+  MAX_SIDE (the chirp's length, positions of a line)."""
+  if not (1 <= b <= MAX_IMAGES and b * h < INT32_LIMIT and
+          b * w < INT32_LIMIT and max(h, w) <= MAX_SIDE):
+    raise ValueError(
+        '{}: {} images of {}x{} are over the int32 index range the kernels '
+        'count in (1 to {} images, B·H and B·W below 2^31, sides up to '
+        '2^29)'.format(name, b, h, w, MAX_IMAGES))
+
+
+def _work(route, n, lines, device):
+  """The work buffer of a pass on ``route`` (``work_elems``), or None."""
+  elems = work_elems(route, n, lines)
+  return torch.empty((elems, 2), device=device) if elems else None
+
+
+def _ptr(t):
+  return None if t is None else native.ptr(t)
+
+
 def _launch(name, x, k0, mask):
   """Check the inputs and run ``dc_forward``; ``k0`` None launches the
   no-k0 mode."""
-  if x.device.type != 'cuda':
-    raise ValueError('{} takes CUDA tensors, got {}'.format(name, x.device))
-  if x.ndim != 4 or x.shape[-1] != 2:
-    raise ValueError('{}: x must be (B, H, W, 2), got {}'.format(
-        name, tuple(x.shape)))
+  _require_cuda(name, x)
   b, h, w, _ = x.shape
-  routes = dc_route(h, w)
-  if routes is None or not 1 <= b <= 65535:
-    raise ValueError('{} takes images of sides 2 to {} and 1 to 65535 of '
-                     'them, got {}'.format(name, MAX_SIZE, tuple(x.shape)))
+  routes = _image_routes(name, h, w)
+  _check_ranges(name, b, h, w)
   _check('x', x, (b, h, w, 2), x.device)
   if k0 is not None:
     _check('k0', k0, (b, h, w, 2), x.device)
@@ -331,12 +515,13 @@ def _launch(name, x, k0, mask):
   y = torch.empty_like(x)
   scratch = torch.empty_like(x)
   route_h, route_w = routes
+  elems = max(work_elems(route_w, w, b * h), work_elems(route_h, h, b * w))
+  work = torch.empty((elems, 2), device=x.device) if elems else None
   tw_h, tw_w = _tables(route_h, h, x.device), _tables(route_w, w, x.device)
-  k0_ptr = None if k0 is None else native.ptr(k0)
   with torch.cuda.device(x.device):
     status = _lib().dc_forward(
-        native.ptr(x), k0_ptr, native.ptr(mask), native.ptr(y),
-        native.ptr(scratch), native.ptr(tw_h), native.ptr(tw_w),
+        native.ptr(x), _ptr(k0), native.ptr(mask), native.ptr(y),
+        native.ptr(scratch), _ptr(work), native.ptr(tw_h), native.ptr(tw_w),
         *_plan_args(route_h, h), *_plan_args(route_w, w), b, h, w,
         native.stream_of(x))
   native.check(status, 'dc_forward')
@@ -440,8 +625,8 @@ def _require_cuda(name, t):
 def _image_routes(name, h, w):
   routes = dc_route(h, w)
   if routes is None:
-    raise ValueError('{} takes images of sides 2 to {}, got {}x{}'.format(
-        name, MAX_SIZE, h, w))
+    raise ValueError('{} takes images of sides from 2, got {}x{}'.format(
+        name, h, w))
   return routes
 
 
@@ -455,12 +640,14 @@ def _rows_launch(name, x, height, inverse):
   _require_cuda(name, x)
   b, rows, w, _ = x.shape
   route = _image_routes(name, height, w)[1]
+  _check_ranges(name, b, max(rows, height), w)
   _check('x', x, (b, rows, w, 2), x.device)
   x = _aligned(x)
   y = torch.empty_like(x)
   tw = _tables(route, w, x.device)
+  work = _work(route, w, b * rows, x.device)
   with torch.cuda.device(x.device):
-    status = _lib().dc_rows_pass(native.ptr(x), native.ptr(y),
+    status = _lib().dc_rows_pass(native.ptr(x), native.ptr(y), _ptr(work),
                                  native.ptr(tw), *_plan_args(route, w),
                                  b * rows, w, int(inverse),
                                  native.stream_of(x))
@@ -480,10 +667,10 @@ def check_cols_block(name, w, width, route, height):
   """Raise unless a block of ``w`` of an image's ``width`` columns is one
   the column pass takes on ``route`` at ``height`` rows: on the radix route
   a block that divides the width in whole strips of ``radix_strip(height)``
-  columns (or one strip of a power of two below that); on the mixed-radix
-  and dense routes any block of 1 to ``width`` columns (``csrc/dc.cu``'s
-  ``mix_cols`` and ``dft_cols`` walk partial strips and take the block as
-  their row stride)."""
+  columns (or one strip of a power of two below that); on every other
+  route any block of 1 to ``width`` columns (``csrc/dc.cu``'s ``mix_cols``,
+  ``dft_cols``, ``block_lines`` and ``stage_lines`` walk partial strips and
+  take the block as their row stride)."""
   full = radix_strip(height)
   strip = min(w, full)
   if not 1 <= w <= width or (route == 'fft' and (
@@ -492,7 +679,7 @@ def check_cols_block(name, w, width, route, height):
         '{}: a block of {} of the image\'s {} columns; the column pass '
         'takes, on the radix route at {} rows, a block that divides the '
         'width in whole {}-column strips (or one strip of a power of two '
-        'below {}), on the mixed-radix and dense routes a block of 1 to {} '
+        'below {}), on the other routes a block of 1 to {} '
         'columns'.format(name, w, width, height, full, full, width))
 
 
@@ -502,6 +689,7 @@ def _cols_launch(name, t, k0, mask, width):
   _require_cuda(name, t)
   b, h, w, _ = t.shape
   route = _image_routes(name, h, width)[0]
+  _check_ranges(name, b, h, max(w, width))
   check_cols_block(name, w, width, route, h)
   _check('t', t, (b, h, w, 2), t.device)
   if k0 is not None:
@@ -511,10 +699,10 @@ def _cols_launch(name, t, k0, mask, width):
   t = _aligned(t)
   y = torch.empty_like(t)
   tw = _tables(route, h, t.device)
-  k0_ptr = None if k0 is None else native.ptr(k0)
+  work = _work(route, h, b * w, t.device)
   with torch.cuda.device(t.device):
-    status = _lib().dc_cols_pass(native.ptr(t), k0_ptr, native.ptr(mask),
-                                 native.ptr(y), native.ptr(tw),
+    status = _lib().dc_cols_pass(native.ptr(t), _ptr(k0), native.ptr(mask),
+                                 native.ptr(y), _ptr(work), native.ptr(tw),
                                  *_plan_args(route, h), b, h, w,
                                  native.stream_of(t))
   native.check(status, 'dc_cols_pass')

@@ -126,8 +126,13 @@ MIXED_SHAPES = {'3': (3, 3), '100': (100, 100), '192': (192, 192),
                 '480': (480, 480), '256x192': (256, 192),
                 '192x256': (192, 256), '512x320': (512, 320), '5x7': (5, 7),
                 '16x15': (16, 15), '128x24': (128, 24), '2x512': (2, 512)}
-DFT_SHAPES = {'17': (17, 17), '244': (244, 244), '509': (509, 509),
-              '240x237': (240, 237)}
+DFT_SHAPES = {'17': (17, 17), '31': (31, 31), '61': (61, 61),
+              '79': (79, 79), '64x61': (64, 61), '61x48': (61, 48)}
+# Sides with a prime factor above 13 past DENSE_MAX on Bluestein's chirp,
+# in one block a pass (m <= 4096)
+CHIRP_SHAPES = {'89': (89, 89), '127': (127, 127), '244': (244, 244),
+                '509': (509, 509), '240x237': (240, 237),
+                '368x64': (368, 64)}
 
 
 def _dc_case(cuda, shape, with_k0):
@@ -164,10 +169,22 @@ def test_dc_kernel_mixed_radix_sides(cuda, shape, with_k0):
 @pytest.mark.parametrize('shape', list(DFT_SHAPES.values()),
                          ids=list(DFT_SHAPES))
 def test_dc_kernel_dense_dft_sides(cuda, shape, with_k0):
-  """Axes with a prime factor above 13 run the kernel's dense DFT lines,
-  a root table per axis (240×237: H on the mixed-radix route, W dense):
-  K1 against dc_plain, K1-bwd against dc_plain_vjp."""
+  """Axes with a prime factor above 13 up to ``DENSE_MAX`` run the
+  kernel's dense DFT lines, a root table per axis (64×61: H on the radix
+  route's mixed-radix twin, W dense): K1 against dc_plain, K1-bwd against
+  dc_plain_vjp."""
   assert 'dft' in dc_kernel.dc_route(*shape)
+  _dc_case(cuda, shape, with_k0)
+
+
+@pytest.mark.parametrize('with_k0', [True, False], ids=['k0', 'no_k0'])
+@pytest.mark.parametrize('shape', list(CHIRP_SHAPES.values()),
+                         ids=list(CHIRP_SHAPES))
+def test_dc_kernel_chirp_sides(cuda, shape, with_k0):
+  """Axes with a prime factor above 13 past ``DENSE_MAX`` run Bluestein's
+  chirp in one block a pass (240×237: H mixed-radix, W chirp): K1 against
+  dc_plain, K1-bwd against dc_plain_vjp."""
+  assert 'chirp' in dc_kernel.dc_route(*shape)
   _dc_case(cuda, shape, with_k0)
 
 
@@ -251,26 +268,49 @@ def test_dc_passes_on_uneven_blocks_equal_the_whole_dc(cuda, shape, s, bwd):
 
 
 def test_dc_passes_raise_on_blocks_they_cannot_take(cuda):
+  """The radix column pass refuses a block that is not whole strips; a
+  row pass of any width runs (1025: the chirp route) and raises only at an
+  index range the kernels count in int32."""
   t = torch.zeros(1, 64, 24, 2, device=cuda)
   m = torch.zeros(1, 64, 24, 1, device=cuda)
   with pytest.raises(ValueError, match='a block of 24 of the image'):
     dc_kernel.dc_cols_cuda(t, t, m, 64)
-  with pytest.raises(ValueError, match='sides 2 to 1024'):
-    dc_kernel.dc_rows_fft_cuda(torch.zeros(1, 4, 1025, 2, device=cuda), 8)
+  x = torch.randn(1, 4, 1025, 2, device=cuda)
+  y = dc_kernel.dc_rows_fft_cuda(x, 8)
+  torch.cuda.synchronize()
+  assert (y - dc_kernel.dc_rows_fft_plain(x)).abs().max().item() <= 2e-4
+  with pytest.raises(ValueError, match='int32 index range'):
+    dc_kernel.dc_rows_fft_cuda(torch.zeros(65536, 1, 2, 2, device=cuda), 2)
 
 
-@pytest.mark.parametrize('shape', [(1025, 1025), (256, 1025), (1, 64)],
-                         ids=['1025', '256x1025', '1x64'])
+@pytest.mark.parametrize('shape', [(1, 64), (64, 1)], ids=['1x64', '64x1'])
 def test_dc_fused_raises_outside_the_kernel_sides(cuda, shape):
-  """A CUDA image with a side outside 2 to 1024 has no kernel route: the
-  DC raises and nothing falls back to the plain version."""
+  """A CUDA image with a side of 1 has no kernel route: the DC raises and
+  nothing falls back to the plain version."""
   h, w = shape
   x = torch.zeros(1, h, w, 2, device=cuda)
   m = torch.zeros(1, h, w, 1, device=cuda)
   before = dc_kernel.dc_cuda.launches
-  with pytest.raises(ValueError, match='sides 2 to 1024'):
+  with pytest.raises(ValueError, match='sides from 2'):
     dc_kernel.dc_fused(x, x, m)
   assert dc_kernel.dc_cuda.launches == before
+
+
+@pytest.mark.parametrize('shape', [(1025, 1025), (256, 1025)],
+                         ids=['1025', '256x1025'])
+def test_dc_fused_runs_sides_above_1024(cuda, shape):
+  """The sides that raised while the kernel stopped at 1024 run: the DC
+  launches K1 once, within 2e-4 of the plain version."""
+  h, w = shape
+  gen = torch.Generator(device=cuda).manual_seed(h + w)
+  x, k0 = (torch.randn(1, h, w, 2, device=cuda, generator=gen)
+           for _ in range(2))
+  m = (torch.rand(1, h, w, 1, device=cuda, generator=gen) > 0.5).float()
+  before = dc_kernel.dc_cuda.launches
+  y = dc_kernel.dc_fused(x, k0, m)
+  torch.cuda.synchronize()
+  assert dc_kernel.dc_cuda.launches == before + 1
+  assert (y - dc_kernel.dc_plain(x, k0, m)).abs().max().item() <= 2e-4
 
 
 @pytest.mark.parametrize('shape', [(320, 320), (384, 384), (256, 192)],
@@ -304,6 +344,16 @@ def _data_consistency_case(cuda, shape):
 
 LARGE_SHAPES = {'640': (640, 640), '768': (768, 768), '1024': (1024, 1024),
                 '640x368': (640, 368), '1021': (1021, 1021)}
+# Every route past 1024 and the chirp's sides, (B, H, W): the chirp in one
+# block (244, 509, 368, 1021, 1031), the chirp on device stages (2053,
+# 12289), the split route in one block (2048, 1280, 4096) and on device
+# stages (16384)
+ANY_SHAPES = {'244': (2, 244, 244), '509': (2, 509, 509),
+              '640x368': (2, 640, 368), '1021': (2, 1021, 1021),
+              '1031': (1, 1031, 1031), '2048': (1, 2048, 2048),
+              '1280': (1, 1280, 1280), '4096': (1, 4096, 4096),
+              '16384x16': (1, 16384, 16), '16x16384': (1, 16, 16384),
+              '12289x8': (1, 12289, 8), '2053x64': (1, 2053, 64)}
 
 
 @pytest.mark.parametrize('with_k0', [True, False], ids=['k0', 'no_k0'])
@@ -320,17 +370,77 @@ def test_dc_kernel_large_sides(cuda, shape, with_k0):
   assert getattr(dc_kernel, name).launches == before + 1
 
 
+@pytest.mark.parametrize('with_k0', [True, False], ids=['k0', 'no_k0'])
+@pytest.mark.parametrize('shape', list(ANY_SHAPES.values()),
+                         ids=list(ANY_SHAPES))
+def test_dc_kernel_any_side(cuda, shape, with_k0):
+  """K1 against dc_plain and K1-bwd against dc_plain_vjp within 2e-4 on
+  the chirp and split routes, one counted launch each."""
+  b, h, w = shape
+  gen = torch.Generator(device=cuda).manual_seed(h + w)
+  x = torch.randn(b, h, w, 2, device=cuda, generator=gen)
+  k0 = torch.randn(b, h, w, 2, device=cuda, generator=gen)
+  m = (torch.rand(b, h, w, 1, device=cuda, generator=gen) > 0.5).float()
+  name = 'dc_cuda' if with_k0 else 'dc_bwd_cuda'
+  before = getattr(dc_kernel, name).launches
+  if with_k0:
+    got = dc_kernel.dc_cuda(x, k0, m)
+    torch.cuda.synchronize()
+    want = dc_kernel.dc_plain(x, k0, m)
+  else:
+    got = dc_kernel.dc_bwd_cuda(x, m)
+    torch.cuda.synchronize()
+    want = dc_kernel.dc_plain_vjp(x, m, need_k0=False)[0]
+  assert getattr(dc_kernel, name).launches == before + 1
+  assert (got - want).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize('shape', [(2053, 16), (509, 32), (16, 16384),
+                                   (16, 2048)],
+                         ids=['chirp-stages', 'chirp-block', 'split-stages',
+                              'split-block'])
+def test_dc_routes_never_reach_torch_fft(cuda, shape, monkeypatch):
+  """With ``torch.fft`` patched to raise, K1 and K1-bwd on the chirp and
+  split routes (on device stages and in one block) launch and count: no
+  route falls back to cuFFT."""
+  h, w = shape
+  assert set(dc_kernel.dc_route(h, w)) & {'chirp', 'split'}
+  gen = torch.Generator(device=cuda).manual_seed(h * w)
+  x, k0 = (torch.randn(2, h, w, 2, device=cuda, generator=gen)
+           for _ in range(2))
+  m = (torch.rand(2, h, w, 1, device=cuda, generator=gen) > 0.5).float()
+  want = dc_kernel.dc_plain(x, k0, m)
+
+  def refuse(*args, **kwargs):
+    raise AssertionError('torch.fft reached')
+  for name in ('fft', 'ifft', 'fft2', 'ifft2', 'fftn', 'ifftn'):
+    monkeypatch.setattr(torch.fft, name, refuse)
+  before = (dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches)
+  y = dc_kernel.dc_cuda(x, k0, m)
+  dc_kernel.dc_bwd_cuda(x, m)
+  torch.cuda.synchronize()
+  assert (dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches) == \
+      (before[0] + 1, before[1] + 1)
+  monkeypatch.undo()
+  assert (y - want).abs().max().item() <= 2e-4
+
+
 @pytest.mark.parametrize('bwd', [False, True], ids=['K1', 'K1-bwd'])
 @pytest.mark.parametrize('shape,s', [((640, 640), 2), ((640, 640), 3),
                                      ((1024, 1024), 2), ((1024, 1024), 4),
-                                     ((1024, 640), 3), ((640, 368), 3)],
+                                     ((1024, 640), 3), ((640, 368), 3),
+                                     ((2048, 2048), 2), ((1031, 1031), 3),
+                                     ((2053, 96), 3), ((96, 8192), 2)],
                          ids=['640-S2', '640-S3', '1024-S2', '1024-S4',
-                              '1024x640-S3', '640x368-S3'])
+                              '1024x640-S3', '640x368-S3', '2048-S2',
+                              '1031-S3', '2053x96-S3', '96x8192-S2'])
 def test_dc_passes_on_large_blocks_equal_the_whole_dc(cuda, shape, s, bwd):
   """The passes on a rank's rows and columns above 512 (the radix route's
   8-column strips at 1024 rows, the mixed-radix route's 4-column strips,
-  uneven blocks at S = 3) give the whole-image K1's (K1-bwd's) output bit
-  for bit."""
+  uneven blocks at S = 3, the chirp route in one block at 368 and 1031
+  and on device stages at 2053, the split route in one block at 2048 and
+  on device stages at 8192) give the whole-image K1's (K1-bwd's) output
+  bit for bit."""
   h, w = shape
   gen = torch.Generator(device=cuda).manual_seed(h + w + s)
   x, k0 = (torch.randn(1, h, w, 2, device=cuda, generator=gen)
@@ -342,14 +452,15 @@ def test_dc_passes_on_large_blocks_equal_the_whole_dc(cuda, shape, s, bwd):
   assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize('size', [640, 1024])
+@pytest.mark.parametrize('size', [640, 1024, 2048])
 def test_build_flagship_above_512_on_card(cuda, size):
-  """``build_flagship`` takes sides up to 1024 on the card: a bf16 forward
-  at B = 2 through 3 K1 and 10 K2 launches, finite, its K1 launches
-  against the plain DC."""
+  """``build_flagship`` takes sides above 512 on the card: a bf16 forward
+  at B = 2 (B = 1 at 2048, the split route in one block) through 3 K1 and
+  10 K2 launches, finite, its K1 launches against the plain DC."""
+  b = 1 if size > 1024 else 2
   model, undersample_batch = build_flagship(size, torch.bfloat16, 'cuda', 0)
   gen = torch.Generator(device=cuda).manual_seed(size)
-  gt = torch.rand(2, size, size, device=cuda, generator=gen)
+  gt = torch.rand(b, size, size, device=cuda, generator=gen)
   batch = undersample_batch(gen, gt, 'varden', 8)
   calls = []
   kernel = dc_kernel.dc_cuda
@@ -370,15 +481,38 @@ def test_build_flagship_above_512_on_card(cuda, size):
     kernel.launches += recorded.launches
   assert (recorded.launches, len(calls),
           cc.conv_layer_cuda.launches - conv_before) == (3, 3, 10)
-  assert out['pred'].shape == (2, size, size, 2)
+  assert out['pred'].shape == (b, size, size, 2)
   assert bool(torch.isfinite(out['pred'].float()).all())
   for x, k0, mask, y in calls:
     assert (y - dc_kernel.dc_plain(x, k0, mask)).abs().max().item() <= 2e-4
 
 
-def test_build_flagship_refuses_sides_above_1024_on_card(cuda):
-  with pytest.raises(ValueError, match='sides up to 1024'):
-    build_flagship(1028, torch.bfloat16, 'cuda', 0)
+def test_recnet_train_step_at_1031_on_card(cuda):
+  """A RecNet train step of configs/synthetic-recnet.json's model and Adam
+  on 1031² slices, B = 2: the DC runs K1 forward and K1-bwd backward
+  through ``_DCFunction`` on the chirp route in one block (m = 4096; 3
+  launches each), the loss is finite and the parameters move."""
+  from csmri_refinement_tpu_torch.ops import undersample as us
+  from csmri_refinement_tpu_torch.training.runner import Runner
+  from csmri_refinement_tpu_torch.utils.config import Configuration
+  assert dc_kernel.dc_route(1031, 1031) == ('chirp', 'chirp')
+  conf = Configuration.from_json(os.path.join(
+      os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+      'configs', 'synthetic-recnet.json'))
+  runner = Runner(conf, 'train', cuda)
+  gen = torch.Generator().manual_seed(1031)
+  gt = torch.rand(2, 1031, 1031, generator=gen)
+  mask = masks.cartesian_mask(gen, (2, 1031, 1031), 8)
+  before = {k: v.clone() for k, v in runner.model.state_dict().items()}
+  counts = (dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches)
+  loss = runner.train_batch(us.undersample_batch(
+      None, gt.to(cuda), fixed_mask=mask.to(cuda)))[0]['loss']
+  torch.cuda.synchronize()
+  assert (dc_kernel.dc_cuda.launches - counts[0],
+          dc_kernel.dc_bwd_cuda.launches - counts[1]) == (3, 3)
+  assert torch.isfinite(loss).item()
+  assert any(not torch.equal(v, before[k])
+             for k, v in runner.model.state_dict().items())
 
 
 @pytest.mark.parametrize('shape', [(640, 368), (768, 768)],

@@ -5,11 +5,12 @@ decided on the host and replayed here, as ``tests/test_torch_port_dc_mixed.py``
 and ``tests/test_torch_port_kernel_layouts.py`` replay the sides up to 512:
 
 * the routes of every side from 513 to 1024 and of rectangles such as
-  fastMRI's 640 × 368 knee k-space (``dc_route``), and None above 1024;
+  fastMRI's 640 × 368 knee k-space (``dc_route``), and those above 1024;
 * the radix plan of 1024 and the mixed-radix plan of every side from 513
   to 1024 whose prime factors are at most 13, stage by stage in complex64
   against ``torch.fft`` within 1e-5, each within ``MIXED_MAX_STAGES``;
-* the dense route's root table on lines of 521 and 1021 points;
+* lines of 521 and 1021 points on the chirp route, which takes them (the
+  dense route keeps to small sides);
 * the whole DC at 640 × 640 and 640 × 368 on the kernel's plans (rows
   along W on W's route, columns along H on H's) against the JAX package's
   ``ops/dc.py::data_consistency`` as JAX runs it on the CPU (``fft.fft2``)
@@ -30,6 +31,7 @@ import torch
 from csmri_refinement_tpu.ops import dc as jdc
 from csmri_refinement_tpu_torch.ops import dc_kernel
 from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
+from tests.test_torch_port_dc_any_side import dc_replay, line_replay
 from tests.test_torch_port_dc_mixed import mixed_replay
 from tests.test_torch_port_kernel_layouts import _replay as radix_replay
 
@@ -50,26 +52,28 @@ def _largest_prime(n):
 
 def test_routes_of_every_side_from_513_to_1024():
   """Every side from 513 to 1024 has a route: the radix plans at 1024, the
-  mixed-radix plans where no prime factor exceeds 13, dense lines where one
-  does; no side above 1024 has one."""
+  mixed-radix plans where no prime factor exceeds 13, the chirp route
+  where one does; the sides above 1024 have one too (the split and chirp
+  routes, ``tests/test_torch_port_dc_any_side.py``)."""
   for n in range(513, 1025):
     want = 'fft' if n == 1024 else \
-        'mixed' if _largest_prime(n) <= 13 else 'dft'
+        'mixed' if _largest_prime(n) <= 13 else 'chirp'
     assert dc_kernel.axis_route(n) == want
     assert dc_kernel.dc_route(n, n) == (want, want)
-  for n in (1025, 1026, 1536, 2048):
-    assert dc_kernel.axis_route(n) is None
-    assert dc_kernel.dc_route(n, n) is None
-  assert dc_kernel.MAX_SIZE == 1024
+  for n, want in ((1025, 'chirp'), (1026, 'chirp'), (1536, 'split'),
+                  (2048, 'split')):
+    assert dc_kernel.axis_route(n) == want
+    assert dc_kernel.dc_route(n, n) == (want, want)
+  assert dc_kernel.TILE_LINE == 1024
 
 
 @pytest.mark.parametrize('h,w,want', [
-    (640, 368, ('mixed', 'dft')), (368, 640, ('dft', 'mixed')),
+    (640, 368, ('mixed', 'chirp')), (368, 640, ('chirp', 'mixed')),
     (1024, 240, ('mixed', 'mixed')), (1024, 1024, ('fft', 'fft')),
     (1024, 512, ('fft', 'fft')), (2, 1024, ('fft', 'fft')),
-    (1024, 1021, ('mixed', 'dft')), (768, 768, ('mixed', 'mixed')),
-    (1021, 1021, ('dft', 'dft')), (1025, 640, None), (640, 1025, None),
-    (1024, 1, None)])
+    (1024, 1021, ('mixed', 'chirp')), (768, 768, ('mixed', 'mixed')),
+    (1021, 1021, ('chirp', 'chirp')), (1025, 640, ('chirp', 'mixed')),
+    (640, 1025, ('mixed', 'chirp')), (1024, 1, None)])
 def test_routes_of_large_rectangles(h, w, want):
   """One route per axis; a power-of-two H keeps the radix route only
   beside a power-of-two W."""
@@ -127,50 +131,24 @@ def test_radix_plan_1024_replay_matches_torch_fft(inverse):
 
 @pytest.mark.parametrize('n', [521, 1021])
 def test_large_dft_table_lines_match_torch_fft(n):
-  """A line through the dense route at a prime side above 512: out(k) =
-  sum_j x(j) w[(j k) mod n] with the f32 roots, forward and inverse."""
-  assert dc_kernel.axis_route(n) == 'dft'
+  """A line at a prime side above 512, on the route that takes it since
+  the dense route keeps to small sides: Bluestein's chirp, replayed from
+  its host tables, forward and inverse, against ``torch.fft``."""
+  assert dc_kernel.axis_route(n) == 'chirp'
   rng = np.random.default_rng(n)
   x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
       np.complex64)
-  table = dc_kernel.dft_table(n)
-  w = (table[:, 0] + 1j * table[:, 1]).astype(np.complex64)
-  idx = np.outer(np.arange(n), np.arange(n)) % n
   t = torch.from_numpy(x.astype(np.complex128))
   for inverse in (False, True):
-    mat = np.conj(w[idx]) if inverse else w[idx]
-    got = (mat @ x) / np.sqrt(n)
+    got = line_replay(x, 'chirp', inverse)
     want = (torch.fft.ifft if inverse else torch.fft.fft)(t, norm='ortho')
     assert np.abs(got - want.numpy()).max() <= 2e-5
-
-
-def _line_replay(x, route, inverse):
-  """Lines x (..., n) complex64 through the kernel's route for n, scaled
-  by 1/sqrt(n) after the transform as the kernel scales them."""
-  n = x.shape[-1]
-  if route == 'dft':
-    table = dc_kernel.dft_table(n)
-    w = (table[:, 0] + 1j * table[:, 1]).astype(np.complex64)
-    mat = w[np.outer(np.arange(n), np.arange(n)) % n]
-    y = np.asarray(x, np.complex64) @ (np.conj(mat) if inverse else mat).T
-  else:
-    y = mixed_replay(x, inverse)
-  return y * np.float32(1 / np.sqrt(n))
 
 
 def _dc_replay(x, k0, mask):
   """K1 on the kernel's routes (``dc_route``): pass 1 along W on W's
   route, pass 2 along H on H's (merge with k0, None: zero), pass 3."""
-  b, h, w, _ = x.shape
-  route_h, route_w = dc_kernel.dc_route(h, w)
-  t = _line_replay(x[..., 0] + 1j * x[..., 1], route_w, False)
-  k = np.swapaxes(_line_replay(np.swapaxes(t, 1, 2), route_h, False), 1, 2)
-  k = (1 - mask[..., 0]) * k
-  if k0 is not None:
-    k = k + (k0[..., 0] + 1j * k0[..., 1])
-  t = np.swapaxes(_line_replay(np.swapaxes(k, 1, 2), route_h, True), 1, 2)
-  y = _line_replay(t, route_w, True)
-  return np.stack([y.real, y.imag], axis=-1).astype(np.float32)
+  return dc_replay(x, k0, mask)
 
 
 def _inputs(h, w, seed):
@@ -223,9 +201,9 @@ def test_spatial_column_blocks_of_640_take_their_route(height):
   """A 640-wide image's column blocks on S = 2 (320 each) and 3 (214, 213,
   213: ``mesh.col_bounds``) are blocks that H's route takes in the column
   pass: mixed-radix at 640 and at 1024 (a power-of-two H beside a W of no
-  power-of-two plan), dense at 368."""
+  power-of-two plan), the chirp route at 368."""
   route = dc_kernel.dc_route(height, 640)[0]
-  assert route == ('dft' if height == 368 else 'mixed')
+  assert route == ('chirp' if height == 368 else 'mixed')
   for s in (2, 3):
     bounds = mesh_lib.col_bounds(640, s)
     widths = [hi - lo for lo, hi in map(bounds.block, range(s))]

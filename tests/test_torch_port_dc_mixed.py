@@ -264,7 +264,7 @@ def test_every_rank_column_block_takes_its_route(h):
   rank's block is one that H's route (``dc_route``) takes in the column
   pass, 256×240 at S = 2 and 256×192 at S = 8 among them."""
   from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
-  for w in range(2, dc_kernel.MAX_SIZE + 1):
+  for w in range(2, dc_kernel.TILE_LINE + 1):
     route = dc_kernel.dc_route(h, w)[0]
     for s in (2, 4, 8, 16):
       if h % s or s > w:

@@ -29,7 +29,8 @@ decided on the host and can be replayed here:
   stage layout).
 * K1's routes by shape, one per axis (``dc_route``), and the dense-DFT
   route's root table (the mixed-radix route's plans are replayed in
-  ``tests/test_torch_port_dc_mixed.py``).
+  ``tests/test_torch_port_dc_mixed.py``, the chirp and split routes in
+  ``tests/test_torch_port_dc_any_side.py``).
 * K5's s8 product and K4's odd-pixel probe (``csrc/probes.cu``): the
   ``wgmma`` descriptors' layout fields (``probes/int8_prims.py::
   mma_descriptors``, ``probes/mosaic_prims.py::odd_pixel_descriptors``).
@@ -856,30 +857,38 @@ def test_f32_layout_constants_match_the_kernel():
 def test_dc_route_by_shape():
   """One route per axis, ``(route of H, route of W)``: powers of two on
   the radix plans, other sides whose prime factors are at most 13 on the
-  mixed-radix plans (``tests/test_torch_port_dc_mixed.py``), the rest on
-  dense DFT lines; a power-of-two H keeps the radix route only beside a
-  power-of-two W, and takes the mixed-radix route beside any other. Sides
-  from 2 to 1024 have a route, larger ones none."""
+  mixed-radix plans (``tests/test_torch_port_dc_mixed.py``), sides with a
+  larger prime factor on dense DFT lines up to ``DENSE_MAX`` and on the
+  chirp route above; a power-of-two H keeps the radix route only beside a
+  power-of-two W, and takes the mixed-radix route beside any other. Every
+  side from 2 has a route (``tests/test_torch_port_dc_any_side.py``), a
+  side of 1 none."""
   assert dc_kernel.dc_route(256, 256) == ('fft', 'fft')
   assert all(dc_kernel.dc_route(n, n) == ('fft', 'fft') for n in SIDES)
   for n in (3, 5, 100, 192, 240, 320, 384):
     assert dc_kernel.dc_route(n, n) == ('mixed', 'mixed')
-  for n in (17, 237, 244, 509, 511):
+  for n in (17, 31, 61, 79):
     assert dc_kernel.dc_route(n, n) == ('dft', 'dft')
+  for n in (89, 127, 237, 244, 509, 511):
+    assert dc_kernel.dc_route(n, n) == ('chirp', 'chirp')
   for h, w, want in ((256, 192, ('mixed', 'mixed')),
                      (256, 240, ('mixed', 'mixed')),
                      (512, 240, ('mixed', 'mixed')),
-                     (256, 244, ('mixed', 'dft')),
+                     (256, 244, ('mixed', 'chirp')),
                      (192, 256, ('mixed', 'fft')),
                      (256, 128, ('fft', 'fft')), (2, 512, ('fft', 'fft')),
-                     (240, 237, ('mixed', 'dft')),
+                     (240, 237, ('mixed', 'chirp')),
                      (16, 15, ('mixed', 'mixed')),
                      (128, 24, ('mixed', 'mixed')),
                      (512, 320, ('mixed', 'mixed')),
                      (1024, 1024, ('fft', 'fft')),
-                     (256, 513, ('mixed', 'dft'))):
+                     (256, 513, ('mixed', 'chirp')),
+                     (64, 17, ('mixed', 'dft')),
+                     (1025, 1025, ('chirp', 'chirp')),
+                     (256, 1025, ('mixed', 'chirp')),
+                     (16, 2048, ('fft', 'split'))):
     assert dc_kernel.dc_route(h, w) == want
-  for h, w in ((1025, 1025), (1, 1), (1, 256), (256, 1025)):
+  for h, w in ((1, 1), (1, 256), (256, 1)):
     assert dc_kernel.dc_route(h, w) is None
 
 
