@@ -47,15 +47,20 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     240² with B = 2 and 20, 320², 384², 192² and 256×192, H mixed-radix
     and W on the chirp route at 240×237, the chirp route at 244² and 509²)
     and the sides above 512 (``DC_LARGE_SHAPES``: 640² at B = 4, 768²,
-    1024², 640×368, 1021², the chirp route in one block at 1031² and on
-    device stages at 2053², the split route in one block at 2048² and
-    1280² and on device stages at 16 × 16384), then the radix route at
-    256², B = 32 and 512², B = 20 (``DC_RADIX_SHAPES``), each axis's route
-    and plan, K1 and K1-bwd against their plain versions within 2e-4 and
-    timed beside them, cuFFT's composition and the bound; the dense route
-    against the chirp route at the sides around ``DENSE_MAX``
-    (``DC_DENSE_SIDES``); the train step with TF32 off and on; the phase's
-    wall seconds;
+    1024², 640×368, 1021², the chirp route in one block at 1031² and
+    2053² and on a cluster of two blocks at 4099², the split route in one
+    block at 2048² and 1280², on a cluster of two at 3510 × 2048 and on
+    device stages at 16 × 16384, too few rows for a cluster), then the
+    radix route at 256², B = 32 and 512², B = 20 (``DC_RADIX_SHAPES``),
+    each axis's route and plan (one block, a cluster of C blocks and each
+    one's share, or device stages), K1 and K1-bwd against their plain
+    versions within 2e-4 and timed beside them, cuFFT's composition and
+    the bound; the dense route against the chirp route at the sides around
+    ``DENSE_MAX`` (``DC_DENSE_SIDES``); K1 at chirp lengths around each
+    side's (``CHIRP_LENGTH_SIDES``) beside ``dc_kernel.plan_cost``; K1 with
+    an axis a cluster holds on it and on device stages
+    (``CLUSTER_LINES_SHAPES``); the
+    train step with TF32 off and on; the phase's wall seconds;
 12. the int8 conv kernel (K3) and its requant kernel vs their plain
     versions: the quantized layers of the five flagship chains at 256²,
     B=32 (real weights, ``quantize_act`` inputs), a k3 zero-pad and a k4
@@ -316,8 +321,10 @@ CUDA toolkit. Phases, each failing loudly with a non-zero exit:
     (a) holds the bench's forward (K1 3, K2 bf16 10 counted, every launch
     of a second forward against its plain version); (c) the bench command
     with ``--extra-sizes 640 1024``, both rows read; (d) RecNet train
-    steps at 1031², B = 2 (the chirp route in one block) and 2053², B = 1
-    (on device stages), K1 and K1-bwd counted (3 each) and held to their
+    steps at 1031², B = 2 and 2053², B = 1 (the chirp route in one block,
+    ``block_lines``), 2311², B = 1 (on a cluster of two blocks,
+    ``cluster_lines``) and 3510 × 2048, B = 1 (H on the split route on a
+    cluster of two), K1 and K1-bwd counted (3 each) and held to their
     plain versions, each step timed.
 
 ``--scarseg-only`` runs phases 1, 2 and 18-23 alone (no result line).
@@ -846,15 +853,17 @@ DC_ROUTE_SHAPES = ((2, 240, 240), (20, 240, 240), (2, 320, 320),
                    (2, 240, 237), (2, 244, 244), (2, 509, 509))
 # Sides above 512 on each route: 640² (mixed-radix) at B = 4, 768²
 # (mixed-radix), 1024² (radix), fastMRI's 640 × 368 knee k-space (H
-# mixed-radix, W chirp in one block), 1021² and 1031² (chirp in one
-# block, m = 2048 and 4096; 1031² the RecNet step of phase 27 (d)), 2053²
-# (chirp on device stages, m = 8192 = 64 × 128), 2048² (split in one
-# block, phase 27 (b)'s flagship), 1280² (split in one block) and a long
-# thin image whose W takes the split route on device stages (128 × 128).
+# mixed-radix, W chirp in one block, m = 792), 1021² and 1031² (chirp in
+# one block, m = 2112; 1031² the RecNet step of phase 27 (d)),
+# 2053² (chirp in one block, m = 4160), 4099² (chirp on a cluster of two
+# blocks, m = 8320), 2048² (split in one block, phase 27 (b)'s flagship),
+# 1280² (split in one block), 3510 × 2048 (H split on a cluster of two)
+# and a long thin image whose W of 16384 a cluster of eight holds, on
+# device stages with its 16 rows (``dc_kernel.cluster_lines``).
 DC_LARGE_SHAPES = ((4, 640, 640), (2, 768, 768), (2, 1024, 1024),
                    (2, 640, 368), (2, 1021, 1021), (2, 1031, 1031),
-                   (1, 2053, 2053), (1, 2048, 2048), (1, 1280, 1280),
-                   (1, 16, 16384))
+                   (1, 2053, 2053), (1, 4099, 4099), (1, 2048, 2048),
+                   (1, 1280, 1280), (1, 3510, 2048), (1, 16, 16384))
 # Sides with a prime factor above 13 timed on the dense and the chirp
 # routes (B = 2 and 32): the evidence for ``dc_kernel.DENSE_MAX``.
 DC_DENSE_SIDES = (17, 31, 61, 67, 79, 89, 97, 109, 127)
@@ -867,40 +876,66 @@ DC_PASS_SHAPES = ((20, 120, 240), (20, 240, 120))
 DC_RADIX_SHAPES = ((32, 256, 256), (20, 512, 512))
 
 
-def route_plan(dc_kernel, route, n):
+def route_plan(dc_kernel, route, n, lines=None, cols=False):
   """An axis's route and the plan it launches with, as phase 11 prints
-  them (an earlier tree's routes by name where it lacks the plans)."""
+  them: on the chirp and split routes the transform's length, whether a
+  block, a cluster (its size and each block's share) or device stages run
+  it for images of ``lines`` lines of the axis (``cols``: the axis is H),
+  and the radices (an earlier tree's by its own functions)."""
   if route == 'fft':
     return 'fft {}'.format(dc_kernel.FFT_PLANS[n])
   if route == 'mixed':
     return 'mixed {}'.format(dc_kernel.mixed_plan(n))
-  if route == 'chirp':
-    return 'chirp m={} on {}'.format(dc_kernel.chirp_length(n),
-                                     dc_kernel.axis_stages(route, n))
-  if route == 'split':
-    return 'split {}'.format(dc_kernel.axis_stages(route, n))
-  return route
+  if route not in ('chirp', 'split'):
+    return route
+  head = 'chirp m={}'.format(dc_kernel.chirp_length(n)) if route == 'chirp' \
+      else 'split {}'.format(n)
+  if not hasattr(dc_kernel, 'axis_plan'):
+    return '{} on {}'.format(head, dc_kernel.axis_stages(route, n))
+  staged = lines is not None and hasattr(dc_kernel, 'axis_staged') and \
+      dc_kernel.axis_staged(route, n, lines, cols)
+  kind, c, plan = dc_kernel.axis_plan(route, n, *([True] if staged else []))
+  length = dc_kernel.axis_length(route, n)
+  if kind == 'block':
+    return '{} block {}'.format(head, plan)
+  if kind == 'cluster':
+    return '{} cluster of {} x {} {}'.format(head, c, length // c, plan)
+  return '{} stages {}{}'.format(head, plan, ' (few lines)' if staged else '')
+
+
+def axis_kind(dc_kernel, route, n, lines, cols):
+  """'block', 'cluster' or 'stages': how an axis of n points on the chirp
+  or split route runs for images of ``lines`` lines of it."""
+  return dc_kernel.axis_plan(
+      route, n, dc_kernel.axis_staged(route, n, lines, cols))[0]
 
 
 def dc_routes_phase(line, skip_refused=False):
   """Phase 11, K1's non-power-of-two routes, the sides above 512 and the
   radix route (``DC_ROUTE_SHAPES``, ``DC_LARGE_SHAPES``,
-  ``DC_RADIX_SHAPES``): at each shape each axis's route and plan, K1 with
-  k0 against ``dc_plain`` and K1-bwd against ``dc_plain_vjp``
-  (``F32_ATOL``), then each as device time beside its plain version,
-  cuFFT's composition and the DC's bound; then ``dc_pass_table`` and, in
-  this tree, ``dense_chirp_table``. With ``skip_refused`` (an earlier
-  tree, ``--tree``) a shape the tree's ``dc_route`` refuses is named and
-  skipped. Prints its wall seconds. Returns {'K1', 'K1-bwd': {'err': the
-  largest error where an axis takes the mixed-radix route, 'large_err':
-  the largest at a side above 512, 'chirp_err' and 'split_err' on those
-  routes, 'times': the (20, 240, 240) times, 'chirp_times' at (2, 1031,
-  1031) and 'split_times' at (1, 2048, 2048)}}."""
+  ``DC_RADIX_SHAPES``): at each shape each axis's route and plan (in one
+  block, on a cluster or on device stages), K1 with k0 against
+  ``dc_plain`` and K1-bwd against ``dc_plain_vjp`` (``F32_ATOL``), then
+  each as device time beside its plain version, cuFFT's composition and
+  the DC's bound; then ``dc_pass_table`` and, in this tree,
+  ``dense_chirp_table``, ``chirp_length_table`` and
+  ``cluster_lines_table``. With
+  ``skip_refused`` (an earlier tree, ``--tree``) a shape the tree's
+  ``dc_route`` refuses is named and skipped. Prints its wall seconds.
+  Returns {'K1', 'K1-bwd': {'err': the largest error where an axis takes
+  the mixed-radix route, 'large_err': the largest at a side above 512,
+  'chirp_err', 'split_err' on those routes, 'cluster_err' and
+  'split_cluster_err' on a cluster, 'times': the (20, 240, 240) times,
+  'chirp_times' at (2, 1031, 1031), 'cluster_times' at (1, 4099, 4099),
+  'split_times' at (1, 2048, 2048) and 'split_cluster_times' at (1, 3510,
+  2048)}}."""
   from csmri_refinement_tpu_torch.ops import dc_kernel, fft, masks
   t0 = time.perf_counter()
   out = {name: {'err': 0.0, 'large_err': 0.0, 'chirp_err': 0.0,
-                'split_err': 0.0, 'times': None, 'chirp_times': None,
-                'split_times': None}
+                'split_err': 0.0, 'cluster_err': 0.0,
+                'split_cluster_err': 0.0, 'times': None, 'chirp_times': None,
+                'split_times': None, 'cluster_times': None,
+                'split_cluster_times': None}
          for name in ('K1', 'K1-bwd')}
   for b, h, w in DC_ROUTE_SHAPES + DC_LARGE_SHAPES + DC_RADIX_SHAPES:
     if skip_refused and dc_kernel.dc_route(h, w) is None:
@@ -912,8 +947,8 @@ def dc_routes_phase(line, skip_refused=False):
     mask = masks.cartesian_mask(gen, (b, h, w), 8, device=DEVICE)
     m = mask[..., None].contiguous()
     routes = dc_kernel.dc_route(h, w)
-    plans = '{}, {}'.format(route_plan(dc_kernel, routes[0], h),
-                            route_plan(dc_kernel, routes[1], w))
+    plans = '{}, {}'.format(route_plan(dc_kernel, routes[0], h, w, True),
+                            route_plan(dc_kernel, routes[1], w, h))
     fwd = dc_kernel.dc_cuda(x, k0, m)
     bwd = dc_kernel.dc_bwd_cuda(x, m)
     sync()
@@ -946,8 +981,15 @@ def dc_routes_phase(line, skip_refused=False):
       for route in ('chirp', 'split'):
         if route in routes:
           out[name][route + '_err'] = max(out[name][route + '_err'], err)
+      if 'chirp m=' in plans and 'cluster' in plans:
+        out[name]['cluster_err'] = max(out[name]['cluster_err'], err)
+      if 'split' in plans and 'cluster' in plans:
+        out[name]['split_cluster_err'] = max(
+            out[name]['split_cluster_err'], err)
       key = {(20, 240, 240): 'times', (2, 1031, 1031): 'chirp_times',
-             (1, 2048, 2048): 'split_times'}.get((b, h, w))
+             (1, 4099, 4099): 'cluster_times',
+             (1, 2048, 2048): 'split_times',
+             (1, 3510, 2048): 'split_cluster_times'}.get((b, h, w))
       if key:
         out[name][key] = t
     require(max(errs) <= F32_ATOL,
@@ -959,6 +1001,8 @@ def dc_routes_phase(line, skip_refused=False):
   dc_pass_table(line)
   if not skip_refused:
     dense_chirp_table(line)
+    chirp_length_table(line)
+    cluster_lines_table(line)
   print('phase 11, K1\'s routes: {:.1f} s wall'.format(
       time.perf_counter() - t0))
   return out
@@ -1006,6 +1050,101 @@ def dense_chirp_table(line):
             'ms, K1-bwd {:.4f} / {:.4f} ms ({})'.format(
                 b, n, route_taken(n), cells[0], cells[2], cells[1],
                 cells[3], line))
+
+
+# (B, side) at which ``chirp_length_table`` times K1 on the chirp route
+# at chirp lengths around the side's
+CHIRP_LENGTH_SIDES = ((2, 89), (32, 127), (2, 237), (2, 244), (2, 368),
+                      (2, 509), (2, 1021), (2, 1031), (1, 2053), (1, 2311))
+
+
+def chirp_length_table(line):
+  """K1 at B × side² of ``CHIRP_LENGTH_SIDES`` on the chirp route at each
+  length m from 2·side − 1 to an eighth more whose prime factors are at
+  most 13 and that the same launch holds (one block or a cluster), its
+  plan (``dc_kernel.line_plan``) beside its ``plan_cost``, as device time
+  (the launch with ``dc_kernel.chirp_length`` replaced, uncounted), each
+  against its plain version (``F32_ATOL``): the readings that
+  ``dc_kernel.RADIX_COST`` is fitted to."""
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  taken = dc_kernel.chirp_length
+  try:
+    for b, n in CHIRP_LENGTH_SIDES:
+      gen = torch.Generator(device=DEVICE).manual_seed(SEED + b + n)
+      x = torch.randn(b, n, n, 2, device=DEVICE, generator=gen)
+      k0 = torch.randn(b, n, n, 2, device=DEVICE, generator=gen)
+      m = (torch.rand(b, n, n, 1, device=DEVICE, generator=gen) > 0.6).float()
+      want = dc_kernel.dc_plain(x, k0, m)
+      kind = dc_kernel.line_plan(taken(n), n)[0] == 1
+      cells = []
+      for length in range(2 * n - 1, (2 * n - 1) * 9 // 8 + 1):
+        held = dc_kernel._prime_counts(length)[1] == 1 and \
+            dc_kernel.line_plan(length, n)
+        if not held or (held[0] == 1) != kind:
+          continue
+        dc_kernel.chirp_length = lambda side, length=length: length
+        dc_kernel._tables.cache_clear()
+        run = lambda: dc_kernel._launch('dc', x, k0, m)
+        err = (run() - want).abs().max().item()
+        require(err <= F32_ATOL, 'K1 at {}^2 with m = {} differs from its '
+                'plain version ({:.3e})'.format(n, length, err))
+        cells.append('{} {} cost {:.0f}: {:.4f}'.format(
+            length, held, dc_kernel.plan_cost(length, held[1]),
+            graph_ms(run, 5)))
+      print('chirp lengths B{} {}^2 (taken: m = {}), ms: {} ({})'.format(
+          b, n, taken(n), '; '.join(cells), line))
+  finally:
+    dc_kernel.chirp_length = taken
+    dc_kernel._tables.cache_clear()
+
+
+# (B, H, W) at which ``cluster_lines_table`` times an axis a cluster holds
+# on the cluster and on device stages, few and many lines of it an image:
+# the chirp's 4099 as W beside 16 and 64 rows and as H beside 128 and 256
+# columns, the split's 16384 beside 16, 1024 and 2048 rows, 3510 as H
+# beside 1024 and 2048 columns
+CLUSTER_LINES_SHAPES = ((1, 16, 4099), (1, 64, 4099), (1, 4099, 128),
+                        (1, 4099, 256), (1, 16, 16384), (1, 1024, 16384),
+                        (1, 2048, 16384), (1, 3510, 1024), (1, 3510, 2048))
+
+
+def cluster_lines_table(line):
+  """K1 at ``CLUSTER_LINES_SHAPES`` with the chirp or split axis on its
+  cluster and on device stages (``dc_kernel.axis_staged`` replaced,
+  uncounted), in turns (cluster, stages, stages, cluster), as device time,
+  each against its plain version (``F32_ATOL``): where the stages are
+  faster, ``dc_kernel.cluster_lines`` sends that many lines an image to
+  them."""
+  from csmri_refinement_tpu_torch.ops import dc_kernel
+  taken = dc_kernel.axis_staged
+  try:
+    for b, h, w in CLUSTER_LINES_SHAPES:
+      gen = torch.Generator(device=DEVICE).manual_seed(SEED + b + h + w)
+      x = torch.randn(b, h, w, 2, device=DEVICE, generator=gen)
+      k0 = torch.randn(b, h, w, 2, device=DEVICE, generator=gen)
+      m = (torch.rand(b, h, w, 1, device=DEVICE, generator=gen) > 0.6).float()
+      want = dc_kernel.dc_plain(x, k0, m)
+      rule = ['stages' if taken(r, n, o, c) else 'cluster'
+              for r, n, o, c in zip(dc_kernel.dc_route(h, w), (h, w), (w, h),
+                                    (True, False))
+              if r in ('chirp', 'split') and
+              dc_kernel.axis_plan(r, n)[0] == 'cluster']
+      ms = {False: [], True: []}
+      for staged in (False, True, True, False):
+        dc_kernel.axis_staged = lambda route, n, lines, cols, s=staged: \
+            s and route in ('chirp', 'split') and \
+            dc_kernel.axis_plan(route, n)[0] == 'cluster'
+        run = lambda: dc_kernel._launch('dc', x, k0, m)
+        err = (run() - want).abs().max().item()
+        require(err <= F32_ATOL, 'K1 at {}x{} on {} differs from its plain '
+                'version ({:.3e})'.format(h, w, 'device stages' if staged
+                                          else 'a cluster', err))
+        ms[staged].append(graph_ms(run, 5))
+      print('cluster vs stages B{} {}x{} (taken: {}): cluster {:.4f} / '
+            '{:.4f} ms, stages {:.4f} / {:.4f} ms (in turns) ({})'.format(
+                b, h, w, rule[0], *ms[False], *ms[True], line))
+  finally:
+    dc_kernel.axis_staged = taken
 
 
 def dc_pass_table(line):
@@ -3914,7 +4053,7 @@ for name, artifact, feed in json.loads(sys.argv[1]):
   torch.cuda.synchronize()
   launches = (dc_kernel.dc_cuda.launches,
               conv_chain.conv_layer_f32_cuda.launches)
-  ms = timed_ms(lambda: call(batch), iters=5, warmup=1)
+  ms = timed_ms(lambda: call(batch), iters=3, warmup=1)
   cpu_call, _ = load_callable(artifact, 'cpu')
   cpu = cpu_call({k: v.cpu() for k, v in batch.items()})
   to_cpu = lambda t: {k: v.cpu() for k, v in t.items()} \
@@ -4066,8 +4205,8 @@ def dist_timings(data_dir, runs, line):
       ms = {'with': [], 'without': []}
       for turn in ('with', 'without', 'without', 'with'):
         runner = grouped if turn == 'with' else plain
-        ms[turn].append(timed_ms(lambda: runner.train_batch(batch), iters=5,
-                                 warmup=2))
+        ms[turn].append(timed_ms(lambda: runner.train_batch(batch), iters=3,
+                                 warmup=1))
       print('{} train step at {}^2 B{} (TF32 off), one-rank NCCL group: '
             'with {:.3f} / {:.3f} ms, without {:.3f} / {:.3f} ms ({:+.2f}%) '
             '({})'.format(label, SCAR_SIZE, conf.batch_size, *ms['with'],
@@ -4116,7 +4255,7 @@ def export_phase(data_dir, work, gan_conf, gan_ckpt, rec_ckpt, line):
     want = runner.predict(batch)
     wants[name] = {k: v.cpu() for k, v in want.items()} \
         if isinstance(want, dict) else {'pred': want.cpu()}
-    predict_ms[name] = timed_ms(lambda: runner.predict(batch), iters=5,
+    predict_ms[name] = timed_ms(lambda: runner.predict(batch), iters=3,
                                 warmup=1)
     feed = os.path.join(work, name + '_feed.pt')
     torch.save(batch, feed)
@@ -4257,7 +4396,7 @@ SPATIAL_BARS = {'1-recnet': (1e-5, 5e-5), '2-refinement': (1e-4, 5e-4),
 SPATIAL_DISC_ATOL, SPATIAL_BN_ATOL = 5e-4, 5e-5
 SPATIAL_PSNR_ATOL, SPATIAL_METRIC_ATOL = 1e-3, 1e-3
 SPATIAL_RTOL = 1e-5
-SPATIAL_STEPS = 3        # timed train steps per rank
+SPATIAL_STEPS = 2        # timed train steps per rank
 SPATIAL_TIMEOUT_S = 600
 GLOO_PROBES = ('all_gather', 'all_to_all', 'all_to_all_v', 'all_reduce',
                'broadcast')
@@ -5364,7 +5503,7 @@ def mode_forward_phase(line):
   ms = {mode: [] for mode in OPTION_MODES}
   with torch.inference_mode():
     for mode in OPTION_MODES + OPTION_MODES[::-1]:
-      ms[mode].append(timed_ms(lambda: models[mode](*args), iters=5,
+      ms[mode].append(timed_ms(lambda: models[mode](*args), iters=3,
                                warmup=1))
   for mode in OPTION_MODES:
     print('phase 24 (a) forward {}^2 bf16 B{} {}: {:.3f} / {:.3f} ms, {:.1f} '
@@ -5473,7 +5612,7 @@ def gan_mode_timings(line):
     ms = {mode: [] for mode in runners}
     for mode in OPTION_MODES[:2] + OPTION_MODES[1::-1]:
       ms[mode].append(timed_ms(lambda: runners[mode].train_batch(batch),
-                               iters=5, warmup=2))
+                               iters=3, warmup=1))
     for mode, v in ms.items():
       print('phase 24 (b) GAN step {}^2 B{} {} TF32 off, {}: {:.3f} / {:.3f} '
             'ms, {:.1f} slices/s (in turns) ({})'.format(
@@ -5528,7 +5667,7 @@ def seg_features_phase(line):
             'from the CPU\'s'.format(name))
     worst = max(worst, rel)
   with torch.inference_mode():
-    fwd = timed_ms(lambda: card(xc), iters=5, warmup=1)
+    fwd = timed_ms(lambda: card(xc), iters=3, warmup=1)
   print('phase 24 (c) segmentation U-Net eval f32 {}^2 B{} with '
         'use_refinement and encoder_features {}: {} K2 f32 launches, worst '
         'card-CPU {:.3e}, {:.3f} ms a forward ({})'.format(
@@ -5680,13 +5819,14 @@ BENCH_BIG, BENCH_BIG_BATCH = 512, 128  # the default 512² row's forward
 BENCH_TIMEOUT_S = 600
 # The command's runs: (label, arguments, extra rows expected). The default
 # run's rows: batch-1 latency at 256² and 512², two rows for each of the
-# four training batches, the 512² row. Every run times 4 forwards a pass
-# (10 by default) to keep the phase short.
+# four training batches, the 512² row. Every run times 2 forwards a pass
+# after 1 of warm-up (10 and 3 by default) and the GAN rows 2 steps, to
+# keep the phase short.
 BENCH_RUNS = (
     ('default', ['--latency', '--components', '--train', '--train-steps',
-                 '4', '--iters', '4'], 11),
-    ('int8', ['--dtype', 'int8', '--iters', '4'], 1),
-    ('f32', ['--dtype', 'f32', '--iters', '4'], 1),
+                 '2', '--iters', '2', '--warmup', '1'], 11),
+    ('int8', ['--dtype', 'int8', '--iters', '2', '--warmup', '1'], 1),
+    ('f32', ['--dtype', 'f32', '--iters', '2', '--warmup', '1'], 1),
     ('48', ['--image-size', str(BENCH_SMALL), '--batch-size', '4',
             '--extra-sizes'], 0),
 )
@@ -5954,10 +6094,12 @@ LARGE_TRAIN_SIZE = 640
 LARGE_TRAIN_STEPS = 3
 LARGE_FLAGSHIP_SIZE, LARGE_FLAGSHIP_BATCH = 1024, 2
 # (b)'s flagship on the split route, and (d)'s RecNet steps on the chirp
-# route (primes: 1031 in one block, m = 4096; 2053 on device stages, m =
-# 8192 = 64 × 128), (side, B)
+# route (primes: 1031 and 2053 in one block, m = 2112 and 4160; 2311, the
+# smallest side on a cluster, m = 4802 on two blocks) and with H on the
+# split route on a cluster of two (3510 rows, 2048 columns), (H, W, B)
 SPLIT_FLAGSHIP_SIZE, SPLIT_FLAGSHIP_BATCH = 2048, 1
-CHIRP_STEPS = ((1031, 2), (2053, 1))
+CHIRP_STEPS = ((1031, 1031, 2), (2053, 2053, 1), (2311, 2311, 1),
+               (3510, 2048, 1))
 LARGE_BENCH = ['--image-size', str(BENCH_SMALL), '--batch-size', '4',
                '--iters', '4', '--warmup', '1', '--extra-sizes', '640',
                '1024']
@@ -6026,21 +6168,23 @@ def large_train_phase(line, out):
 def chirp_step_phase(line, out):
   """Phase 27 (d): at each of CHIRP_STEPS a RecNet train step
   (``TRAIN_CONFIG``'s model and Adam), counters set to 0 just before and
-  read just after (3 K1 and 3 K1-bwd on the chirp route), the loss finite;
-  one more step's launches held to ``dc_plain`` (F32_ATOL) and
-  ``dc_plain_vjp`` (GRAD_ATOL); the step timed, TF32 off."""
+  read just after (3 K1 and 3 K1-bwd with H on the chirp or split route,
+  in one block or on a cluster), the loss finite; one more step's launches held to
+  ``dc_plain`` (F32_ATOL) and ``dc_plain_vjp`` (GRAD_ATOL); the step timed,
+  TF32 off."""
   from csmri_refinement_tpu_torch.ops import dc_kernel, masks
   from csmri_refinement_tpu_torch.ops import undersample as us
   from csmri_refinement_tpu_torch.training.runner import Runner
   from csmri_refinement_tpu_torch.utils.config import Configuration
-  for size, b in CHIRP_STEPS:
-    routes = dc_kernel.dc_route(size, size)
-    require(routes == ('chirp', 'chirp'), 'expected the chirp route at '
-            '{}^2, got {}'.format(size, routes))
+  for h, w, b in CHIRP_STEPS:
+    size = '{}x{}'.format(h, w)
+    routes = dc_kernel.dc_route(h, w)
+    require(routes[0] in ('chirp', 'split'), 'expected H on the chirp or '
+            'split route at {}, got {}'.format(size, routes))
     runner = Runner(Configuration.from_json(TRAIN_CONFIG), 'train', DEVICE)
-    gen = torch.Generator().manual_seed(SEED + size)
-    gt = torch.rand(b, size, size, generator=gen)
-    mask = masks.cartesian_mask(gen, (b, size, size), 8)
+    gen = torch.Generator().manual_seed(SEED + h + w)
+    gt = torch.rand(b, h, w, generator=gen)
+    mask = masks.cartesian_mask(gen, (b, h, w), 8)
     batch = us.undersample_batch(None, gt.to(DEVICE),
                                  fixed_mask=mask.to(DEVICE))
     sync()
@@ -6049,7 +6193,7 @@ def chirp_step_phase(line, out):
     sync()
     fwd, bwd = dc_kernel.dc_cuda.launches, dc_kernel.dc_bwd_cuda.launches
     require((fwd, bwd) == (3, 3), 'expected 3 K1 and 3 K1-bwd launches a '
-            'step at {}^2, got {} and {}'.format(size, fwd, bwd))
+            'step at {}, got {} and {}'.format(size, fwd, bwd))
     require(math.isfinite(loss.item()), 'the train loss is not finite')
     calls = record_dc_launches(lambda: runner.train_batch(batch))
     errs = [0.0, 0.0]
@@ -6061,21 +6205,23 @@ def chirp_step_phase(line, out):
                     .abs().max().item())
     require(len(calls['K1']) == 3 and len(calls['K1-bwd']) == 3 and
             errs[0] <= F32_ATOL and errs[1] <= GRAD_ATOL,
-            'K1 or K1-bwd at {}^2 differs from its plain version'.format(
+            'K1 or K1-bwd at {} differs from its plain version'.format(
                 size))
     del calls
     ms = timed_ms(lambda: runner.train_batch(batch), iters=5, warmup=1)
-    print('phase 27 (d) RecNet step {}^2 B{}, routes {} ({}): K1 {} and '
+    print('phase 27 (d) RecNet step {} B{}, routes {} ({}, {}): K1 {} and '
           'K1-bwd {} launches, train loss {:.6e}; a step\'s K1 and K1-bwd '
           'within {:.3e} / {:.3e} of their plain versions (tol {} / {}); '
           'step {:.3f} ms, TF32 off ({})'.format(
-              size, b, routes, route_plan(dc_kernel, 'chirp', size), fwd,
-              bwd, loss.item(), errs[0], errs[1], F32_ATOL, GRAD_ATOL, ms,
-              line))
+              size, b, routes, route_plan(dc_kernel, routes[0], h, w, True),
+              route_plan(dc_kernel, routes[1], w, h), fwd, bwd, loss.item(),
+              errs[0], errs[1], F32_ATOL, GRAD_ATOL, ms, line))
     out['k1'] += fwd + 3
     out['k1_bwd'] += bwd + 3
-    out['chirp_k1'] += fwd + 3
-    out['chirp_k1_bwd'] += bwd + 3
+    kind = axis_kind(dc_kernel, routes[0], h, w, True)
+    key = kind if routes[0] == 'chirp' else 'split_' + kind
+    out[key + '_k1'] += fwd + 3
+    out[key + '_k1_bwd'] += bwd + 3
     out['dc_err'] = max(out['dc_err'], errs[0])
     out['dc_bwd_err'] = max(out['dc_bwd_err'], errs[1])
     del runner, batch
@@ -6088,14 +6234,18 @@ def large_sides_phase(P, line):
   ``bench_forward_phase`` (counted, bit-equal to the bench's forward, every
   launch held to its plain version), (c) the bench command's extra sizes
   640 and 1024, (d) ``chirp_step_phase``. Returns the launches and errors
-  for the kernels line ('split_k1': (b)'s launches at 2048², 'chirp_k1',
-  'chirp_k1_bwd': (d)'s)."""
+  for the kernels line ('split_k1': (b)'s launches at 2048², 'block_k1',
+  'block_k1_bwd', 'cluster_k1', 'cluster_k1_bwd': (d)'s on the chirp
+  route in one block and on a cluster, 'split_cluster_k1',
+  'split_cluster_k1_bwd' on the split route on a cluster)."""
   from csmri_refinement_tpu_torch.ops import dc_kernel
   t0 = time.perf_counter()
   out = {'k1': 0, 'k1_bwd': 0, 'k2_bf16': 0, 'k2_f32': 0, 'k3': 0,
          'requant': 0, 'dc_err': 0.0, 'dc_bwd_err': 0.0, 'k2_err': 0.0,
          'f32_err': 0.0, 'k3_err': 0.0, 'requant_err': 0.0, 'split_k1': 0,
-         'chirp_k1': 0, 'chirp_k1_bwd': 0}
+         'block_k1': 0, 'block_k1_bwd': 0, 'cluster_k1': 0,
+         'cluster_k1_bwd': 0, 'split_cluster_k1': 0,
+         'split_cluster_k1_bwd': 0}
   large_train_phase(line, out)
   t1 = time.perf_counter()
   bench_forward_phase(P, LARGE_FLAGSHIP_SIZE, LARGE_FLAGSHIP_BATCH,
@@ -6123,22 +6273,34 @@ def route_entries(routes, scar, large):
   """The kernels line's entries of K1's and K1-bwd's routes past the
   radix one: the mixed-radix route's whole-image launches in phase 26's
   one-process runs at 240², the largest error of phase 11's shapes on it,
-  and phase 11's times at (20, 240, 240); the chirp route's launches of
-  phase 27 (d) (1031² and 2053²), the split route's of phase 27 (b)
-  (2048²), their largest errors in phase 11 and its times at (2, 1031,
-  1031) and (1, 2048, 2048) (no main path runs K1-bwd on the split
-  route)."""
+  and phase 11's times at (20, 240, 240); the chirp route's launches in
+  one block (``block_lines``) of phase 27 (d) (1031² and 2053²) and on a
+  cluster (``cluster_lines``, 2311²), the split route's in one block of
+  phase 27 (b) (2048²) and on a cluster of phase 27 (d) (3510 × 2048),
+  their largest errors in phase 11 and its times at (2, 1031, 1031), (1,
+  4099, 4099), (1, 2048, 2048) and (1, 3510, 2048). 'dc (chirp route)'
+  and 'dc (split route)' name the launches in one block, as they did
+  before the clusters came."""
   entries = []
   for label, name, launches, err, times in (
       ('K1', 'dc (mixed-radix route)', scar['k1_mixed'], 'err', 'times'),
       ('K1-bwd', 'dc_bwd (mixed-radix route)', scar['k1_bwd_mixed'], 'err',
        'times'),
-      ('K1', 'dc (chirp route)', large['chirp_k1'], 'chirp_err',
+      ('K1', 'dc (chirp route)', large['block_k1'], 'chirp_err',
        'chirp_times'),
-      ('K1-bwd', 'dc_bwd (chirp route)', large['chirp_k1_bwd'], 'chirp_err',
+      ('K1-bwd', 'dc_bwd (chirp route)', large['block_k1_bwd'], 'chirp_err',
        'chirp_times'),
+      ('K1', 'dc (chirp route, cluster)', large['cluster_k1'],
+       'cluster_err', 'cluster_times'),
+      ('K1-bwd', 'dc_bwd (chirp route, cluster)', large['cluster_k1_bwd'],
+       'cluster_err', 'cluster_times'),
       ('K1', 'dc (split route)', large['split_k1'], 'split_err',
-       'split_times')):
+       'split_times'),
+      ('K1', 'dc (split route, cluster)', large['split_cluster_k1'],
+       'split_cluster_err', 'split_cluster_times'),
+      ('K1-bwd', 'dc_bwd (split route, cluster)',
+       large['split_cluster_k1_bwd'], 'split_cluster_err',
+       'split_cluster_times')):
     t = routes[label][times]
     entries.append({
         'name': name, 'route': 'cuda',

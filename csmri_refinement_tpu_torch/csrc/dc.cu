@@ -51,16 +51,19 @@
 //     above; 3, 5, 7, 9, 11, 13, 15 as odd DFTs with constant roots); see
 //     "mixed-radix lines" below.
 //   * split: longer sides whose prime factors are at most 13 (1280, 2048,
-//     4096, 16384, ...): up to kBlockLine (4096) one launch a pass of
-//     block_lines, a tile of whole lines in a block on the mixed-radix
-//     stage functions; above, device stages, each a launch of stage_lines
-//     whose butterflies are whole mixed-radix lines in a block; see "device
-//     stages" below.
+//     4096, 16384, ...) and
 //   * chirp: the sides with a prime factor above 13 past 80 (89, 127,
 //     244, 368, 509, 1021, 1031, ...): Bluestein's chirp, a cyclic
-//     convolution of a power-of-two length m >= 2n - 1 on the mixed-radix
-//     stage functions, in one launch a pass of block_lines up to m =
-//     kBlockLine and on device stages above; see "Bluestein's chirp".
+//     convolution of a length m >= 2n - 1 whose prime factors are at most
+//     13 (512 for 244, 792 for 368, 2112 for 1031, 4160 for 2053: the
+//     host's cheapest plan, ops/dc_kernel.py::chirp_length); on both, one
+//     launch a pass of block_lines where a tile of lines fits a block (a
+//     chirp's m up to kBlockLine = 4628, a split line up to 3506), of
+//     cluster_lines where a line fits a thread-block cluster of up to 8
+//     blocks (4099: m = 8320 on 2 blocks; 16384 on 8) and the image has
+//     enough lines of the axis, device stages (stage_lines) otherwise; see
+//     "the chirp and split routes in one launch a pass" and "device
+//     stages" below.
 //   * dense: the sides with a prime factor above 13 up to 80
 //     (ops/dc_kernel.py::DENSE_MAX: 17, 31, 61, 79, where n^2 operations
 //     a line beat the chirp's four FFTs of m >= 2n): each output point a
@@ -76,6 +79,7 @@
 // (col_strip, mix_row_lg, mix_col_lg), so that every block fits the
 // H100's 227 KB of shared memory; the tiles up to 512 are as they were.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -84,10 +88,12 @@ namespace {
 
 constexpr int kRowThreads = 128;  // 256 measured 5% slower at B = 32, 256^2
 // The longest line of the radix, mixed-radix and dense routes' tiles
-// (ops/dc_kernel.py::TILE_LINE), and of a chirp or device-stage block's
-// line (BLOCK_LINE).
+// (ops/dc_kernel.py::TILE_LINE), of a block's line (or share of a
+// cluster's) on the chirp and split routes (BLOCK_LINE), and of a device
+// stage's radix (STAGE_LINE).
 constexpr int kTileLine = 1024;
-constexpr int kBlockLine = 4096;
+constexpr int kBlockLine = 4628;
+constexpr int kStageLine = 4096;
 
 // Columns per strip in the radix and dense column passes
 // (ops/dc_kernel.py::radix_strip): 16, and 8 above 512 rows, where a
@@ -308,6 +314,9 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 template <int N>
@@ -753,9 +762,9 @@ constexpr bool mix_radix(int r) {
 }
 
 // Decode and check a plan code: radices of the set, product n (a line of
-// at most kBlockLine points).
+// at most kStageLine points).
 bool mix_plan(int n, unsigned long long code, MixPlan* p) {
-  if (n < 2 || n > kBlockLine) return false;
+  if (n < 2 || n > kStageLine) return false;
   p->n = n;
   p->stages = 0;
   int span = 1, off = 0;
@@ -1134,24 +1143,57 @@ int mix_cols_pass(const float2* in, float2* out, const float2* k0,
 //
 // With c_j = exp(i pi j^2 / n), the DFT X_k = sum_j x_j exp(-2 pi i jk / n)
 // is X_k = conj(c_k) sum_j (x_j conj(c_j)) c_(k - j), since 2jk = j^2 + k^2
-// - (k - j)^2: a cyclic convolution of length m (a power of two >= 2n - 1)
-// of the chirped line, zero-padded to m, with the filter b (b_j = c_j for
-// 0 <= j < n and b_(m - j) = c_j for 0 < j < n, zero between). It runs as
-// FFT_m, the pointwise product with F = FFT_m(b) / m, inverse FFT_m, on
-// the mixed-radix stage functions. The inverse DFT is the forward one
+// - (k - j)^2: a cyclic convolution of length m (an m >= 2n - 1 whose
+// prime factors are at most 13 and that has a plan, chosen by
+// ops/dc_kernel.py::chirp_length) of the chirped line, zero-padded to m,
+// with the filter b (b_j = c_j for 0 <= j < n and b_(m - j) = c_j for 0 < j
+// < n, zero between). It runs as FFT_m, the pointwise product with F =
+// FFT_m(b) / m, inverse FFT_m. The inverse DFT is the forward one
 // conjugated on the way in and on the way out, so one filter serves both
-// directions. Host tables (ops/dc_kernel.py::axis_tables, f64 rounded once
-// to f32): c (n entries), F (m), then the transform's twiddles.
+// directions (so does the split route's transform).
 //
-// Up to m = kBlockLine a pass is one launch of block_lines: a tile of
-// lines (rows, or columns of a strip) in shared memory in the mixed-radix
-// layout (point e of line l at e * cs + l), two FFTs of m a direction;
-// pass 2 runs the DFT along H, the merge (1 - m) X + k0 and the inverse
-// DFT along H in the same block. The split route's lines up to kBlockLine
-// run in the same kernel with one FFT of n a direction. Above, the
-// convolution runs on device stages (stage_lines, below). What bounds it:
-// shared memory, two FFTs of m >= 2n points a line and direction where a
-// radix line does one of n.
+// --- the chirp and split routes in one launch a pass ---
+//
+// block_lines: a tile of lines (rows, or kColTile adjacent columns: 32
+// bytes of a row, one sector) in one buffer of a block's shared memory, a
+// line's transform of N points (the chirp's m, or the split side n) in
+// place: decimation in frequency (natural order in, the frequencies at
+// digit-reversed positions out, ops/dc_kernel.py::line_positions) and its
+// adjoint, decimation in time (those positions in, natural order out, the
+// unscaled inverse), one stage function per radix (line_stage). A
+// butterfly reads its R points into registers and writes its results back
+// to the same positions, so a stage needs no second buffer and one
+// barrier. The chirp's convolution never needs the natural order between
+// its two FFTs: the host hands the filter at the digit-reversed positions.
+// The split route's forward transforms leave the frequencies
+// digit-reversed, and the store (passes 1 and 3) or the merge (pass 2)
+// reads each at its position. The first stage reads its inputs from the
+// staging area, where cp.async copied the tile's n raw points while the
+// block transformed the previous tile, applies the chirp (and the
+// inverse's conjugate) there, and skips the zero padding: it neither
+// stages nor reads it. The last stage of the inverse writes device memory
+// itself, the n points a line has, with the chirp's way out, the merge or
+// the scale. Pass 2 runs the DFT along H, the merge and the inverse DFT
+// along H in the same block. Twiddles: one table of the N roots
+// exp(-2 pi i j / N) (stage s's W_(L_s)^(jk) is entry j k N / L_s); it,
+// the chirp, the filter and the positions are read through L1 (copied to
+// shared memory they were no faster on the card). A tile and its staging
+// fit kBlockSmem up to a chirp length of kBlockLine (4628) and a split
+// line of 3506 points.
+//
+// cluster_lines: a longer line is spread over the shared memory of a
+// thread-block cluster of C <= kClusterMax blocks, block r holding its
+// positions r N / C to (r + 1) N / C - 1 and raw points r ceil(n / C) on.
+// The plan's first radix is a multiple of C, so after the first stage of
+// decimation in frequency every later stage's butterflies lie in one
+// block's share: only the first stage (and the inverse's last) reads and
+// writes across the cluster, through distributed shared memory
+// (cooperative_groups::this_cluster, map_shared_rank), between two
+// cluster barriers; the rest is block_lines' code on the block's share.
+// One launch carries a whole pass, and a pass reads and writes device
+// memory once. Lines longer than a cluster holds run on device stages
+// (stage_lines, below). What bounds both: shared-memory traffic and the
+// barriers between stages, on top of a pass's bytes.
 
 // Lines of one axis in device memory: line l's point p at
 // (l / lpg) * gs + l % lpg + p * ps. Rows: lpg 1, gs the row length, ps 1;
@@ -1170,158 +1212,464 @@ __device__ __forceinline__ float2 conj2(float2 a) {
   return make_float2(a.x, -a.y);
 }
 
-constexpr int kMaxTileLines = 16;
+// The launch bound of block_lines and cluster_lines: up to 1024 threads a
+// block (line_threads), so at most 64 registers a thread, which keeps more
+// warps an SM than 128 registers and 512 threads did, spills and all
+// (timed in turns on the card).
+constexpr int kLineThreads = 1024;
+constexpr int kLineStages = 6;     // a block's 5 (BLOCK_MAX_STAGES) + 1
+constexpr int kBlockSmem = 231424; // 226 KiB (ops/dc_kernel.py::BLOCK_SMEM)
+constexpr int kColTile = 4;        // columns a column tile (COL_TILE)
+constexpr int kMaxTile = 4;        // lines a tile (rows: 1, 2 or 4)
+constexpr int kClusterMax = 8;     // blocks a cluster (CLUSTER_MAX)
 
-// Lines per tile (log2) of a block's line of r points: 8 up to 128, 4 up
-// to 512, 2 up to 2048, 1 above, so that a tile's two buffers stay under
-// 65 KB and three or four blocks share an SM (their registers allow four),
-// and a pass of a few hundred lines still fills the card. The device
-// stages' tiles of short radices hold 16 lines, so that a tile's loads and
-// stores are 128-byte runs. A line's twiddles stay in device memory, read
-// through L1 (a warp's threads read one entry at a time: lines are the
-// fastest index).
-int block_tile_lg(int r) {
-  return r <= 128 ? 3 : r <= 512 ? 2 : r <= 2048 ? 1 : 0;
-}
-int stage_tile_lg(int r) {
-  return r <= 128 ? 4 : r <= 512 ? 3 : r <= 1024 ? 2 : r <= 2048 ? 1 : 0;
-}
-
-// A tile's stride between a line's points: odd, so that staging a row's
-// neighbouring points hits every bank; one line needs none.
-__host__ __device__ inline int tile_stride(int lg) {
-  return lg ? (1 << lg) + 1 : 1;
-}
-
-// Element i of a tile of 1 << lg lines of `len` points: points fastest
-// (rows in memory), or lines fastest (columns, and device stages).
-__device__ __forceinline__ void tile_at(int i, bool points, int lg, int len,
-                                        int* l, int* e) {
-  if (points) {
-    *l = i / len;
-    *e = i - *l * len;
-  } else {
-    *l = i & ((1 << lg) - 1);
-    *e = i >> lg;
-  }
-}
-
-// The cyclic convolution of a tile with the filter: FFT_m, the product
-// with F, inverse FFT_m, between buffers a and b. Returns the buffer that
-// holds the result. Every thread of the block calls it.
-__device__ __forceinline__ float2* chirp_conv(float2* a, float2* b,
-                                              const MixPlan& p,
-                                              const float2* tw,
-                                              const float2* __restrict__ filt,
-                                              int lg, int cs) {
-  float2* f = mix_fft<false>(a, b, p, tw, lg, cs);
-  for (int i = threadIdx.x; i < (p.n << lg); i += blockDim.x) {
-    float2& v = f[(i >> lg) * cs + (i & ((1 << lg) - 1))];
-    v = cmul(v, __ldg(filt + (i >> lg)));
-  }
-  __syncthreads();
-  return mix_fft<true>(f, f == a ? b : a, p, tw, lg, cs);
-}
-
-enum LineMode { kLineFwd = 0, kLineInv = 1, kLineDc = 2 };
-
-struct BlockArgs {
-  const float2* in;
-  float2* out;          // may be `in`: a tile is read whole before written
-  const float2* k0;     // kLineDc; null: zero (K1-bwd)
-  const float* mask;    // kLineDc
-  Lines ln;
-  int n;
-  const float2* chirp;  // CHIRP: c_j, n entries
-  const float2* filt;   // CHIRP: F, m entries
-  float scale;          // 1 / sqrt(n)
+// The plan of a line in one launch: its length N, C blocks (1: a block),
+// the radices of the in-place transform.
+struct LinePlan {
+  int len, clusters, stages;
+  int radix[kLineStages];
 };
 
-// A pass on a line one block holds (the chirp route at m <= kBlockLine,
-// the split route at n <= kBlockLine): kLineFwd the DFT of each line
-// (pass 1), kLineInv the inverse DFT (pass 3), kLineDc the column pass (DFT
-// along H, merge, inverse DFT along H); each times `scale`. p is the
-// plan of the block's line (m with CHIRP, else n), tw_g its twiddles, read
-// through L1.
-template <int MODE, bool CHIRP>
-__global__ void __launch_bounds__(kMixThreads)
-block_lines(BlockArgs a, MixPlan p, const float2* __restrict__ tw_g, int lg) {
-  __shared__ MixPlan sp;
-  __shared__ long base[kMaxTileLines];
-  extern __shared__ __align__(16) float2 smem[];
-  const int m = p.n, n = a.n, tl = 1 << lg, cs = tile_stride(lg);
-  float2* buf0 = smem;
-  float2* buf1 = smem + m * cs;
-  if (threadIdx.x == 0) sp = p;
-  const bool points = a.ln.lpg == 1 && a.ln.ps == 1;
-  const long tiles = (a.ln.count + tl - 1) / tl;
-  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long l0 = tile * tl;
-    const int lines = a.ln.count - l0 < tl ? (int)(a.ln.count - l0) : tl;
-    const int x = threadIdx.x;
-    if (x < tl) base[x] = a.ln.base(l0 + (x < lines ? x : 0));
-    __syncthreads();
-    // the line (chirped and zero-padded to m on the chirp route)
-    for (int i = threadIdx.x; i < tl * m; i += blockDim.x) {
-      int l, e;
-      tile_at(i, points, lg, m, &l, &e);
-      float2 v = make_float2(0.f, 0.f);
-      if (l < lines && e < n) {
-        v = a.in[base[l] + (long)e * a.ln.ps];
-        if (CHIRP)
-          v = cmulc(MODE == kLineInv ? conj2(v) : v, __ldg(a.chirp + e));
+// A tile's padded address: a padding entry per 16 (shared-memory banks).
+__host__ __device__ __forceinline__ int tile_addr(int u) {
+  return u + (u >> 4);
+}
+
+// Shared memory (float2 entries) of a tile of 1 << lg lines of `chunk`
+// positions and the staging of `staged` raw points a line (rows: an odd
+// line stride).
+__host__ __device__ inline int line_smem(int chunk, int lg, int staged,
+                                         bool rows) {
+  const int u = chunk << lg;
+  return tile_addr(u) + ((rows ? staged | 1 : staged) << lg);
+}
+
+struct LineArgs {
+  const float2* in;
+  float2* out;          // may be `in` (pass 2): a tile is read before written
+  const float2* k0;     // pass 2; null: zero (K1-bwd)
+  const float* mask;    // pass 2
+  Lines ln;
+  int n;                // raw points a line
+  int inverse;          // passes 1 and 3: the inverse DFT
+  const float2* chirp;  // CHIRP: c_j, n entries
+  const float2* filt;   // CHIRP: F at the positions of its frequencies
+  const float2* roots;  // the N roots, device memory
+  const int* pos;       // split: the position of each frequency
+  float scale;          // 1 / sqrt(n)
+  int lg;               // log2 of the lines a tile
+  int nc;               // raw points a block stages: ceil(n / C)
+  int sline, spoint;    // staging strides of a line and of a point
+  int dc;               // pass 2
+};
+
+// The odd R-point DFT of odd_dft (the same arithmetic), each result handed
+// to emit(k, y_k) as soon as it is computed: the results never all sit in
+// registers at once beside the sums a_j, b_j.
+template <int R, bool INV, class Emit>
+__device__ __forceinline__ void odd_dft_emit(const float2 (&v)[R],
+                                             Emit emit) {
+  constexpr int H = (R - 1) / 2;
+  float2 a[H], b[H];
+  float2 y0 = v[0];
+#pragma unroll
+  for (int j = 1; j <= H; ++j) {
+    a[j - 1] = make_float2(v[j].x + v[R - j].x, v[j].y + v[R - j].y);
+    b[j - 1] = make_float2(v[j].x - v[R - j].x, v[j].y - v[R - j].y);
+    y0 = make_float2(y0.x + a[j - 1].x, y0.y + a[j - 1].y);
+  }
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float2 c = v[0];
+    float2 t = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int j = 1; j <= H; ++j) {
+      const int m = j * k % R;
+      if (m == 0) {   // R = 9 or 15: cos 1, sin 0
+        c = make_float2(c.x + a[j - 1].x, c.y + a[j - 1].y);
+        continue;
       }
-      buf0[e * cs + l] = v;
+      const float2 w = odd_root(R, m <= H ? m : R - m);
+      const float sn = m <= H ? w.y : -w.y;
+      c = make_float2(fmaf(a[j - 1].x, w.x, c.x), fmaf(a[j - 1].y, w.x, c.y));
+      t = make_float2(fmaf(b[j - 1].x, sn, t.x), fmaf(b[j - 1].y, sn, t.y));
     }
-    __syncthreads();
-    float2* f = CHIRP ? chirp_conv(buf0, buf1, sp, tw_g, a.filt, lg, cs)
-                      : mix_fft<MODE == kLineInv>(buf0, buf1, sp, tw_g, lg,
-                                                  cs);
-    if constexpr (MODE == kLineDc) {
-      // the DFT along H scaled, the merge, and on the chirp route the
-      // inverse DFT's way in: conj(merged) conj(c), zero-padded
-      for (int i = threadIdx.x; i < tl * m; i += blockDim.x) {
-        int l, e;
-        tile_at(i, points, lg, m, &l, &e);
-        float2& v = f[e * cs + l];
-        if (l < lines && e < n) {
-          const long g = base[l] + (long)e * a.ln.ps;
-          const float2 y = CHIRP ? cmulc(v, __ldg(a.chirp + e)) : v;
-          const float keep = 1.f - __ldg(a.mask + g);
-          const float2 kk = a.k0 ? __ldg(a.k0 + g) : make_float2(0.f, 0.f);
-          const float2 k = make_float2(fmaf(keep, y.x * a.scale, kk.x),
-                                       fmaf(keep, y.y * a.scale, kk.y));
-          v = CHIRP ? cmulc(conj2(k), __ldg(a.chirp + e)) : k;
-        } else {
-          v = make_float2(0.f, 0.f);
-        }
+    const float2 minus = make_float2(c.x + t.y, c.y - t.x);
+    const float2 plus = make_float2(c.x - t.y, c.y + t.x);
+    emit(k, INV ? plus : minus);
+    emit(R - k, INV ? minus : plus);
+  }
+  emit(0, y0);
+}
+
+// One stage's butterflies of radix R, from i = threadIdx.x in steps of
+// blockDim.x: line l = i mod tl, then butterfly j = j0 + (i / tl) mod mloc
+// of block blk = (i / tl) / mloc (blocks of L positions), positions p0 + q M
+// (p0 = blk L + j). DIF: the R-point DFT, then the twiddles W_L^(jk) (root
+// j k tws of the table); DIT: its adjoint, the conjugate twiddles, then the
+// inverse R-point DFT. ld(p, l) and st(p, l, v) read and write a point.
+// A DIF result's twiddle would be loaded after the store of the one
+// before, which the compiler cannot move a load past: the butterfly loads
+// W^1 to W^4 beside its points instead and forms W^(4a + b) = (W^4)^a W^b,
+// one load latency a butterfly (4099^2 on a cluster 6.25 -> 5.05 ms, 2048^2
+// 0.265 -> 0.251, the block chirp within 5%; timed in turns on the card).
+template <int R, bool DIT, class Ld, class St>
+__device__ __forceinline__ void line_stage(int count, int lg, int mloc,
+                                           int j0, int L, int M, int tws,
+                                           const float2* roots, Ld ld,
+                                           St st) {
+  // t / mloc as a multiply-high by ceil(2^32 / mloc): exact while
+  // t mloc < 2^32 (t < 2^16, mloc <= kBlockLine)
+  const unsigned inv = mloc > 1 ? 0xffffffffu / (unsigned)mloc + 1u : 0u;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const int l = i & ((1 << lg) - 1), t = i >> lg;
+    const int blk = mloc > 1 ? (int)__umulhi((unsigned)t, inv) : t;
+    const int j = j0 + t - blk * mloc;
+    const int p0 = blk * L + j;
+    const bool tw = M > 1 && j > 0;
+    float2 v[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) v[q] = ld(p0 + q * M, l);
+    if (DIT && tw) {
+#pragma unroll
+      for (int k = 1; k < R; ++k) v[k] = cmulc(v[k], roots[j * k * tws]);
+    }
+    float2 w4[4];
+    if (!DIT && tw) {
+#pragma unroll
+      for (int b = 1; b <= 4; ++b)
+        if (b < R) w4[b & 3] = roots[j * b * tws];
+    }
+    auto emit = [&](int k, float2 y) {
+      if (!DIT && tw && k) {
+        float2 w = k & 3 ? w4[k & 3] : make_float2(1.f, 0.f);
+        for (int a = 0; a < (k >> 2); ++a) w = cmul(w, w4[0]);
+        y = cmul(y, w);
       }
-      __syncthreads();
-      float2* other = f == buf0 ? buf1 : buf0;
-      f = CHIRP ? chirp_conv(f, other, sp, tw_g, a.filt, lg, cs)
-                : mix_fft<true>(f, other, sp, tw_g, lg, cs);
+      st(p0 + k * M, l, y);
+    };
+    if constexpr (R & 1) {
+      odd_dft_emit<R, DIT>(v, emit);
+    } else {
+      dft<R, DIT>(v, 0);
+#pragma unroll
+      for (int k = 0; k < R; ++k) emit(k, v[k]);
     }
-    for (int i = threadIdx.x; i < tl * n; i += blockDim.x) {
-      int l, e;
-      tile_at(i, points, lg, n, &l, &e);
-      if (l < lines) {
-        float2 y = f[e * cs + l];
-        if (CHIRP) {
-          y = cmulc(y, __ldg(a.chirp + e));
-          if (MODE != kLineFwd) y = conj2(y);
-        }
-        a.out[base[l] + (long)e * a.ln.ps] =
-            make_float2(y.x * a.scale, y.y * a.scale);
-      }
-    }
-    __syncthreads();
   }
 }
 
-// --- device stages (lines longer than a block holds) ---
+template <bool DIT, class Ld, class St>
+__device__ __forceinline__ void line_stage_r(int r, int count, int lg,
+                                             int mloc, int j0, int L, int M,
+                                             int tws, const float2* roots,
+                                             Ld ld, St st) {
+  switch (r) {
+#define CSMRI_LINE(R)                                                      \
+    case R:                                                                \
+      line_stage<R, DIT>(count, lg, mloc, j0, L, M, tws, roots, ld, st); \
+      break;
+    CSMRI_LINE(2) CSMRI_LINE(3) CSMRI_LINE(4) CSMRI_LINE(5) CSMRI_LINE(7)
+    CSMRI_LINE(8) CSMRI_LINE(9) CSMRI_LINE(11) CSMRI_LINE(13)
+    CSMRI_LINE(15) CSMRI_LINE(16)
+#undef CSMRI_LINE
+  }
+}
+
+// Threads a tile takes: 1024 above 12288 points (a column tile of 4116,
+// one block an SM), 512 above 4096, else 256 (timed in turns on the card:
+// a 1031-row column tile of 8316 points is faster on 512, 2053's of 16464
+// on 1024).
+__host__ __device__ inline int line_threads(int points) {
+  const int t = points > 12288 ? 1024 : points > 4096 ? 512 : 256;
+  return t < kLineThreads ? t : kLineThreads;
+}
+
+// A pass of the chirp or split route (a.dc: pass 2, the DFT along H, the
+// merge and the inverse DFT along H; else the DFT, or with a.inverse the
+// inverse DFT, of each line), each times a.scale, on one block a tile
+// (CLUSTER false) or a cluster of p.clusters blocks a tile.
+template <bool CHIRP, bool CLUSTER>
+__device__ __forceinline__ void lines_body(const LineArgs& a,
+                                           const LinePlan& p) {
+  __shared__ LinePlan sp;
+  __shared__ long base[2][kMaxTile];
+  __shared__ float2* rbuf[kClusterMax];
+  __shared__ float2* rstg[kClusterMax];
+  extern __shared__ __align__(16) float2 smem[];
+  namespace cg = cooperative_groups;
+  // twiddles preloaded (line_stage) where the tables sit in device memory;
+  // there the chirp's filter rides on the loads of the first stage of
+  // decimation in time, else on the stores of the last of decimation in
+  // frequency
+  const int C = CLUSTER ? p.clusters : 1;
+  const int rank = CLUSTER ? (int)cg::this_cluster().block_rank() : 0;
+  const int N = p.len, chunk = N / C, lg = a.lg, tl = 1 << lg, n = a.n;
+  const int nc = a.nc;
+  const bool dc = a.dc, rows = a.ln.ps == 1;
+  float2* buf = smem;
+  float2* stg = smem + tile_addr(chunk << lg);
+  // the tables, read through L1 (copies in shared memory were no faster)
+  const float2* roots = a.roots;
+  const float2* chirp = a.chirp;
+  const float2* filt_tab = a.filt;
+  const int* pos = a.pos;
+  if (threadIdx.x == 0) sp = p;
+  if constexpr (CLUSTER) {
+    if (threadIdx.x < C) {
+      rbuf[threadIdx.x] = cg::this_cluster().map_shared_rank(buf,
+                                                             threadIdx.x);
+      rstg[threadIdx.x] = cg::this_cluster().map_shared_rank(stg,
+                                                             threadIdx.x);
+    }
+  }
+  auto sync = [&]() {
+    if constexpr (CLUSTER)
+      cg::this_cluster().sync();
+    else
+      __syncthreads();
+  };
+  const long tiles = (a.ln.count + tl - 1) / tl;
+  const long step = CLUSTER ? gridDim.x / C : gridDim.x;
+  auto lines_of = [&](long tile) {
+    const long left = a.ln.count - tile * tl;
+    return left < tl ? (int)left : tl;
+  };
+  auto set_base = [&](long tile, int slot) {
+    const int x = threadIdx.x;
+    if (x < tl) {
+      const int lines = lines_of(tile);
+      base[slot][x] = a.ln.base(tile * tl + (x < lines ? x : lines - 1));
+    }
+  };
+  // cp.async of a tile's raw points e of this block's share into staging
+  auto stage = [&](long tile, int slot) {
+    const int e0 = rank * nc;
+    const int ec = n - e0 < nc ? n - e0 : nc;
+    const int lines = lines_of(tile);
+    if (ec <= 0) return;
+    if (rows) {
+      for (int i = threadIdx.x; i < lines * ec; i += blockDim.x) {
+        const int l = i / ec, e = i - l * ec;
+        cp_async8(stg + l * a.sline + e, a.in + base[slot][l] + e0 + e);
+      }
+    } else {
+      for (int i = threadIdx.x; i < (ec << lg); i += blockDim.x) {
+        const int l = i & (tl - 1), e = i >> lg;
+        if (l < lines)
+          cp_async8(stg + (e << lg) + l,
+                    a.in + base[slot][l] + (long)(e0 + e) * a.ln.ps);
+      }
+    }
+  };
+  // point p (of the whole line) of line l, in whichever block holds it
+  auto at = [&](int pp, int l) -> float2* {
+    if constexpr (CLUSTER) {
+      const int r = pp / chunk;
+      return rbuf[r] + tile_addr(((pp - r * chunk) << lg) | l);
+    } else {
+      return buf + tile_addr((pp << lg) | l);
+    }
+  };
+  auto mine = [&](int pp, int l) -> float2& {
+    return buf[tile_addr((pp << lg) | l)];
+  };
+  auto staged = [&](int e, int l) -> float2 {
+    const float2* s = stg;
+    if constexpr (CLUSTER) {
+      const int r = e / nc;
+      s = rstg[r];
+      e -= r * nc;
+    }
+    return s[e * a.spoint + l * a.sline];
+  };
+  const int S = p.stages;
+  const int off = rank * chunk;   // this block's first position
+  // The first stage of decimation in frequency over the whole line (j
+  // shared out over the cluster's blocks): the raw points from the
+  // staging (chirped, the inverse's conjugated), or with `from_buf` the
+  // points below n from the buffer; zeros above n.
+  bool from_buf = false;
+  auto first_ld = [&](int pp, int l) {
+    if (pp >= n) return make_float2(0.f, 0.f);
+    if (from_buf) return *at(pp, l);
+    float2 v = staged(pp, l);
+    if (a.inverse) v = conj2(v);
+    return CHIRP ? cmulc(v, chirp[pp]) : v;
+  };
+  auto set_at = [&](int pp, int l, float2 v) { *at(pp, l) = v; };
+  auto first_stage = [&]() {
+    const int r = sp.radix[0], M = N / r;
+    const int share = (M + C - 1) / C, j0 = rank * share;
+    const int mloc = M - j0 < share ? M - j0 : share;
+    if (mloc > 0)
+      line_stage_r<false>(r, mloc << lg, lg, mloc, j0, N, M, 1, roots,
+                          first_ld, set_at);
+  };
+  // The later stages on this block's share; with `filt` set (the chirp's
+  // first stage of decimation in time) the points read times the filter,
+  // loaded before the butterfly's stores
+  const float2* filt = nullptr;
+  auto get_mine = [&](int pp, int l) {
+    const float2 v = mine(pp, l);
+    return filt ? cmul(v, filt[off + pp]) : v;
+  };
+  auto set_mine = [&](int pp, int l, float2 v) { mine(pp, l) = v; };
+  auto dif_rest = [&]() {
+    int L = N / sp.radix[0];
+    for (int s = 1; s < S; ++s) {
+      const int r = sp.radix[s], M = L / r;
+      line_stage_r<false>(r, (chunk / r) << lg, lg, M, 0, L, M, N / L,
+                          roots, get_mine, set_mine);
+      __syncthreads();
+      L = M;
+    }
+    filt = nullptr;
+  };
+  // Decimation in time on this block's share, stages S - 1 to 1
+  auto dit_rest = [&]() {
+    int L = sp.radix[S - 1];
+    for (int s = S - 1; s >= 1; --s) {
+      const int r = sp.radix[s], M = L / r;
+      filt = CHIRP && s == S - 1 ? filt_tab : nullptr;
+      line_stage_r<true>(r, (chunk / r) << lg, lg, M, 0, L, M, N / L, roots,
+                         get_mine, set_mine);
+      filt = nullptr;
+      L *= sp.radix[s - 1];
+      if (s > 1) __syncthreads();
+    }
+  };
+  // The last stage of decimation in time over the whole line, its natural-
+  // order results below n handed on: kOutMerge the chirp's DFT along H
+  // merged and turned into the inverse DFT's input, back into the buffer;
+  // else (times the chirp's way out, conjugated for an inverse) to device
+  // memory.
+  enum { kOutStore = 0, kOutMerge = 1 };
+  int out_mode = kOutStore;
+  bool conj_out = false;
+  int lines = 0;
+  const long* bs = base[0];
+  auto get_at = [&](int pp, int l) { return *at(pp, l); };
+  auto last_st = [&](int pp, int l, float2 v) {
+    if (pp >= n || l >= lines) return;
+    const long g = bs[l] + (long)pp * a.ln.ps;
+    if (CHIRP) v = cmulc(v, chirp[pp]);
+    if (out_mode == kOutMerge) {
+      const float keep = 1.f - __ldg(a.mask + g);
+      const float2 kk = a.k0 ? __ldg(a.k0 + g) : make_float2(0.f, 0.f);
+      const float2 k = make_float2(fmaf(keep, v.x * a.scale, kk.x),
+                                   fmaf(keep, v.y * a.scale, kk.y));
+      *at(pp, l) = cmulc(conj2(k), chirp[pp]);
+      return;
+    }
+    if (conj_out) v = conj2(v);
+    a.out[g] = make_float2(v.x * a.scale, v.y * a.scale);
+  };
+  auto last_stage = [&]() {
+    const int r = sp.radix[0], M = N / r;
+    const int share = (M + C - 1) / C, j0 = rank * share;
+    const int mloc = M - j0 < share ? M - j0 : share;
+    if (mloc > 0)
+      line_stage_r<true>(r, mloc << lg, lg, mloc, j0, N, M, 1, roots, get_at,
+                         last_st);
+  };
+
+  long tile = CLUSTER ? blockIdx.x / C : blockIdx.x;
+  int slot = 0;
+  if (tile < tiles) set_base(tile, 0);
+  sync();
+  if (tile < tiles) stage(tile, 0);
+  cp_async_commit();
+  for (; tile < tiles; tile += step, slot ^= 1) {
+    const long next = tile + step;
+    lines = lines_of(tile);
+    bs = base[slot];
+    cp_async_wait0();
+    sync();   // the staging everywhere; the last tile's reads done
+    if (next < tiles) set_base(next, slot ^ 1);
+    from_buf = false;
+    first_stage();
+    sync();   // every share's points; the staging read
+    if (next < tiles) stage(next, slot ^ 1);
+    cp_async_commit();
+    if constexpr (CHIRP) {
+      dif_rest();
+      dit_rest();
+      sync();
+      if (dc) {
+        out_mode = kOutMerge;
+        last_stage();
+        sync();
+        from_buf = true;
+        first_stage();
+        sync();
+        dif_rest();
+        dit_rest();
+        sync();
+      }
+      out_mode = kOutStore;
+      conj_out = dc || a.inverse;
+      last_stage();
+    } else {
+      dif_rest();
+      sync();   // the frequencies at their positions, in every share
+      // this block's share of the frequencies k, at line_positions
+      if (dc) {
+        for (int i = threadIdx.x; i < (chunk << lg); i += blockDim.x) {
+          const int l = i & (tl - 1), k = off + (i >> lg);
+          if (l >= lines) continue;
+          float2* f = at(pos[k], l);
+          const long g = bs[l] + (long)k * a.ln.ps;
+          const float keep = 1.f - __ldg(a.mask + g);
+          const float2 kk = a.k0 ? __ldg(a.k0 + g) : make_float2(0.f, 0.f);
+          const float2 v = *f;
+          *f = make_float2(fmaf(keep, v.x * a.scale, kk.x),
+                           fmaf(keep, v.y * a.scale, kk.y));
+        }
+        sync();
+        dit_rest();
+        sync();
+        out_mode = kOutStore;
+        conj_out = false;
+        last_stage();
+      } else {
+        for (int i = threadIdx.x; i < (chunk << lg); i += blockDim.x) {
+          int l, k;
+          if (rows) {
+            l = i / chunk;
+            k = i - l * chunk;
+          } else {
+            l = i & (tl - 1);
+            k = i >> lg;
+          }
+          if (l >= lines) continue;
+          float2 v = *at(pos[off + k], l);
+          if (a.inverse) v = conj2(v);
+          a.out[bs[l] + (long)(off + k) * a.ln.ps] =
+              make_float2(v.x * a.scale, v.y * a.scale);
+        }
+      }
+    }
+  }
+  // no block leaves while another may read its shared memory
+  sync();
+}
+
+template <bool CHIRP>
+__global__ void __launch_bounds__(kLineThreads, 1)
+block_lines(LineArgs a, LinePlan p) {
+  lines_body<CHIRP, false>(a, p);
+}
+
+template <bool CHIRP>
+__global__ void __launch_bounds__(kLineThreads, 1)
+cluster_lines(LineArgs a, LinePlan p) {
+  lines_body<CHIRP, true>(a, p);
+}
+
+// --- device stages (lines longer than a cluster holds) ---
 //
 // A transform of N = R_0 R_1 ... R_(S-1) points (S >= 2; each R_s at most
-// kBlockLine with a mixed-radix plan; ops/dc_kernel.py::split_radices) is
+// kStageLine with a mixed-radix plan; ops/dc_kernel.py::split_radices) is
 // S launches of stage_lines, one Stockham stage each at device level:
 // butterfly j < N / R of a line reads points j + q N / R (q < R),
 // twiddles them by exp(-+2 pi i k q / (Ns R)) (k = j mod Ns, Ns = R_0 ...
@@ -1336,6 +1684,35 @@ block_lines(BlockArgs a, MixPlan p, const float2* __restrict__ tw_g, int lg) {
 // points. The pointwise steps ride on a stage: the chirp's way in on the
 // first; the filter, the chirp's way out, the merge and the scale on the
 // last. What bounds it: bytes, 16 B a point a stage through device memory.
+
+constexpr int kMaxTileLines = 16;
+
+// Butterflies a tile (log2) of a stage of radix r: 16 up to 128 (a tile's
+// loads and stores are 128-byte runs), then fewer, so that a tile's two
+// buffers stay under 65 KB. A radix's twiddles stay in device memory,
+// read through L1.
+int stage_tile_lg(int r) {
+  return r <= 128 ? 4 : r <= 512 ? 3 : r <= 1024 ? 2 : r <= 2048 ? 1 : 0;
+}
+
+// A tile's stride between a line's points: odd, so that staging a row's
+// neighbouring points hits every bank; one line needs none.
+__host__ __device__ inline int tile_stride(int lg) {
+  return lg ? (1 << lg) + 1 : 1;
+}
+
+// Element i of a tile of 1 << lg lines of `len` points: points fastest
+// (rows in memory), or lines fastest.
+__device__ __forceinline__ void tile_at(int i, bool points, int lg, int len,
+                                        int* l, int* e) {
+  if (points) {
+    *l = i / len;
+    *e = i - *l * len;
+  } else {
+    *l = i & ((1 << lg) - 1);
+    *e = i >> lg;
+  }
+}
 
 enum StageIn { kIn = 0, kInChirp = 1 };
 enum StageOut { kOut = 0, kOutFilter = 1, kOutChirp = 2, kOutMerge = 4 };
@@ -1448,21 +1825,59 @@ constexpr int kMaxDeviceStages = 8;
 
 // An axis on the chirp or split route (ops/dc_kernel.py::_plan_args,
 // axis_tables): its side n, the transform's length len (the chirp's m, or
-// n), the device stages' in-block plans and spans, and the offsets of its
-// tables: the chirp at 0 and the filter at n (chirp route), then each
+// n). In one launch a pass (stages 1): its LinePlan and its tables: the
+// chirp at 0, the filter at n and the roots at n + len (chirp route), or
+// the roots at 0 and the positions of
+// the frequencies at len, as int32 (split route). On device stages
+// (stages >= 2): each stage's in-block plan and span, and the offsets of
+// its tables: the chirp at 0 and the filter at n (chirp route), then each
 // stage's in-block twiddles, then the device twiddles of stages 1...
 struct AxisPlan {
   bool chirp;
   int n, len, stages;
+  LinePlan line;
+  long roots, pos;
   MixPlan block[kMaxDeviceStages];
   int span[kMaxDeviceStages];
   long tw_block[kMaxDeviceStages], tw_dev[kMaxDeviceStages];
 };
 
+// Decode and check a line plan: [1, C, S, R_0, ..., R_(S-1)]: 2 to
+// kLineStages radices of the set, product len; C a divisor of the first
+// radix (1: a block) up to kClusterMax, len / C at most kBlockLine; a
+// column tile and its staging within kBlockSmem.
+bool line_plan(const unsigned long long* codes, AxisPlan* ap) {
+  LinePlan& p = ap->line;
+  const unsigned long long c = codes[1], stages = codes[2];
+  if (c < 1 || c > kClusterMax || stages < 2 || stages > kLineStages)
+    return false;
+  p.len = ap->len;
+  p.clusters = (int)c;
+  p.stages = (int)stages;
+  long prod = 1;
+  for (int s = 0; s < p.stages; ++s) {
+    const unsigned long long r = codes[3 + s];
+    if (r > 16 || !mix_radix((int)r)) return false;
+    p.radix[s] = (int)r;
+    prod *= (long)r;
+    if (prod > ap->len) return false;
+  }
+  if (prod != ap->len || p.radix[0] % p.clusters || ap->len % p.clusters)
+    return false;
+  const int chunk = ap->len / p.clusters;
+  const int staged = (ap->n + p.clusters - 1) / p.clusters;
+  if (chunk > kBlockLine ||
+      line_smem(chunk, 2, staged, false) * 8 > kBlockSmem)
+    return false;
+  ap->roots = ap->chirp ? ap->n + (long)ap->len : 0;
+  ap->pos = ap->len;
+  return true;
+}
+
 // Decode and check an axis's plan: len is m >= 2n - 1 on the chirp route,
-// n on the split route; codes = [S, R_0, plan code of R_0, ...], each a
-// mixed-radix plan of its radix, their product len; one stage (a block's
-// line) up to kBlockLine, several above.
+// n on the split route; codes[0] is 1 (one launch a pass: line_plan) or
+// the number S >= 2 of device stages, [S, R_0, plan code of R_0, ...],
+// each a mixed-radix plan of its radix, their product len.
 bool axis_plan(int route, int n, unsigned long long len,
                const unsigned long long* codes, AxisPlan* ap) {
   ap->chirp = route == kChirp;
@@ -1470,17 +1885,16 @@ bool axis_plan(int route, int n, unsigned long long len,
       (ap->chirp ? len < 2ull * n - 1 : len != (unsigned long long)n))
     return false;
   const unsigned long long stages = codes[0];
-  if (stages < 1 || stages > kMaxDeviceStages ||
-      (stages > 1 && len <= kBlockLine))
-    return false;
+  if (stages < 1 || stages > kMaxDeviceStages) return false;
   ap->n = n;
   ap->len = (int)len;
   ap->stages = (int)stages;
+  if (stages == 1) return line_plan(codes, ap);
   long off = ap->chirp ? n + (long)len : 0;
   unsigned long long prod = 1;
   for (int s = 0; s < ap->stages; ++s) {
     const unsigned long long r = codes[1 + 2 * s];
-    if (r < 2 || r > kBlockLine ||
+    if (r < 2 || r > kStageLine ||
         !mix_plan((int)r, codes[2 + 2 * s], &ap->block[s]))
       return false;
     ap->span[s] = (int)prod;
@@ -1498,28 +1912,85 @@ bool axis_plan(int route, int n, unsigned long long len,
   return true;
 }
 
-// A pass of lines one block holds (block_lines), `mode` a LineMode.
-int block_launch(int mode, const AxisPlan& ap, const float2* in, float2* out,
-                 const float2* k0, const float* mask, Lines ln,
-                 const float2* tabs, float scale, cudaStream_t st) {
-  const MixPlan& p = ap.block[0];
-  const int lg = block_tile_lg(p.n), tl = 1 << lg;
-  const int smem = 2 * p.n * tile_stride(lg) * 8;
-  const BlockArgs a = {in, out, k0, mask, ln, ap.n, tabs, tabs + ap.n,
-                       scale};
-  void (*kern)(BlockArgs, MixPlan, const float2*, int) =
-      ap.chirp ? (mode == kLineFwd   ? block_lines<kLineFwd, true>
-                  : mode == kLineInv ? block_lines<kLineInv, true>
-                                     : block_lines<kLineDc, true>)
-               : (mode == kLineFwd   ? block_lines<kLineFwd, false>
-                  : mode == kLineInv ? block_lines<kLineInv, false>
-                                     : block_lines<kLineDc, false>);
-  unsigned grid = 0;
-  const int err = walk_grid(kern, kMixThreads, smem, (ln.count + tl - 1) / tl,
-                            &grid);
-  if (err) return err;
-  kern<<<grid, kMixThreads, smem, st>>>(a, p, tabs + ap.tw_block[0], lg);
+template <bool CHIRP>
+int line_launch(const LineArgs& a, const LinePlan& p, int threads, int smem,
+                long tiles, cudaStream_t st) {
+  if (p.clusters == 1) {
+    auto kern = block_lines<CHIRP>;
+    unsigned grid = 0;
+    const int err = walk_grid(kern, threads, smem, tiles, &grid);
+    if (err) return err;
+    kern<<<grid, threads, smem, st>>>(a, p);
+    return (int)cudaGetLastError();
+  }
+  auto kern = cluster_lines<CHIRP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.clusters;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // as many clusters as fit on the card at once, at most one per tile
+  cfg.gridDim = dim3(p.clusters * (unsigned)(tiles < 65535 ? tiles : 65535));
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(&fit, kern, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (fit < 1) return (int)cudaErrorInvalidConfiguration;
+  cfg.gridDim = dim3(p.clusters * (unsigned)(tiles < fit ? tiles : fit));
+  err = cudaLaunchKernelEx(&cfg, kern, a, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// A pass of lines one launch holds (block_lines, cluster_lines): the DFT of
+// each line (inverse: the inverse DFT) or with `dc` the column pass, times
+// `scale`. Rows take tiles of 4, 2 or 1 lines (at most 2048 points a
+// block, and down to one line while the pass has fewer tiles than SMs);
+// columns kColTile.
+int line_pass(const AxisPlan& ap, bool dc, bool inverse, const float2* in,
+              float2* out, const float2* k0, const float* mask, Lines ln,
+              const float2* tabs, float scale, cudaStream_t st) {
+  const LinePlan& p = ap.line;
+  const int c = p.clusters, chunk = ap.len / c;
+  const int nc = (ap.n + c - 1) / c;
+  const bool rows = ln.ps == 1;
+  int lg = 2;
+  if (rows) {
+    while (lg > 0 && (chunk << lg > 2048 || (ln.count >> lg) < sm_count() ||
+                      line_smem(chunk, lg, nc, true) * 8 > kBlockSmem))
+      --lg;
+  }
+  LineArgs a = {};
+  a.in = in;
+  a.out = out;
+  a.k0 = k0;
+  a.mask = mask;
+  a.ln = ln;
+  a.n = ap.n;
+  a.inverse = inverse;
+  a.chirp = tabs;
+  a.filt = tabs + ap.n;
+  a.roots = tabs + ap.roots;
+  a.pos = reinterpret_cast<const int*>(tabs + ap.pos);
+  a.scale = scale;
+  a.lg = lg;
+  a.nc = nc;
+  a.sline = rows ? nc | 1 : 1;
+  a.spoint = rows ? 1 : 1 << lg;
+  a.dc = dc;
+  const int threads = line_threads(chunk << lg);
+  const int smem = line_smem(chunk, lg, nc, rows) * 8;
+  const long tiles = (ln.count + (1 << lg) - 1) >> lg;
+  return ap.chirp ? line_launch<true>(a, p, threads, smem, tiles, st)
+                  : line_launch<false>(a, p, threads, smem, tiles, st);
 }
 
 // Stage s of the axis (the inverse transform's with `inv`) on a's lines.
@@ -1597,8 +2068,8 @@ int lines_rows(const AxisPlan& ap, const float2* in, float2* out,
   const float scale = ortho(ap.n);
   const Lines ln = {rows, 1, ap.n, 1};
   if (ap.stages == 1)
-    return block_launch(inverse ? kLineInv : kLineFwd, ap, in, out, nullptr,
-                        nullptr, ln, tabs, scale, st);
+    return line_pass(ap, false, inverse, in, out, nullptr, nullptr, ln, tabs,
+                     scale, st);
   if (work == nullptr) return (int)cudaErrorInvalidValue;
   const Lines wl = {rows, 1, ap.len, 1};
   return stage_dft(ap, tabs, in, out, ln, ln, wl, work, work + rows * ap.len,
@@ -1613,7 +2084,7 @@ int lines_cols(const AxisPlan& ap, const float2* in, float2* out,
   const long lines = (long)batch * w;
   const Lines ln = {lines, w, (long)h * w, w};
   if (ap.stages == 1)
-    return block_launch(kLineDc, ap, in, out, k0, mask, ln, tabs, scale, st);
+    return line_pass(ap, true, false, in, out, k0, mask, ln, tabs, scale, st);
   if (work == nullptr) return (int)cudaErrorInvalidValue;
   const Lines wl = {lines, w, (long)ap.len * w, w};
   float2* w1 = work + lines * ap.len;

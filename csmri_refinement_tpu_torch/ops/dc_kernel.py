@@ -65,16 +65,19 @@ route per axis (``dc_route``; passes 1 and 3 take W's, pass 2 H's): powers
 of two to 1024 by the radix plans compiled per side (``FFT_PLANS``), the
 other sides to 1024 whose prime factors are at most 13 (240, 320, 384, 192,
 ...) by mixed-radix plans passed at run time (``mixed_plan``), longer such
-sides (1280, 2048, 4096, 16384, ...) by those plans on a block's line up to
-4096 and on device stages above (``'split'``, ``axis_stages``), the sides
-with a larger prime factor by dense DFT lines up to ``DENSE_MAX`` (17, 31,
-61, 79) and by Bluestein's chirp (``'chirp'``) above (89, 127, 244, 368,
-509, 1031, ...): a cyclic convolution of a power-of-two length
-``chirp_length(n)``, on a block's line up to 4096 and on device stages
-above. Nothing falls back to ``torch.fft``; a CUDA tensor is refused only
-at an index range the kernels count in int32 (``_check_ranges``).
+sides (1280, 2048, 4096, 16384, ...) by the split route (``'split'``), the
+sides with a larger prime factor by dense DFT lines up to ``DENSE_MAX`` (17,
+31, 61, 79) and by Bluestein's chirp (``'chirp'``) above (89, 127, 244,
+368, 509, 1031, ...): a cyclic convolution of a 13-smooth length
+``chirp_length(n)``. The chirp and split routes run a pass in one launch
+while a line fits one block (``'block'``) or a thread-block cluster of up
+to ``CLUSTER_MAX`` blocks (``'cluster'``), and on device stages above
+(``'stages'``; ``axis_plan``). Nothing falls back to ``torch.fft``; a CUDA
+tensor is refused only at an index range the kernels count in int32
+(``_check_ranges``).
 """
 
+import bisect
 import ctypes
 import functools
 
@@ -89,10 +92,27 @@ from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
 # The longest line of the radix, mixed-radix and dense routes' tiles
 # (``csrc/dc.cu``'s ``kTileLine``).
 TILE_LINE = 1024
-# The longest line one block of the chirp and split routes holds in shared
-# memory (``kBlockLine``): one launch a pass up to it (the chirp's m, the
-# split route's n), device stages above, each radix at most it.
-BLOCK_LINE = 4096
+# The chirp and split routes' lines in one launch a pass (``csrc/dc.cu``'s
+# ``block_lines`` and ``cluster_lines``): a tile of lines of at most
+# BLOCK_LINE points a block (the line, or a cluster block's share of it),
+# held in place in one buffer beside the staging of the next tile's raw
+# points, in BLOCK_SMEM bytes of shared memory (``tile_bytes``; the H100's
+# 227 KiB less 1 KiB for the kernel's static arrays). A column tile holds
+# COL_TILE adjacent columns, 32 bytes of a row: one sector. BLOCK_LINE is
+# the longest chirp length m whose column tile and staging (m / 2 raw
+# points a line) fit: 4628 (231,400 bytes); a split line, whose staging is
+# as long as its line, fits one block up to 3506 points. A longer line is
+# spread over a cluster of up to CLUSTER_MAX blocks (the portable cluster
+# size), each holding BLOCK_LINE points at most; in-block plans take up to
+# BLOCK_MAX_STAGES radices, a cluster's one more.
+BLOCK_LINE = 4628
+BLOCK_SMEM = 231424
+COL_TILE = 4
+CLUSTER_MAX = 8
+BLOCK_MAX_STAGES = 5
+# The radices of the device stages (``stage_lines``, lines longer than a
+# cluster holds): each a line one block transforms on a mixed-radix plan.
+STAGE_LINE = 4096
 # The longest side with a prime factor above 13 that takes dense DFT lines:
 # up to it the dense route's n² a line is faster on the card than the
 # chirp's four FFTs of m ≥ 2n points (``chip_smoke.py`` phase 11).
@@ -197,13 +217,15 @@ def _prime_counts(n):
 
 
 @functools.lru_cache(maxsize=None)
-def mixed_plan(n):
+def mixed_plan(n, stages=MIXED_MAX_STAGES):
   """The mixed-radix plan of a line of 2 to BLOCK_LINE points whose prime
-  factors are at most 13, in at most ``MIXED_MAX_STAGES`` stages, or None:
-  the power of two as ``FFT_PLANS`` splits it, then 15 for each pair of 3
-  and 5, 9 for each pair of 3s, and the remaining 3, 5, 7, 11 and 13. The
-  mixed-radix route takes the sides to TILE_LINE; the chirp and split
-  routes run a block's line on the same plans to BLOCK_LINE."""
+  factors are at most 13, in at most ``stages`` stages, or None: the power
+  of two as ``FFT_PLANS`` splits it, then 15 for each pair of 3 and 5, 9
+  for each pair of 3s, and the remaining 3, 5, 7, 11 and 13. The
+  mixed-radix route takes the sides to TILE_LINE in ``MIXED_MAX_STAGES``;
+  the chirp and split routes run a block's line on the same radices in up
+  to ``BLOCK_MAX_STAGES`` (``block_plan``), the device stages in
+  ``MIXED_MAX_STAGES``."""
   if not 2 <= n <= BLOCK_LINE:
     return None
   count, rest = _prime_counts(n)
@@ -215,7 +237,43 @@ def mixed_plan(n):
   plan = (FFT_PLANS.get(pow2) or _BLOCK_POW2.get(pow2, ())) + \
       (15,) * fifteens + (9,) * (threes // 2) + (3,) * (threes % 2) + \
       (5,) * fives + (7,) * count[7] + (11,) * count[11] + (13,) * count[13]
-  return plan if len(plan) <= MIXED_MAX_STAGES else None
+  return plan if len(plan) <= stages else None
+
+
+def block_plan(n):
+  """The radices of a block's in-place transform of n points: those of
+  ``mixed_plan`` in up to ``BLOCK_MAX_STAGES``, smallest first, or None.
+  The first stage (which reads the staged raw points) and the inverse's
+  last (which writes device memory) then hold the fewest points; on the
+  card that was as fast or faster at 11 of 13 sides timed (1280² 0.1224 →
+  0.1052 ms, 1021² 0.4011 → 0.3529)."""
+  plan = mixed_plan(n, BLOCK_MAX_STAGES)
+  return tuple(sorted(plan)) if plan else None
+
+
+# The relative time a point of a stage of each radix takes in one launch
+# (``csrc/dc.cu``'s ``line_stage``, ascending plans), fitted to K1's times
+# on the card at 107 chirp lengths of 9 sides in one block (phase 11's
+# ``chirp_length_table`` in ``chip_smoke.py`` prints them): the odd DFTs'
+# work grows as R², and 15 and 16 points spill registers. On a cluster the
+# first stage, which reads and writes across its blocks, costs more a
+# point (``cluster_first_cost``, fitted to 28 lengths of 2311).
+RADIX_COST = {2: 0.7, 3: 0.7, 4: 0.9, 5: 0.9, 7: 1.0, 8: 1.0, 9: 1.25,
+              11: 1.3, 13: 1.5, 15: 2.1, 16: 1.7}
+
+
+def plan_cost(length, plan, clusters=1):
+  """The modelled time of a line transform of ``length`` points on
+  ``plan`` (on ``clusters`` blocks): ``length`` times the sum of its
+  radices' ``RADIX_COST`` and, on a cluster, the first radix's
+  ``cluster_first_cost``."""
+  extra = cluster_first_cost(plan[0]) if clusters > 1 else 0.0
+  return length * (sum(RADIX_COST[r] for r in plan) + extra)
+
+
+def cluster_first_cost(r):
+  """The cost a point of a cluster's first stage of radix r adds."""
+  return 0.0 if r == 2 else 0.5 if r <= 7 else 1.0
 
 
 def _code(plan):
@@ -277,10 +335,84 @@ def dft_table(n):
   return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
 
 
+def _smooth(n):
+  return _prime_counts(n)[1] == 1
+
+
+def tile_bytes(points, staged, lines=COL_TILE):
+  """Shared memory of a tile of ``lines`` lines of ``points`` points (one
+  buffer, a padding entry per 16) and the staging of ``staged`` raw points
+  a line: what ``csrc/dc.cu``'s ``line_smem`` gives a column tile."""
+  u = points * lines
+  return 8 * (u + (u >> 4)) + 8 * staged * lines
+
+
+def line_plan(length, n):
+  """How one launch a pass holds a transform of ``length`` points of lines
+  of n raw points: ``(1, plan)`` where a column tile fits one block
+  (``block_plan``, ``tile_bytes`` within BLOCK_SMEM); else ``(C, plan)``
+  over a cluster of C ≤ CLUSTER_MAX blocks, each holding ``length / C``
+  positions and ``ceil(n / C)`` raw points, whose first radix is a
+  multiple of C (that stage's butterflies read and write across the
+  cluster, the others stay in a block); else None. The smallest C, then
+  the first radix whose plan costs least (``plan_cost``)."""
+  plan = block_plan(length)
+  if plan and tile_bytes(length, n) <= BLOCK_SMEM:
+    return 1, plan
+  for c in range(2, CLUSTER_MAX + 1):
+    if length % c or length // c > BLOCK_LINE or \
+        tile_bytes(length // c, -(-n // c)) > BLOCK_SMEM:
+      continue
+    plans = [(r0,) + block_plan(length // r0) for r0 in MIXED_RADICES
+             if r0 % c == 0 and length % r0 == 0 and block_plan(length // r0)]
+    if plans:
+      return c, min(plans, key=lambda q: plan_cost(length, q, c))
+  return None
+
+
+@functools.lru_cache(maxsize=None)
+def _smooth_lengths():
+  """The lengths up to CLUSTER_MAX·BLOCK_LINE whose prime factors are at
+  most 13, ascending."""
+  limit = CLUSTER_MAX * BLOCK_LINE
+  lengths = {1}
+  for p in (2, 3, 5, 7, 11, 13):
+    grown = set()
+    for v in lengths:
+      while v <= limit:
+        grown.add(v)
+        v *= p
+    lengths = grown
+  return sorted(lengths)
+
+
+@functools.lru_cache(maxsize=None)
 def chirp_length(n):
-  """The chirp route's convolution length for a side n: the power of two
-  m ≥ 2n − 1."""
-  return 1 << (2 * n - 2).bit_length()
+  """The chirp route's convolution length for a side n: of the m from 2n −
+  1 to twice that whose prime factors are at most 13 and that
+  one launch a pass holds (``line_plan``: up to CLUSTER_MAX·BLOCK_LINE)
+  as the least such m does, in one block or on a cluster, the one whose
+  plan costs least (``plan_cost``: 512 = 8·8·8 for 244, not 490 =
+  2·5·7·7); else the least such m with device stages
+  (``split_radices``)."""
+  lo = 2 * n - 1
+  hi = min(2 * lo, CLUSTER_MAX * BLOCK_LINE)
+  best = kind = None
+  smooth = _smooth_lengths()
+  for m in smooth[bisect.bisect_left(smooth, lo):
+                  bisect.bisect_right(smooth, hi)]:
+    held = line_plan(m, n)
+    if not held or kind not in (None, held[0] == 1):
+      continue
+    kind = held[0] == 1
+    if best is None or plan_cost(m, held[1], held[0]) < plan_cost(*best):
+      best = m, held[1], held[0]
+  if best:
+    return best[0]
+  m = 2 * n - 1
+  while not (_smooth(m) and split_radices(m)):
+    m += 1
+  return m
 
 
 def _divisors(n):
@@ -290,13 +422,13 @@ def _divisors(n):
 
 @functools.lru_cache(maxsize=None)
 def _even_split(n, k):
-  """n as k radices of at most BLOCK_LINE with mixed-radix plans, the
+  """n as k radices of at most STAGE_LINE with mixed-radix plans, the
   largest as small as it can be (ascending), or None."""
   if k == 1:
-    return (n,) if mixed_plan(n) else None
+    return (n,) if n <= STAGE_LINE and mixed_plan(n) else None
   best = None
   for d in _divisors(n):
-    if not mixed_plan(d):
+    if d > STAGE_LINE or not mixed_plan(d):
       continue
     rest = _even_split(n // d, k - 1)
     if rest is None or rest[0] < d:
@@ -310,11 +442,10 @@ def _even_split(n, k):
 @functools.lru_cache(maxsize=None)
 def split_radices(n):
   """Device stages of a line of n points whose prime factors are at most
-  13: as few radices as possible (at least two), each at most BLOCK_LINE
+  13: as few radices as possible (at least two), each at most STAGE_LINE
   with a mixed-radix plan, their product n, as even as possible (16384 =
-  128·128, and 1280 = 32·40, 2048 = 32·64 were a line not one block's);
-  None if n has a larger prime factor."""
-  if n < 4 or _prime_counts(n)[1] != 1:
+  128·128, 32768 = 128·256); None if n has a larger prime factor."""
+  if n < 4 or not _smooth(n):
     return None
   k = 2
   while True:
@@ -328,11 +459,10 @@ def axis_route(n):
   """How the kernel transforms lines of n points: ``'fft'`` (the radix
   plans of ``FFT_PLANS``, powers of two to TILE_LINE), ``'mixed'`` (the
   mixed-radix plans of ``mixed_plan``, the other sides to TILE_LINE whose
-  prime factors are at most 13), ``'split'`` (longer such sides: a
-  block's line up to BLOCK_LINE, device stages above, ``axis_stages``),
-  ``'dft'`` (dense DFT lines, sides with a larger prime factor up to
-  DENSE_MAX), ``'chirp'`` (the longer ones, ``chirp_length``) or None (a
-  side below 2)."""
+  prime factors are at most 13), ``'split'`` (longer such sides,
+  ``axis_plan``), ``'dft'`` (dense DFT lines, sides with a larger prime
+  factor up to DENSE_MAX), ``'chirp'`` (the longer ones, ``chirp_length``)
+  or None (a side below 2)."""
   if n < 2:
     return None
   if n <= TILE_LINE:
@@ -353,13 +483,67 @@ def axis_length(route, n):
   return chirp_length(n) if route == 'chirp' else n
 
 
-def axis_stages(route, n):
-  """The device stages of an axis on the chirp or split route: the radices
-  whose product is ``axis_length`` (one, the whole line, where it fits one
-  block: up to BLOCK_LINE with a mixed-radix plan)."""
+def axis_plan(route, n, staged=False):
+  """How a chirp or split axis of n points runs a pass: ``('block', 1,
+  plan)`` or ``('cluster', C, plan)`` in one launch (``line_plan``), or
+  ``('stages', None, radices)`` on device stages (``split_radices``), one
+  launch a radix and direction: where no cluster holds the line, or with
+  ``staged`` (``axis_staged``) where a cluster would."""
   length = axis_length(route, n)
-  return (length,) if length <= BLOCK_LINE and mixed_plan(length) else \
-      split_radices(length)
+  held = line_plan(length, n)
+  if held and not (staged and held[0] > 1 and split_radices(length)):
+    return ('block' if held[0] == 1 else 'cluster',) + held
+  return 'stages', None, split_radices(length)
+
+
+def cluster_lines(route, c, cols):
+  """The fewest lines of an axis an image needs (its other side) to take
+  a cluster of c blocks, fewer running on device stages: 512·c on the
+  split route, on the chirp route 128·c columns (pass 2) or 32·c rows
+  (passes 1 and 3). Timed on the card (``chip_smoke.py``'s
+  ``cluster_lines_table``): the device stages were faster for 4099 beside
+  16 rows or 128 columns (c = 2) and for 16384 beside 16 to 2048 rows (c =
+  8; 16 × 16384: 0.0366 against 0.0518 ms), the cluster for 4099 beside 64
+  rows or 256 columns and for 3510 beside 1024 or 2048 columns (c =
+  2)."""
+  return (512 if route == 'split' else 128 if cols else 32) * c
+
+
+def axis_staged(route, n, lines, cols):
+  """Whether an axis of n points runs on device stages although a cluster
+  holds its line: on the chirp or split route, where the image has fewer
+  lines of it than ``cluster_lines`` (``lines``: the image's other side;
+  ``cols``: the axis is H, pass 2). An image's lines, not the batch's or
+  a spatial rank's, so that every rank and batch takes the same plan and
+  gets the same bits."""
+  if route not in ('chirp', 'split'):
+    return False
+  kind, c, _ = axis_plan(route, n)
+  return kind == 'cluster' and lines < cluster_lines(route, c, cols)
+
+
+def axis_stages(route, n, staged=False):
+  """The device stages of a chirp or split axis: one (the whole transform,
+  ``axis_length``) where a block or a cluster holds it, else the radices
+  of ``split_radices``."""
+  kind, _, plan = axis_plan(route, n, staged)
+  return plan if kind == 'stages' else (axis_length(route, n),)
+
+
+def line_positions(plan):
+  """Where the in-place transform of ``plan`` (decimation in frequency,
+  ``csrc/dc.cu``'s ``dif_stage``) leaves each frequency: an int64 array,
+  ``pos[k]``. With k = d_0 + R_0·(d_1 + R_1·(d_2 + ...)), pos[k] = Σ d_s·M_s,
+  M_s = N / (R_0⋯R_s): the digits of k reversed."""
+  n = int(np.prod(plan))
+  k = np.arange(n, dtype=np.int64)
+  pos = np.zeros(n, np.int64)
+  rest = n
+  for r in plan:
+    rest //= r
+    pos += (k % r) * rest
+    k //= r
+  return pos
 
 
 def chirp_tables(n):
@@ -387,18 +571,39 @@ def _block_twiddles(r):
   return stage_twiddles(plan)[:size]
 
 
-def axis_tables(route, n):
+def _int_entries(v):
+  """int32 values as (entries, 2) float32 bit patterns, two an entry."""
+  v = np.asarray(v, np.int32)
+  if len(v) % 2:
+    v = np.append(v, np.int32(0))
+  return v.view(np.float32).reshape(-1, 2)
+
+
+def axis_tables(route, n, staged=False):
   """The table of an axis on the chirp or split route, as ``csrc/dc.cu``
-  reads it: on the chirp route the chirp and the filter (``chirp_tables``);
-  then each device stage's in-block twiddles (``stage_twiddles`` of its
-  radix's ``mixed_plan``) in stage order; then the device stages' own
-  twiddles, ``stage_twiddles`` of the radices (stage s ≥ 1:
-  ``[q·Ns + k] = exp(−2πi·k·q/(Ns·R_s))``)."""
-  radices = axis_stages(route, n)
+  reads it. In one launch a pass (``axis_plan``: block or cluster): on the
+  chirp route the chirp (n entries), the filter's transform (m) at the
+  positions where the in-place transform leaves each frequency
+  (``line_positions``), then the roots of the transform's length
+  (``dft_table``); on the split route the roots, then ``line_positions``
+  as int32 (two an entry). On device stages: the chirp and the filter in
+  natural order (chirp route), each device stage's in-block twiddles
+  (``stage_twiddles`` of its radix's ``mixed_plan``) in stage order, then
+  the device stages' own twiddles, ``stage_twiddles`` of the radices
+  (stage s ≥ 1: ``[q·Ns + k] = exp(−2πi·k·q/(Ns·R_s))``)."""
+  kind, _, plan = axis_plan(route, n, staged)
+  length = axis_length(route, n)
+  if kind != 'stages':
+    pos = line_positions(plan)
+    if route == 'split':
+      return np.concatenate([dft_table(length), _int_entries(pos)])
+    c, f = chirp_tables(n)
+    fp = np.empty_like(f)
+    fp[pos] = f
+    return np.concatenate([c, fp, dft_table(length)])
   parts = list(chirp_tables(n)) if route == 'chirp' else []
-  parts += [_block_twiddles(r) for r in radices]
-  if len(radices) > 1:
-    parts.append(stage_twiddles(radices))
+  parts += [_block_twiddles(r) for r in plan]
+  parts.append(stage_twiddles(plan))
   return np.concatenate(parts)
 
 
@@ -422,17 +627,21 @@ def dc_route(h, w):
 _ROUTE_CODES = {'fft': 0, 'mixed': 1, 'dft': 2, 'chirp': 3, 'split': 4}
 
 
-def _plan_args(route, n):
+def _plan_args(route, n, staged=False):
   """(route code, plan code, stages) of ``csrc/dc.cu``'s entries: the plan
   code is the radix or mixed-radix plan (one byte per stage's radix), or on
   the chirp and split routes the transform's length; stages is None, or on
-  those routes a host array [S, R_0, plan code of R_0, ..., R_(S−1), ...]
-  of the device stages."""
+  those routes a host array: in one launch a pass [1, C, S, R_0, ...,
+  R_(S−1)], on device stages [S, R_0, plan code of R_0, ..., R_(S−1), ...]
+  (``axis_plan``)."""
   if route in ('chirp', 'split'):
-    radices = axis_stages(route, n)
-    codes = [len(radices)]
-    for r in radices:
-      codes += [r, _code(mixed_plan(r))]
+    kind, c, plan = axis_plan(route, n, staged)
+    if kind == 'stages':
+      codes = [len(plan)]
+      for r in plan:
+        codes += [r, _code(mixed_plan(r))]
+    else:
+      codes = [1, c, len(plan)] + list(plan)
     return (_ROUTE_CODES[route], axis_length(route, n),
             ctypes.cast((ctypes.c_uint64 * len(codes))(*codes),
                         ctypes.c_void_p))
@@ -441,20 +650,21 @@ def _plan_args(route, n):
   return _ROUTE_CODES[route], code, None
 
 
-def work_elems(route, n, lines):
+def work_elems(route, n, lines, staged=False):
   """Complex elements of the work buffer a pass of ``lines`` lines of n
   points needs on ``route``: two buffers of ``axis_length`` points a line
   where the transform runs on device stages, else none."""
-  if route not in ('chirp', 'split') or len(axis_stages(route, n)) == 1:
+  if route not in ('chirp', 'split') or \
+      axis_plan(route, n, staged)[0] != 'stages':
     return 0
   return 2 * lines * axis_length(route, n)
 
 
 @functools.lru_cache(maxsize=None)
-def _tables(route, n, device):
+def _tables(route, n, device, staged=False):
   table = {'fft': fft_tables, 'mixed': mixed_tables, 'dft': dft_table,
-           'chirp': lambda n: axis_tables('chirp', n),
-           'split': lambda n: axis_tables('split', n)}[route](n)
+           'chirp': lambda n: axis_tables('chirp', n, staged),
+           'split': lambda n: axis_tables('split', n, staged)}[route](n)
   return torch.from_numpy(table).to(device)
 
 
@@ -487,9 +697,9 @@ def _check_ranges(name, b, h, w):
         '2^29)'.format(name, b, h, w, MAX_IMAGES))
 
 
-def _work(route, n, lines, device):
+def _work(route, n, lines, staged, device):
   """The work buffer of a pass on ``route`` (``work_elems``), or None."""
-  elems = work_elems(route, n, lines)
+  elems = work_elems(route, n, lines, staged)
   return torch.empty((elems, 2), device=device) if elems else None
 
 
@@ -515,15 +725,19 @@ def _launch(name, x, k0, mask):
   y = torch.empty_like(x)
   scratch = torch.empty_like(x)
   route_h, route_w = routes
-  elems = max(work_elems(route_w, w, b * h), work_elems(route_h, h, b * w))
+  staged_h = axis_staged(route_h, h, w, True)
+  staged_w = axis_staged(route_w, w, h, False)
+  elems = max(work_elems(route_w, w, b * h, staged_w),
+              work_elems(route_h, h, b * w, staged_h))
   work = torch.empty((elems, 2), device=x.device) if elems else None
-  tw_h, tw_w = _tables(route_h, h, x.device), _tables(route_w, w, x.device)
+  tw_h = _tables(route_h, h, x.device, staged_h)
+  tw_w = _tables(route_w, w, x.device, staged_w)
   with torch.cuda.device(x.device):
     status = _lib().dc_forward(
         native.ptr(x), _ptr(k0), native.ptr(mask), native.ptr(y),
         native.ptr(scratch), _ptr(work), native.ptr(tw_h), native.ptr(tw_w),
-        *_plan_args(route_h, h), *_plan_args(route_w, w), b, h, w,
-        native.stream_of(x))
+        *_plan_args(route_h, h, staged_h), *_plan_args(route_w, w, staged_w),
+        b, h, w, native.stream_of(x))
   native.check(status, 'dc_forward')
   return y
 
@@ -644,11 +858,13 @@ def _rows_launch(name, x, height, inverse):
   _check('x', x, (b, rows, w, 2), x.device)
   x = _aligned(x)
   y = torch.empty_like(x)
-  tw = _tables(route, w, x.device)
-  work = _work(route, w, b * rows, x.device)
+  staged = axis_staged(route, w, height, False)
+  tw = _tables(route, w, x.device, staged)
+  work = _work(route, w, b * rows, staged, x.device)
   with torch.cuda.device(x.device):
     status = _lib().dc_rows_pass(native.ptr(x), native.ptr(y), _ptr(work),
-                                 native.ptr(tw), *_plan_args(route, w),
+                                 native.ptr(tw),
+                                 *_plan_args(route, w, staged),
                                  b * rows, w, int(inverse),
                                  native.stream_of(x))
   native.check(status, 'dc_rows_pass')
@@ -698,12 +914,13 @@ def _cols_launch(name, t, k0, mask, width):
   _check('mask', mask, (b, h, w, 1), t.device)
   t = _aligned(t)
   y = torch.empty_like(t)
-  tw = _tables(route, h, t.device)
-  work = _work(route, h, b * w, t.device)
+  staged = axis_staged(route, h, width, True)
+  tw = _tables(route, h, t.device, staged)
+  work = _work(route, h, b * w, staged, t.device)
   with torch.cuda.device(t.device):
     status = _lib().dc_cols_pass(native.ptr(t), _ptr(k0), native.ptr(mask),
                                  native.ptr(y), _ptr(work), native.ptr(tw),
-                                 *_plan_args(route, h), b, h, w,
+                                 *_plan_args(route, h, staged), b, h, w,
                                  native.stream_of(t))
   native.check(status, 'dc_cols_pass')
   return y

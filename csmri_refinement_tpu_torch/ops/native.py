@@ -27,6 +27,11 @@ KERNELS = ('dc', 'conv_chain', 'conv_f32', 'conv_int8', 'probes')
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
+# Flags of one source: dc.cu's kernels optimised in parallel threads (its
+# line kernels inline a stage function per radix four times over): built
+# alone on an H100 machine's 8 cores in 55.3 s instead of 122.9
+# (chip_smoke.py --dc-routes-only), its kernels no slower.
+SOURCE_FLAGS = {'dc': ('--split-compile=0',)}
 
 _LIBS = {}
 _LOCK = threading.Lock()
@@ -43,9 +48,13 @@ def _nvcc():
                      'machine with the CUDA toolkit')
 
 
+def _flags(name):
+  return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _lib_path(name):
   src = os.path.join(CSRC_DIR, name + '.cu')
-  digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+  digest = hashlib.sha256(' '.join(_flags(name)).encode())
   for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh'))):
     with open(path, 'rb') as f:
       digest.update(f.read())
@@ -68,7 +77,7 @@ def build(names=KERNELS):
       report[name] = (0.0, '')
       continue
     tmp = '{}.{}.tmp'.format(out, os.getpid())
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, src]
+    cmd = [_nvcc(), *_flags(name), '-o', tmp, src]
     procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True),
                    tmp, out, time.perf_counter())

@@ -129,7 +129,7 @@ MIXED_SHAPES = {'3': (3, 3), '100': (100, 100), '192': (192, 192),
 DFT_SHAPES = {'17': (17, 17), '31': (31, 31), '61': (61, 61),
               '79': (79, 79), '64x61': (64, 61), '61x48': (61, 48)}
 # Sides with a prime factor above 13 past DENSE_MAX on Bluestein's chirp,
-# in one block a pass (m <= 4096)
+# in one block a pass (m up to 4628)
 CHIRP_SHAPES = {'89': (89, 89), '127': (127, 127), '244': (244, 244),
                 '509': (509, 509), '240x237': (240, 237),
                 '368x64': (368, 64)}
@@ -296,11 +296,17 @@ def test_dc_fused_raises_outside_the_kernel_sides(cuda, shape):
   assert dc_kernel.dc_cuda.launches == before
 
 
-@pytest.mark.parametrize('shape', [(1025, 1025), (256, 1025)],
-                         ids=['1025', '256x1025'])
+@pytest.mark.parametrize('shape', [(1025, 1025), (256, 1025), (2053, 64),
+                                   (4099, 16), (16, 16384), (256, 4099),
+                                   (4096, 16384)],
+                         ids=['1025', '256x1025', '2053x64', '4099x16',
+                              '16x16384', '256x4099', '4096x16384'])
 def test_dc_fused_runs_sides_above_1024(cuda, shape):
-  """The sides that raised while the kernel stopped at 1024 run: the DC
-  launches K1 once, within 2e-4 of the plain version."""
+  """The sides that raised while the kernel stopped at 1024 run, in one
+  block (1025, 2053: m = 4160), on a cluster (4099 beside 256 rows: m =
+  8320; 16384 beside 4096) and on device stages (4099 beside 16 columns,
+  16384 beside 16 rows: too few lines for a cluster): the DC launches K1
+  once, within 2e-4 of the plain version."""
   h, w = shape
   gen = torch.Generator(device=cuda).manual_seed(h + w)
   x, k0 = (torch.randn(1, h, w, 2, device=cuda, generator=gen)
@@ -345,15 +351,30 @@ def _data_consistency_case(cuda, shape):
 LARGE_SHAPES = {'640': (640, 640), '768': (768, 768), '1024': (1024, 1024),
                 '640x368': (640, 368), '1021': (1021, 1021)}
 # Every route past 1024 and the chirp's sides, (B, H, W): the chirp in one
-# block (244, 509, 368, 1021, 1031), the chirp on device stages (2053,
-# 12289), the split route in one block (2048, 1280, 4096) and on device
-# stages (16384)
+# block (244, 509, 368, 1021, 1031, 2053: m = 4160, and the largest, 2309:
+# m = 4620), on a cluster (the smallest, 2311: m = 4802 on 2 blocks; 4099:
+# 8320 on 2; 12289: 25088 on 7; the largest, 18479: 36960 on 8, each
+# beside enough lines: dc_kernel.cluster_lines) and on device stages past
+# it (18481) or beside too few lines (16 × 2311, 12289 × 8, 18479 × 4);
+# the split route in one block (2048, 1280, the largest, 3500), on a
+# cluster (the smallest, 3510; 4096 on 2; 16384 and the largest, 28000,
+# on 8) and on device stages (32768, and 16384, 3510 and 28000 beside too
+# few lines)
 ANY_SHAPES = {'244': (2, 244, 244), '509': (2, 509, 509),
               '640x368': (2, 640, 368), '1021': (2, 1021, 1021),
               '1031': (1, 1031, 1031), '2048': (1, 2048, 2048),
               '1280': (1, 1280, 1280), '4096': (1, 4096, 4096),
               '16384x16': (1, 16384, 16), '16x16384': (1, 16, 16384),
-              '12289x8': (1, 12289, 8), '2053x64': (1, 2053, 64)}
+              '12289x8': (1, 12289, 8), '2053x64': (1, 2053, 64),
+              '2309x16': (1, 2309, 16), '16x2311': (1, 16, 2311),
+              '4099': (1, 4099, 4099), '18479x4': (1, 18479, 4),
+              '4x18481': (1, 4, 18481), '3500x8': (1, 3500, 8),
+              '8x3510': (1, 8, 3510), '28000x4': (1, 28000, 4),
+              '8x32768': (1, 8, 32768), '64x2311': (1, 64, 2311),
+              '2311x256': (1, 2311, 256), '224x12289': (1, 224, 12289),
+              '256x18479': (1, 256, 18479), '2048x3510': (1, 2048, 3510),
+              '3510x2048': (1, 3510, 2048), '4096x16384': (1, 4096, 16384),
+              '4096x28000': (1, 4096, 28000)}
 
 
 @pytest.mark.parametrize('with_k0', [True, False], ids=['k0', 'no_k0'])
@@ -375,7 +396,8 @@ def test_dc_kernel_large_sides(cuda, shape, with_k0):
                          ids=list(ANY_SHAPES))
 def test_dc_kernel_any_side(cuda, shape, with_k0):
   """K1 against dc_plain and K1-bwd against dc_plain_vjp within 2e-4 on
-  the chirp and split routes, one counted launch each."""
+  the chirp and split routes, in one block, on a cluster and on device
+  stages, at each boundary between them, one counted launch each."""
   b, h, w = shape
   gen = torch.Generator(device=cuda).manual_seed(h + w)
   x = torch.randn(b, h, w, 2, device=cuda, generator=gen)
@@ -395,14 +417,17 @@ def test_dc_kernel_any_side(cuda, shape, with_k0):
   assert (got - want).abs().max().item() <= 2e-4
 
 
-@pytest.mark.parametrize('shape', [(2053, 16), (509, 32), (16, 16384),
-                                   (16, 2048)],
+@pytest.mark.parametrize('shape', [(18481, 4), (509, 32), (8, 32768),
+                                   (16, 2048), (4099, 256), (2048, 3510),
+                                   (4099, 16), (16, 16384)],
                          ids=['chirp-stages', 'chirp-block', 'split-stages',
-                              'split-block'])
+                              'split-block', 'chirp-cluster',
+                              'split-cluster', 'chirp-few-lines',
+                              'split-few-lines'])
 def test_dc_routes_never_reach_torch_fft(cuda, shape, monkeypatch):
   """With ``torch.fft`` patched to raise, K1 and K1-bwd on the chirp and
-  split routes (on device stages and in one block) launch and count: no
-  route falls back to cuFFT."""
+  split routes (in one block, on a cluster and on device stages) launch
+  and count: no route falls back to cuFFT."""
   h, w = shape
   assert set(dc_kernel.dc_route(h, w)) & {'chirp', 'split'}
   gen = torch.Generator(device=cuda).manual_seed(h * w)
@@ -430,17 +455,28 @@ def test_dc_routes_never_reach_torch_fft(cuda, shape, monkeypatch):
                                      ((1024, 1024), 2), ((1024, 1024), 4),
                                      ((1024, 640), 3), ((640, 368), 3),
                                      ((2048, 2048), 2), ((1031, 1031), 3),
-                                     ((2053, 96), 3), ((96, 8192), 2)],
+                                     ((2053, 96), 3), ((96, 8192), 2),
+                                     ((4099, 48), 3), ((48, 4099), 2),
+                                     ((16384, 16), 4), ((18481, 8), 2),
+                                     ((8, 32768), 2), ((4099, 256), 3),
+                                     ((64, 4099), 2), ((3510, 2048), 4),
+                                     ((2048, 8192), 2)],
                          ids=['640-S2', '640-S3', '1024-S2', '1024-S4',
                               '1024x640-S3', '640x368-S3', '2048-S2',
-                              '1031-S3', '2053x96-S3', '96x8192-S2'])
+                              '1031-S3', '2053x96-S3', '96x8192-S2',
+                              '4099x48-S3', '48x4099-S2', '16384x16-S4',
+                              '18481x8-S2', '8x32768-S2', '4099x256-S3',
+                              '64x4099-S2', '3510x2048-S4', '2048x8192-S2'])
 def test_dc_passes_on_large_blocks_equal_the_whole_dc(cuda, shape, s, bwd):
   """The passes on a rank's rows and columns above 512 (the radix route's
   8-column strips at 1024 rows, the mixed-radix route's 4-column strips,
-  uneven blocks at S = 3, the chirp route in one block at 368 and 1031
-  and on device stages at 2053, the split route in one block at 2048 and
-  on device stages at 8192) give the whole-image K1's (K1-bwd's) output
-  bit for bit."""
+  uneven blocks at S = 3, the chirp route in one block at 368, 1031 and
+  2053, on a cluster at 4099 beside 256 columns or 64 rows, on device
+  stages at 18481 and at 4099 beside 48 lines, the split route in one
+  block at 2048, on a cluster at 8192 beside 2048 rows and at 3510 beside
+  2048 columns, on device stages at 32768 and at 16384 and 8192 beside 16
+  and 96 lines) give the
+  whole-image K1's (K1-bwd's) output bit for bit."""
   h, w = shape
   gen = torch.Generator(device=cuda).manual_seed(h + w + s)
   x, k0 = (torch.randn(1, h, w, 2, device=cuda, generator=gen)
@@ -490,7 +526,7 @@ def test_build_flagship_above_512_on_card(cuda, size):
 def test_recnet_train_step_at_1031_on_card(cuda):
   """A RecNet train step of configs/synthetic-recnet.json's model and Adam
   on 1031² slices, B = 2: the DC runs K1 forward and K1-bwd backward
-  through ``_DCFunction`` on the chirp route in one block (m = 4096; 3
+  through ``_DCFunction`` on the chirp route in one block (m = 2112; 3
   launches each), the loss is finite and the parameters move."""
   from csmri_refinement_tpu_torch.ops import undersample as us
   from csmri_refinement_tpu_torch.training.runner import Runner

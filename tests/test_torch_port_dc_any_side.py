@@ -6,18 +6,22 @@ decided on the host and replayed here in complex64, as
 ``tests/test_torch_port_dc_large.py`` replays the sides up to 1024:
 
 * every side from 2 to 16384 has a route (``axis_route``, ``dc_route``):
-  a chirp's length m is a power of two ≥ 2n − 1, a split's radices multiply
-  to n, and every radix of a device stage is a line one block holds with a
-  mixed-radix plan (``split_radices``, ``axis_stages``);
+  a chirp's length m is the 13-smooth m ≥ 2n − 1 one launch a pass holds
+  whose plan costs least (``plan_cost``), a split's radices multiply to n, a line runs in one block, on a
+  cluster or on device stages (``axis_plan``), and every radix of a device
+  stage is a line one block holds with a mixed-radix plan
+  (``split_radices``, ``axis_stages``);
 * Bluestein's chirp (``'chirp'``), from the host tables ``axis_tables``
-  (the chirp, the filter's transform, each stage's twiddles) through the
-  mixed-radix stage functions of ``tests/test_torch_port_dc_mixed.py``
-  and, above m = 4096, the device stages: against ``torch.fft`` within
-  1e-5, forward and inverse, at primes and sides with a prime factor above
-  13 from 17 to 12289;
-* the split route at 1280, 2048, 4096 (a block's line) and 16384, and the
-  device stages (Stockham stages of whole lines, each a block's
-  mixed-radix transform) of all four;
+  (the chirp, the filter's transform, the roots or each stage's
+  twiddles) through the in-place transforms of ``tests/
+  test_torch_port_dc_cluster.py`` and, past a cluster, the device stages
+  on the mixed-radix stage functions of ``tests/
+  test_torch_port_dc_mixed.py``: against ``torch.fft`` within 1e-5,
+  forward and inverse, at primes and sides with a prime factor above 13
+  from 17 to 12289;
+* the split route at 1280, 2048 (a block's line), 4096 and 16384 (a
+  cluster's), and the device stages (Stockham stages of whole lines, each
+  a block's mixed-radix transform) of all four;
 * the whole DC on the kernel's routes against the JAX package's
   ``ops/dc.py::data_consistency`` as it runs on the CPU (``fft.fft2``) and
   on the TPU (``force_gemm``) within 2e-4, and its VJP against ``jax.vjp``
@@ -87,13 +91,15 @@ def _stage_tables(radices):
   return blocks, dev
 
 
-def _split_tables(route, n):
-  """The device stages of an axis and the pieces of its ``axis_tables``:
+def _split_tables(route, n, staged=False):
+  """The device stages of an axis on them (``staged``: an axis a cluster
+  holds, beside too few lines) and the pieces of its ``axis_tables``:
   (radices, [in-block twiddles of each stage], [device twiddles of each
   stage, None for the first], rest: the chirp and filter on the chirp
   route)."""
-  radices = dc_kernel.axis_stages(route, n)
-  table = _c64(dc_kernel.axis_tables(route, n))
+  assert dc_kernel.axis_plan(route, n, staged)[0] == 'stages'
+  radices = dc_kernel.axis_stages(route, n, staged)
+  table = _c64(dc_kernel.axis_tables(route, n, staged))
   off = 0
   head = []
   if route == 'chirp':
@@ -138,14 +144,19 @@ def stages_replay(x, radices, blocks, dev, inverse):
   return np.moveaxis(x, 0, -1)
 
 
-def chirp_replay(x, inverse=False):
+def chirp_replay(x, inverse=False, staged=False):
   """Lines x (..., n) complex64 through the chirp route (no scale): the
   chirped line zero-padded to m, its transform, the product with the
   filter's transform, the inverse transform, the chirp on the way out; the
-  inverse DFT conjugates on the way in and out."""
+  inverse DFT conjugates on the way in and out. In one launch a pass as
+  ``tests/test_torch_port_dc_cluster.py`` replays it, else (or with
+  ``staged``) on the device stages."""
+  from tests.test_torch_port_dc_cluster import one_launch_replay
   x = np.asarray(x, np.complex64)
   n = x.shape[-1]
-  radices, blocks, dev, (c, f) = _split_tables('chirp', n)
+  if dc_kernel.axis_plan('chirp', n, staged)[0] != 'stages':
+    return one_launch_replay(x, 'chirp', inverse)
+  radices, blocks, dev, (c, f) = _split_tables('chirp', n, staged)
   m = f.shape[0]
   a = np.zeros(x.shape[:-1] + (m,), np.complex64)
   a[..., :n] = (np.conj(x) if inverse else x) * np.conj(c)
@@ -154,10 +165,13 @@ def chirp_replay(x, inverse=False):
   return np.conj(y) if inverse else y
 
 
-def split_replay(x, inverse=False):
-  """Lines x (..., n) complex64 through the split route's device stages
-  (no scale)."""
-  radices, blocks, dev, _ = _split_tables('split', x.shape[-1])
+def split_replay(x, inverse=False, staged=False):
+  """Lines x (..., n) complex64 through the split route (no scale): in one
+  launch a pass, or (also with ``staged``) on its device stages."""
+  from tests.test_torch_port_dc_cluster import one_launch_replay
+  if dc_kernel.axis_plan('split', x.shape[-1], staged)[0] != 'stages':
+    return one_launch_replay(x, 'split', inverse)
+  radices, blocks, dev, _ = _split_tables('split', x.shape[-1], staged)
   return stages_replay(x, radices, blocks, dev, inverse)
 
 
@@ -180,8 +194,10 @@ def test_every_side_has_a_route(lo, hi):
   """Every side from 2 to 16384 has a route: the radix and mixed-radix
   routes to 1024 as before, the split route for the longer sides whose
   prime factors are at most 13, for the sides with a larger one dense lines
-  up to ``DENSE_MAX`` and the chirp route above; each device stage's radix
-  is a line one block holds."""
+  up to ``DENSE_MAX`` and the chirp route above. In one launch a pass, the
+  plan's radices multiply to the transform's length, a block's share is at
+  most BLOCK_LINE and the first radix a multiple of the cluster's blocks;
+  on device stages each radix is a line one block holds."""
   for n in range(lo, hi):
     route = dc_kernel.axis_route(n)
     smooth = _largest_prime(n) <= 13
@@ -196,8 +212,15 @@ def test_every_side_has_a_route(lo, hi):
       length = dc_kernel.axis_length(route, n)
       radices = dc_kernel.axis_stages(route, n)
       assert int(np.prod(radices)) == length
-      assert all(dc_kernel.mixed_plan(r) for r in radices)
-      assert max(radices) <= dc_kernel.BLOCK_LINE
+      kind, c, plan = dc_kernel.axis_plan(route, n)
+      if kind == 'stages':
+        assert radices == plan
+        assert all(dc_kernel.mixed_plan(r) for r in radices)
+        assert max(radices) <= dc_kernel.STAGE_LINE
+      else:
+        assert int(np.prod(plan)) == length and plan[0] % c == 0
+        assert length // c <= dc_kernel.BLOCK_LINE
+        assert len(plan) <= dc_kernel.BLOCK_MAX_STAGES + (c > 1)
 
 
 def test_side_one_and_below_have_no_route():
@@ -207,15 +230,36 @@ def test_side_one_and_below_have_no_route():
 
 @pytest.mark.parametrize('n', CHIRP_SIDES + [65537, 2 ** 20 + 7])
 def test_chirp_length_covers_the_linear_convolution(n):
-  """m is the least power of two ≥ 2n − 1; up to n = 2048 the whole
-  convolution is one block's line (m ≤ 4096), above it runs on device
-  stages."""
+  """m ≥ 2n − 1 has prime factors of at most 13. Where one launch a pass
+  holds such an m, m is the one from 2n − 1 to twice that whose plan costs
+  least (``plan_cost``) of those the least such m's launch (one block or a
+  cluster) holds; else m is the least with device stages (no smaller such
+  m has a line plan). Up to n = 2309 (m ≤ 4628 = BLOCK_LINE) the whole
+  convolution is one block's line, up to 18479 a cluster's (m ≤
+  8·BLOCK_LINE), above it runs on device stages."""
   m = dc_kernel.chirp_length(n)
-  assert m >= 2 * n - 1 and m & (m - 1) == 0 and m // 2 < 2 * n - 1
+  lo = 2 * n - 1
+  assert m >= lo and _largest_prime(m) <= 13
+  kind, c, plan = dc_kernel.axis_plan('chirp', n)
+  assert int(np.prod(plan)) == m
+  if kind == 'stages':
+    for smaller in range(lo, min(m, 2 * n + 400)):
+      if _largest_prime(smaller) <= 13:
+        assert dc_kernel.line_plan(smaller, n) is None
+  else:
+    least = next(k for k in range(lo, m + 1) if _largest_prime(k) <= 13
+                 and dc_kernel.line_plan(k, n))
+    assert (dc_kernel.line_plan(least, n)[0] == 1) == (kind == 'block')
+    cost = dc_kernel.plan_cost(m, plan, c)
+    for other in range(lo, min(2 * lo, 8 * dc_kernel.BLOCK_LINE) + 1):
+      held = _largest_prime(other) <= 13 and dc_kernel.line_plan(other, n)
+      if held and (held[0] == 1) == (kind == 'block'):
+        assert dc_kernel.plan_cost(other, held[1], held[0]) >= cost, other
+  assert kind == ('block' if n <= 2309 else 'cluster' if n <= 18479
+                  else 'stages')
+  assert (kind == 'block') == (m <= dc_kernel.BLOCK_LINE)
   radices = dc_kernel.axis_stages('chirp', n)
-  assert int(np.prod(radices)) == m
-  assert (len(radices) == 1) == (n <= 2048)
-  assert (len(radices) == 1) == (m <= dc_kernel.BLOCK_LINE)
+  assert (len(radices) == 1) == (kind != 'stages')
 
 
 @pytest.mark.parametrize('n,want', [(1280, (32, 40)), (2048, (32, 64)),
@@ -225,22 +269,31 @@ def test_chirp_length_covers_the_linear_convolution(n):
                                     (2 ** 25, (128, 512, 512))])
 def test_split_factors_multiply_to_the_side(n, want):
   """Device stages' radices multiply to n, each a side of at most
-  BLOCK_LINE with a mixed-radix plan the kernel checks (its plan code), as
-  few and as even as the side allows; a side one block holds (up to
-  BLOCK_LINE) launches as one stage, a longer one on its radices."""
+  STAGE_LINE with a mixed-radix plan the kernel checks (its plan code), as
+  few and as even as the side allows; a side one block or a cluster holds
+  launches as one stage (its host array [1, C, S, radices...]), a longer
+  one on its radices."""
   radices = dc_kernel.split_radices(n)
   assert radices == want
   assert int(np.prod(radices)) == n
   stages = dc_kernel.axis_stages('split', n)
-  assert stages == ((n,) if n <= dc_kernel.BLOCK_LINE else radices)
+  kind, c, line = dc_kernel.axis_plan('split', n)
+  assert stages == ((n,) if kind != 'stages' else radices)
+  assert kind == ('block' if n <= 3500 else 'cluster' if n <= 28000
+                  else 'stages')
   route, plan, codes = dc_kernel._plan_args('split', n)
   assert (route, plan) == (4, n)
+  if kind == 'stages':
+    want_codes = [len(stages)] + [
+        v for r in stages for v in (r, dc_kernel._code(dc_kernel.mixed_plan(
+            r)))]
+  else:
+    want_codes = [1, c, len(line)] + list(line)
   codes = np.ctypeslib.as_array(
-      (dc_kernel.ctypes.c_uint64 * (1 + 2 * len(stages))).from_address(
+      (dc_kernel.ctypes.c_uint64 * len(want_codes)).from_address(
           codes.value))
-  assert list(codes) == [len(stages)] + [
-      v for r in stages for v in (r, dc_kernel._code(dc_kernel.mixed_plan(r)))]
-  for r in radices + stages:
+  assert list(codes) == want_codes
+  for r in radices:
     plan = dc_kernel.mixed_plan(r)
     assert int(np.prod(plan)) == r and set(plan) <= set(dc_kernel.MIXED_RADICES)
     assert len(plan) <= dc_kernel.MIXED_MAX_STAGES
@@ -334,8 +387,9 @@ def jax_lowering(request):
 
 DC_SHAPES = {'1031x16': (1031, 16), '16x2048': (16, 2048),
              '640x368': (640, 368), '368x640': (368, 640)}
-# Axes on device stages: H's chirp (m = 8192 = 64·128), W's split
-STAGE_SHAPES = {'2053x8': (2053, 8), '8x8192': (8, 8192)}
+# Axes on device stages, past a cluster: H's chirp (m = 37044 = 189·196),
+# W's split (32768 = 128·256)
+STAGE_SHAPES = {'18481x4': (18481, 4), '8x32768': (8, 32768)}
 
 
 def _jax_dc_matches(h, w):
@@ -347,9 +401,9 @@ def _jax_dc_matches(h, w):
 
 @pytest.mark.parametrize('h,w', list(DC_SHAPES.values()), ids=list(DC_SHAPES))
 def test_dc_replay_matches_jax_data_consistency(h, w, jax_lowering):
-  """H on the chirp route in one block (1031: m = 4096) and W on the split
+  """H on the chirp route in one block (1031: m = 2112) and W on the split
   route in one block (2048), fastMRI's knee k-space both ways (368 on the
-  chirp route, m = 1024)."""
+  chirp route, m = 792)."""
   assert 'chirp' in dc_kernel.dc_route(h, w) or \
       'split' in dc_kernel.dc_route(h, w)
   _jax_dc_matches(h, w)
@@ -358,8 +412,9 @@ def test_dc_replay_matches_jax_data_consistency(h, w, jax_lowering):
 @pytest.mark.parametrize('h,w', list(STAGE_SHAPES.values()),
                          ids=list(STAGE_SHAPES))
 def test_dc_replay_on_device_stages_matches_jax(h, w):
-  """The chirp and split routes on device stages, past the sides JAX's
-  GEMM lowering is held at: against ``fft.fft2``'s DC within 2e-4."""
+  """The chirp and split routes on device stages, past the lines a cluster
+  holds and the sides JAX's GEMM lowering is held at: against
+  ``fft.fft2``'s DC within 2e-4."""
   assert max(len(dc_kernel.axis_stages(r, n)) for r, n in zip(
       dc_kernel.dc_route(h, w), (h, w)) if r in ('chirp', 'split')) == 2
   _jax_dc_matches(h, w)
@@ -403,9 +458,12 @@ def test_every_rank_column_block_takes_its_route(h, w, s):
 
 def test_work_buffers_of_the_device_stages():
   """Passes on device stages take two buffers of the transform's length a
-  line (``work_elems``); a block's line and the tile routes none."""
-  assert dc_kernel.work_elems('split', 16384, 10) == 2 * 10 * 16384
-  assert dc_kernel.work_elems('chirp', 2053, 3) == 2 * 3 * 8192
+  line (``work_elems``); a block's line, a cluster's and the tile routes
+  none."""
+  assert dc_kernel.work_elems('split', 32768, 10) == 2 * 10 * 32768
+  assert dc_kernel.work_elems('chirp', 18481, 3) == 2 * 3 * 37044
+  assert dc_kernel.work_elems('split', 16384, 3) == 0
+  assert dc_kernel.work_elems('chirp', 2053, 3) == 0
   assert dc_kernel.work_elems('split', 4096, 3) == 0
   assert dc_kernel.work_elems('chirp', 1031, 3) == 0
   assert dc_kernel.work_elems('mixed', 240, 3) == 0
