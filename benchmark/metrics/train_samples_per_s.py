@@ -1,0 +1,6 @@
+"""Samples of the train steps completed in the window over the window's
+seconds."""
+
+
+def read(run):
+  return run.record.units / run.record.window_s
