@@ -37,6 +37,7 @@ from torch import nn
 from csmri_refinement_tpu_torch.models import weight_inits
 from csmri_refinement_tpu_torch.models.layers import leaky_relu, same_conv
 from csmri_refinement_tpu_torch.ops import dc as dc_ops
+from csmri_refinement_tpu_torch.utils import profiling
 
 DEFAULT_RELU_LEAKINESS = 0.01
 
@@ -65,15 +66,17 @@ class ConvBlock(nn.Module):
     return [getattr(self, 'conv_{}'.format(i)) for i in range(self.num_convs)]
 
   def forward(self, x):
-    """x: (B, H, W, C) → (B, H, W, num_outputs) in the compute dtype."""
-    dt = self.dtype or x.dtype
-    h = x.to(dt).permute(0, 3, 1, 2)
-    for i, conv in enumerate(self.convs()):
-      h = same_conv(h, conv.weight.to(dt), conv.bias.to(dt), self.padding,
-                    dilation=self.dilations[i])
-      if i < self.num_convs - 1 or self.final_act:
-        h = leaky_relu(h, self.relu_leakiness)
-    return h.permute(0, 2, 3, 1)
+    """x: (B, H, W, C) → (B, H, W, num_outputs) in the compute dtype; in
+    the span ``csmri.recnet.block``."""
+    with profiling.span('csmri.recnet.block'):
+      dt = self.dtype or x.dtype
+      h = x.to(dt).permute(0, 3, 1, 2)
+      for i, conv in enumerate(self.convs()):
+        h = same_conv(h, conv.weight.to(dt), conv.bias.to(dt), self.padding,
+                      dilation=self.dilations[i])
+        if i < self.num_convs - 1 or self.final_act:
+          h = leaky_relu(h, self.relu_leakiness)
+      return h.permute(0, 2, 3, 1)
 
 
 class RecNet(nn.Module):

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from csmri_refinement_tpu_torch.parallel import halo
+from csmri_refinement_tpu_torch.utils import profiling
 
 MODES = ('add', 'real-penalty-add')
 INPUT_MODES = ('input', 'output', 'concat')
@@ -111,27 +112,28 @@ class RefinementWrapper(nn.Module):
     return torch.cat([inp, out_pretrained], dim=-1)
 
   def forward(self, inp, *extra_inputs):
-    if self.freeze_pretrained_model:
-      inp = inp.detach()
-    with torch.no_grad() if self.freeze_pretrained_model else \
-        contextlib.nullcontext():
-      out_pretrained = self.pretrained_model(inp, *extra_inputs)
-    if isinstance(out_pretrained, dict):
-      out_pretrained = out_pretrained['pred']
+    with profiling.span('csmri.refinement'):
+      if self.freeze_pretrained_model:
+        inp = inp.detach()
+      with torch.no_grad() if self.freeze_pretrained_model else \
+          contextlib.nullcontext():
+        out_pretrained = self.pretrained_model(inp, *extra_inputs)
+      if isinstance(out_pretrained, dict):
+        out_pretrained = out_pretrained['pred']
 
-    learn_input = self._learnable_input(inp, out_pretrained)
-    out_learnable = self.learnable_model(learn_input)
-    if self.mode == 'add':
-      return out_pretrained + out_learnable
+      learn_input = self._learnable_input(inp, out_pretrained)
+      out_learnable = self.learnable_model(learn_input)
+      if self.mode == 'add':
+        return out_pretrained + out_learnable
 
-    pretrained_real_scaled, minimum, maximum = _scale(
-        out_pretrained[..., 0:1])
-    out_learnable_scaled = self.scale * out_learnable
-    out_real = _unscale(pretrained_real_scaled + out_learnable_scaled,
-                        minimum, maximum)
-    return {
-        'pred': torch.cat([out_real, out_pretrained[..., 1:2]], dim=-1),
-        'pretrained': out_pretrained,
-        'prescaled_refinement': out_learnable,
-        'scaled_refinement': out_learnable_scaled,
-    }
+      pretrained_real_scaled, minimum, maximum = _scale(
+          out_pretrained[..., 0:1])
+      out_learnable_scaled = self.scale * out_learnable
+      out_real = _unscale(pretrained_real_scaled + out_learnable_scaled,
+                          minimum, maximum)
+      return {
+          'pred': torch.cat([out_real, out_pretrained[..., 1:2]], dim=-1),
+          'pretrained': out_pretrained,
+          'prescaled_refinement': out_learnable,
+          'scaled_refinement': out_learnable_scaled,
+      }

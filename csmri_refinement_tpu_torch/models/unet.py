@@ -88,6 +88,7 @@ from csmri_refinement_tpu_torch.models.layers import (
 from csmri_refinement_tpu_torch.ops import conv_chain
 from csmri_refinement_tpu_torch.ops import quantize
 from csmri_refinement_tpu_torch.parallel import halo
+from csmri_refinement_tpu_torch.utils import profiling
 
 DEFAULT_RELU_LEAKINESS = 0.1
 UPSAMPLING_MODES = ('transposed', 'nn', 'bilinear', 'pixelshuffle',
@@ -232,58 +233,62 @@ class SubpixelNNResizeConv(nn.Conv2d):
                          persistent=False)
 
   def phase_weight(self, dtype):
-    """(4·Cout, Cin, 3, 3) phase kernels, summed in f32 (or wider)."""
-    weight = self.weight.to(torch.promote_types(self.weight.dtype,
-                                                torch.float32))
-    taps = self.taps.to(weight.dtype)
-    ksub = torch.einsum('yat,xbu,oitu->yxoiab', taps, taps, weight)
-    cout, cin = self.weight.shape[:2]
-    return ksub.reshape(4 * cout, cin, 3, 3).to(dtype)
+    """(4·Cout, Cin, 3, 3) phase kernels, summed in f32 (or wider); in
+    the span ``csmri.unet.prepare``."""
+    with profiling.span('csmri.unet.prepare'):
+      weight = self.weight.to(torch.promote_types(self.weight.dtype,
+                                                  torch.float32))
+      taps = self.taps.to(weight.dtype)
+      ksub = torch.einsum('yat,xbu,oitu->yxoiab', taps, taps, weight)
+      cout, cin = self.weight.shape[:2]
+      return ksub.reshape(4 * cout, cin, 3, 3).to(dtype)
 
   def forward(self, x, rows=None):
     """x: NCHW (B, Cin, H, W) → NHWC (B, 2H, 2W, Cout), in x's dtype;
-    under a spatial mesh the rank's rows of a map of layout ``rows``."""
-    dt = x.dtype
-    bias = None if self.bias is None else self.bias.to(dt)
-    low_pad = 'zero' if self.pad_mode == 'zero' else 'replication'
-    tile = same_pad(x, 3, low_pad, rows=rows)
-    phase_bias = None if bias is None else bias.repeat(4)
-    if x.shape[2]:
-      y4 = F.conv2d(tile, self.phase_weight(dt), phase_bias)
-    else:
-      y4 = halo.no_rows((x.shape[0], 4 * self.out_channels, 0, x.shape[3]),
-                        tile, self.weight, self.bias)
-    b, c4, h, w = y4.shape
-    cout = c4 // 4
-    y = _nhwc(y4).reshape(b, h, w, 2, 2, cout).permute(0, 1, 3, 2, 4, 5) \
-        .reshape(b, 2 * h, 2 * w, cout)
-    if self.pad_mode == 'reflection':
-      weight = self.weight.to(dt)
-      mesh = halo.current()
-      tail, fetched = x[:, :, -2:], False
-      if mesh is not None:     # the rank holding the image's last row
-        rows = rows or halo.equal_rows(x, mesh, 2)
-        last = max(r for r in range(mesh.spatial) if rows.count(r))
-        if rows.count(last) < 2:
-          tail, fetched = halo.fetch(x, mesh, rows, tuple(
-              (rows.height - 2, rows.height) if r == last else None
-              for r in range(mesh.spatial))), True
-      if mesh is None or mesh.s == last:
-        # Rows 2H-4..2H-1 of the upsampled image, padded inside the slab
-        # (which holds every row the reflection reaches): output row 2H-1.
-        row = local_pad(_nearest_up2(tail), (1, 2, 0, 2), 'reflect')
-        y[:, -1:] = _nhwc(F.conv2d(row, weight, bias)[:, :, 2:3])
-      elif fetched:
-        # an empty fetch of the rows the last rank lacked: every rank runs
-        # its backward's exchange
-        y = y + tail.sum() * 0
-      col = pad(_nearest_up2(x[:, :, :, -2:]), (0, 2, 1, 2), 'reflect',
-                None if rows is None else rows.up2())
-      if y.shape[1]:
-        y[:, :, -1:] = _nhwc(F.conv2d(col, weight, bias)[:, :, :, 2:3])
+    under a spatial mesh the rank's rows of a map of layout ``rows``. In
+    the span ``csmri.unet.upconv``."""
+    with profiling.span('csmri.unet.upconv'):
+      dt = x.dtype
+      bias = None if self.bias is None else self.bias.to(dt)
+      low_pad = 'zero' if self.pad_mode == 'zero' else 'replication'
+      tile = same_pad(x, 3, low_pad, rows=rows)
+      phase_bias = None if bias is None else bias.repeat(4)
+      if x.shape[2]:
+        y4 = F.conv2d(tile, self.phase_weight(dt), phase_bias)
       else:
-        y = y + col.sum() * 0
-    return y
+        y4 = halo.no_rows((x.shape[0], 4 * self.out_channels, 0, x.shape[3]),
+                          tile, self.weight, self.bias)
+      b, c4, h, w = y4.shape
+      cout = c4 // 4
+      y = _nhwc(y4).reshape(b, h, w, 2, 2, cout).permute(0, 1, 3, 2, 4, 5) \
+          .reshape(b, 2 * h, 2 * w, cout)
+      if self.pad_mode == 'reflection':
+        weight = self.weight.to(dt)
+        mesh = halo.current()
+        tail, fetched = x[:, :, -2:], False
+        if mesh is not None:     # the rank holding the image's last row
+          rows = rows or halo.equal_rows(x, mesh, 2)
+          last = max(r for r in range(mesh.spatial) if rows.count(r))
+          if rows.count(last) < 2:
+            tail, fetched = halo.fetch(x, mesh, rows, tuple(
+                (rows.height - 2, rows.height) if r == last else None
+                for r in range(mesh.spatial))), True
+        if mesh is None or mesh.s == last:
+          # Rows 2H-4..2H-1 of the upsampled image, padded inside the slab
+          # (which holds every row the reflection reaches): output row 2H-1.
+          row = local_pad(_nearest_up2(tail), (1, 2, 0, 2), 'reflect')
+          y[:, -1:] = _nhwc(F.conv2d(row, weight, bias)[:, :, 2:3])
+        elif fetched:
+          # an empty fetch of the rows the last rank lacked: every rank runs
+          # its backward's exchange
+          y = y + tail.sum() * 0
+        col = pad(_nearest_up2(x[:, :, :, -2:]), (0, 2, 1, 2), 'reflect',
+                  None if rows is None else rows.up2())
+        if y.shape[1]:
+          y[:, :, -1:] = _nhwc(F.conv2d(col, weight, bias)[:, :, :, 2:3])
+        else:
+          y = y + col.sum() * 0
+      return y
 
 
 def _pad_to_target(x, target, rows=None, target_rows=None):
@@ -334,18 +339,19 @@ class ConvEncodeUnit(nn.Module):
 
   def chain_layers(self):
     """The unit's convs as ``ChainLayer``s, eval-mode BN folded into the
-    weights and bias in f32."""
-    chain = []
-    for i in range(self.num_layers):
-      conv, bn = self._layer(i)
-      kernel = conv.weight.float().permute(2, 3, 1, 0)    # OIHW → HWIO
-      bias = None if conv.bias is None else conv.bias.float()
-      if bn is not None:
-        s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + 1e-5)
-        kernel = kernel * s
-        bias = bn.bias.float() - bn.running_mean.float() * s
-      chain.append(conv_chain.ChainLayer(kernel, bias, self.leak))
-    return chain
+    weights and bias in f32; in the span ``csmri.unet.prepare``."""
+    with profiling.span('csmri.unet.prepare'):
+      chain = []
+      for i in range(self.num_layers):
+        conv, bn = self._layer(i)
+        kernel = conv.weight.float().permute(2, 3, 1, 0)    # OIHW → HWIO
+        bias = None if conv.bias is None else conv.bias.float()
+        if bn is not None:
+          s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + 1e-5)
+          kernel = kernel * s
+          bias = bn.bias.float() - bn.running_mean.float() * s
+        chain.append(conv_chain.ChainLayer(kernel, bias, self.leak))
+      return chain
 
   def _fused_chain(self, x, rows=None):
     """Eval-mode chain through the conv kernel (``ops/conv_chain.py``),

@@ -80,6 +80,7 @@ import torch.nn.functional as F
 
 from csmri_refinement_tpu_torch.models import layers
 from csmri_refinement_tpu_torch.ops import native
+from csmri_refinement_tpu_torch.utils import profiling
 
 PAD_MODES = {'zero': 0, 'reflection': 1, 'replication': 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -269,18 +270,17 @@ def conv_layer_f32_cuda(x, layer, pad_mode='reflection'):
                                        'conv_layer_f32_cuda')
   if x.data_ptr() % 16:          # the kernel reads 16 bytes at a time
     x = x.clone()
-  kernel, bias = pad_cout(layer.kernel.to(x.device), layer.bias)
+  with profiling.span('csmri.unet.prepare'):
+    kernel, bias = pad_cout(layer.kernel.to(x.device), layer.bias)
+    kernel = kernel.float().contiguous() if cin < 8 else \
+        pack_weights_f32(kernel)
   # The kernel counts tiles, positions and channel offsets within an image
   # in int32 and offsets whole images in size_t.
   if h * w * max(cin, bias.shape[0]) >= 2 ** 31:
     raise ValueError('conv_layer_f32_cuda: a {}x{} image with {} channels '
                      'is over the int32 index range'.format(
                          h, w, max(cin, bias.shape[0])))
-  if cin < 8:
-    kernel, kp = kernel.float().contiguous(), 0
-  else:
-    kernel = pack_weights_f32(kernel)
-    kp = kernel.shape[1]
+  kp = 0 if cin < 8 else kernel.shape[1]
   if kernel.data_ptr() % 16:
     kernel = kernel.clone()
   cout_pad = bias.shape[0]
@@ -313,8 +313,9 @@ def conv_layer_cuda(x, layer, pad_mode='reflection'):
                                         'conv_layer_cuda')
   if x.data_ptr() % 16:          # the kernel reads 16 bytes at a time
     x = x.clone()
-  kernel, bias = pad_cout(layer.kernel.to(x.device), layer.bias)
-  kernel = pack_weights(kernel)
+  with profiling.span('csmri.unet.prepare'):
+    kernel, bias = pad_cout(layer.kernel.to(x.device), layer.bias)
+    kernel = pack_weights(kernel)
   kp = kernel.shape[1]
   if kernel.data_ptr() % 16:
     kernel = kernel.clone()

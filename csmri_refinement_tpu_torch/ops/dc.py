@@ -40,6 +40,7 @@ from csmri_refinement_tpu_torch.ops import dc_kernel
 from csmri_refinement_tpu_torch.ops import fft
 from csmri_refinement_tpu_torch.ops.dc_kernel import kspace_merge_reference
 from csmri_refinement_tpu_torch.parallel import halo
+from csmri_refinement_tpu_torch.utils import profiling
 
 __all__ = ['data_consistency', 'data_consistency_complex',
            'data_consistency_np', 'kspace_merge_reference',
@@ -69,16 +70,29 @@ def data_consistency(x, k0, mask, noise_lvl=None):
     ``torch.fft`` composition)
 
   Returns the (B, H, W, 2) float32 image with sampled k-space restored.
+  Runs in the span ``csmri.dc.<route of H>.<route of W>`` of the whole
+  image (``dc_kernel.span_name``), ``csmri.dc.noisy`` with a
+  ``noise_lvl``.
   """
-  f32 = lambda t: t.to(torch.float32).contiguous()
-  mesh = halo.current()
+  with profiling.span(_span, x, k0, noise_lvl):
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    mesh = halo.current()
+    if noise_lvl is not None:
+      if mesh is None:
+        return _dc_composed(f32(x), k0, mask, noise_lvl)
+      return dc_kernel.dc_distributed_noisy(f32(x), k0, mask, noise_lvl,
+                                            mesh)
+    if mesh is not None:
+      return dc_kernel.dc_distributed(f32(x), f32(k0), f32(mask), mesh)
+    return dc_kernel.dc_fused(f32(x), f32(k0), f32(mask))
+
+
+def _span(x, k0, noise_lvl):
+  """The DC's span name; k0 holds the whole image's rows, on a spatial
+  mesh too, and x all its columns."""
   if noise_lvl is not None:
-    if mesh is None:
-      return _dc_composed(f32(x), k0, mask, noise_lvl)
-    return dc_kernel.dc_distributed_noisy(f32(x), k0, mask, noise_lvl, mesh)
-  if mesh is not None:
-    return dc_kernel.dc_distributed(f32(x), f32(k0), f32(mask), mesh)
-  return dc_kernel.dc_fused(f32(x), f32(k0), f32(mask))
+    return 'csmri.dc.noisy'
+  return dc_kernel.span_name('dc', x.device.type, k0.shape[1], x.shape[2])
 
 
 def _dc_composed(x, k0, mask, noise_lvl):

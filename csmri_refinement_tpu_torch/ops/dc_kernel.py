@@ -88,6 +88,7 @@ from csmri_refinement_tpu_torch.ops import fft
 from csmri_refinement_tpu_torch.ops import native
 from csmri_refinement_tpu_torch.parallel import halo
 from csmri_refinement_tpu_torch.parallel import mesh as mesh_lib
+from csmri_refinement_tpu_torch.utils import profiling
 
 # The longest line of the radix, mixed-radix and dense routes' tiles
 # (``csrc/dc.cu``'s ``kTileLine``).
@@ -624,6 +625,21 @@ def dc_route(h, w):
   return route_h, route_w
 
 
+@functools.lru_cache(maxsize=None)
+def span_name(kind, device_type, h, w):
+  """The name of a DC's span (``kind`` 'dc') or of its backward's
+  ('dc_bwd') on an H×W image: ``csmri.<kind>.<route of H>.<route of W>``
+  (``dc_route``) on the card, ``csmri.<kind>.plain`` elsewhere, where the
+  plain version runs. Made once a shape."""
+  if device_type != 'cuda':
+    return 'csmri.{}.plain'.format(kind)
+  return '.'.join(('csmri', kind) + (dc_route(h, w) or ('none',)))
+
+
+def _bwd_span(g):
+  return span_name('dc_bwd', g.device.type, g.shape[1], g.shape[2])
+
+
 _ROUTE_CODES = {'fft': 0, 'mixed': 1, 'dft': 2, 'chirp': 3, 'split': 4}
 
 
@@ -783,16 +799,17 @@ class _DCFunction(torch.autograd.Function):
 
   @staticmethod
   def backward(ctx, g):
-    mask, = ctx.saved_tensors
-    need_x, need_k0 = ctx.needs_input_grad[:2]
-    g = g.float().contiguous()
-    if g.device.type == 'cpu':
-      grad_x, grad_k0 = dc_plain_vjp(g, mask, need_k0)
-      return grad_x if need_x else None, grad_k0, None
-    grad_x = dc_bwd_cuda(g, mask) if need_x else None
-    grad_k0 = fft.pack_complex(fft.fft2(fft.unpack_complex(g))) \
-        if need_k0 else None
-    return grad_x, grad_k0, None
+    with profiling.span(_bwd_span, g):
+      mask, = ctx.saved_tensors
+      need_x, need_k0 = ctx.needs_input_grad[:2]
+      g = g.float().contiguous()
+      if g.device.type == 'cpu':
+        grad_x, grad_k0 = dc_plain_vjp(g, mask, need_k0)
+        return grad_x if need_x else None, grad_k0, None
+      grad_x = dc_bwd_cuda(g, mask) if need_x else None
+      grad_k0 = fft.pack_complex(fft.fft2(fft.unpack_complex(g))) \
+          if need_k0 else None
+      return grad_x, grad_k0, None
 
 
 @torch.library.custom_op('csmri::dc', mutates_args=(), device_types='cpu')

@@ -81,14 +81,27 @@ def card_line():
       capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
 
+def device_events(prof):
+  """The ``key_averages()`` entries of the device's own operations
+  (kernels, copies, sets), the most device time first.
+
+  An op's entry repeats its kernels' time, and so does the device-side
+  entry of each ``record_function`` range (``csmri.*`` spans, which the
+  port opens while a profiler records): such an entry's device time is
+  its whole span on the device's timeline, so it is left out, as
+  torch's own table leaves it out of its device sum."""
+  events = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)]
+  events.sort(key=lambda e: -e.self_device_time_total)
+  return events
+
+
 def report(prof, wall_ms, n, title, unit):
   """Print wall and device-busy ms per ``unit``, the idle share and the
   kernels with the most device time, from a ``torch.profiler`` trace of
   ``n`` units."""
-  # kernel-level entries only: an op's own entry repeats its kernels' time
-  events = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-  events.sort(key=lambda e: -e.self_device_time_total)
+  events = device_events(prof)
   device_ms = sum(e.self_device_time_total for e in events) / 1e3
   print('{}: wall {:.3f} ms per {} (traced), device busy {:.3f} ms per {}, '
         'idle share {:.1%}'.format(title, wall_ms / n, unit, device_ms / n,

@@ -67,6 +67,7 @@ from csmri_refinement_tpu_torch.utils.checkpoints import (
     load_network_state, load_optimizer_state)
 from csmri_refinement_tpu_torch.utils.config import Configuration
 from csmri_refinement_tpu_torch.utils.precision import full_f32
+from csmri_refinement_tpu_torch.utils import profiling
 
 
 def _loss_metrics(updates, mesh=None):
@@ -141,21 +142,25 @@ class Runner(BaseRunner):
       return self._train_batch(batch)
 
   def _train_batch(self, batch):
-    self.model.train()
-    inputs = self._model_inputs(batch)
-    out = cast_outputs_f32(remat.checkpoint(self.model, *inputs)
-                           if self.train_remat else self.model(*inputs))
-    losses = {name: crit(out, batch) for name, crit in self.criteria.items()}
-    total = sum(self.loss_weights[name] * loss
-                for name, loss in losses.items())
-    self.optimizer.zero_grad(set_to_none=True)
-    total.backward()
-    mesh_lib.average_gradients(self.model.parameters(), self.mesh)
-    self.optimizer.step()
-    self.step += 1
-    losses = {name: loss.detach() for name, loss in losses.items()}
-    losses['loss'] = total.detach()
-    return losses, detach(out)
+    with profiling.span('csmri.train.step'):
+      self.model.train()
+      inputs = self._model_inputs(batch)
+      out = cast_outputs_f32(remat.checkpoint(self.model, *inputs)
+                             if self.train_remat else self.model(*inputs))
+      losses = {name: crit(out, batch)
+                for name, crit in self.criteria.items()}
+      total = sum(self.loss_weights[name] * loss
+                  for name, loss in losses.items())
+      self.optimizer.zero_grad(set_to_none=True)
+      with profiling.span('csmri.train.backward'):
+        total.backward()
+      mesh_lib.average_gradients(self.model.parameters(), self.mesh)
+      with profiling.span('csmri.train.optimizer'):
+        self.optimizer.step()
+      self.step += 1
+      losses = {name: loss.detach() for name, loss in losses.items()}
+      losses['loss'] = total.detach()
+      return losses, detach(out)
 
   def _mask_generator(self):
     return torch.Generator(device=self.device).manual_seed(
